@@ -157,15 +157,15 @@ def serve_phase(label, cfg, data, dev, groups, expect_per_batch,
     from mpgcn_tpu_torch.service.serve import KERNELS, ServeEngine
     from mpgcn_tpu_torch.train.predict import graphs_for, rollout
 
-    # no checkpoint is promoted under this service root, so the engine
-    # serves its fresh seeded init; the 100 ms window coalesces each group
-    # of concurrent submits into one batch, so every bucket dispatches
-    scfg = ServeConfig(output_dir=os.path.join(HERE, "service"),
-                       max_wait_ms=100.0, deadline_ms=0.0)
+    # fresh seeded weights; the 100 ms window coalesces each group of
+    # concurrent submits into one batch, so every bucket dispatches
+    scfg = ServeConfig(max_wait_ms=100.0, deadline_ms=0.0)
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, data, scfg, device=dev, allow_fresh=True)
     print(f"[serve:{label}] engine up in {time.perf_counter() - t0:.1f}s "
           f"(params: {eng.params_source})", flush=True)
+    require(eng.params_source.startswith("fresh init"),
+            f"expected a fresh seeded init, got {eng.params_source}")
     md = eng.pipeline.modes["test"]
     n_req = sum(groups)
     require(len(md) >= n_req, f"only {len(md)} test windows")
@@ -305,9 +305,11 @@ def phase_times(dev, eng, kin):
         h1, g, wr = kin[key]
         K, B, M, N, C = h1.shape
         Hh = wr.shape[-1]
+        # least work: project first, Y_d = sum_o h1[o] Wr[o,d] (K^2 C H per
+        # (b,m,c)), then contract, out = sum_d G_d^T Y_d (K N H per (b,m,e))
         b_ms, b_by = bound(
             4 * (h1.numel() + g.numel() + wr.numel() + B * M * N * Hh),
-            2 * K * K * B * M * (N * N * C + N * C * Hh))
+            2 * B * M * N * (K * K * C * Hh + K * N * Hh))
         gl = g[0] if key == "bdgcn" else g
         entry = dict(
             ms=time_ms(lambda: cuda_bdgcn.folded_pair_project(h1, g, wr)),

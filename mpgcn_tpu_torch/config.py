@@ -110,8 +110,6 @@ class ServeConfig:
     """Serving knobs (service/serve.py): the request path's batching and
     shedding shape and the per-request deadline budget."""
 
-    #: service root: promoted/<model>_od.pkl is the default checkpoint slot
-    output_dir: str = "./service"
     buckets: tuple = (1, 2, 4, 8)  #: padded batch shapes; requests coalesce
     #:                                into the smallest bucket that fits
     horizons: tuple = ()        #: forecast horizons served; () = the model

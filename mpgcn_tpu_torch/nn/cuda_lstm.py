@@ -102,8 +102,8 @@ def lstm_last_step_fused(layers, x: torch.Tensor,
     ``lstm_last_step_fused(..., inference=True)``). Every layer but the
     last streams h_t (collect); the last writes h_T only. ``layers`` is a
     sequence of objects with ``w_ih``, ``w_hh``, ``b_ih``, ``b_hh``;
-    ``layer_fn`` runs one layer (the kernel wrapper, or the plain
-    version for nn/lstm.py's ``lstm_last_step``)."""
+    ``layer_fn`` runs one layer (the kernel wrapper, or
+    ``lstm_layer_infer_plain`` for the plain arm)."""
     # (T, R, F) view, so every projection comes out time-major (T, R, 4H)
     seq_t = x.transpose(0, 1)
     h = None

@@ -3,8 +3,8 @@
 
 Weights per layer in torch layout, gate order i, f, g, o:
   w_ih (4H, F)   w_hh (4H, H)   b_ih (4H,)   b_hh (4H,)
-``lstm_last_step`` is the plain version of the whole stack;
-``cuda_lstm.lstm_last_step_fused`` runs the same stack through K-LSTM.
+``cuda_lstm.lstm_last_step_fused`` runs the stack, one layer at a time
+through K-LSTM or its plain version.
 """
 
 from __future__ import annotations
@@ -12,10 +12,6 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from mpgcn_tpu_torch.nn.cuda_lstm import (
-    lstm_last_step_fused,
-    lstm_layer_infer_plain,
-)
 from mpgcn_tpu_torch.nn.init import lstm_uniform
 
 
@@ -40,7 +36,3 @@ class LSTM(nn.Module):
                       generator)
             for i in range(num_layers))
 
-
-def lstm_last_step(layers, x: torch.Tensor) -> torch.Tensor:
-    """Plain stacked LSTM, last hidden state only: (R, T, F) -> (R, H)."""
-    return lstm_last_step_fused(layers, x, layer_fn=lstm_layer_infer_plain)

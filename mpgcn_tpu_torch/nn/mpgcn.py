@@ -17,11 +17,16 @@ from torch import nn
 from mpgcn_tpu_torch.config import DEFAULT_LINEUPS, MPGCNConfig
 from mpgcn_tpu_torch.device import resolve_device
 from mpgcn_tpu_torch.nn.bdgcn import BDGCN, BDGCN_IMPLS, bdgcn_apply
-from mpgcn_tpu_torch.nn.cuda_lstm import lstm_last_step_fused
+from mpgcn_tpu_torch.nn.cuda_lstm import (
+    lstm_last_step_fused,
+    lstm_layer_infer,
+    lstm_layer_infer_plain,
+)
 from mpgcn_tpu_torch.nn.init import linear_uniform
-from mpgcn_tpu_torch.nn.lstm import LSTM, lstm_last_step
+from mpgcn_tpu_torch.nn.lstm import LSTM
 
-LSTM_IMPLS = ("kernel", "plain")
+#: lstm_impl -> the function that runs one LSTM layer
+LSTM_LAYER_FNS = {"kernel": lstm_layer_infer, "plain": lstm_layer_infer_plain}
 
 
 class Branch(nn.Module):
@@ -53,9 +58,9 @@ class MPGCN(nn.Module):
                  lstm_impl: str = "kernel", bdgcn_impl: str = "kernel",
                  seed: int = 0, device="cuda"):
         super().__init__()
-        if lstm_impl not in LSTM_IMPLS:
+        if lstm_impl not in LSTM_LAYER_FNS:
             raise ValueError(f"lstm_impl={lstm_impl!r} is not one of "
-                             f"{LSTM_IMPLS}")
+                             f"{tuple(LSTM_LAYER_FNS)}")
         if bdgcn_impl not in BDGCN_IMPLS:
             raise ValueError(f"bdgcn_impl={bdgcn_impl!r} is not one of "
                              f"{BDGCN_IMPLS}")
@@ -64,6 +69,7 @@ class MPGCN(nn.Module):
             raise ValueError(f"{len(self.sources)} branch sources for "
                              f"M={M} branches")
         self.lstm_impl, self.bdgcn_impl = lstm_impl, bdgcn_impl
+        self._lstm_layer_fn = LSTM_LAYER_FNS[lstm_impl]
         device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         self.branches = nn.ModuleList(
@@ -85,10 +91,8 @@ class MPGCN(nn.Module):
     def _branch(self, branch: Branch, lstm_in, G, B: int, N: int):
         """One branch: (B*N^2, T, F) rows -> pre-head (B, N, N, H) and
         the FC+ReLU output (B, N, N, F)."""
-        layers = branch.temporal.layers
-        h = (lstm_last_step_fused(layers, lstm_in)
-             if self.lstm_impl == "kernel" else lstm_last_step(layers,
-                                                               lstm_in))
+        h = lstm_last_step_fused(branch.temporal.layers, lstm_in,
+                                 layer_fn=self._lstm_layer_fn)
         h = h.reshape(B, N, N, -1)
         for layer in branch.spatial:
             h = bdgcn_apply(layer, h, G, activation=F.relu,

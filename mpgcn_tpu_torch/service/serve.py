@@ -17,7 +17,6 @@ part of this engine yet.
 
 from __future__ import annotations
 
-import os
 import threading
 from typing import Optional
 
@@ -47,17 +46,11 @@ KERNELS = {"lstm_infer_last": LSTM_INFER_LAST,
            "bdgcn_pair_fwd": BDGCN_PAIR_FWD}
 
 
-def promoted_path(output_dir: str, model: str = "MPGCN") -> str:
-    """The daemon's promoted-checkpoint slot under a service root."""
-    return os.path.join(output_dir, "promoted", f"{model}_od.pkl")
-
-
 class ServeEngine:
     """Micro-batchers + the model on ``device`` + its support banks.
 
     Params come from ``init_ckpt`` (a JAX pickle checkpoint, converted by
-    utils/convert.py), else from the promoted slot under
-    ``scfg.output_dir``, else -- only with ``allow_fresh`` -- from a fresh
+    utils/convert.py), else -- only with ``allow_fresh`` -- from a fresh
     init seeded by ``cfg.seed``."""
 
     def __init__(self, cfg: MPGCNConfig, data: dict, scfg: ServeConfig,
@@ -74,19 +67,18 @@ class ServeEngine:
                                  self.horizons else self.horizons[-1])
 
         self.model = MPGCN.from_config(cfg, device=self.device).eval()
-        source = init_ckpt or promoted_path(scfg.output_dir, cfg.model)
-        if os.path.exists(source):
+        if init_ckpt is not None:
             params = load_jax_checkpoint(
-                source, num_branches=cfg.num_branches,
+                init_ckpt, num_branches=cfg.num_branches,
                 branch_sources=cfg.resolved_branch_sources)
             self.model.load_state_dict(params_from_jax(params))
-            self.params_source = source
+            self.params_source = init_ckpt
         elif allow_fresh:
             self.params_source = f"fresh init (seed {cfg.seed})"
         else:
             raise FileNotFoundError(
-                f"no checkpoint to serve: {source} does not exist (pass "
-                f"init_ckpt, or allow_fresh=True for a fresh seeded init)")
+                "no checkpoint to serve: pass init_ckpt, or "
+                "allow_fresh=True for a fresh seeded init")
 
         # per-bucket pad-waste accounting: {bucket: [live, padded, batches]}
         self._pad_stats: dict[int, list] = {}

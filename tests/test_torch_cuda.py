@@ -109,12 +109,11 @@ def test_bdgcn_kernel_rejects_what_it_does_not_take(cuda_device):
         cuda_bdgcn.folded_pair_project(h1, g[:, :2], w)
 
 
-def test_engine_serves_through_the_kernels(cuda_device, tmp_path):
+def test_engine_serves_through_the_kernels(cuda_device):
     cfg = MPGCNConfig(synthetic_T=200, synthetic_N=10, hidden_dim=16,
                       lstm_num_layers=2, seed=0)
     data = synthetic_dataset(cfg)
-    eng = ServeEngine(cfg, data, ServeConfig(output_dir=str(tmp_path),
-                                             buckets=(1, 4),
+    eng = ServeEngine(cfg, data, ServeConfig(buckets=(1, 4),
                                              max_wait_ms=50.0),
                       device=cuda_device, allow_fresh=True)
     try:

@@ -16,7 +16,7 @@ from mpgcn_tpu.nn import pallas_bdgcn, pallas_lstm
 from mpgcn_tpu.nn.bdgcn import bdgcn_apply as jax_bdgcn_apply
 from mpgcn_tpu_torch.nn import cuda_bdgcn, cuda_lstm
 from mpgcn_tpu_torch.nn.bdgcn import BDGCN, bdgcn_apply
-from mpgcn_tpu_torch.nn.lstm import LSTM, lstm_last_step
+from mpgcn_tpu_torch.nn.lstm import LSTM
 
 LSTM_TOL = dict(rtol=1e-5, atol=1e-6)
 BDGCN_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -69,7 +69,8 @@ def test_lstm_stack_matches_pallas_inference(layers):
     xt = torch.from_numpy(x)
     with torch.no_grad():
         fused = cuda_lstm.lstm_last_step_fused(mod.layers, xt)
-        plain = lstm_last_step(mod.layers, xt)
+        plain = cuda_lstm.lstm_last_step_fused(
+            mod.layers, xt, layer_fn=cuda_lstm.lstm_layer_infer_plain)
     np.testing.assert_allclose(fused.numpy(), np.asarray(ref), **LSTM_TOL)
     np.testing.assert_allclose(plain.numpy(), np.asarray(ref), **LSTM_TOL)
 

@@ -36,7 +36,7 @@ from mpgcn_tpu_torch.service.batcher import (
     Ticket,
     pick_bucket,
 )
-from mpgcn_tpu_torch.service.serve import ServeEngine, promoted_path
+from mpgcn_tpu_torch.service.serve import ServeEngine
 from mpgcn_tpu_torch.utils.convert import load_jax_checkpoint
 
 N, H, OBS, PRED = 8, 8, 7, 7
@@ -64,15 +64,14 @@ def jax_stack(tmp_path_factory):
             "out": out}
 
 
-def _engine(stack, tmp_path, **scfg_kw):
-    scfg = ServeConfig(output_dir=str(tmp_path),
-                       **{"buckets": (1, 2, 4), "max_queue": 16,
+def _engine(stack, **scfg_kw):
+    scfg = ServeConfig(**{"buckets": (1, 2, 4), "max_queue": 16,
                           "max_wait_ms": 20.0, **scfg_kw})
     return ServeEngine(stack["cfg"], stack["data"], scfg, device="cpu",
                        init_ckpt=stack["ckpt"])
 
 
-def test_rollout_matches_jax_trainer(jax_stack, tmp_path):
+def test_rollout_matches_jax_trainer(jax_stack):
     trainer = jax_stack["trainer"]
     md = trainer.pipeline.modes["test"]
     x = np.ascontiguousarray(md.x)
@@ -83,7 +82,7 @@ def test_rollout_matches_jax_trainer(jax_stack, tmp_path):
         trainer.params, trainer.banks, jnp.asarray(x), jnp.asarray(keys)))
     assert ref.shape == (len(x), PRED, N, N, 1)
     assert (ref != 0).mean() > 0.1, "dead ReLU head: parity would be vacuous"
-    eng = _engine(jax_stack, tmp_path)
+    eng = _engine(jax_stack)
     try:
         tickets = [eng.submit(x[i, ..., 0], int(keys[i]))
                    for i in range(len(x))]
@@ -122,8 +121,8 @@ def test_checkpoint_loads_without_jax_classes(jax_stack):
         load_jax_checkpoint(odd)
 
 
-def test_engine_rejects_invalid_requests(jax_stack, tmp_path):
-    eng = _engine(jax_stack, tmp_path)
+def test_engine_rejects_invalid_requests(jax_stack):
+    eng = _engine(jax_stack)
     try:
         good = np.ones((OBS, N, N), np.float32)
         cases = {
@@ -148,21 +147,22 @@ def test_engine_rejects_invalid_requests(jax_stack, tmp_path):
 
 
 def test_engine_needs_a_checkpoint_or_fresh_init(jax_stack, tmp_path):
-    scfg = ServeConfig(output_dir=str(tmp_path), buckets=(1,))
+    scfg = ServeConfig(buckets=(1,))
     cfg, data = jax_stack["cfg"], jax_stack["data"]
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         ServeEngine(cfg, data, scfg, device="cpu")
+    # a named checkpoint that is missing is an error, never a fresh init
+    with pytest.raises(FileNotFoundError):
+        ServeEngine(cfg, data, scfg, device="cpu",
+                    init_ckpt=str(tmp_path / "missing.pkl"),
+                    allow_fresh=True)
     eng = ServeEngine(cfg, data, scfg, device="cpu", allow_fresh=True)
     eng.close()
     assert eng.stats()["params"].startswith("fresh init")
-    # the promoted slot of a daemon's service root is the default source
-    slot = promoted_path(str(tmp_path))
-    os.makedirs(os.path.dirname(slot))
-    with open(jax_stack["ckpt"], "rb") as src, open(slot, "wb") as dst:
-        dst.write(src.read())
-    eng = ServeEngine(cfg, data, scfg, device="cpu")
+    eng = ServeEngine(cfg, data, scfg, device="cpu",
+                      init_ckpt=jax_stack["ckpt"], allow_fresh=True)
     eng.close()
-    assert eng.stats()["params"] == slot
+    assert eng.stats()["params"] == jax_stack["ckpt"]
 
 
 def test_batcher_buckets_and_repeat_pads():
