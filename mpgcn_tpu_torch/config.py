@@ -1,10 +1,11 @@
 """Configuration for the PyTorch/CUDA port of MPGCN.
 
-The fields the serving path reads, with the same names, defaults and
-validation as the JAX package's ``MPGCNConfig`` and ``ServeConfig``, so
-one set of values configures either package. Knobs of paths this port
-does not have yet (training, sparse supports, meshes, precision modes)
-are not here; they arrive with the slices that run them.
+The fields the serving and training paths read, with the same names,
+defaults and validation as the JAX package's ``MPGCNConfig`` and
+``ServeConfig``, so one set of values configures either package. Knobs of
+paths this port does not have yet (sparse supports, meshes, precision
+modes, resume, rollback) are not here; they arrive with the slices that
+run them.
 """
 
 from __future__ import annotations
@@ -25,14 +26,22 @@ BRANCH_SOURCES = ("static", "dynamic", "poi")
 @dataclasses.dataclass(frozen=True)
 class MPGCNConfig:
     # --- reference flag surface (Main.py:11-37) ---
+    output_dir: str = "./output"
     model: str = "MPGCN"
     obs_len: int = 7
     pred_len: int = 7
     norm: str = "none"                      # none | minmax | std
     split_ratio: Sequence[float] = (6.4, 1.6, 2)
+    batch_size: int = 4
     hidden_dim: int = 32
     kernel_type: str = "random_walk_diffusion"
     cheby_order: int = 2
+    loss: str = "MSE"                       # MSE | MAE | Huber
+    optimizer: str = "Adam"
+    learn_rate: float = 1e-4
+    decay_rate: float = 0.0                 # L2 weight decay
+    num_epochs: int = 200
+    mode: str = "train"                     # train | test
 
     # --- architecture constants the reference hard-codes ---
     num_branches: int = 2                   # M: static adjacency + dynamic
@@ -47,6 +56,8 @@ class MPGCNConfig:
     perceived_period: int = 7               # weekly dynamic-graph slots
     reproduce_d_graph_bug: bool = True      # reference eq. (7) row/col mix-up
     drop_last_window: bool = True           # reference off-by-one window drop
+    shuffle: bool = False                   # reference never shuffles
+    early_stop_patience: int = 10           # Model_Trainer.py:87
 
     # --- knobs without a reference equivalent ---
     seed: int = 0
@@ -61,6 +72,8 @@ class MPGCNConfig:
     def __post_init__(self):
         choices = {
             "norm": ("none", "minmax", "std"),
+            "loss": ("MSE", "MAE", "Huber"),
+            "mode": ("train", "test"),
             "kernel_type": ("localpool", "chebyshev", "random_walk_diffusion",
                             "dual_random_walk_diffusion"),
             "synthetic_profile": ("smooth", "realistic"),

@@ -5,11 +5,14 @@ Windows stay host numpy (zero-copy strided views). The support banks are
 computed once, on the serving device: the static stack (K, N, N), the POI
 stack (K, N, N) when a branch uses it, and the seven weekly O/D
 correlation stacks (7, K, N, N) that a batch gathers by day-of-week key.
+``batches`` streams a mode's windows in order (or shuffled), repeat-padding
+the last partial batch to full size when asked, as the JAX pipeline does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -40,6 +43,17 @@ class ModeData:
 
     def __len__(self):
         return self.x.shape[0]
+
+
+@dataclasses.dataclass
+class Batch:
+    """One batch of host arrays; ``size`` counts the real rows (the rest
+    repeat the last one and are masked out of the loss)."""
+
+    x: np.ndarray      # (B, obs_len, N, N, 1)
+    y: np.ndarray      # (B, pred_len, N, N, 1)
+    keys: np.ndarray   # (B,)
+    size: int
 
 
 class DataPipeline:
@@ -102,3 +116,29 @@ class DataPipeline:
     @property
     def num_nodes(self) -> int:
         return self.modes["train"].x.shape[2]
+
+    def num_batches(self, mode: str, batch_size: Optional[int] = None) -> int:
+        bs = batch_size or self.cfg.batch_size
+        return -(-len(self.modes[mode]) // bs)
+
+    def batches(self, mode: str, batch_size: Optional[int] = None,
+                shuffle: Optional[bool] = None,
+                rng: Optional[np.random.Generator] = None,
+                pad_to_full: bool = False) -> Iterator[Batch]:
+        """Stream a mode's batches. ``shuffle`` (None: cfg.shuffle) permutes
+        the window order with ``rng`` (None: a generator seeded by
+        cfg.seed); ``pad_to_full`` repeat-pads the final partial batch to
+        the full batch size, masked through ``Batch.size``."""
+        md = self.modes[mode]
+        bs = batch_size or self.cfg.batch_size
+        n = len(md)
+        idx = np.arange(n)
+        if shuffle if shuffle is not None else self.cfg.shuffle:
+            (rng or np.random.default_rng(self.cfg.seed)).shuffle(idx)
+        for start in range(0, n, bs):
+            sel = idx[start: start + bs]
+            size = sel.shape[0]
+            if pad_to_full and size < bs:
+                sel = np.concatenate([sel, np.full(bs - size, sel[-1])])
+            yield Batch(x=md.x[sel], y=md.y[sel], keys=md.keys[sel],
+                        size=size)

@@ -143,6 +143,8 @@ class CudaKernel:
         return self._fn
 
     def launch(self, tensors, ints) -> None:
+        """``tensors`` may hold None where the entry takes a null pointer
+        (the first must be a tensor: it names the device)."""
         import torch
 
         if len(tensors) != self.n_ptrs or len(ints) != self.n_ints:
@@ -152,7 +154,8 @@ class CudaKernel:
         dev = tensors[0].device
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
-            err = fn(*[t.data_ptr() for t in tensors],
+            err = fn(*[None if t is None else t.data_ptr()
+                       for t in tensors],
                      *[int(i) for i in ints], stream)
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.symbol} failed to "

@@ -1,5 +1,5 @@
-"""K-BDGCN: the fused folded BDGCN pair projection (counterpart of the
-forward of mpgcn_tpu/nn/pallas_bdgcn.py).
+"""K-BDGCN and K-BDGCN-bwd: the fused folded BDGCN pair projection and its
+backward (counterpart of mpgcn_tpu/nn/pallas_bdgcn.py).
 
 ``folded_pair_project`` computes all K^2 (destination contraction +
 projection) pairs of the origin-contracted features without building the
@@ -7,6 +7,15 @@ K^2 feature bank. On a CUDA tensor it launches the hand-written kernel of
 ``csrc/bdgcn_pair_fwd.cu`` (replacing ``_fwd_kernel``); on a CPU tensor it
 runs ``folded_pair_project_plain``, the same function in plain PyTorch.
 There is no fallback: a CUDA tensor the kernel does not take raises.
+
+Under autograd it goes through ``PairProjectFn``, whose backward
+``folded_pair_project_bwd`` launches ``bdgcn_pair_bwd_f32`` of
+``csrc/bdgcn_pair_bwd.cu`` (replacing ``_bwd_kernel``) for dh1 and the
+per-block dW partials, then ``bdgcn_dw_reduce_f32`` for their fixed-order
+sum. The JAX package sends small pair counts to an XLA einsum loop instead
+of its backward kernel; this port has no such switch. The support
+cotangent stays plain einsums (``_grad_g``), computed only when a support
+requires grad, as the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -14,14 +23,30 @@ from __future__ import annotations
 import torch
 
 from mpgcn_tpu_torch.native.build import CudaKernel
+# the plain version of bdgcn_dw_reduce_f32 too: the same fixed-order sum
+from mpgcn_tpu_torch.nn.cuda_lstm import dw_reduce_plain  # noqa: F401
 
-#: channel and hidden widths the kernel takes (per-thread register tiles)
+#: channel and hidden widths the kernels take (per-thread register tiles)
 MAX_WIDTH = 64
-#: support counts the kernel is instantiated for
+#: support counts the kernels are instantiated for
 MAX_K = 5
+#: dW-partial blocks per SM: the partial buffer stays at about this many x
+#: SMs x C x H floats, whatever the pair count
+BWD_BLOCKS_PER_SM = 2
+#: rows the dW-partial kernel stages per step (no chunk is made smaller)
+_DW_ROWS_TILE = 32
 
 BDGCN_PAIR_FWD = CudaKernel("bdgcn_pair_fwd", "bdgcn_pair_fwd_f32",
                             n_ptrs=4, n_ints=7)
+BDGCN_PAIR_BWD = CudaKernel("bdgcn_pair_bwd", "bdgcn_pair_bwd_f32",
+                            n_ptrs=7, n_ints=8)
+BDGCN_DW_REDUCE = CudaKernel("bdgcn_pair_bwd", "bdgcn_dw_reduce_f32",
+                             n_ptrs=2, n_ints=2)
+
+
+def _dest(Gk: torch.Tensor, d: int, dyn: bool):
+    """G_d and the einsum subscripts of its (c, e) axes."""
+    return (Gk[:, d], "bce") if dyn else (Gk[0, d], "ce")
 
 
 def folded_pair_project_plain(h1: torch.Tensor, Gk: torch.Tensor,
@@ -36,19 +61,58 @@ def folded_pair_project_plain(h1: torch.Tensor, Gk: torch.Tensor,
     out = None
     for o in range(K):
         for d in range(K):
-            if dyn:
-                t = torch.einsum("bmcl,bce->bmle", h1[o], Gk[:, d])
-            else:
-                t = torch.einsum("bmcl,ce->bmle", h1[o], Gk[0, d])
+            g, gs = _dest(Gk, d, dyn)
+            t = torch.einsum(f"bmcl,{gs}->bmle", h1[o], g)
             p = torch.einsum("bmle,lh->bmeh", t, Wr[o, d])
             out = p if out is None else out + p
     return out
 
 
-def _check_cuda_args(h1, Gk, Wr) -> None:
-    for name, t in (("h1", h1), ("Gk", Gk), ("Wr", Wr)):
+def folded_pair_project_bwd_plain(h1, Gk, Wr, dout):
+    """Plain PyTorch version of ``bdgcn_pair_bwd_f32`` and its dW sum, in
+    the kernel's order: Z_d = G_d dout, dh1[o] = sum_d Z_d Wr[o, d]^T,
+    dW[o, d] = sum_{b, m} h1[o]^T Z_d. Returns (dh1 (K, B, M, N, C),
+    dW (K, K, C, H))."""
+    K = h1.shape[0]
+    dyn = Gk.shape[0] > 1
+    Z = []
+    for d in range(K):
+        g, gs = _dest(Gk, d, dyn)
+        Z.append(torch.einsum(f"{gs},bmeh->bmch", g, dout))
+    dh1 = torch.stack([sum(torch.einsum("bmch,lh->bmcl", Z[d], Wr[o, d])
+                           for d in range(K)) for o in range(K)])
+    dW = torch.stack([torch.stack([torch.einsum("bmcl,bmch->lh", h1[o], Z[d])
+                                   for d in range(K)]) for o in range(K)])
+    return dh1, dW
+
+
+def _grad_g(h1, Gk, Wr, dout):
+    """The support cotangent (plain einsums outside any kernel, as the JAX
+    package's ``_grad_g`` leaves it to XLA)."""
+    K = h1.shape[0]
+    dyn = Gk.shape[0] > 1
+    dG = torch.zeros_like(Gk)
+    for o in range(K):
+        for d in range(K):
+            u = torch.einsum("bmeh,lh->bmel", dout, Wr[o, d])
+            if dyn:
+                dG[:, d] += torch.einsum("bmcl,bmel->bce", h1[o], u)
+            else:
+                dG[0, d] += torch.einsum("bmcl,bmel->ce", h1[o], u)
+    return dG
+
+
+def _is_cuda(h1: torch.Tensor, name: str) -> bool:
+    if h1.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got "
+                         f"{h1.device}")
+    return h1.device.type == "cuda"
+
+
+def _check_cuda_args(h1, Gk, Wr, name: str = "K-BDGCN") -> None:
+    for arg, t in (("h1", h1), ("Gk", Gk), ("Wr", Wr)):
         if t.dtype != torch.float32:
-            raise TypeError(f"K-BDGCN takes float32 only, got {name} "
+            raise TypeError(f"{name} takes float32 only, got {arg} "
                             f"{t.dtype}")
         if t.device != h1.device:
             raise ValueError("h1, Gk and Wr lie on different devices")
@@ -59,9 +123,9 @@ def _check_cuda_args(h1, Gk, Wr) -> None:
     K, B, M, N, C = h1.shape
     H = Wr.shape[-1]
     if not 1 <= K <= MAX_K:
-        raise ValueError(f"K-BDGCN takes 1..{MAX_K} supports, got K={K}")
+        raise ValueError(f"{name} takes 1..{MAX_K} supports, got K={K}")
     if not (1 <= C <= MAX_WIDTH and 1 <= H <= MAX_WIDTH):
-        raise ValueError(f"K-BDGCN takes channel and hidden widths "
+        raise ValueError(f"{name} takes channel and hidden widths "
                          f"1..{MAX_WIDTH}, got C={C}, H={H}")
     if Gk.shape[0] not in (1, B) or tuple(Gk.shape[1:]) != (K, N, N):
         raise ValueError(f"Gk must be (1 or {B}, {K}, {N}, {N}), got "
@@ -70,23 +134,13 @@ def _check_cuda_args(h1, Gk, Wr) -> None:
         raise ValueError(f"Wr must be ({K}, {K}, {C}, H), got "
                          f"{tuple(Wr.shape)}")
     if B > 65535 or M > 65535:
-        raise ValueError(f"K-BDGCN grid takes B, M <= 65535, got B={B}, "
+        raise ValueError(f"{name} grid takes B, M <= 65535, got B={B}, "
                          f"M={M}")
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (h1, Gk, Wr)):
-        raise RuntimeError("K-BDGCN is inference-only (no backward kernel "
-                           "yet); call it under torch.no_grad()")
 
 
-def folded_pair_project(h1: torch.Tensor, Gk: torch.Tensor,
-                        Wr: torch.Tensor) -> torch.Tensor:
-    """Fused folded BDGCN pairs: (K, B, M, N, C) -> (B, M, N, H). CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
-    if h1.device.type == "cpu":
+def _pair_project(h1, Gk, Wr):
+    if not _is_cuda(h1, "K-BDGCN"):
         return folded_pair_project_plain(h1, Gk, Wr)
-    if h1.device.type != "cuda":
-        raise ValueError(f"K-BDGCN runs on cuda or cpu tensors, got "
-                         f"{h1.device}")
     _check_cuda_args(h1, Gk, Wr)
     K, B, M, N, C = h1.shape
     H = Wr.shape[-1]
@@ -95,3 +149,74 @@ def folded_pair_project(h1: torch.Tensor, Gk: torch.Tensor,
     BDGCN_PAIR_FWD.launch((h1, Gk, Wr, out),
                           (K, B, M, N, C, H, Gk.shape[0]))
     return out
+
+
+def bwd_blocks(rows: int, K: int, device) -> int:
+    """Row chunks of the dW-partial launch (each of the K^2 pairs gets this
+    many blocks): a few blocks per SM in all, never a chunk smaller than
+    one staged row tile."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    by_sm = -(-BWD_BLOCKS_PER_SM * sms // (K * K))
+    return max(1, min(by_sm, -(-rows // _DW_ROWS_TILE)))
+
+
+def folded_pair_project_bwd(h1, Gk, Wr, dout):
+    """Backward of the folded pairs for the cotangent dout (B, M, N, H):
+    (dh1 (K, B, M, N, C), dW (K, K, C, H)). CPU tensors take the plain
+    version; CUDA tensors launch ``bdgcn_pair_bwd_f32`` and then
+    ``bdgcn_dw_reduce_f32`` on its per-block partials."""
+    if not _is_cuda(h1, "K-BDGCN-bwd"):
+        return folded_pair_project_bwd_plain(h1, Gk, Wr, dout)
+    _check_cuda_args(h1, Gk, Wr, "K-BDGCN-bwd")
+    K, B, M, N, C = h1.shape
+    H = Wr.shape[-1]
+    if (dout.dtype != torch.float32 or dout.device != h1.device
+            or tuple(dout.shape) != (B, M, N, H)):
+        raise ValueError(f"dout must be float32 ({B}, {M}, {N}, {H}) on "
+                         f"{h1.device}, got {dout.dtype} "
+                         f"{tuple(dout.shape)} on {dout.device}")
+    h1, Gk, Wr, dout = (t.contiguous() for t in (h1, Gk, Wr, dout))
+    P = bwd_blocks(B * M * N, K, h1.device)
+    dh1 = torch.empty_like(h1)
+    z = torch.empty((K, B, M, N, H), dtype=torch.float32, device=h1.device)
+    part = torch.empty((P, K, K, C, H), dtype=torch.float32,
+                       device=h1.device)
+    BDGCN_PAIR_BWD.launch((h1, Gk, Wr, dout, dh1, z, part),
+                          (K, B, M, N, C, H, Gk.shape[0], P))
+    dW = torch.empty((K, K, C, H), dtype=torch.float32, device=h1.device)
+    BDGCN_DW_REDUCE.launch((part, dW), (P, K * K * C * H))
+    return dh1, dW
+
+
+class PairProjectFn(torch.autograd.Function):
+    """(h1, Gk, Wr) -> (B, M, N, H) with the hand-written backward (the
+    counterpart of ``_pair_project``'s custom VJP). Saves h1, Gk and Wr
+    only: the K^2 pair bank is never stored, the backward recomputes what
+    it needs."""
+
+    @staticmethod
+    def forward(ctx, h1, Gk, Wr):
+        ctx.save_for_backward(h1, Gk, Wr)
+        return _pair_project(h1, Gk, Wr)
+
+    @staticmethod
+    def backward(ctx, dout):
+        h1, Gk, Wr = ctx.saved_tensors
+        need_h1, need_g, need_w = ctx.needs_input_grad
+        dh1 = dW = None
+        if need_h1 or need_w:
+            dh1, dW = folded_pair_project_bwd(h1, Gk, Wr, dout)
+        dG = _grad_g(h1, Gk, Wr, dout) if need_g else None
+        return (dh1 if need_h1 else None), dG, (dW if need_w else None)
+
+
+def folded_pair_project(h1: torch.Tensor, Gk: torch.Tensor,
+                        Wr: torch.Tensor) -> torch.Tensor:
+    """Fused folded BDGCN pairs: (K, B, M, N, C) -> (B, M, N, H). CPU
+    tensors take the plain version; CUDA tensors launch the kernel. When
+    autograd records (grad on and an input requires grad) the call goes
+    through ``PairProjectFn`` and its backward kernel."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (h1, Gk, Wr)):
+        return PairProjectFn.apply(h1, Gk, Wr)
+    return _pair_project(h1, Gk, Wr)

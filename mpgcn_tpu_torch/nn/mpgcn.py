@@ -1,11 +1,15 @@
 """MPGCN: the M-branch multi-perspective model (counterpart of the loop
-path of mpgcn_tpu/nn/mpgcn.py, inference forward).
+path of mpgcn_tpu/nn/mpgcn.py).
 
 Each branch is an LSTM temporal encoder over the B*N^2 OD-pair sequences,
 gcn_num_layers BDGCN layers with ReLU, and an FC+ReLU head; the branch
 outputs are averaged. ``lstm_impl``/``bdgcn_impl`` pick the hand-written
-kernels ("kernel", the serve path) or the plain arms ("plain"/"einsum"),
-which compute the same function with stock PyTorch operations.
+kernels ("kernel") or the plain arms ("plain"/"einsum"), which compute the
+same function with stock PyTorch operations and which autograd
+differentiates like any torch code. ``forward(..., inference=True)`` runs
+under ``torch.no_grad()`` on the inference kernels (the serve and test
+rollouts); ``inference=False`` records autograd through the training
+kernels (``LSTMLayerFn`` and ``PairProjectFn``).
 """
 
 from __future__ import annotations
@@ -88,23 +92,33 @@ class MPGCN(nn.Module):
                    sources=cfg.resolved_branch_sources, seed=cfg.seed,
                    device=device, **kw)
 
-    def _branch(self, branch: Branch, lstm_in, G, B: int, N: int):
+    def _branch(self, branch: Branch, lstm_in, G, B: int, N: int,
+                inference: bool):
         """One branch: (B*N^2, T, F) rows -> pre-head (B, N, N, H) and
         the FC+ReLU output (B, N, N, F)."""
-        h = lstm_last_step_fused(branch.temporal.layers, lstm_in,
-                                 layer_fn=self._lstm_layer_fn)
+        h = lstm_last_step_fused(
+            branch.temporal.layers, lstm_in, layer_fn=self._lstm_layer_fn,
+            train=not inference and self.lstm_impl == "kernel")
         h = h.reshape(B, N, N, -1)
         for layer in branch.spatial:
             h = bdgcn_apply(layer, h, G, activation=F.relu,
                             impl=self.bdgcn_impl)
         return h, F.relu(branch.fc(h))
 
-    @torch.no_grad()
-    def forward(self, x_seq: torch.Tensor, graphs, return_hidden=False):
-        """Inference forward. x_seq (B, T, N, N, F); graphs[m] is branch
-        m's static (K, N, N) stack or dynamic ((B, K, N, N), (B, K, N, N))
-        pair. Returns the (B, 1, N, N, F) one-step prediction, and with
-        ``return_hidden`` also each branch's pre-head BDGCN output."""
+    def forward(self, x_seq: torch.Tensor, graphs, return_hidden=False,
+                inference: bool = True):
+        """x_seq (B, T, N, N, F); graphs[m] is branch m's static (K, N, N)
+        stack or dynamic ((B, K, N, N), (B, K, N, N)) pair. Returns the
+        (B, 1, N, N, F) one-step prediction, and with ``return_hidden``
+        also each branch's pre-head BDGCN output. ``inference`` runs under
+        ``torch.no_grad()`` on the inference kernels; ``inference=False``
+        is the differentiable training forward."""
+        if inference:
+            with torch.no_grad():
+                return self._forward(x_seq, graphs, return_hidden, True)
+        return self._forward(x_seq, graphs, return_hidden, False)
+
+    def _forward(self, x_seq, graphs, return_hidden, inference):
         if x_seq.ndim != 5 or x_seq.shape[2] != x_seq.shape[3]:
             raise ValueError(f"x_seq must be (B, T, N, N, F), got "
                              f"{tuple(x_seq.shape)}")
@@ -116,7 +130,7 @@ class MPGCN(nn.Module):
         lstm_in = x_seq.permute(0, 2, 3, 1, 4).reshape(B * N * N, T, i)
         hidden, outs = [], []
         for branch, G in zip(self.branches, graphs):
-            h, out = self._branch(branch, lstm_in, G, B, N)
+            h, out = self._branch(branch, lstm_in, G, B, N, inference)
             hidden.append(h)
             outs.append(out)
         pred = torch.stack(outs, dim=-1).mean(dim=-1)[:, None]

@@ -27,7 +27,7 @@ def rollout(model, banks: dict, x: torch.Tensor, keys: torch.Tensor,
     graphs = graphs_for(banks, keys, model.sources)
     cur, preds = x, []
     for _ in range(horizon):
-        p = model(cur, graphs)
+        p = model(cur, graphs, inference=True)
         cur = torch.cat([cur[:, 1:], p], dim=1)
         preds.append(p)
     return torch.cat(preds, dim=1)

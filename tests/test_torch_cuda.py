@@ -1,6 +1,8 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
-version, the kernels' refusals, and a ServeEngine whose rollout goes
-through the kernels. Every test needs a CUDA card and skips without one.
+version, the kernels' refusals, a ServeEngine whose rollout goes through
+the kernels, and a ModelTrainer step whose forward and backward go
+through the training kernels. Every test needs a CUDA card and skips
+without one.
 
 This file imports neither JAX nor the JAX package, so it runs on a GPU
 machine without JAX; tests/conftest.py imports JAX, so run it there as
@@ -8,7 +10,9 @@ machine without JAX; tests/conftest.py imports JAX, so run it there as
     pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: f32 on both sides, other summation orders. K-LSTM and K-BDGCN
-rtol 1e-5 / atol 1e-5; the 7-step rollout rtol 1e-4 / atol 1e-4."""
+rtol 1e-5 / atol 1e-5; the 7-step rollout rtol 1e-4 / atol 1e-4. The
+backward kernels' dW sums R T (or B M N) products, so it is held at
+rtol 1e-5 with atol 1e-6 x its largest entry."""
 
 import numpy as np
 import pytest
@@ -20,6 +24,7 @@ from mpgcn_tpu_torch.nn import cuda_bdgcn, cuda_lstm
 from mpgcn_tpu_torch.nn.mpgcn import MPGCN
 from mpgcn_tpu_torch.service.serve import KERNELS, ServeEngine
 from mpgcn_tpu_torch.train.predict import rollout
+from mpgcn_tpu_torch.train.trainer import ModelTrainer
 
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 ROLLOUT_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -143,3 +148,128 @@ def test_engine_serves_through_the_kernels(cuda_device):
         torch.testing.assert_close(preds, ref, **ROLLOUT_TOL)
     finally:
         eng.close()
+
+
+def _close_scaled(out, ref):
+    """dW-style sums: rtol 1e-5, atol 1e-6 x the largest entry."""
+    torch.testing.assert_close(out, ref, rtol=1e-5,
+                               atol=1e-6 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("with_dcs", [False, True])
+@pytest.mark.parametrize("T,R,H", [(7, 8836, 32), (7, 1001, 8),
+                                   (5, 333, 64), (3, 17, 40)])
+def test_lstm_train_kernels_match_plain(cuda_device, T, R, H, with_dcs):
+    rng = np.random.default_rng(R + H)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+    xp = t(rng.normal(size=(T, R, 4 * H)))
+    w = t(rng.normal(size=(H, 4 * H)) / np.sqrt(H))
+    before = [k.launches for k in (cuda_lstm.LSTM_TRAIN_FWD,
+                                   cuda_lstm.LSTM_TRAIN_BWD,
+                                   cuda_lstm.LSTM_DW_REDUCE)]
+    hs, cs = cuda_lstm.lstm_layer_train(xp, w)
+    hp, cp = cuda_lstm.lstm_layer_train_plain(xp, w)
+    torch.testing.assert_close(hs, hp, **KERNEL_TOL)
+    torch.testing.assert_close(cs, cp, **KERNEL_TOL)
+    dhs = t(rng.normal(size=(T, R, H)))
+    dcs = t(rng.normal(size=(T, R, H))) if with_dcs else None
+    dxp, dw = cuda_lstm.lstm_layer_bwd(xp, w, hs, cs, dhs, dcs)
+    torch.cuda.synchronize()
+    assert [k.launches for k in (cuda_lstm.LSTM_TRAIN_FWD,
+                                 cuda_lstm.LSTM_TRAIN_BWD,
+                                 cuda_lstm.LSTM_DW_REDUCE)] == [
+        b + 1 for b in before]
+    dxr, dwr = cuda_lstm.lstm_layer_bwd_plain(xp, w, hs, cs, dhs, dcs)
+    torch.testing.assert_close(dxp, dxr, **KERNEL_TOL)
+    _close_scaled(dw, dwr)
+    _, dw2 = cuda_lstm.lstm_layer_bwd(xp, w, hs, cs, dhs, dcs)
+    assert torch.equal(dw, dw2), "dW differs between two runs"
+
+
+@pytest.mark.parametrize("dynamic", [False, True])
+@pytest.mark.parametrize("K,B,N,C,H", [(3, 4, 47, 32, 32),
+                                       (3, 2, 200, 32, 32),
+                                       (5, 2, 33, 16, 64),
+                                       (2, 3, 9, 8, 40), (1, 1, 1, 1, 1)])
+def test_bdgcn_bwd_kernel_matches_plain(cuda_device, dynamic, K, B, N, C, H):
+    h1, g, w = _bdgcn_inputs(cuda_device, K, B, N, C, H, dynamic, seed=N)
+    dout = torch.from_numpy(np.random.default_rng(C).normal(
+        size=(B, N, N, H)).astype(np.float32)).to(cuda_device)
+    before = (cuda_bdgcn.BDGCN_PAIR_BWD.launches,
+              cuda_bdgcn.BDGCN_DW_REDUCE.launches)
+    dh1, dW = cuda_bdgcn.folded_pair_project_bwd(h1, g, w, dout)
+    torch.cuda.synchronize()
+    assert (cuda_bdgcn.BDGCN_PAIR_BWD.launches,
+            cuda_bdgcn.BDGCN_DW_REDUCE.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    r1, rW = cuda_bdgcn.folded_pair_project_bwd_plain(h1, g, w, dout)
+    torch.testing.assert_close(dh1, r1, **KERNEL_TOL)
+    _close_scaled(dW, rW)
+    _, dW2 = cuda_bdgcn.folded_pair_project_bwd(h1, g, w, dout)
+    assert torch.equal(dW, dW2), "dW differs between two runs"
+
+
+def test_training_kernels_reject_what_they_do_not_take(cuda_device):
+    xp = torch.zeros((7, 10, 4 * 32), device=cuda_device)
+    w = torch.zeros((32, 128), device=cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_lstm.lstm_layer_train(xp.double(), w.double())
+    with pytest.raises(ValueError, match="hidden widths"):
+        cuda_lstm.lstm_layer_train(
+            torch.zeros((7, 10, 4 * 128), device=cuda_device),
+            torch.zeros((128, 512), device=cuda_device))
+    hs, cs = cuda_lstm.lstm_layer_train(xp, w)
+    with pytest.raises(ValueError, match="dhs must be"):
+        cuda_lstm.lstm_layer_bwd(xp, w, hs, cs, hs[:3], None)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_lstm.lstm_layer_bwd(xp, w, hs, cs.double(), hs, None)
+    h1, g, wr = _bdgcn_inputs(cuda_device, 3, 2, 5, 8, 8, False)
+    dout = torch.zeros((2, 5, 5, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="dout must be"):
+        cuda_bdgcn.folded_pair_project_bwd(h1, g, wr, dout[:1])
+    with pytest.raises(TypeError, match="float32"):
+        cuda_bdgcn.folded_pair_project_bwd(h1.double(), g, wr, dout)
+    with pytest.raises(ValueError, match="supports"):
+        h6, g6, w6 = _bdgcn_inputs(cuda_device, 6, 1, 3, 2, 2, False)
+        cuda_bdgcn.folded_pair_project_bwd(
+            h6, g6, w6, torch.zeros((1, 3, 3, 2), device=cuda_device))
+
+
+def test_trainer_step_runs_the_training_kernels(cuda_device, tmp_path):
+    """One ModelTrainer step at M=2, 1 LSTM layer, 3 BDGCN layers: exactly
+    M = 2 launches of each LSTM training entry and M * 3 = 6 of each BDGCN
+    entry, no inference launch; then a validation step launches only the
+    inference kernels. The kernel arm's gradients match the plain arms'."""
+    cfg = MPGCNConfig(synthetic_T=200, synthetic_N=10, hidden_dim=16,
+                      pred_len=1, seed=0, output_dir=str(tmp_path))
+    data = synthetic_dataset(cfg)
+    tr = ModelTrainer(cfg, data, device=cuda_device)
+    plain = ModelTrainer(cfg, data, device=cuda_device, lstm_impl="plain",
+                         bdgcn_impl="einsum")
+    plain.model.load_state_dict(tr.model.state_dict())
+    batch = next(tr.pipeline.batches("train", pad_to_full=True))
+    kernels = {**KERNELS, "lstm_train_fwd": cuda_lstm.LSTM_TRAIN_FWD,
+               "lstm_train_bwd": cuda_lstm.LSTM_TRAIN_BWD,
+               "lstm_dw_reduce": cuda_lstm.LSTM_DW_REDUCE,
+               "bdgcn_pair_bwd": cuda_bdgcn.BDGCN_PAIR_BWD,
+               "bdgcn_dw_reduce": cuda_bdgcn.BDGCN_DW_REDUCE}
+    for k in kernels.values():
+        k.launches = 0
+    for t in (tr, plain):
+        x, y, keys = t._tensors(batch)
+        t._batch_loss(x, y, keys, batch.size).backward()
+    torch.cuda.synchronize()
+    assert {n: k.launches for n, k in kernels.items()} == {
+        "lstm_infer_last": 0, "lstm_infer_collect": 0,
+        "bdgcn_pair_fwd": 6, "lstm_train_fwd": 2, "lstm_train_bwd": 2,
+        "lstm_dw_reduce": 2, "bdgcn_pair_bwd": 6, "bdgcn_dw_reduce": 6}
+    ref = dict(plain.model.named_parameters())
+    for name, p in tr.model.named_parameters():
+        torch.testing.assert_close(
+            p.grad, ref[name].grad, rtol=1e-4,
+            atol=1e-5 * float(ref[name].grad.abs().max()))
+    for k in kernels.values():
+        k.launches = 0
+    assert np.isfinite(tr.eval_step(batch))
+    assert {n: k.launches for n, k in kernels.items() if k.launches} == {
+        "lstm_infer_last": 2, "bdgcn_pair_fwd": 6}

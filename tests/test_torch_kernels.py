@@ -1,11 +1,16 @@
-"""K-LSTM and K-BDGCN: the plain versions against the JAX package's Pallas
-kernels (run in interpret mode on the CPU, as the JAX tests run them), and
-the wrappers' device dispatch. The CUDA kernels themselves are held against
-the plain versions on the card by tests/test_torch_cuda.py.
+"""K-LSTM, K-LSTM-train, K-BDGCN and K-BDGCN-bwd: the plain versions
+against the JAX package's Pallas kernels (run in interpret mode on the
+CPU, as the JAX tests run them) and its XLA backward paths, the autograd
+Functions against finite differences, and the wrappers' device dispatch.
+The CUDA kernels themselves are held against the plain versions on the
+card by tests/test_torch_cuda.py.
 
 Tolerances: f32 on both sides with different summation orders.
 K-LSTM rtol 1e-5 / atol 1e-6 (outputs are tanh-bounded); K-BDGCN rtol 1e-5
-/ atol 1e-5 (sums of K^2 N C products of O(1) values)."""
+/ atol 1e-5 (sums of K^2 N C products of O(1) values). The backward
+outputs sum over rows and time as well: dx_proj rtol 1e-5 / atol 1e-5,
+dW rtol 1e-5 / atol 1e-4 (sums of R T products of O(1) values, |dW| up to
+about 50 here). gradcheck runs in float64 at its default tolerances."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +25,8 @@ from mpgcn_tpu_torch.nn.lstm import LSTM
 
 LSTM_TOL = dict(rtol=1e-5, atol=1e-6)
 BDGCN_TOL = dict(rtol=1e-5, atol=1e-5)
+DX_TOL = dict(rtol=1e-5, atol=1e-5)
+DW_TOL = dict(rtol=1e-5, atol=1e-4)
 
 
 def _lstm_params(rng, F, H, layers):
@@ -118,14 +125,107 @@ def test_bdgcn_apply_arms_match_jax(dynamic, impl):
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **BDGCN_TOL)
 
 
+def _lstm_train_inputs(rng, T=7, R=50, H=8):
+    xp = rng.normal(size=(T, R, 4 * H)).astype(np.float32)
+    w = (rng.normal(size=(H, 4 * H)) / np.sqrt(H)).astype(np.float32)
+    return xp, w
+
+
+def test_lstm_train_plain_matches_pallas_fwd():
+    xp, w = _lstm_train_inputs(np.random.default_rng(7))
+    hs_ref, cs_ref = pallas_lstm._fused_layer_fwd_impl(
+        jnp.asarray(xp), jnp.asarray(w), interpret=True)
+    hs, cs = cuda_lstm.lstm_layer_train_plain(torch.from_numpy(xp),
+                                              torch.from_numpy(w))
+    assert tuple(hs.shape) == hs_ref.shape and tuple(cs.shape) == cs_ref.shape
+    np.testing.assert_allclose(hs.numpy(), np.asarray(hs_ref), **LSTM_TOL)
+    np.testing.assert_allclose(cs.numpy(), np.asarray(cs_ref), **LSTM_TOL)
+
+
+@pytest.mark.parametrize("ref", ["pallas", "xla"])
+@pytest.mark.parametrize("with_dcs", [False, True])
+def test_lstm_bwd_plain_matches_jax(ref, with_dcs):
+    rng = np.random.default_rng(8)
+    xp, w = _lstm_train_inputs(rng)
+    hs, cs = (np.array(a) for a in pallas_lstm._fused_layer_fwd_impl(
+        jnp.asarray(xp), jnp.asarray(w), interpret=True))
+    dhs = rng.normal(size=hs.shape).astype(np.float32)
+    dcs = (rng.normal(size=hs.shape) if with_dcs
+           else np.zeros(hs.shape)).astype(np.float32)
+    h_prev = np.concatenate([np.zeros_like(hs[:1]), hs[:-1]])
+    c_prev = np.concatenate([np.zeros_like(cs[:1]), cs[:-1]])
+    args = [jnp.asarray(a) for a in (xp, w, h_prev, c_prev, cs, dhs, dcs)]
+    if ref == "pallas":
+        dxp_ref, dw_ref = pallas_lstm._fused_layer_bwd_pallas(True, *args)
+    else:
+        dxp_ref, dw_ref = pallas_lstm._fused_layer_bwd_xla(*args)
+    t = torch.from_numpy
+    dxp, dw = cuda_lstm.lstm_layer_bwd_plain(
+        t(xp), t(w), t(hs), t(cs), t(dhs), t(dcs) if with_dcs else None)
+    np.testing.assert_allclose(dxp.numpy(), np.asarray(dxp_ref), **DX_TOL)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(dw_ref), **DW_TOL)
+
+
+@pytest.mark.parametrize("ref", ["pallas", "xla"])
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_bdgcn_bwd_plain_matches_jax(ref, dynamic):
+    rng = np.random.default_rng(9)
+    h1, g, w = _bdgcn_inputs(rng, dynamic=dynamic)
+    dout = rng.normal(size=h1.shape[1:4] + (w.shape[-1],)).astype(np.float32)
+    args = [jnp.asarray(a) for a in (h1, g, w, dout)]
+    if ref == "pallas":
+        dh1_ref, dw_ref = pallas_bdgcn._bwd_pallas(*args, interpret=True)
+    else:
+        dh1_ref, dw_ref = pallas_bdgcn._bwd_xla(*args)
+    dh1, dw = cuda_bdgcn.folded_pair_project_bwd_plain(
+        *map(torch.from_numpy, (h1, g, w, dout)))
+    np.testing.assert_allclose(dh1.numpy(), np.asarray(dh1_ref), **DX_TOL)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(dw_ref), **DW_TOL)
+
+
+@pytest.mark.parametrize("out", ["hs_and_cs", "last_h"])
+def test_lstm_layer_fn_gradcheck(out):
+    rng = np.random.default_rng(10)
+    xp = torch.from_numpy(rng.normal(size=(3, 5, 16))).requires_grad_()
+    w = torch.from_numpy(rng.normal(size=(4, 16)) / 2).requires_grad_()
+
+    def fn(x, ww):
+        hs, cs = cuda_lstm.LSTMLayerFn.apply(x, ww)
+        return (hs, cs) if out == "hs_and_cs" else hs[-1]
+
+    assert torch.autograd.gradcheck(fn, (xp, w))
+
+
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_pair_project_fn_gradcheck(dynamic):
+    rng = np.random.default_rng(11)
+    K, B, N, C, H = 3, 2, 4, 3, 2
+    h1 = torch.from_numpy(rng.normal(size=(K, B, N, N, C))).requires_grad_()
+    g = torch.from_numpy(rng.random((B if dynamic else 1, K, N, N))
+                         ).requires_grad_()
+    w = torch.from_numpy(rng.normal(size=(K, K, C, H))).requires_grad_()
+    assert torch.autograd.gradcheck(cuda_bdgcn.PairProjectFn.apply,
+                                    (h1, g, w))
+
+
+def test_folded_pair_project_records_through_pair_project_fn():
+    h1, g, w = map(torch.from_numpy, _bdgcn_inputs(np.random.default_rng(12)))
+    out = cuda_bdgcn.folded_pair_project(h1.requires_grad_(), g, w)
+    assert type(out.grad_fn).__name__ == "PairProjectFnBackward"
+    with torch.no_grad():
+        assert cuda_bdgcn.folded_pair_project(h1, g, w).grad_fn is None
+
+
 def test_cpu_wrappers_take_plain_version_without_launching():
     rng = np.random.default_rng(6)
     xp = torch.from_numpy(rng.normal(size=(3, 5, 16)).astype(np.float32))
     w = torch.from_numpy(rng.normal(size=(4, 16)).astype(np.float32))
     h1, g, wr = map(torch.from_numpy, _bdgcn_inputs(rng))
-    before = (cuda_lstm.LSTM_INFER_LAST.launches,
-              cuda_lstm.LSTM_INFER_COLLECT.launches,
-              cuda_bdgcn.BDGCN_PAIR_FWD.launches)
+    kernels = (cuda_lstm.LSTM_INFER_LAST, cuda_lstm.LSTM_INFER_COLLECT,
+               cuda_lstm.LSTM_TRAIN_FWD, cuda_lstm.LSTM_TRAIN_BWD,
+               cuda_lstm.LSTM_DW_REDUCE, cuda_bdgcn.BDGCN_PAIR_FWD,
+               cuda_bdgcn.BDGCN_PAIR_BWD, cuda_bdgcn.BDGCN_DW_REDUCE)
+    before = [k.launches for k in kernels]
     for collect in (False, True):
         torch.testing.assert_close(
             cuda_lstm.lstm_layer_infer(xp, w, collect),
@@ -134,9 +234,18 @@ def test_cpu_wrappers_take_plain_version_without_launching():
     torch.testing.assert_close(
         cuda_bdgcn.folded_pair_project(h1, g, wr),
         cuda_bdgcn.folded_pair_project_plain(h1, g, wr), rtol=0, atol=0)
-    assert before == (cuda_lstm.LSTM_INFER_LAST.launches,
-                      cuda_lstm.LSTM_INFER_COLLECT.launches,
-                      cuda_bdgcn.BDGCN_PAIR_FWD.launches)
+    hs, cs = cuda_lstm.lstm_layer_train(xp, w)
+    for a, b in zip((hs, cs), cuda_lstm.lstm_layer_train_plain(xp, w)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(cuda_lstm.lstm_layer_bwd(xp, w, hs, cs, hs, None),
+                    cuda_lstm.lstm_layer_bwd_plain(xp, w, hs, cs, hs, None)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    dout = torch.ones((3, 9, 9, 8))
+    for a, b in zip(cuda_bdgcn.folded_pair_project_bwd(h1, g, wr, dout),
+                    cuda_bdgcn.folded_pair_project_bwd_plain(h1, g, wr,
+                                                             dout)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert before == [k.launches for k in kernels]
 
 
 def test_non_cuda_non_cpu_tensors_raise():
@@ -144,8 +253,16 @@ def test_non_cuda_non_cpu_tensors_raise():
     with pytest.raises(ValueError, match="cuda or cpu"):
         cuda_lstm.lstm_layer_infer(xp, torch.zeros((2, 8), device="meta"),
                                    False)
-    h1 = torch.zeros((3, 1, 4, 4, 2), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
-        cuda_bdgcn.folded_pair_project(
-            h1, torch.zeros((1, 3, 4, 4), device="meta"),
-            torch.zeros((3, 3, 2, 2), device="meta"))
+        cuda_lstm.lstm_layer_train(xp, torch.zeros((2, 8), device="meta"))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cuda_lstm.lstm_layer_bwd(xp, torch.zeros((2, 8), device="meta"),
+                                 None, None, None, None)
+    h1 = torch.zeros((3, 1, 4, 4, 2), device="meta")
+    g = torch.zeros((1, 3, 4, 4), device="meta")
+    wr = torch.zeros((3, 3, 2, 2), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cuda_bdgcn.folded_pair_project(h1, g, wr)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cuda_bdgcn.folded_pair_project_bwd(
+            h1, g, wr, torch.zeros((1, 4, 4, 2), device="meta"))
