@@ -10,20 +10,23 @@ Phases, each fatal on failure:
      the shapes the serve and training paths give it and at odd sizes
      (the backward kernels with and without a dcs cotangent, and twice,
      to show that dW is bit-equal from run to run);
-  3. serve: a ServeEngine on the card (synthetic data, seed 0, fresh seeded
-     weights at the reference widths) answers test-split windows in every
+  3. serve: a ServeEngine on the card (synthetic data, seed 0; fresh
+     weights at the reference widths from the first init seed that leaves
+     no branch's ReLU head dead) answers test-split windows in every
      bucket (1, 2, 4, 8); the predictions must be finite, match the same
      weights' plain rollout on the card, and the kernels' launch counts
      must rise by exactly the expected numbers (none of the training
      kernels). Then once more with a 2-layer LSTM, which puts the collect
      kernel on the path;
-  4. train: at the reference configuration, the kernel arm's parameter
-     gradients match the plain arms' on a full and a repeat-padded batch,
-     and its first 20 step losses track theirs; a ModelTrainer takes 3
-     epochs on the card with exactly M*L = 2 launches of each LSTM training
-     entry and M*3 = 6 of each BDGCN entry per step, its loss falls, its
-     checkpoint is written, and a fresh trainer in test mode reloads it,
-     rolls out 7 steps and appends finite scores;
+  4. train: at the reference configuration, every branch is live and
+     every parameter gradient of the kernel arms is non-zero and matches
+     the plain arms' on a full and a repeat-padded batch, and the first 20
+     step losses track theirs; a ModelTrainer takes 3 epochs on the card
+     with exactly M*L = 2 launches of each LSTM training entry, M*3 = 6 of
+     each BDGCN entry and 2 + 6 of the shared dW reduction per step, moves
+     every parameter, its loss falls, its checkpoint is written, and a
+     fresh trainer in test mode reloads it, rolls out 7 steps and appends
+     finite scores;
   5. time each kernel beside its bound, its plain version and one PyTorch
      library call, the rollout per bucket, the train step, and the
      device's busy share.
@@ -85,16 +88,19 @@ KERNEL_META = {
                        "mpgcn_tpu/nn/pallas_lstm.py:414"),
     "lstm_train_bwd": ("cuda_lstm", "LSTM_TRAIN_BWD", "lstm_train.cu",
                        "mpgcn_tpu/nn/pallas_lstm.py:519"),
-    "lstm_dw_reduce": ("cuda_lstm", "LSTM_DW_REDUCE", "lstm_train.cu",
-                       "mpgcn_tpu/nn/pallas_lstm.py:519"),
+    # the fixed-order dW sum of both backward kernels (the LSTM BPTT's and
+    # K-BDGCN-bwd's, mpgcn_tpu/nn/pallas_bdgcn.py:233 too): one entry
+    "dw_reduce": ("cuda_lstm", "DW_REDUCE", "lstm_train.cu",
+                  "mpgcn_tpu/nn/pallas_lstm.py:519"),
     "bdgcn_pair_bwd": ("cuda_bdgcn", "BDGCN_PAIR_BWD", "bdgcn_pair_bwd.cu",
                        "mpgcn_tpu/nn/pallas_bdgcn.py:233"),
-    "bdgcn_dw_reduce": ("cuda_bdgcn", "BDGCN_DW_REDUCE",
-                        "bdgcn_pair_bwd.cu",
-                        "mpgcn_tpu/nn/pallas_bdgcn.py:233"),
 }
-TRAIN_KERNELS = ("lstm_train_fwd", "lstm_train_bwd", "lstm_dw_reduce",
-                 "bdgcn_pair_bwd", "bdgcn_dw_reduce")
+TRAIN_KERNELS = ("lstm_train_fwd", "lstm_train_bwd", "dw_reduce",
+                 "bdgcn_pair_bwd")
+#: a branch whose FC+ReLU head outputs fewer non-zeros than this on the
+#: first training batch counts as dead: its gradients are all 0, so the
+#: gradient checks and the training run would not reach its kernels
+LIVE_SHARE = 0.1
 
 
 def kernels():
@@ -297,23 +303,20 @@ def phase_train_kernels(dev, rng):
             inputs["bdgcn_dynamic" if dynamic else "bdgcn"] = (h1, g, wr,
                                                                dout)
 
-    # the reductions at the partial counts the training step gives them
+    # the shared reduction at the partial counts the training step gives it
     xp, w = inputs["lstm"][:2]
     T, R, G = xp.shape
-    P_l = cuda_lstm.bwd_blocks(R, G // 4, dev)
-    P_b = cuda_bdgcn.bwd_blocks(4 * 47 * 47, K, dev)
-    for name, mod, kern, P, n in (
-            ("lstm_dw_reduce", cuda_lstm, cuda_lstm.LSTM_DW_REDUCE, P_l,
-             G * G // 4),
-            ("bdgcn_dw_reduce", cuda_bdgcn, cuda_bdgcn.BDGCN_DW_REDUCE, P_b,
+    for key, P, n in (
+            ("dw_reduce", cuda_lstm.bwd_blocks(R, G // 4, dev), G * G // 4),
+            ("dw_reduce_bdgcn", cuda_bdgcn.bwd_blocks(4 * 47 * 47, K, dev),
              K * K * 32 * 32)):
         part = dev_t(rng.normal(size=(P, n)))
-        out = torch.empty((n,), dtype=torch.float32, device=dev)
-        kern.launch((part, out), (P, n))
+        out = cuda_lstm.dw_reduce(part)
         torch.cuda.synchronize()
-        err[name] = compare(f"{name} P={P} n={n}", out,
-                            mod.dw_reduce_plain(part), REDUCE_TOL)
-        inputs[name] = part
+        err["dw_reduce"] = max(err["dw_reduce"], compare(
+            f"dw_reduce P={P} n={n}", out, cuda_lstm.dw_reduce_plain(part),
+            REDUCE_TOL))
+        inputs[key] = part
     return err, inputs
 
 
@@ -537,8 +540,8 @@ def _per_step(cfg, train: bool) -> dict:
     counts = dict.fromkeys(KERNEL_META, 0)
     if train:
         counts.update(lstm_train_fwd=M * L, lstm_train_bwd=M * L,
-                      lstm_dw_reduce=M * L, bdgcn_pair_fwd=M * G,
-                      bdgcn_pair_bwd=M * G, bdgcn_dw_reduce=M * G)
+                      dw_reduce=M * L + M * G, bdgcn_pair_fwd=M * G,
+                      bdgcn_pair_bwd=M * G)
     else:
         counts.update(lstm_infer_last=M, lstm_infer_collect=M * (L - 1),
                       bdgcn_pair_fwd=M * G)
@@ -551,6 +554,54 @@ def _scaled(counts: dict, k: int) -> dict:
 
 def _add(a: dict, b: dict) -> dict:
     return {n: a.get(n, 0) + b.get(n, 0) for n in set(a) | set(b)}
+
+
+def branch_shares(model, x, graphs):
+    """Per branch, the non-zero shares of its pre-head BDGCN output and of
+    its FC+ReLU head (the model's output is the mean of the heads)."""
+    import torch
+    import torch.nn.functional as F
+
+    _, hidden = model(x, graphs, return_hidden=True, inference=True)
+    with torch.no_grad():
+        return [(float((h != 0).float().mean()),
+                 float((F.relu(b.fc(h)) != 0).float().mean()))
+                for b, h in zip(model.branches, hidden)]
+
+
+def live_init_seed(cfg, data, dev, tries=16):
+    """The first init seed from cfg.seed up whose fresh weights give every
+    branch a live pre-head output and head on the first training batch of
+    ``data`` (which stays as it was drawn). At the reference widths some
+    seeds leave one branch's ReLU head dead; its gradients are then all 0
+    and neither the gradient checks nor the training run would reach its
+    kernels with a non-zero cotangent. The port's trainer has no dead-init
+    probe yet, and the JAX trainer's looks at the whole model only."""
+    import torch
+
+    from mpgcn_tpu_torch.data.pipeline import DataPipeline
+    from mpgcn_tpu_torch.nn.mpgcn import MPGCN
+    from mpgcn_tpu_torch.train.predict import graphs_for
+
+    tcfg = cfg.replace(pred_len=1)
+    pipe = DataPipeline(tcfg, data, dev)
+    batch = next(pipe.batches("train", pad_to_full=True))
+    x = torch.from_numpy(np.ascontiguousarray(batch.x)).to(dev)
+    keys = torch.from_numpy(batch.keys.astype(np.int64)).to(dev)
+    for seed in range(cfg.seed, cfg.seed + tries):
+        model = MPGCN.from_config(tcfg.replace(seed=seed), device=dev)
+        shares = branch_shares(model, x,
+                               graphs_for(pipe.banks, keys, model.sources))
+        live = min(min(sh) for sh in shares) > LIVE_SHARE
+        print(f"[init] seed {seed}: non-zero shares per branch (pre-head, "
+              f"head) {[(round(a, 4), round(b, 4)) for a, b in shares]}: "
+              f"{'every branch live' if live else 'a branch is dead'}",
+              flush=True)
+        if live:
+            return seed
+    raise RuntimeError(f"chip smoke check failed: no init seed in "
+                       f"{cfg.seed}..{cfg.seed + tries - 1} gives every "
+                       f"branch a live head")
 
 
 def phase_train(dev, cfg, data, out_dir):
@@ -577,10 +628,11 @@ def phase_train(dev, cfg, data, out_dir):
     partial = _batch(md, np.array([0, 1, 2, 2]), 3)
 
     x, _, keys = kern._tensors(full)
-    pred = kern.model(x, graphs_for(kern.banks, keys, kern.model.sources))
-    live = float((pred != 0).float().mean())
-    require(live > 0.1, f"dead ReLU head at init ({live:.3f} non-zero): "
-                        f"the gradient checks would be vacuous")
+    shares = branch_shares(kern.model, x, graphs_for(kern.banks, keys,
+                                                     kern.model.sources))
+    require(min(min(sh) for sh in shares) > LIVE_SHARE,
+            f"a dead branch at init (non-zero shares per branch, pre-head "
+            f"and head: {shares}): the gradient checks would be vacuous")
     require(tcfg.loss == "MSE", "the float64 reference computes MSE")
     ref64 = copy.deepcopy(plain.model).double()
 
@@ -620,6 +672,9 @@ def phase_train(dev, cfg, data, out_dir):
         lk, gk, mk = grads(kern.model, kern, batch, False)
         lp, gp, mp = grads(plain.model, plain, batch, False)
         l64, g64, m64 = grads(ref64, plain, batch, True)
+        zero = [n for n, g in g64.items() if not bool(g.any())]
+        require(not zero, f"{label}: all-zero float64 gradients {zero}: "
+                          f"their comparison would be vacuous")
         flips = {arm: sum(int((a != b).sum()) for a, b in zip(m, m64))
                  for arm, m in (("kernel", mk), ("plain", mp))}
         worst = {}
@@ -649,8 +704,7 @@ def phase_train(dev, cfg, data, out_dir):
               + f"; last-ReLU entries on the other side of zero than in "
                 f"float64: kernel {flips['kernel']}, plain "
                 f"{flips['plain']} of {sum(m.numel() for m in m64)}; "
-                f"all-zero gradients (float64): "
-                f"{[n for n, g in g64.items() if not bool(g.any())]}",
+                f"no gradient all zero",
               flush=True)
 
     batches = list(kern.pipeline.batches("train", pad_to_full=True))
@@ -684,11 +738,16 @@ def phase_train(dev, cfg, data, out_dir):
 
     # the main path: a trainer with fresh seeded weights takes 3 epochs
     tr = ModelTrainer(tcfg, data, device=dev)
+    init = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
     reset_counts()
     t0 = time.perf_counter()
     hist = tr.train()
     train_counts = read_counts()
     train_s = time.perf_counter() - t0
+    frozen = [n for n, p in tr.model.named_parameters()
+              if torch.equal(p.detach(), init[n])]
+    require(not frozen, f"parameters the training run never moved: "
+                        f"{frozen}")
     steps = tr.global_step
     evals = len(hist["validate"]) * tr.pipeline.num_batches("validate")
     require(steps == tcfg.num_epochs * tr.pipeline.num_batches("train"),
@@ -791,18 +850,22 @@ def phase_train_times(dev, kin, train):
           f" ms; library calls: torch.nn.LSTM (cuDNN, input projection "
           f"included) forward and backward at R={R}, T={T}, H={H}")
 
-    for name, mod, kern in (
-            ("lstm_dw_reduce", cuda_lstm, cuda_lstm.LSTM_DW_REDUCE),
-            ("bdgcn_dw_reduce", cuda_bdgcn, cuda_bdgcn.BDGCN_DW_REDUCE)):
-        prt = kin[name]
+    # the shared reduction at both of its shapes; the kernels line keeps
+    # the LSTM's (the larger: 264 x 4,096 partials against 30 x 9,216)
+    for key in ("dw_reduce_bdgcn", "dw_reduce"):
+        prt = kin[key]
         Pn, n = prt.shape
         red = torch.empty((n,), dtype=torch.float32, device=dev)
         b_ms, b_by = bound(4 * (Pn * n + n), Pn * n)
-        times[name] = dict(
-            ms=time_ms(lambda: kern.launch((prt, red), (Pn, n))),
-            plain_ms=time_ms(lambda: mod.dw_reduce_plain(prt), iters=10),
+        times["dw_reduce"] = dict(
+            ms=time_ms(lambda: cuda_lstm.DW_REDUCE.launch((prt, red),
+                                                          (Pn, n))),
+            plain_ms=time_ms(lambda: cuda_lstm.dw_reduce_plain(prt),
+                             iters=10),
             library_ms=time_ms(lambda: torch.sum(prt, 0)),
             bound_ms=b_ms, bound_by=b_by)
+        print(f"[time] dw_reduce P={Pn} n={n}: "
+              f"{json.dumps(times['dw_reduce'])}")
 
     for key, eq in (("bdgcn", "obmcl,dce,odlh->bmeh"),
                     ("bdgcn_dynamic", "obmcl,bdce,odlh->bmeh")):
@@ -835,8 +898,7 @@ def phase_train_times(dev, kin, train):
         print(f"[time] K-BDGCN-bwd {label} B={B} N={N}: {json.dumps(entry)}")
         if key == "bdgcn":
             times["bdgcn_pair_bwd"] = entry
-    for name in ("lstm_train_fwd", "lstm_train_bwd", "lstm_dw_reduce",
-                 "bdgcn_dw_reduce"):
+    for name in ("lstm_train_fwd", "lstm_train_bwd"):
         print(f"[time] {name}: {json.dumps(times[name])}")
 
     batches = train["batches"]
@@ -898,6 +960,9 @@ def main() -> int:
 
     cfg = MPGCNConfig()  # reference widths: N=47, hidden 32, M=2, K=3
     data = synthetic_dataset(cfg)
+    # every phase draws its fresh weights from a seed that leaves no branch
+    # dead; the data stays the seed-0 series
+    cfg = cfg.replace(seed=live_init_seed(cfg, data, dev))
     eng, launches = serve_phase(
         "1-layer", cfg, data, dev, groups=(1, 2, 3, 4, 5, 8, 8),
         expect_per_batch={"lstm_infer_last": 14, "lstm_infer_collect": 0,

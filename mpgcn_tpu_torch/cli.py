@@ -65,8 +65,8 @@ def main(argv=None):
     cfg = MPGCNConfig(**args)
     trainer = ModelTrainer(cfg, synthetic_dataset(cfg), device=device)
     if cfg.mode == "train":
-        return trainer.train(modes=("train", "validate"))
-    return trainer.test(modes=("train", "test"))
+        return trainer.train()
+    return trainer.test()
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-// K-BDGCN-bwd: the backward of the folded BDGCN pair projection, plus the
-// fixed-order sum of its per-block dW partials.
+// K-BDGCN-bwd: the backward of the folded BDGCN pair projection, up to the
+// per-block dW partials (summed by dw_reduce_f32 of lstm_train.cu).
 //
 // Replaces the TPU kernel _bwd_kernel of mpgcn_tpu/nn/pallas_bdgcn.py
 // (launched by _bwd_pallas). For the forward (bdgcn_pair_fwd.cu)
@@ -37,10 +37,10 @@
 //   2. dw_partial_kernel, one block per (chunk p of the B*M*N rows, pair
 //      (o, d)): the (C, H) product h1[o]^T Z_d over its rows, written as a
 //      partial. The K^2 pair bank never exists; only the K-wide Z does.
-// bdgcn_dw_reduce_f32 then adds the P partials of each dW entry in a fixed
-// order. No float atomics: two runs give bit-equal dW. Shared-memory rows
-// read across a warp's lanes are padded by one float against bank
-// conflicts.
+// dw_reduce_f32 (lstm_train.cu, shared with the LSTM BPTT) then adds the P
+// partials of each dW entry in a fixed order. No float atomics: two runs
+// give bit-equal dW. Shared-memory rows read across a warp's lanes are
+// padded by one float against bank conflicts.
 
 #include <cuda_runtime.h>
 
@@ -227,15 +227,6 @@ dw_partial_kernel(const float* __restrict__ h1, const float* __restrict__ z,
   }
 }
 
-__global__ void dw_reduce_kernel(const float* __restrict__ part,
-                                 float* __restrict__ out, int P, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.0f;
-  for (int p = 0; p < P; ++p) s += part[(size_t)p * n + i];
-  out[i] = s;
-}
-
 template <int K>
 int launch(const void* h1, const void* g, const void* w, const void* dout,
            void* dh1, void* z, void* dw_part, int B, int M, int N, int C,
@@ -283,13 +274,4 @@ extern "C" int bdgcn_pair_bwd_f32(const void* h1, const void* g,
     case 5: return launch<5>(h1, g, w, dout, dh1, z, dw_part, B, M, N, C, H, Bg, P, s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-extern "C" int bdgcn_dw_reduce_f32(const void* part, void* out, int P, int n,
-                                   void* stream) {
-  if (P < 1 || n < 1) return cudaErrorInvalidValue;
-  dw_reduce_kernel<<<(n + 255) / 256, 256, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part), static_cast<float*>(out), P, n);
-  return cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 // K-LSTM-train: the training forward and the reverse-time BPTT of one LSTM
-// layer with zero initial state, plus the fixed-order sum of the BPTT's
-// per-block dW_hh^T partials.
+// layer with zero initial state, plus the fixed-order sum of per-block dW
+// partials that both backward kernels (this BPTT and bdgcn_pair_bwd.cu) use.
 //
 // Replaces the TPU kernels of mpgcn_tpu/nn/pallas_lstm.py on the training
 // path: _lstm_fwd_kernel (launched by _fused_layer_fwd_impl; stores hs and
@@ -11,7 +11,7 @@
 //   lstm_train_bwd_f32   x_proj, w_hh_T, hs, cs, dhs, dcs (T, R, H; a null
 //                        dhs or dcs means zero) -> dx_proj (T, R, 4H) and
 //                        per-block partials of dW_hh^T (P, H, 4H)
-//   lstm_dw_reduce_f32   partials (P, n) -> out (n), summed over p in order
+//   dw_reduce_f32        partials (P, n) -> out (n), summed over p in order
 //
 //   gates = x_proj_t + h_{t-1} @ w_hh_T, torch order i, f, g, o;
 //   c_t = f * c_{t-1} + i * g;  h_t = o * tanh(c_t).
@@ -36,7 +36,7 @@
 // block walks t = T-1..0 inside its own loop for each row tile it takes
 // (a grid of a few blocks per SM strides over the tiles), and sums dW_hh^T
 // into its own shared-memory block. Each block writes that sum once as a
-// partial; lstm_dw_reduce_f32 then adds the partials in a fixed order. No
+// partial; dw_reduce_f32 then adds the partials in a fixed order. No
 // float atomics: two runs give bit-equal dW. Per step the block stages
 // h_{t-1} (read from hs at t-1, zero at t = 0 -- no shifted copies),
 // recomputes the gates from x_proj + h_{t-1} w_hh_T exactly as _cell_bwd
@@ -327,8 +327,8 @@ extern "C" int lstm_train_bwd_f32(const void* xp, const void* whhT,
   return cudaGetLastError();
 }
 
-extern "C" int lstm_dw_reduce_f32(const void* part, void* out, int P, int n,
-                                  void* stream) {
+extern "C" int dw_reduce_f32(const void* part, void* out, int P, int n,
+                             void* stream) {
   if (P < 1 || n < 1) return cudaErrorInvalidValue;
   dw_reduce_kernel<<<(n + 255) / 256, 256, 0,
                      static_cast<cudaStream_t>(stream)>>>(

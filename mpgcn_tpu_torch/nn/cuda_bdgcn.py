@@ -11,9 +11,10 @@ There is no fallback: a CUDA tensor the kernel does not take raises.
 Under autograd it goes through ``PairProjectFn``, whose backward
 ``folded_pair_project_bwd`` launches ``bdgcn_pair_bwd_f32`` of
 ``csrc/bdgcn_pair_bwd.cu`` (replacing ``_bwd_kernel``) for dh1 and the
-per-block dW partials, then ``bdgcn_dw_reduce_f32`` for their fixed-order
-sum. The JAX package sends small pair counts to an XLA einsum loop instead
-of its backward kernel; this port has no such switch. The support
+per-block dW partials, then ``cuda_lstm.dw_reduce`` for their fixed-order
+sum (the one reduction entry both backward kernels share). The JAX
+package sends small pair counts to an XLA einsum loop instead of its
+backward kernel; this port has no such switch. The support
 cotangent stays plain einsums (``_grad_g``), computed only when a support
 requires grad, as the JAX package leaves it to XLA.
 """
@@ -23,8 +24,7 @@ from __future__ import annotations
 import torch
 
 from mpgcn_tpu_torch.native.build import CudaKernel
-# the plain version of bdgcn_dw_reduce_f32 too: the same fixed-order sum
-from mpgcn_tpu_torch.nn.cuda_lstm import dw_reduce_plain  # noqa: F401
+from mpgcn_tpu_torch.nn.cuda_lstm import dw_reduce
 
 #: channel and hidden widths the kernels take (per-thread register tiles)
 MAX_WIDTH = 64
@@ -40,8 +40,6 @@ BDGCN_PAIR_FWD = CudaKernel("bdgcn_pair_fwd", "bdgcn_pair_fwd_f32",
                             n_ptrs=4, n_ints=7)
 BDGCN_PAIR_BWD = CudaKernel("bdgcn_pair_bwd", "bdgcn_pair_bwd_f32",
                             n_ptrs=7, n_ints=8)
-BDGCN_DW_REDUCE = CudaKernel("bdgcn_pair_bwd", "bdgcn_dw_reduce_f32",
-                             n_ptrs=2, n_ints=2)
 
 
 def _dest(Gk: torch.Tensor, d: int, dyn: bool):
@@ -164,7 +162,7 @@ def folded_pair_project_bwd(h1, Gk, Wr, dout):
     """Backward of the folded pairs for the cotangent dout (B, M, N, H):
     (dh1 (K, B, M, N, C), dW (K, K, C, H)). CPU tensors take the plain
     version; CUDA tensors launch ``bdgcn_pair_bwd_f32`` and then
-    ``bdgcn_dw_reduce_f32`` on its per-block partials."""
+    ``dw_reduce`` on its per-block partials."""
     if not _is_cuda(h1, "K-BDGCN-bwd"):
         return folded_pair_project_bwd_plain(h1, Gk, Wr, dout)
     _check_cuda_args(h1, Gk, Wr, "K-BDGCN-bwd")
@@ -183,9 +181,7 @@ def folded_pair_project_bwd(h1, Gk, Wr, dout):
                        device=h1.device)
     BDGCN_PAIR_BWD.launch((h1, Gk, Wr, dout, dh1, z, part),
                           (K, B, M, N, C, H, Gk.shape[0], P))
-    dW = torch.empty((K, K, C, H), dtype=torch.float32, device=h1.device)
-    BDGCN_DW_REDUCE.launch((part, dW), (P, K * K * C * H))
-    return dh1, dW
+    return dh1, dw_reduce(part)
 
 
 class PairProjectFn(torch.autograd.Function):

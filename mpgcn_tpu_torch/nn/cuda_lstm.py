@@ -14,9 +14,10 @@ The training path goes through ``LSTMLayerFn``: its forward
 ``csrc/lstm_train.cu`` replaces ``_lstm_fwd_kernel``), and its backward
 ``lstm_layer_bwd`` runs the reverse-time BPTT (``lstm_train_bwd_f32``
 replaces ``_lstm_bwd_kernel``) and sums the per-block dW_hh^T partials in
-a fixed order (``lstm_dw_reduce_f32``). The JAX package sends small row
-counts to an XLA scan instead of its backward kernel; this port has no such
-switch: a CUDA tensor always launches the backward kernel.
+a fixed order (``dw_reduce``, the ``dw_reduce_f32`` entry of the same
+source, which K-BDGCN-bwd's dW sum launches too). The JAX package sends
+small row counts to an XLA scan instead of its backward kernel; this port
+has no such switch: a CUDA tensor always launches the backward kernel.
 
 The input projection ``x @ W_ih^T + b`` stays a torch matmul outside the
 kernels, as the JAX package leaves it to XLA (pallas_lstm.py:564).
@@ -39,8 +40,8 @@ LSTM_TRAIN_FWD = CudaKernel("lstm_train", "lstm_train_fwd_f32",
                             n_ptrs=4, n_ints=3)
 LSTM_TRAIN_BWD = CudaKernel("lstm_train", "lstm_train_bwd_f32",
                             n_ptrs=8, n_ints=4)
-LSTM_DW_REDUCE = CudaKernel("lstm_train", "lstm_dw_reduce_f32",
-                            n_ptrs=2, n_ints=2)
+#: the fixed-order sum of per-block dW partials, for both backward kernels
+DW_REDUCE = CudaKernel("lstm_train", "dw_reduce_f32", n_ptrs=2, n_ints=2)
 
 #: BPTT blocks per SM: the blocks stride over the row tiles, so the
 #: dW_hh^T partial buffer stays at about this many x SMs x H x 4H floats
@@ -121,9 +122,8 @@ def lstm_layer_bwd_plain(x_proj, w_hh_T, hs, cs, dhs, dcs):
 
 
 def dw_reduce_plain(part: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of ``lstm_dw_reduce_f32`` and
-    ``bdgcn_dw_reduce_f32``: the P partials (P, ...) summed in the
-    kernels' fixed order, p = 0, 1, ..., P-1."""
+    """Plain PyTorch version of ``dw_reduce_f32``: the P partials (P, ...)
+    summed in the kernel's fixed order, p = 0, 1, ..., P-1."""
     out = part[0].clone()
     for p in range(1, part.shape[0]):
         out += part[p]
@@ -157,6 +157,23 @@ def _check_cuda_args(x_proj: torch.Tensor, w_hh_T: torch.Tensor,
         raise ValueError("x_proj and w_hh_T lie on different devices")
     if x_proj.shape[0] < 1 or x_proj.shape[1] < 1:
         raise ValueError(f"empty x_proj {tuple(x_proj.shape)}")
+
+
+def dw_reduce(part: torch.Tensor) -> torch.Tensor:
+    """The fixed-order sum of a dW's float32 partials: (P, ...) -> (...).
+    CPU tensors take the plain version; CUDA tensors launch
+    ``dw_reduce_f32``, which uses no float atomics, so two runs give
+    bit-equal sums."""
+    if not _check_device(part, "dw_reduce"):
+        return dw_reduce_plain(part)
+    if part.dtype != torch.float32 or part.ndim < 2 or part.numel() == 0:
+        raise ValueError(f"dw_reduce takes non-empty float32 partials "
+                         f"(P, ...), got {part.dtype} {tuple(part.shape)}")
+    out = torch.empty(part.shape[1:], dtype=torch.float32,
+                      device=part.device)
+    DW_REDUCE.launch((part.contiguous(), out),
+                     (part.shape[0], out.numel()))
+    return out
 
 
 def lstm_layer_infer(x_proj: torch.Tensor, w_hh_T: torch.Tensor,
@@ -210,7 +227,7 @@ def lstm_layer_bwd(x_proj, w_hh_T, hs, cs, dhs, dcs):
     """Backward of one layer: the cotangents dhs, dcs of (hs, cs) (None
     means zero) -> (dx_proj (T, R, 4H), dw_hh_T (H, 4H)). CPU tensors take
     the plain version; CUDA tensors launch ``lstm_train_bwd_f32`` and then
-    ``lstm_dw_reduce_f32`` on its per-block partials."""
+    ``dw_reduce`` on its per-block partials."""
     if not _check_device(x_proj, "K-LSTM-train"):
         return lstm_layer_bwd_plain(x_proj, w_hh_T, hs, cs, dhs, dcs)
     _check_cuda_args(x_proj, w_hh_T, "K-LSTM-train")
@@ -232,9 +249,7 @@ def lstm_layer_bwd(x_proj, w_hh_T, hs, cs, dhs, dcs):
     part = torch.empty((P, H, four_h), dtype=torch.float32,
                        device=x_proj.device)
     LSTM_TRAIN_BWD.launch((*args, dxp, part), (T, R, H, P))
-    dw = torch.empty((H, four_h), dtype=torch.float32, device=x_proj.device)
-    LSTM_DW_REDUCE.launch((part, dw), (P, H * four_h))
-    return dxp, dw
+    return dxp, dw_reduce(part)
 
 
 class LSTMLayerFn(torch.autograd.Function):
@@ -258,34 +273,29 @@ class LSTMLayerFn(torch.autograd.Function):
         return lstm_layer_bwd(x_proj, w_hh_T, hs, cs, dhs, dcs)
 
 
+def lstm_layer_recorded(x_proj: torch.Tensor, w_hh_T: torch.Tensor,
+                        collect: bool) -> torch.Tensor:
+    """One training layer under autograd through ``LSTMLayerFn``, with the
+    signature of ``lstm_layer_infer``: every h_t (T, R, H) when
+    ``collect``, else h_T (R, H)."""
+    hs, _ = LSTMLayerFn.apply(x_proj, w_hh_T)
+    return hs if collect else hs[-1]
+
+
 def lstm_last_step_fused(layers, x: torch.Tensor,
-                         layer_fn=lstm_layer_infer,
-                         train: bool = False) -> torch.Tensor:
+                         layer_fn=lstm_layer_infer) -> torch.Tensor:
     """LSTM stack over batch-first sequences, last hidden state only:
     x (R, T, F) -> (R, H) (counterpart of ``lstm_last_step_fused``).
     ``layers`` is a sequence of objects with ``w_ih``, ``w_hh``, ``b_ih``,
-    ``b_hh``.
-
-    With ``train`` every layer runs through ``LSTMLayerFn`` (the training
-    kernels, under autograd): each layer's hs feeds the next and the last
-    returns hs[-1]. Otherwise ``layer_fn`` runs one layer (the inference
-    kernel wrapper, or ``lstm_layer_infer_plain`` for the plain arm, which
-    autograd differentiates like any torch code): every layer but the last
-    streams h_t (collect); the last writes h_T only."""
+    ``b_hh``. ``layer_fn`` runs one layer (``lstm_layer_infer``,
+    ``lstm_layer_recorded`` or ``lstm_layer_infer_plain``): every layer but
+    the last streams h_t (collect); the last gives h_T only."""
     # (T, R, F) view, so every projection comes out time-major (T, R, 4H)
     seq_t = x.transpose(0, 1)
-    h = None
-    for idx, layer in enumerate(layers):
-        last = idx == len(layers) - 1
+    for layer in layers[:-1]:
         x_proj = torch.matmul(seq_t, layer.w_ih.t()) + (layer.b_ih
                                                         + layer.b_hh)
-        if train:
-            hs, _ = LSTMLayerFn.apply(x_proj, layer.w_hh.t())
-            out = hs[-1] if last else hs
-        else:
-            out = layer_fn(x_proj, layer.w_hh.t(), collect=not last)
-        if last:
-            h = out
-        else:
-            seq_t = out
-    return h
+        seq_t = layer_fn(x_proj, layer.w_hh.t(), collect=True)
+    last = layers[-1]
+    x_proj = torch.matmul(seq_t, last.w_ih.t()) + (last.b_ih + last.b_hh)
+    return layer_fn(x_proj, last.w_hh.t(), collect=False)

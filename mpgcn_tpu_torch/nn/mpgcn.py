@@ -25,12 +25,16 @@ from mpgcn_tpu_torch.nn.cuda_lstm import (
     lstm_last_step_fused,
     lstm_layer_infer,
     lstm_layer_infer_plain,
+    lstm_layer_recorded,
 )
 from mpgcn_tpu_torch.nn.init import linear_uniform
 from mpgcn_tpu_torch.nn.lstm import LSTM
 
-#: lstm_impl -> the function that runs one LSTM layer
-LSTM_LAYER_FNS = {"kernel": lstm_layer_infer, "plain": lstm_layer_infer_plain}
+#: lstm_impl -> the function that runs one LSTM layer, by inference flag
+LSTM_LAYER_FNS = {
+    "kernel": {True: lstm_layer_infer, False: lstm_layer_recorded},
+    "plain": {True: lstm_layer_infer_plain, False: lstm_layer_infer_plain},
+}
 
 
 class Branch(nn.Module):
@@ -73,7 +77,7 @@ class MPGCN(nn.Module):
             raise ValueError(f"{len(self.sources)} branch sources for "
                              f"M={M} branches")
         self.lstm_impl, self.bdgcn_impl = lstm_impl, bdgcn_impl
-        self._lstm_layer_fn = LSTM_LAYER_FNS[lstm_impl]
+        self._lstm_layer_fns = LSTM_LAYER_FNS[lstm_impl]
         device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         self.branches = nn.ModuleList(
@@ -96,9 +100,8 @@ class MPGCN(nn.Module):
                 inference: bool):
         """One branch: (B*N^2, T, F) rows -> pre-head (B, N, N, H) and
         the FC+ReLU output (B, N, N, F)."""
-        h = lstm_last_step_fused(
-            branch.temporal.layers, lstm_in, layer_fn=self._lstm_layer_fn,
-            train=not inference and self.lstm_impl == "kernel")
+        h = lstm_last_step_fused(branch.temporal.layers, lstm_in,
+                                 layer_fn=self._lstm_layer_fns[inference])
         h = h.reshape(B, N, N, -1)
         for layer in branch.spatial:
             h = bdgcn_apply(layer, h, G, activation=F.relu,

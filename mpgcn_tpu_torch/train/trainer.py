@@ -145,14 +145,15 @@ class ModelTrainer:
         dt = time.perf_counter() - self._clock[0]
         return (self.global_step - self._clock[1]) / dt if dt > 0 else 0.0
 
-    def train(self, modes=("train", "validate"),
-              early_stop_patience: Optional[int] = None) -> dict:
-        """Epoch loop with validation early stopping (reference:
-        Model_Trainer.py:87-142). Returns the per-mode epoch losses."""
+    def train(self) -> dict:
+        """Epoch loop with validation early stopping after
+        ``cfg.early_stop_patience`` epochs without a better validation loss
+        (reference: Model_Trainer.py:87-142). Returns the train and
+        validate epoch losses."""
         cfg = self.cfg
-        patience = early_stop_patience or cfg.early_stop_patience
+        modes = ("train", "validate")
         os.makedirs(cfg.output_dir, exist_ok=True)
-        best_val, patience_count = np.inf, patience
+        best_val, patience_count = np.inf, cfg.early_stop_patience
         history = {m: [] for m in modes}
         rng = np.random.default_rng(cfg.seed)
         self.best_epoch = 0
@@ -173,7 +174,7 @@ class ModelTrainer:
                     save_checkpoint(self._ckpt_path(), self.model, epoch,
                                     extra=self._ckpt_extra(
                                         best_val=best_val))
-                    patience_count = patience
+                    patience_count = cfg.early_stop_patience
                 else:
                     print(f"Epoch {epoch}, validation loss does not "
                           f"improve from {best_val:.5}.")
@@ -208,13 +209,13 @@ class ModelTrainer:
         return rollout(self.model, self.banks, xt, kt,
                        pred_len).cpu().numpy()
 
-    def test(self, modes=("train", "test")) -> dict:
-        """Multi-step autoregressive evaluation + score-file append
-        (reference: Model_Trainer.py:145-185)."""
+    def test(self) -> dict:
+        """Multi-step autoregressive evaluation of the train and test
+        splits + score-file append (reference: Model_Trainer.py:145-185)."""
         cfg = self.cfg
         self.load_trained()
         results = {}
-        for mode in modes:
+        for mode in ("train", "test"):
             _banner(f"     {cfg.model} model testing on {mode} data "
                     f"begins:")
             forecasts, truths = [], []

@@ -166,7 +166,7 @@ def test_lstm_train_kernels_match_plain(cuda_device, T, R, H, with_dcs):
     w = t(rng.normal(size=(H, 4 * H)) / np.sqrt(H))
     before = [k.launches for k in (cuda_lstm.LSTM_TRAIN_FWD,
                                    cuda_lstm.LSTM_TRAIN_BWD,
-                                   cuda_lstm.LSTM_DW_REDUCE)]
+                                   cuda_lstm.DW_REDUCE)]
     hs, cs = cuda_lstm.lstm_layer_train(xp, w)
     hp, cp = cuda_lstm.lstm_layer_train_plain(xp, w)
     torch.testing.assert_close(hs, hp, **KERNEL_TOL)
@@ -177,7 +177,7 @@ def test_lstm_train_kernels_match_plain(cuda_device, T, R, H, with_dcs):
     torch.cuda.synchronize()
     assert [k.launches for k in (cuda_lstm.LSTM_TRAIN_FWD,
                                  cuda_lstm.LSTM_TRAIN_BWD,
-                                 cuda_lstm.LSTM_DW_REDUCE)] == [
+                                 cuda_lstm.DW_REDUCE)] == [
         b + 1 for b in before]
     dxr, dwr = cuda_lstm.lstm_layer_bwd_plain(xp, w, hs, cs, dhs, dcs)
     torch.testing.assert_close(dxp, dxr, **KERNEL_TOL)
@@ -196,17 +196,33 @@ def test_bdgcn_bwd_kernel_matches_plain(cuda_device, dynamic, K, B, N, C, H):
     dout = torch.from_numpy(np.random.default_rng(C).normal(
         size=(B, N, N, H)).astype(np.float32)).to(cuda_device)
     before = (cuda_bdgcn.BDGCN_PAIR_BWD.launches,
-              cuda_bdgcn.BDGCN_DW_REDUCE.launches)
+              cuda_lstm.DW_REDUCE.launches)
     dh1, dW = cuda_bdgcn.folded_pair_project_bwd(h1, g, w, dout)
     torch.cuda.synchronize()
     assert (cuda_bdgcn.BDGCN_PAIR_BWD.launches,
-            cuda_bdgcn.BDGCN_DW_REDUCE.launches) == (before[0] + 1,
-                                                     before[1] + 1)
+            cuda_lstm.DW_REDUCE.launches) == (before[0] + 1, before[1] + 1)
     r1, rW = cuda_bdgcn.folded_pair_project_bwd_plain(h1, g, w, dout)
     torch.testing.assert_close(dh1, r1, **KERNEL_TOL)
     _close_scaled(dW, rW)
     _, dW2 = cuda_bdgcn.folded_pair_project_bwd(h1, g, w, dout)
     assert torch.equal(dW, dW2), "dW differs between two runs"
+
+
+@pytest.mark.parametrize("P,shape", [(264, (32, 128)), (30, (3, 3, 32, 32)),
+                                     (1, (5,)), (7, (1001,))])
+def test_dw_reduce_kernel_matches_plain(cuda_device, P, shape):
+    """The shared dW reduction adds the partials in the plain version's
+    order, p = 0, 1, ..., so the two agree to the last bit."""
+    part = torch.from_numpy(np.random.default_rng(P).normal(
+        size=(P, *shape)).astype(np.float32)).to(cuda_device)
+    before = cuda_lstm.DW_REDUCE.launches
+    out = cuda_lstm.dw_reduce(part)
+    torch.cuda.synchronize()
+    assert cuda_lstm.DW_REDUCE.launches == before + 1
+    assert tuple(out.shape) == shape
+    assert torch.equal(out, cuda_lstm.dw_reduce_plain(part))
+    with pytest.raises(ValueError, match="float32"):
+        cuda_lstm.dw_reduce(part.double())
 
 
 def test_training_kernels_reject_what_they_do_not_take(cuda_device):
@@ -237,9 +253,10 @@ def test_training_kernels_reject_what_they_do_not_take(cuda_device):
 
 def test_trainer_step_runs_the_training_kernels(cuda_device, tmp_path):
     """One ModelTrainer step at M=2, 1 LSTM layer, 3 BDGCN layers: exactly
-    M = 2 launches of each LSTM training entry and M * 3 = 6 of each BDGCN
-    entry, no inference launch; then a validation step launches only the
-    inference kernels. The kernel arm's gradients match the plain arms'."""
+    M = 2 launches of each LSTM training entry, M * 3 = 6 of each BDGCN
+    entry and 2 + 6 = 8 of the shared dW reduction, no inference launch;
+    then a validation step launches only the inference kernels. The kernel
+    arm's gradients match the plain arms'."""
     cfg = MPGCNConfig(synthetic_T=200, synthetic_N=10, hidden_dim=16,
                       pred_len=1, seed=0, output_dir=str(tmp_path))
     data = synthetic_dataset(cfg)
@@ -250,9 +267,8 @@ def test_trainer_step_runs_the_training_kernels(cuda_device, tmp_path):
     batch = next(tr.pipeline.batches("train", pad_to_full=True))
     kernels = {**KERNELS, "lstm_train_fwd": cuda_lstm.LSTM_TRAIN_FWD,
                "lstm_train_bwd": cuda_lstm.LSTM_TRAIN_BWD,
-               "lstm_dw_reduce": cuda_lstm.LSTM_DW_REDUCE,
-               "bdgcn_pair_bwd": cuda_bdgcn.BDGCN_PAIR_BWD,
-               "bdgcn_dw_reduce": cuda_bdgcn.BDGCN_DW_REDUCE}
+               "dw_reduce": cuda_lstm.DW_REDUCE,
+               "bdgcn_pair_bwd": cuda_bdgcn.BDGCN_PAIR_BWD}
     for k in kernels.values():
         k.launches = 0
     for t in (tr, plain):
@@ -262,7 +278,7 @@ def test_trainer_step_runs_the_training_kernels(cuda_device, tmp_path):
     assert {n: k.launches for n, k in kernels.items()} == {
         "lstm_infer_last": 0, "lstm_infer_collect": 0,
         "bdgcn_pair_fwd": 6, "lstm_train_fwd": 2, "lstm_train_bwd": 2,
-        "lstm_dw_reduce": 2, "bdgcn_pair_bwd": 6, "bdgcn_dw_reduce": 6}
+        "dw_reduce": 8, "bdgcn_pair_bwd": 6}
     ref = dict(plain.model.named_parameters())
     for name, p in tr.model.named_parameters():
         torch.testing.assert_close(

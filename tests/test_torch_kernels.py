@@ -223,8 +223,8 @@ def test_cpu_wrappers_take_plain_version_without_launching():
     h1, g, wr = map(torch.from_numpy, _bdgcn_inputs(rng))
     kernels = (cuda_lstm.LSTM_INFER_LAST, cuda_lstm.LSTM_INFER_COLLECT,
                cuda_lstm.LSTM_TRAIN_FWD, cuda_lstm.LSTM_TRAIN_BWD,
-               cuda_lstm.LSTM_DW_REDUCE, cuda_bdgcn.BDGCN_PAIR_FWD,
-               cuda_bdgcn.BDGCN_PAIR_BWD, cuda_bdgcn.BDGCN_DW_REDUCE)
+               cuda_lstm.DW_REDUCE, cuda_bdgcn.BDGCN_PAIR_FWD,
+               cuda_bdgcn.BDGCN_PAIR_BWD)
     before = [k.launches for k in kernels]
     for collect in (False, True):
         torch.testing.assert_close(
@@ -248,6 +248,20 @@ def test_cpu_wrappers_take_plain_version_without_launching():
     assert before == [k.launches for k in kernels]
 
 
+def test_dw_reduce_cpu_takes_plain_version():
+    """On the CPU the shared dW reduction is its plain version: the
+    partials summed in order, without a launch."""
+    part = torch.from_numpy(np.random.default_rng(13).normal(
+        size=(30, 3, 3, 4, 5)).astype(np.float32))
+    before = cuda_lstm.DW_REDUCE.launches
+    out = cuda_lstm.dw_reduce(part)
+    assert cuda_lstm.DW_REDUCE.launches == before
+    torch.testing.assert_close(out, cuda_lstm.dw_reduce_plain(part), rtol=0,
+                               atol=0)
+    # f32 sums of 30 O(1) terms in another order
+    torch.testing.assert_close(out, part.sum(0), rtol=1e-5, atol=1e-5)
+
+
 def test_non_cuda_non_cpu_tensors_raise():
     xp = torch.zeros((2, 3, 8), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -266,3 +280,5 @@ def test_non_cuda_non_cpu_tensors_raise():
     with pytest.raises(ValueError, match="cuda or cpu"):
         cuda_bdgcn.folded_pair_project_bwd(
             h1, g, wr, torch.zeros((1, 4, 4, 2), device="meta"))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cuda_lstm.dw_reduce(torch.zeros((2, 3), device="meta"))

@@ -5,9 +5,12 @@ JAX ``ModelTrainer`` from the same weights, checkpoints read both ways,
 and the CLI.
 
 Sizes: N=8, hidden 8, synthetic_T=60, batch 4 (34 training windows, so
-the last training batch holds 2 real rows and 2 repeat-padded ones). Seed 0
-gives a live ReLU head at these widths; the tests assert it, since an
-all-zero output would make every comparison pass trivially.
+the last training batch holds 2 real rows and 2 repeat-padded ones). The
+data is drawn from seed 0. The weights that the gradient and training
+comparisons start from are the JAX init at seed 10 (``INIT_SEED``): at these
+widths seed 0 leaves the static branch's ReLU head dead, so its gradients
+would be all 0 and their comparison vacuous; seed 10 gives both branches'
+heads non-zero outputs everywhere. The tests assert every branch live.
 
 Tolerances, f32 on both sides with different summation orders:
   * losses and metrics rtol 1e-5 (means of O(1)-O(10) values);
@@ -51,6 +54,8 @@ from mpgcn_tpu_torch.utils.convert import params_from_jax, params_to_jax
 
 N, H = 8, 8
 KW = dict(synthetic_T=60, synthetic_N=N, hidden_dim=H, seed=0)
+#: the JAX init seed of the gradient and training comparisons (see above)
+INIT_SEED = 10
 LOSS_TOL = dict(rtol=1e-5, atol=0)
 PARAM_TOL = dict(rtol=1e-4, atol=2e-6)
 FWD_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -68,6 +73,17 @@ def _assert_grads_close(ours: dict, ref: dict):
         np.testing.assert_allclose(
             ours[k], r, rtol=1e-4, atol=1e-5 * float(np.abs(r).max()),
             err_msg=k)
+
+
+def _assert_branches_live(model, x, graphs):
+    """Every branch's pre-head output and FC+ReLU head are mostly non-zero:
+    a dead branch has all-zero gradients, which compare trivially."""
+    _, hidden = model(x, graphs, return_hidden=True)
+    with torch.no_grad():
+        for m, (b, h) in enumerate(zip(model.branches, hidden)):
+            assert float((h != 0).float().mean()) > 0.1, f"branch {m}"
+            head = torch.relu(b.fc(h))
+            assert float((head != 0).float().mean()) > 0.1, f"branch {m}"
 
 
 def _jax_cfg(out, **kw):
@@ -176,8 +192,10 @@ def grad_case(tmp_path_factory):
     batch: two real rows of four."""
     cfg = MPGCNConfig(pred_len=1, **KW)
     data = synthetic_dataset(cfg)
+    cfg = cfg.replace(seed=INIT_SEED)
     jt = JaxTrainer(_jax_cfg(tmp_path_factory.mktemp("grad"), pred_len=1,
-                             lstm_impl="pallas", bdgcn_impl="pallas"), data)
+                             seed=INIT_SEED, lstm_impl="pallas",
+                             bdgcn_impl="pallas"), data)
     batch = list(jt.pipeline.batches("train", pad_to_full=True))[-1]
     assert batch.size == 2
     return cfg, data, jt, batch
@@ -202,6 +220,8 @@ def test_model_gradients_match_jax_grad(grad_case, monkeypatch, arms):
                       bdgcn_impl=arms[1])
     pt.model.load_state_dict(params_from_jax(_np(jt.params)))
     x, y, keys = pt._tensors(batch)
+    _assert_branches_live(pt.model, x,
+                          graphs_for(pt.banks, keys, pt.model.sources))
     loss = pt._batch_loss(x, y, keys, batch.size)
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(loss_ref),
@@ -243,18 +263,25 @@ def two_runs(tmp_path_factory):
     out_p = tmp_path_factory.mktemp("port_run")
     cfg = MPGCNConfig(pred_len=1, num_epochs=2, output_dir=str(out_p), **KW)
     data = synthetic_dataset(cfg)
-    jt = JaxTrainer(_jax_cfg(out_j, pred_len=1, num_epochs=2), data)
+    cfg = cfg.replace(seed=INIT_SEED)
+    jt = JaxTrainer(_jax_cfg(out_j, pred_len=1, num_epochs=2,
+                             seed=INIT_SEED), data)
     init = _np(jt.params)
     pt = ModelTrainer(cfg, data, device="cpu")
     pt.model.load_state_dict(params_from_jax(init))
+    batch = next(pt.pipeline.batches("train", pad_to_full=True))
+    x, _, keys = pt._tensors(batch)
+    _assert_branches_live(pt.model, x,
+                          graphs_for(pt.banks, keys, pt.model.sources))
     hist_j = jt.train()
     hist_p = pt.train()
-    res_j = JaxTrainer(_jax_cfg(out_j, pred_len=7, mode="test"),
-                       data).test()
+    res_j = JaxTrainer(_jax_cfg(out_j, pred_len=7, mode="test",
+                                seed=INIT_SEED), data).test()
     res_p = ModelTrainer(cfg.replace(pred_len=7, mode="test"), data,
                          device="cpu").test()
     return dict(cfg=cfg, data=data, out_j=out_j, out_p=out_p, jt=jt, pt=pt,
-                hist_j=hist_j, hist_p=hist_p, res_j=res_j, res_p=res_p)
+                init=params_from_jax(init), hist_j=hist_j, hist_p=hist_p,
+                res_j=res_j, res_p=res_p)
 
 
 def test_two_epochs_match_jax_trainer(two_runs):
@@ -275,11 +302,10 @@ def test_two_epochs_match_jax_trainer(two_runs):
     for k, v in r["pt"].model.state_dict().items():
         np.testing.assert_allclose(v.numpy(), final_j[k].numpy(),
                                    err_msg=k, **PARAM_TOL)
-    # training moved the weights: the comparison is not of two inits
-    init = params_from_jax(ck_j["params"]) if ck_j["epoch"] == 0 else None
-    assert init is None or any(
-        not torch.equal(v, init[k])
-        for k, v in r["pt"].model.state_dict().items())
+    # training moved every weight, of both branches: the comparison is not
+    # of two inits, nor of a branch that never trained
+    for k, v in r["pt"].model.state_dict().items():
+        assert not torch.equal(v, r["init"][k]), k
 
 
 def _score_lines(out):
