@@ -27,9 +27,27 @@ Phases, each fatal on failure:
      every parameter, its loss falls, its checkpoint is written, and a
      fresh trainer in test mode reloads it, rolls out 7 steps and appends
      finite scores;
-  5. time each kernel beside its bound, its plain version and one PyTorch
-     library call, the rollout per bucket, the train step, and the
-     device's busy share.
+  5. the sparse path: the ELL SpMM kernels (forward, dX, dBlocks, each on
+     f32, bf16 and int8 tiles where the entry takes them) against their
+     plain versions at the large-N shapes (the banks of the N=500, density
+     0.05 configuration: stack 3 or 6, NB=63, MB=2, F=32,000 or 16,000)
+     and at odd sizes, dX and dBlocks twice (bit-equal); dBlocks through
+     torch.autograd.grad with respect to the tiles of a pad-free container;
+  6. large-N train: MPGCN at N=500 (banded density 0.05, batch 2, hidden
+     32, M=2, K=3) with bdgcn_impl="auto", which must resolve to "ell"; the
+     kernel arms' loss and gradients on one batch against the dense plain
+     arms in float64 and f32; one epoch with exact per-step launch counts
+     (M * 3 * (1 + K) = 24 ell_fwd and 24 ell_bwd_dx, no dense BDGCN
+     kernel), every parameter moved; test mode reloads and rolls out 7
+     steps;
+  7. large-N serve: a ServeEngine with buckets (1, 2) on the ELL banks
+     answers test windows, matching the dense plain rollout; then with
+     int8 tiles (resident-support reduction >= 3), and 3 int8 training
+     steps;
+  8. time each kernel beside its bound, its plain version and the fastest
+     single PyTorch library call, the rollout per bucket, the train step
+     (N=47; N=500 on the ELL arm and on the dense kernel arm that "auto"
+     passes over), and the device's busy share.
 
 The second-to-last line is a JSON object listing each kernel; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a card, and
@@ -94,9 +112,24 @@ KERNEL_META = {
                   "mpgcn_tpu/nn/pallas_lstm.py:519"),
     "bdgcn_pair_bwd": ("cuda_bdgcn", "BDGCN_PAIR_BWD", "bdgcn_pair_bwd.cu",
                        "mpgcn_tpu/nn/pallas_bdgcn.py:233"),
+    "ell_fwd": ("cuda_ell", "ELL_FWD", "ell_spmm.cu",
+                "mpgcn_tpu/sparse/pallas_ell.py:180"),
+    "ell_fwd_q": ("cuda_ell", "ELL_FWD_Q", "ell_spmm.cu",
+                  "mpgcn_tpu/sparse/pallas_ell.py:247"),
+    "ell_bwd_dx": ("cuda_ell", "ELL_BWD_DX", "ell_spmm.cu",
+                   "mpgcn_tpu/sparse/pallas_ell.py:195"),
+    "ell_bwd_dx_q": ("cuda_ell", "ELL_BWD_DX_Q", "ell_spmm.cu",
+                     "mpgcn_tpu/sparse/pallas_ell.py:263"),
+    "ell_bwd_dblk": ("cuda_ell", "ELL_BWD_DBLK", "ell_spmm.cu",
+                     "mpgcn_tpu/sparse/pallas_ell.py:212"),
 }
 TRAIN_KERNELS = ("lstm_train_fwd", "lstm_train_bwd", "dw_reduce",
                  "bdgcn_pair_bwd")
+ELL_TRAIN_KERNELS = ("ell_bwd_dx", "ell_bwd_dx_q", "ell_bwd_dblk")
+# the large-N configuration (benchmarks/large_n.py --format ell --density
+# 0.05): 60 synthetic days over 500 zones projected onto a band, batch 2
+LARGE_N = dict(synthetic_T=60, synthetic_N=500, batch_size=2)
+LARGE_N_DENSITY = 0.05
 #: a branch whose FC+ReLU head outputs fewer non-zeros than this on the
 #: first training batch counts as dead: its gradients are all 0, so the
 #: gradient checks and the training run would not reach its kernels
@@ -106,8 +139,10 @@ LIVE_SHARE = 0.1
 def kernels():
     """name -> the CudaKernel entry (its launch count lives there)."""
     from mpgcn_tpu_torch.nn import cuda_bdgcn, cuda_lstm
+    from mpgcn_tpu_torch.sparse import cuda_ell
 
-    mods = {"cuda_lstm": cuda_lstm, "cuda_bdgcn": cuda_bdgcn}
+    mods = {"cuda_lstm": cuda_lstm, "cuda_bdgcn": cuda_bdgcn,
+            "cuda_ell": cuda_ell}
     return {n: getattr(mods[m], a) for n, (m, a, _, _) in
             KERNEL_META.items()}
 
@@ -320,10 +355,23 @@ def phase_train_kernels(dev, rng):
     return err, inputs
 
 
+def dense_banks(banks: dict) -> dict:
+    """The banks as dense (..., N, N) stacks: blocked-ELL containers hold
+    the transposed operators, dequantised here for an int8 payload."""
+    import torch
+
+    from mpgcn_tpu_torch.sparse.formats import BlockedELL
+
+    return {k: torch.from_numpy(np.ascontiguousarray(np.swapaxes(
+                b.to_dense(), -1, -2))).to(b.device)
+            if isinstance(b, BlockedELL) else b for k, b in banks.items()}
+
+
 def serve_phase(label, cfg, data, dev, groups, expect_per_batch,
-                expect_buckets):
+                expect_buckets, buckets=(1, 2, 4, 8)):
     """Drive a ServeEngine through `groups` of concurrent requests; check
     the buckets dispatched, finiteness, agreement with the plain rollout
+    (dense plain arms on the same supports, dequantised for int8 tiles)
     and the launch counts. Returns (engine, launches)."""
     import torch
 
@@ -334,7 +382,7 @@ def serve_phase(label, cfg, data, dev, groups, expect_per_batch,
 
     # fresh seeded weights; the 100 ms window coalesces each group of
     # concurrent submits into one batch, so every bucket dispatches
-    scfg = ServeConfig(max_wait_ms=100.0, deadline_ms=0.0)
+    scfg = ServeConfig(buckets=buckets, max_wait_ms=100.0, deadline_ms=0.0)
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, data, scfg, device=dev, allow_fresh=True)
     print(f"[serve:{label}] engine up in {time.perf_counter() - t0:.1f}s "
@@ -357,7 +405,7 @@ def serve_phase(label, cfg, data, dev, groups, expect_per_batch,
         tickets += batch
         i += size
     launches = read_counts()
-    require(all(launches[n] == 0 for n in TRAIN_KERNELS),
+    require(all(launches[n] == 0 for n in TRAIN_KERNELS + ELL_TRAIN_KERNELS),
             f"the serve path launched a training kernel: {launches}")
     st = eng.stats()
     print(f"[serve:{label}] {json.dumps(st)}", flush=True)
@@ -389,13 +437,15 @@ def serve_phase(label, cfg, data, dev, groups, expect_per_batch,
     plain = MPGCN.from_config(eng.cfg, device=dev, lstm_impl="plain",
                               bdgcn_impl="einsum").eval()
     plain.load_state_dict(eng.model.state_dict())
+    pbanks = dense_banks(eng.banks)
     xt = torch.from_numpy(x).to(dev)
     kt = torch.from_numpy(keys.astype(np.int64)).to(dev)
     compare(f"serve:{label} rollout vs plain rollout", preds,
-            rollout(plain, eng.banks, xt, kt, cfg.pred_len), ROLLOUT_TOL)
-    graphs = graphs_for(eng.banks, kt, eng.model.sources)
-    _, hk = eng.model(xt, graphs, return_hidden=True, inference=True)
-    _, hp = plain(xt, graphs, return_hidden=True, inference=True)
+            rollout(plain, pbanks, xt, kt, cfg.pred_len), ROLLOUT_TOL)
+    _, hk = eng.model(xt, graphs_for(eng.banks, kt, eng.model.sources),
+                      return_hidden=True, inference=True)
+    _, hp = plain(xt, graphs_for(pbanks, kt, plain.sources),
+                  return_hidden=True, inference=True)
     for m, (a, b) in enumerate(zip(hk, hp)):
         compare(f"serve:{label} branch {m} pre-head BDGCN output", a, b,
                 ROLLOUT_TOL)
@@ -534,17 +584,27 @@ def _batch(md, sel, size):
     return Batch(x=md.x[sel], y=md.y[sel], keys=md.keys[sel], size=size)
 
 
-def _per_step(cfg, train: bool) -> dict:
-    """Launches of one training step (train) or one validation step."""
+def _per_step(cfg, train: bool, impl: str = "kernel") -> dict:
+    """Launches of one training step (train) or one validation step on the
+    dense kernel arm, or on the ELL arm (impl "ell": 1 + K SpMMs per BDGCN
+    layer, on the int8 entries for an int8 payload)."""
     M, L, G = cfg.num_branches, cfg.lstm_num_layers, cfg.gcn_num_layers
     counts = dict.fromkeys(KERNEL_META, 0)
     if train:
         counts.update(lstm_train_fwd=M * L, lstm_train_bwd=M * L,
-                      dw_reduce=M * L + M * G, bdgcn_pair_fwd=M * G,
-                      bdgcn_pair_bwd=M * G)
+                      dw_reduce=M * L)
     else:
-        counts.update(lstm_infer_last=M, lstm_infer_collect=M * (L - 1),
-                      bdgcn_pair_fwd=M * G)
+        counts.update(lstm_infer_last=M, lstm_infer_collect=M * (L - 1))
+    if impl == "ell":
+        q = "_q" if cfg.support_payload == "int8" else ""
+        spmm = M * G * (1 + cfg.support_K)
+        counts[f"ell_fwd{q}"] = spmm
+        if train:
+            counts[f"ell_bwd_dx{q}"] = spmm
+    else:
+        counts["bdgcn_pair_fwd"] = M * G
+        if train:
+            counts.update(dw_reduce=M * L + M * G, bdgcn_pair_bwd=M * G)
     return counts
 
 
@@ -589,7 +649,8 @@ def live_init_seed(cfg, data, dev, tries=16):
     x = torch.from_numpy(np.ascontiguousarray(batch.x)).to(dev)
     keys = torch.from_numpy(batch.keys.astype(np.int64)).to(dev)
     for seed in range(cfg.seed, cfg.seed + tries):
-        model = MPGCN.from_config(tcfg.replace(seed=seed), device=dev)
+        model = MPGCN.from_config(tcfg.replace(seed=seed), device=dev,
+                                  bdgcn_impl=pipe.bdgcn_impl)
         shares = branch_shares(model, x,
                                graphs_for(pipe.banks, keys, model.sources))
         live = min(min(sh) for sh in shares) > LIVE_SHARE
@@ -604,6 +665,80 @@ def live_init_seed(cfg, data, dev, tries=16):
                        f"branch a live head")
 
 
+def batch_grads(model, tr, batch, f64, dev):
+    """(loss, {name: grad}, the last ReLU's mask per branch) of the masked
+    MSE batch loss of ``model`` on ``tr``'s banks (float64 inputs, supports
+    and residual when ``f64``)."""
+    import torch
+
+    from mpgcn_tpu_torch.train.objectives import elementwise_loss
+    from mpgcn_tpu_torch.train.predict import graphs_for
+
+    model.zero_grad(set_to_none=True)
+    xb, yb, kb = tr._tensors(batch)
+    g = graphs_for(tr.banks, kb, model.sources)
+    if f64:
+        g = [tuple(t.double() for t in G) if isinstance(G, tuple)
+             else G.double() for G in g]
+        xb, yb = xb.double(), yb.double()
+    pred, hidden = model(xb, g, return_hidden=True, inference=False)
+    # the trainer's MSE, with the residual kept in float64 for the
+    # reference (elementwise_loss upcasts to f32 only)
+    err = ((pred - yb) ** 2 if f64 else elementwise_loss("MSE", pred, yb))
+    per = err.reshape(len(pred), -1).mean(1)
+    mask = (torch.arange(len(pred), device=dev) < batch.size).to(per.dtype)
+    loss = (per * mask).sum() / batch.size
+    loss.backward()
+    out = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return (float(loss.detach()), out,
+            [h.detach()[:batch.size] > 0 for h in hidden])
+
+
+def grad_check(label, batch, kern, plain, ref64, dev):
+    """The kernel arms' and the plain arms' f32 loss and gradients against
+    the plain arms in float64, and against each other: rtol 1e-4 with an
+    atol of 1e-4 x each tensor's largest entry; prints the last-layer ReLU
+    entries that fall on the other side of zero than in float64."""
+    import torch
+
+    lk, gk, mk = batch_grads(kern.model, kern, batch, False, dev)
+    lp, gp, mp = batch_grads(plain.model, plain, batch, False, dev)
+    l64, g64, m64 = batch_grads(ref64, plain, batch, True, dev)
+    zero = [n for n, g in g64.items() if not bool(g.any())]
+    require(not zero, f"{label}: all-zero float64 gradients {zero}: "
+                      f"their comparison would be vacuous")
+    flips = {arm: sum(int((a != b).sum()) for a, b in zip(m, m64))
+             for arm, m in (("kernel", mk), ("plain", mp))}
+    worst = {}
+    for arm, loss, got, ref in (("kernel vs f64", lk, gk, g64),
+                                ("plain vs f64", lp, gp, g64),
+                                ("kernel vs plain", lk, gk, gp)):
+        require(abs(loss - float(l64)) <= GRAD_RTOL * abs(l64),
+                f"{label}: loss {loss} vs {l64} ({arm})")
+        worst[arm] = (0.0, "")
+        for name, r in ref.items():
+            r = r.to(got[name].dtype)
+            scale = float(r.abs().max())
+            err = float((got[name] - r).abs().max())
+            worst[arm] = max(worst[arm],
+                             (err / scale if scale else err, name))
+            require(torch.allclose(got[name], r, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL_SCALE * scale),
+                    f"{label}: the gradient of {name} differs "
+                    f"({arm}: max abs err {err:.3e}, max |g| "
+                    f"{scale:.3e})")
+    print(f"[train] {label}: loss {lk:.7f} (plain arms {lp:.7f}, "
+          f"float64 {l64:.7f}); all {len(gp)} parameter gradients "
+          f"agree (rtol {GRAD_RTOL}, atol {GRAD_ATOL_SCALE} x max|g|); "
+          f"worst max_abs_err / max|g|: "
+          + ", ".join(f"{k} {v:.3e} ({n})" for k, (v, n) in worst.items())
+          + f"; last-ReLU entries on the other side of zero than in "
+            f"float64: kernel {flips['kernel']}, plain {flips['plain']} of "
+            f"{sum(m.numel() for m in m64)}; no gradient all zero",
+          flush=True)
+
+
 def phase_train(dev, cfg, data, out_dir):
     """The training path at the reference configuration (train mode trains
     the single-step model: pred_len 1), fresh seeded weights. Returns the
@@ -611,7 +746,6 @@ def phase_train(dev, cfg, data, out_dir):
     for the timing phase."""
     import torch
 
-    from mpgcn_tpu_torch.train.objectives import elementwise_loss
     from mpgcn_tpu_torch.train.predict import graphs_for
     from mpgcn_tpu_torch.train.trainer import ModelTrainer
     from mpgcn_tpu_torch.utils.convert import read_checkpoint
@@ -635,77 +769,9 @@ def phase_train(dev, cfg, data, out_dir):
             f"and head: {shares}): the gradient checks would be vacuous")
     require(tcfg.loss == "MSE", "the float64 reference computes MSE")
     ref64 = copy.deepcopy(plain.model).double()
-
-    def grads(model, tr, batch, f64):
-        """(loss, {name: grad}, the last ReLU's mask per branch) of the
-        masked batch loss."""
-        model.zero_grad(set_to_none=True)
-        xb, yb, kb = tr._tensors(batch)
-        if f64:
-            g = [tuple(t.double() for t in G) if isinstance(G, tuple)
-                 else G.double()
-                 for G in graphs_for(tr.banks, kb, model.sources)]
-            xb, yb = xb.double(), yb.double()
-        else:
-            g = graphs_for(tr.banks, kb, model.sources)
-        pred, hidden = model(xb, g, return_hidden=True, inference=False)
-        per = tr_loss(pred, yb).reshape(len(pred), -1).mean(1)
-        mask = (torch.arange(len(pred), device=dev) < batch.size).to(
-            per.dtype)
-        loss = (per * mask).sum() / batch.size
-        loss.backward()
-        out = {n: p.grad.detach().clone() for n, p in
-               model.named_parameters()}
-        model.zero_grad(set_to_none=True)
-        return (float(loss.detach()), out,
-                [h.detach()[:batch.size] > 0 for h in hidden])
-
-    def tr_loss(pred, y):
-        """The trainer's MSE, with the residual kept in float64 for the
-        reference (elementwise_loss upcasts to f32 only)."""
-        if pred.dtype == torch.float64:
-            return (pred - y) ** 2
-        return elementwise_loss("MSE", pred, y)
-
     for label, batch in (("full batch", full),
                          ("padded batch (size 3 of 4)", partial)):
-        lk, gk, mk = grads(kern.model, kern, batch, False)
-        lp, gp, mp = grads(plain.model, plain, batch, False)
-        l64, g64, m64 = grads(ref64, plain, batch, True)
-        zero = [n for n, g in g64.items() if not bool(g.any())]
-        require(not zero, f"{label}: all-zero float64 gradients {zero}: "
-                          f"their comparison would be vacuous")
-        flips = {arm: sum(int((a != b).sum()) for a, b in zip(m, m64))
-                 for arm, m in (("kernel", mk), ("plain", mp))}
-        worst = {}
-        for arm, loss, got, ref in (("kernel vs f64", lk, gk, g64),
-                                    ("plain vs f64", lp, gp, g64),
-                                    ("kernel vs plain", lk, gk, gp)):
-            require(abs(loss - float(l64)) <= GRAD_RTOL * abs(l64),
-                    f"{label}: loss {loss} vs {l64} ({arm})")
-            worst[arm] = (0.0, "")
-            for name, r in ref.items():
-                r = r.to(got[name].dtype)
-                scale = float(r.abs().max())
-                err = float((got[name] - r).abs().max())
-                worst[arm] = max(worst[arm],
-                                 (err / scale if scale else err, name))
-                require(torch.allclose(got[name], r, rtol=GRAD_RTOL,
-                                       atol=GRAD_ATOL_SCALE * scale),
-                        f"{label}: the gradient of {name} differs "
-                        f"({arm}: max abs err {err:.3e}, max |g| "
-                        f"{scale:.3e})")
-        print(f"[train] {label}: loss {lk:.7f} (plain arms {lp:.7f}, "
-              f"float64 {l64:.7f}); all {len(gp)} parameter gradients "
-              f"agree (rtol {GRAD_RTOL}, atol {GRAD_ATOL_SCALE} x max|g|); "
-              f"worst max_abs_err / max|g|: "
-              + ", ".join(f"{k} {v:.3e} ({n})" for k, (v, n) in
-                          worst.items())
-              + f"; last-ReLU entries on the other side of zero than in "
-                f"float64: kernel {flips['kernel']}, plain "
-                f"{flips['plain']} of {sum(m.numel() for m in m64)}; "
-                f"no gradient all zero",
-              flush=True)
+        grad_check(label, batch, kern, plain, ref64, dev)
 
     batches = list(kern.pipeline.batches("train", pad_to_full=True))
     curve = {"kernel": [], "plain": []}
@@ -927,6 +993,446 @@ def phase_train_times(dev, kin, train):
     return times
 
 
+# --- the sparse path ----------------------------------------------------------
+
+#: ELL SpMM forward and dX: f32 sums of up to MB x 128 products, in another
+#: order than the plain version's per-slot einsums
+ELL_TOL = dict(rtol=1e-5, atol=1e-5)
+#: odd sizes: (stack, tile width, pattern, F, per-sample X) -- ragged N over
+#: several column blocks, MB = 1 (block diagonal), MB = the column-block
+#: count (dense), F not a multiple of any tile
+ELL_ODD = [((3, 21, 21), 8, "random", 5, False),
+           ((2, 3, 21, 21), 8, "random", 700, True),
+           ((3, 64, 64), 8, "diagonal", 513, False),
+           ((2, 40, 40), 16, "dense", 37, True)]
+
+
+def large_n_data(cfg):
+    """The large-N data: cfg's synthetic series projected onto a band of
+    density LARGE_N_DENSITY (benchmarks/large_n.py --density 0.05)."""
+    from mpgcn_tpu_torch.data.loader import apply_density, synthetic_dataset
+
+    data = synthetic_dataset(cfg)
+    apply_density(data, LARGE_N_DENSITY)
+    return data
+
+
+def _odd_container(dev, shape, bc, pattern, rng):
+    from mpgcn_tpu_torch.sparse.formats import ell_from_dense
+
+    N = shape[-1]
+    A = rng.normal(size=shape).astype(np.float32)
+    if pattern == "random":
+        A *= rng.random(shape) < 0.3
+        A[..., 1, :] = 0.0
+    elif pattern == "diagonal":  # row block i meets column block i only
+        A *= np.arange(N)[:, None] // bc == np.arange(N)[None, :] // bc
+    return ell_from_dense(A, br=8, bc=bc).to(dev)
+
+
+def check_ell(tag, ell, X, dout, x_div, err):
+    """ell_fwd / ell_bwd_dx (or their int8 entries) against the plain
+    versions, dX twice (bit-equal); updates err per entry."""
+    import torch
+
+    from mpgcn_tpu_torch.sparse import cuda_ell
+    from mpgcn_tpu_torch.sparse.kernels import flat_stack
+
+    cols, tiles, scale, t_ptr, t_slot = flat_stack(ell)
+    q = "_q" if scale is not None else ""
+    n = ell.n_rows
+    out = cuda_ell.ell_fwd(cols, tiles, X, n, x_div, scale)
+    dx = cuda_ell.ell_bwd_dx(cols, tiles, t_ptr, t_slot, dout, ell.n_cols,
+                             x_div, scale)
+    torch.cuda.synchronize()
+    err[f"ell_fwd{q}"] = max(err[f"ell_fwd{q}"], compare(
+        f"ELL fwd{q} {tag}", out,
+        cuda_ell.ell_fwd_plain(cols, tiles, X, n, x_div, scale), ELL_TOL))
+    del out
+    err[f"ell_bwd_dx{q}"] = max(err[f"ell_bwd_dx{q}"], compare(
+        f"ELL dX{q} {tag}", dx, cuda_ell.ell_bwd_dx_plain(
+            cols, tiles, dout, ell.n_cols, x_div, scale), ELL_TOL))
+    dx2 = cuda_ell.ell_bwd_dx(cols, tiles, t_ptr, t_slot, dout, ell.n_cols,
+                              x_div, scale)
+    require(torch.equal(dx, dx2), f"ELL dX{q} {tag}: two runs differ")
+    print(f"[check] ELL dX{q} {tag}: bit-equal over two runs", flush=True)
+
+
+def phase_ell_kernels(dev, banks, rng):
+    """The five ELL entries against their plain versions: at the large-N
+    shapes (the static bank (3, 63, 2, 8, 128) with one X of F = B N C =
+    32,000; the dynamic O bank gathered for a batch of 2, (6, 63, 2, 8,
+    128), with per-sample X of F = N C = 16,000) on f32, bf16 and int8
+    tiles, and at odd sizes; dBlocks through torch.autograd.grad with
+    respect to the tiles of a pad-free N=500 container (the path of its
+    counted launches). Returns (errors, dBlocks launches, timing inputs)."""
+    import torch
+
+    from mpgcn_tpu_torch.sparse import cuda_ell
+    from mpgcn_tpu_torch.sparse.formats import (
+        BlockedELL,
+        ell_from_dense,
+        pack_payload,
+    )
+    from mpgcn_tpu_torch.sparse.kernels import ell_spmm, flat_stack
+
+    def dev_t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    err = {n: 0.0 for n in ("ell_fwd", "ell_fwd_q", "ell_bwd_dx",
+                            "ell_bwd_dx_q", "ell_bwd_dblk")}
+    B, C = LARGE_N["batch_size"], 32
+    keys = torch.tensor([0, 3], device=dev)
+    static, dyn = banks["static"], banks["o"][keys]
+    N = static.n_cols
+    inputs = {}
+    for label, ell, xs in (("static", static, (N, B * N * C)),
+                           ("dynamic", dyn, (B, N, N * C))):
+        S = int(np.prod(ell.block_cols.shape[:-2]))
+        X = dev_t(rng.normal(size=xs)).reshape(-1, N, xs[-1])
+        dout = dev_t(rng.normal(size=(S, N, xs[-1])))
+        for payload in ("f32", "bf16", "int8"):
+            packed = pack_payload(ell, payload)
+            check_ell(f"{label} {payload} S={S} NB={ell.block_cols.shape[-2]}"
+                      f" MB={ell.pad_blocks} F={xs[-1]}", packed, X, dout,
+                      S // X.shape[0], err)
+            if label == "static":
+                inputs[payload] = (packed, X, dout)
+    for shape, bc, pattern, F, per_sample in ELL_ODD:
+        ell = _odd_container(dev, shape, bc, pattern, rng)
+        S = int(np.prod(shape[:-2]))
+        G = shape[0] if per_sample else 1
+        X = dev_t(rng.normal(size=(G, shape[-1], F)))
+        dout = dev_t(rng.normal(size=(S, shape[-1], F)))
+        for payload in ("f32", "bf16", "int8"):
+            check_ell(f"{pattern} {shape} bc={bc} MB={ell.pad_blocks} "
+                      f"F={F} {payload}", pack_payload(ell, payload), X,
+                      dout, S // G, err)
+        cols = flat_stack(ell)[0]
+        d1 = cuda_ell.ell_bwd_dblk(cols, X, dout, bc, S // G)
+        torch.cuda.synchronize()
+        err["ell_bwd_dblk"] = max(err["ell_bwd_dblk"], compare(
+            f"ELL dBlocks {pattern} {shape} F={F}", d1,
+            cuda_ell.ell_bwd_dblk_plain(cols, X, dout, bc, S // G), None))
+        require(torch.equal(d1, cuda_ell.ell_bwd_dblk(cols, X, dout, bc,
+                                                       S // G)),
+                "ELL dBlocks: two runs differ")
+
+    # row 9's path: the support cotangent of a pad-free container
+    A = rng.normal(size=(3, N, N)).astype(np.float32)
+    full = ell_from_dense(A).to(dev)
+    require(full.pad_blocks == -(-N // 128), "the container has pad slots")
+    X = dev_t(rng.normal(size=(N, B * N * C)))
+    dout = dev_t(rng.normal(size=(3, N, B * N * C)))
+    blocks = full.blocks.clone().requires_grad_()
+    el = BlockedELL(full.block_cols, blocks, full.t_ptr, full.t_slot, N, N)
+    reset_counts()
+    (dblk,) = torch.autograd.grad((ell_spmm(el, X) * dout).sum(), blocks)
+    counts = read_counts()
+    require(counts["ell_bwd_dblk"] == 1 and counts["ell_bwd_dx"] == 0,
+            f"the dBlocks path launched {counts}")
+    cols = full.block_cols
+    err["ell_bwd_dblk"] = max(err["ell_bwd_dblk"], compare(
+        f"ELL dBlocks pad-free S=3 NB={cols.shape[1]} MB={cols.shape[2]} "
+        f"F={X.shape[1]} (torch.autograd.grad)", dblk,
+        cuda_ell.ell_bwd_dblk_plain(cols, X[None], dout, 128, 3), None))
+    d2 = cuda_ell.ell_bwd_dblk(cols, X[None], dout, 128, 3)
+    require(torch.equal(dblk, d2), "ELL dBlocks: two runs differ")
+    print("[check] ELL dBlocks pad-free: bit-equal over two runs; the "
+          f"autograd path launched {counts['ell_bwd_dblk']} dBlocks and "
+          f"{counts['ell_fwd']} forward", flush=True)
+    inputs["dblk"] = (full, X[None], dout)
+    return err, counts["ell_bwd_dblk"], inputs
+
+
+def phase_large_n_train(dev, cfg, data, out_dir):
+    """The large-N training path (bdgcn_impl='auto', which must resolve to
+    'ell'): gradients against the dense plain arms, one epoch with exact
+    launch counts, test mode. Returns the launches, the trained trainer
+    and its training batches."""
+    import torch
+
+    from mpgcn_tpu_torch.train.trainer import ModelTrainer
+    from mpgcn_tpu_torch.utils.convert import read_checkpoint
+
+    tcfg = cfg.replace(pred_len=1, num_epochs=1, output_dir=out_dir)
+    kern = ModelTrainer(tcfg, data, device=dev)
+    density = kern.pipeline.support_density
+    require(kern.bdgcn_impl == "ell" and 0.04 < density < 0.055,
+            f"auto resolved to {kern.bdgcn_impl} at density {density}")
+    shapes = {k: (tuple(b.blocks.shape), tuple(b.t_slot.shape))
+              for k, b in kern.banks.items()}
+    print(f"[large-N] auto resolved to ell at support density "
+          f"{density:.4f}; banks (tiles, transposed index): {shapes}; "
+          f"support {kern.pipeline.support_stats()}", flush=True)
+    plain = ModelTrainer(tcfg, data, device=dev, lstm_impl="plain",
+                         bdgcn_impl="einsum")
+    plain.model.load_state_dict(kern.model.state_dict())
+    batches = list(kern.pipeline.batches("train", pad_to_full=True))
+    ref64 = copy.deepcopy(plain.model).double()
+    t0 = time.perf_counter()
+    grad_check(f"large-N N={kern.cfg.num_nodes} batch "
+               f"{tcfg.batch_size}", batches[0], kern, plain, ref64, dev)
+    print(f"[large-N] gradient check in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    del ref64, kern, plain
+    torch.cuda.empty_cache()
+
+    # the main path: a fresh trainer takes one epoch
+    tr = ModelTrainer(tcfg, data, device=dev)
+    init = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = tr.train()
+    counts = read_counts()
+    train_s = time.perf_counter() - t0
+    steps = tr.global_step
+    evals = tr.pipeline.num_batches("validate")
+    require(steps == tr.pipeline.num_batches("train"),
+            f"{steps} training steps in one epoch")
+    expect = _add(_scaled(_per_step(tcfg, True, "ell"), steps),
+                  _scaled(_per_step(tcfg, False, "ell"), evals))
+    require(counts == expect,
+            f"the large-N epoch launched {counts}, expected {expect}")
+    frozen = [n for n, p in tr.model.named_parameters()
+              if torch.equal(p.detach(), init[n])]
+    require(not frozen, f"parameters the epoch never moved: {frozen}")
+    require(all(np.isfinite(hist["train"] + hist["validate"])),
+            "non-finite epoch loss")
+    per = {n: v for n, v in _per_step(tcfg, True, "ell").items() if v}
+    print(f"[large-N] one epoch ({steps} steps, {evals} validation steps) "
+          f"in {train_s:.1f}s; train loss {hist['train']}, validation "
+          f"{hist['validate']}; launches per step {per}; peak device "
+          f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+          flush=True)
+    ckpt = read_checkpoint(os.path.join(out_dir, "MPGCN_od.pkl"))
+    require(ckpt["epoch"] == tr.best_epoch == 1,
+            f"checkpoint epoch {ckpt['epoch']}")
+
+    test_cfg = cfg.replace(pred_len=7, mode="test", output_dir=out_dir)
+    tt = ModelTrainer(test_cfg, data, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = tt.test()
+    test_counts = read_counts()
+    n_batches = sum(tt.pipeline.num_batches(m) for m in ("train", "test"))
+    expect = _scaled(_per_step(test_cfg, False, "ell"), 7 * n_batches)
+    require(test_counts == expect,
+            f"large-N test mode launched {test_counts}, expected {expect}")
+    scores = {m: {k: res[m][k] for k in ("MSE", "RMSE", "MAE", "MAPE")}
+              for m in ("train", "test")}
+    require(all(np.isfinite(list(v.values())).all()
+                for v in scores.values()), f"non-finite scores {scores}")
+    require(len(res["test"]["RMSE_by_horizon"]) == 7, "no 7-step scores")
+    print(f"[large-N] test mode reloaded epoch {ckpt['epoch']}, rolled out "
+          f"7 steps over {n_batches} batches in "
+          f"{time.perf_counter() - t0:.1f}s: {json.dumps(scores)}",
+          flush=True)
+    return dict(train_counts=counts, test_counts=test_counts, trainer=tr,
+                batches=batches)
+
+
+def phase_int8_train(dev, cfg, data, batches):
+    """3 training steps on int8 tiles: the int8 entries' training path."""
+    from mpgcn_tpu_torch.train.trainer import ModelTrainer
+
+    tcfg = cfg.replace(pred_len=1, support_payload="int8")
+    tr = ModelTrainer(tcfg, data, device=dev)
+    reset_counts()
+    losses = [tr.train_step(b) for b in batches[:3]]
+    counts = read_counts()
+    expect = _scaled(_per_step(tcfg, True, "ell"), 3)
+    require(counts == expect,
+            f"3 int8 steps launched {counts}, expected {expect}")
+    require(np.all(np.isfinite(losses)), f"int8 losses {losses}")
+    print(f"[large-N] 3 int8-payload training steps: losses {losses}; "
+          f"launches {({n: v for n, v in counts.items() if v})}", flush=True)
+    return counts
+
+
+def _library_spmm(name, A, rhs):
+    """The single PyTorch calls computing A @ rhs for the dense (padded)
+    operator A: torch.matmul on A, and a sparse BSR matmul (8 x 8 blocks:
+    cuSPARSE takes square blocks only) where this torch runs f32 BSR on
+    CUDA. Returns {which: fn}."""
+    import torch
+
+    calls = {"torch.matmul (dense)": lambda: torch.matmul(A, rhs)}
+    try:
+        bsr = A.to_sparse_bsr((8, 8))
+        (bsr @ rhs).sum().item()
+        calls["BSR (8, 8) @ dense"] = lambda: bsr @ rhs
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"[time] {name}: f32 BSR matmul not available on this torch "
+              f"({str(e).splitlines()[0][:100]})")
+    return calls
+
+
+def _library_ms(calls):
+    """Each library call's time; library_ms is the fastest."""
+    each = {k: time_ms(fn, iters=10, warmup=2) for k, fn in calls.items()}
+    return min(each.values()), each
+
+
+def _ell_ops(cols, tiles, n_rows, n_cols, F):
+    """The work of an ELL SpMM on this container: 2 F times the operator
+    entries that its populated tiles cover inside the (n_rows, n_cols)
+    operator (the rows and columns that pad the last row and column block
+    are layout, not work). Returns (operations, populated slots)."""
+    import torch
+
+    S, NB, MB = cols.shape
+    br, bc = tiles.shape[-2:]
+    pop = (tiles != 0).reshape(S, NB, MB, -1).any(-1)
+    rows = (n_rows - br * torch.arange(NB, device=cols.device)).clamp(max=br)
+    width = (n_cols - bc * cols.long()).clamp(max=bc)
+    return (2 * F * int((pop * rows[None, :, None] * width).sum()),
+            int(pop.sum()))
+
+
+def phase_ell_times(dev, kin):
+    """The ELL entries at the large-N static shape: kernel (CUDA events),
+    plain, the fastest single library call, and the bound from this run's
+    container: ``_ell_ops`` operations (all of the operator, 2 S N N F,
+    for dBlocks on the pad-free container); X, output, tiles (and ids,
+    scales or index) bytes."""
+    import torch
+
+    from mpgcn_tpu_torch.sparse import cuda_ell
+
+    from mpgcn_tpu_torch.sparse.kernels import flat_stack
+
+    times = {}
+    for payload, q in (("f32", ""), ("int8", "_q")):
+        ell, X, dout = kin[payload]
+        cols, tiles, scale, t_ptr, t_slot = flat_stack(ell)
+        S, NB, MB = cols.shape
+        bc = tiles.shape[-1]
+        G, N, F = X.shape
+        ops, pop = _ell_ops(cols, tiles, N, N, F)
+        small = (tiles.numel() * tiles.element_size() + cols.numel() * 4
+                 + (0 if scale is None else scale.numel() * 4))
+        # the library operand: the stacked dense operator (dequantised),
+        # padded to whole tiles
+        dense = torch.nn.functional.pad(
+            torch.from_numpy(ell.to_dense()).to(dev),
+            (0, -(-N // bc) * bc - N, 0, NB * 8 - N))
+        Xp = torch.nn.functional.pad(X[0], (0, 0, 0, dense.shape[2] - N))
+        dp = torch.nn.functional.pad(dout, (0, 0, 0, NB * 8 - N))
+        lib_f, each_f = _library_ms(_library_spmm(
+            f"ell_fwd{q}", dense.reshape(-1, dense.shape[2]), Xp))
+        lib_b, each_b = _library_ms(_library_spmm(
+            f"ell_bwd_dx{q}",
+            dense.permute(2, 0, 1).reshape(dense.shape[2], -1).contiguous(),
+            dp.reshape(-1, F)))
+        b_ms, b_by = bound(4 * (X.numel() + S * N * F) + small, ops)
+        times[f"ell_fwd{q}"] = dict(
+            ms=time_ms(lambda: cuda_ell.ell_fwd(cols, tiles, X, N, S // G,
+                                                scale), iters=20, warmup=3),
+            plain_ms=time_ms(lambda: cuda_ell.ell_fwd_plain(
+                cols, tiles, X, N, S // G, scale), iters=3, warmup=1),
+            library_ms=lib_f, bound_ms=b_ms, bound_by=b_by)
+        b_ms, b_by = bound(4 * (dout.numel() + G * N * F) + small
+                           + 4 * (t_ptr.numel() + t_slot.numel()), ops)
+        times[f"ell_bwd_dx{q}"] = dict(
+            ms=time_ms(lambda: cuda_ell.ell_bwd_dx(
+                cols, tiles, t_ptr, t_slot, dout, N, S // G, scale),
+                iters=20, warmup=3),
+            plain_ms=time_ms(lambda: cuda_ell.ell_bwd_dx_plain(
+                cols, tiles, dout, N, S // G, scale), iters=3, warmup=1),
+            library_ms=lib_b, bound_ms=b_ms, bound_by=b_by)
+        for k in (f"ell_fwd{q}", f"ell_bwd_dx{q}"):
+            print(f"[time] {k} {payload} S={S} NB={NB} MB={MB} F={F}, "
+                  f"{pop} of {S * NB * MB} slots populated, {ops} "
+                  f"operations; library calls "
+                  f"{json.dumps(each_f if 'fwd' in k else each_b)}: "
+                  f"{json.dumps(times[k])}", flush=True)
+        del dense
+    full, X, dout = kin["dblk"]
+    cols = full.block_cols
+    S, NB, MB = cols.shape
+    F = X.shape[-1]
+    N = full.n_cols
+    b_ms, b_by = bound(4 * (X.numel() + dout.numel() + S * NB * MB * 8 * 128
+                            + cols.numel()), 2 * S * N * N * F)
+    times["ell_bwd_dblk"] = dict(
+        ms=time_ms(lambda: cuda_ell.ell_bwd_dblk(cols, X, dout, 128, S),
+                   iters=10, warmup=2),
+        plain_ms=time_ms(lambda: cuda_ell.ell_bwd_dblk_plain(
+            cols, X, dout, 128, S), iters=3, warmup=1),
+        # the container is pad-free: dBlocks is the dense dA = dout X^T
+        library_ms=time_ms(lambda: torch.matmul(dout, X[0].t()), iters=10,
+                           warmup=2),
+        bound_ms=b_ms, bound_by=b_by)
+    print(f"[time] ell_bwd_dblk pad-free S={S} NB={NB} MB={MB} F={F}; "
+          f"library torch.matmul (dense dA = dout X^T): "
+          f"{json.dumps(times['ell_bwd_dblk'])}", flush=True)
+    return times
+
+
+def _step_ms(tr, batches, n, warmup):
+    """Host-clock ms of each of n synchronised train steps after warm-ups."""
+    import torch
+
+    samples = []
+    for i in range(warmup + n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_step(batches[i % len(batches)])
+        torch.cuda.synchronize()
+        if i >= warmup:
+            samples.append((time.perf_counter() - t0) * 1e3)
+    return samples
+
+
+def phase_large_n_times(dev, train, eng, data):
+    """The large-N train step and bucket-2 rollout on the host clock, and
+    the device's busy share over each; then the same step on the dense
+    kernel arm that bdgcn_impl='auto' passes over here."""
+    import statistics
+
+    import torch
+
+    from mpgcn_tpu_torch.train.predict import rollout
+    from mpgcn_tpu_torch.train.trainer import ModelTrainer
+
+    tr, batches = train["trainer"], train["batches"]
+    samples = _step_ms(tr, batches, 6, 2)
+    ell_ms = statistics.median(samples)
+    print(f"[time] large-N train step (N=500, batch 2, ELL arm, host clock "
+          f"around a synchronised step, median of 6 after 2 warm-ups): "
+          f"{ell_ms:.3f} ms (min {min(samples):.3f}, "
+          f"max {max(samples):.3f})", flush=True)
+    busy_share("large-N train step", lambda: tr.train_step(batches[0]), 3)
+    dense = ModelTrainer(tr.cfg, data, device=dev, bdgcn_impl="kernel")
+    dense.model.load_state_dict(tr.model.state_dict())
+    samples = _step_ms(dense, batches, 2, 1)
+    print(f"[time] large-N train step on the dense kernel arm "
+          f"(bdgcn_impl='kernel', K-BDGCN; same shapes and weights, median "
+          f"of 2 after 1 warm-up): {statistics.median(samples):.3f} ms, "
+          f"{statistics.median(samples) / ell_ms:.2f}x the ELL arm's",
+          flush=True)
+    del dense
+    torch.cuda.empty_cache()
+    md = eng.pipeline.modes["test"]
+    x = torch.from_numpy(np.array(md.x[:2])).to(dev)
+    k = torch.from_numpy(md.keys[:2].astype(np.int64)).to(dev)
+    samples = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rollout(eng.model, eng.banks, x, k, 7)
+        torch.cuda.synchronize()
+        if i >= 1:
+            samples.append((time.perf_counter() - t0) * 1e3)
+    print(f"[time] large-N rollout (bucket 2, horizon 7, host clock, median "
+          f"of 5 after 1 warm-up): {statistics.median(samples):.3f} ms",
+          flush=True)
+    busy_share("large-N bucket-2 rollout",
+               lambda: rollout(eng.model, eng.banks, x, k, 7), 2)
+
+
 def main() -> int:
     import torch
 
@@ -942,6 +1448,7 @@ def main() -> int:
         "mpgcn_tpu_torch must come from this checkout")
     from mpgcn_tpu_torch.config import MPGCNConfig
     from mpgcn_tpu_torch.data.loader import synthetic_dataset
+    from mpgcn_tpu_torch.data.pipeline import DataPipeline
 
     # full f32 on the plain paths: no TF32 in matmuls or cuDNN
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -984,10 +1491,55 @@ def main() -> int:
     for counts in (launches2, train["train_counts"], train["test_counts"]):
         total = _add(total, counts)
 
+    # the sparse path: N=500, banded density 0.05, batch 2, reference widths
+    t0 = time.perf_counter()
+    cfg_l = MPGCNConfig(**LARGE_N)
+    data_l = large_n_data(cfg_l)
+    pipe = DataPipeline(cfg_l.replace(pred_len=1), data_l, dev)
+    print(f"[large-N] data and banks in {time.perf_counter() - t0:.1f}s: "
+          f"{pipe.dispatch_line('kernel')}", flush=True)
+    require(pipe.bdgcn_impl == "ell", f"auto resolved to {pipe.bdgcn_impl}")
+    ell_errors, dblk_launches, ell_inputs = phase_ell_kernels(
+        dev, pipe.banks, rng)
+    errors.update(ell_errors)
+    del pipe
+    cfg_l = cfg_l.replace(seed=live_init_seed(cfg_l, data_l, dev))
+    out_l = os.path.join(HERE, "smoke_out", "large_n")
+    shutil.rmtree(out_l, ignore_errors=True)
+    os.makedirs(out_l)
+    large = phase_large_n_train(dev, cfg_l, data_l, out_l)
+    spmm = 7 * cfg_l.num_branches * cfg_l.gcn_num_layers * (1 + cfg_l.support_K)
+    eng_l, launches_l = serve_phase(
+        "large-N", cfg_l, data_l, dev, groups=(1, 2),
+        expect_per_batch={"lstm_infer_last": 14, "ell_fwd": spmm},
+        expect_buckets=(1, 2), buckets=(1, 2))
+    print(f"[large-N] resident supports, f32 tiles: "
+          f"{json.dumps(eng_l.stats()['support'])}", flush=True)
+    eng_q, launches_q = serve_phase(
+        "large-N int8", cfg_l.replace(support_payload="int8"), data_l, dev,
+        groups=(1, 2),
+        expect_per_batch={"lstm_infer_last": 14, "ell_fwd_q": spmm},
+        expect_buckets=(1, 2), buckets=(1, 2))
+    support_q = eng_q.stats()["support"]
+    print(f"[large-N] resident supports, int8 tiles: {json.dumps(support_q)}",
+          flush=True)
+    require(support_q["reduction"] >= 3,
+            f"int8 resident-support reduction {support_q['reduction']} < 3")
+    eng_q.drain()
+    eng_q.close()
+    int8_counts = phase_int8_train(dev, cfg_l, data_l, large["batches"])
+    for counts in (large["train_counts"], large["test_counts"], launches_l,
+                   launches_q, int8_counts, {"ell_bwd_dblk": dblk_launches}):
+        total = _add(total, counts)
+
     times = phase_times(dev, eng, kernel_inputs)
     times.update(phase_train_times(dev, train_inputs, train))
     eng.drain()
     eng.close()
+    times.update(phase_ell_times(dev, ell_inputs))
+    phase_large_n_times(dev, large, eng_l, data_l)
+    eng_l.drain()
+    eng_l.close()
 
     smi = shutil.which("nvidia-smi")
     require(smi is not None, "nvidia-smi not found")

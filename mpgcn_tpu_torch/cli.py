@@ -8,7 +8,10 @@ Runs on the card (``-GPU 0``, the default) unless ``-GPU cpu`` asks for the
 CPU. Train mode trains the single-step model (pred_len is forced to 1, as
 in the reference, Main.py:44-45); test mode reloads ``<out>/MPGCN_od.pkl``
 and rolls out ``-pred`` steps. The data is the seeded synthetic OD series
-(``-data synthetic``).
+(``-data synthetic``). ``-bdgcn`` picks the BDGCN arm: ``auto`` (the
+default) measures the support banks' density and takes the blocked-ELL
+arm at or below ``-sparse-threshold`` when N >= ``-sparse-min-nodes``,
+else the dense kernel arm.
 """
 
 from __future__ import annotations
@@ -42,6 +45,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-shuffle", "--shuffle", action="store_true")
     p.add_argument("-sN", "--synthetic_N", type=int, default=47)
     p.add_argument("-sT", "--synthetic_T", type=int, default=425)
+    p.add_argument("-bdgcn", "--bdgcn_impl", type=str,
+                   choices=["auto", "kernel", "einsum", "ell"],
+                   default="auto",
+                   help="BDGCN arm: kernel = the dense hand-written kernel, "
+                        "einsum = the plain reference-shaped einsums, ell = "
+                        "ELL SpMM over blocked-ELL support containers; auto "
+                        "measures support density and picks ell at/below "
+                        "-sparse-threshold with N >= -sparse-min-nodes, "
+                        "else kernel")
+    p.add_argument("-support-payload", "--support_payload", type=str,
+                   choices=["f32", "bf16", "int8"], default="f32",
+                   help="value payload of the blocked-ELL support tiles: "
+                        "bf16 halves their bytes; int8 stores codes + one "
+                        "scale per row block, dequantised at the kernels' "
+                        "operand read (needs the ell arm)")
+    p.add_argument("-sparse-threshold", "--sparse_density_threshold",
+                   type=float, default=None,
+                   help="support-bank density at or below which "
+                        "-bdgcn auto goes sparse (default 0.25)")
+    p.add_argument("-sparse-min-nodes", "--sparse_min_nodes", type=int,
+                   default=None,
+                   help="-bdgcn auto never picks the sparse arm below this "
+                        "node count (default 256)")
     return p
 
 
@@ -60,10 +86,15 @@ def main(argv=None):
     args = build_parser().parse_args(argv).__dict__
     device = device_for(args.pop("GPU"))
     args.pop("data")
+    bdgcn_impl = args.pop("bdgcn_impl")
+    for knob in ("sparse_density_threshold", "sparse_min_nodes"):
+        if args[knob] is None:  # not given: the config default stands
+            args.pop(knob)
     if args["mode"] == "train":
         args["pred_len"] = 1  # train the single-step model (Main.py:44-45)
     cfg = MPGCNConfig(**args)
-    trainer = ModelTrainer(cfg, synthetic_dataset(cfg), device=device)
+    trainer = ModelTrainer(cfg, synthetic_dataset(cfg), device=device,
+                           bdgcn_impl=bdgcn_impl)
     if cfg.mode == "train":
         return trainer.train()
     return trainer.test()

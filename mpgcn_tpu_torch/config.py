@@ -3,9 +3,10 @@
 The fields the serving and training paths read, with the same names,
 defaults and validation as the JAX package's ``MPGCNConfig`` and
 ``ServeConfig``, so one set of values configures either package. Knobs of
-paths this port does not have yet (sparse supports, meshes, precision
-modes, resume, rollback) are not here; they arrive with the slices that
-run them.
+paths this port does not have yet (padded-CSR supports, sparse OD storage,
+meshes, precision modes, resume, rollback) are not here; they arrive with
+the slices that run them. The BDGCN arm is not a config field: it is the
+``bdgcn_impl`` argument of ``ModelTrainer`` and ``ServeEngine``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,13 @@ DEFAULT_LINEUPS = {
 }
 
 BRANCH_SOURCES = ("static", "dynamic", "poi")
+
+#: value payloads of a blocked-ELL support container (``support_payload``)
+SUPPORT_PAYLOADS = ("f32", "bf16", "int8")
+
+#: the BDGCN arms a model runs (nn/bdgcn.py); 'auto' resolves to one of
+#: them by the support banks' density (data/pipeline.py)
+BDGCN_IMPLS = ("kernel", "einsum", "ell")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +77,17 @@ class MPGCNConfig:
     symnorm_degree_clamp: bool = True       # zero-degree rows -> zero rows
     isolated_nodes: str = "error"           # error | selfloop | ignore
 
+    # --- the sparse support plane (sparse/) ---
+    support_payload: str = "f32"            # f32 | bf16 | int8: how the
+    #                                         blocked-ELL tiles are stored
+    #                                         (int8: codes + one f32 scale
+    #                                         per row block, dequantised at
+    #                                         the kernels' operand read)
+    sparse_density_threshold: float = 0.25  # support-bank density at or
+    #                                         below which bdgcn_impl='auto'
+    #                                         goes sparse ...
+    sparse_min_nodes: int = 256             # ... when N is at least this
+
     def __post_init__(self):
         choices = {
             "norm": ("none", "minmax", "std"),
@@ -78,6 +97,7 @@ class MPGCNConfig:
                             "dual_random_walk_diffusion"),
             "synthetic_profile": ("smooth", "realistic"),
             "isolated_nodes": ("error", "selfloop", "ignore"),
+            "support_payload": SUPPORT_PAYLOADS,
         }
         for field_name, allowed in choices.items():
             val = getattr(self, field_name)
@@ -100,6 +120,12 @@ class MPGCNConfig:
                 f"branch")
         if self.num_branches < 1:
             raise ValueError("num_branches must be >= 1")
+        if not 0 <= self.sparse_density_threshold <= 1:
+            raise ValueError(
+                f"sparse_density_threshold={self.sparse_density_threshold} "
+                f"must be in [0, 1] (a density fraction)")
+        if self.sparse_min_nodes < 1:
+            raise ValueError("sparse_min_nodes must be >= 1")
 
     @property
     def resolved_branch_sources(self) -> tuple[str, ...]:

@@ -180,3 +180,24 @@ def synthetic_dataset(cfg: MPGCNConfig) -> dict:
                        profile=cfg.synthetic_profile)
     adj = synthetic_adjacency(cfg.synthetic_N, cfg.seed)
     return preprocess_od(raw, adj, cfg)
+
+
+def banded_mask(N: int, density: float) -> np.ndarray:
+    """0/1 circulant band of about ``density`` nonzero share, no diagonal
+    (the large-N configuration's graph shape, benchmarks/large_n.py)."""
+    w = max(1, int(density * N / 2))
+    i = np.arange(N)
+    d = np.abs(i[:, None] - i[None, :])
+    d = np.minimum(d, N - d)
+    return ((d <= w) & (d > 0)).astype(np.float64)
+
+
+def apply_density(data: dict, density: float) -> None:
+    """Project the graphs AND the OD flows of ``data`` onto the band, in
+    place: flows travel the edges that exist."""
+    mask = banded_mask(data["OD"].shape[1], density)
+    data["adj"] = data["adj"] * mask
+    data["OD"] = data["OD"] * mask[None, :, :, None]
+    for k in ("O_dyn_G", "D_dyn_G"):
+        if data.get(k) is not None:
+            data[k] = data[k] * mask[:, :, None]

@@ -7,6 +7,13 @@ stack (K, N, N) when a branch uses it, and the seven weekly O/D
 correlation stacks (7, K, N, N) that a batch gathers by day-of-week key.
 ``batches`` streams a mode's windows in order (or shuffled), repeat-padding
 the last partial batch to full size when asked, as the JAX pipeline does.
+
+The bank build also settles the BDGCN arm, in the one place that
+``ModelTrainer`` and ``ServeEngine`` share (mpgcn_tpu/train/trainer.py:
+160-197, 470-495): it measures the banks' density, resolves
+``bdgcn_impl='auto'`` by it, and for the sparse arm ('ell') stores every
+bank as a blocked-ELL container with one pad-block count shared across the
+banks and the tiles packed as ``cfg.support_payload``.
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from mpgcn_tpu_torch.config import MPGCNConfig
+from mpgcn_tpu_torch.config import BDGCN_IMPLS, MPGCNConfig
 from mpgcn_tpu_torch.data.windows import (
     MODES,
     dow_keys,
@@ -29,8 +36,32 @@ from mpgcn_tpu_torch.device import resolve_device
 from mpgcn_tpu_torch.graph.kernels import (
     batch_supports,
     compute_supports,
+    pack_supports,
     validate_graph,
 )
+from mpgcn_tpu_torch.sparse.formats import (
+    BlockedELL,
+    container_nbytes,
+    dense_equiv_bytes,
+    ell_pad_width,
+)
+
+
+def resolve_bdgcn_impl(requested: str, cfg: MPGCNConfig, num_nodes: int,
+                       density: float) -> str:
+    """The BDGCN arm: 'auto' gives 'ell' when the measured support density
+    is at or below ``cfg.sparse_density_threshold`` and N is at least
+    ``cfg.sparse_min_nodes``, else 'kernel' (on the CPU too, where the
+    wrappers run their plain versions); any other arm stands as asked."""
+    if requested == "auto":
+        if (num_nodes >= cfg.sparse_min_nodes
+                and density <= cfg.sparse_density_threshold):
+            return "ell"
+        return "kernel"
+    if requested not in BDGCN_IMPLS:
+        raise ValueError(f"bdgcn_impl={requested!r} is not one of "
+                         f"{('auto',) + BDGCN_IMPLS}")
+    return requested
 
 
 @dataclasses.dataclass
@@ -57,9 +88,11 @@ class Batch:
 
 
 class DataPipeline:
-    """Per-mode windows plus the support banks, on ``device``."""
+    """Per-mode windows plus the support banks, on ``device``, stored for
+    the BDGCN arm ``bdgcn_impl`` resolves to (``self.bdgcn_impl``)."""
 
-    def __init__(self, cfg: MPGCNConfig, data: dict, device="cuda"):
+    def __init__(self, cfg: MPGCNConfig, data: dict, device="cuda",
+                 bdgcn_impl: str = "auto"):
         self.cfg = cfg
         self.device = resolve_device(device)
         od = np.ascontiguousarray(np.asarray(data["OD"], dtype=np.float32))
@@ -92,7 +125,8 @@ class DataPipeline:
                       cfg.cheby_order, cfg.lambda_max, cfg.lambda_max_iters,
                       degree_clamp=clamp, device=self.device)
 
-        self.banks: dict[str, torch.Tensor] = {}
+        # dense (..., N, N) stacks; BlockedELL containers for the 'ell' arm
+        self.banks: dict = {}
         if "static" in sources:
             self.banks["static"] = supports(data["adj"], "adjacency")
         if "poi" in sources:
@@ -112,6 +146,59 @@ class DataPipeline:
                                        "O-correlation graphs", batched=True)
             self.banks["d"] = supports(np.moveaxis(data["D_dyn_G"], -1, 0),
                                        "D-correlation graphs", batched=True)
+        self._build_sparse(bdgcn_impl)
+
+    def _build_sparse(self, requested: str) -> None:
+        """Measure the banks' density, resolve the BDGCN arm, and for 'ell'
+        re-store every bank as a container with one shared pad."""
+        cfg = self.cfg
+        nnz = sum(int(torch.count_nonzero(v)) for v in self.banks.values())
+        total = sum(v.numel() for v in self.banks.values())
+        self.support_density = nnz / total if total else 1.0
+        self.requested_impl = requested
+        self.bdgcn_impl = impl = resolve_bdgcn_impl(
+            requested, cfg, self.num_nodes, self.support_density)
+        if impl != "ell":
+            if cfg.support_payload == "int8":
+                raise ValueError(
+                    f"support_payload='int8' packs blocked-ELL tiles as "
+                    f"codes + per-row-block scales, so it needs the 'ell' "
+                    f"arm, but bdgcn_impl={requested!r} resolved to "
+                    f"{impl!r}")
+            return  # dense banks ignore the payload, as in the JAX package
+        dense = {k: v.cpu().numpy() for k, v in self.banks.items()}
+        # one pad across banks, as the JAX trainer plans it
+        pad = max(ell_pad_width(v) for v in dense.values())
+        self.banks = {
+            k: pack_supports(v, "ell", cfg.support_payload,
+                             pad=pad).to(self.device)
+            for k, v in dense.items()}
+
+    def dispatch_line(self, lstm_impl: str) -> str:
+        """The kernel-dispatch decision, as the JAX trainer prints it."""
+        payload = self.cfg.support_payload
+        return (f"[dispatch] bdgcn_impl={self.bdgcn_impl} (requested "
+                f"{self.requested_impl!r}), lstm_impl={lstm_impl}, device "
+                f"{self.device}, support density {self.support_density:.4f}"
+                + (f", support_payload={payload}"
+                   if payload != "f32" and self.bdgcn_impl == "ell" else ""))
+
+    def support_stats(self) -> dict:
+        """Resident bytes of the banks as stored (containers with their
+        index, or dense f32) against the dense f32 equivalent."""
+        resident = dense = 0
+        for b in self.banks.values():
+            if isinstance(b, BlockedELL):
+                resident += container_nbytes(b)
+                dense += dense_equiv_bytes(b)
+            else:
+                resident += b.numel() * b.element_size()
+                dense += b.numel() * 4
+        return {"payload": self.cfg.support_payload,
+                "impl": self.bdgcn_impl,
+                "resident_bytes": int(resident),
+                "dense_f32_bytes": int(dense),
+                "reduction": round(dense / resident, 2) if resident else 1.0}
 
     @property
     def num_nodes(self) -> int:

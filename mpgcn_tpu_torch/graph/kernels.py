@@ -192,3 +192,17 @@ def batch_supports(flow, kernel_type: str, cheby_order: int,
                          f"{tuple(np.shape(flow))}")
     return compute_supports(flow, kernel_type, cheby_order, lambda_max,
                             lambda_max_iters, degree_clamp, device)
+
+
+def pack_supports(stack, fmt: str, payload: str = "f32", pad=None):
+    """A dense (..., K, N, N) support stack as a sparse container: sparsify
+    into ``fmt`` (only 'ell' is ported) and pack its tiles as ``payload``
+    ('f32', 'bf16' or 'int8'). The data pipeline's bank build comes
+    through here. Returns CPU tensors."""
+    from mpgcn_tpu_torch.sparse.formats import (
+        pack_payload,
+        sparsify_support_stack,
+    )
+
+    container = sparsify_support_stack(stack, fmt, pad=pad)
+    return pack_payload(container, payload)

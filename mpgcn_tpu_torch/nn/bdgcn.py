@@ -3,7 +3,7 @@ graphs (counterpart of mpgcn_tpu/nn/bdgcn.py).
 
 For K supports it forms all K x K (origin, destination) contraction pairs
 of the OD feature grid X (B, N, N, C), feat[o, d] = G_o^T X G_d, and
-projects their channel concat with W (K^2 C, H). Two arms share the
+projects their channel concat with W (K^2 C, H). Three arms share the
 weights:
 
   * "einsum": reference-shaped and plain -- the (K, K, B, N, N, C) bank
@@ -13,6 +13,9 @@ weights:
     destination contractions into the projection,
     sum_{o, d} (G_o^T X G_d) W[o, d] with W reshaped (K, K, C, H), so the
     bank never reaches device memory.
+  * "ell": the same folded algebra over blocked-ELL support containers,
+    both node contractions as ELL SpMMs (sparse/kernels.py
+    ``bdgcn_sparse``); G is then a container, or a pair of containers.
 """
 
 from __future__ import annotations
@@ -20,10 +23,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from mpgcn_tpu_torch.config import BDGCN_IMPLS
 from mpgcn_tpu_torch.nn.cuda_bdgcn import folded_pair_project
 from mpgcn_tpu_torch.nn.init import xavier_normal
-
-BDGCN_IMPLS = ("kernel", "einsum")
+from mpgcn_tpu_torch.sparse.kernels import bdgcn_sparse
 
 
 class BDGCN(nn.Module):
@@ -53,7 +56,8 @@ def origin_contract(X: torch.Tensor, G):
 def bdgcn_apply(layer, X: torch.Tensor, G, activation=None,
                 impl: str = "kernel") -> torch.Tensor:
     """X (B, N, N, C); G a static (K, N, N) stack or a dynamic pair of
-    (B, K, N, N) origin/destination stacks. Returns (B, N, N, H)."""
+    (B, K, N, N) origin/destination stacks (their blocked-ELL containers
+    for "ell"). Returns (B, N, N, H)."""
     B, N, _, C = X.shape
     if impl == "einsum":
         if isinstance(G, tuple):
@@ -73,6 +77,8 @@ def bdgcn_apply(layer, X: torch.Tensor, G, activation=None,
         Wr = layer.W.reshape(K, K, C, -1)
         Gk = G_dest if G_dest.ndim == 4 else G_dest[None]
         out = folded_pair_project(h1, Gk, Wr)
+    elif impl == "ell":
+        out = bdgcn_sparse(layer.W, X, G)
     else:
         raise ValueError(f"unknown bdgcn impl {impl!r}: expected one of "
                          f"{BDGCN_IMPLS}")

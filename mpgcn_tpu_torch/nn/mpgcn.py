@@ -6,7 +6,8 @@ gcn_num_layers BDGCN layers with ReLU, and an FC+ReLU head; the branch
 outputs are averaged. ``lstm_impl``/``bdgcn_impl`` pick the hand-written
 kernels ("kernel") or the plain arms ("plain"/"einsum"), which compute the
 same function with stock PyTorch operations and which autograd
-differentiates like any torch code. ``forward(..., inference=True)`` runs
+differentiates like any torch code; ``bdgcn_impl="ell"`` runs the BDGCN
+layers over blocked-ELL support containers through the ELL SpMM kernels. ``forward(..., inference=True)`` runs
 under ``torch.no_grad()`` on the inference kernels (the serve and test
 rollouts); ``inference=False`` records autograd through the training
 kernels (``LSTMLayerFn`` and ``PairProjectFn``).

@@ -6,7 +6,9 @@ the admission gate (service/ingest.py), joins a micro-batcher queue per
 forecast horizon (service/batcher.py), and is answered by a
 ``horizon``-step autoregressive rollout of MPGCN over its padded bucket,
 through the hand-written kernels when the engine runs on the card.
-The support banks are put on the device once at startup.
+The support banks are put on the device once at startup, dense or, for
+large sparse graphs (``bdgcn_impl`` 'auto' or 'ell'), as blocked-ELL
+containers; ``stats()["support"]`` reports their resident bytes.
 
 The JAX engine's AOT compile per bucket has no counterpart: PyTorch runs
 eagerly. Each (bucket, horizon) pair is run once at startup instead, which
@@ -37,13 +39,16 @@ from mpgcn_tpu_torch.service.batcher import (
     Ticket,
 )
 from mpgcn_tpu_torch.service.ingest import validate_request
+from mpgcn_tpu_torch.sparse.cuda_ell import ELL_FWD, ELL_FWD_Q
 from mpgcn_tpu_torch.train.predict import rollout
 from mpgcn_tpu_torch.utils.convert import load_jax_checkpoint, params_from_jax
 
 #: the kernels on the serve path, by the name the stats report
 KERNELS = {"lstm_infer_last": LSTM_INFER_LAST,
            "lstm_infer_collect": LSTM_INFER_COLLECT,
-           "bdgcn_pair_fwd": BDGCN_PAIR_FWD}
+           "bdgcn_pair_fwd": BDGCN_PAIR_FWD,
+           "ell_fwd": ELL_FWD,
+           "ell_fwd_q": ELL_FWD_Q}
 
 
 class ServeEngine:
@@ -51,14 +56,15 @@ class ServeEngine:
 
     Params come from ``init_ckpt`` (a JAX pickle checkpoint, converted by
     utils/convert.py), else -- only with ``allow_fresh`` -- from a fresh
-    init seeded by ``cfg.seed``."""
+    init seeded by ``cfg.seed``. ``bdgcn_impl`` picks the BDGCN arm as for
+    ``ModelTrainer`` ('auto' resolves by the banks' density)."""
 
     def __init__(self, cfg: MPGCNConfig, data: dict, scfg: ServeConfig,
                  device="cuda", init_ckpt: Optional[str] = None,
-                 allow_fresh: bool = False):
+                 allow_fresh: bool = False, bdgcn_impl: str = "auto"):
         self.device = resolve_device(device)
         self.scfg = scfg
-        pipeline = DataPipeline(cfg, data, self.device)
+        pipeline = DataPipeline(cfg, data, self.device, bdgcn_impl)
         self.cfg = cfg = cfg.replace(num_nodes=pipeline.num_nodes)
         self.pipeline = pipeline
         self.banks = pipeline.banks
@@ -66,7 +72,10 @@ class ServeEngine:
         self._default_horizon = (cfg.pred_len if cfg.pred_len in
                                  self.horizons else self.horizons[-1])
 
-        self.model = MPGCN.from_config(cfg, device=self.device).eval()
+        self.model = MPGCN.from_config(
+            cfg, device=self.device,
+            bdgcn_impl=pipeline.bdgcn_impl).eval()
+        print(pipeline.dispatch_line(self.model.lstm_impl))
         if init_ckpt is not None:
             params = load_jax_checkpoint(
                 init_ckpt, num_branches=cfg.num_branches,
@@ -173,8 +182,9 @@ class ServeEngine:
             b.stop()
 
     def stats(self) -> dict:
-        """Outcomes, latency, per-bucket dispatches and pad waste, and the
-        kernels' launch counts (counted since they were last set to 0)."""
+        """Outcomes, latency, per-bucket dispatches and pad waste, the
+        support banks' resident bytes, and the kernels' launch counts
+        (counted since they were last set to 0)."""
         with self._stats_lock:
             per = {b: list(st) for b, st in self._pad_stats.items()}
             outcomes = dict(self._outcomes)
@@ -194,6 +204,7 @@ class ServeEngine:
                                        "dispatches": st[2]}
                               for b, st in sorted(per.items())},
             },
+            "support": self.pipeline.support_stats(),
             "kernel_launches": {name: k.launches
                                 for name, k in KERNELS.items()},
         }

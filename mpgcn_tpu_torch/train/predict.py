@@ -9,7 +9,9 @@ import torch
 def graphs_for(banks: dict, keys: torch.Tensor, sources) -> list:
     """Per-branch graph inputs: the static (or POI) (K, N, N) stack, or the
     dynamic pair (banks["o"][keys], banks["d"][keys]) gathered by
-    day-of-week key. Gathered once per batch, before the rollout loop."""
+    day-of-week key -- dense banks or blocked-ELL containers alike, which
+    gather their tiles, ids and transposed index by key. Gathered once per
+    batch, before the rollout loop."""
     out = []
     for src in sources:
         if src == "dynamic":

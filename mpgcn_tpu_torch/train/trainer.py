@@ -8,9 +8,11 @@ checkpoint at epoch 0 and on every non-worsening validation loss, and early
 stopping after ``early_stop_patience`` epochs without one. ``test`` reloads
 the checkpoint, rolls out ``pred_len`` steps and appends its scores to
 ``<output_dir>/MPGCN_prediction_scores.txt``. On the card every step goes
-through the hand-written kernels (``lstm_impl``/``bdgcn_impl`` "kernel");
-the plain arms ("plain"/"einsum") compute the same function with stock
-PyTorch operations.
+through the hand-written kernels (``lstm_impl`` "kernel", ``bdgcn_impl``
+"kernel" or "ell"); the plain arms ("plain"/"einsum") compute the same
+function with stock PyTorch operations. ``bdgcn_impl="auto"`` (the
+default) is resolved once by the data pipeline from the measured support
+density: "ell" for large sparse graphs, else "kernel".
 
 Not here yet: step sentinels, the dead-init probe and reseed, resume and
 the rolling ``_last`` checkpoint, rollback and the watchdog, gradient
@@ -53,18 +55,20 @@ class ModelTrainer:
     (default the card; the CPU only when asked)."""
 
     def __init__(self, cfg: MPGCNConfig, data: dict, device="cuda",
-                 lstm_impl: str = "kernel", bdgcn_impl: str = "kernel"):
+                 lstm_impl: str = "kernel", bdgcn_impl: str = "auto"):
         if cfg.model != "MPGCN":
             raise NotImplementedError("Invalid model name.")
         self.device = resolve_device(device)
-        self.pipeline = DataPipeline(cfg, data, self.device)
+        self.pipeline = DataPipeline(cfg, data, self.device, bdgcn_impl)
         if cfg.num_nodes == 0:
             cfg = cfg.replace(num_nodes=self.pipeline.num_nodes)
         self.cfg = cfg
         self.banks = self.pipeline.banks
+        self.bdgcn_impl = self.pipeline.bdgcn_impl
         self.model = MPGCN.from_config(cfg, device=self.device,
                                        lstm_impl=lstm_impl,
-                                       bdgcn_impl=bdgcn_impl)
+                                       bdgcn_impl=self.bdgcn_impl)
+        print(self.pipeline.dispatch_line(lstm_impl))
         self.optimizer = make_optimizer(cfg.optimizer,
                                         self.model.parameters(),
                                         cfg.learn_rate, cfg.decay_rate)

@@ -1,8 +1,8 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
 version, the kernels' refusals, a ServeEngine whose rollout goes through
-the kernels, and a ModelTrainer step whose forward and backward go
-through the training kernels. Every test needs a CUDA card and skips
-without one.
+the kernels, and ModelTrainer steps whose forward and backward go through
+the training kernels, dense and blocked-ELL. Every test needs a CUDA card
+and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs on a GPU
 machine without JAX; tests/conftest.py imports JAX, so run it there as
@@ -12,17 +12,27 @@ machine without JAX; tests/conftest.py imports JAX, so run it there as
 Tolerances: f32 on both sides, other summation orders. K-LSTM and K-BDGCN
 rtol 1e-5 / atol 1e-5; the 7-step rollout rtol 1e-4 / atol 1e-4. The
 backward kernels' dW sums R T (or B M N) products, so it is held at
-rtol 1e-5 with atol 1e-6 x its largest entry."""
+rtol 1e-5 with atol 1e-6 x its largest entry. The ELL SpMM forward and dX
+rtol 1e-5 / atol 1e-5 (sums of up to MB * 128 products); dBlocks sums F
+products and is held like dW."""
 
 import numpy as np
 import pytest
 import torch
 
 from mpgcn_tpu_torch.config import MPGCNConfig, ServeConfig
-from mpgcn_tpu_torch.data.loader import synthetic_dataset
+from mpgcn_tpu_torch.data.loader import apply_density, synthetic_dataset
 from mpgcn_tpu_torch.nn import cuda_bdgcn, cuda_lstm
 from mpgcn_tpu_torch.nn.mpgcn import MPGCN
+from mpgcn_tpu_torch.quant.int8 import QuantizedTensor
 from mpgcn_tpu_torch.service.serve import KERNELS, ServeEngine
+from mpgcn_tpu_torch.sparse import cuda_ell
+from mpgcn_tpu_torch.sparse.formats import (
+    BlockedELL,
+    ell_from_dense,
+    pack_payload,
+)
+from mpgcn_tpu_torch.sparse.kernels import ell_spmm, flat_stack
 from mpgcn_tpu_torch.train.predict import rollout
 from mpgcn_tpu_torch.train.trainer import ModelTrainer
 
@@ -136,7 +146,8 @@ def test_engine_serves_through_the_kernels(cuda_device):
         steps = cfg.pred_len * cfg.num_branches * batches
         assert launches == {"lstm_infer_last": steps,
                             "lstm_infer_collect": steps,
-                            "bdgcn_pair_fwd": steps * cfg.gcn_num_layers}
+                            "bdgcn_pair_fwd": steps * cfg.gcn_num_layers,
+                            "ell_fwd": 0, "ell_fwd_q": 0}
         plain = MPGCN.from_config(eng.cfg, device=cuda_device,
                                   lstm_impl="plain", bdgcn_impl="einsum")
         plain.load_state_dict(eng.model.state_dict())
@@ -277,8 +288,9 @@ def test_trainer_step_runs_the_training_kernels(cuda_device, tmp_path):
     torch.cuda.synchronize()
     assert {n: k.launches for n, k in kernels.items()} == {
         "lstm_infer_last": 0, "lstm_infer_collect": 0,
-        "bdgcn_pair_fwd": 6, "lstm_train_fwd": 2, "lstm_train_bwd": 2,
-        "dw_reduce": 8, "bdgcn_pair_bwd": 6}
+        "bdgcn_pair_fwd": 6, "ell_fwd": 0, "ell_fwd_q": 0,
+        "lstm_train_fwd": 2, "lstm_train_bwd": 2, "dw_reduce": 8,
+        "bdgcn_pair_bwd": 6}
     ref = dict(plain.model.named_parameters())
     for name, p in tr.model.named_parameters():
         torch.testing.assert_close(
@@ -289,3 +301,168 @@ def test_trainer_step_runs_the_training_kernels(cuda_device, tmp_path):
     assert np.isfinite(tr.eval_step(batch))
     assert {n: k.launches for n, k in kernels.items() if k.launches} == {
         "lstm_infer_last": 2, "bdgcn_pair_fwd": 6}
+
+
+# --- the ELL SpMM kernels -----------------------------------------------------
+
+#: (stack shape, tile width, pattern, F, per-sample X): ragged N over several
+#: column blocks, MB = 1 (block diagonal), MB = the column-block count
+#: (dense), a banded N = 500 stack at the (8, 128) tile, F not a multiple of
+#: any tile
+ELL_CASES = [((3, 21, 21), 8, "random", 5, False),
+             ((2, 3, 21, 21), 8, "random", 700, True),
+             ((3, 64, 64), 8, "diagonal", 513, False),
+             ((2, 40, 40), 16, "dense", 37, True),
+             ((3, 500, 500), 128, "band", 1000, False)]
+
+
+def _ell_case(dev, shape, bc, pattern, F, per_sample, payload, seed=0):
+    """A container on the card, X and dout for it, and the stack's x_div."""
+    rng = np.random.default_rng(seed + shape[-1] + F)
+    N = shape[-1]
+    A = rng.normal(size=shape).astype(np.float32)
+    if pattern == "random":
+        A *= rng.random(shape) < 0.3
+        A[..., 1, :] = 0.0
+    elif pattern == "diagonal":
+        # row block i (8 rows) meets column block i only (bc = 8)
+        A *= np.arange(N)[:, None] // bc == np.arange(N)[None, :] // bc
+    elif pattern == "band":
+        d = np.abs(np.arange(N)[:, None] - np.arange(N)[None, :])
+        A *= np.minimum(d, N - d) <= 12
+    ell = pack_payload(ell_from_dense(A, br=8, bc=bc), payload).to(dev)
+    S = int(np.prod(shape[:-2]))
+    G = shape[0] if per_sample else 1
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    X = t(rng.normal(size=(G, N, F)))
+    dout = t(rng.normal(size=(S, N, F)))
+    return ell, X, dout, S // G
+
+
+@pytest.mark.parametrize("payload", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("shape,bc,pattern,F,per_sample", ELL_CASES)
+def test_ell_fwd_and_dx_kernels_match_plain(cuda_device, payload, shape, bc,
+                                            pattern, F, per_sample):
+    ell, X, dout, x_div = _ell_case(cuda_device, shape, bc, pattern, F,
+                                    per_sample, payload)
+    cols, tiles, scale, t_ptr, t_slot = flat_stack(ell)
+    if pattern == "diagonal":
+        assert ell.pad_blocks == 1
+    if pattern == "dense":
+        assert ell.pad_blocks == -(-shape[-1] // bc)
+    q = scale is not None
+    fwd = cuda_ell.ELL_FWD_Q if q else cuda_ell.ELL_FWD
+    dxk = cuda_ell.ELL_BWD_DX_Q if q else cuda_ell.ELL_BWD_DX
+    before = (fwd.launches, dxk.launches)
+    n = shape[-1]
+    out = cuda_ell.ell_fwd(cols, tiles, X, n, x_div, scale)
+    dx = cuda_ell.ell_bwd_dx(cols, tiles, t_ptr, t_slot, dout, n, x_div,
+                             scale)
+    torch.cuda.synchronize()
+    assert (fwd.launches, dxk.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(
+        out, cuda_ell.ell_fwd_plain(cols, tiles, X, n, x_div, scale),
+        **KERNEL_TOL)
+    torch.testing.assert_close(
+        dx, cuda_ell.ell_bwd_dx_plain(cols, tiles, dout, n, x_div, scale),
+        **KERNEL_TOL)
+    dx2 = cuda_ell.ell_bwd_dx(cols, tiles, t_ptr, t_slot, dout, n, x_div,
+                              scale)
+    assert torch.equal(dx, dx2), "dX differs between two runs"
+
+
+@pytest.mark.parametrize("shape,bc,pattern,F,per_sample", ELL_CASES)
+def test_ell_dblk_kernel_matches_plain(cuda_device, shape, bc, pattern, F,
+                                       per_sample):
+    ell, X, dout, x_div = _ell_case(cuda_device, shape, bc, pattern, F,
+                                    per_sample, "f32", seed=1)
+    cols = flat_stack(ell)[0]
+    before = cuda_ell.ELL_BWD_DBLK.launches
+    dblk = cuda_ell.ell_bwd_dblk(cols, X, dout, bc, x_div)
+    torch.cuda.synchronize()
+    assert cuda_ell.ELL_BWD_DBLK.launches == before + 1
+    _close_scaled(dblk, cuda_ell.ell_bwd_dblk_plain(cols, X, dout, bc, x_div))
+    assert torch.equal(dblk, cuda_ell.ell_bwd_dblk(cols, X, dout, bc, x_div))
+
+
+def test_ell_autograd_launches_dblk_only_for_tiles_that_need_it(cuda_device):
+    ell, X, dout, _ = _ell_case(cuda_device, (3, 21, 21), 8, "random", 9,
+                                False, "f32")
+    Xg = X[0].clone().requires_grad_()
+    counts = lambda: (cuda_ell.ELL_BWD_DX.launches,
+                      cuda_ell.ELL_BWD_DBLK.launches)
+    before = counts()
+    ell_spmm(ell, Xg).backward(dout)
+    assert counts() == (before[0] + 1, before[1])
+    blocks = ell.blocks.clone().requires_grad_()
+    el = BlockedELL(ell.block_cols, blocks, ell.t_ptr, ell.t_slot, 21, 21)
+    (dblk,) = torch.autograd.grad((ell_spmm(el, X[0]) * dout).sum(), blocks)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1)
+    assert dblk.shape == blocks.shape
+    # the int8 payload's codes and scales are data: dX only
+    q = pack_payload(ell.to("cpu"), "int8").to(cuda_device)
+    scale = q.blocks.scale.clone().requires_grad_()
+    qel = BlockedELL(q.block_cols, QuantizedTensor(q.blocks.q, scale),
+                     q.t_ptr, q.t_slot, 21, 21)
+    Xq = X[0].clone().requires_grad_()
+    before_q = cuda_ell.ELL_BWD_DX_Q.launches
+    ell_spmm(qel, Xq).backward(dout)
+    torch.cuda.synchronize()
+    assert cuda_ell.ELL_BWD_DX_Q.launches == before_q + 1
+    assert Xq.grad is not None and scale.grad is None
+
+
+def test_ell_kernels_reject_what_they_do_not_take(cuda_device):
+    ell, X, dout, x_div = _ell_case(cuda_device, (3, 21, 21), 8, "random", 5,
+                                    False, "f32")
+    cols, tiles, _, t_ptr, t_slot = flat_stack(ell)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_ell.ell_fwd(cols, tiles, X.double(), 21, x_div)
+    with pytest.raises(TypeError, match="int32"):
+        cuda_ell.ell_fwd(cols.long(), tiles, X, 21, x_div)
+    with pytest.raises(TypeError, match="tiles"):
+        cuda_ell.ell_fwd(cols, tiles.half(), X, 21, x_div)
+    with pytest.raises(ValueError, match="x_div"):
+        cuda_ell.ell_fwd(cols, tiles, X, 21, 2)
+    with pytest.raises(ValueError, match="transposed index"):
+        cuda_ell.ell_bwd_dx(cols, tiles, t_ptr[:, :2], t_slot, dout, 21,
+                            x_div)
+    with pytest.raises(ValueError, match="dout"):
+        cuda_ell.ell_bwd_dblk(cols, X, dout[:1], 8, x_div)
+
+
+def test_trainer_step_runs_the_ell_kernels(cuda_device, tmp_path):
+    """A ModelTrainer step on banded N=136 supports, where 'auto' resolves
+    to the ELL arm: M * 3 layers * (1 + K) = 24 launches of ell_fwd and of
+    ell_bwd_dx, none of dBlocks or of the dense BDGCN kernels; gradients
+    match the dense plain arms'."""
+    cfg = MPGCNConfig(synthetic_T=60, synthetic_N=136, hidden_dim=8,
+                      batch_size=2, pred_len=1, seed=0, sparse_min_nodes=64,
+                      output_dir=str(tmp_path))
+    data = synthetic_dataset(cfg)
+    apply_density(data, 0.05)
+    tr = ModelTrainer(cfg, data, device=cuda_device)
+    assert tr.bdgcn_impl == "ell"
+    plain = ModelTrainer(cfg, data, device=cuda_device, lstm_impl="plain",
+                         bdgcn_impl="einsum")
+    plain.model.load_state_dict(tr.model.state_dict())
+    batch = next(tr.pipeline.batches("train", pad_to_full=True))
+    kernels = {"ell_fwd": cuda_ell.ELL_FWD, "ell_bwd_dx": cuda_ell.ELL_BWD_DX,
+               "ell_bwd_dblk": cuda_ell.ELL_BWD_DBLK,
+               "bdgcn_pair_fwd": cuda_bdgcn.BDGCN_PAIR_FWD,
+               "bdgcn_pair_bwd": cuda_bdgcn.BDGCN_PAIR_BWD}
+    for k in kernels.values():
+        k.launches = 0
+    for t in (tr, plain):
+        x, y, keys = t._tensors(batch)
+        t._batch_loss(x, y, keys, batch.size).backward()
+    torch.cuda.synchronize()
+    assert {n: k.launches for n, k in kernels.items()} == {
+        "ell_fwd": 24, "ell_bwd_dx": 24, "ell_bwd_dblk": 0,
+        "bdgcn_pair_fwd": 0, "bdgcn_pair_bwd": 0}
+    ref = dict(plain.model.named_parameters())
+    for name, p in tr.model.named_parameters():
+        torch.testing.assert_close(
+            p.grad, ref[name].grad, rtol=1e-4,
+            atol=1e-5 * float(ref[name].grad.abs().max()))
