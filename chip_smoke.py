@@ -31,8 +31,9 @@ Phases, each fatal on failure:
      f32, bf16 and int8 tiles where the entry takes them) against their
      plain versions at the large-N shapes (the banks of the N=500, density
      0.05 configuration: stack 3 or 6, NB=63, MB=2, F=32,000 or 16,000)
-     and at odd sizes, dX and dBlocks twice (bit-equal); dBlocks through
-     torch.autograd.grad with respect to the tiles of a pad-free container;
+     and at odd sizes, the forward, dX and dBlocks twice (bit-equal);
+     dBlocks through torch.autograd.grad with respect to the tiles of a
+     pad-free container;
   6. large-N train: MPGCN at N=500 (banded density 0.05, batch 2, hidden
      32, M=2, K=3) with bdgcn_impl="auto", which must resolve to "ell"; the
      kernel arms' loss and gradients on one batch against the dense plain
@@ -66,10 +67,12 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet): device memory rate and the
-# f32 rate of the CUDA cores (no tensor cores: the kernels are f32 FMA)
+# H100 SXM published peaks (NVIDIA data sheet): device memory rate, the
+# f32 rate of the CUDA cores (the kernels' f32 FMA) and the dense TF32 rate
+# of the tensor cores (the ELL forward's mma)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12
 
 LSTM_TOL = dict(rtol=1e-5, atol=1e-5)    # 7 steps of f32, other sum order
 BDGCN_TOL = dict(rtol=1e-5, atol=1e-5)   # f32 sums of K^2 N C products
@@ -126,6 +129,8 @@ KERNEL_META = {
 TRAIN_KERNELS = ("lstm_train_fwd", "lstm_train_bwd", "dw_reduce",
                  "bdgcn_pair_bwd")
 ELL_TRAIN_KERNELS = ("ell_bwd_dx", "ell_bwd_dx_q", "ell_bwd_dblk")
+#: row blocks per row group of the ELL forward (csrc/ell_spmm.cu kGroupRB)
+FWD_GROUP_RB = 8
 # the large-N configuration (benchmarks/large_n.py --format ell --density
 # 0.05): 60 synthetic days over 500 zones projected onto a band, batch 2
 LARGE_N = dict(synthetic_T=60, synthetic_N=500, batch_size=2)
@@ -164,9 +169,9 @@ def require(cond, msg):
         raise RuntimeError(f"chip smoke check failed: {msg}")
 
 
-def bound(bytes_moved, flops):
+def bound(bytes_moved, flops, peak_flop_per_s=PEAK_F32_FLOP_PER_S):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = flops / peak_flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -996,7 +1001,9 @@ def phase_train_times(dev, kin, train):
 # --- the sparse path ----------------------------------------------------------
 
 #: ELL SpMM forward and dX: f32 sums of up to MB x 128 products, in another
-#: order than the plain version's per-slot einsums
+#: order than the plain version's per-slot einsums; the forward's TF32
+#: products split each f32 operand into two TF32 parts (about 2^-21
+#: relative per product)
 ELL_TOL = dict(rtol=1e-5, atol=1e-5)
 #: odd sizes: (stack, tile width, pattern, F, per-sample X) -- ragged N over
 #: several column blocks, MB = 1 (block diagonal), MB = the column-block
@@ -1032,7 +1039,7 @@ def _odd_container(dev, shape, bc, pattern, rng):
 
 def check_ell(tag, ell, X, dout, x_div, err):
     """ell_fwd / ell_bwd_dx (or their int8 entries) against the plain
-    versions, dX twice (bit-equal); updates err per entry."""
+    versions, each twice (bit-equal); updates err per entry."""
     import torch
 
     from mpgcn_tpu_torch.sparse import cuda_ell
@@ -1041,21 +1048,24 @@ def check_ell(tag, ell, X, dout, x_div, err):
     cols, tiles, scale, t_ptr, t_slot = flat_stack(ell)
     q = "_q" if scale is not None else ""
     n = ell.n_rows
-    out = cuda_ell.ell_fwd(cols, tiles, X, n, x_div, scale)
+    out = cuda_ell.ell_fwd(cols, tiles, t_ptr, t_slot, X, n, x_div, scale)
     dx = cuda_ell.ell_bwd_dx(cols, tiles, t_ptr, t_slot, dout, ell.n_cols,
                              x_div, scale)
     torch.cuda.synchronize()
     err[f"ell_fwd{q}"] = max(err[f"ell_fwd{q}"], compare(
         f"ELL fwd{q} {tag}", out,
         cuda_ell.ell_fwd_plain(cols, tiles, X, n, x_div, scale), ELL_TOL))
-    del out
+    out2 = cuda_ell.ell_fwd(cols, tiles, t_ptr, t_slot, X, n, x_div, scale)
+    require(torch.equal(out, out2), f"ELL fwd{q} {tag}: two runs differ")
+    del out, out2
     err[f"ell_bwd_dx{q}"] = max(err[f"ell_bwd_dx{q}"], compare(
         f"ELL dX{q} {tag}", dx, cuda_ell.ell_bwd_dx_plain(
             cols, tiles, dout, ell.n_cols, x_div, scale), ELL_TOL))
     dx2 = cuda_ell.ell_bwd_dx(cols, tiles, t_ptr, t_slot, dout, ell.n_cols,
                               x_div, scale)
     require(torch.equal(dx, dx2), f"ELL dX{q} {tag}: two runs differ")
-    print(f"[check] ELL dX{q} {tag}: bit-equal over two runs", flush=True)
+    print(f"[check] ELL fwd{q} and dX{q} {tag}: bit-equal over two runs",
+          flush=True)
 
 
 def phase_ell_kernels(dev, banks, rng):
@@ -1291,12 +1301,42 @@ def _ell_ops(cols, tiles, n_rows, n_cols, F):
             int(pop.sum()))
 
 
+def _x_slab_bytes(cols, tiles, t_ptr, t_slot, n_cols, F):
+    """X bytes the forward reads per launch, computed from the container:
+    the one-row-block schedule (one X slab of BC rows per slot, pad slots
+    included) and the row-group schedule of csrc/ell_spmm.cu (per slice,
+    row group of FWD_GROUP_RB row blocks and column block that one of the
+    group's populated slots names, the rows of the columns, rounded out to
+    multiples of 8, in which one of those tiles is non-zero). Rows past
+    n_cols are not read."""
+    S, NB, MB = cols.shape
+    bc = tiles.shape[-1]
+    c_np = cols.cpu().numpy()
+    old = int(np.minimum(bc, n_cols - bc * c_np).sum())
+    ptr, slot = t_ptr.cpu().numpy(), t_slot.cpu().numpy()
+    nz = (tiles != 0).any(-2).reshape(S, NB * MB, bc).cpu().numpy()
+    new = 0
+    for s in range(S):
+        for c in range(ptr.shape[1] - 1):
+            run = slot[s, ptr[s, c]:ptr[s, c + 1]]
+            for g in np.unique(run // MB // FWD_GROUP_RB):
+                used = np.flatnonzero(
+                    nz[s, run[run // MB // FWD_GROUP_RB == g]].any(0))
+                if used.size:
+                    k0, k1 = used[0] // 8 * 8, -(-(used[-1] + 1) // 8) * 8
+                    new += max(0, min(k1, n_cols - bc * c) - k0)
+    return old * F * 4, new * F * 4
+
+
 def phase_ell_times(dev, kin):
     """The ELL entries at the large-N static shape: kernel (CUDA events),
     plain, the fastest single library call, and the bound from this run's
     container: ``_ell_ops`` operations (all of the operator, 2 S N N F,
     for dBlocks on the pad-free container); X, output, tiles (and ids,
-    scales or index) bytes."""
+    scales or index) bytes. The forward runs on the TF32 tensor cores, in
+    3 products per f32 product (2 on int8 codes): its operations bound is
+    that many times ``_ell_ops`` at the TF32 peak; the CUDA-core bound
+    (``_ell_ops`` at the f32 peak, as for dX) is printed beside it."""
     import torch
 
     from mpgcn_tpu_torch.sparse import cuda_ell
@@ -1326,10 +1366,16 @@ def phase_ell_times(dev, kin):
             f"ell_bwd_dx{q}",
             dense.permute(2, 0, 1).reshape(dense.shape[2], -1).contiguous(),
             dp.reshape(-1, F)))
-        b_ms, b_by = bound(4 * (X.numel() + S * N * F) + small, ops)
+        fwd_bytes = 4 * (X.numel() + S * N * F) + small + 4 * (
+            t_ptr.numel() + t_slot.numel())
+        passes = 3 if scale is None else 2
+        b_ms, b_by = bound(fwd_bytes, passes * ops, PEAK_TF32_FLOP_PER_S)
+        cuda_core_ms = bound(fwd_bytes, ops)[0]
+        slab_old, slab_new = _x_slab_bytes(cols, tiles, t_ptr, t_slot, N, F)
         times[f"ell_fwd{q}"] = dict(
-            ms=time_ms(lambda: cuda_ell.ell_fwd(cols, tiles, X, N, S // G,
-                                                scale), iters=20, warmup=3),
+            ms=time_ms(lambda: cuda_ell.ell_fwd(cols, tiles, t_ptr, t_slot, X,
+                                                N, S // G, scale),
+                       iters=20, warmup=3),
             plain_ms=time_ms(lambda: cuda_ell.ell_fwd_plain(
                 cols, tiles, X, N, S // G, scale), iters=3, warmup=1),
             library_ms=lib_f, bound_ms=b_ms, bound_by=b_by)
@@ -1343,10 +1389,17 @@ def phase_ell_times(dev, kin):
                 cols, tiles, dout, N, S // G, scale), iters=3, warmup=1),
             library_ms=lib_b, bound_ms=b_ms, bound_by=b_by)
         for k in (f"ell_fwd{q}", f"ell_bwd_dx{q}"):
+            fwd = "fwd" in k
+            extra = (f"TF32 operations {passes} x {ops}; CUDA-core bound "
+                     f"{cuda_core_ms:.5f} ms (operations); X slabs staged "
+                     f"per launch: {slab_old} bytes one per slot (a row "
+                     f"block per grid cell), {slab_new} bytes one per row "
+                     f"group and column block, its non-zero columns; "
+                     if fwd else "")
             print(f"[time] {k} {payload} S={S} NB={NB} MB={MB} F={F}, "
                   f"{pop} of {S * NB * MB} slots populated, {ops} "
-                  f"operations; library calls "
-                  f"{json.dumps(each_f if 'fwd' in k else each_b)}: "
+                  f"operations; {extra}library calls "
+                  f"{json.dumps(each_f if fwd else each_b)}: "
                   f"{json.dumps(times[k])}", flush=True)
         del dense
     full, X, dout = kin["dblk"]

@@ -11,10 +11,8 @@
 // Entries, and the TPU kernels of mpgcn_tpu/sparse/pallas_ell.py each
 // replaces:
 //   ell_fwd       out[s, i-block] = sum_j blocks[s,i,j] @ X[cols[s,i,j]]
-//                 (_fwd_kernel, launched by _fwd_impl); f32 or bf16 tiles,
-//                 promoted to f32 at the operand read
-//   ell_fwd_q     the same on int8 codes x one f32 scale per row block,
-//                 dequantised at the operand read as float(code) * scale
+//                 (_fwd_kernel, launched by _fwd_impl); f32 or bf16 tiles
+//   ell_fwd_q     the same on int8 codes x one f32 scale per row block
 //                 (_fwd_kernel_q, _fwd_impl_q)
 //   ell_bwd_dx    dX[g, c-block] = sum over the slots (s, i, j) of group g
 //                 with cols == c of blocks[s,i,j]^T @ dout[s, i-block]
@@ -30,27 +28,66 @@
 // S = 3 or 6, NB = 63, MB = 2, BC = 128) the least work is 2 * F times
 // the operator entries that the populated tiles cover inside the (N, N)
 // operator: 14.5 GFLOP for the static origin contraction (229 of 378
-// slots populated), 0.217 ms at 67 TFLOP/s f32 on the CUDA cores,
-// against 258 MB of X, output and tiles (0.077 ms at 3.35 TB/s): bound by
-// operations. These are first, simple kernels, f32 FMA on the CUDA cores;
-// they reread each X slab once per row block that uses it (from L2 when it
-// fits) and run well below that bound. Tensor cores (TF32 or bf16 mma) and
-// TMA-fed X slabs are later work.
+// slots populated), against 258 MB of X, output and tiles (0.077 ms at
+// 3.35 TB/s). On the CUDA cores (67 TFLOP/s f32: 0.217 ms) that is bound
+// by operations; the forward runs on the TF32 tensor cores in three
+// products for f32 tiles (3 x 14.5 GFLOP at 495 TFLOP/s: 0.088 ms, bound
+// by operations) and two for bf16 tiles and int8 codes (bound by bytes).
+// dX and dBlocks are first, simple kernels, f32 FMA on the CUDA cores,
+// well below their bound.
 //
 // Design.
-//   Forward: one block per (row block i, slice s, 512-column F tile), row
-//     block fastest, so the blocks in flight share one X slab in L2. It
-//     reads its own MB column ids (the TPU prefetches them as scalars),
-//     stages each 8 x BC tile in shared memory (dequantised there), and
-//     each thread accumulates 8 rows x 4 columns in f32 registers over the
-//     tile's columns, reading X straight from global memory, coalesced.
+//   Forward: the TPU kernel takes one row block per grid cell and reads
+//     an X slab for each of its MB slots, pad slots included: at the shape
+//     above 6.1 GB of X per launch for 8-row tiles that reuse each X value
+//     8 times. Here a block owns a row group of 8 row blocks (64 rows), an
+//     X group g (the x_div slices that read X[g], one after the other, so
+//     each re-reads the same slabs while they sit in L2) and every
+//     n_chunks-th 32-column F tile (the blocks in flight walk F side by
+//     side). Per slice it gathers the column blocks that its row blocks'
+//     populated slots name, in ascending order, from the container's
+//     transposed block index (t_ptr, t_slot: per slice, the populated
+//     slots sorted by column block, then row block, so a group's slots on
+//     column block c are one sub-run, found by binary search, one column
+//     block per thread). It stages those tiles once, as (64 x K) operands
+//     in shared memory in mma fragment order (K = BC padded with zeros to
+//     a multiple of 8; one 16-byte load per fragment), and reuses them
+//     over all its F tiles. X slabs (32 columns) stream through a
+//     double-buffered cp.async ring, one per (F tile, live column block),
+//     each multiplied by the operand of that column block. A slab holds
+//     only the rows of the columns (rounded out to multiples of 8) in which
+//     one of the operand's tiles is non-zero, and the products skip the
+//     other k steps: in a banded operator a row group meets only part of a
+//     column block. That reads 0.27 GB of X per launch at the shape above,
+//     against 0.64 GB for whole slabs. Two blocks share an SM, so one's
+//     staging and stores overlap the other's products. Pad slots are never
+//     read: their tiles are zero, so for finite X leaving them out gives
+//     the same sum (as in dX below); the plain version still computes
+//     every slot. A 16-row fragment whose two row blocks have no slot on
+//     the column block is skipped. A group whose live column blocks do not
+//     all fit in shared memory takes them in batches, each adding its sum
+//     into the output in order.
+//     The products are mma.sync m16n8k8 TF32 with f32 accumulators (wgmma
+//     takes TF32 operands only K-major, and the X slab is not). TF32 keeps
+//     10 mantissa bits, so each f32 operand is split into a TF32 high part
+//     and the remainder: f32 tiles take hi*hi + hi*lo + lo*hi ("3xTF32",
+//     error about 2^-21 relative per product); bf16 tiles and int8 codes
+//     are exact in TF32, so only X is split (two products). The tensor
+//     cores add into their accumulator with truncation, so hi*hi is summed
+//     per k step from 0 and added in f32, and the cross terms accumulate
+//     apart. The int8 scale is one per (s, row block), constant over the
+//     slots, and is applied to the f32 accumulator in the epilogue:
+//     (sum code * x) * scale, a different rounding from the TPU kernel's
+//     float(code) * scale at the operand read, within rtol 1e-5. Repeated
+//     column ids in a row block (ell_from_dense never makes them) are
+//     summed into the staged operand, which is then split as f32 tiles
+//     are. No float atomics: each block owns its output tiles and sums in
+//     a fixed order, bit-equal from run to run.
 //   dX: the TPU sums dX over row blocks because its grid runs in order.
 //     Here one block owns one (group g, column block c, 64-column F tile)
 //     of dX and walks, in a fixed order, the slots of its column block
-//     from the container's transposed block index (t_ptr, t_slot: per
-//     slice, the populated slots sorted by column block, then row block;
-//     pad slots are left out, their tiles are zero). No float atomics:
-//     dX is bit-equal from run to run.
+//     from the transposed block index; pad slots are left out, their tiles
+//     are zero. No float atomics: dX is bit-equal from run to run.
 //   dBlocks: one block per slot (s, i, j); each thread owns 4 of the 8 x BC
 //     outputs and adds dout x X over F in order, 32 columns per staged
 //     step, each step's partial added into a compensated (Kahan) sum: F is
@@ -62,14 +99,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kBR = 8;        // rows per row block (the containers' tiles)
 constexpr int kMaxBC = 128;   // widest column block
 
-constexpr int kFwdThreads = 128;
-constexpr int kFwdVec = 4;                        // columns per thread
-constexpr int kFwdTF = kFwdThreads * kFwdVec;     // columns per block
+constexpr int kGroupRB = 8;                       // row blocks per group
+constexpr int kFwdMF = kGroupRB * kBR / 16;       // 16-row mma fragments
+constexpr int kFwdWarps = 2 * kFwdMF;             // (fragment, column half)
+constexpr int kFwdThreads = 32 * kFwdWarps;
+constexpr int kFwdTF = 32;                        // F columns per X slab
+constexpr int kFwdNF = kFwdTF / 2 / 8;            // 8-column tiles per warp
+constexpr int kXStride = kFwdTF + 8;              // staged X row, padded
+constexpr int kStages = 2;                        // X slabs in flight
+constexpr int kACap = 16384;                      // staged operand floats
+constexpr int kMaxOps = kACap / (kGroupRB * kBR * 8);  // at the least K
+constexpr int kFwdBlocksPerSM = 2;                // resident forward blocks
+constexpr int kFwdWaves = 4;                      // blocks per SM to aim at
 
 constexpr int kDxThreads = 256;
 constexpr int kDxTF = 64;                         // dX columns per block
@@ -95,62 +143,451 @@ __device__ __forceinline__ float tile_value(const int8_t* p, size_t e,
   return static_cast<float>(p[e]) * scale;
 }
 
+// --- the forward on TF32 tensor cores ---------------------------------------
+
+// bf16 tiles and int8 codes are exact in TF32; f32 tiles are not
 template <typename T>
-__global__ void __launch_bounds__(kFwdThreads)
-ell_fwd_kernel(const int* __restrict__ cols, const T* __restrict__ blocks,
-               const float* __restrict__ scale, const float* __restrict__ x,
-               float* __restrict__ out, int S, int NB, int MB, int BC,
-               int n_rows, int n_cols, int F, int x_div) {
-  __shared__ float tile[kBR * kMaxBC];
-  int bid = blockIdx.x;
-  const int i = bid % NB;
-  bid /= NB;
-  const int s = bid % S;
-  const int ft = bid / S;
-  const int tid = threadIdx.x;
-  const float* xs = x + (size_t)(s / x_div) * n_cols * F;
-  const size_t slot0 = ((size_t)s * NB + i) * MB;
-  const float sc = scale != nullptr ? scale[(size_t)s * NB + i] : 1.0f;
+__host__ __device__ constexpr bool exact_in_tf32() {
+  return !std::is_same<T, float>::value;
+}
 
-  int f[kFwdVec];
-#pragma unroll
-  for (int v = 0; v < kFwdVec; ++v) f[v] = ft * kFwdTF + tid + v * kFwdThreads;
-  float acc[kBR][kFwdVec];
-#pragma unroll
-  for (int r = 0; r < kBR; ++r)
-#pragma unroll
-    for (int v = 0; v < kFwdVec; ++v) acc[r][v] = 0.0f;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most kStages - 2 copy groups are in flight
+__device__ __forceinline__ void cp_async_wait_stage() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+}
 
-  for (int j = 0; j < MB; ++j) {
-    const int c = cols[slot0 + j];
-    const T* blk = blocks + (slot0 + j) * kBR * BC;
-    __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < kBR * BC; e += kFwdThreads)
-      tile[e] = tile_value(blk, e, sc);
+// v = hi + lo: hi is v rounded to TF32 (10 mantissa bits), to nearest
+// with ties away from zero as cvt.rna.tf32.f32 rounds, in two integer
+// operations; lo = v - hi exactly, |lo| <= 2^-11 |v|. The tensor cores
+// read only the top 19 bits of a TF32 operand, so lo enters truncated:
+// hi + lo carries v to within 2^-21 |v|.
+__device__ __forceinline__ void split_tf32(float v, unsigned& hi,
+                                           unsigned& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// d += a b (m16n8k8, TF32 in, f32 out). The tensor cores add into d with
+// truncation, an error relative to |d| at every call.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b with the product's 8 terms summed on the tensor cores from 0
+// and added into d in f32, rounded to nearest
+__device__ __forceinline__ void mma_tf32_add(float (&d)[4],
+                                             const unsigned (&a)[4],
+                                             unsigned b0, unsigned b1) {
+  float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_tf32(p, a, b0, b1);
+#pragma unroll
+  for (int v = 0; v < 4; ++v) d[v] += p[v];
+}
+
+// First entry in t_slot[lo, hi) (sorted by row block) whose row block is
+// >= rb.
+__device__ __forceinline__ int lower_rb(const int* tsl, int lo, int hi,
+                                        int MB, int rb) {
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (tsl[mid] / MB < rb)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// The shared state of a forward block: one batch of live column blocks
+// of its row group, ascending, each with its sub-run [a, b) of t_slot, the
+// mask of row blocks holding a slot there (bit 31: a row block holds two)
+// and the columns [klo, khi) of the block in which any of those tiles is
+// non-zero.
+struct FwdBatch {
+  int c[kMaxOps], a[kMaxOps], b[kMaxOps], klo[kMaxOps], khi[kMaxOps];
+  unsigned mask[kMaxOps];
+  int warp_n[kFwdWarps];
+  int resume;
+};
+
+// Gather up to cap live column blocks from *c_from on, one column block
+// per thread and binary search at a time; *c_from moves past them (to nbc
+// when none are left). Returns the count, the same in every thread.
+__device__ int gather_live(FwdBatch& L, const int* ptr, const int* tsl,
+                           int* c_from, int nbc, int MB, int i0, int cap) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  int n = 0, c0 = *c_from;
+  while (c0 < nbc && n < cap) {
+    const int c = c0 + tid;
+    int a = 0, b = 0;
+    if (c < nbc) {
+      const int hi = ptr[c + 1];
+      a = lower_rb(tsl, ptr[c], hi, MB, i0);
+      b = lower_rb(tsl, a, hi, MB, i0 + kGroupRB);
+    }
+    const bool live = a < b;
+    const unsigned ball = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) L.warp_n[warp] = __popc(ball);
     __syncthreads();
-    const int r0 = c * BC;
-    const int nc = min(BC, n_cols - r0);
-    for (int cc = 0; cc < nc; ++cc) {
-      const float* xr = xs + (size_t)(r0 + cc) * F;
-      float xv[kFwdVec];
-#pragma unroll
-      for (int v = 0; v < kFwdVec; ++v) xv[v] = f[v] < F ? xr[f[v]] : 0.0f;
-#pragma unroll
-      for (int r = 0; r < kBR; ++r) {
-        const float a = tile[r * BC + cc];
-#pragma unroll
-        for (int v = 0; v < kFwdVec; ++v) acc[r][v] = fmaf(a, xv[v], acc[r][v]);
-      }
+    int before = 0, total = 0;
+    for (int w = 0; w < kFwdWarps; ++w) {
+      before += w < warp ? L.warp_n[w] : 0;
+      total += L.warp_n[w];
+    }
+    const int rank = n + before + __popc(ball & ((1u << lane) - 1u));
+    if (live && rank < cap) {
+      L.c[rank] = c;
+      L.a[rank] = a;
+      L.b[rank] = b;
+    }
+    if (live && rank == cap) L.resume = c;  // the first one left over
+    __syncthreads();
+    if (n + total > cap) {
+      c0 = L.resume;
+      n = cap;
+    } else {
+      n += total;
+      c0 += kFwdThreads;
+    }
+    __syncthreads();  // warp_n and resume are read before reuse
+  }
+  *c_from = min(c0, nbc);
+  return n;
+}
+
+// Stage rows [k0, k1) of column block c's X slab (X rows c BC + k, F
+// columns [f0, f0 + kFwdTF)) into rows k0.. of dst (rows of kXStride);
+// rows past BC or n_cols and columns past F are 0.
+template <bool kVec>
+__device__ __forceinline__ void stage_x(float* dst, const float* xs, int c,
+                                        int BC, int k0, int k1, int n_cols,
+                                        int F, int f0) {
+  const int r0 = c * BC;
+  const int nr = min(BC, n_cols - r0);
+  dst += k0 * kXStride;
+  if (kVec) {  // F % 4 == 0 and X 16-byte aligned: 16-byte copies
+    constexpr int kChunks = kFwdTF / 4;
+    for (int q = threadIdx.x; q < (k1 - k0) * kChunks; q += kFwdThreads) {
+      const int k = k0 + q / kChunks;
+      const int f = (q % kChunks) * 4;
+      const bool ok = k < nr && f0 + f < F;
+      cp_async16(dst + (k - k0) * kXStride + f,
+                 ok ? xs + (size_t)(r0 + k) * F + f0 + f : xs, ok ? 16 : 0);
+    }
+  } else {
+    for (int q = threadIdx.x; q < (k1 - k0) * kFwdTF; q += kFwdThreads) {
+      const int k = k0 + q / kFwdTF;
+      const int f = q % kFwdTF;
+      const bool ok = k < nr && f0 + f < F;
+      cp_async4(dst + (k - k0) * kXStride + f,
+                ok ? xs + (size_t)(r0 + k) * F + f0 + f : xs, ok ? 4 : 0);
     }
   }
+}
+
+// Index of operand element (row r of the group, k) in fragment order:
+// float4 ((r / 16) * ks_n + k / 8) * 32 + lane, component reg, with lane
+// and reg those of the m16n8k8 A fragment.
+__device__ __forceinline__ int afrag_index(int r, int k, int ks_n) {
+  const int rr = r & 15, kk = k & 7;
+  return ((((r >> 4) * ks_n + (k >> 3)) * 32 + (rr & 7) * 4 + (kk & 3))
+          << 2) + (rr >> 3) + 2 * (kk >> 2);
+}
+
+// Stage the batch's n operands into ops (op_size floats each), as (64 x kp)
+// matrices in fragment order. Tiles enter raw (int8 codes unscaled). A
+// row block's first slot on a column block is stored, a later one added
+// (in a second pass, in order); row blocks without a slot are zero where
+// their fragment partner has one, and left unwritten otherwise (their
+// fragment is skipped). Each tile's loads are in flight together. Also
+// finds each operand's non-zero columns [klo, khi).
+template <typename T>
+__device__ void stage_ops(FwdBatch& L, int n, float* ops, int op_size,
+                          const int* tsl, const T* blocks, size_t slot0,
+                          int MB, int BC, int kp, int i0) {
+  const int tid = threadIdx.x;
+  const int ks_n = kp / 8;
+  const int per = kBR * kp;  // elements of one tile
+  if (tid < n) {  // the masks
+    unsigned mask = 0;
+    int prev = -1;
+    for (int e = L.a[tid]; e < L.b[tid]; ++e) {
+      const int rb = tsl[e] / MB - i0;
+      if (rb == prev) mask |= 1u << 31;
+      prev = rb;
+      mask |= 1u << rb;
+    }
+    L.mask[tid] = mask;
+    L.klo[tid] = kp;
+    L.khi[tid] = 0;
+  }
+  __syncthreads();
+  for (int pass = 0; pass < 2; ++pass) {
+    bool any = false;
+    for (int k = 0; k < n; ++k) {
+      if (pass == 1 && !(L.mask[k] >> 31)) continue;
+      any = true;
+      float* dst = ops + k * op_size;
+      int prev = -1;
+      int lo = kp, hi = 0;  // this thread's non-zero columns
+      for (int e = L.a[k]; e < L.b[k]; ++e) {
+        const int slot = tsl[e];
+        const int rb = slot / MB - i0;
+        const bool later = rb == prev;
+        prev = rb;
+        if (later != (pass == 1)) continue;
+        const T* blk = blocks + (slot0 + slot) * kBR * BC;
+        constexpr int kPer = kBR * kMaxBC / kFwdThreads;
+        float v[kPer];
 #pragma unroll
-  for (int r = 0; r < kBR; ++r) {
-    const int row = i * kBR + r;
-    if (row >= n_rows) continue;
-    float* o = out + ((size_t)s * n_rows + row) * F;
+        for (int u = 0; u < kPer; ++u) {
+          const int q = tid + u * kFwdThreads;
+          const int rl = q / kp, kc = q - rl * kp;
+          v[u] = q < per && kc < BC
+                     ? tile_value(blk, (size_t)rl * BC + kc, 1.0f)
+                     : 0.0f;
+          if (v[u] != 0.0f) {
+            lo = min(lo, kc);
+            hi = max(hi, kc + 1);
+          }
+        }
 #pragma unroll
-    for (int v = 0; v < kFwdVec; ++v)
-      if (f[v] < F) o[f[v]] = acc[r][v];
+        for (int u = 0; u < kPer; ++u) {
+          const int q = tid + u * kFwdThreads;
+          if (q >= per) break;
+          const int rl = q / kp;
+          float* d = dst + afrag_index(rb * kBR + rl, q - rl * kp, ks_n);
+          *d = later ? *d + v[u] : v[u];
+        }
+      }
+      lo = __reduce_min_sync(0xffffffffu, lo);
+      hi = __reduce_max_sync(0xffffffffu, hi);
+      if (tid % 32 == 0) {
+        atomicMin(&L.klo[k], lo);
+        atomicMax(&L.khi[k], hi);
+      }
+      if (pass == 0) {
+        const unsigned mask = L.mask[k];
+        for (int rb = 0; rb < kGroupRB; ++rb) {
+          if ((mask >> rb & 1u) || !(mask >> (rb ^ 1) & 1u)) continue;
+          for (int q = tid; q < per; q += kFwdThreads) {
+            const int rl = q / kp;
+            dst[afrag_index(rb * kBR + rl, q - rl * kp, ks_n)] = 0.0f;
+          }
+        }
+      }
+    }
+    if (pass == 0 || any) __syncthreads();
+  }
+}
+
+// The warp's products for one staged X slab: its 16-row fragment m of the
+// operand against its kFwdNF 8-column tiles of the slab, over the k steps
+// [ks0, ks1) that hold the operand's non-zero columns. The hi * hi
+// products go into acc through mma_tf32_add; the cross terms, about 2^-11
+// of them, into their own accumulator acc_lo, whose truncation is as
+// small: over hundreds of products a single accumulator's truncation
+// would add up to more than f32 rounding.
+template <bool kExactA>
+__device__ __forceinline__ void fwd_products(float (&acc)[kFwdNF][4],
+                                             float (&acc_lo)[kFwdNF][4],
+                                             const float* xb,
+                                             const float* op, unsigned mask,
+                                             int m, int ks0, int ks1,
+                                             int ks_n, int lane) {
+  if (!(mask >> (2 * m) & 3u)) return;  // no slot in these 16 rows
+  // bf16 tiles and int8 codes are exact in TF32: only X is split, unless
+  // two tiles were summed
+  const bool split_a = !kExactA || (mask >> 31);
+  const int gid = lane / 4, tig = lane % 4;
+  const float4* af = reinterpret_cast<const float4*>(op) + m * ks_n * 32 +
+                     lane;
+  const float* x0 = xb + (ks0 * 8 + tig) * kXStride + gid;
+  for (int ks = ks0; ks < ks1; ++ks, x0 += 8 * kXStride) {
+    const float4 v = af[ks * 32];
+    unsigned ah[4], al[4];
+    if (split_a) {
+      split_tf32(v.x, ah[0], al[0]);
+      split_tf32(v.y, ah[1], al[1]);
+      split_tf32(v.z, ah[2], al[2]);
+      split_tf32(v.w, ah[3], al[3]);
+    } else {
+      ah[0] = __float_as_uint(v.x);
+      ah[1] = __float_as_uint(v.y);
+      ah[2] = __float_as_uint(v.z);
+      ah[3] = __float_as_uint(v.w);
+    }
+    unsigned bh[kFwdNF][2], bl[kFwdNF][2];
+#pragma unroll
+    for (int n = 0; n < kFwdNF; ++n) {
+      split_tf32(x0[n * 8], bh[n][0], bl[n][0]);
+      split_tf32(x0[4 * kXStride + n * 8], bh[n][1], bl[n][1]);
+    }
+    if (split_a) {
+#pragma unroll
+      for (int n = 0; n < kFwdNF; ++n)
+        mma_tf32(acc_lo[n], al, bh[n][0], bh[n][1]);
+    }
+#pragma unroll
+    for (int n = 0; n < kFwdNF; ++n)
+      mma_tf32(acc_lo[n], ah, bl[n][0], bl[n][1]);
+#pragma unroll
+    for (int n = 0; n < kFwdNF; ++n)
+      mma_tf32_add(acc[n], ah, bh[n][0], bh[n][1]);
+  }
+}
+
+// Dynamic shared memory of the forward: kStages X slabs and the operands.
+inline size_t fwd_smem_bytes(int kp) {
+  return sizeof(float) * ((size_t)kStages * kp * kXStride + kACap);
+}
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSM)
+ell_fwd_kernel(const int* __restrict__ t_ptr, const int* __restrict__ t_slot,
+               const T* __restrict__ blocks, const float* __restrict__ scale,
+               const float* __restrict__ x, float* __restrict__ out, int S,
+               int NB, int MB, int BC, int nbc, int n_rows, int n_cols,
+               int F, int x_div, int n_chunks) {
+  extern __shared__ float4 smem4[];
+  __shared__ FwdBatch L;
+  float* xbuf = reinterpret_cast<float*>(smem4);  // kStages slabs
+  const int kp = (BC + 7) / 8 * 8;                // K padded to the mma depth
+  const int ks_n = kp / 8;
+  const int slab = kp * kXStride;
+  const int op_size = kFwdMF * 16 * kp;           // one operand, 64 x kp
+  float* ops = xbuf + kStages * slab;
+  const int cap = min(kMaxOps, kACap / op_size);
+  const int n_groups = (NB + kGroupRB - 1) / kGroupRB;
+  const int n_ft = (F + kFwdTF - 1) / kFwdTF;
+  int bid = blockIdx.x;
+  const int grp = bid % n_groups;
+  bid /= n_groups;
+  const int G = S / x_div;
+  const int g = bid % G;                          // the X its slices read
+  // this block's F tiles: ch, ch + n_chunks, ...; the blocks in flight
+  // walk F side by side, so the X they read stays in L2
+  const int ch = bid / G;
+  const int n_tiles = (n_ft - ch + n_chunks - 1) / n_chunks;
+  const int i0 = grp * kGroupRB;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int m = warp % kFwdMF, half = warp / kFwdMF;
+  const int gid = lane / 4, tig = lane % 4;
+  const float* xs = x + (size_t)g * n_cols * F;
+
+  float acc[kFwdNF][4], acc_lo[kFwdNF][4];
+#pragma unroll
+  for (int n = 0; n < kFwdNF; ++n)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[n][v] = acc_lo[n][v] = 0.0f;
+
+  // the epilogue of F tile t: rows gid and gid + 8 of the warp's fragment,
+  // columns 2 tig and 2 tig + 1 of each 8-column tile, times the row
+  // block's int8 scale; added to what an earlier batch wrote when
+  // accumulate. Zeroes the accumulator.
+  auto store = [&](int s, int t, bool accumulate) {
+    const bool pair = (F & 1) == 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m * 16 + h * 8 + gid;
+      const int row = i0 * kBR + r;
+      if (row >= n_rows) continue;
+      const float sc =
+          scale != nullptr ? scale[(size_t)s * NB + i0 + r / kBR] : 1.0f;
+      float* o = out + ((size_t)s * n_rows + row) * F;
+#pragma unroll
+      for (int n = 0; n < kFwdNF; ++n) {
+        const int col = (ch + t * n_chunks) * kFwdTF + half * (kFwdTF / 2) +
+                        n * 8 + 2 * tig;
+        float v0 = (acc[n][2 * h] + acc_lo[n][2 * h]) * sc;
+        float v1 = (acc[n][2 * h + 1] + acc_lo[n][2 * h + 1]) * sc;
+        if (pair && col + 1 < F) {
+          float2* o2 = reinterpret_cast<float2*>(o + col);
+          if (accumulate) {
+            const float2 w = *o2;
+            v0 += w.x;
+            v1 += w.y;
+          }
+          *o2 = make_float2(v0, v1);
+        } else {
+          if (col < F) o[col] = accumulate ? o[col] + v0 : v0;
+          if (col + 1 < F) o[col + 1] = accumulate ? o[col + 1] + v1 : v1;
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kFwdNF; ++n)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[n][v] = acc_lo[n][v] = 0.0f;
+  };
+
+  // The X group's slices one after the other, each re-reading the same X
+  // slabs while they are in L2. Per slice, batches of up to cap live
+  // column blocks: their operands are staged once and reused over the
+  // block's n_tiles F tiles; X slabs stream through a ring of kStages, one
+  // (F tile, column block) after the other. A row group with more live
+  // column blocks than fit takes more batches, each adding its sum into
+  // the output (in a fixed order).
+  for (int s = g * x_div; s < (g + 1) * x_div; ++s) {
+  const int* ptr = t_ptr + (size_t)s * (nbc + 1);
+  const int* tsl = t_slot + (size_t)s * NB * MB;
+  const size_t slot0 = (size_t)s * NB * MB;
+  int c_from = 0;
+  for (int batch = 0;; ++batch) {
+    const int n = gather_live(L, ptr, tsl, &c_from, nbc, MB, i0, cap);
+    if (n == 0) {
+      if (batch == 0)  // no slot in the group: its rows are 0
+        for (int t = 0; t < n_tiles; ++t) store(s, t, false);
+      break;
+    }
+    stage_ops(L, n, ops, op_size, tsl, blocks, slot0, MB, BC, kp, i0);
+    // operand k's k steps: its non-zero columns, in steps of 8
+    auto ks_lo = [&](int k) { return L.klo[k] / 8; };
+    auto ks_hi = [&](int k) { return max(ks_lo(k), (L.khi[k] + 7) / 8); };
+    auto stage = [&](int t) {
+      const int k = t % n;
+      stage_x<kVec>(xbuf + (t % kStages) * slab, xs, L.c[k], BC, 8 * ks_lo(k),
+                    8 * ks_hi(k), n_cols, F, (ch + t / n * n_chunks) * kFwdTF);
+    };
+    const int total = n_tiles * n;
+    for (int t = 0; t < kStages - 1; ++t) {
+      if (t < total) stage(t);
+      cp_async_commit();
+    }
+    for (int t = 0; t < total; ++t) {
+      cp_async_wait_stage();
+      __syncthreads();  // slab t has landed; slab t - 1's readers are done
+      if (t + kStages - 1 < total) stage(t + kStages - 1);
+      cp_async_commit();
+      const int k = t % n;
+      fwd_products<exact_in_tf32<T>()>(
+          acc, acc_lo, xbuf + (t % kStages) * slab + half * (kFwdTF / 2),
+          ops + k * op_size, L.mask[k], m, ks_lo(k), ks_hi(k), ks_n, lane);
+      if (k == n - 1) store(s, t / n, batch > 0);
+    }
+    __syncthreads();  // the operands and slabs are free for the next batch
+    if (c_from >= nbc) break;
+  }
   }
 }
 
@@ -308,16 +745,37 @@ bool shape_ok(int S, int NB, int MB, int BC, int n_rows, int n_cols, int F,
 }
 
 template <typename T>
-int launch_fwd(const void* cols, const void* blocks, const void* scale,
-               const void* x, void* out, int S, int NB, int MB, int BC,
-               int n_rows, int n_cols, int F, int x_div, cudaStream_t st) {
-  const long long grid =
-      (long long)NB * S * ((F + kFwdTF - 1) / kFwdTF);
+int launch_fwd(const void* t_ptr, const void* t_slot, const void* blocks,
+               const void* scale, const void* x, void* out, int S, int NB,
+               int MB, int BC, int n_rows, int n_cols, int F, int x_div,
+               cudaStream_t st) {
+  const int nbc = (n_cols + BC - 1) / BC;
+  // each block walks every n_chunks-th F tile of one (X group, row group):
+  // enough blocks for kFwdWaves per SM, no more, so the index walk and the
+  // staged operands serve as many F tiles as they can
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long cells =
+      (long long)((NB + kGroupRB - 1) / kGroupRB) * (S / x_div);
+  const long long n_ft = (F + kFwdTF - 1) / kFwdTF;
+  const long long want = ((long long)kFwdWaves * sms + cells - 1) / cells;
+  const long long n_chunks = want < 1 ? 1 : (want > n_ft ? n_ft : want);
+  const long long grid = cells * n_chunks;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  ell_fwd_kernel<T><<<(unsigned)grid, kFwdThreads, 0, st>>>(
-      static_cast<const int*>(cols), static_cast<const T*>(blocks),
-      static_cast<const float*>(scale), static_cast<const float*>(x),
-      static_cast<float*>(out), S, NB, MB, BC, n_rows, n_cols, F, x_div);
+  const size_t smem = fwd_smem_bytes((BC + 7) / 8 * 8);
+  const bool vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  auto kern = vec ? ell_fwd_kernel<T, true> : ell_fwd_kernel<T, false>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<(unsigned)grid, kFwdThreads, smem, st>>>(
+      static_cast<const int*>(t_ptr), static_cast<const int*>(t_slot),
+      static_cast<const T*>(blocks), static_cast<const float*>(scale),
+      static_cast<const float*>(x), static_cast<float*>(out), S, NB, MB, BC,
+      nbc, n_rows, n_cols, F, x_div, (int)n_chunks);
   return cudaGetLastError();
 }
 
@@ -340,33 +798,37 @@ int launch_dx(const void* t_ptr, const void* t_slot, const void* blocks,
 
 }  // namespace
 
-// out (S, n_rows, F) f32 from cols (S, NB, MB) int32, blocks (S, NB, MB, 8,
-// BC) f32 (payload 0) or bf16 (payload 1), x (S / x_div, n_cols, F) f32.
-extern "C" int ell_fwd(const void* cols, const void* blocks, const void* x,
-                       void* out, int payload, int S, int NB, int MB, int BC,
+// out (S, n_rows, F) f32 from the transposed block index t_ptr (S, nbc + 1)
+// and t_slot (S, NB * MB) int32, blocks (S, NB, MB, 8, BC) f32 (payload 0)
+// or bf16 (payload 1), x (S / x_div, n_cols, F) f32.
+extern "C" int ell_fwd(const void* t_ptr, const void* t_slot,
+                       const void* blocks, const void* x, void* out,
+                       int payload, int S, int NB, int MB, int BC,
                        int n_rows, int n_cols, int F, int x_div,
                        void* stream) {
   if (!shape_ok(S, NB, MB, BC, n_rows, n_cols, F, x_div))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (payload == kF32)
-    return launch_fwd<float>(cols, blocks, nullptr, x, out, S, NB, MB, BC,
-                             n_rows, n_cols, F, x_div, st);
+    return launch_fwd<float>(t_ptr, t_slot, blocks, nullptr, x, out, S, NB,
+                             MB, BC, n_rows, n_cols, F, x_div, st);
   if (payload == kBF16)
-    return launch_fwd<__nv_bfloat16>(cols, blocks, nullptr, x, out, S, NB,
-                                     MB, BC, n_rows, n_cols, F, x_div, st);
+    return launch_fwd<__nv_bfloat16>(t_ptr, t_slot, blocks, nullptr, x, out,
+                                     S, NB, MB, BC, n_rows, n_cols, F, x_div,
+                                     st);
   return cudaErrorInvalidValue;
 }
 
 // The int8 payload: codes (S, NB, MB, 8, BC) int8, scale (S, NB) f32.
-extern "C" int ell_fwd_q(const void* cols, const void* codes,
-                         const void* scale, const void* x, void* out, int S,
-                         int NB, int MB, int BC, int n_rows, int n_cols,
-                         int F, int x_div, void* stream) {
+extern "C" int ell_fwd_q(const void* t_ptr, const void* t_slot,
+                         const void* codes, const void* scale, const void* x,
+                         void* out, int S, int NB, int MB, int BC,
+                         int n_rows, int n_cols, int F, int x_div,
+                         void* stream) {
   if (!shape_ok(S, NB, MB, BC, n_rows, n_cols, F, x_div))
     return cudaErrorInvalidValue;
-  return launch_fwd<int8_t>(cols, codes, scale, x, out, S, NB, MB, BC,
-                            n_rows, n_cols, F, x_div,
+  return launch_fwd<int8_t>(t_ptr, t_slot, codes, scale, x, out, S, NB, MB,
+                            BC, n_rows, n_cols, F, x_div,
                             static_cast<cudaStream_t>(stream));
 }
 

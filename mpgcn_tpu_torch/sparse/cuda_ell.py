@@ -10,7 +10,9 @@ sparse/kernels.py ``ell_spmm`` flattens a container's leading dims to it.
 On a CUDA tensor each entry launches its kernel of ``csrc/ell_spmm.cu``:
 
   * ``ell_fwd``: ``ell_fwd`` (f32 or bf16 tiles; replaces ``_fwd_kernel``)
-    or ``ell_fwd_q`` (int8 codes; ``_fwd_kernel_q``);
+    or ``ell_fwd_q`` (int8 codes; ``_fwd_kernel_q``), on the TF32 tensor
+    cores, each block sharing the X slabs of a column block across a row
+    group whose populated slots it finds in the transposed block index;
   * ``ell_bwd_dx``: ``ell_bwd_dx`` (``_bwd_dx_kernel``) or ``ell_bwd_dx_q``
     (``_bwd_dx_kernel_q``), summing dX over the container's transposed
     block index in a fixed order, without atomics;
@@ -44,8 +46,8 @@ MAX_BC = 128
 #: the kernels' payload codes (csrc/ell_spmm.cu ``Payload``)
 _PAYLOAD_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-ELL_FWD = CudaKernel("ell_spmm", "ell_fwd", n_ptrs=4, n_ints=9)
-ELL_FWD_Q = CudaKernel("ell_spmm", "ell_fwd_q", n_ptrs=5, n_ints=8)
+ELL_FWD = CudaKernel("ell_spmm", "ell_fwd", n_ptrs=5, n_ints=9)
+ELL_FWD_Q = CudaKernel("ell_spmm", "ell_fwd_q", n_ptrs=6, n_ints=8)
 ELL_BWD_DX = CudaKernel("ell_spmm", "ell_bwd_dx", n_ptrs=5, n_ints=9)
 ELL_BWD_DX_Q = CudaKernel("ell_spmm", "ell_bwd_dx_q", n_ptrs=6, n_ints=8)
 ELL_BWD_DBLK = CudaKernel("ell_spmm", "ell_bwd_dblk", n_ptrs=4, n_ints=8)
@@ -190,16 +192,18 @@ def _check_dense(name, t, shape):
                          f"got {t.dtype} {tuple(t.shape)}")
 
 
-def ell_fwd(cols, blocks, X, n_rows: int, x_div: int,
+def ell_fwd(cols, blocks, t_ptr, t_slot, X, n_rows: int, x_div: int,
             scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The forward: -> (S, n_rows, F). CPU tensors take the plain version;
-    CUDA tensors launch ``ell_fwd`` (f32/bf16 tiles) or ``ell_fwd_q``
-    (int8 codes with ``scale``)."""
+    """The forward: -> (S, n_rows, F). CPU tensors take the plain version,
+    which computes every slot and needs no index; CUDA tensors launch
+    ``ell_fwd`` (f32/bf16 tiles) or ``ell_fwd_q`` (int8 codes with
+    ``scale``), which walk the transposed index (t_ptr, t_slot) and so
+    read the populated slots only."""
     if not _is_cuda(X, "ELL SpMM"):
         return ell_fwd_plain(cols, blocks, X, n_rows, x_div, scale)
     _check_dense("ELL SpMM X", X, (None, None, None))
     S, NB, MB, bc, code = _check_stack("ELL SpMM", cols, blocks, scale,
-                                       X.shape[1], X.device)
+                                       X.shape[1], X.device, (t_ptr, t_slot))
     if x_div < 1 or S % x_div:
         raise ValueError(f"ELL SpMM: x_div={x_div} does not divide S={S}")
     _check_dense("ELL SpMM X", X, (S // x_div, None, None))
@@ -209,12 +213,14 @@ def ell_fwd(cols, blocks, X, n_rows: int, x_div: int,
     out = torch.empty((S, n_rows, F), dtype=torch.float32, device=X.device)
     if F == 0:
         return out
-    cols, blocks, X = cols.contiguous(), blocks.contiguous(), X.contiguous()
+    t_ptr, t_slot, blocks, X = (t.contiguous()
+                                for t in (t_ptr, t_slot, blocks, X))
     dims = (S, NB, MB, bc, n_rows, n_cols, F, x_div)
     if scale is None:
-        ELL_FWD.launch((cols, blocks, X, out), (code, *dims))
+        ELL_FWD.launch((t_ptr, t_slot, blocks, X, out), (code, *dims))
     else:
-        ELL_FWD_Q.launch((cols, blocks, scale.contiguous(), X, out), dims)
+        ELL_FWD_Q.launch((t_ptr, t_slot, blocks, scale.contiguous(), X, out),
+                         dims)
     return out
 
 
@@ -294,8 +300,8 @@ class EllSpmmFn(torch.autograd.Function):
     The transposed index leaves out pad slots, whose tiles are zero when
     the container is packed. dBlocks gives pad slots a cotangent like any
     slot (the JAX semantics), so a caller that updates the tiles must keep
-    the pad tiles zero: ``ell_fwd`` reads every slot, ``ell_bwd_dx`` only
-    the indexed ones."""
+    the pad tiles zero: the forward and dX kernels read only the indexed
+    slots, the plain versions every slot."""
 
     @staticmethod
     def forward(ctx, cols, blocks, t_ptr, t_slot, X, n_rows, x_div):
@@ -303,7 +309,7 @@ class EllSpmmFn(torch.autograd.Function):
         ctx.save_for_backward(cols, blocks, t_ptr, t_slot,
                               X if need_blk else None)
         ctx.dims = (X.shape[1], x_div)
-        return ell_fwd(cols, blocks, X, n_rows, x_div)
+        return ell_fwd(cols, blocks, t_ptr, t_slot, X, n_rows, x_div)
 
     @staticmethod
     def backward(ctx, dout):
@@ -326,7 +332,7 @@ class EllSpmmQFn(torch.autograd.Function):
     def forward(ctx, cols, codes, scale, t_ptr, t_slot, X, n_rows, x_div):
         ctx.save_for_backward(cols, codes, scale, t_ptr, t_slot)
         ctx.dims = (X.shape[1], x_div)
-        return ell_fwd(cols, codes, X, n_rows, x_div, scale)
+        return ell_fwd(cols, codes, t_ptr, t_slot, X, n_rows, x_div, scale)
 
     @staticmethod
     def backward(ctx, dout):

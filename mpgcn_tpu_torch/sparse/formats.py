@@ -19,8 +19,9 @@ its (8, 128) tiles: the tile shape is the TPU's and is kept so that the
 two packages store the same bytes. One thing is added: a transposed block
 index (``t_ptr``, ``t_slot``), the populated slots of each column block in
 a fixed order, which the dX kernel walks instead of adding into dX with
-atomics (sparse/cuda_ell.py). Pad slots (all-zero tiles) are left out of
-it: their contribution is exactly zero.
+atomics, and the forward kernel walks to find a row group's slots on each
+column block (sparse/cuda_ell.py). Pad slots (all-zero tiles) are left out
+of it: their contribution is exactly zero.
 
 The padded-CSR container and the ``csr`` arm are not ported.
 """

@@ -74,12 +74,13 @@ def ell_spmm(ell: BlockedELL, X: torch.Tensor) -> torch.Tensor:
             out = EllSpmmQFn.apply(cols, tiles, scale, t_ptr, t_slot, X3,
                                    ell.n_rows, S // G)
         else:
-            out = ell_fwd(cols, tiles, X3, ell.n_rows, S // G, scale)
+            out = ell_fwd(cols, tiles, t_ptr, t_slot, X3, ell.n_rows,
+                          S // G, scale)
     elif _recording(X, tiles):
         out = EllSpmmFn.apply(cols, tiles, t_ptr, t_slot, X3, ell.n_rows,
                               S // G)
     else:
-        out = ell_fwd(cols, tiles, X3, ell.n_rows, S // G)
+        out = ell_fwd(cols, tiles, t_ptr, t_slot, X3, ell.n_rows, S // G)
     return out.reshape(*lead, ell.n_rows, F)
 
 

@@ -13,8 +13,10 @@ Tolerances: f32 on both sides, other summation orders. K-LSTM and K-BDGCN
 rtol 1e-5 / atol 1e-5; the 7-step rollout rtol 1e-4 / atol 1e-4. The
 backward kernels' dW sums R T (or B M N) products, so it is held at
 rtol 1e-5 with atol 1e-6 x its largest entry. The ELL SpMM forward and dX
-rtol 1e-5 / atol 1e-5 (sums of up to MB * 128 products); dBlocks sums F
-products and is held like dW."""
+rtol 1e-5 / atol 1e-5 (sums of up to MB * 128 products; the forward's
+TF32 tensor-core products split each f32 operand into two TF32 parts,
+about 2^-21 relative per product); dBlocks sums F products and is held
+like dW."""
 
 import numpy as np
 import pytest
@@ -26,7 +28,7 @@ from mpgcn_tpu_torch.nn import cuda_bdgcn, cuda_lstm
 from mpgcn_tpu_torch.nn.mpgcn import MPGCN
 from mpgcn_tpu_torch.quant.int8 import QuantizedTensor
 from mpgcn_tpu_torch.service.serve import KERNELS, ServeEngine
-from mpgcn_tpu_torch.sparse import cuda_ell
+from mpgcn_tpu_torch.sparse import cuda_ell, formats
 from mpgcn_tpu_torch.sparse.formats import (
     BlockedELL,
     ell_from_dense,
@@ -308,12 +310,23 @@ def test_trainer_step_runs_the_training_kernels(cuda_device, tmp_path):
 #: (stack shape, tile width, pattern, F, per-sample X): ragged N over several
 #: column blocks, MB = 1 (block diagonal), MB = the column-block count
 #: (dense), a banded N = 500 stack at the (8, 128) tile, F not a multiple of
-#: any tile
+#: any tile. The forward's edges: row groups of 8 row blocks over NB not a
+#: multiple of 8 (13, 20, 25, 63), a group with no populated slot (a zero
+#: band of 64 rows), a group whose row blocks meet disjoint column blocks,
+#: tile widths that are no multiple of the mma depth 8 (3, 12), F below,
+#: at and above the 32- and 64-column F tiles, and row groups that meet
+#: more (128-wide) column blocks than the forward stages at once (random
+#: N=300: three), so their sums take two batches
 ELL_CASES = [((3, 21, 21), 8, "random", 5, False),
              ((2, 3, 21, 21), 8, "random", 700, True),
              ((3, 64, 64), 8, "diagonal", 513, False),
              ((2, 40, 40), 16, "dense", 37, True),
-             ((3, 500, 500), 128, "band", 1000, False)]
+             ((3, 500, 500), 128, "band", 1000, False),
+             ((2, 200, 200), 16, "zero band", 64, False),
+             ((2, 160, 160), 8, "scatter", 65, True),
+             ((3, 101, 101), 12, "random", 130, False),
+             ((2, 45, 45), 3, "random", 3, True),
+             ((2, 300, 300), 128, "random", 100, False)]
 
 
 def _ell_case(dev, shape, bc, pattern, F, per_sample, payload, seed=0):
@@ -327,9 +340,17 @@ def _ell_case(dev, shape, bc, pattern, F, per_sample, payload, seed=0):
     elif pattern == "diagonal":
         # row block i (8 rows) meets column block i only (bc = 8)
         A *= np.arange(N)[:, None] // bc == np.arange(N)[None, :] // bc
-    elif pattern == "band":
+    elif pattern in ("band", "zero band"):
         d = np.abs(np.arange(N)[:, None] - np.arange(N)[None, :])
         A *= np.minimum(d, N - d) <= 12
+        if pattern == "zero band":  # row group 1 (rows 64-127) holds no slot
+            A[..., 64:128, :] = 0.0
+    elif pattern == "scatter":
+        # row block i meets column block 7 i mod NBc only: the 8 row blocks
+        # of a group meet 8 different column blocks
+        nbc = -(-N // bc)
+        A *= (np.arange(N)[None, :] // bc
+              == (7 * (np.arange(N)[:, None] // 8)) % nbc)
     ell = pack_payload(ell_from_dense(A, br=8, bc=bc), payload).to(dev)
     S = int(np.prod(shape[:-2]))
     G = shape[0] if per_sample else 1
@@ -355,7 +376,7 @@ def test_ell_fwd_and_dx_kernels_match_plain(cuda_device, payload, shape, bc,
     dxk = cuda_ell.ELL_BWD_DX_Q if q else cuda_ell.ELL_BWD_DX
     before = (fwd.launches, dxk.launches)
     n = shape[-1]
-    out = cuda_ell.ell_fwd(cols, tiles, X, n, x_div, scale)
+    out = cuda_ell.ell_fwd(cols, tiles, t_ptr, t_slot, X, n, x_div, scale)
     dx = cuda_ell.ell_bwd_dx(cols, tiles, t_ptr, t_slot, dout, n, x_div,
                              scale)
     torch.cuda.synchronize()
@@ -363,12 +384,40 @@ def test_ell_fwd_and_dx_kernels_match_plain(cuda_device, payload, shape, bc,
     torch.testing.assert_close(
         out, cuda_ell.ell_fwd_plain(cols, tiles, X, n, x_div, scale),
         **KERNEL_TOL)
+    out2 = cuda_ell.ell_fwd(cols, tiles, t_ptr, t_slot, X, n, x_div, scale)
+    assert torch.equal(out, out2), "the forward differs between two runs"
     torch.testing.assert_close(
         dx, cuda_ell.ell_bwd_dx_plain(cols, tiles, dout, n, x_div, scale),
         **KERNEL_TOL)
     dx2 = cuda_ell.ell_bwd_dx(cols, tiles, t_ptr, t_slot, dout, n, x_div,
                               scale)
     assert torch.equal(dx, dx2), "dX differs between two runs"
+
+
+@pytest.mark.parametrize("payload", ["f32", "bf16", "int8"])
+def test_ell_fwd_sums_repeated_column_ids(cuda_device, payload):
+    """ell_from_dense never gives a row block two slots on one column
+    block, but the kernel takes such a stack: the two tiles are summed into
+    the staged operand, and the sum is split into TF32 parts as f32 tiles
+    are."""
+    rng = np.random.default_rng(11)
+    S, NB, MB, bc, N, F = 2, 11, 3, 16, 84, 70
+    nbc = -(-N // bc)
+    cols = rng.integers(0, nbc, size=(S, NB, MB))
+    cols[:, ::2, 1] = cols[:, ::2, 0]            # every other row block
+    tiles = rng.normal(size=(S, NB, MB, 8, bc)).astype(np.float32)
+    taken = np.ones((S, NB, MB), bool)
+    t_ptr, t_slot = formats._transposed_index(cols, taken, nbc)
+    ell = pack_payload(BlockedELL(
+        torch.from_numpy(cols.astype(np.int32)), torch.from_numpy(tiles),
+        torch.from_numpy(t_ptr), torch.from_numpy(t_slot), N, N),
+        payload).to(cuda_device)
+    c, t, scale, tp, ts = flat_stack(ell)
+    X = torch.from_numpy(rng.normal(size=(1, N, F)).astype(
+        np.float32)).to(cuda_device)
+    out = cuda_ell.ell_fwd(c, t, tp, ts, X, N, S, scale)
+    torch.testing.assert_close(
+        out, cuda_ell.ell_fwd_plain(c, t, X, N, S, scale), **KERNEL_TOL)
 
 
 @pytest.mark.parametrize("shape,bc,pattern,F,per_sample", ELL_CASES)
@@ -418,13 +467,21 @@ def test_ell_kernels_reject_what_they_do_not_take(cuda_device):
                                     False, "f32")
     cols, tiles, _, t_ptr, t_slot = flat_stack(ell)
     with pytest.raises(ValueError, match="float32"):
-        cuda_ell.ell_fwd(cols, tiles, X.double(), 21, x_div)
+        cuda_ell.ell_fwd(cols, tiles, t_ptr, t_slot, X.double(), 21, x_div)
     with pytest.raises(TypeError, match="int32"):
-        cuda_ell.ell_fwd(cols.long(), tiles, X, 21, x_div)
+        cuda_ell.ell_fwd(cols.long(), tiles, t_ptr, t_slot, X, 21, x_div)
     with pytest.raises(TypeError, match="tiles"):
-        cuda_ell.ell_fwd(cols, tiles.half(), X, 21, x_div)
+        cuda_ell.ell_fwd(cols, tiles.half(), t_ptr, t_slot, X, 21, x_div)
     with pytest.raises(ValueError, match="x_div"):
-        cuda_ell.ell_fwd(cols, tiles, X, 21, 2)
+        cuda_ell.ell_fwd(cols, tiles, t_ptr, t_slot, X, 21, 2)
+    with pytest.raises(ValueError, match="transposed index"):
+        cuda_ell.ell_fwd(cols, tiles, t_ptr[:, :-1], t_slot, X, 21, x_div)
+    with pytest.raises(ValueError, match="transposed index"):
+        cuda_ell.ell_fwd(cols, tiles, t_ptr, t_slot[:, 1:], X, 21, x_div)
+    with pytest.raises(ValueError, match="transposed index"):
+        cuda_ell.ell_fwd(cols, tiles, t_ptr.long(), t_slot, X, 21, x_div)
+    with pytest.raises(ValueError, match="transposed index"):
+        cuda_ell.ell_fwd(cols, tiles, t_ptr, t_slot.long(), X, 21, x_div)
     with pytest.raises(ValueError, match="transposed index"):
         cuda_ell.ell_bwd_dx(cols, tiles, t_ptr[:, :2], t_slot, dout, 21,
                             x_div)

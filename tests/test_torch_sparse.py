@@ -48,7 +48,11 @@ from mpgcn_tpu_torch.sparse.formats import (
     pack_payload,
     sparsify_support_stack,
 )
-from mpgcn_tpu_torch.sparse.kernels import bdgcn_sparse, ell_spmm
+from mpgcn_tpu_torch.sparse.kernels import (
+    bdgcn_sparse,
+    ell_spmm,
+    flat_stack,
+)
 from mpgcn_tpu_torch.train.predict import graphs_for
 from mpgcn_tpu_torch.train.trainer import ModelTrainer
 from mpgcn_tpu_torch.utils.convert import params_from_jax
@@ -181,6 +185,53 @@ def test_transposed_index_lists_each_populated_slot_once():
     np.testing.assert_array_equal(sub.to_dense(), A[[1, 0, 1]])
 
 
+@pytest.fixture(scope="module")
+def slice_banks():
+    """The pipeline's 'ell' banks at the slice shape, per payload."""
+    cfg = MPGCNConfig(pred_len=1, **SLICE_KW)
+    data = synthetic_dataset(cfg)
+    apply_density(data, 0.05)
+    return {p: DataPipeline(cfg.replace(support_payload=p), data, "cpu",
+                            bdgcn_impl="ell").banks for p in PAYLOADS}
+
+
+@pytest.mark.parametrize("bank", ["static", "o", "d"])
+@pytest.mark.parametrize("payload", PAYLOADS)
+def test_transposed_index_runs_list_populated_slots_by_row_block(
+        slice_banks, payload, bank):
+    """What the forward kernel relies on, for every bank the pipeline
+    builds (O and D gathered by day key, as a batch reads them): within
+    each column block's run, t_slot lists exactly that column block's
+    populated slots (no pad slot, none twice), sorted by row block, so a
+    row group's slots there are one sub-run. Populated means a non-zero
+    f32 tile; every payload keeps the f32 bank's index and pad."""
+    ref = slice_banks["f32"][bank]
+    ell = slice_banks[payload][bank]
+    if bank != "static":
+        keys = torch.tensor([0, 3, 6, 3])
+        ref, ell = ref[keys], ell[keys]
+    for a, b in ((ell.block_cols, ref.block_cols), (ell.t_ptr, ref.t_ptr),
+                 (ell.t_slot, ref.t_slot)):
+        assert torch.equal(a, b)
+    nb, mb = ref.block_cols.shape[-2:]
+    cols = ref.block_cols.reshape(-1, nb * mb).numpy()
+    populated = ref.blocks.reshape(cols.shape[0], nb * mb, -1).numpy().any(-1)
+    tiles = ell.blocks.q if payload == "int8" else ell.blocks.float()
+    stored = tiles.reshape(cols.shape[0], nb * mb, -1).numpy().any(-1)
+    assert not (stored & ~populated).any(), "a pad slot holds a tile"
+    ptr = ref.t_ptr.reshape(cols.shape[0], -1).numpy()
+    slot = ref.t_slot.reshape(cols.shape[0], -1).numpy()
+    assert ptr.shape[1] - 1 == -(-ref.n_cols // ref.blocks.shape[-1])
+    for s in range(cols.shape[0]):
+        assert ptr[s, 0] == 0 and (np.diff(ptr[s]) >= 0).all()
+        for c in range(ptr.shape[1] - 1):
+            run = slot[s, ptr[s, c]:ptr[s, c + 1]]
+            expect = np.flatnonzero(populated[s] & (cols[s] == c))
+            np.testing.assert_array_equal(run, expect)
+            assert (np.diff(run // mb) >= 0).all()
+        assert ptr[s, -1] == populated[s].sum()
+
+
 def test_container_bytes_and_unported_format():
     A = _stack(np.random.default_rng(4), (3, 40, 40), density=0.05)
     f32 = sparsify_support_stack(A, "ell")
@@ -238,6 +289,32 @@ def test_ell_spmm_and_dx_match_pallas(payload, per_sample):
 
 
 @pytest.mark.parametrize("payload", PAYLOADS)
+@pytest.mark.parametrize("per_sample", [False, True])
+def test_ell_fwd_entry_with_index_matches_pallas(payload, per_sample):
+    """``ell_fwd`` at the flattened signature the kernels take, with the
+    transposed index the CUDA forward walks, against the Pallas forward in
+    interpret mode: a (2, 3)-stacked operator over ragged N=29 (three
+    row blocks of a partial row group, four column blocks), X shared or
+    one per leading index."""
+    rng = np.random.default_rng(9)
+    N, F = 29, 7
+    A = _stack(rng, (2, 3, N, N))
+    ours, ref = _pair(A, payload)
+    X = rng.normal(size=(2, N, F) if per_sample else (N, F)).astype(
+        np.float32)
+    pallas = functools.partial(jax_kernels.ell_spmm, use_pallas=True)
+    out_ref = (jax.vmap(pallas)(ref, jnp.asarray(X)) if per_sample
+               else pallas(ref, jnp.asarray(X)))
+    cols, tiles, scale, t_ptr, t_slot = flat_stack(ours)
+    G = 2 if per_sample else 1
+    out = cuda_ell.ell_fwd(cols, tiles, t_ptr, t_slot,
+                           torch.from_numpy(X).reshape(G, N, F), N, 6 // G,
+                           scale)
+    np.testing.assert_allclose(out.reshape(2, 3, N, F).numpy(),
+                               np.asarray(out_ref), **SPMM_TOL)
+
+
+@pytest.mark.parametrize("payload", PAYLOADS)
 def test_plain_entries_match_dense_oracle(payload):
     """The three plain entries at the flattened signature the kernels take,
     against dense numpy products of the dequantised operators."""
@@ -252,8 +329,8 @@ def test_plain_entries_match_dense_oracle(payload):
     tiles = ell.blocks
     if payload == "int8":
         tiles, scale = ell.blocks.q, ell.blocks.scale
-    out = cuda_ell.ell_fwd(ell.block_cols, tiles, torch.from_numpy(X), N, 2,
-                           scale)
+    out = cuda_ell.ell_fwd(ell.block_cols, tiles, ell.t_ptr, ell.t_slot,
+                           torch.from_numpy(X), N, 2, scale)
     np.testing.assert_allclose(
         out.numpy(), np.einsum("snm,smf->snf", dense, X[[0, 0, 1, 1]]),
         **SPMM_TOL)
