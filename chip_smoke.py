@@ -22,11 +22,11 @@ Phases, each fatal on failure:
      every parameter gradient of the kernel arms is non-zero and matches
      the plain arms' on a full and a repeat-padded batch, and the first 20
      step losses track theirs; a ModelTrainer takes 3 epochs on the card
-     with exactly M*L = 2 launches of each LSTM training entry, M*3 = 6 of
-     each BDGCN entry and 2 + 6 of the shared dW reduction per step, moves
-     every parameter, its loss falls, its checkpoint is written, and a
-     fresh trainer in test mode reloads it, rolls out 7 steps and appends
-     finite scores;
+     with exactly M*L = 2 launches of each LSTM training entry and M*3 = 6
+     of each BDGCN entry per step (each backward entry sums its dW inside
+     its one launch), moves every parameter, its loss falls, its checkpoint
+     is written, and a fresh trainer in test mode reloads it, rolls out 7
+     steps and appends finite scores;
   5. the sparse path: the ELL SpMM kernels (forward, dX, dBlocks, each on
      f32, bf16 and int8 tiles where the entry takes them) against their
      plain versions at the large-N shapes (the banks of the N=500, density
@@ -80,9 +80,6 @@ ROLLOUT_TOL = dict(rtol=1e-4, atol=1e-4)  # 7 autoregressive f32 steps
 # dW sums R*T (LSTM) or B*M*N (BDGCN) products in another order than the
 # plain version: rtol 1e-5 with an atol of 2e-6 x the largest |dW| entry
 DW_RTOL, DW_ATOL_SCALE = 1e-5, 2e-6
-# the dW reductions add the same partials in the same order as their plain
-# version: equal up to the last bit, held at f32 rounding
-REDUCE_TOL = dict(rtol=1e-6, atol=1e-6)
 # whole-model gradients, each f32 arm against the plain arms in float64
 # and the kernel arms against the plain arms in f32: rtol 1e-4 with an atol
 # of 1e-4 x the tensor's largest entry. The gradient is not continuous in
@@ -109,10 +106,6 @@ KERNEL_META = {
                        "mpgcn_tpu/nn/pallas_lstm.py:414"),
     "lstm_train_bwd": ("cuda_lstm", "LSTM_TRAIN_BWD", "lstm_train.cu",
                        "mpgcn_tpu/nn/pallas_lstm.py:519"),
-    # the fixed-order dW sum of both backward kernels (the LSTM BPTT's and
-    # K-BDGCN-bwd's, mpgcn_tpu/nn/pallas_bdgcn.py:233 too): one entry
-    "dw_reduce": ("cuda_lstm", "DW_REDUCE", "lstm_train.cu",
-                  "mpgcn_tpu/nn/pallas_lstm.py:519"),
     "bdgcn_pair_bwd": ("cuda_bdgcn", "BDGCN_PAIR_BWD", "bdgcn_pair_bwd.cu",
                        "mpgcn_tpu/nn/pallas_bdgcn.py:233"),
     "ell_fwd": ("cuda_ell", "ELL_FWD", "ell_spmm.cu",
@@ -126,8 +119,7 @@ KERNEL_META = {
     "ell_bwd_dblk": ("cuda_ell", "ELL_BWD_DBLK", "ell_spmm.cu",
                      "mpgcn_tpu/sparse/pallas_ell.py:212"),
 }
-TRAIN_KERNELS = ("lstm_train_fwd", "lstm_train_bwd", "dw_reduce",
-                 "bdgcn_pair_bwd")
+TRAIN_KERNELS = ("lstm_train_fwd", "lstm_train_bwd", "bdgcn_pair_bwd")
 ELL_TRAIN_KERNELS = ("ell_bwd_dx", "ell_bwd_dx_q", "ell_bwd_dblk")
 #: row blocks per row group of the ELL forward (csrc/ell_spmm.cu kGroupRB)
 FWD_GROUP_RB = 8
@@ -343,20 +335,23 @@ def phase_train_kernels(dev, rng):
             inputs["bdgcn_dynamic" if dynamic else "bdgcn"] = (h1, g, wr,
                                                                dout)
 
-    # the shared reduction at the partial counts the training step gives it
-    xp, w = inputs["lstm"][:2]
-    T, R, G = xp.shape
-    for key, P, n in (
-            ("dw_reduce", cuda_lstm.bwd_blocks(R, G // 4, dev), G * G // 4),
-            ("dw_reduce_bdgcn", cuda_bdgcn.bwd_blocks(4 * 47 * 47, K, dev),
-             K * K * 32 * 32)):
-        part = dev_t(rng.normal(size=(P, n)))
-        out = cuda_lstm.dw_reduce(part)
+    # each backward entry ends with the fixed-order sum of its per-block dW
+    # partials, inside its one launch: dW must equal dw_reduce_plain of the
+    # partials it wrote, to the last bit, at the training step's shapes
+    xp, w, hs, cs, dhs = inputs["lstm"]
+    h1, g, wr, dout = inputs["bdgcn"]
+    for name, (_, dw, part) in (
+            ("K-LSTM-train bwd", cuda_lstm.lstm_layer_bwd_partials(
+                xp, w, hs, cs, dhs, None)),
+            ("K-BDGCN-bwd", cuda_bdgcn.folded_pair_project_bwd_partials(
+                h1, g, wr, dout))):
         torch.cuda.synchronize()
-        err["dw_reduce"] = max(err["dw_reduce"], compare(
-            f"dw_reduce P={P} n={n}", out, cuda_lstm.dw_reduce_plain(part),
-            REDUCE_TOL))
-        inputs[key] = part
+        require(torch.equal(dw, cuda_lstm.dw_reduce_plain(part)),
+                f"{name}: the in-launch dW sum differs from the ordered sum "
+                f"of its partials")
+        print(f"[check] {name}: dW over P={part.shape[0]} partials of "
+              f"{dw.numel()} equals dw_reduce_plain of them, bit for bit "
+              f"(summed in the same launch)", flush=True)
     return err, inputs
 
 
@@ -596,8 +591,7 @@ def _per_step(cfg, train: bool, impl: str = "kernel") -> dict:
     M, L, G = cfg.num_branches, cfg.lstm_num_layers, cfg.gcn_num_layers
     counts = dict.fromkeys(KERNEL_META, 0)
     if train:
-        counts.update(lstm_train_fwd=M * L, lstm_train_bwd=M * L,
-                      dw_reduce=M * L)
+        counts.update(lstm_train_fwd=M * L, lstm_train_bwd=M * L)
     else:
         counts.update(lstm_infer_last=M, lstm_infer_collect=M * (L - 1))
     if impl == "ell":
@@ -609,7 +603,7 @@ def _per_step(cfg, train: bool, impl: str = "kernel") -> dict:
     else:
         counts["bdgcn_pair_fwd"] = M * G
         if train:
-            counts.update(dw_reduce=M * L + M * G, bdgcn_pair_bwd=M * G)
+            counts["bdgcn_pair_bwd"] = M * G
     return counts
 
 
@@ -898,6 +892,7 @@ def phase_train_times(dev, kin, train):
     P = cuda_lstm.bwd_blocks(R, H, dev)
     dxp = torch.empty_like(xp)
     part = torch.empty((P, H, G), dtype=torch.float32, device=dev)
+    dw = torch.empty((H, G), dtype=torch.float32, device=dev)
     b_ms, b_by = bound(4 * (T * R * G + H * G + 2 * T * R * H),
                        2 * T * R * H * G)
     times["lstm_train_fwd"] = dict(
@@ -911,32 +906,15 @@ def phase_train_times(dev, kin, train):
                        3 * 2 * T * R * H * G)
     times["lstm_train_bwd"] = dict(
         ms=time_ms(lambda: cuda_lstm.LSTM_TRAIN_BWD.launch(
-            (xp, w, hs, cs, dhs, None, dxp, part), (T, R, H, P))),
+            (xp, w, hs, cs, dhs, None, dxp, part, dw), (T, R, H, P))),
         plain_ms=time_ms(lambda: cuda_lstm.lstm_layer_bwd_plain(
             xp, w, hs, cs, dhs, None), iters=10),
         library_ms=lib_bwd, bound_ms=b_ms, bound_by=b_by)
-    print(f"[time] K-LSTM-train backward wrapper (BPTT + dW reduction + "
-          f"allocations): "
+    print(f"[time] K-LSTM-train backward wrapper (one launch: BPTT and its "
+          f"dW sum over P={P} partials; allocations): "
           f"{time_ms(lambda: cuda_lstm.lstm_layer_bwd(xp, w, hs, cs, dhs, None)):.4f}"
           f" ms; library calls: torch.nn.LSTM (cuDNN, input projection "
           f"included) forward and backward at R={R}, T={T}, H={H}")
-
-    # the shared reduction at both of its shapes; the kernels line keeps
-    # the LSTM's (the larger: 264 x 4,096 partials against 30 x 9,216)
-    for key in ("dw_reduce_bdgcn", "dw_reduce"):
-        prt = kin[key]
-        Pn, n = prt.shape
-        red = torch.empty((n,), dtype=torch.float32, device=dev)
-        b_ms, b_by = bound(4 * (Pn * n + n), Pn * n)
-        times["dw_reduce"] = dict(
-            ms=time_ms(lambda: cuda_lstm.DW_REDUCE.launch((prt, red),
-                                                          (Pn, n))),
-            plain_ms=time_ms(lambda: cuda_lstm.dw_reduce_plain(prt),
-                             iters=10),
-            library_ms=time_ms(lambda: torch.sum(prt, 0)),
-            bound_ms=b_ms, bound_by=b_by)
-        print(f"[time] dw_reduce P={Pn} n={n}: "
-              f"{json.dumps(times['dw_reduce'])}")
 
     for key, eq in (("bdgcn", "obmcl,dce,odlh->bmeh"),
                     ("bdgcn_dynamic", "obmcl,bdce,odlh->bmeh")):
@@ -947,6 +925,7 @@ def phase_train_times(dev, kin, train):
         dh1 = torch.empty_like(h1)
         z = torch.empty((K, B, M, N, Hh), dtype=torch.float32, device=dev)
         prt = torch.empty((P, K, K, C, Hh), dtype=torch.float32, device=dev)
+        dW = torch.empty((K, K, C, Hh), dtype=torch.float32, device=dev)
         # least work: Z_d = G_d dout (K N H per (b,m,c)), dh1 = sum_d Z_d
         # Wr^T and dW = sum h1^T Z_d (K^2 C H each per (b,m,c))
         b_ms, b_by = bound(
@@ -958,7 +937,7 @@ def phase_train_times(dev, kin, train):
         ref = torch.einsum(eq, h1r, g[0] if key == "bdgcn" else g, wrr)
         entry = dict(
             ms=time_ms(lambda: cuda_bdgcn.BDGCN_PAIR_BWD.launch(
-                (h1, g, wr, dout, dh1, z, prt),
+                (h1, g, wr, dout, dh1, z, prt, dW),
                 (K, B, M, N, C, Hh, g.shape[0], P))),
             plain_ms=time_ms(lambda: cuda_bdgcn.folded_pair_project_bwd_plain(
                 h1, g, wr, dout), iters=10),
@@ -966,7 +945,9 @@ def phase_train_times(dev, kin, train):
                 ref, (h1r, wrr), dout, retain_graph=True), iters=10),
             bound_ms=b_ms, bound_by=b_by)
         label = "static" if key == "bdgcn" else "dynamic"
-        print(f"[time] K-BDGCN-bwd {label} B={B} N={N}: {json.dumps(entry)}")
+        print(f"[time] K-BDGCN-bwd {label} B={B} N={N} (one entry: dW sum "
+              f"over P={P} x {K * K} partials in the same launch): "
+              f"{json.dumps(entry)}")
         if key == "bdgcn":
             times["bdgcn_pair_bwd"] = entry
     for name in ("lstm_train_fwd", "lstm_train_bwd"):
@@ -1328,15 +1309,37 @@ def _x_slab_bytes(cols, tiles, t_ptr, t_slot, n_cols, F):
     return old * F * 4, new * F * 4
 
 
+def _dblk_staged_bytes(cols, bc, n_rows, n_cols, F, x_div):
+    """Bytes dBlocks stages per launch, computed from the container's column
+    ids: X under the one-slot-per-block schedule (a slab of the slot's
+    column block per slot, pad slots included) and under the slot-tile
+    schedule of csrc/ell_spmm.cu (one slab per tile of up to DBLK_SLOTS
+    slots of an X group on one column block), and dout (each slot's 8 rows
+    once in both). Rows past n_rows or n_cols are not read."""
+    from mpgcn_tpu_torch.sparse.cuda_ell import DBLK_SLOTS
+
+    S, NB, MB = cols.shape
+    c_np = cols.cpu().numpy()
+    rows_x = np.minimum(bc, n_cols - bc * np.arange(-(-n_cols // bc)))
+    old = int(rows_x[c_np].sum())
+    per_group = c_np.reshape(S // x_div, -1)
+    new = sum(-(-int((grp == c).sum()) // DBLK_SLOTS) * int(rows_x[c])
+              for grp in per_group for c in range(len(rows_x)))
+    rows_d = np.minimum(8, n_rows - 8 * np.arange(NB))
+    dout_rows = int(rows_d.sum()) * S * MB
+    return old * F * 4, new * F * 4, dout_rows * F * 4
+
+
 def phase_ell_times(dev, kin):
     """The ELL entries at the large-N static shape: kernel (CUDA events),
     plain, the fastest single library call, and the bound from this run's
     container: ``_ell_ops`` operations (all of the operator, 2 S N N F,
     for dBlocks on the pad-free container); X, output, tiles (and ids,
-    scales or index) bytes. The forward runs on the TF32 tensor cores, in
-    3 products per f32 product (2 on int8 codes): its operations bound is
-    that many times ``_ell_ops`` at the TF32 peak; the CUDA-core bound
-    (``_ell_ops`` at the f32 peak, as for dX) is printed beside it."""
+    scales or index) bytes. The forward and dBlocks run on the TF32 tensor
+    cores, in 3 products per f32 product (2 on int8 codes): their
+    operations bound is that many times the operations at the TF32 peak;
+    the CUDA-core bound (the operations at the f32 peak, as for dX) is
+    printed beside it."""
     import torch
 
     from mpgcn_tpu_torch.sparse import cuda_ell
@@ -1407,19 +1410,31 @@ def phase_ell_times(dev, kin):
     S, NB, MB = cols.shape
     F = X.shape[-1]
     N = full.n_cols
-    b_ms, b_by = bound(4 * (X.numel() + dout.numel() + S * NB * MB * 8 * 128
-                            + cols.numel()), 2 * S * N * N * F)
+    # 2 S N^2 F operations, on the TF32 tensor cores in 3 split products;
+    # the CUDA-core bound (one f32 product) printed beside it
+    ops = 2 * S * N * N * F
+    dblk_bytes = 4 * (X.numel() + dout.numel() + S * NB * MB * 8 * 128
+                      + cols.numel())
+    b_ms, b_by = bound(dblk_bytes, 3 * ops, PEAK_TF32_FLOP_PER_S)
+    cuda_core_ms = bound(dblk_bytes, ops)[0]
+    x_old, x_new, d_bytes = _dblk_staged_bytes(cols, 128, N, N, F, S)
     times["ell_bwd_dblk"] = dict(
         ms=time_ms(lambda: cuda_ell.ell_bwd_dblk(cols, X, dout, 128, S),
-                   iters=10, warmup=2),
+                   iters=20, warmup=3),
         plain_ms=time_ms(lambda: cuda_ell.ell_bwd_dblk_plain(
             cols, X, dout, 128, S), iters=3, warmup=1),
         # the container is pad-free: dBlocks is the dense dA = dout X^T
         library_ms=time_ms(lambda: torch.matmul(dout, X[0].t()), iters=10,
                            warmup=2),
         bound_ms=b_ms, bound_by=b_by)
-    print(f"[time] ell_bwd_dblk pad-free S={S} NB={NB} MB={MB} F={F}; "
-          f"library torch.matmul (dense dA = dout X^T): "
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"[time] ell_bwd_dblk pad-free S={S} NB={NB} MB={MB} F={F}, "
+          f"{cuda_ell.dblk_chunks(S, NB, MB, S, F, sms)} F chunks; TF32 "
+          f"operations 3 x {ops}; CUDA-core bound {cuda_core_ms:.5f} ms "
+          f"(operations); staged per launch: X {x_old} bytes one slab per "
+          f"slot (a slot per block), {x_new} bytes one per tile of "
+          f"{cuda_ell.DBLK_SLOTS} slots on a column block; dout {d_bytes} "
+          f"bytes in both; library torch.matmul (dense dA = dout X^T): "
           f"{json.dumps(times['ell_bwd_dblk'])}", flush=True)
     return times
 

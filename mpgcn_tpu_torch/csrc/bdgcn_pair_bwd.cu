@@ -1,5 +1,4 @@
-// K-BDGCN-bwd: the backward of the folded BDGCN pair projection, up to the
-// per-block dW partials (summed by dw_reduce_f32 of lstm_train.cu).
+// K-BDGCN-bwd: the backward of the folded BDGCN pair projection.
 //
 // Replaces the TPU kernel _bwd_kernel of mpgcn_tpu/nn/pallas_bdgcn.py
 // (launched by _bwd_pallas). For the forward (bdgcn_pair_fwd.cu)
@@ -37,12 +36,18 @@
 //   2. dw_partial_kernel, one block per (chunk p of the B*M*N rows, pair
 //      (o, d)): the (C, H) product h1[o]^T Z_d over its rows, written as a
 //      partial. The K^2 pair bank never exists; only the K-wide Z does.
-// dw_reduce_f32 (lstm_train.cu, shared with the LSTM BPTT) then adds the P
-// partials of each dW entry in a fixed order. No float atomics: two runs
-// give bit-equal dW. Shared-memory rows read across a warp's lanes are
-// padded by one float against bank conflicts.
+//      A cooperative launch: after a grid-wide barrier every block adds a
+//      contiguous share of the K^2 C H dW entries over the P partials in a
+//      fixed order (dw_sum.cuh, as the LSTM BPTT does), so the sum needs no
+//      launch of its own and the grid is bounded by what the device holds
+//      at once (bdgcn_pair_bwd_max_blocks).
+// No float atomics: two runs give bit-equal dW. Shared-memory rows read
+// across a warp's lanes are padded by one float against bank conflicts.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "dw_sum.cuh"
 
 namespace {
 
@@ -177,11 +182,13 @@ z_dh1_kernel(const float* __restrict__ g, const float* __restrict__ w,
   }
 }
 
-// Block (p, o*K + d): rows [p*chunk, (p+1)*chunk) of h1[o]^T @ Z[d].
+// Block (p, o*K + d): rows [p*chunk, (p+1)*chunk) of h1[o]^T @ Z[d], as
+// partial p; then, after a grid-wide barrier, its share of the sum of the
+// P partials into dw.
 __global__ void __launch_bounds__(kThreads)
 dw_partial_kernel(const float* __restrict__ h1, const float* __restrict__ z,
-                  float* __restrict__ part, int K, int rows, int chunk,
-                  int C, int H) {
+                  float* __restrict__ part, float* __restrict__ dw, int K,
+                  int rows, int chunk, int C, int H) {
   __shared__ float hsm[kTileR * kMaxWidth];
   __shared__ float zsm[kTileR * kMaxWidth];
   const int p = blockIdx.x;
@@ -225,12 +232,16 @@ dw_partial_kernel(const float* __restrict__ h1, const float* __restrict__ z,
     const int i = tid + q * kThreads;
     if (i < n_w) out[i] = acc[q];
   }
+  cooperative_groups::this_grid().sync();
+  sum_partials(part, dw, gridDim.x, K * K * n_w, od * gridDim.x + p,
+               gridDim.x * gridDim.y, tid, kThreads, hsm,
+               kTileR * kMaxWidth);
 }
 
 template <int K>
 int launch(const void* h1, const void* g, const void* w, const void* dout,
-           void* dh1, void* z, void* dw_part, int B, int M, int N, int C,
-           int H, int Bg, int P, cudaStream_t stream) {
+           void* dh1, void* z, void* dw_part, void* dw, int B, int M, int N,
+           int C, int H, int Bg, int P, cudaStream_t stream) {
   const size_t smem = (size_t)(kTileE * H + K * kTileC * (kTileE + 1) +
                                K * kTileC * H + C * (H + 1)) *
                       sizeof(float);
@@ -244,34 +255,58 @@ int launch(const void* h1, const void* g, const void* w, const void* dout,
       static_cast<float*>(z), B, M, N, C, H, Bg);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int rows = B * M * N;
-  const int chunk = (rows + P - 1) / P;
-  dw_partial_kernel<<<dim3(P, K * K), kThreads, 0, stream>>>(
-      static_cast<const float*>(h1), static_cast<const float*>(z),
-      static_cast<float*>(dw_part), K, rows, chunk, C, H);
+  int rows = B * M * N;
+  int chunk = (rows + P - 1) / P;
+  int k = K;
+  void* args[] = {&h1, &z, &dw_part, &dw, &k, &rows, &chunk, &C, &H};
+  err = cudaLaunchCooperativeKernel((const void*)dw_partial_kernel,
+                                    dim3(P, K * K), dim3(kThreads), args, 0,
+                                    stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves no error behind
+    return err;
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dh1 (K, B, M, N, C) and the partials dw_part (P, K, K, C, H) of dW;
-// z is (K, B, M, N, H) scratch.
+// The most dW-product blocks the current device holds at once: P K^2 may
+// not exceed it.
+extern "C" int bdgcn_pair_bwd_max_blocks(int* out) {
+  return max_coresident((const void*)dw_partial_kernel, kThreads, 0, out);
+}
+
+// dh1 (K, B, M, N, C) and dW (K, K, C, H), through the partials dw_part
+// (P, K, K, C, H); z is (K, B, M, N, H) scratch. Two launches, the second
+// cooperative: refused (and nothing of it runs) when its P K^2 blocks
+// cannot all be resident at once.
 extern "C" int bdgcn_pair_bwd_f32(const void* h1, const void* g,
                                   const void* w, const void* dout, void* dh1,
-                                  void* z, void* dw_part, int K, int B, int M,
-                                  int N, int C, int H, int Bg, int P,
-                                  void* stream) {
+                                  void* z, void* dw_part, void* dw, int K,
+                                  int B, int M, int N, int C, int H, int Bg,
+                                  int P, void* stream) {
   if (B < 1 || M < 1 || M > 65535 || B > 65535 || N < 1 || C < 1 ||
       C > kMaxWidth || H < 1 || H > kMaxWidth || (Bg != 1 && Bg != B) ||
       P < 1 || P > 65535 || (long long)B * M * N > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (K) {
-    case 1: return launch<1>(h1, g, w, dout, dh1, z, dw_part, B, M, N, C, H, Bg, P, s);
-    case 2: return launch<2>(h1, g, w, dout, dh1, z, dw_part, B, M, N, C, H, Bg, P, s);
-    case 3: return launch<3>(h1, g, w, dout, dh1, z, dw_part, B, M, N, C, H, Bg, P, s);
-    case 4: return launch<4>(h1, g, w, dout, dh1, z, dw_part, B, M, N, C, H, Bg, P, s);
-    case 5: return launch<5>(h1, g, w, dout, dh1, z, dw_part, B, M, N, C, H, Bg, P, s);
+    case 1:
+      return launch<1>(h1, g, w, dout, dh1, z, dw_part, dw, B, M, N, C, H,
+                       Bg, P, s);
+    case 2:
+      return launch<2>(h1, g, w, dout, dh1, z, dw_part, dw, B, M, N, C, H,
+                       Bg, P, s);
+    case 3:
+      return launch<3>(h1, g, w, dout, dh1, z, dw_part, dw, B, M, N, C, H,
+                       Bg, P, s);
+    case 4:
+      return launch<4>(h1, g, w, dout, dh1, z, dw_part, dw, B, M, N, C, H,
+                       Bg, P, s);
+    case 5:
+      return launch<5>(h1, g, w, dout, dh1, z, dw_part, dw, B, M, N, C, H,
+                       Bg, P, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -33,8 +33,13 @@
 // by operations; the forward runs on the TF32 tensor cores in three
 // products for f32 tiles (3 x 14.5 GFLOP at 495 TFLOP/s: 0.088 ms, bound
 // by operations) and two for bf16 tiles and int8 codes (bound by bytes).
-// dX and dBlocks are first, simple kernels, f32 FMA on the CUDA cores,
-// well below their bound.
+// dX is a first, simple kernel, f32 FMA on the CUDA cores, well below its
+// bound. dBlocks on a pad-free N = 500 container (S = 3, NB = 63, MB = 4,
+// F = 32,000) is 2 S N^2 F = 48 GFLOP: on the TF32 tensor cores in three
+// products 0.291 ms, bound by operations (0.716 ms on the CUDA cores).
+// The forward runs mma.sync (its X slab is not K-major, which wgmma needs
+// for TF32 operands); dBlocks, whose dout rows and X slab are both K-major,
+// runs wgmma.
 //
 // Design.
 //   Forward: the TPU kernel takes one row block per grid cell and reads
@@ -88,11 +93,28 @@
 //     of dX and walks, in a fixed order, the slots of its column block
 //     from the transposed block index; pad slots are left out, their tiles
 //     are zero. No float atomics: dX is bit-equal from run to run.
-//   dBlocks: one block per slot (s, i, j); each thread owns 4 of the 8 x BC
-//     outputs and adds dout x X over F in order, 32 columns per staged
-//     step, each step's partial added into a compensated (Kahan) sum: F is
-//     long (32,000), and a plain running f32 sum would lose about eps * F
-//     of the result. Bit-equal from run to run.
+//   dBlocks: the TPU kernel takes one slot per grid cell and reads its
+//     column block's whole X slab over F for an 8-row tile: at the shape
+//     above 12.1 GB of X per launch. Here the slots of an X group g (its
+//     x_div slices) that name one column block c form a gathered matrix of
+//     8-row dout strips that all contract against the same X slab. A block
+//     owns (g, c, a tile of up to 16 such slots, found by scanning g's
+//     column ids in slot order, pad slots included: 128 gathered dout rows;
+//     an F chunk), and per 32-column F step stages once the 128 dout rows
+//     and the X slab (BC rows, zero-padded to 128) with cp.async, three
+//     steps ahead, in wgmma's K-major core-matrix layout: 0.77 GB of X per
+//     launch at the shape above (and 0.77 GB of dout, as before). Each
+//     thread splits the values it copied into TF32 (hi, lo) parts; two
+//     warpgroups (64 rows x 128 columns each) issue wgmma m64n128k8 for the
+//     step's three products, summed from 0 on the tensor cores and added
+//     into f32 accumulators, while the threads split the next step. F is
+//     split into chunks (at most 128 steps each, and enough blocks for two
+//     waves); a block
+//     writes its chunk's sum as a partial, and the last block of a tile to
+//     finish (an integer ticket) adds the chunks in order 0, 1, ...: no
+//     float atomics, bit-equal from run to run. What bounds it: moving the
+//     1.54 GB staged per launch through L2 and shared memory (the three
+//     products re-read their operands there), not the tensor cores.
 // Every entry launches on the given stream and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
@@ -125,9 +147,11 @@ constexpr int kDxColLanes = 16;                   // threads across columns
 constexpr int kDxVec = kDxTF / kDxColLanes;       // columns per thread
 constexpr int kDxRows = kMaxBC / (kDxThreads / kDxColLanes);  // rows per thread
 
-constexpr int kDbThreads = 256;
-constexpr int kDbTF = 32;                         // F columns per stage
-constexpr int kDbVec = kMaxBC / 32;               // outputs per thread
+constexpr int kDbSlots = 16;                      // slots per dBlocks tile
+constexpr int kDbRows = kDbSlots * kBR;           // gathered dout rows
+constexpr int kDbTF = 32;                         // F columns per staged step
+constexpr int kDbThreads = 256;                   // two warpgroups
+constexpr int kDbAcc = 64;                        // accumulators a thread
 
 enum Payload { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
@@ -667,72 +691,345 @@ ell_bwd_dx_kernel(const int* __restrict__ t_ptr,
   }
 }
 
-__global__ void __launch_bounds__(kDbThreads)
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// --- dBlocks on wgmma -------------------------------------------------------
+
+constexpr int kDbKC = kDbTF / 4;                  // 16-byte chunks a row
+constexpr int kDbOp = kDbRows * kDbTF;            // floats of one operand
+// the copies land in a ring of raw steps (A: the 128 gathered dout rows,
+// B: 128 X rows), issued three steps ahead of their products; each step is
+// split into a double-buffered split step: A hi, A lo, B hi, B lo
+constexpr int kDbRawSteps = 3;
+constexpr int kDbRaw = 2 * kDbOp;
+constexpr int kDbSplit = 4 * kDbOp;
+constexpr size_t kDbSmemBytes =
+    sizeof(float) * (kDbRawSteps * kDbRaw + 2 * kDbSplit);
+
+// float offset of (row, 4 kc) in the no-swizzle K-major core-matrix layout:
+// 8 rows x 16 bytes a core matrix, K-adjacent core matrices 128 bytes apart
+// (LBO), 8-row groups kDbKC * 128 bytes apart (SBO)
+__device__ __forceinline__ int core_off(int row, int kc) {
+  return (((row >> 3) * kDbKC + kc) * 8 + (row & 7)) * 4;
+}
+
+__device__ __forceinline__ uint64_t wgmma_desc(const float* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a & 0x3ffff) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(kDbKC * 128 >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_regs(float (&d)[kDbAcc]) {
+#pragma unroll
+  for (int i = 0; i < kDbAcc; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A (64 x 8, K-major) B^T (128 x 8, K-major), TF32 in, f32 out;
+// scale_d = 0 drops what d held
+__device__ __forceinline__ void wgmma_m64k8(float (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// One block per (X group g, column block c, tile of up to kDbSlots slots of
+// g's slices whose column id is c, in slot order, pad slots included; F
+// chunk ch): the (kDbSlots * 8) x BC block of dBlocks rows, as
+// dout-rows x X-slab^T on wgmma. Warpgroup w owns gathered rows 64 w.. and
+// all 128 columns. Per F step the copies land in the core-matrix
+// layout, three steps ahead; each thread splits the values it copied into
+// (hi, lo); the step's 3 x 4 wgmma (lo x hi, hi x lo, hi x hi) sum into p
+// from 0 and run while the threads split the next step and stage the one
+// three ahead; then acc += p in f32, rounded to nearest, so the tensor
+// cores' truncation stays relative to one step. With more than one chunk
+// each block writes its chunk's sum to part, and the last block of a tile
+// to finish (an integer ticket) adds the chunks in order 0, 1, ... into
+// dblk. Grid: nbc column blocks fastest, then tiles_max tiles, then the G
+// groups, then the n_chunks chunks; a tile past g's slots on c exits.
+template <bool kVec>
+__global__ void __launch_bounds__(kDbThreads, 1)
 ell_bwd_dblk_kernel(const int* __restrict__ cols, const float* __restrict__ x,
                     const float* __restrict__ dout, float* __restrict__ dblk,
-                    int NB, int MB, int BC, int n_rows, int n_cols, int F,
-                    int x_div) {
-  __shared__ float xsm[kMaxBC * (kDbTF + 1)];
-  __shared__ float dsm[kBR * kDbTF];
-  const size_t slot = blockIdx.x;  // (s * NB + i) * MB + j
-  const int s = (int)(slot / ((size_t)NB * MB));
-  const int i = (int)((slot / MB) % NB);
-  const int c = cols[slot];
-  const float* xs = x + (size_t)(s / x_div) * n_cols * F;
-  const int tid = threadIdx.x;
-  const int r = tid / 32;        // the warp's tile row
-  const int lane = tid % 32;
+                    float* __restrict__ part, int* __restrict__ tickets,
+                    int S, int NB, int MB, int BC, int nbc, int n_rows,
+                    int n_cols, int F, int x_div, int n_chunks,
+                    int tiles_max) {
+  extern __shared__ float4 smem4[];
+  __shared__ int s_slot[kDbSlots];
+  __shared__ long long s_aoff[kDbRows];
+  __shared__ int s_warp_n[kDbThreads / 32];
+  __shared__ int s_last;
+  float* sbuf = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int G = S / x_div;
+  int bid = blockIdx.x;
+  const int c = bid % nbc;
+  bid /= nbc;
+  const int tile = bid % tiles_max;
+  bid /= tiles_max;
+  const int g = bid % G;
+  const int ch = bid / G;
+  const int per_group = x_div * NB * MB;
+  const int* gcols = cols + (size_t)g * per_group;
 
-  // the running sums and their compensations: each staged step's partial
-  // (kDbTF products) is added in Kahan's compensated form, so the error of a
-  // sum over F = 32,000 does not grow with F
-  float acc[kDbVec], comp[kDbVec];
-#pragma unroll
-  for (int v = 0; v < kDbVec; ++v) acc[v] = comp[v] = 0.0f;
-  for (int f0 = 0; f0 < F; f0 += kDbTF) {
-    __syncthreads();  // the previous stage's readers are done
-    for (int q = tid; q < kBR * kDbTF; q += kDbThreads) {
-      const int rr = q / kDbTF;
-      const int row = i * kBR + rr;
-      const int fcol = f0 + q - rr * kDbTF;
-      dsm[q] = (row < n_rows && fcol < F)
-                   ? dout[((size_t)s * n_rows + row) * F + fcol]
-                   : 0.0f;
-    }
-    for (int q = tid; q < BC * kDbTF; q += kDbThreads) {
-      const int cc = q / kDbTF;
-      const int fc = q - cc * kDbTF;
-      const int xrow = c * BC + cc;
-      xsm[cc * (kDbTF + 1) + fc] = (xrow < n_cols && f0 + fc < F)
-                                       ? xs[(size_t)xrow * F + f0 + fc]
-                                       : 0.0f;
-    }
+  const int want0 = tile * kDbSlots;
+  int n = 0;
+  for (int e0 = 0; e0 < per_group && n < want0 + kDbSlots;
+       e0 += kDbThreads) {
+    const int e = e0 + tid;
+    const bool hit = e < per_group && gcols[e] == c;
+    const unsigned ball = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) s_warp_n[warp] = __popc(ball);
     __syncthreads();
-    float part[kDbVec];
+    int before = 0, total = 0;
+    for (int w = 0; w < kDbThreads / 32; ++w) {
+      before += w < warp ? s_warp_n[w] : 0;
+      total += s_warp_n[w];
+    }
+    const int rank = n + before + __popc(ball & ((1u << lane) - 1u));
+    if (hit && rank >= want0 && rank < want0 + kDbSlots)
+      s_slot[rank - want0] = e;
+    n += total;
+    __syncthreads();
+  }
+  const int nslots = min(kDbSlots, n - want0);
+  if (nslots <= 0) return;
+  for (int m = tid; m < kDbRows; m += kDbThreads) {
+    const int q = m / kBR;
+    long long off = -1;
+    if (q < nslots) {
+      const int e = s_slot[q];
+      const int s = g * x_div + e / (NB * MB);
+      const int row = (e / MB) % NB * kBR + m % kBR;
+      if (row < n_rows) off = ((long long)s * n_rows + row) * F;
+    }
+    s_aoff[m] = off;
+  }
+  __syncthreads();
+
+  const int xrows = min(BC, n_cols - c * BC);
+  const float* xs = x + ((size_t)g * n_cols + (size_t)c * BC) * F;
+  const int n_st = (F + kDbTF - 1) / kDbTF;
+  const int per = (n_st + n_chunks - 1) / n_chunks;
+  const int st0 = ch * per;
+  const int n_steps = min(n_st, st0 + per) - st0;
+  // copies of kW floats; the 8 rows of a core matrix on neighbouring
+  // threads, so each 8 threads fill 128 contiguous bytes
+  constexpr int kW = kVec ? 4 : 1;
+  constexpr int kCopies = 2 * kDbRows * kDbTF / kW;
+  constexpr int kPer = kCopies / kDbThreads;
+
+  auto copy_at = [&](int q, int& op, int& row, int& f) {
+    op = q / (kCopies / 2);                     // 0: dout rows, 1: X rows
+    int r = q - op * (kCopies / 2);
+    const int e = r % (4 / kW);
+    r /= 4 / kW;
+    row = r / (8 * kDbKC) * 8 + r % 8;
+    f = (r / 8) % kDbKC * 4 + e * kW;
+  };
+  auto stage = [&](int st, float* buf) {
+    const int f0 = st * kDbTF;
 #pragma unroll
-    for (int v = 0; v < kDbVec; ++v) part[v] = 0.0f;
-    for (int fc = 0; fc < kDbTF; ++fc) {
-      const float d = dsm[r * kDbTF + fc];
+    for (int u = 0; u < kPer; ++u) {
+      int op, row, f;
+      copy_at(tid + u * kDbThreads, op, row, f);
+      const float* src;
+      bool ok;
+      if (op == 0) {
+        const long long off = s_aoff[row];
+        ok = off >= 0 && f0 + f < F;
+        src = dout + off + f0 + f;
+      } else {
+        ok = row < xrows && f0 + f < F;
+        src = xs + (size_t)row * F + f0 + f;
+      }
+      float* dst = buf + op * kDbOp + core_off(row, f / 4) + f % 4;
+      if (kVec)
+        cp_async16(dst, ok ? src : dout, ok ? 16 : 0);
+      else
+        cp_async4(dst, ok ? src : dout, ok ? 4 : 0);
+    }
+  };
+  // each thread splits what it copied from raw step rbuf into split step
+  // sbuf: hi at the raw value's place in its operand, lo one part further
+  auto split = [&](const float* rbuf, float* sbuf_) {
+    float v[kPer][kW];
+    float* h[kPer];
 #pragma unroll
-      for (int v = 0; v < kDbVec; ++v) {
-        const int cc = lane + 32 * v;
-        if (cc < BC) part[v] = fmaf(d, xsm[cc * (kDbTF + 1) + fc], part[v]);
+    for (int u = 0; u < kPer; ++u) {
+      int op, row, f;
+      copy_at(tid + u * kDbThreads, op, row, f);
+      const int off = core_off(row, f / 4) + f % 4;
+      const float* r = rbuf + op * kDbOp + off;
+      h[u] = sbuf_ + 2 * op * kDbOp + off;
+      if (kVec) {
+        const float4 w = *reinterpret_cast<const float4*>(r);
+        v[u][0] = w.x;
+        v[u][kW > 1 ? 1 : 0] = w.y;
+        v[u][kW > 2 ? 2 : 0] = w.z;
+        v[u][kW > 3 ? 3 : 0] = w.w;
+      } else {
+        v[u][0] = *r;
       }
     }
 #pragma unroll
-    for (int v = 0; v < kDbVec; ++v) {
-      const float y = part[v] - comp[v];
-      const float t = acc[v] + y;
-      comp[v] = (t - acc[v]) - y;
-      acc[v] = t;
-    }
-  }
-  float* o = dblk + slot * kBR * BC + (size_t)r * BC;
+    for (int u = 0; u < kPer; ++u) {
+      unsigned hi[kW], lo[kW];
 #pragma unroll
-  for (int v = 0; v < kDbVec; ++v) {
-    const int cc = lane + 32 * v;
-    if (cc < BC) o[cc] = acc[v];
+      for (int k = 0; k < kW; ++k) split_tf32(v[u][k], hi[k], lo[k]);
+      if (kVec) {
+        *reinterpret_cast<uint4*>(h[u]) =
+            make_uint4(hi[0], hi[kW > 1 ? 1 : 0], hi[kW > 2 ? 2 : 0],
+                       hi[kW > 3 ? 3 : 0]);
+        *reinterpret_cast<uint4*>(h[u] + kDbOp) =
+            make_uint4(lo[0], lo[kW > 1 ? 1 : 0], lo[kW > 2 ? 2 : 0],
+                       lo[kW > 3 ? 3 : 0]);
+      } else {
+        *h[u] = __uint_as_float(hi[0]);
+        h[u][kDbOp] = __uint_as_float(lo[0]);
+      }
+    }
+  };
+
+  const int wg = warp / 4;
+  const bool wg_live = 8 * wg < nslots;
+  float acc[kDbAcc], pp[kDbAcc];
+#pragma unroll
+  for (int i = 0; i < kDbAcc; ++i) acc[i] = pp[i] = 0.0f;
+  // this warpgroup's 64 rows of A (8 row groups further each); all of B
+  const int a_off = wg * 64 * kDbTF, b_off = 2 * kDbOp;
+
+  float* raw = sbuf;                              // kDbRawSteps steps
+  float* spl = sbuf + kDbRawSteps * kDbRaw;       // 2 steps
+  for (int t = 0; t < kDbRawSteps; ++t) {
+    if (t < n_steps) stage(st0 + t, raw + t * kDbRaw);
+    cp_async_commit();
   }
+  if (n_steps > 0) {
+    cp_async_wait<kDbRawSteps - 1>();
+    split(raw, spl);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int t = 0; t < n_steps; ++t) {
+    const float* buf = spl + (t & 1) * kDbSplit;
+    {  // step t's products, in flight while the threads work. A warpgroup
+       // without live rows multiplies zero-filled rows: no branch around
+       // wgmma, which the compiler would serialize
+      fence_regs(pp);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kDbTF / 8; ++ks) {
+        const int o = ks * 2 * 32;  // two core matrices along K
+        const float* a = buf + a_off + o;
+        const float* b = buf + b_off + o;
+        wgmma_m64k8(pp, wgmma_desc(a + kDbOp), wgmma_desc(b), ks > 0);
+        wgmma_m64k8(pp, wgmma_desc(a), wgmma_desc(b + kDbOp), 1);
+        wgmma_m64k8(pp, wgmma_desc(a), wgmma_desc(b), 1);
+      }
+      wgmma_commit();
+    }
+    // stage step t + 3 into raw step t's place (this thread split its own
+    // copies of step t already), then split step t + 1 once this thread's
+    // copies of it have landed (its split step, read by step t - 1's
+    // wgmma, is free)
+    if (t + kDbRawSteps < n_steps)
+      stage(st0 + t + kDbRawSteps, raw + t % kDbRawSteps * kDbRaw);
+    cp_async_commit();
+    if (t + 1 < n_steps) {
+      cp_async_wait<kDbRawSteps - 1>();
+      split(raw + (t + 1) % kDbRawSteps * kDbRaw,
+            spl + ((t + 1) & 1) * kDbSplit);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    wgmma_wait0();
+    fence_regs(pp);
+#pragma unroll
+    for (int i = 0; i < kDbAcc; ++i) acc[i] += pp[i];
+    __syncthreads();  // step t + 1 is split; step t's wgmma are done
+  }
+  cp_async_wait<0>();
+  if (!wg_live && n_chunks == 1) return;
+
+  // D fragment: warp w % 4 of the warpgroup holds rows 16 (w % 4) + gid
+  // (+ 8), columns 8 j + 2 tig (+ 1) of each 8-column chunk j
+  const size_t slot_base = (size_t)g * per_group;
+  const size_t chunk_size = (size_t)S * NB * MB * kBR * BC;
+  auto each_out = [&](auto&& fn) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = wg * 64 + (warp % 4) * 16 + h * 8 + gid;
+      const int q = m / kBR;
+      if (q >= nslots) continue;
+      const size_t o0 = ((slot_base + s_slot[q]) * kBR + m % kBR) * BC;
+#pragma unroll
+      for (int j = 0; j < kMaxBC / 8; ++j)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int col = j * 8 + 2 * tig + u;
+          if (col < BC) fn(o0 + col, acc[j * 4 + 2 * h + u]);
+        }
+    }
+  };
+  if (n_chunks == 1) {
+    if (wg_live) each_out([&](size_t o, float v) { dblk[o] = v; });
+    return;
+  }
+  if (wg_live)
+    each_out([&](size_t o, float v) { part[ch * chunk_size + o] = v; });
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    s_last = atomicAdd(&tickets[((size_t)g * tiles_max + tile) * nbc + c],
+                       1) == n_chunks - 1;
+  __syncthreads();
+  if (!s_last || !wg_live) return;
+  __threadfence();
+  each_out([&](size_t o, float v) {
+    float sum = ch == 0 ? v : __ldcg(part + o);
+    for (int k = 1; k < n_chunks; ++k)
+      sum += k == ch ? v : __ldcg(part + k * chunk_size + o);
+    dblk[o] = sum;
+  });
 }
 
 bool shape_ok(int S, int NB, int MB, int BC, int n_rows, int n_cols, int F,
@@ -865,19 +1162,35 @@ extern "C" int ell_bwd_dx_q(const void* t_ptr, const void* t_slot,
 }
 
 // dblk (S, NB, MB, 8, BC) f32 from cols, x (S / x_div, n_cols, F) and dout
-// (S, n_rows, F).
+// (S, n_rows, F), with F split into n_chunks chunks. With n_chunks > 1 the
+// scratch part holds n_chunks * S * NB * MB * 8 * BC floats and tickets
+// (S / x_div) * ceil(x_div * NB * MB / 16) * nbc zeroed ints.
 extern "C" int ell_bwd_dblk(const void* cols, const void* x,
-                            const void* dout, void* dblk, int S, int NB,
-                            int MB, int BC, int n_rows, int n_cols, int F,
-                            int x_div, void* stream) {
-  if (!shape_ok(S, NB, MB, BC, n_rows, n_cols, F, x_div))
+                            const void* dout, void* dblk, void* part,
+                            void* tickets, int S, int NB, int MB, int BC,
+                            int n_rows, int n_cols, int F, int x_div,
+                            int n_chunks, void* stream) {
+  if (!shape_ok(S, NB, MB, BC, n_rows, n_cols, F, x_div) || n_chunks < 1 ||
+      (n_chunks > 1 && (part == nullptr || tickets == nullptr)))
     return cudaErrorInvalidValue;
-  const long long grid = (long long)S * NB * MB;
-  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  ell_bwd_dblk_kernel<<<(unsigned)grid, kDbThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  const int nbc = (n_cols + BC - 1) / BC;
+  const long long per_group = (long long)x_div * NB * MB;
+  const long long tiles_max = (per_group + kDbSlots - 1) / kDbSlots;
+  const long long grid =
+      (long long)n_chunks * (S / x_div) * tiles_max * nbc;
+  if (grid > 0x7fffffffLL || per_group > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const bool vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dout) % 16 == 0;
+  auto kern = vec ? ell_bwd_dblk_kernel<true> : ell_bwd_dblk_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDbSmemBytes);
+  if (err != cudaSuccess) return err;
+  kern<<<(unsigned)grid, kDbThreads, kDbSmemBytes,
+         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(cols), static_cast<const float*>(x),
-      static_cast<const float*>(dout), static_cast<float*>(dblk), NB, MB, BC,
-      n_rows, n_cols, F, x_div);
+      static_cast<const float*>(dout), static_cast<float*>(dblk),
+      static_cast<float*>(part), static_cast<int*>(tickets), S, NB, MB, BC,
+      nbc, n_rows, n_cols, F, x_div, n_chunks, (int)tiles_max);
   return cudaGetLastError();
 }

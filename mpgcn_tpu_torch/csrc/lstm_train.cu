@@ -1,6 +1,5 @@
 // K-LSTM-train: the training forward and the reverse-time BPTT of one LSTM
-// layer with zero initial state, plus the fixed-order sum of per-block dW
-// partials that both backward kernels (this BPTT and bdgcn_pair_bwd.cu) use.
+// layer with zero initial state.
 //
 // Replaces the TPU kernels of mpgcn_tpu/nn/pallas_lstm.py on the training
 // path: _lstm_fwd_kernel (launched by _fused_layer_fwd_impl; stores hs and
@@ -10,8 +9,10 @@
 //   lstm_train_fwd_f32   x_proj (T, R, 4H), w_hh_T (H, 4H) -> hs, cs (T, R, H)
 //   lstm_train_bwd_f32   x_proj, w_hh_T, hs, cs, dhs, dcs (T, R, H; a null
 //                        dhs or dcs means zero) -> dx_proj (T, R, 4H) and
-//                        per-block partials of dW_hh^T (P, H, 4H)
-//   dw_reduce_f32        partials (P, n) -> out (n), summed over p in order
+//                        dW_hh^T (H, 4H), through per-block partials
+//                        (P, H, 4H) that the same launch sums in order
+//   lstm_train_bwd_max_blocks   the most BPTT blocks that can be resident
+//                        at once on the current device (the bound on P)
 //
 //   gates = x_proj_t + h_{t-1} @ w_hh_T, torch order i, f, g, o;
 //   c_t = f * c_{t-1} + i * g;  h_t = o * tanh(c_t).
@@ -34,10 +35,14 @@
 // sequential grid axis and adds dW_hh^T into one resident block across the
 // whole grid. Hopper blocks run in parallel and in no order, so here each
 // block walks t = T-1..0 inside its own loop for each row tile it takes
-// (a grid of a few blocks per SM strides over the tiles), and sums dW_hh^T
+// (a grid of a few blocks per SM strides over the tiles, the tiles of the
+// last, partial round spread evenly over the grid), and sums dW_hh^T
 // into its own shared-memory block. Each block writes that sum once as a
-// partial; dw_reduce_f32 then adds the partials in a fixed order. No
-// float atomics: two runs give bit-equal dW. Per step the block stages
+// partial; then the grid meets at a grid-wide barrier (a cooperative
+// launch: every block is resident, so P is bounded by the occupancy) and
+// every block sums a contiguous share of the H x 4H entries over the
+// partials p = 0, 1, ..., P-1 in order. One launch, no float atomics: two
+// runs give bit-equal dW. Per step the block stages
 // h_{t-1} (read from hs at t-1, zero at t = 0 -- no shifted copies),
 // recomputes the gates from x_proj + h_{t-1} w_hh_T exactly as _cell_bwd
 // does, writes dgates = dx_proj_t and keeps them in shared memory for
@@ -45,7 +50,10 @@
 // f32 registers. w_hh_T rows are padded by one float so the dh product
 // reads it without bank conflicts.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "dw_sum.cuh"
 
 namespace {
 
@@ -153,8 +161,8 @@ __global__ void lstm_train_bwd_kernel(
     const float* __restrict__ xp, const float* __restrict__ whhT,
     const float* __restrict__ hs, const float* __restrict__ cs,
     const float* __restrict__ dhs, const float* __restrict__ dcs,
-    float* __restrict__ dxp, float* __restrict__ dw_part, int T, int R,
-    int H) {
+    float* __restrict__ dxp, float* __restrict__ dw_part,
+    float* __restrict__ dw_out, int T, int R, int H) {
   extern __shared__ float smem[];
   const int G = 4 * H;
   const int ws = G + 1;  // padded row stride of w
@@ -175,7 +183,18 @@ __global__ void lstm_train_bwd_kernel(
   const int lr0 = threadIdx.y * kRowsPerThread;
   const int ntiles = (R + tile_rows - 1) / tile_rows;
 
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+  // Every block takes tiles b, b + P, ... for the rounds all blocks fill;
+  // the last round's `extra` tiles go to blocks spread evenly over the grid
+  // (block floor(k P / extra) takes tile k of it), so blocks with one more
+  // tile do not share an SM wherever the grid is placed.
+  const int P = gridDim.x, b = blockIdx.x;
+  const int full = ntiles / P, extra = ntiles - full * P;
+  const int k_extra = (int)(((long long)b * extra + P - 1) / P);
+  const bool has_extra =
+      k_extra < extra && (long long)k_extra * P / extra == b;
+  const int my_tiles = full + (has_extra ? 1 : 0);
+  for (int it = 0; it < my_tiles; ++it) {
+    const int tile = it < full ? it * P + b : full * P + k_extra;
     const int tile0 = tile * tile_rows;
     const int row0 = tile0 + lr0;
     float dh_c[kRowsPerThread], dc_c[kRowsPerThread];
@@ -270,15 +289,10 @@ __global__ void lstm_train_bwd_kernel(
   }
   float* part = dw_part + (size_t)blockIdx.x * H * G;
   for (int i = tid; i < H * G; i += nthreads) part[i] = dw[i];
-}
-
-__global__ void dw_reduce_kernel(const float* __restrict__ part,
-                                 float* __restrict__ out, int P, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.0f;
-  for (int p = 0; p < P; ++p) s += part[(size_t)p * n + i];
-  out[i] = s;
+  // every block's partial is written; each sums its share of the entries
+  cooperative_groups::this_grid().sync();
+  sum_partials(dw_part, dw_out, gridDim.x, H * G, blockIdx.x, gridDim.x,
+               tid, nthreads, smem, H * ws + tile_rows * (H + G) + H * G);
 }
 
 }  // namespace
@@ -301,37 +315,51 @@ extern "C" int lstm_train_fwd_f32(const void* xp, const void* whhT, void* hs,
   return cudaGetLastError();
 }
 
-// P blocks stride over the row tiles; dw_part holds P * H * 4H floats.
+namespace {
+
+size_t bwd_smem_bytes(int H) {
+  const int tile_rows = rows_y_for(H) * kRowsPerThread;
+  const int G = 4 * H;
+  return (size_t)(H * (G + 1) + tile_rows * H + tile_rows * G + H * G) *
+         sizeof(float);
+}
+
+}  // namespace
+
+// The most BPTT blocks the current device holds at once at hidden width H:
+// the largest P that lstm_train_bwd_f32 takes.
+extern "C" int lstm_train_bwd_max_blocks(int H, int* out) {
+  if (H < 1 || H > kMaxHidden) return cudaErrorInvalidValue;
+  const size_t smem = bwd_smem_bytes(H);
+  cudaError_t err = allow_smem((const void*)lstm_train_bwd_kernel, smem);
+  if (err != cudaSuccess) return err;
+  return max_coresident((const void*)lstm_train_bwd_kernel,
+                        rows_y_for(H) * H, smem, out);
+}
+
+// P blocks stride over the row tiles and write their partials to dw_part
+// (P * H * 4H floats); after a grid-wide barrier they sum them into dw
+// (H * 4H). A cooperative launch: it is refused (and nothing runs) when the
+// P blocks cannot all be resident at once.
 extern "C" int lstm_train_bwd_f32(const void* xp, const void* whhT,
                                   const void* hs, const void* cs,
                                   const void* dhs, const void* dcs, void* dxp,
-                                  void* dw_part, int T, int R, int H, int P,
-                                  void* stream) {
+                                  void* dw_part, void* dw, int T, int R,
+                                  int H, int P, void* stream) {
   if (T < 1 || R < 1 || H < 1 || H > kMaxHidden || P < 1)
     return cudaErrorInvalidValue;
-  const int rows_y = rows_y_for(H);
-  const int tile_rows = rows_y * kRowsPerThread;
-  const int G = 4 * H;
-  const size_t smem =
-      (size_t)(H * (G + 1) + tile_rows * H + tile_rows * G + H * G) *
-      sizeof(float);
+  const size_t smem = bwd_smem_bytes(H);
   cudaError_t err = allow_smem((const void*)lstm_train_bwd_kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 block(H, rows_y);
-  lstm_train_bwd_kernel<<<P, block, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xp), static_cast<const float*>(whhT),
-      static_cast<const float*>(hs), static_cast<const float*>(cs),
-      static_cast<const float*>(dhs), static_cast<const float*>(dcs),
-      static_cast<float*>(dxp), static_cast<float*>(dw_part), T, R, H);
-  return cudaGetLastError();
-}
-
-extern "C" int dw_reduce_f32(const void* part, void* out, int P, int n,
-                             void* stream) {
-  if (P < 1 || n < 1) return cudaErrorInvalidValue;
-  dw_reduce_kernel<<<(n + 255) / 256, 256, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part), static_cast<float*>(out), P, n);
+  const dim3 block(H, rows_y_for(H));
+  void* args[] = {&xp, &whhT, &hs, &cs, &dhs, &dcs, &dxp, &dw_part, &dw,
+                  &T, &R, &H};
+  err = cudaLaunchCooperativeKernel((const void*)lstm_train_bwd_kernel,
+                                    dim3(P), block, args, smem,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves no error behind
+    return err;
+  }
   return cudaGetLastError();
 }

@@ -5,13 +5,15 @@ Each source under ``mpgcn_tpu_torch/csrc/`` is compiled on first use by
 ``nvcc`` into its own shared library with a plain C interface, and loaded
 with ``ctypes``: seconds per source, where a build that includes PyTorch's
 headers takes minutes. Libraries are named by a hash of their source and
-land in ``native/_build/`` (listed in .gitignore), so an edited source is
-rebuilt and an unchanged one is reused. ``build_all`` starts one ``nvcc``
-per source at once. Nothing but the sources in this package is built.
+of the headers under ``csrc/``, and land in ``native/_build/`` (listed in
+.gitignore), so an edited source is rebuilt and an unchanged one is
+reused. ``build_all`` starts one ``nvcc`` per source at once. Nothing but
+the sources in this package is built.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :class:`CudaKernel` raises when that is not 0 and
-counts the launches that went through.
+counts the launches that went through. A few entries launch nothing and
+report one number about the device (``query_int``).
 """
 
 from __future__ import annotations
@@ -55,9 +57,15 @@ def _source(name: str) -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(_source(name), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library's path, named by a hash of its source and of every
+    header under csrc/ (a source may include any of them)."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [_source(name)] + [os.path.join(CSRC_DIR, f)
+                                   for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _start(name: str):
@@ -162,3 +170,20 @@ class CudaKernel:
                                f"launch: cudaError {err}")
         with self._count_lock:
             self.launches += 1
+
+
+def query_int(source: str, symbol: str, ints, device) -> int:
+    """Call the C entry ``symbol(int..., int* out)`` of csrc/<source>.cu
+    with ``device`` current and return ``out``; raises when it reports an
+    error. Launches nothing (an occupancy bound, say)."""
+    import torch
+
+    fn = getattr(load(source), symbol)
+    fn.argtypes = [ctypes.c_int] * len(ints) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = fn(*[int(i) for i in ints], ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"CUDA query {symbol} failed: cudaError {err}")
+    return out.value

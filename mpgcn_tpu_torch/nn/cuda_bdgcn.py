@@ -10,21 +10,24 @@ There is no fallback: a CUDA tensor the kernel does not take raises.
 
 Under autograd it goes through ``PairProjectFn``, whose backward
 ``folded_pair_project_bwd`` launches ``bdgcn_pair_bwd_f32`` of
-``csrc/bdgcn_pair_bwd.cu`` (replacing ``_bwd_kernel``) for dh1 and the
-per-block dW partials, then ``cuda_lstm.dw_reduce`` for their fixed-order
-sum (the one reduction entry both backward kernels share). The JAX
-package sends small pair counts to an XLA einsum loop instead of its
-backward kernel; this port has no such switch. The support
+``csrc/bdgcn_pair_bwd.cu`` (replacing ``_bwd_kernel``) for dh1 and dW: its
+dW product is a cooperative launch whose blocks write per-block partials
+and then, after a grid-wide barrier, sum them in a fixed order
+(``cuda_lstm.dw_reduce_plain`` is that sum's plain version, as for the
+LSTM BPTT). The JAX package sends small pair counts to an XLA einsum loop
+instead of its backward kernel; this port has no such switch. The support
 cotangent stays plain einsums (``_grad_g``), computed only when a support
 requires grad, as the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from mpgcn_tpu_torch.native.build import CudaKernel
-from mpgcn_tpu_torch.nn.cuda_lstm import dw_reduce
+from mpgcn_tpu_torch.native.build import CudaKernel, query_int
+from mpgcn_tpu_torch.nn.cuda_lstm import device_index
 
 #: channel and hidden widths the kernels take (per-thread register tiles)
 MAX_WIDTH = 64
@@ -39,7 +42,7 @@ _DW_ROWS_TILE = 32
 BDGCN_PAIR_FWD = CudaKernel("bdgcn_pair_fwd", "bdgcn_pair_fwd_f32",
                             n_ptrs=4, n_ints=7)
 BDGCN_PAIR_BWD = CudaKernel("bdgcn_pair_bwd", "bdgcn_pair_bwd_f32",
-                            n_ptrs=7, n_ints=8)
+                            n_ptrs=8, n_ints=8)
 
 
 def _dest(Gk: torch.Tensor, d: int, dyn: bool):
@@ -149,22 +152,40 @@ def _pair_project(h1, Gk, Wr):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _max_dw_blocks(index: int) -> int:
+    """The most dW-product blocks card ``index`` holds at once."""
+    return query_int("bdgcn_pair_bwd", "bdgcn_pair_bwd_max_blocks", (),
+                     torch.device("cuda", index))
+
+
 def bwd_blocks(rows: int, K: int, device) -> int:
-    """Row chunks of the dW-partial launch (each of the K^2 pairs gets this
+    """Row chunks of the dW-product launch (each of the K^2 pairs gets this
     many blocks): a few blocks per SM in all, never a chunk smaller than
-    one staged row tile."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    one staged row tile, and no more blocks in all than the card holds at
+    once (the launch is cooperative)."""
+    index = device_index(device)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
     by_sm = -(-BWD_BLOCKS_PER_SM * sms // (K * K))
-    return max(1, min(by_sm, -(-rows // _DW_ROWS_TILE)))
+    return max(1, min(by_sm, -(-rows // _DW_ROWS_TILE),
+                      _max_dw_blocks(index) // (K * K)))
 
 
 def folded_pair_project_bwd(h1, Gk, Wr, dout):
     """Backward of the folded pairs for the cotangent dout (B, M, N, H):
     (dh1 (K, B, M, N, C), dW (K, K, C, H)). CPU tensors take the plain
-    version; CUDA tensors launch ``bdgcn_pair_bwd_f32`` and then
-    ``dw_reduce`` on its per-block partials."""
+    version; CUDA tensors launch ``bdgcn_pair_bwd_f32``, dW sum included."""
+    return folded_pair_project_bwd_partials(h1, Gk, Wr, dout)[:2]
+
+
+def folded_pair_project_bwd_partials(h1, Gk, Wr, dout):
+    """``folded_pair_project_bwd`` with the per-block dW partials
+    (P, K, K, C, H) that its dW is the fixed-order sum of
+    (``dw_reduce_plain(part)`` to the last bit). The plain version computes
+    dW in one piece: on the CPU the partials are dW[None]."""
     if not _is_cuda(h1, "K-BDGCN-bwd"):
-        return folded_pair_project_bwd_plain(h1, Gk, Wr, dout)
+        dh1, dW = folded_pair_project_bwd_plain(h1, Gk, Wr, dout)
+        return dh1, dW, dW[None]
     _check_cuda_args(h1, Gk, Wr, "K-BDGCN-bwd")
     K, B, M, N, C = h1.shape
     H = Wr.shape[-1]
@@ -179,9 +200,10 @@ def folded_pair_project_bwd(h1, Gk, Wr, dout):
     z = torch.empty((K, B, M, N, H), dtype=torch.float32, device=h1.device)
     part = torch.empty((P, K, K, C, H), dtype=torch.float32,
                        device=h1.device)
-    BDGCN_PAIR_BWD.launch((h1, Gk, Wr, dout, dh1, z, part),
+    dW = torch.empty((K, K, C, H), dtype=torch.float32, device=h1.device)
+    BDGCN_PAIR_BWD.launch((h1, Gk, Wr, dout, dh1, z, part, dW),
                           (K, B, M, N, C, H, Gk.shape[0], P))
-    return dh1, dw_reduce(part)
+    return dh1, dW, part
 
 
 class PairProjectFn(torch.autograd.Function):

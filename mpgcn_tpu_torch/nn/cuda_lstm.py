@@ -13,11 +13,12 @@ The training path goes through ``LSTMLayerFn``: its forward
 ``lstm_layer_train`` stores hs and cs (``lstm_train_fwd_f32`` of
 ``csrc/lstm_train.cu`` replaces ``_lstm_fwd_kernel``), and its backward
 ``lstm_layer_bwd`` runs the reverse-time BPTT (``lstm_train_bwd_f32``
-replaces ``_lstm_bwd_kernel``) and sums the per-block dW_hh^T partials in
-a fixed order (``dw_reduce``, the ``dw_reduce_f32`` entry of the same
-source, which K-BDGCN-bwd's dW sum launches too). The JAX package sends
-small row counts to an XLA scan instead of its backward kernel; this port
-has no such switch: a CUDA tensor always launches the backward kernel.
+replaces ``_lstm_bwd_kernel``): one cooperative launch whose blocks write
+per-block dW_hh^T partials and then, after a grid-wide barrier, sum them
+in a fixed order (``dw_reduce_plain`` is that sum's plain version). The
+JAX package sends small row counts to an XLA scan instead of its backward
+kernel; this port has no such switch: a CUDA tensor always launches the
+backward kernel.
 
 The input projection ``x @ W_ih^T + b`` stays a torch matmul outside the
 kernels, as the JAX package leaves it to XLA (pallas_lstm.py:564).
@@ -25,9 +26,11 @@ kernels, as the JAX package leaves it to XLA (pallas_lstm.py:564).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from mpgcn_tpu_torch.native.build import CudaKernel
+from mpgcn_tpu_torch.native.build import CudaKernel, query_int
 
 #: hidden widths the kernels take (w_hh^T must fit shared memory)
 MAX_HIDDEN = 64
@@ -39,9 +42,7 @@ LSTM_INFER_COLLECT = CudaKernel("lstm_infer", "lstm_infer_collect_f32",
 LSTM_TRAIN_FWD = CudaKernel("lstm_train", "lstm_train_fwd_f32",
                             n_ptrs=4, n_ints=3)
 LSTM_TRAIN_BWD = CudaKernel("lstm_train", "lstm_train_bwd_f32",
-                            n_ptrs=8, n_ints=4)
-#: the fixed-order sum of per-block dW partials, for both backward kernels
-DW_REDUCE = CudaKernel("lstm_train", "dw_reduce_f32", n_ptrs=2, n_ints=2)
+                            n_ptrs=9, n_ints=4)
 
 #: BPTT blocks per SM: the blocks stride over the row tiles, so the
 #: dW_hh^T partial buffer stays at about this many x SMs x H x 4H floats
@@ -122,12 +123,20 @@ def lstm_layer_bwd_plain(x_proj, w_hh_T, hs, cs, dhs, dcs):
 
 
 def dw_reduce_plain(part: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of ``dw_reduce_f32``: the P partials (P, ...)
-    summed in the kernel's fixed order, p = 0, 1, ..., P-1."""
+    """Plain PyTorch version of the dW sum that ends both backward kernels
+    (``lstm_train_bwd_f32`` and ``bdgcn_pair_bwd_f32``): the P partials
+    (P, ...) summed in the kernels' fixed order, p = 0, 1, ..., P-1."""
     out = part[0].clone()
     for p in range(1, part.shape[0]):
         out += part[p]
     return out
+
+
+def device_index(device) -> int:
+    """The index of a CUDA device (the current one when it names none)."""
+    device = torch.device(device)
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
 
 
 def _check_device(x_proj: torch.Tensor, name: str) -> bool:
@@ -157,23 +166,6 @@ def _check_cuda_args(x_proj: torch.Tensor, w_hh_T: torch.Tensor,
         raise ValueError("x_proj and w_hh_T lie on different devices")
     if x_proj.shape[0] < 1 or x_proj.shape[1] < 1:
         raise ValueError(f"empty x_proj {tuple(x_proj.shape)}")
-
-
-def dw_reduce(part: torch.Tensor) -> torch.Tensor:
-    """The fixed-order sum of a dW's float32 partials: (P, ...) -> (...).
-    CPU tensors take the plain version; CUDA tensors launch
-    ``dw_reduce_f32``, which uses no float atomics, so two runs give
-    bit-equal sums."""
-    if not _check_device(part, "dw_reduce"):
-        return dw_reduce_plain(part)
-    if part.dtype != torch.float32 or part.ndim < 2 or part.numel() == 0:
-        raise ValueError(f"dw_reduce takes non-empty float32 partials "
-                         f"(P, ...), got {part.dtype} {tuple(part.shape)}")
-    out = torch.empty(part.shape[1:], dtype=torch.float32,
-                      device=part.device)
-    DW_REDUCE.launch((part.contiguous(), out),
-                     (part.shape[0], out.numel()))
-    return out
 
 
 def lstm_layer_infer(x_proj: torch.Tensor, w_hh_T: torch.Tensor,
@@ -215,21 +207,40 @@ def lstm_layer_train(x_proj: torch.Tensor, w_hh_T: torch.Tensor):
     return hs, cs
 
 
+@functools.lru_cache(maxsize=None)
+def _max_bwd_blocks(index: int, H: int) -> int:
+    """The most BPTT blocks card ``index`` holds at once at width H."""
+    return query_int("lstm_train", "lstm_train_bwd_max_blocks", (H,),
+                     torch.device("cuda", index))
+
+
 def bwd_blocks(R: int, H: int, device) -> int:
     """Blocks of the BPTT launch: a few per SM, never more than row tiles
-    (the kernel's tile is 4 rows x max(1, 256 // H) thread rows)."""
+    (the kernel's tile is 4 rows x max(1, 256 // H) thread rows), nor than
+    the card holds at once (the launch is cooperative)."""
+    index = device_index(device)
     tiles = -(-R // (max(1, 256 // H) * 4))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(tiles, BWD_BLOCKS_PER_SM * sms))
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return max(1, min(tiles, BWD_BLOCKS_PER_SM * sms,
+                      _max_bwd_blocks(index, H)))
 
 
 def lstm_layer_bwd(x_proj, w_hh_T, hs, cs, dhs, dcs):
     """Backward of one layer: the cotangents dhs, dcs of (hs, cs) (None
     means zero) -> (dx_proj (T, R, 4H), dw_hh_T (H, 4H)). CPU tensors take
-    the plain version; CUDA tensors launch ``lstm_train_bwd_f32`` and then
-    ``dw_reduce`` on its per-block partials."""
+    the plain version; CUDA tensors launch ``lstm_train_bwd_f32``, BPTT and
+    dW sum in one launch."""
+    return lstm_layer_bwd_partials(x_proj, w_hh_T, hs, cs, dhs, dcs)[:2]
+
+
+def lstm_layer_bwd_partials(x_proj, w_hh_T, hs, cs, dhs, dcs):
+    """``lstm_layer_bwd`` with the per-block dW_hh^T partials (P, H, 4H)
+    that its dW is the fixed-order sum of (``dw_reduce_plain(part)`` to the
+    last bit). The plain version computes dW in one piece: on the CPU the
+    partials are dW[None]."""
     if not _check_device(x_proj, "K-LSTM-train"):
-        return lstm_layer_bwd_plain(x_proj, w_hh_T, hs, cs, dhs, dcs)
+        dxp, dw = lstm_layer_bwd_plain(x_proj, w_hh_T, hs, cs, dhs, dcs)
+        return dxp, dw, dw[None]
     _check_cuda_args(x_proj, w_hh_T, "K-LSTM-train")
     T, R, four_h = x_proj.shape
     H = four_h // 4
@@ -248,8 +259,9 @@ def lstm_layer_bwd(x_proj, w_hh_T, hs, cs, dhs, dcs):
     dxp = torch.empty_like(args[0])
     part = torch.empty((P, H, four_h), dtype=torch.float32,
                        device=x_proj.device)
-    LSTM_TRAIN_BWD.launch((*args, dxp, part), (T, R, H, P))
-    return dxp, dw_reduce(part)
+    dw = torch.empty((H, four_h), dtype=torch.float32, device=x_proj.device)
+    LSTM_TRAIN_BWD.launch((*args, dxp, part, dw), (T, R, H, P))
+    return dxp, dw, part
 
 
 class LSTMLayerFn(torch.autograd.Function):

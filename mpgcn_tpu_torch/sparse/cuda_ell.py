@@ -16,7 +16,11 @@ On a CUDA tensor each entry launches its kernel of ``csrc/ell_spmm.cu``:
   * ``ell_bwd_dx``: ``ell_bwd_dx`` (``_bwd_dx_kernel``) or ``ell_bwd_dx_q``
     (``_bwd_dx_kernel_q``), summing dX over the container's transposed
     block index in a fixed order, without atomics;
-  * ``ell_bwd_dblk``: ``ell_bwd_dblk`` (``_bwd_dblk_kernel``).
+  * ``ell_bwd_dblk``: ``ell_bwd_dblk`` (``_bwd_dblk_kernel``), on the TF32
+    tensor cores (wgmma), each block contracting the gathered dout rows of
+    up to 16 slots on one column block against that block's X slab,
+    staged once; F is split into chunks whose sums are added in a fixed
+    order.
 
 On a CPU tensor each runs its plain version, the same function in stock
 PyTorch as sparse/kernels.py ``_ell_rows_jnp`` computes it: a loop over
@@ -50,7 +54,12 @@ ELL_FWD = CudaKernel("ell_spmm", "ell_fwd", n_ptrs=5, n_ints=9)
 ELL_FWD_Q = CudaKernel("ell_spmm", "ell_fwd_q", n_ptrs=6, n_ints=8)
 ELL_BWD_DX = CudaKernel("ell_spmm", "ell_bwd_dx", n_ptrs=5, n_ints=9)
 ELL_BWD_DX_Q = CudaKernel("ell_spmm", "ell_bwd_dx_q", n_ptrs=6, n_ints=8)
-ELL_BWD_DBLK = CudaKernel("ell_spmm", "ell_bwd_dblk", n_ptrs=4, n_ints=8)
+ELL_BWD_DBLK = CudaKernel("ell_spmm", "ell_bwd_dblk", n_ptrs=6, n_ints=9)
+#: dBlocks (csrc/ell_spmm.cu kDbSlots, kDbTF): slots per tile, F columns
+#: per staged step; at most this many steps summed by one block (the rest
+#: go to other F chunks), and blocks per SM to aim at (one is resident at
+#: a time)
+DBLK_SLOTS, DBLK_TF, DBLK_MAX_STEPS, DBLK_WAVES = 16, 32, 128, 2
 
 
 # --- plain versions ---------------------------------------------------------
@@ -255,10 +264,22 @@ def ell_bwd_dx(cols, blocks, t_ptr, t_slot, dout, n_cols: int, x_div: int,
     return dx
 
 
+def dblk_chunks(S: int, NB: int, MB: int, x_div: int, F: int,
+                sms: int) -> int:
+    """The F chunks of a dBlocks launch: enough blocks for DBLK_WAVES per
+    SM over the slot tiles (about S NB MB / 16 of them), no block summing
+    more than DBLK_MAX_STEPS steps, no chunk empty."""
+    steps = -(-F // DBLK_TF)
+    tiles = S // x_div * -(-x_div * NB * MB // DBLK_SLOTS)
+    n = min(steps, max(-(-DBLK_WAVES * sms // tiles),
+                       -(-steps // DBLK_MAX_STEPS)))
+    return -(-steps // -(-steps // n))
+
+
 def ell_bwd_dblk(cols, X, dout, bc: int, x_div: int) -> torch.Tensor:
     """dBlocks for the cotangent dout (S, n_rows, F): -> (S, NB, MB, 8, bc)
     f32. CPU tensors take the plain version; CUDA tensors launch
-    ``ell_bwd_dblk``."""
+    ``ell_bwd_dblk``, with scratch for its F chunks' sums and tickets."""
     if not _is_cuda(X, "ELL SpMM dBlocks"):
         return ell_bwd_dblk_plain(cols, X, dout, bc, x_div)
     _check_dense("ELL SpMM dBlocks X", X, (None, None, None))
@@ -282,9 +303,19 @@ def ell_bwd_dblk(cols, X, dout, bc: int, x_div: int) -> torch.Tensor:
                        device=X.device)
     if F == 0:
         return dblk.zero_()
+    sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+    n_chunks = dblk_chunks(S, NB, MB, x_div, F, sms)
+    part = tickets = None
+    if n_chunks > 1:
+        part = torch.empty((n_chunks, *dblk.shape), dtype=torch.float32,
+                           device=X.device)
+        tiles = -(-x_div * NB * MB // DBLK_SLOTS)
+        tickets = torch.zeros((S // x_div, tiles, -(-n_cols // bc)),
+                              dtype=torch.int32, device=X.device)
     ELL_BWD_DBLK.launch((cols.contiguous(), X.contiguous(),
-                         dout.contiguous(), dblk),
-                        (S, NB, MB, bc, dout.shape[1], n_cols, F, x_div))
+                         dout.contiguous(), dblk, part, tickets),
+                        (S, NB, MB, bc, dout.shape[1], n_cols, F, x_div,
+                         n_chunks))
     return dblk
 
 

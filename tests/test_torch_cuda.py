@@ -178,8 +178,7 @@ def test_lstm_train_kernels_match_plain(cuda_device, T, R, H, with_dcs):
     xp = t(rng.normal(size=(T, R, 4 * H)))
     w = t(rng.normal(size=(H, 4 * H)) / np.sqrt(H))
     before = [k.launches for k in (cuda_lstm.LSTM_TRAIN_FWD,
-                                   cuda_lstm.LSTM_TRAIN_BWD,
-                                   cuda_lstm.DW_REDUCE)]
+                                   cuda_lstm.LSTM_TRAIN_BWD)]
     hs, cs = cuda_lstm.lstm_layer_train(xp, w)
     hp, cp = cuda_lstm.lstm_layer_train_plain(xp, w)
     torch.testing.assert_close(hs, hp, **KERNEL_TOL)
@@ -189,8 +188,7 @@ def test_lstm_train_kernels_match_plain(cuda_device, T, R, H, with_dcs):
     dxp, dw = cuda_lstm.lstm_layer_bwd(xp, w, hs, cs, dhs, dcs)
     torch.cuda.synchronize()
     assert [k.launches for k in (cuda_lstm.LSTM_TRAIN_FWD,
-                                 cuda_lstm.LSTM_TRAIN_BWD,
-                                 cuda_lstm.DW_REDUCE)] == [
+                                 cuda_lstm.LSTM_TRAIN_BWD)] == [
         b + 1 for b in before]
     dxr, dwr = cuda_lstm.lstm_layer_bwd_plain(xp, w, hs, cs, dhs, dcs)
     torch.testing.assert_close(dxp, dxr, **KERNEL_TOL)
@@ -208,12 +206,10 @@ def test_bdgcn_bwd_kernel_matches_plain(cuda_device, dynamic, K, B, N, C, H):
     h1, g, w = _bdgcn_inputs(cuda_device, K, B, N, C, H, dynamic, seed=N)
     dout = torch.from_numpy(np.random.default_rng(C).normal(
         size=(B, N, N, H)).astype(np.float32)).to(cuda_device)
-    before = (cuda_bdgcn.BDGCN_PAIR_BWD.launches,
-              cuda_lstm.DW_REDUCE.launches)
+    before = cuda_bdgcn.BDGCN_PAIR_BWD.launches
     dh1, dW = cuda_bdgcn.folded_pair_project_bwd(h1, g, w, dout)
     torch.cuda.synchronize()
-    assert (cuda_bdgcn.BDGCN_PAIR_BWD.launches,
-            cuda_lstm.DW_REDUCE.launches) == (before[0] + 1, before[1] + 1)
+    assert cuda_bdgcn.BDGCN_PAIR_BWD.launches == before + 1
     r1, rW = cuda_bdgcn.folded_pair_project_bwd_plain(h1, g, w, dout)
     torch.testing.assert_close(dh1, r1, **KERNEL_TOL)
     _close_scaled(dW, rW)
@@ -221,21 +217,43 @@ def test_bdgcn_bwd_kernel_matches_plain(cuda_device, dynamic, K, B, N, C, H):
     assert torch.equal(dW, dW2), "dW differs between two runs"
 
 
-@pytest.mark.parametrize("P,shape", [(264, (32, 128)), (30, (3, 3, 32, 32)),
-                                     (1, (5,)), (7, (1001,))])
-def test_dw_reduce_kernel_matches_plain(cuda_device, P, shape):
-    """The shared dW reduction adds the partials in the plain version's
-    order, p = 0, 1, ..., so the two agree to the last bit."""
-    part = torch.from_numpy(np.random.default_rng(P).normal(
-        size=(P, *shape)).astype(np.float32)).to(cuda_device)
-    before = cuda_lstm.DW_REDUCE.launches
-    out = cuda_lstm.dw_reduce(part)
+@pytest.mark.parametrize("entry,shape", [("lstm", (7, 8836, 32)),
+                                         ("lstm", (5, 333, 64)),
+                                         ("bdgcn", (3, 4, 47, 32, 32)),
+                                         ("bdgcn", (5, 2, 33, 16, 64))])
+def test_dw_reduce_kernel_matches_plain(cuda_device, entry, shape):
+    """Each backward entry sums its per-block dW partials inside its own
+    launch, in the plain version's order p = 0, 1, ...: its dW equals
+    dw_reduce_plain of the partials it wrote to the last bit, and two runs
+    give the same bits. One launch each, and none other."""
+    rng = np.random.default_rng(sum(shape))
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+    if entry == "lstm":
+        T, R, H = shape
+        xp = t(rng.normal(size=(T, R, 4 * H)))
+        w = t(rng.normal(size=(H, 4 * H)) / np.sqrt(H))
+        hs, cs = cuda_lstm.lstm_layer_train(xp, w)
+        dhs = t(rng.normal(size=(T, R, H)))
+        kernel = cuda_lstm.LSTM_TRAIN_BWD
+        run = lambda: cuda_lstm.lstm_layer_bwd_partials(xp, w, hs, cs, dhs,
+                                                        None)
+        P = cuda_lstm.bwd_blocks(R, H, cuda_device)
+    else:
+        K, B, N, C, H = shape
+        h1, g, wr = _bdgcn_inputs(cuda_device, K, B, N, C, H, True, seed=N)
+        dout = t(rng.normal(size=(B, N, N, H)))
+        kernel = cuda_bdgcn.BDGCN_PAIR_BWD
+        run = lambda: cuda_bdgcn.folded_pair_project_bwd_partials(h1, g, wr,
+                                                                  dout)
+        P = cuda_bdgcn.bwd_blocks(B * N * N, K, cuda_device)
+    before = kernel.launches
+    _, dw, part = run()
     torch.cuda.synchronize()
-    assert cuda_lstm.DW_REDUCE.launches == before + 1
-    assert tuple(out.shape) == shape
-    assert torch.equal(out, cuda_lstm.dw_reduce_plain(part))
-    with pytest.raises(ValueError, match="float32"):
-        cuda_lstm.dw_reduce(part.double())
+    assert kernel.launches == before + 1
+    assert part.shape[0] == P > 1
+    assert torch.equal(dw, cuda_lstm.dw_reduce_plain(part))
+    _, dw2, _ = run()
+    assert torch.equal(dw, dw2), "dW differs between two runs"
 
 
 def test_training_kernels_reject_what_they_do_not_take(cuda_device):
@@ -266,8 +284,9 @@ def test_training_kernels_reject_what_they_do_not_take(cuda_device):
 
 def test_trainer_step_runs_the_training_kernels(cuda_device, tmp_path):
     """One ModelTrainer step at M=2, 1 LSTM layer, 3 BDGCN layers: exactly
-    M = 2 launches of each LSTM training entry, M * 3 = 6 of each BDGCN
-    entry and 2 + 6 = 8 of the shared dW reduction, no inference launch;
+    M = 2 launches of each LSTM training entry and M * 3 = 6 of each BDGCN
+    entry (each backward entry sums its dW inside its one launch), no
+    inference launch;
     then a validation step launches only the inference kernels. The kernel
     arm's gradients match the plain arms'."""
     cfg = MPGCNConfig(synthetic_T=200, synthetic_N=10, hidden_dim=16,
@@ -280,7 +299,6 @@ def test_trainer_step_runs_the_training_kernels(cuda_device, tmp_path):
     batch = next(tr.pipeline.batches("train", pad_to_full=True))
     kernels = {**KERNELS, "lstm_train_fwd": cuda_lstm.LSTM_TRAIN_FWD,
                "lstm_train_bwd": cuda_lstm.LSTM_TRAIN_BWD,
-               "dw_reduce": cuda_lstm.DW_REDUCE,
                "bdgcn_pair_bwd": cuda_bdgcn.BDGCN_PAIR_BWD}
     for k in kernels.values():
         k.launches = 0
@@ -291,8 +309,7 @@ def test_trainer_step_runs_the_training_kernels(cuda_device, tmp_path):
     assert {n: k.launches for n, k in kernels.items()} == {
         "lstm_infer_last": 0, "lstm_infer_collect": 0,
         "bdgcn_pair_fwd": 6, "ell_fwd": 0, "ell_fwd_q": 0,
-        "lstm_train_fwd": 2, "lstm_train_bwd": 2, "dw_reduce": 8,
-        "bdgcn_pair_bwd": 6}
+        "lstm_train_fwd": 2, "lstm_train_bwd": 2, "bdgcn_pair_bwd": 6}
     ref = dict(plain.model.named_parameters())
     for name, p in tr.model.named_parameters():
         torch.testing.assert_close(
@@ -432,6 +449,53 @@ def test_ell_dblk_kernel_matches_plain(cuda_device, shape, bc, pattern, F,
     assert cuda_ell.ELL_BWD_DBLK.launches == before + 1
     _close_scaled(dblk, cuda_ell.ell_bwd_dblk_plain(cols, X, dout, bc, x_div))
     assert torch.equal(dblk, cuda_ell.ell_bwd_dblk(cols, X, dout, bc, x_div))
+
+
+@pytest.mark.parametrize("shape,bc,pattern,F,per_sample", [
+    ((1, 256, 256), 16, "dense", 96, False),
+    ((3, 300, 300), 128, "band", 37, False),
+    ((2, 3, 150, 150), 12, "band", 130, True)])
+def test_ell_dblk_slot_tiles_and_pad_slots(cuda_device, shape, bc, pattern,
+                                           F, per_sample):
+    """dBlocks gathers up to 16 slots on one column block per tile: a
+    column block named by more than 16 slots of an X group takes several
+    tiles, pad slots (column 0, zero tiles) take their cotangent like any
+    slot, and F % 4 != 0 stages with 4-byte copies. Bit-equal over two
+    runs."""
+    ell, X, dout, x_div = _ell_case(cuda_device, shape, bc, pattern, F,
+                                    per_sample, "f32", seed=2)
+    cols = flat_stack(ell)[0]
+    S, NB, MB = cols.shape
+    per_group = cols.reshape(S // x_div, -1)
+    most = max(int((per_group == c).sum(1).max())
+               for c in range(-(-shape[-1] // bc)))
+    assert most > 16
+    if pattern == "band":
+        assert bool((ell.blocks.reshape(S, NB, MB, -1) == 0).all(-1).any())
+    dblk = cuda_ell.ell_bwd_dblk(cols, X, dout, bc, x_div)
+    _close_scaled(dblk, cuda_ell.ell_bwd_dblk_plain(cols, X, dout, bc, x_div))
+    assert torch.equal(dblk, cuda_ell.ell_bwd_dblk(cols, X, dout, bc, x_div))
+
+
+def test_ell_dblk_pad_free_n500_against_float64(cuda_device):
+    """dBlocks at the pad-free N=500 shape (S = 3, NB = 63, MB = 4,
+    F = 32,000, its F split into chunks) against the plain version in
+    float64: the TF32 split products and the chunked f32 sums over F stay
+    within rtol 1e-5 and 1e-6 x the largest entry."""
+    rng = np.random.default_rng(500)
+    N, F = 500, 32000
+    ell = ell_from_dense(rng.normal(size=(3, N, N)).astype(np.float32)).to(
+        cuda_device)
+    assert ell.pad_blocks == 4
+    X = torch.from_numpy(rng.normal(size=(1, N, F)).astype(
+        np.float32)).to(cuda_device)
+    dout = torch.from_numpy(rng.normal(size=(3, N, F)).astype(
+        np.float32)).to(cuda_device)
+    cols = ell.block_cols
+    dblk = cuda_ell.ell_bwd_dblk(cols, X, dout, 128, 3)
+    ref = cuda_ell.ell_bwd_dblk_plain(cols, X.double(), dout.double(), 128, 3)
+    _close_scaled(dblk.double(), ref)
+    assert torch.equal(dblk, cuda_ell.ell_bwd_dblk(cols, X, dout, 128, 3))
 
 
 def test_ell_autograd_launches_dblk_only_for_tiles_that_need_it(cuda_device):

@@ -223,8 +223,7 @@ def test_cpu_wrappers_take_plain_version_without_launching():
     h1, g, wr = map(torch.from_numpy, _bdgcn_inputs(rng))
     kernels = (cuda_lstm.LSTM_INFER_LAST, cuda_lstm.LSTM_INFER_COLLECT,
                cuda_lstm.LSTM_TRAIN_FWD, cuda_lstm.LSTM_TRAIN_BWD,
-               cuda_lstm.DW_REDUCE, cuda_bdgcn.BDGCN_PAIR_FWD,
-               cuda_bdgcn.BDGCN_PAIR_BWD)
+               cuda_bdgcn.BDGCN_PAIR_FWD, cuda_bdgcn.BDGCN_PAIR_BWD)
     before = [k.launches for k in kernels]
     for collect in (False, True):
         torch.testing.assert_close(
@@ -249,17 +248,40 @@ def test_cpu_wrappers_take_plain_version_without_launching():
 
 
 def test_dw_reduce_cpu_takes_plain_version():
-    """On the CPU the shared dW reduction is its plain version: the
-    partials summed in order, without a launch."""
-    part = torch.from_numpy(np.random.default_rng(13).normal(
-        size=(30, 3, 3, 4, 5)).astype(np.float32))
-    before = cuda_lstm.DW_REDUCE.launches
-    out = cuda_lstm.dw_reduce(part)
-    assert cuda_lstm.DW_REDUCE.launches == before
-    torch.testing.assert_close(out, cuda_lstm.dw_reduce_plain(part), rtol=0,
-                               atol=0)
+    """On the CPU the two backward entries that sum their dW partials in
+    their own launch on the card take their plain versions, without a
+    launch: dW comes in one piece (its partials are dW[None]), and
+    dw_reduce_plain, the plain version of the kernels' sum, adds partials
+    in order p = 0, 1, ..."""
+    rng = np.random.default_rng(13)
+    xp = torch.from_numpy(rng.normal(size=(3, 5, 16)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(4, 16)).astype(np.float32))
+    hs, cs = cuda_lstm.lstm_layer_train_plain(xp, w)
+    h1, g, wr = map(torch.from_numpy, _bdgcn_inputs(rng))
+    dout = torch.from_numpy(rng.normal(size=(3, 9, 9, 8)).astype(
+        np.float32))
+    kernels = (cuda_lstm.LSTM_TRAIN_BWD, cuda_bdgcn.BDGCN_PAIR_BWD)
+    before = [k.launches for k in kernels]
+    for (*_, dw, part), (_, ref) in (
+            (cuda_lstm.lstm_layer_bwd_partials(xp, w, hs, cs, hs, None),
+             cuda_lstm.lstm_layer_bwd_plain(xp, w, hs, cs, hs, None)),
+            (cuda_bdgcn.folded_pair_project_bwd_partials(h1, g, wr, dout),
+             cuda_bdgcn.folded_pair_project_bwd_plain(h1, g, wr, dout))):
+        assert part.shape == (1, *dw.shape)
+        torch.testing.assert_close(dw, ref, rtol=0, atol=0)
+        torch.testing.assert_close(cuda_lstm.dw_reduce_plain(part), dw,
+                                   rtol=0, atol=0)
+    assert before == [k.launches for k in kernels]
+    part = torch.from_numpy(rng.normal(size=(30, 3, 3, 4, 5)).astype(
+        np.float32))
+    ordered = part[0].clone()
+    for p in range(1, 30):
+        ordered = ordered + part[p]
+    torch.testing.assert_close(cuda_lstm.dw_reduce_plain(part), ordered,
+                               rtol=0, atol=0)
     # f32 sums of 30 O(1) terms in another order
-    torch.testing.assert_close(out, part.sum(0), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(cuda_lstm.dw_reduce_plain(part), part.sum(0),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_non_cuda_non_cpu_tensors_raise():
@@ -281,4 +303,8 @@ def test_non_cuda_non_cpu_tensors_raise():
         cuda_bdgcn.folded_pair_project_bwd(
             h1, g, wr, torch.zeros((1, 4, 4, 2), device="meta"))
     with pytest.raises(ValueError, match="cuda or cpu"):
-        cuda_lstm.dw_reduce(torch.zeros((2, 3), device="meta"))
+        cuda_lstm.lstm_layer_bwd_partials(
+            xp, torch.zeros((2, 8), device="meta"), None, None, None, None)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cuda_bdgcn.folded_pair_project_bwd_partials(
+            h1, g, wr, torch.zeros((1, 4, 4, 2), device="meta"))

@@ -372,6 +372,30 @@ def test_dblocks_match_pallas_on_a_pad_free_container():
                    N).to_dense(), dA, **SPMM_TOL)
 
 
+@pytest.mark.parametrize("S,NB,MB,x_div,F,sms", [
+    (3, 63, 4, 3, 32000, 132),    # the pad-free N=500 container
+    (6, 63, 2, 3, 16000, 132),    # per-sample X at N=500
+    (3, 3, 3, 3, 5, 132),         # one step
+    (1, 32, 16, 1, 96, 8),        # few SMs
+    (2, 4, 2, 1, 1_000_000, 132)])  # long F: the step cap sets the chunks
+def test_dblk_chunks_split_f_into_nonempty_bounded_chunks(S, NB, MB, x_div,
+                                                          F, sms):
+    """dBlocks splits F into chunks of whole 32-column steps: none empty
+    (the kernel's per-chunk step ranges cover F exactly once), none over
+    DBLK_MAX_STEPS steps (the f32 accumulators' add count), and no longer
+    than the split that gives DBLK_WAVES blocks per SM asks for."""
+    n = cuda_ell.dblk_chunks(S, NB, MB, x_div, F, sms)
+    steps = -(-F // cuda_ell.DBLK_TF)
+    per = -(-steps // n)
+    ranges = [(c * per, min(steps, (c + 1) * per)) for c in range(n)]
+    assert all(a < b for a, b in ranges) and ranges[-1][1] == steps
+    assert per <= cuda_ell.DBLK_MAX_STEPS
+    tiles = S // x_div * -(-x_div * NB * MB // cuda_ell.DBLK_SLOTS)
+    want = max(-(-cuda_ell.DBLK_WAVES * sms // tiles),
+               -(-steps // cuda_ell.DBLK_MAX_STEPS))
+    assert per == -(-steps // min(steps, want))
+
+
 def test_int8_backward_gives_no_tile_gradient():
     rng = np.random.default_rng(8)
     A = _stack(rng, (3, 12, 12))
