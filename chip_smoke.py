@@ -48,7 +48,20 @@ Phases, each fatal on failure:
   8. time each kernel beside its bound, its plain version and the fastest
      single PyTorch library call, the rollout per bucket, the train step
      (N=47; N=500 on the ELL arm and on the dense kernel arm that "auto"
-     passes over), and the device's busy share.
+     passes over), and the device's busy share;
+  9. last, so that every phase above runs as it did without it: the wide
+     widths, which only the wide kernels take. The six LSTM and K-BDGCN
+     entries against their plain versions at H = 65, 96, 128, 256 and
+     1,030 and (K, C, H) = (7, 128, 128), (6, 65, 33), (9, 16, 16),
+     (3, 32, 128), static and dynamic, one launch per call, dW bit for bit
+     against dw_reduce_plain of the partials and a second run; then the
+     wide model (hidden 128, dual_random_walk_diffusion of order 3, so
+     K = 7 supports; N = 47, batch 4, the first live init seed): a
+     bucket-8 ServeEngine batch against the plain rollout, the gradients
+     against float64, 20 training steps against the plain arms' losses,
+     the CLI (one epoch and test mode, N = 20) through the kernels; and
+     the six entries' times, the bucket-8 rollout and the train step at
+     the wide model's shapes.
 
 The second-to-last line is a JSON object listing each kernel; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a card, and
@@ -921,7 +934,7 @@ def phase_train_times(dev, kin, train):
         h1, g, wr, dout = kin[key]
         K, B, M, N, C = h1.shape
         Hh = wr.shape[-1]
-        P = cuda_bdgcn.bwd_blocks(B * M * N, K, dev)
+        P = cuda_bdgcn.bwd_blocks(B * M * N, K, C, Hh, dev)
         dh1 = torch.empty_like(h1)
         z = torch.empty((K, B, M, N, Hh), dtype=torch.float32, device=dev)
         prt = torch.empty((P, K, K, C, Hh), dtype=torch.float32, device=dev)
@@ -976,6 +989,361 @@ def phase_train_times(dev, kin, train):
           f"{p_ms:.3f} ms")
     busy_share("train step", lambda: train["trainer"].train_step(
         batches[0]), 5)
+    return times
+
+
+# --- the wide widths ----------------------------------------------------------
+
+#: the wide configuration: hidden 128 (w_hh^T past a block's shared memory)
+#: and dual_random_walk_diffusion of order 3 (K = 2 * 3 + 1 = 7 supports),
+#: at the reference N = 47 and batch 4
+WIDE = dict(hidden_dim=128, kernel_type="dual_random_walk_diffusion",
+            cheby_order=3)
+#: LSTM (T, R, H) beyond the resident kernels: the wide model's serve
+#: (bucket 8) and training shapes at H = 128, then the other widths the
+#: JAX kernels take and the card refused before (H = 1,030 past a block's
+#: 1,024 threads)
+WIDE_LSTM = [(7, 8 * 47 * 47, 128), (7, 4 * 47 * 47, 128), (7, 1001, 65),
+             (5, 333, 96), (3, 257, 256), (2, 9, 1030)]
+#: K-BDGCN (K, B, N, C, H) beyond K <= 5 and C, H <= 64: the wide model's
+#: serve (B = 8) and training (B = 4) shapes, then ragged chunks and groups
+WIDE_BDGCN = [(7, 8, 47, 128, 128), (7, 4, 47, 128, 128), (6, 2, 33, 65, 33),
+              (9, 2, 21, 16, 16), (3, 2, 47, 32, 128)]
+
+
+def _dw_bits(name, dw, part, dw2):
+    """A fused dW sum equals dw_reduce_plain of its partials and a second
+    run, bit for bit."""
+    import torch
+
+    from mpgcn_tpu_torch.nn import cuda_lstm
+
+    require(torch.equal(dw, cuda_lstm.dw_reduce_plain(part)),
+            f"{name}: the in-launch dW sum differs from the ordered sum of "
+            f"its partials")
+    require(torch.equal(dw, dw2), f"{name}: two runs differ")
+    print(f"[check] {name}: dW over P={part.shape[0]} partials equals "
+          f"dw_reduce_plain of them and a second run, bit for bit",
+          flush=True)
+
+
+def phase_wide_kernels(dev, rng):
+    """The six LSTM and K-BDGCN entries against their plain versions at the
+    widths only their wide kernels take (WIDE_LSTM, WIDE_BDGCN; static and
+    dynamic supports), each once per call; the backward entries' dW bit for
+    bit against dw_reduce_plain of their partials and over two runs.
+    Returns the per-entry worst error and the timing inputs."""
+    import torch
+
+    from mpgcn_tpu_torch.nn import cuda_bdgcn, cuda_lstm
+
+    def dev_t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    t0 = time.perf_counter()
+    names = ("lstm_infer_last", "lstm_infer_collect", "lstm_train_fwd",
+             "lstm_train_bwd", "bdgcn_pair_fwd", "bdgcn_pair_bwd")
+    err = dict.fromkeys(names, 0.0)
+    entries = kernels()
+    inputs = {}
+    for T, R, H in WIDE_LSTM:
+        tag = f"T={T} R={R} H={H}"
+        xp = dev_t(rng.normal(size=(T, R, 4 * H)))
+        w = dev_t(rng.normal(size=(H, 4 * H)) / np.sqrt(H))
+        before = {n: entries[n].launches for n in names}
+        for collect, name in ((False, "lstm_infer_last"),
+                              (True, "lstm_infer_collect")):
+            out = cuda_lstm.lstm_layer_infer(xp, w, collect)
+            torch.cuda.synchronize()
+            err[name] = max(err[name], compare(
+                f"K-LSTM wide {name.split('_')[-1]} {tag}", out,
+                cuda_lstm.lstm_layer_infer_plain(xp, w, collect), LSTM_TOL))
+        hs, cs = cuda_lstm.lstm_layer_train(xp, w)
+        torch.cuda.synchronize()
+        hp, cp = cuda_lstm.lstm_layer_train_plain(xp, w)
+        err["lstm_train_fwd"] = max(
+            err["lstm_train_fwd"],
+            compare(f"K-LSTM-train wide fwd hs {tag}", hs, hp, LSTM_TOL),
+            compare(f"K-LSTM-train wide fwd cs {tag}", cs, cp, LSTM_TOL))
+        dhs = dev_t(rng.normal(size=(T, R, H)))
+        dcs = dev_t(rng.normal(size=(T, R, H))) if R < 5000 else None
+        dxp, dw, part = cuda_lstm.lstm_layer_bwd_partials(xp, w, hs, cs,
+                                                          dhs, dcs)
+        torch.cuda.synchronize()
+        dxr, dwr = cuda_lstm.lstm_layer_bwd_plain(xp, w, hs, cs, dhs, dcs)
+        err["lstm_train_bwd"] = max(
+            err["lstm_train_bwd"],
+            compare(f"K-LSTM-train wide bwd dx_proj {tag}", dxp, dxr,
+                    LSTM_TOL),
+            compare(f"K-LSTM-train wide bwd dW_hh^T {tag}", dw, dwr, None))
+        after = {n: entries[n].launches - before[n] for n in names}
+        require(after == {**dict.fromkeys(names[:4], 1),
+                          "bdgcn_pair_fwd": 0, "bdgcn_pair_bwd": 0},
+                f"K-LSTM wide {tag}: launches {after}, one per call")
+        if H == 128:
+            _dw_bits(f"K-LSTM-train wide bwd {tag}", dw, part,
+                     cuda_lstm.lstm_layer_bwd(xp, w, hs, cs, dhs, dcs)[1])
+            inputs["lstm_serve" if R == 8 * 47 * 47 else "lstm_train"] = (
+                xp, w, hs, cs, dhs)
+        del xp, w, hs, cs, hp, cp, dhs, dcs, dxp, dw, part, dxr, dwr
+
+    for K, B, N, C, H in WIDE_BDGCN:
+        for dynamic in (False, True):
+            tag = (f"{'dynamic' if dynamic else 'static'} K={K} B={B} N={N} "
+                   f"C={C} H={H}")
+            h1 = dev_t(rng.normal(size=(K, B, N, N, C)))
+            g = dev_t(rng.random((B if dynamic else 1, K, N, N)) / N * 2)
+            wr = dev_t(rng.normal(size=(K, K, C, H)) / np.sqrt(K * K * C))
+            dout = dev_t(rng.normal(size=(B, N, N, H)))
+            before = {n: entries[n].launches for n in names[4:]}
+            out = cuda_bdgcn.folded_pair_project(h1, g, wr)
+            dh1, dW, part = cuda_bdgcn.folded_pair_project_bwd_partials(
+                h1, g, wr, dout)
+            torch.cuda.synchronize()
+            after = {n: entries[n].launches - before[n] for n in names[4:]}
+            require(after == {"bdgcn_pair_fwd": 1, "bdgcn_pair_bwd": 1},
+                    f"K-BDGCN wide {tag}: launches {after}, one per call")
+            err["bdgcn_pair_fwd"] = max(err["bdgcn_pair_fwd"], compare(
+                f"K-BDGCN wide {tag}", out,
+                cuda_bdgcn.folded_pair_project_plain(h1, g, wr), BDGCN_TOL))
+            r1, rW = cuda_bdgcn.folded_pair_project_bwd_plain(h1, g, wr, dout)
+            err["bdgcn_pair_bwd"] = max(
+                err["bdgcn_pair_bwd"],
+                compare(f"K-BDGCN-bwd wide dh1 {tag}", dh1, r1, BDGCN_TOL),
+                compare(f"K-BDGCN-bwd wide dW {tag}", dW, rW, None))
+            if (K, C, H) == (7, 128, 128):
+                _dw_bits(f"K-BDGCN-bwd wide {tag}", dW, part,
+                         cuda_bdgcn.folded_pair_project_bwd(h1, g, wr,
+                                                            dout)[1])
+                if not dynamic:
+                    inputs[f"bdgcn_B{B}"] = (h1, g, wr, dout)
+    print(f"[wide] kernel checks in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return err, inputs
+
+
+def phase_wide_model(dev, data, out_dir):
+    """The wide configuration (WIDE) at N = 47, batch 4, from the first
+    live init seed: a ServeEngine answers one bucket-8 batch through the
+    kernels, matching the plain rollout over horizon 7; the kernel and
+    plain arms' gradients against float64; 20 training steps whose losses
+    track the plain arms'; then the CLI trains one epoch and tests on a
+    small synthetic set (N = 20). Returns each run's launches and the
+    timing state."""
+    import torch
+
+    from mpgcn_tpu_torch import cli
+    from mpgcn_tpu_torch.config import MPGCNConfig
+    from mpgcn_tpu_torch.train.trainer import ModelTrainer
+
+    t0 = time.perf_counter()
+    cfg = MPGCNConfig(**WIDE)
+    require(cfg.support_K == 7, f"K = {cfg.support_K}")
+    # at hidden 128 a branch's FC+ReLU head is live on every entry or on
+    # none, so live seeds are rarer than at the reference widths
+    cfg = cfg.replace(seed=live_init_seed(cfg, data, dev, tries=64))
+    eng, serve_counts = serve_phase(
+        "wide", cfg, data, dev, groups=(8,),
+        expect_per_batch={"lstm_infer_last": 14, "lstm_infer_collect": 0,
+                          "bdgcn_pair_fwd": 42},
+        expect_buckets=(8,), buckets=(8,))
+
+    tcfg = cfg.replace(pred_len=1, output_dir=out_dir)
+    kern = ModelTrainer(tcfg, data, device=dev)
+    plain = ModelTrainer(tcfg, data, device=dev, lstm_impl="plain",
+                         bdgcn_impl="einsum")
+    plain.model.load_state_dict(kern.model.state_dict())
+    batches = list(kern.pipeline.batches("train", pad_to_full=True))
+    ref64 = copy.deepcopy(plain.model).double()
+    grad_check("wide (hidden 128, K=7) full batch", batches[0], kern, plain,
+               ref64, dev)
+    del ref64
+    curve = {"kernel": [], "plain": []}
+    reset_counts()
+    for batch in batches[:20]:
+        curve["kernel"].append(kern.train_step(batch))
+    train_counts = read_counts()
+    for batch in batches[:20]:
+        curve["plain"].append(plain.train_step(batch))
+    require(train_counts == _scaled(_per_step(tcfg, True), 20),
+            f"20 wide training steps launched {train_counts}")
+    ck, cp = np.array(curve["kernel"]), np.array(curve["plain"])
+    rel = float(np.max(np.abs(ck - cp) / np.abs(cp)))
+    print(f"[wide] first 20 step losses, kernel arms: "
+          f"{[round(v, 6) for v in curve['kernel']]}; max relative "
+          f"difference from the plain arms {rel:.3e} (rtol "
+          f"{LOSS_CURVE_RTOL})", flush=True)
+    require(np.all(np.isfinite(ck)) and rel <= LOSS_CURVE_RTOL,
+            "the wide kernel arms' loss curve leaves the plain arms'")
+    print(f"[wide] serve, gradient check and 20 steps in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+
+    cli_out = os.path.join(out_dir, "cli")
+    os.makedirs(cli_out)
+    argv = ["-GPU", "0", "-hidden", "128", "-kernel",
+            "dual_random_walk_diffusion", "-K", "3", "-sN", "20", "-sT",
+            "60", "-epoch", "1", "-out", cli_out]
+    reset_counts()
+    hist = cli.main(argv)
+    cli_train = read_counts()
+    res = cli.main(argv + ["-mode", "test"])
+    cli_test = _add(read_counts(), _scaled(cli_train, -1))
+    require(all(cli_train[n] > 0 for n in ("lstm_train_fwd",
+                                           "lstm_train_bwd", "bdgcn_pair_fwd",
+                                           "bdgcn_pair_bwd"))
+            and cli_test["lstm_infer_last"] > 0
+            and np.all(np.isfinite(hist["train"]))
+            and len(res["test"]["RMSE_by_horizon"]) == 7,
+            f"the wide CLI run: train launches {cli_train}, test launches "
+            f"{cli_test}, losses {hist}")
+    print(f"[wide] CLI -hidden 128 -kernel dual_random_walk_diffusion -K 3 "
+          f"(N=20): one epoch, losses {hist}; test RMSE "
+          f"{res['test']['RMSE']:.6f}; launches train "
+          f"{ {n: v for n, v in cli_train.items() if v} }, test "
+          f"{ {n: v for n, v in cli_test.items() if v} } in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return dict(counts=[serve_counts, train_counts, cli_train, cli_test],
+                eng=eng, trainer=kern, batches=batches)
+
+
+def phase_wide_times(dev, kin, wide):
+    """The six entries at the wide model's shapes (hidden 128, K = 7, N =
+    47): kernel, plain and library times (CUDA events) beside the bounds of
+    the reference-width phases; the wide rollout at bucket 8 and train step
+    on the host clock."""
+    import statistics
+
+    import torch
+
+    from mpgcn_tpu_torch.nn import cuda_bdgcn, cuda_lstm
+    from mpgcn_tpu_torch.train.predict import rollout
+
+    times = {}
+    xp, w, *_ = kin["lstm_serve"]
+    T, R, G = xp.shape
+    H = G // 4
+    lib = torch.nn.LSTM(1, H, batch_first=True).to(dev)
+    seq = torch.randn((R, T, 1), device=dev)
+    with torch.no_grad():
+        lib_ms = time_ms(lambda: lib(seq), iters=10)
+    for collect, name in ((False, "lstm_infer_last"),
+                          (True, "lstm_infer_collect")):
+        b_ms, b_by = bound(xp.numel() * 4 + w.numel() * 4
+                           + (T if collect else 1) * R * H * 4,
+                           2 * T * R * H * G)
+        times[name] = dict(
+            ms=time_ms(lambda: cuda_lstm.lstm_layer_infer(xp, w, collect),
+                       iters=10),
+            plain_ms=time_ms(lambda: cuda_lstm.lstm_layer_infer_plain(
+                xp, w, collect), iters=5),
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    xp, w, hs, cs, dhs = kin["lstm_train"]
+    T, R, G = xp.shape
+    lib = torch.nn.LSTM(1, H, batch_first=True).to(dev)
+    seq = torch.randn((R, T, 1), device=dev, requires_grad=True)
+    lib_fwd = time_ms(lambda: lib(seq), iters=10)
+    out, _ = lib(seq)
+    gout = torch.randn_like(out)
+    lib_params = [seq, *lib.parameters()]
+    lib_bwd = time_ms(lambda: torch.autograd.grad(out, lib_params, gout,
+                                                  retain_graph=True),
+                      iters=10)
+    b_ms, b_by = bound(4 * (T * R * G + H * G + 2 * T * R * H),
+                       2 * T * R * H * G)
+    times["lstm_train_fwd"] = dict(
+        ms=time_ms(lambda: cuda_lstm.lstm_layer_train(xp, w), iters=10),
+        plain_ms=time_ms(lambda: cuda_lstm.lstm_layer_train_plain(xp, w),
+                         iters=5),
+        library_ms=lib_fwd, bound_ms=b_ms, bound_by=b_by)
+    P = cuda_lstm.bwd_blocks(R, H, dev)
+    dxp = torch.empty_like(xp)
+    part = torch.empty((P, H, G), dtype=torch.float32, device=dev)
+    dw = torch.empty((H, G), dtype=torch.float32, device=dev)
+    b_ms, b_by = bound(4 * (2 * T * R * G + 3 * T * R * H + 2 * H * G),
+                       3 * 2 * T * R * H * G)
+    times["lstm_train_bwd"] = dict(
+        ms=time_ms(lambda: cuda_lstm.LSTM_TRAIN_BWD.launch(
+            (xp, w, hs, cs, dhs, None, dxp, part, dw), (T, R, H, P)),
+            iters=10),
+        plain_ms=time_ms(lambda: cuda_lstm.lstm_layer_bwd_plain(
+            xp, w, hs, cs, dhs, None), iters=5),
+        library_ms=lib_bwd, bound_ms=b_ms, bound_by=b_by)
+    for name in ("lstm_infer_last", "lstm_infer_collect", "lstm_train_fwd",
+                 "lstm_train_bwd"):
+        rows = R if "train" in name else kin["lstm_serve"][0].shape[1]
+        blocks = f"P={P}, " if name == "lstm_train_bwd" else ""
+        print(f"[time] wide {name} T={T} R={rows} H={H} ({blocks}library "
+              f"torch.nn.LSTM, cuDNN, input projection included): "
+              f"{json.dumps(times[name])}", flush=True)
+
+    for key, name in (("bdgcn_B8", "bdgcn_pair_fwd"),
+                      ("bdgcn_B4", "bdgcn_pair_bwd")):
+        h1, g, wr, dout = kin[key]
+        K, B, M, N, C = h1.shape
+        Hh = wr.shape[-1]
+        eq = "obmcl,dce,odlh->bmeh"
+        if name == "bdgcn_pair_fwd":
+            b_ms, b_by = bound(
+                4 * (h1.numel() + g.numel() + wr.numel() + B * M * N * Hh),
+                2 * B * M * N * (K * K * C * Hh + K * N * Hh))
+            entry = dict(
+                ms=time_ms(lambda: cuda_bdgcn.folded_pair_project(h1, g, wr),
+                           iters=10),
+                plain_ms=time_ms(lambda: cuda_bdgcn.folded_pair_project_plain(
+                    h1, g, wr), iters=3),
+                library_ms=time_ms(lambda: torch.einsum(eq, h1, g[0], wr),
+                                   iters=3),
+                bound_ms=b_ms, bound_by=b_by)
+            extra = ""
+        else:
+            P = cuda_bdgcn.bwd_blocks(B * M * N, K, C, Hh, dev)
+            dh1 = torch.empty_like(h1)
+            z = torch.empty((K, B, M, N, Hh), dtype=torch.float32,
+                            device=dev)
+            prt = torch.empty((P, K, K, C, Hh), dtype=torch.float32,
+                              device=dev)
+            dW = torch.empty((K, K, C, Hh), dtype=torch.float32, device=dev)
+            b_ms, b_by = bound(
+                4 * (2 * h1.numel() + dout.numel() + g.numel()
+                     + 2 * wr.numel()),
+                2 * B * M * N * (K * N * Hh + 2 * K * K * C * Hh))
+            h1r = h1.clone().requires_grad_()
+            wrr = wr.clone().requires_grad_()
+            ref = torch.einsum(eq, h1r, g[0], wrr)
+            entry = dict(
+                ms=time_ms(lambda: cuda_bdgcn.BDGCN_PAIR_BWD.launch(
+                    (h1, g, wr, dout, dh1, z, prt, dW),
+                    (K, B, M, N, C, Hh, g.shape[0], P)), iters=10),
+                plain_ms=time_ms(
+                    lambda: cuda_bdgcn.folded_pair_project_bwd_plain(
+                        h1, g, wr, dout), iters=3),
+                library_ms=time_ms(lambda: torch.autograd.grad(
+                    ref, (h1r, wrr), dout, retain_graph=True), iters=3),
+                bound_ms=b_ms, bound_by=b_by)
+            extra = f", dW over P={P} partials"
+        times[name] = entry
+        print(f"[time] wide {name} static K={K} B={B} N={N} C={C} H={Hh}"
+              f"{extra} (library torch.einsum{', autograd' if extra else ''}"
+              f"): {json.dumps(entry)}", flush=True)
+
+    eng = wide["eng"]
+    md = eng.pipeline.modes["test"]
+    x = torch.from_numpy(np.array(md.x[:8])).to(dev)
+    k = torch.from_numpy(md.keys[:8].astype(np.int64)).to(dev)
+    samples = []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rollout(eng.model, eng.banks, x, k, eng.cfg.pred_len)
+        torch.cuda.synchronize()
+        if i >= 1:
+            samples.append((time.perf_counter() - t0) * 1e3)
+    steps = _step_ms(wide["trainer"], wide["batches"], 5, 1)
+    print(f"[time] wide rollout (bucket 8, horizon 7, host clock, median of "
+          f"4 after 1 warm-up): {statistics.median(samples):.3f} ms; wide "
+          f"train step (batch 4, median of 5 after 1): "
+          f"{statistics.median(steps):.3f} ms", flush=True)
     return times
 
 
@@ -1559,6 +1927,7 @@ def main() -> int:
     for counts in (launches2, train["train_counts"], train["test_counts"]):
         total = _add(total, counts)
 
+
     # the sparse path: N=500, banded density 0.05, batch 2, reference widths
     t0 = time.perf_counter()
     cfg_l = MPGCNConfig(**LARGE_N)
@@ -1608,6 +1977,22 @@ def main() -> int:
     phase_large_n_times(dev, large, eng_l, data_l)
     eng_l.drain()
     eng_l.close()
+
+    # the wide widths last, so every phase before them (and its times)
+    # runs as it did without them; their own seeded inputs
+    wide_errors, wide_inputs = phase_wide_kernels(dev,
+                                                  np.random.default_rng(7))
+    for name, e in wide_errors.items():
+        errors[name] = max(errors[name], e)
+    out_w = os.path.join(HERE, "smoke_out", "wide")
+    shutil.rmtree(out_w, ignore_errors=True)
+    os.makedirs(out_w)
+    wide = phase_wide_model(dev, data, out_w)
+    for counts in wide["counts"]:
+        total = _add(total, counts)
+    phase_wide_times(dev, wide_inputs, wide)
+    wide["eng"].drain()
+    wide["eng"].close()
 
     smi = shutil.which("nvidia-smi")
     require(smi is not None, "nvidia-smi not found")

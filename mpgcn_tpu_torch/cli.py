@@ -8,10 +8,12 @@ Runs on the card (``-GPU 0``, the default) unless ``-GPU cpu`` asks for the
 CPU. Train mode trains the single-step model (pred_len is forced to 1, as
 in the reference, Main.py:44-45); test mode reloads ``<out>/MPGCN_od.pkl``
 and rolls out ``-pred`` steps. The data is the seeded synthetic OD series
-(``-data synthetic``). ``-bdgcn`` picks the BDGCN arm: ``auto`` (the
-default) measures the support banks' density and takes the blocked-ELL
-arm at or below ``-sparse-threshold`` when N >= ``-sparse-min-nodes``,
-else the dense kernel arm.
+(``-data synthetic``). ``-kernel`` and ``-K`` pick the graph kernel and
+its order, and so the support count (2 K + 1 supports for
+``dual_random_walk_diffusion``). ``-bdgcn`` picks the BDGCN arm: ``auto``
+(the default) measures the support banks' density and takes the
+blocked-ELL arm at or below ``-sparse-threshold`` when N >=
+``-sparse-min-nodes``, else the dense kernel arm.
 """
 
 from __future__ import annotations
@@ -31,6 +33,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-pred", "--pred_len", type=int, default=7)
     p.add_argument("-batch", "--batch_size", type=int, default=4)
     p.add_argument("-hidden", "--hidden_dim", type=int, default=32)
+    p.add_argument("-kernel", "--kernel_type", type=str,
+                   choices=["chebyshev", "localpool", "random_walk_diffusion",
+                            "dual_random_walk_diffusion"],
+                   default="random_walk_diffusion")
+    p.add_argument("-K", "--cheby_order", type=int, default=2)
     p.add_argument("-loss", "--loss", type=str,
                    choices=["MSE", "MAE", "Huber"], default="MSE")
     p.add_argument("-optim", "--optimizer", type=str, default="Adam")

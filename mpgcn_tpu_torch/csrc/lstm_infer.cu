@@ -29,18 +29,20 @@
 // are coalesced (neighbouring threads read neighbouring gate columns).
 // Time is never padded: the loop runs exactly T steps; the row tail is
 // masked with a bound check. Gate math is f32 with expf and tanhf.
+//
+// Widths: this resident kernel runs wherever w_hh^T and the h buffers fit
+// a block's shared memory (H <= 118 on the H100), the reference H = 32
+// among them, so its code and its times there stay as they were. Wider H
+// takes lstm_fwd_wide_kernel of lstm_wide.cuh (w_hh^T read through the
+// read-only cache each step; any H): a second kernel chosen per call from
+// H and the device's shared-memory limit, not a branch inside this one,
+// so the resident kernel's registers and schedule do not change.
 
 #include <cuda_runtime.h>
 
+#include "lstm_wide.cuh"
+
 namespace {
-
-constexpr int kRowsPerThread = 4;
-constexpr int kThreadsTarget = 256;
-constexpr int kMaxHidden = 64;
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
 
 template <bool kCollect>
 __global__ void lstm_infer_kernel(const float* __restrict__ xp,
@@ -127,16 +129,19 @@ __global__ void lstm_infer_kernel(const float* __restrict__ xp,
 template <bool kCollect>
 int launch(const void* xp, const void* whhT, void* out, int T, int R, int H,
            void* stream) {
-  if (T < 1 || R < 1 || H < 1 || H > kMaxHidden) return cudaErrorInvalidValue;
-  const int rows_y = kThreadsTarget / H > 0 ? kThreadsTarget / H : 1;
+  if (T < 1 || R < 1 || H < 1) return cudaErrorInvalidValue;
+  const int rows_y = rows_y_for(H);
   const int tile_rows = rows_y * kRowsPerThread;
   const size_t smem = (size_t)(H * 4 * H + 2 * tile_rows * H) * sizeof(float);
+  bool resident = false;
+  cudaError_t err = smem_fits(smem, &resident);
+  if (err != cudaSuccess) return err;
+  if (!resident)
+    return launch_fwd_wide<kCollect ? kFwdCollect : kFwdLast>(
+        xp, whhT, out, nullptr, T, R, H, static_cast<cudaStream_t>(stream));
   auto kernel = lstm_infer_kernel<kCollect>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  err = allow_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
   const dim3 block(H, rows_y);
   const dim3 grid((R + tile_rows - 1) / tile_rows);
   kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -7,6 +7,9 @@ K^2 feature bank. On a CUDA tensor it launches the hand-written kernel of
 ``csrc/bdgcn_pair_fwd.cu`` (replacing ``_fwd_kernel``); on a CPU tensor it
 runs ``folded_pair_project_plain``, the same function in plain PyTorch.
 There is no fallback: a CUDA tensor the kernel does not take raises.
+Every support count K and width C, H >= 1 is taken: past K = 5 or
+C, H = 64 the entries launch their wide kernels (chunks of <= 64 and
+support groups of <= 5) instead of the narrow ones.
 
 Under autograd it goes through ``PairProjectFn``, whose backward
 ``folded_pair_project_bwd`` launches ``bdgcn_pair_bwd_f32`` of
@@ -29,10 +32,6 @@ import torch
 from mpgcn_tpu_torch.native.build import CudaKernel, query_int
 from mpgcn_tpu_torch.nn.cuda_lstm import device_index
 
-#: channel and hidden widths the kernels take (per-thread register tiles)
-MAX_WIDTH = 64
-#: support counts the kernels are instantiated for
-MAX_K = 5
 #: dW-partial blocks per SM: the partial buffer stays at about this many x
 #: SMs x C x H floats, whatever the pair count
 BWD_BLOCKS_PER_SM = 2
@@ -122,12 +121,9 @@ def _check_cuda_args(h1, Gk, Wr, name: str = "K-BDGCN") -> None:
                          f"Wr (K, K, C, H); got {tuple(h1.shape)}, "
                          f"{tuple(Gk.shape)}, {tuple(Wr.shape)}")
     K, B, M, N, C = h1.shape
-    H = Wr.shape[-1]
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"{name} takes 1..{MAX_K} supports, got K={K}")
-    if not (1 <= C <= MAX_WIDTH and 1 <= H <= MAX_WIDTH):
-        raise ValueError(f"{name} takes channel and hidden widths "
-                         f"1..{MAX_WIDTH}, got C={C}, H={H}")
+    if min(h1.shape) < 1 or Wr.shape[-1] < 1:
+        raise ValueError(f"empty h1 {tuple(h1.shape)} or Wr "
+                         f"{tuple(Wr.shape)}")
     if Gk.shape[0] not in (1, B) or tuple(Gk.shape[1:]) != (K, N, N):
         raise ValueError(f"Gk must be (1 or {B}, {K}, {N}, {N}), got "
                          f"{tuple(Gk.shape)}")
@@ -153,22 +149,24 @@ def _pair_project(h1, Gk, Wr):
 
 
 @functools.lru_cache(maxsize=None)
-def _max_dw_blocks(index: int) -> int:
-    """The most dW-product blocks card ``index`` holds at once."""
-    return query_int("bdgcn_pair_bwd", "bdgcn_pair_bwd_max_blocks", (),
-                     torch.device("cuda", index))
+def _max_dw_chunks(index: int, K: int, C: int, H: int) -> int:
+    """The most row chunks of the dW product card ``index`` takes at
+    (K, C, H): bounded by what it holds at once for the kernel whose grid
+    is chunks x K^2 blocks (C, H <= 64, K <= 5), not for the wide one."""
+    return query_int("bdgcn_pair_bwd", "bdgcn_pair_bwd_max_blocks",
+                     (K, C, H), torch.device("cuda", index))
 
 
-def bwd_blocks(rows: int, K: int, device) -> int:
-    """Row chunks of the dW-product launch (each of the K^2 pairs gets this
-    many blocks): a few blocks per SM in all, never a chunk smaller than
-    one staged row tile, and no more blocks in all than the card holds at
-    once (the launch is cooperative)."""
+def bwd_blocks(rows: int, K: int, C: int, H: int, device) -> int:
+    """Row chunks P of the dW-product launch (one dW partial each): about
+    a few blocks per SM over the K^2 pairs, never a chunk smaller than one
+    staged row tile, and no more than the card takes at (K, C, H) (the
+    launch is cooperative)."""
     index = device_index(device)
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     by_sm = -(-BWD_BLOCKS_PER_SM * sms // (K * K))
     return max(1, min(by_sm, -(-rows // _DW_ROWS_TILE),
-                      _max_dw_blocks(index) // (K * K)))
+                      _max_dw_chunks(index, K, C, H)))
 
 
 def folded_pair_project_bwd(h1, Gk, Wr, dout):
@@ -195,7 +193,7 @@ def folded_pair_project_bwd_partials(h1, Gk, Wr, dout):
                          f"{h1.device}, got {dout.dtype} "
                          f"{tuple(dout.shape)} on {dout.device}")
     h1, Gk, Wr, dout = (t.contiguous() for t in (h1, Gk, Wr, dout))
-    P = bwd_blocks(B * M * N, K, h1.device)
+    P = bwd_blocks(B * M * N, K, C, H, h1.device)
     dh1 = torch.empty_like(h1)
     z = torch.empty((K, B, M, N, H), dtype=torch.float32, device=h1.device)
     part = torch.empty((P, K, K, C, H), dtype=torch.float32,

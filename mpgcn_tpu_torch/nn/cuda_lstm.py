@@ -7,7 +7,10 @@ hand-written kernel of ``csrc/lstm_infer.cu`` (``lstm_infer_last_f32``
 replaces ``_make_last_kernel``, ``lstm_infer_collect_f32`` replaces
 ``_lstm_infer_kernel``); on a CPU tensor it runs
 ``lstm_layer_infer_plain``, the same function in plain PyTorch. There is
-no fallback: a CUDA tensor the kernel does not take raises.
+no fallback: a CUDA tensor the kernel does not take raises. Every hidden
+width H >= 1 is taken: where w_hh^T does not fit a block's shared memory
+the entries launch their wide kernel (``csrc/lstm_wide.cuh``, and the
+wide BPTT of ``csrc/lstm_train.cu``) instead of the resident one.
 
 The training path goes through ``LSTMLayerFn``: its forward
 ``lstm_layer_train`` stores hs and cs (``lstm_train_fwd_f32`` of
@@ -32,9 +35,6 @@ import torch
 
 from mpgcn_tpu_torch.native.build import CudaKernel, query_int
 
-#: hidden widths the kernels take (w_hh^T must fit shared memory)
-MAX_HIDDEN = 64
-
 LSTM_INFER_LAST = CudaKernel("lstm_infer", "lstm_infer_last_f32",
                              n_ptrs=3, n_ints=3)
 LSTM_INFER_COLLECT = CudaKernel("lstm_infer", "lstm_infer_collect_f32",
@@ -47,6 +47,9 @@ LSTM_TRAIN_BWD = CudaKernel("lstm_train", "lstm_train_bwd_f32",
 #: BPTT blocks per SM: the blocks stride over the row tiles, so the
 #: dW_hh^T partial buffer stays at about this many x SMs x H x 4H floats
 BWD_BLOCKS_PER_SM = 2
+#: at most this many bytes of dW_hh^T partials (P x H x 4H floats): the
+#: bound binds past H = 504 on 132 SMs (63 blocks at H = 1,030)
+BWD_PARTIAL_BYTES = 1 << 30
 
 
 def _gates(x_t, h, w_hh_T, H):
@@ -156,9 +159,6 @@ def _check_cuda_args(x_proj: torch.Tensor, w_hh_T: torch.Tensor,
         raise ValueError(f"x_proj must be (T, R, 4H), got "
                          f"{tuple(x_proj.shape)}")
     H = x_proj.shape[-1] // 4
-    if not 1 <= H <= MAX_HIDDEN:
-        raise ValueError(f"{name} takes hidden widths 1..{MAX_HIDDEN}, "
-                         f"got H={H}")
     if tuple(w_hh_T.shape) != (H, 4 * H):
         raise ValueError(f"w_hh_T must be ({H}, {4 * H}), got "
                          f"{tuple(w_hh_T.shape)}")
@@ -216,12 +216,14 @@ def _max_bwd_blocks(index: int, H: int) -> int:
 
 def bwd_blocks(R: int, H: int, device) -> int:
     """Blocks of the BPTT launch: a few per SM, never more than row tiles
-    (the kernel's tile is 4 rows x max(1, 256 // H) thread rows), nor than
-    the card holds at once (the launch is cooperative)."""
+    (both BPTT kernels' tile is 4 rows x max(1, 256 // H) thread rows), nor
+    than the card holds at once (the launch is cooperative), nor than
+    ``BWD_PARTIAL_BYTES`` of dW partials hold."""
     index = device_index(device)
     tiles = -(-R // (max(1, 256 // H) * 4))
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return max(1, min(tiles, BWD_BLOCKS_PER_SM * sms,
+    by_bytes = BWD_PARTIAL_BYTES // (16 * H * H)
+    return max(1, min(tiles, BWD_BLOCKS_PER_SM * sms, by_bytes,
                       _max_bwd_blocks(index, H)))
 
 

@@ -56,11 +56,20 @@ def cuda_device():
     return torch.device("cuda")
 
 
+#: hidden widths past the resident kernels' shared memory (w_hh^T stays in
+#: shared memory to H = 118 for the forward, H = 81 for the BPTT), and one
+#: past a block's 1,024 threads, at T = 2 (``_T_OF``)
+WIDE_LSTM = [(1001, 65), (333, 96), (1000, 128), (257, 256), (9, 1030)]
+_T_OF = {1030: 2}
+
+
 @pytest.mark.parametrize("collect", [False, True])
-@pytest.mark.parametrize("R,H", [(17672, 32), (1000, 8), (333, 64), (5, 40)])
+@pytest.mark.parametrize("R,H", [(17672, 32), (1000, 8), (333, 64), (5, 40)]
+                         + WIDE_LSTM)
 def test_lstm_kernel_matches_plain(cuda_device, collect, R, H):
     rng = np.random.default_rng(R)
-    xp = torch.from_numpy(rng.normal(size=(7, R, 4 * H)).astype(
+    T = _T_OF.get(H, 7)
+    xp = torch.from_numpy(rng.normal(size=(T, R, 4 * H)).astype(
         np.float32)).to(cuda_device)
     w = torch.from_numpy((rng.normal(size=(H, 4 * H)) / np.sqrt(H)).astype(
         np.float32)).to(cuda_device)
@@ -79,10 +88,15 @@ def test_lstm_kernel_rejects_what_it_does_not_take(cuda_device):
     w = torch.zeros((32, 128), device=cuda_device)
     with pytest.raises(TypeError, match="float32"):
         cuda_lstm.lstm_layer_infer(xp.bfloat16(), w.bfloat16(), False)
-    with pytest.raises(ValueError, match="hidden widths"):
-        cuda_lstm.lstm_layer_infer(
-            torch.zeros((7, 10, 4 * 128), device=cuda_device),
-            torch.zeros((128, 512), device=cuda_device), False)
+    # H = 128, refused before the wide kernel, is taken
+    rng = np.random.default_rng(128)
+    xw = torch.from_numpy(rng.normal(size=(7, 10, 512)).astype(
+        np.float32)).to(cuda_device)
+    ww = torch.from_numpy((rng.normal(size=(128, 512)) / 8).astype(
+        np.float32)).to(cuda_device)
+    torch.testing.assert_close(
+        cuda_lstm.lstm_layer_infer(xw, ww, False),
+        cuda_lstm.lstm_layer_infer_plain(xw, ww, False), **KERNEL_TOL)
     with pytest.raises(RuntimeError, match="inference-only"):
         cuda_lstm.lstm_layer_infer(xp, w.requires_grad_(), False)
 
@@ -97,11 +111,18 @@ def _bdgcn_inputs(dev, K, B, N, C, H, dynamic, seed=0):
     return [torch.from_numpy(a).to(dev) for a in (h1, g, w)]
 
 
+#: (K, B, N, C, H) past the narrow kernels' K <= 5 and C, H <= 64: the
+#: wide kernels' chunks and support groups, and their ragged ends
+WIDE_BDGCN = [(7, 2, 20, 128, 128), (6, 2, 33, 65, 33), (9, 2, 21, 16, 16),
+              (3, 2, 47, 32, 128)]
+
+
 @pytest.mark.parametrize("dynamic", [False, True])
 @pytest.mark.parametrize("K,B,N,C,H", [(3, 8, 47, 32, 32),
                                        (3, 2, 200, 32, 32),
                                        (5, 2, 33, 16, 64),
-                                       (2, 3, 9, 8, 40), (1, 1, 1, 1, 1)])
+                                       (2, 3, 9, 8, 40), (1, 1, 1, 1, 1)]
+                         + WIDE_BDGCN)
 def test_bdgcn_kernel_matches_plain(cuda_device, dynamic, K, B, N, C, H):
     args = _bdgcn_inputs(cuda_device, K, B, N, C, H, dynamic, seed=N)
     before = cuda_bdgcn.BDGCN_PAIR_FWD.launches
@@ -116,12 +137,12 @@ def test_bdgcn_kernel_rejects_what_it_does_not_take(cuda_device):
     h1, g, w = _bdgcn_inputs(cuda_device, 3, 2, 5, 8, 8, False)
     with pytest.raises(TypeError, match="float32"):
         cuda_bdgcn.folded_pair_project(h1.double(), g, w)
-    with pytest.raises(ValueError, match="supports"):
-        cuda_bdgcn.folded_pair_project(*_bdgcn_inputs(
-            cuda_device, 6, 1, 3, 2, 2, False))
-    with pytest.raises(ValueError, match="widths"):
-        cuda_bdgcn.folded_pair_project(*_bdgcn_inputs(
-            cuda_device, 2, 1, 3, 65, 2, False))
+    # K = 6 and C = 65, refused before the wide kernel, are taken
+    for K, C in ((6, 2), (2, 65)):
+        args = _bdgcn_inputs(cuda_device, K, 1, 3, C, 2, False)
+        torch.testing.assert_close(
+            cuda_bdgcn.folded_pair_project(*args),
+            cuda_bdgcn.folded_pair_project_plain(*args), **KERNEL_TOL)
     with pytest.raises(ValueError, match="Gk must be"):
         cuda_bdgcn.folded_pair_project(h1, g[:, :2], w)
 
@@ -171,7 +192,8 @@ def _close_scaled(out, ref):
 
 @pytest.mark.parametrize("with_dcs", [False, True])
 @pytest.mark.parametrize("T,R,H", [(7, 8836, 32), (7, 1001, 8),
-                                   (5, 333, 64), (3, 17, 40)])
+                                   (5, 333, 64), (3, 17, 40)]
+                         + [(_T_OF.get(H, 7), R, H) for R, H in WIDE_LSTM])
 def test_lstm_train_kernels_match_plain(cuda_device, T, R, H, with_dcs):
     rng = np.random.default_rng(R + H)
     t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device)
@@ -201,7 +223,8 @@ def test_lstm_train_kernels_match_plain(cuda_device, T, R, H, with_dcs):
 @pytest.mark.parametrize("K,B,N,C,H", [(3, 4, 47, 32, 32),
                                        (3, 2, 200, 32, 32),
                                        (5, 2, 33, 16, 64),
-                                       (2, 3, 9, 8, 40), (1, 1, 1, 1, 1)])
+                                       (2, 3, 9, 8, 40), (1, 1, 1, 1, 1)]
+                         + WIDE_BDGCN)
 def test_bdgcn_bwd_kernel_matches_plain(cuda_device, dynamic, K, B, N, C, H):
     h1, g, w = _bdgcn_inputs(cuda_device, K, B, N, C, H, dynamic, seed=N)
     dout = torch.from_numpy(np.random.default_rng(C).normal(
@@ -220,7 +243,9 @@ def test_bdgcn_bwd_kernel_matches_plain(cuda_device, dynamic, K, B, N, C, H):
 @pytest.mark.parametrize("entry,shape", [("lstm", (7, 8836, 32)),
                                          ("lstm", (5, 333, 64)),
                                          ("bdgcn", (3, 4, 47, 32, 32)),
-                                         ("bdgcn", (5, 2, 33, 16, 64))])
+                                         ("bdgcn", (5, 2, 33, 16, 64)),
+                                         ("lstm", (7, 1000, 128)),
+                                         ("bdgcn", (7, 2, 20, 128, 128))])
 def test_dw_reduce_kernel_matches_plain(cuda_device, entry, shape):
     """Each backward entry sums its per-block dW partials inside its own
     launch, in the plain version's order p = 0, 1, ...: its dW equals
@@ -245,7 +270,7 @@ def test_dw_reduce_kernel_matches_plain(cuda_device, entry, shape):
         kernel = cuda_bdgcn.BDGCN_PAIR_BWD
         run = lambda: cuda_bdgcn.folded_pair_project_bwd_partials(h1, g, wr,
                                                                   dout)
-        P = cuda_bdgcn.bwd_blocks(B * N * N, K, cuda_device)
+        P = cuda_bdgcn.bwd_blocks(B * N * N, K, C, H, cuda_device)
     before = kernel.launches
     _, dw, part = run()
     torch.cuda.synchronize()
@@ -261,10 +286,19 @@ def test_training_kernels_reject_what_they_do_not_take(cuda_device):
     w = torch.zeros((32, 128), device=cuda_device)
     with pytest.raises(TypeError, match="float32"):
         cuda_lstm.lstm_layer_train(xp.double(), w.double())
-    with pytest.raises(ValueError, match="hidden widths"):
-        cuda_lstm.lstm_layer_train(
-            torch.zeros((7, 10, 4 * 128), device=cuda_device),
-            torch.zeros((128, 512), device=cuda_device))
+    # H = 128, refused before the wide kernels, is taken
+    rng = np.random.default_rng(128)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+    xw, ww = t(rng.normal(size=(7, 10, 512))), t(rng.normal(
+        size=(128, 512)) / 8)
+    hw, cw = cuda_lstm.lstm_layer_train(xw, ww)
+    for a, b in zip((hw, cw), cuda_lstm.lstm_layer_train_plain(xw, ww)):
+        torch.testing.assert_close(a, b, **KERNEL_TOL)
+    dhw = t(rng.normal(size=(7, 10, 128)))
+    dxw, dww = cuda_lstm.lstm_layer_bwd(xw, ww, hw, cw, dhw, None)
+    dxr, dwr = cuda_lstm.lstm_layer_bwd_plain(xw, ww, hw, cw, dhw, None)
+    torch.testing.assert_close(dxw, dxr, **KERNEL_TOL)
+    _close_scaled(dww, dwr)
     hs, cs = cuda_lstm.lstm_layer_train(xp, w)
     with pytest.raises(ValueError, match="dhs must be"):
         cuda_lstm.lstm_layer_bwd(xp, w, hs, cs, hs[:3], None)
@@ -276,10 +310,13 @@ def test_training_kernels_reject_what_they_do_not_take(cuda_device):
         cuda_bdgcn.folded_pair_project_bwd(h1, g, wr, dout[:1])
     with pytest.raises(TypeError, match="float32"):
         cuda_bdgcn.folded_pair_project_bwd(h1.double(), g, wr, dout)
-    with pytest.raises(ValueError, match="supports"):
-        h6, g6, w6 = _bdgcn_inputs(cuda_device, 6, 1, 3, 2, 2, False)
-        cuda_bdgcn.folded_pair_project_bwd(
-            h6, g6, w6, torch.zeros((1, 3, 3, 2), device=cuda_device))
+    # K = 6, refused before the wide kernels, is taken
+    h6, g6, w6 = _bdgcn_inputs(cuda_device, 6, 1, 3, 2, 2, False)
+    d6 = t(rng.normal(size=(1, 3, 3, 2)))
+    r1, rW = cuda_bdgcn.folded_pair_project_bwd_plain(h6, g6, w6, d6)
+    dh6, dW6 = cuda_bdgcn.folded_pair_project_bwd(h6, g6, w6, d6)
+    torch.testing.assert_close(dh6, r1, **KERNEL_TOL)
+    _close_scaled(dW6, rW)
 
 
 def test_trainer_step_runs_the_training_kernels(cuda_device, tmp_path):
@@ -320,6 +357,71 @@ def test_trainer_step_runs_the_training_kernels(cuda_device, tmp_path):
     assert np.isfinite(tr.eval_step(batch))
     assert {n: k.launches for n, k in kernels.items() if k.launches} == {
         "lstm_infer_last": 2, "bdgcn_pair_fwd": 6}
+
+
+def test_wide_model_trains_and_serves_through_the_kernels(cuda_device,
+                                                          tmp_path):
+    """hidden 128 and dual_random_walk_diffusion of order 3 (K = 2 * 3 + 1
+    = 7 supports), which the card refused before the wide kernels: one
+    ModelTrainer step launches each training entry (M = 2 LSTM, M * 3 = 6
+    BDGCN) and its gradients match the plain arms'; a ServeEngine answers
+    through the inference kernels and matches the plain rollout."""
+    cfg = MPGCNConfig(synthetic_T=120, synthetic_N=8, hidden_dim=128,
+                      kernel_type="dual_random_walk_diffusion",
+                      cheby_order=3, pred_len=1, seed=0,
+                      output_dir=str(tmp_path))
+    assert cfg.support_K == 7
+    data = synthetic_dataset(cfg)
+    tr = ModelTrainer(cfg, data, device=cuda_device)
+    plain = ModelTrainer(cfg, data, device=cuda_device, lstm_impl="plain",
+                         bdgcn_impl="einsum")
+    plain.model.load_state_dict(tr.model.state_dict())
+    batch = next(tr.pipeline.batches("train", pad_to_full=True))
+    kernels = {**KERNELS, "lstm_train_fwd": cuda_lstm.LSTM_TRAIN_FWD,
+               "lstm_train_bwd": cuda_lstm.LSTM_TRAIN_BWD,
+               "bdgcn_pair_bwd": cuda_bdgcn.BDGCN_PAIR_BWD}
+    for k in kernels.values():
+        k.launches = 0
+    for t in (tr, plain):
+        x, y, keys = t._tensors(batch)
+        t._batch_loss(x, y, keys, batch.size).backward()
+    torch.cuda.synchronize()
+    assert {n: k.launches for n, k in kernels.items() if k.launches} == {
+        "bdgcn_pair_fwd": 6, "lstm_train_fwd": 2, "lstm_train_bwd": 2,
+        "bdgcn_pair_bwd": 6}
+    ref = dict(plain.model.named_parameters())
+    for name, p in tr.model.named_parameters():
+        torch.testing.assert_close(
+            p.grad, ref[name].grad, rtol=1e-4,
+            atol=1e-5 * float(ref[name].grad.abs().max()))
+
+    scfg = cfg.replace(pred_len=3)
+    eng = ServeEngine(scfg, data, ServeConfig(buckets=(1, 2),
+                                              max_wait_ms=50.0),
+                      device=cuda_device, allow_fresh=True)
+    try:
+        md = eng.pipeline.modes["test"]
+        x = np.ascontiguousarray(md.x[:2])
+        for k in KERNELS.values():
+            k.launches = 0
+        tickets = [eng.submit(x[i, ..., 0], int(md.keys[i]))
+                   for i in range(2)]
+        for t in tickets:
+            assert t.wait(60) and t.ok, t.error
+        launches = eng.stats()["kernel_launches"]
+        assert launches["lstm_infer_last"] > 0
+        assert launches["bdgcn_pair_fwd"] == 3 * launches["lstm_infer_last"]
+        wide = MPGCN.from_config(eng.cfg, device=cuda_device,
+                                 lstm_impl="plain", bdgcn_impl="einsum")
+        wide.load_state_dict(eng.model.state_dict())
+        ref = rollout(wide, eng.banks, torch.from_numpy(x).to(cuda_device),
+                      torch.from_numpy(md.keys[:2].astype(np.int64)).to(
+                          cuda_device), scfg.pred_len).cpu()
+        preds = torch.from_numpy(np.stack([t.pred for t in tickets]))
+        assert bool(torch.isfinite(preds).all())
+        torch.testing.assert_close(preds, ref, **ROLLOUT_TOL)
+    finally:
+        eng.close()
 
 
 # --- the ELL SpMM kernels -----------------------------------------------------

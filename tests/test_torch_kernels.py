@@ -29,6 +29,19 @@ DX_TOL = dict(rtol=1e-5, atol=1e-5)
 DW_TOL = dict(rtol=1e-5, atol=1e-4)
 
 
+#: the widths the card took only after its wide kernels: hidden 128 (w_hh^T
+#: past a block's shared memory), and (K, C, H) past K <= 5 and C, H <= 64
+WIDE_H = 128
+WIDE_BDGCN = [dict(K=7, B=1, N=5, C=128, H=128), dict(K=9, B=2, N=5, C=16,
+                                                      H=16)]
+
+
+def _cases(pairs):
+    """(values, id) pairs as parametrize cases: the narrow cases keep the
+    ids they had before the wide ones joined them."""
+    return [pytest.param(*c, id=i) for c, i in pairs]
+
+
 def _lstm_params(rng, F, H, layers):
     out = []
     for i in range(layers):
@@ -48,10 +61,12 @@ def _torch_lstm(params, F, H):
     return mod
 
 
-@pytest.mark.parametrize("collect", [False, True])
-def test_lstm_layer_plain_matches_pallas(collect):
+@pytest.mark.parametrize("collect,H", _cases(
+    [((c, 8), str(c)) for c in (False, True)]
+    + [((c, WIDE_H), f"{c}-H128") for c in (False, True)]))
+def test_lstm_layer_plain_matches_pallas(collect, H):
     rng = np.random.default_rng(0)
-    T, R, H = 7, 50, 8
+    T, R = 7, 50 if H == 8 else 24
     xp = rng.normal(size=(T, R, 4 * H)).astype(np.float32)
     w = (rng.normal(size=(H, 4 * H)) / np.sqrt(H)).astype(np.float32)
     ref = pallas_lstm._fused_layer_infer(jnp.asarray(xp), jnp.asarray(w),
@@ -90,9 +105,13 @@ def _bdgcn_inputs(rng, K=3, B=3, N=9, C=8, H=8, dynamic=False):
     return h1, g, w
 
 
-@pytest.mark.parametrize("dynamic", [False, True])
-def test_bdgcn_plain_matches_pallas(dynamic):
-    h1, g, w = _bdgcn_inputs(np.random.default_rng(4), dynamic=dynamic)
+@pytest.mark.parametrize("dynamic,wide", _cases(
+    [((dyn, {}), str(dyn)) for dyn in (False, True)]
+    + [((dyn, w), f"{dyn}-K{w['K']}-C{w['C']}-H{w['H']}")
+       for w in WIDE_BDGCN for dyn in (False, True)]))
+def test_bdgcn_plain_matches_pallas(dynamic, wide):
+    h1, g, w = _bdgcn_inputs(np.random.default_rng(4), dynamic=dynamic,
+                             **wide)
     ref = pallas_bdgcn.folded_pair_project(jnp.asarray(h1), jnp.asarray(g),
                                            jnp.asarray(w), interpret=True)
     ours = cuda_bdgcn.folded_pair_project_plain(
@@ -142,13 +161,21 @@ def test_lstm_train_plain_matches_pallas_fwd():
     np.testing.assert_allclose(cs.numpy(), np.asarray(cs_ref), **LSTM_TOL)
 
 
-@pytest.mark.parametrize("ref", ["pallas", "xla"])
-@pytest.mark.parametrize("with_dcs", [False, True])
-def test_lstm_bwd_plain_matches_jax(ref, with_dcs):
+@pytest.mark.parametrize("with_dcs,ref,H", _cases(
+    [((dcs, ref, 8), f"{dcs}-{ref}") for dcs in (False, True)
+     for ref in ("pallas", "xla")]
+    + [((dcs, "pallas", WIDE_H), f"{dcs}-pallas-H128")
+       for dcs in (False, True)]))
+def test_lstm_bwd_plain_matches_jax(ref, with_dcs, H):
+    """The plain training forward and BPTT against the Pallas kernels (and
+    the BPTT against the XLA backward)."""
     rng = np.random.default_rng(8)
-    xp, w = _lstm_train_inputs(rng)
+    xp, w = _lstm_train_inputs(rng, R=50 if H == 8 else 24, H=H)
     hs, cs = (np.array(a) for a in pallas_lstm._fused_layer_fwd_impl(
         jnp.asarray(xp), jnp.asarray(w), interpret=True))
+    for ours, theirs in zip(cuda_lstm.lstm_layer_train_plain(
+            torch.from_numpy(xp), torch.from_numpy(w)), (hs, cs)):
+        np.testing.assert_allclose(ours.numpy(), theirs, **LSTM_TOL)
     dhs = rng.normal(size=hs.shape).astype(np.float32)
     dcs = (rng.normal(size=hs.shape) if with_dcs
            else np.zeros(hs.shape)).astype(np.float32)
@@ -166,11 +193,14 @@ def test_lstm_bwd_plain_matches_jax(ref, with_dcs):
     np.testing.assert_allclose(dw.numpy(), np.asarray(dw_ref), **DW_TOL)
 
 
-@pytest.mark.parametrize("ref", ["pallas", "xla"])
-@pytest.mark.parametrize("dynamic", [False, True])
-def test_bdgcn_bwd_plain_matches_jax(ref, dynamic):
+@pytest.mark.parametrize("dynamic,ref,wide", _cases(
+    [((dyn, ref, {}), f"{dyn}-{ref}") for dyn in (False, True)
+     for ref in ("pallas", "xla")]
+    + [((dyn, "pallas", w), f"{dyn}-pallas-K{w['K']}-C{w['C']}-H{w['H']}")
+       for w in WIDE_BDGCN for dyn in (False, True)]))
+def test_bdgcn_bwd_plain_matches_jax(ref, dynamic, wide):
     rng = np.random.default_rng(9)
-    h1, g, w = _bdgcn_inputs(rng, dynamic=dynamic)
+    h1, g, w = _bdgcn_inputs(rng, dynamic=dynamic, **wide)
     dout = rng.normal(size=h1.shape[1:4] + (w.shape[-1],)).astype(np.float32)
     args = [jnp.asarray(a) for a in (h1, g, w, dout)]
     if ref == "pallas":

@@ -28,12 +28,16 @@ from mpgcn_tpu_torch.utils.convert import params_from_jax
 
 N, H, B = 8, 8, 4
 TOL = dict(rtol=1e-4, atol=1e-5)
+#: hidden 128 and dual_random_walk_diffusion of order 3 (K = 7 supports) at
+#: N = 6: the widths the card takes only through its wide kernels
+WIDE = dict(synthetic_N=6, hidden_dim=128,
+            kernel_type="dual_random_walk_diffusion", cheby_order=3)
 
 
-def _setup(layers, seed=0):
-    kw = dict(synthetic_T=60, synthetic_N=N, hidden_dim=H,
-              lstm_num_layers=layers, seed=seed)
-    cfg = MPGCNConfig(**kw).replace(num_nodes=N)
+def _setup(layers, seed=0, **wide):
+    kw = {**dict(synthetic_T=60, synthetic_N=N, hidden_dim=H,
+                 lstm_num_layers=layers, seed=seed), **wide}
+    cfg = MPGCNConfig(**kw).replace(num_nodes=kw["synthetic_N"])
     data = synthetic_dataset(cfg)
     jp = JaxPipeline(JaxConfig(native_host="off", **kw), data)
     md = jp.modes["test"]
@@ -42,9 +46,10 @@ def _setup(layers, seed=0):
     graphs = [jnp.asarray(jp.static_supports),
               (jnp.asarray(jp.o_support_bank[keys]),
                jnp.asarray(jp.d_support_bank[keys]))]
-    params = init_mpgcn(jax.random.PRNGKey(seed), M=2, K=3, input_dim=1,
-                        lstm_hidden_dim=H, lstm_num_layers=layers,
-                        gcn_hidden_dim=H, gcn_num_layers=3)
+    params = init_mpgcn(jax.random.PRNGKey(seed), M=2, K=cfg.support_K,
+                        input_dim=1, lstm_hidden_dim=cfg.hidden_dim,
+                        lstm_num_layers=layers,
+                        gcn_hidden_dim=cfg.hidden_dim, gcn_num_layers=3)
     return cfg, data, params, x, keys, graphs
 
 
@@ -72,15 +77,18 @@ def _jax_prehead(params, x, graphs):
     return out
 
 
-@pytest.mark.parametrize("layers", [1, 2])
-def test_forward_matches_jax_pallas_inference(layers):
-    cfg, data, params, x, keys, graphs = _setup(layers)
+@pytest.mark.parametrize("layers,wide", [
+    pytest.param(1, {}, id="1"), pytest.param(2, {}, id="2"),
+    pytest.param(1, WIDE, id="1-hidden128-K7")])
+def test_forward_matches_jax_pallas_inference(layers, wide):
+    cfg, data, params, x, keys, graphs = _setup(layers, **wide)
+    n = cfg.num_nodes
     ref = np.asarray(jax.jit(lambda p, xx, g: mpgcn_apply(
         p, xx, g, lstm_impl="pallas", bdgcn_impl="pallas",
         inference=True))(params, jnp.asarray(x), graphs))
     model, tgraphs = _port(cfg, data, params, keys)
     out, hidden = model(torch.from_numpy(x), tgraphs, return_hidden=True)
-    assert tuple(out.shape) == ref.shape == (B, 1, N, N, 1)
+    assert tuple(out.shape) == ref.shape == (B, 1, n, n, 1)
     assert (ref != 0).mean() > 0.1, "dead ReLU head: parity would be vacuous"
     np.testing.assert_allclose(out.numpy(), ref, **TOL)
     for h, r in zip(hidden, _jax_prehead(params, x, graphs)):

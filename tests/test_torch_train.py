@@ -201,9 +201,33 @@ def grad_case(tmp_path_factory):
     return cfg, data, jt, batch
 
 
-@pytest.mark.parametrize("arms", [("kernel", "kernel"), ("plain", "einsum")])
-def test_model_gradients_match_jax_grad(grad_case, monkeypatch, arms):
-    cfg, data, jt, batch = grad_case
+#: hidden 128 and dual_random_walk_diffusion of order 3 (K = 7 supports) at
+#: N = 6: the widths the card takes only through its wide kernels
+WIDE = dict(synthetic_N=6, hidden_dim=128,
+            kernel_type="dual_random_walk_diffusion", cheby_order=3)
+
+
+@pytest.fixture(scope="module")
+def wide_grad_case(tmp_path_factory):
+    """``grad_case`` at the WIDE widths: its last training batch."""
+    cfg = MPGCNConfig(pred_len=1, **{**KW, **WIDE})
+    assert cfg.support_K == 7
+    data = synthetic_dataset(cfg)
+    cfg = cfg.replace(seed=INIT_SEED)
+    jt = JaxTrainer(_jax_cfg(tmp_path_factory.mktemp("wide_grad"),
+                             pred_len=1, seed=INIT_SEED, lstm_impl="pallas",
+                             bdgcn_impl="pallas", **WIDE), data)
+    batch = list(jt.pipeline.batches("train", pad_to_full=True))[-1]
+    return cfg, data, jt, batch
+
+
+@pytest.mark.parametrize("arms,case", [
+    pytest.param(("kernel", "kernel"), "grad_case", id="arms0"),
+    pytest.param(("plain", "einsum"), "grad_case", id="arms1"),
+    pytest.param(("kernel", "kernel"), "wide_grad_case",
+                 id="arms0-hidden128-K7")])
+def test_model_gradients_match_jax_grad(request, monkeypatch, arms, case):
+    cfg, data, jt, batch = request.getfixturevalue(case)
     # reach the Pallas backward kernels at this small size
     monkeypatch.setattr(pallas_lstm, "_PALLAS_BWD_MIN_ROWS", 0)
     monkeypatch.setattr(pallas_bdgcn, "_BDGCN_BWD_MIN_PAIRS", 0)
@@ -390,6 +414,35 @@ def test_cli_trains_then_tests_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "validation loss drops from inf" in out
     assert "model testing ends" in out
+
+
+@pytest.mark.parametrize("flag", ["-kernel", "-K"])
+def test_cli_graph_kernel_flags_match_jax(flag):
+    """-kernel/--kernel_type and -K/--cheby_order: the same names, choices
+    and defaults as mpgcn_tpu.cli's."""
+    from mpgcn_tpu import cli as jax_cli
+
+    ours, ref = (next(a for a in p._actions if flag in a.option_strings)
+                 for p in (cli.build_parser(), jax_cli.build_parser()))
+    for attr in ("option_strings", "dest", "choices", "default", "type"):
+        assert getattr(ours, attr) == getattr(ref, attr), attr
+
+
+def test_cli_trains_then_tests_the_wide_configuration(tmp_path):
+    """-hidden 128 -kernel dual_random_walk_diffusion -K 3 (K = 7 supports),
+    the widths the card takes only through its wide kernels: one epoch on
+    the CPU, then test mode."""
+    argv = ["-GPU", "cpu", "-sN", "6", "-sT", "40", "-hidden", "128",
+            "-kernel", "dual_random_walk_diffusion", "-K", "3", "-epoch",
+            "1", "-out", str(tmp_path)]
+    hist = cli.main(argv)
+    assert len(hist["train"]) == 1 and np.isfinite(hist["train"]).all()
+    res = cli.main(argv + ["-mode", "test"])
+    assert len(res["test"]["RMSE_by_horizon"]) == 7
+    assert np.isfinite(res["test"]["RMSE"])
+    with open(tmp_path / "MPGCN_od.pkl", "rb") as f:
+        W = pickle.load(f)["params"]["branches"][0]["spatial"][0]["W"]
+    assert np.shape(W) == (7 * 7 * 128, 128)
 
 
 def test_entry_points_need_a_card_unless_asked(monkeypatch, tmp_path):
