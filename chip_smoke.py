@@ -50,7 +50,8 @@ Phases, each fatal on failure:
      (N=47; N=500 on the ELL arm and on the dense kernel arm that "auto"
      passes over), and the device's busy share;
   9. last, so that every phase above runs as it did without it: the wide
-     widths, which only the wide kernels take. The six LSTM and K-BDGCN
+     widths (the LSTM entries' wide kernels; K-BDGCN's products at widths
+     past the reference ones). The six LSTM and K-BDGCN
      entries against their plain versions at H = 65, 96, 128, 256 and
      1,030 and (K, C, H) = (7, 128, 128), (6, 65, 33), (9, 16, 16),
      (3, 32, 128), static and dynamic, one launch per call, dW bit for bit
@@ -82,7 +83,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet): device memory rate, the
 # f32 rate of the CUDA cores (the kernels' f32 FMA) and the dense TF32 rate
-# of the tensor cores (the ELL forward's mma)
+# of the tensor cores (the ELL and K-BDGCN kernels' split TF32 products)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_TF32_FLOP_PER_S = 495e12
@@ -513,6 +514,38 @@ def busy_share(label, run, n):
               f"x{count / n:g}")
 
 
+def bdgcn_fwd_bound(h1, g, wr):
+    """K-BDGCN's bound at these inputs: h1, Gk, Wr read and out written once;
+    the least work, projecting by Wr first, 2 B M N (K^2 C H + K N H)
+    operations, run as 3 split TF32 products on the tensor cores. Returns
+    (bound ms, bounded by, a note with the CUDA-core bound and the bytes of
+    the U scratch)."""
+    K, B, M, N, C = h1.shape
+    H = wr.shape[-1]
+    nbytes = 4 * (h1.numel() + g.numel() + wr.numel() + B * M * N * H)
+    ops = 2 * B * M * N * (K * K * C * H + K * N * H)
+    b_ms, b_by = bound(nbytes, 3 * ops, PEAK_TF32_FLOP_PER_S)
+    return b_ms, b_by, (f"TF32 operations 3 x {ops}; CUDA-core bound "
+                        f"{bound(nbytes, ops)[0]:.5f} ms; U scratch "
+                        f"{4 * K * B * M * N * H} bytes")
+
+
+def bdgcn_bwd_bound(h1, g, wr, dout):
+    """K-BDGCN-bwd's bound: h1, Gk, Wr, dout read and dh1, dW written once;
+    the least work, Z_d = G_d dout (K N H per row) then dh1 and dW (K^2 C H
+    each per row), 2 B M N (K N H + 2 K^2 C H) operations, as 3 split TF32
+    products. Returns (bound ms, bounded by, a note with the CUDA-core bound
+    and the bytes of the Z scratch)."""
+    K, B, M, N, C = h1.shape
+    H = wr.shape[-1]
+    nbytes = 4 * (2 * h1.numel() + dout.numel() + g.numel() + 2 * wr.numel())
+    ops = 2 * B * M * N * (K * N * H + 2 * K * K * C * H)
+    b_ms, b_by = bound(nbytes, 3 * ops, PEAK_TF32_FLOP_PER_S)
+    return b_ms, b_by, (f"TF32 operations 3 x {ops}; CUDA-core bound "
+                        f"{bound(nbytes, ops)[0]:.5f} ms; Z scratch "
+                        f"{4 * K * B * M * N * H} bytes")
+
+
 def phase_times(dev, eng, kin):
     """Kernel, plain and library times at the serve shapes (CUDA events),
     the rollout per bucket (host clock around a synchronised call) and
@@ -543,13 +576,7 @@ def phase_times(dev, eng, kin):
     for key, eq in (("bdgcn", "obmcl,dce,odlh->bmeh"),
                     ("bdgcn_dynamic", "obmcl,bdce,odlh->bmeh")):
         h1, g, wr = kin[key]
-        K, B, M, N, C = h1.shape
-        Hh = wr.shape[-1]
-        # least work: project first, Y_d = sum_o h1[o] Wr[o,d] (K^2 C H per
-        # (b,m,c)), then contract, out = sum_d G_d^T Y_d (K N H per (b,m,e))
-        b_ms, b_by = bound(
-            4 * (h1.numel() + g.numel() + wr.numel() + B * M * N * Hh),
-            2 * B * M * N * (K * K * C * Hh + K * N * Hh))
+        b_ms, b_by, extra = bdgcn_fwd_bound(h1, g, wr)
         gl = g[0] if key == "bdgcn" else g
         entry = dict(
             ms=time_ms(lambda: cuda_bdgcn.folded_pair_project(h1, g, wr)),
@@ -561,7 +588,9 @@ def phase_times(dev, eng, kin):
         if key == "bdgcn":
             times["bdgcn_pair_fwd"] = entry
         label = "static" if key == "bdgcn" else "dynamic"
-        print(f"[time] K-BDGCN {label} B={B} N={N}: {json.dumps(entry)}")
+        K, B, M, N, C = h1.shape
+        print(f"[time] K-BDGCN {label} B={B} N={N} ({extra}; library "
+              f"torch.einsum): {json.dumps(entry)}")
     for name in ("lstm_infer_last", "lstm_infer_collect"):
         print(f"[time] K-LSTM {name}: {json.dumps(times[name])}")
 
@@ -939,12 +968,7 @@ def phase_train_times(dev, kin, train):
         z = torch.empty((K, B, M, N, Hh), dtype=torch.float32, device=dev)
         prt = torch.empty((P, K, K, C, Hh), dtype=torch.float32, device=dev)
         dW = torch.empty((K, K, C, Hh), dtype=torch.float32, device=dev)
-        # least work: Z_d = G_d dout (K N H per (b,m,c)), dh1 = sum_d Z_d
-        # Wr^T and dW = sum h1^T Z_d (K^2 C H each per (b,m,c))
-        b_ms, b_by = bound(
-            4 * (2 * h1.numel() + dout.numel() + g.numel()
-                 + 2 * wr.numel()),
-            2 * B * M * N * (K * N * Hh + 2 * K * K * C * Hh))
+        b_ms, b_by, extra = bdgcn_bwd_bound(h1, g, wr, dout)
         h1r = h1.clone().requires_grad_()
         wrr = wr.clone().requires_grad_()
         ref = torch.einsum(eq, h1r, g[0] if key == "bdgcn" else g, wrr)
@@ -959,8 +983,8 @@ def phase_train_times(dev, kin, train):
             bound_ms=b_ms, bound_by=b_by)
         label = "static" if key == "bdgcn" else "dynamic"
         print(f"[time] K-BDGCN-bwd {label} B={B} N={N} (one entry: dW sum "
-              f"over P={P} x {K * K} partials in the same launch): "
-              f"{json.dumps(entry)}")
+              f"over P={P} partials in the same launch; {extra}; library "
+              f"autograd through torch.einsum): {json.dumps(entry)}")
         if key == "bdgcn":
             times["bdgcn_pair_bwd"] = entry
     for name in ("lstm_train_fwd", "lstm_train_bwd"):
@@ -1005,8 +1029,8 @@ WIDE = dict(hidden_dim=128, kernel_type="dual_random_walk_diffusion",
 #: 1,024 threads)
 WIDE_LSTM = [(7, 8 * 47 * 47, 128), (7, 4 * 47 * 47, 128), (7, 1001, 65),
              (5, 333, 96), (3, 257, 256), (2, 9, 1030)]
-#: K-BDGCN (K, B, N, C, H) beyond K <= 5 and C, H <= 64: the wide model's
-#: serve (B = 8) and training (B = 4) shapes, then ragged chunks and groups
+#: K-BDGCN (K, B, N, C, H) past the reference widths: the wide model's
+#: serve (B = 8) and training (B = 4) shapes, then ragged tiles and depths
 WIDE_BDGCN = [(7, 8, 47, 128, 128), (7, 4, 47, 128, 128), (6, 2, 33, 65, 33),
               (9, 2, 21, 16, 16), (3, 2, 47, 32, 128)]
 
@@ -1029,8 +1053,8 @@ def _dw_bits(name, dw, part, dw2):
 
 def phase_wide_kernels(dev, rng):
     """The six LSTM and K-BDGCN entries against their plain versions at the
-    widths only their wide kernels take (WIDE_LSTM, WIDE_BDGCN; static and
-    dynamic supports), each once per call; the backward entries' dW bit for
+    wide widths (WIDE_LSTM, WIDE_BDGCN; static and dynamic supports), each
+    once per call; the backward entries' dW bit for
     bit against dw_reduce_plain of their partials and over two runs.
     Returns the per-entry worst error and the timing inputs."""
     import torch
@@ -1284,9 +1308,7 @@ def phase_wide_times(dev, kin, wide):
         Hh = wr.shape[-1]
         eq = "obmcl,dce,odlh->bmeh"
         if name == "bdgcn_pair_fwd":
-            b_ms, b_by = bound(
-                4 * (h1.numel() + g.numel() + wr.numel() + B * M * N * Hh),
-                2 * B * M * N * (K * K * C * Hh + K * N * Hh))
+            b_ms, b_by, extra = bdgcn_fwd_bound(h1, g, wr)
             entry = dict(
                 ms=time_ms(lambda: cuda_bdgcn.folded_pair_project(h1, g, wr),
                            iters=10),
@@ -1295,7 +1317,6 @@ def phase_wide_times(dev, kin, wide):
                 library_ms=time_ms(lambda: torch.einsum(eq, h1, g[0], wr),
                                    iters=3),
                 bound_ms=b_ms, bound_by=b_by)
-            extra = ""
         else:
             P = cuda_bdgcn.bwd_blocks(B * M * N, K, C, Hh, dev)
             dh1 = torch.empty_like(h1)
@@ -1304,10 +1325,7 @@ def phase_wide_times(dev, kin, wide):
             prt = torch.empty((P, K, K, C, Hh), dtype=torch.float32,
                               device=dev)
             dW = torch.empty((K, K, C, Hh), dtype=torch.float32, device=dev)
-            b_ms, b_by = bound(
-                4 * (2 * h1.numel() + dout.numel() + g.numel()
-                     + 2 * wr.numel()),
-                2 * B * M * N * (K * N * Hh + 2 * K * K * C * Hh))
+            b_ms, b_by, extra = bdgcn_bwd_bound(h1, g, wr, dout)
             h1r = h1.clone().requires_grad_()
             wrr = wr.clone().requires_grad_()
             ref = torch.einsum(eq, h1r, g[0], wrr)
@@ -1321,11 +1339,12 @@ def phase_wide_times(dev, kin, wide):
                 library_ms=time_ms(lambda: torch.autograd.grad(
                     ref, (h1r, wrr), dout, retain_graph=True), iters=3),
                 bound_ms=b_ms, bound_by=b_by)
-            extra = f", dW over P={P} partials"
+            extra = f"dW over P={P} partials; {extra}"
         times[name] = entry
-        print(f"[time] wide {name} static K={K} B={B} N={N} C={C} H={Hh}"
-              f"{extra} (library torch.einsum{', autograd' if extra else ''}"
-              f"): {json.dumps(entry)}", flush=True)
+        lib = ("autograd through torch.einsum" if name == "bdgcn_pair_bwd"
+               else "torch.einsum")
+        print(f"[time] wide {name} static K={K} B={B} N={N} C={C} H={Hh} "
+              f"({extra}; library {lib}): {json.dumps(entry)}", flush=True)
 
     eng = wide["eng"]
     md = eng.pipeline.modes["test"]

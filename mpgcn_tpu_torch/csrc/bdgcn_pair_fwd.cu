@@ -11,351 +11,85 @@
 //                            Bg = B (per-sample dynamic graphs)
 //   Wr  (K, K, C, H)    f32  the (K^2 C, H) projection weight reshaped
 //   out (B, M, N, H)    f32
+//   u   (K, B, M, N, H) f32  scratch
 //
-// What bounds it on the H100: at bucket 8 (B = 8, N = 47, C = H = 32,
-// K = 3, static graph) it reads 6.8 MB and writes 2.3 MB (2.7 us at
-// 3.35 TB/s) for 0.80 GFLOP (12.0 us at 67 TFLOP/s f32 on the CUDA
-// cores): compute-bound. The K^2 (o, d) pair bank, 9x the activations at
-// K = 3, never reaches device memory: each pair's temp is built and
-// consumed in shared memory.
+// The TPU kernel works pair by pair: it builds each pair's temp
+// h1[o]^T G_d and projects it. This kernel projects first, which is the
+// least work, as two products (rows r = (b, m, c), R = B M N of them):
 //
-// Design: one block per (destination tile of kTileE columns, origin row m,
-// sample b). For each origin o the block streams h1[o, b, m] (N, C) and the
-// K destination-support tiles through shared memory in kTileC-row stages
-// of the contraction axis c, accumulating all K temps t_d = h1^T G_d
-// (C, kTileE) in registers at once -- so h1 is read once per origin, not
-// once per pair. Each t_d then goes through shared memory into the
-// projection t_d^T Wr[o, d], accumulated into an f32 register tile that
-// is written to device memory once. The TPU kernel keeps the whole
-// (K, N, N) support block resident in VMEM (26 KB at N = 47, 3 MB at
-// N = 500); here both the destination axis e and the contraction axis c
-// are tiled, so shared memory does not grow with N and any N works.
+//   1. U_d[r, :] = sum_o h1[o][r, :] Wr[o, d]     (R x K C) by (K C x K H)
+//   2. out[b, m] = sum_d G_d^T U_d[b, m]          (N x K N) by (K N x H),
+//                                                 one product per (b, m)
 //
-// Widths. The register tiles above hold C x kTileE temps and kTileE x H
-// outputs in kMaxQ slots a thread, and the K temps are a template
-// argument, so this kernel takes C, H <= kChunk = 64 and K <= kGroup = 5:
-// the reference C = H = 32, K = 3 among them, where it runs as it always
-// did. Any other (K, C, H) takes bdgcn_pair_fwd_wide_kernel, chosen per
-// call from the widths (a separate kernel rather than loops inside this
-// one, so this one's registers and schedule stay as they were). It runs
-// the same sums in chunks: H in chunks of <= 64 through a grid axis folded
-// into blockIdx.x (each chunk recomputes the temps), the channels l in
-// chunks of <= 64 inside the block (the projection sums over them, so each
-// chunk's product adds into the same accumulators), and the destination
-// supports in groups of <= 5 (h1 re-streamed once per group and chunk).
-// Shared memory is sized from the chunks, 52 KB at most.
+// What bounds it on the H100: product 1 holds almost all of the work,
+// 2 R K^2 C H operations (28.4 GFLOP at the wide serve shape K = 7, B = 8,
+// N = 47, C = H = 128; 0.33 GFLOP at the reference K = 3, C = H = 32),
+// product 2 adds 2 R K N H. Both run on the TF32 tensor cores in three
+// split products ("3xTF32", bdgcn_gemm.cuh), so 3 x 29.9 GFLOP at 495
+// TFLOP/s: 0.18 ms wide, bound by operations; U (63 MB wide) goes through
+// device memory once each way, about 38 us at 3.35 TB/s.
+//
+// Design: two launches of the split-TF32 products of bdgcn_gemm.cuh, which
+// read each operand in place through its axes (h1 as (R, K C), Wr as
+// (K C, K H), G_d^T as (N, K N) with its destination axis contiguous):
+// product 1 on wgmma, writing U as (K, R, H), so product 2's rows of U_d
+// for one (b, m) are contiguous; product 2 on mma.sync. Every (K, C, H, N)
+// is taken: tiles, depth and rows are zero-padded at the edges in shared
+// memory, which does not grow with N. Each output entry is written once:
+// no float atomics, the same bits from run to run.
 
 #include <cuda_runtime.h>
 
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kTileE = 32;  // destination columns per block
-constexpr int kTileC = 32;  // contraction rows per shared-memory stage
-constexpr int kMaxQ = 8;    // register slots: C*kTileE and kTileE*H per thread
-constexpr int kChunk = kMaxQ * kThreads / kTileE;  // C, H per chunk: 64
-constexpr int kGroup = 5;   // destination supports per group
-
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-bdgcn_pair_fwd_kernel(const float* __restrict__ h1,
-                      const float* __restrict__ g,
-                      const float* __restrict__ w, float* __restrict__ out,
-                      int B, int M, int N, int C, int H, int Bg) {
-  extern __shared__ float smem[];
-  float* h1s = smem;                       // (kTileC, C)
-  float* gs = h1s + kTileC * C;            // (K, kTileC, kTileE)
-  float* ts = gs + K * kTileC * kTileE;    // (C, kTileE)
-  float* ws = ts + C * kTileE;             // (C, H)
-
-  const int e0 = blockIdx.x * kTileE;
-  const int m = blockIdx.y;
-  const int b = blockIdx.z;
-  const int bg = Bg == 1 ? 0 : b;
-  const int tid = threadIdx.x;
-  const int e_t = tid % kTileE;  // this thread's temp column
-  const int n_t = C * kTileE;    // temp entries per pair
-  const int n_acc = kTileE * H;  // output entries per block
-
-  float acc[kMaxQ];
-#pragma unroll
-  for (int q = 0; q < kMaxQ; ++q) acc[q] = 0.0f;
-
-  for (int o = 0; o < K; ++o) {
-    float t[K][kMaxQ];
-#pragma unroll
-    for (int d = 0; d < K; ++d)
-#pragma unroll
-      for (int q = 0; q < kMaxQ; ++q) t[d][q] = 0.0f;
-
-    const float* h1row = h1 + (((size_t)o * B + b) * M + m) * (size_t)N * C;
-    for (int c0 = 0; c0 < N; c0 += kTileC) {
-      const int rows = min(kTileC, N - c0);
-      __syncthreads();  // the previous stage's readers are done
-      for (int i = tid; i < kTileC * C; i += kThreads)
-        h1s[i] = i < rows * C ? h1row[(size_t)c0 * C + i] : 0.0f;
-      for (int i = tid; i < K * kTileC * kTileE; i += kThreads) {
-        const int d = i / (kTileC * kTileE);
-        const int rem = i - d * (kTileC * kTileE);
-        const int cc = rem / kTileE;
-        const int e = e0 + rem - cc * kTileE;
-        gs[i] = (cc < rows && e < N)
-                    ? g[(((size_t)bg * K + d) * N + c0 + cc) * N + e]
-                    : 0.0f;
-      }
-      __syncthreads();
-      for (int cc = 0; cc < rows; ++cc) {
-        float gv[K];
-#pragma unroll
-        for (int d = 0; d < K; ++d)
-          gv[d] = gs[(d * kTileC + cc) * kTileE + e_t];
-#pragma unroll
-        for (int q = 0; q < kMaxQ; ++q) {
-          const int i = tid + q * kThreads;
-          if (i < n_t) {
-            const float hv = h1s[cc * C + i / kTileE];
-#pragma unroll
-            for (int d = 0; d < K; ++d) t[d][q] = fmaf(hv, gv[d], t[d][q]);
-          }
-        }
-      }
-    }
-
-#pragma unroll
-    for (int d = 0; d < K; ++d) {
-      __syncthreads();  // the previous pair's projection readers are done
-#pragma unroll
-      for (int q = 0; q < kMaxQ; ++q) {
-        const int i = tid + q * kThreads;
-        if (i < n_t) ts[i] = t[d][q];
-      }
-      const float* wod = w + ((size_t)o * K + d) * C * H;
-      for (int i = tid; i < C * H; i += kThreads) ws[i] = wod[i];
-      __syncthreads();
-#pragma unroll
-      for (int q = 0; q < kMaxQ; ++q) {
-        const int i = tid + q * kThreads;
-        if (i < n_acc) {
-          const int e = i / H;
-          const int hh = i - e * H;
-          float s = 0.0f;
-          for (int l = 0; l < C; ++l)
-            s = fmaf(ts[l * kTileE + e], ws[l * H + hh], s);
-          acc[q] += s;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int q = 0; q < kMaxQ; ++q) {
-    const int i = tid + q * kThreads;
-    if (i < n_acc) {
-      const int e = e0 + i / H;
-      if (e < N) out[(((size_t)b * M + m) * N + e) * H + i % H] = acc[q];
-    }
-  }
-}
-
-template <int K>
-int launch(const void* h1, const void* g, const void* w, void* out, int B,
-           int M, int N, int C, int H, int Bg, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(kTileC * C + K * kTileC * kTileE + C * kTileE + C * H) *
-      sizeof(float);
-  auto kernel = bdgcn_pair_fwd_kernel<K>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((N + kTileE - 1) / kTileE, M, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(h1), static_cast<const float*>(g),
-      static_cast<const float*>(w), static_cast<float*>(out), B, M, N, C, H,
-      Bg);
-  return cudaGetLastError();
-}
-
-// The K destination supports in ceil(K / kGroup) groups of at most
-// group_size(K) each (7 -> 4 + 3, 9 -> 5 + 4): the fewest groups, as even
-// as they come.
-int group_size(int K) {
-  const int n = (K + kGroup - 1) / kGroup;
-  return (K + n - 1) / n;
-}
-
-// The same sums as bdgcn_pair_fwd_kernel, in chunks (header). Block
-// (e tile x H chunk, m, b); KG destination supports per group.
-template <int KG>
-__global__ void __launch_bounds__(kThreads)
-bdgcn_pair_fwd_wide_kernel(const float* __restrict__ h1,
-                           const float* __restrict__ g,
-                           const float* __restrict__ w,
-                           float* __restrict__ out, int K, int B, int M,
-                           int N, int C, int H, int Bg, int n_h) {
-  extern __shared__ float smem[];
-  float* h1s = smem;                        // (kTileC, kChunk)
-  float* gs = h1s + kTileC * kChunk;        // (KG, kTileC, kTileE)
-  float* ts = gs + KG * kTileC * kTileE;    // (kChunk, kTileE)
-  float* ws = ts + kChunk * kTileE;         // (kChunk, kChunk)
-
-  const int e0 = (blockIdx.x / n_h) * kTileE;
-  const int h0 = (blockIdx.x % n_h) * kChunk;
-  const int Hc = min(kChunk, H - h0);
-  const int m = blockIdx.y;
-  const int b = blockIdx.z;
-  const int bg = Bg == 1 ? 0 : b;
-  const int tid = threadIdx.x;
-  const int e_t = tid % kTileE;   // this thread's temp column
-  const int n_acc = kTileE * Hc;  // output entries per block
-
-  float acc[kMaxQ];
-#pragma unroll
-  for (int q = 0; q < kMaxQ; ++q) acc[q] = 0.0f;
-
-  for (int o = 0; o < K; ++o) {
-    const float* h1row = h1 + (((size_t)o * B + b) * M + m) * (size_t)N * C;
-    for (int d0 = 0; d0 < K; d0 += KG) {
-      const int nd = min(KG, K - d0);
-      for (int l0 = 0; l0 < C; l0 += kChunk) {
-        const int Lc = min(kChunk, C - l0);
-        const int n_t = Lc * kTileE;  // temp entries per pair
-        float t[KG][kMaxQ];
-#pragma unroll
-        for (int d = 0; d < KG; ++d)
-#pragma unroll
-          for (int q = 0; q < kMaxQ; ++q) t[d][q] = 0.0f;
-
-        for (int c0 = 0; c0 < N; c0 += kTileC) {
-          const int rows = min(kTileC, N - c0);
-          __syncthreads();  // the previous stage's readers are done
-          for (int i = tid; i < kTileC * Lc; i += kThreads) {
-            const int cc = i / Lc;
-            h1s[i] = cc < rows ? h1row[(size_t)(c0 + cc) * C + l0 + i -
-                                       cc * Lc]
-                               : 0.0f;
-          }
-          for (int i = tid; i < KG * kTileC * kTileE; i += kThreads) {
-            const int d = i / (kTileC * kTileE);
-            const int rem = i - d * (kTileC * kTileE);
-            const int cc = rem / kTileE;
-            const int e = e0 + rem - cc * kTileE;
-            gs[i] = (d < nd && cc < rows && e < N)
-                        ? g[(((size_t)bg * K + d0 + d) * N + c0 + cc) * N + e]
-                        : 0.0f;
-          }
-          __syncthreads();
-          for (int cc = 0; cc < rows; ++cc) {
-            float gv[KG];
-#pragma unroll
-            for (int d = 0; d < KG; ++d)
-              gv[d] = gs[(d * kTileC + cc) * kTileE + e_t];
-#pragma unroll
-            for (int q = 0; q < kMaxQ; ++q) {
-              const int i = tid + q * kThreads;
-              if (i < n_t) {
-                const float hv = h1s[cc * Lc + i / kTileE];
-#pragma unroll
-                for (int d = 0; d < KG; ++d)
-                  t[d][q] = fmaf(hv, gv[d], t[d][q]);
-              }
-            }
-          }
-        }
-
-#pragma unroll
-        for (int d = 0; d < KG; ++d) {
-          if (d >= nd) break;  // uniform over the block
-          __syncthreads();  // the previous pair's projection readers are done
-#pragma unroll
-          for (int q = 0; q < kMaxQ; ++q) {
-            const int i = tid + q * kThreads;
-            if (i < n_t) ts[i] = t[d][q];
-          }
-          const float* wod =
-              w + (((size_t)o * K + d0 + d) * C + l0) * H + h0;
-          for (int i = tid; i < Lc * Hc; i += kThreads) {
-            const int l = i / Hc;
-            ws[i] = wod[(size_t)l * H + i - l * Hc];
-          }
-          __syncthreads();
-#pragma unroll
-          for (int q = 0; q < kMaxQ; ++q) {
-            const int i = tid + q * kThreads;
-            if (i < n_acc) {
-              const int e = i / Hc;
-              const int hh = i - e * Hc;
-              float s = 0.0f;
-              for (int l = 0; l < Lc; ++l)
-                s = fmaf(ts[l * kTileE + e], ws[l * Hc + hh], s);
-              acc[q] += s;
-            }
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int q = 0; q < kMaxQ; ++q) {
-    const int i = tid + q * kThreads;
-    if (i < n_acc) {
-      const int e = e0 + i / Hc;
-      if (e < N)
-        out[(((size_t)b * M + m) * N + e) * H + h0 + i % Hc] = acc[q];
-    }
-  }
-}
-
-template <int KG>
-int launch_wide(const void* h1, const void* g, const void* w, void* out,
-                int K, int B, int M, int N, int C, int H, int Bg,
-                cudaStream_t stream) {
-  const size_t smem = (size_t)(kTileC * kChunk + KG * kTileC * kTileE +
-                               kChunk * kTileE + kChunk * kChunk) *
-                      sizeof(float);
-  auto kernel = bdgcn_pair_fwd_wide_kernel<KG>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const int n_h = (H + kChunk - 1) / kChunk;
-  const long long cols = (long long)((N + kTileE - 1) / kTileE) * n_h;
-  if (cols > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)cols, M, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(h1), static_cast<const float*>(g),
-      static_cast<const float*>(w), static_cast<float*>(out), K, B, M, N, C,
-      H, Bg, n_h);
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "bdgcn_gemm.cuh"
 
 extern "C" int bdgcn_pair_fwd_f32(const void* h1, const void* g,
-                                  const void* w, void* out, int K, int B,
-                                  int M, int N, int C, int H, int Bg,
+                                  const void* w, void* out, void* u, int K,
+                                  int B, int M, int N, int C, int H, int Bg,
                                   void* stream) {
   if (K < 1 || B < 1 || M < 1 || M > 65535 || B > 65535 || N < 1 || C < 1 ||
-      H < 1 || (Bg != 1 && Bg != B))
+      H < 1 || (Bg != 1 && Bg != B) || (long long)K * C > 0x7fffffffLL ||
+      (long long)K * H > 0x7fffffffLL || (long long)K * N > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K <= kGroup && C <= kChunk && H <= kChunk) {
-    switch (K) {
-      case 1: return launch<1>(h1, g, w, out, B, M, N, C, H, Bg, s);
-      case 2: return launch<2>(h1, g, w, out, B, M, N, C, H, Bg, s);
-      case 3: return launch<3>(h1, g, w, out, B, M, N, C, H, Bg, s);
-      case 4: return launch<4>(h1, g, w, out, B, M, N, C, H, Bg, s);
-      default: return launch<5>(h1, g, w, out, B, M, N, C, H, Bg, s);
-    }
-  }
-  switch (group_size(K)) {
-    case 1: return launch_wide<1>(h1, g, w, out, K, B, M, N, C, H, Bg, s);
-    case 2: return launch_wide<2>(h1, g, w, out, K, B, M, N, C, H, Bg, s);
-    case 3: return launch_wide<3>(h1, g, w, out, K, B, M, N, C, H, Bg, s);
-    case 4: return launch_wide<4>(h1, g, w, out, K, B, M, N, C, H, Bg, s);
-    default: return launch_wide<5>(h1, g, w, out, K, B, M, N, C, H, Bg, s);
-  }
+  const long long R = (long long)B * M * N;
+  const long long NN = (long long)N * N;
+
+  // 1. U[d, r, h] = sum_{o, c} h1[o, r, c] Wr[o, d, c, h]
+  Gemm p1{};
+  p1.a = static_cast<const float*>(h1);
+  p1.b = static_cast<const float*>(w);
+  p1.c = static_cast<float*>(u);
+  p1.ai = flat(C);                                // r
+  p1.ak = split(C, R * C, 1);                     // (o, c)
+  p1.bk = split(C, (long long)K * C * H, H);      // (o, c)
+  p1.bn = split(H, (long long)C * H, 1);          // (d, h)
+  p1.ci = flat(H);                                // r
+  p1.cn = split(H, R * H, 1);                     // (d, h)
+  p1.za = p1.zb = p1.zc = flat(0);
+  p1.m = R;
+  p1.batches = 1;
+  p1.n = K * H;
+  p1.k = K * C;
+  cudaError_t err = launch_wgmma<false, false>(p1, s);
+  if (err != cudaSuccess) return err;
+
+  // 2. out[b, m, e, h] = sum_{d, c} G[bg, d, c, e] U[d, (b, m, c), h], one
+  //    product per (b, m)
+  Gemm p2{};
+  p2.a = static_cast<const float*>(g);
+  p2.b = static_cast<const float*>(u);
+  p2.c = static_cast<float*>(out);
+  p2.ai = flat(1);                                // e
+  p2.ak = split(N, NN, N);                        // (d, c)
+  p2.bk = split(N, R * H, H);                     // (d, c)
+  p2.bn = flat(1);                                // h
+  p2.ci = flat(H);                                // e
+  p2.cn = flat(1);                                // h
+  p2.za = split(M, Bg == 1 ? 0 : (long long)K * NN, 0);  // (b, m)
+  p2.zb = p2.zc = flat((long long)N * H);
+  p2.m = N;
+  p2.batches = (long long)B * M;
+  p2.n = H;
+  p2.k = K * N;
+  return launch_gemm<true, false>(p2, s);
 }

@@ -123,6 +123,8 @@
 
 #include <type_traits>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int kBR = 8;        // rows per row block (the containers' tiles)
@@ -175,57 +177,9 @@ __host__ __device__ constexpr bool exact_in_tf32() {
   return !std::is_same<T, float>::value;
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
 // wait until at most kStages - 2 copy groups are in flight
 __device__ __forceinline__ void cp_async_wait_stage() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
-}
-
-// v = hi + lo: hi is v rounded to TF32 (10 mantissa bits), to nearest
-// with ties away from zero as cvt.rna.tf32.f32 rounds, in two integer
-// operations; lo = v - hi exactly, |lo| <= 2^-11 |v|. The tensor cores
-// read only the top 19 bits of a TF32 operand, so lo enters truncated:
-// hi + lo carries v to within 2^-21 |v|.
-__device__ __forceinline__ void split_tf32(float v, unsigned& hi,
-                                           unsigned& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
-
-// d += a b (m16n8k8, TF32 in, f32 out). The tensor cores add into d with
-// truncation, an error relative to |d| at every call.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b with the product's 8 terms summed on the tensor cores from 0
-// and added into d in f32, rounded to nearest
-__device__ __forceinline__ void mma_tf32_add(float (&d)[4],
-                                             const unsigned (&a)[4],
-                                             unsigned b0, unsigned b1) {
-  float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  mma_tf32(p, a, b0, b1);
-#pragma unroll
-  for (int v = 0; v < 4; ++v) d[v] += p[v];
 }
 
 // First entry in t_slot[lo, hi) (sorted by row block) whose row block is
@@ -691,11 +645,6 @@ ell_bwd_dx_kernel(const int* __restrict__ t_ptr,
   }
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // --- dBlocks on wgmma -------------------------------------------------------
 
 constexpr int kDbKC = kDbTF / 4;                  // 16-byte chunks a row
@@ -709,66 +658,8 @@ constexpr int kDbSplit = 4 * kDbOp;
 constexpr size_t kDbSmemBytes =
     sizeof(float) * (kDbRawSteps * kDbRaw + 2 * kDbSplit);
 
-// float offset of (row, 4 kc) in the no-swizzle K-major core-matrix layout:
-// 8 rows x 16 bytes a core matrix, K-adjacent core matrices 128 bytes apart
-// (LBO), 8-row groups kDbKC * 128 bytes apart (SBO)
-__device__ __forceinline__ int core_off(int row, int kc) {
-  return (((row >> 3) * kDbKC + kc) * 8 + (row & 7)) * 4;
-}
-
-__device__ __forceinline__ uint64_t wgmma_desc(const float* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return (uint64_t)((a & 0x3ffff) >> 4) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)(kDbKC * 128 >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void fence_regs(float (&d)[kDbAcc]) {
-#pragma unroll
-  for (int i = 0; i < kDbAcc; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (+)= A (64 x 8, K-major) B^T (128 x 8, K-major), TF32 in, f32 out;
-// scale_d = 0 drops what d held
-__device__ __forceinline__ void wgmma_m64k8(float (&d)[64], uint64_t da,
-                                            uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39, "
-      " %40, %41, %42, %43, %44, %45, %46, %47, "
-      " %48, %49, %50, %51, %52, %53, %54, %55, "
-      " %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
+// core_off and wgmma_desc (tf32_mma.cuh) take 32-deep steps
+static_assert(kDbKC == kCoreKC, "dBlocks steps are 32 deep");
 
 // One block per (X group g, column block c, tile of up to kDbSlots slots of
 // g's slices whose column id is c, in slot order, pad slots included; F
@@ -981,7 +872,7 @@ ell_bwd_dblk_kernel(const int* __restrict__ cols, const float* __restrict__ x,
             spl + ((t + 1) & 1) * kDbSplit);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     }
-    wgmma_wait0();
+    wgmma_wait<0>();
     fence_regs(pp);
 #pragma unroll
     for (int i = 0; i < kDbAcc; ++i) acc[i] += pp[i];

@@ -7,9 +7,11 @@ K^2 feature bank. On a CUDA tensor it launches the hand-written kernel of
 ``csrc/bdgcn_pair_fwd.cu`` (replacing ``_fwd_kernel``); on a CPU tensor it
 runs ``folded_pair_project_plain``, the same function in plain PyTorch.
 There is no fallback: a CUDA tensor the kernel does not take raises.
-Every support count K and width C, H >= 1 is taken: past K = 5 or
-C, H = 64 the entries launch their wide kernels (chunks of <= 64 and
-support groups of <= 5) instead of the narrow ones.
+Every support count K and width C, H >= 1 is taken. The forward projects
+by Wr first; both entries run their products on the TF32 tensor cores with
+split operands (``csrc/bdgcn_gemm.cuh``), through a scratch the wrapper
+allocates: U (K, B, M, N, H) in the forward, Z of the same shape in the
+backward.
 
 Under autograd it goes through ``PairProjectFn``, whose backward
 ``folded_pair_project_bwd`` launches ``bdgcn_pair_bwd_f32`` of
@@ -32,14 +34,11 @@ import torch
 from mpgcn_tpu_torch.native.build import CudaKernel, query_int
 from mpgcn_tpu_torch.nn.cuda_lstm import device_index
 
-#: dW-partial blocks per SM: the partial buffer stays at about this many x
-#: SMs x C x H floats, whatever the pair count
-BWD_BLOCKS_PER_SM = 2
-#: rows the dW-partial kernel stages per step (no chunk is made smaller)
-_DW_ROWS_TILE = 32
+#: rows of the dW product's smallest chunk: four 32-row staged slabs
+_DW_ROWS_TILE = 128
 
 BDGCN_PAIR_FWD = CudaKernel("bdgcn_pair_fwd", "bdgcn_pair_fwd_f32",
-                            n_ptrs=4, n_ints=7)
+                            n_ptrs=5, n_ints=7)
 BDGCN_PAIR_BWD = CudaKernel("bdgcn_pair_bwd", "bdgcn_pair_bwd_f32",
                             n_ptrs=8, n_ints=8)
 
@@ -51,28 +50,26 @@ def _dest(Gk: torch.Tensor, d: int, dyn: bool):
 
 def folded_pair_project_plain(h1: torch.Tensor, Gk: torch.Tensor,
                               Wr: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel.
+    """Plain PyTorch version of the kernel, in its order.
 
     h1 (K, B, M, N, C) origin contractions; Gk (Bg, K, N, N) destination
     supports with Bg in {1, B}; Wr (K, K, C, H). Returns (B, M, N, H):
-    out[b, m, e] = sum_{o, d} (h1[o, b, m]^T G_d)^T Wr[o, d]."""
-    K = h1.shape[0]
-    dyn = Gk.shape[0] > 1
-    out = None
-    for o in range(K):
-        for d in range(K):
-            g, gs = _dest(Gk, d, dyn)
-            t = torch.einsum(f"bmcl,{gs}->bmle", h1[o], g)
-            p = torch.einsum("bmle,lh->bmeh", t, Wr[o, d])
-            out = p if out is None else out + p
-    return out
+    out[b, m, e] = sum_{o, d} (h1[o, b, m]^T G_d)^T Wr[o, d], computed by
+    Wr first, U_d = sum_o h1[o] Wr[o, d], then out = sum_d G_d^T U_d."""
+    U = torch.einsum("obmcl,odlh->dbmch", h1, Wr)
+    if Gk.shape[0] > 1:
+        return torch.einsum("bdce,dbmch->bmeh", Gk, U)
+    return torch.einsum("dce,dbmch->bmeh", Gk[0], U)
 
 
 def folded_pair_project_bwd_plain(h1, Gk, Wr, dout):
     """Plain PyTorch version of ``bdgcn_pair_bwd_f32`` and its dW sum, in
     the kernel's order: Z_d = G_d dout, dh1[o] = sum_d Z_d Wr[o, d]^T,
     dW[o, d] = sum_{b, m} h1[o]^T Z_d. Returns (dh1 (K, B, M, N, C),
-    dW (K, K, C, H))."""
+    dW (K, K, C, H)). dW sums B M N products an entry, so it is summed in
+    float64 and rounded once: on the H100 an f32 matrix product over the
+    500,000 rows of N = 500 came within 4% of the dW tolerance from the
+    float64 sum on its own, which left no room for the kernel's error."""
     K = h1.shape[0]
     dyn = Gk.shape[0] > 1
     Z = []
@@ -81,8 +78,9 @@ def folded_pair_project_bwd_plain(h1, Gk, Wr, dout):
         Z.append(torch.einsum(f"{gs},bmeh->bmch", g, dout))
     dh1 = torch.stack([sum(torch.einsum("bmch,lh->bmcl", Z[d], Wr[o, d])
                            for d in range(K)) for o in range(K)])
-    dW = torch.stack([torch.stack([torch.einsum("bmcl,bmch->lh", h1[o], Z[d])
-                                   for d in range(K)]) for o in range(K)])
+    dW = torch.stack([torch.stack([
+        torch.einsum("bmcl,bmch->lh", h1[o].double(), Z[d].double())
+        for d in range(K)]) for o in range(K)]).to(h1.dtype)
     return dh1, dW
 
 
@@ -143,29 +141,29 @@ def _pair_project(h1, Gk, Wr):
     H = Wr.shape[-1]
     h1, Gk, Wr = h1.contiguous(), Gk.contiguous(), Wr.contiguous()
     out = torch.empty((B, M, N, H), dtype=torch.float32, device=h1.device)
-    BDGCN_PAIR_FWD.launch((h1, Gk, Wr, out),
+    u = torch.empty((K, B, M, N, H), dtype=torch.float32, device=h1.device)
+    BDGCN_PAIR_FWD.launch((h1, Gk, Wr, out, u),
                           (K, B, M, N, C, H, Gk.shape[0]))
     return out
 
 
 @functools.lru_cache(maxsize=None)
 def _max_dw_chunks(index: int, K: int, C: int, H: int) -> int:
-    """The most row chunks of the dW product card ``index`` takes at
-    (K, C, H): bounded by what it holds at once for the kernel whose grid
-    is chunks x K^2 blocks (C, H <= 64, K <= 5), not for the wide one."""
+    """The row chunks of the dW product at (K, C, H) whose work items
+    (chunk, tile) fill about two rounds of the blocks card ``index`` holds
+    at once (the dW kernel's occupancy at the shared memory it launches
+    with)."""
     return query_int("bdgcn_pair_bwd", "bdgcn_pair_bwd_max_blocks",
                      (K, C, H), torch.device("cuda", index))
 
 
 def bwd_blocks(rows: int, K: int, C: int, H: int, device) -> int:
     """Row chunks P of the dW-product launch (one dW partial each): about
-    a few blocks per SM over the K^2 pairs, never a chunk smaller than one
-    staged row tile, and no more than the card takes at (K, C, H) (the
-    launch is cooperative)."""
+    two rounds of the blocks the card holds at once over the tiles of
+    (K C, K H) (``_max_dw_chunks``), never a chunk smaller than
+    ``_DW_ROWS_TILE`` rows."""
     index = device_index(device)
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    by_sm = -(-BWD_BLOCKS_PER_SM * sms // (K * K))
-    return max(1, min(by_sm, -(-rows // _DW_ROWS_TILE),
+    return max(1, min(-(-rows // _DW_ROWS_TILE),
                       _max_dw_chunks(index, K, C, H)))
 
 

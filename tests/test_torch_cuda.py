@@ -111,20 +111,36 @@ def _bdgcn_inputs(dev, K, B, N, C, H, dynamic, seed=0):
     return [torch.from_numpy(a).to(dev) for a in (h1, g, w)]
 
 
-#: (K, B, N, C, H) past the narrow kernels' K <= 5 and C, H <= 64: the
-#: wide kernels' chunks and support groups, and their ragged ends
+#: (K, B, N, C, H) past K <= 5 and C, H <= 64 (the widths the card took
+#: only after PR 7's wide kernels), with ragged ends of every axis
 WIDE_BDGCN = [(7, 2, 20, 128, 128), (6, 2, 33, 65, 33), (9, 2, 21, 16, 16),
               (3, 2, 47, 32, 128)]
+#: the split-TF32 products' edges: R = B N^2 = 147 rows (not a multiple of
+#: the 64- and 128-row tiles), K C = 15 and K H = 21 (not multiples of the
+#: 8-deep mma step), and N = 500 at B = 2, the dense kernel arm's shape
+EDGE_BDGCN = [(3, 3, 7, 32, 32), (3, 2, 11, 5, 7), (3, 2, 500, 32, 32)]
+#: operands scaled apart: h1 x 1e3 and Wr x 1e-3 in the forward, h1 and Wr
+#: x 1e3 and dout x 1e-3 in the backward, so every TF32 split runs on
+#: values far from 1 while the outputs stay O(1) (scaling one operand
+#: alone moves f32's own rounding of the plain version past atol 1e-5)
+SCALED_BDGCN = [(3, 8, 47, 32, 32), (7, 2, 20, 128, 128)]
+
+
+def _bdgcn_cases():
+    return ([pytest.param(*shape, 1.0, id="-".join(map(str, shape)))
+             for shape in [(3, 8, 47, 32, 32), (3, 2, 200, 32, 32),
+                           (5, 2, 33, 16, 64), (2, 3, 9, 8, 40),
+                           (1, 1, 1, 1, 1)] + WIDE_BDGCN + EDGE_BDGCN]
+            + [pytest.param(*shape, 1e3, id="-".join(map(str, shape))
+                            + "-x1e3") for shape in SCALED_BDGCN])
 
 
 @pytest.mark.parametrize("dynamic", [False, True])
-@pytest.mark.parametrize("K,B,N,C,H", [(3, 8, 47, 32, 32),
-                                       (3, 2, 200, 32, 32),
-                                       (5, 2, 33, 16, 64),
-                                       (2, 3, 9, 8, 40), (1, 1, 1, 1, 1)]
-                         + WIDE_BDGCN)
-def test_bdgcn_kernel_matches_plain(cuda_device, dynamic, K, B, N, C, H):
+@pytest.mark.parametrize("K,B,N,C,H,scale", _bdgcn_cases())
+def test_bdgcn_kernel_matches_plain(cuda_device, dynamic, K, B, N, C, H,
+                                    scale):
     args = _bdgcn_inputs(cuda_device, K, B, N, C, H, dynamic, seed=N)
+    args[0], args[2] = args[0] * scale, args[2] / scale
     before = cuda_bdgcn.BDGCN_PAIR_FWD.launches
     out = cuda_bdgcn.folded_pair_project(*args)
     torch.cuda.synchronize()
@@ -220,22 +236,24 @@ def test_lstm_train_kernels_match_plain(cuda_device, T, R, H, with_dcs):
 
 
 @pytest.mark.parametrize("dynamic", [False, True])
-@pytest.mark.parametrize("K,B,N,C,H", [(3, 4, 47, 32, 32),
-                                       (3, 2, 200, 32, 32),
-                                       (5, 2, 33, 16, 64),
-                                       (2, 3, 9, 8, 40), (1, 1, 1, 1, 1)]
-                         + WIDE_BDGCN)
-def test_bdgcn_bwd_kernel_matches_plain(cuda_device, dynamic, K, B, N, C, H):
+@pytest.mark.parametrize("K,B,N,C,H,scale", [
+    pytest.param(3, 4, 47, 32, 32, 1.0, id="3-4-47-32-32")]
+    + _bdgcn_cases()[1:])
+def test_bdgcn_bwd_kernel_matches_plain(cuda_device, dynamic, K, B, N, C, H,
+                                        scale):
     h1, g, w = _bdgcn_inputs(cuda_device, K, B, N, C, H, dynamic, seed=N)
+    h1, w = h1 * scale, w * scale
     dout = torch.from_numpy(np.random.default_rng(C).normal(
-        size=(B, N, N, H)).astype(np.float32)).to(cuda_device)
+        size=(B, N, N, H)).astype(np.float32)).to(cuda_device) / scale
     before = cuda_bdgcn.BDGCN_PAIR_BWD.launches
-    dh1, dW = cuda_bdgcn.folded_pair_project_bwd(h1, g, w, dout)
+    dh1, dW, part = cuda_bdgcn.folded_pair_project_bwd_partials(h1, g, w,
+                                                                dout)
     torch.cuda.synchronize()
     assert cuda_bdgcn.BDGCN_PAIR_BWD.launches == before + 1
     r1, rW = cuda_bdgcn.folded_pair_project_bwd_plain(h1, g, w, dout)
     torch.testing.assert_close(dh1, r1, **KERNEL_TOL)
     _close_scaled(dW, rW)
+    assert torch.equal(dW, cuda_lstm.dw_reduce_plain(part))
     _, dW2 = cuda_bdgcn.folded_pair_project_bwd(h1, g, w, dout)
     assert torch.equal(dW, dW2), "dW differs between two runs"
 

@@ -34,6 +34,9 @@ DW_TOL = dict(rtol=1e-5, atol=1e-4)
 WIDE_H = 128
 WIDE_BDGCN = [dict(K=7, B=1, N=5, C=128, H=128), dict(K=9, B=2, N=5, C=16,
                                                       H=16)]
+#: one support (K = 1) and channel widths C != H: the kernel's products by
+#: Wr first, (K C, K H), then by G_d^T, (N, K N), at shapes whose axes differ
+ODD_BDGCN = [dict(K=1, C=8, H=5), dict(K=3, C=12, H=5)]
 
 
 def _cases(pairs):
@@ -108,7 +111,7 @@ def _bdgcn_inputs(rng, K=3, B=3, N=9, C=8, H=8, dynamic=False):
 @pytest.mark.parametrize("dynamic,wide", _cases(
     [((dyn, {}), str(dyn)) for dyn in (False, True)]
     + [((dyn, w), f"{dyn}-K{w['K']}-C{w['C']}-H{w['H']}")
-       for w in WIDE_BDGCN for dyn in (False, True)]))
+       for w in WIDE_BDGCN + ODD_BDGCN for dyn in (False, True)]))
 def test_bdgcn_plain_matches_pallas(dynamic, wide):
     h1, g, w = _bdgcn_inputs(np.random.default_rng(4), dynamic=dynamic,
                              **wide)
@@ -120,14 +123,22 @@ def test_bdgcn_plain_matches_pallas(dynamic, wide):
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **BDGCN_TOL)
 
 
-@pytest.mark.parametrize("dynamic", [False, True])
-@pytest.mark.parametrize("impl", ["kernel", "einsum"])
-def test_bdgcn_apply_arms_match_jax(dynamic, impl):
+@pytest.mark.parametrize("dynamic,impl,shape", _cases(
+    [((dyn, impl, None), f"{impl}-{dyn}") for impl in ("kernel", "einsum")
+     for dyn in (False, True)]
+    + [((dyn, impl, w), f"{impl}-{dyn}-K{w['K']}-C{w['C']}-H{w['H']}")
+       for w in ODD_BDGCN + WIDE_BDGCN[:1] for impl in ("kernel", "einsum")
+       for dyn in (False, True)]))
+def test_bdgcn_apply_arms_match_jax(dynamic, impl, shape):
     rng = np.random.default_rng(5)
     B, N, C, H, K = 2, 7, 8, 8, 3
+    w_scale = 8.0
+    if shape is not None:  # O(1) outputs at every K^2 C
+        C, H, K = shape["C"], shape["H"], shape["K"]
+        w_scale = np.sqrt(K * K * C)
     X = rng.normal(size=(B, N, N, C)).astype(np.float32)
     gs = rng.random((B, K, N, N)).astype(np.float32) / N
-    W = (rng.normal(size=(K * K * C, H)) / 8).astype(np.float32)
+    W = (rng.normal(size=(K * K * C, H)) / w_scale).astype(np.float32)
     b = rng.normal(size=(H,)).astype(np.float32)
     G = (gs, gs[::-1].copy()) if dynamic else gs[0]
     ref = jax_bdgcn_apply({"W": jnp.asarray(W), "b": jnp.asarray(b)},
@@ -142,6 +153,24 @@ def test_bdgcn_apply_arms_match_jax(dynamic, impl):
     with torch.no_grad():
         ours = bdgcn_apply(layer, torch.from_numpy(X), Gt, impl=impl)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **BDGCN_TOL)
+
+
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_bdgcn_plain_order_matches_pair_first_sum(dynamic):
+    """The plain version projects by Wr first, as the kernel does; in
+    float64 that equals the TPU kernel's pair-first sum
+    sum_{o, d} (h1[o]^T G_d)^T Wr[o, d] to rounding."""
+    h1, g, w = (torch.from_numpy(a).double() for a in _bdgcn_inputs(
+        np.random.default_rng(14), K=4, C=6, H=5, dynamic=dynamic))
+    K = h1.shape[0]
+    ref = torch.zeros(h1.shape[1:4] + (w.shape[-1],), dtype=torch.float64)
+    for o in range(K):
+        for d in range(K):
+            gd, gs = (g[:, d], "bce") if dynamic else (g[0, d], "ce")
+            t = torch.einsum(f"bmcl,{gs}->bmle", h1[o], gd)
+            ref += torch.einsum("bmle,lh->bmeh", t, w[o, d])
+    torch.testing.assert_close(cuda_bdgcn.folded_pair_project_plain(h1, g, w),
+                               ref, rtol=1e-12, atol=1e-12)
 
 
 def _lstm_train_inputs(rng, T=7, R=50, H=8):
