@@ -50,8 +50,9 @@ Phases, each fatal on failure:
      (N=47; N=500 on the ELL arm and on the dense kernel arm that "auto"
      passes over), and the device's busy share;
   9. last, so that every phase above runs as it did without it: the wide
-     widths (the LSTM entries' wide kernels; K-BDGCN's products at widths
-     past the reference ones). The six LSTM and K-BDGCN
+     widths (the LSTM forwards' wide kernels and the BPTT's split-TF32
+     engine path; K-BDGCN's products at widths past the reference ones).
+     The six LSTM and K-BDGCN
      entries against their plain versions at H = 65, 96, 128, 256 and
      1,030 and (K, C, H) = (7, 128, 128), (6, 65, 33), (9, 16, 16),
      (3, 32, 128), static and dynamic, one launch per call, dW bit for bit
@@ -546,6 +547,97 @@ def bdgcn_bwd_bound(h1, g, wr, dout):
                         f"{4 * K * B * M * N * H} bytes")
 
 
+def lstm_bwd_bound(T, R, H, engine):
+    """The BPTT's bound at these shapes: x_proj, hs, cs, dhs and w read
+    once, dx_proj and dW written once (the model path hands no dcs); the
+    three recurrent products (gates, dh, dW) at the T - 1 steps that need
+    them (h_{-1} = 0, so step 0 has none), as f32 FMA on the CUDA cores
+    (the resident kernel) or as 3 split TF32 products on the tensor cores
+    (the engine path, ``engine``). Returns (bound ms, bounded by, a note
+    with both bounds)."""
+    G = 4 * H
+    nbytes = 4 * (2 * T * R * G + 3 * T * R * H + 2 * H * G)
+    ops = 3 * 2 * max(T - 1, 0) * R * H * G
+    core = bound(nbytes, ops)
+    tf32 = bound(nbytes, 3 * ops, PEAK_TF32_FLOP_PER_S)
+    b_ms, b_by = tf32 if engine else core
+    return b_ms, b_by, (f"CUDA-core bound {core[0]:.5f} ms ({core[1]}); "
+                        f"3-split TF32 bound {tf32[0]:.5f} ms ({tf32[1]})")
+
+
+def device_activities(fn, n=5):
+    """Device activities (kernels, copies, sets) per call of ``fn`` over
+    ``n`` calls (torch.profiler): their number per call, and a note with
+    each name's count and device time per call. The calls are recorded
+    after a warm-up step whose trace is dropped: the profiler has been
+    seen to miss the first device activity of its window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    names = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            name = e.name.replace("void ", "").replace(
+                "(anonymous namespace)::", "").split("(")[0]
+            acc = names.setdefault(name, [0, 0.0])
+            acc[0] += 1
+            acc[1] += e.time_range.elapsed_us()
+    per_call = sum(v[0] for v in names.values()) / n
+    return per_call, (f"{per_call:g} ("
+                      + ", ".join(f"{k} x{c / n:g} {us / n:.1f} us"
+                                  for k, (c, us) in names.items()) + ")")
+
+
+def lstm_bwd_time(dev, xp, w, hs, cs, dhs, iters, plain_iters, lib_bwd):
+    """lstm_train_bwd's entry at these inputs (the model path hands no
+    dcs), called directly: its time, the plain and library times and its
+    bound; and a note with P, both bounds, the scratch bytes and the
+    device launches of one call."""
+    from mpgcn_tpu_torch.nn import cuda_lstm
+
+    T, R, G = xp.shape
+    H = G // 4
+    P = cuda_lstm.bwd_blocks(R, H, dev)
+    dxp = xp.new_empty(xp.shape)
+    part = xp.new_empty((P, H, G))
+    dw = xp.new_empty((H, G))
+    scratch = cuda_lstm.bwd_scratch(R, H, dev)
+    engine = scratch is not None
+    b_ms, b_by, note = lstm_bwd_bound(T, R, H, engine)
+
+    def call():
+        cuda_lstm.LSTM_TRAIN_BWD.launch(
+            (xp, w, hs, cs, dhs, None, dxp, part, dw, scratch), (T, R, H, P))
+
+    entry = dict(
+        ms=time_ms(call, iters=iters),
+        plain_ms=time_ms(lambda: cuda_lstm.lstm_layer_bwd_plain(
+            xp, w, hs, cs, dhs, None), iters=plain_iters),
+        library_ms=lib_bwd, bound_ms=b_ms, bound_by=b_by)
+    scratch_bytes = 0 if scratch is None else 4 * scratch.numel()
+    per_call, launches = device_activities(call)
+    want = 2 * T + 1 if engine else 1
+    require(per_call == want, f"lstm_train_bwd at T={T} R={R} H={H}: "
+            f"{per_call:g} device launches per call, not {want}")
+    note = (f"P={P}, {'split-TF32 engine' if engine else 'resident kernel'}"
+            f"; {note}; scratch {scratch_bytes} bytes; device launches per "
+            f"call {launches}")
+    return entry, note
+
+
 def phase_times(dev, eng, kin):
     """Kernel, plain and library times at the serve shapes (CUDA events),
     the rollout per bucket (host clock around a synchronised call) and
@@ -931,10 +1023,6 @@ def phase_train_times(dev, kin, train):
     lib_bwd = time_ms(lambda: torch.autograd.grad(out, lib_params, gout,
                                                   retain_graph=True),
                       iters=20)
-    P = cuda_lstm.bwd_blocks(R, H, dev)
-    dxp = torch.empty_like(xp)
-    part = torch.empty((P, H, G), dtype=torch.float32, device=dev)
-    dw = torch.empty((H, G), dtype=torch.float32, device=dev)
     b_ms, b_by = bound(4 * (T * R * G + H * G + 2 * T * R * H),
                        2 * T * R * H * G)
     times["lstm_train_fwd"] = dict(
@@ -942,21 +1030,14 @@ def phase_train_times(dev, kin, train):
         plain_ms=time_ms(lambda: cuda_lstm.lstm_layer_train_plain(xp, w),
                          iters=10),
         library_ms=lib_fwd, bound_ms=b_ms, bound_by=b_by)
-    # x_proj, hs, cs, dhs and w read once; dx_proj and dW written once (the
-    # model path hands no dcs); 3x the forward's recurrent products
-    b_ms, b_by = bound(4 * (2 * T * R * G + 3 * T * R * H + 2 * H * G),
-                       3 * 2 * T * R * H * G)
-    times["lstm_train_bwd"] = dict(
-        ms=time_ms(lambda: cuda_lstm.LSTM_TRAIN_BWD.launch(
-            (xp, w, hs, cs, dhs, None, dxp, part, dw), (T, R, H, P))),
-        plain_ms=time_ms(lambda: cuda_lstm.lstm_layer_bwd_plain(
-            xp, w, hs, cs, dhs, None), iters=10),
-        library_ms=lib_bwd, bound_ms=b_ms, bound_by=b_by)
-    print(f"[time] K-LSTM-train backward wrapper (one launch: BPTT and its "
-          f"dW sum over P={P} partials; allocations): "
+    times["lstm_train_bwd"], note = lstm_bwd_time(dev, xp, w, hs, cs, dhs,
+                                                  50, 10, lib_bwd)
+    print(f"[time] K-LSTM-train backward wrapper (one call: BPTT and its "
+          f"dW sum; allocations): "
           f"{time_ms(lambda: cuda_lstm.lstm_layer_bwd(xp, w, hs, cs, dhs, None)):.4f}"
-          f" ms; library calls: torch.nn.LSTM (cuDNN, input projection "
-          f"included) forward and backward at R={R}, T={T}, H={H}")
+          f" ms; {note}; library calls: torch.nn.LSTM (cuDNN, input "
+          f"projection included) forward and backward at R={R}, T={T}, "
+          f"H={H}")
 
     for key, eq in (("bdgcn", "obmcl,dce,odlh->bmeh"),
                     ("bdgcn_dynamic", "obmcl,bdce,odlh->bmeh")):
@@ -1280,24 +1361,13 @@ def phase_wide_times(dev, kin, wide):
         plain_ms=time_ms(lambda: cuda_lstm.lstm_layer_train_plain(xp, w),
                          iters=5),
         library_ms=lib_fwd, bound_ms=b_ms, bound_by=b_by)
-    P = cuda_lstm.bwd_blocks(R, H, dev)
-    dxp = torch.empty_like(xp)
-    part = torch.empty((P, H, G), dtype=torch.float32, device=dev)
-    dw = torch.empty((H, G), dtype=torch.float32, device=dev)
-    b_ms, b_by = bound(4 * (2 * T * R * G + 3 * T * R * H + 2 * H * G),
-                       3 * 2 * T * R * H * G)
-    times["lstm_train_bwd"] = dict(
-        ms=time_ms(lambda: cuda_lstm.LSTM_TRAIN_BWD.launch(
-            (xp, w, hs, cs, dhs, None, dxp, part, dw), (T, R, H, P)),
-            iters=10),
-        plain_ms=time_ms(lambda: cuda_lstm.lstm_layer_bwd_plain(
-            xp, w, hs, cs, dhs, None), iters=5),
-        library_ms=lib_bwd, bound_ms=b_ms, bound_by=b_by)
+    times["lstm_train_bwd"], note = lstm_bwd_time(dev, xp, w, hs, cs, dhs,
+                                                  10, 5, lib_bwd)
     for name in ("lstm_infer_last", "lstm_infer_collect", "lstm_train_fwd",
                  "lstm_train_bwd"):
         rows = R if "train" in name else kin["lstm_serve"][0].shape[1]
-        blocks = f"P={P}, " if name == "lstm_train_bwd" else ""
-        print(f"[time] wide {name} T={T} R={rows} H={H} ({blocks}library "
+        extra = f"{note}; " if name == "lstm_train_bwd" else ""
+        print(f"[time] wide {name} T={T} R={rows} H={H} ({extra}library "
               f"torch.nn.LSTM, cuDNN, input projection included): "
               f"{json.dumps(times[name])}", flush=True)
 

@@ -43,9 +43,10 @@
 // 32 x 32; at M = N = 47 rows a 128-row wgmma tile would be two-thirds
 // empty, and these products are a few percent of the work.
 //
-// The dW product of the backward is a cooperative instance (kCoop) of the
-// wgmma kernel: its batch z is a chunk of the depth (the rows r of the sum
-// over b, m, c), each chunk's product a partial, the work items (chunk,
+// The dW products of the two backward entries (K-BDGCN-bwd and the wide
+// LSTM BPTT) are a cooperative instance (kCoop) of the wgmma kernel: its
+// batch z is a chunk of the depth (the rows r of the sum over b, m, c, or
+// (t, r) of the BPTT), each chunk's product a partial, the work items (chunk,
 // tile) strided over a grid the device holds at once; after a grid-wide
 // barrier every block adds its share of the partials in the fixed order
 // p = 0, 1, ... (dw_sum.cuh), so dW is bit-equal to dw_reduce_plain of the
@@ -57,6 +58,7 @@
 #include <cuda_runtime.h>
 
 #include "dw_sum.cuh"
+#include "smem.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -631,13 +633,6 @@ void prepare(Gemm& g) {
                     : runs4(g.bn, g.n) && steps4(g.bk));
 }
 
-cudaError_t allow_smem(const void* kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
 // work items (batch, tile) of g at bm x bn tiles
 inline long long gemm_items(const Gemm& g, int bm, int bn) {
   return g.batches * ((g.m + bm - 1) / bm) * ((g.n + bn - 1) / bn);
@@ -669,6 +664,64 @@ cudaError_t launch_wgmma(const Gemm& g, cudaStream_t stream) {
   prepare<kAColM, kBColK>(gv);
   kernel<<<(unsigned)(items < 0x7fffffffLL ? items : 0x7fffffffLL),
            kWgThreads, kWgSmem, stream>>>(gv, nullptr, 0);
+  return cudaGetLastError();
+}
+
+// --- the cooperative dW products -------------------------------------------
+
+// The dW products of both backward entries (K-BDGCN-bwd's dW, the BPTT's
+// dW_hh^T) run on one cooperative instance: A contiguous along its rows, B
+// along its columns, the batch z a chunk of the depth, each chunk's product
+// a partial of the (m x n) dW.
+inline const void* coop_kernel() {
+  return (const void*)tf32_wgmma_kernel<true, false, true>;
+}
+// work items (chunk, tile) per block the device holds at once
+constexpr int kCoopWaves = 2;
+
+// The most blocks of the cooperative kernel the current device holds at
+// once, with the shared memory it launches with.
+inline cudaError_t coop_coresident(int* blocks) {
+  cudaError_t err = allow_smem(coop_kernel(), kWgSmem);
+  if (err != cudaSuccess) return err;
+  return max_coresident(coop_kernel(), kWgThreads, kWgSmem, blocks);
+}
+
+// The depth chunks P that an (m x n) dW product runs in about kCoopWaves
+// rounds of the co-resident grid: kCoopWaves x the co-resident blocks over
+// the product's 128 x 128 tiles, at least 1, at most 65535. Any P runs
+// (the work items are strided over the grid); more only adds partials.
+inline cudaError_t coop_chunks(long long m, long long n, int* out) {
+  int blocks = 0;
+  cudaError_t err = coop_coresident(&blocks);
+  const long long tiles =
+      ((m + kWgBM - 1) / kWgBM) * ((n + kWgBN - 1) / kWgBN);
+  const long long per = (long long)kCoopWaves * blocks / tiles;
+  *out = per > 1 ? (int)(per < 65535 ? per : 65535) : 1;
+  return err;
+}
+
+// One cooperative launch of g (g.batches chunks of g.k_chunk depths, the
+// partials at g.c): its work items strided over the blocks the device
+// holds at once; after the grid-wide barrier every block adds its share of
+// the n_dw entries of dw over the partials in order. Refused (and nothing
+// of it runs) when its grid cannot be resident at once.
+inline cudaError_t launch_wgmma_coop(Gemm g, float* dw, int n_dw,
+                                     cudaStream_t stream) {
+  prepare<true, false>(g);
+  int blocks = 0;
+  cudaError_t err = coop_coresident(&blocks);
+  if (err != cudaSuccess) return err;
+  const long long items = gemm_items(g, kWgBM, kWgBN);
+  if (items < blocks) blocks = (int)items;
+  if (blocks < 1) return cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&g, &dw, &n_dw};
+  err = cudaLaunchCooperativeKernel(coop_kernel(), dim3(blocks),
+                                    dim3(kWgThreads), args, kWgSmem, stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves no error behind
+    return err;
+  }
   return cudaGetLastError();
 }
 

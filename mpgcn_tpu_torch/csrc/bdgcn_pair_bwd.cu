@@ -42,43 +42,12 @@
 
 #include "bdgcn_gemm.cuh"
 
-namespace {
-
-// the dW product on the wgmma engine: A (h1[o]^T) contiguous along its rows
-// l, B (Z_d) along its columns h
-const void* dw_kernel() {
-  return (const void*)tf32_wgmma_kernel<true, false, true>;
-}
-// work items (row chunk, tile) per block the device holds at once
-constexpr int kDwWaves = 2;
-
-long long dw_tiles(int K, int C, int H) {
-  return (((long long)K * C + kWgBM - 1) / kWgBM) *
-         (((long long)K * H + kWgBN - 1) / kWgBN);
-}
-
-// The most blocks of the dW kernel the current device holds at once, with
-// the shared memory it launches with.
-cudaError_t dw_coresident(int* blocks) {
-  cudaError_t err = allow_smem(dw_kernel(), kWgSmem);
-  if (err != cudaSuccess) return err;
-  return max_coresident(dw_kernel(), kWgThreads, kWgSmem, blocks);
-}
-
-}  // namespace
-
 // The P (row chunks of the dW product) that bdgcn_pair_bwd_f32's dW
-// launch runs in about kDwWaves rounds of its grid, the blocks the current
-// device holds at once with the dW kernel's shared memory: kDwWaves x the
-// co-resident blocks over the tiles of (K C, K H), at least 1. Any P runs
-// (the work items are strided over the grid); more only adds partials.
+// launch runs in about kCoopWaves rounds of its grid (coop_chunks over the
+// tiles of (K C, K H)). Any P runs; more only adds partials.
 extern "C" int bdgcn_pair_bwd_max_blocks(int K, int C, int H, int* out) {
   if (K < 1 || C < 1 || H < 1) return cudaErrorInvalidValue;
-  int blocks = 0;
-  cudaError_t err = dw_coresident(&blocks);
-  const long long per = (long long)kDwWaves * blocks / dw_tiles(K, C, H);
-  *out = per > 1 ? (int)(per < 65535 ? per : 65535) : 1;
-  return err;
+  return coop_chunks((long long)K * C, (long long)K * H, out);
 }
 
 // dh1 (K, B, M, N, C) and dW (K, K, C, H), through the partials dw_part
@@ -161,21 +130,5 @@ extern "C" int bdgcn_pair_bwd_f32(const void* h1, const void* g,
   p3.k = (int)R;
   // chunks of whole 16-byte runs of rows
   p3.k_chunk = (int)((R + P - 1) / P + 3) / 4 * 4;
-  prepare<true, false>(p3);
-  int blocks = 0;
-  err = dw_coresident(&blocks);
-  if (err != cudaSuccess) return err;
-  const long long items = gemm_items(p3, kWgBM, kWgBN);
-  if (items < blocks) blocks = (int)items;
-  if (blocks < 1) return cudaErrorCooperativeLaunchTooLarge;
-  float* dwp = static_cast<float*>(dw);
-  int n_dw = K * K * C * H;
-  void* args[] = {&p3, &dwp, &n_dw};
-  err = cudaLaunchCooperativeKernel(dw_kernel(), dim3(blocks),
-                                    dim3(kWgThreads), args, kWgSmem, s);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // a refused launch leaves no error behind
-    return err;
-  }
-  return cudaGetLastError();
+  return launch_wgmma_coop(p3, static_cast<float*>(dw), K * K * C * H, s);
 }

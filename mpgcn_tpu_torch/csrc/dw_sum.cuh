@@ -1,10 +1,12 @@
-// The fixed-order sum of per-block dW partials that the two backward kernels
+// The fixed-order sum of per-block dW partials that the two backward entries
 // (lstm_train.cu's BPTT and bdgcn_pair_bwd.cu's dW product) run after a
 // grid-wide barrier, inside the launch that wrote the partials.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "smem.cuh"
 
 namespace {
 
@@ -54,22 +56,6 @@ __device__ __forceinline__ void sum_partials(const float* part, float* out,
     }
     if (tid < w) out[e0 + tid] = s;
   }
-}
-
-// The most blocks of `kernel` (block threads, dynamic shared memory smem)
-// that the current device holds at once: the largest grid a cooperative
-// launch of it takes.
-inline cudaError_t max_coresident(const void* kernel, int threads,
-                                  size_t smem, int* out) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        threads, smem);
-  *out = per_sm * sms;
-  return err;
 }
 
 }  // namespace

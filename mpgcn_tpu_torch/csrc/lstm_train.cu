@@ -9,10 +9,11 @@
 //   lstm_train_fwd_f32   x_proj (T, R, 4H), w_hh_T (H, 4H) -> hs, cs (T, R, H)
 //   lstm_train_bwd_f32   x_proj, w_hh_T, hs, cs, dhs, dcs (T, R, H; a null
 //                        dhs or dcs means zero) -> dx_proj (T, R, 4H) and
-//                        dW_hh^T (H, 4H), through per-block partials
-//                        (P, H, 4H) that the same launch sums in order
-//   lstm_train_bwd_max_blocks   the most BPTT blocks that can be resident
-//                        at once on the current device (the bound on P)
+//                        dW_hh^T (H, 4H), through partials (P, H, 4H) that
+//                        the same entry sums in order; 2 R H floats of
+//                        scratch on the engine path (see Widths)
+//   lstm_train_bwd_max_blocks   the P it takes on the current device
+//   lstm_train_bwd_engine       1 where it runs the engine path
 //
 //   gates = x_proj_t + h_{t-1} @ w_hh_T, torch order i, f, g, o;
 //   c_t = f * c_{t-1} + i * g;  h_t = o * tanh(c_t).
@@ -53,28 +54,42 @@
 // Widths. The two kernels above keep w_hh^T (and the BPTT its dW_hh^T
 // sum) in shared memory: the forward fits to H = 118, the BPTT to H = 81
 // on the H100, the reference H = 32 among them, and there they run as they
-// always did. Past that, each entry takes a second kernel, chosen per call
-// from H and the device's shared-memory limit (a separate kernel, not a
-// branch inside the resident one, so the resident kernels' registers and
-// schedule stay as they were):
-//   - the forward, lstm_fwd_wide_kernel of lstm_wide.cuh (w_hh^T read
+// always did. Past that (chosen per call from H and the device's shared-
+// memory limit):
+//   - the forward takes lstm_fwd_wide_kernel of lstm_wide.cuh (w_hh^T read
 //     through the read-only cache at every step);
-//   - the BPTT, lstm_train_bwd_wide_kernel: phase 1 is the recurrence as
-//     above, with w_hh^T read from device memory (coalesced gate columns
-//     for the gates, a warp per row for dh) and dh, dc carried in shared
-//     memory, writing dgates to dx_proj only; phase 2 forms the block's
-//     dW_hh^T partial, sum over its own rows and t >= 1 of
-//     h_{t-1} (x) dx_proj_t, in 32 x 64 output tiles of 4 x 4 register
-//     micro-tiles from 32 staged rows at a time (its own dx_proj writes,
-//     visible after a block barrier); after the grid-wide barrier, phase 3
-//     is the same ordered sum of the partials (dw_sum.cuh). Still one
-//     cooperative launch, no atomics.
+//   - the BPTT runs on the split-TF32 products of bdgcn_gemm.cuh. Of its
+//     three products only dh_{t-1} = dgates_t W_hh is sequential in time:
+//     the recomputed gates need only hs, complete before the backward
+//     starts, and dW_hh^T is a sum over every (t, r). So one entry runs
+//     four steps on its stream, 2T + 1 launches:
+//       1. pre-activations h_{t-1} w_hh_T for every t >= 1 at once, one
+//          product over (T-1) R rows of hs (wgmma), written straight into
+//          dx_proj rows R..TR (about to be overwritten with dgates);
+//       2. for t = T-1..0, lstm_cell_bwd_kernel: the cell's backward for
+//          every (r, j), dgates written over dx_proj_t in place, the dc
+//          carry updated in place (2 R H floats of dh and dc carries, in
+//          scratch the caller allocates; zero at t = T-1 without a memset);
+//       3. for t >= 1, dh_{t-1} = dgates_t W_hh into the dh carry, on
+//          mma.sync's 64 x 64 tiles: at the wide training shape (R = 8,836,
+//          H = 128) wgmma's 128 x 128 tiles would give 70 blocks for the
+//          132 SMs, mma.sync's give 276;
+//       4. dW_hh^T = sum over t >= 1 of h_{t-1}^T dgates_t, one product
+//          over (T-1) R depths on the cooperative wgmma instance: P depth
+//          chunks, each a partial, summed in the order p = 0..P-1 after a
+//          grid-wide barrier in the same launch (dw_sum.cuh). No atomics.
+//     No shared-memory limit on H. At the wide training shape (T = 7, R =
+//     8,836, H = 128) the three products are 3 x 6.95 GFLOP, 0.13 ms at
+//     the TF32 rate for their 3 split products; the cell steps move about
+//     80 MB each.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "bdgcn_gemm.cuh"
 #include "dw_sum.cuh"
 #include "lstm_wide.cuh"
+#include "smem.cuh"
 
 namespace {
 
@@ -297,238 +312,47 @@ __global__ void lstm_train_bwd_kernel(
                tid, nthreads, smem, H * ws + tile_rows * (H + G) + H * G);
 }
 
-// The tile a block takes at its round `it` of ntiles row tiles over P
-// blocks: tiles b, b + P, ... for the rounds all blocks fill; the last
-// round's `extra` tiles go to blocks spread evenly over the grid (block
-// floor(k P / extra) takes tile k of it). Returns the block's tile count.
-__device__ __forceinline__ int my_tile_count(int ntiles, int P, int b,
-                                             int* k_extra_out) {
-  const int full = ntiles / P, extra = ntiles - full * P;
-  const int k_extra = (int)(((long long)b * extra + P - 1) / P);
-  const bool has_extra =
-      k_extra < extra && (long long)k_extra * P / extra == b;
-  *k_extra_out = k_extra;
-  return full + (has_extra ? 1 : 0);
-}
-
-__device__ __forceinline__ int my_tile(int it, int ntiles, int P, int b,
-                                       int k_extra) {
-  const int full = ntiles / P;
-  return it < full ? it * P + b : full * P + k_extra;
-}
-
-constexpr int kDwRows = 32;   // staged rows per dW step (phase 2)
-constexpr int kDwK = 32;      // dW_hh^T output tile: kDwK x kDwC, in 4 x 4
-constexpr int kDwC = 64;      // micro-tiles, one for each of 128 threads
-
-__global__ void lstm_train_bwd_wide_kernel(
-    const float* __restrict__ xp, const float* __restrict__ whhT,
-    const float* __restrict__ hs, const float* __restrict__ cs,
+// The cell's backward (_cell_bwd) of step t for every (r, j) of the rows:
+// the gates are x_proj_t plus the recurrent pre-activations that the gate
+// product wrote into dx_proj_t (pre; none at t = 0, where h_{-1} = 0), and
+// dgates are written over dx_proj_t in place: one thread reads all four
+// gate columns of its (r, j) before it writes them. dh and dc are the
+// carries from step t + 1 (not read at t = T - 1, first: zero there); dc
+// is updated in place. cp is c_{t-1} (null at t = 0), dhs_t, dcs_t may be
+// null (zero).
+__global__ void lstm_cell_bwd_kernel(
+    const float* __restrict__ xp, float* __restrict__ dxp, int pre,
+    const float* __restrict__ ct, const float* __restrict__ cp,
     const float* __restrict__ dhs, const float* __restrict__ dcs,
-    float* __restrict__ dxp, float* __restrict__ dw_part,
-    float* __restrict__ dw_out, int T, int R, int H) {
-  extern __shared__ float smem[];
-  const int G = 4 * H;
-  const int bx = blockDim.x;
-  const int tile_rows = blockDim.y * kRowsPerThread;
-  float* hp = smem;                 // (tile_rows, H): h_{t-1} of the tile
-  float* dg = hp + tile_rows * H;   // (tile_rows, 4H): dgates of the tile
-  float* dhc = dg + tile_rows * G;  // (tile_rows, H): dh carried to t-1
-  float* dcc = dhc + tile_rows * H;  // (tile_rows, H): dc carried to t-1
-
-  const int tid = threadIdx.y * bx + threadIdx.x;
-  const int nthreads = bx * blockDim.y;
-  const int warp = tid / 32, lane = tid % 32;
-  const int nwarps = nthreads / 32;  // full warps (at least 4: H > 81)
-  const int lr0 = threadIdx.y * kRowsPerThread;
-  const int ntiles = (R + tile_rows - 1) / tile_rows;
-  const int P = gridDim.x, b = blockIdx.x;
-  int k_extra;
-  const int my_tiles = my_tile_count(ntiles, P, b, &k_extra);
-
-  // phase 1: the recurrence, dgates to dx_proj
-  for (int it = 0; it < my_tiles; ++it) {
-    const int tile0 = my_tile(it, ntiles, P, b, k_extra) * tile_rows;
-    const int row0 = tile0 + lr0;
-    for (int j = threadIdx.x; j < H; j += bx)
+    const float* __restrict__ dh, float* __restrict__ dc, int first, int R,
+    int H) {
+  const long long n = (long long)R * H;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const long long r = i / H;
+    const long long o = r * 4 * H + (i - r * H);
+    float a[4];
 #pragma unroll
-      for (int q = 0; q < kRowsPerThread; ++q)
-        dhc[(lr0 + q) * H + j] = dcc[(lr0 + q) * H + j] = 0.0f;
-
-    for (int t = T - 1; t >= 0; --t) {
-      __syncthreads();  // last step's readers of hp and dg are done
-      for (int i = tid; i < tile_rows * H; i += nthreads) {
-        const int r = tile0 + i / H;
-        hp[i] = (t > 0 && r < R)
-                    ? hs[((size_t)(t - 1) * R + r) * H + i % H]
-                    : 0.0f;
-      }
-      __syncthreads();
-
-      for (int j = threadIdx.x; j < H; j += bx) {
-        // recompute the gates: x_proj_t + h_{t-1} @ w_hh_T
-        float acc[kRowsPerThread][4];
-#pragma unroll
-        for (int q = 0; q < kRowsPerThread; ++q) {
-          const int r = row0 + q;
-          const float* xr = xp + ((size_t)t * R + r) * G;
-#pragma unroll
-          for (int g = 0; g < 4; ++g)
-            acc[q][g] = r < R ? xr[g * H + j] : 0.0f;
-        }
-        for (int k = 0; k < H; ++k) {
-          const float* wk = whhT + (size_t)k * G + j;
-          const float w0 = __ldg(wk), w1 = __ldg(wk + H),
-                      w2 = __ldg(wk + 2 * H), w3 = __ldg(wk + 3 * H);
-#pragma unroll
-          for (int q = 0; q < kRowsPerThread; ++q) {
-            const float hk = hp[(lr0 + q) * H + k];
-            acc[q][0] = fmaf(hk, w0, acc[q][0]);
-            acc[q][1] = fmaf(hk, w1, acc[q][1]);
-            acc[q][2] = fmaf(hk, w2, acc[q][2]);
-            acc[q][3] = fmaf(hk, w3, acc[q][3]);
-          }
-        }
-        // the cell's backward (_cell_bwd)
-#pragma unroll
-        for (int q = 0; q < kRowsPerThread; ++q) {
-          const int r = row0 + q;
-          const bool valid = r < R;
-          const size_t o = ((size_t)t * R + r) * H + j;
-          const float ig = sigmoidf(acc[q][0]);
-          const float fg = sigmoidf(acc[q][1]);
-          const float gg = tanhf(acc[q][2]);
-          const float og = sigmoidf(acc[q][3]);
-          const float ct = valid ? cs[o] : 0.0f;
-          const float cp = (valid && t > 0) ? cs[o - (size_t)R * H] : 0.0f;
-          const int s = (lr0 + q) * H + j;
-          const float dh = dhc[s] + ((valid && dhs) ? dhs[o] : 0.0f);
-          const float dc = dcc[s] + ((valid && dcs) ? dcs[o] : 0.0f);
-          const float tc = tanhf(ct);
-          const float d_o = dh * tc;
-          const float dct = dc + dh * og * (1.0f - tc * tc);
-          dcc[s] = dct * fg;
-          float dgate[4];
-          dgate[0] = dct * gg * ig * (1.0f - ig);
-          dgate[1] = dct * cp * fg * (1.0f - fg);
-          dgate[2] = dct * ig * (1.0f - gg * gg);
-          dgate[3] = d_o * og * (1.0f - og);
-          float* dgr = dg + (lr0 + q) * G + j;
-#pragma unroll
-          for (int g = 0; g < 4; ++g) {
-            const float v = valid ? dgate[g] : 0.0f;
-            dgr[g * H] = v;
-            if (valid) dxp[((size_t)t * R + r) * G + g * H + j] = v;
-          }
-        }
-      }
-      if (t == 0) continue;  // dh_{-1} is not needed
-      __syncthreads();
-
-      // dh_{t-1} = dgates @ W_hh: a warp per hidden unit j, its lanes over
-      // the 4H columns of row j of w_hh_T (coalesced), summed by shuffles
-      if (warp < nwarps) {
-        for (int j = warp; j < H; j += nwarps) {
-          const float* wj = whhT + (size_t)j * G;
-          for (int q0 = 0; q0 < tile_rows; q0 += kRowsPerThread) {
-            float s[kRowsPerThread];
-#pragma unroll
-            for (int q = 0; q < kRowsPerThread; ++q) s[q] = 0.0f;
-            for (int col = lane; col < G; col += 32) {
-              const float wv = __ldg(wj + col);
-#pragma unroll
-              for (int q = 0; q < kRowsPerThread; ++q)
-                s[q] = fmaf(dg[(q0 + q) * G + col], wv, s[q]);
-            }
-#pragma unroll
-            for (int q = 0; q < kRowsPerThread; ++q) {
-#pragma unroll
-              for (int o = 16; o > 0; o >>= 1)
-                s[q] += __shfl_xor_sync(0xffffffffu, s[q], o);
-            }
-            if (lane == 0) {
-#pragma unroll
-              for (int q = 0; q < kRowsPerThread; ++q)
-                dhc[(q0 + q) * H + j] = s[q];
-            }
-          }
-        }
-      }
-    }
+    for (int g = 0; g < 4; ++g)
+      a[g] = pre ? xp[o + g * H] + dxp[o + g * H] : xp[o + g * H];
+    const float ig = sigmoidf(a[0]);
+    const float fg = sigmoidf(a[1]);
+    const float gg = tanhf(a[2]);
+    const float og = sigmoidf(a[3]);
+    const float c_t = ct[i];
+    const float c_p = cp ? cp[i] : 0.0f;
+    const float dhv = (first ? 0.0f : dh[i]) + (dhs ? dhs[i] : 0.0f);
+    const float dcv = (first ? 0.0f : dc[i]) + (dcs ? dcs[i] : 0.0f);
+    const float tc = tanhf(c_t);
+    const float d_o = dhv * tc;
+    const float dct = dcv + dhv * og * (1.0f - tc * tc);
+    dc[i] = dct * fg;
+    dxp[o] = dct * gg * ig * (1.0f - ig);
+    dxp[o + H] = dct * c_p * fg * (1.0f - fg);
+    dxp[o + 2 * H] = dct * ig * (1.0f - gg * gg);
+    dxp[o + 3 * H] = d_o * og * (1.0f - og);
   }
-
-  // phase 2: this block's partial, sum over its rows and t >= 1 of
-  // h_{t-1}^T dx_proj_t, by kDwK x kDwC tiles of dW_hh^T, a 4 x 4
-  // micro-tile for each of the first 128 threads; the staged rows u run
-  // over (tile, t, row of the tile)
-  float* hsm = smem;                  // (kDwRows, kDwK): h_{t-1}
-  float* dsm = hsm + kDwRows * kDwK;  // (kDwRows, kDwC): dx_proj_t
-  const int per_tile = (T - 1) * tile_rows;
-  const int n_u = my_tiles * per_tile;
-  const int ty = tid / (kDwC / 4), tx = tid % (kDwC / 4);
-  float* part = dw_part + (size_t)b * H * G;
-  for (int k0 = 0; k0 < H; k0 += kDwK) {
-    for (int c0 = 0; c0 < G; c0 += kDwC) {
-      float acc[4][4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] = 0.0f;
-      for (int u0 = 0; u0 < n_u; u0 += kDwRows) {
-        __syncthreads();  // the previous stage's (or phase 1's) readers
-        for (int i = tid; i < kDwRows * kDwC; i += nthreads) {
-          const int uu = i / kDwC, cc = i - uu * kDwC;
-          const int u = u0 + uu;
-          float hv = 0.0f, dv = 0.0f;
-          if (u < n_u) {
-            const int it = u / per_tile, rem = u - it * per_tile;
-            const int t = 1 + rem / tile_rows;
-            const int r = my_tile(it, ntiles, P, b, k_extra) * tile_rows +
-                          rem % tile_rows;
-            if (r < R) {
-              if (cc < kDwK && k0 + cc < H)
-                hv = hs[((size_t)(t - 1) * R + r) * H + k0 + cc];
-              if (c0 + cc < G) dv = dxp[((size_t)t * R + r) * G + c0 + cc];
-            }
-          }
-          if (cc < kDwK) hsm[uu * kDwK + cc] = hv;
-          dsm[i] = dv;
-        }
-        __syncthreads();
-        if (tid < kDwK * kDwC / 16) {
-          const int nr = min(kDwRows, n_u - u0);
-          for (int uu = 0; uu < nr; ++uu) {
-            const float4 hv =
-                *reinterpret_cast<const float4*>(hsm + uu * kDwK + ty * 4);
-            const float4 dv =
-                *reinterpret_cast<const float4*>(dsm + uu * kDwC + tx * 4);
-            const float h4[4] = {hv.x, hv.y, hv.z, hv.w};
-            const float d4[4] = {dv.x, dv.y, dv.z, dv.w};
-#pragma unroll
-            for (int a = 0; a < 4; ++a)
-#pragma unroll
-              for (int c = 0; c < 4; ++c)
-                acc[a][c] = fmaf(h4[a], d4[c], acc[a][c]);
-          }
-        }
-      }
-      if (tid < kDwK * kDwC / 16) {
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int k = k0 + ty * 4 + a;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int col = c0 + tx * 4 + c;
-            if (k < H && col < G) part[(size_t)k * G + col] = acc[a][c];
-          }
-        }
-      }
-    }
-  }
-  // phase 3: every block's partial is written; each sums its share
-  cooperative_groups::this_grid().sync();
-  const int cap = max(7 * tile_rows * H, kDwRows * (kDwK + kDwC));
-  sum_partials(dw_part, dw_out, P, H * G, b, P, tid, nthreads, smem, cap);
 }
 
 }  // namespace
@@ -560,77 +384,189 @@ extern "C" int lstm_train_fwd_f32(const void* xp, const void* whhT, void* hs,
 namespace {
 
 size_t bwd_smem_bytes(int H) {
-  const int tile_rows = rows_y_for(H) * kRowsPerThread;
-  const int G = 4 * H;
-  return (size_t)(H * (G + 1) + tile_rows * H + tile_rows * G + H * G) *
+  const size_t tile_rows = (size_t)rows_y_for(H) * kRowsPerThread;
+  const size_t h = H, g = 4 * h;
+  return (h * (g + 1) + tile_rows * h + tile_rows * g + h * g) *
          sizeof(float);
 }
 
-// Phase 1 needs 7 x tile_rows x H floats; phases 2 and 3 at least the
-// staged operands of a dW tile.
-size_t bwd_wide_smem_bytes(int H) {
-  const size_t phase1 = (size_t)7 * rows_y_for(H) * kRowsPerThread * H;
-  const size_t phase2 = kDwRows * (kDwK + kDwC);
-  return (phase1 > phase2 ? phase1 : phase2) * sizeof(float);
-}
-
-// The kernel of the BPTT at width H, its block and its shared memory: the
-// resident one where its shared memory fits a block, else the wide one.
-struct BwdPlan {
-  const void* kernel;
-  dim3 block;
-  size_t smem;
-};
-
-cudaError_t bwd_plan(int H, BwdPlan* plan) {
+// True where the resident BPTT's shared memory does not fit a block: the
+// products run on the engine of bdgcn_gemm.cuh.
+cudaError_t bwd_on_engine(int H, bool* engine) {
   bool resident = false;
   cudaError_t err = smem_fits(bwd_smem_bytes(H), &resident);
+  *engine = !resident;
+  return err;
+}
+
+cudaError_t allow_resident_bwd(int H) {
+  return allow_smem((const void*)lstm_train_bwd_kernel, bwd_smem_bytes(H));
+}
+
+constexpr int kCellThreads = 256;
+
+// The engine path of lstm_train_bwd_f32 (the four steps in the header),
+// every launch on stream s.
+cudaError_t bwd_engine(const float* xp, const float* whhT, const float* hs,
+                       const float* cs, const float* dhs, const float* dcs,
+                       float* dxp, float* dw_part, float* dw, float* scratch,
+                       int T, int R, int H, int P, cudaStream_t s) {
+  const int G = 4 * H;
+  const long long RG = (long long)R * G, RH = (long long)R * H;
+  float* dh = scratch;
+  float* dc = scratch + RH;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  if (resident) {
-    *plan = {(const void*)lstm_train_bwd_kernel, dim3(H, rows_y_for(H)),
-             bwd_smem_bytes(H)};
-  } else {
-    *plan = {(const void*)lstm_train_bwd_wide_kernel,
-             dim3(wide_bx(H), rows_y_for(H)), bwd_wide_smem_bytes(H)};
-    bool fits = false;
-    err = smem_fits(plan->smem, &fits);
+
+  // 1. pre[t, r, g] = sum_k hs[t-1, r, k] w_hh_T[k, g] for t >= 1, into
+  //    dx_proj rows R..TR
+  if (T > 1) {
+    Gemm p{};
+    p.a = hs;
+    p.b = whhT;
+    p.c = dxp + RG;
+    p.ai = flat(H);  // (t-1, r)
+    p.ak = flat(1);  // k
+    p.bk = flat(G);  // k
+    p.bn = flat(1);  // g
+    p.ci = flat(G);  // (t, r)
+    p.cn = flat(1);  // g
+    p.za = p.zb = p.zc = flat(0);
+    p.m = (long long)(T - 1) * R;
+    p.batches = 1;
+    p.n = G;
+    p.k = H;
+    err = launch_wgmma<false, false>(p, s);
     if (err != cudaSuccess) return err;
-    if (!fits) return cudaErrorInvalidValue;
   }
-  return allow_smem(plan->kernel, plan->smem);
+
+  // 2, 3. the reverse loop: the cell's backward, then dh_{t-1} = dgates_t
+  //       W_hh (contracting the 4H axis: w_hh_T read as (k = g, n = j))
+  Gemm d{};
+  d.b = whhT;
+  d.c = dh;
+  d.ai = flat(G);  // r
+  d.ak = flat(1);  // g
+  d.bk = flat(1);  // g
+  d.bn = flat(G);  // j
+  d.ci = flat(H);  // r
+  d.cn = flat(1);  // j
+  d.za = d.zb = d.zc = flat(0);
+  d.m = R;
+  d.batches = 1;
+  d.n = H;
+  d.k = G;
+  const long long cells = (RH + kCellThreads - 1) / kCellThreads;
+  const int cell_blocks = (int)(cells < 32LL * sms ? cells : 32LL * sms);
+  for (int t = T - 1; t >= 0; --t) {
+    float* dxp_t = dxp + t * RG;
+    lstm_cell_bwd_kernel<<<cell_blocks, kCellThreads, 0, s>>>(
+        xp + t * RG, dxp_t, t > 0, cs + t * RH,
+        t > 0 ? cs + (t - 1) * RH : nullptr, dhs ? dhs + t * RH : nullptr,
+        dcs ? dcs + t * RH : nullptr, dh, dc, t == T - 1, R, H);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || t == 0) break;
+    d.a = dxp_t;
+    err = launch_gemm<false, true>(d, s);
+    if (err != cudaSuccess) return err;
+  }
+  if (err != cudaSuccess) return err;
+
+  // 4. dW_hh^T[k, g] = sum over (t >= 1, r) of hs[t-1, r, k] dgates[t, r, g],
+  //    P depth chunks, then their ordered sum, in one cooperative launch
+  if (T == 1) {  // no depth: the partials and dW are zeros
+    err = cudaMemsetAsync(dw_part, 0, sizeof(float) * P * H * G, s);
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(dw, 0, sizeof(float) * H * G, s);
+    return err;
+  }
+  Gemm w{};
+  w.a = hs;
+  w.b = dxp + RG;
+  w.c = dw_part;
+  w.ai = flat(1);  // k
+  w.ak = flat(H);  // (t-1, r)
+  w.bk = flat(G);  // (t, r)
+  w.bn = flat(1);  // g
+  w.ci = flat(G);  // k
+  w.cn = flat(1);  // g
+  w.za = w.zb = flat(0);
+  w.zc = flat((long long)H * G);  // p
+  w.m = H;
+  w.batches = P;
+  w.n = G;
+  w.k = (T - 1) * R;
+  // chunks of whole 16-byte runs of depths
+  w.k_chunk = (int)(((long long)w.k + P - 1) / P + 3) / 4 * 4;
+  return launch_wgmma_coop(w, dw, H * G, s);
 }
 
 }  // namespace
 
-// The most BPTT blocks the current device holds at once at hidden width H:
-// the largest P that lstm_train_bwd_f32 takes.
-extern "C" int lstm_train_bwd_max_blocks(int H, int* out) {
+// 1 where lstm_train_bwd_f32 runs the engine path at hidden width H (and
+// takes 2 R H floats of scratch), 0 where it runs the resident kernel.
+extern "C" int lstm_train_bwd_engine(int H, int* out) {
   if (H < 1) return cudaErrorInvalidValue;
-  BwdPlan plan;
-  cudaError_t err = bwd_plan(H, &plan);
-  if (err != cudaSuccess) return err;
-  return max_coresident(plan.kernel, plan.block.x * plan.block.y, plan.smem,
-                        out);
+  bool engine = false;
+  cudaError_t err = bwd_on_engine(H, &engine);
+  *out = engine ? 1 : 0;
+  return err;
 }
 
-// P blocks stride over the row tiles and write their partials to dw_part
-// (P * H * 4H floats); after a grid-wide barrier they sum them into dw
-// (H * 4H). A cooperative launch: it is refused (and nothing runs) when the
-// P blocks cannot all be resident at once.
+// The P that lstm_train_bwd_f32 takes at hidden width H: on the resident
+// path the most BPTT blocks the current device holds at once (the launch
+// is cooperative); on the engine path the depth chunks of the dW product
+// that fill its cooperative grid about twice (coop_chunks), any P running.
+extern "C" int lstm_train_bwd_max_blocks(int H, int* out) {
+  if (H < 1) return cudaErrorInvalidValue;
+  bool engine = false;
+  cudaError_t err = bwd_on_engine(H, &engine);
+  if (err != cudaSuccess) return err;
+  if (engine) return coop_chunks(H, 4LL * H, out);
+  err = allow_resident_bwd(H);
+  if (err != cudaSuccess) return err;
+  return max_coresident((const void*)lstm_train_bwd_kernel,
+                        H * rows_y_for(H), bwd_smem_bytes(H), out);
+}
+
+// dx_proj (T, R, 4H) and dW_hh^T (H, 4H) through P partials dw_part
+// (P, H, 4H) that the same launch sums in order. The resident path: one
+// cooperative launch of P blocks striding over the row tiles, refused (and
+// nothing runs) when they cannot all be resident at once; scratch unused.
+// The engine path: 2T + 1 launches on the stream, scratch 2 R H floats,
+// the last launch cooperative and refused like the resident one.
 extern "C" int lstm_train_bwd_f32(const void* xp, const void* whhT,
                                   const void* hs, const void* cs,
                                   const void* dhs, const void* dcs, void* dxp,
-                                  void* dw_part, void* dw, int T, int R,
-                                  int H, int P, void* stream) {
-  if (T < 1 || R < 1 || H < 1 || P < 1) return cudaErrorInvalidValue;
-  BwdPlan plan;
-  cudaError_t err = bwd_plan(H, &plan);
+                                  void* dw_part, void* dw, void* scratch,
+                                  int T, int R, int H, int P, void* stream) {
+  if (T < 1 || R < 1 || H < 1 || P < 1 ||
+      (long long)T * R > 0x7fffffffLL || 16LL * H * H > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bool engine = false;
+  cudaError_t err = bwd_on_engine(H, &engine);
+  if (err != cudaSuccess) return err;
+  if (engine) {
+    if (scratch == nullptr || P > 65535) return cudaErrorInvalidValue;
+    return bwd_engine(
+        static_cast<const float*>(xp), static_cast<const float*>(whhT),
+        static_cast<const float*>(hs), static_cast<const float*>(cs),
+        static_cast<const float*>(dhs), static_cast<const float*>(dcs),
+        static_cast<float*>(dxp), static_cast<float*>(dw_part),
+        static_cast<float*>(dw), static_cast<float*>(scratch), T, R, H, P,
+        s);
+  }
+  err = allow_resident_bwd(H);
   if (err != cudaSuccess) return err;
   void* args[] = {&xp, &whhT, &hs, &cs, &dhs, &dcs, &dxp, &dw_part, &dw,
                   &T, &R, &H};
-  err = cudaLaunchCooperativeKernel(plan.kernel, dim3(P), plan.block, args,
-                                    plan.smem,
-                                    static_cast<cudaStream_t>(stream));
+  err = cudaLaunchCooperativeKernel(
+      (const void*)lstm_train_bwd_kernel, dim3(P), dim3(H, rows_y_for(H)),
+      args, bwd_smem_bytes(H), s);
   if (err != cudaSuccess) {
     cudaGetLastError();  // a refused launch leaves no error behind
     return err;

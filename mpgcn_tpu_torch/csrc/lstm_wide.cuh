@@ -20,6 +20,8 @@
 
 #include <cuda_runtime.h>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr int kRowsPerThread = 4;
@@ -42,27 +44,6 @@ inline int wide_bx(int H) { return H < kThreadsTarget ? H : kThreadsTarget; }
 
 inline size_t wide_fwd_smem_bytes(int H) {
   return (size_t)3 * rows_y_for(H) * kRowsPerThread * H * sizeof(float);
-}
-
-// True when a kernel needing smem bytes of dynamic shared memory fits a
-// block of the current device (48 KB always does, without asking it).
-inline cudaError_t smem_fits(size_t smem, bool* fits) {
-  *fits = true;
-  if (smem <= 48 * 1024) return cudaSuccess;
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  *fits = err == cudaSuccess && smem <= (size_t)optin;
-  return err;
-}
-
-inline cudaError_t allow_smem(const void* kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
 }
 
 // kFwdLast writes h_T to out0 (R, H); kFwdCollect every h_t to out0

@@ -9,16 +9,19 @@ replaces ``_make_last_kernel``, ``lstm_infer_collect_f32`` replaces
 ``lstm_layer_infer_plain``, the same function in plain PyTorch. There is
 no fallback: a CUDA tensor the kernel does not take raises. Every hidden
 width H >= 1 is taken: where w_hh^T does not fit a block's shared memory
-the entries launch their wide kernel (``csrc/lstm_wide.cuh``, and the
-wide BPTT of ``csrc/lstm_train.cu``) instead of the resident one.
+the forward entries launch their wide kernel (``csrc/lstm_wide.cuh``)
+instead of the resident one, and the BPTT runs its products on the
+split-TF32 engine of ``csrc/bdgcn_gemm.cuh`` (the gate recompute and
+dW_hh^T each one product over every time step, only dh stepping through
+time; see ``csrc/lstm_train.cu``).
 
 The training path goes through ``LSTMLayerFn``: its forward
 ``lstm_layer_train`` stores hs and cs (``lstm_train_fwd_f32`` of
 ``csrc/lstm_train.cu`` replaces ``_lstm_fwd_kernel``), and its backward
 ``lstm_layer_bwd`` runs the reverse-time BPTT (``lstm_train_bwd_f32``
-replaces ``_lstm_bwd_kernel``): one cooperative launch whose blocks write
-per-block dW_hh^T partials and then, after a grid-wide barrier, sum them
-in a fixed order (``dw_reduce_plain`` is that sum's plain version). The
+replaces ``_lstm_bwd_kernel``): one host call whose last (cooperative)
+launch writes dW_hh^T partials and then, after a grid-wide barrier, sums
+them in a fixed order (``dw_reduce_plain`` is that sum's plain version). The
 JAX package sends small row counts to an XLA scan instead of its backward
 kernel; this port has no such switch: a CUDA tensor always launches the
 backward kernel.
@@ -42,13 +45,12 @@ LSTM_INFER_COLLECT = CudaKernel("lstm_infer", "lstm_infer_collect_f32",
 LSTM_TRAIN_FWD = CudaKernel("lstm_train", "lstm_train_fwd_f32",
                             n_ptrs=4, n_ints=3)
 LSTM_TRAIN_BWD = CudaKernel("lstm_train", "lstm_train_bwd_f32",
-                            n_ptrs=9, n_ints=4)
+                            n_ptrs=10, n_ints=4)
 
-#: BPTT blocks per SM: the blocks stride over the row tiles, so the
-#: dW_hh^T partial buffer stays at about this many x SMs x H x 4H floats
+#: resident BPTT blocks per SM: the blocks stride over the row tiles, so
+#: the dW_hh^T partial buffer stays at about this many x SMs x H x 4H floats
 BWD_BLOCKS_PER_SM = 2
-#: at most this many bytes of dW_hh^T partials (P x H x 4H floats): the
-#: bound binds past H = 504 on 132 SMs (63 blocks at H = 1,030)
+#: at most this many bytes of dW_hh^T partials (P x H x 4H floats)
 BWD_PARTIAL_BYTES = 1 << 30
 
 
@@ -209,35 +211,55 @@ def lstm_layer_train(x_proj: torch.Tensor, w_hh_T: torch.Tensor):
 
 @functools.lru_cache(maxsize=None)
 def _max_bwd_blocks(index: int, H: int) -> int:
-    """The most BPTT blocks card ``index`` holds at once at width H."""
+    """The largest P of the BPTT on card ``index`` at width H."""
     return query_int("lstm_train", "lstm_train_bwd_max_blocks", (H,),
                      torch.device("cuda", index))
 
 
+@functools.lru_cache(maxsize=None)
+def bwd_on_engine(index: int, H: int) -> bool:
+    """True where the BPTT on card ``index`` runs its products on the
+    split-TF32 engine at width H (the resident kernel's shared memory does
+    not fit a block: H > 81 on the H100)."""
+    return bool(query_int("lstm_train", "lstm_train_bwd_engine", (H,),
+                          torch.device("cuda", index)))
+
+
 def bwd_blocks(R: int, H: int, device) -> int:
-    """Blocks of the BPTT launch: a few per SM, never more than row tiles
-    (both BPTT kernels' tile is 4 rows x max(1, 256 // H) thread rows), nor
-    than the card holds at once (the launch is cooperative), nor than
-    ``BWD_PARTIAL_BYTES`` of dW partials hold."""
+    """P of the BPTT, never more than ``BWD_PARTIAL_BYTES`` of dW partials
+    hold. The resident kernel: its blocks, a few per SM, never more than
+    its row tiles (4 rows x max(1, 256 // H) thread rows) nor than the card
+    holds at once (the launch is cooperative). The engine path: the dW
+    product's depth chunks, which fill its cooperative grid about twice."""
     index = device_index(device)
+    by_bytes = BWD_PARTIAL_BYTES // (16 * H * H)
+    if bwd_on_engine(index, H):
+        return max(1, min(by_bytes, _max_bwd_blocks(index, H)))
     tiles = -(-R // (max(1, 256 // H) * 4))
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    by_bytes = BWD_PARTIAL_BYTES // (16 * H * H)
     return max(1, min(tiles, BWD_BLOCKS_PER_SM * sms, by_bytes,
                       _max_bwd_blocks(index, H)))
+
+
+def bwd_scratch(R: int, H: int, device):
+    """The BPTT's scratch: the dh and dc carries (2, R, H) on the engine
+    path, None on the resident one."""
+    if not bwd_on_engine(device_index(device), H):
+        return None
+    return torch.empty((2, R, H), dtype=torch.float32, device=device)
 
 
 def lstm_layer_bwd(x_proj, w_hh_T, hs, cs, dhs, dcs):
     """Backward of one layer: the cotangents dhs, dcs of (hs, cs) (None
     means zero) -> (dx_proj (T, R, 4H), dw_hh_T (H, 4H)). CPU tensors take
-    the plain version; CUDA tensors launch ``lstm_train_bwd_f32``, BPTT and
-    dW sum in one launch."""
+    the plain version; CUDA tensors call ``lstm_train_bwd_f32``, BPTT and
+    dW sum in one host call."""
     return lstm_layer_bwd_partials(x_proj, w_hh_T, hs, cs, dhs, dcs)[:2]
 
 
 def lstm_layer_bwd_partials(x_proj, w_hh_T, hs, cs, dhs, dcs):
-    """``lstm_layer_bwd`` with the per-block dW_hh^T partials (P, H, 4H)
-    that its dW is the fixed-order sum of (``dw_reduce_plain(part)`` to the
+    """``lstm_layer_bwd`` with the dW_hh^T partials (P, H, 4H) that its dW
+    is the fixed-order sum of (``dw_reduce_plain(part)`` to the
     last bit). The plain version computes dW in one piece: on the CPU the
     partials are dW[None]."""
     if not _check_device(x_proj, "K-LSTM-train"):
@@ -262,7 +284,8 @@ def lstm_layer_bwd_partials(x_proj, w_hh_T, hs, cs, dhs, dcs):
     part = torch.empty((P, H, four_h), dtype=torch.float32,
                        device=x_proj.device)
     dw = torch.empty((H, four_h), dtype=torch.float32, device=x_proj.device)
-    LSTM_TRAIN_BWD.launch((*args, dxp, part, dw), (T, R, H, P))
+    scratch = bwd_scratch(R, H, x_proj.device)
+    LSTM_TRAIN_BWD.launch((*args, dxp, part, dw, scratch), (T, R, H, P))
     return dxp, dw, part
 
 

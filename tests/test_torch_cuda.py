@@ -206,11 +206,23 @@ def _close_scaled(out, ref):
                                atol=1e-6 * float(ref.abs().max()))
 
 
+#: the BPTT's engine path (H > 81) at its edges: one step (no recurrent
+#: product, no dW depth), 17 rows (under one tile of either engine), H = 97
+#: (hs rows not 16-byte aligned), and many tiles (R = 70,000 at H = 128:
+#: the dh product's 64 x 64 mma.sync tiles fill the 132 SMs 16 times over)
+ENGINE_BPTT = [(1, 1000, 128), (7, 17, 128), (3, 333, 97), (2, 70000, 128)]
+
+
 @pytest.mark.parametrize("with_dcs", [False, True])
 @pytest.mark.parametrize("T,R,H", [(7, 8836, 32), (7, 1001, 8),
                                    (5, 333, 64), (3, 17, 40)]
-                         + [(_T_OF.get(H, 7), R, H) for R, H in WIDE_LSTM])
+                         + [(_T_OF.get(H, 7), R, H) for R, H in WIDE_LSTM]
+                         + ENGINE_BPTT)
 def test_lstm_train_kernels_match_plain(cuda_device, T, R, H, with_dcs):
+    """Forward and BPTT against their plain versions, one host launch
+    each; dW bit-equal to dw_reduce_plain of its partials and, with
+    dx_proj, to a second run. H <= 81 takes the resident BPTT (no
+    scratch), H > 81 the split-TF32 engine path."""
     rng = np.random.default_rng(R + H)
     t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device)
     xp = t(rng.normal(size=(T, R, 4 * H)))
@@ -223,16 +235,22 @@ def test_lstm_train_kernels_match_plain(cuda_device, T, R, H, with_dcs):
     torch.testing.assert_close(cs, cp, **KERNEL_TOL)
     dhs = t(rng.normal(size=(T, R, H)))
     dcs = t(rng.normal(size=(T, R, H))) if with_dcs else None
-    dxp, dw = cuda_lstm.lstm_layer_bwd(xp, w, hs, cs, dhs, dcs)
+    dxp, dw, part = cuda_lstm.lstm_layer_bwd_partials(xp, w, hs, cs, dhs,
+                                                      dcs)
     torch.cuda.synchronize()
     assert [k.launches for k in (cuda_lstm.LSTM_TRAIN_FWD,
                                  cuda_lstm.LSTM_TRAIN_BWD)] == [
         b + 1 for b in before]
+    engine = cuda_lstm.bwd_on_engine(cuda_lstm.device_index(cuda_device), H)
+    assert engine == (H > 81)
+    assert (cuda_lstm.bwd_scratch(R, H, cuda_device) is None) != engine
     dxr, dwr = cuda_lstm.lstm_layer_bwd_plain(xp, w, hs, cs, dhs, dcs)
     torch.testing.assert_close(dxp, dxr, **KERNEL_TOL)
     _close_scaled(dw, dwr)
-    _, dw2 = cuda_lstm.lstm_layer_bwd(xp, w, hs, cs, dhs, dcs)
+    assert torch.equal(dw, cuda_lstm.dw_reduce_plain(part))
+    dxp2, dw2 = cuda_lstm.lstm_layer_bwd(xp, w, hs, cs, dhs, dcs)
     assert torch.equal(dw, dw2), "dW differs between two runs"
+    assert torch.equal(dxp, dxp2), "dx_proj differs between two runs"
 
 
 @pytest.mark.parametrize("dynamic", [False, True])
@@ -263,7 +281,8 @@ def test_bdgcn_bwd_kernel_matches_plain(cuda_device, dynamic, K, B, N, C, H,
                                          ("bdgcn", (3, 4, 47, 32, 32)),
                                          ("bdgcn", (5, 2, 33, 16, 64)),
                                          ("lstm", (7, 1000, 128)),
-                                         ("bdgcn", (7, 2, 20, 128, 128))])
+                                         ("bdgcn", (7, 2, 20, 128, 128)),
+                                         ("lstm", (5, 1000, 256))])
 def test_dw_reduce_kernel_matches_plain(cuda_device, entry, shape):
     """Each backward entry sums its per-block dW partials inside its own
     launch, in the plain version's order p = 0, 1, ...: its dW equals

@@ -190,16 +190,22 @@ def test_lstm_train_plain_matches_pallas_fwd():
     np.testing.assert_allclose(cs.numpy(), np.asarray(cs_ref), **LSTM_TOL)
 
 
-@pytest.mark.parametrize("with_dcs,ref,H", _cases(
-    [((dcs, ref, 8), f"{dcs}-{ref}") for dcs in (False, True)
+@pytest.mark.parametrize("with_dcs,ref,H,T", _cases(
+    [((dcs, ref, 8, 7), f"{dcs}-{ref}") for dcs in (False, True)
      for ref in ("pallas", "xla")]
-    + [((dcs, "pallas", WIDE_H), f"{dcs}-pallas-H128")
+    + [((dcs, "pallas", WIDE_H, 7), f"{dcs}-pallas-H128")
+       for dcs in (False, True)]
+    # one step (no recurrent product, no dW depth) at the engine path's
+    # width; H = 97, whose hs rows are not 16-byte aligned
+    + [((dcs, "pallas", WIDE_H, 1), f"{dcs}-pallas-H128-T1")
+       for dcs in (False, True)]
+    + [((dcs, "pallas", 97, 3), f"{dcs}-pallas-H97-T3")
        for dcs in (False, True)]))
-def test_lstm_bwd_plain_matches_jax(ref, with_dcs, H):
+def test_lstm_bwd_plain_matches_jax(ref, with_dcs, H, T):
     """The plain training forward and BPTT against the Pallas kernels (and
     the BPTT against the XLA backward)."""
     rng = np.random.default_rng(8)
-    xp, w = _lstm_train_inputs(rng, R=50 if H == 8 else 24, H=H)
+    xp, w = _lstm_train_inputs(rng, T=T, R=50 if H == 8 else 24, H=H)
     hs, cs = (np.array(a) for a in pallas_lstm._fused_layer_fwd_impl(
         jnp.asarray(xp), jnp.asarray(w), interpret=True))
     for ours, theirs in zip(cuda_lstm.lstm_layer_train_plain(
@@ -220,6 +226,59 @@ def test_lstm_bwd_plain_matches_jax(ref, with_dcs, H):
         t(xp), t(w), t(hs), t(cs), t(dhs), t(dcs) if with_dcs else None)
     np.testing.assert_allclose(dxp.numpy(), np.asarray(dxp_ref), **DX_TOL)
     np.testing.assert_allclose(dw.numpy(), np.asarray(dw_ref), **DW_TOL)
+
+
+def _lstm_bwd_engine_order(xp, w, hs, cs, dhs, dcs):
+    """The BPTT in the order of the card's engine path (csrc/lstm_train.cu,
+    H > 81): (1) the recurrent pre-activations of every t >= 1 as one
+    product over the (T-1) R rows of hs; (2) for t = T-1..0 the cell's
+    backward from x_proj_t + pre_t, then (3) dh_{t-1} = dgates_t W_hh for
+    t >= 1; (4) dW_hh^T as one product of hs rows 0..T-2 and dgates rows
+    R..TR over all (T-1) R of them."""
+    T, R, G = xp.shape
+    H = G // 4
+    pre = torch.zeros_like(xp)
+    pre[1:] = (hs[:-1].reshape(-1, H) @ w).reshape(T - 1, R, G)
+    dxp = torch.empty_like(xp)
+    dh = dc = torch.zeros((R, H), dtype=xp.dtype)
+    for t in reversed(range(T)):
+        a = xp[t] + pre[t]
+        i, f = torch.sigmoid(a[:, :H]), torch.sigmoid(a[:, H:2 * H])
+        g, o = torch.tanh(a[:, 2 * H:3 * H]), torch.sigmoid(a[:, 3 * H:])
+        cp = cs[t - 1] if t > 0 else torch.zeros_like(dh)
+        dhv = dh + (dhs[t] if dhs is not None else 0)
+        dcv = dc + (dcs[t] if dcs is not None else 0)
+        tc = torch.tanh(cs[t])
+        dct = dcv + dhv * o * (1 - tc * tc)
+        dc = dct * f
+        dxp[t] = torch.cat([dct * g * i * (1 - i), dct * cp * f * (1 - f),
+                            dct * i * (1 - g * g),
+                            dhv * tc * o * (1 - o)], dim=-1)
+        if t > 0:
+            dh = dxp[t] @ w.t()
+    dw = hs[:-1].reshape(-1, H).t() @ dxp[1:].reshape(-1, G)
+    return dxp, dw
+
+
+@pytest.mark.parametrize("T,R,H,with_dcs", [(7, 13, 12, False),
+                                            (7, 13, 12, True),
+                                            (1, 9, 8, True),
+                                            (3, 5, 97, False)])
+def test_lstm_bwd_engine_order_matches_plain(T, R, H, with_dcs):
+    """In float64 the engine path's order of the BPTT (gates from hs in one
+    product, the reverse loop of cell backward and dh, dW in one product
+    over all rows) computes what lstm_layer_bwd_plain computes step by
+    step, to 1e-12."""
+    rng = np.random.default_rng(T * 100 + H)
+    xp = torch.from_numpy(rng.normal(size=(T, R, 4 * H)))
+    w = torch.from_numpy(rng.normal(size=(H, 4 * H)) / np.sqrt(H))
+    hs, cs = cuda_lstm.lstm_layer_train_plain(xp, w)
+    dhs = torch.from_numpy(rng.normal(size=(T, R, H)))
+    dcs = torch.from_numpy(rng.normal(size=(T, R, H))) if with_dcs else None
+    dxp, dw = _lstm_bwd_engine_order(xp, w, hs, cs, dhs, dcs)
+    dxr, dwr = cuda_lstm.lstm_layer_bwd_plain(xp, w, hs, cs, dhs, dcs)
+    torch.testing.assert_close(dxp, dxr, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(dw, dwr, rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("dynamic,ref,wide", _cases(
