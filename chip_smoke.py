@@ -31,7 +31,8 @@ Phases, each fatal on failure:
      f32, bf16 and int8 tiles where the entry takes them) against their
      plain versions at the large-N shapes (the banks of the N=500, density
      0.05 configuration: stack 3 or 6, NB=63, MB=2, F=32,000 or 16,000)
-     and at odd sizes, the forward, dX and dBlocks twice (bit-equal);
+     and at odd sizes, the forward, dX and dBlocks twice (bit-equal), dX
+     and int8 dX at the static shape also against float64;
      dBlocks through torch.autograd.grad with respect to the tiles of a
      pad-free container;
   6. large-N train: MPGCN at N=500 (banded density 0.05, batch 2, hidden
@@ -49,8 +50,8 @@ Phases, each fatal on failure:
      single PyTorch library call, the rollout per bucket, the train step
      (N=47; N=500 on the ELL arm and on the dense kernel arm that "auto"
      passes over), and the device's busy share;
-  9. last, so that every phase above runs as it did without it: the wide
-     widths (the LSTM forwards' wide kernels and the BPTT's split-TF32
+  9. after them, so that every phase above runs as it did without it: the
+     wide widths (the LSTM forwards' wide kernels and the BPTT's split-TF32
      engine path; K-BDGCN's products at widths past the reference ones).
      The six LSTM and K-BDGCN
      entries against their plain versions at H = 65, 96, 128, 256 and
@@ -63,7 +64,10 @@ Phases, each fatal on failure:
      against float64, 20 training steps against the plain arms' losses,
      the CLI (one epoch and test mode, N = 20) through the kernels; and
      the six entries' times, the bucket-8 rollout and the train step at
-     the wide model's shapes.
+     the wide model's shapes;
+ 10. last, the N=500 train step on int8 tiles, and the LSTM entries'
+     times at the N=500 step's shapes (R = 500,000 sequences, T = 7,
+     H = 32) beside nn.LSTM at that batch.
 
 The second-to-last line is a JSON object listing each kernel; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a card, and
@@ -138,6 +142,8 @@ TRAIN_KERNELS = ("lstm_train_fwd", "lstm_train_bwd", "bdgcn_pair_bwd")
 ELL_TRAIN_KERNELS = ("ell_bwd_dx", "ell_bwd_dx_q", "ell_bwd_dblk")
 #: row blocks per row group of the ELL forward (csrc/ell_spmm.cu kGroupRB)
 FWD_GROUP_RB = 8
+#: F columns of one dX block's tile (csrc/ell_spmm.cu kDxTF)
+DX_TF = 128
 # the large-N configuration (benchmarks/large_n.py --format ell --density
 # 0.05): 60 synthetic days over 500 zones projected onto a band, batch 2
 LARGE_N = dict(synthetic_T=60, synthetic_N=500, batch_size=2)
@@ -565,36 +571,45 @@ def lstm_bwd_bound(T, R, H, engine):
                         f"3-split TF32 bound {tf32[0]:.5f} ms ({tf32[1]})")
 
 
-def device_activities(fn, n=5):
+def device_activities(fn, n=5, tries=3):
     """Device activities (kernels, copies, sets) per call of ``fn`` over
     ``n`` calls (torch.profiler): their number per call, and a note with
     each name's count and device time per call. The calls are recorded
     after a warm-up step whose trace is dropped: the profiler has been
-    seen to miss the first device activity of its window."""
+    seen to miss the first device activity of its window, and, once in a
+    run, to record no device activity at all in its window (every call
+    here launches at least one kernel): such a window is recorded again,
+    up to ``tries`` windows in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        prof.step()
     names = {}
-    for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)):
-            name = e.name.replace("void ", "").replace(
-                "(anonymous namespace)::", "").split("(")[0]
-            acc = names.setdefault(name, [0, 0.0])
-            acc[0] += 1
-            acc[1] += e.time_range.elapsed_us()
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        for e in prof.events():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)):
+                name = e.name.replace("void ", "").replace(
+                    "(anonymous namespace)::", "").split("(")[0]
+                acc = names.setdefault(name, [0, 0.0])
+                acc[0] += 1
+                acc[1] += e.time_range.elapsed_us()
+        if names:
+            break
+        print(f"[time] the profiler recorded no device activity in window "
+              f"{attempt + 1} of {tries}", flush=True)
     per_call = sum(v[0] for v in names.values()) / n
     return per_call, (f"{per_call:g} ("
                       + ", ".join(f"{k} x{c / n:g} {us / n:.1f} us"
@@ -1506,6 +1521,27 @@ def check_ell(tag, ell, X, dout, x_div, err):
           flush=True)
 
 
+def check_dx_float64(tag, ell, dout, x_div):
+    """ell_bwd_dx (or its int8 entry) against the plain version in float64
+    (tiles, scales and dout widened; the int8 codes are exact), at
+    ELL_TOL: the split-TF32 products and the f32 sums against the exact
+    sum."""
+    import torch
+
+    from mpgcn_tpu_torch.sparse import cuda_ell
+    from mpgcn_tpu_torch.sparse.kernels import flat_stack
+
+    cols, tiles, scale, t_ptr, t_slot = flat_stack(ell)
+    q = "_q" if scale is not None else ""
+    dx = cuda_ell.ell_bwd_dx(cols, tiles, t_ptr, t_slot, dout, ell.n_cols,
+                             x_div, scale)
+    torch.cuda.synchronize()
+    ref = cuda_ell.ell_bwd_dx_plain(
+        cols, tiles if q else tiles.double(), dout.double(), ell.n_cols,
+        x_div, scale.double() if q else None)
+    compare(f"ELL dX{q} {tag} against float64", dx.double(), ref, ELL_TOL)
+
+
 def phase_ell_kernels(dev, banks, rng):
     """The five ELL entries against their plain versions: at the large-N
     shapes (the static bank (3, 63, 2, 8, 128) with one X of F = B N C =
@@ -1541,11 +1577,13 @@ def phase_ell_kernels(dev, banks, rng):
         dout = dev_t(rng.normal(size=(S, N, xs[-1])))
         for payload in ("f32", "bf16", "int8"):
             packed = pack_payload(ell, payload)
-            check_ell(f"{label} {payload} S={S} NB={ell.block_cols.shape[-2]}"
-                      f" MB={ell.pad_blocks} F={xs[-1]}", packed, X, dout,
-                      S // X.shape[0], err)
+            tag = (f"{label} {payload} S={S} NB={ell.block_cols.shape[-2]} "
+                   f"MB={ell.pad_blocks} F={xs[-1]}")
+            check_ell(tag, packed, X, dout, S // X.shape[0], err)
             if label == "static":
                 inputs[payload] = (packed, X, dout)
+            if label == "static" and payload != "bf16":
+                check_dx_float64(tag, packed, dout, S // X.shape[0])
     for shape, bc, pattern, F, per_sample in ELL_ODD:
         ell = _odd_container(dev, shape, bc, pattern, rng)
         S = int(np.prod(shape[:-2]))
@@ -1787,15 +1825,28 @@ def _dblk_staged_bytes(cols, bc, n_rows, n_cols, F, x_div):
     return old * F * 4, new * F * 4, dout_rows * F * 4
 
 
+def _dx_staged_bytes(cols, tiles, n_rows, F):
+    """Bytes dX stages per launch, computed from the container: per
+    populated slot its tile once per F tile of DX_TF columns and its row
+    block's dout rows (those inside n_rows) once. Returns (staged bytes,
+    the dout bytes of those reads)."""
+    S, NB, MB = cols.shape
+    pop = (tiles != 0).reshape(S, NB, MB, -1).any(-1).cpu().numpy()
+    rows = np.minimum(8, n_rows - 8 * np.arange(NB))
+    tile_bytes = tiles[0, 0, 0].numel() * tiles.element_size()
+    d_bytes = int((pop * rows[None, :, None]).sum()) * F * 4
+    return int(pop.sum()) * -(-F // DX_TF) * tile_bytes + d_bytes, d_bytes
+
+
 def phase_ell_times(dev, kin):
     """The ELL entries at the large-N static shape: kernel (CUDA events),
     plain, the fastest single library call, and the bound from this run's
     container: ``_ell_ops`` operations (all of the operator, 2 S N N F,
     for dBlocks on the pad-free container); X, output, tiles (and ids,
     scales or index) bytes. The forward and dBlocks run on the TF32 tensor
-    cores, in 3 products per f32 product (2 on int8 codes): their
-    operations bound is that many times the operations at the TF32 peak;
-    the CUDA-core bound (the operations at the f32 peak, as for dX) is
+    cores, in 3 products per f32 product (2 on int8 codes), and so does
+    dX: their operations bound is that many times the operations at the
+    TF32 peak; the CUDA-core bound (the operations at the f32 peak) is
     printed beside it."""
     import torch
 
@@ -1839,8 +1890,15 @@ def phase_ell_times(dev, kin):
             plain_ms=time_ms(lambda: cuda_ell.ell_fwd_plain(
                 cols, tiles, X, N, S // G, scale), iters=3, warmup=1),
             library_ms=lib_f, bound_ms=b_ms, bound_by=b_by)
-        b_ms, b_by = bound(4 * (dout.numel() + G * N * F) + small
-                           + 4 * (t_ptr.numel() + t_slot.numel()), ops)
+        # dX: dout read once, dX written once; on the TF32 tensor cores in
+        # the forward's passes. Beside it the CUDA-core bound and the bytes
+        # with each populated slot's own read of its 8 dout rows
+        dx_bytes = 4 * (dout.numel() + G * N * F) + small + 4 * (
+            t_ptr.numel() + t_slot.numel())
+        b_ms, b_by = bound(dx_bytes, passes * ops, PEAK_TF32_FLOP_PER_S)
+        dx_core_ms = bound(dx_bytes, ops)[0]
+        staged, reread = _dx_staged_bytes(cols, tiles, N, F)
+        reread_ms = bound(dx_bytes - 4 * dout.numel() + reread, 0)[0]
         times[f"ell_bwd_dx{q}"] = dict(
             ms=time_ms(lambda: cuda_ell.ell_bwd_dx(
                 cols, tiles, t_ptr, t_slot, dout, N, S // G, scale),
@@ -1855,7 +1913,14 @@ def phase_ell_times(dev, kin):
                      f"per launch: {slab_old} bytes one per slot (a row "
                      f"block per grid cell), {slab_new} bytes one per row "
                      f"group and column block, its non-zero columns; "
-                     if fwd else "")
+                     if fwd else
+                     f"TF32 operations {passes} x {ops}; CUDA-core bound "
+                     f"{dx_core_ms:.5f} ms (operations); bytes bound with "
+                     f"each slot's own read of its dout rows ({reread} "
+                     f"bytes of dout) {reread_ms:.5f} ms; staged per "
+                     f"launch: {staged} bytes (each populated tile once per "
+                     f"{DX_TF}-column F tile, its dout rows once "
+                     f"per slot); ")
             print(f"[time] {k} {payload} S={S} NB={NB} MB={MB} F={F}, "
                   f"{pop} of {S * NB * MB} slots populated, {ops} "
                   f"operations; {extra}library calls "
@@ -1956,6 +2021,92 @@ def phase_large_n_times(dev, train, eng, data):
           flush=True)
     busy_share("large-N bucket-2 rollout",
                lambda: rollout(eng.model, eng.banks, x, k, 7), 2)
+
+
+def phase_large_n_int8_times(dev, train, data):
+    """The large-N train step on int8 tiles (support_payload='int8', the
+    shapes and weights of ``train``, phase_large_n_train's result) on the
+    host clock, as phase_large_n_times takes the f32 one, and the device's
+    busy share over it."""
+    import statistics
+
+    import torch
+
+    from mpgcn_tpu_torch.train.trainer import ModelTrainer
+
+    tr, batches = train["trainer"], train["batches"]
+    q8 = ModelTrainer(tr.cfg.replace(support_payload="int8"), data,
+                      device=dev)
+    q8.model.load_state_dict(tr.model.state_dict())
+    samples = _step_ms(q8, batches, 6, 2)
+    print(f"[time] large-N train step on int8 tiles (support_payload="
+          f"'int8', same shapes and weights, median of 6 after 2 "
+          f"warm-ups): {statistics.median(samples):.3f} ms (min "
+          f"{min(samples):.3f}, max {max(samples):.3f})", flush=True)
+    busy_share("large-N int8 train step", lambda: q8.train_step(batches[0]),
+               3)
+    del q8
+    torch.cuda.empty_cache()
+
+
+def phase_large_n_lstm_times(dev):
+    """The LSTM entries at the N=500 step's shapes (R = B N^2 = 500,000
+    sequences, T = 7, H = 32; their resident kernels): lstm_train_fwd and
+    lstm_train_bwd (2 launches a train step each) and lstm_infer_last (14
+    a bucket-2 rollout), each beside its bound, its plain version and
+    nn.LSTM (cuDNN) at the same batch, "not measured" where cuDNN refuses
+    it. Inputs from a seeded generator on the card."""
+    import torch
+
+    from mpgcn_tpu_torch.nn import cuda_lstm
+
+    T, H = 7, 32
+    R = LARGE_N["batch_size"] * LARGE_N["synthetic_N"] ** 2
+    G = 4 * H
+    gen = torch.Generator(device=dev).manual_seed(500)
+    xp = torch.randn((T, R, G), generator=gen, device=dev)
+    w = torch.randn((H, G), generator=gen, device=dev) / H ** 0.5
+    dhs = torch.randn((T, R, H), generator=gen, device=dev)
+    lib = torch.nn.LSTM(1, H, batch_first=True).to(dev)
+    seq = torch.randn((R, T, 1), generator=gen, device=dev,
+                      requires_grad=True)
+    lib_fwd = lib_bwd = lib_infer = None
+    try:
+        with torch.no_grad():
+            lib_infer = time_ms(lambda: lib(seq), iters=5, warmup=1)
+        lib_fwd = time_ms(lambda: lib(seq), iters=5, warmup=1)
+        out, _ = lib(seq)
+        gout = torch.randn_like(out)
+        params = [seq, *lib.parameters()]
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            out, params, gout, retain_graph=True), iters=5, warmup=1)
+        del out, gout
+    except RuntimeError as e:
+        print(f"[time] N=500 LSTM: nn.LSTM at batch {R} not measured "
+              f"({str(e).splitlines()[0][:120]})", flush=True)
+    times = {}
+    b_ms, b_by = bound(4 * (T * R * G + H * G + R * H), 2 * T * R * H * G)
+    times["lstm_infer_last"] = dict(
+        ms=time_ms(lambda: cuda_lstm.lstm_layer_infer(xp, w, False),
+                   iters=10),
+        plain_ms=time_ms(lambda: cuda_lstm.lstm_layer_infer_plain(
+            xp, w, False), iters=2, warmup=1),
+        library_ms=lib_infer, bound_ms=b_ms, bound_by=b_by)
+    b_ms, b_by = bound(4 * (T * R * G + H * G + 2 * T * R * H),
+                       2 * T * R * H * G)
+    times["lstm_train_fwd"] = dict(
+        ms=time_ms(lambda: cuda_lstm.lstm_layer_train(xp, w), iters=10),
+        plain_ms=time_ms(lambda: cuda_lstm.lstm_layer_train_plain(xp, w),
+                         iters=2, warmup=1),
+        library_ms=lib_fwd, bound_ms=b_ms, bound_by=b_by)
+    hs, cs = cuda_lstm.lstm_layer_train(xp, w)
+    times["lstm_train_bwd"], note = lstm_bwd_time(dev, xp, w, hs, cs, dhs,
+                                                  10, 2, lib_bwd)
+    for name, entry in times.items():
+        print(f"[time] N=500 {name} (T={T}, R={R}, H={H}; library "
+              f"torch.nn.LSTM at batch {R}"
+              f"{'; ' + note if name == 'lstm_train_bwd' else ''}): "
+              f"{json.dumps(entry)}", flush=True)
 
 
 def main() -> int:
@@ -2082,6 +2233,11 @@ def main() -> int:
     phase_wide_times(dev, wide_inputs, wide)
     wide["eng"].drain()
     wide["eng"].close()
+    # after every phase above, so each runs as it did without them
+    phase_large_n_int8_times(dev, large, data_l)
+    del large, eng_l, ell_inputs, wide, wide_inputs
+    torch.cuda.empty_cache()
+    phase_large_n_lstm_times(dev)
 
     smi = shutil.which("nvidia-smi")
     require(smi is not None, "nvidia-smi not found")

@@ -33,13 +33,15 @@
 // by operations; the forward runs on the TF32 tensor cores in three
 // products for f32 tiles (3 x 14.5 GFLOP at 495 TFLOP/s: 0.088 ms, bound
 // by operations) and two for bf16 tiles and int8 codes (bound by bytes).
-// dX is a first, simple kernel, f32 FMA on the CUDA cores, well below its
-// bound. dBlocks on a pad-free N = 500 container (S = 3, NB = 63, MB = 4,
-// F = 32,000) is 2 S N^2 F = 48 GFLOP: on the TF32 tensor cores in three
-// products 0.291 ms, bound by operations (0.716 ms on the CUDA cores).
-// The forward runs mma.sync (its X slab is not K-major, which wgmma needs
-// for TF32 operands); dBlocks, whose dout rows and X slab are both K-major,
-// runs wgmma.
+// dX does the same work in the other direction (each populated tile
+// transposed against its 8 dout rows), bound the same way: 0.088 ms on the
+// TF32 tensor cores in three products. dBlocks on a pad-free N = 500
+// container (S = 3, NB = 63, MB = 4, F = 32,000) is 2 S N^2 F = 48 GFLOP:
+// on the TF32 tensor cores in three products 0.291 ms, bound by
+// operations (0.716 ms on the CUDA cores).
+// The forward and dX run mma.sync (neither's operands are K-major, which
+// wgmma needs for TF32 operands); dBlocks, whose dout rows and X slab are
+// both K-major, runs wgmma.
 //
 // Design.
 //   Forward: the TPU kernel takes one row block per grid cell and reads
@@ -89,10 +91,56 @@
 //     are. No float atomics: each block owns its output tiles and sums in
 //     a fixed order, bit-equal from run to run.
 //   dX: the TPU sums dX over row blocks because its grid runs in order.
-//     Here one block owns one (group g, column block c, 64-column F tile)
-//     of dX and walks, in a fixed order, the slots of its column block
-//     from the transposed block index; pad slots are left out, their tiles
-//     are zero. No float atomics: dX is bit-equal from run to run.
+//     Here one block owns one (X group g, column block c, 128-column F
+//     tile): the whole (BC x 128) tile of dX in f32 accumulators, written
+//     once. Its k loop is the slots of c in g's x_div slices, in the order
+//     the transposed block index (t_ptr, t_slot) lists them: one slot is
+//     one 8-deep k step of mma.sync m16n8k8, A its tile transposed (m = the
+//     tile's column, k = its row), B its row block's 8 dout rows. Pad slots
+//     are not in the index and are never read (their tiles are zero; for
+//     finite dout the sum is the same). A column block without a slot gets
+//     zeros. Neither operand is K-major in shared memory, so mma.sync and
+//     not wgmma. Slots stream through a cp.async ring of kDxStages stages
+//     of kDxSlots slots each (one 8-deep k step is too shallow to hide a
+//     load behind), 16-byte copies where a row's run is whole and aligned,
+//     zero-filled 4-byte copies of dout at ragged edges (rows past n_rows
+//     and columns past F read as 0), plain loads for a tile row that is
+//     not a whole number of 16-byte chunks. Tiles land raw (row-major, each
+//     row padded so that the four rows a fragment load reads lie on
+//     different banks) and dout rows padded the same way, so fragment
+//     loads are conflict-free without reordering the copies. Eight warps:
+//     warp (wm, wn) owns the 16-column fragments wm and wm + 4 of the
+//     tile and 64 of the 128 F columns. A banded operator leaves most of a
+//     tile's columns zero: a warp whose fragment of a slot's tile is zero
+//     in every lane (a ballot) skips its products, and one with none live
+//     skips the slot; the live fragments of a band lie side by side, and
+//     side by side they fall to warps on different schedulers. An Inf or
+//     NaN in dout: a zero tile entry times it is NaN in the plain sum, so
+//     its column of dX is non-finite in every row of each column block
+//     that a slot of its row block names. The skipped fragments and the
+//     TF32 split (which turns a NaN such as 0x7fffffff into -0) lose
+//     that, so the warps wm = 0 fold the dout values they read into
+//     x * 0 and flag a NaN there in shared memory; a flagged block
+//     rescans its slots' dout rows after the k loop and writes NaN in
+//     those columns of its whole tile. The plain sum also puts NaN in
+//     the column block a pad slot names; pad slots are never read here.
+//     The split is the forward's: f32 tiles take hi*hi + hi*lo + lo*hi,
+//     bf16 tiles and int8 codes are exact in TF32 and take two. Each k step's
+//     products are summed on the tensor cores from 0, the small cross
+//     terms first and hi*hi last, so the step's partial is truncated once,
+//     as hi*hi alone would be, and added into the f32 accumulator: one
+//     accumulator, not two, so a warp holds 32 x 64 of dX and two blocks
+//     fit on an SM. The int8 scale
+//     (one per (s, row block), so one per k step) is copied beside the
+//     slot and multiplies the slot's dout values before their split:
+//     code * (scale * dout), one f32 rounding as the TPU kernel's
+//     (code * scale) * dout has, and one multiply per B value where
+//     scaling each step's partial would take one per accumulator; within
+//     rtol 1e-5. What bounds it: issuing the copies (about 0.47 GB staged
+//     per launch at the shape above, each tile once per F tile) and the
+//     per-stage barrier, not the tensor cores: a wider F tile stages each
+//     tile for more columns. No float atomics and no
+//     second launch: dX is bit-equal from run to run.
 //   dBlocks: the TPU kernel takes one slot per grid cell and reads its
 //     column block's whole X slab over F for an 8-row tile: at the shape
 //     above 12.1 GB of X per launch. Here the slots of an X group g (its
@@ -143,11 +191,15 @@ constexpr int kMaxOps = kACap / (kGroupRB * kBR * 8);  // at the least K
 constexpr int kFwdBlocksPerSM = 2;                // resident forward blocks
 constexpr int kFwdWaves = 4;                      // blocks per SM to aim at
 
-constexpr int kDxThreads = 256;
-constexpr int kDxTF = 64;                         // dX columns per block
-constexpr int kDxColLanes = 16;                   // threads across columns
-constexpr int kDxVec = kDxTF / kDxColLanes;       // columns per thread
-constexpr int kDxRows = kMaxBC / (kDxThreads / kDxColLanes);  // rows per thread
+constexpr int kDxThreads = 256;  // 8 warps: 4 along BC x 2 along F
+constexpr int kDxBlocksPerSM = 2;                 // resident dX blocks
+constexpr int kDxTF = 128;                        // dX columns per block
+constexpr int kDxMF = kMaxBC / 4 / 16;            // 16-row fragments a warp
+constexpr int kDxNT = kDxTF / 2 / 8;              // 8-column tiles a warp
+constexpr int kDxSlots = 2;                       // slots (k steps) a stage
+constexpr int kDxStages = 3;                      // stages in flight
+constexpr int kDxBStride = kDxTF + 8;             // staged dout row, floats
+constexpr int kDxBBytes = kBR * kDxBStride * 4;   // one slot's dout rows
 
 constexpr int kDbSlots = 16;                      // slots per dBlocks tile
 constexpr int kDbRows = kDbSlots * kBR;           // gathered dout rows
@@ -157,16 +209,16 @@ constexpr int kDbAcc = 64;                        // accumulators a thread
 
 enum Payload { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
-__device__ __forceinline__ float tile_value(const float* p, size_t e, float) {
+// a tile element as f32 (int8 codes unscaled)
+__device__ __forceinline__ float tile_value(const float* p, size_t e) {
   return p[e];
 }
-__device__ __forceinline__ float tile_value(const __nv_bfloat16* p, size_t e,
-                                            float) {
+__device__ __forceinline__ float tile_value(const __nv_bfloat16* p,
+                                            size_t e) {
   return __bfloat162float(p[e]);
 }
-__device__ __forceinline__ float tile_value(const int8_t* p, size_t e,
-                                            float scale) {
-  return static_cast<float>(p[e]) * scale;
+__device__ __forceinline__ float tile_value(const int8_t* p, size_t e) {
+  return static_cast<float>(p[e]);
 }
 
 // --- the forward on TF32 tensor cores ---------------------------------------
@@ -342,7 +394,7 @@ __device__ void stage_ops(FwdBatch& L, int n, float* ops, int op_size,
           const int q = tid + u * kFwdThreads;
           const int rl = q / kp, kc = q - rl * kp;
           v[u] = q < per && kc < BC
-                     ? tile_value(blk, (size_t)rl * BC + kc, 1.0f)
+                     ? tile_value(blk, (size_t)rl * BC + kc)
                      : 0.0f;
           if (v[u] != 0.0f) {
             lo = min(lo, kc);
@@ -569,80 +621,331 @@ ell_fwd_kernel(const int* __restrict__ t_ptr, const int* __restrict__ t_slot,
   }
 }
 
+// --- dX on TF32 tensor cores -----------------------------------------------
+
+// A staged tile row in bytes: kMaxBC elements and a pad that puts the rows
+// tig = 0..3, which one fragment load reads, on different banks (8 floats
+// further; 16 bytes further for bf16 and int8), 16-byte aligned.
 template <typename T>
-__global__ void __launch_bounds__(kDxThreads)
+__host__ __device__ constexpr int dx_row_bytes() {
+  return kMaxBC * (int)sizeof(T) + (sizeof(T) == 4 ? 32 : 16);
+}
+// one staged slot: its tile's 8 rows, then its row block's 8 dout rows
+template <typename T>
+__host__ __device__ constexpr int dx_slot_bytes() {
+  return kBR * dx_row_bytes<T>() + kDxBBytes;
+}
+template <typename T>
+inline size_t dx_smem_bytes() {
+  return (size_t)kDxStages * kDxSlots * dx_slot_bytes<T>();
+}
+
+// One block per (X group g, F tile, column block c; c fastest): dX rows
+// c BC.. of group g, columns f0..f0 + kDxTF. a_vec: tile rows are whole
+// 16-byte chunks and aligned; d_vec: F % 4 == 0 and dout aligned.
+template <typename T>
+__global__ void __launch_bounds__(kDxThreads, kDxBlocksPerSM)
 ell_bwd_dx_kernel(const int* __restrict__ t_ptr,
                   const int* __restrict__ t_slot, const T* __restrict__ blocks,
                   const float* __restrict__ scale,
                   const float* __restrict__ dout, float* __restrict__ dx,
-                  int S, int NB, int MB, int BC, int nbc, int n_rows,
-                  int n_cols, int F, int x_div) {
-  __shared__ float tile[kBR * kMaxBC];
-  __shared__ float dsm[kBR * kDxTF];
+                  int NB, int MB, int BC, int nbc, int n_rows, int n_cols,
+                  int F, int x_div, int a_vec, int d_vec) {
+  extern __shared__ float4 smem4[];
+  __shared__ float s_scale[kDxStages][kDxSlots];
+  unsigned char* sbuf = reinterpret_cast<unsigned char*>(smem4);
+  constexpr int kRow = dx_row_bytes<T>();
+  constexpr int kSlot = dx_slot_bytes<T>();
+  constexpr bool kScaled = std::is_same<T, int8_t>::value;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gid = lane / 4, tig = lane % 4;
+  // warp (wm, wn) owns the 16-column fragments wm and wm + 4 of the tile
+  // and half of the F columns: a band's live fragments, side by side,
+  // fall to warps on different schedulers (warp % 4)
+  const int wm = warp / 2, wn = warp % 2;
   const int n_ft = (F + kDxTF - 1) / kDxTF;
   int bid = blockIdx.x;
   const int c = bid % nbc;
   bid /= nbc;
-  const int ft = bid % n_ft;
+  const int f0 = (bid % n_ft) * kDxTF;
   const int g = bid / n_ft;
-  const int tid = threadIdx.x;
-  const int lane_f = tid % kDxColLanes;
-  const int row0 = (tid / kDxColLanes) * kDxRows;  // first dX row in block
+  const int s0 = g * x_div;
+  const size_t per_slice = (size_t)NB * MB;
 
-  float acc[kDxRows][kDxVec];
-#pragma unroll
-  for (int q = 0; q < kDxRows; ++q)
-#pragma unroll
-    for (int v = 0; v < kDxVec; ++v) acc[q][v] = 0.0f;
-
-  for (int s = g * x_div; s < (g + 1) * x_div; ++s) {
+  int n_slots = 0;  // c's slots in g's slices
+  for (int s = s0; s < s0 + x_div; ++s) {
     const int* ptr = t_ptr + (size_t)s * (nbc + 1);
-    const int e_end = ptr[c + 1];
-    for (int e = ptr[c]; e < e_end; ++e) {
-      const int slot = t_slot[(size_t)s * NB * MB + e];
-      const int i = slot / MB;
-      const float sc = scale != nullptr ? scale[(size_t)s * NB + i] : 1.0f;
-      const T* blk = blocks + ((size_t)s * NB * MB + slot) * kBR * BC;
-      __syncthreads();  // the previous slot's readers are done
-      for (int q = tid; q < kBR * BC; q += kDxThreads)
-        tile[q] = tile_value(blk, q, sc);
-      for (int q = tid; q < kBR * kDxTF; q += kDxThreads) {
-        const int r = q / kDxTF;
-        const int row = i * kBR + r;
-        const int fcol = ft * kDxTF + q - r * kDxTF;
-        dsm[q] = (row < n_rows && fcol < F)
-                     ? dout[((size_t)s * n_rows + row) * F + fcol]
-                     : 0.0f;
+    n_slots += ptr[c + 1] - ptr[c];
+  }
+  const int n_st = (n_slots + kDxSlots - 1) / kDxSlots;
+
+  // the next stage's slots (slice, slot), read one stage ahead of their
+  // copies so the index loads are in flight during the products
+  int cur_s = s0;
+  int cur_e = t_ptr[(size_t)s0 * (nbc + 1) + c];
+  int cur_end = t_ptr[(size_t)s0 * (nbc + 1) + c + 1];
+  int fetched = 0;
+  int nx_s[kDxSlots], nx_slot[kDxSlots];
+  auto fetch = [&]() {
+#pragma unroll
+    for (int j = 0; j < kDxSlots; ++j) {
+      nx_s[j] = nx_slot[j] = 0;
+      if (fetched == n_slots) continue;
+      while (cur_e == cur_end) {  // the next slice with a slot on c
+        const int* ptr = t_ptr + (size_t)++cur_s * (nbc + 1);
+        cur_e = ptr[c];
+        cur_end = ptr[c + 1];
       }
-      __syncthreads();
+      nx_s[j] = cur_s;
+      nx_slot[j] = t_slot[(size_t)cur_s * per_slice + cur_e++];
+      ++fetched;
+    }
+  };
+  // copy stage t's tiles and dout rows into ring place t % kDxStages
+  auto stage = [&](int t) {
+    const int nj = min(kDxSlots, n_slots - t * kDxSlots);
+    unsigned char* base = sbuf + (size_t)(t % kDxStages) * kDxSlots * kSlot;
 #pragma unroll
-      for (int r = 0; r < kBR; ++r) {
-        float d[kDxVec];
+    for (int j = 0; j < kDxSlots; ++j) {
+      if (j >= nj) break;
+      const int s = nx_s[j], slot = nx_slot[j];
+      const int row0 = slot / MB * kBR;
+      unsigned char* a_dst = base + j * kSlot;
+      float* b_dst = reinterpret_cast<float*>(a_dst + kBR * kRow);
+      const T* tile = blocks + ((size_t)s * per_slice + slot) * kBR * BC;
+      if (a_vec) {
+        const int cpr = BC * (int)sizeof(T) / 16;  // 16-byte chunks a row
+        const unsigned char* src = reinterpret_cast<const unsigned char*>(tile);
+        for (int q = tid; q < kBR * cpr; q += kDxThreads) {
+          const int r = q / cpr, k = q - r * cpr;
+          cp_async16(reinterpret_cast<float*>(a_dst + r * kRow + k * 16),
+                     reinterpret_cast<const float*>(
+                         src + ((size_t)r * BC * sizeof(T) + k * 16)),
+                     16);
+        }
+      } else {
+        for (int q = tid; q < kBR * BC; q += kDxThreads) {
+          const int r = q / BC;
+          reinterpret_cast<T*>(a_dst + r * kRow)[q - r * BC] = tile[q];
+        }
+      }
+      const float* src = dout + ((size_t)s * n_rows + row0) * F + f0;
+      if (d_vec) {
+        constexpr int kChunks = kDxTF / 4;
+        for (int q = tid; q < kBR * kChunks; q += kDxThreads) {
+          const int r = q / kChunks, f = (q % kChunks) * 4;
+          const bool ok = row0 + r < n_rows && f0 + f < F;
+          cp_async16(b_dst + r * kDxBStride + f,
+                     ok ? src + (size_t)r * F + f : dout, ok ? 16 : 0);
+        }
+      } else {
+        for (int q = tid; q < kBR * kDxTF; q += kDxThreads) {
+          const int r = q / kDxTF, f = q % kDxTF;
+          const bool ok = row0 + r < n_rows && f0 + f < F;
+          cp_async4(b_dst + r * kDxBStride + f,
+                    ok ? src + (size_t)r * F + f : dout, ok ? 4 : 0);
+        }
+      }
+      if (kScaled && tid == 0)  // with the copies: no wait on the index
+        cp_async4(&s_scale[t % kDxStages][j], scale + (size_t)s * NB +
+                  slot / MB, 4);
+    }
+  };
+
+  // a fragment that straddles BC reads the columns up to the next multiple
+  // of 16: zero them once (nothing is copied there)
+  if (BC % 16 != 0) {
+    const int lo = BC * (int)sizeof(T);
+    const int pad = (BC + 15) / 16 * 16 * (int)sizeof(T) - lo;
+    for (int q = tid; q < kDxStages * kDxSlots * kBR * pad;
+         q += kDxThreads) {
+      const int row = q / pad;  // (ring slot) * 8 + tile row
+      sbuf[(row / kBR) * kSlot + (row % kBR) * kRow + lo + q % pad] = 0;
+    }
+  }
+
+  float acc[kDxMF][kDxNT][4];
 #pragma unroll
-        for (int v = 0; v < kDxVec; ++v)
-          d[v] = dsm[r * kDxTF + lane_f + v * kDxColLanes];
+  for (int mf = 0; mf < kDxMF; ++mf)
 #pragma unroll
-        for (int q = 0; q < kDxRows; ++q) {
-          const int cc = row0 + q;
-          const float a = cc < BC ? tile[r * BC + cc] : 0.0f;
+    for (int n = 0; n < kDxNT; ++n)
 #pragma unroll
-          for (int v = 0; v < kDxVec; ++v) acc[q][v] = fmaf(a, d[v], acc[q][v]);
+      for (int v = 0; v < 4; ++v) acc[mf][n][v] = 0.0f;
+  // set where a dout value that a warp read was Inf or NaN
+  __shared__ int s_nonfinite;
+  __shared__ unsigned s_bad[kDxTF / 32];
+  if (tid == 0) s_nonfinite = 0;  // seen after the k loop's barriers
+
+  // the warp's products for stage t: per slot (one k step), its fragments
+  // of the transposed tile that are not zero in every lane, against its
+  // kDxNT 8-column tiles of the dout rows. The dout fragments are read
+  // beside the tile's, not after the ballot, so the two loads overlap.
+  // Warps wm = 0 also flag an Inf or NaN among the dout values.
+  auto products = [&](int t) {
+    const unsigned char* base =
+        sbuf + (size_t)(t % kDxStages) * kDxSlots * kSlot;
+    const int nj = min(kDxSlots, n_slots - t * kDxSlots);
+#pragma unroll
+    for (int j = 0; j < kDxSlots; ++j) {
+      if (j >= nj) break;
+      const unsigned char* a = base + j * kSlot;
+      const float* b = reinterpret_cast<const float*>(a + kBR * kRow) +
+                       tig * kDxBStride + wn * (kDxTF / 2) + gid;
+      float av[kDxMF][4], bv[kDxNT][2];
+#pragma unroll
+      for (int mf = 0; mf < kDxMF; ++mf) {
+        // A[m][k] = tile[k][m]: (gid, tig), (gid + 8, tig), (gid, tig + 4),
+        // (gid + 8, tig + 4); nothing past the fragment that holds BC - 1
+        const int m = (wm + 4 * mf) * 16;
+        const T* r0 = reinterpret_cast<const T*>(a + tig * kRow) + m + gid;
+        const T* r4 = reinterpret_cast<const T*>(a + (tig + 4) * kRow) + m +
+                      gid;
+        const bool in = m < BC;
+        av[mf][0] = in ? tile_value(r0, 0) : 0.0f;
+        av[mf][1] = in ? tile_value(r0, 8) : 0.0f;
+        av[mf][2] = in ? tile_value(r4, 0) : 0.0f;
+        av[mf][3] = in ? tile_value(r4, 8) : 0.0f;
+      }
+#pragma unroll
+      for (int n = 0; n < kDxNT; ++n) {
+        bv[n][0] = b[n * 8];
+        bv[n][1] = b[4 * kDxBStride + n * 8];
+      }
+      if (wm == 0) {  // the warps of one F half read the same dout values
+        float z = 0.0f;  // NaN if an Inf or NaN passes (x * 0), else 0
+#pragma unroll
+        for (int n = 0; n < kDxNT; ++n) {
+          z = fmaf(bv[n][0], 0.0f, z);
+          z = fmaf(bv[n][1], 0.0f, z);
+        }
+        if (isnan(z)) s_nonfinite = 1;
+      }
+      bool live[kDxMF];
+      bool any = false;
+#pragma unroll
+      for (int mf = 0; mf < kDxMF; ++mf) {
+        live[mf] = __any_sync(0xffffffffu,
+                              av[mf][0] != 0.0f || av[mf][1] != 0.0f ||
+                                  av[mf][2] != 0.0f || av[mf][3] != 0.0f);
+        any = any || live[mf];
+      }
+      if (!any) continue;  // the same in every lane
+      const float sc = kScaled ? s_scale[t % kDxStages][j] : 1.0f;
+      unsigned bh[kDxNT][2], bl[kDxNT][2];
+#pragma unroll
+      for (int n = 0; n < kDxNT; ++n)
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          split_tf32_rn(kScaled ? bv[n][u] * sc : bv[n][u], bh[n][u],
+                        bl[n][u]);
+#pragma unroll
+      for (int mf = 0; mf < kDxMF; ++mf) {
+        if (!live[mf]) continue;
+        unsigned ah[4], al[4];
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          if constexpr (exact_in_tf32<T>())
+            ah[v] = __float_as_uint(av[mf][v]);
+          else
+            split_tf32_rn(av[mf][v], ah[v], al[v]);
+        }
+#pragma unroll
+        for (int n = 0; n < kDxNT; ++n) {
+          // the step's sum from 0, cross terms first: one truncation, of
+          // the step's partial, as hi * hi alone would take
+          float p[4];
+          if constexpr (exact_in_tf32<T>()) {
+            mma_tf32_zero(p, ah, bl[n][0], bl[n][1]);
+          } else {
+            mma_tf32_zero(p, al, bh[n][0], bh[n][1]);
+            mma_tf32(p, ah, bl[n][0], bl[n][1]);
+          }
+          mma_tf32(p, ah, bh[n][0], bh[n][1]);
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[mf][n][v] += p[v];
         }
       }
     }
-  }
-#pragma unroll
-  for (int q = 0; q < kDxRows; ++q) {
-    const int cc = row0 + q;
-    const int row = c * BC + cc;
-    if (cc >= BC || row >= n_cols) continue;
-    float* o = dx + ((size_t)g * n_cols + row) * F;
-#pragma unroll
-    for (int v = 0; v < kDxVec; ++v) {
-      const int fcol = ft * kDxTF + lane_f + v * kDxColLanes;
-      if (fcol < F) o[fcol] = acc[q][v];
+  };
+
+  for (int t = 0; t < kDxStages - 1; ++t) {
+    if (t < n_st) {
+      fetch();
+      stage(t);
     }
+    cp_async_commit();
   }
+  fetch();
+  for (int t = 0; t < n_st; ++t) {
+    cp_async_wait<kDxStages - 2>();
+    __syncthreads();  // stage t has landed; stage t - 1's readers are done
+    if (t + kDxStages - 1 < n_st) {
+      stage(t + kDxStages - 1);
+      fetch();
+    }
+    cp_async_commit();
+    products(t);
+  }
+
+  // A block that met an Inf or NaN in dout marks each of its columns
+  // where one of its slots' dout rows holds one, and writes NaN there in
+  // every row of its tile: the plain sum gives Inf or NaN there (0 * Inf),
+  // which the products above do not, as they skip zero fragments and the
+  // TF32 split turns a NaN such as 0x7fffffff (what the card makes of
+  // 0 * Inf) into -0. Integer OR into shared memory: no order to keep.
+  __syncthreads();  // the last stage's readers are done; s_nonfinite set
+  if (s_nonfinite) {
+    if (tid < kDxTF / 32) s_bad[tid] = 0u;
+    __syncthreads();
+    for (int s = s0; s < s0 + x_div; ++s) {
+      const int* ptr = t_ptr + (size_t)s * (nbc + 1);
+      for (int e = ptr[c]; e < ptr[c + 1]; ++e) {
+        const int i = t_slot[(size_t)s * per_slice + e] / MB;
+        for (int q = tid; q < kBR * kDxTF; q += kDxThreads) {
+          const int r = i * kBR + q / kDxTF, lc = q % kDxTF;
+          if (r < n_rows && f0 + lc < F &&
+              !isfinite(dout[((size_t)s * n_rows + r) * F + f0 + lc]))
+            atomicOr(&s_bad[lc / 32], 1u << (lc % 32));
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < kDxNT; ++n)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int lc = wn * (kDxTF / 2) + n * 8 + 2 * tig + (v & 1);
+        if ((s_bad[lc / 32] >> (lc % 32)) & 1u) {
+#pragma unroll
+          for (int mf = 0; mf < kDxMF; ++mf)
+            acc[mf][n][v] = __uint_as_float(0x7fffffffu);
+        }
+      }
+  }
+
+  // D fragment: rows gid and gid + 8 of each 16-row fragment, columns
+  // 2 tig and 2 tig + 1 of each 8-column tile
+  const bool pair = (F & 1) == 0;
+#pragma unroll
+  for (int mf = 0; mf < kDxMF; ++mf)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = (wm + 4 * mf) * 16 + h * 8 + gid;
+      const int row = c * BC + m;
+      if (m >= BC || row >= n_cols) continue;
+      float* o = dx + ((size_t)g * n_cols + row) * F;
+#pragma unroll
+      for (int n = 0; n < kDxNT; ++n) {
+        const int col = f0 + wn * (kDxTF / 2) + n * 8 + 2 * tig;
+        const float v0 = acc[mf][n][2 * h], v1 = acc[mf][n][2 * h + 1];
+        if (pair && col + 1 < F) {
+          *reinterpret_cast<float2*>(o + col) = make_float2(v0, v1);
+        } else {
+          if (col < F) o[col] = v0;
+          if (col + 1 < F) o[col + 1] = v1;
+        }
+      }
+    }
 }
 
 // --- dBlocks on wgmma -------------------------------------------------------
@@ -976,11 +1279,20 @@ int launch_dx(const void* t_ptr, const void* t_slot, const void* blocks,
   const long long grid =
       (long long)(S / x_div) * ((F + kDxTF - 1) / kDxTF) * nbc;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  ell_bwd_dx_kernel<T><<<(unsigned)grid, kDxThreads, 0, st>>>(
+  const size_t smem = dx_smem_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      ell_bwd_dx_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const int a_vec = BC * (int)sizeof(T) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(blocks) % 16 == 0;
+  const int d_vec =
+      F % 4 == 0 && reinterpret_cast<uintptr_t>(dout) % 16 == 0;
+  ell_bwd_dx_kernel<T><<<(unsigned)grid, kDxThreads, smem, st>>>(
       static_cast<const int*>(t_ptr), static_cast<const int*>(t_slot),
       static_cast<const T*>(blocks), static_cast<const float*>(scale),
-      static_cast<const float*>(dout), static_cast<float*>(dx), S, NB, MB,
-      BC, nbc, n_rows, n_cols, F, x_div);
+      static_cast<const float*>(dout), static_cast<float*>(dx), NB, MB, BC,
+      nbc, n_rows, n_cols, F, x_div, a_vec, d_vec);
   return cudaGetLastError();
 }
 

@@ -14,8 +14,10 @@ On a CUDA tensor each entry launches its kernel of ``csrc/ell_spmm.cu``:
     cores, each block sharing the X slabs of a column block across a row
     group whose populated slots it finds in the transposed block index;
   * ``ell_bwd_dx``: ``ell_bwd_dx`` (``_bwd_dx_kernel``) or ``ell_bwd_dx_q``
-    (``_bwd_dx_kernel_q``), summing dX over the container's transposed
-    block index in a fixed order, without atomics;
+    (``_bwd_dx_kernel_q``), on the TF32 tensor cores, each block summing
+    one (BC x 128) tile of dX over its column block's slots in the
+    container's transposed block index, in a fixed order, without
+    atomics;
   * ``ell_bwd_dblk``: ``ell_bwd_dblk`` (``_bwd_dblk_kernel``), on the TF32
     tensor cores (wgmma), each block contracting the gathered dout rows of
     up to 16 slots on one column block against that block's X slab,
@@ -66,8 +68,11 @@ DBLK_SLOTS, DBLK_TF, DBLK_MAX_STEPS, DBLK_WAVES = 16, 32, 128, 2
 
 
 def _tile_values(blocks, scale, j):
-    """Slot j's tiles (S, NB, BR, BC) in f32, int8 codes dequantised."""
-    blk = blocks[:, :, j].float()
+    """Slot j's tiles (S, NB, BR, BC) in f32 (float64 tiles or scales: in
+    float64, for a reference), int8 codes dequantised."""
+    blk = blocks[:, :, j]
+    if blk.dtype != torch.float64:
+        blk = blk.float()
     if scale is not None:
         blk = blk * scale.reshape(scale.shape[0], scale.shape[1], 1, 1)
     return blk

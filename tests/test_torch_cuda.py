@@ -472,7 +472,13 @@ def test_wide_model_trains_and_serves_through_the_kernels(cuda_device,
 #: tile widths that are no multiple of the mma depth 8 (3, 12), F below,
 #: at and above the 32- and 64-column F tiles, and row groups that meet
 #: more (128-wide) column blocks than the forward stages at once (random
-#: N=300: three), so their sums take two batches
+#: N=300: three), so their sums take two batches. dX's edges: a tile width
+#: that is a whole number of 16-byte chunks in f32 but not in bf16 or int8
+#: and straddles a 16-column fragment (20), column blocks that no slot
+#: names (zero columns: their dX is 0), F below, at and above its
+#: 128-column F tile (100, 128, 130), x_div = 1, K and S, and column
+#: blocks with more slots than its staging ring holds (band: up to 20 a
+#: slice)
 ELL_CASES = [((3, 21, 21), 8, "random", 5, False),
              ((2, 3, 21, 21), 8, "random", 700, True),
              ((3, 64, 64), 8, "diagonal", 513, False),
@@ -482,7 +488,9 @@ ELL_CASES = [((3, 21, 21), 8, "random", 5, False),
              ((2, 160, 160), 8, "scatter", 65, True),
              ((3, 101, 101), 12, "random", 130, False),
              ((2, 45, 45), 3, "random", 3, True),
-             ((2, 300, 300), 128, "random", 100, False)]
+             ((2, 300, 300), 128, "random", 100, False),
+             ((2, 90, 90), 20, "random", 70, False),
+             ((2, 2, 100, 100), 16, "zero columns", 128, True)]
 
 
 def _ell_case(dev, shape, bc, pattern, F, per_sample, payload, seed=0):
@@ -507,6 +515,9 @@ def _ell_case(dev, shape, bc, pattern, F, per_sample, payload, seed=0):
         nbc = -(-N // bc)
         A *= (np.arange(N)[None, :] // bc
               == (7 * (np.arange(N)[:, None] // 8)) % nbc)
+    elif pattern == "zero columns":
+        # column blocks 1 and 2 hold no non-zero, so no slot names them
+        A[..., bc:3 * bc] = 0.0
     ell = pack_payload(ell_from_dense(A, br=8, bc=bc), payload).to(dev)
     S = int(np.prod(shape[:-2]))
     G = shape[0] if per_sample else 1
@@ -548,6 +559,90 @@ def test_ell_fwd_and_dx_kernels_match_plain(cuda_device, payload, shape, bc,
     dx2 = cuda_ell.ell_bwd_dx(cols, tiles, t_ptr, t_slot, dout, n, x_div,
                               scale)
     assert torch.equal(dx, dx2), "dX differs between two runs"
+    if pattern == "zero columns":
+        assert not bool((cols.reshape(-1) == 1).any())
+        assert bool((dx[:, bc:3 * bc] == 0).all())
+    if pattern == "band":
+        assert int((t_ptr[:, 1:] - t_ptr[:, :-1]).max()) > 8
+    if q:  # one scale per (slice, row block), not one for the stack
+        assert len(torch.unique(scale)) > 1
+
+
+@pytest.mark.parametrize("payload", ["f32", "bf16", "int8"])
+def test_ell_dx_reads_unaligned_dout(cuda_device, payload):
+    """dout whose F is a multiple of 4 but whose data does not start on a
+    16-byte boundary: dX stages it with 4-byte copies, and matches the
+    aligned call bit for bit."""
+    ell, _, dout, x_div = _ell_case(cuda_device, (3, 60, 60), 8, "random",
+                                    64, False, payload)
+    cols, tiles, scale, t_ptr, t_slot = flat_stack(ell)
+    buf = torch.empty(dout.numel() + 1, device=cuda_device)
+    moved = buf[1:].view(dout.shape)
+    moved.copy_(dout)
+    assert moved.data_ptr() % 16 != 0 and moved.is_contiguous()
+    dx = cuda_ell.ell_bwd_dx(cols, tiles, t_ptr, t_slot, moved, 60, x_div,
+                             scale)
+    torch.testing.assert_close(
+        dx, cuda_ell.ell_bwd_dx_plain(cols, tiles, dout, 60, x_div, scale),
+        **KERNEL_TOL)
+    assert torch.equal(dx, cuda_ell.ell_bwd_dx(cols, tiles, t_ptr, t_slot,
+                                               dout, 60, x_div, scale))
+
+
+@pytest.mark.parametrize("payload", ["f32", "bf16", "int8"])
+def test_ell_dx_non_finite_dout(cuda_device, payload):
+    """An Inf and a NaN in dout, on a band (BC = 128) whose slots leave
+    most 16-column fragments of their tiles zero: each makes its column of
+    dX non-finite in every row (inside n_cols) of each column block that a
+    populated slot of its row block names, whatever the fragments, as the
+    plain sum does (0 x Inf is NaN); pad slots are never read. The NaN is
+    made on the card (Inf - Inf: bits 0x7fffffff, which a TF32 split's
+    rounding add would carry into the sign). Every other entry matches
+    the plain version with those two values set to 0."""
+    ell, _, dout, x_div = _ell_case(cuda_device, (3, 200, 200), 128, "band",
+                                    160, False, payload)
+    cols, tiles, scale, t_ptr, t_slot = flat_stack(ell)
+    MB, n = cols.shape[-1], 200
+    inf = torch.full((), float("inf"), device=cuda_device)
+    bad = [(0, 70, 5, inf), (2, 199, 150, inf - inf)]
+    finite = dout.clone()
+    expect = torch.zeros((1, n, dout.shape[-1]), dtype=torch.bool)
+    for s, r, f, v in bad:
+        dout[s, r, f] = v
+        finite[s, r, f] = 0.0
+        ptr, slots = t_ptr[s].cpu(), t_slot[s].cpu()
+        for c in range(len(ptr) - 1):
+            if bool((slots[ptr[c]:ptr[c + 1]] // MB == r // 8).any()):
+                expect[s // x_div, c * 128:(c + 1) * 128, f] = True
+    assert 0 < int(expect.sum()) < n * len(bad)  # a band: not every block
+    dx = cuda_ell.ell_bwd_dx(cols, tiles, t_ptr, t_slot, dout, n, x_div,
+                             scale)
+    ref = cuda_ell.ell_bwd_dx_plain(cols, tiles, finite, n, x_div, scale)
+    expect = expect.to(cuda_device)
+    assert torch.equal(~torch.isfinite(dx), expect)
+    torch.testing.assert_close(dx[~expect], ref[~expect], **KERNEL_TOL)
+    assert not bool(torch.isfinite(cuda_ell.ell_bwd_dx_plain(
+        cols, tiles, dout, n, x_div, scale)[expect]).any())
+
+
+@pytest.mark.parametrize("payload", ["f32", "int8"])
+def test_ell_dx_n500_against_float64(cuda_device, payload):
+    """dX at the static N=500 shape (S = 3 shared by one X, NB = 63,
+    MB = 2, BC = 128, a band of density 0.05, F = 32,000) against the plain
+    version in float64: the split-TF32 products stay within rtol 1e-5 /
+    atol 1e-5 of the exact sum. Bit-equal over two runs."""
+    ell, _, dout, x_div = _ell_case(cuda_device, (3, 500, 500), 128,
+                                    "band", 32000, False, payload)
+    cols, tiles, scale, t_ptr, t_slot = flat_stack(ell)
+    assert (cols.shape, x_div) == ((3, 63, 2), 3)
+    dx = cuda_ell.ell_bwd_dx(cols, tiles, t_ptr, t_slot, dout, 500, x_div,
+                             scale)
+    ref = cuda_ell.ell_bwd_dx_plain(
+        cols, tiles if scale is not None else tiles.double(), dout.double(),
+        500, x_div, None if scale is None else scale.double())
+    torch.testing.assert_close(dx.double(), ref, **KERNEL_TOL)
+    assert torch.equal(dx, cuda_ell.ell_bwd_dx(cols, tiles, t_ptr, t_slot,
+                                               dout, 500, x_div, scale))
 
 
 @pytest.mark.parametrize("payload", ["f32", "bf16", "int8"])

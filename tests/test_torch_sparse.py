@@ -340,6 +340,39 @@ def test_plain_entries_match_dense_oracle(payload):
     np.testing.assert_allclose(dx.numpy(), ref, **SPMM_TOL)
 
 
+@pytest.mark.parametrize("payload", ["f32", "int8"])
+def test_dx_plain_runs_in_float64_for_a_reference(payload):
+    """Given float64 dout (and float64 tiles, or float64 scales beside the
+    int8 codes), the plain dX sums in float64: the reference the card's
+    dX is held to at the N=500 shape. It matches the float64 product of
+    the dense operators, and its f32 run to f32 rounding."""
+    rng = np.random.default_rng(64)
+    N, F = 27, 5
+    ell = pack_payload(ell_from_dense(_stack(rng, (3, N, N)), br=8, bc=16),
+                       payload)
+    dout = torch.from_numpy(rng.normal(size=(3, N, F)))
+    if payload == "int8":
+        tiles, scale = ell.blocks.q, ell.blocks.scale
+        args = (tiles, dout, N, 3, scale.double())
+        tiles64 = (tiles.double()
+                   * scale.double().reshape(3, -1, 1, 1, 1)).numpy()
+    else:
+        tiles, scale = ell.blocks, None
+        args = (tiles.double(), dout, N, 3, None)
+        tiles64 = tiles.double().numpy()
+    dx = cuda_ell.ell_bwd_dx_plain(ell.block_cols, *args)
+    assert dx.dtype == torch.float64
+    dense = np.zeros((3, 32, 32))  # (NB * 8, whole column blocks)
+    for (s, i, j), c in np.ndenumerate(ell.block_cols.numpy()):
+        dense[s, 8 * i:8 * i + 8, 16 * c:16 * c + 16] += tiles64[s, i, j]
+    ref = np.einsum("snm,snf->mf", dense[:, :N, :N], dout.numpy())[None]
+    np.testing.assert_allclose(dx.numpy(), ref, rtol=1e-12, atol=1e-12)
+    dx32 = cuda_ell.ell_bwd_dx_plain(ell.block_cols, tiles, dout.float(), N,
+                                     3, scale)
+    assert dx32.dtype == torch.float32
+    np.testing.assert_allclose(dx32.numpy(), ref, **SPMM_TOL)
+
+
 def test_dblocks_match_pallas_on_a_pad_free_container():
     """dBlocks through ``ell_spmm`` with tiles that require grad, against
     ``jax.grad`` through the Pallas kernels, on a container whose every row
