@@ -235,6 +235,26 @@ def phase_build():
           f"loaded in {time.perf_counter() - t0:.1f}s", flush=True)
 
 
+def ptxas_kernel(source, name):
+    """(registers, "stores/loads") of the kernel whose mangled name holds
+    ``name`` in the ptxas report of csrc/<source>.cu from this run's
+    build; "not measured" where the library was built before."""
+    from mpgcn_tpu_torch.native import build
+
+    lines = build.ptxas_reports.get(source, "").splitlines()
+    regs = spills = "not measured"
+    inside = False
+    for line in lines:
+        if "Compiling entry function" in line:
+            inside = name in line
+        elif inside and "spill stores" in line:
+            nums = [w for w in line.replace(",", " ").split() if w.isdigit()]
+            spills = f"{nums[1]}/{nums[2]}" if len(nums) >= 3 else line
+        elif inside and "Used" in line and "registers" in line:
+            regs = line.split("Used")[1].split("registers")[0].strip()
+    return regs, spills
+
+
 def phase_kernels(dev, rng):
     """Each kernel against its plain version at the serve shapes; returns
     the per-kernel worst error and timing inputs."""
@@ -2102,6 +2122,12 @@ def phase_large_n_lstm_times(dev):
     hs, cs = cuda_lstm.lstm_layer_train(xp, w)
     times["lstm_train_bwd"], note = lstm_bwd_time(dev, xp, w, hs, cs, dhs,
                                                   10, 2, lib_bwd)
+    index = cuda_lstm.device_index(dev)
+    regs, spills = ptxas_kernel("lstm_train", "lstm_train_bwd_kernel")
+    note += (f"; resident kernel: {regs} registers, spill stores/loads "
+             f"{spills} bytes, {cuda_lstm.bwd_smem_bytes(index, H)} bytes "
+             f"of shared memory a block, {cuda_lstm._max_bwd_blocks(index, H)}"
+             f" blocks co-resident")
     for name, entry in times.items():
         print(f"[time] N=500 {name} (T={T}, R={R}, H={H}; library "
               f"torch.nn.LSTM at batch {R}"

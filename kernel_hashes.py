@@ -8,8 +8,9 @@ Imports ``mpgcn_tpu_torch`` from CHECKOUT (default: the directory of this
 script), builds its kernels, runs each entry once on the card and prints
 one JSON object, ``{"hashes": {case: sha256 of the output bytes}}``, on its
 last line. The cases cover the eleven entries that chip_smoke.py lists, at
-the reference and wide widths and at the N=500 blocked-ELL shapes. Needs a
-CUDA card; imports nothing of JAX.
+the reference and wide widths and at the N=500 blocked-ELL shapes, the
+resident BPTT at the N=500 step's shape, and one case with Inf and NaN
+inputs per split-TF32 entry. Needs a CUDA card; imports nothing of JAX.
 """
 
 import argparse
@@ -120,6 +121,65 @@ def main() -> int:
         put(f"ell_bwd_dblk {label}",
             cuda_ell.ell_bwd_dblk(cols, X, dout, bc, S // G))
         del X, dout
+
+    # the resident BPTT at the N=500 step's shape (R = B N^2 = 500,000)
+    rng = np.random.default_rng(500)
+    T, R, H = 7, 500000, 32
+    xp = t(rng.normal(size=(T, R, 4 * H)))
+    w = t(rng.normal(size=(H, 4 * H)) / np.sqrt(H))
+    hs, cs = cuda_lstm.lstm_layer_train(xp, w)
+    dhs = t(rng.normal(size=(T, R, H)))
+    put(f"lstm_train_bwd T={T} R={R} H={H}",
+        *cuda_lstm.lstm_layer_bwd(xp, w, hs, cs, dhs, None))
+    del xp, hs, cs, dhs
+
+    # non-finite inputs, one case per split-TF32 entry: +Inf, -Inf and a
+    # NaN made on the card (Inf - Inf) in one operand
+    rng = np.random.default_rng(7)
+    inf = torch.full((), float("inf"), device=dev)
+
+    def non_finite(a, at):
+        a = a.clone()
+        for i, v in zip(at, (inf, -inf, inf - inf)):
+            a.view(-1)[i] = v
+        return a
+
+    n, F = 200, 160
+    base = ell_from_dense(band((3, n, n)), br=8, bc=128)
+    X = non_finite(t(rng.normal(size=(1, n, F))),
+                   [150 * F + 7, 60 * F + 40, 5 * F + 130])
+    dout = non_finite(t(rng.normal(size=(3, n, F))),
+                      [70 * F + 3, 350 * F + 33, 599 * F + 100])
+    for payload in ("f32", "int8"):
+        cols, tiles, scale, tp, ts = flat_stack(
+            pack_payload(base, payload).to(dev))
+        q = "_q" if scale is not None else ""
+        put(f"ell_fwd{q} non-finite X {payload}",
+            cuda_ell.ell_fwd(cols, tiles, tp, ts, X, n, 3, scale))
+        put(f"ell_bwd_dx{q} non-finite dout {payload}",
+            cuda_ell.ell_bwd_dx(cols, tiles, tp, ts, dout, n, 3, scale))
+    cols = flat_stack(base.to(dev))[0]
+    put("ell_bwd_dblk non-finite X and dout",
+        cuda_ell.ell_bwd_dblk(cols, X, dout, 128, 3))
+    K, B, N, C, H = 3, 2, 20, 32, 32
+    h1 = t(rng.normal(size=(K, B, N, N, C)))
+    g = t(rng.random((B, K, N, N)) / N * 2)
+    wr = t(rng.normal(size=(K, K, C, H)) / np.sqrt(K * K * C))
+    d = t(rng.normal(size=(B, N, N, H)))
+    h1 = non_finite(h1, [h1.numel() // 7, h1.numel() // 3, h1.numel() - 5])
+    put("bdgcn_pair_fwd non-finite h1",
+        cuda_bdgcn.folded_pair_project(h1, g, wr))
+    put("bdgcn_pair_bwd non-finite h1",
+        *cuda_bdgcn.folded_pair_project_bwd(h1, g, wr, d))
+    T, R, H = 3, 333, 97
+    xp = t(rng.normal(size=(T, R, 4 * H)))
+    w = t(rng.normal(size=(H, 4 * H)) / np.sqrt(H))
+    hs, cs = cuda_lstm.lstm_layer_train(xp, w)
+    dhs = non_finite(t(rng.normal(size=(T, R, H))),
+                     [(2 * R + 10) * H + 3, (2 * R + 200) * H + 1,
+                      (R + 300) * H + 7])
+    put(f"lstm_train_bwd non-finite dhs T={T} R={R} H={H}",
+        *cuda_lstm.lstm_layer_bwd(xp, w, hs, cs, dhs, None))
 
     print(json.dumps({"root": root, "device": torch.cuda.get_device_name(0),
                       "hashes": hashes}))

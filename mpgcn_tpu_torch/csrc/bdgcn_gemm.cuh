@@ -24,6 +24,16 @@
 // the H100; this order is better than plain f32 there. Each output entry
 // is written once by the block that owns it: no float atomics.
 //
+// Inf and NaN. The split is made for finite values (it turns a NaN such
+// as 0x7fffffff into -0, and three split products give an Inf the wrong
+// sign or NaN), so each thread folds every operand value it splits into
+// x * 0 (fold_non_finite, on the FP pipe beside the split's integer
+// work), and a warp (mma.sync: its own A rows and B columns) or block
+// (wgmma: B is split once for both warpgroups; a barrier's OR) whose
+// operands held an Inf or NaN sums each entry of its tile again in plain
+// f32 (plain_entry): Inf, NaN and finite entries as the f32 sum gives
+// them. Tiles without one keep their bits.
+//
 // Staging. An operand is copied by cp.async with its memory-contiguous axis
 // along the lanes (k for h1 and dout rows, the destination axis of a
 // support, and so on: the template flags), in 16-byte copies where every
@@ -98,6 +108,18 @@ struct Gemm {
   int n, k, k_chunk;
   int vec_a, vec_b;
 };
+
+// The f32 sum of C[z](i, n) over the depths [kb, ke) in order, a plain
+// fmaf a depth (a at A's row i, b at B's column n): what the entries of a
+// tile whose operands held an Inf or NaN take instead of their
+// split-TF32 sums. Rare: only a non-finite operand gets here.
+__device__ __forceinline__ float plain_entry(Axis ak, Axis bk,
+                                             const float* a, const float* b,
+                                             int kb, int ke) {
+  float s = 0.0f;
+  for (int k = kb; k < ke; ++k) s = fmaf(a[ak.at(k)], b[bk.at(k)], s);
+  return s;
+}
 
 // --- the per-(b, m) products on mma.sync -----------------------------------
 
@@ -255,6 +277,9 @@ __global__ void __launch_bounds__(128, 4) tf32_gemm_kernel(Gemm g) {
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.0f;
+    // NaN once an operand value was Inf or NaN: A's and B's apart, two
+    // short chains of FMAs
+    float nf_a = 0.0f, nf_b = 0.0f;
 
     const int n_slabs = ke > kb ? (ke - kb + kSlab - 1) / kSlab : 0;
     for (int s = 0; s < kStagesG - 1; ++s) {
@@ -277,8 +302,9 @@ __global__ void __launch_bounds__(128, 4) tf32_gemm_kernel(Gemm g) {
 #pragma unroll
           for (int v = 0; v < 4; ++v) {
             const int rr = r + (v & 1) * 8, kk = k8 + tq + (v >> 1) * 4;
-            split_tf32_rn(kAColM ? as[kk * AS + rr] : as[rr * AS + kk],
-                          ah[i][v], al[i][v]);
+            const float x = kAColM ? as[kk * AS + rr] : as[rr * AS + kk];
+            nf_a = fold_non_finite(x, nf_a);
+            split_tf32_rn(x, ah[i][v], al[i][v]);
           }
         }
 #pragma unroll
@@ -288,8 +314,9 @@ __global__ void __launch_bounds__(128, 4) tf32_gemm_kernel(Gemm g) {
 #pragma unroll
           for (int v = 0; v < 2; ++v) {
             const int kk = k8 + tq + v * 4;
-            split_tf32_rn(kBColK ? bs[c * BS + kk] : bs[kk * BS + c],
-                          bh[v], bl[v]);
+            const float x = kBColK ? bs[c * BS + kk] : bs[kk * BS + c];
+            nf_b = fold_non_finite(x, nf_b);
+            split_tf32_rn(x, bh[v], bl[v]);
           }
           // the 8 depths' products of each entry summed from 0, the small
           // cross terms first, then added in f32
@@ -306,6 +333,9 @@ __global__ void __launch_bounds__(128, 4) tf32_gemm_kernel(Gemm g) {
       }
     }
 
+    // a warp splits the A rows and B columns of its own 32 x 32 outputs:
+    // its vote decides
+    const bool plain = __any_sync(0xffffffffu, isnan(nf_a + nf_b));
     float* c = g.c + g.zc.at(z);
     long long ro[2][2], co[4][2];
 #pragma unroll
@@ -331,6 +361,18 @@ __global__ void __launch_bounds__(128, 4) tf32_gemm_kernel(Gemm g) {
           const long long r = ro[i][v >> 1], q = co[j][v & 1];
           if (r >= 0 && q >= 0) c[r + q] = acc[i][j][v];
         }
+    if (plain) {  // rare: after the store, which keeps its registers
+#pragma unroll 1
+      for (int e = 0; e < 32; ++e) {
+        const int i = e >> 4, j = (e >> 2) & 3, v = e & 3;
+        const long long r = ro[i][v >> 1], q = co[j][v & 1];
+        if (r >= 0 && q >= 0)
+          c[r + q] = plain_entry(
+              g.ak, g.bk,
+              a + g.ai.at(m0 + wm * 32 + i * 16 + (v >> 1) * 8 + gq),
+              b + g.bn.at(n0 + wn * 32 + j * 8 + 2 * tq + (v & 1)), kb, ke);
+      }
+    }
   }
 }
 
@@ -423,10 +465,11 @@ __device__ __forceinline__ void wg_stage(float* dst, const float* base,
 }
 
 // Splits one operand's raw step into hi (at hi) and lo (kWgOp further), in
-// the core-matrix layout. Every thread calls it.
+// the core-matrix layout, folding each value into nf. Every thread calls
+// it.
 template <bool kKCol>
 __device__ __forceinline__ void wg_split(float* hi, const float* raw,
-                                         int tid) {
+                                         int tid, float& nf) {
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
     const int q = tid + kWgThreads * u;
@@ -446,6 +489,8 @@ __device__ __forceinline__ void wg_split(float* hi, const float* raw,
       for (int i = 0; i < 4; ++i) x[i] = raw[(4 * kc + i) * 128 + row];
     }
     uint4 h, l;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) nf = fold_non_finite(x[i], nf);
     split_tf32_rn(x[0], h.x, l.x);
     split_tf32_rn(x[1], h.y, l.y);
     split_tf32_rn(x[2], h.z, l.z);
@@ -509,9 +554,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       wg_stage<kBColK>(r + kWgRawA, b, g.b, g.bk, k0, ke, g.vec_b, col_b,
                        b_fix, tid);
     };
+    float nf = 0.0f;  // NaN once an operand value was Inf or NaN
     auto split = [&](int t) {
       wg_split<kBColK>(spl + (t & 1) * 2 * kWgOp,
-                       raw + (t % kWgRaw) * (kWgRawA + kWgOp) + kWgRawA, tid);
+                       raw + (t % kWgRaw) * (kWgRawA + kWgOp) + kWgRawA, tid,
+                       nf);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     };
     // this thread's A fragment value v of depth 8 ks + tig (+ 4) from raw
@@ -549,8 +596,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
       for (int ks = 0; ks < kSlab / 8; ++ks) {
 #pragma unroll
-        for (int v = 0; v < 4; ++v)
-          split_tf32_rn(a_val(ra, ks, v), ah[ks][v], al[ks][v]);
+        for (int v = 0; v < 4; ++v) {
+          const float x = a_val(ra, ks, v);
+          nf = fold_non_finite(x, nf);
+          split_tf32_rn(x, ah[ks][v], al[ks][v]);
+        }
         wgmma_fence();
         const float* q = pb + ks * 64;  // two core matrices along k
         wgmma_m64k8_ra(p, al[ks], wgmma_desc(q), ks > 0);
@@ -583,7 +633,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     // columns' offsets go to a table in the (free) raw steps.
     long long* col_c = reinterpret_cast<long long*>(raw);
     if (tid < kWgBN) col_c[tid] = n0 + tid < g.n ? g.cn.at(n0 + tid) : -1;
-    __syncthreads();
+    const bool plain = __syncthreads_or(isnan(nf));
     float* c = g.c + g.zc.at(z);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -597,6 +647,17 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           const long long co = col_c[j * 8 + 2 * tig + u];
           if (co >= 0) c[ro + co] = acc[j * 4 + 2 * h + u];
         }
+    }
+    if (plain) {  // rare: after the store, which keeps its registers
+#pragma unroll 1
+      for (int e = 0; e < 64; ++e) {
+        const int h = e >> 5, col = (e >> 1 & 15) * 8 + 2 * tig + (e & 1);
+        const long long r = m0 + wg * 64 + (warp & 3) * 16 + h * 8 + gid;
+        const long long co = col_c[col];
+        if (r < g.m && co >= 0)
+          c[g.ci.at(r) + co] = plain_entry(g.ak, g.bk, a + g.ai.at(r),
+                                           b + g.bn.at(n0 + col), kb, ke);
+      }
     }
   }
 

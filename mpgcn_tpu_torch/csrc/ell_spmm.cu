@@ -67,11 +67,11 @@
 //     other k steps: in a banded operator a row group meets only part of a
 //     column block. That reads 0.27 GB of X per launch at the shape above,
 //     against 0.64 GB for whole slabs. Two blocks share an SM, so one's
-//     staging and stores overlap the other's products. Pad slots are never
-//     read: their tiles are zero, so for finite X leaving them out gives
-//     the same sum (as in dX below); the plain version still computes
-//     every slot. A 16-row fragment whose two row blocks have no slot on
-//     the column block is skipped. A group whose live column blocks do not
+//     staging and stores overlap the other's products. Pad slots are not
+//     multiplied: their tiles are zero, so for finite X leaving them out
+//     gives the same sum (as in dX below); the plain version still
+//     computes every slot. A 16-row fragment whose two row blocks have no
+//     slot on the column block is skipped. A group whose live column blocks do not
 //     all fit in shared memory takes them in batches, each adding its sum
 //     into the output in order.
 //     The products are mma.sync m16n8k8 TF32 with f32 accumulators (wgmma
@@ -90,6 +90,21 @@
 //     summed into the staged operand, which is then split as f32 tiles
 //     are. No float atomics: each block owns its output tiles and sums in
 //     a fixed order, bit-equal from run to run.
+//   Inf and NaN in X. The plain sum multiplies every entry of every
+//     slot's tile, pad slots included, so an Inf or NaN there makes its
+//     column of the output non-finite wherever a slot names its column
+//     block (0 x Inf is NaN); the skips above and the split (made for
+//     finite values, split_tf32) lose that. So the warps fold every X
+//     value they read into x * 0 (on the FP pipe; a warp vote a slab)
+//     and flag (X group, column block, F tile) where one was Inf or NaN,
+//     and the blocks tag the X rows they read; a fix-up pass after the
+//     forward (ell_fwd_fix_kernel) reads the rows no block read and sums
+//     again in plain f32 the columns that a flagged column block reaches
+//     through any slot of a row group, pad slots included (cols names
+//     them): Inf, NaN and finite entries as the plain sum gives them.
+//     Every other entry keeps its bits. A flag pass that read all of X
+//     before the forward cost it 10-22% on the H100 (it held registers
+//     the forward's second block per SM needs, overlapped or not).
 //   dX: the TPU sums dX over row blocks because its grid runs in order.
 //     Here one block owns one (X group g, column block c, 128-column F
 //     tile): the whole (BC x 128) tile of dX in f32 accumulators, written
@@ -97,8 +112,8 @@
 //     the transposed block index (t_ptr, t_slot) lists them: one slot is
 //     one 8-deep k step of mma.sync m16n8k8, A its tile transposed (m = the
 //     tile's column, k = its row), B its row block's 8 dout rows. Pad slots
-//     are not in the index and are never read (their tiles are zero; for
-//     finite dout the sum is the same). A column block without a slot gets
+//     are not in the index and are not multiplied (their tiles are zero;
+//     for finite dout the sum is the same). A column block without a slot gets
 //     zeros. Neither operand is K-major in shared memory, so mma.sync and
 //     not wgmma. Slots stream through a cp.async ring of kDxStages stages
 //     of kDxSlots slots each (one 8-deep k step is too shallow to hide a
@@ -115,15 +130,14 @@
 //     in every lane (a ballot) skips its products, and one with none live
 //     skips the slot; the live fragments of a band lie side by side, and
 //     side by side they fall to warps on different schedulers. An Inf or
-//     NaN in dout: a zero tile entry times it is NaN in the plain sum, so
-//     its column of dX is non-finite in every row of each column block
-//     that a slot of its row block names. The skipped fragments and the
-//     TF32 split (which turns a NaN such as 0x7fffffff into -0) lose
-//     that, so the warps wm = 0 fold the dout values they read into
-//     x * 0 and flag a NaN there in shared memory; a flagged block
-//     rescans its slots' dout rows after the k loop and writes NaN in
-//     those columns of its whole tile. The plain sum also puts NaN in
-//     the column block a pad slot names; pad slots are never read here.
+//     NaN in dout: the warps wm = 0 fold the dout values they read into
+//     x * 0, which flags the block; a flagged block sums the columns of
+//     its tile where a slot's dout rows hold one again in plain f32 (the
+//     skipped fragments and the split lose them). Pad slots, which name
+//     column block 0 with zero tiles, put NaN there in the plain sum:
+//     flagged blocks mark the row blocks they found one in, and a pad
+//     pass after dX (ell_dx_pad_kernel) writes that NaN. Two launches per
+//     call.
 //     The split is the forward's: f32 tiles take hi*hi + hi*lo + lo*hi,
 //     bf16 tiles and int8 codes are exact in TF32 and take two. Each k step's
 //     products are summed on the tensor cores from 0, the small cross
@@ -171,6 +185,7 @@
 
 #include <type_traits>
 
+#include "smem.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -433,7 +448,8 @@ __device__ void stage_ops(FwdBatch& L, int n, float* ops, int op_size,
 
 // The warp's products for one staged X slab: its 16-row fragment m of the
 // operand against its kFwdNF 8-column tiles of the slab, over the k steps
-// [ks0, ks1) that hold the operand's non-zero columns. The hi * hi
+// [ks0, ks1) that hold the operand's non-zero columns; every X value it
+// reads folded into nf (two chains). The hi * hi
 // products go into acc through mma_tf32_add; the cross terms, about 2^-11
 // of them, into their own accumulator acc_lo, whose truncation is as
 // small: over hundreds of products a single accumulator's truncation
@@ -441,6 +457,7 @@ __device__ void stage_ops(FwdBatch& L, int n, float* ops, int op_size,
 template <bool kExactA>
 __device__ __forceinline__ void fwd_products(float (&acc)[kFwdNF][4],
                                              float (&acc_lo)[kFwdNF][4],
+                                             float (&nf)[2],
                                              const float* xb,
                                              const float* op, unsigned mask,
                                              int m, int ks0, int ks1,
@@ -470,8 +487,11 @@ __device__ __forceinline__ void fwd_products(float (&acc)[kFwdNF][4],
     unsigned bh[kFwdNF][2], bl[kFwdNF][2];
 #pragma unroll
     for (int n = 0; n < kFwdNF; ++n) {
-      split_tf32(x0[n * 8], bh[n][0], bl[n][0]);
-      split_tf32(x0[4 * kXStride + n * 8], bh[n][1], bl[n][1]);
+      const float xa = x0[n * 8], xb4 = x0[4 * kXStride + n * 8];
+      nf[0] = fold_non_finite(xa, nf[0]);
+      nf[1] = fold_non_finite(xb4, nf[1]);
+      split_tf32(xa, bh[n][0], bl[n][0]);
+      split_tf32(xb4, bh[n][1], bl[n][1]);
     }
     if (split_a) {
 #pragma unroll
@@ -492,11 +512,41 @@ inline size_t fwd_smem_bytes(int kp) {
   return sizeof(float) * ((size_t)kStages * kp * kXStride + kACap);
 }
 
+// The forward's plain f32 sum for output row `row` of slice s, column f:
+// every slot of its row block, pad slots included (their zero tiles name
+// column block 0), each tile entry times its X value (rows past n_cols
+// read 0), int8 codes times the row block's scale first, as the plain
+// version takes them. For the rare entries that an Inf or NaN in X reaches.
+template <typename T>
+__device__ __noinline__ float fwd_plain_entry(
+    const int* __restrict__ cols, const T* __restrict__ blocks,
+    const float* __restrict__ scale, const float* __restrict__ xs, int s,
+    int row, int f, int NB, int MB, int BC, int n_cols, int F) {
+  const int i = row / kBR;
+  const size_t rb = (size_t)s * NB + i;
+  const float sc = scale != nullptr ? scale[rb] : 1.0f;
+  float v = 0.0f;
+  for (int j = 0; j < MB; ++j) {
+    const int c = cols[rb * MB + j];
+    const T* tile = blocks + ((rb * MB + j) * kBR + row % kBR) * BC;
+    for (int k = 0; k < BC; ++k) {
+      const int xr = c * BC + k;
+      v = fmaf(tile_value(tile, k) * sc,
+               xr < n_cols ? xs[(size_t)xr * F + f] : 0.0f, v);
+    }
+  }
+  return v;
+}
+
+// the fix-up pass takes an F tile a warp, a column a lane
+static_assert(kFwdTF == 32, "a lane per column of a forward F tile");
+
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSM)
 ell_fwd_kernel(const int* __restrict__ t_ptr, const int* __restrict__ t_slot,
                const T* __restrict__ blocks, const float* __restrict__ scale,
-               const float* __restrict__ x, float* __restrict__ out, int S,
+               const float* __restrict__ x, int* __restrict__ staged,
+               int* __restrict__ flags, float* __restrict__ out, int S,
                int NB, int MB, int BC, int nbc, int n_rows, int n_cols,
                int F, int x_div, int n_chunks) {
   extern __shared__ float4 smem4[];
@@ -530,6 +580,7 @@ ell_fwd_kernel(const int* __restrict__ t_ptr, const int* __restrict__ t_slot,
   for (int n = 0; n < kFwdNF; ++n)
 #pragma unroll
     for (int v = 0; v < 4; ++v) acc[n][v] = acc_lo[n][v] = 0.0f;
+  float nf[2] = {0.0f, 0.0f};  // NaN once an X value read was Inf or NaN
 
   // the epilogue of F tile t: rows gid and gid + 8 of the warp's fragment,
   // columns 2 tig and 2 tig + 1 of each 8-column tile, times the row
@@ -594,6 +645,16 @@ ell_fwd_kernel(const int* __restrict__ t_ptr, const int* __restrict__ t_slot,
     // operand k's k steps: its non-zero columns, in steps of 8
     auto ks_lo = [&](int k) { return L.klo[k] / 8; };
     auto ks_hi = [&](int k) { return max(ks_lo(k), (L.khi[k] + 7) / 8); };
+    // the X rows whose every F tile the group's blocks read (and fold);
+    // the other chunks stage the same rows
+    if (ch == 0)
+      for (int k = 0; k < n; ++k) {
+        const int r0 = L.c[k] * BC;
+        const int r1 = r0 + min(min(8 * ks_hi(k), BC), n_cols - r0);
+        for (int r = r0 + 8 * ks_lo(k) + threadIdx.x; r < r1;
+             r += kFwdThreads)
+          staged[(size_t)g * n_cols + r] = 1;
+      }
     auto stage = [&](int t) {
       const int k = t % n;
       stage_x<kVec>(xbuf + (t % kStages) * slab, xs, L.c[k], BC, 8 * ks_lo(k),
@@ -611,13 +672,121 @@ ell_fwd_kernel(const int* __restrict__ t_ptr, const int* __restrict__ t_slot,
       cp_async_commit();
       const int k = t % n;
       fwd_products<exact_in_tf32<T>()>(
-          acc, acc_lo, xbuf + (t % kStages) * slab + half * (kFwdTF / 2),
+          acc, acc_lo, nf, xbuf + (t % kStages) * slab + half * (kFwdTF / 2),
           ops + k * op_size, L.mask[k], m, ks_lo(k), ks_hi(k), ks_n, lane);
+      // an Inf or NaN in this slab: flag (X group, column block, F tile)
+      // for the fix-up pass (rare; stores of 1, no order)
+      if (__any_sync(0xffffffffu, isnan(nf[0] + nf[1]))) {
+        if (lane == 0)
+          flags[((size_t)g * nbc + L.c[k]) * n_ft + ch + t / n * n_chunks] =
+              1;
+        nf[0] = nf[1] = 0.0f;
+      }
       if (k == n - 1) store(s, t / n, batch > 0);
     }
     __syncthreads();  // the operands and slabs are free for the next batch
     if (c_from >= nbc) break;
   }
+
+  }
+}
+
+// The forward's fix-up pass, after it on the stream: one block per (X
+// group g, kFixTiles F tiles). The forward folds every X value it reads
+// and flags (g, column block, F tile) where one was Inf or NaN, and tags
+// the X rows it reads in every F tile (staged). The plain sum also
+// multiplies what the forward skips: X rows outside a group's [klo, khi),
+// and column block 0 through pad slots, so (1) the rows that no group
+// read are read here (none at the N = 500 shape: a band reads every row)
+// and flag the same way; (2) for each (slice, row group, F tile) whose
+// slots, pad slots included (cols), name a flagged column block, a warp
+// finds the Inf and NaN columns of those blocks' rows and sums those
+// columns again in plain f32 in every row of the group (a fragment
+// partner's zero rows took 0 x Inf there too), over the forward's store.
+// Lists of what to read and fix are gathered in shared memory, 256 at a
+// time; with finite X it reads the tags and its flags only.
+constexpr int kFixTiles = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(256) ell_fwd_fix_kernel(
+    const int* __restrict__ cols, const T* __restrict__ blocks,
+    const float* __restrict__ scale, const float* __restrict__ x,
+    const int* __restrict__ staged, int* __restrict__ flags,
+    float* __restrict__ out, int NB, int MB, int BC, int nbc, int n_rows,
+    int n_cols, int F, int x_div) {
+  __shared__ int s_list[256];
+  __shared__ int s_n;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int n_ft = (F + kFwdTF - 1) / kFwdTF;
+  const int n_fb = (n_ft + kFixTiles - 1) / kFixTiles;
+  const int g = blockIdx.x / n_fb;
+  const int ft0 = (blockIdx.x % n_fb) * kFixTiles;
+  const int nt = min(kFixTiles, n_ft - ft0);
+  const float* xs = x + (size_t)g * n_cols * F;
+  const int n_groups = (NB + kGroupRB - 1) / kGroupRB;
+  // 1. rows no group read: flag their column blocks' Inf and NaN tiles
+  for (int base = 0; base < n_cols; base += 256) {
+    if (tid == 0) s_n = 0;
+    __syncthreads();
+    const int k = base + tid;
+    if (k < n_cols && !staged[(size_t)g * n_cols + k])
+      s_list[atomicAdd(&s_n, 1)] = k;
+    __syncthreads();
+    for (int q = warp; q < s_n * nt; q += 8) {
+      const int k2 = s_list[q / nt], ft = ft0 + q % nt;
+      const int f = ft * kFwdTF + lane;
+      const bool bad = f < F && !isfinite(xs[(size_t)k2 * F + f]);
+      if (__any_sync(0xffffffffu, bad) && lane == 0)
+        flags[((size_t)g * nbc + k2 / BC) * n_ft + ft] = 1;
+    }
+    __syncthreads();
+  }
+  // with no flag in the block's F tiles (finite X), nothing to fix
+  if (tid == 0) s_n = 0;
+  __syncthreads();
+  for (int q = tid; q < nbc * nt; q += 256)
+    if (flags[((size_t)g * nbc + q / nt) * n_ft + ft0 + q % nt]) s_n = 1;
+  __syncthreads();
+  if (!s_n) return;
+  // 2. (slice, row group, F tile) items that a flagged block reaches
+  const int items = x_div * n_groups * nt;
+  for (int base = 0; base < items; base += 256) {
+    if (tid == 0) s_n = 0;
+    __syncthreads();
+    const int q = base + tid;
+    if (q < items) {
+      const int ft = ft0 + q % nt, i0 = (q / nt) % n_groups * kGroupRB;
+      const int s = g * x_div + q / nt / n_groups;
+      bool hit = false;
+      for (int e = 0; e < kGroupRB * MB && !hit; ++e) {
+        const int i = i0 + e / MB;
+        if (i >= NB) break;
+        hit = flags[((size_t)g * nbc + cols[((size_t)s * NB + i) * MB +
+                                            e % MB]) * n_ft + ft] != 0;
+      }
+      if (hit) s_list[atomicAdd(&s_n, 1)] = q;
+    }
+    __syncthreads();
+    for (int w = warp; w < s_n; w += 8) {
+      const int q2 = s_list[w];
+      const int ft = ft0 + q2 % nt, i0 = (q2 / nt) % n_groups * kGroupRB;
+      const int s = g * x_div + q2 / nt / n_groups;
+      const int f = ft * kFwdTF + lane;  // a lane a column
+      bool bad = false;
+      for (int e = 0; e < kGroupRB * MB && f < F; ++e) {
+        const int i = i0 + e / MB;
+        if (i >= NB) break;
+        const int r0 = cols[((size_t)s * NB + i) * MB + e % MB] * BC;
+        for (int r = r0; r < min(r0 + BC, n_cols); ++r)
+          bad = bad || !isfinite(xs[(size_t)r * F + f]);
+      }
+      if (!bad) continue;
+      for (int row = i0 * kBR; row < min(n_rows, (i0 + kGroupRB) * kBR);
+           ++row)
+        out[((size_t)s * n_rows + row) * F + f] = fwd_plain_entry(
+            cols, blocks, scale, xs, s, row, f, NB, MB, BC, n_cols, F);
+    }
+    __syncthreads();
   }
 }
 
@@ -640,6 +809,70 @@ inline size_t dx_smem_bytes() {
   return (size_t)kDxStages * kDxSlots * dx_slot_bytes<T>();
 }
 
+// A dX block that met an Inf or NaN in dout (its fold): marks each of its
+// columns where one of its slots' dout rows holds one, and each such row
+// block in rb_flags with this call's generation gen (for the pad pass,
+// ell_dx_pad_kernel: no memset, and a stale or stray value equal to gen
+// only makes it read rows that hold nothing); then sums those columns
+// again in plain f32 over its slots and writes them over the store: Inf
+// and NaN as the plain sum gives them (0 x Inf is NaN, each Inf of its
+// sign), which the products do not, as they skip zero fragments and the
+// TF32 split turns a NaN such as 0x7fffffff into -0. Out of line and after
+// the store, so that the products keep their registers; every thread of
+// the block calls it. Integer OR into shared memory and stores of gen: no
+// order to keep.
+template <typename T>
+__device__ __noinline__ void dx_fix_non_finite(
+    const int* __restrict__ t_ptr, const int* __restrict__ t_slot,
+    const T* __restrict__ blocks, const float* __restrict__ scale,
+    const float* __restrict__ dout, float* __restrict__ dx,
+    int* __restrict__ rb_flags, int gen, unsigned* s_bad, int NB, int MB,
+    int BC, int nbc, int n_rows, int n_cols, int F, int x_div, int c, int g,
+    int f0) {
+  constexpr bool kScaled = std::is_same<T, int8_t>::value;
+  const int tid = threadIdx.x;
+  const int s0 = g * x_div;
+  const size_t per_slice = (size_t)NB * MB;
+  if (tid < kDxTF / 32) s_bad[tid] = 0u;
+  __syncthreads();
+  for (int s = s0; s < s0 + x_div; ++s) {
+    const int* ptr = t_ptr + (size_t)s * (nbc + 1);
+    for (int e = ptr[c]; e < ptr[c + 1]; ++e) {
+      const int i = t_slot[(size_t)s * per_slice + e] / MB;
+      bool hit = false;
+      for (int q = tid; q < kBR * kDxTF; q += kDxThreads) {
+        const int r = i * kBR + q / kDxTF, lc = q % kDxTF;
+        if (r < n_rows && f0 + lc < F &&
+            !isfinite(dout[((size_t)s * n_rows + r) * F + f0 + lc])) {
+          atomicOr(&s_bad[lc / 32], 1u << (lc % 32));
+          hit = true;
+        }
+      }
+      if (hit) rb_flags[(size_t)s * NB + i] = gen;
+    }
+  }
+  __syncthreads();
+  for (int q = tid; q < kMaxBC * kDxTF; q += kDxThreads) {
+    const int m = q / kDxTF, lc = q % kDxTF, f = f0 + lc;
+    if (!((s_bad[lc / 32] >> (lc % 32)) & 1u) || m >= BC ||
+        c * BC + m >= n_cols || f >= F)
+      continue;
+    float v = 0.0f;
+    for (int s = s0; s < s0 + x_div; ++s) {
+      const int* ptr = t_ptr + (size_t)s * (nbc + 1);
+      for (int e = ptr[c]; e < ptr[c + 1]; ++e) {
+        const int slot = t_slot[(size_t)s * per_slice + e], i = slot / MB;
+        const float sc = kScaled ? scale[(size_t)s * NB + i] : 1.0f;
+        const T* tile = blocks + ((size_t)s * per_slice + slot) * kBR * BC + m;
+        for (int r = 0; r < kBR && i * kBR + r < n_rows; ++r)
+          v = fmaf(tile_value(tile, (size_t)r * BC) * sc,
+                   dout[((size_t)s * n_rows + i * kBR + r) * F + f], v);
+      }
+    }
+    dx[((size_t)g * n_cols + c * BC + m) * F + f] = v;
+  }
+}
+
 // One block per (X group g, F tile, column block c; c fastest): dX rows
 // c BC.. of group g, columns f0..f0 + kDxTF. a_vec: tile rows are whole
 // 16-byte chunks and aligned; d_vec: F % 4 == 0 and dout aligned.
@@ -649,8 +882,9 @@ ell_bwd_dx_kernel(const int* __restrict__ t_ptr,
                   const int* __restrict__ t_slot, const T* __restrict__ blocks,
                   const float* __restrict__ scale,
                   const float* __restrict__ dout, float* __restrict__ dx,
-                  int NB, int MB, int BC, int nbc, int n_rows, int n_cols,
-                  int F, int x_div, int a_vec, int d_vec) {
+                  int* __restrict__ rb_flags, int gen, int NB, int MB, int BC,
+                  int nbc, int n_rows, int n_cols, int F, int x_div,
+                  int a_vec, int d_vec) {
   extern __shared__ float4 smem4[];
   __shared__ float s_scale[kDxStages][kDxSlots];
   unsigned char* sbuf = reinterpret_cast<unsigned char*>(smem4);
@@ -887,42 +1121,6 @@ ell_bwd_dx_kernel(const int* __restrict__ t_ptr,
     products(t);
   }
 
-  // A block that met an Inf or NaN in dout marks each of its columns
-  // where one of its slots' dout rows holds one, and writes NaN there in
-  // every row of its tile: the plain sum gives Inf or NaN there (0 * Inf),
-  // which the products above do not, as they skip zero fragments and the
-  // TF32 split turns a NaN such as 0x7fffffff (what the card makes of
-  // 0 * Inf) into -0. Integer OR into shared memory: no order to keep.
-  __syncthreads();  // the last stage's readers are done; s_nonfinite set
-  if (s_nonfinite) {
-    if (tid < kDxTF / 32) s_bad[tid] = 0u;
-    __syncthreads();
-    for (int s = s0; s < s0 + x_div; ++s) {
-      const int* ptr = t_ptr + (size_t)s * (nbc + 1);
-      for (int e = ptr[c]; e < ptr[c + 1]; ++e) {
-        const int i = t_slot[(size_t)s * per_slice + e] / MB;
-        for (int q = tid; q < kBR * kDxTF; q += kDxThreads) {
-          const int r = i * kBR + q / kDxTF, lc = q % kDxTF;
-          if (r < n_rows && f0 + lc < F &&
-              !isfinite(dout[((size_t)s * n_rows + r) * F + f0 + lc]))
-            atomicOr(&s_bad[lc / 32], 1u << (lc % 32));
-        }
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int n = 0; n < kDxNT; ++n)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int lc = wn * (kDxTF / 2) + n * 8 + 2 * tig + (v & 1);
-        if ((s_bad[lc / 32] >> (lc % 32)) & 1u) {
-#pragma unroll
-          for (int mf = 0; mf < kDxMF; ++mf)
-            acc[mf][n][v] = __uint_as_float(0x7fffffffu);
-        }
-      }
-  }
-
   // D fragment: rows gid and gid + 8 of each 16-row fragment, columns
   // 2 tig and 2 tig + 1 of each 8-column tile
   const bool pair = (F & 1) == 0;
@@ -946,6 +1144,76 @@ ell_bwd_dx_kernel(const int* __restrict__ t_ptr,
         }
       }
     }
+  __syncthreads();  // the store is done; s_nonfinite set
+  if (s_nonfinite)  // the same in every thread
+    dx_fix_non_finite<T>(t_ptr, t_slot, blocks, scale, dout, dx, rb_flags,
+                         gen, s_bad, NB, MB, BC, nbc, n_rows, n_cols, F,
+                         x_div, c, g, f0);
+}
+
+// The pad pass of dX, after it on the stream: one block per X group g.
+// Pad slots are zero tiles naming column block 0; dX leaves them out, but
+// in the plain sum a pad slot of row block i puts 0 x dout there, NaN in
+// each column where i's dout rows hold an Inf or NaN, in every row of
+// column block 0. Such a row block was flagged by a dX block that staged
+// it (rb_flags == gen) or, holding no populated slot, was staged by none:
+// only those rows are read here (none at the N = 500 shape), 128 columns
+// at a time. The block counts each row block's populated slots from the
+// transposed index in shared memory (x_div x NB ints).
+__global__ void __launch_bounds__(256) ell_dx_pad_kernel(
+    const int* __restrict__ t_ptr, const int* __restrict__ t_slot,
+    const float* __restrict__ dout, const int* __restrict__ rb_flags,
+    int gen, float* __restrict__ dx, int NB, int MB, int BC, int nbc,
+    int n_rows, int n_cols, int F, int x_div) {
+  extern __shared__ int n_pop[];  // (x_div, NB) populated slots
+  __shared__ unsigned s_bad[kDxTF / 32];
+  __shared__ int s_any;
+  const int tid = threadIdx.x, g = blockIdx.x;
+  const size_t per_slice = (size_t)NB * MB;
+  for (int q = tid; q < x_div * NB; q += blockDim.x) n_pop[q] = 0;
+  if (tid == 0) s_any = 0;
+  __syncthreads();
+  for (int sl = 0; sl < x_div; ++sl) {
+    const int s = g * x_div + sl;
+    const int n = t_ptr[(size_t)s * (nbc + 1) + nbc];
+    for (int e = tid; e < n; e += blockDim.x)
+      atomicAdd(&n_pop[sl * NB + t_slot[(size_t)s * per_slice + e] / MB], 1);
+  }
+  __syncthreads();
+  // n_pop[q] becomes 1 where row block q's rows are read, else 0
+  for (int q = tid; q < x_div * NB; q += blockDim.x) {
+    const int s = g * x_div + q / NB;
+    const bool read =
+        n_pop[q] < MB &&
+        (n_pop[q] == 0 || rb_flags[(size_t)s * NB + q % NB] == gen);
+    n_pop[q] = read;
+    if (read) s_any = 1;
+  }
+  __syncthreads();
+  if (!s_any) return;
+  const int rows = min(BC, n_cols);
+  for (int f0 = 0; f0 < F; f0 += kDxTF) {
+    if (tid < kDxTF / 32) s_bad[tid] = 0u;
+    __syncthreads();
+    for (int q = 0; q < x_div * NB; ++q) {
+      if (!n_pop[q]) continue;
+      const int s = g * x_div + q / NB, i = q % NB;
+      for (int e = tid; e < kBR * kDxTF; e += blockDim.x) {
+        const int r = i * kBR + e / kDxTF, lc = e % kDxTF;
+        if (r < n_rows && f0 + lc < F &&
+            !isfinite(dout[((size_t)s * n_rows + r) * F + f0 + lc]))
+          atomicOr(&s_bad[lc / 32], 1u << (lc % 32));
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < rows * kDxTF; e += blockDim.x) {
+      const int m = e / kDxTF, lc = e % kDxTF;
+      if ((s_bad[lc / 32] >> (lc % 32)) & 1u)
+        dx[((size_t)g * n_cols + m) * F + f0 + lc] =
+            __uint_as_float(0x7fffffffu);
+    }
+    __syncthreads();  // s_bad's readers are done
+  }
 }
 
 // --- dBlocks on wgmma -------------------------------------------------------
@@ -1084,7 +1352,9 @@ ell_bwd_dblk_kernel(const int* __restrict__ cols, const float* __restrict__ x,
     }
   };
   // each thread splits what it copied from raw step rbuf into split step
-  // sbuf: hi at the raw value's place in its operand, lo one part further
+  // sbuf: hi at the raw value's place in its operand, lo one part further;
+  // nf turns NaN once a value it splits is Inf or NaN
+  float nf = 0.0f;
   auto split = [&](const float* rbuf, float* sbuf_) {
     float v[kPer][kW];
     float* h[kPer];
@@ -1109,7 +1379,10 @@ ell_bwd_dblk_kernel(const int* __restrict__ cols, const float* __restrict__ x,
     for (int u = 0; u < kPer; ++u) {
       unsigned hi[kW], lo[kW];
 #pragma unroll
-      for (int k = 0; k < kW; ++k) split_tf32(v[u][k], hi[k], lo[k]);
+      for (int k = 0; k < kW; ++k) {
+        nf = fold_non_finite(v[u][k], nf);
+        split_tf32(v[u][k], hi[k], lo[k]);
+      }
       if (kVec) {
         *reinterpret_cast<uint4*>(h[u]) =
             make_uint4(hi[0], hi[kW > 1 ? 1 : 0], hi[kW > 2 ? 2 : 0],
@@ -1182,12 +1455,29 @@ ell_bwd_dblk_kernel(const int* __restrict__ cols, const float* __restrict__ x,
     __syncthreads();  // step t + 1 is split; step t's wgmma are done
   }
   cp_async_wait<0>();
+  // an Inf or NaN among the block's operands: its entries are summed
+  // again in plain f32 (each_plain)
+  const bool plain = __syncthreads_or(isnan(nf));
   if (!wg_live && n_chunks == 1) return;
 
   // D fragment: warp w % 4 of the warpgroup holds rows 16 (w % 4) + gid
-  // (+ 8), columns 8 j + 2 tig (+ 1) of each 8-column chunk j
+  // (+ 8), columns 8 j + 2 tig (+ 1) of each 8-column chunk j. In a block
+  // whose operands held an Inf or NaN each entry is summed again in plain
+  // f32 over the chunk's columns (the split is made for finite values):
+  // Inf, NaN and finite entries as the f32 sum gives them; rows past
+  // n_rows and X rows past the slab read 0, as in the products.
   const size_t slot_base = (size_t)g * per_group;
   const size_t chunk_size = (size_t)S * NB * MB * kBR * BC;
+  const int f_lo = st0 * kDbTF, f_hi = min(F, (st0 + n_steps) * kDbTF);
+  auto dblk_plain_entry = [&](int m, int col) {
+    const long long off = s_aoff[m];
+    const float* xr = xs + (size_t)col * F;
+    float v = 0.0f;
+    for (int f = f_lo; f < f_hi; ++f)
+      v = fmaf(off >= 0 ? dout[off + f] : 0.0f, col < xrows ? xr[f] : 0.0f,
+               v);
+    return v;
+  };
   auto each_out = [&](auto&& fn) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -1200,16 +1490,35 @@ ell_bwd_dblk_kernel(const int* __restrict__ cols, const float* __restrict__ x,
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const int col = j * 8 + 2 * tig + u;
-          if (col < BC) fn(o0 + col, acc[j * 4 + 2 * h + u]);
+          if (col >= BC) continue;
+          fn(o0 + col, acc[j * 4 + 2 * h + u]);
         }
     }
   };
+  // the same entries summed in plain f32, a compact loop (rare)
+  auto each_plain = [&](auto&& fn) {
+#pragma unroll 1
+    for (int e = 0; e < 2 * kMaxBC; ++e) {
+      const int h = e / kMaxBC, col = e % kMaxBC;
+      const int m = wg * 64 + (warp % 4) * 16 + h * 8 + gid;
+      const int q = m / kBR;
+      if (q >= nslots || col >= BC || (col / 2) % 4 != tig) continue;
+      fn(((slot_base + s_slot[q]) * kBR + m % kBR) * BC + col,
+         dblk_plain_entry(m, col));
+    }
+  };
+  auto write = [&](auto&& fn) {
+    if (plain)
+      each_plain(fn);
+    else
+      each_out(fn);
+  };
   if (n_chunks == 1) {
-    if (wg_live) each_out([&](size_t o, float v) { dblk[o] = v; });
+    if (wg_live) write([&](size_t o, float v) { dblk[o] = v; });
     return;
   }
   if (wg_live)
-    each_out([&](size_t o, float v) { part[ch * chunk_size + o] = v; });
+    write([&](size_t o, float v) { part[ch * chunk_size + o] = v; });
   __threadfence();
   __syncthreads();
   if (tid == 0)
@@ -1218,7 +1527,7 @@ ell_bwd_dblk_kernel(const int* __restrict__ cols, const float* __restrict__ x,
   __syncthreads();
   if (!s_last || !wg_live) return;
   __threadfence();
-  each_out([&](size_t o, float v) {
+  write([&](size_t o, float v) {
     float sum = ch == 0 ? v : __ldcg(part + o);
     for (int k = 1; k < n_chunks; ++k)
       sum += k == ch ? v : __ldcg(part + k * chunk_size + o);
@@ -1236,10 +1545,10 @@ bool shape_ok(int S, int NB, int MB, int BC, int n_rows, int n_cols, int F,
 }
 
 template <typename T>
-int launch_fwd(const void* t_ptr, const void* t_slot, const void* blocks,
-               const void* scale, const void* x, void* out, int S, int NB,
-               int MB, int BC, int n_rows, int n_cols, int F, int x_div,
-               cudaStream_t st) {
+int launch_fwd(const void* t_ptr, const void* t_slot, const void* cols,
+               const void* blocks, const void* scale, const void* x,
+               void* out, void* scratch, int S, int NB, int MB, int BC,
+               int n_rows, int n_cols, int F, int x_div, cudaStream_t st) {
   const int nbc = (n_cols + BC - 1) / BC;
   // each block walks every n_chunks-th F tile of one (X group, row group):
   // enough blocks for kFwdWaves per SM, no more, so the index walk and the
@@ -1249,50 +1558,77 @@ int launch_fwd(const void* t_ptr, const void* t_slot, const void* blocks,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const long long cells =
-      (long long)((NB + kGroupRB - 1) / kGroupRB) * (S / x_div);
+  const int G = S / x_div;
+  const long long cells = (long long)((NB + kGroupRB - 1) / kGroupRB) * G;
   const long long n_ft = (F + kFwdTF - 1) / kFwdTF;
   const long long want = ((long long)kFwdWaves * sms + cells - 1) / cells;
   const long long n_chunks = want < 1 ? 1 : (want > n_ft ? n_ft : want);
   const long long grid = cells * n_chunks;
-  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const long long fix_grid = G * ((n_ft + kFixTiles - 1) / kFixTiles);
+  if (grid > 0x7fffffffLL || fix_grid > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
   const size_t smem = fwd_smem_bytes((BC + 7) / 8 * 8);
   const bool vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   auto kern = vec ? ell_fwd_kernel<T, true> : ell_fwd_kernel<T, false>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
+  // scratch: the staged-row tags (G, n_cols), then the flags (G, nbc, n_ft)
+  int* staged = static_cast<int*>(scratch);
+  int* flags = staged + (size_t)G * n_cols;
+  err = cudaMemsetAsync(scratch, 0,
+                        sizeof(int) * G * ((size_t)n_cols + nbc * n_ft), st);
+  if (err != cudaSuccess) return err;
   kern<<<(unsigned)grid, kFwdThreads, smem, st>>>(
       static_cast<const int*>(t_ptr), static_cast<const int*>(t_slot),
       static_cast<const T*>(blocks), static_cast<const float*>(scale),
-      static_cast<const float*>(x), static_cast<float*>(out), S, NB, MB, BC,
-      nbc, n_rows, n_cols, F, x_div, (int)n_chunks);
+      static_cast<const float*>(x), staged, flags, static_cast<float*>(out),
+      S, NB, MB, BC, nbc, n_rows, n_cols, F, x_div, (int)n_chunks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ell_fwd_fix_kernel<T><<<(unsigned)fix_grid, 256, 0, st>>>(
+      static_cast<const int*>(cols), static_cast<const T*>(blocks),
+      static_cast<const float*>(scale), static_cast<const float*>(x), staged,
+      flags, static_cast<float*>(out), NB, MB, BC, nbc, n_rows, n_cols, F,
+      x_div);
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch_dx(const void* t_ptr, const void* t_slot, const void* blocks,
-              const void* scale, const void* dout, void* dx, int S, int NB,
-              int MB, int BC, int n_rows, int n_cols, int F, int x_div,
-              cudaStream_t st) {
+              const void* scale, const void* dout, void* dx, void* rb_flags,
+              int S, int NB, int MB, int BC, int n_rows, int n_cols, int F,
+              int x_div, cudaStream_t st) {
   const int nbc = (n_cols + BC - 1) / BC;
-  const long long grid =
-      (long long)(S / x_div) * ((F + kDxTF - 1) / kDxTF) * nbc;
+  const long long n_ft = (F + kDxTF - 1) / kDxTF;
+  const long long grid = (long long)(S / x_div) * n_ft * nbc;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
   const size_t smem = dx_smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
       ell_bwd_dx_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
+  const size_t pad_smem = sizeof(int) * x_div * NB;
+  err = allow_smem((const void*)ell_dx_pad_kernel, pad_smem);
+  if (err != cudaSuccess) return err;
   const int a_vec = BC * (int)sizeof(T) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(blocks) % 16 == 0;
   const int d_vec =
       F % 4 == 0 && reinterpret_cast<uintptr_t>(dout) % 16 == 0;
+  static int calls = 0;  // the generation of this call's row-block flags
+  const int gen = ++calls & 0x3fffffff;
   ell_bwd_dx_kernel<T><<<(unsigned)grid, kDxThreads, smem, st>>>(
       static_cast<const int*>(t_ptr), static_cast<const int*>(t_slot),
       static_cast<const T*>(blocks), static_cast<const float*>(scale),
-      static_cast<const float*>(dout), static_cast<float*>(dx), NB, MB, BC,
-      nbc, n_rows, n_cols, F, x_div, a_vec, d_vec);
+      static_cast<const float*>(dout), static_cast<float*>(dx),
+      static_cast<int*>(rb_flags), gen, NB, MB, BC, nbc, n_rows, n_cols, F,
+      x_div, a_vec, d_vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ell_dx_pad_kernel<<<(unsigned)(S / x_div), 256, pad_smem, st>>>(
+      static_cast<const int*>(t_ptr), static_cast<const int*>(t_slot),
+      static_cast<const float*>(dout), static_cast<const int*>(rb_flags), gen,
+      static_cast<float*>(dx), NB, MB, BC, nbc, n_rows, n_cols, F, x_div);
   return cudaGetLastError();
 }
 
@@ -1301,66 +1637,74 @@ int launch_dx(const void* t_ptr, const void* t_slot, const void* blocks,
 // out (S, n_rows, F) f32 from the transposed block index t_ptr (S, nbc + 1)
 // and t_slot (S, NB * MB) int32, blocks (S, NB, MB, 8, BC) f32 (payload 0)
 // or bf16 (payload 1), x (S / x_div, n_cols, F) f32.
+// cols (S, NB, MB) int32 names each slot's column block (pad slots: 0);
+// scratch holds (S / x_div) * (n_cols + nbc * ceil(F / 32)) ints. A memset
+// of it and two launches: the forward, then its fix-up pass.
 extern "C" int ell_fwd(const void* t_ptr, const void* t_slot,
-                       const void* blocks, const void* x, void* out,
-                       int payload, int S, int NB, int MB, int BC,
-                       int n_rows, int n_cols, int F, int x_div,
-                       void* stream) {
+                       const void* cols, const void* blocks, const void* x,
+                       void* out, void* scratch, int payload, int S, int NB,
+                       int MB, int BC, int n_rows, int n_cols, int F,
+                       int x_div, void* stream) {
   if (!shape_ok(S, NB, MB, BC, n_rows, n_cols, F, x_div))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (payload == kF32)
-    return launch_fwd<float>(t_ptr, t_slot, blocks, nullptr, x, out, S, NB,
-                             MB, BC, n_rows, n_cols, F, x_div, st);
+    return launch_fwd<float>(t_ptr, t_slot, cols, blocks, nullptr, x, out,
+                             scratch, S, NB, MB, BC, n_rows, n_cols, F, x_div,
+                             st);
   if (payload == kBF16)
-    return launch_fwd<__nv_bfloat16>(t_ptr, t_slot, blocks, nullptr, x, out,
-                                     S, NB, MB, BC, n_rows, n_cols, F, x_div,
-                                     st);
+    return launch_fwd<__nv_bfloat16>(t_ptr, t_slot, cols, blocks, nullptr, x,
+                                     out, scratch, S, NB, MB, BC, n_rows,
+                                     n_cols, F, x_div, st);
   return cudaErrorInvalidValue;
 }
 
 // The int8 payload: codes (S, NB, MB, 8, BC) int8, scale (S, NB) f32.
 extern "C" int ell_fwd_q(const void* t_ptr, const void* t_slot,
-                         const void* codes, const void* scale, const void* x,
-                         void* out, int S, int NB, int MB, int BC,
+                         const void* cols, const void* codes,
+                         const void* scale, const void* x, void* out,
+                         void* scratch, int S, int NB, int MB, int BC,
                          int n_rows, int n_cols, int F, int x_div,
                          void* stream) {
   if (!shape_ok(S, NB, MB, BC, n_rows, n_cols, F, x_div))
     return cudaErrorInvalidValue;
-  return launch_fwd<int8_t>(t_ptr, t_slot, codes, scale, x, out, S, NB, MB,
-                            BC, n_rows, n_cols, F, x_div,
+  return launch_fwd<int8_t>(t_ptr, t_slot, cols, codes, scale, x, out, scratch,
+                            S, NB, MB, BC, n_rows, n_cols, F, x_div,
                             static_cast<cudaStream_t>(stream));
 }
 
 // dx (S / x_div, n_cols, F) f32 from the transposed index t_ptr (S, nbc + 1)
-// and t_slot (S, NB * MB) int32, the tiles and dout (S, n_rows, F) f32.
+// and t_slot (S, NB * MB) int32, the tiles and dout (S, n_rows, F) f32;
+// rb_flags is scratch of S * NB ints. Two launches: dX, then its pad
+// pass.
 extern "C" int ell_bwd_dx(const void* t_ptr, const void* t_slot,
                           const void* blocks, const void* dout, void* dx,
-                          int payload, int S, int NB, int MB, int BC,
-                          int n_rows, int n_cols, int F, int x_div,
+                          void* rb_flags, int payload, int S, int NB, int MB,
+                          int BC, int n_rows, int n_cols, int F, int x_div,
                           void* stream) {
   if (!shape_ok(S, NB, MB, BC, n_rows, n_cols, F, x_div))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (payload == kF32)
-    return launch_dx<float>(t_ptr, t_slot, blocks, nullptr, dout, dx, S, NB,
-                            MB, BC, n_rows, n_cols, F, x_div, st);
+    return launch_dx<float>(t_ptr, t_slot, blocks, nullptr, dout, dx,
+                            rb_flags, S, NB, MB, BC, n_rows, n_cols, F,
+                            x_div, st);
   if (payload == kBF16)
     return launch_dx<__nv_bfloat16>(t_ptr, t_slot, blocks, nullptr, dout, dx,
-                                    S, NB, MB, BC, n_rows, n_cols, F, x_div,
-                                    st);
+                                    rb_flags, S, NB, MB, BC, n_rows, n_cols,
+                                    F, x_div, st);
   return cudaErrorInvalidValue;
 }
 
 extern "C" int ell_bwd_dx_q(const void* t_ptr, const void* t_slot,
                             const void* codes, const void* scale,
-                            const void* dout, void* dx, int S, int NB, int MB,
-                            int BC, int n_rows, int n_cols, int F, int x_div,
-                            void* stream) {
+                            const void* dout, void* dx, void* rb_flags,
+                            int S, int NB, int MB, int BC, int n_rows,
+                            int n_cols, int F, int x_div, void* stream) {
   if (!shape_ok(S, NB, MB, BC, n_rows, n_cols, F, x_div))
     return cudaErrorInvalidValue;
-  return launch_dx<int8_t>(t_ptr, t_slot, codes, scale, dout, dx, S, NB, MB,
-                           BC, n_rows, n_cols, F, x_div,
+  return launch_dx<int8_t>(t_ptr, t_slot, codes, scale, dout, dx, rb_flags,
+                           S, NB, MB, BC, n_rows, n_cols, F, x_div,
                            static_cast<cudaStream_t>(stream));
 }
 

@@ -14,6 +14,7 @@
 //                        scratch on the engine path (see Widths)
 //   lstm_train_bwd_max_blocks   the P it takes on the current device
 //   lstm_train_bwd_engine       1 where it runs the engine path
+//   lstm_train_bwd_smem         a resident block's shared memory
 //
 //   gates = x_proj_t + h_{t-1} @ w_hh_T, torch order i, f, g, o;
 //   c_t = f * c_{t-1} + i * g;  h_t = o * tanh(c_t).
@@ -48,8 +49,24 @@
 // recomputes the gates from x_proj + h_{t-1} w_hh_T exactly as _cell_bwd
 // does, writes dgates = dx_proj_t and keeps them in shared memory for
 // dh_{t-1} = dgates W_hh and the dW_hh^T update. dh and dc are carried in
-// f32 registers. w_hh_T rows are padded by one float so the dh product
-// reads it without bank conflicts.
+// f32 registers.
+//
+// What bounds the BPTT at the N = 500 step's shape (R = 500,000, T = 7,
+// H = 32): its three recurrent products are 3 x 2 x 6 x R x 32 x 128
+// flop, 1.10 ms at 67 TFLOP/s f32 on the CUDA cores, beside 1.47 ms for
+// its bytes. A first form loaded two shared-memory values per FMA in the
+// dh and dW products (about 1.8e9 warp-wide loads, ~7.7 ms at one a clock
+// an SM, of its 10.5 ms). Here both products are blocked in registers on
+// the same CUDA cores, each sum in the same order as before (so dx_proj
+// and the dW partials keep their bits): the dh product reads w_hh_T row j
+// and each dgates row 4 columns at a time (16-byte loads; w's row stride a
+// multiple of 4 whose quarter is odd, so a warp's rows j fall on
+// different bank groups), one w load serving the thread's 4 rows: 5
+// loads per 16 FMAs. The dW product gives each thread a 4 x 4 block of
+// the H x 4H entries; per tile row one 16-byte load of h_{t-1} (a
+// broadcast: a warp shares its block row) and one of dgates (a warp's
+// 512 contiguous bytes) for 16 FMAs. The gate recompute reads h_{t-1} 4
+// k at a time.
 //
 // Widths. The two kernels above keep w_hh^T (and the BPTT its dW_hh^T
 // sum) in shared memory: the forward fits to H = 118, the BPTT to H = 81
@@ -78,6 +95,10 @@
 //          over (T-1) R depths on the cooperative wgmma instance: P depth
 //          chunks, each a partial, summed in the order p = 0..P-1 after a
 //          grid-wide barrier in the same launch (dw_sum.cuh). No atomics.
+//          It runs before the cell step t = 0, which needs it done: the
+//          plain sum also takes h_{-1}^T dgates_0 = 0 x dgates_0, NaN in
+//          each column where dgates_0 holds an Inf or NaN, and the cell
+//          step writes that NaN into dW_hh^T.
 //     No shared-memory limit on H. At the wide training shape (T = 7, R =
 //     8,836, H = 128) the three products are 3 x 6.95 GFLOP, 0.13 ms at
 //     the TF32 rate for their 3 split products; the cell steps move about
@@ -174,20 +195,33 @@ __global__ void lstm_train_fwd_kernel(const float* __restrict__ xp,
   }
 }
 
-__global__ void lstm_train_bwd_kernel(
+// Shared-memory row strides of the resident BPTT, in floats. w (H, 4H):
+// a multiple of 4 (16-byte loads of a row) whose quarter is odd, so the
+// eight lanes of each 16-byte load phase that read row j, j + 1, ... of
+// the dh product land on different bank groups. hp (tile_rows, H): H
+// rounded up to 4 (16-byte loads; the pad columns stay zero).
+__host__ __device__ inline int bwd_w_stride(int H) { return 4 * (H | 1); }
+__host__ __device__ inline int bwd_h_stride(int H) { return (H + 3) / 4 * 4; }
+
+// db: two h buffers (h_{t-2} staged while step t runs), where they fit;
+// vec: hs rows are whole, 16-byte aligned runs of 4 (16-byte copies).
+// Two blocks an SM at the reference width: at most 128 registers.
+__global__ void __launch_bounds__(256, 2) lstm_train_bwd_kernel(
     const float* __restrict__ xp, const float* __restrict__ whhT,
     const float* __restrict__ hs, const float* __restrict__ cs,
     const float* __restrict__ dhs, const float* __restrict__ dcs,
     float* __restrict__ dxp, float* __restrict__ dw_part,
-    float* __restrict__ dw_out, int T, int R, int H) {
-  extern __shared__ float smem[];
+    float* __restrict__ dw_out, int T, int R, int H, int db, int vec) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int G = 4 * H;
-  const int ws = G + 1;  // padded row stride of w
+  const int ws = bwd_w_stride(H), hps = bwd_h_stride(H);
   const int tile_rows = blockDim.y * kRowsPerThread;
-  float* w = smem;                // (H, 4H + 1)
-  float* hp = w + H * ws;         // (tile_rows, H): h_{t-1} of the tile
-  float* dg = hp + tile_rows * H;  // (tile_rows, 4H): dgates of the tile
-  float* dw = dg + tile_rows * G;  // (H, 4H): this block's dW_hh^T sum
+  const int nbuf = db ? 2 : 1;
+  float* w = smem;                  // (H, ws): w_hh_T
+  float* hp = w + H * ws;           // nbuf x (tile_rows, hps): h of the tile
+  float* dg = hp + nbuf * tile_rows * hps;  // (tile_rows, 4H): dgates
+  float* dw = dg + tile_rows * G;    // (H, 4H): this block's dW_hh^T sum
 
   const int j = threadIdx.x;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -197,8 +231,15 @@ __global__ void lstm_train_bwd_kernel(
     w[k * ws + i - k * G] = whhT[i];
     dw[i] = 0.0f;
   }
+  for (int i = tid; i < nbuf * tile_rows * hps; i += nthreads) hp[i] = 0.0f;
   const int lr0 = threadIdx.y * kRowsPerThread;
   const int ntiles = (R + tile_rows - 1) / tile_rows;
+  const int H4 = H / 4 * 4;
+  // the dW product's 4 x 4 register blocks of the (H, 4H) entries, column
+  // blocks fastest: at H = 32 warp w takes rows 4w.. and lane l columns
+  // 4l.., so a warp's hp loads are one broadcast and its dg loads 512
+  // contiguous bytes
+  const int n_cb = H, n_blk = (H + 3) / 4 * n_cb;
 
   // Every block takes tiles b, b + P, ... for the rounds all blocks fill;
   // the last round's `extra` tiles go to blocks spread evenly over the grid
@@ -210,25 +251,62 @@ __global__ void lstm_train_bwd_kernel(
   const bool has_extra =
       k_extra < extra && (long long)k_extra * P / extra == b;
   const int my_tiles = full + (has_extra ? 1 : 0);
+  float* hb[2] = {hp, hp + (db ? tile_rows * hps : 0)};
+  // copy h_tp of the tile's rows into dst with cp.async (zeros for tp < 0
+  // and rows past R; the pad columns stay zero), one commit group
+  auto stage_h = [&](float* dst, int tile0, int tp) {
+    if (vec) {
+      const int cpr = H / 4;
+      for (int q = tid; q < tile_rows * cpr; q += nthreads) {
+        const int rl = q / cpr, k = (q - rl * cpr) * 4, r = tile0 + rl;
+        const bool ok = tp >= 0 && r < R;
+        cp_async16(dst + rl * hps + k,
+                   ok ? hs + ((size_t)tp * R + r) * H + k : hs, ok ? 16 : 0);
+      }
+    } else {
+      for (int q = tid; q < tile_rows * H; q += nthreads) {
+        const int rl = q / H, k = q - rl * H, r = tile0 + rl;
+        const bool ok = tp >= 0 && r < R;
+        cp_async4(dst + rl * hps + k,
+                  ok ? hs + ((size_t)tp * R + r) * H + k : hs, ok ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
   for (int it = 0; it < my_tiles; ++it) {
     const int tile = it < full ? it * P + b : full * P + k_extra;
     const int tile0 = tile * tile_rows;
     const int row0 = tile0 + lr0;
-    float dh_c[kRowsPerThread], dc_c[kRowsPerThread];
+    float dh_c[kRowsPerThread], dc_c[kRowsPerThread], ct_c[kRowsPerThread];
 #pragma unroll
-    for (int q = 0; q < kRowsPerThread; ++q) dh_c[q] = dc_c[q] = 0.0f;
+    for (int q = 0; q < kRowsPerThread; ++q) {
+      dh_c[q] = dc_c[q] = 0.0f;
+      const int r = row0 + q;
+      ct_c[q] = r < R ? cs[((size_t)(T - 1) * R + r) * H + j] : 0.0f;
+    }
+    __syncthreads();  // the last tile's readers of hp and dg are done
+    stage_h(hb[(T - 1) & 1], tile0, T - 2);
 
     for (int t = T - 1; t >= 0; --t) {
-      __syncthreads();  // last step's readers of hp and dg are done
-      for (int i = tid; i < tile_rows * H; i += nthreads) {
-        const int r = tile0 + i / H;
-        hp[i] = (t > 0 && r < R)
-                    ? hs[((size_t)(t - 1) * R + r) * H + i % H]
-                    : 0.0f;
+      // h_{t-1} is in hb[t & 1]. Two buffers: it was copied during step
+      // t + 1, and h_{t-2} is copied now into the buffer step t + 1 read;
+      // one buffer: copied here, after step t + 1's readers are done
+      float* const hcur = hb[t & 1];
+      if (db) {
+        cp_async_wait<0>();
+        __syncthreads();  // h_{t-1} landed; step t + 1's readers are done
+        if (t >= 1) stage_h(hb[(t - 1) & 1], tile0, t - 2);
+      } else {
+        if (t < T - 1) {
+          __syncthreads();  // step t + 1's readers of hp and dg are done
+          stage_h(hp, tile0, t - 1);
+        }
+        cp_async_wait<0>();
+        __syncthreads();  // h_{t-1} landed
       }
-      __syncthreads();
 
-      // recompute the gates: x_proj_t + h_{t-1} @ w_hh_T
+      // recompute the gates: x_proj_t + h_{t-1} @ w_hh_T, k ascending; the
+      // tile's h_{t-1} rows read 4 k at a time
       float acc[kRowsPerThread][4];
 #pragma unroll
       for (int q = 0; q < kRowsPerThread; ++q) {
@@ -238,12 +316,34 @@ __global__ void lstm_train_bwd_kernel(
         for (int g = 0; g < 4; ++g)
           acc[q][g] = r < R ? xr[g * H + j] : 0.0f;
       }
-      for (int k = 0; k < H; ++k) {
+      for (int k4 = 0; k4 < H4; k4 += 4) {
+        float4 hq[kRowsPerThread];
+#pragma unroll
+        for (int q = 0; q < kRowsPerThread; ++q)
+          hq[q] = *reinterpret_cast<const float4*>(hcur + (lr0 + q) * hps + k4);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float* wk = w + (k4 + kk) * ws + j;
+          const float w0 = wk[0], w1 = wk[H], w2 = wk[2 * H], w3 = wk[3 * H];
+#pragma unroll
+          for (int q = 0; q < kRowsPerThread; ++q) {
+            const float hk = kk == 0   ? hq[q].x
+                             : kk == 1 ? hq[q].y
+                             : kk == 2 ? hq[q].z
+                                       : hq[q].w;
+            acc[q][0] = fmaf(hk, w0, acc[q][0]);
+            acc[q][1] = fmaf(hk, w1, acc[q][1]);
+            acc[q][2] = fmaf(hk, w2, acc[q][2]);
+            acc[q][3] = fmaf(hk, w3, acc[q][3]);
+          }
+        }
+      }
+      for (int k = H4; k < H; ++k) {
         const float* wk = w + k * ws + j;
         const float w0 = wk[0], w1 = wk[H], w2 = wk[2 * H], w3 = wk[3 * H];
 #pragma unroll
         for (int q = 0; q < kRowsPerThread; ++q) {
-          const float hk = hp[(lr0 + q) * H + k];
+          const float hk = hcur[(lr0 + q) * hps + k];
           acc[q][0] = fmaf(hk, w0, acc[q][0]);
           acc[q][1] = fmaf(hk, w1, acc[q][1]);
           acc[q][2] = fmaf(hk, w2, acc[q][2]);
@@ -261,8 +361,9 @@ __global__ void lstm_train_bwd_kernel(
         const float fg = sigmoidf(acc[q][1]);
         const float gg = tanhf(acc[q][2]);
         const float og = sigmoidf(acc[q][3]);
-        const float ct = valid ? cs[o] : 0.0f;
+        const float ct = ct_c[q];  // c_t, read as c_{t-1} one step later
         const float cp = (valid && t > 0) ? cs[o - (size_t)R * H] : 0.0f;
+        ct_c[q] = cp;
         const float dh = dh_c[q] + ((valid && dhs) ? dhs[o] : 0.0f);
         const float dc = dc_c[q] + ((valid && dcs) ? dcs[o] : 0.0f);
         const float tc = tanhf(ct);
@@ -284,23 +385,65 @@ __global__ void lstm_train_bwd_kernel(
       }
       __syncthreads();
 
-      // dh_{t-1} = dgates @ W_hh  (contract the 4H axis)
-#pragma unroll
-      for (int q = 0; q < kRowsPerThread; ++q) {
-        const float* dgr = dg + (lr0 + q) * G;
+      // dh_{t-1} = dgates @ W_hh (contract the 4H axis): per 4 columns one
+      // 16-byte load of w_hh_T row j serves the thread's rows, each dgates
+      // row a 16-byte broadcast; each sum in ascending column order
+      {
         const float* wj = w + j * ws;
-        float s = 0.0f;
-        for (int col = 0; col < G; ++col) s = fmaf(dgr[col], wj[col], s);
-        dh_c[q] = s;
+        float sd[kRowsPerThread];
+#pragma unroll
+        for (int q = 0; q < kRowsPerThread; ++q) sd[q] = 0.0f;
+        for (int col = 0; col < G; col += 4) {
+          const float4 wv = *reinterpret_cast<const float4*>(wj + col);
+#pragma unroll
+          for (int q = 0; q < kRowsPerThread; ++q) {
+            const float4 d =
+                *reinterpret_cast<const float4*>(dg + (lr0 + q) * G + col);
+            sd[q] = fmaf(d.x, wv.x, sd[q]);
+            sd[q] = fmaf(d.y, wv.y, sd[q]);
+            sd[q] = fmaf(d.z, wv.z, sd[q]);
+            sd[q] = fmaf(d.w, wv.w, sd[q]);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kRowsPerThread; ++q) dh_c[q] = sd[q];
       }
-      // dW_hh^T += h_{t-1}^T @ dgates, each entry owned by one thread
-      for (int i = tid; i < H * G; i += nthreads) {
-        const int k = i / G;
-        const int col = i - k * G;
-        float s = 0.0f;
-        for (int rr = 0; rr < tile_rows; ++rr)
-          s = fmaf(hp[rr * H + k], dg[rr * G + col], s);
-        dw[i] += s;
+      // dW_hh^T += h_{t-1}^T @ dgates: a thread a 4 x 4 block of entries
+      // (k, col), per tile row one 16-byte load of h_{t-1} and one of
+      // dgates for 16 FMAs; each entry summed over the rows in ascending
+      // order from 0, then added into the block's sum
+      for (int blk = tid; blk < n_blk; blk += nthreads) {
+        const int kb = blk / n_cb, cb = blk - kb * n_cb;
+        const float* hq = hcur + 4 * kb;
+        const float* dq = dg + 4 * cb;
+        float sw[4][4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) sw[a][c] = 0.0f;
+        for (int rr = 0; rr < tile_rows; ++rr) {
+          const float4 h4 = *reinterpret_cast<const float4*>(hq + rr * hps);
+          const float4 d4 = *reinterpret_cast<const float4*>(dq + rr * G);
+          const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
+          const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              sw[a][c] = fmaf(hv[a], dv[c], sw[a][c]);
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          if (4 * kb + a >= H) break;
+          float4* d = reinterpret_cast<float4*>(dw + (4 * kb + a) * G +
+                                                4 * cb);
+          float4 v = *d;
+          v.x += sw[a][0];
+          v.y += sw[a][1];
+          v.z += sw[a][2];
+          v.w += sw[a][3];
+          *d = v;
+        }
       }
     }
   }
@@ -309,7 +452,8 @@ __global__ void lstm_train_bwd_kernel(
   // every block's partial is written; each sums its share of the entries
   cooperative_groups::this_grid().sync();
   sum_partials(dw_part, dw_out, gridDim.x, H * G, blockIdx.x, gridDim.x,
-               tid, nthreads, smem, H * ws + tile_rows * (H + G) + H * G);
+               tid, nthreads, smem,
+               H * ws + tile_rows * (nbuf * hps + G) + H * G);
 }
 
 // The cell's backward (_cell_bwd) of step t for every (r, j) of the rows:
@@ -319,13 +463,15 @@ __global__ void lstm_train_bwd_kernel(
 // gate columns of its (r, j) before it writes them. dh and dc are the
 // carries from step t + 1 (not read at t = T - 1, first: zero there); dc
 // is updated in place. cp is c_{t-1} (null at t = 0), dhs_t, dcs_t may be
-// null (zero).
+// null (zero). dw_nan (t = 0 only, else null): dW_hh^T, its sum over
+// t >= 1 written; the plain sum adds h_{-1}^T dgates_0 = 0 x dgates_0,
+// NaN in each column where dgates_0 holds an Inf or NaN, written here.
 __global__ void lstm_cell_bwd_kernel(
     const float* __restrict__ xp, float* __restrict__ dxp, int pre,
     const float* __restrict__ ct, const float* __restrict__ cp,
     const float* __restrict__ dhs, const float* __restrict__ dcs,
-    const float* __restrict__ dh, float* __restrict__ dc, int first, int R,
-    int H) {
+    const float* __restrict__ dh, float* __restrict__ dc,
+    float* __restrict__ dw_nan, int first, int R, int H) {
   const long long n = (long long)R * H;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -348,10 +494,20 @@ __global__ void lstm_cell_bwd_kernel(
     const float d_o = dhv * tc;
     const float dct = dcv + dhv * og * (1.0f - tc * tc);
     dc[i] = dct * fg;
-    dxp[o] = dct * gg * ig * (1.0f - ig);
-    dxp[o + H] = dct * c_p * fg * (1.0f - fg);
-    dxp[o + 2 * H] = dct * ig * (1.0f - gg * gg);
-    dxp[o + 3 * H] = d_o * og * (1.0f - og);
+    float dg[4];
+    dg[0] = dct * gg * ig * (1.0f - ig);
+    dg[1] = dct * c_p * fg * (1.0f - fg);
+    dg[2] = dct * ig * (1.0f - gg * gg);
+    dg[3] = d_o * og * (1.0f - og);
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      dxp[o + g * H] = dg[g];
+      if (dw_nan != nullptr && !isfinite(dg[g])) {
+        const int col = g * H + (int)(i - r * H);
+        for (int k = 0; k < H; ++k)
+          dw_nan[(size_t)k * 4 * H + col] = __uint_as_float(0x7fffffffu);
+      }
+    }
   }
 }
 
@@ -383,24 +539,31 @@ extern "C" int lstm_train_fwd_f32(const void* xp, const void* whhT, void* hs,
 
 namespace {
 
-size_t bwd_smem_bytes(int H) {
+size_t bwd_smem_bytes(int H, int nbuf) {
   const size_t tile_rows = (size_t)rows_y_for(H) * kRowsPerThread;
   const size_t h = H, g = 4 * h;
-  return (h * (g + 1) + tile_rows * h + tile_rows * g + h * g) *
+  return (h * bwd_w_stride(H) + nbuf * tile_rows * bwd_h_stride(H) +
+          tile_rows * g + h * g) *
          sizeof(float);
 }
 
-// True where the resident BPTT's shared memory does not fit a block: the
-// products run on the engine of bdgcn_gemm.cuh.
+// True where the resident BPTT's shared memory (one h buffer) does not fit
+// a block: the products run on the engine of bdgcn_gemm.cuh.
 cudaError_t bwd_on_engine(int H, bool* engine) {
   bool resident = false;
-  cudaError_t err = smem_fits(bwd_smem_bytes(H), &resident);
+  cudaError_t err = smem_fits(bwd_smem_bytes(H, 1), &resident);
   *engine = !resident;
   return err;
 }
 
-cudaError_t allow_resident_bwd(int H) {
-  return allow_smem((const void*)lstm_train_bwd_kernel, bwd_smem_bytes(H));
+// Whether the resident BPTT at H takes two h buffers (they fit: every
+// H <= 81 but the widest few) and its shared memory then; lets the kernel
+// launch with it.
+cudaError_t resident_bwd_plan(int H, bool* db, size_t* smem) {
+  cudaError_t err = smem_fits(bwd_smem_bytes(H, 2), db);
+  if (err != cudaSuccess) return err;
+  *smem = bwd_smem_bytes(H, *db ? 2 : 1);
+  return allow_smem((const void*)lstm_train_bwd_kernel, *smem);
 }
 
 constexpr int kCellThreads = 256;
@@ -443,6 +606,35 @@ cudaError_t bwd_engine(const float* xp, const float* whhT, const float* hs,
     if (err != cudaSuccess) return err;
   }
 
+  // 4. dW_hh^T[k, g] = sum over (t >= 1, r) of hs[t-1, r, k] dgates[t, r, g],
+  //    P depth chunks, then their ordered sum, in one cooperative launch
+  //    (between the cell steps t = 1 and t = 0, which it does not need);
+  //    with one step, no depth: the partials and dW are zeros
+  Gemm w{};
+  w.a = hs;
+  w.b = dxp + RG;
+  w.c = dw_part;
+  w.ai = flat(1);  // k
+  w.ak = flat(H);  // (t-1, r)
+  w.bk = flat(G);  // (t, r)
+  w.bn = flat(1);  // g
+  w.ci = flat(G);  // k
+  w.cn = flat(1);  // g
+  w.za = w.zb = flat(0);
+  w.zc = flat((long long)H * G);  // p
+  w.m = H;
+  w.batches = P;
+  w.n = G;
+  w.k = (T - 1) * R;
+  // chunks of whole 16-byte runs of depths
+  w.k_chunk = (int)(((long long)w.k + P - 1) / P + 3) / 4 * 4;
+  if (T == 1) {
+    err = cudaMemsetAsync(dw_part, 0, sizeof(float) * P * H * G, s);
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(dw, 0, sizeof(float) * H * G, s);
+    if (err != cudaSuccess) return err;
+  }
+
   // 2, 3. the reverse loop: the cell's backward, then dh_{t-1} = dgates_t
   //       W_hh (contracting the 4H axis: w_hh_T read as (k = g, n = j))
   Gemm d{};
@@ -462,46 +654,23 @@ cudaError_t bwd_engine(const float* xp, const float* whhT, const float* hs,
   const long long cells = (RH + kCellThreads - 1) / kCellThreads;
   const int cell_blocks = (int)(cells < 32LL * sms ? cells : 32LL * sms);
   for (int t = T - 1; t >= 0; --t) {
+    if (t == 0 && T > 1) {
+      err = launch_wgmma_coop(w, dw, H * G, s);
+      if (err != cudaSuccess) return err;
+    }
     float* dxp_t = dxp + t * RG;
     lstm_cell_bwd_kernel<<<cell_blocks, kCellThreads, 0, s>>>(
         xp + t * RG, dxp_t, t > 0, cs + t * RH,
         t > 0 ? cs + (t - 1) * RH : nullptr, dhs ? dhs + t * RH : nullptr,
-        dcs ? dcs + t * RH : nullptr, dh, dc, t == T - 1, R, H);
+        dcs ? dcs + t * RH : nullptr, dh, dc, t == 0 ? dw : nullptr,
+        t == T - 1, R, H);
     err = cudaGetLastError();
     if (err != cudaSuccess || t == 0) break;
     d.a = dxp_t;
     err = launch_gemm<false, true>(d, s);
     if (err != cudaSuccess) return err;
   }
-  if (err != cudaSuccess) return err;
-
-  // 4. dW_hh^T[k, g] = sum over (t >= 1, r) of hs[t-1, r, k] dgates[t, r, g],
-  //    P depth chunks, then their ordered sum, in one cooperative launch
-  if (T == 1) {  // no depth: the partials and dW are zeros
-    err = cudaMemsetAsync(dw_part, 0, sizeof(float) * P * H * G, s);
-    if (err == cudaSuccess)
-      err = cudaMemsetAsync(dw, 0, sizeof(float) * H * G, s);
-    return err;
-  }
-  Gemm w{};
-  w.a = hs;
-  w.b = dxp + RG;
-  w.c = dw_part;
-  w.ai = flat(1);  // k
-  w.ak = flat(H);  // (t-1, r)
-  w.bk = flat(G);  // (t, r)
-  w.bn = flat(1);  // g
-  w.ci = flat(G);  // k
-  w.cn = flat(1);  // g
-  w.za = w.zb = flat(0);
-  w.zc = flat((long long)H * G);  // p
-  w.m = H;
-  w.batches = P;
-  w.n = G;
-  w.k = (T - 1) * R;
-  // chunks of whole 16-byte runs of depths
-  w.k_chunk = (int)(((long long)w.k + P - 1) / P + 3) / 4 * 4;
-  return launch_wgmma_coop(w, dw, H * G, s);
+  return err;
 }
 
 }  // namespace
@@ -516,6 +685,16 @@ extern "C" int lstm_train_bwd_engine(int H, int* out) {
   return err;
 }
 
+// The dynamic shared memory of a resident BPTT block at hidden width H.
+extern "C" int lstm_train_bwd_smem(int H, int* out) {
+  if (H < 1) return cudaErrorInvalidValue;
+  bool db = false;
+  size_t smem = 0;
+  cudaError_t err = resident_bwd_plan(H, &db, &smem);
+  *out = (int)smem;
+  return err;
+}
+
 // The P that lstm_train_bwd_f32 takes at hidden width H: on the resident
 // path the most BPTT blocks the current device holds at once (the launch
 // is cooperative); on the engine path the depth chunks of the dW product
@@ -526,10 +705,12 @@ extern "C" int lstm_train_bwd_max_blocks(int H, int* out) {
   cudaError_t err = bwd_on_engine(H, &engine);
   if (err != cudaSuccess) return err;
   if (engine) return coop_chunks(H, 4LL * H, out);
-  err = allow_resident_bwd(H);
+  bool db = false;
+  size_t smem = 0;
+  err = resident_bwd_plan(H, &db, &smem);
   if (err != cudaSuccess) return err;
   return max_coresident((const void*)lstm_train_bwd_kernel,
-                        H * rows_y_for(H), bwd_smem_bytes(H), out);
+                        H * rows_y_for(H), smem, out);
 }
 
 // dx_proj (T, R, 4H) and dW_hh^T (H, 4H) through P partials dw_part
@@ -560,13 +741,17 @@ extern "C" int lstm_train_bwd_f32(const void* xp, const void* whhT,
         static_cast<float*>(dw), static_cast<float*>(scratch), T, R, H, P,
         s);
   }
-  err = allow_resident_bwd(H);
+  bool two = false;
+  size_t smem = 0;
+  err = resident_bwd_plan(H, &two, &smem);
   if (err != cudaSuccess) return err;
+  int db = two ? 1 : 0;
+  int vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(hs) % 16 == 0;
   void* args[] = {&xp, &whhT, &hs, &cs, &dhs, &dcs, &dxp, &dw_part, &dw,
-                  &T, &R, &H};
+                  &T, &R, &H, &db, &vec};
   err = cudaLaunchCooperativeKernel(
       (const void*)lstm_train_bwd_kernel, dim3(P), dim3(H, rows_y_for(H)),
-      args, bwd_smem_bytes(H), s);
+      args, smem, s);
   if (err != cudaSuccess) {
     cudaGetLastError();  // a refused launch leaves no error behind
     return err;

@@ -1,8 +1,8 @@
 // The split-TF32 tensor-core helpers that ell_spmm.cu and bdgcn_gemm.cuh
 // share: cp.async staging into shared memory, the split of an f32 value
 // into TF32 high and low parts, mma.sync m16n8k8 on TF32 operands with f32
-// accumulators, and wgmma m64n128k8 on TF32 operands staged K-major in the
-// core-matrix layout.
+// accumulators, and wgmma m64n128k8 on TF32 operands staged K-major in
+// the core-matrix layout.
 
 #pragma once
 
@@ -32,15 +32,28 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// v = hi + lo: hi is v rounded to TF32 (10 mantissa bits), to nearest
-// with ties away from zero as cvt.rna.tf32.f32 rounds, in two integer
-// operations; lo = v - hi exactly, |lo| <= 2^-11 |v|. The tensor cores
-// read only the top 19 bits of a TF32 operand, so lo enters truncated:
-// hi + lo carries v to within 2^-21 |v|.
+// v = hi + lo for a finite v: hi is v rounded to TF32 (10 mantissa bits),
+// to nearest with ties away from zero as cvt.rna.tf32.f32 rounds, in two
+// integer operations; lo = v - hi exactly, |lo| <= 2^-11 |v|. The tensor
+// cores read only the top 19 bits of a TF32 operand, so lo enters
+// truncated: hi + lo carries v to within 2^-21 |v|.
+//
+// Finite v only. The rounding add carries a NaN such as 0x7fffffff (what
+// the card makes of 0 x Inf) into the sign, -0, and an Inf's lo is NaN; a
+// split that kept a non-finite v's class (hi its class, lo +0) cost 28-68%
+// in the engine's products on the H100. So each kernel finds non-finite
+// operands apart, off its products (a fold x * 0 on the FP pipe, NaN for
+// an Inf or NaN, or a flag pass), and sums the entries they reach again
+// in plain f32.
 __device__ __forceinline__ void split_tf32(float v, unsigned& hi,
                                            unsigned& lo) {
   hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// NaN once an Inf or NaN has been folded in, else z: z = v * 0 + z
+__device__ __forceinline__ float fold_non_finite(float v, float z) {
+  return fmaf(v, 0.0f, z);
 }
 
 // d += a b (m16n8k8, TF32 in, f32 out). The tensor cores add into d with
@@ -68,7 +81,7 @@ __device__ __forceinline__ void mma_tf32_add(float (&d)[4],
 // v = hi + lo as split_tf32, and lo rounded to TF32 as well (to nearest,
 // ties away): the tensor cores read lo exactly, so hi + lo carries v to
 // within 2^-22 |v|, unbiased, where a truncated lo leaves up to 2^-21
-// toward zero
+// toward zero. Finite v only, as split_tf32.
 __device__ __forceinline__ void split_tf32_rn(float v, unsigned& hi,
                                               unsigned& lo) {
   hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;

@@ -216,6 +216,12 @@ def _max_bwd_blocks(index: int, H: int) -> int:
                      torch.device("cuda", index))
 
 
+def bwd_smem_bytes(index: int, H: int) -> int:
+    """Dynamic shared memory a block of the resident BPTT takes at H."""
+    return query_int("lstm_train", "lstm_train_bwd_smem", (H,),
+                     torch.device("cuda", index))
+
+
 @functools.lru_cache(maxsize=None)
 def bwd_on_engine(index: int, H: int) -> bool:
     """True where the BPTT on card ``index`` runs its products on the

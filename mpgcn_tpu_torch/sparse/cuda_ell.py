@@ -52,10 +52,10 @@ MAX_BC = 128
 #: the kernels' payload codes (csrc/ell_spmm.cu ``Payload``)
 _PAYLOAD_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-ELL_FWD = CudaKernel("ell_spmm", "ell_fwd", n_ptrs=5, n_ints=9)
-ELL_FWD_Q = CudaKernel("ell_spmm", "ell_fwd_q", n_ptrs=6, n_ints=8)
-ELL_BWD_DX = CudaKernel("ell_spmm", "ell_bwd_dx", n_ptrs=5, n_ints=9)
-ELL_BWD_DX_Q = CudaKernel("ell_spmm", "ell_bwd_dx_q", n_ptrs=6, n_ints=8)
+ELL_FWD = CudaKernel("ell_spmm", "ell_fwd", n_ptrs=7, n_ints=9)
+ELL_FWD_Q = CudaKernel("ell_spmm", "ell_fwd_q", n_ptrs=8, n_ints=8)
+ELL_BWD_DX = CudaKernel("ell_spmm", "ell_bwd_dx", n_ptrs=6, n_ints=9)
+ELL_BWD_DX_Q = CudaKernel("ell_spmm", "ell_bwd_dx_q", n_ptrs=7, n_ints=8)
 ELL_BWD_DBLK = CudaKernel("ell_spmm", "ell_bwd_dblk", n_ptrs=6, n_ints=9)
 #: dBlocks (csrc/ell_spmm.cu kDbSlots, kDbTF): slots per tile, F columns
 #: per staged step; at most this many steps summed by one block (the rest
@@ -212,7 +212,8 @@ def ell_fwd(cols, blocks, t_ptr, t_slot, X, n_rows: int, x_div: int,
     which computes every slot and needs no index; CUDA tensors launch
     ``ell_fwd`` (f32/bf16 tiles) or ``ell_fwd_q`` (int8 codes with
     ``scale``), which walk the transposed index (t_ptr, t_slot) and so
-    read the populated slots only."""
+    multiply the populated slots only; a fix-up pass sums the columns an
+    Inf or NaN of X reaches again over every slot of ``cols``."""
     if not _is_cuda(X, "ELL SpMM"):
         return ell_fwd_plain(cols, blocks, X, n_rows, x_div, scale)
     _check_dense("ELL SpMM X", X, (None, None, None))
@@ -227,14 +228,19 @@ def ell_fwd(cols, blocks, t_ptr, t_slot, X, n_rows: int, x_div: int,
     out = torch.empty((S, n_rows, F), dtype=torch.float32, device=X.device)
     if F == 0:
         return out
-    t_ptr, t_slot, blocks, X = (t.contiguous()
-                                for t in (t_ptr, t_slot, blocks, X))
+    t_ptr, t_slot, cols, blocks, X = (
+        t.contiguous() for t in (t_ptr, t_slot, cols, blocks, X))
+    # the fix-up pass's tags of the X rows the forward reads, and its flags
+    # per (X group, column block, 32-column F tile)
+    scratch = torch.empty(G * (n_cols + -(-n_cols // bc) * -(-F // 32)),
+                          dtype=torch.int32, device=X.device)
     dims = (S, NB, MB, bc, n_rows, n_cols, F, x_div)
     if scale is None:
-        ELL_FWD.launch((t_ptr, t_slot, blocks, X, out), (code, *dims))
+        ELL_FWD.launch((t_ptr, t_slot, cols, blocks, X, out, scratch),
+                       (code, *dims))
     else:
-        ELL_FWD_Q.launch((t_ptr, t_slot, blocks, scale.contiguous(), X, out),
-                         dims)
+        ELL_FWD_Q.launch((t_ptr, t_slot, cols, blocks, scale.contiguous(), X,
+                          out, scratch), dims)
     return out
 
 
@@ -242,7 +248,9 @@ def ell_bwd_dx(cols, blocks, t_ptr, t_slot, dout, n_cols: int, x_div: int,
                scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dX for the cotangent dout (S, n_rows, F): -> (S // x_div, n_cols, F).
     CPU tensors take the plain version; CUDA tensors launch ``ell_bwd_dx``
-    or ``ell_bwd_dx_q``, which walk the transposed index (t_ptr, t_slot)."""
+    or ``ell_bwd_dx_q``, which walk the transposed index (t_ptr, t_slot)
+    and then put the NaN that pad slots add for an Inf or NaN in dout
+    (scratch: a flag per row block)."""
     if not _is_cuda(dout, "ELL SpMM dX"):
         return ell_bwd_dx_plain(cols, blocks, dout, n_cols, x_div, scale)
     S, NB, MB, bc, code = _check_stack("ELL SpMM dX", cols, blocks, scale,
@@ -259,13 +267,15 @@ def ell_bwd_dx(cols, blocks, t_ptr, t_slot, dout, n_cols: int, x_div: int,
     if F == 0:
         return dx
     dims = (S, NB, MB, bc, n_rows, n_cols, F, x_div)
-    t_ptr, t_slot, blocks = (t.contiguous() for t in (t_ptr, t_slot, blocks))
+    t_ptr, t_slot, blocks, dout = (
+        t.contiguous() for t in (t_ptr, t_slot, blocks, dout))
+    rb_flags = torch.empty(S * NB, dtype=torch.int32, device=dout.device)
     if scale is None:
-        ELL_BWD_DX.launch((t_ptr, t_slot, blocks, dout.contiguous(), dx),
+        ELL_BWD_DX.launch((t_ptr, t_slot, blocks, dout, dx, rb_flags),
                           (code, *dims))
     else:
-        ELL_BWD_DX_Q.launch((t_ptr, t_slot, blocks, scale.contiguous(),
-                             dout.contiguous(), dx), dims)
+        ELL_BWD_DX_Q.launch((t_ptr, t_slot, blocks, scale.contiguous(), dout,
+                             dx, rb_flags), dims)
     return dx
 
 
@@ -336,8 +346,9 @@ class EllSpmmFn(torch.autograd.Function):
     The transposed index leaves out pad slots, whose tiles are zero when
     the container is packed. dBlocks gives pad slots a cotangent like any
     slot (the JAX semantics), so a caller that updates the tiles must keep
-    the pad tiles zero: the forward and dX kernels read only the indexed
-    slots, the plain versions every slot."""
+    the pad tiles zero: the forward and dX kernels multiply only the
+    indexed slots (pad slots enter only where an Inf or NaN makes 0 x it
+    NaN), the plain versions every slot."""
 
     @staticmethod
     def forward(ctx, cols, blocks, t_ptr, t_slot, X, n_rows, x_div):

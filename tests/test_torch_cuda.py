@@ -18,6 +18,8 @@ TF32 tensor-core products split each f32 operand into two TF32 parts,
 about 2^-21 relative per product); dBlocks sums F products and is held
 like dW."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -213,26 +215,37 @@ def _close_scaled(out, ref):
 ENGINE_BPTT = [(1, 1000, 128), (7, 17, 128), (3, 333, 97), (2, 70000, 128)]
 
 
+#: the resident BPTT (H <= 81) at its edges: the widest resident H (odd,
+#: its w_hh^T rows not a multiple of 4), H = 3 (a 4 x 4 dW block wider
+#: than H), one step (no recurrent product), and the N=500 step's shape
+#: (R = 500,000), held to float64
+RESIDENT_BPTT = [(7, 1001, 81), (7, 999, 3), (1, 1000, 32), (7, 500000, 32)]
+
+
 @pytest.mark.parametrize("with_dcs", [False, True])
 @pytest.mark.parametrize("T,R,H", [(7, 8836, 32), (7, 1001, 8),
                                    (5, 333, 64), (3, 17, 40)]
+                         + RESIDENT_BPTT
                          + [(_T_OF.get(H, 7), R, H) for R, H in WIDE_LSTM]
                          + ENGINE_BPTT)
 def test_lstm_train_kernels_match_plain(cuda_device, T, R, H, with_dcs):
     """Forward and BPTT against their plain versions, one host launch
     each; dW bit-equal to dw_reduce_plain of its partials and, with
     dx_proj, to a second run. H <= 81 takes the resident BPTT (no
-    scratch), H > 81 the split-TF32 engine path."""
+    scratch), H > 81 the split-TF32 engine path. At R = 500,000 the plain
+    versions run in float64 on the same inputs."""
     rng = np.random.default_rng(R + H)
     t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+    ref = (lambda a: a.double()) if R >= 500000 else (lambda a: a)
+    opt = lambda a: None if a is None else ref(a)
     xp = t(rng.normal(size=(T, R, 4 * H)))
     w = t(rng.normal(size=(H, 4 * H)) / np.sqrt(H))
     before = [k.launches for k in (cuda_lstm.LSTM_TRAIN_FWD,
                                    cuda_lstm.LSTM_TRAIN_BWD)]
     hs, cs = cuda_lstm.lstm_layer_train(xp, w)
-    hp, cp = cuda_lstm.lstm_layer_train_plain(xp, w)
-    torch.testing.assert_close(hs, hp, **KERNEL_TOL)
-    torch.testing.assert_close(cs, cp, **KERNEL_TOL)
+    hp, cp = cuda_lstm.lstm_layer_train_plain(ref(xp), ref(w))
+    torch.testing.assert_close(ref(hs), hp, **KERNEL_TOL)
+    torch.testing.assert_close(ref(cs), cp, **KERNEL_TOL)
     dhs = t(rng.normal(size=(T, R, H)))
     dcs = t(rng.normal(size=(T, R, H))) if with_dcs else None
     dxp, dw, part = cuda_lstm.lstm_layer_bwd_partials(xp, w, hs, cs, dhs,
@@ -244,9 +257,10 @@ def test_lstm_train_kernels_match_plain(cuda_device, T, R, H, with_dcs):
     engine = cuda_lstm.bwd_on_engine(cuda_lstm.device_index(cuda_device), H)
     assert engine == (H > 81)
     assert (cuda_lstm.bwd_scratch(R, H, cuda_device) is None) != engine
-    dxr, dwr = cuda_lstm.lstm_layer_bwd_plain(xp, w, hs, cs, dhs, dcs)
-    torch.testing.assert_close(dxp, dxr, **KERNEL_TOL)
-    _close_scaled(dw, dwr)
+    dxr, dwr = cuda_lstm.lstm_layer_bwd_plain(ref(xp), ref(w), ref(hs),
+                                              ref(cs), ref(dhs), opt(dcs))
+    torch.testing.assert_close(ref(dxp), dxr, **KERNEL_TOL)
+    _close_scaled(ref(dw), dwr)
     assert torch.equal(dw, cuda_lstm.dw_reduce_plain(part))
     dxp2, dw2 = cuda_lstm.lstm_layer_bwd(xp, w, hs, cs, dhs, dcs)
     assert torch.equal(dw, dw2), "dW differs between two runs"
@@ -589,40 +603,148 @@ def test_ell_dx_reads_unaligned_dout(cuda_device, payload):
                                                dout, 60, x_div, scale))
 
 
+def _same_non_finite(out, ref, close=None):
+    """out holds Inf and NaN where ref does, each Inf of ref's sign (the
+    card's non-finite values: a NaN from Inf - Inf has bits 0x7fffffff);
+    the finite entries match at KERNEL_TOL, or by ``close``."""
+    bad = ~torch.isfinite(ref)
+    assert 0 < int(bad.sum()) < bad.numel()
+    assert torch.equal(~torch.isfinite(out), bad)
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    inf = torch.isinf(ref)
+    assert torch.equal(out[inf], ref[inf])
+    (close or (lambda a, b: torch.testing.assert_close(a, b, **KERNEL_TOL)))(
+        out[~bad], ref[~bad])
+
+
 @pytest.mark.parametrize("payload", ["f32", "bf16", "int8"])
 def test_ell_dx_non_finite_dout(cuda_device, payload):
-    """An Inf and a NaN in dout, on a band (BC = 128) whose slots leave
-    most 16-column fragments of their tiles zero: each makes its column of
-    dX non-finite in every row (inside n_cols) of each column block that a
-    populated slot of its row block names, whatever the fragments, as the
-    plain sum does (0 x Inf is NaN); pad slots are never read. The NaN is
+    """An Inf, a -Inf and a NaN in dout, on a band (BC = 128) whose slots
+    leave most 16-column fragments of their tiles zero: each makes its
+    column of dX non-finite in every row (inside n_cols) of each column
+    block that a slot of its row block names, whatever the fragments, pad
+    slots (zero tiles naming column block 0) included, as the plain sum
+    does (0 x Inf is NaN); each Inf of the plain sum's sign. The NaN is
     made on the card (Inf - Inf: bits 0x7fffffff, which a TF32 split's
-    rounding add would carry into the sign). Every other entry matches
-    the plain version with those two values set to 0."""
+    rounding add would carry into the sign). Every finite entry matches
+    the plain version."""
     ell, _, dout, x_div = _ell_case(cuda_device, (3, 200, 200), 128, "band",
                                     160, False, payload)
     cols, tiles, scale, t_ptr, t_slot = flat_stack(ell)
     MB, n = cols.shape[-1], 200
     inf = torch.full((), float("inf"), device=cuda_device)
-    bad = [(0, 70, 5, inf), (2, 199, 150, inf - inf)]
-    finite = dout.clone()
-    expect = torch.zeros((1, n, dout.shape[-1]), dtype=torch.bool)
+    bad = [(0, 70, 5, inf), (1, 150, 33, -inf), (2, 199, 150, inf - inf)]
+    populated = torch.zeros((1, n, dout.shape[-1]), dtype=torch.bool)
     for s, r, f, v in bad:
         dout[s, r, f] = v
-        finite[s, r, f] = 0.0
         ptr, slots = t_ptr[s].cpu(), t_slot[s].cpu()
         for c in range(len(ptr) - 1):
             if bool((slots[ptr[c]:ptr[c + 1]] // MB == r // 8).any()):
-                expect[s // x_div, c * 128:(c + 1) * 128, f] = True
-    assert 0 < int(expect.sum()) < n * len(bad)  # a band: not every block
+                populated[s // x_div, c * 128:(c + 1) * 128, f] = True
     dx = cuda_ell.ell_bwd_dx(cols, tiles, t_ptr, t_slot, dout, n, x_div,
                              scale)
-    ref = cuda_ell.ell_bwd_dx_plain(cols, tiles, finite, n, x_div, scale)
-    expect = expect.to(cuda_device)
-    assert torch.equal(~torch.isfinite(dx), expect)
-    torch.testing.assert_close(dx[~expect], ref[~expect], **KERNEL_TOL)
-    assert not bool(torch.isfinite(cuda_ell.ell_bwd_dx_plain(
-        cols, tiles, dout, n, x_div, scale)[expect]).any())
+    ref = cuda_ell.ell_bwd_dx_plain(cols, tiles, dout, n, x_div, scale)
+    _same_non_finite(dx, ref)
+    # the pad slot of row 150's row block adds column block 0 to the
+    # blocks its populated slots name
+    mask = ~torch.isfinite(ref).cpu()
+    assert bool((mask & ~populated).any()) and bool((mask | ~populated).all())
+
+
+def _put_non_finite(dev, a, at):
+    """a with +Inf, -Inf and a card-made NaN (Inf - Inf) at the flat
+    indices ``at``."""
+    a = a.clone()
+    inf = torch.full((), float("inf"), device=dev)
+    flat = a.view(-1)
+    for i, v in zip(at, (inf, -inf, inf - inf)):
+        flat[i] = v
+    return a
+
+
+@pytest.mark.parametrize("entry,operand", [
+    *[("ell_fwd", p) for p in ("f32", "bf16", "int8")], ("ell_bwd_dblk", "x"),
+    ("ell_bwd_dblk", "dout"), *[("bdgcn_pair_fwd", o) for o in ("h1", "g",
+                                                               "w")],
+    *[("bdgcn_pair_bwd", o) for o in ("h1", "g", "w", "dout")],
+    ("lstm_train_bwd_engine", "dhs"), ("lstm_train_bwd_resident", "dhs")],
+    ids="-".join)
+def test_split_tf32_entries_keep_inf_and_nan(cuda_device, entry, operand):
+    """Every split-TF32 entry (and the resident BPTT, on the CUDA cores,
+    as a guard) with an Inf, a -Inf and a card-made NaN (bits 0x7fffffff)
+    in one operand: Inf and NaN where the plain version has them, each Inf
+    of its sign; every finite entry matches. The ELL forward's X holds them
+    in k steps that a row group skips (a band: its rows meet only part of
+    a column block), in column block 0, which pad slots name for row
+    blocks that meet only column block 1, and in a fragment's zero rows;
+    f32, bf16 and int8 tiles. dX has its own test above."""
+    dev = cuda_device
+    put = functools.partial(_put_non_finite, dev)
+    if entry == "ell_fwd":
+        ell, X, _, x_div = _ell_case(dev, (3, 200, 200), 128, "band", 160,
+                                     False, operand)
+        cols, tiles, scale, t_ptr, t_slot = flat_stack(ell)
+        F = X.shape[-1]
+        X = put(X, [150 * F + 7, 60 * F + 40, 5 * F + 130])
+        out = cuda_ell.ell_fwd(cols, tiles, t_ptr, t_slot, X, 200, x_div,
+                               scale)
+        ref = cuda_ell.ell_fwd_plain(cols, tiles, X, 200, x_div, scale)
+        _same_non_finite(out, ref)
+        # rows 144.. meet only column block 1: X row 60 reaches them
+        # through their pad slots alone
+        assert not bool(torch.isfinite(ref[:, 144:176, 40]).any())
+        return
+    if entry == "ell_bwd_dblk":
+        ell, X, dout, x_div = _ell_case(dev, (3, 200, 200), 128, "band",
+                                        160, False, "f32", seed=3)
+        cols = flat_stack(ell)[0]
+        F = X.shape[-1]
+        if operand == "x":
+            X = put(X, [150 * F + 7, 60 * F + 40, 5 * F + 130])
+        else:
+            dout = put(dout, [70 * F + 3, (200 + 150) * F + 33,
+                              (400 + 199) * F + 100])
+        out = cuda_ell.ell_bwd_dblk(cols, X, dout, 128, x_div)
+        ref = cuda_ell.ell_bwd_dblk_plain(cols, X, dout, 128, x_div)
+        _same_non_finite(out, ref, _close_scaled)
+        return
+    if entry.startswith("bdgcn"):
+        K, B, N, C, H = 3, 2, 20, 32, 32
+        h1, g, w = _bdgcn_inputs(dev, K, B, N, C, H, True, seed=N)
+        ops = {"h1": h1, "g": g, "w": w}
+        if entry == "bdgcn_pair_bwd":
+            ops["dout"] = torch.from_numpy(np.random.default_rng(C).normal(
+                size=(B, N, N, H)).astype(np.float32)).to(dev)
+        n = ops[operand].numel()
+        ops[operand] = put(ops[operand], [n // 7, n // 3, n - 5])
+        if entry == "bdgcn_pair_fwd":
+            out = cuda_bdgcn.folded_pair_project(ops["h1"], ops["g"],
+                                                 ops["w"])
+            ref = cuda_bdgcn.folded_pair_project_plain(ops["h1"], ops["g"],
+                                                       ops["w"])
+            _same_non_finite(out, ref)
+            return
+        args = (ops["h1"], ops["g"], ops["w"], ops["dout"])
+        dh1, dW = cuda_bdgcn.folded_pair_project_bwd(*args)
+        r1, rW = cuda_bdgcn.folded_pair_project_bwd_plain(*args)
+        _same_non_finite(torch.cat([dh1.reshape(-1), dW.reshape(-1)]),
+                         torch.cat([r1.reshape(-1), rW.reshape(-1)]))
+        return
+    T, R, H = (3, 333, 97) if entry.endswith("engine") else (7, 1001, 32)
+    assert cuda_lstm.bwd_on_engine(cuda_lstm.device_index(dev), H) == (
+        entry.endswith("engine"))
+    rng = np.random.default_rng(R + H)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    xp = t(rng.normal(size=(T, R, 4 * H)))
+    w = t(rng.normal(size=(H, 4 * H)) / np.sqrt(H))
+    hs, cs = cuda_lstm.lstm_layer_train(xp, w)
+    dhs = put(t(rng.normal(size=(T, R, H))),
+              [((T - 1) * R + 10) * H + 3, ((T - 1) * R + 200) * H + 1,
+               (R + 300) * H + 7])
+    dxp, dw = cuda_lstm.lstm_layer_bwd(xp, w, hs, cs, dhs, None)
+    dxr, dwr = cuda_lstm.lstm_layer_bwd_plain(xp, w, hs, cs, dhs, None)
+    _same_non_finite(torch.cat([dxp.reshape(-1), dw.reshape(-1)]),
+                     torch.cat([dxr.reshape(-1), dwr.reshape(-1)]))
 
 
 @pytest.mark.parametrize("payload", ["f32", "int8"])

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from mpgcn_tpu.config import MPGCNConfig as JaxConfig
+from mpgcn_tpu.nn import pallas_bdgcn
 from mpgcn_tpu.quant.int8 import QuantizedTensor as JaxQuantized
 from mpgcn_tpu.sparse import formats as jax_formats
 from mpgcn_tpu.sparse import kernels as jax_kernels
@@ -35,6 +36,7 @@ from mpgcn_tpu_torch import cli
 from mpgcn_tpu_torch.config import MPGCNConfig, ServeConfig
 from mpgcn_tpu_torch.data.loader import apply_density, synthetic_dataset
 from mpgcn_tpu_torch.data.pipeline import DataPipeline
+from mpgcn_tpu_torch.nn import cuda_bdgcn
 from mpgcn_tpu_torch.quant.int8 import QuantizedTensor
 from mpgcn_tpu_torch.service.serve import ServeEngine
 from mpgcn_tpu_torch.sparse import cuda_ell
@@ -371,6 +373,84 @@ def test_dx_plain_runs_in_float64_for_a_reference(payload):
                                      3, scale)
     assert dx32.dtype == torch.float32
     np.testing.assert_allclose(dx32.numpy(), ref, **SPMM_TOL)
+
+
+def _band(N, width, shape):
+    """A banded stack (|i - j| <= width, no wrap): with (8, 8) tiles the
+    first and last row blocks meet one column block fewer than the rest,
+    so they hold pad slots, which name column block 0."""
+    d = np.abs(np.arange(N)[:, None] - np.arange(N)[None, :])
+    A = np.random.default_rng(N).normal(size=shape).astype(np.float32)
+    return A * (d <= width)
+
+
+@pytest.mark.parametrize("case", [
+    *[("ell-fwd", p) for p in PAYLOADS], *[("ell-dx", p) for p in PAYLOADS],
+    ("bdgcn-fwd", "h1"), ("bdgcn-fwd", "g"), ("bdgcn-bwd", "dout"),
+    ("bdgcn-bwd", "h1")], ids="-".join)
+def test_non_finite_pattern_matches_jax(case):
+    """An Inf, a -Inf and a NaN in one operand: the port's plain versions
+    give Inf or NaN in the same entries as the Pallas kernels in interpret
+    mode, the pattern the card's kernels are held to. ELL forward: X holds
+    them at a column that most of a populated tile's rows leave zero (0 x
+    Inf is NaN) and in column block 0, which only pad slots name for the
+    last row block; dX: dout holds them in that row block and in one
+    without pad slots; the folded BDGCN pair forward and backward."""
+    kind, which = case
+    rng = np.random.default_rng(17)
+    inf, nan = np.float32(np.inf), np.float32(np.nan)
+    if kind.startswith("ell"):
+        N, F = 40, 6
+        ours, ref = _pair(_band(N, 3, (2, 3, N, N)), which)
+        cols = ours.block_cols.reshape(-1, *ours.block_cols.shape[-2:])
+        last = N // 8 - 1
+        assert bool((cols[:, last] == 0).any())  # a pad slot on block 0
+        assert not bool((cols[:, last, :2] == 0).any())
+        pallas = functools.partial(jax_kernels.ell_spmm, use_pallas=True)
+        X = rng.normal(size=(N, F)).astype(np.float32)
+        if kind == "ell-fwd":
+            X[8, 1], X[2, 3], X[20, 4] = inf, -inf, nan
+            ref_out = np.asarray(pallas(ref, jnp.asarray(X)))
+            out = ell_spmm(ours, torch.from_numpy(X)).numpy()
+            assert not np.isfinite(out[:, :, 8 * last:, 3]).any()
+        else:
+            dout = rng.normal(size=(2, 3, N, F)).astype(np.float32)
+            dout[0, 1, 8 * last + 2, 1] = inf
+            dout[1, 2, 12, 3] = -inf
+            dout[0, 0, 27, 4] = nan
+            _, vjp = jax.vjp(lambda x: pallas(ref, x), jnp.asarray(X))
+            (ref_out,) = vjp(jnp.asarray(dout))
+            ref_out = np.asarray(ref_out)
+            Xt = torch.from_numpy(X).requires_grad_()
+            ell_spmm(ours, Xt).backward(torch.from_numpy(dout))
+            out = Xt.grad.numpy()
+            assert not np.isfinite(out[:8, 1]).any()  # the pad slot's block
+    else:
+        K, B, N, C, H = 3, 2, 9, 4, 5
+        h1 = rng.normal(size=(K, B, N, N, C)).astype(np.float32)
+        g = (rng.random((B, K, N, N)) / N).astype(np.float32)
+        w = (rng.normal(size=(K, K, C, H)) / 6).astype(np.float32)
+        dout = rng.normal(size=(B, N, N, H)).astype(np.float32)
+        bad = {"h1": h1, "g": g, "dout": dout}[which]
+        flat = bad.reshape(-1)
+        flat[[5, 70, 200]] = inf, -inf, nan
+        args = [jnp.asarray(a) for a in (h1, g, w)]
+        targs = [torch.from_numpy(a) for a in (h1, g, w)]
+        if kind == "bdgcn-fwd":
+            ref_out = np.asarray(pallas_bdgcn.folded_pair_project(
+                *args, interpret=True))
+            out = cuda_bdgcn.folded_pair_project_plain(*targs).numpy()
+        else:
+            refs = pallas_bdgcn._bwd_pallas(*args, jnp.asarray(dout),
+                                            interpret=True)
+            outs = cuda_bdgcn.folded_pair_project_bwd_plain(
+                *targs, torch.from_numpy(dout))
+            ref_out = np.concatenate([np.asarray(r).reshape(-1)
+                                      for r in refs])
+            out = np.concatenate([o.numpy().reshape(-1) for o in outs])
+    mask = ~np.isfinite(out)
+    assert 0 < mask.sum() < mask.size
+    np.testing.assert_array_equal(mask, ~np.isfinite(ref_out))
 
 
 def test_dblocks_match_pallas_on_a_pad_free_container():
