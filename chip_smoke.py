@@ -591,22 +591,24 @@ def lstm_bwd_bound(T, R, H, engine):
                         f"3-split TF32 bound {tf32[0]:.5f} ms ({tf32[1]})")
 
 
-def device_activities(fn, n=5, tries=3):
+def device_activities(fn, n=5, tries=3, expect=None):
     """Device activities (kernels, copies, sets) per call of ``fn`` over
     ``n`` calls (torch.profiler): their number per call, and a note with
     each name's count and device time per call. The calls are recorded
     after a warm-up step whose trace is dropped: the profiler has been
-    seen to miss the first device activity of its window, and, once in a
-    run, to record no device activity at all in its window (every call
-    here launches at least one kernel): such a window is recorded again,
-    up to ``tries`` windows in all."""
+    seen to miss the first device activity of its window, to miss one
+    activity of a window of five 5 ms calls, and, once in a run, to
+    record no device activity at all in its window (every call here
+    launches at least one kernel): such a window, or one whose count per
+    call is not ``expect``, is recorded again, up to ``tries`` windows in
+    all; the last is returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    names = {}
     for attempt in range(tries):
+        names = {}
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
@@ -626,11 +628,11 @@ def device_activities(fn, n=5, tries=3):
                 acc = names.setdefault(name, [0, 0.0])
                 acc[0] += 1
                 acc[1] += e.time_range.elapsed_us()
-        if names:
+        per_call = sum(v[0] for v in names.values()) / n
+        if names and expect in (None, per_call):
             break
-        print(f"[time] the profiler recorded no device activity in window "
-              f"{attempt + 1} of {tries}", flush=True)
-    per_call = sum(v[0] for v in names.values()) / n
+        print(f"[time] the profiler recorded {per_call:g} device activities "
+              f"a call in window {attempt + 1} of {tries}", flush=True)
     return per_call, (f"{per_call:g} ("
                       + ", ".join(f"{k} x{c / n:g} {us / n:.1f} us"
                                   for k, (c, us) in names.items()) + ")")
@@ -663,8 +665,8 @@ def lstm_bwd_time(dev, xp, w, hs, cs, dhs, iters, plain_iters, lib_bwd):
             xp, w, hs, cs, dhs, None), iters=plain_iters),
         library_ms=lib_bwd, bound_ms=b_ms, bound_by=b_by)
     scratch_bytes = 0 if scratch is None else 4 * scratch.numel()
-    per_call, launches = device_activities(call)
     want = 2 * T + 1 if engine else 1
+    per_call, launches = device_activities(call, expect=want)
     require(per_call == want, f"lstm_train_bwd at T={T} R={R} H={H}: "
             f"{per_call:g} device launches per call, not {want}")
     note = (f"P={P}, {'split-TF32 engine' if engine else 'resident kernel'}"

@@ -90,21 +90,32 @@
 //     summed into the staged operand, which is then split as f32 tiles
 //     are. No float atomics: each block owns its output tiles and sums in
 //     a fixed order, bit-equal from run to run.
-//   Inf and NaN in X. The plain sum multiplies every entry of every
-//     slot's tile, pad slots included, so an Inf or NaN there makes its
-//     column of the output non-finite wherever a slot names its column
-//     block (0 x Inf is NaN); the skips above and the split (made for
-//     finite values, split_tf32) lose that. So the warps fold every X
-//     value they read into x * 0 (on the FP pipe; a warp vote a slab)
-//     and flag (X group, column block, F tile) where one was Inf or NaN,
-//     and the blocks tag the X rows they read; a fix-up pass after the
-//     forward (ell_fwd_fix_kernel) reads the rows no block read and sums
-//     again in plain f32 the columns that a flagged column block reaches
-//     through any slot of a row group, pad slots included (cols names
-//     them): Inf, NaN and finite entries as the plain sum gives them.
-//     Every other entry keeps its bits. A flag pass that read all of X
-//     before the forward cost it 10-22% on the H100 (it held registers
-//     the forward's second block per SM needs, overlapped or not).
+//   Inf and NaN. The plain sum multiplies every entry of every slot's
+//     tile, pad slots included, so an Inf or NaN in X makes its column of
+//     the output non-finite wherever a slot names its column block (0 x
+//     Inf is NaN), and one in a tile (or an int8 scale) makes its row
+//     non-finite; the skips above and the split (made for finite values,
+//     split_tf32) lose that. The split's lo of an Inf or NaN is NaN, and
+//     the tensor cores give NaN for NaN times any value, 0 included, so
+//     an Inf or NaN in an X value a warp multiplies leaves its column of
+//     the cross-term accumulator NaN: a warp whose accumulator is not
+//     finite when it stores an F tile flags (X group, column block, F
+//     tile) for its batch's column blocks (a vote an F tile; nothing is
+//     added to the products). The blocks tag the X rows they read, and stage_ops flags
+//     the row blocks of the tiles it stages that hold one (once a batch,
+//     off the products). A fix-up pass after the forward
+//     (ell_fwd_fix_kernel) sums again in plain f32 every row of a flagged
+//     row block or of one whose scale is not finite, reads the rows no
+//     block read, and sums again the columns that a flagged column block
+//     reaches through any slot of a row group, pad slots included (cols
+//     names them): Inf, NaN and finite entries as the plain sum gives
+//     them. Every other entry keeps its bits. Flags and tags hold the
+//     call's generation (the wrapper's count of calls; the scratch is
+//     zeroed once, when it is allocated), so nothing is cleared between
+//     calls. On the H100 a flag pass that read all of X before the
+//     forward cost it 10-22% (it held registers the forward's second
+//     block per SM needs, overlapped or not), and folding each X value
+//     into x * 0 beside the split about 3%.
 //   dX: the TPU sums dX over row blocks because its grid runs in order.
 //     Here one block owns one (X group g, column block c, 128-column F
 //     tile): the whole (BC x 128) tile of dX in f32 accumulators, written
@@ -130,14 +141,19 @@
 //     in every lane (a ballot) skips its products, and one with none live
 //     skips the slot; the live fragments of a band lie side by side, and
 //     side by side they fall to warps on different schedulers. An Inf or
-//     NaN in dout: the warps wm = 0 fold the dout values they read into
-//     x * 0, which flags the block; a flagged block sums the columns of
-//     its tile where a slot's dout rows hold one again in plain f32 (the
-//     skipped fragments and the split lose them). Pad slots, which name
-//     column block 0 with zero tiles, put NaN there in the plain sum:
-//     flagged blocks mark the row blocks they found one in, and a pad
-//     pass after dX (ell_dx_pad_kernel) writes that NaN. Two launches per
-//     call.
+//     NaN in dout, a tile or an int8 scale: the warps wm = 0 fold the
+//     dout values (and the slot's scale) they read into x * 0, and the
+//     sum of magnitudes by which every warp tests its tile fragments for
+//     zero is not finite for an Inf or NaN; either flags the block. A
+//     flagged block sums again in plain f32 the columns of its tile where
+//     a slot's dout rows hold one and the rows where a slot's tile (or
+//     scale) does (the skipped fragments and the split lose them). Pad
+//     slots, which name column block 0 with zero tiles, put NaN there in
+//     the plain sum: flagged blocks mark the row blocks they found a
+//     non-finite dout in (with the call's generation, as the forward),
+//     and a pad pass after dX (ell_dx_pad_kernel) writes that NaN, in
+//     every column where a pad slot's scale is not finite. Two launches
+//     per call.
 //     The split is the forward's: f32 tiles take hi*hi + hi*lo + lo*hi,
 //     bf16 tiles and int8 codes are exact in TF32 and take two. Each k step's
 //     products are summed on the tensor cores from 0, the small cross
@@ -180,6 +196,7 @@
 // Every entry launches on the given stream and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
+#include <float.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -365,11 +382,13 @@ __device__ __forceinline__ int afrag_index(int r, int k, int ks_n) {
 // (in a second pass, in order); row blocks without a slot are zero where
 // their fragment partner has one, and left unwritten otherwise (their
 // fragment is skipped). Each tile's loads are in flight together. Also
-// finds each operand's non-zero columns [klo, khi).
+// finds each operand's non-zero columns [klo, khi), and sets rbf[i] = gen
+// for each row block i of the slice whose tile holds an Inf or NaN.
 template <typename T>
 __device__ void stage_ops(FwdBatch& L, int n, float* ops, int op_size,
                           const int* tsl, const T* blocks, size_t slot0,
-                          int MB, int BC, int kp, int i0) {
+                          int MB, int BC, int kp, int i0, int* rbf,
+                          int gen) {
   const int tid = threadIdx.x;
   const int ks_n = kp / 8;
   const int per = kBR * kp;  // elements of one tile
@@ -404,6 +423,7 @@ __device__ void stage_ops(FwdBatch& L, int n, float* ops, int op_size,
         const T* blk = blocks + (slot0 + slot) * kBR * BC;
         constexpr int kPer = kBR * kMaxBC / kFwdThreads;
         float v[kPer];
+        bool bad = false;
 #pragma unroll
         for (int u = 0; u < kPer; ++u) {
           const int q = tid + u * kFwdThreads;
@@ -415,7 +435,10 @@ __device__ void stage_ops(FwdBatch& L, int n, float* ops, int op_size,
             lo = min(lo, kc);
             hi = max(hi, kc + 1);
           }
+          if constexpr (!std::is_same<T, int8_t>::value)
+            bad = bad || !isfinite(v[u]);
         }
+        if (bad) rbf[slot / MB] = gen;  // rare; stores of gen, no order
 #pragma unroll
         for (int u = 0; u < kPer; ++u) {
           const int q = tid + u * kFwdThreads;
@@ -448,8 +471,7 @@ __device__ void stage_ops(FwdBatch& L, int n, float* ops, int op_size,
 
 // The warp's products for one staged X slab: its 16-row fragment m of the
 // operand against its kFwdNF 8-column tiles of the slab, over the k steps
-// [ks0, ks1) that hold the operand's non-zero columns; every X value it
-// reads folded into nf (two chains). The hi * hi
+// [ks0, ks1) that hold the operand's non-zero columns. The hi * hi
 // products go into acc through mma_tf32_add; the cross terms, about 2^-11
 // of them, into their own accumulator acc_lo, whose truncation is as
 // small: over hundreds of products a single accumulator's truncation
@@ -457,7 +479,6 @@ __device__ void stage_ops(FwdBatch& L, int n, float* ops, int op_size,
 template <bool kExactA>
 __device__ __forceinline__ void fwd_products(float (&acc)[kFwdNF][4],
                                              float (&acc_lo)[kFwdNF][4],
-                                             float (&nf)[2],
                                              const float* xb,
                                              const float* op, unsigned mask,
                                              int m, int ks0, int ks1,
@@ -487,11 +508,8 @@ __device__ __forceinline__ void fwd_products(float (&acc)[kFwdNF][4],
     unsigned bh[kFwdNF][2], bl[kFwdNF][2];
 #pragma unroll
     for (int n = 0; n < kFwdNF; ++n) {
-      const float xa = x0[n * 8], xb4 = x0[4 * kXStride + n * 8];
-      nf[0] = fold_non_finite(xa, nf[0]);
-      nf[1] = fold_non_finite(xb4, nf[1]);
-      split_tf32(xa, bh[n][0], bl[n][0]);
-      split_tf32(xb4, bh[n][1], bl[n][1]);
+      split_tf32(x0[n * 8], bh[n][0], bl[n][0]);
+      split_tf32(x0[4 * kXStride + n * 8], bh[n][1], bl[n][1]);
     }
     if (split_a) {
 #pragma unroll
@@ -516,7 +534,7 @@ inline size_t fwd_smem_bytes(int kp) {
 // every slot of its row block, pad slots included (their zero tiles name
 // column block 0), each tile entry times its X value (rows past n_cols
 // read 0), int8 codes times the row block's scale first, as the plain
-// version takes them. For the rare entries that an Inf or NaN in X reaches.
+// version takes them. For the rare entries that an Inf or NaN reaches.
 template <typename T>
 __device__ __noinline__ float fwd_plain_entry(
     const int* __restrict__ cols, const T* __restrict__ blocks,
@@ -546,9 +564,10 @@ __global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSM)
 ell_fwd_kernel(const int* __restrict__ t_ptr, const int* __restrict__ t_slot,
                const T* __restrict__ blocks, const float* __restrict__ scale,
                const float* __restrict__ x, int* __restrict__ staged,
-               int* __restrict__ flags, float* __restrict__ out, int S,
-               int NB, int MB, int BC, int nbc, int n_rows, int n_cols,
-               int F, int x_div, int n_chunks) {
+               int* __restrict__ flags, int* __restrict__ rbf, int gen,
+               float* __restrict__ out, int S, int NB, int MB, int BC,
+               int nbc, int n_rows, int n_cols, int F, int x_div,
+               int n_chunks) {
   extern __shared__ float4 smem4[];
   __shared__ FwdBatch L;
   float* xbuf = reinterpret_cast<float*>(smem4);  // kStages slabs
@@ -580,14 +599,20 @@ ell_fwd_kernel(const int* __restrict__ t_ptr, const int* __restrict__ t_slot,
   for (int n = 0; n < kFwdNF; ++n)
 #pragma unroll
     for (int v = 0; v < 4; ++v) acc[n][v] = acc_lo[n][v] = 0.0f;
-  float nf[2] = {0.0f, 0.0f};  // NaN once an X value read was Inf or NaN
 
   // the epilogue of F tile t: rows gid and gid + 8 of the warp's fragment,
   // columns 2 tig and 2 tig + 1 of each 8-column tile, times the row
   // block's int8 scale; added to what an earlier batch wrote when
-  // accumulate. Zeroes the accumulator.
+  // accumulate. Zeroes the accumulator. True in every lane when an Inf or
+  // NaN in X reached the warp's products: it left NaN in every row of its
+  // column of acc_lo, so row gid of each lane's columns tells (a finite
+  // overflow flags too).
   auto store = [&](int s, int t, bool accumulate) {
     const bool pair = (F & 1) == 0;
+    float z = 0.0f;
+#pragma unroll
+    for (int n = 0; n < kFwdNF; ++n) z += acc_lo[n][0] + acc_lo[n][1];
+    const bool bad = !(fabsf(z) <= FLT_MAX);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = m * 16 + h * 8 + gid;
@@ -620,6 +645,7 @@ ell_fwd_kernel(const int* __restrict__ t_ptr, const int* __restrict__ t_slot,
     for (int n = 0; n < kFwdNF; ++n)
 #pragma unroll
       for (int v = 0; v < 4; ++v) acc[n][v] = acc_lo[n][v] = 0.0f;
+    return __any_sync(0xffffffffu, bad);
   };
 
   // The X group's slices one after the other, each re-reading the same X
@@ -641,7 +667,8 @@ ell_fwd_kernel(const int* __restrict__ t_ptr, const int* __restrict__ t_slot,
         for (int t = 0; t < n_tiles; ++t) store(s, t, false);
       break;
     }
-    stage_ops(L, n, ops, op_size, tsl, blocks, slot0, MB, BC, kp, i0);
+    stage_ops(L, n, ops, op_size, tsl, blocks, slot0, MB, BC, kp, i0,
+              rbf + (size_t)s * NB, gen);
     // operand k's k steps: its non-zero columns, in steps of 8
     auto ks_lo = [&](int k) { return L.klo[k] / 8; };
     auto ks_hi = [&](int k) { return max(ks_lo(k), (L.khi[k] + 7) / 8); };
@@ -653,7 +680,7 @@ ell_fwd_kernel(const int* __restrict__ t_ptr, const int* __restrict__ t_slot,
         const int r1 = r0 + min(min(8 * ks_hi(k), BC), n_cols - r0);
         for (int r = r0 + 8 * ks_lo(k) + threadIdx.x; r < r1;
              r += kFwdThreads)
-          staged[(size_t)g * n_cols + r] = 1;
+          staged[(size_t)g * n_cols + r] = gen;
       }
     auto stage = [&](int t) {
       const int k = t % n;
@@ -672,17 +699,17 @@ ell_fwd_kernel(const int* __restrict__ t_ptr, const int* __restrict__ t_slot,
       cp_async_commit();
       const int k = t % n;
       fwd_products<exact_in_tf32<T>()>(
-          acc, acc_lo, nf, xbuf + (t % kStages) * slab + half * (kFwdTF / 2),
+          acc, acc_lo, xbuf + (t % kStages) * slab + half * (kFwdTF / 2),
           ops + k * op_size, L.mask[k], m, ks_lo(k), ks_hi(k), ks_n, lane);
-      // an Inf or NaN in this slab: flag (X group, column block, F tile)
-      // for the fix-up pass (rare; stores of 1, no order)
-      if (__any_sync(0xffffffffu, isnan(nf[0] + nf[1]))) {
-        if (lane == 0)
-          flags[((size_t)g * nbc + L.c[k]) * n_ft + ch + t / n * n_chunks] =
-              1;
-        nf[0] = nf[1] = 0.0f;
-      }
-      if (k == n - 1) store(s, t / n, batch > 0);
+      // an Inf or NaN in an X value the warp multiplied left its column of
+      // acc_lo NaN (the split's lo of it is NaN, and NaN times any A value,
+      // 0 included, is NaN): flag (X group, column block, F tile) for the
+      // batch's column blocks, for the fix-up pass (rare; stores of gen,
+      // no order; after an overflow the pass finds nothing to redo)
+      if (k == n - 1 && store(s, t / n, batch > 0) && lane == 0)
+        for (int kk = 0; kk < n; ++kk)
+          flags[((size_t)g * nbc + L.c[kk]) * n_ft + ch + t / n * n_chunks] =
+              gen;
     }
     __syncthreads();  // the operands and slabs are free for the next batch
     if (c_from >= nbc) break;
@@ -692,19 +719,24 @@ ell_fwd_kernel(const int* __restrict__ t_ptr, const int* __restrict__ t_slot,
 }
 
 // The forward's fix-up pass, after it on the stream: one block per (X
-// group g, kFixTiles F tiles). The forward folds every X value it reads
-// and flags (g, column block, F tile) where one was Inf or NaN, and tags
-// the X rows it reads in every F tile (staged). The plain sum also
-// multiplies what the forward skips: X rows outside a group's [klo, khi),
-// and column block 0 through pad slots, so (1) the rows that no group
-// read are read here (none at the N = 500 shape: a band reads every row)
-// and flag the same way; (2) for each (slice, row group, F tile) whose
-// slots, pad slots included (cols), name a flagged column block, a warp
-// finds the Inf and NaN columns of those blocks' rows and sums those
-// columns again in plain f32 in every row of the group (a fragment
-// partner's zero rows took 0 x Inf there too), over the forward's store.
-// Lists of what to read and fix are gathered in shared memory, 256 at a
-// time; with finite X it reads the tags and its flags only.
+// group g, kFixTiles F tiles). Marks equal to gen are this call's. (0)
+// Every row of a row block of g's slices whose tile the forward flagged
+// (rbf) or whose int8 scale is not finite is summed again in plain f32
+// over the block's F tiles. The forward folds every X value it reads and
+// flags (g, column block, F tile) where one was Inf or NaN, and tags the
+// X rows it reads in every F tile (staged). The plain sum also
+// multiplies what the forward skips: X rows outside a group's
+// [klo, khi), and column block 0 through pad slots, so (1) the rows that
+// no group read are read here (none at the N = 500 shape: a band reads
+// every row) and flag the same way; (2) for each (slice, row group, F
+// tile) whose slots, pad slots included (cols), name a flagged column
+// block, a warp finds the Inf and NaN columns of those blocks' rows and
+// sums those columns again in plain f32 in every row of the group (a
+// fragment partner's zero rows took 0 x Inf there too), over the
+// forward's store. Lists of what to read and fix are gathered in shared
+// memory, 256 at a time; with finite operands one round of reads of the
+// marks, the scales and its flags finds nothing to do. Where (0) and (2)
+// meet, both write the same plain sum.
 constexpr int kFixTiles = 8;
 
 template <typename T>
@@ -712,8 +744,8 @@ __global__ void __launch_bounds__(256) ell_fwd_fix_kernel(
     const int* __restrict__ cols, const T* __restrict__ blocks,
     const float* __restrict__ scale, const float* __restrict__ x,
     const int* __restrict__ staged, int* __restrict__ flags,
-    float* __restrict__ out, int NB, int MB, int BC, int nbc, int n_rows,
-    int n_cols, int F, int x_div) {
+    const int* __restrict__ rbf, int gen, float* __restrict__ out, int NB,
+    int MB, int BC, int nbc, int n_rows, int n_cols, int F, int x_div) {
   __shared__ int s_list[256];
   __shared__ int s_n;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -724,12 +756,44 @@ __global__ void __launch_bounds__(256) ell_fwd_fix_kernel(
   const int nt = min(kFixTiles, n_ft - ft0);
   const float* xs = x + (size_t)g * n_cols * F;
   const int n_groups = (NB + kGroupRB - 1) / kGroupRB;
+  // finite operands (the rule): one round of reads finds nothing to do
+  bool work = false;
+  for (int q = tid; q < x_div * NB; q += 256) {
+    const size_t rb = (size_t)g * x_div * NB + q;
+    work |= rbf[rb] == gen || (scale != nullptr && !isfinite(scale[rb]));
+  }
+  for (int k = tid; k < n_cols; k += 256)
+    work |= staged[(size_t)g * n_cols + k] != gen;
+  for (int q = tid; q < nbc * nt; q += 256)
+    work |= flags[((size_t)g * nbc + q / nt) * n_ft + ft0 + q % nt] == gen;
+  if (!__syncthreads_or(work)) return;
+  // 0. row blocks with an Inf or NaN in a tile or the scale: whole rows
+  for (int base = 0; base < x_div * NB; base += 256) {
+    if (tid == 0) s_n = 0;
+    __syncthreads();
+    const int q = base + tid;  // (slice of g, row block)
+    const size_t rb = (size_t)g * x_div * NB + q;
+    if (q < x_div * NB &&
+        (rbf[rb] == gen || (scale != nullptr && !isfinite(scale[rb]))))
+      s_list[atomicAdd(&s_n, 1)] = q;
+    __syncthreads();
+    for (int w = warp; w < s_n * nt; w += 8) {
+      const int q2 = s_list[w / nt];
+      const int s = g * x_div + q2 / NB, i = q2 % NB;
+      const int f = (ft0 + w % nt) * kFwdTF + lane;  // a lane a column
+      if (f >= F) continue;
+      for (int row = i * kBR; row < min(n_rows, (i + 1) * kBR); ++row)
+        out[((size_t)s * n_rows + row) * F + f] = fwd_plain_entry(
+            cols, blocks, scale, xs, s, row, f, NB, MB, BC, n_cols, F);
+    }
+    __syncthreads();
+  }
   // 1. rows no group read: flag their column blocks' Inf and NaN tiles
   for (int base = 0; base < n_cols; base += 256) {
     if (tid == 0) s_n = 0;
     __syncthreads();
     const int k = base + tid;
-    if (k < n_cols && !staged[(size_t)g * n_cols + k])
+    if (k < n_cols && staged[(size_t)g * n_cols + k] != gen)
       s_list[atomicAdd(&s_n, 1)] = k;
     __syncthreads();
     for (int q = warp; q < s_n * nt; q += 8) {
@@ -737,15 +801,16 @@ __global__ void __launch_bounds__(256) ell_fwd_fix_kernel(
       const int f = ft * kFwdTF + lane;
       const bool bad = f < F && !isfinite(xs[(size_t)k2 * F + f]);
       if (__any_sync(0xffffffffu, bad) && lane == 0)
-        flags[((size_t)g * nbc + k2 / BC) * n_ft + ft] = 1;
+        flags[((size_t)g * nbc + k2 / BC) * n_ft + ft] = gen;
     }
     __syncthreads();
   }
-  // with no flag in the block's F tiles (finite X), nothing to fix
+  // with no flag in the block's F tiles (finite X), nothing more to fix
   if (tid == 0) s_n = 0;
   __syncthreads();
   for (int q = tid; q < nbc * nt; q += 256)
-    if (flags[((size_t)g * nbc + q / nt) * n_ft + ft0 + q % nt]) s_n = 1;
+    if (flags[((size_t)g * nbc + q / nt) * n_ft + ft0 + q % nt] == gen)
+      s_n = 1;
   __syncthreads();
   if (!s_n) return;
   // 2. (slice, row group, F tile) items that a flagged block reaches
@@ -762,7 +827,7 @@ __global__ void __launch_bounds__(256) ell_fwd_fix_kernel(
         const int i = i0 + e / MB;
         if (i >= NB) break;
         hit = flags[((size_t)g * nbc + cols[((size_t)s * NB + i) * MB +
-                                            e % MB]) * n_ft + ft] != 0;
+                                            e % MB]) * n_ft + ft] == gen;
       }
       if (hit) s_list[atomicAdd(&s_n, 1)] = q;
     }
@@ -789,7 +854,6 @@ __global__ void __launch_bounds__(256) ell_fwd_fix_kernel(
     __syncthreads();
   }
 }
-
 // --- dX on TF32 tensor cores -----------------------------------------------
 
 // A staged tile row in bytes: kMaxBC elements and a pad that puts the rows
@@ -809,18 +873,19 @@ inline size_t dx_smem_bytes() {
   return (size_t)kDxStages * kDxSlots * dx_slot_bytes<T>();
 }
 
-// A dX block that met an Inf or NaN in dout (its fold): marks each of its
+// A dX block that met an Inf or NaN (its fold): marks each of its
 // columns where one of its slots' dout rows holds one, and each such row
 // block in rb_flags with this call's generation gen (for the pad pass,
-// ell_dx_pad_kernel: no memset, and a stale or stray value equal to gen
-// only makes it read rows that hold nothing); then sums those columns
-// again in plain f32 over its slots and writes them over the store: Inf
-// and NaN as the plain sum gives them (0 x Inf is NaN, each Inf of its
-// sign), which the products do not, as they skip zero fragments and the
-// TF32 split turns a NaN such as 0x7fffffff into -0. Out of line and after
-// the store, so that the products keep their registers; every thread of
-// the block calls it. Integer OR into shared memory and stores of gen: no
-// order to keep.
+// ell_dx_pad_kernel); marks each of its rows m where a slot's tile holds
+// one in column m, or every row where a slot's int8 scale is not finite;
+// then sums the marked columns and rows again in plain f32 over its slots
+// and writes them over the store: Inf and NaN as the plain sum gives them
+// (0 x Inf is NaN, each Inf of its sign; tile rows past n_rows meet dout
+// rows that read 0), which the products do not, as they skip zero
+// fragments and the TF32 split turns a NaN such as 0x7fffffff into -0.
+// Out of line and after the store, so that the products keep their
+// registers; every thread of the block calls it. Integer OR into shared
+// memory and stores of gen: no order to keep.
 template <typename T>
 __device__ __noinline__ void dx_fix_non_finite(
     const int* __restrict__ t_ptr, const int* __restrict__ t_slot,
@@ -830,15 +895,17 @@ __device__ __noinline__ void dx_fix_non_finite(
     int BC, int nbc, int n_rows, int n_cols, int F, int x_div, int c, int g,
     int f0) {
   constexpr bool kScaled = std::is_same<T, int8_t>::value;
+  __shared__ unsigned s_bad_m[kMaxBC / 32];  // rows of the tile to redo
   const int tid = threadIdx.x;
   const int s0 = g * x_div;
   const size_t per_slice = (size_t)NB * MB;
   if (tid < kDxTF / 32) s_bad[tid] = 0u;
+  if (tid < kMaxBC / 32) s_bad_m[tid] = 0u;
   __syncthreads();
   for (int s = s0; s < s0 + x_div; ++s) {
     const int* ptr = t_ptr + (size_t)s * (nbc + 1);
     for (int e = ptr[c]; e < ptr[c + 1]; ++e) {
-      const int i = t_slot[(size_t)s * per_slice + e] / MB;
+      const int slot = t_slot[(size_t)s * per_slice + e], i = slot / MB;
       bool hit = false;
       for (int q = tid; q < kBR * kDxTF; q += kDxThreads) {
         const int r = i * kBR + q / kDxTF, lc = q % kDxTF;
@@ -849,14 +916,22 @@ __device__ __noinline__ void dx_fix_non_finite(
         }
       }
       if (hit) rb_flags[(size_t)s * NB + i] = gen;
+      const bool all = kScaled && !isfinite(scale[(size_t)s * NB + i]);
+      const T* tile = blocks + ((size_t)s * per_slice + slot) * kBR * BC;
+      for (int q = tid; q < kBR * BC; q += kDxThreads) {
+        const int m = q % BC;
+        if (all || (!kScaled && !isfinite(tile_value(tile, q))))
+          atomicOr(&s_bad_m[m / 32], 1u << (m % 32));
+      }
     }
   }
   __syncthreads();
   for (int q = tid; q < kMaxBC * kDxTF; q += kDxThreads) {
     const int m = q / kDxTF, lc = q % kDxTF, f = f0 + lc;
-    if (!((s_bad[lc / 32] >> (lc % 32)) & 1u) || m >= BC ||
-        c * BC + m >= n_cols || f >= F)
+    if (!((s_bad[lc / 32] >> (lc % 32)) & 1u) &&
+        !((s_bad_m[m / 32] >> (m % 32)) & 1u))
       continue;
+    if (m >= BC || c * BC + m >= n_cols || f >= F) continue;
     float v = 0.0f;
     for (int s = s0; s < s0 + x_div; ++s) {
       const int* ptr = t_ptr + (size_t)s * (nbc + 1);
@@ -864,9 +939,13 @@ __device__ __noinline__ void dx_fix_non_finite(
         const int slot = t_slot[(size_t)s * per_slice + e], i = slot / MB;
         const float sc = kScaled ? scale[(size_t)s * NB + i] : 1.0f;
         const T* tile = blocks + ((size_t)s * per_slice + slot) * kBR * BC + m;
-        for (int r = 0; r < kBR && i * kBR + r < n_rows; ++r)
+        for (int r = 0; r < kBR; ++r) {
+          const int row = i * kBR + r;
           v = fmaf(tile_value(tile, (size_t)r * BC) * sc,
-                   dout[((size_t)s * n_rows + i * kBR + r) * F + f], v);
+                   row < n_rows ? dout[((size_t)s * n_rows + row) * F + f]
+                                : 0.0f,
+                   v);
+        }
       }
     }
     dx[((size_t)g * n_cols + c * BC + m) * F + f] = v;
@@ -1014,7 +1093,10 @@ ell_bwd_dx_kernel(const int* __restrict__ t_ptr,
   // of the transposed tile that are not zero in every lane, against its
   // kDxNT 8-column tiles of the dout rows. The dout fragments are read
   // beside the tile's, not after the ballot, so the two loads overlap.
-  // Warps wm = 0 also flag an Inf or NaN among the dout values.
+  // Warps wm = 0 also flag an Inf or NaN among the dout values and the
+  // slot's scale, every warp one among its tile values, from the sum of
+  // their magnitudes that the zero test takes (not finite for an Inf or
+  // NaN; an overflow flags too, and the rescan finds nothing).
   auto products = [&](int t) {
     const unsigned char* base =
         sbuf + (size_t)(t % kDxStages) * kDxSlots * kSlot;
@@ -1052,16 +1134,21 @@ ell_bwd_dx_kernel(const int* __restrict__ t_ptr,
           z = fmaf(bv[n][0], 0.0f, z);
           z = fmaf(bv[n][1], 0.0f, z);
         }
+        if constexpr (kScaled)
+          z = fold_non_finite(s_scale[t % kDxStages][j], z);
         if (isnan(z)) s_nonfinite = 1;
       }
       bool live[kDxMF];
       bool any = false;
 #pragma unroll
       for (int mf = 0; mf < kDxMF; ++mf) {
-        live[mf] = __any_sync(0xffffffffu,
-                              av[mf][0] != 0.0f || av[mf][1] != 0.0f ||
-                                  av[mf][2] != 0.0f || av[mf][3] != 0.0f);
+        // 0 only when all four are 0 (no cancellation, denormals kept)
+        const float mag = fabsf(av[mf][0]) + fabsf(av[mf][1]) +
+                          fabsf(av[mf][2]) + fabsf(av[mf][3]);
+        live[mf] = __any_sync(0xffffffffu, mag != 0.0f);
         any = any || live[mf];
+        if constexpr (!kScaled)
+          if (!(mag <= FLT_MAX)) s_nonfinite = 1;  // Inf or NaN
       }
       if (!any) continue;  // the same in every lane
       const float sc = kScaled ? s_scale[t % kDxStages][j] : 1.0f;
@@ -1158,20 +1245,23 @@ ell_bwd_dx_kernel(const int* __restrict__ t_ptr,
 // column block 0. Such a row block was flagged by a dX block that staged
 // it (rb_flags == gen) or, holding no populated slot, was staged by none:
 // only those rows are read here (none at the N = 500 shape), 128 columns
-// at a time. The block counts each row block's populated slots from the
-// transposed index in shared memory (x_div x NB ints).
+// at a time. A row block with a pad slot whose int8 scale is not finite
+// puts NaN (0 x Inf) in every column. The block counts each row block's
+// populated slots from the transposed index in shared memory (x_div x NB
+// ints).
 __global__ void __launch_bounds__(256) ell_dx_pad_kernel(
     const int* __restrict__ t_ptr, const int* __restrict__ t_slot,
-    const float* __restrict__ dout, const int* __restrict__ rb_flags,
-    int gen, float* __restrict__ dx, int NB, int MB, int BC, int nbc,
-    int n_rows, int n_cols, int F, int x_div) {
+    const float* __restrict__ scale, const float* __restrict__ dout,
+    const int* __restrict__ rb_flags, int gen, float* __restrict__ dx,
+    int NB, int MB, int BC, int nbc, int n_rows, int n_cols, int F,
+    int x_div) {
   extern __shared__ int n_pop[];  // (x_div, NB) populated slots
   __shared__ unsigned s_bad[kDxTF / 32];
-  __shared__ int s_any;
+  __shared__ int s_any, s_all;
   const int tid = threadIdx.x, g = blockIdx.x;
   const size_t per_slice = (size_t)NB * MB;
   for (int q = tid; q < x_div * NB; q += blockDim.x) n_pop[q] = 0;
-  if (tid == 0) s_any = 0;
+  if (tid == 0) s_any = s_all = 0;
   __syncthreads();
   for (int sl = 0; sl < x_div; ++sl) {
     const int s = g * x_div + sl;
@@ -1182,15 +1272,15 @@ __global__ void __launch_bounds__(256) ell_dx_pad_kernel(
   __syncthreads();
   // n_pop[q] becomes 1 where row block q's rows are read, else 0
   for (int q = tid; q < x_div * NB; q += blockDim.x) {
-    const int s = g * x_div + q / NB;
-    const bool read =
-        n_pop[q] < MB &&
-        (n_pop[q] == 0 || rb_flags[(size_t)s * NB + q % NB] == gen);
+    const size_t rb = (size_t)g * x_div * NB + q;  // (slice, row block)
+    const bool pad = n_pop[q] < MB;
+    const bool read = pad && (n_pop[q] == 0 || rb_flags[rb] == gen);
+    if (pad && scale != nullptr && !isfinite(scale[rb])) s_all = 1;
     n_pop[q] = read;
     if (read) s_any = 1;
   }
   __syncthreads();
-  if (!s_any) return;
+  if (!s_any && !s_all) return;
   const int rows = min(BC, n_cols);
   for (int f0 = 0; f0 < F; f0 += kDxTF) {
     if (tid < kDxTF / 32) s_bad[tid] = 0u;
@@ -1208,7 +1298,7 @@ __global__ void __launch_bounds__(256) ell_dx_pad_kernel(
     __syncthreads();
     for (int e = tid; e < rows * kDxTF; e += blockDim.x) {
       const int m = e / kDxTF, lc = e % kDxTF;
-      if ((s_bad[lc / 32] >> (lc % 32)) & 1u)
+      if ((s_all || (s_bad[lc / 32] >> (lc % 32)) & 1u) && f0 + lc < F)
         dx[((size_t)g * n_cols + m) * F + f0 + lc] =
             __uint_as_float(0x7fffffffu);
     }
@@ -1548,7 +1638,8 @@ template <typename T>
 int launch_fwd(const void* t_ptr, const void* t_slot, const void* cols,
                const void* blocks, const void* scale, const void* x,
                void* out, void* scratch, int S, int NB, int MB, int BC,
-               int n_rows, int n_cols, int F, int x_div, cudaStream_t st) {
+               int n_rows, int n_cols, int F, int x_div, int gen,
+               cudaStream_t st) {
   const int nbc = (n_cols + BC - 1) / BC;
   // each block walks every n_chunks-th F tile of one (X group, row group):
   // enough blocks for kFwdWaves per SM, no more, so the index walk and the
@@ -1573,24 +1664,24 @@ int launch_fwd(const void* t_ptr, const void* t_slot, const void* cols,
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
-  // scratch: the staged-row tags (G, n_cols), then the flags (G, nbc, n_ft)
+  // scratch: the staged-row tags (G, n_cols), the flags (G, nbc, n_ft),
+  // the row-block flags (S, NB); marks of this call equal gen
   int* staged = static_cast<int*>(scratch);
   int* flags = staged + (size_t)G * n_cols;
-  err = cudaMemsetAsync(scratch, 0,
-                        sizeof(int) * G * ((size_t)n_cols + nbc * n_ft), st);
-  if (err != cudaSuccess) return err;
+  int* rbf = flags + (size_t)G * nbc * n_ft;
   kern<<<(unsigned)grid, kFwdThreads, smem, st>>>(
       static_cast<const int*>(t_ptr), static_cast<const int*>(t_slot),
       static_cast<const T*>(blocks), static_cast<const float*>(scale),
-      static_cast<const float*>(x), staged, flags, static_cast<float*>(out),
-      S, NB, MB, BC, nbc, n_rows, n_cols, F, x_div, (int)n_chunks);
+      static_cast<const float*>(x), staged, flags, rbf, gen,
+      static_cast<float*>(out), S, NB, MB, BC, nbc, n_rows, n_cols, F, x_div,
+      (int)n_chunks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ell_fwd_fix_kernel<T><<<(unsigned)fix_grid, 256, 0, st>>>(
       static_cast<const int*>(cols), static_cast<const T*>(blocks),
       static_cast<const float*>(scale), static_cast<const float*>(x), staged,
-      flags, static_cast<float*>(out), NB, MB, BC, nbc, n_rows, n_cols, F,
-      x_div);
+      flags, rbf, gen, static_cast<float*>(out), NB, MB, BC, nbc, n_rows,
+      n_cols, F, x_div);
   return cudaGetLastError();
 }
 
@@ -1598,7 +1689,7 @@ template <typename T>
 int launch_dx(const void* t_ptr, const void* t_slot, const void* blocks,
               const void* scale, const void* dout, void* dx, void* rb_flags,
               int S, int NB, int MB, int BC, int n_rows, int n_cols, int F,
-              int x_div, cudaStream_t st) {
+              int x_div, int gen, cudaStream_t st) {
   const int nbc = (n_cols + BC - 1) / BC;
   const long long n_ft = (F + kDxTF - 1) / kDxTF;
   const long long grid = (long long)(S / x_div) * n_ft * nbc;
@@ -1615,8 +1706,6 @@ int launch_dx(const void* t_ptr, const void* t_slot, const void* blocks,
                     reinterpret_cast<uintptr_t>(blocks) % 16 == 0;
   const int d_vec =
       F % 4 == 0 && reinterpret_cast<uintptr_t>(dout) % 16 == 0;
-  static int calls = 0;  // the generation of this call's row-block flags
-  const int gen = ++calls & 0x3fffffff;
   ell_bwd_dx_kernel<T><<<(unsigned)grid, kDxThreads, smem, st>>>(
       static_cast<const int*>(t_ptr), static_cast<const int*>(t_slot),
       static_cast<const T*>(blocks), static_cast<const float*>(scale),
@@ -1627,8 +1716,9 @@ int launch_dx(const void* t_ptr, const void* t_slot, const void* blocks,
   if (err != cudaSuccess) return err;
   ell_dx_pad_kernel<<<(unsigned)(S / x_div), 256, pad_smem, st>>>(
       static_cast<const int*>(t_ptr), static_cast<const int*>(t_slot),
-      static_cast<const float*>(dout), static_cast<const int*>(rb_flags), gen,
-      static_cast<float*>(dx), NB, MB, BC, nbc, n_rows, n_cols, F, x_div);
+      static_cast<const float*>(scale), static_cast<const float*>(dout),
+      static_cast<const int*>(rb_flags), gen, static_cast<float*>(dx), NB,
+      MB, BC, nbc, n_rows, n_cols, F, x_div);
   return cudaGetLastError();
 }
 
@@ -1638,24 +1728,26 @@ int launch_dx(const void* t_ptr, const void* t_slot, const void* blocks,
 // and t_slot (S, NB * MB) int32, blocks (S, NB, MB, 8, BC) f32 (payload 0)
 // or bf16 (payload 1), x (S / x_div, n_cols, F) f32.
 // cols (S, NB, MB) int32 names each slot's column block (pad slots: 0);
-// scratch holds (S / x_div) * (n_cols + nbc * ceil(F / 32)) ints. A memset
-// of it and two launches: the forward, then its fix-up pass.
+// scratch holds (S / x_div) * (n_cols + nbc * ceil(F / 32)) + S * NB
+// ints, none equal to gen, this call's generation (> 0), before the call:
+// zeroed once and marked by earlier calls with smaller generations. Two
+// launches: the forward, then its fix-up pass.
 extern "C" int ell_fwd(const void* t_ptr, const void* t_slot,
                        const void* cols, const void* blocks, const void* x,
                        void* out, void* scratch, int payload, int S, int NB,
                        int MB, int BC, int n_rows, int n_cols, int F,
-                       int x_div, void* stream) {
-  if (!shape_ok(S, NB, MB, BC, n_rows, n_cols, F, x_div))
+                       int x_div, int gen, void* stream) {
+  if (!shape_ok(S, NB, MB, BC, n_rows, n_cols, F, x_div) || gen < 1)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (payload == kF32)
     return launch_fwd<float>(t_ptr, t_slot, cols, blocks, nullptr, x, out,
                              scratch, S, NB, MB, BC, n_rows, n_cols, F, x_div,
-                             st);
+                             gen, st);
   if (payload == kBF16)
     return launch_fwd<__nv_bfloat16>(t_ptr, t_slot, cols, blocks, nullptr, x,
                                      out, scratch, S, NB, MB, BC, n_rows,
-                                     n_cols, F, x_div, st);
+                                     n_cols, F, x_div, gen, st);
   return cudaErrorInvalidValue;
 }
 
@@ -1664,35 +1756,35 @@ extern "C" int ell_fwd_q(const void* t_ptr, const void* t_slot,
                          const void* cols, const void* codes,
                          const void* scale, const void* x, void* out,
                          void* scratch, int S, int NB, int MB, int BC,
-                         int n_rows, int n_cols, int F, int x_div,
+                         int n_rows, int n_cols, int F, int x_div, int gen,
                          void* stream) {
-  if (!shape_ok(S, NB, MB, BC, n_rows, n_cols, F, x_div))
+  if (!shape_ok(S, NB, MB, BC, n_rows, n_cols, F, x_div) || gen < 1)
     return cudaErrorInvalidValue;
   return launch_fwd<int8_t>(t_ptr, t_slot, cols, codes, scale, x, out, scratch,
-                            S, NB, MB, BC, n_rows, n_cols, F, x_div,
+                            S, NB, MB, BC, n_rows, n_cols, F, x_div, gen,
                             static_cast<cudaStream_t>(stream));
 }
 
 // dx (S / x_div, n_cols, F) f32 from the transposed index t_ptr (S, nbc + 1)
 // and t_slot (S, NB * MB) int32, the tiles and dout (S, n_rows, F) f32;
-// rb_flags is scratch of S * NB ints. Two launches: dX, then its pad
-// pass.
+// rb_flags is scratch of S * NB ints, none equal to gen (> 0) before the
+// call, as the forward's. Two launches: dX, then its pad pass.
 extern "C" int ell_bwd_dx(const void* t_ptr, const void* t_slot,
                           const void* blocks, const void* dout, void* dx,
                           void* rb_flags, int payload, int S, int NB, int MB,
                           int BC, int n_rows, int n_cols, int F, int x_div,
-                          void* stream) {
-  if (!shape_ok(S, NB, MB, BC, n_rows, n_cols, F, x_div))
+                          int gen, void* stream) {
+  if (!shape_ok(S, NB, MB, BC, n_rows, n_cols, F, x_div) || gen < 1)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (payload == kF32)
     return launch_dx<float>(t_ptr, t_slot, blocks, nullptr, dout, dx,
                             rb_flags, S, NB, MB, BC, n_rows, n_cols, F,
-                            x_div, st);
+                            x_div, gen, st);
   if (payload == kBF16)
     return launch_dx<__nv_bfloat16>(t_ptr, t_slot, blocks, nullptr, dout, dx,
                                     rb_flags, S, NB, MB, BC, n_rows, n_cols,
-                                    F, x_div, st);
+                                    F, x_div, gen, st);
   return cudaErrorInvalidValue;
 }
 
@@ -1700,11 +1792,12 @@ extern "C" int ell_bwd_dx_q(const void* t_ptr, const void* t_slot,
                             const void* codes, const void* scale,
                             const void* dout, void* dx, void* rb_flags,
                             int S, int NB, int MB, int BC, int n_rows,
-                            int n_cols, int F, int x_div, void* stream) {
-  if (!shape_ok(S, NB, MB, BC, n_rows, n_cols, F, x_div))
+                            int n_cols, int F, int x_div, int gen,
+                            void* stream) {
+  if (!shape_ok(S, NB, MB, BC, n_rows, n_cols, F, x_div) || gen < 1)
     return cudaErrorInvalidValue;
   return launch_dx<int8_t>(t_ptr, t_slot, codes, scale, dout, dx, rb_flags,
-                           S, NB, MB, BC, n_rows, n_cols, F, x_div,
+                           S, NB, MB, BC, n_rows, n_cols, F, x_div, gen,
                            static_cast<cudaStream_t>(stream));
 }
 

@@ -39,6 +39,7 @@ require grad; the int8 codes are data, so ``EllSpmmQFn`` returns dX only
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
@@ -52,10 +53,10 @@ MAX_BC = 128
 #: the kernels' payload codes (csrc/ell_spmm.cu ``Payload``)
 _PAYLOAD_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-ELL_FWD = CudaKernel("ell_spmm", "ell_fwd", n_ptrs=7, n_ints=9)
-ELL_FWD_Q = CudaKernel("ell_spmm", "ell_fwd_q", n_ptrs=8, n_ints=8)
-ELL_BWD_DX = CudaKernel("ell_spmm", "ell_bwd_dx", n_ptrs=6, n_ints=9)
-ELL_BWD_DX_Q = CudaKernel("ell_spmm", "ell_bwd_dx_q", n_ptrs=7, n_ints=8)
+ELL_FWD = CudaKernel("ell_spmm", "ell_fwd", n_ptrs=7, n_ints=10)
+ELL_FWD_Q = CudaKernel("ell_spmm", "ell_fwd_q", n_ptrs=8, n_ints=9)
+ELL_BWD_DX = CudaKernel("ell_spmm", "ell_bwd_dx", n_ptrs=6, n_ints=10)
+ELL_BWD_DX_Q = CudaKernel("ell_spmm", "ell_bwd_dx_q", n_ptrs=7, n_ints=9)
 ELL_BWD_DBLK = CudaKernel("ell_spmm", "ell_bwd_dblk", n_ptrs=6, n_ints=9)
 #: dBlocks (csrc/ell_spmm.cu kDbSlots, kDbTF): slots per tile, F columns
 #: per staged step; at most this many steps summed by one block (the rest
@@ -197,6 +198,33 @@ def _check_stack(name, cols, tiles, scale, n_cols: int, device,
     return S, NB, MB, bc, code
 
 
+#: The forward's and dX's Inf/NaN marks (csrc/ell_spmm.cu): one int32
+#: buffer per (device, stream), zeroed when it is allocated and only ever
+#: grown, and a count of calls. Each call marks with its own count (its
+#: generation), so no mark of an earlier call equals it and nothing is
+#: cleared between calls. Calls on one stream run in order, so they may
+#: share it. A CUDA graph would replay the generation it captured, so the
+#: entries are not to be captured in one (the port captures none).
+_MARKS: dict = {}
+_MARKS_LOCK = threading.Lock()
+_GEN_MAX = 2 ** 30
+
+
+def _marks(device, n: int):
+    """(an int32 buffer of at least n entries on device, this call's
+    generation)."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    with _MARKS_LOCK:
+        buf, gen = _MARKS.get(key, (None, 0))
+        gen += 1
+        if buf is None or buf.numel() < n or gen > _GEN_MAX:
+            size = max(n, 0 if buf is None else buf.numel())
+            buf = torch.zeros(size, dtype=torch.int32, device=device)
+            gen = 1
+        _MARKS[key] = (buf, gen)
+    return buf, gen
+
+
 def _check_dense(name, t, shape):
     """t must be a float32 tensor of ``shape`` (None matches any size)."""
     if (t.dtype != torch.float32 or t.ndim != len(shape)
@@ -212,8 +240,9 @@ def ell_fwd(cols, blocks, t_ptr, t_slot, X, n_rows: int, x_div: int,
     which computes every slot and needs no index; CUDA tensors launch
     ``ell_fwd`` (f32/bf16 tiles) or ``ell_fwd_q`` (int8 codes with
     ``scale``), which walk the transposed index (t_ptr, t_slot) and so
-    multiply the populated slots only; a fix-up pass sums the columns an
-    Inf or NaN of X reaches again over every slot of ``cols``."""
+    multiply the populated slots only; a fix-up pass sums the entries an
+    Inf or NaN of X, a tile or a scale reaches again over every slot of
+    ``cols``."""
     if not _is_cuda(X, "ELL SpMM"):
         return ell_fwd_plain(cols, blocks, X, n_rows, x_div, scale)
     _check_dense("ELL SpMM X", X, (None, None, None))
@@ -230,17 +259,17 @@ def ell_fwd(cols, blocks, t_ptr, t_slot, X, n_rows: int, x_div: int,
         return out
     t_ptr, t_slot, cols, blocks, X = (
         t.contiguous() for t in (t_ptr, t_slot, cols, blocks, X))
-    # the fix-up pass's tags of the X rows the forward reads, and its flags
-    # per (X group, column block, 32-column F tile)
-    scratch = torch.empty(G * (n_cols + -(-n_cols // bc) * -(-F // 32)),
-                          dtype=torch.int32, device=X.device)
-    dims = (S, NB, MB, bc, n_rows, n_cols, F, x_div)
+    # the fix-up pass's tags of the X rows the forward reads, its flags per
+    # (X group, column block, 32-column F tile) and per (slice, row block)
+    marks, gen = _marks(
+        X.device, G * (n_cols + -(-n_cols // bc) * -(-F // 32)) + S * NB)
+    dims = (S, NB, MB, bc, n_rows, n_cols, F, x_div, gen)
     if scale is None:
-        ELL_FWD.launch((t_ptr, t_slot, cols, blocks, X, out, scratch),
+        ELL_FWD.launch((t_ptr, t_slot, cols, blocks, X, out, marks),
                        (code, *dims))
     else:
         ELL_FWD_Q.launch((t_ptr, t_slot, cols, blocks, scale.contiguous(), X,
-                          out, scratch), dims)
+                          out, marks), dims)
     return out
 
 
@@ -250,7 +279,7 @@ def ell_bwd_dx(cols, blocks, t_ptr, t_slot, dout, n_cols: int, x_div: int,
     CPU tensors take the plain version; CUDA tensors launch ``ell_bwd_dx``
     or ``ell_bwd_dx_q``, which walk the transposed index (t_ptr, t_slot)
     and then put the NaN that pad slots add for an Inf or NaN in dout
-    (scratch: a flag per row block)."""
+    (marks: a flag per row block)."""
     if not _is_cuda(dout, "ELL SpMM dX"):
         return ell_bwd_dx_plain(cols, blocks, dout, n_cols, x_div, scale)
     S, NB, MB, bc, code = _check_stack("ELL SpMM dX", cols, blocks, scale,
@@ -266,10 +295,10 @@ def ell_bwd_dx(cols, blocks, t_ptr, t_slot, dout, n_cols: int, x_div: int,
                      device=dout.device)
     if F == 0:
         return dx
-    dims = (S, NB, MB, bc, n_rows, n_cols, F, x_div)
     t_ptr, t_slot, blocks, dout = (
         t.contiguous() for t in (t_ptr, t_slot, blocks, dout))
-    rb_flags = torch.empty(S * NB, dtype=torch.int32, device=dout.device)
+    rb_flags, gen = _marks(dout.device, S * NB)
+    dims = (S, NB, MB, bc, n_rows, n_cols, F, x_div, gen)
     if scale is None:
         ELL_BWD_DX.launch((t_ptr, t_slot, blocks, dout, dx, rb_flags),
                           (code, *dims))

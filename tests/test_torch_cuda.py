@@ -663,7 +663,9 @@ def _put_non_finite(dev, a, at):
 
 
 @pytest.mark.parametrize("entry,operand", [
-    *[("ell_fwd", p) for p in ("f32", "bf16", "int8")], ("ell_bwd_dblk", "x"),
+    *[("ell_fwd", p) for p in ("f32", "bf16", "int8")],
+    *[(e, o) for e in ("ell_fwd", "ell_bwd_dx")
+      for o in ("tile-f32", "tile-bf16", "scale-int8")], ("ell_bwd_dblk", "x"),
     ("ell_bwd_dblk", "dout"), *[("bdgcn_pair_fwd", o) for o in ("h1", "g",
                                                                "w")],
     *[("bdgcn_pair_bwd", o) for o in ("h1", "g", "w", "dout")],
@@ -676,15 +678,60 @@ def test_split_tf32_entries_keep_inf_and_nan(cuda_device, entry, operand):
     of its sign; every finite entry matches. The ELL forward's X holds them
     in k steps that a row group skips (a band: its rows meet only part of
     a column block), in column block 0, which pad slots name for row
-    blocks that meet only column block 1, and in a fragment's zero rows;
-    f32, bf16 and int8 tiles. dX has its own test above."""
+    blocks that meet only column block 1, in a fragment's zero rows, and
+    in a column that every tile leaves zero inside the k steps the
+    products take; f32, bf16 and int8 tiles. The ELL forward and dX also take them in
+    populated f32 and bf16 tiles (one in columns past n_cols, which meet
+    X rows that read 0) and in int8 scales, of row blocks with and
+    without pad slots; X one per slice there, so that other slices stay
+    finite. dX's dout has its own test above."""
     dev = cuda_device
     put = functools.partial(_put_non_finite, dev)
+    if operand.startswith(("tile", "scale")):
+        payload = operand.split("-")[1]
+        ell, X, dout, x_div = _ell_case(dev, (3, 200, 200), 128, "band", 160,
+                                        operand == "scale-int8", payload)
+        cols, tiles, scale, t_ptr, t_slot = flat_stack(ell)
+
+        def call(tiles, scale):
+            if entry == "ell_fwd":
+                return cuda_ell.ell_fwd(cols, tiles, t_ptr, t_slot, X, 200,
+                                        x_div, scale)
+            return cuda_ell.ell_bwd_dx(cols, tiles, t_ptr, t_slot, dout, 200,
+                                       x_div, scale)
+
+        clean = call(tiles, scale)
+        finite = (tiles, scale)
+        if operand == "scale-int8":
+            # row blocks 5 and 18 hold a pad slot, 24 none
+            scale = put(scale, [5, 18, cols.shape[1] + 24])
+        else:
+            # populated slots of slices 0, 1, 2; the second on column
+            # block 1, its column 100 past n_cols = 200
+            per_slice = cols.shape[1] * cols.shape[2]  # NB * MB
+            at = []
+            for s, c, (r, k) in ((0, 0, (3, 100)), (1, 1, (0, 100)),
+                                 (2, 0, (7, 64))):
+                slot = int(t_slot[s, int(t_ptr[s, c])])
+                at.append(((s * per_slice + slot) * 8 + r) * 128 + k)
+            tiles = put(tiles, at)
+        out = call(tiles, scale)
+        if entry == "ell_fwd":
+            ref = cuda_ell.ell_fwd_plain(cols, tiles, X, 200, x_div, scale)
+        else:
+            ref = cuda_ell.ell_bwd_dx_plain(cols, tiles, dout, 200, x_div,
+                                            scale)
+        _same_non_finite(out, ref)
+        # this call's marks (its generation) do not reach the next call:
+        # finite operands again give the first call's bits
+        assert torch.equal(call(*finite), clean)
+        return
     if entry == "ell_fwd":
         ell, X, _, x_div = _ell_case(dev, (3, 200, 200), 128, "band", 160,
                                      False, operand)
         cols, tiles, scale, t_ptr, t_slot = flat_stack(ell)
         F = X.shape[-1]
+        X_clean = X
         X = put(X, [150 * F + 7, 60 * F + 40, 5 * F + 130])
         out = cuda_ell.ell_fwd(cols, tiles, t_ptr, t_slot, X, 200, x_div,
                                scale)
@@ -693,6 +740,16 @@ def test_split_tf32_entries_keep_inf_and_nan(cuda_device, entry, operand):
         # rows 144.. meet only column block 1: X row 60 reaches them
         # through their pad slots alone
         assert not bool(torch.isfinite(ref[:, 144:176, 40]).any())
+        # column 60 of every tile zero, inside the k steps that row group
+        # 0 multiplies on both column blocks: X rows 60 and 188 reach the
+        # products only as 0 x Inf and 0 x NaN
+        tiles = tiles.clone()
+        tiles[..., 60] = 0
+        X = put(X_clean, [60 * F + 3, 188 * F + 5, 60 * F + 9])
+        out = cuda_ell.ell_fwd(cols, tiles, t_ptr, t_slot, X, 200, x_div,
+                               scale)
+        ref = cuda_ell.ell_fwd_plain(cols, tiles, X, 200, x_div, scale)
+        _same_non_finite(out, ref)
         return
     if entry == "ell_bwd_dblk":
         ell, X, dout, x_div = _ell_case(dev, (3, 200, 200), 128, "band",

@@ -1,8 +1,7 @@
 """The port stands alone: no module of mpgcn_tpu_torch/, and none of its
-scripts (chip_smoke.py, kernel_hashes.py, kernel_times.py,
-n500_int8_step.py), imports JAX or the JAX package. Imports are read
-with ``ast`` -- a string match would confuse ``mpgcn_tpu_torch`` with
-``mpgcn_tpu``."""
+scripts (chip_smoke.py, kernel_hashes.py, n500_int8_step.py), imports
+JAX or the JAX package. Imports are read with ``ast`` -- a string match
+would confuse ``mpgcn_tpu_torch`` with ``mpgcn_tpu``."""
 
 import ast
 import pathlib
@@ -34,7 +33,7 @@ def _imports(tree):
 def _sources():
     files = sorted((ROOT / "mpgcn_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py", ROOT / "kernel_hashes.py",
-                    ROOT / "kernel_times.py", ROOT / "n500_int8_step.py"]
+                    ROOT / "n500_int8_step.py"]
 
 
 @pytest.mark.parametrize("path", _sources(),

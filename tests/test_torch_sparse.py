@@ -18,6 +18,7 @@ products); bdgcn_sparse rtol 1e-5 / atol 1e-5; the slice's losses rtol
 rtol 1e-4 / atol 1e-5.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -386,6 +387,8 @@ def _band(N, width, shape):
 
 @pytest.mark.parametrize("case", [
     *[("ell-fwd", p) for p in PAYLOADS], *[("ell-dx", p) for p in PAYLOADS],
+    *[(k, p, "tile") for k in ("ell-fwd", "ell-dx") for p in ("f32", "bf16")],
+    ("ell-fwd", "int8", "scale"), ("ell-dx", "int8", "scale"),
     ("bdgcn-fwd", "h1"), ("bdgcn-fwd", "g"), ("bdgcn-bwd", "dout"),
     ("bdgcn-bwd", "h1")], ids="-".join)
 def test_non_finite_pattern_matches_jax(case):
@@ -395,36 +398,69 @@ def test_non_finite_pattern_matches_jax(case):
     them at a column that most of a populated tile's rows leave zero (0 x
     Inf is NaN) and in column block 0, which only pad slots name for the
     last row block; dX: dout holds them in that row block and in one
-    without pad slots; the folded BDGCN pair forward and backward."""
-    kind, which = case
+    without pad slots; both: populated tiles hold them, or the int8
+    scales of sample 0's row blocks, the last (with a pad slot) among
+    them, X one per sample for dX there; the folded BDGCN pair forward
+    and backward."""
+    kind, which, *where = case
     rng = np.random.default_rng(17)
     inf, nan = np.float32(np.inf), np.float32(np.nan)
     if kind.startswith("ell"):
         N, F = 40, 6
         ours, ref = _pair(_band(N, 3, (2, 3, N, N)), which)
+        if where == ["tile"]:
+            # populated tiles (the containers take only finite operators):
+            # A[0, 1, 10, 11], A[1, 0, 20, 22], A[1, 2, 33, 31]
+            tiles = ours.blocks.clone()
+            ref_tiles = np.array(ref.blocks)
+            for (b0, b1, r, c), v in zip(
+                    ((0, 1, 10, 11), (1, 0, 20, 22), (1, 2, 33, 31)),
+                    (inf, -inf, nan)):
+                j = int(np.flatnonzero(
+                    ours.block_cols[b0, b1, r // 8].numpy() == c // 8)[0])
+                at = (b0, b1, r // 8, j, r % 8, c % 8)
+                tiles[at] = float(v)
+                ref_tiles[at] = v
+            ours = dataclasses.replace(ours, blocks=tiles)
+            ref = dataclasses.replace(ref, blocks=jnp.asarray(ref_tiles))
         cols = ours.block_cols.reshape(-1, *ours.block_cols.shape[-2:])
         last = N // 8 - 1
         assert bool((cols[:, last] == 0).any())  # a pad slot on block 0
         assert not bool((cols[:, last, :2] == 0).any())
+        per_sample = where == ["scale"]
+        if per_sample:  # sample 0's row blocks: (0, 0) 4, (0, 1) 2, (0, 2) 0
+            sc = ours.blocks.scale.numpy().copy()
+            sc.reshape(-1)[[last, N // 8 + 2, 2 * (N // 8)]] = inf, -inf, nan
+            ours = dataclasses.replace(ours, blocks=QuantizedTensor(
+                ours.blocks.q, torch.from_numpy(sc)))
+            ref = dataclasses.replace(ref, blocks=JaxQuantized(
+                ref.blocks.q, jnp.asarray(sc)))
         pallas = functools.partial(jax_kernels.ell_spmm, use_pallas=True)
-        X = rng.normal(size=(N, F)).astype(np.float32)
+        fn = ((lambda x: jax.vmap(pallas)(ref, x)) if per_sample
+              else (lambda x: pallas(ref, x)))
+        X = rng.normal(size=(2, N, F) if per_sample else (N, F)).astype(
+            np.float32)
         if kind == "ell-fwd":
-            X[8, 1], X[2, 3], X[20, 4] = inf, -inf, nan
-            ref_out = np.asarray(pallas(ref, jnp.asarray(X)))
+            if not where:
+                X[8, 1], X[2, 3], X[20, 4] = inf, -inf, nan
+            ref_out = np.asarray(fn(jnp.asarray(X)))
             out = ell_spmm(ours, torch.from_numpy(X)).numpy()
-            assert not np.isfinite(out[:, :, 8 * last:, 3]).any()
+            if not where:
+                assert not np.isfinite(out[:, :, 8 * last:, 3]).any()
         else:
             dout = rng.normal(size=(2, 3, N, F)).astype(np.float32)
-            dout[0, 1, 8 * last + 2, 1] = inf
-            dout[1, 2, 12, 3] = -inf
-            dout[0, 0, 27, 4] = nan
-            _, vjp = jax.vjp(lambda x: pallas(ref, x), jnp.asarray(X))
+            if not where:
+                dout[0, 1, 8 * last + 2, 1] = inf
+                dout[1, 2, 12, 3] = -inf
+                dout[0, 0, 27, 4] = nan
+            _, vjp = jax.vjp(fn, jnp.asarray(X))
             (ref_out,) = vjp(jnp.asarray(dout))
             ref_out = np.asarray(ref_out)
             Xt = torch.from_numpy(X).requires_grad_()
             ell_spmm(ours, Xt).backward(torch.from_numpy(dout))
             out = Xt.grad.numpy()
-            assert not np.isfinite(out[:8, 1]).any()  # the pad slot's block
+            if not where:
+                assert not np.isfinite(out[:8, 1]).any()  # the pad slot's
     else:
         K, B, N, C, H = 3, 2, 9, 4, 5
         h1 = rng.normal(size=(K, B, N, N, C)).astype(np.float32)
