@@ -255,8 +255,43 @@ def ptxas_kernel(source, name):
     return regs, spills
 
 
+def check_fused(dev, T, R, H, F, label):
+    """The inference entries' fused form (x, w_ih and b instead of x_proj)
+    at (T, R, H, F) against its plain version, on inputs of its own seed,
+    and at F = 1 bit for bit against the x_proj form fed the torch
+    projection. Returns the worst error by entry and the inputs."""
+    import torch
+
+    from mpgcn_tpu_torch.nn import cuda_lstm
+
+    rng = np.random.default_rng(T * R + H + F)
+    s = 1 / np.sqrt(H)
+    x, w_ih, b, w = (torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+                     for a in (rng.normal(size=(R, T, F)),
+                               rng.uniform(-s, s, (4 * H, F)),
+                               rng.uniform(-s, s, 4 * H),
+                               rng.uniform(-s, s, (H, 4 * H))))
+    err = {}
+    for collect, name in ((False, "lstm_infer_last"),
+                          (True, "lstm_infer_collect")):
+        tag = (f"K-LSTM {label}fused {name.split('_')[-1]} T={T} R={R} "
+               f"H={H} F={F}")
+        out = cuda_lstm.lstm_layer_infer_fused(x, w_ih, b, w, collect)
+        torch.cuda.synchronize()
+        err[name] = compare(tag, out, cuda_lstm.lstm_layer_infer_fused_plain(
+            x, w_ih, b, w, collect), LSTM_TOL)
+        if F == 1:
+            x_proj = torch.matmul(x.transpose(0, 1), w_ih.t()) + b
+            require(torch.equal(out, cuda_lstm.lstm_layer_infer(
+                x_proj, w, collect)), f"{tag}: differs from the x_proj form")
+            print(f"[check] {tag}: bit-equal to the x_proj form fed the "
+                  f"torch projection", flush=True)
+    return err, (x, w_ih, b, w)
+
+
 def phase_kernels(dev, rng):
-    """Each kernel against its plain version at the serve shapes; returns
+    """Each kernel against its plain version at the serve shapes (the
+    inference LSTM entries on x_proj and in their fused form); returns
     the per-kernel worst error and timing inputs."""
     import torch
 
@@ -276,6 +311,12 @@ def phase_kernels(dev, rng):
         ref = cuda_lstm.lstm_layer_infer_plain(xp, w, collect)
         err[name] = compare(f"K-LSTM {name.split('_')[-1]} R={R}", out, ref,
                             LSTM_TOL)
+    for f in (1, 3):
+        fused_err, fused_in = check_fused(dev, T, R, H, f, "")
+        for name, e in fused_err.items():
+            err[name] = max(err[name], e)
+        if f == 1:
+            fused_inputs = fused_in
 
     def bdgcn_inputs(b, n, dynamic):
         h1 = rng.normal(size=(K, b, n, n, H)).astype(np.float32)
@@ -298,7 +339,8 @@ def phase_kernels(dev, rng):
         err["bdgcn_pair_fwd"] = max(err["bdgcn_pair_fwd"], e)
         if n == N:
             inputs[kind] = args
-    return err, {"lstm": (xp, w), "bdgcn": inputs["static"],
+    return err, {"lstm": (xp, w), "lstm_fused": fused_inputs,
+                 "bdgcn": inputs["static"],
                  "bdgcn_dynamic": inputs["dynamic"]}
 
 
@@ -675,6 +717,37 @@ def lstm_bwd_time(dev, xp, w, hs, cs, dhs, iters, plain_iters, lib_bwd):
     return entry, note
 
 
+def fused_time(label, inputs, lib_ms, iters=50, plain_iters=10):
+    """The fused inference layer from x (h_T only) at these inputs: its
+    time beside its bound (its recurrent and projection FMAs, or x, the
+    weights and h_T once), the plain version's, the x_proj form's fed the
+    torch projection (what the model ran before the fusion: product, bias
+    add and kernel), and nn.LSTM's (cuDNN, projection included)."""
+    import torch
+
+    from mpgcn_tpu_torch.nn import cuda_lstm
+
+    x, w_ih, b, w = inputs
+    R, T, F = x.shape
+    H = w.shape[0]
+    b_ms, b_by = bound(4 * (x.numel() + w_ih.numel() + b.numel()
+                            + w.numel() + R * H),
+                       2 * T * R * 4 * H * (H + F))
+    entry = dict(
+        ms=time_ms(lambda: cuda_lstm.lstm_layer_infer_fused(
+            x, w_ih, b, w, False), iters=iters),
+        unfused_ms=time_ms(lambda: cuda_lstm.lstm_layer_infer(
+            torch.matmul(x.transpose(0, 1), w_ih.t()) + b, w, False),
+            iters=iters),
+        plain_ms=time_ms(lambda: cuda_lstm.lstm_layer_infer_fused_plain(
+            x, w_ih, b, w, False), iters=plain_iters, warmup=1),
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"[time] {label} lstm_infer_last fused from x (T={T}, R={R}, "
+          f"H={H}, F={F}; unfused_ms: the torch projection, its bias add "
+          f"and the kernel on x_proj; library torch.nn.LSTM, projection "
+          f"included): {json.dumps(entry)}", flush=True)
+
+
 def phase_times(dev, eng, kin):
     """Kernel, plain and library times at the serve shapes (CUDA events),
     the rollout per bucket (host clock around a synchronised call) and
@@ -722,6 +795,7 @@ def phase_times(dev, eng, kin):
               f"torch.einsum): {json.dumps(entry)}")
     for name in ("lstm_infer_last", "lstm_infer_collect"):
         print(f"[time] K-LSTM {name}: {json.dumps(times[name])}")
+    fused_time("N=47 serve", kin["lstm_fused"], lib_ms)
 
     md = eng.pipeline.modes["test"]
     per_bucket = {}
@@ -739,6 +813,12 @@ def phase_times(dev, eng, kin):
         per_bucket[b] = float(np.median(samples))
     print(f"[time] rollout ms per bucket (horizon {eng.cfg.pred_len}, "
           f"median of 10, host clock): {json.dumps(per_bucket)}")
+    b = eng.scfg.buckets[-1]
+    x = torch.from_numpy(np.array(md.x[:b])).to(dev)
+    k = torch.from_numpy(md.keys[:b].astype(np.int64)).to(dev)
+    print(f"[time] bucket-{b} rollout device activities per call: "
+          f"{device_activities(lambda: rollout(eng.model, eng.banks, x, k, eng.cfg.pred_len), n=3)[1]}",
+          flush=True)
 
     for b in (eng.scfg.buckets[0], eng.scfg.buckets[-1]):
         x = torch.from_numpy(np.array(md.x[:b])).to(dev)
@@ -1222,6 +1302,8 @@ def phase_wide_kernels(dev, rng):
         require(after == {**dict.fromkeys(names[:4], 1),
                           "bdgcn_pair_fwd": 0, "bdgcn_pair_bwd": 0},
                 f"K-LSTM wide {tag}: launches {after}, one per call")
+        for name, e in check_fused(dev, T, R, H, 1, "wide ")[0].items():
+            err[name] = max(err[name], e)
         if H == 128:
             _dw_bits(f"K-LSTM-train wide bwd {tag}", dw, part,
                      cuda_lstm.lstm_layer_bwd(xp, w, hs, cs, dhs, dcs)[1])
@@ -2041,6 +2123,9 @@ def phase_large_n_times(dev, train, eng, data):
     print(f"[time] large-N rollout (bucket 2, horizon 7, host clock, median "
           f"of 5 after 1 warm-up): {statistics.median(samples):.3f} ms",
           flush=True)
+    print(f"[time] large-N rollout device activities per call: "
+          f"{device_activities(lambda: rollout(eng.model, eng.banks, x, k, 7), n=2)[1]}",
+          flush=True)
     busy_share("large-N bucket-2 rollout",
                lambda: rollout(eng.model, eng.banks, x, k, 7), 2)
 
@@ -2124,6 +2209,23 @@ def phase_large_n_lstm_times(dev):
     hs, cs = cuda_lstm.lstm_layer_train(xp, w)
     times["lstm_train_bwd"], note = lstm_bwd_time(dev, xp, w, hs, cs, dhs,
                                                   10, 2, lib_bwd)
+    gen = torch.Generator(device=dev).manual_seed(501)
+    s = 1 / H ** 0.5
+    fused_time("N=500", (
+        torch.randn((R, T, 1), generator=gen, device=dev),
+        (torch.rand((G, 1), generator=gen, device=dev) * 2 - 1) * s,
+        (torch.rand((G,), generator=gen, device=dev) * 2 - 1) * s,
+        w), lib_infer, iters=10, plain_iters=2)
+    fwd = {f"{mode} {form}": ptxas_kernel(src, f"lstm_fwd_kernelILi{m}ELi{f}E")
+           for mode, src, m in (("last", "lstm_infer", 0),
+                                ("collect", "lstm_infer", 1),
+                                ("train", "lstm_train", 2))
+           for form, f in (("x_proj", 0), ("fused F=1", 1))
+           if not (m == 2 and f)}
+    print("[time] N=500 resident forward (csrc/lstm_fwd.cuh) registers and "
+          "spill stores/loads in bytes: " + "; ".join(
+              f"{k} {r} regs, {sp}" for k, (r, sp) in fwd.items()),
+          flush=True)
     index = cuda_lstm.device_index(dev)
     regs, spills = ptxas_kernel("lstm_train", "lstm_train_bwd_kernel")
     note += (f"; resident kernel: {regs} registers, spill stores/loads "

@@ -9,8 +9,13 @@ script), builds its kernels, runs each entry once on the card and prints
 one JSON object, ``{"hashes": {case: sha256 of the output bytes}}``, on its
 last line. The cases cover the eleven entries that chip_smoke.py lists, at
 the reference and wide widths and at the N=500 blocked-ELL shapes, the
-resident BPTT at the N=500 step's shape, and one case with Inf and NaN
-inputs per split-TF32 entry. Needs a CUDA card; imports nothing of JAX.
+resident BPTT at the N=500 step's shape, one case with Inf and NaN
+inputs per split-TF32 entry, the forwards at the widths around the
+resident forward's shared-memory limit, and the model's LSTM stack
+through the public ``cuda_lstm.lstm_last_step_fused`` (input width 1, 1
+and 2 layers), which both a checkout that projects x in torch and one
+that fuses the projection into the kernel take. Needs a CUDA card;
+imports nothing of JAX.
 """
 
 import argparse
@@ -18,6 +23,7 @@ import hashlib
 import json
 import os
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -180,6 +186,41 @@ def main() -> int:
                       (R + 300) * H + 7])
     put(f"lstm_train_bwd non-finite dhs T={T} R={R} H={H}",
         *cuda_lstm.lstm_layer_bwd(xp, w, hs, cs, dhs, None))
+
+    # the forwards at the widths around the resident forward's limit
+    # (H = 116 resident; 117 and 118, resident before the rows per thread
+    # went from 4 to 8, now the wide kernel)
+    rng = np.random.default_rng(118)
+    for H in (116, 117, 118):
+        T, R = 7, 1001
+        xp = t(rng.normal(size=(T, R, 4 * H)))
+        w = t(rng.normal(size=(H, 4 * H)) / np.sqrt(H))
+        tag = f"T={T} R={R} H={H}"
+        for collect, name in ((False, "lstm_infer_last"),
+                              (True, "lstm_infer_collect")):
+            put(f"{name} {tag}", cuda_lstm.lstm_layer_infer(xp, w, collect))
+        put(f"lstm_train_fwd {tag}", *cuda_lstm.lstm_layer_train(xp, w))
+
+    # the model's LSTM stack at input width F = 1, weights as its init
+    # draws them (uniform in +-1/sqrt(H))
+    rng = np.random.default_rng(1300)
+
+    def stack(n_layers, F, H):
+        s = 1 / np.sqrt(H)
+        return [SimpleNamespace(**{
+            k: t(rng.uniform(-s, s, shape)) for k, shape in (
+                ("w_ih", (4 * H, F if i == 0 else H)), ("w_hh", (4 * H, H)),
+                ("b_ih", (4 * H,)), ("b_hh", (4 * H,)))})
+            for i in range(n_layers)]
+
+    for R, H in ((17672, 32), (500000, 32), (17672, 128)):
+        x = t(rng.normal(size=(R, 7, 1)))
+        for n_layers in (1, 2):
+            with torch.no_grad():
+                put(f"lstm_last_step_fused layers={n_layers} T=7 R={R} "
+                    f"H={H} F=1",
+                    cuda_lstm.lstm_last_step_fused(stack(n_layers, 1, H), x))
+        del x
 
     print(json.dumps({"root": root, "device": torch.cuda.get_device_name(0),
                       "hashes": hashes}))

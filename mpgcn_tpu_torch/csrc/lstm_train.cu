@@ -27,11 +27,12 @@
 // (22.7 us). Both are memory-bound, so each reads its inputs once and keeps
 // the carries on chip.
 //
-// Design of the forward: the inference kernel of lstm_infer.cu plus the
-// cs store. One block runs the whole time loop for a tile of rows; thread
-// (j, y) owns hidden unit j of kRowsPerThread rows, so its four gate
-// columns and c stay in registers; h_{t-1} is double-buffered in shared
-// memory; w_hh_T is staged once.
+// Design of the forward: the resident forward of lstm_fwd.cuh in its
+// training mode (hs and cs stored; x_proj only), shared with the inference
+// entries of lstm_infer.cu. One block runs the whole time loop for a tile
+// of rows; thread (j, y) owns hidden unit j of kFwdRows rows, so its four
+// gate columns and c stay in registers; h_{t-1} is double-buffered in
+// shared memory; w_hh is staged once, its products blocked in registers.
 //
 // Design of the backward: the TPU kernel walks time chunks in reverse as a
 // sequential grid axis and adds dW_hh^T into one resident block across the
@@ -69,7 +70,7 @@
 // k at a time.
 //
 // Widths. The two kernels above keep w_hh^T (and the BPTT its dW_hh^T
-// sum) in shared memory: the forward fits to H = 118, the BPTT to H = 81
+// sum) in shared memory: the forward fits to H = 116, the BPTT to H = 81
 // on the H100, the reference H = 32 among them, and there they run as they
 // always did. Past that (chosen per call from H and the device's shared-
 // memory limit):
@@ -109,91 +110,11 @@
 
 #include "bdgcn_gemm.cuh"
 #include "dw_sum.cuh"
+#include "lstm_fwd.cuh"
 #include "lstm_wide.cuh"
 #include "smem.cuh"
 
 namespace {
-
-__global__ void lstm_train_fwd_kernel(const float* __restrict__ xp,
-                                      const float* __restrict__ whhT,
-                                      float* __restrict__ hs,
-                                      float* __restrict__ cs, int T, int R,
-                                      int H) {
-  extern __shared__ float smem[];
-  const int G = 4 * H;
-  const int tile_rows = blockDim.y * kRowsPerThread;
-  float* w = smem;          // (H, 4H)
-  float* hbuf = w + H * G;  // 2 x (tile_rows, H)
-
-  const int j = threadIdx.x;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
-  for (int i = tid; i < H * G; i += nthreads) w[i] = whhT[i];
-  for (int i = tid; i < 2 * tile_rows * H; i += nthreads) hbuf[i] = 0.0f;
-
-  const int lr0 = threadIdx.y * kRowsPerThread;
-  const int row0 = blockIdx.x * tile_rows + lr0;
-  float c[kRowsPerThread];
-  float x_next[kRowsPerThread][4];
-#pragma unroll
-  for (int q = 0; q < kRowsPerThread; ++q) {
-    c[q] = 0.0f;
-    const int r = row0 + q;
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-      x_next[q][g] = r < R ? xp[(size_t)r * G + g * H + j] : 0.0f;
-  }
-  __syncthreads();
-
-  for (int t = 0; t < T; ++t) {
-    float acc[kRowsPerThread][4];
-#pragma unroll
-    for (int q = 0; q < kRowsPerThread; ++q)
-#pragma unroll
-      for (int g = 0; g < 4; ++g) acc[q][g] = x_next[q][g];
-    if (t + 1 < T) {
-      const float* xt = xp + (size_t)(t + 1) * R * G;
-#pragma unroll
-      for (int q = 0; q < kRowsPerThread; ++q) {
-        const int r = row0 + q;
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-          x_next[q][g] = r < R ? xt[(size_t)r * G + g * H + j] : 0.0f;
-      }
-    }
-    const float* hcur = hbuf + (t & 1) * tile_rows * H;
-    float* hnxt = hbuf + ((t + 1) & 1) * tile_rows * H;
-    for (int k = 0; k < H; ++k) {
-      const float* wk = w + k * G + j;
-      const float w0 = wk[0], w1 = wk[H], w2 = wk[2 * H], w3 = wk[3 * H];
-#pragma unroll
-      for (int q = 0; q < kRowsPerThread; ++q) {
-        const float hk = hcur[(lr0 + q) * H + k];
-        acc[q][0] = fmaf(hk, w0, acc[q][0]);
-        acc[q][1] = fmaf(hk, w1, acc[q][1]);
-        acc[q][2] = fmaf(hk, w2, acc[q][2]);
-        acc[q][3] = fmaf(hk, w3, acc[q][3]);
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kRowsPerThread; ++q) {
-      const float ig = sigmoidf(acc[q][0]);
-      const float fg = sigmoidf(acc[q][1]);
-      const float gg = tanhf(acc[q][2]);
-      const float og = sigmoidf(acc[q][3]);
-      c[q] = fg * c[q] + ig * gg;
-      const float h = og * tanhf(c[q]);
-      hnxt[(lr0 + q) * H + j] = h;
-      const int r = row0 + q;
-      if (r < R) {
-        const size_t o = ((size_t)t * R + r) * H + j;
-        hs[o] = h;
-        cs[o] = c[q];
-      }
-    }
-    __syncthreads();
-  }
-}
 
 // Shared-memory row strides of the resident BPTT, in floats. w (H, 4H):
 // a multiple of 4 (16-byte loads of a row) whose quarter is odd, so the
@@ -516,25 +437,8 @@ __global__ void lstm_cell_bwd_kernel(
 extern "C" int lstm_train_fwd_f32(const void* xp, const void* whhT, void* hs,
                                   void* cs, int T, int R, int H,
                                   void* stream) {
-  if (T < 1 || R < 1 || H < 1) return cudaErrorInvalidValue;
-  const int rows_y = rows_y_for(H);
-  const int tile_rows = rows_y * kRowsPerThread;
-  const size_t smem = (size_t)(H * 4 * H + 2 * tile_rows * H) * sizeof(float);
-  bool resident = false;
-  cudaError_t err = smem_fits(smem, &resident);
-  if (err != cudaSuccess) return err;
-  if (!resident)
-    return launch_fwd_wide<kFwdTrain>(xp, whhT, hs, cs, T, R, H,
-                                      static_cast<cudaStream_t>(stream));
-  err = allow_smem((const void*)lstm_train_fwd_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 block(H, rows_y);
-  const dim3 grid((R + tile_rows - 1) / tile_rows);
-  lstm_train_fwd_kernel<<<grid, block, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xp), static_cast<const float*>(whhT),
-      static_cast<float*>(hs), static_cast<float*>(cs), T, R, H);
-  return cudaGetLastError();
+  return launch_fwd<kFwdTrain>(xp, nullptr, nullptr, nullptr, 0, whhT, hs,
+                               cs, T, R, H, stream);
 }
 
 namespace {

@@ -3,7 +3,7 @@
 // lstm_train.cu (hs and cs).
 //
 // The resident kernels of those files stage w_hh^T (H x 4H, 16 H^2 bytes)
-// in shared memory once per block; past H ~ 118 it no longer fits the
+// in shared memory once per block; past H ~ 116 it no longer fits the
 // 227 KB a block may take. Here w_hh^T stays in device memory and is read
 // through the read-only cache at every step: thread (x, y) takes hidden
 // units j = x, x + bx, ... (bx = min(H, 256)), so any H works, and for
@@ -14,7 +14,9 @@
 // its (row, j) entries of c, so c needs no barrier); one barrier per step.
 // Shared memory is 3 x tile_rows x H floats (48 KB at H = 1,024), so H up
 // to 4,842 fits: past the H that the JAX kernels' 96 MB VMEM limit takes.
-// Gate math is f32 with expf and tanhf, as in the resident kernels.
+// Gate math is f32 with expf and tanhf, as in the resident kernels. The
+// gate inputs come from x_proj or, for the inference modes, from x, w_ih
+// and b in the fused form of lstm_fwd.cuh (kFused; proj_in below).
 
 #pragma once
 
@@ -33,6 +35,16 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+// A gate input of the fused form: x (F features) . w (F weights) + b, the
+// products summed in f order and b added last. At F = 1 it rounds as a
+// K = 1 product and a bias add do: __fadd_rn(__fmul_rn(x, w), b).
+__device__ __forceinline__ float proj_in(const float* x, const float* w,
+                                         float b, int F) {
+  float p = __fmul_rn(x[0], w[0]);
+  for (int f = 1; f < F; ++f) p = __fmaf_rn(x[f], w[f], p);
+  return __fadd_rn(p, b);
+}
+
 // Thread rows of a block at hidden width H, max(1, 256 / H), each of
 // kRowsPerThread sequence rows: the resident kernels' blocks are (H, by),
 // the wide ones' (min(H, 256), by), so a tile holds the same rows in both.
@@ -48,12 +60,15 @@ inline size_t wide_fwd_smem_bytes(int H) {
 
 // kFwdLast writes h_T to out0 (R, H); kFwdCollect every h_t to out0
 // (T, R, H); kFwdTrain every h_t to out0 and every c_t to out1 (T, R, H).
-template <int kMode>
+// kFused reads x (R, T, F), w_ih (4H, F) and b (4H) instead of x_proj.
+template <int kMode, bool kFused>
 __global__ void lstm_fwd_wide_kernel(const float* __restrict__ xp,
                                      const float* __restrict__ whhT,
                                      float* __restrict__ out0,
                                      float* __restrict__ out1, int T, int R,
-                                     int H) {
+                                     int H, const float* __restrict__ x,
+                                     const float* __restrict__ wih,
+                                     const float* __restrict__ b, int F) {
   extern __shared__ float smem[];
   const int G = 4 * H;
   const int bx = blockDim.x;
@@ -78,8 +93,16 @@ __global__ void lstm_fwd_wide_kernel(const float* __restrict__ xp,
       for (int q = 0; q < kRowsPerThread; ++q) {
         const int r = row0 + q;
 #pragma unroll
-        for (int g = 0; g < 4; ++g)
-          acc[q][g] = r < R ? xt[(size_t)r * G + g * H + j] : 0.0f;
+        for (int g = 0; g < 4; ++g) {
+          if (r >= R)
+            acc[q][g] = 0.0f;
+          else if constexpr (kFused)
+            acc[q][g] = proj_in(x + ((size_t)r * T + t) * F,
+                                wih + (size_t)(g * H + j) * F,
+                                b[g * H + j], F);
+          else
+            acc[q][g] = xt[(size_t)r * G + g * H + j];
+        }
       }
       for (int k = 0; k < H; ++k) {
         const float* wk = whhT + (size_t)k * G + j;
@@ -121,27 +144,43 @@ __global__ void lstm_fwd_wide_kernel(const float* __restrict__ xp,
   }
 }
 
-// Launch the wide forward; refused (cudaErrorInvalidValue) only when even
+// Launch the wide forward, on x_proj, or fused from x, w_ih, b where F > 0
+// (the inference modes); refused (cudaErrorInvalidValue) only when even
 // its 3 x tile_rows x H floats exceed a block's shared memory.
-template <int kMode>
-cudaError_t launch_fwd_wide(const void* xp, const void* whhT, void* out0,
-                            void* out1, int T, int R, int H,
-                            cudaStream_t stream) {
+template <int kMode, bool kFused>
+cudaError_t launch_fwd_wide_as(const float* xp, const float* whhT,
+                               float* out0, float* out1, int T, int R, int H,
+                               cudaStream_t stream, const float* x,
+                               const float* wih, const float* b, int F) {
   const size_t smem = wide_fwd_smem_bytes(H);
   bool fits = false;
   cudaError_t err = smem_fits(smem, &fits);
   if (err != cudaSuccess) return err;
   if (!fits) return cudaErrorInvalidValue;
-  auto kernel = lstm_fwd_wide_kernel<kMode>;
+  auto kernel = lstm_fwd_wide_kernel<kMode, kFused>;
   err = allow_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
   const int bx = wide_bx(H), by = rows_y_for(H);
   const int tile_rows = by * kRowsPerThread;
   const dim3 grid((R + tile_rows - 1) / tile_rows);
-  kernel<<<grid, dim3(bx, by), smem, stream>>>(
-      static_cast<const float*>(xp), static_cast<const float*>(whhT),
-      static_cast<float*>(out0), static_cast<float*>(out1), T, R, H);
+  kernel<<<grid, dim3(bx, by), smem, stream>>>(xp, whhT, out0, out1, T, R,
+                                               H, x, wih, b, F);
   return cudaGetLastError();
+}
+
+template <int kMode>
+cudaError_t launch_fwd_wide(const float* xp, const float* whhT, float* out0,
+                            float* out1, int T, int R, int H,
+                            cudaStream_t stream, const float* x = nullptr,
+                            const float* wih = nullptr,
+                            const float* b = nullptr, int F = 0) {
+  if constexpr (kMode != kFwdTrain) {
+    if (F > 0)
+      return launch_fwd_wide_as<kMode, true>(xp, whhT, out0, out1, T, R, H,
+                                             stream, x, wih, b, F);
+  }
+  return launch_fwd_wide_as<kMode, false>(xp, whhT, out0, out1, T, R, H,
+                                          stream, x, wih, b, F);
 }
 
 }  // namespace

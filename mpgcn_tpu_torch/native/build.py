@@ -152,14 +152,14 @@ class CudaKernel:
 
     def launch(self, tensors, ints) -> None:
         """``tensors`` may hold None where the entry takes a null pointer
-        (the first must be a tensor: it names the device)."""
+        (the first tensor that is not None names the device)."""
         import torch
 
         if len(tensors) != self.n_ptrs or len(ints) != self.n_ints:
             raise ValueError(f"{self.symbol}: expected {self.n_ptrs} "
                              f"tensors and {self.n_ints} ints")
         fn = self._entry()
-        dev = tensors[0].device
+        dev = next(t for t in tensors if t is not None).device
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
             err = fn(*[None if t is None else t.data_ptr()

@@ -8,12 +8,18 @@ replaces ``_make_last_kernel``, ``lstm_infer_collect_f32`` replaces
 ``_lstm_infer_kernel``); on a CPU tensor it runs
 ``lstm_layer_infer_plain``, the same function in plain PyTorch. There is
 no fallback: a CUDA tensor the kernel does not take raises. Every hidden
-width H >= 1 is taken: where w_hh^T does not fit a block's shared memory
+width H >= 1 is taken: where w_hh does not fit a block's shared memory
 the forward entries launch their wide kernel (``csrc/lstm_wide.cuh``)
-instead of the resident one, and the BPTT runs its products on the
-split-TF32 engine of ``csrc/bdgcn_gemm.cuh`` (the gate recompute and
-dW_hh^T each one product over every time step, only dh stepping through
-time; see ``csrc/lstm_train.cu``).
+instead of the resident one (``csrc/lstm_fwd.cuh``), and the BPTT runs
+its products on the split-TF32 engine of ``csrc/bdgcn_gemm.cuh`` (the
+gate recompute and dW_hh^T each one product over every time step, only dh
+stepping through time; see ``csrc/lstm_train.cu``).
+
+``lstm_layer_infer_fused`` is the same layer from its input x (R, T, F),
+F <= ``FUSED_MAX_F``: the same two entries form x_t @ W_ih^T + b in
+registers (at F = 1 rounded exactly as the torch product and add round
+it), so no x_proj goes through device memory; its plain version is
+``lstm_layer_infer_fused_plain``.
 
 The training path goes through ``LSTMLayerFn``: its forward
 ``lstm_layer_train`` stores hs and cs (``lstm_train_fwd_f32`` of
@@ -26,8 +32,12 @@ JAX package sends small row counts to an XLA scan instead of its backward
 kernel; this port has no such switch: a CUDA tensor always launches the
 backward kernel.
 
-The input projection ``x @ W_ih^T + b`` stays a torch matmul outside the
-kernels, as the JAX package leaves it to XLA (pallas_lstm.py:564).
+The JAX package leaves the input projection ``x @ W_ih^T + b`` to XLA
+(pallas_lstm.py:564). Here ``lstm_last_step_fused`` sends a layer of at
+most ``FUSED_MAX_F`` input features on the inference kernel arm to the
+fused form (the model's first layer, input_dim 1); every other layer, and
+the training path (``LSTMLayerFn`` saves x_proj for the BPTT), take a
+torch matmul outside the kernels.
 """
 
 from __future__ import annotations
@@ -39,14 +49,17 @@ import torch
 from mpgcn_tpu_torch.native.build import CudaKernel, query_int
 
 LSTM_INFER_LAST = CudaKernel("lstm_infer", "lstm_infer_last_f32",
-                             n_ptrs=3, n_ints=3)
+                             n_ptrs=6, n_ints=4)
 LSTM_INFER_COLLECT = CudaKernel("lstm_infer", "lstm_infer_collect_f32",
-                                n_ptrs=3, n_ints=3)
+                                n_ptrs=6, n_ints=4)
 LSTM_TRAIN_FWD = CudaKernel("lstm_train", "lstm_train_fwd_f32",
                             n_ptrs=4, n_ints=3)
 LSTM_TRAIN_BWD = CudaKernel("lstm_train", "lstm_train_bwd_f32",
                             n_ptrs=10, n_ints=4)
 
+#: the most input features the inference entries' fused form takes
+#: (csrc/lstm_fwd.cuh kFusedMaxF)
+FUSED_MAX_F = 4
 #: resident BPTT blocks per SM: the blocks stride over the row tiles, so
 #: the dW_hh^T partial buffer stays at about this many x SMs x H x 4H floats
 BWD_BLOCKS_PER_SM = 2
@@ -76,6 +89,17 @@ def lstm_layer_infer_plain(x_proj: torch.Tensor, w_hh_T: torch.Tensor,
         if collect:
             hs.append(h)
     return torch.stack(hs) if collect else h
+
+
+def lstm_layer_infer_fused_plain(x: torch.Tensor, w_ih: torch.Tensor,
+                                 b: torch.Tensor, w_hh_T: torch.Tensor,
+                                 collect: bool) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's fused form: x (R, T, F), w_ih
+    (4H, F), b = b_ih + b_hh (4H,), w_hh_T (H, 4H) -> h_T (R, H), or every
+    h_t (T, R, H) when ``collect``. The projection is the torch product and
+    add that ``lstm_last_step_fused`` takes on the other arms."""
+    x_proj = torch.matmul(x.transpose(0, 1), w_ih.t()) + b
+    return lstm_layer_infer_plain(x_proj, w_hh_T, collect)
 
 
 def lstm_layer_train_plain(x_proj: torch.Tensor, w_hh_T: torch.Tensor):
@@ -152,22 +176,65 @@ def _check_device(x_proj: torch.Tensor, name: str) -> bool:
     return x_proj.device.type == "cuda"
 
 
-def _check_cuda_args(x_proj: torch.Tensor, w_hh_T: torch.Tensor,
-                     name: str = "K-LSTM") -> None:
-    if x_proj.dtype != torch.float32 or w_hh_T.dtype != torch.float32:
-        raise TypeError(f"{name} takes float32 only, got x_proj "
-                        f"{x_proj.dtype} and w_hh_T {w_hh_T.dtype}")
-    if x_proj.ndim != 3 or x_proj.shape[-1] % 4:
-        raise ValueError(f"x_proj must be (T, R, 4H), got "
-                         f"{tuple(x_proj.shape)}")
-    H = x_proj.shape[-1] // 4
+def _check_f32(name: str, **tensors) -> None:
+    bad = {k: t.dtype for k, t in tensors.items()
+           if t.dtype != torch.float32}
+    if bad:
+        raise TypeError(f"{name} takes float32 only, got "
+                        + ", ".join(f"{k} {d}" for k, d in bad.items()))
+
+
+def _check_w_hh(w_hh_T: torch.Tensor, H: int, device, what: str) -> None:
     if tuple(w_hh_T.shape) != (H, 4 * H):
         raise ValueError(f"w_hh_T must be ({H}, {4 * H}), got "
                          f"{tuple(w_hh_T.shape)}")
-    if w_hh_T.device != x_proj.device:
-        raise ValueError("x_proj and w_hh_T lie on different devices")
+    if w_hh_T.device != device:
+        raise ValueError(f"{what} and w_hh_T lie on different devices")
+
+
+def _check_cuda_args(x_proj: torch.Tensor, w_hh_T: torch.Tensor,
+                     name: str = "K-LSTM") -> None:
+    _check_f32(name, x_proj=x_proj, w_hh_T=w_hh_T)
+    if x_proj.ndim != 3 or x_proj.shape[-1] % 4:
+        raise ValueError(f"x_proj must be (T, R, 4H), got "
+                         f"{tuple(x_proj.shape)}")
+    _check_w_hh(w_hh_T, x_proj.shape[-1] // 4, x_proj.device, "x_proj")
     if x_proj.shape[0] < 1 or x_proj.shape[1] < 1:
         raise ValueError(f"empty x_proj {tuple(x_proj.shape)}")
+
+
+def _check_fused_args(x, w_ih, b, w_hh_T) -> None:
+    _check_f32("K-LSTM", x=x, w_ih=w_ih, b=b, w_hh_T=w_hh_T)
+    if x.ndim != 3 or not 1 <= x.shape[-1] <= FUSED_MAX_F:
+        raise ValueError(f"x must be (R, T, F) with 1 <= F <= "
+                         f"{FUSED_MAX_F}, got {tuple(x.shape)}")
+    if x.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError(f"empty x {tuple(x.shape)}")
+    H = w_hh_T.shape[0]
+    _check_w_hh(w_hh_T, H, x.device, "x")
+    if tuple(w_ih.shape) != (4 * H, x.shape[-1]):
+        raise ValueError(f"w_ih must be ({4 * H}, {x.shape[-1]}), got "
+                         f"{tuple(w_ih.shape)}")
+    if tuple(b.shape) != (4 * H,):
+        raise ValueError(f"b must be ({4 * H},), got {tuple(b.shape)}")
+    if w_ih.device != x.device or b.device != x.device:
+        raise ValueError("x, w_ih and b lie on different devices")
+
+
+def _no_grad_only(*tensors) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("K-LSTM is inference-only (the training path is "
+                           "LSTMLayerFn); call it under torch.no_grad()")
+
+
+def _infer_launch(xp, x, w_ih, b, w_hh_T, collect, T, R, H, F):
+    """Launch an inference entry: on x_proj (x, w_ih, b None, F = 0) or
+    fused from x, w_ih, b (xp None)."""
+    shape = (T, R, H) if collect else (R, H)
+    out = torch.empty(shape, dtype=torch.float32, device=w_hh_T.device)
+    kernel = LSTM_INFER_COLLECT if collect else LSTM_INFER_LAST
+    kernel.launch((xp, w_hh_T, out, x, w_ih, b), (T, R, H, F))
+    return out
 
 
 def lstm_layer_infer(x_proj: torch.Tensor, w_hh_T: torch.Tensor,
@@ -177,19 +244,27 @@ def lstm_layer_infer(x_proj: torch.Tensor, w_hh_T: torch.Tensor,
     if not _check_device(x_proj, "K-LSTM"):
         return lstm_layer_infer_plain(x_proj, w_hh_T, collect)
     _check_cuda_args(x_proj, w_hh_T)
-    if torch.is_grad_enabled() and (x_proj.requires_grad
-                                    or w_hh_T.requires_grad):
-        raise RuntimeError("K-LSTM is inference-only (the training path is "
-                           "LSTMLayerFn); call it under torch.no_grad()")
+    _no_grad_only(x_proj, w_hh_T)
     T, R, four_h = x_proj.shape
-    H = four_h // 4
-    x_proj = x_proj.contiguous()
-    w_hh_T = w_hh_T.contiguous()
-    shape = (T, R, H) if collect else (R, H)
-    out = torch.empty(shape, dtype=torch.float32, device=x_proj.device)
-    kernel = LSTM_INFER_COLLECT if collect else LSTM_INFER_LAST
-    kernel.launch((x_proj, w_hh_T, out), (T, R, H))
-    return out
+    return _infer_launch(x_proj.contiguous(), None, None, None,
+                         w_hh_T.contiguous(), collect, T, R, four_h // 4, 0)
+
+
+def lstm_layer_infer_fused(x: torch.Tensor, w_ih: torch.Tensor,
+                           b: torch.Tensor, w_hh_T: torch.Tensor,
+                           collect: bool) -> torch.Tensor:
+    """One inference LSTM layer from its input: x (R, T, F), w_ih (4H, F),
+    b = b_ih + b_hh (4H,), w_hh_T (H, 4H) -> (R, H) or (T, R, H), for
+    1 <= F <= ``FUSED_MAX_F``. CPU tensors take the plain version; CUDA
+    tensors launch the kernel's fused form."""
+    if not _check_device(x, "K-LSTM"):
+        return lstm_layer_infer_fused_plain(x, w_ih, b, w_hh_T, collect)
+    _check_fused_args(x, w_ih, b, w_hh_T)
+    _no_grad_only(x, w_ih, b, w_hh_T)
+    R, T, F = x.shape
+    return _infer_launch(None, x.contiguous(), w_ih.contiguous(),
+                         b.contiguous(), w_hh_T.contiguous(), collect, T, R,
+                         w_hh_T.shape[0], F)
 
 
 def lstm_layer_train(x_proj: torch.Tensor, w_hh_T: torch.Tensor):
@@ -332,13 +407,21 @@ def lstm_last_step_fused(layers, x: torch.Tensor,
     ``layers`` is a sequence of objects with ``w_ih``, ``w_hh``, ``b_ih``,
     ``b_hh``. ``layer_fn`` runs one layer (``lstm_layer_infer``,
     ``lstm_layer_recorded`` or ``lstm_layer_infer_plain``): every layer but
-    the last streams h_t (collect); the last gives h_T only."""
+    the last streams h_t (collect); the last gives h_T only. On the
+    inference kernel arm (``lstm_layer_infer``) a layer of at most
+    ``FUSED_MAX_F`` input features runs from its input through
+    ``lstm_layer_infer_fused`` instead: the same kernel forms x_proj in
+    registers."""
     # (T, R, F) view, so every projection comes out time-major (T, R, 4H)
     seq_t = x.transpose(0, 1)
-    for layer in layers[:-1]:
-        x_proj = torch.matmul(seq_t, layer.w_ih.t()) + (layer.b_ih
-                                                        + layer.b_hh)
-        seq_t = layer_fn(x_proj, layer.w_hh.t(), collect=True)
-    last = layers[-1]
-    x_proj = torch.matmul(seq_t, last.w_ih.t()) + (last.b_ih + last.b_hh)
-    return layer_fn(x_proj, last.w_hh.t(), collect=False)
+    for i, layer in enumerate(layers):
+        collect = i < len(layers) - 1
+        b = layer.b_ih + layer.b_hh
+        if (layer_fn is lstm_layer_infer
+                and layer.w_ih.shape[1] <= FUSED_MAX_F):
+            seq_t = lstm_layer_infer_fused(seq_t.transpose(0, 1), layer.w_ih,
+                                           b, layer.w_hh.t(), collect)
+        else:
+            x_proj = torch.matmul(seq_t, layer.w_ih.t()) + b
+            seq_t = layer_fn(x_proj, layer.w_hh.t(), collect=collect)
+    return seq_t

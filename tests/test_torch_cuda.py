@@ -58,31 +58,78 @@ def cuda_device():
     return torch.device("cuda")
 
 
-#: hidden widths past the resident kernels' shared memory (w_hh^T stays in
-#: shared memory to H = 118 for the forward, H = 81 for the BPTT), and one
+#: hidden widths past the resident kernels' shared memory (w_hh stays in
+#: shared memory to H = 116 for the forward, H = 81 for the BPTT), and one
 #: past a block's 1,024 threads, at T = 2 (``_T_OF``)
 WIDE_LSTM = [(1001, 65), (333, 96), (1000, 128), (257, 256), (9, 1030)]
 _T_OF = {1030: 2}
+#: the forwards' fused form (x, w_ih and b instead of x_proj): (T, R, H, F)
+#: at H = 3 (a w_hh row shorter than one 16-byte load), 32, 81, the widest
+#: resident H (116), 118 and 128 (the wide kernel), F = 1 (the model's
+#: input width) and 3, ragged R; one step; the N=500 step's R = 500,000
+FUSED_LSTM = ([(7, 1001, H, F) for H in (3, 32, 81, 116, 118, 128)
+               for F in (1, 3)]
+              + [(1, 999, 32, 1), (7, 500000, 32, 1)])
+
+
+def _fused_inputs(dev, T, R, H, F, seed):
+    """x (R, T, F), w_ih (4H, F), b (4H,), w_hh_T (H, 4H) on ``dev``,
+    weights as the model's init draws them (uniform in +-1/sqrt(H))."""
+    rng = np.random.default_rng(seed)
+    s = 1 / np.sqrt(H)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    return (t(rng.normal(size=(R, T, F))), t(rng.uniform(-s, s, (4 * H, F))),
+            t(rng.uniform(-s, s, 4 * H)), t(rng.uniform(-s, s, (H, 4 * H))))
 
 
 @pytest.mark.parametrize("collect", [False, True])
-@pytest.mark.parametrize("R,H", [(17672, 32), (1000, 8), (333, 64), (5, 40)]
-                         + WIDE_LSTM)
-def test_lstm_kernel_matches_plain(cuda_device, collect, R, H):
-    rng = np.random.default_rng(R)
-    T = _T_OF.get(H, 7)
-    xp = torch.from_numpy(rng.normal(size=(T, R, 4 * H)).astype(
-        np.float32)).to(cuda_device)
-    w = torch.from_numpy((rng.normal(size=(H, 4 * H)) / np.sqrt(H)).astype(
-        np.float32)).to(cuda_device)
+@pytest.mark.parametrize("T,R,H,F", [
+    pytest.param(_T_OF.get(H, 7), R, H, 0, id=f"{R}-{H}")
+    for R, H in [(17672, 32), (1000, 8), (333, 64), (5, 40)] + WIDE_LSTM]
+    + [pytest.param(*c, id="fused-{}-{}-{}-{}".format(*c))
+       for c in FUSED_LSTM])
+def test_lstm_kernel_matches_plain(cuda_device, collect, T, R, H, F):
+    """Each inference entry against its plain version, on x_proj (F = 0)
+    or in the fused form from x (F >= 1; then also against the plain
+    version in float64), one launch a call."""
     kernel = (cuda_lstm.LSTM_INFER_COLLECT if collect
               else cuda_lstm.LSTM_INFER_LAST)
     before = kernel.launches
-    out = cuda_lstm.lstm_layer_infer(xp, w, collect)
-    torch.cuda.synchronize()
+    if F == 0:
+        rng = np.random.default_rng(R)
+        xp = torch.from_numpy(rng.normal(size=(T, R, 4 * H)).astype(
+            np.float32)).to(cuda_device)
+        w = torch.from_numpy((rng.normal(size=(H, 4 * H)) / np.sqrt(H))
+                             .astype(np.float32)).to(cuda_device)
+        out = cuda_lstm.lstm_layer_infer(xp, w, collect)
+        torch.cuda.synchronize()
+        ref = cuda_lstm.lstm_layer_infer_plain(xp, w, collect)
+    else:
+        args = _fused_inputs(cuda_device, T, R, H, F, seed=R + H + F)
+        out = cuda_lstm.lstm_layer_infer_fused(*args, collect)
+        torch.cuda.synchronize()
+        ref = cuda_lstm.lstm_layer_infer_fused_plain(*args, collect)
+        ref64 = cuda_lstm.lstm_layer_infer_fused_plain(
+            *(a.double() for a in args), collect)
+        torch.testing.assert_close(out.double(), ref64, **KERNEL_TOL)
     assert kernel.launches == before + 1
-    ref = cuda_lstm.lstm_layer_infer_plain(xp, w, collect)
     torch.testing.assert_close(out, ref, **KERNEL_TOL)
+
+
+@pytest.mark.parametrize("collect", [False, True])
+@pytest.mark.parametrize("H", [32, 128])
+def test_lstm_fused_form_equals_projection_then_kernel(cuda_device, collect,
+                                                       H):
+    """At F = 1 the fused form rounds the gate inputs as the torch K = 1
+    product and bias add do, so its outputs equal the x_proj form's fed
+    by that projection, bit for bit: the resident kernel (H = 32) and the
+    wide one (H = 128), at the N=47 serve shape."""
+    x, w_ih, b, w = _fused_inputs(cuda_device, 7, 17672, H, 1, seed=H)
+    fused = cuda_lstm.lstm_layer_infer_fused(x, w_ih, b, w, collect)
+    x_proj = torch.matmul(x.transpose(0, 1), w_ih.t()) + b
+    unfused = cuda_lstm.lstm_layer_infer(x_proj, w, collect)
+    torch.cuda.synchronize()
+    assert torch.equal(fused, unfused)
 
 
 def test_lstm_kernel_rejects_what_it_does_not_take(cuda_device):
@@ -90,6 +137,21 @@ def test_lstm_kernel_rejects_what_it_does_not_take(cuda_device):
     w = torch.zeros((32, 128), device=cuda_device)
     with pytest.raises(TypeError, match="float32"):
         cuda_lstm.lstm_layer_infer(xp.bfloat16(), w.bfloat16(), False)
+    x, w_ih, b, _ = _fused_inputs(cuda_device, 7, 10, 32, 1, seed=0)
+    with pytest.raises(ValueError, match="1 <= F <= 4"):
+        x5 = torch.zeros((10, 7, 5), device=cuda_device)
+        cuda_lstm.lstm_layer_infer_fused(x5, torch.zeros((128, 5),
+                                                         device=cuda_device),
+                                         b, w, False)
+    with pytest.raises(ValueError, match="w_ih must be"):
+        cuda_lstm.lstm_layer_infer_fused(x, w_ih[:64], b, w, False)
+    with pytest.raises(ValueError, match="w_ih must be"):
+        cuda_lstm.lstm_layer_infer_fused(x, torch.zeros(
+            (128, 2), device=cuda_device), b, w, False)
+    with pytest.raises(ValueError, match="b must be"):
+        cuda_lstm.lstm_layer_infer_fused(x, w_ih, b[:100], w, False)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_lstm.lstm_layer_infer_fused(x, w_ih, b.double(), w, False)
     # H = 128, refused before the wide kernel, is taken
     rng = np.random.default_rng(128)
     xw = torch.from_numpy(rng.normal(size=(7, 10, 512)).astype(
@@ -220,12 +282,17 @@ ENGINE_BPTT = [(1, 1000, 128), (7, 17, 128), (3, 333, 97), (2, 70000, 128)]
 #: than H), one step (no recurrent product), and the N=500 step's shape
 #: (R = 500,000), held to float64
 RESIDENT_BPTT = [(7, 1001, 81), (7, 999, 3), (1, 1000, 32), (7, 500000, 32)]
+#: the resident forward at its edges (its BPTT on the engine path): the
+#: widest resident H (116), the two just past it (117, 118: the wide
+#: kernel), and one step at the widest, all at ragged R
+RESIDENT_FWD = [(7, 1001, 116), (7, 1003, 117), (7, 997, 118),
+                (1, 1001, 116)]
 
 
 @pytest.mark.parametrize("with_dcs", [False, True])
 @pytest.mark.parametrize("T,R,H", [(7, 8836, 32), (7, 1001, 8),
                                    (5, 333, 64), (3, 17, 40)]
-                         + RESIDENT_BPTT
+                         + RESIDENT_BPTT + RESIDENT_FWD
                          + [(_T_OF.get(H, 7), R, H) for R, H in WIDE_LSTM]
                          + ENGINE_BPTT)
 def test_lstm_train_kernels_match_plain(cuda_device, T, R, H, with_dcs):

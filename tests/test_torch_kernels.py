@@ -22,6 +22,7 @@ from mpgcn_tpu.nn.bdgcn import bdgcn_apply as jax_bdgcn_apply
 from mpgcn_tpu_torch.nn import cuda_bdgcn, cuda_lstm
 from mpgcn_tpu_torch.nn.bdgcn import BDGCN, bdgcn_apply
 from mpgcn_tpu_torch.nn.lstm import LSTM
+from mpgcn_tpu_torch.utils.convert import params_from_jax
 
 LSTM_TOL = dict(rtol=1e-5, atol=1e-6)
 BDGCN_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -98,6 +99,65 @@ def test_lstm_stack_matches_pallas_inference(layers):
             mod.layers, xt, layer_fn=cuda_lstm.lstm_layer_infer_plain)
     np.testing.assert_allclose(fused.numpy(), np.asarray(ref), **LSTM_TOL)
     np.testing.assert_allclose(plain.numpy(), np.asarray(ref), **LSTM_TOL)
+
+
+@pytest.mark.parametrize("collect", [False, True])
+@pytest.mark.parametrize("F", [1, 3])
+@pytest.mark.parametrize("H", [8, WIDE_H])
+def test_lstm_fused_plain_matches_pallas(collect, F, H):
+    """The fused form's plain version (projection from x, then the layer)
+    against the JAX layer scan on the inference path: XLA's projection,
+    then _fused_layer_infer in interpret mode. The weights cross by
+    params_from_jax."""
+    rng = np.random.default_rng(10 * H + F)
+    T, R = 7, 40 if H == 8 else 24
+    (layer,) = _lstm_params(rng, F, H, 1)
+    seq = rng.normal(size=(R, T, F)).astype(np.float32)
+    outs, (h_T, _) = pallas_lstm.fused_layer_scan(
+        {k: jnp.asarray(v) for k, v in layer.items()}, jnp.asarray(seq),
+        collect, inference=True, interpret=True)
+    ref = np.asarray(outs).transpose(1, 0, 2) if collect else np.asarray(h_T)
+    sd = params_from_jax({"branches": [{
+        "temporal": {"layers": [layer]}, "spatial": [],
+        "fc": {"w": np.zeros((H, 1), np.float32),
+               "b": np.zeros(1, np.float32)}}]})
+    w = {k: sd[f"branches.0.temporal.layers.0.{k}"]
+         for k in ("w_ih", "w_hh", "b_ih", "b_hh")}
+    ours = cuda_lstm.lstm_layer_infer_fused_plain(
+        torch.from_numpy(seq), w["w_ih"], w["b_ih"] + w["b_hh"],
+        w["w_hh"].t(), collect)
+    assert tuple(ours.shape) == ref.shape
+    np.testing.assert_allclose(ours.numpy(), ref, **LSTM_TOL)
+
+
+def test_lstm_stack_takes_the_fused_form_for_narrow_inputs(monkeypatch):
+    """On the inference kernel arm, lstm_last_step_fused sends the first
+    layer (F = 1 <= FUSED_MAX_F) to the fused form, whose CPU version is
+    lstm_layer_infer_fused_plain, and the second (F = H = 8) to x_proj;
+    the plain and recorded arms never take it. The result is the plain
+    arm's to the bit."""
+    calls = []
+    fused_plain = cuda_lstm.lstm_layer_infer_fused_plain
+
+    def spy(x, w_ih, b, w_hh_T, collect):
+        calls.append((tuple(x.shape), collect))
+        return fused_plain(x, w_ih, b, w_hh_T, collect)
+
+    monkeypatch.setattr(cuda_lstm, "lstm_layer_infer_fused_plain", spy)
+    rng = np.random.default_rng(3)
+    R, T, F, H = 20, 7, 1, 8
+    mod = _torch_lstm(_lstm_params(rng, F, H, 2), F, H)
+    xt = torch.from_numpy(rng.normal(size=(R, T, F)).astype(np.float32))
+    with torch.no_grad():
+        fused = cuda_lstm.lstm_last_step_fused(mod.layers, xt)
+        assert calls == [((R, T, F), True)]
+        plain = cuda_lstm.lstm_last_step_fused(
+            mod.layers, xt, layer_fn=cuda_lstm.lstm_layer_infer_plain)
+    recorded = cuda_lstm.lstm_last_step_fused(
+        mod.layers, xt, layer_fn=cuda_lstm.lstm_layer_recorded)
+    assert len(calls) == 1
+    torch.testing.assert_close(fused, plain, rtol=0, atol=0)
+    torch.testing.assert_close(recorded.detach(), plain, rtol=0, atol=0)
 
 
 def _bdgcn_inputs(rng, K=3, B=3, N=9, C=8, H=8, dynamic=False):
@@ -343,11 +403,18 @@ def test_cpu_wrappers_take_plain_version_without_launching():
                cuda_lstm.LSTM_TRAIN_FWD, cuda_lstm.LSTM_TRAIN_BWD,
                cuda_bdgcn.BDGCN_PAIR_FWD, cuda_bdgcn.BDGCN_PAIR_BWD)
     before = [k.launches for k in kernels]
+    x = torch.from_numpy(rng.normal(size=(5, 3, 2)).astype(np.float32))
+    w_ih = torch.from_numpy(rng.normal(size=(16, 2)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(16,)).astype(np.float32))
     for collect in (False, True):
         torch.testing.assert_close(
             cuda_lstm.lstm_layer_infer(xp, w, collect),
             cuda_lstm.lstm_layer_infer_plain(xp, w, collect), rtol=0,
             atol=0)
+        torch.testing.assert_close(
+            cuda_lstm.lstm_layer_infer_fused(x, w_ih, b, w, collect),
+            cuda_lstm.lstm_layer_infer_fused_plain(x, w_ih, b, w, collect),
+            rtol=0, atol=0)
     torch.testing.assert_close(
         cuda_bdgcn.folded_pair_project(h1, g, wr),
         cuda_bdgcn.folded_pair_project_plain(h1, g, wr), rtol=0, atol=0)
@@ -407,6 +474,12 @@ def test_non_cuda_non_cpu_tensors_raise():
     with pytest.raises(ValueError, match="cuda or cpu"):
         cuda_lstm.lstm_layer_infer(xp, torch.zeros((2, 8), device="meta"),
                                    False)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cuda_lstm.lstm_layer_infer_fused(
+            torch.zeros((3, 2, 1), device="meta"),
+            torch.zeros((8, 1), device="meta"),
+            torch.zeros((8,), device="meta"),
+            torch.zeros((2, 8), device="meta"), False)
     with pytest.raises(ValueError, match="cuda or cpu"):
         cuda_lstm.lstm_layer_train(xp, torch.zeros((2, 8), device="meta"))
     with pytest.raises(ValueError, match="cuda or cpu"):
