@@ -9,7 +9,10 @@ Phases, each fatal on failure:
   2. hold each kernel against its plain PyTorch version on the card, at
      the shapes the serve and training paths give it and at odd sizes
      (the backward kernels with and without a dcs cotangent, and twice,
-     to show that dW is bit-equal from run to run);
+     to show that dW is bit-equal from run to run; the inference LSTM
+     entries on x_proj and in their fused form from x, which at input
+     width 1 must equal the x_proj form fed the torch projection bit for
+     bit);
   3. serve: a ServeEngine on the card (synthetic data, seed 0; fresh
      weights at the reference widths from the first init seed that leaves
      no branch's ReLU head dead) answers test-split windows in every
@@ -47,9 +50,11 @@ Phases, each fatal on failure:
      int8 tiles (resident-support reduction >= 3), and 3 int8 training
      steps;
   8. time each kernel beside its bound, its plain version and the fastest
-     single PyTorch library call, the rollout per bucket, the train step
-     (N=47; N=500 on the ELL arm and on the dense kernel arm that "auto"
-     passes over), and the device's busy share;
+     single PyTorch library call (the fused LSTM layer also beside the
+     projection and kernel it replaces), the rollout per bucket with its
+     device activities, the train step (N=47; N=500 on the ELL arm and on
+     the dense kernel arm that "auto" passes over), and the device's busy
+     share;
   9. after them, so that every phase above runs as it did without it: the
      wide widths (the LSTM forwards' wide kernels and the BPTT's split-TF32
      engine path; K-BDGCN's products at widths past the reference ones).
@@ -67,7 +72,9 @@ Phases, each fatal on failure:
      the wide model's shapes;
  10. last, the N=500 train step on int8 tiles, and the LSTM entries'
      times at the N=500 step's shapes (R = 500,000 sequences, T = 7,
-     H = 32) beside nn.LSTM at that batch.
+     H = 32; the inference layer on x_proj and fused from x) beside
+     nn.LSTM at that batch, with the resident kernels' registers and
+     spills.
 
 The second-to-last line is a JSON object listing each kernel; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a card, and

@@ -69,9 +69,8 @@ namespace {
 // it loads serves this many rows (see the design note above for why 4).
 // kRowsPerThread of lstm_wide.cuh is the wide kernel's and the BPTT's.
 constexpr int kFwdRows = 4;
-// Threads a block of the resident forward aims at, (H, kFwdThreads / H),
-// and the blocks an SM holds at once: 85 registers a thread at most.
-constexpr int kFwdThreads = 256;
+// Blocks of the resident forward an SM holds at once: 85 registers a
+// thread at most. Its blocks are (H, rows_y_for(H)), at most 256 threads.
 constexpr int kFwdMinBlocks = 3;
 // The most input features the fused form takes.
 constexpr int kFusedMaxF = 4;
@@ -84,12 +83,8 @@ __host__ __device__ inline int fwd_w_stride(int H) {
 }
 __host__ __device__ inline int fwd_h_stride(int H) { return (H + 3) / 4 * 4; }
 
-inline int fwd_rows_y(int H) {
-  return kFwdThreads / H > 0 ? kFwdThreads / H : 1;
-}
-
 inline size_t fwd_smem_bytes(int H) {
-  const size_t tile_rows = (size_t)fwd_rows_y(H) * kFwdRows;
+  const size_t tile_rows = (size_t)rows_y_for(H) * kFwdRows;
   return (4 * (size_t)H * fwd_w_stride(H) +
           2 * tile_rows * fwd_h_stride(H)) *
          sizeof(float);
@@ -105,7 +100,7 @@ __device__ __forceinline__ float cell_c(float fg, float c, float ig,
 
 // Resident forward. kF = 0 reads x_proj; kF = F >= 1 the fused form.
 template <int kMode, int kF>
-__global__ void __launch_bounds__(kFwdThreads, kFwdMinBlocks)
+__global__ void __launch_bounds__(kThreadsTarget, kFwdMinBlocks)
     lstm_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ x,
                     const float* __restrict__ wih,
                     const float* __restrict__ bias,
@@ -242,7 +237,7 @@ cudaError_t launch_fwd_resident(const float* xp, const float* x,
   auto kernel = lstm_fwd_kernel<kMode, kF>;
   cudaError_t err = allow_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
-  const int rows_y = fwd_rows_y(H);
+  const int rows_y = rows_y_for(H);
   const int tile_rows = rows_y * kFwdRows;
   const dim3 grid((R + tile_rows - 1) / tile_rows);
   kernel<<<grid, dim3(H, rows_y), smem, stream>>>(xp, x, wih, b, whhT, out0,
@@ -275,9 +270,14 @@ int launch_fwd(const void* xp, const void* x, const void* wih, const void* b,
   bool resident = false;
   cudaError_t err = smem_fits(smem, &resident);
   if (err != cudaSuccess) return err;
-  if (!resident || H > kFwdThreads)
-    return launch_fwd_wide<kMode>(xp_, u_, o0, o1, T, R, H, stream, x_, w_,
-                                  b_, fused ? F : 0);
+  if constexpr (kMode != kFwdTrain) {
+    if (!resident && fused)
+      return launch_fwd_wide<kMode, true>(xp_, x_, w_, b_, F, u_, o0, o1, T,
+                                          R, H, stream);
+  }
+  if (!resident)
+    return launch_fwd_wide<kMode, false>(xp_, x_, w_, b_, F, u_, o0, o1, T, R,
+                                         H, stream);
   if constexpr (kMode != kFwdTrain) {
     switch (fused ? F : 0) {
       case 1:

@@ -144,14 +144,14 @@ __global__ void lstm_fwd_wide_kernel(const float* __restrict__ xp,
   }
 }
 
-// Launch the wide forward, on x_proj, or fused from x, w_ih, b where F > 0
-// (the inference modes); refused (cudaErrorInvalidValue) only when even
-// its 3 x tile_rows x H floats exceed a block's shared memory.
+// Launch the wide forward, on x_proj or (kFused, the inference modes) from
+// x, w_ih and b with F features; refused (cudaErrorInvalidValue) only when
+// even its 3 x tile_rows x H floats exceed a block's shared memory.
 template <int kMode, bool kFused>
-cudaError_t launch_fwd_wide_as(const float* xp, const float* whhT,
-                               float* out0, float* out1, int T, int R, int H,
-                               cudaStream_t stream, const float* x,
-                               const float* wih, const float* b, int F) {
+cudaError_t launch_fwd_wide(const float* xp, const float* x, const float* wih,
+                            const float* b, int F, const float* whhT,
+                            float* out0, float* out1, int T, int R, int H,
+                            cudaStream_t stream) {
   const size_t smem = wide_fwd_smem_bytes(H);
   bool fits = false;
   cudaError_t err = smem_fits(smem, &fits);
@@ -166,21 +166,6 @@ cudaError_t launch_fwd_wide_as(const float* xp, const float* whhT,
   kernel<<<grid, dim3(bx, by), smem, stream>>>(xp, whhT, out0, out1, T, R,
                                                H, x, wih, b, F);
   return cudaGetLastError();
-}
-
-template <int kMode>
-cudaError_t launch_fwd_wide(const float* xp, const float* whhT, float* out0,
-                            float* out1, int T, int R, int H,
-                            cudaStream_t stream, const float* x = nullptr,
-                            const float* wih = nullptr,
-                            const float* b = nullptr, int F = 0) {
-  if constexpr (kMode != kFwdTrain) {
-    if (F > 0)
-      return launch_fwd_wide_as<kMode, true>(xp, whhT, out0, out1, T, R, H,
-                                             stream, x, wih, b, F);
-  }
-  return launch_fwd_wide_as<kMode, false>(xp, whhT, out0, out1, T, R, H,
-                                          stream, x, wih, b, F);
 }
 
 }  // namespace
