@@ -94,14 +94,13 @@ __global__ void lstm_fwd_wide_kernel(const float* __restrict__ xp,
         const int r = row0 + q;
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
-          if (r >= R)
-            acc[q][g] = 0.0f;
-          else if constexpr (kFused)
-            acc[q][g] = proj_in(x + ((size_t)r * T + t) * F,
-                                wih + (size_t)(g * H + j) * F,
-                                b[g * H + j], F);
+          if constexpr (kFused)
+            acc[q][g] = r < R ? proj_in(x + ((size_t)r * T + t) * F,
+                                        wih + (size_t)(g * H + j) * F,
+                                        b[g * H + j], F)
+                              : 0.0f;
           else
-            acc[q][g] = xt[(size_t)r * G + g * H + j];
+            acc[q][g] = r < R ? xt[(size_t)r * G + g * H + j] : 0.0f;
         }
       }
       for (int k = 0; k < H; ++k) {
