@@ -823,8 +823,9 @@ def phase_times(dev, eng, kin):
     b = eng.scfg.buckets[-1]
     x = torch.from_numpy(np.array(md.x[:b])).to(dev)
     k = torch.from_numpy(md.keys[:b].astype(np.int64)).to(dev)
-    print(f"[time] bucket-{b} rollout device activities per call: "
-          f"{device_activities(lambda: rollout(eng.model, eng.banks, x, k, eng.cfg.pred_len), n=3)[1]}",
+    _, acts = device_activities(
+        lambda: rollout(eng.model, eng.banks, x, k, eng.cfg.pred_len), n=3)
+    print(f"[time] bucket-{b} rollout device activities per call: {acts}",
           flush=True)
 
     for b in (eng.scfg.buckets[0], eng.scfg.buckets[-1]):
@@ -2130,8 +2131,9 @@ def phase_large_n_times(dev, train, eng, data):
     print(f"[time] large-N rollout (bucket 2, horizon 7, host clock, median "
           f"of 5 after 1 warm-up): {statistics.median(samples):.3f} ms",
           flush=True)
-    print(f"[time] large-N rollout device activities per call: "
-          f"{device_activities(lambda: rollout(eng.model, eng.banks, x, k, 7), n=2)[1]}",
+    _, acts = device_activities(
+        lambda: rollout(eng.model, eng.banks, x, k, 7), n=2)
+    print(f"[time] large-N rollout device activities per call: {acts}",
           flush=True)
     busy_share("large-N bucket-2 rollout",
                lambda: rollout(eng.model, eng.banks, x, k, 7), 2)

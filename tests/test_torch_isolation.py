@@ -1,5 +1,6 @@
 """The port stands alone: no module of mpgcn_tpu_torch/, and none of its
-scripts (chip_smoke.py, kernel_hashes.py, n500_int8_step.py), imports
+scripts (chip_smoke.py, kernel_hashes.py, n500_int8_step.py,
+lstm_fwd_probe.py), imports
 JAX or the JAX package. Imports are read with ``ast`` -- a string match
 would confuse ``mpgcn_tpu_torch`` with ``mpgcn_tpu``."""
 
@@ -33,7 +34,7 @@ def _imports(tree):
 def _sources():
     files = sorted((ROOT / "mpgcn_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py", ROOT / "kernel_hashes.py",
-                    ROOT / "n500_int8_step.py"]
+                    ROOT / "n500_int8_step.py", ROOT / "lstm_fwd_probe.py"]
 
 
 @pytest.mark.parametrize("path", _sources(),
