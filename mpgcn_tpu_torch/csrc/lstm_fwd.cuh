@@ -37,13 +37,13 @@
 // (one barrier a step) and read 4 k at a time, a broadcast within a warp.
 // Per 4 k a thread loads 4 w fragments and kFwdRows h fragments for
 // 16 kFwdRows FMAs: at H = 32, 16 + 4 wavefronts per 64 warp FMAs, 0.3125
-// a warp FMA (8 rows: 0.1875). Measured on the H100 at N = 500, the loop
-// is then bound by issuing its FMAs, not by the loads, and the gate math
-// (3 expf, 2 tanhf, 3 divisions a row and unit) takes a third of the
-// kernel: 8 rows a thread were 1% faster in the fused form, 4% slower on
-// x_proj (128 registers, 2 blocks an SM, not 3) and 25% slower at the
-// N = 47 serve shape (half the blocks: 2 waves of tiles, the second
-// nearly empty). So a thread takes 4 rows. Each gate sum starts from its
+// a warp FMA (8 rows: 0.1875). Measured on the H100 at N = 500
+// (lstm_fwd_probe.py), the loop is then bound by issuing its FMAs, not
+// by the loads, and the gate math (3 expf, 2 tanhf, 3 divisions a row and
+// unit) takes a quarter of the kernel: 8 rows a thread were 1% faster in
+// the fused form, 4% slower on x_proj (128 registers, 2 blocks an SM, not
+// 3) and 26% slower at the N = 47 serve shape (half the blocks: 2 waves
+// of tiles, the second nearly empty). So a thread takes 4 rows. Each gate sum starts from its
 // input and takes fmaf(h_k, w_k, acc) for k = 0..H-1 in ascending order,
 // as the first form did, so the outputs keep its bits; the cell update is
 // written out as the first form's compiled code contracted it, so
