@@ -68,8 +68,8 @@ Phases, each fatal on failure:
      bucket-8 ServeEngine batch against the plain rollout, the gradients
      against float64, 20 training steps against the plain arms' losses,
      the CLI (one epoch and test mode, N = 20) through the kernels; and
-     the six entries' times, the bucket-8 rollout and the train step at
-     the wide model's shapes;
+     the six entries' times (lstm_infer_last also fused from x), the
+     bucket-8 rollout and the train step at the wide model's shapes;
  10. last, the N=500 train step on int8 tiles, and the LSTM entries'
      times at the N=500 step's shapes (R = 500,000 sequences, T = 7,
      H = 32; the inference layer on x_proj and fused from x) beside
@@ -620,6 +620,19 @@ def bdgcn_bwd_bound(h1, g, wr, dout):
     return b_ms, b_by, (f"TF32 operations 3 x {ops}; CUDA-core bound "
                         f"{bound(nbytes, ops)[0]:.5f} ms; Z scratch "
                         f"{4 * K * B * M * N * H} bytes")
+
+
+def lstm_wide_fwd_bound(T, R, H, nbytes):
+    """The wide LSTM forward's bound: nbytes moved once; the recurrent
+    product at the T - 1 steps that need one (h_{-1} = 0, so step 0 has
+    none), as 3 split TF32 products on the tensor cores (the fused form's
+    K = F projection, 2 T R 4H F operations, is left out: 0.1% at F = 1).
+    Returns (bound ms, bounded by, a note with the CUDA-core bound)."""
+    ops = 2 * max(T - 1, 0) * R * H * 4 * H
+    core = bound(nbytes, ops)
+    b_ms, b_by = bound(nbytes, 3 * ops, PEAK_TF32_FLOP_PER_S)
+    return b_ms, b_by, (f"TF32 bound, 3 x {ops} operations; CUDA-core bound "
+                        f"{core[0]:.5f} ms ({core[1]})")
 
 
 def lstm_bwd_bound(T, R, H, engine):
@@ -1441,9 +1454,11 @@ def phase_wide_model(dev, data, out_dir):
 
 def phase_wide_times(dev, kin, wide):
     """The six entries at the wide model's shapes (hidden 128, K = 7, N =
-    47): kernel, plain and library times (CUDA events) beside the bounds of
-    the reference-width phases; the wide rollout at bucket 8 and train step
-    on the host clock."""
+    47), lstm_infer_last also fused from x (F = 1, the form the wide
+    model's first layer runs): kernel, plain and library times (CUDA
+    events) beside their bounds (the split-TF32 entries' TF32 bound, the
+    CUDA-core bound beside it); the wide rollout at bucket 8 and train
+    step on the host clock."""
     import statistics
 
     import torch
@@ -1451,7 +1466,7 @@ def phase_wide_times(dev, kin, wide):
     from mpgcn_tpu_torch.nn import cuda_bdgcn, cuda_lstm
     from mpgcn_tpu_torch.train.predict import rollout
 
-    times = {}
+    times, notes = {}, {}
     xp, w, *_ = kin["lstm_serve"]
     T, R, G = xp.shape
     H = G // 4
@@ -1461,15 +1476,33 @@ def phase_wide_times(dev, kin, wide):
         lib_ms = time_ms(lambda: lib(seq), iters=10)
     for collect, name in ((False, "lstm_infer_last"),
                           (True, "lstm_infer_collect")):
-        b_ms, b_by = bound(xp.numel() * 4 + w.numel() * 4
-                           + (T if collect else 1) * R * H * 4,
-                           2 * T * R * H * G)
+        b_ms, b_by, notes[name] = lstm_wide_fwd_bound(
+            T, R, H, xp.numel() * 4 + w.numel() * 4
+            + (T if collect else 1) * R * H * 4)
         times[name] = dict(
             ms=time_ms(lambda: cuda_lstm.lstm_layer_infer(xp, w, collect),
                        iters=10),
             plain_ms=time_ms(lambda: cuda_lstm.lstm_layer_infer_plain(
                 xp, w, collect), iters=5),
             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    # the form the wide model's first layer runs: fused from x (F = 1)
+    gen = torch.Generator(device=dev).manual_seed(128)
+    s = 1 / H ** 0.5
+    x, w_ih, bias = (torch.randn((R, T, 1), generator=gen, device=dev),
+                     (torch.rand((G, 1), generator=gen, device=dev) * 2 - 1)
+                     * s,
+                     (torch.rand((G,), generator=gen, device=dev) * 2 - 1)
+                     * s)
+    name = "lstm_infer_last fused from x (F=1)"
+    b_ms, b_by, notes[name] = lstm_wide_fwd_bound(
+        T, R, H, 4 * (x.numel() + w_ih.numel() + bias.numel() + w.numel()
+                      + R * H))
+    times[name] = dict(
+        ms=time_ms(lambda: cuda_lstm.lstm_layer_infer_fused(
+            x, w_ih, bias, w, False), iters=10),
+        plain_ms=time_ms(lambda: cuda_lstm.lstm_layer_infer_fused_plain(
+            x, w_ih, bias, w, False), iters=5),
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
     xp, w, hs, cs, dhs = kin["lstm_train"]
     T, R, G = xp.shape
     lib = torch.nn.LSTM(1, H, batch_first=True).to(dev)
@@ -1481,21 +1514,20 @@ def phase_wide_times(dev, kin, wide):
     lib_bwd = time_ms(lambda: torch.autograd.grad(out, lib_params, gout,
                                                   retain_graph=True),
                       iters=10)
-    b_ms, b_by = bound(4 * (T * R * G + H * G + 2 * T * R * H),
-                       2 * T * R * H * G)
+    b_ms, b_by, notes["lstm_train_fwd"] = lstm_wide_fwd_bound(
+        T, R, H, 4 * (T * R * G + H * G + 2 * T * R * H))
     times["lstm_train_fwd"] = dict(
         ms=time_ms(lambda: cuda_lstm.lstm_layer_train(xp, w), iters=10),
         plain_ms=time_ms(lambda: cuda_lstm.lstm_layer_train_plain(xp, w),
                          iters=5),
         library_ms=lib_fwd, bound_ms=b_ms, bound_by=b_by)
-    times["lstm_train_bwd"], note = lstm_bwd_time(dev, xp, w, hs, cs, dhs,
-                                                  10, 5, lib_bwd)
-    for name in ("lstm_infer_last", "lstm_infer_collect", "lstm_train_fwd",
-                 "lstm_train_bwd"):
-        rows = R if "train" in name else kin["lstm_serve"][0].shape[1]
-        extra = f"{note}; " if name == "lstm_train_bwd" else ""
-        print(f"[time] wide {name} T={T} R={rows} H={H} ({extra}library "
-              f"torch.nn.LSTM, cuDNN, input projection included): "
+    times["lstm_train_bwd"], notes["lstm_train_bwd"] = lstm_bwd_time(
+        dev, xp, w, hs, cs, dhs, 10, 5, lib_bwd)
+    serve_rows = kin["lstm_serve"][0].shape[1]
+    for name in times:
+        rows = R if "train" in name else serve_rows
+        print(f"[time] wide {name} T={T} R={rows} H={H} ({notes[name]}; "
+              f"library torch.nn.LSTM, cuDNN, input projection included): "
               f"{json.dumps(times[name])}", flush=True)
 
     for key, name in (("bdgcn_B8", "bdgcn_pair_fwd"),

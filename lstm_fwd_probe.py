@@ -1,25 +1,36 @@
 #!/usr/bin/env python3
-"""Time the resident LSTM forward (mpgcn_tpu_torch/csrc/lstm_fwd.cuh) of a
-checkout in variants built from copies of its sources, to show what bounds
-it.
+"""Time the LSTM forwards of a checkout (the resident one of
+mpgcn_tpu_torch/csrc/lstm_fwd.cuh, the wide one of lstm_wide.cuh) in
+variants built from copies of their sources, to show what bounds them.
 
-    python3 lstm_fwd_probe.py [--root CHECKOUT]
+    python3 lstm_fwd_probe.py [--root CHECKOUT] [--group narrow|wide|all]
 
 Variants, each a copy of CHECKOUT's package under smoke_out/probe/ of this
 script's directory (gitignored), its kernel source rewritten and built by
 its own nvcc:
-  base    the checkout's kernel;
-  rows8   8 rows a thread, 2 blocks an SM (each w_hh fragment serves twice
-          the rows: 0.1875 shared wavefronts a warp FMA at H = 32);
-  nogate  the gate math (expf, tanhf, the divisions) replaced by products;
-  nofma   the recurrent products cut to their first 4 k.
-nogate and nofma give wrong outputs: only their times count. Each variant
-times lstm_infer_last on x_proj and fused from x (F = 1) and
+  base         the checkout's kernels;
+  rows8        8 rows a thread in the resident forward, 2 blocks an SM
+               (each w_hh fragment serves twice the rows: 0.1875 shared
+               wavefronts a warp FMA at H = 32);
+  nogate       the resident forward's gate math (expf, tanhf, the
+               divisions) replaced by products;
+  nofma        the resident forward's recurrent products cut to their
+               first 4 k;
+  wide-nogate  the same cut of the wide forward's gate math;
+  wide-nofma   the wide forward's recurrent product cut to its first
+               depths (a 16-deep slab of each chunk in the tensor-core
+               kernel, 4 k in the CUDA-core kernel that it replaced).
+The wide variants rewrite whichever of the two wide kernels CHECKOUT
+holds. The cut variants give wrong outputs: only their times count. The
+narrow group times lstm_infer_last on x_proj and fused from x (F = 1) and
 lstm_train_fwd at the N=500 step's shape (R = 500,000, T = 7, H = 32) and
-at the N=47 serve shape (R = 17,672), CUDA-event means over 20 calls after
-3, in two rounds in opposite orders, one process a variant and round. The
-last line is one JSON object, {"device": ..., "times": {variant: [round 1,
-round 2]}}. Needs a CUDA card; imports nothing of JAX.
+at the N=47 serve shape (R = 17,672); the wide group the same entries and
+lstm_infer_collect at the wide model's serve shape (R = 17,672, H = 128)
+and lstm_train_fwd at its training shape (R = 8,836). CUDA-event means
+over 20 calls after 3, in two rounds in opposite orders, one process a
+variant and round. The last line is one JSON object, {"device": ...,
+"times": {variant: [round 1, round 2]}}. Needs a CUDA card; imports
+nothing of JAX.
 """
 
 import argparse
@@ -30,23 +41,42 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join("mpgcn_tpu_torch", "csrc", "lstm_fwd.cuh")
-#: variant -> (text, replacement) pairs applied to lstm_fwd.cuh
+CSRC = os.path.join("mpgcn_tpu_torch", "csrc")
+_NOGATE = [("sigmoidf(acc[q][0])", "(acc[q][0] * 0.25f)"),
+           ("sigmoidf(acc[q][1])", "(acc[q][1] * 0.25f)"),
+           ("tanhf(acc[q][2])", "(acc[q][2] * 0.25f)"),
+           ("sigmoidf(acc[q][3])", "(acc[q][3] * 0.25f)")]
+#: variant -> (group, source under csrc/, alternative lists of (text,
+#: replacement) pairs: the first list whose texts all occur is applied)
 VARIANTS = {
-    "base": [],
-    "rows8": [("constexpr int kFwdRows = 4;", "constexpr int kFwdRows = 8;"),
-              ("constexpr int kFwdMinBlocks = 3;",
-               "constexpr int kFwdMinBlocks = 2;")],
-    "nogate": [("sigmoidf(acc[q][0])", "(acc[q][0] * 0.25f)"),
-               ("sigmoidf(acc[q][1])", "(acc[q][1] * 0.25f)"),
-               ("tanhf(acc[q][2])", "(acc[q][2] * 0.25f)"),
-               ("sigmoidf(acc[q][3])", "(acc[q][3] * 0.25f)"),
-               ("__fmul_rn(og, tanhf(c[q]))", "__fmul_rn(og, c[q])")],
-    "nofma": [("for (; k + 4 <= H; k += 4) {",
-               "for (; k + 4 <= 4; k += 4) {"),
-              ("for (; k < H; ++k) {", "for (; k < 0; ++k) {")],
+    "base": ("all", "lstm_fwd.cuh", [[]]),
+    "rows8": ("narrow", "lstm_fwd.cuh", [[
+        ("constexpr int kFwdRows = 4;", "constexpr int kFwdRows = 8;"),
+        ("constexpr int kFwdMinBlocks = 3;",
+         "constexpr int kFwdMinBlocks = 2;")]]),
+    "nogate": ("narrow", "lstm_fwd.cuh", [
+        _NOGATE + [("__fmul_rn(og, tanhf(c[q]))", "__fmul_rn(og, c[q])")]]),
+    "nofma": ("narrow", "lstm_fwd.cuh", [[
+        ("for (; k + 4 <= H; k += 4) {", "for (; k + 4 <= 4; k += 4) {"),
+        ("for (; k < H; ++k) {", "for (; k < 0; ++k) {")]]),
+    # the tensor-core kernel, then the CUDA-core kernel it replaced
+    "wide-nogate": ("wide", "lstm_wide.cuh", [
+        [("sigmoidf(acc[i][0][v])", "(acc[i][0][v] * 0.25f)"),
+         ("sigmoidf(acc[i][1][v])", "(acc[i][1][v] * 0.25f)"),
+         ("tanhf(acc[i][2][v])", "(acc[i][2][v] * 0.25f)"),
+         ("sigmoidf(acc[i][3][v])", "(acc[i][3][v] * 0.25f)"),
+         ("__fmul_rn(og, tanhf(cn))", "__fmul_rn(og, cn)")],
+        _NOGATE + [("og * tanhf(c)", "og * c")]]),
+    "wide-nofma": ("wide", "lstm_wide.cuh", [
+        [("const int n_ks = (H + kWideSlab - 1) / kWideSlab;",
+          "const int n_ks = 1;")],
+        [("for (int k = 0; k < H; ++k) {", "for (int k = 0; k < 4; ++k) {")]]),
 }
-SHAPES = [(7, 500000, 32), (7, 17672, 32)]
+#: (group, T, R, H, entries timed)
+SHAPES = [("narrow", 7, 500000, 32, ("last", "fused", "train")),
+          ("narrow", 7, 17672, 32, ("last", "fused", "train")),
+          ("wide", 7, 17672, 128, ("last", "fused", "collect")),
+          ("wide", 7, 8836, 128, ("train",))]
 
 
 def make_variant(root: str, name: str, dest: str) -> str:
@@ -56,20 +86,25 @@ def make_variant(root: str, name: str, dest: str) -> str:
     shutil.copytree(os.path.join(root, "mpgcn_tpu_torch"),
                     os.path.join(out, "mpgcn_tpu_torch"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    path = os.path.join(out, SOURCE)
+    _, source, alternatives = VARIANTS[name]
+    path = os.path.join(out, CSRC, source)
     with open(path) as f:
         src = f.read()
-    for old, new in VARIANTS[name]:
-        if old not in src:
-            raise RuntimeError(f"variant {name}: {old!r} not in {SOURCE}")
+    for rewrites in alternatives:
+        if all(old in src for old, _ in rewrites):
+            break
+    else:
+        raise RuntimeError(f"variant {name}: no rewrite matches {source}")
+    for old, new in rewrites:
         src = src.replace(old, new)
     with open(path, "w") as f:
         f.write(src)
     return out
 
 
-def run_variant(root: str, build_only: bool) -> dict:
-    """In this process: build root's LSTM kernels, or time them."""
+def run_variant(root: str, build_only: bool, group: str) -> dict:
+    """In this process: build root's LSTM kernels, or time them at the
+    group's shapes."""
     sys.path.insert(0, root)
     import torch
 
@@ -98,19 +133,25 @@ def run_variant(root: str, build_only: bool) -> dict:
         return start.elapsed_time(end) / iters
 
     times = {}
-    for T, R, H in SHAPES:
+    for g, T, R, H, entries in SHAPES:
+        if group not in ("all", g):
+            continue
         gen = torch.Generator(device=dev).manual_seed(R + H)
         xp = torch.randn((T, R, 4 * H), generator=gen, device=dev)
         w = torch.randn((H, 4 * H), generator=gen, device=dev) / H ** 0.5
         x = torch.randn((R, T, 1), generator=gen, device=dev)
         w_ih = torch.randn((4 * H, 1), generator=gen, device=dev) / H ** 0.5
         b = torch.randn((4 * H,), generator=gen, device=dev) / H ** 0.5
-        times[f"R={R} last x_proj"] = time_ms(
-            lambda: cuda_lstm.lstm_layer_infer(xp, w, False))
-        times[f"R={R} last fused"] = time_ms(
-            lambda: cuda_lstm.lstm_layer_infer_fused(x, w_ih, b, w, False))
-        times[f"R={R} train_fwd"] = time_ms(
-            lambda: cuda_lstm.lstm_layer_train(xp, w))
+        calls = {
+            "last": lambda: cuda_lstm.lstm_layer_infer(xp, w, False),
+            "fused": lambda: cuda_lstm.lstm_layer_infer_fused(
+                x, w_ih, b, w, False),
+            "collect": lambda: cuda_lstm.lstm_layer_infer(xp, w, True),
+            "train": lambda: cuda_lstm.lstm_layer_train(xp, w)}
+        names = {"last": "last x_proj", "fused": "last fused",
+                 "collect": "collect x_proj", "train": "train_fwd"}
+        for e in entries:
+            times[f"R={R} H={H} {names[e]}"] = time_ms(calls[e])
         del xp
         torch.cuda.empty_cache()
     return times
@@ -119,12 +160,15 @@ def run_variant(root: str, build_only: bool) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
+    ap.add_argument("--group", choices=("narrow", "wide", "all"),
+                    default="all")
     ap.add_argument("--variant-root", help=argparse.SUPPRESS)
     ap.add_argument("--build-only", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.variant_root:
-        print(json.dumps(run_variant(args.variant_root, args.build_only)))
+        print(json.dumps(run_variant(args.variant_root, args.build_only,
+                                     args.group)))
         return 0
     import torch
 
@@ -133,13 +177,14 @@ def main() -> int:
         return 2
     dest = os.path.join(HERE, "smoke_out", "probe")
     roots = {n: make_variant(os.path.abspath(args.root), n, dest)
-             for n in VARIANTS}
+             for n, (g, _, _) in VARIANTS.items()
+             if args.group in ("all", g) or g == "all"}
 
-    def child(root, *extra):
+    def child(root, group, *extra):
         return [sys.executable, os.path.abspath(__file__), "--variant-root",
-                root, *extra]
+                root, "--group", group, *extra]
 
-    builds = [subprocess.Popen(child(r, "--build-only"),
+    builds = [subprocess.Popen(child(r, args.group, "--build-only"),
                                stdout=subprocess.DEVNULL)
               for r in roots.values()]
     if any([p.wait() != 0 for p in builds]):
@@ -147,8 +192,11 @@ def main() -> int:
     times = {n: [] for n in roots}
     for order in (list(roots), list(roots)[::-1]):
         for name in order:
-            out = subprocess.run(child(roots[name]), check=True,
-                                 capture_output=True, text=True).stdout
+            # base times the asked group, a cut variant its own
+            group = VARIANTS[name][0]
+            out = subprocess.run(
+                child(roots[name], args.group if group == "all" else group),
+                check=True, capture_output=True, text=True).stdout
             times[name].append(json.loads(out.strip().splitlines()[-1]))
             print(f"[probe] {name}: {json.dumps(times[name][-1])}",
                   flush=True)

@@ -678,10 +678,6 @@ inline bool runs4(const Axis& x, long long extent) {
 inline bool steps4(const Axis& x) {
   return x.lo % 4 == 0 && (x.div == 0 || x.hi % 4 == 0);
 }
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
-}
-
 // Sets g's 16-byte copy flags for the kernel's staging layout.
 template <bool kAColM, bool kBColK>
 void prepare(Gemm& g) {

@@ -54,7 +54,8 @@
 // Widths: the kernel runs wherever w_hh and the h buffers fit a block's
 // shared memory (H <= 116 on the H100, the reference H = 32 among them).
 // Past that the entries launch lstm_fwd_wide_kernel (lstm_wide.cuh), which
-// sums every gate in the same order and takes the same two input forms.
+// takes the same two input forms and runs its recurrent products on the
+// tensor cores in split TF32 (other bits than this kernel's f32 sums).
 
 #pragma once
 
@@ -67,7 +68,7 @@ namespace {
 
 // Sequence rows a thread of the resident forward owns: each w_hh fragment
 // it loads serves this many rows (see the design note above for why 4).
-// kRowsPerThread of lstm_wide.cuh is the wide kernel's and the BPTT's.
+// kRowsPerThread of lstm_wide.cuh is the BPTT's.
 constexpr int kFwdRows = 4;
 // Blocks of the resident forward an SM holds at once: 85 registers a
 // thread at most. Its blocks are (H, rows_y_for(H)), at most 256 threads.
@@ -88,14 +89,6 @@ inline size_t fwd_smem_bytes(int H) {
   return (4 * (size_t)H * fwd_w_stride(H) +
           2 * tile_rows * fwd_h_stride(H)) *
          sizeof(float);
-}
-
-// c_t = f * c_{t-1} + i * g as the first form's compiled code rounds it
-// (its SASS: FMUL of f and c_{t-1}, then FFMA of i and g onto it):
-// f * c_{t-1} rounded, then one FMA with i * g.
-__device__ __forceinline__ float cell_c(float fg, float c, float ig,
-                                        float gg) {
-  return __fmaf_rn(ig, gg, __fmul_rn(fg, c));
 }
 
 // Resident forward. kF = 0 reads x_proj; kF = F >= 1 the fused form.
@@ -245,14 +238,23 @@ cudaError_t launch_fwd_resident(const float* xp, const float* x,
   return cudaGetLastError();
 }
 
+// True where the forwards at width H take the wide kernel (the resident
+// kernel's shared memory does not fit a block of the current device).
+inline cudaError_t fwd_on_wide(int H, bool* wide) {
+  bool resident = false;
+  const cudaError_t err = smem_fits(fwd_smem_bytes(H), &resident);
+  *wide = !resident;
+  return err;
+}
+
 // One forward entry: x_proj when xp is not null, else the fused form from
 // x, w_ih, b with F features (inference modes only, 1 <= F <= kFusedMaxF).
 // The resident kernel where its shared memory fits a block, else the wide
-// kernel.
+// kernel, whose inference modes take scratch scr (lstm_wide.cuh).
 template <int kMode>
 int launch_fwd(const void* xp, const void* x, const void* wih, const void* b,
-               int F, const void* whhT, void* out0, void* out1, int T, int R,
-               int H, void* stream_) {
+               int F, const void* whhT, void* out0, void* out1, void* scr,
+               int T, int R, int H, void* stream_) {
   if (T < 1 || R < 1 || H < 1) return cudaErrorInvalidValue;
   const bool fused = xp == nullptr;
   if (fused && (kMode == kFwdTrain || x == nullptr || wih == nullptr ||
@@ -266,18 +268,14 @@ int launch_fwd(const void* xp, const void* x, const void* wih, const void* b,
   const auto* u_ = static_cast<const float*>(whhT);
   auto* o0 = static_cast<float*>(out0);
   auto* o1 = static_cast<float*>(out1);
+  auto* s_ = static_cast<float*>(scr);
   const size_t smem = fwd_smem_bytes(H);
-  bool resident = false;
-  cudaError_t err = smem_fits(smem, &resident);
+  bool wide = false;
+  cudaError_t err = fwd_on_wide(H, &wide);
   if (err != cudaSuccess) return err;
-  if constexpr (kMode != kFwdTrain) {
-    if (!resident && fused)
-      return launch_fwd_wide<kMode, true>(xp_, x_, w_, b_, F, u_, o0, o1, T,
-                                          R, H, stream);
-  }
-  if (!resident)
-    return launch_fwd_wide<kMode, false>(xp_, x_, w_, b_, F, u_, o0, o1, T, R,
-                                         H, stream);
+  if (wide)
+    return launch_fwd_wide<kMode>(xp_, x_, w_, b_, fused ? F : 0, u_, o0, o1,
+                                  s_, T, R, H, stream);
   if constexpr (kMode != kFwdTrain) {
     switch (fused ? F : 0) {
       case 1:

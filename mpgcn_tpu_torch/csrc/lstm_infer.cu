@@ -22,7 +22,14 @@
 // what bounds it are written there) wherever w_hh and the h buffers fit a
 // block's shared memory (H <= 116 on the H100), and the wide kernel of
 // lstm_wide.cuh past that: a second kernel chosen per call from H and the
-// device's shared-memory limit, not a branch inside the resident one.
+// device's shared-memory limit, not a branch inside the resident one. The
+// wide kernel runs its recurrent products on split-TF32 tensor cores over
+// row tiles that share each staged w_hh^T slab, and carries h and c from
+// step to step in device memory: scratch (2, R, H) for h_T only, (1, R, H)
+// for every h_t, which the caller allocates (lstm_fwd_wide says where it
+// is needed; null on the resident kernel).
+//
+//   lstm_fwd_wide(H, out)   1 where the entries take the wide kernel at H
 
 #include <cuda_runtime.h>
 
@@ -30,16 +37,26 @@
 
 extern "C" int lstm_infer_last_f32(const void* xp, const void* whhT,
                                    void* out, const void* x,
-                                   const void* w_ih, const void* b, int T,
-                                   int R, int H, int F, void* stream) {
-  return launch_fwd<kFwdLast>(xp, x, w_ih, b, F, whhT, out, nullptr, T, R,
-                              H, stream);
+                                   const void* w_ih, const void* b,
+                                   void* scratch, int T, int R, int H, int F,
+                                   void* stream) {
+  return launch_fwd<kFwdLast>(xp, x, w_ih, b, F, whhT, out, nullptr, scratch,
+                              T, R, H, stream);
 }
 
 extern "C" int lstm_infer_collect_f32(const void* xp, const void* whhT,
                                       void* out, const void* x,
-                                      const void* w_ih, const void* b, int T,
-                                      int R, int H, int F, void* stream) {
-  return launch_fwd<kFwdCollect>(xp, x, w_ih, b, F, whhT, out, nullptr, T,
-                                 R, H, stream);
+                                      const void* w_ih, const void* b,
+                                      void* scratch, int T, int R, int H,
+                                      int F, void* stream) {
+  return launch_fwd<kFwdCollect>(xp, x, w_ih, b, F, whhT, out, nullptr,
+                                 scratch, T, R, H, stream);
+}
+
+extern "C" int lstm_fwd_wide(int H, int* out) {
+  if (H < 1) return cudaErrorInvalidValue;
+  bool wide = false;
+  const cudaError_t err = fwd_on_wide(H, &wide);
+  *out = wide ? 1 : 0;
+  return err;
 }

@@ -74,8 +74,10 @@
 // on the H100, the reference H = 32 among them, and there they run as they
 // always did. Past that (chosen per call from H and the device's shared-
 // memory limit):
-//   - the forward takes lstm_fwd_wide_kernel of lstm_wide.cuh (w_hh^T read
-//     through the read-only cache at every step);
+//   - the forward takes lstm_fwd_wide_kernel of lstm_wide.cuh: row tiles
+//     of 32-64 sequences whose recurrent products run on split-TF32
+//     mma.sync, each w_hh^T slab staged in shared memory serving the
+//     tile's rows; hs and cs carry h and c from step to step;
 //   - the BPTT runs on the split-TF32 products of bdgcn_gemm.cuh. Of its
 //     three products only dh_{t-1} = dgates_t W_hh is sequential in time:
 //     the recomputed gates need only hs, complete before the backward
@@ -438,7 +440,7 @@ extern "C" int lstm_train_fwd_f32(const void* xp, const void* whhT, void* hs,
                                   void* cs, int T, int R, int H,
                                   void* stream) {
   return launch_fwd<kFwdTrain>(xp, nullptr, nullptr, nullptr, 0, whhT, hs,
-                               cs, T, R, H, stream);
+                               cs, nullptr, T, R, H, stream);
 }
 
 namespace {

@@ -1,31 +1,76 @@
 // The LSTM forward for hidden widths whose w_hh^T does not fit a block's
-// shared memory, shared by lstm_infer.cu (h_T only, or every h_t) and
-// lstm_train.cu (hs and cs).
+// shared memory beside the resident kernel's h buffers (H > 116 on the
+// H100), shared by lstm_infer.cu (h_T only, or every h_t) and
+// lstm_train.cu (hs and cs): lstm_fwd_wide_kernel below.
 //
-// The resident kernels of those files stage w_hh^T (H x 4H, 16 H^2 bytes)
-// in shared memory once per block; past H ~ 116 it no longer fits the
-// 227 KB a block may take. Here w_hh^T stays in device memory and is read
-// through the read-only cache at every step: thread (x, y) takes hidden
-// units j = x, x + bx, ... (bx = min(H, 256)), so any H works, and for
-// each j its four gate columns j, H+j, 2H+j, 3H+j of kRowsPerThread rows.
-// Neighbouring threads read neighbouring columns, so the loads coalesce;
-// each w_hh^T value read serves the tile's rows. h_{t-1} of the tile is
-// double-buffered in shared memory and c lives there too (a thread owns
-// its (row, j) entries of c, so c needs no barrier); one barrier per step.
-// Shared memory is 3 x tile_rows x H floats (48 KB at H = 1,024), so H up
-// to 4,842 fits: past the H that the JAX kernels' 96 MB VMEM limit takes.
-// Gate math is f32 with expf and tanhf, as in the resident kernels. The
-// gate inputs come from x_proj or, for the inference modes, from x, w_ih
-// and b in the fused form of lstm_fwd.cuh (kFused; proj_in below).
+// What bounds it on the H100: at the wide model's serve shape (T = 7, R =
+// 17,672 sequences, H = 128) the recurrent products of the 6 steps that
+// have one (h_{-1} = 0) are 2 (T-1) R H 4H = 13.9 GFLOP: 0.208 ms at 67
+// TFLOP/s on the CUDA cores, 0.084 ms at the TF32 rate for 3 split
+// products; x_proj is 254 MB (0.076 ms at 3.35 TB/s), the fused form reads
+// only x. The CUDA-core kernel this one replaced gave each block 8
+// sequence rows and read all of w_hh^T (16 H^2 = 256 KB) through the
+// read-only cache at every step: 2,209 blocks x 7 steps x 256 KB ~ 4 GB
+// from L2 a call, 4-byte loads per 16 FMAs; its recurrent loop took 0.72
+// of its 0.84 ms (lstm_fwd_probe.py).
+//
+// Design. A block of 8 warps owns a tile of M = 16 kMI sequence rows (M =
+// 48 at the wide model's shapes, wide_mi) and runs the whole time loop for
+// it; each w_hh^T slab it stages serves the M rows: 0.66 GB from L2 a call
+// at the serve shape. At each step the product h_{t-1} w_hh^T (M x 4H,
+// depth H) runs on the tensor cores, mma.sync m16n8k8 on split TF32
+// operands, in passes of 256 gate columns (64 hidden units, a chunk): warp
+// w takes units 8w..8w+7 of the chunk, all M rows. B's columns are staged
+// gate-major within each 8-unit group (the i gates of the 8 units, then f,
+// g, o), so the accumulator fragments at one lane position of the warp's
+// four n8 tiles are the i, f, g and o of the same (row, unit): the cell
+// update runs in registers, without a shuffle or a shared-memory round
+// trip. The permutation lives in the staging offsets alone.
+//   B: w_hh^T through a cp.async ring of kWideStages slabs of 16 depths by
+//   the chunk's 256 columns, each split into TF32 (hi, lo) by the warp
+//   that reads it (no two warps read the same column).
+//   A: h_{t-1} of the tile, read back from device memory (L2) where the
+//   block wrote it at step t-1 (a barrier between: the block reads only
+//   its own rows), split once into (hi, lo) pairs in a shared-memory window
+//   of 128 depths laid out so that one 16-byte load gives a lane its two
+//   fragment values of a row; every warp and chunk reads it. Past H = 128
+//   the window moves along the depth and is read again for each chunk.
+// Shared memory (the ring and the window, 103 KB at M = 48) does not grow
+// with H: every H >= 1 runs, two blocks an SM. h_t goes to out0 (hs or
+// every h_t; for h_T only, to out0 and the scratch in turns, so that the
+// last step lands in out0) and c_t to cs (training) or the scratch.
+// Measured on the H100 (lstm_fwd_probe.py): the products take about half
+// of the serve-shape time, the gate inputs' loads, the gate math, the
+// window and the stores the rest; the kernel is bound by latency (16
+// warps an SM, 128 registers), not by its operations or bytes.
+//
+// Precision, as the split-TF32 engine of bdgcn_gemm.cuh: each f32 operand
+// is split into a TF32 high part and a remainder rounded to TF32
+// (split_tf32_rn); each 8 depths' products are summed on the tensor cores
+// from 0, the cross terms first, then added in f32, rounded to nearest,
+// into sums that start from the gate input: x_proj, or the fused
+// projection (proj_in). So the fused and x_proj forms give the same bits.
+// The cell update is written as lstm_fwd.cuh writes it (cell_c), with expf
+// and tanhf. At t = 0 (h_{-1} = 0) the gates are the inputs.
+//
+// Inf and NaN: the window folds every h value it splits into x * 0
+// (fold_non_finite), and each block folds all of w_hh^T once; a warp
+// whose tile held an Inf or NaN in h_{t-1}, or a block whose w_hh^T held
+// one, sums each gate again in plain f32 (plain_gate_sum; at t = 0 that
+// is the 0 x Inf = NaN of the plain sum). Tiles without one keep their
+// bits. x_proj, x, w_ih and b are not split: they enter the gate in f32
+// and reach later steps through h.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include "smem.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
+// Sequence rows a thread of the resident BPTT owns (lstm_train.cu).
 constexpr int kRowsPerThread = 4;
 constexpr int kThreadsTarget = 256;
 
@@ -33,6 +78,14 @@ enum LstmFwdMode { kFwdLast = 0, kFwdCollect = 1, kFwdTrain = 2 };
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// c_t = f * c_{t-1} + i * g as the first resident forward's compiled code
+// rounds it (its SASS: FMUL of f and c_{t-1}, then FFMA of i and g onto
+// it): f * c_{t-1} rounded, then one FMA with i * g.
+__device__ __forceinline__ float cell_c(float fg, float c, float ig,
+                                        float gg) {
+  return __fmaf_rn(ig, gg, __fmul_rn(fg, c));
 }
 
 // A gate input of the fused form: x (F features) . w (F weights) + b, the
@@ -46,125 +99,423 @@ __device__ __forceinline__ float proj_in(const float* x, const float* w,
 }
 
 // Thread rows of a block at hidden width H, max(1, 256 / H), each of
-// kRowsPerThread sequence rows: the resident kernels' blocks are (H, by),
-// the wide ones' (min(H, 256), by), so a tile holds the same rows in both.
+// kRowsPerThread (BPTT) or kFwdRows (resident forward) sequence rows.
 inline int rows_y_for(int H) {
   return kThreadsTarget / H > 0 ? kThreadsTarget / H : 1;
 }
 
-inline int wide_bx(int H) { return H < kThreadsTarget ? H : kThreadsTarget; }
+// --- the wide forward --------------------------------------------------------
 
-inline size_t wide_fwd_smem_bytes(int H) {
-  return (size_t)3 * rows_y_for(H) * kRowsPerThread * H * sizeof(float);
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kWideUnits = 8 * kWideWarps;  // hidden units of a chunk
+constexpr int kWideCols = 4 * kWideUnits;   // its gate columns
+constexpr int kWideSlab = 16;               // depths of a staged B slab
+constexpr int kWideStages = 3;              // B slabs in flight
+constexpr int kWideBS = kWideCols + 8;      // B stage (k, n) row stride
+constexpr int kWideKW = 128;  // depths of h a window holds
+// the window's row stride (floats): (hi, lo) pairs, 16 more floats so that
+// the 8 lanes of a 16-byte load phase (two rows) fall on different banks
+constexpr int kWideHS = 2 * kWideKW + 16;
+constexpr size_t kWideRing =
+    sizeof(float) * kWideStages * kWideSlab * kWideBS;
+
+// kMI m16 row tiles a warp: M = 16 kMI rows a block
+template <int kMI>
+struct WideShape {
+  static constexpr int kM = 16 * kMI;
+};
+
+inline size_t wide_smem_bytes(int M) {
+  return kWideRing + sizeof(float) * M * kWideHS;
 }
 
-// kFwdLast writes h_T to out0 (R, H); kFwdCollect every h_t to out0
-// (T, R, H); kFwdTrain every h_t to out0 and every c_t to out1 (T, R, H).
-// kFused reads x (R, T, F), w_ih (4H, F) and b (4H) instead of x_proj.
-template <int kMode, bool kFused>
-__global__ void lstm_fwd_wide_kernel(const float* __restrict__ xp,
-                                     const float* __restrict__ whhT,
-                                     float* __restrict__ out0,
-                                     float* __restrict__ out1, int T, int R,
-                                     int H, const float* __restrict__ x,
-                                     const float* __restrict__ wih,
-                                     const float* __restrict__ b, int F) {
-  extern __shared__ float smem[];
+// The f32 sum over k < H of h[k] w_hh^T[k][col] in k order, from 0 (h
+// null: h_{-1} = 0): what a gate of a warp whose operands held an Inf or
+// NaN takes instead of its split-TF32 sum. Rare.
+__device__ __noinline__ float plain_gate_sum(const float* h,
+                                             const float* wcol, int H,
+                                             int G) {
+  float s = 0.0f;
+  for (int k = 0; k < H; ++k)
+    s = fmaf(h == nullptr ? 0.0f : h[k], wcol[(size_t)k * G], s);
+  return s;
+}
+
+// kFwdLast writes h_T to out0 (R, H) and uses scr (2, R, H): c, then the
+// h buffer of the steps whose h does not land in out0; kFwdCollect every
+// h_t to out0 (T, R, H), c in scr (R, H); kFwdTrain every h_t to out0 and
+// every c_t to out1 (T, R, H), no scratch. kF = 0 reads x_proj; kF >= 1
+// the fused form, x (R, T, kF), w_ih (4H, kF) and b (4H). vec: 16-byte
+// copies and loads (H % 4 == 0, every base 16-byte aligned).
+template <int kMode, int kF, int kMI>
+__global__ void __launch_bounds__(kWideThreads, 2)
+    lstm_fwd_wide_kernel(const float* __restrict__ xp,
+                         const float* __restrict__ whhT, float* out0,
+                         float* __restrict__ out1, float* scr, int T, int R,
+                         int H, const float* __restrict__ x,
+                         const float* __restrict__ wih,
+                         const float* __restrict__ b, int vec) {
+  constexpr int M = WideShape<kMI>::kM;
+  extern __shared__ __align__(16) float wide_smem[];
+  float* ring = wide_smem;  // kWideStages x (kWideSlab, kWideBS)
+  float* hsp = ring + kWideStages * kWideSlab * kWideBS;  // (M, kWideHS)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
   const int G = 4 * H;
-  const int bx = blockDim.x;
-  const int tile_rows = blockDim.y * kRowsPerThread;
-  float* hbuf = smem;                     // 2 x (tile_rows, H)
-  float* cbuf = hbuf + 2 * tile_rows * H;  // (tile_rows, H)
+  const int row0 = blockIdx.x * M;
+  const int n_chunks = (H + kWideUnits - 1) / kWideUnits;
+  const int n_ks = (H + kWideSlab - 1) / kWideSlab;
+  const int n_slabs = n_chunks * n_ks;
+  constexpr int ks_win = kWideKW / kWideSlab;  // slabs a window spans
+  const bool one_window = n_ks <= ks_win;
+  const size_t RH = (size_t)R * H;
 
-  const int tid = threadIdx.y * bx + threadIdx.x;
-  const int nthreads = bx * blockDim.y;
-  for (int i = tid; i < 3 * tile_rows * H; i += nthreads) smem[i] = 0.0f;
-  const int lr0 = threadIdx.y * kRowsPerThread;
-  const int row0 = blockIdx.x * tile_rows + lr0;
-  __syncthreads();
+  // where h_t lands (h_{t-1} is read back from there at step t)
+  auto h_at = [&](int t) -> float* {
+    if (kMode == kFwdLast) return ((T - 1 - t) & 1) ? scr + RH : out0;
+    return out0 + t * RH;
+  };
 
+  // stage slab s of a step: rows k0.. of w_hh^T at the chunk's columns,
+  // gate-major per warp (staged column n: warp n / 32, gate (n / 8) % 4,
+  // unit n % 8); entries past H are zero-filled
+  auto issue = [&](int s) {
+    float* bs = ring + (s % kWideStages) * kWideSlab * kWideBS;
+    const int c = s / n_ks, k0 = (s - c * n_ks) * kWideSlab;
+    const int u0 = c * kWideUnits;
+    if (vec) {  // 64 runs of 4 columns a row
+      const int q = tid & 63;
+      const int g = (q >> 1) & 3, u = u0 + (q >> 3) * 8 + (q & 1) * 4;
+#pragma unroll
+      for (int j = 0; j < kWideSlab * 64 / kWideThreads; ++j) {
+        const int kk = (tid >> 6) + (kWideThreads / 64) * j, k = k0 + kk;
+        const bool ok = k < H && u < H;
+        cp_async16(bs + kk * kWideBS + 4 * q,
+                   ok ? whhT + (size_t)k * G + g * H + u : whhT, ok ? 16 : 0);
+      }
+    } else {  // a column a thread
+      const int g = (tid >> 3) & 3, u = u0 + (tid >> 5) * 8 + (tid & 7);
+#pragma unroll 4
+      for (int kk = 0; kk < kWideSlab; ++kk) {
+        const int k = k0 + kk;
+        const bool ok = k < H && u < H;
+        cp_async4(bs + kk * kWideBS + tid,
+                  ok ? whhT + (size_t)k * G + g * H + u : whhT, ok ? 4 : 0);
+      }
+    }
+  };
+
+  // the window: h_{t-1} of the tile's rows at depths kw0.. kw0 + kWideKW,
+  // split into TF32 (hi, lo) pairs, depth k of row r at r kWideHS +
+  // (k & ~7) 2 + (k & 3) 4 + ((k >> 2) & 1) 2, so that one 16-byte load
+  // gives a lane its A fragment values (k, k + 4) of a row. Zeros past R
+  // and H. Returns NaN once a value was Inf or NaN.
+  auto load_window = [&](const float* hp, int kw0) {
+    // every load first, then the splits: one trip to L2
+    constexpr int kRuns = M * (kWideKW / 4) / kWideThreads;
+    float v[kRuns][4];
+#pragma unroll
+    for (int j = 0; j < kRuns; ++j) {
+      const int i = tid + j * kWideThreads;
+      const int r = i / (kWideKW / 4), kq = (i % (kWideKW / 4)) * 4;
+      const int k = kw0 + kq;
+      const float* src = hp + (size_t)(row0 + r) * H + k;
+      if (row0 + r < R && vec && k < H) {
+        const float4 f = *reinterpret_cast<const float4*>(src);
+        v[j][0] = f.x, v[j][1] = f.y, v[j][2] = f.z, v[j][3] = f.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[j][e] = row0 + r < R && k + e < H ? src[e] : 0.0f;
+      }
+    }
+    float nf = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kRuns; ++j) {
+      const int i = tid + j * kWideThreads;
+      const int r = i / (kWideKW / 4), kq = (i % (kWideKW / 4)) * 4;
+      float* dst = hsp + r * kWideHS + (kq & ~7) * 2 + ((kq >> 2) & 1) * 2;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        unsigned hi, lo;
+        nf = fold_non_finite(v[j][e], nf);
+        split_tf32_rn(v[j][e], hi, lo);
+        *reinterpret_cast<float2*>(dst + 4 * e) =
+            make_float2(__uint_as_float(hi), __uint_as_float(lo));
+      }
+    }
+    return nf;
+  };
+
+  // a gate input: x_proj, or x . w_ih + b in the fused form
+  auto gate_in = [&](int t, int r, int g, int u) -> float {
+    if constexpr (kF > 0)
+      return proj_in(x + ((size_t)r * T + t) * kF,
+                     wih + (size_t)(g * H + u) * kF, b[g * H + u], kF);
+    else
+      return xp[((size_t)t * R + r) * G + g * H + u];
+  };
+
+  // w_bad: w_hh^T holds an Inf or NaN. Then every gate of the block is
+  // summed in plain f32, which also makes NaN of 0 x Inf at t = 0.
+  bool w_bad;
+  {
+    float nf = 0.0f;
+    const long long n = (long long)H * G;
+    if (vec) {
+      const float4* w4 = reinterpret_cast<const float4*>(whhT);
+#pragma unroll 8
+      for (long long i = tid; i < n / 4; i += kWideThreads) {
+        const float4 f = w4[i];
+        nf = fold_non_finite(f.x, nf);
+        nf = fold_non_finite(f.y, nf);
+        nf = fold_non_finite(f.z, nf);
+        nf = fold_non_finite(f.w, nf);
+      }
+    } else {
+#pragma unroll 8
+      for (long long i = tid; i < n; i += kWideThreads)
+        nf = fold_non_finite(whhT[i], nf);
+    }
+    w_bad = __syncthreads_or(isnan(nf)) != 0;
+  }
+
+  // x_proj's gate inputs of units u, u + 1 in one 8-byte load
+  const bool pairs =
+      H % 2 == 0 && (reinterpret_cast<unsigned long long>(xp) & 7) == 0;
+  float acc[kMI][4][4];
   for (int t = 0; t < T; ++t) {
-    const float* hcur = hbuf + (t & 1) * tile_rows * H;
-    float* hnxt = hbuf + ((t + 1) & 1) * tile_rows * H;
-    const float* xt = xp + (size_t)t * R * G;
-    for (int j = threadIdx.x; j < H; j += bx) {
-      float acc[kRowsPerThread][4];
+    // step t-1's h and c stores are done, every warp is past the ring's
+    // and the window's last reads
+    __syncthreads();
+    const float* hp = t > 0 ? h_at(t - 1) : nullptr;
+    // h_{-1} = 0: no product at t = 0
+    const int n_prod = t > 0 ? n_slabs : 0;
+    for (int s = 0; s < kWideStages - 1; ++s) {
+      if (s < n_prod) issue(s);
+      cp_async_commit();
+    }
+    bool a_bad = false;  // the tile's h_{t-1} held an Inf or NaN
+    for (int c = 0; c < n_chunks; ++c) {
+      // the warp's units u, u + 1 (lane tq) for rows gq, gq + 8 of each
+      // m16 tile; each gate's sum starts from its input
+      const int u_w = c * kWideUnits + warp * 8 + 2 * tq;
 #pragma unroll
-      for (int q = 0; q < kRowsPerThread; ++q) {
-        const int r = row0 + q;
+      for (int i = 0; i < kMI; ++i)
 #pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          if constexpr (kFused)
-            acc[q][g] = r < R ? proj_in(x + ((size_t)r * T + t) * F,
-                                        wih + (size_t)(g * H + j) * F,
-                                        b[g * H + j], F)
-                              : 0.0f;
-          else
-            acc[q][g] = r < R ? xt[(size_t)r * G + g * H + j] : 0.0f;
+        for (int v = 0; v < 4; v += 2) {
+          const int r = row0 + i * 16 + gq + (v >> 1) * 8;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            if (kF == 0 && pairs && r < R && u_w < H) {
+              const float2 in = *reinterpret_cast<const float2*>(
+                  xp + ((size_t)t * R + r) * G + g * H + u_w);
+              acc[i][g][v] = in.x;
+              acc[i][g][v + 1] = in.y;
+            } else {
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                acc[i][g][v + e] =
+                    r < R && u_w + e < H ? gate_in(t, r, g, u_w + e) : 0.0f;
+            }
+          }
         }
-      }
-      for (int k = 0; k < H; ++k) {
-        const float* wk = whhT + (size_t)k * G + j;
-        const float w0 = __ldg(wk), w1 = __ldg(wk + H),
-                    w2 = __ldg(wk + 2 * H), w3 = __ldg(wk + 3 * H);
-#pragma unroll
-        for (int q = 0; q < kRowsPerThread; ++q) {
-          const float hk = hcur[(lr0 + q) * H + k];
-          acc[q][0] = fmaf(hk, w0, acc[q][0]);
-          acc[q][1] = fmaf(hk, w1, acc[q][1]);
-          acc[q][2] = fmaf(hk, w2, acc[q][2]);
-          acc[q][3] = fmaf(hk, w3, acc[q][3]);
+      for (int ks = 0; ks < (t > 0 ? n_ks : 0); ++ks) {
+        const int s = c * n_ks + ks, k0 = ks * kWideSlab;
+        cp_async_wait<kWideStages - 2>();
+        __syncthreads();  // slab s has landed; slab s - 1's readers are done
+        if (s + kWideStages - 1 < n_slabs) issue(s + kWideStages - 1);
+        cp_async_commit();
+        const int kw0 = ks / ks_win * kWideKW;
+        if (ks % ks_win == 0 && (c == 0 || !one_window)) {
+          if (ks == 0) a_bad = false;
+          a_bad |= __syncthreads_or(isnan(load_window(hp, kw0))) != 0;
         }
-      }
+        const float* bs = ring + (s % kWideStages) * kWideSlab * kWideBS +
+                          warp * 32;
 #pragma unroll
-      for (int q = 0; q < kRowsPerThread; ++q) {
-        const float ig = sigmoidf(acc[q][0]);
-        const float fg = sigmoidf(acc[q][1]);
-        const float gg = tanhf(acc[q][2]);
-        const float og = sigmoidf(acc[q][3]);
-        float* cq = cbuf + (lr0 + q) * H + j;
-        const float c = fg * *cq + ig * gg;
-        *cq = c;
-        const float h = og * tanhf(c);
-        hnxt[(lr0 + q) * H + j] = h;
-        const int r = row0 + q;
-        if (r < R) {
-          const size_t o = ((size_t)t * R + r) * H + j;
-          if (kMode == kFwdLast) {
-            if (t == T - 1) out0[(size_t)r * H + j] = h;
-          } else {
-            out0[o] = h;
-            if (kMode == kFwdTrain) out1[o] = c;
+        for (int k8 = 0; k8 < kWideSlab; k8 += 8) {
+          if (k0 + k8 >= H) break;
+          unsigned bh[4][2], bl[4][2];
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int v = 0; v < 2; ++v)
+              split_tf32_rn(bs[(k8 + tq + 4 * v) * kWideBS + g * 8 + gq],
+                            bh[g][v], bl[g][v]);
+          const float* ha =
+              hsp + gq * kWideHS + (k0 - kw0 + k8) * 2 + tq * 4;
+#pragma unroll
+          for (int i = 0; i < kMI; ++i) {
+            // rows gq and gq + 8 of m16 tile i: (hi, lo) at depths
+            // k8 + tq and k8 + tq + 4
+            const float4 r0 =
+                *reinterpret_cast<const float4*>(ha + i * 16 * kWideHS);
+            const float4 r8 = *reinterpret_cast<const float4*>(
+                ha + (i * 16 + 8) * kWideHS);
+            const unsigned ah[4] = {
+                __float_as_uint(r0.x), __float_as_uint(r8.x),
+                __float_as_uint(r0.z), __float_as_uint(r8.z)};
+            const unsigned al[4] = {
+                __float_as_uint(r0.y), __float_as_uint(r8.y),
+                __float_as_uint(r0.w), __float_as_uint(r8.w)};
+            // the 8 depths' products summed from 0, the small cross terms
+            // first, then added in f32; the four gates' sums interleaved,
+            // so that no product waits on the one before it
+            float p[4][4];
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+              mma_tf32_zero(p[g], al, bh[g][0], bh[g][1]);
+#pragma unroll
+            for (int g = 0; g < 4; ++g) mma_tf32(p[g], ah, bl[g][0], bl[g][1]);
+#pragma unroll
+            for (int g = 0; g < 4; ++g) mma_tf32(p[g], ah, bh[g][0], bh[g][1]);
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+#pragma unroll
+              for (int v = 0; v < 4; ++v) acc[i][g][v] += p[g][v];
           }
         }
       }
+
+      if (__any_sync(0xffffffffu, a_bad || w_bad)) {
+        // rare: an Inf or NaN in the operands; the gate input plus the
+        // plain f32 sum, as the plain version adds them
+#pragma unroll
+        for (int i = 0; i < kMI; ++i)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            const int r = row0 + i * 16 + gq + (v >> 1) * 8;
+            const int u = u_w + (v & 1);
+            if (r >= R || u >= H) continue;
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+              acc[i][g][v] = __fadd_rn(
+                  gate_in(t, r, g, u),
+                  plain_gate_sum(hp == nullptr ? nullptr : hp + (size_t)r * H,
+                                 whhT + g * H + u, H, G));
+          }
+      }
+      float* hn = h_at(t);
+      float* c_out = kMode == kFwdTrain ? out1 + t * RH : scr;
+      const float* c_in =
+          kMode == kFwdTrain ? out1 + (t > 0 ? t - 1 : 0) * RH : scr;
+      float cp[kMI][4];  // c_{t-1}, every load before the first store
+#pragma unroll
+      for (int i = 0; i < kMI; ++i)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int r = row0 + i * 16 + gq + (v >> 1) * 8;
+          const int u = u_w + (v & 1);
+          cp[i][v] = r < R && u < H && t > 0 ? c_in[(size_t)r * H + u] : 0.0f;
+        }
+#pragma unroll
+      for (int i = 0; i < kMI; ++i)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int r = row0 + i * 16 + gq + (v >> 1) * 8;
+          const int u = u_w + (v & 1);
+          if (r >= R || u >= H) continue;
+          const float ig = sigmoidf(acc[i][0][v]);
+          const float fg = sigmoidf(acc[i][1][v]);
+          const float gg = tanhf(acc[i][2][v]);
+          const float og = sigmoidf(acc[i][3][v]);
+          const float cn = cell_c(fg, cp[i][v], ig, gg);
+          const float h = __fmul_rn(og, tanhf(cn));
+          const size_t o = (size_t)r * H + u;
+          hn[o] = h;
+          c_out[o] = cn;
+        }
     }
-    __syncthreads();
   }
 }
 
-// Launch the wide forward, on x_proj or (kFused, the inference modes) from
-// x, w_ih and b with F features; refused (cudaErrorInvalidValue) only when
-// even its 3 x tile_rows x H floats exceed a block's shared memory.
-template <int kMode, bool kFused>
+// The row tile for R rows: the m16 tiles a warp takes (M = 16 kMI rows a
+// block, kMI = 2 or 3; two blocks an SM at every H), the fewest rounds of
+// tiles over the SMs times the work of a tile (its B staging and split,
+// about one m16 tile's products, plus its kMI m16 tiles), the larger tile
+// on a tie.
+inline cudaError_t wide_mi(int R, int* mi) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  long long best = -1;
+  for (int m = 3; m >= 2; --m) {
+    const long long tiles = (R + 16LL * m - 1) / (16LL * m);
+    const long long cost = (tiles + sms - 1) / sms * (1 + m);
+    if (best < 0 || cost < best) {
+      best = cost;
+      *mi = m;
+    }
+  }
+  return cudaSuccess;
+}
+
+template <int kMode, int kF, int kMI>
+cudaError_t launch_wide_mi(const float* xp, const float* x, const float* wih,
+                           const float* b, const float* whhT, float* out0,
+                           float* out1, float* scr, int T, int R, int H,
+                           int vec, cudaStream_t stream) {
+  constexpr int M = WideShape<kMI>::kM;
+  const size_t smem = wide_smem_bytes(M);
+  auto kernel = lstm_fwd_wide_kernel<kMode, kF, kMI>;
+  cudaError_t err = allow_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((R + M - 1) / M);
+  kernel<<<grid, kWideThreads, smem, stream>>>(xp, whhT, out0, out1, scr, T,
+                                               R, H, x, wih, b, vec);
+  return cudaGetLastError();
+}
+
+template <int kMode, int kF>
+cudaError_t launch_wide_f(const float* xp, const float* x, const float* wih,
+                          const float* b, const float* whhT, float* out0,
+                          float* out1, float* scr, int T, int R, int H,
+                          cudaStream_t stream) {
+  int mi = 3;
+  cudaError_t err = wide_mi(R, &mi);
+  if (err != cudaSuccess) return err;
+  const int vec = H % 4 == 0 && aligned16(whhT) && aligned16(out0) &&
+                  aligned16(scr);
+  if (mi == 2)
+    return launch_wide_mi<kMode, kF, 2>(xp, x, wih, b, whhT, out0, out1, scr,
+                                        T, R, H, vec, stream);
+  return launch_wide_mi<kMode, kF, 3>(xp, x, wih, b, whhT, out0, out1, scr, T,
+                                      R, H, vec, stream);
+}
+
+// Launch the wide forward on x_proj (F = 0) or, in the inference modes,
+// fused from x, w_ih and b with 1 <= F <= 4 features. The inference modes
+// need scr (see the kernel); training carries c in out1.
+template <int kMode>
 cudaError_t launch_fwd_wide(const float* xp, const float* x, const float* wih,
                             const float* b, int F, const float* whhT,
-                            float* out0, float* out1, int T, int R, int H,
-                            cudaStream_t stream) {
-  const size_t smem = wide_fwd_smem_bytes(H);
-  bool fits = false;
-  cudaError_t err = smem_fits(smem, &fits);
-  if (err != cudaSuccess) return err;
-  if (!fits) return cudaErrorInvalidValue;
-  auto kernel = lstm_fwd_wide_kernel<kMode, kFused>;
-  err = allow_smem((const void*)kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int bx = wide_bx(H), by = rows_y_for(H);
-  const int tile_rows = by * kRowsPerThread;
-  const dim3 grid((R + tile_rows - 1) / tile_rows);
-  kernel<<<grid, dim3(bx, by), smem, stream>>>(xp, whhT, out0, out1, T, R,
-                                               H, x, wih, b, F);
-  return cudaGetLastError();
+                            float* out0, float* out1, float* scr, int T,
+                            int R, int H, cudaStream_t stream) {
+  if (kMode != kFwdTrain && scr == nullptr) return cudaErrorInvalidValue;
+  if constexpr (kMode != kFwdTrain) {
+    switch (F) {
+      case 1:
+        return launch_wide_f<kMode, 1>(xp, x, wih, b, whhT, out0, out1, scr,
+                                       T, R, H, stream);
+      case 2:
+        return launch_wide_f<kMode, 2>(xp, x, wih, b, whhT, out0, out1, scr,
+                                       T, R, H, stream);
+      case 3:
+        return launch_wide_f<kMode, 3>(xp, x, wih, b, whhT, out0, out1, scr,
+                                       T, R, H, stream);
+      case 4:
+        return launch_wide_f<kMode, 4>(xp, x, wih, b, whhT, out0, out1, scr,
+                                       T, R, H, stream);
+      default:
+        break;
+    }
+  }
+  return launch_wide_f<kMode, 0>(xp, x, wih, b, whhT, out0, out1, scr, T, R,
+                                 H, stream);
 }
 
 }  // namespace

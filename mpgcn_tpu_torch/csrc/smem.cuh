@@ -1,7 +1,7 @@
-// Host helpers about a block's dynamic shared memory and about how many
-// blocks of a kernel the current device holds at once. Every source that
-// needs them includes this one copy, so a source may include any set of
-// the headers.
+// Host helpers about a block's dynamic shared memory, about how many
+// blocks of a kernel the current device holds at once, and about the
+// alignment that 16-byte copies need. Every source that needs them
+// includes this one copy, so a source may include any set of the headers.
 
 #pragma once
 
@@ -45,6 +45,12 @@ inline cudaError_t max_coresident(const void* kernel, int threads,
                                                         threads, smem);
   *out = per_sm * sms;
   return err;
+}
+
+// True when p may be read or written in 16-byte copies (null counts as
+// aligned: it is never read).
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
 }
 
 }  // namespace

@@ -9,7 +9,9 @@ replaces ``_make_last_kernel``, ``lstm_infer_collect_f32`` replaces
 ``lstm_layer_infer_plain``, the same function in plain PyTorch. There is
 no fallback: a CUDA tensor the kernel does not take raises. Every hidden
 width H >= 1 is taken: where w_hh does not fit a block's shared memory
-the forward entries launch their wide kernel (``csrc/lstm_wide.cuh``)
+the forward entries launch their wide kernel (``csrc/lstm_wide.cuh``:
+split-TF32 tensor-core products over row tiles, h and c carried in device
+memory, so the inference entries take a scratch, ``fwd_scratch``)
 instead of the resident one (``csrc/lstm_fwd.cuh``), and the BPTT runs
 its products on the split-TF32 engine of ``csrc/bdgcn_gemm.cuh`` (the
 gate recompute and dW_hh^T each one product over every time step, only dh
@@ -49,9 +51,9 @@ import torch
 from mpgcn_tpu_torch.native.build import CudaKernel, query_int
 
 LSTM_INFER_LAST = CudaKernel("lstm_infer", "lstm_infer_last_f32",
-                             n_ptrs=6, n_ints=4)
+                             n_ptrs=7, n_ints=4)
 LSTM_INFER_COLLECT = CudaKernel("lstm_infer", "lstm_infer_collect_f32",
-                                n_ptrs=6, n_ints=4)
+                                n_ptrs=7, n_ints=4)
 LSTM_TRAIN_FWD = CudaKernel("lstm_train", "lstm_train_fwd_f32",
                             n_ptrs=4, n_ints=3)
 LSTM_TRAIN_BWD = CudaKernel("lstm_train", "lstm_train_bwd_f32",
@@ -227,13 +229,33 @@ def _no_grad_only(*tensors) -> None:
                            "LSTMLayerFn); call it under torch.no_grad()")
 
 
+@functools.lru_cache(maxsize=None)
+def fwd_on_wide(index: int, H: int) -> bool:
+    """True where the forward entries on card ``index`` take their wide
+    kernel at width H (the resident kernel's shared memory does not fit a
+    block: H > 116 on the H100)."""
+    return bool(query_int("lstm_infer", "lstm_fwd_wide", (H,),
+                          torch.device("cuda", index)))
+
+
+def fwd_scratch(R: int, H: int, device, collect: bool):
+    """The inference entries' scratch: on the wide kernel, the c carry and,
+    for h_T only, a second h buffer, (1 if collect else 2, R, H); None on
+    the resident kernel."""
+    if not fwd_on_wide(device_index(device), H):
+        return None
+    return torch.empty((1 if collect else 2, R, H), dtype=torch.float32,
+                       device=device)
+
+
 def _infer_launch(xp, x, w_ih, b, w_hh_T, collect, T, R, H, F):
     """Launch an inference entry: on x_proj (x, w_ih, b None, F = 0) or
     fused from x, w_ih, b (xp None)."""
     shape = (T, R, H) if collect else (R, H)
     out = torch.empty(shape, dtype=torch.float32, device=w_hh_T.device)
     kernel = LSTM_INFER_COLLECT if collect else LSTM_INFER_LAST
-    kernel.launch((xp, w_hh_T, out, x, w_ih, b), (T, R, H, F))
+    scratch = fwd_scratch(R, H, w_hh_T.device, collect)
+    kernel.launch((xp, w_hh_T, out, x, w_ih, b, scratch), (T, R, H, F))
     return out
 
 

@@ -132,6 +132,44 @@ def test_lstm_fused_form_equals_projection_then_kernel(cuda_device, collect,
     assert torch.equal(fused, unfused)
 
 
+#: the wide forward's widths: every WIDE_LSTM shape (H = 65 and 96 take the
+#: resident kernel, the rest the wide one) and the two just past the
+#: resident forward's limit
+WIDE_FWD = WIDE_LSTM + [(1003, 117), (997, 118)]
+
+
+@pytest.mark.parametrize("R,H", WIDE_FWD, ids=[f"{R}-{H}" for R, H in
+                                                 WIDE_FWD])
+def test_wide_lstm_forwards_match_float64(cuda_device, record_property, R,
+                                          H):
+    """lstm_infer_last, lstm_infer_collect and lstm_train_fwd against their
+    plain versions in float64 on the same inputs, at KERNEL_TOL (the wide
+    kernel's split-TF32 products carry each f32 operand to 2^-22); the
+    largest error is recorded (``max_abs_err``); a second run of each
+    entry gives the same bits."""
+    T = _T_OF.get(H, 7)
+    rng = np.random.default_rng(R * H)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+    xp = t(rng.normal(size=(T, R, 4 * H)))
+    w = t(rng.normal(size=(H, 4 * H)) / np.sqrt(H))
+    runs = []
+    for _ in range(2):
+        runs.append([cuda_lstm.lstm_layer_infer(xp, w, False),
+                     cuda_lstm.lstm_layer_infer(xp, w, True),
+                     *cuda_lstm.lstm_layer_train(xp, w)])
+    torch.cuda.synchronize()
+    x64, w64 = xp.double(), w.double()
+    refs = [cuda_lstm.lstm_layer_infer_plain(x64, w64, False),
+            cuda_lstm.lstm_layer_infer_plain(x64, w64, True),
+            *cuda_lstm.lstm_layer_train_plain(x64, w64)]
+    err = 0.0
+    for out, again, ref in zip(*runs, refs):
+        torch.testing.assert_close(out.double(), ref, **KERNEL_TOL)
+        err = max(err, float((out.double() - ref).abs().max()))
+        assert torch.equal(out, again), "two runs differ"
+    record_property("max_abs_err", err)
+
+
 def test_lstm_kernel_rejects_what_it_does_not_take(cuda_device):
     xp = torch.zeros((7, 10, 4 * 32), device=cuda_device)
     w = torch.zeros((32, 128), device=cuda_device)
@@ -736,7 +774,8 @@ def _put_non_finite(dev, a, at):
     ("ell_bwd_dblk", "dout"), *[("bdgcn_pair_fwd", o) for o in ("h1", "g",
                                                                "w")],
     *[("bdgcn_pair_bwd", o) for o in ("h1", "g", "w", "dout")],
-    ("lstm_train_bwd_engine", "dhs"), ("lstm_train_bwd_resident", "dhs")],
+    ("lstm_train_bwd_engine", "dhs"), ("lstm_train_bwd_resident", "dhs"),
+    *[("lstm_fwd_wide", o) for o in ("x_proj", "w_hh", "x")]],
     ids="-".join)
 def test_split_tf32_entries_keep_inf_and_nan(cuda_device, entry, operand):
     """Every split-TF32 entry (and the resident BPTT, on the CUDA cores,
@@ -751,7 +790,10 @@ def test_split_tf32_entries_keep_inf_and_nan(cuda_device, entry, operand):
     populated f32 and bf16 tiles (one in columns past n_cols, which meet
     X rows that read 0) and in int8 scales, of row blocks with and
     without pad slots; X one per slice there, so that other slices stay
-    finite. dX's dout has its own test above."""
+    finite. dX's dout has its own test above. The wide LSTM forward
+    (H = 128) takes them in x_proj (the NaN at step 1: its row is NaN from
+    there on), w_hh^T (0 x Inf is NaN in the plain sum at t = 0, so every
+    later step is NaN: the outputs of every step) and x (the fused form)."""
     dev = cuda_device
     put = functools.partial(_put_non_finite, dev)
     if operand.startswith(("tile", "scale")):
@@ -853,6 +895,39 @@ def test_split_tf32_entries_keep_inf_and_nan(cuda_device, entry, operand):
         r1, rW = cuda_bdgcn.folded_pair_project_bwd_plain(*args)
         _same_non_finite(torch.cat([dh1.reshape(-1), dW.reshape(-1)]),
                          torch.cat([r1.reshape(-1), rW.reshape(-1)]))
+        return
+    if entry == "lstm_fwd_wide":
+        T, R, H = 7, 333, 128
+        assert cuda_lstm.fwd_on_wide(cuda_lstm.device_index(dev), H)
+        if operand == "x":
+            x, w_ih, b, w = _fused_inputs(dev, T, R, H, 1, seed=H)
+            # x (R, T, 1): rows 10, 200 at steps 1, 3; row 300's NaN at 0
+            x = put(x, [10 * T + 1, 200 * T + 3, 300 * T])
+            outs = [cuda_lstm.lstm_layer_infer_fused(x, w_ih, b, w, c)
+                    for c in (False, True)]
+            refs = [cuda_lstm.lstm_layer_infer_fused_plain(x, w_ih, b, w, c)
+                    for c in (False, True)]
+        else:
+            rng = np.random.default_rng(R + H)
+            t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+            xp = t(rng.normal(size=(T, R, 4 * H)))
+            w = t(rng.normal(size=(H, 4 * H)) / np.sqrt(H))
+            if operand == "x_proj":
+                xp = put(xp, [(3 * R + 20) * 4 * H + 7,
+                              (5 * R + 100) * 4 * H + 300,
+                              (R + 200) * 4 * H + 5])
+            else:
+                w = put(w, [5 * 4 * H + 3, 70 * 4 * H + 260,
+                            127 * 4 * H + 511])
+            outs = [cuda_lstm.lstm_layer_infer(xp, w, True),
+                    *cuda_lstm.lstm_layer_train(xp, w)]
+            refs = [cuda_lstm.lstm_layer_infer_plain(xp, w, True),
+                    *cuda_lstm.lstm_layer_train_plain(xp, w)]
+            if operand == "x_proj":
+                outs.append(cuda_lstm.lstm_layer_infer(xp, w, False))
+                refs.append(cuda_lstm.lstm_layer_infer_plain(xp, w, False))
+        for out, ref in zip(outs, refs):
+            _same_non_finite(out, ref)
         return
     T, R, H = (3, 333, 97) if entry.endswith("engine") else (7, 1001, 32)
     assert cuda_lstm.bwd_on_engine(cuda_lstm.device_index(dev), H) == (

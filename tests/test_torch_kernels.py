@@ -432,6 +432,23 @@ def test_cpu_wrappers_take_plain_version_without_launching():
     assert before == [k.launches for k in kernels]
 
 
+@pytest.mark.parametrize("H,collect,shape", [
+    (128, False, (2, 5, 128)), (128, True, (1, 5, 128)), (32, False, None)])
+def test_fwd_scratch_shape_follows_the_kernel(monkeypatch, H, collect,
+                                              shape):
+    """The inference entries' scratch: (2, R, H) for h_T only (the c carry
+    and a second h buffer), (1, R, H) for every h_t (the c carry), where
+    the card's forwards take the wide kernel; none on the resident one."""
+    monkeypatch.setattr(cuda_lstm, "device_index", lambda device: 0)
+    monkeypatch.setattr(cuda_lstm, "fwd_on_wide",
+                        lambda index, width: width > 116)
+    scratch = cuda_lstm.fwd_scratch(5, H, torch.device("cpu"), collect)
+    if shape is None:
+        assert scratch is None
+    else:
+        assert scratch.shape == shape and scratch.dtype == torch.float32
+
+
 def test_dw_reduce_cpu_takes_plain_version():
     """On the CPU the two backward entries that sum their dW partials in
     their own launch on the card take their plain versions, without a
