@@ -66,9 +66,18 @@
 
 namespace {
 
+// Sequence rows a thread of the resident BPTT owns (lstm_train.cu).
+constexpr int kRowsPerThread = 4;
+constexpr int kThreadsTarget = 256;
+
+// Thread rows of a block at hidden width H, max(1, 256 / H), each of
+// kRowsPerThread (BPTT) or kFwdRows (resident forward) sequence rows.
+inline int rows_y_for(int H) {
+  return kThreadsTarget / H > 0 ? kThreadsTarget / H : 1;
+}
+
 // Sequence rows a thread of the resident forward owns: each w_hh fragment
 // it loads serves this many rows (see the design note above for why 4).
-// kRowsPerThread of lstm_wide.cuh is the BPTT's.
 constexpr int kFwdRows = 4;
 // Blocks of the resident forward an SM holds at once: 85 registers a
 // thread at most. Its blocks are (H, rows_y_for(H)), at most 256 threads.

@@ -75,7 +75,7 @@
 // always did. Past that (chosen per call from H and the device's shared-
 // memory limit):
 //   - the forward takes lstm_fwd_wide_kernel of lstm_wide.cuh: row tiles
-//     of 32-64 sequences whose recurrent products run on split-TF32
+//     of 32-48 sequences whose recurrent products run on split-TF32
 //     mma.sync, each w_hh^T slab staged in shared memory serving the
 //     tile's rows; hs and cs carry h and c from step to step;
 //   - the BPTT runs on the split-TF32 products of bdgcn_gemm.cuh. Of its

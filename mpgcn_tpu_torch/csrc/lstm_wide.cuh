@@ -8,11 +8,10 @@
 // have one (h_{-1} = 0) are 2 (T-1) R H 4H = 13.9 GFLOP: 0.208 ms at 67
 // TFLOP/s on the CUDA cores, 0.084 ms at the TF32 rate for 3 split
 // products; x_proj is 254 MB (0.076 ms at 3.35 TB/s), the fused form reads
-// only x. The CUDA-core kernel this one replaced gave each block 8
-// sequence rows and read all of w_hh^T (16 H^2 = 256 KB) through the
-// read-only cache at every step: 2,209 blocks x 7 steps x 256 KB ~ 4 GB
-// from L2 a call, 4-byte loads per 16 FMAs; its recurrent loop took 0.72
-// of its 0.84 ms (lstm_fwd_probe.py).
+// only x. w_hh^T (16 H^2 = 256 KB) is read at every step: read once per 8
+// rows it is ~4 GB from L2 a call at the serve shape, which bounded a
+// CUDA-core kernel built that way (lstm_fwd_probe.py), so here many rows
+// share each staged slab of it.
 //
 // Design. A block of 8 warps owns a tile of M = 16 kMI sequence rows (M =
 // 48 at the wide model's shapes, wide_mi) and runs the whole time loop for
@@ -70,10 +69,6 @@
 
 namespace {
 
-// Sequence rows a thread of the resident BPTT owns (lstm_train.cu).
-constexpr int kRowsPerThread = 4;
-constexpr int kThreadsTarget = 256;
-
 enum LstmFwdMode { kFwdLast = 0, kFwdCollect = 1, kFwdTrain = 2 };
 
 __device__ __forceinline__ float sigmoidf(float x) {
@@ -96,12 +91,6 @@ __device__ __forceinline__ float proj_in(const float* x, const float* w,
   float p = __fmul_rn(x[0], w[0]);
   for (int f = 1; f < F; ++f) p = __fmaf_rn(x[f], w[f], p);
   return __fadd_rn(p, b);
-}
-
-// Thread rows of a block at hidden width H, max(1, 256 / H), each of
-// kRowsPerThread (BPTT) or kFwdRows (resident forward) sequence rows.
-inline int rows_y_for(int H) {
-  return kThreadsTarget / H > 0 ? kThreadsTarget / H : 1;
 }
 
 // --- the wide forward --------------------------------------------------------
