@@ -17,20 +17,26 @@ its own nvcc:
   nofma        the resident forward's recurrent products cut to their
                first 4 k;
   wide-nogate  the same cut of the wide forward's gate math;
-  wide-nofma   the wide forward's recurrent product cut to its first
-               depths (a 16-deep slab of each chunk in the tensor-core
-               kernel, 4 k in the CUDA-core kernel that it replaced).
-The wide variants rewrite whichever of the two wide kernels CHECKOUT
-holds. The cut variants give wrong outputs: only their times count. The
+  wide-nofma   the wide forward's recurrent product cut to one 16-deep
+               slab of each chunk;
+  wide-noc     the wide forward's c_{t-1} loads and c_t stores cut (what
+               carrying c in device memory costs);
+  wide-nowin   the wide forward's h window filled with zeros in place of
+               its loads of h_{t-1} from device memory;
+  wide-m32     the wide forward on row tiles of 32 rows at every R;
+  wide-m48     the same on 48 rows.
+The wide variants rewrite the tensor-core kernel of lstm_wide.cuh (PR 14
+on). The cut variants give wrong outputs: only their times count. The
 narrow group times lstm_infer_last on x_proj and fused from x (F = 1) and
 lstm_train_fwd at the N=500 step's shape (R = 500,000, T = 7, H = 32) and
 at the N=47 serve shape (R = 17,672); the wide group the same entries and
-lstm_infer_collect at the wide model's serve shape (R = 17,672, H = 128)
-and lstm_train_fwd at its training shape (R = 8,836). CUDA-event means
-over 20 calls after 3, in two rounds in opposite orders, one process a
-variant and round. The last line is one JSON object, {"device": ...,
-"times": {variant: [round 1, round 2]}}. Needs a CUDA card; imports
-nothing of JAX.
+lstm_infer_collect at the wide model's serve shape (R = 17,672, H = 128),
+lstm_train_fwd at its training shape (R = 8,836), and the fused form at
+its bucket-1 and bucket-2 serve shapes (R = 2,209 and 4,418). CUDA-event
+means over 20 calls after 3, in two rounds in opposite orders, one
+process a variant and round. The last line is one JSON object,
+{"device": ..., "times": {variant: [round 1, round 2]}}. Needs a CUDA
+card; imports nothing of JAX.
 """
 
 import argparse
@@ -42,41 +48,51 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join("mpgcn_tpu_torch", "csrc")
-_NOGATE = [("sigmoidf(acc[q][0])", "(acc[q][0] * 0.25f)"),
-           ("sigmoidf(acc[q][1])", "(acc[q][1] * 0.25f)"),
-           ("tanhf(acc[q][2])", "(acc[q][2] * 0.25f)"),
-           ("sigmoidf(acc[q][3])", "(acc[q][3] * 0.25f)")]
-#: variant -> (group, source under csrc/, alternative lists of (text,
-#: replacement) pairs: the first list whose texts all occur is applied)
+#: variant -> (group, source under csrc/, (text, replacement) pairs)
 VARIANTS = {
-    "base": ("all", "lstm_fwd.cuh", [[]]),
-    "rows8": ("narrow", "lstm_fwd.cuh", [[
+    "base": ("all", "lstm_fwd.cuh", []),
+    "rows8": ("narrow", "lstm_fwd.cuh", [
         ("constexpr int kFwdRows = 4;", "constexpr int kFwdRows = 8;"),
         ("constexpr int kFwdMinBlocks = 3;",
-         "constexpr int kFwdMinBlocks = 2;")]]),
+         "constexpr int kFwdMinBlocks = 2;")]),
     "nogate": ("narrow", "lstm_fwd.cuh", [
-        _NOGATE + [("__fmul_rn(og, tanhf(c[q]))", "__fmul_rn(og, c[q])")]]),
-    "nofma": ("narrow", "lstm_fwd.cuh", [[
+        ("sigmoidf(acc[q][0])", "(acc[q][0] * 0.25f)"),
+        ("sigmoidf(acc[q][1])", "(acc[q][1] * 0.25f)"),
+        ("tanhf(acc[q][2])", "(acc[q][2] * 0.25f)"),
+        ("sigmoidf(acc[q][3])", "(acc[q][3] * 0.25f)"),
+        ("__fmul_rn(og, tanhf(c[q]))", "__fmul_rn(og, c[q])")]),
+    "nofma": ("narrow", "lstm_fwd.cuh", [
         ("for (; k + 4 <= H; k += 4) {", "for (; k + 4 <= 4; k += 4) {"),
-        ("for (; k < H; ++k) {", "for (; k < 0; ++k) {")]]),
-    # the tensor-core kernel, then the CUDA-core kernel it replaced
+        ("for (; k < H; ++k) {", "for (; k < 0; ++k) {")]),
     "wide-nogate": ("wide", "lstm_wide.cuh", [
-        [("sigmoidf(acc[i][0][v])", "(acc[i][0][v] * 0.25f)"),
-         ("sigmoidf(acc[i][1][v])", "(acc[i][1][v] * 0.25f)"),
-         ("tanhf(acc[i][2][v])", "(acc[i][2][v] * 0.25f)"),
-         ("sigmoidf(acc[i][3][v])", "(acc[i][3][v] * 0.25f)"),
-         ("__fmul_rn(og, tanhf(cn))", "__fmul_rn(og, cn)")],
-        _NOGATE + [("og * tanhf(c)", "og * c")]]),
+        ("sigmoidf(acc[i][0][v])", "(acc[i][0][v] * 0.25f)"),
+        ("sigmoidf(acc[i][1][v])", "(acc[i][1][v] * 0.25f)"),
+        ("tanhf(acc[i][2][v])", "(acc[i][2][v] * 0.25f)"),
+        ("sigmoidf(acc[i][3][v])", "(acc[i][3][v] * 0.25f)"),
+        ("__fmul_rn(og, tanhf(cn))", "__fmul_rn(og, cn)")]),
     "wide-nofma": ("wide", "lstm_wide.cuh", [
-        [("const int n_ks = (H + kWideSlab - 1) / kWideSlab;",
-          "const int n_ks = 1;")],
-        [("for (int k = 0; k < H; ++k) {", "for (int k = 0; k < 4; ++k) {")]]),
+        ("const int n_ks = (H + kWideSlab - 1) / kWideSlab;",
+         "const int n_ks = 1;")]),
+    "wide-noc": ("wide", "lstm_wide.cuh", [
+        ("r < R && u < H && t > 0 ? c_in[(size_t)r * H + u] : 0.0f;",
+         "0.0f;"),
+        ("          c_out[o] = cn;\n",
+         "          (void)c_in, (void)c_out;\n")]),
+    "wide-nowin": ("wide", "lstm_wide.cuh", [
+        ("const float4 f = *reinterpret_cast<const float4*>(src);",
+         "const float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);")]),
+    "wide-m32": ("wide", "lstm_wide.cuh", [
+        ("if (R <= 32LL * sms)", "if (true)")]),
+    "wide-m48": ("wide", "lstm_wide.cuh", [
+        ("if (R <= 32LL * sms)", "if (false)")]),
 }
 #: (group, T, R, H, entries timed)
 SHAPES = [("narrow", 7, 500000, 32, ("last", "fused", "train")),
           ("narrow", 7, 17672, 32, ("last", "fused", "train")),
           ("wide", 7, 17672, 128, ("last", "fused", "collect")),
-          ("wide", 7, 8836, 128, ("train",))]
+          ("wide", 7, 8836, 128, ("train",)),
+          ("wide", 7, 2209, 128, ("fused",)),
+          ("wide", 7, 4418, 128, ("fused",))]
 
 
 def make_variant(root: str, name: str, dest: str) -> str:
@@ -86,16 +102,13 @@ def make_variant(root: str, name: str, dest: str) -> str:
     shutil.copytree(os.path.join(root, "mpgcn_tpu_torch"),
                     os.path.join(out, "mpgcn_tpu_torch"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    _, source, alternatives = VARIANTS[name]
+    _, source, rewrites = VARIANTS[name]
     path = os.path.join(out, CSRC, source)
     with open(path) as f:
         src = f.read()
-    for rewrites in alternatives:
-        if all(old in src for old, _ in rewrites):
-            break
-    else:
-        raise RuntimeError(f"variant {name}: no rewrite matches {source}")
     for old, new in rewrites:
+        if old not in src:
+            raise RuntimeError(f"variant {name}: {old!r} not in {source}")
         src = src.replace(old, new)
     with open(path, "w") as f:
         f.write(src)

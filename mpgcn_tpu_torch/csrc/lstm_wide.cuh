@@ -13,10 +13,10 @@
 // CUDA-core kernel built that way (lstm_fwd_probe.py), so here many rows
 // share each staged slab of it.
 //
-// Design. A block of 8 warps owns a tile of M = 16 kMI sequence rows (M =
-// 48 at the wide model's shapes, wide_mi) and runs the whole time loop for
-// it; each w_hh^T slab it stages serves the M rows: 0.66 GB from L2 a call
-// at the serve shape. At each step the product h_{t-1} w_hh^T (M x 4H,
+// Design. A block of 8 warps owns a tile of M = 16 kMI sequence rows (48,
+// or 32 at small R: launch_wide_f) and runs the whole time loop for it;
+// each w_hh^T slab it stages serves the M rows: 0.66 GB from L2 a call at
+// the serve shape. At each step the product h_{t-1} w_hh^T (M x 4H,
 // depth H) runs on the tensor cores, mma.sync m16n8k8 on split TF32
 // operands, in passes of 256 gate columns (64 hidden units, a chunk): warp
 // w takes units 8w..8w+7 of the chunk, all M rows. B's columns are staged
@@ -37,7 +37,12 @@
 // Shared memory (the ring and the window, 103 KB at M = 48) does not grow
 // with H: every H >= 1 runs, two blocks an SM. h_t goes to out0 (hs or
 // every h_t; for h_T only, to out0 and the scratch in turns, so that the
-// last step lands in out0) and c_t to cs (training) or the scratch.
+// last step lands in out0) and c_t to cs (training) or the scratch. Both
+// are carried in device memory at every H: a tile of c (24 KB) or a second
+// h window beside the ring would leave one block an SM, and c in registers
+// (4 kMI values a chunk, for a count of chunks fixed at compile time) would
+// need a second kernel for the H where it fits; lstm_fwd_probe.py measures
+// what the round trips cost (wide-noc, wide-nowin).
 // Measured on the H100 (lstm_fwd_probe.py): the products take about half
 // of the serve-shape time, the gate inputs' loads, the gate math, the
 // window and the stores the rest; the kernel is bound by latency (16
@@ -109,13 +114,8 @@ constexpr int kWideHS = 2 * kWideKW + 16;
 constexpr size_t kWideRing =
     sizeof(float) * kWideStages * kWideSlab * kWideBS;
 
-// kMI m16 row tiles a warp: M = 16 kMI rows a block
-template <int kMI>
-struct WideShape {
-  static constexpr int kM = 16 * kMI;
-};
-
-inline size_t wide_smem_bytes(int M) {
+// shared memory of a block of M rows: the ring and the h window
+constexpr size_t wide_smem_bytes(int M) {
   return kWideRing + sizeof(float) * M * kWideHS;
 }
 
@@ -145,7 +145,7 @@ __global__ void __launch_bounds__(kWideThreads, 2)
                          int H, const float* __restrict__ x,
                          const float* __restrict__ wih,
                          const float* __restrict__ b, int vec) {
-  constexpr int M = WideShape<kMI>::kM;
+  constexpr int M = 16 * kMI;  // kMI m16 row tiles a warp
   extern __shared__ __align__(16) float wide_smem[];
   float* ring = wide_smem;  // kWideStages x (kWideSlab, kWideBS)
   float* hsp = ring + kWideStages * kWideSlab * kWideBS;  // (M, kWideHS)
@@ -420,56 +420,37 @@ __global__ void __launch_bounds__(kWideThreads, 2)
   }
 }
 
-// The row tile for R rows: the m16 tiles a warp takes (M = 16 kMI rows a
-// block, kMI = 2 or 3; two blocks an SM at every H), the fewest rounds of
-// tiles over the SMs times the work of a tile (its B staging and split,
-// about one m16 tile's products, plus its kMI m16 tiles), the larger tile
-// on a tie.
-inline cudaError_t wide_mi(int R, int* mi) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  long long best = -1;
-  for (int m = 3; m >= 2; --m) {
-    const long long tiles = (R + 16LL * m - 1) / (16LL * m);
-    const long long cost = (tiles + sms - 1) / sms * (1 + m);
-    if (best < 0 || cost < best) {
-      best = cost;
-      *mi = m;
-    }
-  }
-  return cudaSuccess;
-}
-
 template <int kMode, int kF, int kMI>
 cudaError_t launch_wide_mi(const float* xp, const float* x, const float* wih,
                            const float* b, const float* whhT, float* out0,
                            float* out1, float* scr, int T, int R, int H,
                            int vec, cudaStream_t stream) {
-  constexpr int M = WideShape<kMI>::kM;
-  const size_t smem = wide_smem_bytes(M);
+  constexpr int M = 16 * kMI;
   auto kernel = lstm_fwd_wide_kernel<kMode, kF, kMI>;
-  cudaError_t err = allow_smem((const void*)kernel, smem);
+  cudaError_t err = allow_smem((const void*)kernel, wide_smem_bytes(M));
   if (err != cudaSuccess) return err;
-  const dim3 grid((R + M - 1) / M);
-  kernel<<<grid, kWideThreads, smem, stream>>>(xp, whhT, out0, out1, scr, T,
-                                               R, H, x, wih, b, vec);
+  kernel<<<(R + M - 1) / M, kWideThreads, wide_smem_bytes(M), stream>>>(
+      xp, whhT, out0, out1, scr, T, R, H, x, wih, b, vec);
   return cudaGetLastError();
 }
 
+// The row tile: 48 rows, or 32 where tiles of 32 rows take at most one
+// block an SM (R <= 32 SMs), so that each SM's one block has less work.
+// On the H100 at H = 128 (lstm_fwd_probe.py): 32 rows 30% faster at R =
+// 2,209, level at 4,418, 11-14% slower at 8,836 and 17,672.
 template <int kMode, int kF>
 cudaError_t launch_wide_f(const float* xp, const float* x, const float* wih,
                           const float* b, const float* whhT, float* out0,
                           float* out1, float* scr, int T, int R, int H,
                           cudaStream_t stream) {
-  int mi = 3;
-  cudaError_t err = wide_mi(R, &mi);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   const int vec = H % 4 == 0 && aligned16(whhT) && aligned16(out0) &&
                   aligned16(scr);
-  if (mi == 2)
+  if (R <= 32LL * sms)
     return launch_wide_mi<kMode, kF, 2>(xp, x, wih, b, whhT, out0, out1, scr,
                                         T, R, H, vec, stream);
   return launch_wide_mi<kMode, kF, 3>(xp, x, wih, b, whhT, out0, out1, scr, T,

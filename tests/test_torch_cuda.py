@@ -133,9 +133,10 @@ def test_lstm_fused_form_equals_projection_then_kernel(cuda_device, collect,
 
 
 #: the wide forward's widths: every WIDE_LSTM shape (H = 65 and 96 take the
-#: resident kernel, the rest the wide one) and the two just past the
-#: resident forward's limit
-WIDE_FWD = WIDE_LSTM + [(1003, 117), (997, 118)]
+#: resident kernel, the rest the wide one), the two just past the resident
+#: forward's limit, and R = 4,433 > 32 x 132 SMs, where the wide kernel
+#: takes 48-row tiles (32 below)
+WIDE_FWD = WIDE_LSTM + [(1003, 117), (997, 118), (4433, 128)]
 
 
 @pytest.mark.parametrize("R,H", WIDE_FWD, ids=[f"{R}-{H}" for R, H in
