@@ -70,11 +70,29 @@ Phases, each fatal on failure:
      the CLI (one epoch and test mode, N = 20) through the kernels; and
      the six entries' times (lstm_infer_last also fused from x), the
      bucket-8 rollout and the train step at the wide model's shapes;
- 10. last, the N=500 train step on int8 tiles, and the LSTM entries'
+ 10. the N=500 train step on int8 tiles, and the LSTM entries'
      times at the N=500 step's shapes (R = 500,000 sequences, T = 7,
      H = 32; the inference layer on x_proj and fused from x) beside
      nn.LSTM at that batch, with the resident kernels' registers and
-     spills.
+     spills;
+ 11. last, the reference command on a dataset file: the reference's data
+     directory written under smoke_out/reference_cli/data (the OD npz of
+     synthetic_od(T=455, N=47, seed 0), of which the loader keeps the
+     trailing 425 days, the adjacency and the POI features), then
+     `python -m mpgcn_tpu_torch.cli -GPU 0 -in DIR -data npz` driven
+     twice, each from the first live init seed of its configuration:
+     (a) the defaults (M=2, 1 LSTM layer, -norm none) and (b) -M 3
+     -lstm-layers 2 -nn 2 -norm minmax -split 7 1 2 -clip 1.0 -lrs
+     cosine (the poi branch from the features file). Each trains 2
+     epochs with exact launches per train and validation step, moves
+     every parameter, its loss falls, its checkpoint records the
+     normalizer (minmax: the min and max of log1p of the 425 days);
+     test mode rolls out 7 steps with exact launches and appends finite
+     scores, and test mode with the plain arms (-lstm plain -bdgcn
+     einsum) on a copy of the checkpoint launches no kernel and agrees
+     to rtol 1e-4. Steps/sec and test-mode times are printed with the
+     card's name and power limit; run (b) trains 3 more times, without
+     -clip, with it and without it, to read what the clip costs a step.
 
 The second-to-last line is a JSON object listing each kernel; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a card, and
@@ -653,17 +671,22 @@ def lstm_bwd_bound(T, R, H, engine):
                         f"3-split TF32 bound {tf32[0]:.5f} ms ({tf32[1]})")
 
 
-def device_activities(fn, n=5, tries=3, expect=None):
+#: idle seconds between each end of a profiler window and the calls in it
+PAD_S = 0.05
+
+
+def device_activities(fn, n=5, tries=5, expect=None):
     """Device activities (kernels, copies, sets) per call of ``fn`` over
     ``n`` calls (torch.profiler): their number per call, and a note with
     each name's count and device time per call. The calls are recorded
     after a warm-up step whose trace is dropped: the profiler has been
-    seen to miss the first device activity of its window, to miss one
-    activity of a window of five 5 ms calls, and, once in a run, to
-    record no device activity at all in its window (every call here
-    launches at least one kernel): such a window, or one whose count per
-    call is not ``expect``, is recorded again, up to ``tries`` windows in
-    all; the last is returned."""
+    seen to miss the first device activity of its window, to miss one or
+    two activities of a window of five 5 ms calls, and, once in a run,
+    to record no device activity at all in its window (every call here
+    launches at least one kernel). So the calls sit PAD_S of idle time
+    inside each end of the window, and a window with no activity, or one
+    whose count per call is not ``expect``, is recorded again, up to
+    ``tries`` windows in all; the last is returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -678,9 +701,11 @@ def device_activities(fn, n=5, tries=3, expect=None):
             fn()
             torch.cuda.synchronize()
             prof.step()
+            time.sleep(PAD_S)
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(PAD_S)
             prof.step()
         for e in prof.events():
             if (e.device_type == torch.autograd.DeviceType.CUDA
@@ -1426,7 +1451,7 @@ def phase_wide_model(dev, data, out_dir):
 
     cli_out = os.path.join(out_dir, "cli")
     os.makedirs(cli_out)
-    argv = ["-GPU", "0", "-hidden", "128", "-kernel",
+    argv = ["-GPU", "0", "-data", "synthetic", "-hidden", "128", "-kernel",
             "dual_random_walk_diffusion", "-K", "3", "-sN", "20", "-sT",
             "60", "-epoch", "1", "-out", cli_out]
     reset_counts()
@@ -2280,6 +2305,243 @@ def phase_large_n_lstm_times(dev):
               f"{json.dumps(entry)}", flush=True)
 
 
+#: the reference command's runs on a dataset file (phase 11): (a) the
+#: defaults, (b) the model-shape, data and optimizer flags, M = 3 putting
+#: the poi branch (read from the features file) on the path
+REF_CLI_RUNS = {
+    "a": ["-epoch", "2"],
+    "b": ["-M", "3", "-lstm-layers", "2", "-nn", "2", "-norm", "minmax",
+          "-split", "7", "1", "2", "-clip", "1.0", "-lrs", "cosine",
+          "-epoch", "2"],
+}
+#: days in the written npz: more than the 425 the loader keeps
+REF_CLI_DAYS = 455
+#: test-mode scores of one checkpoint, kernel arms against plain arms
+REF_CLI_SCORE_RTOL = 1e-4
+
+
+def card_name_and_limit() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = shutil.which("nvidia-smi")
+    require(smi is not None, "nvidia-smi not found")
+    return subprocess.run(
+        [smi, "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True
+    ).stdout.strip().splitlines()[0]
+
+
+def write_reference_tree(path):
+    """The reference's data directory at ``path``: the OD npz (one row of
+    47 x 47 counts a day, ``synthetic_od(T=455, N=47, seed 0)``), the
+    adjacency and the POI features; returns the OD series."""
+    import scipy.sparse as ss
+
+    from mpgcn_tpu_torch.data.loader import (
+        ADJ_NAME,
+        NPZ_NAME,
+        POI_FEAT_NAME,
+        REFERENCE_N,
+        synthetic_adjacency,
+        synthetic_od,
+        synthetic_poi_features,
+    )
+
+    n = REFERENCE_N
+    od = synthetic_od(REF_CLI_DAYS, n, 0)
+    ss.save_npz(os.path.join(path, NPZ_NAME),
+                ss.csr_matrix(od.reshape(REF_CLI_DAYS, n * n)))
+    np.save(os.path.join(path, ADJ_NAME), synthetic_adjacency(n, 0))
+    np.save(os.path.join(path, POI_FEAT_NAME), synthetic_poi_features(n))
+    return od
+
+
+class _Tee:
+    """stdout that is also kept, to read the lines the CLI prints."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, s):
+        self.lines.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _cli(argv):
+    """cli.main(argv) on the card: (its return value, its launches, the
+    host seconds it took, what it printed)."""
+    import contextlib
+
+    from mpgcn_tpu_torch import cli
+
+    tee = _Tee(sys.stdout)
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        ret = cli.main(argv)
+    counts = read_counts()
+    return ret, counts, time.perf_counter() - t0, "".join(tee.lines)
+
+
+def _scores(out_dir):
+    with open(os.path.join(out_dir, "MPGCN_prediction_scores.txt")) as f:
+        lines = [line.strip().split(", ") for line in f]
+    require([line[0] for line in lines] == ["train", "test"],
+            f"score file lines {lines}")
+    return np.array([[float(v) for v in line[5:]] for line in lines])
+
+
+def phase_reference_cli(dev, out_dir):
+    """The reference command on a dataset file: write the npz tree, then
+    for runs (a) and (b) train 2 epochs with ``python -m
+    mpgcn_tpu_torch.cli -GPU 0 -in DIR -data npz ...`` from the first live
+    init seed of the run's configuration, with exact launch counts, every
+    parameter moved, a falling loss and the checkpoint's normalizer
+    record; then test mode (7-step rollouts, exact launches, finite
+    scores), and test mode on a copy of the checkpoint with the plain arms
+    (-lstm plain -bdgcn einsum), whose scores must agree. Returns each
+    run's launches."""
+    import torch
+
+    from mpgcn_tpu_torch import cli
+    from mpgcn_tpu_torch.data.loader import REFERENCE_DAYS, load_dataset
+    from mpgcn_tpu_torch.data.pipeline import DataPipeline
+    from mpgcn_tpu_torch.nn.mpgcn import MPGCN
+    from mpgcn_tpu_torch.utils.convert import params_from_jax, read_checkpoint
+
+    tree = os.path.join(out_dir, "data")
+    os.makedirs(tree)
+    od = write_reference_tree(tree)
+    log_days = np.log(od[-REFERENCE_DAYS:] + 1.0)
+    all_counts, card = [], card_name_and_limit()
+    for run, flags in REF_CLI_RUNS.items():
+        base = ["-GPU", "0", "-in", tree, "-data", "npz"] + flags
+        t0 = time.perf_counter()
+        cfg = cli.config_from_args(
+            cli.build_parser().parse_args(base).__dict__)
+        data, _ = load_dataset(cfg)
+        load_s = time.perf_counter() - t0
+        require(data["OD"].shape == (REFERENCE_DAYS, 47, 47, 1),
+                f"run ({run}): OD {data['OD'].shape}")
+        cfg = cfg.replace(num_nodes=data["OD"].shape[1])
+        seed = live_init_seed(cfg, data, dev)
+        run_dir = os.path.join(out_dir, run)
+        argv = base + ["-seed", str(seed), "-out", run_dir]
+        tcfg = cfg.replace(seed=seed)
+        pipe = DataPipeline(tcfg, data, dev)
+        init = MPGCN.from_config(tcfg, device="cpu").state_dict()
+
+        hist, train_counts, train_s, printed = _cli(argv)
+        steps = tcfg.num_epochs * pipe.num_batches("train")
+        evals = len(hist["validate"]) * pipe.num_batches("validate")
+        per_step = _per_step(tcfg, True)
+        expect = _add(_scaled(per_step, steps),
+                      _scaled(_per_step(tcfg, False), evals))
+        require(train_counts == expect,
+                f"run ({run}): training launched {train_counts}, expected "
+                f"{expect}")
+        require(all(np.isfinite(hist["train"] + hist["validate"]))
+                and hist["train"][-1] < hist["train"][0],
+                f"run ({run}): epoch losses {hist}")
+        sps = _steps_per_sec(printed)
+        ckpt = read_checkpoint(os.path.join(run_dir, "MPGCN_od.pkl"))
+        require(ckpt["epoch"] >= 1, f"run ({run}): checkpoint epoch "
+                                    f"{ckpt['epoch']}")
+        trained = params_from_jax(ckpt["params"])
+        frozen = [n for n, v in init.items() if torch.equal(v, trained[n])]
+        require(not frozen, f"run ({run}): parameters never moved: {frozen}")
+        norm = {"kind": tcfg.norm, "state": {}}
+        if tcfg.norm == "minmax":
+            norm["state"] = {"min": float(log_days.min()),
+                             "max": float(log_days.max())}
+        require(ckpt["extra"]["normalizer"] == norm,
+                f"run ({run}): normalizer record "
+                f"{ckpt['extra']['normalizer']}, expected {norm}")
+
+        plain_dir = run_dir + "_plain"
+        os.makedirs(plain_dir)
+        shutil.copy(os.path.join(run_dir, "MPGCN_od.pkl"), plain_dir)
+        test = argv + ["-mode", "test"]
+        res, test_counts, test_s, _ = _cli(test)
+        tpipe = DataPipeline(tcfg.replace(pred_len=7, mode="test"), data,
+                             dev)
+        rollouts = sum(tpipe.num_batches(m) for m in ("train", "test"))
+        per_rollout = _scaled(_per_step(tcfg, False), 7)
+        require(test_counts == _scaled(per_rollout, rollouts),
+                f"run ({run}): test mode launched {test_counts}, expected "
+                f"{rollouts} x {per_rollout}")
+        scores = _scores(run_dir)
+        require(np.isfinite(scores).all()
+                and len(res["test"]["RMSE_by_horizon"]) == 7,
+                f"run ({run}): scores {scores}")
+        _, plain_counts, plain_s, _ = _cli(
+            [plain_dir if a == run_dir else a for a in test]
+            + ["-lstm", "plain", "-bdgcn", "einsum"])
+        require(not any(plain_counts.values()),
+                f"run ({run}): the plain arms launched {plain_counts}")
+        plain_scores = _scores(plain_dir)
+        rel = float(np.max(np.abs(scores - plain_scores)
+                           / np.abs(plain_scores)))
+        require(rel <= REF_CLI_SCORE_RTOL,
+                f"run ({run}): kernel scores {scores} vs plain "
+                f"{plain_scores} (max rel {rel:.3e})")
+        print(f"[ref-cli] ({run}) {' '.join(flags)} -seed {seed}: "
+              f"M={tcfg.num_branches} L={tcfg.lstm_num_layers} "
+              f"G={tcfg.gcn_num_layers} norm={tcfg.norm}; {steps} steps, "
+              f"{evals} validation steps; epoch losses {hist}; launches "
+              f"per train step {_nz(per_step)}, per 7-step rollout "
+              f"{_nz(per_rollout)} ({rollouts} rollouts); test scores "
+              f"(MSE, RMSE, MAE, MAPE) {scores.tolist()}; plain arms max "
+              f"rel difference {rel:.3e} (rtol {REF_CLI_SCORE_RTOL})",
+              flush=True)
+        print(f"[ref-cli] ({run}) timing on {card}: steps/sec {sps} "
+              f"(the CLI's, after its warm-up steps); train {train_s:.1f}s "
+              f"host clock; test mode {test_s:.3f}s host clock for "
+              f"{rollouts} 7-step rollouts ({test_s / rollouts * 1e3:.3f} "
+              f"ms each, data load and bank build included; the load "
+              f"alone {load_s:.3f}s); plain-arm test mode {plain_s:.3f}s",
+              flush=True)
+        if "-clip" in flags:
+            clip_cost(argv, run_dir, run, sps, card)
+        all_counts += [train_counts, test_counts]
+    return all_counts
+
+
+def _steps_per_sec(printed: str) -> str:
+    """The CLI's own steps/sec reading in what it printed."""
+    sps = [line.split()[-1] for line in printed.splitlines()
+           if line.startswith("steps/sec:")]
+    require(len(sps) == 1, "no steps/sec line")
+    return sps[0]
+
+
+def clip_cost(argv, run_dir, run, first_sps, card):
+    """What the global-norm clip costs a train step: the run's training
+    again without ``-clip``, with it, and without it (fresh output
+    directories, the same seed and data), beside the first run's
+    steps/sec."""
+    at = argv.index("-clip")
+    bare = argv[:at] + argv[at + 2:]
+    readings = [("-clip", first_sps)]
+    for i, (label, args) in enumerate((("no -clip", bare), ("-clip", argv),
+                                       ("no -clip", bare))):
+        out = f"{run_dir}_clip{i}"
+        hist, _, _, printed = _cli([out if a == run_dir else a
+                                    for a in args])
+        require(all(np.isfinite(hist["train"])),
+                f"run ({run}) {label}: epoch losses {hist}")
+        readings.append((label, _steps_per_sec(printed)))
+    print(f"[ref-cli] ({run}) the clip's cost on {card}: steps/sec "
+          + ", ".join(f"{v} ({label})" for label, v in readings)
+          + " (in this order)", flush=True)
+
+
+def _nz(counts: dict) -> dict:
+    return {n: v for n, v in counts.items() if v}
+
+
 def main() -> int:
     import torch
 
@@ -2410,12 +2672,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_large_n_lstm_times(dev)
 
-    smi = shutil.which("nvidia-smi")
-    require(smi is not None, "nvidia-smi not found")
-    card = subprocess.run(
-        [smi, "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True
-    ).stdout.strip().splitlines()[0]
+    # the reference command on a dataset file, after every phase above
+    out_r = os.path.join(HERE, "smoke_out", "reference_cli")
+    shutil.rmtree(out_r, ignore_errors=True)
+    os.makedirs(out_r)
+    for counts in phase_reference_cli(dev, out_r):
+        total = _add(total, counts)
+
+    card = card_name_and_limit()
     print(card)  # the card's name and power limit, as nvidia-smi gives them
     print(f"[done] smoke run took {time.perf_counter() - t_start:.1f}s")
 

@@ -1,36 +1,61 @@
 """Command-line entry point of the port (counterpart of the train/test flow
 of mpgcn_tpu/cli.py; reference Main.py:7-67).
 
-    python -m mpgcn_tpu_torch.cli -mode train -epoch 200 -out ./output
-    python -m mpgcn_tpu_torch.cli -mode test -out ./output
+    python -m mpgcn_tpu_torch.cli -in ../data -mode train -epoch 200
+    python -m mpgcn_tpu_torch.cli -in ../data -mode test
 
 Runs on the card (``-GPU 0``, the default) unless ``-GPU cpu`` asks for the
 CPU. Train mode trains the single-step model (pred_len is forced to 1, as
 in the reference, Main.py:44-45); test mode reloads ``<out>/MPGCN_od.pkl``
-and rolls out ``-pred`` steps. The data is the seeded synthetic OD series
-(``-data synthetic``). ``-kernel`` and ``-K`` pick the graph kernel and
-its order, and so the support count (2 K + 1 supports for
-``dual_random_walk_diffusion``). ``-bdgcn`` picks the BDGCN arm: ``auto``
-(the default) measures the support banks' density and takes the
-blocked-ELL arm at or below ``-sparse-threshold`` when N >=
-``-sparse-min-nodes``, else the dense kernel arm.
+and rolls out ``-pred`` steps.
+
+The data comes from ``-in`` (the reference's data directory: the OD npz,
+``adjacency_matrix.npy`` and, for a 'poi' branch, a POI similarity or
+feature file) under ``-data npz``, from the seeded synthetic generators
+under ``-data synthetic`` (``-sN``, ``-sT``, ``-sprofile``), and under
+``-data auto`` (the default) from the npz when it exists, else synthetic.
+The model, data and optimizer flags (``-model -t -norm -split -nn -M
+-lstm-layers -sources -lmax -clip -lrs -no-symnorm-clamp -iso -fix-dgraph
+-io-retries``) have the JAX CLI's names, types, defaults and choices.
+``-kernel`` and ``-K`` pick the graph kernel and its order, and so the
+support count (2 K + 1 supports for ``dual_random_walk_diffusion``).
+
+The arms keep the port's own names. ``-lstm``: ``auto`` and ``kernel`` run
+the hand-written LSTM kernels (the JAX CLI's ``pallas``), ``plain`` the
+plain PyTorch versions (its ``scan``), chosen for comparison only.
+``-bdgcn``: ``auto`` (the default) measures the support banks' density
+and takes the blocked-ELL arm at or below ``-sparse-threshold`` when N >=
+``-sparse-min-nodes``, else the dense kernel arm; ``einsum`` is the plain
+arm.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 from mpgcn_tpu_torch.config import MPGCNConfig
-from mpgcn_tpu_torch.data.loader import synthetic_dataset
+from mpgcn_tpu_torch.data.loader import load_dataset
+from mpgcn_tpu_torch.device import resolve_device
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Run OD Prediction.")
     p.add_argument("-GPU", "--GPU", type=str, default="0",
                    help="card index to run on (0 = cuda:0), or 'cpu'")
+    p.add_argument("-in", "--input_dir", type=str, default="../data")
     p.add_argument("-out", "--output_dir", type=str, default="./output")
+    p.add_argument("-model", "--model", type=str, choices=["MPGCN"],
+                   default="MPGCN")
+    p.add_argument("-t", "--time_slice", type=int, default=24,
+                   help="parsed for reference-CLI parity; values other "
+                        "than 24 are rejected (the reference ignores it)")
     p.add_argument("-obs", "--obs_len", type=int, default=7)
     p.add_argument("-pred", "--pred_len", type=int, default=7)
+    p.add_argument("-norm", "--norm", type=str,
+                   choices=["none", "minmax", "std"], default="none")
+    p.add_argument("-split", "--split_ratio", type=float, nargs="+",
+                   default=[6.4, 1.6, 2])
     p.add_argument("-batch", "--batch_size", type=int, default=4)
     p.add_argument("-hidden", "--hidden_dim", type=int, default=32)
     p.add_argument("-kernel", "--kernel_type", type=str,
@@ -38,6 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
                             "dual_random_walk_diffusion"],
                    default="random_walk_diffusion")
     p.add_argument("-K", "--cheby_order", type=int, default=2)
+    p.add_argument("-nn", "--nn_layers", type=int, default=None,
+                   help="graph-conv layers per branch (gcn_num_layers; "
+                        "unset keeps the reference's 3)")
     p.add_argument("-loss", "--loss", type=str,
                    choices=["MSE", "MAE", "Huber"], default="MSE")
     p.add_argument("-optim", "--optimizer", type=str, default="Adam")
@@ -46,12 +74,42 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-epoch", "--num_epochs", type=int, default=200)
     p.add_argument("-mode", "--mode", type=str, choices=["train", "test"],
                    default="train")
-    p.add_argument("-data", "--data", type=str, choices=["synthetic"],
-                   default="synthetic")
+    p.add_argument("-M", "--num_branches", type=int, default=None,
+                   help="perspective branches: 1 = static graph only, 2 = "
+                        "static + dynamic (the reference), 3 = + POI "
+                        "similarity; default len(-sources) or 2; other M "
+                        "need -sources")
+    p.add_argument("-lstm-layers", "--lstm_num_layers", type=int, default=1,
+                   help="stacked LSTM layers per branch")
+    p.add_argument("-sources", "--branch_sources", type=str, nargs="+",
+                   default=None, choices=["static", "dynamic", "poi"],
+                   help="per-branch graph sources, one per branch")
+    p.add_argument("-data", "--data", type=str,
+                   choices=["auto", "npz", "synthetic"], default="auto",
+                   help="npz = the files in -in, synthetic = the seeded "
+                        "generators, auto = the npz when it exists")
     p.add_argument("-seed", "--seed", type=int, default=0)
     p.add_argument("-shuffle", "--shuffle", action="store_true")
     p.add_argument("-sN", "--synthetic_N", type=int, default=47)
     p.add_argument("-sT", "--synthetic_T", type=int, default=425)
+    p.add_argument("-sprofile", "--synthetic_profile", type=str,
+                   choices=["smooth", "realistic"], default="smooth",
+                   help="synthetic OD statistics: smooth (every pair "
+                        "active) or realistic (zero-inflated pairs, "
+                        "heavy-tailed rates, dead zones)")
+    p.add_argument("-lmax", "--lambda_max", default=2.0,
+                   type=lambda s: None if s == "auto" else float(s),
+                   help="Chebyshev Laplacian rescale: a float, or 'auto' "
+                        "for power-iteration estimation")
+    p.add_argument("-clip", "--clip_norm", type=float, default=0.0,
+                   help="global-norm gradient clipping (0 = off)")
+    p.add_argument("-lrs", "--lr_schedule", type=str,
+                   choices=["none", "cosine", "exponential"], default="none")
+    p.add_argument("-lstm", "--lstm_impl", type=str,
+                   choices=["auto", "kernel", "plain"], default="auto",
+                   help="LSTM arm: auto and kernel = the hand-written "
+                        "kernels (the JAX CLI's pallas), plain = the plain "
+                        "PyTorch version (its scan), for comparison")
     p.add_argument("-bdgcn", "--bdgcn_impl", type=str,
                    choices=["auto", "kernel", "einsum", "ell"],
                    default="auto",
@@ -75,6 +133,22 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None,
                    help="-bdgcn auto never picks the sparse arm below this "
                         "node count (default 256)")
+    p.add_argument("-no-symnorm-clamp", "--no_symnorm_clamp",
+                   dest="symnorm_degree_clamp", action="store_false",
+                   help="fail fast on zero-degree rows of the sym-norm "
+                        "kernels (-iso policy) instead of mapping them to "
+                        "zero support rows")
+    p.add_argument("-io-retries", "--io_retries", type=int, default=3,
+                   help="attempts per data-file read before failing with "
+                        "an error naming the file")
+    p.add_argument("-iso", "--isolated_nodes", type=str,
+                   choices=["error", "selfloop", "ignore"], default="error",
+                   help="zero-degree / non-finite graph rows at load: fail "
+                        "fast, self-loop auto-clean, or keep the "
+                        "reference's NaN propagation")
+    p.add_argument("-fix-dgraph", "--fix_d_graph", action="store_true",
+                   help="use the paper-correct D-graph (eq. 7) instead of "
+                        "reproducing the reference's index bug")
     return p
 
 
@@ -87,21 +161,46 @@ def device_for(gpu: str) -> str:
     return f"cuda:{gpu}"
 
 
-def main(argv=None):
-    from mpgcn_tpu_torch.train.trainer import ModelTrainer
+#: flags that pick the device and the arms, not config fields
+RUN_FLAGS = ("GPU", "lstm_impl", "bdgcn_impl")
 
-    args = build_parser().parse_args(argv).__dict__
-    device = device_for(args.pop("GPU"))
-    args.pop("data")
-    bdgcn_impl = args.pop("bdgcn_impl")
+
+def config_from_args(args: dict) -> MPGCNConfig:
+    """The config the parsed flags ``args`` give, as mpgcn_tpu/cli.py
+    builds it (:464-482). Consumes the flags that are not config fields;
+    any other dest that names no field raises."""
+    for flag in RUN_FLAGS:
+        args.pop(flag, None)
     for knob in ("sparse_density_threshold", "sparse_min_nodes"):
         if args[knob] is None:  # not given: the config default stands
             args.pop(knob)
     if args["mode"] == "train":
         args["pred_len"] = 1  # train the single-step model (Main.py:44-45)
-    cfg = MPGCNConfig(**args)
-    trainer = ModelTrainer(cfg, synthetic_dataset(cfg), device=device,
-                           bdgcn_impl=bdgcn_impl)
+    args["reproduce_d_graph_bug"] = not args.pop("fix_d_graph")
+    if args["num_branches"] is None:
+        # a source lineup defines M; given both, the config checks them
+        args["num_branches"] = (len(args["branch_sources"])
+                                if args["branch_sources"] else 2)
+    nn_layers = args.pop("nn_layers")
+    if nn_layers is not None:
+        args["gcn_num_layers"] = nn_layers
+    return MPGCNConfig(**args)
+
+
+def main(argv=None):
+    from mpgcn_tpu_torch.train.trainer import ModelTrainer
+
+    args = build_parser().parse_args(argv).__dict__
+    # no card, no data loading: the device is checked first
+    device = resolve_device(device_for(args["GPU"]))
+    lstm_impl = "plain" if args["lstm_impl"] == "plain" else "kernel"
+    bdgcn_impl = args["bdgcn_impl"]
+    cfg = config_from_args(args)
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    data, data_input = load_dataset(cfg)
+    cfg = cfg.replace(num_nodes=data["OD"].shape[1])
+    trainer = ModelTrainer(cfg, data, device=device, lstm_impl=lstm_impl,
+                           bdgcn_impl=bdgcn_impl, data_container=data_input)
     if cfg.mode == "train":
         return trainer.train()
     return trainer.test()

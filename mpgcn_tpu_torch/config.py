@@ -1,12 +1,17 @@
 """Configuration for the PyTorch/CUDA port of MPGCN.
 
-The fields the serving and training paths read, with the same names,
-defaults and validation as the JAX package's ``MPGCNConfig`` and
-``ServeConfig``, so one set of values configures either package. Knobs of
-paths this port does not have yet (padded-CSR supports, sparse OD storage,
-meshes, precision modes, resume, rollback) are not here; they arrive with
-the slices that run them. The BDGCN arm is not a config field: it is the
-``bdgcn_impl`` argument of ``ModelTrainer`` and ``ServeEngine``.
+The fields the serving and training paths and the command line read, with
+the same names, defaults and validation as the JAX package's
+``MPGCNConfig`` and ``ServeConfig``, so one set of values configures either
+package: the reference flag surface (dataset directory, ``time_slice``,
+normalization, split, model shape), the data source (``data``: the
+reference npz or the synthetic generators), the optimizer's ``clip_norm``
+and ``lr_schedule``, and the data-file read retries. Knobs of paths this
+port does not have yet (padded-CSR supports, sparse OD storage, meshes,
+precision modes, resume, rollback, fault injection) are not here; they
+arrive with the slices that run them. The BDGCN arm is not a config
+field: it is the ``bdgcn_impl`` argument of ``ModelTrainer`` and
+``ServeEngine``.
 """
 
 from __future__ import annotations
@@ -34,8 +39,10 @@ BDGCN_IMPLS = ("kernel", "einsum", "ell")
 @dataclasses.dataclass(frozen=True)
 class MPGCNConfig:
     # --- reference flag surface (Main.py:11-37) ---
+    input_dir: str = "../data"
     output_dir: str = "./output"
     model: str = "MPGCN"
+    time_slice: int = 24                    # parsed for parity; only 24
     obs_len: int = 7
     pred_len: int = 7
     norm: str = "none"                      # none | minmax | std
@@ -71,11 +78,19 @@ class MPGCNConfig:
     seed: int = 0
     lambda_max: float | None = 2.0          # chebyshev rescale; None => power
     lambda_max_iters: int = 16              # iteration steps when None
+    data: str = "auto"                      # auto | npz | synthetic
     synthetic_T: int = 425
     synthetic_N: int = 47
     synthetic_profile: str = "smooth"       # smooth | realistic
     symnorm_degree_clamp: bool = True       # zero-degree rows -> zero rows
     isolated_nodes: str = "error"           # error | selfloop | ignore
+    clip_norm: float = 0.0                  # global-norm gradient clipping
+    #                                         (0 = off, reference behavior)
+    lr_schedule: str = "none"               # none | cosine | exponential
+    #                                         decay over the training run
+    io_retries: int = 3                     # attempts per data-file read
+    io_retry_delay_s: float = 0.05          # base backoff between retries
+    #                                         (doubles per attempt)
 
     # --- the sparse support plane (sparse/) ---
     support_payload: str = "f32"            # f32 | bf16 | int8: how the
@@ -93,6 +108,8 @@ class MPGCNConfig:
             "norm": ("none", "minmax", "std"),
             "loss": ("MSE", "MAE", "Huber"),
             "mode": ("train", "test"),
+            "data": ("auto", "npz", "synthetic"),
+            "lr_schedule": ("none", "cosine", "exponential"),
             "kernel_type": ("localpool", "chebyshev", "random_walk_diffusion",
                             "dual_random_walk_diffusion"),
             "synthetic_profile": ("smooth", "realistic"),
@@ -126,6 +143,16 @@ class MPGCNConfig:
                 f"must be in [0, 1] (a density fraction)")
         if self.sparse_min_nodes < 1:
             raise ValueError("sparse_min_nodes must be >= 1")
+        if self.io_retries < 1:
+            raise ValueError("io_retries must be >= 1")
+        if self.io_retry_delay_s < 0:
+            raise ValueError("io_retry_delay_s must be >= 0")
+        if self.time_slice != 24:
+            # the reference parses -t and never reads it (Main.py:15)
+            raise ValueError(
+                "time_slice has no effect: the daily-OD pipeline has no "
+                "sub-daily slicing (the reference parses -t and ignores it). "
+                "Remove -t / leave it at the default 24.")
 
     @property
     def resolved_branch_sources(self) -> tuple[str, ...]:
@@ -142,6 +169,13 @@ class MPGCNConfig:
 
     def replace(self, **kw) -> "MPGCNConfig":
         return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "MPGCNConfig":
+        """The config from the entries of ``d`` that name a field; the
+        rest are ignored."""
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in fields})
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,20 +1,38 @@
-"""Dataset generation and preprocessing, numpy only (counterpart of
-mpgcn_tpu/data/loader.py).
+"""Dataset loading and preprocessing, numpy only (counterpart of
+mpgcn_tpu/data/loader.py; reference Data_Container_OD.py:10-79).
+
+``load_dataset(cfg)`` reads the reference's data directory
+(``cfg.input_dir``): the sparse OD npz (``NPZ_NAME``, one row per day of
+47 x 47 counts), of which the trailing 425 days are kept, the static
+adjacency (``ADJ_NAME``) and, for a 'poi' branch, a POI similarity or
+POI feature file. ``cfg.data`` picks the source: ``npz`` reads the files,
+``synthetic`` draws the seeded generators, ``auto`` reads the npz when it
+exists. The preprocessing then adds the channel dim, takes log1p, fits
+the normalizer (whose state a checkpoint carries, and which
+``denormalize`` inverts) and builds the dynamic O/D graphs.
 
 The generators keep the JAX package's draw order, so one seed gives
 byte-identical datasets in both packages: the port is checked against the
-JAX package on the same data. The real NYC-taxi npz loader is not ported
-yet; the synthetic weekly-periodic flows drive the port end to end.
+JAX package on the same data.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
 
 from mpgcn_tpu_torch.config import MPGCNConfig
 from mpgcn_tpu_torch.data.dyn_graphs import construct_dyn_g
+from mpgcn_tpu_torch.utils.retry import read_with_retry
+
+NPZ_NAME = "od_day20180101_20210228.npz"
+ADJ_NAME = "adjacency_matrix.npy"
+POI_SIM_NAME = "poi_similarity.npy"     # precomputed (N, N) similarity
+POI_FEAT_NAME = "poi_features.npy"      # (N, n_categories) counts -> cosine
+REFERENCE_N = 47
+REFERENCE_DAYS = 425  # 2020-01-01 .. 2021-02-28 (reference: :17)
 
 
 class NoNormalizer:
@@ -25,6 +43,15 @@ class NoNormalizer:
 
     def normalize(self, x):
         return x
+
+    def denormalize(self, x):
+        return x
+
+    def state(self):
+        return {}
+
+    def load_state(self, s):
+        pass
 
 
 class MinMaxNormalizer(NoNormalizer):
@@ -37,10 +64,20 @@ class MinMaxNormalizer(NoNormalizer):
 
     def fit(self, x):
         self._max, self._min = float(x.max()), float(x.min())
+        print("min:", self._min, "max:", self._max)
         return self.normalize(x)
 
     def normalize(self, x):
         return (x - self._min) / (self._max - self._min)
+
+    def denormalize(self, x):
+        return (self._max - self._min) * x + self._min
+
+    def state(self):
+        return {"min": self._min, "max": self._max}
+
+    def load_state(self, s):
+        self._min, self._max = s["min"], s["max"]
 
 
 class StdNormalizer(NoNormalizer):
@@ -53,10 +90,20 @@ class StdNormalizer(NoNormalizer):
 
     def fit(self, x):
         self._mean, self._std = float(x.mean()), float(x.std())
+        print("mean:", round(self._mean, 4), "std:", round(self._std, 4))
         return self.normalize(x)
 
     def normalize(self, x):
         return (x - self._mean) / self._std
+
+    def denormalize(self, x):
+        return x * self._std + self._mean
+
+    def state(self):
+        return {"mean": self._mean, "std": self._std}
+
+    def load_state(self, s):
+        self._mean, self._std = s["mean"], s["std"]
 
 
 def make_normalizer(kind: str) -> NoNormalizer:
@@ -148,6 +195,72 @@ def synthetic_adjacency(N: int, seed: int = 0, salt: str = "") -> np.ndarray:
     return A
 
 
+class DataInput:
+    """Load and preprocess the dataset ``cfg`` names (reference:
+    Data_Container_OD.py:10-37); ``normalizer`` keeps the fitted state."""
+
+    def __init__(self, cfg: MPGCNConfig):
+        self.cfg = cfg
+        self.normalizer = make_normalizer(cfg.norm)
+        self._used_npz = False
+
+    def _read(self, loader, path: str):
+        """One data-file read, retried up to ``cfg.io_retries`` times."""
+        return read_with_retry(lambda: loader(path), path,
+                               attempts=self.cfg.io_retries,
+                               base_delay_s=self.cfg.io_retry_delay_s)
+
+    def _load_raw(self) -> tuple[np.ndarray, np.ndarray]:
+        cfg = self.cfg
+        npz_path = os.path.join(cfg.input_dir, NPZ_NAME)
+        adj_path = os.path.join(cfg.input_dir, ADJ_NAME)
+        self._used_npz = cfg.data == "npz" or (cfg.data == "auto"
+                                               and os.path.exists(npz_path))
+        if not self._used_npz:
+            return (synthetic_od(cfg.synthetic_T, cfg.synthetic_N, cfg.seed,
+                                 profile=cfg.synthetic_profile),
+                    synthetic_adjacency(cfg.synthetic_N, cfg.seed))
+        import scipy.sparse as ss
+
+        sparse = self._read(ss.load_npz, npz_path)
+        dense = np.asarray(sparse.todense()).reshape((-1, REFERENCE_N,
+                                                      REFERENCE_N))
+        raw = dense[-REFERENCE_DAYS:]  # the trailing 425 days (:17-18)
+        return raw, self._read(np.load, adj_path)
+
+    def _load_poi_similarity(self, N: int) -> np.ndarray:
+        """The 'poi' branch's graph: a precomputed (N, N) similarity, else
+        the cosine similarity of (N, n_categories) POI features, else the
+        synthetic features'. The files are read only when the OD series
+        came from disk: synthetic zones have nothing to do with them."""
+        cfg = self.cfg
+        sim_path = os.path.join(cfg.input_dir, POI_SIM_NAME)
+        feat_path = os.path.join(cfg.input_dir, POI_FEAT_NAME)
+        if self._used_npz and os.path.exists(sim_path):
+            sim = self._read(np.load, sim_path)
+        elif self._used_npz and os.path.exists(feat_path):
+            sim = poi_cosine_similarity(self._read(np.load, feat_path))
+        else:
+            if self._used_npz:
+                print(f"no {POI_SIM_NAME}/{POI_FEAT_NAME} in "
+                      f"{cfg.input_dir}; using synthetic POI features for "
+                      f"the 'poi' branch")
+            sim = poi_cosine_similarity(
+                synthetic_poi_features(N, seed=cfg.seed))
+        if sim.shape != (N, N):
+            raise ValueError(
+                f"POI similarity is {sim.shape}, expected ({N}, {N})")
+        return sim
+
+    def load_data(self) -> dict:
+        raw, adj = self._load_raw()
+        print(raw[..., None].shape)  # the reference's banner (:18)
+        poi_sim = (self._load_poi_similarity(raw.shape[1])
+                   if "poi" in self.cfg.resolved_branch_sources else None)
+        return preprocess_od(raw, adj, self.cfg, self.normalizer,
+                             poi_sim=poi_sim)
+
+
 def preprocess_od(raw: np.ndarray, adj: np.ndarray, cfg: MPGCNConfig,
                   normalizer: Optional[NoNormalizer] = None,
                   poi_sim: Optional[np.ndarray] = None) -> dict:
@@ -173,13 +286,18 @@ def preprocess_od(raw: np.ndarray, adj: np.ndarray, cfg: MPGCNConfig,
             "poi_sim": poi_sim}
 
 
+def load_dataset(cfg: MPGCNConfig) -> tuple[dict, DataInput]:
+    """The data dict for ``cfg`` and the ``DataInput`` that holds its
+    fitted normalizer."""
+    di = DataInput(cfg)
+    return di.load_data(), di
+
+
 def synthetic_dataset(cfg: MPGCNConfig) -> dict:
     """The synthetic data dict for ``cfg`` (synthetic_T days over
-    synthetic_N zones, drawn from ``cfg.seed``)."""
-    raw = synthetic_od(cfg.synthetic_T, cfg.synthetic_N, cfg.seed,
-                       profile=cfg.synthetic_profile)
-    adj = synthetic_adjacency(cfg.synthetic_N, cfg.seed)
-    return preprocess_od(raw, adj, cfg)
+    synthetic_N zones, drawn from ``cfg.seed``), whatever ``cfg.data``
+    says."""
+    return load_dataset(cfg.replace(data="synthetic"))[0]
 
 
 def banded_mask(N: int, density: float) -> np.ndarray:

@@ -6,13 +6,18 @@ MSE -> nn.MSELoss, MAE -> nn.L1Loss, Huber -> nn.SmoothL1Loss (beta 1).
 The residual is upcast to float32 before any reduction, whatever dtype
 the operands arrive in.
 
-The optimizer is torch's Adam(lr, betas=(0.9, 0.999), eps=1e-8,
-weight_decay=decay_rate): torch's L2 ``weight_decay`` adds decay * param
-to the gradient before the moment updates, which is optax's
-``add_decayed_weights`` placed before ``adam`` in the JAX chain.
+The optimizer is the JAX package's optax chain (objectives.py:47-86):
+``clip_by_global_norm(clip_norm)`` when ``clip_norm`` is set, then L2
+decay, then Adam(betas=(0.9, 0.999), eps=1e-8) at the scheduled rate.
+torch's L2 ``weight_decay`` adds decay * param to the gradient before the
+moment updates, which is optax's ``add_decayed_weights`` placed before
+``adam``; ``ChainAdam.step`` clips the gradients before that and sets the
+step's rate from the schedule.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -40,9 +45,67 @@ def make_loss_fn(kind: str):
     return lambda pred, target: elementwise_loss(kind, pred, target).mean()
 
 
+def lr_at(learn_rate: float, lr_schedule: str, total_steps: int):
+    """``step -> rate`` of ``lr_schedule`` over ``total_steps`` (at least
+    1): optax's ``cosine_decay_schedule(lr, total_steps)`` (alpha 0, the
+    step clipped at total_steps) or ``exponential_decay(lr, total_steps,
+    0.1)`` (continuous, not clipped)."""
+    steps = max(total_steps, 1)
+    if lr_schedule == "none":
+        return lambda step: learn_rate
+    if lr_schedule == "cosine":
+        return lambda step: learn_rate * 0.5 * (
+            1 + math.cos(math.pi * min(step, steps) / steps))
+    if lr_schedule == "exponential":
+        return lambda step: learn_rate * 0.1 ** (step / steps)
+    raise ValueError(f"invalid lr_schedule: {lr_schedule}")
+
+
+def clip_by_global_norm_(grads, max_norm: float) -> None:
+    """optax's ``clip_by_global_norm``, in place: below ``max_norm`` the
+    gradients stay as they are; at or above it each becomes
+    ``g / norm * max_norm`` (no epsilon; a non-finite norm spreads to
+    every gradient, as in optax). Multi-tensor ops: a handful of launches
+    whatever the number of gradients, and no host sync. Where the norm
+    is below ``max_norm`` the gradients are divided and multiplied by 1,
+    which leaves their bits."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    keep = norm < max_norm
+    torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
+    torch._foreach_mul_(grads, torch.where(keep, 1.0,
+                                           torch.full_like(norm, max_norm)))
+
+
+class ChainAdam(torch.optim.Adam):
+    """Adam with L2 ``weight_decay``, after a global-norm gradient clip
+    (``clip_norm`` > 0), at the rate ``schedule(i)`` on its i-th step
+    (from 0), as optax counts its updates."""
+
+    def __init__(self, params, schedule, decay_rate: float = 0.0,
+                 clip_norm: float = 0.0):
+        super().__init__(params, lr=schedule(0), betas=(0.9, 0.999),
+                         eps=1e-8, weight_decay=decay_rate)
+        self.schedule, self.clip_norm, self.count = schedule, clip_norm, 0
+
+    @torch.no_grad()
+    def step(self):
+        if self.clip_norm:
+            clip_by_global_norm_([p.grad for g in self.param_groups
+                                  for p in g["params"]
+                                  if p.grad is not None], self.clip_norm)
+        for group in self.param_groups:
+            group["lr"] = self.schedule(self.count)
+        super().step()
+        self.count += 1
+
+
 def make_optimizer(kind: str, params, learn_rate: float,
-                   decay_rate: float = 0.0) -> torch.optim.Optimizer:
+                   decay_rate: float = 0.0, clip_norm: float = 0.0,
+                   lr_schedule: str = "none",
+                   total_steps: int = 0) -> ChainAdam:
+    """The JAX package's optimizer chain: clip, decay, Adam at
+    ``lr_schedule``'s rate over ``total_steps`` optimizer steps."""
     if kind != "Adam":
         raise NotImplementedError("Invalid optimizer name.")
-    return torch.optim.Adam(params, lr=learn_rate, betas=(0.9, 0.999),
-                            eps=1e-8, weight_decay=decay_rate)
+    return ChainAdam(params, lr_at(learn_rate, lr_schedule, total_steps),
+                     decay_rate, clip_norm)

@@ -2,23 +2,28 @@
 per-step path of mpgcn_tpu/train/trainer.py).
 
 ``ModelTrainer.train`` runs the reference epoch loop (Model_Trainer.py:
-87-142): a per-step Adam update on the masked batch loss, a validation
-pass per epoch on the inference kernels under ``torch.no_grad()``, a
-checkpoint at epoch 0 and on every non-worsening validation loss, and early
-stopping after ``early_stop_patience`` epochs without one. ``test`` reloads
-the checkpoint, rolls out ``pred_len`` steps and appends its scores to
-``<output_dir>/MPGCN_prediction_scores.txt``. On the card every step goes
-through the hand-written kernels (``lstm_impl`` "kernel", ``bdgcn_impl``
-"kernel" or "ell"); the plain arms ("plain"/"einsum") compute the same
-function with stock PyTorch operations. ``bdgcn_impl="auto"`` (the
-default) is resolved once by the data pipeline from the measured support
-density: "ell" for large sparse graphs, else "kernel".
+87-142): a per-step update on the masked batch loss (Adam, after the
+global-norm clip ``cfg.clip_norm``, at the rate of ``cfg.lr_schedule``
+over the run's steps), a validation pass per epoch on the inference
+kernels under ``torch.no_grad()``, a checkpoint at epoch 0 and on every
+non-worsening validation loss, and early stopping after
+``early_stop_patience`` epochs without one; given the ``DataInput`` that
+loaded the data (``data_container``), the checkpoint records its
+normalizer's kind and state. ``test`` reloads the checkpoint, rolls out
+``pred_len`` steps and appends its scores to
+``<output_dir>/MPGCN_prediction_scores.txt``, in the model's space or,
+with ``denormalize``, in the normalizer's input space. On the card every
+step goes through the hand-written kernels (``lstm_impl`` "kernel",
+``bdgcn_impl`` "kernel" or "ell"); the plain arms ("plain"/"einsum")
+compute the same function with stock PyTorch operations.
+``bdgcn_impl="auto"`` (the default) is resolved once by the data pipeline
+from the measured support density: "ell" for large sparse graphs, else
+"kernel".
 
 Not here yet: step sentinels, the dead-init probe and reseed, resume and
 the rolling ``_last`` checkpoint, rollback and the watchdog, gradient
-accumulation and multi-step training, clipping and LR schedules, bf16 and
-loss scaling, the epoch-scan and stream executors, remat, and the jsonl
-logs.
+accumulation and multi-step training, bf16 and loss scaling, the
+epoch-scan and stream executors, remat, and the jsonl logs.
 """
 
 from __future__ import annotations
@@ -55,7 +60,8 @@ class ModelTrainer:
     (default the card; the CPU only when asked)."""
 
     def __init__(self, cfg: MPGCNConfig, data: dict, device="cuda",
-                 lstm_impl: str = "kernel", bdgcn_impl: str = "auto"):
+                 lstm_impl: str = "kernel", bdgcn_impl: str = "auto",
+                 data_container=None):
         if cfg.model != "MPGCN":
             raise NotImplementedError("Invalid model name.")
         self.device = resolve_device(device)
@@ -63,15 +69,18 @@ class ModelTrainer:
         if cfg.num_nodes == 0:
             cfg = cfg.replace(num_nodes=self.pipeline.num_nodes)
         self.cfg = cfg
+        self.data_container = data_container
         self.banks = self.pipeline.banks
         self.bdgcn_impl = self.pipeline.bdgcn_impl
         self.model = MPGCN.from_config(cfg, device=self.device,
                                        lstm_impl=lstm_impl,
                                        bdgcn_impl=self.bdgcn_impl)
         print(self.pipeline.dispatch_line(lstm_impl))
-        self.optimizer = make_optimizer(cfg.optimizer,
-                                        self.model.parameters(),
-                                        cfg.learn_rate, cfg.decay_rate)
+        self.optimizer = make_optimizer(
+            cfg.optimizer, self.model.parameters(), cfg.learn_rate,
+            cfg.decay_rate, clip_norm=cfg.clip_norm,
+            lr_schedule=cfg.lr_schedule,
+            total_steps=self.pipeline.num_batches("train") * cfg.num_epochs)
         self.global_step = 0
         self._clock = None  # (time, step) once the warm-up steps are done
 
@@ -102,7 +111,8 @@ class ModelTrainer:
         return (per_sample * mask).sum() / size
 
     def train_step(self, batch: Batch) -> float:
-        """One Adam update on ``batch``; returns its loss."""
+        """One optimizer update on ``batch`` (the clip, if any, inside
+        ``optimizer.step``); returns its loss."""
         x, y, keys = self._tensors(batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss = self._batch_loss(x, y, keys, batch.size)
@@ -124,10 +134,14 @@ class ModelTrainer:
         return os.path.join(self.cfg.output_dir, f"{self.cfg.model}_od.pkl")
 
     def _ckpt_extra(self, **kw) -> dict:
-        return {"seed": self.cfg.seed,
-                "num_branches": self.cfg.num_branches,
-                "branch_sources": list(self.cfg.resolved_branch_sources),
-                "global_step": self.global_step, **kw}
+        extra = {"seed": self.cfg.seed,
+                 "num_branches": self.cfg.num_branches,
+                 "branch_sources": list(self.cfg.resolved_branch_sources),
+                 "global_step": self.global_step, **kw}
+        if self.data_container is not None:
+            norm = self.data_container.normalizer
+            extra["normalizer"] = {"kind": norm.kind, "state": norm.state()}
+        return extra
 
     def _run_mode(self, mode: str, rng) -> float:
         """One pass over ``mode``: the size-weighted mean batch loss."""
@@ -213,9 +227,12 @@ class ModelTrainer:
         return rollout(self.model, self.banks, xt, kt,
                        pred_len).cpu().numpy()
 
-    def test(self) -> dict:
+    def test(self, denormalize: bool = False) -> dict:
         """Multi-step autoregressive evaluation of the train and test
-        splits + score-file append (reference: Model_Trainer.py:145-185)."""
+        splits + score-file append (reference: Model_Trainer.py:145-185).
+        ``denormalize`` scores forecast and truth after the data
+        container's ``normalizer.denormalize`` (none without a
+        container)."""
         cfg = self.cfg
         self.load_trained()
         results = {}
@@ -229,6 +246,10 @@ class ModelTrainer:
                 truths.append(batch.y[: batch.size])
             forecast = np.concatenate(forecasts, axis=0)
             truth = np.concatenate(truths, axis=0)
+            if denormalize and self.data_container is not None:
+                norm = self.data_container.normalizer
+                forecast = norm.denormalize(forecast)
+                truth = norm.denormalize(truth)
             mse, rmse, mae, mape = metrics.evaluate(forecast, truth)
             results[mode] = {"MSE": mse, "RMSE": rmse, "MAE": mae,
                              "MAPE": mape}

@@ -738,9 +738,9 @@ def test_serve_reports_the_resident_supports():
 
 
 def test_cli_runs_the_sparse_path_on_the_cpu(tmp_path, capsys):
-    argv = ["-GPU", "cpu", "-bdgcn", "ell", "-sN", "24", "-sT", "60",
-            "-hidden", "8", "-epoch", "1", "-support-payload", "int8",
-            "-out", str(tmp_path)]
+    argv = ["-GPU", "cpu", "-data", "synthetic", "-bdgcn", "ell", "-sN",
+            "24", "-sT", "60", "-hidden", "8", "-epoch", "1",
+            "-support-payload", "int8", "-out", str(tmp_path)]
     hist = cli.main(argv)
     assert len(hist["train"]) == 1 and np.isfinite(hist["train"][0])
     res = cli.main(argv + ["-mode", "test", "-pred", "2"])

@@ -402,8 +402,8 @@ def test_params_to_jax_inverts_params_from_jax(two_runs):
 
 
 def test_cli_trains_then_tests_on_the_cpu(tmp_path, capsys):
-    argv = ["-GPU", "cpu", "-sN", str(N), "-sT", "60", "-hidden", str(H),
-            "-epoch", "1", "-out", str(tmp_path)]
+    argv = ["-GPU", "cpu", "-data", "synthetic", "-sN", str(N), "-sT", "60",
+            "-hidden", str(H), "-epoch", "1", "-out", str(tmp_path)]
     hist = cli.main(argv)
     assert set(hist) == {"train", "validate"} and len(hist["train"]) == 1
     assert os.path.exists(tmp_path / "MPGCN_od.pkl")
@@ -432,9 +432,9 @@ def test_cli_trains_then_tests_the_wide_configuration(tmp_path):
     """-hidden 128 -kernel dual_random_walk_diffusion -K 3 (K = 7 supports),
     the widths the card takes only through its wide kernels: one epoch on
     the CPU, then test mode."""
-    argv = ["-GPU", "cpu", "-sN", "6", "-sT", "40", "-hidden", "128",
-            "-kernel", "dual_random_walk_diffusion", "-K", "3", "-epoch",
-            "1", "-out", str(tmp_path)]
+    argv = ["-GPU", "cpu", "-data", "synthetic", "-sN", "6", "-sT", "40",
+            "-hidden", "128", "-kernel", "dual_random_walk_diffusion", "-K",
+            "3", "-epoch", "1", "-out", str(tmp_path)]
     hist = cli.main(argv)
     assert len(hist["train"]) == 1 and np.isfinite(hist["train"]).all()
     res = cli.main(argv + ["-mode", "test"])
@@ -452,8 +452,8 @@ def test_entry_points_need_a_card_unless_asked(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         ModelTrainer(cfg, data)
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
-        cli.main(["-sN", str(N), "-sT", "60", "-hidden", str(H),
-                  "-out", str(tmp_path)])
+        cli.main(["-data", "synthetic", "-sN", str(N), "-sT", "60",
+                  "-hidden", str(H), "-out", str(tmp_path)])
     assert cli.device_for("cpu") == "cpu"
     assert cli.device_for("1") == "cuda:1"
     with pytest.raises(SystemExit):
