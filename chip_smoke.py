@@ -92,7 +92,22 @@ Phases, each fatal on failure:
      einsum) on a copy of the checkpoint launches no kernel and agrees
      to rtol 1e-4. Steps/sec and test-mode times are printed with the
      card's name and power limit; run (b) trains 3 more times, without
-     -clip, with it and without it, to read what the clip costs a step.
+     -clip, with it and without it, to read what the clip costs a step;
+ 12. after them all, the epoch executor and the CUDA graphs (every
+     ModelTrainer and ServeEngine above already ran on them: the scan
+     executor with its train and eval steps captured, a rollout graph per
+     (batch or bucket, horizon)): (a) N=47 trains 3 epochs on the scan
+     executor and on the per-step executor from the same init, equal bit
+     for bit epoch by epoch (losses, weights, Adam's state), each epoch
+     with exactly S x a step's launches, epoch 2 under
+     torch.cuda.set_sync_debug_mode("error") up to its one read; test
+     mode through a graph equal to the eager rollout; (b) every serve
+     bucket's rollout graph equal to the eager rollout, with its
+     launches; (c) the wide configuration: 5 train and 4 eval steps by
+     graph equal to train_step / eval_step, and its bucket-8 rollout
+     graph; (d) N=500 on the ELL arm: one epoch on the scan executor,
+     uncaptured as its dispatch line says, equal to the per-step one.
+     Times by graph and eager (steps, rollouts, busy shares).
 
 The second-to-last line is a JSON object listing each kernel; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a card, and
@@ -2542,6 +2557,404 @@ def _nz(counts: dict) -> dict:
     return {n: v for n, v in counts.items() if v}
 
 
+# --- the epoch executor and the CUDA graphs -----------------------------------
+
+def _state(tr):
+    """Copies of a trainer's weights and of Adam's state."""
+    return ({n: p.detach().clone() for n, p in tr.model.named_parameters()},
+            [{k: v.clone() for k, v in st.items()}
+             for st in tr.optimizer.state.values()])
+
+
+def _require_same_state(a, b, label):
+    """Weights and Adam's moments and step counts equal bit for bit."""
+    import torch
+
+    (wa, sa), (wb, sb) = a, b
+    diff = [n for n in wa if not torch.equal(wa[n], wb[n])]
+    require(not diff, f"{label}: the weights differ: {diff}")
+    require(len(sa) == len(sb) in (0, len(wa))
+            and all(torch.equal(x[k], y[k]) for x, y in zip(sa, sb)
+                    for k in ("exp_avg", "exp_avg_sq", "step")),
+            f"{label}: Adam's state differs")
+
+
+def _record_epochs(tr):
+    """Wrap the trainer's epoch call: each epoch's mean, launches, host
+    seconds and state after it, in order."""
+    log, run_epoch = [], tr._run_epoch
+
+    def run(mode, exec_path, rng):
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = run_epoch(mode, exec_path, rng)
+        counts = read_counts()
+        log.append(dict(mode=mode, exec=exec_path, loss=loss, counts=counts,
+                        s=time.perf_counter() - t0, state=_state(tr)))
+        return loss
+
+    tr._run_epoch = run
+    return log
+
+
+def _guard_syncs(tr, calls):
+    """Run the scan epochs numbered in ``calls`` (1-based, in the order
+    the trainer runs them) under torch.cuda.set_sync_debug_mode("error")
+    up to their one read of the step losses, which runs after it: a host
+    sync inside the epoch raises."""
+    import torch
+
+    n, dispatch = [0], tr._dispatch_epoch
+
+    def run(*args):
+        n[0] += 1
+        guard = n[0] in calls
+        if guard:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(*args)
+        finally:
+            if guard:
+                torch.cuda.set_sync_debug_mode(0)
+
+    tr._dispatch_epoch = run
+
+
+def _host_ms(fn, n=10, warmup=2):
+    """Median and min host-clock ms of n synchronised calls of fn."""
+    import statistics
+
+    import torch
+
+    samples = []
+    for i in range(warmup + n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples), min(samples)
+
+
+def _train_steps(tr, n, captured=True):
+    """A call that runs one train step of the trainer's scan executor on
+    the epoch index it holds: by replaying its captured step, or with
+    ``captured=False`` by its eager body. The rate table is first grown
+    to cover n more steps (which drops the graph that read the old
+    table: it is captured again here, one more step); the device counter
+    goes back to slot 0 after slot S - 1, so the gather never leaves the
+    epoch index. At most n calls."""
+    opt, ep = tr.optimizer, tr._epochs["train"]
+    opt.reserve(opt.count + n + 1)
+    tr._check_storage()
+    ep.t.zero_()
+    if captured and tr._graphs.get("train") is None:
+        tr._exec_step("train", ep, True)
+        opt.advance(1)
+    g = tr._graphs.get("train")
+    S, done, slot = ep.sizes.shape[0], [0], [int(ep.t)]
+
+    def fn():
+        require(done[0] < n, "more steps than the rate table was grown for")
+        if slot[0] >= S:
+            ep.t.zero_()
+            slot[0] = 0
+        slot[0] += 1
+        done[0] += 1
+        if captured:
+            g.replay()
+        else:
+            tr._train_body(ep)
+        opt.advance(1)
+
+    return fn
+
+
+def phase_executor(dev, cfg, data, out_dir, card):
+    """(a) The reference configuration (N=47; cfg's live init seed) trains
+    3 epochs twice from the same init, on the scan executor with its
+    steps as CUDA graphs and on the per-step executor: the epoch losses,
+    the weights and Adam's state after every epoch equal bit for bit, each
+    epoch launches exactly S x a step's kernels, and epoch 2 (train and
+    validate) runs with no host sync before its read; test mode rolls out
+    through a graph that equals the eager rollout. Times: the epochs, the
+    train step by graph, by the eager executor body and by train_step,
+    with the device's busy share. Returns the launches."""
+    import torch
+
+    from mpgcn_tpu_torch.train.predict import rollout
+    from mpgcn_tpu_torch.train.trainer import ModelTrainer
+
+    tcfg = cfg.replace(pred_len=1, num_epochs=3)
+    runs = {}
+    for name, scan in (("graphs", True), ("per_step", False)):
+        d = os.path.join(out_dir, name)
+        os.makedirs(d)
+        tr = ModelTrainer(tcfg.replace(epoch_scan=scan, output_dir=d), data,
+                          device=dev)
+        init = _state(tr)
+        log = _record_epochs(tr)
+        if scan:
+            _guard_syncs(tr, {3, 4})
+        t0 = time.perf_counter()
+        hist = tr.train()
+        runs[name] = dict(tr=tr, init=init, log=log, hist=hist,
+                          s=time.perf_counter() - t0,
+                          sps=tr.steps_per_sec())
+    g, p = runs["graphs"], runs["per_step"]
+    _require_same_state(g["init"], p["init"], "the two inits")
+    tg = g["tr"]
+    require(tg.graph_refusal is None
+            and set(tg._graphs.graphs) == {"train", "validate"},
+            f"graphs captured: {list(tg._graphs.graphs)}")
+    require(g["hist"] == p["hist"],
+            f"epoch losses: graphs {g['hist']}, per step {p['hist']}")
+    S = {m: tg.pipeline.num_batches(m) for m in ("train", "validate")}
+    total = {}
+    for i, (eg, es) in enumerate(zip(g["log"], p["log"])):
+        mode = eg["mode"]
+        label = f"epoch {i // 2 + 1} {mode}"
+        require(mode == es["mode"] and eg["exec"] == "scan"
+                and es["exec"] == "per_step", f"{label}: executors "
+                f"{eg['exec']} / {es['exec']}")
+        require(eg["loss"] == es["loss"], f"{label}: loss {eg['loss']} "
+                f"by graphs, {es['loss']} per step")
+        _require_same_state(eg["state"], es["state"], label)
+        expect = _scaled(_per_step(tcfg, mode == "train"), S[mode])
+        require(eg["counts"] == expect == es["counts"],
+                f"{label}: launches {eg['counts']} by graphs, "
+                f"{es['counts']} per step, expected {expect}")
+        total = _add(total, eg["counts"])
+    print(f"[graphs] (a) N=47, 3 epochs from init seed {tcfg.seed}: the "
+          f"scan executor with its train and eval steps as CUDA graphs "
+          f"equals the per-step executor bit for bit (epoch losses "
+          f"{g['hist']}, the weights and Adam's state after every epoch); "
+          f"launches per epoch S x a step's (train S={S['train']}: "
+          f"{_nz(_per_step(tcfg, True))}, validate S={S['validate']}: "
+          f"{_nz(_per_step(tcfg, False))}); epoch 2 ran under "
+          f"torch.cuda.set_sync_debug_mode('error') up to its one read",
+          flush=True)
+    ep_s = {name: [round(e["s"], 4) for e in r["log"]]
+            for name, r in runs.items()}
+    print(f"[graphs] (a) epoch host seconds on {card} (train, validate by "
+          f"epoch; epoch 1 by graphs holds 2 eager steps and each "
+          f"capture): graphs {ep_s['graphs']}, per step "
+          f"{ep_s['per_step']}; train() {g['s']:.2f}s / {p['s']:.2f}s; "
+          f"steps/sec {g['sps']:.2f} / {p['sps']:.2f}", flush=True)
+
+    # test mode through a graph per (batch, horizon)
+    tt = ModelTrainer(cfg.replace(pred_len=7, mode="test",
+                                  output_dir=os.path.join(out_dir, "graphs")),
+                      data, device=dev)
+    reset_counts()
+    res = tt.test()
+    counts = read_counts()
+    n_batches = sum(tt.pipeline.num_batches(m) for m in ("train", "test"))
+    expect = _scaled(_per_step(tt.cfg, False), 7 * n_batches)
+    require(counts == expect and set(tt._graphs.graphs) == {
+        (tcfg.batch_size, 7)}, f"test mode: launches {counts}, graphs "
+        f"{list(tt._graphs.graphs)}")
+    md = tt.pipeline.modes["test"]
+    x, k = md.x[:tcfg.batch_size], md.keys[:tcfg.batch_size]
+    got = torch.from_numpy(tt.predict(x, k))
+    ref = rollout(tt.model, tt.banks, torch.from_numpy(np.array(x)).to(dev),
+                  torch.from_numpy(k.astype(np.int64)).to(dev), 7).cpu()
+    require(torch.equal(got, ref), "the test-mode rollout graph differs "
+            "from the eager rollout")
+    print(f"[graphs] (a) test mode: {n_batches} rollouts through one graph "
+          f"(batch {tcfg.batch_size}, horizon 7), equal to the eager "
+          f"rollout; test RMSE {res['test']['RMSE']:.6f}", flush=True)
+    total = _add(total, counts)
+
+    # the step's times
+    batches = list(tg.pipeline.batches("train", pad_to_full=True))
+    replay = _train_steps(tg, 30)
+    g_ms = _host_ms(replay, n=20, warmup=5)
+    body = _train_steps(tg, 30, captured=False)
+    e_ms = _host_ms(body, n=20, warmup=5)
+    pt = p["tr"]
+    s_ms = _host_ms(lambda: pt.train_step(batches[0]), n=20, warmup=5)
+    print(f"[time] N=47 train step on {card} (host clock around a "
+          f"synchronised step, median / min of 20 after 5): by graph "
+          f"{g_ms[0]:.3f} / {g_ms[1]:.3f} ms; the executor's eager body "
+          f"(device gather, no read) {e_ms[0]:.3f} / {e_ms[1]:.3f} ms; "
+          f"train_step (host batch, loss read) {s_ms[0]:.3f} / "
+          f"{s_ms[1]:.3f} ms", flush=True)
+    busy_share("N=47 train step by graph", _train_steps(tg, 5), 5)
+    busy_share("N=47 train step, eager executor body",
+               _train_steps(tg, 5, captured=False), 5)
+    busy_share("N=47 train step, train_step", lambda: pt.train_step(
+        batches[0]), 5)
+    return total
+
+
+def phase_graph_rollouts(dev, eng, card):
+    """(b) The serve engine of phase 3 (N=47, buckets 1-8, horizon 7): each
+    bucket's captured rollout equals the eager rollout bit for bit and
+    launches what the eager one does; their times, and the busy share by
+    graph. Returns the launches."""
+    import torch
+
+    from mpgcn_tpu_torch.train.predict import rollout
+
+    graphs = eng._rollouts.graphs
+    require(set(graphs.graphs) == {(b, 7) for b in eng.scfg.buckets},
+            f"serve graphs {list(graphs.graphs)}")
+    md = eng.pipeline.modes["test"]
+    per = _scaled(_per_step(eng.cfg, False), 7)
+    total, times = {}, {}
+    for b in eng.scfg.buckets:
+        xh = torch.from_numpy(np.array(md.x[:b]))
+        kh = torch.from_numpy(md.keys[:b].astype(np.int64))
+        x, k = xh.to(dev), kh.to(dev)
+        reset_counts()
+        got = eng._rollouts.run(xh, kh, 7)
+        counts = read_counts()
+        ref = rollout(eng.model, eng.banks, x, k, 7).cpu()
+        require(torch.equal(got, ref),
+                f"bucket {b}: the rollout graph differs from eager "
+                f"(max abs {float((got - ref).abs().max()):.3e})")
+        require(counts == per, f"bucket {b}: the replay launched {counts}, "
+                               f"expected {per}")
+        total = _add(total, counts)
+        g = graphs.get((b, 7))
+        times[b] = (_host_ms(lambda: g.replay(x, k)),
+                    _host_ms(lambda: rollout(eng.model, eng.banks, x, k, 7)))
+    print(f"[graphs] (b) every bucket's rollout graph (horizon 7) equals "
+          f"the eager rollout bit for bit, with {_nz(per)} launches a "
+          f"replay", flush=True)
+    print(f"[time] N=47 rollout on {card} (horizon 7, host clock, median / "
+          f"min of 10 after 2; inputs on the card): "
+          + "; ".join(f"bucket {b} by graph {gt[0]:.3f} / {gt[1]:.3f} ms, "
+                      f"eager {et[0]:.3f} / {et[1]:.3f} ms"
+                      for b, (gt, et) in times.items()), flush=True)
+    for b in (eng.scfg.buckets[0], eng.scfg.buckets[-1]):
+        g = graphs.get((b, 7))
+        x = torch.from_numpy(np.array(md.x[:b])).to(dev)
+        k = torch.from_numpy(md.keys[:b].astype(np.int64)).to(dev)
+        busy_share(f"bucket-{b} rollout by graph", lambda: g.replay(x, k), 3)
+    return total
+
+
+def phase_graph_wide(dev, data, seed, card):
+    """(c) The wide configuration (hidden 128, K = 7; the engine BPTT and
+    the cooperative dW launches inside the graph): five train steps by
+    graph (two eager warm-ups, the capture, three replays) equal five
+    train_step calls bit for bit, four eval steps equal eval_step, and
+    the bucket-8 rollout graph equals the eager rollout. Times: the step
+    and the rollout by graph. Returns the launches."""
+    import torch
+
+    from mpgcn_tpu_torch.config import MPGCNConfig
+    from mpgcn_tpu_torch.train.predict import rollout
+    from mpgcn_tpu_torch.train.trainer import ModelTrainer
+
+    tcfg = MPGCNConfig(**WIDE, seed=seed, pred_len=1)
+    a = ModelTrainer(tcfg, data, device=dev)
+    b = ModelTrainer(tcfg.replace(epoch_scan=False), data, device=dev)
+    _require_same_state(_state(a), _state(b), "the wide inits")
+    total = {}
+    for mode, n in (("train", 5), ("validate", 4)):
+        is_train = mode == "train"
+        ep = a._epoch_state(mode)
+        ep.load(*a._epoch_index(mode, False, None))
+        reset_counts()
+        for _ in range(n):
+            a._exec_step(mode, ep, is_train)
+        counts = read_counts()
+        if is_train:
+            a.optimizer.advance(n)
+        step = b.train_step if is_train else b.eval_step
+        ref = np.array([step(x) for x in list(
+            b.pipeline.batches(mode, pad_to_full=True))[:n]], np.float32)
+        got = ep.losses[:n].cpu().numpy()
+        require(np.array_equal(got, ref), f"wide {mode}: losses {got} by "
+                                          f"graph, {ref} eager")
+        require(a._graphs.get(mode) is not None, f"wide {mode}: no graph")
+        expect = _scaled(_per_step(tcfg, is_train), n)
+        require(counts == expect, f"wide {mode}: {n} steps launched "
+                                  f"{counts}, expected {expect}")
+        total = _add(total, counts)
+    _require_same_state(_state(a), _state(b), "wide, after 5 steps")
+    md = a.pipeline.modes["test"]
+    x, k = np.array(md.x[:8]), md.keys[:8]
+    a.predict(x, k, 7)  # the eager warm-up, then the capture
+    reset_counts()
+    got = torch.from_numpy(a.predict(x, k, 7))
+    counts = read_counts()
+    xd = torch.from_numpy(x).to(dev)
+    kd = torch.from_numpy(k.astype(np.int64)).to(dev)
+    ref = rollout(a.model, a.banks, xd, kd, 7).cpu()
+    require(torch.equal(got, ref), "wide: the bucket-8 rollout graph "
+                                   "differs from eager")
+    require(counts == _scaled(_per_step(tcfg, False), 7),
+            f"wide rollout replay launched {counts}")
+    total = _add(total, counts)
+    print(f"[graphs] (c) wide (hidden 128, K = 7, seed {seed}): 5 train "
+          f"steps and 4 eval steps by graph equal train_step / eval_step "
+          f"bit for bit (losses, weights, Adam's state), launches S x a "
+          f"step's; the bucket-8 rollout graph equals eager", flush=True)
+    step = _host_ms(_train_steps(a, 12), n=10, warmup=2)
+    g = a._graphs.get((8, 7))
+    roll = _host_ms(lambda: g.replay(xd, kd), n=5, warmup=1)
+    eager = _host_ms(lambda: rollout(a.model, a.banks, xd, kd, 7), n=5,
+                     warmup=1)
+    print(f"[time] wide on {card} (host clock, median / min): train step "
+          f"by graph {step[0]:.3f} / {step[1]:.3f} ms (10 after 2); "
+          f"bucket-8 rollout by graph {roll[0]:.3f} / {roll[1]:.3f} ms, "
+          f"eager {eager[0]:.3f} / {eager[1]:.3f} ms (5 after 1)",
+          flush=True)
+    return total
+
+
+def phase_graph_large_n(dev, cfg, data, out_dir):
+    """(d) N=500 on the ELL arm: one epoch on the scan executor, which
+    runs its steps eagerly (no graph: the ELL marks) and says so on its
+    dispatch line, equals one epoch per step bit for bit. Returns the
+    launches."""
+    import contextlib
+
+    from mpgcn_tpu_torch.train.trainer import ModelTrainer
+
+    tcfg = cfg.replace(pred_len=1, num_epochs=1)
+    runs = {}
+    for name, scan in (("scan", True), ("per_step", False)):
+        d = os.path.join(out_dir, name)
+        os.makedirs(d)
+        tr = ModelTrainer(tcfg.replace(epoch_scan=scan, output_dir=d), data,
+                          device=dev)
+        log = _record_epochs(tr)
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            hist = tr.train()
+        line = next(l for l in "".join(tee.lines).splitlines()
+                    if l.startswith("[dispatch] epoch_exec:"))
+        runs[name] = dict(tr=tr, log=log, hist=hist, line=line)
+    s, p = runs["scan"], runs["per_step"]
+    require(s["tr"].bdgcn_impl == "ell" and s["tr"]._graphs is None
+            and s["line"].startswith("[dispatch] epoch_exec: train=scan, "
+                                     "validate=scan")
+            and "scan steps: eager (bdgcn_impl=ell" in s["line"],
+            f"N=500 dispatch: {s['line']}")
+    require(s["hist"] == p["hist"], f"N=500 epoch losses {s['hist']} on "
+                                    f"the scan executor, {p['hist']} per "
+                                    f"step")
+    total = {}
+    for es, ep in zip(s["log"], p["log"]):
+        _require_same_state(es["state"], ep["state"],
+                            f"N=500 {es['mode']}")
+        require(es["counts"] == ep["counts"],
+                f"N=500 {es['mode']}: launches {es['counts']} / "
+                f"{ep['counts']}")
+        total = _add(total, es["counts"])
+    print(f"[graphs] (d) N=500: {s['line']}; one epoch equals the per-step "
+          f"executor bit for bit (losses {s['hist']}); epoch seconds scan "
+          f"{[round(e['s'], 3) for e in s['log']]}, per step "
+          f"{[round(e['s'], 3) for e in p['log']]}", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2664,6 +3077,7 @@ def main() -> int:
     for counts in wide["counts"]:
         total = _add(total, counts)
     phase_wide_times(dev, wide_inputs, wide)
+    wide_seed = wide["trainer"].cfg.seed
     wide["eng"].drain()
     wide["eng"].close()
     # after every phase above, so each runs as it did without them
@@ -2679,7 +3093,18 @@ def main() -> int:
     for counts in phase_reference_cli(dev, out_r):
         total = _add(total, counts)
 
+    # the epoch executor and the graphs, after every phase above
     card = card_name_and_limit()
+    out_g = os.path.join(HERE, "smoke_out", "graphs")
+    shutil.rmtree(out_g, ignore_errors=True)
+    os.makedirs(out_g)
+    total = _add(total, phase_executor(dev, cfg, data, out_g, card))
+    total = _add(total, phase_graph_rollouts(dev, eng, card))
+    total = _add(total, phase_graph_wide(dev, data, wide_seed, card))
+    torch.cuda.empty_cache()
+    total = _add(total, phase_graph_large_n(
+        dev, cfg_l, data_l, os.path.join(out_g, "large_n")))
+
     print(card)  # the card's name and power limit, as nvidia-smi gives them
     print(f"[done] smoke run took {time.perf_counter() - t_start:.1f}s")
 

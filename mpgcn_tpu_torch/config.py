@@ -6,7 +6,9 @@ the same names, defaults and validation as the JAX package's
 package: the reference flag surface (dataset directory, ``time_slice``,
 normalization, split, model shape), the data source (``data``: the
 reference npz or the synthetic generators), the optimizer's ``clip_norm``
-and ``lr_schedule``, and the data-file read retries. Knobs of paths this
+and ``lr_schedule``, the epoch executor (``epoch_scan``,
+``epoch_scan_max_mb``: no CLI flag, as in the JAX package), and the
+data-file read retries. Knobs of paths this
 port does not have yet (padded-CSR supports, sparse OD storage, meshes,
 precision modes, resume, rollback, fault injection) are not here; they
 arrive with the slices that run them. The BDGCN arm is not a config
@@ -88,6 +90,14 @@ class MPGCNConfig:
     #                                         (0 = off, reference behavior)
     lr_schedule: str = "none"               # none | cosine | exponential
     #                                         decay over the training run
+    epoch_scan: bool = True                 # run each epoch that fits
+    #                                         epoch_scan_max_mb on device-
+    #                                         resident data, one host sync
+    #                                         per epoch (on the card its
+    #                                         steps replay CUDA graphs);
+    #                                         False: per step
+    epoch_scan_max_mb: float = 512.0        # a mode's epoch tensors above
+    #                                         this run per step
     io_retries: int = 3                     # attempts per data-file read
     io_retry_delay_s: float = 0.05          # base backoff between retries
     #                                         (doubles per attempt)

@@ -12,8 +12,9 @@ the sources in this package is built.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :class:`CudaKernel` raises when that is not 0 and
-counts the launches that went through. A few entries launch nothing and
-report one number about the device (``query_int``).
+counts the launches that went through, eager or replayed from a CUDA
+graph (``capture_launches``, ``add_replayed``). A few entries launch
+nothing and report one number about the device (``query_int``).
 """
 
 from __future__ import annotations
@@ -34,6 +35,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: the launches of the CUDA graph being captured, by kernel (None: none is);
+#: one for the process, not one for a thread: a captured backward launches
+#: from autograd's device thread, not from the thread that captures
+_captured: dict | None = None
+_captured_lock = threading.Lock()
 #: per-source ptxas report (registers, shared memory, spills) of the build
 ptxas_reports: dict[str, str] = {}
 
@@ -127,11 +133,44 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+class capture_launches:
+    """Context of one CUDA graph capture: the launches made on a capturing
+    stream inside it are tallied here, {CudaKernel: calls}, and not in
+    ``launches``, since a capture runs nothing. Each replay of the graph
+    then adds the tally (``add_replayed``), so ``launches`` counts kernel
+    executions whichever way they ran. A launch on a capturing stream
+    outside this context raises: it would go uncounted."""
+
+    def __enter__(self) -> dict:
+        global _captured
+        with _captured_lock:
+            if _captured is not None:
+                raise RuntimeError("a CUDA graph capture is already being "
+                                   "tallied")
+            _captured = self.tally = {}
+        return self.tally
+
+    def __exit__(self, *exc) -> None:
+        global _captured
+        with _captured_lock:
+            _captured = None
+
+
+def add_replayed(tally: dict, times: int = 1) -> None:
+    """Count ``times`` replays of a graph whose capture tallied ``tally``."""
+    for kernel, n in tally.items():
+        with kernel._count_lock:
+            kernel.launches += n * times
+
+
 class CudaKernel:
     """One C entry point of a kernel library. ``launch`` passes tensors'
     data pointers and PyTorch's current stream, raises when the launch
-    reports an error, and counts the launch. ``launches`` is the count
-    since it was last set to 0."""
+    reports an error, and counts the launch. ``launches`` is the count of
+    kernel executions since it was last set to 0: a launch made eagerly
+    counts when it is made; one made while a CUDA graph is captured counts
+    at each replay of that graph (``capture_launches``), never at the
+    capture."""
 
     def __init__(self, source: str, symbol: str, n_ptrs: int, n_ints: int):
         self.source, self.symbol = source, symbol
@@ -165,9 +204,19 @@ class CudaKernel:
             err = fn(*[None if t is None else t.data_ptr()
                        for t in tensors],
                      *[int(i) for i in ints], stream)
+            capturing = torch.cuda.is_current_stream_capturing()
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.symbol} failed to "
                                f"launch: cudaError {err}")
+        if capturing:
+            with _captured_lock:
+                if _captured is None:
+                    raise RuntimeError(
+                        f"{self.symbol} was captured into a CUDA graph "
+                        f"outside build.capture_launches: its replays "
+                        f"would go uncounted")
+                _captured[self] = _captured.get(self, 0) + 1
+            return
         with self._count_lock:
             self.launches += 1
 

@@ -10,11 +10,18 @@ The support banks are put on the device once at startup, dense or, for
 large sparse graphs (``bdgcn_impl`` 'auto' or 'ell'), as blocked-ELL
 containers; ``stats()["support"]`` reports their resident bytes.
 
-The JAX engine's AOT compile per bucket has no counterpart: PyTorch runs
-eagerly. Each (bucket, horizon) pair is run once at startup instead, which
-builds the kernels and warms the allocator before the first request.
-Canary hot reload, the HTTP front, the SLO engine and span logs are not
-part of this engine yet.
+The JAX engine's AOT compile per (bucket, horizon) becomes a CUDA graph
+per pair (train/graphs.py ``RolloutGraphs``): at startup each pair's
+rollout runs once eagerly, which builds the kernels and warms the
+allocator, and is then captured; each batch copies its request into the
+graph's static buffers, replays it and copies the forecast out. The
+graphs share one memory pool, so their replays must never overlap: the
+batcher threads (one per horizon) serialise them on the graph set's one
+lock, held from the copy in to the copy out. Where no graph can be
+captured (the CPU, the ELL arm: graphs.py ``refusal``) every batch runs
+the eager rollout, as the ``[serve]`` line at startup says. Canary hot
+reload, the HTTP front, the SLO engine and span logs are not part of
+this engine yet.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from mpgcn_tpu_torch.service.batcher import (
 )
 from mpgcn_tpu_torch.service.ingest import validate_request
 from mpgcn_tpu_torch.sparse.cuda_ell import ELL_FWD, ELL_FWD_Q
+from mpgcn_tpu_torch.train.graphs import GraphSet, RolloutGraphs, refusal
 from mpgcn_tpu_torch.train.predict import rollout
 from mpgcn_tpu_torch.utils.convert import load_jax_checkpoint, params_from_jax
 
@@ -105,8 +113,24 @@ class ServeEngine:
 
     def _warmup(self) -> None:
         """Run every (bucket, horizon) once: builds the kernels and warms
-        the caching allocator before the first request."""
+        the caching allocator before the first request; on the card it
+        also captures each pair's rollout as a CUDA graph."""
         N, T = self.cfg.num_nodes, self.cfg.obs_len
+        why = refusal(self.device, self.pipeline.bdgcn_impl)
+        self._rollouts = None
+        if why is None:
+            self._rollouts = RolloutGraphs(
+                GraphSet(self.device, self.pipeline.bdgcn_impl), self.model,
+                self.banks)
+            secs = self._rollouts.capture_all(self.scfg.buckets,
+                                              self.horizons, T, N)
+            print(f"[serve] captured {len(self._rollouts.graphs.graphs)} "
+                  f"rollout graphs (buckets {list(self.scfg.buckets)} x "
+                  f"horizons {list(self.horizons)}) in {secs:.2f}s; one "
+                  f"memory pool, replays serialised by one lock")
+            return
+        print(f"[serve] rollout graphs: none ({why}); every batch runs "
+              f"the eager rollout")
         for b in self.scfg.buckets:
             x = torch.zeros((b, T, N, N, 1), device=self.device)
             k = torch.zeros((b,), dtype=torch.long, device=self.device)
@@ -122,10 +146,12 @@ class ServeEngine:
                 st[0] += n_live
                 st[1] += bucket
                 st[2] += 1
-            xt = torch.from_numpy(x).to(self.device)
-            kt = torch.from_numpy(keys.astype(np.int64)).to(self.device)
-            return rollout(self.model, self.banks, xt, kt,
-                           horizon).cpu().numpy()
+            xt = torch.from_numpy(x)
+            kt = torch.from_numpy(keys.astype(np.int64))
+            if self._rollouts is not None:
+                return self._rollouts.run(xt, kt, horizon).numpy()
+            return rollout(self.model, self.banks, xt.to(self.device),
+                           kt.to(self.device), horizon).cpu().numpy()
 
         return run_batch
 

@@ -1,0 +1,163 @@
+"""CUDA graphs of the port's steps: the counterpart of the JAX package's
+``jax.jit`` and ``.lower().compile()`` call sites (the trainer's
+``_build_steps``, mpgcn_tpu/train/trainer.py:1104-1150, and the serve
+engine's executable per (bucket, horizon), mpgcn_tpu/service/serve.py:
+402-418). Where JAX compiles a step once and dispatches the executable,
+the port records the step's launches once and replays them: one host
+call a step instead of a few hundred.
+
+A ``GraphSet`` holds the graphs of one trainer or one serve engine: one
+memory pool they share, one lock that every replay takes (graphs that
+share a pool must never run at once: one may reuse memory another
+freed), and the side stream their warm-up runs on. A callable is
+captured after it has run eagerly (``warmup``), which builds the
+kernels and makes every state that is made lazily: Adam's moments, the
+autograd buffers, cuBLAS's workspace, the kernels' occupancy queries.
+Its inputs are static buffers that the caller fills before each replay;
+its outputs are static tensors of the pool, which the caller copies out
+before another graph of the set runs. Per-call scratch (the LSTM and
+K-BDGCN wrappers' ``torch.empty``) comes from the pool, and the engine
+BPTT's ``cudaMemsetAsync`` becomes a memset node. The graphs read the
+weights where they lie: loading a checkpoint in place (``load_state_dict``)
+keeps them valid; where a parameter's storage moves they are dropped
+(``ModelTrainer._check_storage``).
+
+``refusal`` names what cannot be captured: the CPU (nothing to capture)
+and the blocked-ELL arm, whose forward and dX mark Inf and NaN with a
+generation the host counts per call (sparse/cuda_ell.py ``_marks``), so
+a replay would reuse the captured one. Callers print that decision;
+``GraphSet`` raises on either. A capture or a replay that fails raises:
+nothing falls back to eager execution.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, Optional
+
+import torch
+
+from mpgcn_tpu_torch.native.build import add_replayed, capture_launches
+from mpgcn_tpu_torch.train.predict import rollout
+
+
+def refusal(device: torch.device, bdgcn_impl: str) -> Optional[str]:
+    """Why steps on ``device`` and ``bdgcn_impl`` run uncaptured, or None
+    when they are captured."""
+    if device.type != "cuda":
+        return "cpu: CUDA graphs need the card"
+    if bdgcn_impl == "ell":
+        return ("bdgcn_impl=ell: the ELL forward and dX count their "
+                "Inf/NaN marks' generation on the host")
+    return None
+
+
+class Captured:
+    """One captured graph: its static ``inputs`` (filled by ``replay``),
+    its static ``output``, and the kernel launches its capture tallied
+    (added to the kernels' counts at every replay)."""
+
+    def __init__(self, graph, inputs: tuple, output, tally: dict, lock):
+        self.graph, self.inputs, self.output = graph, inputs, output
+        self.tally, self._lock = tally, lock
+
+    def replay(self, *values):
+        """Copy ``values`` into the static inputs, run the graph, and
+        return its static output (valid until the set's next replay)."""
+        with self._lock:
+            for buf, v in zip(self.inputs, values):
+                buf.copy_(v)
+            self.graph.replay()
+            add_replayed(self.tally)
+        return self.output
+
+
+class GraphSet:
+    """The graphs of one trainer or engine on ``device``, by key; raises
+    where ``refusal`` names a reason."""
+
+    def __init__(self, device: torch.device, bdgcn_impl: str):
+        why = refusal(device, bdgcn_impl)
+        if why is not None:
+            raise RuntimeError(f"cannot capture CUDA graphs here ({why})")
+        self.device = device
+        self.pool = torch.cuda.graph_pool_handle()
+        self.lock = threading.RLock()
+        self.stream = torch.cuda.Stream(device)
+        self.graphs: dict = {}
+
+    def get(self, key) -> Optional[Captured]:
+        return self.graphs.get(key)
+
+    def warmup(self, fn: Callable):
+        """Run ``fn`` eagerly on the side stream (the capture recipe's
+        warm-up; its work is real: a train step updates the weights) and
+        return what it returns."""
+        with self.lock:
+            cur = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(cur)
+            with torch.cuda.stream(self.stream):
+                out = fn()
+            cur.wait_stream(self.stream)
+        return out
+
+    def capture(self, key, fn: Callable, inputs: tuple = ()) -> Captured:
+        """Record ``fn`` (which reads ``inputs`` and returns its output)
+        into a graph of the set's pool under ``key``."""
+        graph = torch.cuda.CUDAGraph()
+        with self.lock, capture_launches() as tally:
+            with torch.cuda.graph(graph, pool=self.pool):
+                out = fn()
+        self.graphs[key] = cap = Captured(graph, inputs, out, tally,
+                                          self.lock)
+        return cap
+
+    def drop(self) -> None:
+        """Drop every graph of the set. Their pool goes with the last of
+        them, so later captures take a new one."""
+        with self.lock:
+            self.graphs.clear()
+            self.pool = torch.cuda.graph_pool_handle()
+
+
+class RolloutGraphs:
+    """One captured ``rollout`` of ``model`` over ``banks`` per (batch,
+    horizon), the counterpart of the JAX trainer's jitted ``_rollout`` and
+    of the serve engine's AOT executable per (bucket, horizon). ``run``
+    captures a pair on its first call (whose answer is the eager warm-up
+    run's) and replays it after."""
+
+    def __init__(self, graphs: GraphSet, model, banks: dict):
+        self.graphs, self.model, self.banks = graphs, model, banks
+
+    def run(self, x: torch.Tensor, keys: torch.Tensor,
+            horizon: int) -> torch.Tensor:
+        """x (B, T, N, N, 1), keys (B,) int64, on any device -> the
+        (B, horizon, N, N, 1) forecast on the host."""
+        with self.graphs.lock:
+            g = self.graphs.get((x.shape[0], horizon))
+            if g is not None:
+                return g.replay(x, keys).cpu()
+            xs = x.to(self.graphs.device, copy=True)
+            ks = keys.to(self.graphs.device, copy=True)
+
+            def fn():
+                return rollout(self.model, self.banks, xs, ks, horizon)
+
+            out = self.graphs.warmup(fn).cpu()
+            self.graphs.capture((x.shape[0], horizon), fn, (xs, ks))
+            return out
+
+    def capture_all(self, shapes, horizons, obs_len: int,
+                    num_nodes: int) -> float:
+        """Capture every (batch in ``shapes``, horizon) pair on zero
+        inputs; returns the seconds it took."""
+        t0 = time.perf_counter()
+        for b in shapes:
+            x = torch.zeros((b, obs_len, num_nodes, num_nodes, 1))
+            k = torch.zeros((b,), dtype=torch.long)
+            for h in horizons:
+                if self.graphs.get((b, h)) is None:
+                    self.run(x, k, h)
+        return time.perf_counter() - t0

@@ -11,8 +11,8 @@ The optimizer is the JAX package's optax chain (objectives.py:47-86):
 decay, then Adam(betas=(0.9, 0.999), eps=1e-8) at the scheduled rate.
 torch's L2 ``weight_decay`` adds decay * param to the gradient before the
 moment updates, which is optax's ``add_decayed_weights`` placed before
-``adam``; ``ChainAdam.step`` clips the gradients before that and sets the
-step's rate from the schedule.
+``adam``; ``ChainAdam.step`` clips the gradients before that and reads the
+step's rate from the schedule, tabulated on the device.
 """
 
 from __future__ import annotations
@@ -79,23 +79,67 @@ def clip_by_global_norm_(grads, max_norm: float) -> None:
 class ChainAdam(torch.optim.Adam):
     """Adam with L2 ``weight_decay``, after a global-norm gradient clip
     (``clip_norm`` > 0), at the rate ``schedule(i)`` on its i-th step
-    (from 0), as optax counts its updates."""
+    (from 0), as optax counts its updates.
+
+    The rate lives on the parameters' device, so a CUDA graph of the step
+    replays the schedule: ``lr_table`` holds ``schedule(i)`` in f32 for
+    every step the run can take (``total_steps``; grown on the host when
+    a step reaches its end), ``step_t`` is the device step counter that
+    indexes it, and Adam reads the rate as a tensor. On the card Adam is
+    built ``capturable=True`` (its step counts on the device too), on the
+    per-step and the captured path alike, so both run the same arithmetic;
+    the CPU keeps ``capturable=False``, which torch requires there.
+    ``count`` is the host's mirror of ``step_t``: ``step`` advances both,
+    ``update`` (the device part, what a graph captures) only ``step_t``,
+    and whoever replays ``update`` adds the replays with ``advance``."""
 
     def __init__(self, params, schedule, decay_rate: float = 0.0,
-                 clip_norm: float = 0.0):
-        super().__init__(params, lr=schedule(0), betas=(0.9, 0.999),
-                         eps=1e-8, weight_decay=decay_rate)
+                 clip_norm: float = 0.0, total_steps: int = 0):
+        params = list(params)
+        device = params[0].device if params and torch.is_tensor(
+            params[0]) else params[0]["params"][0].device
         self.schedule, self.clip_norm, self.count = schedule, clip_norm, 0
+        self.lr_table = self._table(max(total_steps, 1), device)
+        self.step_t = torch.zeros((1,), dtype=torch.long, device=device)
+        self.lr_t = self.lr_table[:1].clone()
+        super().__init__(params, lr=self.lr_t, betas=(0.9, 0.999),
+                         eps=1e-8, weight_decay=decay_rate,
+                         capturable=device.type == "cuda")
+        # the per-step path runs capturable Adam uncaptured on purpose
+        self._warned_capturable_if_run_uncaptured = True
+
+    def _table(self, n: int, device) -> torch.Tensor:
+        return torch.tensor([self.schedule(i) for i in range(n)],
+                            dtype=torch.float32).to(device)
+
+    def reserve(self, n: int) -> bool:
+        """Make ``lr_table`` cover steps 0..n-1; True when it had to be
+        reallocated (a graph that captured the old one must be dropped)."""
+        if n <= self.lr_table.shape[0]:
+            return False
+        self.lr_table = self._table(max(n, 2 * self.lr_table.shape[0]),
+                                    self.lr_table.device)
+        return True
 
     @torch.no_grad()
-    def step(self):
+    def update(self):
+        """The step on the device: clip, the rate ``lr_table[step_t]``,
+        Adam, ``step_t + 1``; no host sync, nothing read back."""
         if self.clip_norm:
             clip_by_global_norm_([p.grad for g in self.param_groups
                                   for p in g["params"]
                                   if p.grad is not None], self.clip_norm)
-        for group in self.param_groups:
-            group["lr"] = self.schedule(self.count)
+        torch.index_select(self.lr_table, 0, self.step_t, out=self.lr_t)
         super().step()
+        self.step_t += 1
+
+    def advance(self, n: int) -> None:
+        """Count ``n`` updates that ran without ``step`` (graph replays)."""
+        self.count += n
+
+    def step(self):
+        self.reserve(self.count + 1)
+        self.update()
         self.count += 1
 
 
@@ -108,4 +152,4 @@ def make_optimizer(kind: str, params, learn_rate: float,
     if kind != "Adam":
         raise NotImplementedError("Invalid optimizer name.")
     return ChainAdam(params, lr_at(learn_rate, lr_schedule, total_steps),
-                     decay_rate, clip_norm)
+                     decay_rate, clip_norm, total_steps)

@@ -1143,3 +1143,204 @@ def test_trainer_step_runs_the_ell_kernels(cuda_device, tmp_path):
         torch.testing.assert_close(
             p.grad, ref[name].grad, rtol=1e-4,
             atol=1e-5 * float(ref[name].grad.abs().max()))
+
+
+# --- the scan executor's CUDA graphs ------------------------------------------
+
+#: the hand-written kernels' device names (csrc/: every __global__)
+_OWN_KERNELS = ("lstm_", "tf32_", "ell_")
+
+
+def _graph_pair(dev, tmp_path, **kw):
+    """A trainer on the scan executor (graphs) and one on the per-step
+    executor, from the same seeded init."""
+    cfg = MPGCNConfig(synthetic_T=120, synthetic_N=10, pred_len=1, seed=0,
+                      output_dir=str(tmp_path), **kw)
+    data = synthetic_dataset(cfg)
+    a = ModelTrainer(cfg, data, device=dev)
+    b = ModelTrainer(cfg.replace(epoch_scan=False), data, device=dev)
+    assert a.graph_refusal is None
+    return a, b
+
+
+def _steps(a, b, mode, n):
+    """n steps of ``mode`` on the executor (two eager warm-ups, the
+    capture, replays) and by the per-step calls; their losses."""
+    ep = a._epoch_state(mode)
+    ep.load(*a._epoch_index(mode, False, None))
+    for _ in range(n):
+        a._exec_step(mode, ep, mode == "train")
+    if mode == "train":
+        a.optimizer.advance(n)
+    step = b.train_step if mode == "train" else b.eval_step
+    ref = [step(x) for x in list(b.pipeline.batches(
+        mode, pad_to_full=True))[:n]]
+    return ep.losses[:n].cpu().numpy(), np.array(ref, np.float32)
+
+
+def _assert_same_state(a, b):
+    for (n, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        assert torch.equal(p, q), n
+    for sa, sb in zip(a.optimizer.state.values(), b.optimizer.state.values()):
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(sa[k], sb[k]), k
+
+
+@pytest.mark.parametrize("kw", [
+    dict(hidden_dim=32),
+    dict(hidden_dim=128, kernel_type="dual_random_walk_diffusion",
+         cheby_order=3)], ids=["hidden32", "hidden128-K7"])
+def test_captured_steps_equal_eager(cuda_device, tmp_path, kw):
+    """Five train steps and four eval steps by graph equal the per-step
+    executor's bit for bit: losses, weights, Adam's state. At hidden 128
+    the graph holds the engine BPTT and both cooperative dW launches."""
+    a, b = _graph_pair(cuda_device, tmp_path, **kw)
+    for mode, n in (("train", 5), ("validate", 4)):
+        got, ref = _steps(a, b, mode, n)
+        assert np.array_equal(got, ref), (mode, got, ref)
+        assert a._graphs.get(mode) is not None
+    _assert_same_state(a, b)
+
+
+def _device_kernels(fn):
+    """{name: count} of the hand-written kernels the device ran in one
+    call of fn (torch.profiler; the call sits inside idle time, as the
+    smoke's device_activities has it)."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(0.05)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        prof.step()
+    names = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("void ", "").replace(
+                "(anonymous namespace)::", "").split("<")[0].split("(")[0]
+            if name.startswith(_OWN_KERNELS):
+                names[name] = names.get(name, 0) + 1
+    return names
+
+
+def test_replay_counts_the_captured_launches(cuda_device, tmp_path):
+    """One replay of the train graph adds its capture's tally to the
+    launch counts; the tally is what an eager step counts, and the
+    replay runs on the device the hand-written kernels an eager step
+    runs, as many times."""
+    a, b = _graph_pair(cuda_device, tmp_path, hidden_dim=32)
+    _steps(a, b, "train", 3)
+    g = a._graphs.get("train")
+    ep = a._epochs["train"]
+    kernels = {**KERNELS, "lstm_train_fwd": cuda_lstm.LSTM_TRAIN_FWD,
+               "lstm_train_bwd": cuda_lstm.LSTM_TRAIN_BWD,
+               "bdgcn_pair_bwd": cuda_bdgcn.BDGCN_PAIR_BWD}
+    tally = {k.symbol: n for k, n in g.tally.items()}
+    assert tally == {"lstm_train_fwd_f32": 2, "lstm_train_bwd_f32": 2,
+                     "bdgcn_pair_fwd_f32": 6, "bdgcn_pair_bwd_f32": 6}
+    for k in kernels.values():
+        k.launches = 0
+    ep.t.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    assert {k.symbol: k.launches for k in kernels.values()
+            if k.launches} == tally
+    ep.t.zero_()
+    replayed = _device_kernels(g.replay)
+    eager = _device_kernels(lambda: a._train_body(ep))
+    assert replayed == eager and replayed, (replayed, eager)
+
+
+def test_no_host_sync_inside_an_epoch(cuda_device, tmp_path):
+    """Once the steps are captured, a whole train and validation epoch
+    runs under torch.cuda.set_sync_debug_mode('error') up to its read."""
+    a, _ = _graph_pair(cuda_device, tmp_path, hidden_dim=32)
+    rng = np.random.default_rng(0)
+    for mode in ("train", "validate"):
+        a._run_epoch(mode, "scan", rng)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = [a._dispatch_epoch(m, m == "train", rng, m == "train")
+               for m in ("train", "validate")]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for losses, sizes in out:
+        assert np.isfinite(losses.cpu().numpy()).all()
+
+
+def test_rollout_graph_per_bucket_equals_eager(cuda_device):
+    cfg = MPGCNConfig(synthetic_T=200, synthetic_N=10, hidden_dim=16,
+                      lstm_num_layers=2, pred_len=3, seed=0)
+    data = synthetic_dataset(cfg)
+    eng = ServeEngine(cfg, data, ServeConfig(buckets=(1, 2, 4),
+                                             horizons=(1, 3)),
+                      device=cuda_device, allow_fresh=True)
+    try:
+        graphs = eng._rollouts.graphs
+        assert set(graphs.graphs) == {(b, h) for b in (1, 2, 4)
+                                      for h in (1, 3)}
+        md = eng.pipeline.modes["test"]
+        for b in (1, 2, 4):
+            x = torch.from_numpy(np.array(md.x[:b]))
+            k = torch.from_numpy(md.keys[:b].astype(np.int64))
+            for h in (1, 3):
+                ref = rollout(eng.model, eng.banks, x.to(cuda_device),
+                              k.to(cuda_device), h).cpu()
+                assert torch.equal(eng._rollouts.run(x, k, h), ref), (b, h)
+    finally:
+        eng.close()
+
+
+def test_replay_after_load_trained_equals_eager(cuda_device, tmp_path):
+    """load_trained copies a checkpoint into the weights in place, so the
+    captured rollout and train step read the new weights: after it both
+    replays equal eager runs from the same state."""
+    from mpgcn_tpu_torch.train.checkpoint import save_checkpoint
+
+    a, b = _graph_pair(cuda_device, tmp_path, hidden_dim=32)
+    _steps(a, b, "train", 3)
+    md = a.pipeline.modes["test"]
+    x, k = np.array(md.x[:4]), md.keys[:4]
+    a.predict(x, k, 3)  # the eager warm-up, then the capture
+    before = a.predict(x, k, 3)
+    path = str(tmp_path / "other.pkl")
+    save_checkpoint(path, MPGCN.from_config(a.cfg.replace(seed=1),
+                                            device=cuda_device), 0)
+    ptrs = a._state_ptrs()
+    a.load_trained(path)
+    b.load_trained(path)
+    assert a._state_ptrs() == ptrs and a._graphs.get((4, 3)) is not None
+    ref = rollout(a.model, a.banks, torch.from_numpy(x).to(cuda_device),
+                  torch.from_numpy(k.astype(np.int64)).to(cuda_device),
+                  3).cpu()
+    after = a.predict(x, k, 3)
+    assert torch.equal(torch.from_numpy(after), ref)
+    assert not np.array_equal(after, before)
+    got, want = _steps(a, b, "train", 2)
+    assert np.array_equal(got, want)
+    _assert_same_state(a, b)
+
+
+def test_graphs_captured_again_after_the_storage_moves(cuda_device,
+                                                      tmp_path):
+    """A rate table grown past the run moves what the train graph reads:
+    the trainer drops its graphs, takes a new pool, captures the step
+    again, and it still equals eager."""
+    a, b = _graph_pair(cuda_device, tmp_path, hidden_dim=32)
+    _steps(a, b, "train", 3)
+    a.optimizer.reserve(a.optimizer.lr_table.shape[0] + 1)
+    a._check_storage()
+    assert not a._graphs.graphs
+    got, want = _steps(a, b, "train", 2)
+    assert np.array_equal(got, want) and a._graphs.get("train") is not None
+    _assert_same_state(a, b)

@@ -137,18 +137,25 @@ def test_unknown_loss_and_optimizer_raise():
         MPGCNConfig(loss="L3")
 
 
-@pytest.mark.parametrize("decay", [0.0, 0.01])
-def test_adam_matches_optax_chain(decay):
+@pytest.mark.parametrize("decay,schedule", [
+    pytest.param(0.0, "none", id="0.0"), pytest.param(0.01, "none", id="0.01"),
+    pytest.param(0.0, "cosine", id="0.0-cosine"),
+    pytest.param(0.01, "exponential", id="0.01-exponential")])
+def test_adam_matches_optax_chain(decay, schedule):
     """torch Adam(weight_decay) against the JAX package's optax chain
-    (add_decayed_weights before adam) over 5 steps of fixed gradients."""
+    (add_decayed_weights before adam) over 5 steps of fixed gradients, at
+    a fixed rate and at each schedule over 4 steps (the rate read from the
+    device table; exponential runs on past its end)."""
     from mpgcn_tpu.train.objectives import make_optimizer as jax_optimizer
 
     rng = np.random.default_rng(2)
     p0 = rng.normal(size=(6, 3)).astype(np.float32)
     grads = [rng.normal(size=p0.shape).astype(np.float32) for _ in range(5)]
     p = torch.nn.Parameter(torch.from_numpy(p0.copy()))
-    opt = make_optimizer("Adam", [p], 1e-2, decay)
-    tx = jax_optimizer("Adam", 1e-2, decay)
+    opt = make_optimizer("Adam", [p], 1e-2, decay, lr_schedule=schedule,
+                         total_steps=4)
+    tx = jax_optimizer("Adam", 1e-2, decay, lr_schedule=schedule,
+                       total_steps=4)
     jp = jnp.asarray(p0)
     state = tx.init(jp)
     for g in grads:
@@ -179,7 +186,8 @@ def test_config_training_fields_match_jax_defaults():
     ours, ref = MPGCNConfig(), JaxConfig()
     for name in ("output_dir", "batch_size", "loss", "optimizer",
                  "learn_rate", "decay_rate", "num_epochs", "shuffle",
-                 "early_stop_patience", "mode"):
+                 "early_stop_patience", "mode", "epoch_scan",
+                 "epoch_scan_max_mb"):
         assert getattr(ours, name) == getattr(ref, name), name
 
 
