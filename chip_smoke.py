@@ -107,13 +107,34 @@ Phases, each fatal on failure:
      graph equal to train_step / eval_step, and its bucket-8 rollout
      graph; (d) N=500 on the ELL arm: one epoch on the scan executor,
      uncaptured as its dispatch line says, equal to the per-step one.
-     Times by graph and eager (steps, rollouts, busy shares).
+     Times by graph and eager (steps, rollouts, busy shares);
+ 13. after them all, the self-healing trainer at the reference widths
+     (cfg's live init seed, the scan executor with graphs): (a) 3 epochs
+     with the step sentinels on and off equal bit for bit (losses,
+     weights, Adam's state, the rate, step_t), the step's time by graph
+     with and without them; (b) NaN input windows at train step 5: the
+     replayed step is undone bit for bit inside the graph (step_t does
+     not move, its loss is NaN), by graph equal to per step; with
+     skip_budget 1 the epoch completes; with skip_budget 0 and
+     rollback_retries 1 a postmortem, a restore, the rate halved, a retry
+     and a stop, the events in the JAX trainer's order; (c) -multistep
+     -pred 6 (BASELINE config 3): 2 epochs by graph equal per step bit
+     for bit, 6 x a one-step step's launches, one step's gradients
+     against float64, step times and busy share; (d) -accum 2: at N=47 by
+     graph equal per step, matching the full batch (rtol 1e-5), at N=500
+     (the ELL arm) one step's gradients matching the full batch's, peak
+     device bytes for k = 1 and 2; (e) 2 epochs and a resume to 4 equal 4
+     straight epochs bit for bit by graph; (f) the heads forced dead:
+     'error' raises after epoch 1, 'retry' reseeds and trains; (g)
+     -watchdog 60 completes without firing, with its per-epoch host copy
+     timed.
 
 The second-to-last line is a JSON object listing each kernel; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a card, and
 when run from a directory that holds no mpgcn_tpu_torch package.
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -979,7 +1000,8 @@ def live_init_seed(cfg, data, dev, tries=16):
 def batch_grads(model, tr, batch, f64, dev):
     """(loss, {name: grad}, the last ReLU's mask per branch) of the masked
     MSE batch loss of ``model`` on ``tr``'s banks (float64 inputs, supports
-    and residual when ``f64``)."""
+    and residual when ``f64``); a target of several frames is the
+    multi-step loss, through the differentiable rollout."""
     import torch
 
     from mpgcn_tpu_torch.train.objectives import elementwise_loss
@@ -993,6 +1015,12 @@ def batch_grads(model, tr, batch, f64, dev):
              else G.double() for G in g]
         xb, yb = xb.double(), yb.double()
     pred, hidden = model(xb, g, return_hidden=True, inference=False)
+    if yb.shape[1] > 1:
+        # the multi-step objective: the rollout over y's frames (the masks
+        # are the first step's)
+        from mpgcn_tpu_torch.train.predict import rollout_train
+
+        pred = rollout_train(model, g, xb, yb.shape[1])
     # the trainer's MSE, with the residual kept in float64 for the
     # reference (elementwise_loss upcasts to f32 only)
     err = ((pred - yb) ** 2 if f64 else elementwise_loss("MSE", pred, yb))
@@ -2582,16 +2610,19 @@ def _require_same_state(a, b, label):
 def _record_epochs(tr):
     """Wrap the trainer's epoch call: each epoch's mean, launches, host
     seconds and state after it, in order."""
+    from mpgcn_tpu_torch.train.trainer import epoch_mean
+
     log, run_epoch = [], tr._run_epoch
 
     def run(mode, exec_path, rng):
         reset_counts()
         t0 = time.perf_counter()
-        loss = run_epoch(mode, exec_path, rng)
+        losses, sizes = run_epoch(mode, exec_path, rng)
         counts = read_counts()
-        log.append(dict(mode=mode, exec=exec_path, loss=loss, counts=counts,
+        log.append(dict(mode=mode, exec=exec_path,
+                        loss=epoch_mean(losses, sizes), counts=counts,
                         s=time.perf_counter() - t0, state=_state(tr)))
-        return loss
+        return losses, sizes
 
     tr._run_epoch = run
     return log
@@ -2843,7 +2874,8 @@ def phase_graph_wide(dev, data, seed, card):
     graph (two eager warm-ups, the capture, three replays) equal five
     train_step calls bit for bit, four eval steps equal eval_step, and
     the bucket-8 rollout graph equals the eager rollout. Times: the step
-    and the rollout by graph. Returns the launches."""
+    and the rollout by graph, and the step with the step sentinels on
+    and off. Returns the launches."""
     import torch
 
     from mpgcn_tpu_torch.config import MPGCNConfig
@@ -2905,6 +2937,23 @@ def phase_graph_wide(dev, data, seed, card):
           f"bucket-8 rollout by graph {roll[0]:.3f} / {roll[1]:.3f} ms, "
           f"eager {eager[0]:.3f} / {eager[1]:.3f} ms (5 after 1)",
           flush=True)
+    off = ModelTrainer(tcfg.replace(step_sentinels=False), data, device=dev)
+    ep = off._epoch_state("train")
+    ep.load(*off._epoch_index("train", False, None))
+    for _ in range(3):  # two eager warm-ups, then the capture
+        off._exec_step("train", ep, True)
+    off.optimizer.advance(3)
+    require(_captured(off, "train") and off.optimizer.guard is None
+            and a.optimizer.guard is not None,
+            "wide: the sentinels-off step is not on a graph")
+    ms = [_host_ms(_train_steps(tr, 12), n=10, warmup=2)[0]
+          for tr in (a, off, a, off)]
+    on_ms, off_ms = (ms[0] + ms[2]) / 2, (ms[1] + ms[3]) / 2
+    print(f"[time] wide train step by graph on {card}, median of 10 after "
+          f"2, in the order sentinels on, off, on, off: "
+          f"{', '.join(f'{v:.3f}' for v in ms)} ms; the sentinel's cost "
+          f"{on_ms - off_ms:+.3f} ms ({on_ms:.3f} against {off_ms:.3f})",
+          flush=True)
     return total
 
 
@@ -2952,6 +3001,558 @@ def phase_graph_large_n(dev, cfg, data, out_dir):
           f"executor bit for bit (losses {s['hist']}); epoch seconds scan "
           f"{[round(e['s'], 3) for e in s['log']]}, per step "
           f"{[round(e['s'], 3) for e in p['log']]}", flush=True)
+    return total
+
+
+# --- the self-healing trainer ------------------------------------------------
+
+def _heal_trainer(cfg, data, dev, out_dir, name, **kw):
+    from mpgcn_tpu_torch.train.trainer import ModelTrainer
+
+    d = os.path.join(out_dir, name)
+    os.makedirs(d, exist_ok=True)
+    return ModelTrainer(cfg.replace(output_dir=d, **kw), data, device=dev)
+
+
+def _captured(tr, *modes) -> bool:
+    """Each of ``modes`` has its step captured as a graph."""
+    return tr._graphs is not None and all(tr._graphs.get(m) is not None
+                                          for m in modes)
+
+
+def _guarded(tr):
+    """Copies of what an update writes: the weights, Adam's moments and
+    steps, the rate and the device step counter."""
+    return [t.detach().clone() for t in tr.optimizer.guarded()]
+
+
+def _same(a, b) -> bool:
+    import torch
+
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _poison_rows(tr, step):
+    """NaN input windows for the rows of unshuffled train step ``step``,
+    in a copy of the trainer's training windows."""
+    md = tr.pipeline.modes["train"]
+    bs = tr.cfg.batch_size
+    x = np.array(md.x)
+    x[step * bs: (step + 1) * bs] = np.nan
+    md.x = x
+
+
+def _events(tr) -> list:
+    from mpgcn_tpu_torch.utils.logging import read_events
+
+    return read_events(os.path.join(tr.cfg.output_dir,
+                                    "MPGCN_train_log.jsonl"))
+
+
+def _raises(fn, exc) -> str:
+    """The message of the ``exc`` that fn must raise."""
+    try:
+        fn()
+    except exc as e:
+        return str(e)
+    require(False, f"{fn} did not raise {exc.__name__}")
+
+
+def heal_sentinels(dev, cfg, data, out_dir, card):
+    """(a) 3 epochs by graph with the step sentinels on and off: equal bit
+    for bit (epoch losses, weights, Adam's state, the rate, step_t), with
+    the same launches; the step's time by graph with and without them."""
+    tcfg = cfg.replace(pred_len=1, num_epochs=3)
+    runs = {}
+    for on in (True, False):
+        tr = _heal_trainer(tcfg, data, dev, out_dir, f"sentinels_{on}",
+                           step_sentinels=on)
+        reset_counts()
+        hist = tr.train()
+        runs[on] = (tr, hist, read_counts())
+    (ton, hon, con), (toff, hoff, coff) = runs[True], runs[False]
+    require(_captured(ton, "train", "validate")
+            and ton.optimizer.guard is not None
+            and toff.optimizer.guard is None,
+            "the sentinel runs are not on graphs")
+    require(hon == hoff, f"epoch losses with sentinels {hon}, without "
+                         f"{hoff}")
+    require(_same(_guarded(ton), _guarded(toff)),
+            "sentinels on and off leave different weights or Adam state")
+    S = {m: ton.pipeline.num_batches(m) for m in ("train", "validate")}
+    expect = _add(_scaled(_per_step(tcfg, True), 3 * S["train"]),
+                  _scaled(_per_step(tcfg, False), 3 * S["validate"]))
+    require(con == coff == expect, f"launches {con} / {coff}, expected "
+                                   f"{expect}")
+    ms, eager = [], []
+    for tr in (ton, toff, ton, toff):
+        ms.append(_host_ms(_train_steps(tr, 30), n=20, warmup=5)[0])
+    for tr in (ton, toff, ton, toff):
+        eager.append(_host_ms(_train_steps(tr, 30, captured=False), n=20,
+                              warmup=5)[0])
+    on_ms, off_ms = (ms[0] + ms[2]) / 2, (ms[1] + ms[3]) / 2
+    print(f"[heal] (a) N=47, 3 epochs by graph from init seed {tcfg.seed}: "
+          f"step sentinels on equal off bit for bit (epoch losses {hon}, "
+          f"weights, Adam's state, rate, step_t "
+          f"{int(ton.optimizer.step_t)}), launches equal", flush=True)
+    print(f"[time] N=47 train step by graph on {card}, median of 20 after "
+          f"5, in the order on, off, on, off: "
+          f"{', '.join(f'{v:.3f}' for v in ms)} ms; the sentinel's cost "
+          f"{on_ms - off_ms:+.3f} ms ({on_ms:.3f} against {off_ms:.3f}); "
+          f"the executor's eager body, same order: "
+          f"{', '.join(f'{v:.3f}' for v in eager)} ms", flush=True)
+    busy_share(f"N=47 train step by graph, sentinels on, on {card},",
+               _train_steps(ton, 5), 5)
+    return _add(con, coff)
+
+
+def heal_nan_window(dev, cfg, data, out_dir):
+    """(b) NaN input windows at train step 5 (a replay): the step is
+    skipped, the state after it equals the state before it bit for bit
+    and step_t does not move, its loss is NaN; by graph and per step the
+    epoch ends equal; with skip_budget 1 the epoch completes; with
+    skip_budget 0 and rollback_retries 1 the run quarantines a postmortem,
+    restores, halves the rate, retries and stops, its events in the JAX
+    trainer's order."""
+    from mpgcn_tpu_torch.resilience.rollback import postmortem_path
+
+    step = 5
+    tcfg = cfg.replace(pred_len=1, num_epochs=1, skip_budget=1)
+    g = _heal_trainer(tcfg, data, dev, out_dir, "nan_graph")
+    e = _heal_trainer(tcfg, data, dev, out_dir, "nan_eager",
+                      epoch_scan=False)
+    for tr in (g, e):
+        _poison_rows(tr, step)
+    ep = g._epoch_state("train")
+    idx, sizes = g._epoch_index("train", False, None)
+    g.optimizer.reserve(len(sizes))
+    ep.load(idx, sizes)
+    reset_counts()
+    for i in range(len(sizes)):
+        before = _guarded(g) if i == step else None
+        g._exec_step("train", ep, True)
+        if i == step:
+            require(_captured(g, "train"),
+                    "the poisoned step is not a replay")
+            require(_same(before, _guarded(g)),
+                    "the skipped step changed the weights or Adam's state")
+            require(int(g.optimizer.step_t) == step,
+                    f"step_t {int(g.optimizer.step_t)} after the skip")
+    g.optimizer.advance(len(sizes))
+    counts = read_counts()
+    lg = ep.losses.cpu().numpy()
+    le = np.array([e.train_step(b) for b in e.pipeline.batches(
+        "train", pad_to_full=True)], np.float32)
+    require(np.isnan(lg[step]) and np.isfinite(np.delete(lg, step)).all(),
+            f"the loss stream {lg}")
+    require(np.array_equal(lg, le, equal_nan=True),
+            "the loss streams by graph and per step differ")
+    require(_same(_guarded(g), _guarded(e)),
+            "by graph and per step the epoch ends in different states")
+    print(f"[heal] (b) NaN windows at train step {step} of "
+          f"{len(sizes)}: skipped inside the replayed graph (the state "
+          f"after it equals the state before it bit for bit, step_t stays "
+          f"{step}, its loss NaN); the epoch by graph equals the per-step "
+          f"executor's bit for bit; step_t {int(g.optimizer.step_t)}, "
+          f"host count {g.optimizer.count}", flush=True)
+    t1 = _heal_trainer(tcfg, data, dev, out_dir, "nan_budget1")
+    _poison_rows(t1, step)
+    h1 = t1.train()
+    skips = [r["skipped_steps"] for r in _events(t1) if r["event"] == "epoch"]
+    require(len(h1["train"]) == 1 and np.isfinite(h1["train"]).all()
+            and skips == [1], f"skip_budget 1: {h1}, skips {skips}")
+    t0 = _heal_trainer(tcfg, data, dev, out_dir, "nan_rollback",
+                       num_epochs=2, skip_budget=0, rollback_retries=1)
+    _poison_rows(t0, step)
+    lr = t0.cfg.learn_rate
+    h0 = t0.train()
+    names = [r["event"] for r in _events(t0)]
+    post = postmortem_path(t0.cfg.output_dir, "MPGCN", 1)
+    require(names == ["train_start", "nan_abort", "rollback", "train_start",
+                      "nan_abort"], f"rollback events {names}")
+    require(os.path.exists(post) and len(h0["train"]) == 1,
+            f"postmortem {post}, history {h0}")
+    require(t0.cfg.learn_rate == 0.5 * lr and float(
+        t0.optimizer.lr_table[0]) == float(np.float32(0.5 * lr)),
+        f"the rate after the rollback: {t0.cfg.learn_rate}")
+    require(all(bool(p.isfinite().all()) for p in t0.model.parameters()),
+            "non-finite weights after the rollback")
+    print(f"[heal] (b) skip_budget 1: the epoch completes (skipped steps "
+          f"{skips}); skip_budget 0, rollback_retries 1: events {names}, "
+          f"postmortem {os.path.basename(post)}, rate {lr} -> "
+          f"{t0.cfg.learn_rate}, weights restored and finite", flush=True)
+    return counts
+
+
+def heal_multistep(dev, cfg, data, out_dir, card):
+    """(c) -multistep -pred 6 (BASELINE config 3): 2 epochs by graph equal
+    2 epochs per step bit for bit, each step launching 6 x a one-step
+    step's kernels; one step's gradients of the kernel arms and the plain
+    arms against the plain arms in float64; step times and busy share."""
+    from mpgcn_tpu_torch.train.trainer import ModelTrainer
+
+    mcfg = cfg.replace(pred_len=6, num_epochs=2)
+    per = {True: _scaled(_per_step(mcfg, True), 6),
+           False: _scaled(_per_step(mcfg, False), 6)}
+    require(_nz(per[True]) == {"lstm_train_fwd": 12, "lstm_train_bwd": 12,
+                               "bdgcn_pair_fwd": 36, "bdgcn_pair_bwd": 36},
+            f"multi-step launches per train step {per[True]}")
+    runs = {}
+    for name, scan in (("graphs", True), ("per_step", False)):
+        tr = _heal_trainer(mcfg, data, dev, out_dir, f"multistep_{name}",
+                           epoch_scan=scan)
+        log = _record_epochs(tr)
+        runs[name] = dict(tr=tr, log=log, hist=tr.train())
+    g, p = runs["graphs"], runs["per_step"]
+    tg = g["tr"]
+    require(tg.pipeline.modes["train"].y.shape[1] == 6
+            and _captured(tg, "train", "validate"),
+            "the multi-step run is not on graphs or not on 6 frames")
+    require(g["hist"] == p["hist"], f"multi-step epoch losses: graphs "
+                                    f"{g['hist']}, per step {p['hist']}")
+    total = {}
+    for eg, es in zip(g["log"], p["log"]):
+        mode = eg["mode"]
+        _require_same_state(eg["state"], es["state"], f"multi-step {mode}")
+        expect = _scaled(per[mode == "train"], tg.pipeline.num_batches(mode))
+        require(eg["counts"] == es["counts"] == expect,
+                f"multi-step {mode}: launches {eg['counts']} / "
+                f"{es['counts']}, expected {expect}")
+        total = _add(_add(total, eg["counts"]), es["counts"])
+    require(g["hist"]["train"][-1] < g["hist"]["train"][0],
+            "the multi-step train loss does not fall")
+    print(f"[heal] (c) -multistep -pred 6, 2 epochs: by graph equal per "
+          f"step bit for bit (epoch losses {g['hist']}); launches per train "
+          f"step {_nz(per[True])}, per validation step {_nz(per[False])}",
+          flush=True)
+    kern = _heal_trainer(mcfg, data, dev, out_dir, "multistep_grad")
+    plain = ModelTrainer(mcfg.replace(output_dir=kern.cfg.output_dir), data,
+                         device=dev, lstm_impl="plain", bdgcn_impl="einsum")
+    plain.model.load_state_dict(kern.model.state_dict())
+    ref64 = copy.deepcopy(plain.model).double()
+    md = kern.pipeline.modes["train"]
+    bs = mcfg.batch_size
+    grad_check("multi-step (6 frames) full batch",
+               _batch(md, np.arange(bs), bs), kern, plain, ref64, dev)
+    batch = next(p["tr"].pipeline.batches("train", pad_to_full=True))
+    g_ms = _host_ms(_train_steps(tg, 30), n=20, warmup=5)
+    e_ms = _host_ms(lambda: p["tr"].train_step(batch), n=20, warmup=5)
+    print(f"[time] multi-step (6 frames) train step on {card}, median / "
+          f"min of 20 after 5: by graph {g_ms[0]:.3f} / {g_ms[1]:.3f} ms, "
+          f"train_step {e_ms[0]:.3f} / {e_ms[1]:.3f} ms", flush=True)
+    busy_share(f"multi-step (6 frames) train step by graph on {card},",
+               _train_steps(tg, 5), 5)
+    busy_share(f"multi-step (6 frames) train_step on {card},",
+               lambda: p["tr"].train_step(batch), 5)
+    return total
+
+
+def _step_grads(tr, batch, k):
+    """Loss, gradients and peak device bytes of one step's forward and
+    backward with grad_accum k."""
+    import torch
+
+    tr.cfg = tr.cfg.replace(grad_accum=k)
+    x, y, keys = tr._tensors(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss = tr._loss_and_grads(x, y, keys, tr._size(batch))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    grads = {n: p.grad.detach().clone()
+             for n, p in tr.model.named_parameters()}
+    tr.optimizer.zero_grad(set_to_none=True)
+    return float(loss), grads, peak
+
+
+def _require_close_grads(label, a, b, rtol=1e-5, atol_scale=1e-6):
+    """Loss at rtol; each gradient at rtol with an atol of atol_scale x its
+    largest entry. Returns the worst max_abs_err / max|g|."""
+    import torch
+
+    (la, ga, _), (lb, gb, _) = a, b
+    require(abs(la - lb) <= rtol * abs(lb), f"{label}: loss {la} vs {lb}")
+    worst = 0.0
+    for n, g in gb.items():
+        scale = float(g.abs().max())
+        err = float((ga[n] - g).abs().max())
+        worst = max(worst, err / scale if scale else err)
+        require(torch.allclose(ga[n], g, rtol=rtol,
+                               atol=atol_scale * scale),
+                f"{label}: the gradient of {n} differs (max abs err "
+                f"{err:.3e}, max |g| {scale:.3e})")
+    return worst
+
+
+@contextlib.contextmanager
+def _captured_blocks():
+    """The (entry, rows, P) that the BPTT's and K-BDGCN backward's
+    wrappers hand their cooperative launches while a step is captured:
+    the P of each launch the graph replays."""
+    import torch
+
+    from mpgcn_tpu_torch.nn import cuda_bdgcn, cuda_lstm
+
+    seen = []
+    rules = {cuda_lstm: cuda_lstm.bwd_blocks,
+             cuda_bdgcn: cuda_bdgcn.bwd_blocks}
+
+    def spy(mod, rule):
+        def blocks(rows, *args):
+            P = rule(rows, *args)
+            if torch.cuda.is_current_stream_capturing():
+                seen.append((mod.__name__.rsplit(".", 1)[1], rows, P))
+            return P
+        return blocks
+
+    for mod, rule in rules.items():
+        mod.bwd_blocks = spy(mod, rule)
+    try:
+        yield seen
+    finally:
+        for mod, rule in rules.items():
+            mod.bwd_blocks = rule
+
+
+def _kernel_grids(fn, name, path, tries=3):
+    """The grids of the device kernels whose name holds ``name`` over two
+    calls of fn, from torch.profiler's trace (written to ``path``); a
+    window that recorded none of them is recorded again."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PAD_S)
+            fn()
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(PAD_S)
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        grids = [tuple(e["args"]["grid"]) for e in events
+                 if e.get("cat") == "kernel" and name in e.get("name", "")
+                 and "grid" in e.get("args", {})]
+        if grids:
+            return grids
+    return []
+
+
+def heal_accum(dev, cfg, data, cfg_l, data_l, out_dir):
+    """(d) -accum 2: at N=47 one epoch by graph equals one per step bit for
+    bit, each step launching twice a full-batch step's training kernels
+    on half the rows, and matches the full batch (epoch losses, one
+    step's loss and gradients: rtol 1e-5); at N=500 (the ELL arm, batch
+    2) one step's loss and gradients match the full batch's; peak device
+    bytes of a step for k = 1 and 2. The captured steps' cooperative dW
+    launches (BPTT, K-BDGCN backward) take the smaller P of half the rows:
+    the P their wrappers hand the launch during the capture, and the grid
+    of the BPTT's replayed launches in the profiler's trace."""
+    from mpgcn_tpu_torch.nn import cuda_bdgcn, cuda_lstm
+    from mpgcn_tpu_torch.train.trainer import ModelTrainer
+
+    acfg = cfg.replace(pred_len=1, num_epochs=1, grad_accum=2)
+    runs = {}
+    for name, kw in (("k2_graphs", {}), ("k2_per_step",
+                                         dict(epoch_scan=False)),
+                     ("k1_graphs", dict(grad_accum=1))):
+        tr = _heal_trainer(acfg, data, dev, out_dir, f"accum_{name}", **kw)
+        log = _record_epochs(tr)
+        with _captured_blocks() as blocks:
+            hist = tr.train()
+        runs[name] = dict(tr=tr, log=log, hist=hist, blocks=blocks)
+    g, p, f = runs["k2_graphs"], runs["k2_per_step"], runs["k1_graphs"]
+    require(_captured(g["tr"], "train", "validate"),
+            "the accumulating run is not on graphs")
+    require(g["hist"] == p["hist"], f"-accum 2 epoch losses: graphs "
+                                    f"{g['hist']}, per step {p['hist']}")
+    total = {}
+    S = g["tr"].pipeline.num_batches("train")
+    for eg, es in zip(g["log"], p["log"]):
+        mode = eg["mode"]
+        _require_same_state(eg["state"], es["state"], f"-accum 2 {mode}")
+        expect = (_scaled(_per_step(acfg, True), 2 * S) if mode == "train"
+                  else _scaled(_per_step(acfg, False),
+                               g["tr"].pipeline.num_batches(mode)))
+        require(eg["counts"] == es["counts"] == expect,
+                f"-accum 2 {mode}: launches {eg['counts']} / "
+                f"{es['counts']}, expected {expect}")
+        total = _add(_add(total, eg["counts"]), es["counts"])
+    for mode in ("train", "validate"):
+        require(np.allclose(g["hist"][mode], f["hist"][mode], rtol=1e-5,
+                            atol=0), f"-accum 2 {mode} losses "
+                f"{g['hist'][mode]} against the full batch's "
+                f"{f['hist'][mode]}")
+    k2 = _heal_trainer(acfg, data, dev, out_dir, "accum_step")
+    batch = next(k2.pipeline.batches("train", pad_to_full=True))
+    one = {k: _step_grads(k2, batch, k) for k in (1, 2)}
+    worst = _require_close_grads("N=47 -accum 2", one[2], one[1])
+    H, bs, n = cfg.hidden_dim, cfg.batch_size, k2.cfg.num_nodes
+    R = bs * n * n
+    P = {r: (cuda_lstm.bwd_blocks(r, H, dev),
+             cuda_bdgcn.bwd_blocks(r, cfg.support_K, H, H, dev))
+         for r in (R, R // 2)}
+    require(P[R // 2][0] < P[R][0] and P[R // 2][1] < P[R][1],
+            f"the dW blocks P by the rule do not shrink with R: {P}")
+    for run, r in ((g, R // 2), (f, R)):
+        expect = {("cuda_lstm", r, P[r][0]), ("cuda_bdgcn", r, P[r][1])}
+        require(run["blocks"] and set(run["blocks"]) == expect,
+                f"the captured train step's cooperative launches took "
+                f"(entry, rows, P) {sorted(set(run['blocks']))}, expected "
+                f"{sorted(expect)}")
+    grids = _kernel_grids(_train_steps(g["tr"], 8), "lstm_train_bwd_kernel",
+                          os.path.join(out_dir, "accum_trace.json"))
+    require(grids and set(grids) == {(P[R // 2][0], 1, 1)},
+            f"-accum 2: the replayed BPTT's grids {sorted(set(grids))}, "
+            f"expected P = {P[R // 2][0]} blocks")
+    print(f"[heal] (d) -accum 2, N=47: one epoch by graph equals per step "
+          f"bit for bit (losses {g['hist']}), matches the full batch "
+          f"({f['hist']}; one step's gradients worst max_abs_err / max|g| "
+          f"{worst:.3e}); launches per train step "
+          f"{_nz(_scaled(_per_step(acfg, True), 2))}; BPTT and K-BDGCN dW "
+          f"blocks P handed to the captured launches at R = {R} / "
+          f"{R // 2} (k = 1 / 2): {P[R]} / {P[R // 2]}, the replayed BPTT's "
+          f"grid {grids[0]} ({len(grids)} launches profiled); peak "
+          f"device bytes of a step k=1 {one[1][2]}, k=2 {one[2][2]}",
+          flush=True)
+    tl = ModelTrainer(cfg_l.replace(pred_len=1, output_dir=os.path.join(
+        out_dir, "accum_large_n")), data_l, device=dev)
+    require(tl.bdgcn_impl == "ell", f"N=500 arm {tl.bdgcn_impl}")
+    batch = next(tl.pipeline.batches("train", pad_to_full=True))
+    big = {k: _step_grads(tl, batch, k) for k in (1, 2)}
+    # the loss at rtol 1e-5; each dW is a sum over B N^2 = 500,000 rows that
+    # the chunks reassociate (~2e-5 of max|g| in f32): the gradient
+    # check's tolerances
+    worst = _require_close_grads("N=500 -accum 2", big[2], big[1],
+                                 rtol=GRAD_RTOL, atol_scale=GRAD_ATOL_SCALE)
+    require(abs(big[2][0] - big[1][0]) <= 1e-5 * abs(big[1][0]),
+            f"N=500 -accum 2: loss {big[2][0]} vs {big[1][0]}")
+    print(f"[heal] (d) -accum 2, N=500 (ELL arm, batch 2): one step's loss "
+          f"{big[2][0]:.7f} matches the full batch's ({big[1][0]:.7f}, rtol "
+          f"1e-5), its gradients at rtol {GRAD_RTOL}, atol "
+          f"{GRAD_ATOL_SCALE} x max|g| (worst max_abs_err / max|g| "
+          f"{worst:.3e}); peak "
+          f"device bytes of a step k=1 {big[1][2]}, k=2 {big[2][2]}",
+          flush=True)
+    del tl
+    return total
+
+
+def heal_resume(dev, cfg, data, out_dir, card):
+    """(e) 2 epochs, then resume to 4, equals 4 straight epochs bit for bit
+    by graph (shuffled: the resume replays the shuffle stream); the time
+    of a rolling checkpoint's save."""
+    rcfg = cfg.replace(pred_len=1, shuffle=True)
+    straight = _heal_trainer(rcfg, data, dev, out_dir, "resume_straight",
+                             num_epochs=4)
+    hs = straight.train()
+    first = _heal_trainer(rcfg, data, dev, out_dir, "resume_cut",
+                          num_epochs=2)
+    h1 = first.train()
+    resumed = _heal_trainer(rcfg, data, dev, out_dir, "resume_cut",
+                            num_epochs=4)
+    h2 = resumed.train(resume=True)
+    require(_captured(resumed, "train", "validate"),
+            "the resumed run is not on graphs")
+    for mode in ("train", "validate"):
+        require(h1[mode] + h2[mode] == hs[mode],
+                f"resumed {mode} losses {h1[mode] + h2[mode]}, straight "
+                f"{hs[mode]}")
+    require(_same(_guarded(straight), _guarded(resumed)),
+            "the resumed run ends in another state than the straight one")
+    snap = _host_ms(straight._snapshot, n=10, warmup=2)
+    loop = _host_ms(lambda: straight._save_last(4, 0.0, 4, 10), n=10,
+                    warmup=2)
+    straight._writer.flush()
+
+    def write():
+        straight._save_last(4, 0.0, 4, 10)
+        straight._writer.flush()
+
+    disk = _host_ms(write, n=10, warmup=2)
+    print(f"[heal] (e) 2 epochs, then resume to 4, equal 4 straight epochs "
+          f"bit for bit by graph (losses {hs})", flush=True)
+    print(f"[time] a rolling checkpoint on {card} (median / min of 10): the "
+          f"host copy of the state {snap[0]:.3f} / {snap[1]:.3f} ms; what "
+          f"the loop waits for (copy, hand-off to the writer thread) "
+          f"{loop[0]:.3f} / {loop[1]:.3f} ms; to the disk (pickle, fsync, "
+          f"rename) {disk[0]:.3f} / {disk[1]:.3f} ms", flush=True)
+
+
+def heal_dead_init(dev, cfg, data, out_dir):
+    """(f) The FC heads forced dead: 'error' raises DeadInitError after
+    epoch 1 and flags the rolling checkpoint; 'retry' reseeds and trains
+    a live run."""
+    import torch
+
+    from mpgcn_tpu_torch.train.trainer import DeadInitError
+    from mpgcn_tpu_torch.utils.convert import read_checkpoint
+
+    def kill(tr):
+        with torch.no_grad():
+            for br in tr.model.branches:
+                for prm in br.fc.parameters():
+                    prm.copy_(-prm.abs() - 0.1)
+
+    dcfg = cfg.replace(pred_len=1, num_epochs=2)
+    te = _heal_trainer(dcfg, data, dev, out_dir, "dead_error",
+                       on_dead_init="error")
+    kill(te)
+    msg = _raises(te.train, DeadInitError)
+    last = read_checkpoint(os.path.join(te.cfg.output_dir,
+                                        "MPGCN_od_last.pkl"))
+    require("no parameter changed over epoch 1" in msg
+            and last["extra"].get("dead_init") is True
+            and "dead_init" in [r["event"] for r in _events(te)],
+            f"dead init, error: {msg}")
+    tr = _heal_trainer(dcfg, data, dev, out_dir, "dead_retry",
+                       on_dead_init="retry", num_epochs=1)
+    kill(tr)
+    h = tr.train()
+    require(tr.cfg.seed != dcfg.seed and not tr._dead_init_detected
+            and len(h["train"]) == 1 and np.isfinite(h["train"]).all()
+            and not tr._forward_all_zero(),
+            f"dead init, retry: seed {tr.cfg.seed}, history {h}")
+    print(f"[heal] (f) dead heads: 'error' raised DeadInitError after "
+          f"epoch 1 ({msg[:60]}...), the rolling checkpoint flagged; "
+          f"'retry' reseeded to seed {tr.cfg.seed} and trained a live run "
+          f"(train loss {h['train']})", flush=True)
+
+
+def heal_watchdog(dev, cfg, data, out_dir, card):
+    """(g) -watchdog 60: 2 epochs complete without the watchdog firing; the
+    host copy of the state it takes each epoch, in ms."""
+    tr = _heal_trainer(cfg, data, dev, out_dir, "watchdog", pred_len=1,
+                       num_epochs=2, watchdog_secs=60.0)
+    h = tr.train()
+    names = [r["event"] for r in _events(tr)]
+    require(len(h["train"]) == 2 and "watchdog_timeout" not in names
+            and len(tr.watchdog_sync_ms) == 3 and tr._watchdog is None,
+            f"watchdog run: {h}, events {names}")
+    copy = _host_ms(tr._snapshot, n=10, warmup=2)
+    print(f"[heal] (g) -watchdog 60: 2 epochs, no fire; its state updates "
+          f"on {card} at arming and after each epoch "
+          f"{[round(v, 3) for v in tr.watchdog_sync_ms]} ms (after an epoch "
+          f"it takes the epoch's checkpoint snapshot); the host copy of the "
+          f"state {copy[0]:.3f} / {copy[1]:.3f} ms (median / min of 10)",
+          flush=True)
+
+
+def phase_self_healing(dev, cfg, data, cfg_l, data_l, out_dir, card):
+    """Phase 13: the self-healing trainer, (a)-(g), at the reference widths
+    (N=47, cfg's live init seed) on the scan executor with graphs, (d)
+    also at N=500. Returns the launches."""
+    total = heal_sentinels(dev, cfg, data, out_dir, card)
+    total = _add(total, heal_nan_window(dev, cfg, data, out_dir))
+    total = _add(total, heal_multistep(dev, cfg, data, out_dir, card))
+    total = _add(total, heal_accum(dev, cfg, data, cfg_l, data_l, out_dir))
+    heal_resume(dev, cfg, data, out_dir, card)
+    heal_dead_init(dev, cfg, data, out_dir)
+    heal_watchdog(dev, cfg, data, out_dir, card)
     return total
 
 
@@ -3104,6 +3705,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     total = _add(total, phase_graph_large_n(
         dev, cfg_l, data_l, os.path.join(out_g, "large_n")))
+
+    # the self-healing trainer, after every phase above
+    out_h = os.path.join(HERE, "smoke_out", "heal")
+    shutil.rmtree(out_h, ignore_errors=True)
+    os.makedirs(out_h)
+    total = _add(total, phase_self_healing(dev, cfg, data, cfg_l, data_l,
+                                           out_h, card))
 
     print(card)  # the card's name and power limit, as nvidia-smi gives them
     print(f"[done] smoke run took {time.perf_counter() - t_start:.1f}s")

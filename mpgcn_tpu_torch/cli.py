@@ -6,8 +6,9 @@ of mpgcn_tpu/cli.py; reference Main.py:7-67).
 
 Runs on the card (``-GPU 0``, the default) unless ``-GPU cpu`` asks for the
 CPU. Train mode trains the single-step model (pred_len is forced to 1, as
-in the reference, Main.py:44-45); test mode reloads ``<out>/MPGCN_od.pkl``
-and rolls out ``-pred`` steps.
+in the reference, Main.py:44-45) unless ``-multistep`` keeps ``-pred`` and
+trains through the rollout; test mode reloads ``<out>/MPGCN_od.pkl`` and
+rolls out ``-pred`` steps.
 
 The data comes from ``-in`` (the reference's data directory: the OD npz,
 ``adjacency_matrix.npy`` and, for a 'poi' branch, a POI similarity or
@@ -16,7 +17,10 @@ under ``-data synthetic`` (``-sN``, ``-sT``, ``-sprofile``), and under
 ``-data auto`` (the default) from the npz when it exists, else synthetic.
 The model, data and optimizer flags (``-model -t -norm -split -nn -M
 -lstm-layers -sources -lmax -clip -lrs -no-symnorm-clamp -iso -fix-dgraph
--io-retries``) have the JAX CLI's names, types, defaults and choices.
+-io-retries``) and the self-healing trainer's (``-resume -multistep -accum
+-dead-init -dead-init-retries -no-sentinels -skip-budget
+-rollback-retries -rollback-lr-factor -watchdog``) have the JAX CLI's
+names, types, defaults and choices.
 ``-kernel`` and ``-K`` pick the graph kernel and its order, and so the
 support count (2 K + 1 supports for ``dual_random_walk_diffusion``).
 
@@ -149,6 +153,53 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-fix-dgraph", "--fix_d_graph", action="store_true",
                    help="use the paper-correct D-graph (eq. 7) instead of "
                         "reproducing the reference's index bug")
+    # the self-healing trainer (train/trainer.py)
+    p.add_argument("-resume", "--resume", action="store_true",
+                   help="resume training from the output-dir checkpoint "
+                        "(params + optimizer moments + best-val epoch)")
+    p.add_argument("-multistep", "--multistep", action="store_true",
+                   help="train the multi-step seq2seq rollout directly "
+                        "(keeps -pred in train mode instead of forcing 1; "
+                        "the loss differentiates through the autoregressive "
+                        "rollout)")
+    p.add_argument("-accum", "--grad_accum", type=int, default=1,
+                   help="gradient-accumulation microbatches per optimizer "
+                        "step (1 = off): k interleaved chunks of "
+                        "batch/k, one update")
+    p.add_argument("-dead-init", "--on_dead_init", type=str,
+                   choices=["warn", "error", "retry"], default="retry",
+                   help="when the first trained epoch leaves every weight "
+                        "unchanged and the forward is all zero (a dead "
+                        "ReLU head): reseed and retry (the default), abort, "
+                        "or warn and continue")
+    p.add_argument("-dead-init-retries", "--dead_init_retries", type=int,
+                   default=3,
+                   help="reseed attempts under -dead-init retry before "
+                        "giving up")
+    p.add_argument("-no-sentinels", "--no_step_sentinels",
+                   dest="step_sentinels", action="store_false",
+                   help="turn off the per-step non-finite sentinels (on: a "
+                        "step whose loss or new state is non-finite is "
+                        "undone inside the step; clean runs are bitwise "
+                        "identical either way)")
+    p.add_argument("-skip-budget", "--skip_budget", type=int, default=0,
+                   help="sentinel-skipped train steps tolerated per epoch "
+                        "before the epoch is declared bad (quarantine + "
+                        "restore + rollback/stop)")
+    p.add_argument("-rollback-retries", "--rollback_retries", type=int,
+                   default=0,
+                   help="bad-epoch rollback budget: quarantine the bad "
+                        "state, restore the last good checkpoint, shrink "
+                        "the LR and retry up to N times (0 = stop)")
+    p.add_argument("-rollback-lr-factor", "--rollback_lr_factor",
+                   type=float, default=0.5,
+                   help="multiply learn_rate by this on each rollback "
+                        "retry (1.0 keeps it)")
+    p.add_argument("-watchdog", "--watchdog_secs", type=float, default=0.0,
+                   help="hang watchdog deadline in seconds: with no epoch "
+                        "heartbeat in it, dump all thread stacks, write an "
+                        "emergency checkpoint from the last host copy and "
+                        "exit 113 (0 = off; must exceed one epoch)")
     return p
 
 
@@ -161,8 +212,8 @@ def device_for(gpu: str) -> str:
     return f"cuda:{gpu}"
 
 
-#: flags that pick the device and the arms, not config fields
-RUN_FLAGS = ("GPU", "lstm_impl", "bdgcn_impl")
+#: flags that pick the device, the arms and resume, not config fields
+RUN_FLAGS = ("GPU", "lstm_impl", "bdgcn_impl", "resume")
 
 
 def config_from_args(args: dict) -> MPGCNConfig:
@@ -171,10 +222,11 @@ def config_from_args(args: dict) -> MPGCNConfig:
     any other dest that names no field raises."""
     for flag in RUN_FLAGS:
         args.pop(flag, None)
+    multistep = args.pop("multistep", False)
     for knob in ("sparse_density_threshold", "sparse_min_nodes"):
         if args[knob] is None:  # not given: the config default stands
             args.pop(knob)
-    if args["mode"] == "train":
+    if args["mode"] == "train" and not multistep:
         args["pred_len"] = 1  # train the single-step model (Main.py:44-45)
     args["reproduce_d_graph_bug"] = not args.pop("fix_d_graph")
     if args["num_branches"] is None:
@@ -194,7 +246,7 @@ def main(argv=None):
     # no card, no data loading: the device is checked first
     device = resolve_device(device_for(args["GPU"]))
     lstm_impl = "plain" if args["lstm_impl"] == "plain" else "kernel"
-    bdgcn_impl = args["bdgcn_impl"]
+    bdgcn_impl, resume = args["bdgcn_impl"], args["resume"]
     cfg = config_from_args(args)
     os.makedirs(cfg.output_dir, exist_ok=True)
     data, data_input = load_dataset(cfg)
@@ -202,7 +254,7 @@ def main(argv=None):
     trainer = ModelTrainer(cfg, data, device=device, lstm_impl=lstm_impl,
                            bdgcn_impl=bdgcn_impl, data_container=data_input)
     if cfg.mode == "train":
-        return trainer.train()
+        return trainer.train(resume=resume)
     return trainer.test()
 
 

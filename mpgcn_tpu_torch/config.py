@@ -7,11 +7,15 @@ package: the reference flag surface (dataset directory, ``time_slice``,
 normalization, split, model shape), the data source (``data``: the
 reference npz or the synthetic generators), the optimizer's ``clip_norm``
 and ``lr_schedule``, the epoch executor (``epoch_scan``,
-``epoch_scan_max_mb``: no CLI flag, as in the JAX package), and the
-data-file read retries. Knobs of paths this
-port does not have yet (padded-CSR supports, sparse OD storage, meshes,
-precision modes, resume, rollback, fault injection) are not here; they
-arrive with the slices that run them. The BDGCN arm is not a config
+``epoch_scan_max_mb``: no CLI flag, as in the JAX package), the
+data-file read retries, and the self-healing trainer: gradient
+accumulation (``grad_accum``), the jsonl run log, the epoch NaN guard,
+the dead-init probe (``on_dead_init``, ``dead_init_retries``), the step
+sentinels and their skip budget, the bad-epoch rollback and the hang
+watchdog. Knobs of paths this port does not have yet (padded-CSR
+supports, sparse OD storage, meshes, precision modes, remat, the orbax
+checkpoint backend, fault injection) are not here; they arrive with the
+slices that run them. The BDGCN arm is not a config
 field: it is the ``bdgcn_impl`` argument of ``ModelTrainer`` and
 ``ServeEngine``.
 """
@@ -98,9 +102,53 @@ class MPGCNConfig:
     #                                         False: per step
     epoch_scan_max_mb: float = 512.0        # a mode's epoch tensors above
     #                                         this run per step
+    grad_accum: int = 1                     # microbatches per optimizer step:
+    #                                         the train step runs k
+    #                                         interleaved chunks of
+    #                                         batch_size/k, accumulating
+    #                                         grads, then updates once
+    jsonl_log: bool = True                  # structured per-epoch JSONL log
+    #                                         in <output_dir>/
+    #                                         <model>_train_log.jsonl
     io_retries: int = 3                     # attempts per data-file read
     io_retry_delay_s: float = 0.05          # base backoff between retries
     #                                         (doubles per attempt)
+
+    # --- failure detection and the self-healing trainer (resilience/) ---
+    nan_guard: bool = True                  # a non-finite epoch loss (or a
+    #                                         skip budget exceeded) is a bad
+    #                                         epoch: quarantine, restore the
+    #                                         last good checkpoint, then
+    #                                         roll back or stop
+    on_dead_init: str = "retry"             # warn | error | retry when the
+    #                                         first trained epoch leaves
+    #                                         every parameter unchanged and
+    #                                         the forward is identically 0
+    #                                         (a dead ReLU head): retry
+    #                                         reseeds up to
+    #                                         dead_init_retries times
+    dead_init_retries: int = 3              # reseed attempts under 'retry'
+    step_sentinels: bool = True             # a train step whose loss, new
+    #                                         weights or new Adam state is
+    #                                         non-finite is skipped inside
+    #                                         the step (the state before it
+    #                                         is kept) and marks its loss
+    #                                         NaN; clean runs are bitwise
+    #                                         identical either way
+    skip_budget: int = 0                    # skipped train steps tolerated
+    #                                         per epoch before it is bad
+    loss_spike_factor: float = 10.0         # count step losses above factor
+    #                                         x the previous good one in
+    #                                         the epoch log; 0 disables
+    rollback_retries: int = 0               # bad-epoch retries from the
+    #                                         restored checkpoint (0: stop)
+    rollback_lr_factor: float = 0.5         # learn_rate x this per retry
+    watchdog_secs: float = 0.0              # hang watchdog deadline: no
+    #                                         heartbeat within it -> dump
+    #                                         every thread's stack, write an
+    #                                         emergency checkpoint from the
+    #                                         last host copy, exit 113
+    #                                         (0 = off)
 
     # --- the sparse support plane (sparse/) ---
     support_payload: str = "f32"            # f32 | bf16 | int8: how the
@@ -125,6 +173,7 @@ class MPGCNConfig:
             "synthetic_profile": ("smooth", "realistic"),
             "isolated_nodes": ("error", "selfloop", "ignore"),
             "support_payload": SUPPORT_PAYLOADS,
+            "on_dead_init": ("warn", "error", "retry"),
         }
         for field_name, allowed in choices.items():
             val = getattr(self, field_name)
@@ -153,10 +202,30 @@ class MPGCNConfig:
                 f"must be in [0, 1] (a density fraction)")
         if self.sparse_min_nodes < 1:
             raise ValueError("sparse_min_nodes must be >= 1")
+        if self.grad_accum < 1:
+            raise ValueError("grad_accum must be >= 1")
+        if self.dead_init_retries < 1:
+            raise ValueError("dead_init_retries must be >= 1")
+        if self.skip_budget < 0:
+            raise ValueError("skip_budget must be >= 0")
+        if self.rollback_retries < 0:
+            raise ValueError("rollback_retries must be >= 0")
+        if not 0 < self.rollback_lr_factor <= 1:
+            raise ValueError(
+                f"rollback_lr_factor={self.rollback_lr_factor} must be in "
+                f"(0, 1] (it multiplies learn_rate on each rollback retry)")
+        if self.loss_spike_factor < 0:
+            raise ValueError("loss_spike_factor must be >= 0 (0 disables)")
+        if self.watchdog_secs < 0:
+            raise ValueError("watchdog_secs must be >= 0 (0 disables)")
         if self.io_retries < 1:
             raise ValueError("io_retries must be >= 1")
         if self.io_retry_delay_s < 0:
             raise ValueError("io_retry_delay_s must be >= 0")
+        if self.batch_size % self.grad_accum:
+            raise ValueError(
+                f"batch_size {self.batch_size} must be divisible by "
+                f"grad_accum {self.grad_accum} (equal microbatches)")
         if self.time_slice != 24:
             # the reference parses -t and never reads it (Main.py:15)
             raise ValueError(

@@ -12,7 +12,9 @@ decay, then Adam(betas=(0.9, 0.999), eps=1e-8) at the scheduled rate.
 torch's L2 ``weight_decay`` adds decay * param to the gradient before the
 moment updates, which is optax's ``add_decayed_weights`` placed before
 ``adam``; ``ChainAdam.step`` clips the gradients before that and reads the
-step's rate from the schedule, tabulated on the device.
+step's rate from the schedule, tabulated on the device. With
+``sentinels`` a step that goes non-finite is undone inside the step
+(resilience/sentinels.py).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from mpgcn_tpu_torch.resilience.sentinels import StepGuard, mark_loss
 
 LOSSES = ("MSE", "MAE", "Huber")
 
@@ -91,14 +95,24 @@ class ChainAdam(torch.optim.Adam):
     the CPU keeps ``capturable=False``, which torch requires there.
     ``count`` is the host's mirror of ``step_t``: ``step`` advances both,
     ``update`` (the device part, what a graph captures) only ``step_t``,
-    and whoever replays ``update`` adds the replays with ``advance``."""
+    and whoever replays ``update`` adds the replays with ``advance``.
+
+    Adam's state (moments and step) is made here, not at the first step,
+    so its storage never moves. With ``sentinels`` a ``StepGuard`` keeps
+    the weights, Adam's state, ``lr_t`` and ``step_t`` from before each
+    update and puts them back where the update (or the loss) went
+    non-finite: a skipped step does not advance ``step_t``, so ``count``
+    may then run ahead of it; ``step_t`` is the truth. ``chain`` names the
+    optax chain these settings stand for (``chain_signature``)."""
 
     def __init__(self, params, schedule, decay_rate: float = 0.0,
-                 clip_norm: float = 0.0, total_steps: int = 0):
+                 clip_norm: float = 0.0, total_steps: int = 0,
+                 sentinels: bool = False, chain: tuple = ()):
         params = list(params)
         device = params[0].device if params and torch.is_tensor(
             params[0]) else params[0]["params"][0].device
         self.schedule, self.clip_norm, self.count = schedule, clip_norm, 0
+        self.chain = chain
         self.lr_table = self._table(max(total_steps, 1), device)
         self.step_t = torch.zeros((1,), dtype=torch.long, device=device)
         self.lr_t = self.lr_table[:1].clone()
@@ -107,6 +121,35 @@ class ChainAdam(torch.optim.Adam):
                          capturable=device.type == "cuda")
         # the per-step path runs capturable Adam uncaptured on purpose
         self._warned_capturable_if_run_uncaptured = True
+        self._init_state()
+        self.guard = StepGuard(self.guarded()) if sentinels else None
+
+    def _init_state(self) -> None:
+        """Adam's lazy state, made now (as ``Adam._init_group`` makes it)."""
+        dtype = (torch.float64 if torch.get_default_dtype() == torch.float64
+                 else torch.float32)
+        for group in self.param_groups:
+            for p in group["params"]:
+                st = self.state[p]
+                if st:
+                    continue
+                st["step"] = (torch.zeros((), dtype=dtype, device=p.device)
+                              if group["capturable"]
+                              else torch.tensor(0.0, dtype=dtype))
+                st["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+
+    def all_params(self) -> list:
+        return [p for g in self.param_groups for p in g["params"]]
+
+    def guarded(self) -> list:
+        """What an update writes: the weights, Adam's state, the rate and
+        the step counter."""
+        state = [self.state[p][k] for p in self.all_params()
+                 for k in ("exp_avg", "exp_avg_sq", "step")]
+        return [*self.all_params(), *state, self.lr_t, self.step_t]
 
     def _table(self, n: int, device) -> torch.Tensor:
         return torch.tensor([self.schedule(i) for i in range(n)],
@@ -122,34 +165,86 @@ class ChainAdam(torch.optim.Adam):
         return True
 
     @torch.no_grad()
-    def update(self):
+    def update(self, loss=None):
         """The step on the device: clip, the rate ``lr_table[step_t]``,
-        Adam, ``step_t + 1``; no host sync, nothing read back."""
+        Adam, ``step_t + 1``; no host sync, nothing read back. Returns
+        ``loss``, under sentinels marked NaN where the step was undone."""
+        if self.guard is not None:
+            self.guard.save()
         if self.clip_norm:
-            clip_by_global_norm_([p.grad for g in self.param_groups
-                                  for p in g["params"]
+            clip_by_global_norm_([p.grad for p in self.all_params()
                                   if p.grad is not None], self.clip_norm)
         torch.index_select(self.lr_table, 0, self.step_t, out=self.lr_t)
         super().step()
         self.step_t += 1
+        if self.guard is None or loss is None:
+            return loss
+        return mark_loss(self.guard.keep_if_finite(loss), loss)
 
     def advance(self, n: int) -> None:
         """Count ``n`` updates that ran without ``step`` (graph replays)."""
         self.count += n
 
-    def step(self):
+    def step(self, loss=None):
         self.reserve(self.count + 1)
-        self.update()
+        loss = self.update(loss)
         self.count += 1
+        return loss
+
+    @torch.no_grad()
+    def set_count(self, n: int) -> None:
+        """Set the update count (resume): ``step_t``, Adam's steps, the
+        host mirror and ``lr_t``, in place."""
+        self.reserve(n + 1)
+        self.count = n
+        self.step_t.fill_(n)
+        for p in self.all_params():
+            self.state[p]["step"].fill_(n)
+        # the rate of the last update, as n updates leave it
+        self.lr_t.copy_(self.lr_table[max(n - 1, 0): max(n, 1)])
+
+    @torch.no_grad()
+    def reset(self) -> None:
+        """A fresh optimizer state (reseed, or a checkpoint without one),
+        in place."""
+        for p in self.all_params():
+            self.state[p]["exp_avg"].zero_()
+            self.state[p]["exp_avg_sq"].zero_()
+        self.set_count(0)
+
+    @torch.no_grad()
+    def set_schedule(self, schedule) -> None:
+        """Rate backoff (rollback): tabulate ``schedule`` into ``lr_table``
+        in place; the next update reads it."""
+        self.schedule = schedule
+        self.lr_table.copy_(self._table(self.lr_table.shape[0],
+                                        self.lr_table.device))
+
+
+def chain_signature(clip_norm: float, decay_rate: float,
+                    lr_schedule: str) -> tuple:
+    """The class names of the optax state the JAX package's optimizer chain
+    holds for these settings (mpgcn_tpu/train/objectives.py
+    ``make_optimizer``): the clip and the decay hold ``EmptyState``, Adam
+    ``(ScaleByAdamState, EmptyState | ScaleByScheduleState)``; one
+    transform is not wrapped in a chain."""
+    adam = ("ScaleByAdamState",
+            "EmptyState" if lr_schedule == "none" else "ScaleByScheduleState")
+    txs = (["EmptyState"] if clip_norm else []) \
+        + (["EmptyState"] if decay_rate else []) + [adam]
+    return tuple(txs) if len(txs) > 1 else adam
 
 
 def make_optimizer(kind: str, params, learn_rate: float,
                    decay_rate: float = 0.0, clip_norm: float = 0.0,
                    lr_schedule: str = "none",
-                   total_steps: int = 0) -> ChainAdam:
+                   total_steps: int = 0,
+                   sentinels: bool = False) -> ChainAdam:
     """The JAX package's optimizer chain: clip, decay, Adam at
-    ``lr_schedule``'s rate over ``total_steps`` optimizer steps."""
+    ``lr_schedule``'s rate over ``total_steps`` optimizer steps; with
+    ``sentinels``, each step guarded."""
     if kind != "Adam":
         raise NotImplementedError("Invalid optimizer name.")
     return ChainAdam(params, lr_at(learn_rate, lr_schedule, total_steps),
-                     decay_rate, clip_norm, total_steps)
+                     decay_rate, clip_norm, total_steps, sentinels,
+                     chain_signature(clip_norm, decay_rate, lr_schedule))

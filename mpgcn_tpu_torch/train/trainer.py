@@ -10,7 +10,10 @@ kernels under ``torch.no_grad()``, a checkpoint at epoch 0 and on every
 non-worsening validation loss, and early stopping after
 ``early_stop_patience`` epochs without one; given the ``DataInput`` that
 loaded the data (``data_container``), the checkpoint records its
-normalizer's kind and state.
+normalizer's kind and state. Checkpoints are written by one background
+thread (``utils/atomic.py`` ``AsyncWriter``) from one host copy of the
+state an epoch, off the epoch loop; ``train`` returns, and anything that
+reads a checkpoint back reads it, only after they reach the disk.
 
 Each epoch of a mode runs on one of two executors (``_epoch_exec``, as
 the JAX trainer dispatches them, printed on the ``[dispatch]
@@ -37,15 +40,40 @@ compute the same function with stock PyTorch operations.
 from the measured support density: "ell" for large sparse graphs, else
 "kernel".
 
-Not here yet: step sentinels, the dead-init probe and reseed, resume and
-the rolling ``_last`` checkpoint, rollback and the watchdog, gradient
-accumulation and multi-step training, bf16 and loss scaling, the stream
-executor, remat, and the jsonl logs.
+The self-healing loop (the JAX trainer's ``train``/``_train_loop``):
+- step sentinels (``cfg.step_sentinels``): ``ChainAdam`` undoes a step
+  whose loss, weights or Adam state went non-finite inside the step (the
+  captured one too) and marks its loss NaN; the epoch's one read counts
+  the skips, averages over the kept steps and, past
+  ``cfg.skip_budget``, declares the epoch bad;
+- ``cfg.grad_accum`` = k: each step runs k interleaved chunks (rows j,
+  j + k, ...), masked by their global batch position, sums their losses
+  and gradients, divides by the batch size once and updates once;
+- multi-step training: a target of ``pred_len`` > 1 frames trains through
+  the differentiable rollout (``predict.rollout_train``);
+- the dead-init probe after the first trained epoch (or on one batch's
+  gradient under weight decay) with ``cfg.on_dead_init`` warn / error /
+  retry, the retry reseeding from ``seed + 100003``;
+- ``train(resume=True)``: the rolling ``<model>_od_last.pkl`` (weights,
+  Adam's state, best validation loss, patience, step) written every
+  epoch, then the best-on-val file, then scratch; the shuffle stream
+  replayed; SIGTERM / SIGINT finish the epoch, save and return;
+- a bad epoch is quarantined to a postmortem checkpoint, the last good
+  one restored, and (``cfg.rollback_retries``) retried at a backed-off
+  rate;
+- the hang watchdog (``cfg.watchdog_secs``), fed one host copy of the
+  state per epoch only when armed;
+- the jsonl run log, with the JAX event names.
+
+Not here yet: bf16 and loss scaling, remat, the stream executor, the
+orbax checkpoint backend, fault injection, the multi-process votes and
+the metrics registry.
 """
 
 from __future__ import annotations
 
 import os
+import signal
 import time
 from datetime import datetime
 from typing import Optional
@@ -57,17 +85,47 @@ from mpgcn_tpu_torch.config import MPGCNConfig
 from mpgcn_tpu_torch.data.pipeline import Batch, DataPipeline
 from mpgcn_tpu_torch.device import resolve_device
 from mpgcn_tpu_torch.nn.mpgcn import MPGCN
+from mpgcn_tpu_torch.resilience.rollback import (
+    RollbackSignal,
+    emergency_path,
+    postmortem_path,
+)
+from mpgcn_tpu_torch.resilience.watchdog import HangWatchdog
 from mpgcn_tpu_torch.train import metrics
-from mpgcn_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-from mpgcn_tpu_torch.train.objectives import elementwise_loss, make_optimizer
+from mpgcn_tpu_torch.train.checkpoint import (
+    OPT_STATE_KEY,
+    CheckpointCorruptError,
+    adam_state_from_jax,
+    checkpoint_payload,
+    load_checkpoint,
+    load_opt_state,
+    opt_state_to_host,
+)
 from mpgcn_tpu_torch.train.graphs import GraphSet, RolloutGraphs, refusal
-from mpgcn_tpu_torch.train.predict import graphs_for, rollout
-from mpgcn_tpu_torch.utils.convert import params_from_jax
+from mpgcn_tpu_torch.train.objectives import (
+    elementwise_loss,
+    lr_at,
+    make_optimizer,
+)
+from mpgcn_tpu_torch.train.predict import graphs_for, rollout, rollout_train
+from mpgcn_tpu_torch.utils.atomic import AsyncWriter
+from mpgcn_tpu_torch.utils.convert import params_from_jax, params_to_jax
+from mpgcn_tpu_torch.utils.logging import RunLogger, run_log_path
 
 #: train steps left out of steps/sec (the first ones build the kernels);
 #: on the card the scan executor runs as many eager steps of each mode
 #: before it captures that mode's step
 WARMUP_STEPS = 2
+
+#: offset between reseed attempts (JAX: ``_RESEED_STRIDE``): large and
+#: prime, so the retry seeds of neighbouring base seeds never collide
+_RESEED_STRIDE = 100003
+
+
+class DeadInitError(RuntimeError):
+    """A run's initialization cannot train (zero gradient everywhere).
+    Raised under on_dead_init='error', and under 'retry' (caught by
+    ``train``'s reseed loop)."""
 
 
 class _Epoch:
@@ -112,15 +170,34 @@ class _Epoch:
         self.t += 1
 
 
-def epoch_mean(losses: np.ndarray, sizes: np.ndarray) -> float:
+def epoch_mean(losses: np.ndarray, sizes: np.ndarray,
+               sentinel: bool = False) -> float:
     """The size-weighted mean of an epoch's step losses (the JAX trainer's
-    ``losses @ sizes`` over ``sizes.sum()``)."""
+    ``losses @ sizes`` over ``sizes.sum()``); with ``sentinel``, over the
+    kept (finite) steps only, NaN when every step was skipped."""
+    if sentinel:
+        ok = np.isfinite(losses)
+        count = int(sizes[ok].sum())
+        return float(losses[ok] @ sizes[ok]) / count if count \
+            else float("nan")
     return float(losses @ sizes) / max(int(sizes.sum()), 1)
+
+
+def _count_spikes(losses: np.ndarray, factor: float) -> int:
+    """Steps whose (finite) loss exceeds ``factor`` x the previous one's
+    (JAX: ``_count_spikes``); 0 when factor is 0."""
+    if factor <= 0 or losses.size < 2:
+        return 0
+    return int(np.sum(losses[1:] > factor * losses[:-1]))
 
 
 def _banner(msg: str):
     print("\n", datetime.now().strftime("%Y/%m/%d %H:%M:%S"))
     print(msg)
+
+
+def _has_opt_state(ckpt: dict) -> bool:
+    return OPT_STATE_KEY in ckpt or "opt_state" in ckpt
 
 
 class ModelTrainer:
@@ -144,13 +221,25 @@ class ModelTrainer:
                                        lstm_impl=lstm_impl,
                                        bdgcn_impl=self.bdgcn_impl)
         print(self.pipeline.dispatch_line(lstm_impl))
+        self._total_steps = (self.pipeline.num_batches("train")
+                             * cfg.num_epochs)
         self.optimizer = make_optimizer(
             cfg.optimizer, self.model.parameters(), cfg.learn_rate,
             cfg.decay_rate, clip_norm=cfg.clip_norm,
-            lr_schedule=cfg.lr_schedule,
-            total_steps=self.pipeline.num_batches("train") * cfg.num_epochs)
+            lr_schedule=cfg.lr_schedule, total_steps=self._total_steps,
+            sentinels=cfg.step_sentinels)
         self.global_step = 0
         self._clock = None  # (time, step) once the warm-up steps are done
+        # the self-healing loop's state
+        self._dead_init_detected = False  # set by the probe or a resume
+        self._rollback_attempts = 0       # bad-epoch retries taken
+        self._watchdog: Optional[HangWatchdog] = None  # armed in train()
+        self._preempted = self._sigint_seen = False
+        self._exec_logged = False         # the dispatch line, once a run
+        self._writer = AsyncWriter()      # checkpoints, off the loop
+        #: ms of each update of the armed watchdog's host state (one an
+        #: epoch; the epoch's checkpoint snapshot where it has one)
+        self.watchdog_sync_ms: list[float] = []
         # the scan executor's per-mode state, and the graphs of this
         # trainer (None where graphs.refusal names a reason)
         self._epochs: dict[str, _Epoch] = {}
@@ -171,22 +260,61 @@ class ModelTrainer:
                 torch.from_numpy(batch.keys.astype(np.int64)).to(
                     self.device))
 
-    def _batch_loss(self, x, y, keys, size,
-                    inference: bool = False) -> torch.Tensor:
-        """The per-sample f32 mean loss, masked to the first ``size`` rows
-        (the rest repeat-pad the batch), summed and divided by ``size``
-        (an int, or an f32 device scalar where a replayed step reads it):
-        the reference's batch mean when there is no padding."""
-        graphs = graphs_for(self.banks, keys, self.model.sources)
-        pred = self.model(x, graphs, inference=inference)
+    def _masked_sum_loss(self, x, y, keys, size, pos=None,
+                         inference: bool = False) -> torch.Tensor:
+        """The SUM of the per-sample f32 mean losses over this batch (or
+        chunk of it), masked to the rows whose global batch position
+        ``pos`` (default arange) is below ``size`` (an int, or an f32
+        device scalar where a replayed step reads it; the rest
+        repeat-pad the batch). A target of more than one frame is the
+        multi-step objective: the rollout over ``y``'s frames (JAX:
+        ``_masked_sum_loss``)."""
+        if y.shape[1] > 1 and inference:
+            pred = rollout(self.model, self.banks, x, keys, y.shape[1])
+        else:
+            graphs = graphs_for(self.banks, keys, self.model.sources)
+            pred = (rollout_train(self.model, graphs, x, y.shape[1])
+                    if y.shape[1] > 1 else
+                    self.model(x, graphs, inference=inference))
         if pred.shape != y.shape:
             raise ValueError(f"prediction shape {tuple(pred.shape)} != "
                              f"target shape {tuple(y.shape)}")
         per_sample = elementwise_loss(self.cfg.loss, pred, y).reshape(
             pred.shape[0], -1).mean(dim=1)
-        mask = (torch.arange(pred.shape[0], device=pred.device)
-                < size).float()
-        return (per_sample * mask).sum() / size
+        if pos is None:
+            pos = torch.arange(pred.shape[0], device=pred.device)
+        return (per_sample * (pos < size).float()).sum()
+
+    def _batch_loss(self, x, y, keys, size,
+                    inference: bool = False) -> torch.Tensor:
+        """The masked mean loss over the batch's ``size`` real rows: the
+        reference's batch mean when there is no padding."""
+        return self._masked_sum_loss(x, y, keys, size,
+                                     inference=inference) / size
+
+    def _loss_and_grads(self, x, y, keys, size) -> torch.Tensor:
+        """Forward and backward of one train step, the gradients left in
+        ``.grad``; returns the loss. With ``cfg.grad_accum`` = k > 1 (JAX:
+        ``_train_step_fn``) the batch runs as k chunks, chunk j the rows
+        j, j + k, j + 2k, ..., each masked by its rows' global positions:
+        their loss sums and gradients add up, and both are divided by
+        ``size`` once, so the step is the full batch's."""
+        self.optimizer.zero_grad(set_to_none=True)
+        k = self.cfg.grad_accum
+        if k == 1:
+            loss = self._batch_loss(x, y, keys, size)
+            loss.backward()
+            return loss.detach()
+        pos = torch.arange(x.shape[0], device=x.device)
+        total = None
+        for j in range(k):
+            part = self._masked_sum_loss(x[j::k], y[j::k], keys[j::k], size,
+                                         pos[j::k])
+            part.backward()
+            total = part.detach() if total is None else total + part.detach()
+        torch._foreach_div_([p.grad for p in self.optimizer.all_params()
+                             if p.grad is not None], size)
+        return total / size
 
     def _size(self, batch: Batch) -> torch.Tensor:
         """The batch's size as the f32 device scalar the scan executor
@@ -203,16 +331,15 @@ class ModelTrainer:
             self._clock = (time.perf_counter(), self.global_step)
 
     def train_step(self, batch: Batch) -> float:
-        """One optimizer update on ``batch`` (the clip, if any, inside
-        ``optimizer.step``); returns its loss. The per-step executor."""
+        """One optimizer update on ``batch`` (the clip, if any, and the
+        sentinel inside ``optimizer.step``); returns its loss, NaN where
+        the sentinel undid the step. The per-step executor."""
         self._start_clock()
         x, y, keys = self._tensors(batch)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self._batch_loss(x, y, keys, self._size(batch))
-        loss.backward()
-        self.optimizer.step()
+        loss = self._loss_and_grads(x, y, keys, self._size(batch))
+        loss = self.optimizer.step(loss)
         self.global_step += 1
-        return float(loss.detach())
+        return float(loss)
 
     def eval_step(self, batch: Batch) -> float:
         x, y, keys = self._tensors(batch)
@@ -291,25 +418,24 @@ class ModelTrainer:
         """One train step of the scan executor, all on the device: what
         the train graph captures."""
         x, y, keys, size = ep.gather()
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self._batch_loss(x, y, keys, size)
-        loss.backward()
-        self.optimizer.update()
-        ep.record(loss)
+        ep.record(self.optimizer.update(
+            self._loss_and_grads(x, y, keys, size)))
 
     def _eval_body(self, ep: _Epoch) -> None:
         x, y, keys, size = ep.gather()
         ep.record(self._batch_loss(x, y, keys, size, inference=True))
 
     def _state_ptrs(self) -> tuple:
-        """Where the weights, Adam's state and the rate table lie: what
-        the captured graphs read and write."""
+        """Where the weights, Adam's state, the rate table and the
+        sentinel's buffers lie: what the captured graphs read and
+        write."""
         opt = self.optimizer
         state = [v for st in opt.state.values() for v in st.values()
                  if torch.is_tensor(v)]
+        guard = opt.guard.buffers() if opt.guard is not None else []
         return tuple(t.data_ptr() for t in (
             *self.model.parameters(), opt.lr_table, opt.lr_t, opt.step_t,
-            *state))
+            *state, *guard))
 
     def _check_storage(self) -> None:
         """Drop every captured graph when the weights, Adam's state or the
@@ -373,19 +499,50 @@ class ModelTrainer:
     def _ckpt_path(self) -> str:
         return os.path.join(self.cfg.output_dir, f"{self.cfg.model}_od.pkl")
 
+    def _last_ckpt_path(self) -> str:
+        """The rolling checkpoint, written every epoch (weights, Adam's
+        state, the early-stop state): what ``train(resume=True)`` reads
+        first. The best-on-val file stays the reference's artifact."""
+        return os.path.join(self.cfg.output_dir,
+                            f"{self.cfg.model}_od_last.pkl")
+
     def _ckpt_extra(self, **kw) -> dict:
         extra = {"seed": self.cfg.seed,
                  "num_branches": self.cfg.num_branches,
                  "branch_sources": list(self.cfg.resolved_branch_sources),
                  "global_step": self.global_step, **kw}
+        if self._dead_init_detected:
+            # sticky in every later save and across resumes
+            extra["dead_init"] = True
         if self.data_container is not None:
             norm = self.data_container.normalizer
             extra["normalizer"] = {"kind": norm.kind, "state": norm.state()}
         return extra
 
-    def _run_mode(self, mode: str, rng) -> float:
-        """One pass over ``mode`` on the per-step executor: the
-        size-weighted mean batch loss."""
+    def _snapshot(self, with_opt: bool = True) -> tuple:
+        """Host copies of the weights (a JAX params tree) and of the
+        optimizer state (or None): what a checkpoint and the watchdog
+        keep."""
+        return (params_to_jax(self.model.state_dict()),
+                opt_state_to_host(self.model, self.optimizer)
+                if with_opt else None)
+
+    def _save(self, path: str, epoch: int, snap=None, **extra) -> None:
+        """Write a checkpoint of ``snap`` (default: a snapshot now) on the
+        background writer: the loop goes on while it reaches the disk;
+        ``self._writer.flush()`` waits for it."""
+        params, opt = snap or self._snapshot()
+        self._writer.write(path, checkpoint_payload(
+            params, epoch, self._ckpt_extra(**extra), opt))
+
+    def _save_last(self, epoch, best_val, best_epoch, patience_count,
+                   snap=None):
+        self._save(self._last_ckpt_path(), epoch, snap, best_val=best_val,
+                   best_epoch=best_epoch, patience_count=patience_count)
+
+    def _run_mode(self, mode: str, rng):
+        """One pass over ``mode`` on the per-step executor: its step
+        losses and sizes, as the scan executor returns them."""
         is_train = mode == "train"
         step = self.train_step if is_train else self.eval_step
         losses, sizes = [], []
@@ -394,19 +551,19 @@ class ModelTrainer:
                 pad_to_full=True):
             losses.append(step(batch))
             sizes.append(batch.size)
-        return epoch_mean(np.array(losses, np.float32),
-                          np.array(sizes, np.int32))
+            self._beat()
+        return np.array(losses, np.float32), np.array(sizes, np.int32)
 
-    def _run_epoch(self, mode: str, exec_path: str, rng) -> float:
-        """One epoch of ``mode`` on ``exec_path``: its mean loss. On the
-        scan executor the step losses are read once, here (JAX:
-        ``_run_epoch_scan``)."""
+    def _run_epoch(self, mode: str, exec_path: str, rng):
+        """One epoch of ``mode`` on ``exec_path``: its (S,) step losses and
+        sizes on the host. On the scan executor the step losses are read
+        once, here (JAX: ``_run_epoch_scan``)."""
         if exec_path == "per_step":
             return self._run_mode(mode, rng)
         is_train = mode == "train"
         losses, sizes = self._dispatch_epoch(
             mode, self.cfg.shuffle and is_train, rng, is_train)
-        return epoch_mean(losses.cpu().numpy(), sizes)
+        return losses.cpu().numpy(), sizes
 
     def steps_per_sec(self) -> float:
         """Training steps per second since the warm-up steps (0.0 before
@@ -416,60 +573,441 @@ class ModelTrainer:
         dt = time.perf_counter() - self._clock[0]
         return (self.global_step - self._clock[1]) / dt if dt > 0 else 0.0
 
-    def train(self) -> dict:
+    # --- the self-healing loop -------------------------------------------
+
+    def _beat(self) -> None:
+        if self._watchdog is not None:
+            self._watchdog.beat()
+
+    def _watchdog_sync(self, epoch: int, snap=None) -> None:
+        """Give the armed watchdog the state after a finished epoch as host
+        copies (``snap``, the epoch's checkpoint snapshot, when there is
+        one; nothing when the watchdog is not armed), so its fire path
+        never touches the card."""
+        if self._watchdog is None:
+            return
+        t0 = time.perf_counter()
+        params, opt = snap or self._snapshot()
+        self._watchdog.update_state(checkpoint_payload(
+            params, epoch, self._ckpt_extra(emergency=True), opt))
+        self.watchdog_sync_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def _first_batch(self):
+        batch = next(self.pipeline.batches("train", pad_to_full=True))
+        return (*self._tensors(batch), self._size(batch))
+
+    def _dead_after_epoch(self, init_params) -> bool:
+        """No parameter moved over the first trained epoch: a dead ReLU
+        head's gradient is exactly zero, so Adam leaves every weight bit
+        for bit (valid at decay_rate 0)."""
+        return all(torch.equal(a, p.detach())
+                   for a, p in zip(init_params, self.model.parameters()))
+
+    def _first_batch_grad_zero(self) -> bool:
+        """The decay runs' probe (weight decay moves the weights at a zero
+        loss gradient): the first batch's loss-gradient global norm is
+        exactly 0."""
+        x, y, keys, size = self._first_batch()
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        grads = torch.autograd.grad(self._batch_loss(x, y, keys, size),
+                                    params, allow_unused=True)
+        sq = sum((g.float() ** 2).sum() for g in grads if g is not None)
+        return bool(torch.sqrt(torch.as_tensor(sq)) == 0)
+
+    def _forward_all_zero(self) -> bool:
+        """A dead head predicts exactly zero everywhere (the confirmation
+        that rules out weights left unchanged by an update below their
+        ulp)."""
+        x, _, keys, _ = self._first_batch()
+        pred = self.model(x, graphs_for(self.banks, keys,
+                                        self.model.sources), inference=True)
+        return bool((pred == 0).all())
+
+    def _dead_init_msg(self, detail: str) -> str:
+        return (f"dead initialization (seed {self.cfg.seed}): {detail} -- "
+                f"the gradient is exactly zero (typically the final ReLU "
+                f"head saturated at zero for every input) and training "
+                f"cannot progress. Re-run with a different -seed.")
+
+    def _handle_dead_init(self, msg: str, epoch, logger) -> None:
+        logger.log("dead_init", epoch=epoch, seed=self.cfg.seed)
+        if self.cfg.on_dead_init in ("error", "retry"):
+            raise DeadInitError(msg)  # retry: caught by train()
+        print(f"WARNING: {msg}")
+
+    def _check_resumed_ckpt_dead(self, ckpt, logger) -> None:
+        """A resumed checkpoint flagged dead: warn or raise, and keep the
+        flag for every later save."""
+        if ckpt.get("extra", {}).get("dead_init"):
+            self._dead_init_detected = True
+            self._handle_dead_init(
+                self._dead_init_msg(
+                    "the resumed checkpoint is flagged dead_init"),
+                ckpt["epoch"], logger)
+
+    def _reseed(self, seed: int) -> None:
+        """A fresh draw of the port's own init from ``seed`` (on_dead_init=
+        'retry'), copied into the live weights, and a fresh optimizer
+        state, both in place, so the captured steps stay valid."""
+        self.cfg = self.cfg.replace(seed=seed)
+        fresh = MPGCN.from_config(self.cfg, device="cpu",
+                                  lstm_impl=self.model.lstm_impl,
+                                  bdgcn_impl=self.bdgcn_impl)
+        self.model.load_state_dict(fresh.state_dict())
+        self.optimizer.reset()
+        self._dead_init_detected = False
+
+    def _try_load_ckpt(self, path: str, logger=None):
+        """``load_trained`` that takes a corrupt file as unusable (returns
+        None, warns, logs ``ckpt_corrupt``), so resume and rollback fall
+        back along last -> best -> scratch; a mismatched config still
+        raises."""
+        try:
+            return self.load_trained(path)
+        except CheckpointCorruptError as e:
+            print(f"WARNING: {e}; falling back to the next checkpoint.")
+            if logger is not None:
+                logger.log("ckpt_corrupt", path=path)
+            return None
+
+    def _shrink_lr(self, factor: float) -> None:
+        """Rollback backoff: the schedule at ``learn_rate * factor``,
+        tabulated into the rate table in place."""
+        self.cfg = self.cfg.replace(learn_rate=self.cfg.learn_rate * factor)
+        self.optimizer.set_schedule(lr_at(
+            self.cfg.learn_rate, self.cfg.lr_schedule, self._total_steps))
+
+    def _bad_epoch(self, epoch, mode, reason, skipped, logger) -> None:
+        """Quarantine the state of a bad epoch to a postmortem checkpoint,
+        restore the last good checkpoint, then raise ``RollbackSignal``
+        (at most ``cfg.rollback_retries`` times, the rate backed off) or
+        return, and the caller stops (JAX: ``_bad_epoch``)."""
+        cfg = self.cfg
+        post = postmortem_path(cfg.output_dir, cfg.model, epoch)
+        self._save(post, epoch, quarantine_reason=reason)
+        will_retry = self._rollback_attempts < cfg.rollback_retries
+        print(f"ERROR: {reason} at epoch {epoch}; quarantined the offending "
+              f"state to {post}; restoring last good checkpoint and "
+              f"{'retrying' if will_retry else 'stopping'}.")
+        logger.log("nan_abort", epoch=epoch, mode=mode, reason=reason,
+                   skipped_steps=skipped, postmortem=post)
+        restored = None
+        self._writer.flush()
+        for path in (self._last_ckpt_path(), self._ckpt_path()):
+            if path != post and os.path.exists(path):
+                restored = self._try_load_ckpt(path, logger)
+                if restored is not None:
+                    break
+        if restored is not None and not _has_opt_state(restored):
+            # the epoch-0 and best-only files carry no moments: never
+            # retry on the bad epoch's
+            self.optimizer.reset()
+        if restored is None and will_retry:
+            print("WARNING: no restorable checkpoint found; cannot roll "
+                  "back -- stopping instead of retrying from the bad "
+                  "state.")
+            will_retry = False
+        if not will_retry:
+            return
+        self._rollback_attempts += 1
+        if cfg.rollback_lr_factor < 1.0:
+            self._shrink_lr(cfg.rollback_lr_factor)
+        logger.log("rollback", epoch=epoch, reason=reason,
+                   attempt=self._rollback_attempts,
+                   retries=cfg.rollback_retries,
+                   learn_rate=self.cfg.learn_rate)
+        print(f"Rolling back (attempt {self._rollback_attempts}/"
+              f"{cfg.rollback_retries}): resuming from the last good "
+              f"checkpoint at learn_rate={self.cfg.learn_rate:.3}.")
+        raise RollbackSignal(epoch, reason, self._rollback_attempts)
+
+    def _validation_loss(self) -> float:
+        """The current weights' mean validation loss."""
+        losses, sizes = self._run_epoch(
+            "validate", self._epoch_exec("validate"),
+            np.random.default_rng(0))
+        return epoch_mean(losses, sizes)
+
+    def _on_signal(self, signum, frame) -> None:
+        """SIGTERM or SIGINT: finish the epoch, save, return. A second
+        SIGINT aborts at once."""
+        if signum == signal.SIGINT:
+            if self._sigint_seen:
+                os.write(2, b"second SIGINT: aborting immediately.\n")
+                raise KeyboardInterrupt
+            self._sigint_seen = True
+        self._preempted = True
+        # not print(): the signal can land inside a print of the loop
+        name = signal.Signals(signum).name.encode()
+        os.write(2, name + b" received: finishing the current epoch, "
+                        b"checkpointing, and exiting cleanly "
+                        b"(resume with -resume).\n")
+
+    def train(self, resume: bool = False) -> dict:
         """Epoch loop with validation early stopping after
         ``cfg.early_stop_patience`` epochs without a better validation loss
-        (reference: Model_Trainer.py:87-142). Returns the train and
-        validate epoch losses."""
+        (reference: Model_Trainer.py:87-142), and the JAX trainer's
+        self-healing around it: ``resume`` restarts from the rolling
+        checkpoint (then the best one, then scratch); a dead init is
+        retried per ``cfg.on_dead_init``; a bad epoch rolls back; SIGTERM
+        and SIGINT end the run at the epoch's end with its state saved;
+        the watchdog runs when ``cfg.watchdog_secs`` > 0. Returns the
+        train and validate epoch losses."""
+        cfg = self.cfg
+        os.makedirs(cfg.output_dir, exist_ok=True)
+        self._preempted = self._sigint_seen = False
+        prev_handlers: dict = {}
+        try:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                prev_handlers[sig] = signal.signal(sig, self._on_signal)
+        except ValueError:  # not the main thread: no preemption hook
+            pass
+        if cfg.watchdog_secs > 0:
+            self._watchdog = HangWatchdog(
+                cfg.watchdog_secs,
+                emergency_path=emergency_path(cfg.output_dir, cfg.model),
+                logger=RunLogger(run_log_path(cfg.output_dir, cfg.model,
+                                              cfg.jsonl_log)))
+            self._watchdog.start()
+            # armed with the initial state: a hang before the first epoch
+            # ends still leaves a loadable emergency checkpoint
+            self._watchdog_sync(0)
+        try:
+            attempt = 0
+            while True:
+                try:
+                    return self._train_loop(resume)
+                except DeadInitError:
+                    if (self.cfg.on_dead_init != "retry"
+                            or attempt >= self.cfg.dead_init_retries):
+                        raise
+                    attempt += 1
+                    seed = self.cfg.seed + _RESEED_STRIDE
+                    print(f"Dead initialization: retrying with seed {seed} "
+                          f"(attempt {attempt}/"
+                          f"{self.cfg.dead_init_retries}).")
+                    self._reseed(seed)
+                    resume = False  # a fresh draw never resumes the dead run
+                except RollbackSignal:
+                    # _bad_epoch restored, backed off and counted: re-enter
+                    # from the rolling checkpoint, the shuffle replayed
+                    resume = True
+        finally:
+            self._writer.flush()
+            if self._watchdog is not None:
+                self._watchdog.stop()
+                self._watchdog = None
+            for sig, prev in prev_handlers.items():
+                signal.signal(sig, prev if prev is not None
+                              else signal.SIG_DFL)
+
+    def _resume(self, resume: bool, logger, rng, state: dict) -> int:
+        """Load what ``resume`` resumes from (last -> best -> scratch) into
+        the trainer and ``state`` (best_val, best_epoch, patience_count);
+        returns the first epoch to run. Replays the shuffle stream of the
+        epochs already run."""
+        cfg = self.cfg
+        ckpt = kind = None
+        self._writer.flush()
+        if resume:
+            for path, k in ((self._last_ckpt_path(), "last"),
+                            (self._ckpt_path(), "best")):
+                if os.path.exists(path):
+                    ckpt = self._try_load_ckpt(path, logger)
+                    if ckpt is not None:
+                        kind = k
+                        break
+        if kind is None:
+            if resume:
+                print(f"WARNING: resume requested but no checkpoint at "
+                      f"{self._ckpt_path()} is usable; training from "
+                      f"scratch.")
+            self._save(self._ckpt_path(), 0,
+                       self._snapshot(with_opt=False))
+            if os.path.exists(self._last_ckpt_path()):
+                # a stale rolling checkpoint must not be resumed after a
+                # crash in this run's first epoch
+                self._save_last(0, state["best_val"], state["best_epoch"],
+                                state["patience_count"])
+            return 1
+        self._check_resumed_ckpt_dead(ckpt, logger)
+        extra = ckpt.get("extra", {})
+        done = ckpt["epoch"]
+        if kind == "last":
+            state.update(best_val=extra.get("best_val", np.inf),
+                         best_epoch=extra.get("best_epoch", done),
+                         patience_count=extra.get("patience_count",
+                                                  state["patience_count"]))
+            self.global_step = int(extra.get("global_step",
+                                             self.global_step))
+        else:  # a best-only checkpoint: restart after its epoch
+            if not _has_opt_state(ckpt):
+                self.optimizer.reset()
+            best_val = extra.get("best_val")
+            state.update(best_epoch=done, best_val=(
+                self._validation_loss() if best_val is None else best_val))
+        if cfg.shuffle:
+            n = len(self.pipeline.modes["train"])
+            for _ in range(done):
+                rng.shuffle(np.arange(n))
+        if kind == "last":
+            print(f"Resuming after epoch {done} (best val loss "
+                  f"{state['best_val']:.5} at epoch {state['best_epoch']}, "
+                  f"patience {state['patience_count']}/"
+                  f"{cfg.early_stop_patience})")
+        else:
+            print(f"Resuming from epoch {done} (best val loss "
+                  f"{state['best_val']:.5})")
+        return done + 1
+
+    def _train_loop(self, resume: bool) -> dict:
         cfg = self.cfg
         modes = ("train", "validate")
-        os.makedirs(cfg.output_dir, exist_ok=True)
-        best_val, patience_count = np.inf, cfg.early_stop_patience
+        patience = cfg.early_stop_patience
+        state = dict(best_val=np.inf, best_epoch=0, patience_count=patience)
         history = {m: [] for m in modes}
         rng = np.random.default_rng(cfg.seed)
-        self.best_epoch = 0
+        logger = RunLogger(run_log_path(cfg.output_dir, cfg.model,
+                                        cfg.jsonl_log))
         plan = {m: self._epoch_exec(m) for m in modes}
-        print(self._exec_line(plan))
-        save_checkpoint(self._ckpt_path(), self.model, 0,
-                        extra=self._ckpt_extra())
+        logger.log("train_start", num_epochs=cfg.num_epochs,
+                   steps_per_epoch=self.pipeline.num_batches("train"),
+                   batch_size=cfg.batch_size, hidden_dim=cfg.hidden_dim,
+                   num_branches=cfg.num_branches, kernel=cfg.kernel_type,
+                   K=cfg.support_K, num_nodes=cfg.num_nodes,
+                   lstm_impl=self.model.lstm_impl,
+                   bdgcn_impl=self.bdgcn_impl,
+                   support_density=round(self.pipeline.support_density, 6),
+                   resume=resume, epoch_exec=plan)
+        if not self._exec_logged:
+            self._exec_logged = True  # once a run, not per retry
+            print(self._exec_line(plan))
+        start = self._resume(resume, logger, rng, state)
+        self.best_epoch = state["best_epoch"]
         _banner(f"     {cfg.model} model training begins:")
-        for epoch in range(1, 1 + cfg.num_epochs):
+        # the first trained epoch of every run doubles as the dead-init
+        # probe (a dead run's checkpoints equal its init, so a resume
+        # needs it too); weight decay moves the weights at a zero
+        # gradient, so decay runs probe one batch's gradient up front
+        probe = not self._dead_init_detected
+        init_params = ([p.detach().clone() for p in self.model.parameters()]
+                       if probe and cfg.decay_rate == 0 else None)
+        if probe and cfg.decay_rate != 0:
+            if self._forward_all_zero() and self._first_batch_grad_zero():
+                self._dead_init_detected = True
+                self._save_last(start - 1, **state)
+                self._handle_dead_init(self._dead_init_msg(
+                    "the first batch's loss-gradient global norm is "
+                    "exactly 0"), start - 1, logger)
+        for epoch in range(start, 1 + cfg.num_epochs):
+            skipped = spikes = 0
+            snap = None
             for mode in modes:
-                history[mode].append(self._run_epoch(mode, plan[mode], rng))
+                is_train = mode == "train"
+                sentinel = is_train and cfg.step_sentinels
+                losses, sizes = self._run_epoch(mode, plan[mode], rng)
+                if sentinel:
+                    ok = np.isfinite(losses)
+                    skipped = int((~ok).sum())
+                    spikes = _count_spikes(losses[ok], cfg.loss_spike_factor)
+                history[mode].append(epoch_mean(losses, sizes, sentinel))
+                self._beat()
+                bad = None
+                if cfg.nan_guard and not np.isfinite(history[mode][-1]):
+                    bad = f"non-finite {mode} epoch loss"
+                elif sentinel and cfg.nan_guard and skipped > cfg.skip_budget:
+                    bad = (f"{skipped} sentinel-skipped train step(s) "
+                           f"exceeded skip_budget={cfg.skip_budget}")
+                if bad is not None:
+                    self._bad_epoch(epoch, mode, bad, skipped, logger)
+                    return history
+                if is_train and init_params is not None:
+                    if (self._dead_after_epoch(init_params)
+                            and self._forward_all_zero()):
+                        self._dead_init_detected = True
+                        self._save_last(epoch, **state)
+                        self._handle_dead_init(self._dead_init_msg(
+                            f"no parameter changed over epoch {epoch}"),
+                            epoch, logger)
+                    init_params = None
                 if mode != "validate":
                     continue
                 epoch_val = history[mode][-1]
-                if epoch_val <= best_val:
+                # one host copy of the state serves the epoch's checkpoints
+                # and the watchdog
+                snap = self._snapshot()
+                if epoch_val <= state["best_val"]:
                     print(f"Epoch {epoch}, validation loss drops from "
-                          f"{best_val:.5} to {epoch_val:.5}. "
+                          f"{state['best_val']:.5} to {epoch_val:.5}. "
                           f"Update model checkpoint..")
-                    best_val, self.best_epoch = epoch_val, epoch
-                    save_checkpoint(self._ckpt_path(), self.model, epoch,
-                                    extra=self._ckpt_extra(
-                                        best_val=best_val))
-                    patience_count = cfg.early_stop_patience
+                    state.update(best_val=epoch_val, best_epoch=epoch,
+                                 patience_count=patience)
+                    self.best_epoch = epoch
+                    self._save(self._ckpt_path(), epoch, snap,
+                               best_val=epoch_val)
                 else:
                     print(f"Epoch {epoch}, validation loss does not "
-                          f"improve from {best_val:.5}.")
-                    patience_count -= 1
-                if patience_count <= 0:
+                          f"improve from {state['best_val']:.5}.")
+                    state["patience_count"] -= 1
+                self._save_last(epoch, snap=snap, **state)
+                logger.log("epoch", epoch=epoch,
+                           **{f"{m}_loss": history[m][-1] for m in modes},
+                           best_val=state["best_val"],
+                           best_epoch=state["best_epoch"],
+                           patience=state["patience_count"],
+                           skipped_steps=skipped, loss_spikes=spikes,
+                           steps_per_sec=round(self.steps_per_sec(), 3))
+                if state["patience_count"] <= 0:
                     _banner(f"    Early stopping at epoch {epoch}. "
                             f"{cfg.model} model training ends.")
                     print(f"steps/sec: {self.steps_per_sec():.2f}")
+                    logger.log("early_stop", epoch=epoch,
+                               best_epoch=state["best_epoch"],
+                               best_val=state["best_val"])
                     return history
+            self._watchdog_sync(epoch, snap)
+            if self._preempted and epoch < cfg.num_epochs:
+                self._save_last(epoch, snap=snap, **state)
+                logger.log("preempted", epoch=epoch)
+                _banner(f"    Preempted at epoch {epoch}: state saved. "
+                        f"Resume with -resume.")
+                return history
         _banner(f"     {cfg.model} model training ends.")
         print(f"steps/sec: {self.steps_per_sec():.2f}")
+        logger.log("train_end", best_epoch=state["best_epoch"],
+                   best_val=state["best_val"],
+                   steps_per_sec=round(self.steps_per_sec(), 3))
         return history
 
     # --- inference -------------------------------------------------------
 
     def load_trained(self, path: Optional[str] = None) -> dict:
         """Load a JAX-format checkpoint (this trainer's by default) into
-        the model; returns its payload."""
+        the model, in place; returns its payload. Its optimizer state, the
+        port's or a JAX one whose optax chain matches this run's, goes into
+        the optimizer in place; a chain that does not match leaves a fresh
+        optimizer, with the JAX trainer's warning; none leaves the
+        optimizer as it is."""
         path = path or self._ckpt_path()
+        self._writer.flush()
         ckpt = load_checkpoint(path, self.cfg.num_branches,
                                self.cfg.resolved_branch_sources)
         self.model.load_state_dict(params_from_jax(ckpt["params"]))
+        if not _has_opt_state(ckpt):
+            return ckpt
+        chain = self.optimizer.chain
+        state = ckpt.get(OPT_STATE_KEY)
+        if state is None:
+            state = adam_state_from_jax(ckpt["opt_state"], chain)
+        if state is None or tuple(state["chain"]) != chain:
+            print(f"WARNING: optimizer state in {path} has a different "
+                  f"structure than this run's optimizer (it was saved "
+                  f"under different clip_norm/lr_schedule/decay settings); "
+                  f"restoring params only and reinitializing the "
+                  f"optimizer.")
+            self.optimizer.reset()
+        else:
+            load_opt_state(self.model, self.optimizer, state)
         return ckpt
 
     def predict(self, x, keys, pred_len: Optional[int] = None) -> np.ndarray:

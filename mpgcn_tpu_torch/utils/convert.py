@@ -14,8 +14,11 @@ whose optimizer state and manifest can name classes from optax or the JAX
 package. ``load_jax_checkpoint`` unpickles with a restricted
 ``Unpickler``: numpy arrays and scalars load (dicts, lists and tuples need
 no class), every other class becomes an inert stub, so no JAX code is
-imported or run. Only ``params`` is returned, and a stub inside it (a
-quantized tree, say) raises.
+imported or run. A stub keeps the arguments it was built from (its
+``args``), so the fields of a named tuple such as optax's
+``ScaleByAdamState(count, mu, nu)`` survive. A ``params`` tree holding a
+stub (a quantized tree, say) raises. Bytes that do not unpickle (a torn
+write) raise ``CheckpointCorruptError``.
 """
 
 from __future__ import annotations
@@ -36,16 +39,36 @@ _ALLOWED = {
 }
 
 
+class CheckpointCorruptError(RuntimeError):
+    """The bytes at a checkpoint path exist but do not unpickle (a torn or
+    truncated write): distinct from the ValueErrors of a checkpoint that
+    does not fit the model, so resume can fall back to an older file
+    (mpgcn_tpu/train/checkpoint.py ``CheckpointCorruptError``)."""
+
+
 class _Stub:
-    """Stand-in for a class the restricted unpickler will not import."""
+    """Stand-in for a class the restricted unpickler will not import. Its
+    ``args`` are what the pickle built it from: pickle's NEWOBJ (how a
+    named tuple comes back) calls ``__new__`` only, REDUCE calls the
+    class, and both keep them."""
 
     origin = "?"
+
+    def __new__(cls, *args, **kwargs):
+        obj = super().__new__(cls)
+        obj.args = args
+        return obj
 
     def __init__(self, *args, **kwargs):
         self.args = args
 
     def __setstate__(self, state):
         self.state = state
+
+    @property
+    def name(self) -> str:
+        """The stubbed class's own name (``ScaleByAdamState``)."""
+        return self.origin.rsplit(".", 1)[-1]
 
 
 class _RestrictedUnpickler(pickle.Unpickler):
@@ -75,8 +98,9 @@ def read_checkpoint(path: str) -> dict:
         try:
             payload = _RestrictedUnpickler(f).load()
         except (pickle.UnpicklingError, EOFError) as e:
-            raise ValueError(f"checkpoint {path} is corrupt: "
-                             f"{type(e).__name__}: {e}") from e
+            raise CheckpointCorruptError(
+                f"checkpoint {path} is corrupt (torn/partial write?): "
+                f"{type(e).__name__}: {e}") from e
     if not isinstance(payload, dict) or "params" not in payload:
         raise ValueError(f"{path} is not a model checkpoint (no 'params')")
     stubs = list(_stub_paths(payload["params"]))
@@ -140,11 +164,28 @@ def params_from_jax(tree: dict) -> dict:
     return sd
 
 
+def host_arrays(tensors) -> list:
+    """float32 numpy copies of ``tensors``, read from the device in one
+    copy (one host sync, not one per tensor)."""
+    tensors = [t.detach() for t in tensors]
+    if not tensors:
+        return []
+    flat = torch.cat([t.reshape(-1).float() for t in tensors]).cpu().numpy()
+    out, o = [], 0
+    for t in tensors:
+        out.append(flat[o: o + t.numel()].reshape(t.shape).copy())
+        o += t.numel()
+    return out
+
+
 def params_to_jax(state_dict: dict) -> dict:
-    """``MPGCN.state_dict()`` -> the JAX params pytree with numpy float32
-    leaves (the inverse of ``params_from_jax``)."""
-    sd = {k: v.detach().cpu().numpy().astype(np.float32)
-          for k, v in state_dict.items()}
+    """``MPGCN.state_dict()`` (tensors, or their float32 numpy copies) ->
+    the JAX params pytree with numpy float32 leaves (the inverse of
+    ``params_from_jax``)."""
+    vals = list(state_dict.values())
+    if vals and torch.is_tensor(vals[0]):
+        vals = host_arrays(vals)
+    sd = dict(zip(state_dict, vals))
     branches = []
     m = 0
     while f"branches.{m}.fc.weight" in sd:

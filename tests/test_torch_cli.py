@@ -60,6 +60,12 @@ from mpgcn_tpu_torch.train.predict import graphs_for
 from mpgcn_tpu_torch.utils.convert import read_checkpoint
 from mpgcn_tpu_torch.utils.retry import read_with_retry
 
+# each pytest-xdist worker takes its share of the cores: torch's default
+# of one intra-op thread per core, in every worker at once, oversubscribes
+# the machine
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
+
 N = 47
 #: the init seed of both checkpoint runs: at hidden 8, M = 3 on the
 #: 60-day tree it leaves every branch's head live in both packages' inits

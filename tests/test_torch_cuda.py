@@ -19,6 +19,7 @@ about 2^-21 relative per product); dBlocks sums F products and is held
 like dW."""
 
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -39,6 +40,12 @@ from mpgcn_tpu_torch.sparse.formats import (
 from mpgcn_tpu_torch.sparse.kernels import ell_spmm, flat_stack
 from mpgcn_tpu_torch.train.predict import rollout
 from mpgcn_tpu_torch.train.trainer import ModelTrainer
+
+# each pytest-xdist worker takes its share of the cores: torch's default
+# of one intra-op thread per core, in every worker at once, oversubscribes
+# the machine
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 ROLLOUT_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -1344,3 +1351,105 @@ def test_graphs_captured_again_after_the_storage_moves(cuda_device,
     got, want = _steps(a, b, "train", 2)
     assert np.array_equal(got, want) and a._graphs.get("train") is not None
     _assert_same_state(a, b)
+
+
+# --- the self-healing step: sentinels, accumulation, multi-step ------------
+
+
+def _poison(tr, step: int) -> None:
+    """NaN input windows for the rows of unshuffled train step ``step``."""
+    md = tr.pipeline.modes["train"]
+    bs = tr.cfg.batch_size
+    x = np.array(md.x)
+    x[step * bs: (step + 1) * bs] = np.nan
+    md.x = x
+
+
+def _guarded(tr) -> list:
+    """Copies of what an update writes: weights, Adam's state, the rate
+    and the step counter."""
+    return [t.detach().clone() for t in tr.optimizer.guarded()]
+
+
+def test_sentinel_revert_is_bit_exact_inside_a_graph(cuda_device, tmp_path):
+    """A replayed train step whose batch holds NaN windows leaves the
+    weights, Adam's moments and steps, the rate and step_t as they were,
+    bit for bit, and writes NaN as its loss; the clean replays around it
+    train; the whole run equals the per-step executor's bit for bit."""
+    a, b = _graph_pair(cuda_device, tmp_path, hidden_dim=32)
+    for tr in (a, b):
+        _poison(tr, 3)
+    ep = a._epoch_state("train")
+    idx, sizes = a._epoch_index("train", False, None)
+    a.optimizer.reserve(len(sizes))
+    ep.load(idx, sizes)
+    for _ in range(3):  # two eager warm-ups, then the capture and a replay
+        a._exec_step("train", ep, True)
+    assert a._graphs.get("train") is not None
+    before = _guarded(a)
+    a._exec_step("train", ep, True)  # the replay of step 3: poisoned
+    after = _guarded(a)
+    assert all(torch.equal(x, y) for x, y in zip(before, after))
+    assert int(a.optimizer.step_t) == 3
+    a._exec_step("train", ep, True)
+    assert int(a.optimizer.step_t) == 4
+    n = len(list(a.model.parameters()))
+    assert not all(torch.equal(x, y) for x, y in zip(_guarded(a)[:n],
+                                                     after[:n]))
+    a.optimizer.advance(5)
+    losses = ep.losses[:5].cpu().numpy()
+    assert np.isnan(losses[3]) and np.isfinite(losses[[0, 1, 2, 4]]).all()
+    ref = [b.train_step(x) for x in list(b.pipeline.batches(
+        "train", pad_to_full=True))[:5]]
+    np.testing.assert_array_equal(losses, np.array(ref, np.float32))
+    _assert_same_state(a, b)
+    assert torch.equal(a.optimizer.step_t, b.optimizer.step_t)
+
+
+def test_grad_accum_matches_the_full_batch_on_the_card(cuda_device,
+                                                       tmp_path):
+    """grad_accum=2: one step's loss and gradients match the full batch's
+    (rtol 1e-5, atol 1e-6 x each tensor's largest entry); its steps by
+    graph equal the per-step executor's bit for bit, with twice the
+    kernel launches of a full-batch step."""
+    a, b = _graph_pair(cuda_device, tmp_path, hidden_dim=32, grad_accum=2)
+    full = ModelTrainer(a.cfg.replace(grad_accum=1), synthetic_dataset(
+        a.cfg), device=cuda_device)
+    full.model.load_state_dict(a.model.state_dict())
+    batch = next(a.pipeline.batches("train", pad_to_full=True))
+    grads = {}
+    for name, tr in (("k2", a), ("full", full)):
+        x, y, keys = tr._tensors(batch)
+        loss = tr._loss_and_grads(x, y, keys, tr._size(batch))
+        grads[name] = (float(loss), {n: p.grad.clone() for n, p in
+                                     tr.model.named_parameters()})
+        tr.optimizer.zero_grad(set_to_none=True)
+    assert grads["k2"][0] == pytest.approx(grads["full"][0], rel=1e-5)
+    for n, g in grads["full"][1].items():
+        torch.testing.assert_close(grads["k2"][1][n], g, rtol=1e-5,
+                                   atol=1e-6 * float(g.abs().max()))
+    for k in (cuda_lstm.LSTM_TRAIN_FWD, cuda_bdgcn.BDGCN_PAIR_BWD):
+        k.launches = 0
+    got, ref = _steps(a, b, "train", 5)
+    assert np.array_equal(got, ref)
+    _assert_same_state(a, b)
+    assert cuda_lstm.LSTM_TRAIN_FWD.launches == 2 * 2 * 2 * 5
+    assert cuda_bdgcn.BDGCN_PAIR_BWD.launches == 2 * 2 * 6 * 5
+
+
+def test_multistep_step_by_graph_equals_eager(cuda_device, tmp_path):
+    """A 3-frame target trains through the rollout: five train steps and
+    four eval steps by graph equal the per-step executor's bit for bit,
+    each train step launching 3 x a one-step step's training kernels."""
+    cfg = MPGCNConfig(synthetic_T=120, synthetic_N=10, pred_len=3, seed=0,
+                      hidden_dim=32, output_dir=str(tmp_path))
+    data = synthetic_dataset(cfg)
+    a = ModelTrainer(cfg, data, device=cuda_device)
+    b = ModelTrainer(cfg.replace(epoch_scan=False), data, device=cuda_device)
+    cuda_lstm.LSTM_TRAIN_BWD.launches = 0
+    for mode, n in (("train", 5), ("validate", 4)):
+        got, ref = _steps(a, b, mode, n)
+        assert np.array_equal(got, ref), (mode, got, ref)
+        assert a._graphs.get(mode) is not None
+    _assert_same_state(a, b)
+    assert cuda_lstm.LSTM_TRAIN_BWD.launches == 2 * (3 * 2 * 5)

@@ -6,6 +6,8 @@ order, same float64 arithmetic). Supports are float32 matrix products whose
 summation order differs between XLA and PyTorch: atol 1e-6 on entries of
 magnitude <= ~2."""
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +25,12 @@ from mpgcn_tpu_torch.data import windows
 from mpgcn_tpu_torch.data.dyn_graphs import construct_dyn_g
 from mpgcn_tpu_torch.data.pipeline import DataPipeline
 from mpgcn_tpu_torch.graph import kernels
+
+# each pytest-xdist worker takes its share of the cores: torch's default
+# of one intra-op thread per core, in every worker at once, oversubscribes
+# the machine
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 N, T = 8, 60
 ATOL = 1e-6

@@ -12,6 +12,8 @@ windows), batch 4 or 2. Tolerances are those of
 tests/test_torch_train.py's ``test_two_epochs_match_jax_trainer``:
 losses rtol 1e-5, parameters rtol 1e-4 / atol 2e-6."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +28,12 @@ from mpgcn_tpu_torch.train.graphs import GraphSet, refusal
 from mpgcn_tpu_torch.train.objectives import lr_at, make_optimizer
 from mpgcn_tpu_torch.train.trainer import ModelTrainer, epoch_mean
 from mpgcn_tpu_torch.utils.convert import params_from_jax
+
+# each pytest-xdist worker takes its share of the cores: torch's default
+# of one intra-op thread per core, in every worker at once, oversubscribes
+# the machine
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 N, H = 8, 8
 KW = dict(synthetic_T=60, synthetic_N=N, hidden_dim=H, seed=0)

@@ -12,6 +12,8 @@ outputs sum over rows and time as well: dx_proj rtol 1e-5 / atol 1e-5,
 dW rtol 1e-5 / atol 1e-4 (sums of R T products of O(1) values, |dW| up to
 about 50 here). gradcheck runs in float64 at its default tolerances."""
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +25,12 @@ from mpgcn_tpu_torch.nn import cuda_bdgcn, cuda_lstm
 from mpgcn_tpu_torch.nn.bdgcn import BDGCN, bdgcn_apply
 from mpgcn_tpu_torch.nn.lstm import LSTM
 from mpgcn_tpu_torch.utils.convert import params_from_jax
+
+# each pytest-xdist worker takes its share of the cores: torch's default
+# of one intra-op thread per core, in every worker at once, oversubscribes
+# the machine
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 LSTM_TOL = dict(rtol=1e-5, atol=1e-6)
 BDGCN_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -8,6 +8,8 @@ differs in every contraction of a 3-layer BDGCN stack. Seed 0 gives a live
 ReLU head at these widths, and the tests assert it: an all-zero output
 would make every comparison pass trivially."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,12 @@ from mpgcn_tpu_torch.data.pipeline import DataPipeline
 from mpgcn_tpu_torch.nn.mpgcn import MPGCN
 from mpgcn_tpu_torch.train.predict import graphs_for
 from mpgcn_tpu_torch.utils.convert import params_from_jax
+
+# each pytest-xdist worker takes its share of the cores: torch's default
+# of one intra-op thread per core, in every worker at once, oversubscribes
+# the machine
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 N, H, B = 8, 8, 4
 TOL = dict(rtol=1e-4, atol=1e-5)

@@ -39,6 +39,12 @@ from mpgcn_tpu_torch.service.batcher import (
 from mpgcn_tpu_torch.service.serve import ServeEngine
 from mpgcn_tpu_torch.utils.convert import load_jax_checkpoint
 
+# each pytest-xdist worker takes its share of the cores: torch's default
+# of one intra-op thread per core, in every worker at once, oversubscribes
+# the machine
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
+
 N, H, OBS, PRED = 8, 8, 7, 7
 TOL = dict(rtol=1e-4, atol=1e-4)
 KW = dict(synthetic_T=60, synthetic_N=N, hidden_dim=H, obs_len=OBS,

@@ -20,6 +20,7 @@ rtol 1e-4 / atol 1e-5.
 
 import dataclasses
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -59,6 +60,12 @@ from mpgcn_tpu_torch.sparse.kernels import (
 from mpgcn_tpu_torch.train.predict import graphs_for
 from mpgcn_tpu_torch.train.trainer import ModelTrainer
 from mpgcn_tpu_torch.utils.convert import params_from_jax
+
+# each pytest-xdist worker takes its share of the cores: torch's default
+# of one intra-op thread per core, in every worker at once, oversubscribes
+# the machine
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 SPMM_TOL = dict(rtol=1e-5, atol=1e-5)
 LOSS_TOL = dict(rtol=1e-5, atol=0)

@@ -52,6 +52,12 @@ from mpgcn_tpu_torch.train.predict import graphs_for
 from mpgcn_tpu_torch.train.trainer import ModelTrainer
 from mpgcn_tpu_torch.utils.convert import params_from_jax, params_to_jax
 
+# each pytest-xdist worker takes its share of the cores: torch's default
+# of one intra-op thread per core, in every worker at once, oversubscribes
+# the machine
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
+
 N, H = 8, 8
 KW = dict(synthetic_T=60, synthetic_N=N, hidden_dim=H, seed=0)
 #: the JAX init seed of the gradient and training comparisons (see above)
@@ -368,7 +374,9 @@ def test_port_checkpoint_loads_in_jax(two_runs):
     check_branch_spec(ckpt, path, 2, ("static", "dynamic"))
     with pytest.raises(ValueError, match="num_branches"):
         check_branch_spec(ckpt, path, 3, None)
-    assert set(ckpt) == {"epoch", "params", "extra"}
+    # the optimizer state rides under the port's own key, which the JAX
+    # loader does not read
+    assert set(ckpt) == {"epoch", "params", "opt_state_torch", "extra"}
     assert set(ckpt["extra"]) == {"seed", "num_branches", "branch_sources",
                                   "best_val", "global_step"}
     jt = r["jt"]
