@@ -127,7 +127,28 @@ Phases, each fatal on failure:
      straight epochs bit for bit by graph; (f) the heads forced dead:
      'error' raises after epoch 1, 'retry' reseeds and trains; (g)
      -watchdog 60 completes without firing, with its per-epoch host copy
-     timed.
+     timed;
+ 14. after them all, the precision plane (-dtype bfloat16, the loss
+     scaler, remat, -infer-precision): (a) each bf16 entry (the three
+     LSTM forwards, the BPTT, K-BDGCN forward and backward) against its
+     plain twin run in float64 on the same bf16 operands with the same
+     rounding points, at the N=47 serve and train shapes, the wide ones
+     (H = 128, K = 7) and the N=500 LSTM shapes (R = 500,000), with its
+     time beside its bound at 2-byte storage (products at the bf16
+     tensor rate), the f32 form's time on the same values, its plain
+     twin's and nn.LSTM / torch.einsum in bf16; (b) the reference command
+     of phase 11 run (a) with -dtype bfloat16: 2 epochs with exact bf16
+     launches a step and test mode, steps/sec, the final loss scale, the
+     scaler's skips and the validation RMSE beside run (a)'s (within
+     10%); (c) an Inf forced into the scaled gradients of two bf16 steps
+     inside the captured step: skipped, the scale halved, by graph equal
+     per step bit for bit; (d) BASELINE config 5 as benchmarks/large_n.py
+     drives it (N=500, ELL arm, bf16 and remat): gradients against f32,
+     launches with each forward entry twice (remat), step ms and peak
+     device bytes beside f32 without remat; (e) rollouts by graph at
+     buckets 1/2/4/8 with -infer-precision bf16 and int8 (ms, max |delta|
+     from the f32 rollout, each graph equal to the eager rollout) and
+     ServeEngine.submit in each mode.
 
 The second-to-last line is a JSON object listing each kernel; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a card, and
@@ -198,8 +219,30 @@ KERNEL_META = {
                      "mpgcn_tpu/sparse/pallas_ell.py:263"),
     "ell_bwd_dblk": ("cuda_ell", "ELL_BWD_DBLK", "ell_spmm.cu",
                      "mpgcn_tpu/sparse/pallas_ell.py:212"),
+    # the bf16 forms (-dtype bfloat16, -infer-precision bf16): the same
+    # TPU kernels in their bf16 dtype
+    "lstm_infer_last_bf16": ("cuda_lstm", "LSTM_INFER_LAST_BF16",
+                             "lstm_infer.cu",
+                             "mpgcn_tpu/nn/pallas_lstm.py:380"),
+    "lstm_infer_collect_bf16": ("cuda_lstm", "LSTM_INFER_COLLECT_BF16",
+                                "lstm_infer.cu",
+                                "mpgcn_tpu/nn/pallas_lstm.py:367"),
+    "lstm_train_fwd_bf16": ("cuda_lstm", "LSTM_TRAIN_FWD_BF16",
+                            "lstm_train.cu",
+                            "mpgcn_tpu/nn/pallas_lstm.py:414"),
+    "lstm_train_bwd_bf16": ("cuda_lstm", "LSTM_TRAIN_BWD_BF16",
+                            "lstm_train.cu",
+                            "mpgcn_tpu/nn/pallas_lstm.py:519"),
+    "bdgcn_pair_fwd_bf16": ("cuda_bdgcn", "BDGCN_PAIR_FWD_BF16",
+                            "bdgcn_pair_fwd.cu",
+                            "mpgcn_tpu/nn/pallas_bdgcn.py:205"),
+    "bdgcn_pair_bwd_bf16": ("cuda_bdgcn", "BDGCN_PAIR_BWD_BF16",
+                            "bdgcn_pair_bwd.cu",
+                            "mpgcn_tpu/nn/pallas_bdgcn.py:233"),
 }
-TRAIN_KERNELS = ("lstm_train_fwd", "lstm_train_bwd", "bdgcn_pair_bwd")
+TRAIN_KERNELS = ("lstm_train_fwd", "lstm_train_bwd", "bdgcn_pair_bwd",
+                 "lstm_train_fwd_bf16", "lstm_train_bwd_bf16",
+                 "bdgcn_pair_bwd_bf16")
 ELL_TRAIN_KERNELS = ("ell_bwd_dx", "ell_bwd_dx_q", "ell_bwd_dblk")
 #: row blocks per row group of the ELL forward (csrc/ell_spmm.cu kGroupRB)
 FWD_GROUP_RB = 8
@@ -2325,7 +2368,7 @@ def phase_large_n_lstm_times(dev):
         (torch.rand((G, 1), generator=gen, device=dev) * 2 - 1) * s,
         (torch.rand((G,), generator=gen, device=dev) * 2 - 1) * s,
         w), lib_infer, iters=10, plain_iters=2)
-    fwd = {f"{mode} {form}": ptxas_kernel(src, f"lstm_fwd_kernelILi{m}ELi{f}E")
+    fwd = {f"{mode} {form}": ptxas_kernel(src, f"lstm_fwd_kernelILi{m}ELi{f}EfE")
            for mode, src, m in (("last", "lstm_infer", 0),
                                 ("collect", "lstm_infer", 1),
                                 ("train", "lstm_train", 2))
@@ -2336,7 +2379,7 @@ def phase_large_n_lstm_times(dev):
               f"{k} {r} regs, {sp}" for k, (r, sp) in fwd.items()),
           flush=True)
     index = cuda_lstm.device_index(dev)
-    regs, spills = ptxas_kernel("lstm_train", "lstm_train_bwd_kernel")
+    regs, spills = ptxas_kernel("lstm_train", "lstm_train_bwd_kernelIfE")
     note += (f"; resident kernel: {regs} registers, spill stores/loads "
              f"{spills} bytes, {cuda_lstm.bwd_smem_bytes(index, H)} bytes "
              f"of shared memory a block, {cuda_lstm._max_bwd_blocks(index, H)}"
@@ -2784,7 +2827,7 @@ def phase_executor(dev, cfg, data, out_dir, card):
     n_batches = sum(tt.pipeline.num_batches(m) for m in ("train", "test"))
     expect = _scaled(_per_step(tt.cfg, False), 7 * n_batches)
     require(counts == expect and set(tt._graphs.graphs) == {
-        (tcfg.batch_size, 7)}, f"test mode: launches {counts}, graphs "
+        (tcfg.batch_size, 7, "f32")}, f"test mode: launches {counts}, graphs "
         f"{list(tt._graphs.graphs)}")
     md = tt.pipeline.modes["test"]
     x, k = md.x[:tcfg.batch_size], md.keys[:tcfg.batch_size]
@@ -2830,7 +2873,7 @@ def phase_graph_rollouts(dev, eng, card):
     from mpgcn_tpu_torch.train.predict import rollout
 
     graphs = eng._rollouts.graphs
-    require(set(graphs.graphs) == {(b, 7) for b in eng.scfg.buckets},
+    require(set(graphs.graphs) == {(b, 7, "f32") for b in eng.scfg.buckets},
             f"serve graphs {list(graphs.graphs)}")
     md = eng.pipeline.modes["test"]
     per = _scaled(_per_step(eng.cfg, False), 7)
@@ -2849,7 +2892,7 @@ def phase_graph_rollouts(dev, eng, card):
         require(counts == per, f"bucket {b}: the replay launched {counts}, "
                                f"expected {per}")
         total = _add(total, counts)
-        g = graphs.get((b, 7))
+        g = graphs.get((b, 7, "f32"))
         times[b] = (_host_ms(lambda: g.replay(x, k)),
                     _host_ms(lambda: rollout(eng.model, eng.banks, x, k, 7)))
     print(f"[graphs] (b) every bucket's rollout graph (horizon 7) equals "
@@ -2861,7 +2904,7 @@ def phase_graph_rollouts(dev, eng, card):
                       f"eager {et[0]:.3f} / {et[1]:.3f} ms"
                       for b, (gt, et) in times.items()), flush=True)
     for b in (eng.scfg.buckets[0], eng.scfg.buckets[-1]):
-        g = graphs.get((b, 7))
+        g = graphs.get((b, 7, "f32"))
         x = torch.from_numpy(np.array(md.x[:b])).to(dev)
         k = torch.from_numpy(md.keys[:b].astype(np.int64)).to(dev)
         busy_share(f"bucket-{b} rollout by graph", lambda: g.replay(x, k), 3)
@@ -2928,7 +2971,7 @@ def phase_graph_wide(dev, data, seed, card):
           f"bit for bit (losses, weights, Adam's state), launches S x a "
           f"step's; the bucket-8 rollout graph equals eager", flush=True)
     step = _host_ms(_train_steps(a, 12), n=10, warmup=2)
-    g = a._graphs.get((8, 7))
+    g = a._graphs.get((8, 7, "f32"))
     roll = _host_ms(lambda: g.replay(xd, kd), n=5, warmup=1)
     eager = _host_ms(lambda: rollout(a.model, a.banks, xd, kd, 7), n=5,
                      warmup=1)
@@ -3556,6 +3599,616 @@ def phase_self_healing(dev, cfg, data, cfg_l, data_l, out_dir, card):
     return total
 
 
+# --- the precision plane ------------------------------------------------------
+
+#: the bf16 rate of the H100's tensor cores, dense (NVIDIA data sheet): what
+#: the bf16 entries' products could run at
+PEAK_BF16_FLOP_PER_S = 989e12
+#: the bf16 entries against their plain twins in float64 on the same bf16
+#: operands with the same rounding points: a sum within f32 rounding of a
+#: bf16 rounding boundary rounds the other way in one of them (2^-8
+#: relative), which the LSTM carries into later steps through h: rtol 2^-7
+#: and atol 2^-6 (4 bf16 ulps at 1.0), the atol x the largest entry where
+#: the outputs are not O(1). dW (f32 sums) at the f32 dW tolerance where
+#: both sides read the same bf16 operands (the BPTT), at 2^-10 x its
+#: largest entry where they pass through a bf16 rounding of their own
+#: (K-BDGCN's Z)
+BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -6)
+BF16_KERNELS = ("lstm_infer_last_bf16", "lstm_infer_collect_bf16",
+                "lstm_train_fwd_bf16", "lstm_train_bwd_bf16",
+                "bdgcn_pair_fwd_bf16", "bdgcn_pair_bwd_bf16")
+
+
+def compare_bf16(name, out, ref, scale=1.0):
+    """A bf16 entry's output against its float64 twin at BF16_TOL."""
+    return compare(name, out.double(), ref.double(),
+                   dict(rtol=BF16_TOL["rtol"],
+                        atol=BF16_TOL["atol"] * scale))
+
+
+def _bf16_inputs(dev, rng, shape, scale=1.0, uniform=None):
+    """A seeded bf16 tensor on the card: normal x scale, or uniform in
+    +-``uniform`` (the model's LSTM init)."""
+    import torch
+
+    a = (rng.uniform(-uniform, uniform, shape) if uniform is not None
+         else rng.normal(size=shape) * scale)
+    return torch.from_numpy(a.astype(np.float32)).to(dev).bfloat16()
+
+
+def _lstm_lib(dev, H, R, T, train):
+    """nn.LSTM (cuDNN) in bf16 over R sequences of T steps from input
+    width 1 (projection included): its forward time, and with ``train``
+    its backward's."""
+    import torch
+
+    lib = torch.nn.LSTM(1, H, batch_first=True).to(dev).bfloat16()
+    seq = torch.randn((R, T, 1), device=dev, dtype=torch.bfloat16,
+                      requires_grad=train)
+    if not train:
+        with torch.no_grad():
+            return time_ms(lambda: lib(seq), iters=10, warmup=2), None
+    fwd = time_ms(lambda: lib(seq), iters=10, warmup=2)
+    out, _ = lib(seq)
+    gout = torch.randn_like(out)
+    params = [seq, *lib.parameters()]
+    bwd = time_ms(lambda: torch.autograd.grad(out, params, gout,
+                                              retain_graph=True),
+                  iters=10, warmup=2)
+    return fwd, bwd
+
+
+def precision_lstm(dev, rng, errors, times):
+    """(a) for the LSTM entries: each bf16 form against its float64 twin
+    at the N=47 serve (R = 17,672) and train (R = 8,836) shapes, the wide
+    ones (H = 128) and the N=500 step's (R = 500,000); its time beside the
+    f32 form's on the same values, its plain twin's (f32 compute), its
+    bound at 2-byte storage (products at the bf16 tensor rate) and nn.LSTM
+    in bf16. The N=47 shapes' numbers are the kernels line's."""
+    import torch
+
+    from mpgcn_tpu_torch.nn import cuda_lstm as L
+
+    f64 = torch.float64
+    for label, T, R, H in (("N=47 serve", 7, 17672, 32),
+                           ("wide serve", 7, 17672, 128),
+                           ("N=500", 7, 500000, 32)):
+        s = 1 / np.sqrt(H)
+        G = 4 * H
+        xp = _bf16_inputs(dev, rng, (T, R, G))
+        w = _bf16_inputs(dev, rng, (H, G), uniform=s)
+        x = _bf16_inputs(dev, rng, (R, T, 1))
+        w_ih = _bf16_inputs(dev, rng, (G, 1), uniform=s)
+        b = _bf16_inputs(dev, rng, (G,), uniform=2 * s)
+        lib_ms, _ = _lstm_lib(dev, H, R, T, False)
+        big = R > 100000
+        for collect, name in ((False, "lstm_infer_last_bf16"),
+                              (True, "lstm_infer_collect_bf16")):
+            out = L.lstm_layer_infer(xp, w, collect)
+            e = compare_bf16(f"{name} {label} T={T} R={R} H={H}", out,
+                             L.lstm_layer_infer_plain(xp, w, collect,
+                                                      acc=f64))
+            errors[name] = max(errors.get(name, 0.0), e)
+            fo = L.lstm_layer_infer_fused(x, w_ih, b, w, collect)
+            e = compare_bf16(f"{name} fused F=1 {label}", fo,
+                             L.lstm_layer_infer_fused_plain(
+                                 x, w_ih, b, w, collect, acc=f64))
+            errors[name] = max(errors[name], e)
+            del out, fo
+            b_ms, b_by = bound(2 * (xp.numel() + w.numel()
+                                    + (T if collect else 1) * R * H),
+                               2 * (T - 1) * R * H * G, PEAK_BF16_FLOP_PER_S)
+            xp32, w32 = xp.float(), w.float()
+            entry = dict(
+                ms=time_ms(lambda: L.lstm_layer_infer(xp, w, collect),
+                           iters=10 if big else 50),
+                plain_ms=time_ms(lambda: L.lstm_layer_infer_plain(
+                    xp, w, collect), iters=3, warmup=1),
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            f32_ms = time_ms(lambda: L.lstm_layer_infer(xp32, w32, collect),
+                             iters=10 if big else 50)
+            del xp32, w32
+            print(f"[precision] (a) {name} {label} (T={T}, R={R}, H={H}, "
+                  f"on x_proj; library torch.nn.LSTM in bf16, projection "
+                  f"included): {json.dumps(entry)}; the f32 form on the "
+                  f"same values {f32_ms:.4f} ms", flush=True)
+            if label == "N=47 serve":
+                times[name] = entry
+            if not collect:
+                fb_ms, fb_by = bound(2 * (x.numel() + w_ih.numel() + b.numel()
+                                          + w.numel() + R * H),
+                                     2 * T * R * G + 2 * (T - 1) * R * H * G,
+                                     PEAK_BF16_FLOP_PER_S)
+                x32, wi32, b32, w32 = (t.float() for t in (x, w_ih, b, w))
+                print(f"[precision] (a) {name} fused from x (F=1) {label}: "
+                      f"{time_ms(lambda: L.lstm_layer_infer_fused(x, w_ih, b, w, False), iters=10 if big else 50):.4f}"
+                      f" ms, the f32 form "
+                      f"{time_ms(lambda: L.lstm_layer_infer_fused(x32, wi32, b32, w32, False), iters=10 if big else 50):.4f}"
+                      f" ms, bound {fb_ms:.5f} ms ({fb_by})", flush=True)
+                del x32, wi32, b32, w32
+        del xp, x
+        torch.cuda.empty_cache()
+    for label, T, R, H in (("N=47 train", 7, 8836, 32),
+                           ("wide train", 7, 8836, 128),
+                           ("N=500", 7, 500000, 32)):
+        s = 1 / np.sqrt(H)
+        G = 4 * H
+        big = R > 100000
+        xp = _bf16_inputs(dev, rng, (T, R, G))
+        w = _bf16_inputs(dev, rng, (H, G), uniform=s)
+        hs, cs = L.lstm_layer_train(xp, w)
+        rh, rc = L.lstm_layer_train_plain(xp, w, acc=f64)
+        e = max(compare_bf16(f"lstm_train_fwd_bf16 hs {label}", hs, rh),
+                compare_bf16(f"lstm_train_fwd_bf16 cs {label}", cs, rc,
+                             float(rc.abs().max())))
+        errors["lstm_train_fwd_bf16"] = max(
+            errors.get("lstm_train_fwd_bf16", 0.0), e)
+        del rh, rc
+        dhs = _bf16_inputs(dev, rng, (T, R, H))
+        dxp, dw, part = L.lstm_layer_bwd_partials(xp, w, hs, cs, dhs, None)
+        rx, rw = L.lstm_layer_bwd_plain(xp, w, hs, cs, dhs, None, acc=f64)
+        e = max(compare_bf16(f"lstm_train_bwd_bf16 dx_proj {label}", dxp,
+                             rx, float(rx.abs().max())),
+                compare(f"lstm_train_bwd_bf16 dW {label} (f32 sum)",
+                        dw.double(), rw, None))
+        errors["lstm_train_bwd_bf16"] = max(
+            errors.get("lstm_train_bwd_bf16", 0.0), e)
+        require(torch.equal(L.dw_reduce_plain(part), dw),
+                f"lstm_train_bwd_bf16 {label}: dW is not the ordered sum "
+                f"of its partials")
+        del dxp, rx, part
+        lib_f, lib_b = _lstm_lib(dev, H, R, T, True)
+        fb_ms, fb_by = bound(2 * (xp.numel() + w.numel() + 2 * T * R * H),
+                             2 * (T - 1) * R * H * G, PEAK_BF16_FLOP_PER_S)
+        xp32, w32, hs32, cs32, dhs32 = (t.float()
+                                        for t in (xp, w, hs, cs, dhs))
+        it = 10 if big else 50
+        fwd = dict(ms=time_ms(lambda: L.lstm_layer_train(xp, w), iters=it),
+                   plain_ms=time_ms(lambda: L.lstm_layer_train_plain(xp, w),
+                                    iters=3, warmup=1),
+                   bound_ms=fb_ms, bound_by=fb_by, library_ms=lib_f)
+        f32_fwd = time_ms(lambda: L.lstm_layer_train(xp32, w32), iters=it)
+        bb_ms, bb_by = bound(2 * (2 * T * R * G + 3 * T * R * H + H * G)
+                             + 4 * H * G, 3 * 2 * (T - 1) * R * H * G,
+                             PEAK_BF16_FLOP_PER_S)
+        bwd = dict(ms=time_ms(lambda: L.lstm_layer_bwd(
+                       xp, w, hs, cs, dhs, None), iters=it),
+                   plain_ms=time_ms(lambda: L.lstm_layer_bwd_plain(
+                       xp, w, hs, cs, dhs, None), iters=3, warmup=1),
+                   bound_ms=bb_ms, bound_by=bb_by, library_ms=lib_b)
+        f32_bwd = time_ms(lambda: L.lstm_layer_bwd(
+            xp32, w32, hs32, cs32, dhs32, None), iters=it)
+        engine = L.bwd_on_engine(L.device_index(dev), H)
+        print(f"[precision] (a) lstm_train_fwd_bf16 {label} (T={T}, R={R}, "
+              f"H={H}; library torch.nn.LSTM forward in bf16): "
+              f"{json.dumps(fwd)}; the f32 form {f32_fwd:.4f} ms",
+              flush=True)
+        print(f"[precision] (a) lstm_train_bwd_bf16 {label} "
+              f"({'engine path: hs and w_hh^T widened first' if engine else 'resident kernel'}, "
+              f"P={L.bwd_blocks(R, H, dev, torch.bfloat16)}; library "
+              f"torch.nn.LSTM backward in bf16): {json.dumps(bwd)}; the f32 "
+              f"form {f32_bwd:.4f} ms (P={L.bwd_blocks(R, H, dev)})",
+              flush=True)
+        if label == "N=47 train":
+            times["lstm_train_fwd_bf16"] = fwd
+            times["lstm_train_bwd_bf16"] = bwd
+        del xp, w, hs, cs, dhs, xp32, w32, hs32, cs32, dhs32
+        torch.cuda.empty_cache()
+
+
+def precision_bdgcn(dev, rng, errors, times):
+    """(a) for K-BDGCN: the bf16 forward and backward against their
+    float64 twins at the N=47 serve (B = 8) and train (B = 4) shapes and
+    the wide ones (K = 7, C = H = 128), static and dynamic; times beside
+    the f32 forms', the plain twins' (f32 compute), their bounds at 2-byte
+    storage and torch.einsum in bf16 (autograd through it for the
+    backward). The static N=47 shapes' numbers are the kernels line's."""
+    import torch
+
+    from mpgcn_tpu_torch.nn import cuda_bdgcn as KB
+    from mpgcn_tpu_torch.nn.cuda_lstm import dw_reduce_plain
+
+    f64 = torch.float64
+    for label, K, B, N, C, H in (("N=47 serve", 3, 8, 47, 32, 32),
+                                 ("N=47 train", 3, 4, 47, 32, 32),
+                                 ("wide serve", 7, 8, 47, 128, 128),
+                                 ("wide train", 7, 4, 47, 128, 128)):
+        for dynamic in (False, True):
+            h1 = _bf16_inputs(dev, rng, (K, B, N, N, C))
+            g = (torch.from_numpy((rng.random((B if dynamic else 1, K, N, N))
+                                   / N * 2).astype(np.float32))
+                 .to(dev).bfloat16())
+            wr = _bf16_inputs(dev, rng, (K, K, C, H),
+                              scale=1 / np.sqrt(K * K * C))
+            kind = "dynamic" if dynamic else "static"
+            eq = ("obmcl,bdce,odlh->bmeh" if dynamic
+                  else "obmcl,dce,odlh->bmeh")
+            gl = g if dynamic else g[0]
+            ops = 2 * B * N * N * (K * K * C * H + K * N * H)
+            out = KB.folded_pair_project(h1, g, wr)
+            ref = KB.folded_pair_project_plain(h1, g, wr, acc=f64)
+            e = compare_bf16(f"bdgcn_pair_fwd_bf16 {label} {kind}", out, ref,
+                             float(ref.abs().max()))
+            errors["bdgcn_pair_fwd_bf16"] = max(
+                errors.get("bdgcn_pair_fwd_bf16", 0.0), e)
+            if "serve" in label:
+                b_ms, b_by = bound(2 * (h1.numel() + g.numel() + wr.numel()
+                                        + B * N * N * H), ops,
+                                   PEAK_BF16_FLOP_PER_S)
+                h32, g32, w32 = h1.float(), g.float(), wr.float()
+                entry = dict(
+                    ms=time_ms(lambda: KB.folded_pair_project(h1, g, wr)),
+                    plain_ms=time_ms(lambda: KB.folded_pair_project_plain(
+                        h1, g, wr), iters=5, warmup=1),
+                    bound_ms=b_ms, bound_by=b_by,
+                    library_ms=time_ms(lambda: torch.einsum(eq, h1, gl, wr),
+                                       iters=5, warmup=1))
+                f32_ms = time_ms(lambda: KB.folded_pair_project(h32, g32,
+                                                                w32))
+                print(f"[precision] (a) bdgcn_pair_fwd_bf16 {label} {kind} "
+                      f"(K={K}, B={B}, N={N}, C={C}, H={H}; operands "
+                      f"widened into f32 scratch, U and out rounded; "
+                      f"library torch.einsum in bf16): {json.dumps(entry)}; "
+                      f"the f32 form {f32_ms:.4f} ms", flush=True)
+                if label == "N=47 serve" and not dynamic:
+                    times["bdgcn_pair_fwd_bf16"] = entry
+                continue
+            dout = _bf16_inputs(dev, rng, (B, N, N, H))
+            dh1, dW, part = KB.folded_pair_project_bwd_partials(h1, g, wr,
+                                                                dout)
+            r1, rW = KB.folded_pair_project_bwd_plain(h1, g, wr, dout,
+                                                      acc=f64)
+            e = max(compare_bf16(f"bdgcn_pair_bwd_bf16 dh1 {label} {kind}",
+                                 dh1, r1, float(r1.abs().max())),
+                    compare(f"bdgcn_pair_bwd_bf16 dW {label} {kind} (f32 "
+                            f"sum)", dW.double(), rW,
+                            dict(rtol=BF16_TOL["rtol"],
+                                 atol=2 ** -10 * float(rW.abs().max()))))
+            errors["bdgcn_pair_bwd_bf16"] = max(
+                errors.get("bdgcn_pair_bwd_bf16", 0.0), e)
+            require(torch.equal(dw_reduce_plain(part), dW),
+                    f"bdgcn_pair_bwd_bf16 {label}: dW is not the ordered sum "
+                    f"of its partials")
+            bops = 2 * B * N * N * (K * N * H + 2 * K * K * C * H)
+            b_ms, b_by = bound(2 * (2 * h1.numel() + dout.numel() + g.numel()
+                                    + wr.numel()) + 4 * wr.numel(), bops,
+                               PEAK_BF16_FLOP_PER_S)
+            h1r = h1.clone().requires_grad_()
+            wrr = wr.clone().requires_grad_()
+            lref = torch.einsum(eq, h1r, gl, wrr)
+            h32, g32, w32, d32 = (t.float() for t in (h1, g, wr, dout))
+            entry = dict(
+                ms=time_ms(lambda: KB.folded_pair_project_bwd(h1, g, wr,
+                                                              dout)),
+                plain_ms=time_ms(lambda: KB.folded_pair_project_bwd_plain(
+                    h1, g, wr, dout), iters=3, warmup=1),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(lambda: torch.autograd.grad(
+                    lref, (h1r, wrr), dout, retain_graph=True), iters=5,
+                    warmup=1))
+            f32_ms = time_ms(lambda: KB.folded_pair_project_bwd(h32, g32,
+                                                                w32, d32))
+            print(f"[precision] (a) bdgcn_pair_bwd_bf16 {label} {kind} "
+                  f"(K={K}, B={B}, N={N}, C={C}, H={H}; dW cast after its "
+                  f"f32 sum; library autograd through torch.einsum in "
+                  f"bf16): {json.dumps(entry)}; the f32 form {f32_ms:.4f} "
+                  f"ms", flush=True)
+            if label == "N=47 train" and not dynamic:
+                times["bdgcn_pair_bwd_bf16"] = entry
+        torch.cuda.empty_cache()
+
+
+def _per_step_bf16(cfg, train: bool, impl: str = "kernel",
+                   remat: bool = False) -> dict:
+    """``_per_step`` in bf16: the same launches on the bf16 entries (the
+    ELL arm keeps its f32 entries on widened X); with ``remat`` each
+    training forward entry launches twice a step (its forward, and again
+    inside the backward)."""
+    counts = _per_step(cfg, train, impl)
+    out = dict.fromkeys(KERNEL_META, 0)
+    for name, v in counts.items():
+        key = f"{name}_bf16" if f"{name}_bf16" in KERNEL_META else name
+        twice = remat and train and name in ("lstm_train_fwd",
+                                             "bdgcn_pair_fwd", "ell_fwd")
+        out[key] += 2 * v if twice else v
+    return out
+
+
+def precision_cli(dev, out_dir, card):
+    """(b) The reference command with -dtype bfloat16 on the dataset tree
+    phase 11 wrote, its run (a) flags and live seed: 2 epochs (exact bf16
+    launches a step, by graph) and test mode at -infer-precision auto
+    (bf16 rollouts), beside run (a)'s f32 validation RMSE. Returns the
+    launches."""
+    from mpgcn_tpu_torch import cli
+    from mpgcn_tpu_torch.data.loader import load_dataset
+    from mpgcn_tpu_torch.data.pipeline import DataPipeline
+    from mpgcn_tpu_torch.utils.convert import read_checkpoint
+    from mpgcn_tpu_torch.utils.logging import read_events
+
+    tree = os.path.join(out_dir, "data")
+    f32_dir = os.path.join(out_dir, "a")
+    seed = read_checkpoint(os.path.join(f32_dir, "MPGCN_od.pkl"))[
+        "extra"]["seed"]
+    run_dir = os.path.join(out_dir, "a_bf16")
+    argv = (["-GPU", "0", "-in", tree, "-data", "npz"] + REF_CLI_RUNS["a"]
+            + ["-dtype", "bfloat16", "-seed", str(seed), "-out", run_dir])
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv).__dict__)
+    data, _ = load_dataset(cfg)
+    cfg = cfg.replace(num_nodes=data["OD"].shape[1])
+    pipe = DataPipeline(cfg, data, dev)
+    hist, counts, train_s, printed = _cli(argv)
+    steps = cfg.num_epochs * pipe.num_batches("train")
+    evals = len(hist["validate"]) * pipe.num_batches("validate")
+    expect = _add(_scaled(_per_step_bf16(cfg, True), steps),
+                  _scaled(_per_step_bf16(cfg, False), evals))
+    require(counts == expect, f"bf16 CLI: training launched "
+            f"{_nz(counts)}, expected {_nz(expect)}")
+    require(all(np.isfinite(hist["train"] + hist["validate"]))
+            and hist["train"][-1] < hist["train"][0],
+            f"bf16 CLI: epoch losses {hist}")
+    ev = read_events(os.path.join(run_dir, "MPGCN_train_log.jsonl"), "epoch")
+    ev32 = read_events(os.path.join(f32_dir, "MPGCN_train_log.jsonl"),
+                       "epoch")
+    rmse16 = float(np.sqrt(ev[-1]["validate_loss"]))
+    rmse32 = float(np.sqrt(ev32[-1]["validate_loss"]))
+    require(rmse16 <= 1.10 * rmse32, f"bf16 validation RMSE {rmse16} vs "
+            f"f32 {rmse32}: past 10%")
+    res, test_counts, test_s, _ = _cli(argv + ["-mode", "test"])
+    tpipe = DataPipeline(cfg.replace(pred_len=7, mode="test"), data, dev)
+    rollouts = sum(tpipe.num_batches(m) for m in ("train", "test"))
+    want = _scaled(_per_step_bf16(cfg, False), 7 * rollouts)
+    require(test_counts == want, f"bf16 CLI test mode launched "
+            f"{_nz(test_counts)}, expected {_nz(want)}")
+    scores = _scores(run_dir)
+    require(np.isfinite(scores).all(), f"bf16 CLI scores {scores}")
+    print(f"[precision] (b) the reference command -dtype bfloat16 (run "
+          f"(a) flags, seed {seed}) on {card}: steps/sec "
+          f"{_steps_per_sec(printed)}; train {train_s:.1f}s host clock; "
+          f"epoch losses {hist}; final loss scale {ev[-1]['loss_scale']}, "
+          f"scaler skips {ev[-1]['scaler_skipped_steps']}; validation RMSE "
+          f"{rmse16:.5f} beside the f32 run's {rmse32:.5f} "
+          f"({rmse16 / rmse32:.4f}x); launches per train step "
+          f"{_nz(_per_step_bf16(cfg, True))}; test mode (bf16 rollouts) "
+          f"{test_s:.3f}s for {rollouts} rollouts, scores (MSE, RMSE, MAE, "
+          f"MAPE) {scores.tolist()}", flush=True)
+    return _add(counts, test_counts)
+
+
+def precision_overflow(dev, cfg, data, out_dir):
+    """(c) bf16 training at N=47 with an overflow forced into the scaled
+    gradients of two steps inside the captured step: a hook multiplies
+    one weight's gradient by a device scalar, 1 but Inf at steps 3 and 6
+    (the captured step reads it). Those steps are skipped by the scaler
+    (weights and Adam's state kept, the scale halved, the loss finite and
+    unmarked). 8 steps by graph equal 8 per-step steps bit for bit, the
+    scaler's state included."""
+    import torch
+
+    from mpgcn_tpu_torch.train.trainer import ModelTrainer
+
+    tcfg = cfg.replace(pred_len=1, dtype="bfloat16")
+    trs, poison = {}, {}
+    for name, scan in (("graphs", True), ("per_step", False)):
+        d = os.path.join(out_dir, f"overflow_{name}")
+        os.makedirs(d)
+        trs[name] = tr = ModelTrainer(tcfg.replace(epoch_scan=scan,
+                                                   output_dir=d), data,
+                                      device=dev)
+        poison[name] = t = torch.ones((), device=dev)
+        next(tr.model.parameters()).register_hook(lambda g, t=t: g * t)
+    a, b = trs["graphs"], trs["per_step"]
+    n, bad = 8, (3, 6)
+    ep = a._epoch_state("train")
+    ep.load(*a._epoch_index("train", False, None))
+    for i in range(n):
+        poison["graphs"].fill_(float("inf") if i in bad else 1.0)
+        a._exec_step("train", ep, True)
+    a.optimizer.advance(n)
+    got = ep.losses[:n].cpu().numpy()
+    ref = []
+    for i, x in enumerate(list(b.pipeline.batches(
+            "train", pad_to_full=True))[:n]):
+        poison["per_step"].fill_(float("inf") if i in bad else 1.0)
+        ref.append(b.train_step(x))
+    ref = np.array(ref, np.float32)
+    require(a._graphs.get("train") is not None, "overflow: no train graph")
+    require(np.array_equal(got, ref) and np.isfinite(got).all(),
+            f"overflow: losses by graph {got}, per step {ref}")
+    _require_same_state(_state(a), _state(b), "overflow")
+    st, st_b = a.optimizer.scaler.stats(), b.optimizer.scaler.stats()
+    require(st == st_b, f"overflow: scaler {st} by graph, {st_b} per step")
+    require(st["skipped_steps"] == len(bad)
+            and st["scale"] == tcfg.loss_scale_init / 2 ** len(bad)
+            and int(a.optimizer.step_t) == n - len(bad),
+            f"overflow: scaler {st}, step_t {int(a.optimizer.step_t)}")
+    print(f"[precision] (c) bf16 (N=47, seed {tcfg.seed}), an Inf forced "
+          f"into the scaled gradients of steps {list(bad)} inside the "
+          f"replayed step: both skipped by the scaler (scale "
+          f"{tcfg.loss_scale_init} -> {st['scale']}, step_t "
+          f"{int(a.optimizer.step_t)} after {n} steps; losses finite and "
+          f"unmarked); by graph equal per step bit for bit (losses "
+          f"{got.tolist()}, weights, Adam's state, the scaler)", flush=True)
+    del a, b, trs
+    torch.cuda.empty_cache()
+
+
+def precision_large_n(dev, cfg_l, data_l, out_dir, card):
+    """(d) BASELINE config 5 as benchmarks/large_n.py drives it: N=500 on
+    the ELL arm in bf16 with remat. One batch's gradients against the f32
+    step's (same weights; 5e-2 of each one's largest entry); launches a
+    step with the forwards twice (remat); step ms (host clock, median of
+    4 after 2) and peak device bytes of a step's forward and backward,
+    beside f32 without remat in this run."""
+    import statistics
+
+    import torch
+
+    from mpgcn_tpu_torch.train.trainer import ModelTrainer
+
+    trs = {}
+    for name, kw in (("f32", {}), ("bf16_remat", dict(dtype="bfloat16",
+                                                       remat=True))):
+        d = os.path.join(out_dir, f"large_n_{name}")
+        os.makedirs(d)
+        trs[name] = ModelTrainer(cfg_l.replace(pred_len=1, output_dir=d,
+                                               **kw), data_l, device=dev)
+    a, b = trs["bf16_remat"], trs["f32"]
+    require(a.bdgcn_impl == "ell" and a.model.remat
+            and a.model.compute_dtype == torch.bfloat16,
+            f"large-N bf16: impl {a.bdgcn_impl}, remat {a.model.remat}")
+    b.model.load_state_dict(a.model.state_dict())
+    batches = list(a.pipeline.batches("train", pad_to_full=True))[:4]
+    peaks, grads = {}, {}
+    for name, tr in trs.items():
+        x, y, keys = tr._tensors(batches[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        tr._loss_and_grads(x, y, keys, tr._size(batches[0]))
+        counts = read_counts()
+        peaks[name] = torch.cuda.max_memory_allocated(dev)
+        grads[name] = {n: p.grad.detach().clone()
+                       for n, p in tr.model.named_parameters()}
+        tr.optimizer.zero_grad(set_to_none=True)
+        if name == "bf16_remat":
+            want = _per_step_bf16(a.cfg, True, "ell", remat=True)
+            require(counts == want, f"large-N bf16 remat step launched "
+                    f"{_nz(counts)}, expected {_nz(want)}")
+            launches = counts
+    scale = a.optimizer.scaler.stats()["scale"]
+    worst = 0.0
+    for n, g in grads["bf16_remat"].items():
+        ref = grads["f32"][n] * scale
+        top = float(ref.abs().max())
+        err = float((g - ref).abs().max()) / max(top, 1e-30)
+        require(err <= 5e-2, f"large-N bf16 gradient {n}: {err:.3e} of its "
+                             f"largest entry from the f32 one")
+        worst = max(worst, err)
+    ms = {}
+    for name, tr in trs.items():
+        ms[name] = statistics.median(_step_ms(tr, batches, 4, 2))
+    require(all(np.isfinite(float(p.detach().float().abs().max()))
+                for p in a.model.parameters()), "large-N bf16: non-finite")
+    print(f"[precision] (d) N=500 (BASELINE config 5, ELL arm, batch 2) on "
+          f"{card}: bf16 with remat, step {ms['bf16_remat']:.3f} ms, peak "
+          f"device bytes of a step's forward and backward "
+          f"{peaks['bf16_remat'] / 1e9:.3f} GB; f32 without remat (same "
+          f"weights, this run) {ms['f32']:.3f} ms, "
+          f"{peaks['f32'] / 1e9:.3f} GB ({peaks['bf16_remat'] / peaks['f32']:.3f}"
+          f"x); scaled bf16 gradients within {worst:.3e} of each f32 "
+          f"gradient's largest entry (x the scale {scale}); launches per "
+          f"bf16 step {_nz(launches)} (remat: each forward entry twice)",
+          flush=True)
+    total = _add(launches, {})
+    del a, b, trs, grads
+    torch.cuda.empty_cache()
+    return total
+
+
+def precision_rollouts(dev, cfg, data, card):
+    """(e) Rollouts by graph at buckets 1/2/4/8 with -infer-precision bf16
+    and int8 (N=47, fresh weights from cfg's live seed, as the f32 engine
+    of phase 3 has them): ms per bucket by graph (host clock, median of 5
+    after 1) beside the f32 graphs', max |delta| from the f32 rollout
+    (under 0.05, the JAX bound), each graph equal to the eager rollout at
+    its precision bit for bit; then ServeEngine.submit in each mode, and
+    at bf16 with 2 LSTM layers (the collect entry). Returns the
+    launches of the submits."""
+    import torch
+
+    from mpgcn_tpu_torch.config import ServeConfig
+    from mpgcn_tpu_torch.service.serve import ServeEngine
+    from mpgcn_tpu_torch.train.predict import rollout
+
+    scfg = ServeConfig(buckets=(1, 2, 4, 8), max_wait_ms=100.0,
+                       deadline_ms=0.0)
+    engines, total = {}, {}
+    for ip in ("f32", "bf16", "int8"):
+        engines[ip] = ServeEngine(cfg.replace(infer_precision=ip), data,
+                                  scfg, device=dev, allow_fresh=True)
+    md = engines["f32"].pipeline.modes["test"]
+    summary = {}
+    for b in scfg.buckets:
+        x = torch.from_numpy(np.array(md.x[:b]))
+        k = torch.from_numpy(md.keys[:b].astype(np.int64))
+        ref = engines["f32"]._rollouts.run(x, k, 7)
+        row = {}
+        for ip, eng in engines.items():
+            prec = eng._precision
+            g = eng._rollouts.graphs.get((b, 7, ip))
+            require(g is not None, f"no {ip} rollout graph for bucket {b}")
+            got = eng._rollouts.run(x, k, 7, prec)
+            eager = rollout(eng.model, eng.banks, x.to(dev), k.to(dev), 7,
+                            prec.dtype, prec.params).cpu()
+            require(torch.equal(got, eager), f"{ip} bucket {b}: the graph "
+                    f"differs from the eager rollout")
+            delta = float((got - ref).abs().max())
+            require(delta < 0.05, f"{ip} bucket {b}: max |delta| {delta} "
+                                  f"from f32")
+            xd, kd = x.to(dev), k.to(dev)
+            ms = _host_ms(lambda: g.replay(xd, kd), n=5, warmup=1)[0]
+            row[ip] = (ms, delta)
+        summary[b] = row
+    print(f"[precision] (e) N=47 rollouts by graph on {card} (horizon 7, "
+          f"host clock median of 5; max |delta| from the f32 rollout): "
+          + "; ".join(f"bucket {b}: " + ", ".join(
+              f"{ip} {ms:.3f} ms ({d:.3e})" for ip, (ms, d) in row.items())
+              for b, row in summary.items())
+          + f"; int8 round-trip error "
+            f"{engines['int8'].quant_max_abs_error:.3e}", flush=True)
+    x = np.array(md.x[:3])
+    for ip, eng in engines.items():
+        reset_counts()
+        tickets = [eng.submit(x[i, ..., 0], int(md.keys[i]))
+                   for i in range(3)]
+        for t in tickets:
+            require(t.wait(120) and t.ok, f"{ip} submit: {t.outcome}")
+        counts = read_counts()
+        bf = ip == "bf16"
+        require(counts["bdgcn_pair_fwd_bf16" if bf else "bdgcn_pair_fwd"]
+                > 0 and counts["bdgcn_pair_fwd" if bf else
+                               "bdgcn_pair_fwd_bf16"] == 0,
+                f"{ip} submit launched {_nz(counts)}")
+        total = _add(total, counts)
+        eng.drain()
+        eng.close()
+    two = ServeEngine(cfg.replace(infer_precision="bf16", lstm_num_layers=2),
+                      data, scfg, device=dev, allow_fresh=True)
+    reset_counts()
+    t = two.submit(x[0, ..., 0], int(md.keys[0]))
+    require(t.wait(120) and t.ok and np.isfinite(t.pred).all(),
+            f"2-layer bf16 submit: {t.outcome}")
+    counts = read_counts()
+    require(counts["lstm_infer_collect_bf16"] == 7 * cfg.num_branches,
+            f"2-layer bf16 submit launched {_nz(counts)}")
+    total = _add(total, counts)
+    two.drain()
+    two.close()
+    print(f"[precision] (e) ServeEngine.submit answered 3 requests at each "
+          f"of f32, bf16 and int8 (bf16 on the bf16 kernels, int8 on the "
+          f"f32 ones over codes dequantized inside the graph) and one at "
+          f"bf16 with 2 LSTM layers; launches {_nz(total)}", flush=True)
+    return total
+
+
+def phase_precision(dev, cfg, data, cfg_l, data_l, out_dir, ref_dir, card):
+    """Phase 14: the precision plane, (a)-(e). Returns (errors, times,
+    launches) of the bf16 entries' main paths ((b), (d), (e))."""
+    import torch
+
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(1600)
+    errors, times = {}, {}
+    precision_lstm(dev, rng, errors, times)
+    precision_bdgcn(dev, rng, errors, times)
+    total = precision_cli(dev, ref_dir, card)
+    precision_overflow(dev, cfg, data, out_dir)
+    total = _add(total, precision_large_n(dev, cfg_l, data_l, out_dir, card))
+    total = _add(total, precision_rollouts(dev, cfg, data, card))
+    return errors, times, total
+
+
 def main() -> int:
     import torch
 
@@ -3712,6 +4365,16 @@ def main() -> int:
     os.makedirs(out_h)
     total = _add(total, phase_self_healing(dev, cfg, data, cfg_l, data_l,
                                            out_h, card))
+
+    # the precision plane, after every phase above
+    out_p = os.path.join(HERE, "smoke_out", "precision")
+    shutil.rmtree(out_p, ignore_errors=True)
+    os.makedirs(out_p)
+    p_errors, p_times, p_total = phase_precision(
+        dev, cfg, data, cfg_l, data_l, out_p, out_r, card)
+    errors.update(p_errors)
+    times.update(p_times)
+    total = _add(total, p_total)
 
     print(card)  # the card's name and power limit, as nvidia-smi gives them
     print(f"[done] smoke run took {time.perf_counter() - t_start:.1f}s")

@@ -14,8 +14,10 @@ inputs per split-TF32 entry, the forwards at the widths around the
 resident forward's shared-memory limit, and the model's LSTM stack
 through the public ``cuda_lstm.lstm_last_step_fused`` (input width 1, 1
 and 2 layers), which both a checkout that projects x in torch and one
-that fuses the projection into the kernel take. Needs a CUDA card;
-imports nothing of JAX.
+that fuses the projection into the kernel take. Last come the bf16 forms
+of the LSTM and K-BDGCN entries (cases named "... bf16"), on their own
+seeded inputs after every f32 case, so a checkout without them prints
+the same f32 hashes. Needs a CUDA card; imports nothing of JAX.
 """
 
 import argparse
@@ -63,7 +65,10 @@ def main() -> int:
         torch.cuda.synchronize()
         h = hashlib.sha256()
         for o in outs:
-            h.update(o.detach().contiguous().cpu().numpy().tobytes())
+            o = o.detach().contiguous()
+            if o.dtype == torch.bfloat16:  # numpy has no bf16: its bits
+                o = o.view(torch.int16)
+            h.update(o.cpu().numpy().tobytes())
         hashes[case] = h.hexdigest()
 
     for T, R, H in ((7, 17672, 32), (7, 8836, 32), (7, 1001, 128)):
@@ -221,6 +226,46 @@ def main() -> int:
                     f"H={H} F=1",
                     cuda_lstm.lstm_last_step_fused(stack(n_layers, 1, H), x))
         del x
+
+    # the bf16 entries: the three LSTM forwards (on x_proj and fused from
+    # x) and the BPTT at the reference, engine and wide widths, K-BDGCN
+    # forward and backward at the reference and wide widths
+    if hasattr(cuda_lstm, "LSTM_TRAIN_FWD_BF16"):
+        rng = np.random.default_rng(1600)
+
+        def b(a):
+            return t(a).to(torch.bfloat16)
+
+        for T, R, H in ((7, 17672, 32), (7, 8836, 32), (3, 333, 97),
+                        (7, 1001, 128)):
+            xp = b(rng.normal(size=(T, R, 4 * H)))
+            w = b(rng.normal(size=(H, 4 * H)) / np.sqrt(H))
+            tag = f"T={T} R={R} H={H} bf16"
+            for collect, name in ((False, "lstm_infer_last"),
+                                  (True, "lstm_infer_collect")):
+                put(f"{name} {tag}",
+                    cuda_lstm.lstm_layer_infer(xp, w, collect))
+            s = 1 / np.sqrt(H)
+            x, w_ih, bias = (b(rng.normal(size=(R, T, 1))),
+                             b(rng.uniform(-s, s, (4 * H, 1))),
+                             b(rng.uniform(-s, s, 4 * H)))
+            put(f"lstm_infer_last fused F=1 {tag}",
+                cuda_lstm.lstm_layer_infer_fused(x, w_ih, bias, w, False))
+            hs, cs = cuda_lstm.lstm_layer_train(xp, w)
+            put(f"lstm_train_fwd {tag}", hs, cs)
+            dhs = b(rng.normal(size=(T, R, H)))
+            put(f"lstm_train_bwd {tag}",
+                *cuda_lstm.lstm_layer_bwd(xp, w, hs, cs, dhs, None))
+        for K, B, N, C, H in ((3, 8, 47, 32, 32), (7, 4, 47, 128, 128)):
+            h1 = b(rng.normal(size=(K, B, N, N, C)))
+            g = b(rng.random((1, K, N, N)) / N * 2)
+            wr = b(rng.normal(size=(K, K, C, H)) / np.sqrt(K * K * C))
+            dout = b(rng.normal(size=(B, N, N, H)))
+            tag = f"K={K} B={B} N={N} C={C} H={H} static bf16"
+            put(f"bdgcn_pair_fwd {tag}",
+                cuda_bdgcn.folded_pair_project(h1, g, wr))
+            put(f"bdgcn_pair_bwd {tag}",
+                *cuda_bdgcn.folded_pair_project_bwd(h1, g, wr, dout))
 
     print(json.dumps({"root": root, "device": torch.cuda.get_device_name(0),
                       "hashes": hashes}))

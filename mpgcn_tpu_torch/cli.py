@@ -19,8 +19,10 @@ The model, data and optimizer flags (``-model -t -norm -split -nn -M
 -lstm-layers -sources -lmax -clip -lrs -no-symnorm-clamp -iso -fix-dgraph
 -io-retries``) and the self-healing trainer's (``-resume -multistep -accum
 -dead-init -dead-init-retries -no-sentinels -skip-budget
--rollback-retries -rollback-lr-factor -watchdog``) have the JAX CLI's
-names, types, defaults and choices.
+-rollback-retries -rollback-lr-factor -watchdog``) and the precision flags
+(``-dtype -loss-scaling -loss-scale-init -loss-scale-growth
+-infer-precision``) have the JAX CLI's names, types, defaults and
+choices.
 ``-kernel`` and ``-K`` pick the graph kernel and its order, and so the
 support count (2 K + 1 supports for ``dual_random_walk_diffusion``).
 
@@ -162,6 +164,28 @@ def build_parser() -> argparse.ArgumentParser:
                         "(keeps -pred in train mode instead of forcing 1; "
                         "the loss differentiates through the autoregressive "
                         "rollout)")
+    p.add_argument("-dtype", "--dtype", type=str,
+                   choices=["float32", "bfloat16"], default="float32",
+                   help="compute dtype for the forward pass (params stay fp32)")
+    p.add_argument("-loss-scaling", "--loss_scaling", type=str,
+                   choices=["auto", "none", "dynamic"], default="auto",
+                   help="dynamic loss scaling for mixed-precision "
+                        "training (quant/scaling.py): auto = on for "
+                        "-dtype bfloat16, off for float32; clean runs "
+                        "are bitwise identical to 'none'")
+    p.add_argument("-loss-scale-init", "--loss_scale_init", type=float,
+                   default=65536.0,
+                   help="initial dynamic loss scale (power of two)")
+    p.add_argument("-loss-scale-growth", "--loss_scale_growth_interval",
+                   type=int, default=200,
+                   help="consecutive finite-grad steps before the scale "
+                        "doubles")
+    p.add_argument("-infer-precision", "--infer_precision", type=str,
+                   choices=["auto", "f32", "bf16", "int8"], default="auto",
+                   help="inference-path precision for test/predict "
+                        "rollouts (quant/int8.py): int8 = per-channel "
+                        "weight-quantized params dequantized inside the "
+                        "forward; training numerics unaffected")
     p.add_argument("-accum", "--grad_accum", type=int, default=1,
                    help="gradient-accumulation microbatches per optimizer "
                         "step (1 = off): k interleaved chunks of "

@@ -12,10 +12,13 @@ data-file read retries, and the self-healing trainer: gradient
 accumulation (``grad_accum``), the jsonl run log, the epoch NaN guard,
 the dead-init probe (``on_dead_init``, ``dead_init_retries``), the step
 sentinels and their skip budget, the bad-epoch rollback and the hang
-watchdog. Knobs of paths this port does not have yet (padded-CSR
-supports, sparse OD storage, meshes, precision modes, remat, the orbax
-checkpoint backend, fault injection) are not here; they arrive with the
-slices that run them. The BDGCN arm is not a config
+watchdog, and the precision plane: the compute ``dtype`` (bf16 training
+on f32 master weights), ``remat``, the dynamic loss scaler
+(``loss_scaling`` and its ``loss_scale_*`` knobs) and the inference
+precision (``infer_precision``: f32, bf16 or int8 weight-only). Knobs of
+paths this port does not have yet (padded-CSR supports, sparse OD
+storage, meshes, the orbax checkpoint backend, fault injection) are not
+here; they arrive with the slices that run them. The BDGCN arm is not a config
 field: it is the ``bdgcn_impl`` argument of ``ModelTrainer`` and
 ``ServeEngine``.
 """
@@ -23,6 +26,7 @@ field: it is the ``bdgcn_impl`` argument of ``ModelTrainer`` and
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 # default per-M perspective lineups; other M need an explicit branch_sources
@@ -82,6 +86,9 @@ class MPGCNConfig:
 
     # --- knobs without a reference equivalent ---
     seed: int = 0
+    dtype: str = "float32"                  # compute dtype of the forward
+    #                                         and backward (float32 |
+    #                                         bfloat16); weights stay f32
     lambda_max: float | None = 2.0          # chebyshev rescale; None => power
     lambda_max_iters: int = 16              # iteration steps when None
     data: str = "auto"                      # auto | npz | synthetic
@@ -102,6 +109,10 @@ class MPGCNConfig:
     #                                         False: per step
     epoch_scan_max_mb: float = 512.0        # a mode's epoch tensors above
     #                                         this run per step
+    remat: bool = False                     # checkpoint each branch of the
+    #                                         training forward: its kernels
+    #                                         run again in the backward
+    #                                         instead of keeping residuals
     grad_accum: int = 1                     # microbatches per optimizer step:
     #                                         the train step runs k
     #                                         interleaved chunks of
@@ -110,6 +121,24 @@ class MPGCNConfig:
     jsonl_log: bool = True                  # structured per-epoch JSONL log
     #                                         in <output_dir>/
     #                                         <model>_train_log.jsonl
+    loss_scaling: str = "auto"              # none | dynamic | auto: the
+    #                                         dynamic loss scaler of bf16
+    #                                         training (quant/scaling.py);
+    #                                         auto = dynamic for bfloat16,
+    #                                         none for float32. Clean runs
+    #                                         equal 'none' bit for bit;
+    #                                         non-finite grads skip the
+    #                                         step and halve the scale
+    #                                         without touching skip_budget
+    loss_scale_init: float = 65536.0        # initial scale (2^16)
+    loss_scale_growth_interval: int = 200   # clean steps before it doubles
+    loss_scale_min: float = 1.0             # floor the scale halves to
+    infer_precision: str = "auto"           # auto | f32 | bf16 | int8: the
+    #                                         rollouts' precision (test,
+    #                                         predict, serve); auto follows
+    #                                         dtype; int8 = per-channel
+    #                                         weight-quantized weights,
+    #                                         dequantized inside the forward
     io_retries: int = 3                     # attempts per data-file read
     io_retry_delay_s: float = 0.05          # base backoff between retries
     #                                         (doubles per attempt)
@@ -174,6 +203,9 @@ class MPGCNConfig:
             "isolated_nodes": ("error", "selfloop", "ignore"),
             "support_payload": SUPPORT_PAYLOADS,
             "on_dead_init": ("warn", "error", "retry"),
+            "dtype": ("float32", "bfloat16"),
+            "loss_scaling": ("none", "dynamic", "auto"),
+            "infer_precision": ("auto", "f32", "bf16", "int8"),
         }
         for field_name, allowed in choices.items():
             val = getattr(self, field_name)
@@ -218,6 +250,21 @@ class MPGCNConfig:
             raise ValueError("loss_spike_factor must be >= 0 (0 disables)")
         if self.watchdog_secs < 0:
             raise ValueError("watchdog_secs must be >= 0 (0 disables)")
+        for name in ("loss_scale_init", "loss_scale_min"):
+            v = getattr(self, name)
+            # powers of two only: scaling by 2^k is exact, which is what
+            # keeps a clean scaled run bitwise equal to an unscaled one
+            if v <= 0 or not math.log2(v).is_integer():
+                raise ValueError(
+                    f"{name}={v} must be a positive power of two "
+                    f"(scaling by 2^k is bitwise-exact; anything else "
+                    f"rounds every gradient)")
+        if self.loss_scale_growth_interval < 1:
+            raise ValueError("loss_scale_growth_interval must be >= 1")
+        if self.loss_scale_min > self.loss_scale_init:
+            raise ValueError(
+                f"loss_scale_min={self.loss_scale_min} must not exceed "
+                f"loss_scale_init={self.loss_scale_init}")
         if self.io_retries < 1:
             raise ValueError("io_retries must be >= 1")
         if self.io_retry_delay_s < 0:
@@ -239,6 +286,14 @@ class MPGCNConfig:
         if self.branch_sources is not None:
             return tuple(self.branch_sources)
         return DEFAULT_LINEUPS[self.num_branches]
+
+    @property
+    def resolved_infer_precision(self) -> str:
+        """The rollouts' precision: ``infer_precision``, 'auto' following
+        the training ``dtype`` (the JAX trainer's ``_infer_precision``)."""
+        if self.infer_precision != "auto":
+            return self.infer_precision
+        return "bf16" if self.dtype == "bfloat16" else "f32"
 
     @property
     def support_K(self) -> int:

@@ -41,6 +41,7 @@
 #include <cuda_runtime.h>
 
 #include "bdgcn_gemm.cuh"
+#include "bf16.cuh"
 
 // The P (row chunks of the dW product) that bdgcn_pair_bwd_f32's dW
 // launch runs in about kCoopWaves rounds of its grid (coop_chunks over the
@@ -50,23 +51,25 @@ extern "C" int bdgcn_pair_bwd_max_blocks(int K, int C, int H, int* out) {
   return coop_chunks((long long)K * C, (long long)K * H, out);
 }
 
-// dh1 (K, B, M, N, C) and dW (K, K, C, H), through the partials dw_part
-// (P, K, K, C, H); z is (K, B, M, N, H) scratch. Three launches, the last
-// cooperative: refused (and nothing of it runs) when its grid cannot be
-// resident at once.
-extern "C" int bdgcn_pair_bwd_f32(const void* h1, const void* g,
-                                  const void* w, const void* dout, void* dh1,
-                                  void* z, void* dw_part, void* dw, int K,
-                                  int B, int M, int N, int C, int H, int Bg,
-                                  int P, void* stream) {
-  if (K < 1 || B < 1 || M < 1 || M > 65535 || B > 65535 || N < 1 || C < 1 ||
-      H < 1 || (Bg != 1 && Bg != B) || P < 1 || P > 65535 ||
-      (long long)B * M * N > 0x7fffffffLL ||
-      (long long)K * C > 0x7fffffffLL || (long long)K * H > 0x7fffffffLL ||
-      (long long)K * N > 0x7fffffffLL ||
-      (long long)K * K * C * H > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+namespace {
+
+bool bwd_dims_ok(int K, int B, int M, int N, int C, int H, int Bg, int P) {
+  return !(K < 1 || B < 1 || M < 1 || M > 65535 || B > 65535 || N < 1 ||
+           C < 1 || H < 1 || (Bg != 1 && Bg != B) || P < 1 || P > 65535 ||
+           (long long)B * M * N > 0x7fffffffLL ||
+           (long long)K * C > 0x7fffffffLL ||
+           (long long)K * H > 0x7fffffffLL ||
+           (long long)K * N > 0x7fffffffLL ||
+           (long long)K * K * C * H > 0x7fffffffLL);
+}
+
+// The three products on f32 operands; round_z: Z is rounded to bf16 (kept
+// in its f32 scratch) before products 2 and 3 read it, as the bf16 entry
+// stores it.
+cudaError_t pair_bwd(const void* h1, const void* g, const void* w,
+                     const void* dout, void* dh1, void* z, void* dw_part,
+                     void* dw, int K, int B, int M, int N, int C, int H,
+                     int Bg, int P, bool round_z, cudaStream_t s) {
   const long long R = (long long)B * M * N;
   const long long NN = (long long)N * N;
 
@@ -89,6 +92,9 @@ extern "C" int bdgcn_pair_bwd_f32(const void* h1, const void* g,
   p1.n = H;
   p1.k = N;
   cudaError_t err = launch_gemm<false, false>(p1, s);
+  if (err == cudaSuccess && round_z)
+    err = round_bf16(static_cast<float*>(z), static_cast<float*>(z),
+                     K * R * H, s);
   if (err != cudaSuccess) return err;
 
   // 2. dh1[o, r, l] = sum_{d, h} Z[d, r, h] Wr[o, d, l, h]
@@ -131,4 +137,76 @@ extern "C" int bdgcn_pair_bwd_f32(const void* h1, const void* g,
   // chunks of whole 16-byte runs of rows
   p3.k_chunk = (int)((R + P - 1) / P + 3) / 4 * 4;
   return launch_wgmma_coop(p3, static_cast<float*>(dw), K * K * C * H, s);
+}
+
+// The bf16 entry's f32 scratch (floats, each part from a multiple of 64):
+// h1, G, Wr and dout widened, Z, and dh1 before its rounding.
+struct BwdScratch {
+  long long h1, g, w, dout, z, dh1, total;
+  BwdScratch(int K, int B, int M, int N, int C, int H, int Bg) {
+    const long long R = (long long)B * M * N;
+    auto pad = [](long long n) { return (n + 63) / 64 * 64; };
+    h1 = 0;
+    g = h1 + pad(K * R * C);
+    w = g + pad((long long)Bg * K * N * N);
+    dout = w + pad((long long)K * K * C * H);
+    z = dout + pad(R * H);
+    dh1 = z + pad(K * R * H);
+    total = dh1 + K * R * C;
+  }
+};
+
+}  // namespace
+
+// dh1 (K, B, M, N, C) and dW (K, K, C, H), through the partials dw_part
+// (P, K, K, C, H); z is (K, B, M, N, H) scratch. Three launches, the last
+// cooperative: refused (and nothing of it runs) when its grid cannot be
+// resident at once.
+extern "C" int bdgcn_pair_bwd_f32(const void* h1, const void* g,
+                                  const void* w, const void* dout, void* dh1,
+                                  void* z, void* dw_part, void* dw, int K,
+                                  int B, int M, int N, int C, int H, int Bg,
+                                  int P, void* stream) {
+  if (!bwd_dims_ok(K, B, M, N, C, H, Bg, P)) return cudaErrorInvalidValue;
+  return pair_bwd(h1, g, w, dout, dh1, z, dw_part, dw, K, B, M, N, C, H, Bg,
+                  P, false, static_cast<cudaStream_t>(stream));
+}
+
+// The same backward on bf16 storage (h1, Gk, Wr, dout and dh1 in bf16; dW
+// and its partials f32, summed in f32 as the JAX kernel sums them): the
+// four operands widened into f32 scratch (4 launches), Z rounded to bf16
+// after product 1, dh1 rounded at the end (2 launches), the dW launch
+// cooperative as above. The scratch (in place of z) takes
+// bdgcn_pair_bwd_bf16_scratch_k x 1024 floats.
+extern "C" int bdgcn_pair_bwd_bf16(const void* h1, const void* g,
+                                   const void* w, const void* dout,
+                                   void* dh1, void* scratch, void* dw_part,
+                                   void* dw, int K, int B, int M, int N,
+                                   int C, int H, int Bg, int P,
+                                   void* stream) {
+  if (!bwd_dims_ok(K, B, M, N, C, H, Bg, P) || scratch == nullptr)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BwdScratch sc(K, B, M, N, C, H, Bg);
+  float* f = static_cast<float*>(scratch);
+  const long long R = (long long)B * M * N;
+  cudaError_t err = widen_bf16(h1, f + sc.h1, K * R * C, s);
+  if (err == cudaSuccess)
+    err = widen_bf16(g, f + sc.g, (long long)Bg * K * N * N, s);
+  if (err == cudaSuccess)
+    err = widen_bf16(w, f + sc.w, (long long)K * K * C * H, s);
+  if (err == cudaSuccess) err = widen_bf16(dout, f + sc.dout, R * H, s);
+  if (err == cudaSuccess)
+    err = pair_bwd(f + sc.h1, f + sc.g, f + sc.w, f + sc.dout, f + sc.dh1,
+                   f + sc.z, dw_part, dw, K, B, M, N, C, H, Bg, P, true, s);
+  if (err == cudaSuccess)
+    err = round_bf16(f + sc.dh1, static_cast<bf16*>(dh1), K * R * C, s);
+  return err;
+}
+
+extern "C" int bdgcn_pair_bwd_bf16_scratch_k(int K, int B, int M, int N,
+                                             int C, int H, int Bg, int* out) {
+  if (!bwd_dims_ok(K, B, M, N, C, H, Bg, 1)) return cudaErrorInvalidValue;
+  *out = (int)((BwdScratch(K, B, M, N, C, H, Bg).total + 1023) / 1024);
+  return cudaSuccess;
 }

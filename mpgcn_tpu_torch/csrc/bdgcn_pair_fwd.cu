@@ -41,16 +41,23 @@
 #include <cuda_runtime.h>
 
 #include "bdgcn_gemm.cuh"
+#include "bf16.cuh"
 
-extern "C" int bdgcn_pair_fwd_f32(const void* h1, const void* g,
-                                  const void* w, void* out, void* u, int K,
-                                  int B, int M, int N, int C, int H, int Bg,
-                                  void* stream) {
-  if (K < 1 || B < 1 || M < 1 || M > 65535 || B > 65535 || N < 1 || C < 1 ||
-      H < 1 || (Bg != 1 && Bg != B) || (long long)K * C > 0x7fffffffLL ||
-      (long long)K * H > 0x7fffffffLL || (long long)K * N > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+namespace {
+
+bool fwd_dims_ok(int K, int B, int M, int N, int C, int H, int Bg) {
+  return !(K < 1 || B < 1 || M < 1 || M > 65535 || B > 65535 || N < 1 ||
+           C < 1 || H < 1 || (Bg != 1 && Bg != B) ||
+           (long long)K * C > 0x7fffffffLL ||
+           (long long)K * H > 0x7fffffffLL ||
+           (long long)K * N > 0x7fffffffLL);
+}
+
+// The two products on f32 operands; round_u: U is rounded to bf16 (kept
+// in its f32 scratch) between them, as the bf16 entry stores it.
+cudaError_t pair_fwd(const void* h1, const void* g, const void* w, void* out,
+                     void* u, int K, int B, int M, int N, int C, int H,
+                     int Bg, bool round_u, cudaStream_t s) {
   const long long R = (long long)B * M * N;
   const long long NN = (long long)N * N;
 
@@ -71,6 +78,9 @@ extern "C" int bdgcn_pair_fwd_f32(const void* h1, const void* g,
   p1.n = K * H;
   p1.k = K * C;
   cudaError_t err = launch_wgmma<false, false>(p1, s);
+  if (err == cudaSuccess && round_u)
+    err = round_bf16(static_cast<float*>(u), static_cast<float*>(u),
+                     K * R * H, s);
   if (err != cudaSuccess) return err;
 
   // 2. out[b, m, e, h] = sum_{d, c} G[bg, d, c, e] U[d, (b, m, c), h], one
@@ -92,4 +102,66 @@ extern "C" int bdgcn_pair_fwd_f32(const void* h1, const void* g,
   p2.n = H;
   p2.k = K * N;
   return launch_gemm<true, false>(p2, s);
+}
+
+// The bf16 entry's f32 scratch (floats, each part from a multiple of 64):
+// h1, G and Wr widened, U, and out before its rounding.
+struct FwdScratch {
+  long long h1, g, w, u, out, total;
+  FwdScratch(int K, int B, int M, int N, int C, int H, int Bg) {
+    const long long R = (long long)B * M * N;
+    auto pad = [](long long n) { return (n + 63) / 64 * 64; };
+    h1 = 0;
+    g = h1 + pad(K * R * C);
+    w = g + pad((long long)Bg * K * N * N);
+    u = w + pad((long long)K * K * C * H);
+    out = u + pad(K * R * H);
+    total = out + R * H;
+  }
+};
+
+}  // namespace
+
+extern "C" int bdgcn_pair_fwd_f32(const void* h1, const void* g,
+                                  const void* w, void* out, void* u, int K,
+                                  int B, int M, int N, int C, int H, int Bg,
+                                  void* stream) {
+  if (!fwd_dims_ok(K, B, M, N, C, H, Bg)) return cudaErrorInvalidValue;
+  return pair_fwd(h1, g, w, out, u, K, B, M, N, C, H, Bg, false,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// The same projection on bf16 storage (h1, Gk, Wr and out in bf16; the
+// JAX kernel in its bf16 dtype): h1, Gk and Wr widened into f32 scratch
+// (3 launches), the two products in f32 as above, U rounded to bf16
+// between them and out rounded at the end (2 launches). The scratch
+// takes bdgcn_pair_fwd_bf16_scratch_k x 1024 floats.
+extern "C" int bdgcn_pair_fwd_bf16(const void* h1, const void* g,
+                                   const void* w, void* out, void* scratch,
+                                   int K, int B, int M, int N, int C, int H,
+                                   int Bg, void* stream) {
+  if (!fwd_dims_ok(K, B, M, N, C, H, Bg) || scratch == nullptr)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const FwdScratch sc(K, B, M, N, C, H, Bg);
+  float* f = static_cast<float*>(scratch);
+  const long long R = (long long)B * M * N;
+  cudaError_t err = widen_bf16(h1, f + sc.h1, K * R * C, s);
+  if (err == cudaSuccess)
+    err = widen_bf16(g, f + sc.g, (long long)Bg * K * N * N, s);
+  if (err == cudaSuccess)
+    err = widen_bf16(w, f + sc.w, (long long)K * K * C * H, s);
+  if (err == cudaSuccess)
+    err = pair_fwd(f + sc.h1, f + sc.g, f + sc.w, f + sc.out, f + sc.u, K,
+                   B, M, N, C, H, Bg, true, s);
+  if (err == cudaSuccess)
+    err = round_bf16(f + sc.out, static_cast<bf16*>(out), R * H, s);
+  return err;
+}
+
+extern "C" int bdgcn_pair_fwd_bf16_scratch_k(int K, int B, int M, int N,
+                                             int C, int H, int Bg, int* out) {
+  if (!fwd_dims_ok(K, B, M, N, C, H, Bg)) return cudaErrorInvalidValue;
+  *out = (int)((FwdScratch(K, B, M, N, C, H, Bg).total + 1023) / 1024);
+  return cudaSuccess;
 }

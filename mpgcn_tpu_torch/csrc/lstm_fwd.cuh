@@ -15,6 +15,11 @@
 //     b); for F > 1 the products are summed in f order, then b added.
 // Outputs by mode (lstm_wide.cuh's LstmFwdMode): kFwdLast h_T (R, H);
 // kFwdCollect every h_t (T, R, H); kFwdTrain every h_t and c_t (T, R, H).
+// Every tensor is of one storage type S, float or bf16 (the _bf16
+// entries; bf16.cuh): bf16 loads are widened to f32, the carry, gates
+// and sums stay f32, h is rounded to S before it enters the next step's
+// products (the JAX _cell_step's h.astype(dtype)) and every store is
+// rounded; the fused form's gate input is rounded as a bf16 x_proj is.
 //
 // What bounds it on the H100: at the N = 500 step's shape (R = 500,000
 // OD-pair sequences, T = 7, H = 32) the recurrent products are 2 T R H 4H
@@ -61,6 +66,7 @@
 
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
 #include "lstm_wide.cuh"
 #include "smem.cuh"
 
@@ -100,14 +106,15 @@ inline size_t fwd_smem_bytes(int H) {
          sizeof(float);
 }
 
-// Resident forward. kF = 0 reads x_proj; kF = F >= 1 the fused form.
-template <int kMode, int kF>
+// Resident forward. kF = 0 reads x_proj; kF = F >= 1 the fused form. S:
+// the storage type of every tensor it reads and writes (bf16.cuh); h is
+// rounded to S before it enters the next step's products.
+template <int kMode, int kF, class S>
 __global__ void __launch_bounds__(kThreadsTarget, kFwdMinBlocks)
-    lstm_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ x,
-                    const float* __restrict__ wih,
-                    const float* __restrict__ bias,
-                    const float* __restrict__ whhT, float* __restrict__ out0,
-                    float* __restrict__ out1, int T, int R, int H) {
+    lstm_fwd_kernel(const S* __restrict__ xp, const S* __restrict__ x,
+                    const S* __restrict__ wih, const S* __restrict__ bias,
+                    const S* __restrict__ whhT, S* __restrict__ out0,
+                    S* __restrict__ out1, int T, int R, int H) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int G = 4 * H;
@@ -121,7 +128,7 @@ __global__ void __launch_bounds__(kThreadsTarget, kFwdMinBlocks)
   const int nthreads = blockDim.x * blockDim.y;
   for (int i = tid; i < H * G; i += nthreads) {
     const int k = i / G;
-    w[(i - k * G) * ws + k] = whhT[i];
+    w[(i - k * G) * ws + k] = ldf(whhT + i);
   }
   for (int i = tid; i < 2 * tile_rows * hs; i += nthreads) hbuf[i] = 0.0f;
 
@@ -131,15 +138,17 @@ __global__ void __launch_bounds__(kThreadsTarget, kFwdMinBlocks)
   if constexpr (kF > 0) {
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
-      bi[g] = bias[g * H + j];
+      bi[g] = ldf(bias + g * H + j);
 #pragma unroll
-      for (int f = 0; f < kF; ++f) wi[g][f] = wih[(g * H + j) * kF + f];
+      for (int f = 0; f < kF; ++f) wi[g][f] = ldf(wih + (g * H + j) * kF + f);
     }
   }
   const int lr0 = threadIdx.y * kFwdRows;         // first local row
   const int row0 = blockIdx.x * tile_rows + lr0;  // first global row
   float c[kFwdRows];
-  float in_next[kFwdRows][kIn];
+  // the next step's inputs as loaded, in S: a bf16 value is widened only
+  // where the step uses it, so the load's latency overlaps the products
+  S in_next[kFwdRows][kIn];
   auto load_in = [&](int t) {
 #pragma unroll
     for (int q = 0; q < kFwdRows; ++q) {
@@ -147,7 +156,7 @@ __global__ void __launch_bounds__(kThreadsTarget, kFwdMinBlocks)
 #pragma unroll
       for (int v = 0; v < kIn; ++v) {
         if (r >= R)
-          in_next[q][v] = 0.0f;
+          in_next[q][v] = static_cast<S>(0.0f);
         else if constexpr (kF == 0)
           in_next[q][v] = xp[((size_t)t * R + r) * G + v * H + j];
         else
@@ -164,14 +173,18 @@ __global__ void __launch_bounds__(kThreadsTarget, kFwdMinBlocks)
   for (int t = 0; t < T; ++t) {
     float acc[kFwdRows][4];
 #pragma unroll
-    for (int q = 0; q < kFwdRows; ++q)
+    for (int q = 0; q < kFwdRows; ++q) {
+      float in[kIn];
+#pragma unroll
+      for (int v = 0; v < kIn; ++v) in[v] = tof(in_next[q][v]);
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
         if constexpr (kF == 0)
-          acc[q][g] = in_next[q][g];
+          acc[q][g] = in[g];
         else
-          acc[q][g] = proj_in(in_next[q], wi[g], bi[g], kF);
+          acc[q][g] = proj_in_s<S>(in, wi[g], bi[g], kF);
       }
+    }
     if (t + 1 < T) load_in(t + 1);
     const float* hcur = hbuf + (t & 1) * tile_rows * hs + lr0 * hs;
     float* hnxt = hbuf + ((t + 1) & 1) * tile_rows * hs + lr0 * hs;
@@ -214,15 +227,15 @@ __global__ void __launch_bounds__(kThreadsTarget, kFwdMinBlocks)
       const float og = sigmoidf(acc[q][3]);
       c[q] = cell_c(fg, c[q], ig, gg);
       const float h = __fmul_rn(og, tanhf(c[q]));
-      hnxt[q * hs + j] = h;
+      hnxt[q * hs + j] = round_to<S>(h);
       const int r = row0 + q;
       if (r < R) {
         const size_t o = ((size_t)t * R + r) * H + j;
         if constexpr (kMode == kFwdLast) {
-          if (t == T - 1) out0[(size_t)r * H + j] = h;
+          if (t == T - 1) stf(out0 + (size_t)r * H + j, h);
         } else {
-          out0[o] = h;
-          if constexpr (kMode == kFwdTrain) out1[o] = c[q];
+          stf(out0 + o, h);
+          if constexpr (kMode == kFwdTrain) stf(out1 + o, c[q]);
         }
       }
     }
@@ -230,13 +243,12 @@ __global__ void __launch_bounds__(kThreadsTarget, kFwdMinBlocks)
   }
 }
 
-template <int kMode, int kF>
-cudaError_t launch_fwd_resident(const float* xp, const float* x,
-                                const float* wih, const float* b,
-                                const float* whhT, float* out0, float* out1,
+template <int kMode, int kF, class S>
+cudaError_t launch_fwd_resident(const S* xp, const S* x, const S* wih,
+                                const S* b, const S* whhT, S* out0, S* out1,
                                 int T, int R, int H, size_t smem,
                                 cudaStream_t stream) {
-  auto kernel = lstm_fwd_kernel<kMode, kF>;
+  auto kernel = lstm_fwd_kernel<kMode, kF, S>;
   cudaError_t err = allow_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
   const int rows_y = rows_y_for(H);
@@ -259,8 +271,9 @@ inline cudaError_t fwd_on_wide(int H, bool* wide) {
 // One forward entry: x_proj when xp is not null, else the fused form from
 // x, w_ih, b with F features (inference modes only, 1 <= F <= kFusedMaxF).
 // The resident kernel where its shared memory fits a block, else the wide
-// kernel, whose inference modes take scratch scr (lstm_wide.cuh).
-template <int kMode>
+// kernel, whose inference modes, and whose training mode in bf16, take
+// scratch scr (lstm_wide.cuh). S: the storage type of every tensor.
+template <int kMode, class S = float>
 int launch_fwd(const void* xp, const void* x, const void* wih, const void* b,
                int F, const void* whhT, void* out0, void* out1, void* scr,
                int T, int R, int H, void* stream_) {
@@ -270,40 +283,40 @@ int launch_fwd(const void* xp, const void* x, const void* wih, const void* b,
                 b == nullptr || F < 1 || F > kFusedMaxF))
     return cudaErrorInvalidValue;
   const auto stream = static_cast<cudaStream_t>(stream_);
-  const auto* xp_ = static_cast<const float*>(xp);
-  const auto* x_ = static_cast<const float*>(x);
-  const auto* w_ = static_cast<const float*>(wih);
-  const auto* b_ = static_cast<const float*>(b);
-  const auto* u_ = static_cast<const float*>(whhT);
-  auto* o0 = static_cast<float*>(out0);
-  auto* o1 = static_cast<float*>(out1);
+  const auto* xp_ = static_cast<const S*>(xp);
+  const auto* x_ = static_cast<const S*>(x);
+  const auto* w_ = static_cast<const S*>(wih);
+  const auto* b_ = static_cast<const S*>(b);
+  const auto* u_ = static_cast<const S*>(whhT);
+  auto* o0 = static_cast<S*>(out0);
+  auto* o1 = static_cast<S*>(out1);
   auto* s_ = static_cast<float*>(scr);
   const size_t smem = fwd_smem_bytes(H);
   bool wide = false;
   cudaError_t err = fwd_on_wide(H, &wide);
   if (err != cudaSuccess) return err;
   if (wide)
-    return launch_fwd_wide<kMode>(xp_, x_, w_, b_, fused ? F : 0, u_, o0, o1,
+    return launch_fwd_wide<kMode, S>(xp_, x_, w_, b_, fused ? F : 0, u_, o0, o1,
                                   s_, T, R, H, stream);
   if constexpr (kMode != kFwdTrain) {
     switch (fused ? F : 0) {
       case 1:
-        return launch_fwd_resident<kMode, 1>(xp_, x_, w_, b_, u_, o0, o1, T,
+        return launch_fwd_resident<kMode, 1, S>(xp_, x_, w_, b_, u_, o0, o1, T,
                                              R, H, smem, stream);
       case 2:
-        return launch_fwd_resident<kMode, 2>(xp_, x_, w_, b_, u_, o0, o1, T,
+        return launch_fwd_resident<kMode, 2, S>(xp_, x_, w_, b_, u_, o0, o1, T,
                                              R, H, smem, stream);
       case 3:
-        return launch_fwd_resident<kMode, 3>(xp_, x_, w_, b_, u_, o0, o1, T,
+        return launch_fwd_resident<kMode, 3, S>(xp_, x_, w_, b_, u_, o0, o1, T,
                                              R, H, smem, stream);
       case 4:
-        return launch_fwd_resident<kMode, 4>(xp_, x_, w_, b_, u_, o0, o1, T,
+        return launch_fwd_resident<kMode, 4, S>(xp_, x_, w_, b_, u_, o0, o1, T,
                                              R, H, smem, stream);
       default:
         break;
     }
   }
-  return launch_fwd_resident<kMode, 0>(xp_, x_, w_, b_, u_, o0, o1, T, R, H,
+  return launch_fwd_resident<kMode, 0, S>(xp_, x_, w_, b_, u_, o0, o1, T, R, H,
                                        smem, stream);
 }
 

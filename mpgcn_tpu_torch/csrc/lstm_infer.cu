@@ -53,6 +53,29 @@ extern "C" int lstm_infer_collect_f32(const void* xp, const void* whhT,
                                  scratch, T, R, H, stream);
 }
 
+// The same two entries on bf16 storage (x_proj or x, w_ih, b, w_hh_T and
+// out in bf16; the JAX kernels in their bf16 dtype): the carries, gates
+// and sums in f32, h rounded to bf16 before each recurrent product and
+// out rounded to bf16; the fused form rounds each gate input as a bf16
+// projection stores x_proj. The wide kernel's scratch stays f32.
+extern "C" int lstm_infer_last_bf16(const void* xp, const void* whhT,
+                                    void* out, const void* x,
+                                    const void* w_ih, const void* b,
+                                    void* scratch, int T, int R, int H,
+                                    int F, void* stream) {
+  return launch_fwd<kFwdLast, bf16>(xp, x, w_ih, b, F, whhT, out, nullptr,
+                                    scratch, T, R, H, stream);
+}
+
+extern "C" int lstm_infer_collect_bf16(const void* xp, const void* whhT,
+                                       void* out, const void* x,
+                                       const void* w_ih, const void* b,
+                                       void* scratch, int T, int R, int H,
+                                       int F, void* stream) {
+  return launch_fwd<kFwdCollect, bf16>(xp, x, w_ih, b, F, whhT, out, nullptr,
+                                       scratch, T, R, H, stream);
+}
+
 extern "C" int lstm_fwd_wide(int H, int* out) {
   if (H < 1) return cudaErrorInvalidValue;
   bool wide = false;

@@ -15,6 +15,15 @@
 //   lstm_train_bwd_max_blocks   the P it takes on the current device
 //   lstm_train_bwd_engine       1 where it runs the engine path
 //   lstm_train_bwd_smem         a resident block's shared memory
+//   lstm_train_fwd_bf16, lstm_train_bwd_bf16 (and _max_blocks_bf16,
+//   _bf16_scratch_k): the same on bf16 storage (the JAX kernels in their
+//   bf16 dtype): bf16 x_proj, w_hh_T, hs, cs, cotangents and dx_proj;
+//   carries, gates and sums in f32, h rounded to bf16 before each
+//   recurrent product, dW summed in f32 (the caller casts it). The
+//   kernels below take the storage type as a template parameter (bf16
+//   loads widened on their way into registers and shared memory, stores
+//   rounded); the engine path widens hs and w_hh^T into f32 scratch for
+//   its products (bf16.cuh).
 //
 //   gates = x_proj_t + h_{t-1} @ w_hh_T, torch order i, f, g, o;
 //   c_t = f * c_{t-1} + i * g;  h_t = o * tanh(c_t).
@@ -111,6 +120,7 @@
 #include <cuda_runtime.h>
 
 #include "bdgcn_gemm.cuh"
+#include "bf16.cuh"
 #include "dw_sum.cuh"
 #include "lstm_fwd.cuh"
 #include "lstm_wide.cuh"
@@ -127,14 +137,20 @@ __host__ __device__ inline int bwd_w_stride(int H) { return 4 * (H | 1); }
 __host__ __device__ inline int bwd_h_stride(int H) { return (H + 3) / 4 * 4; }
 
 // db: two h buffers (h_{t-2} staged while step t runs), where they fit;
-// vec: hs rows are whole, 16-byte aligned runs of 4 (16-byte copies).
-// Two blocks an SM at the reference width: at most 128 registers.
+// vec: hs rows are whole, 16-byte aligned runs of 4 (16-byte copies; f32
+// only). Two blocks an SM at the reference width: at most 128 registers.
+// S: the storage type of x_proj, w_hh_T, hs, cs, dhs, dcs and dx_proj
+// (bf16.cuh): bf16 values are widened on their way into registers and
+// shared memory (hs by plain loads, not cp.async), dx_proj is stored
+// rounded; the dgates the products read, the carries and dW stay f32.
+template <class S>
 __global__ void __launch_bounds__(256, 2) lstm_train_bwd_kernel(
-    const float* __restrict__ xp, const float* __restrict__ whhT,
-    const float* __restrict__ hs, const float* __restrict__ cs,
-    const float* __restrict__ dhs, const float* __restrict__ dcs,
-    float* __restrict__ dxp, float* __restrict__ dw_part,
+    const S* __restrict__ xp, const S* __restrict__ whhT,
+    const S* __restrict__ hs, const S* __restrict__ cs,
+    const S* __restrict__ dhs, const S* __restrict__ dcs,
+    S* __restrict__ dxp, float* __restrict__ dw_part,
     float* __restrict__ dw_out, int T, int R, int H, int db, int vec) {
+  constexpr bool kF32 = !kIsBf16<S>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int G = 4 * H;
@@ -151,7 +167,7 @@ __global__ void __launch_bounds__(256, 2) lstm_train_bwd_kernel(
   const int nthreads = blockDim.x * blockDim.y;
   for (int i = tid; i < H * G; i += nthreads) {
     const int k = i / G;
-    w[k * ws + i - k * G] = whhT[i];
+    w[k * ws + i - k * G] = ldf(whhT + i);
     dw[i] = 0.0f;
   }
   for (int i = tid; i < nbuf * tile_rows * hps; i += nthreads) hp[i] = 0.0f;
@@ -178,20 +194,26 @@ __global__ void __launch_bounds__(256, 2) lstm_train_bwd_kernel(
   // copy h_tp of the tile's rows into dst with cp.async (zeros for tp < 0
   // and rows past R; the pad columns stay zero), one commit group
   auto stage_h = [&](float* dst, int tile0, int tp) {
-    if (vec) {
+    if (kF32 && vec) {
       const int cpr = H / 4;
       for (int q = tid; q < tile_rows * cpr; q += nthreads) {
         const int rl = q / cpr, k = (q - rl * cpr) * 4, r = tile0 + rl;
         const bool ok = tp >= 0 && r < R;
         cp_async16(dst + rl * hps + k,
-                   ok ? hs + ((size_t)tp * R + r) * H + k : hs, ok ? 16 : 0);
+                   reinterpret_cast<const float*>(
+                       ok ? hs + ((size_t)tp * R + r) * H + k : hs),
+                   ok ? 16 : 0);
       }
     } else {
       for (int q = tid; q < tile_rows * H; q += nthreads) {
         const int rl = q / H, k = q - rl * H, r = tile0 + rl;
         const bool ok = tp >= 0 && r < R;
-        cp_async4(dst + rl * hps + k,
-                  ok ? hs + ((size_t)tp * R + r) * H + k : hs, ok ? 4 : 0);
+        if constexpr (kF32)
+          cp_async4(dst + rl * hps + k,
+                    ok ? hs + ((size_t)tp * R + r) * H + k : hs, ok ? 4 : 0);
+        else  // widened on its way in; seen after the next barrier
+          dst[rl * hps + k] = ok ? ldf(hs + ((size_t)tp * R + r) * H + k)
+                                 : 0.0f;
       }
     }
     cp_async_commit();
@@ -205,7 +227,7 @@ __global__ void __launch_bounds__(256, 2) lstm_train_bwd_kernel(
     for (int q = 0; q < kRowsPerThread; ++q) {
       dh_c[q] = dc_c[q] = 0.0f;
       const int r = row0 + q;
-      ct_c[q] = r < R ? cs[((size_t)(T - 1) * R + r) * H + j] : 0.0f;
+      ct_c[q] = r < R ? ldf(cs + ((size_t)(T - 1) * R + r) * H + j) : 0.0f;
     }
     __syncthreads();  // the last tile's readers of hp and dg are done
     stage_h(hb[(T - 1) & 1], tile0, T - 2);
@@ -234,10 +256,10 @@ __global__ void __launch_bounds__(256, 2) lstm_train_bwd_kernel(
 #pragma unroll
       for (int q = 0; q < kRowsPerThread; ++q) {
         const int r = row0 + q;
-        const float* xr = xp + ((size_t)t * R + r) * G;
+        const S* xr = xp + ((size_t)t * R + r) * G;
 #pragma unroll
         for (int g = 0; g < 4; ++g)
-          acc[q][g] = r < R ? xr[g * H + j] : 0.0f;
+          acc[q][g] = r < R ? ldf(xr + g * H + j) : 0.0f;
       }
       for (int k4 = 0; k4 < H4; k4 += 4) {
         float4 hq[kRowsPerThread];
@@ -285,10 +307,10 @@ __global__ void __launch_bounds__(256, 2) lstm_train_bwd_kernel(
         const float gg = tanhf(acc[q][2]);
         const float og = sigmoidf(acc[q][3]);
         const float ct = ct_c[q];  // c_t, read as c_{t-1} one step later
-        const float cp = (valid && t > 0) ? cs[o - (size_t)R * H] : 0.0f;
+        const float cp = (valid && t > 0) ? ldf(cs + o - (size_t)R * H) : 0.0f;
         ct_c[q] = cp;
-        const float dh = dh_c[q] + ((valid && dhs) ? dhs[o] : 0.0f);
-        const float dc = dc_c[q] + ((valid && dcs) ? dcs[o] : 0.0f);
+        const float dh = dh_c[q] + ((valid && dhs) ? ldf(dhs + o) : 0.0f);
+        const float dc = dc_c[q] + ((valid && dcs) ? ldf(dcs + o) : 0.0f);
         const float tc = tanhf(ct);
         const float d_o = dh * tc;
         const float dct = dc + dh * og * (1.0f - tc * tc);
@@ -303,7 +325,7 @@ __global__ void __launch_bounds__(256, 2) lstm_train_bwd_kernel(
         for (int g = 0; g < 4; ++g) {
           const float v = valid ? dgate[g] : 0.0f;
           dgr[g * H] = v;
-          if (valid) dxp[((size_t)t * R + r) * G + g * H + j] = v;
+          if (valid) stf(dxp + ((size_t)t * R + r) * G + g * H + j, v);
         }
       }
       __syncthreads();
@@ -389,12 +411,16 @@ __global__ void __launch_bounds__(256, 2) lstm_train_bwd_kernel(
 // null (zero). dw_nan (t = 0 only, else null): dW_hh^T, its sum over
 // t >= 1 written; the plain sum adds h_{-1}^T dgates_0 = 0 x dgates_0,
 // NaN in each column where dgates_0 holds an Inf or NaN, written here.
+// S: the storage type of x_proj, c and the cotangents; in bf16, dxp is an
+// f32 scratch of the products and dgates are also stored rounded in dxo.
+template <class S>
 __global__ void lstm_cell_bwd_kernel(
-    const float* __restrict__ xp, float* __restrict__ dxp, int pre,
-    const float* __restrict__ ct, const float* __restrict__ cp,
-    const float* __restrict__ dhs, const float* __restrict__ dcs,
+    const S* __restrict__ xp, float* __restrict__ dxp, int pre,
+    const S* __restrict__ ct, const S* __restrict__ cp,
+    const S* __restrict__ dhs, const S* __restrict__ dcs,
     const float* __restrict__ dh, float* __restrict__ dc,
-    float* __restrict__ dw_nan, int first, int R, int H) {
+    float* __restrict__ dw_nan, int first, int R, int H,
+    S* __restrict__ dxo) {
   const long long n = (long long)R * H;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -404,15 +430,15 @@ __global__ void lstm_cell_bwd_kernel(
     float a[4];
 #pragma unroll
     for (int g = 0; g < 4; ++g)
-      a[g] = pre ? xp[o + g * H] + dxp[o + g * H] : xp[o + g * H];
+      a[g] = pre ? ldf(xp + o + g * H) + dxp[o + g * H] : ldf(xp + o + g * H);
     const float ig = sigmoidf(a[0]);
     const float fg = sigmoidf(a[1]);
     const float gg = tanhf(a[2]);
     const float og = sigmoidf(a[3]);
-    const float c_t = ct[i];
-    const float c_p = cp ? cp[i] : 0.0f;
-    const float dhv = (first ? 0.0f : dh[i]) + (dhs ? dhs[i] : 0.0f);
-    const float dcv = (first ? 0.0f : dc[i]) + (dcs ? dcs[i] : 0.0f);
+    const float c_t = ldf(ct + i);
+    const float c_p = cp ? ldf(cp + i) : 0.0f;
+    const float dhv = (first ? 0.0f : dh[i]) + (dhs ? ldf(dhs + i) : 0.0f);
+    const float dcv = (first ? 0.0f : dc[i]) + (dcs ? ldf(dcs + i) : 0.0f);
     const float tc = tanhf(c_t);
     const float d_o = dhv * tc;
     const float dct = dcv + dhv * og * (1.0f - tc * tc);
@@ -425,6 +451,7 @@ __global__ void lstm_cell_bwd_kernel(
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
       dxp[o + g * H] = dg[g];
+      if constexpr (kIsBf16<S>) stf(dxo + o + g * H, dg[g]);
       if (dw_nan != nullptr && !isfinite(dg[g])) {
         const int col = g * H + (int)(i - r * H);
         for (int k = 0; k < H; ++k)
@@ -441,6 +468,17 @@ extern "C" int lstm_train_fwd_f32(const void* xp, const void* whhT, void* hs,
                                   void* stream) {
   return launch_fwd<kFwdTrain>(xp, nullptr, nullptr, nullptr, 0, whhT, hs,
                                cs, nullptr, T, R, H, stream);
+}
+
+// The training forward on bf16 storage (x_proj, w_hh_T, hs and cs in
+// bf16): c carried in f32 and stored rounded, h rounded before each
+// recurrent product. The wide kernel (lstm_fwd_wide) carries c in scratch
+// (R, H) f32; the resident kernel takes none (null).
+extern "C" int lstm_train_fwd_bf16(const void* xp, const void* whhT, void* hs,
+                                   void* cs, void* scratch, int T, int R,
+                                   int H, void* stream) {
+  return launch_fwd<kFwdTrain, bf16>(xp, nullptr, nullptr, nullptr, 0, whhT,
+                                     hs, cs, scratch, T, R, H, stream);
 }
 
 namespace {
@@ -464,22 +502,45 @@ cudaError_t bwd_on_engine(int H, bool* engine) {
 
 // Whether the resident BPTT at H takes two h buffers (they fit: every
 // H <= 81 but the widest few) and its shared memory then; lets the kernel
-// launch with it.
+// of storage type S launch with it.
+template <class S>
 cudaError_t resident_bwd_plan(int H, bool* db, size_t* smem) {
   cudaError_t err = smem_fits(bwd_smem_bytes(H, 2), db);
   if (err != cudaSuccess) return err;
   *smem = bwd_smem_bytes(H, *db ? 2 : 1);
-  return allow_smem((const void*)lstm_train_bwd_kernel, *smem);
+  return allow_smem((const void*)lstm_train_bwd_kernel<S>, *smem);
 }
 
 constexpr int kCellThreads = 256;
 
+// The bf16 engine path's f32 scratch, in floats, after the dh and dc
+// carries (2 R H): dgates (T, R, 4H), the widened hs (T, R, H) and w_hh_T
+// (H, 4H), each from a multiple of 64 floats. lstm_train_bwd_bf16 takes
+// bwd_bf16_scratch floats of scratch there.
+inline long long pad64(long long n) { return (n + 63) / 64 * 64; }
+inline long long bwd_bf16_off_dx(int R, int H) {
+  return pad64(2LL * R * H);
+}
+inline long long bwd_bf16_off_hs(int T, int R, int H) {
+  return bwd_bf16_off_dx(R, H) + pad64(4LL * T * R * H);
+}
+inline long long bwd_bf16_off_w(int T, int R, int H) {
+  return bwd_bf16_off_hs(T, R, H) + pad64((long long)T * R * H);
+}
+inline long long bwd_bf16_scratch(int T, int R, int H) {
+  return bwd_bf16_off_w(T, R, H) + 4LL * H * H;
+}
+
 // The engine path of lstm_train_bwd_f32 (the four steps in the header),
-// every launch on stream s.
-cudaError_t bwd_engine(const float* xp, const float* whhT, const float* hs,
-                       const float* cs, const float* dhs, const float* dcs,
-                       float* dxp, float* dw_part, float* dw, float* scratch,
-                       int T, int R, int H, int P, cudaStream_t s) {
+// every launch on stream s. S = bf16 (lstm_train_bwd_bf16): hs and w_hh_T
+// are widened into f32 scratch first (2 launches) and the products run on
+// those and on an f32 dgates scratch; each cell step also stores its
+// dgates rounded into dx_proj.
+template <class S>
+cudaError_t bwd_engine(const S* xp, const S* whhT, const S* hs, const S* cs,
+                       const S* dhs, const S* dcs, S* dxp, float* dw_part,
+                       float* dw, float* scratch, int T, int R, int H, int P,
+                       cudaStream_t s) {
   const int G = 4 * H;
   const long long RG = (long long)R * G, RH = (long long)R * H;
   float* dh = scratch;
@@ -489,14 +550,32 @@ cudaError_t bwd_engine(const float* xp, const float* whhT, const float* hs,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
+  // the products' f32 operands: dgates (and the pre-activations before
+  // them), hs and w_hh_T
+  float* dx;
+  const float *hs_f, *w_f;
+  if constexpr (kIsBf16<S>) {
+    dx = scratch + bwd_bf16_off_dx(R, H);
+    float* h = scratch + bwd_bf16_off_hs(T, R, H);
+    float* w = scratch + bwd_bf16_off_w(T, R, H);
+    err = widen_bf16(hs, h, (long long)T * RH, s);
+    if (err == cudaSuccess) err = widen_bf16(whhT, w, 4LL * H * H, s);
+    if (err != cudaSuccess) return err;
+    hs_f = h;
+    w_f = w;
+  } else {
+    dx = dxp;
+    hs_f = hs;
+    w_f = whhT;
+  }
 
   // 1. pre[t, r, g] = sum_k hs[t-1, r, k] w_hh_T[k, g] for t >= 1, into
   //    dx_proj rows R..TR
   if (T > 1) {
     Gemm p{};
-    p.a = hs;
-    p.b = whhT;
-    p.c = dxp + RG;
+    p.a = hs_f;
+    p.b = w_f;
+    p.c = dx + RG;
     p.ai = flat(H);  // (t-1, r)
     p.ak = flat(1);  // k
     p.bk = flat(G);  // k
@@ -517,8 +596,8 @@ cudaError_t bwd_engine(const float* xp, const float* whhT, const float* hs,
   //    (between the cell steps t = 1 and t = 0, which it does not need);
   //    with one step, no depth: the partials and dW are zeros
   Gemm w{};
-  w.a = hs;
-  w.b = dxp + RG;
+  w.a = hs_f;
+  w.b = dx + RG;
   w.c = dw_part;
   w.ai = flat(1);  // k
   w.ak = flat(H);  // (t-1, r)
@@ -544,7 +623,7 @@ cudaError_t bwd_engine(const float* xp, const float* whhT, const float* hs,
   // 2, 3. the reverse loop: the cell's backward, then dh_{t-1} = dgates_t
   //       W_hh (contracting the 4H axis: w_hh_T read as (k = g, n = j))
   Gemm d{};
-  d.b = whhT;
+  d.b = w_f;
   d.c = dh;
   d.ai = flat(G);  // r
   d.ak = flat(1);  // g
@@ -564,19 +643,80 @@ cudaError_t bwd_engine(const float* xp, const float* whhT, const float* hs,
       err = launch_wgmma_coop(w, dw, H * G, s);
       if (err != cudaSuccess) return err;
     }
-    float* dxp_t = dxp + t * RG;
-    lstm_cell_bwd_kernel<<<cell_blocks, kCellThreads, 0, s>>>(
-        xp + t * RG, dxp_t, t > 0, cs + t * RH,
+    float* dx_t = dx + t * RG;
+    lstm_cell_bwd_kernel<S><<<cell_blocks, kCellThreads, 0, s>>>(
+        xp + t * RG, dx_t, t > 0, cs + t * RH,
         t > 0 ? cs + (t - 1) * RH : nullptr, dhs ? dhs + t * RH : nullptr,
         dcs ? dcs + t * RH : nullptr, dh, dc, t == 0 ? dw : nullptr,
-        t == T - 1, R, H);
+        t == T - 1, R, H, kIsBf16<S> ? dxp + t * RG : nullptr);
     err = cudaGetLastError();
     if (err != cudaSuccess || t == 0) break;
-    d.a = dxp_t;
+    d.a = dx_t;
     err = launch_gemm<false, true>(d, s);
     if (err != cudaSuccess) return err;
   }
   return err;
+}
+
+// The BPTT of storage type S: the engine path where the resident kernel's
+// shared memory does not fit (scratch: 2 R H floats in f32,
+// bwd_bf16_scratch in bf16), else one cooperative launch of the resident
+// kernel (scratch unused).
+template <class S>
+int train_bwd(const void* xp, const void* whhT, const void* hs,
+              const void* cs, const void* dhs, const void* dcs, void* dxp,
+              void* dw_part, void* dw, void* scratch, int T, int R, int H,
+              int P, void* stream) {
+  if (T < 1 || R < 1 || H < 1 || P < 1 ||
+      (long long)T * R > 0x7fffffffLL || 16LL * H * H > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bool engine = false;
+  cudaError_t err = bwd_on_engine(H, &engine);
+  if (err != cudaSuccess) return err;
+  if (engine) {
+    if (scratch == nullptr || P > 65535) return cudaErrorInvalidValue;
+    return bwd_engine<S>(
+        static_cast<const S*>(xp), static_cast<const S*>(whhT),
+        static_cast<const S*>(hs), static_cast<const S*>(cs),
+        static_cast<const S*>(dhs), static_cast<const S*>(dcs),
+        static_cast<S*>(dxp), static_cast<float*>(dw_part),
+        static_cast<float*>(dw), static_cast<float*>(scratch), T, R, H, P,
+        s);
+  }
+  bool two = false;
+  size_t smem = 0;
+  err = resident_bwd_plan<S>(H, &two, &smem);
+  if (err != cudaSuccess) return err;
+  int db = two ? 1 : 0;
+  int vec = !kIsBf16<S> && H % 4 == 0 &&
+            reinterpret_cast<uintptr_t>(hs) % 16 == 0;
+  void* args[] = {&xp, &whhT, &hs, &cs, &dhs, &dcs, &dxp, &dw_part, &dw,
+                  &T, &R, &H, &db, &vec};
+  err = cudaLaunchCooperativeKernel(
+      (const void*)lstm_train_bwd_kernel<S>, dim3(P),
+      dim3(H, rows_y_for(H)), args, smem, s);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves no error behind
+    return err;
+  }
+  return cudaGetLastError();
+}
+
+// lstm_train_bwd_max_blocks for the kernel of storage type S.
+template <class S>
+int bwd_max_blocks(int H, int* out) {
+  if (H < 1) return cudaErrorInvalidValue;
+  bool engine = false;
+  cudaError_t err = bwd_on_engine(H, &engine);
+  if (err != cudaSuccess) return err;
+  if (engine) return coop_chunks(H, 4LL * H, out);
+  bool db = false;
+  size_t smem = 0;
+  err = resident_bwd_plan<S>(H, &db, &smem);
+  if (err != cudaSuccess) return err;
+  return max_coresident((const void*)lstm_train_bwd_kernel<S>,
+                        H * rows_y_for(H), smem, out);
 }
 
 }  // namespace
@@ -596,7 +736,7 @@ extern "C" int lstm_train_bwd_smem(int H, int* out) {
   if (H < 1) return cudaErrorInvalidValue;
   bool db = false;
   size_t smem = 0;
-  cudaError_t err = resident_bwd_plan(H, &db, &smem);
+  cudaError_t err = resident_bwd_plan<float>(H, &db, &smem);
   *out = (int)smem;
   return err;
 }
@@ -606,17 +746,13 @@ extern "C" int lstm_train_bwd_smem(int H, int* out) {
 // is cooperative); on the engine path the depth chunks of the dW product
 // that fill its cooperative grid about twice (coop_chunks), any P running.
 extern "C" int lstm_train_bwd_max_blocks(int H, int* out) {
-  if (H < 1) return cudaErrorInvalidValue;
-  bool engine = false;
-  cudaError_t err = bwd_on_engine(H, &engine);
-  if (err != cudaSuccess) return err;
-  if (engine) return coop_chunks(H, 4LL * H, out);
-  bool db = false;
-  size_t smem = 0;
-  err = resident_bwd_plan(H, &db, &smem);
-  if (err != cudaSuccess) return err;
-  return max_coresident((const void*)lstm_train_bwd_kernel,
-                        H * rows_y_for(H), smem, out);
+  return bwd_max_blocks<float>(H, out);
+}
+
+// The same bound for lstm_train_bwd_bf16 (its resident kernel is another
+// instantiation, with registers of its own).
+extern "C" int lstm_train_bwd_max_blocks_bf16(int H, int* out) {
+  return bwd_max_blocks<bf16>(H, out);
 }
 
 // dx_proj (T, R, 4H) and dW_hh^T (H, 4H) through P partials dw_part
@@ -630,37 +766,29 @@ extern "C" int lstm_train_bwd_f32(const void* xp, const void* whhT,
                                   const void* dhs, const void* dcs, void* dxp,
                                   void* dw_part, void* dw, void* scratch,
                                   int T, int R, int H, int P, void* stream) {
-  if (T < 1 || R < 1 || H < 1 || P < 1 ||
-      (long long)T * R > 0x7fffffffLL || 16LL * H * H > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bool engine = false;
-  cudaError_t err = bwd_on_engine(H, &engine);
-  if (err != cudaSuccess) return err;
-  if (engine) {
-    if (scratch == nullptr || P > 65535) return cudaErrorInvalidValue;
-    return bwd_engine(
-        static_cast<const float*>(xp), static_cast<const float*>(whhT),
-        static_cast<const float*>(hs), static_cast<const float*>(cs),
-        static_cast<const float*>(dhs), static_cast<const float*>(dcs),
-        static_cast<float*>(dxp), static_cast<float*>(dw_part),
-        static_cast<float*>(dw), static_cast<float*>(scratch), T, R, H, P,
-        s);
-  }
-  bool two = false;
-  size_t smem = 0;
-  err = resident_bwd_plan(H, &two, &smem);
-  if (err != cudaSuccess) return err;
-  int db = two ? 1 : 0;
-  int vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(hs) % 16 == 0;
-  void* args[] = {&xp, &whhT, &hs, &cs, &dhs, &dcs, &dxp, &dw_part, &dw,
-                  &T, &R, &H, &db, &vec};
-  err = cudaLaunchCooperativeKernel(
-      (const void*)lstm_train_bwd_kernel, dim3(P), dim3(H, rows_y_for(H)),
-      args, smem, s);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // a refused launch leaves no error behind
-    return err;
-  }
-  return cudaGetLastError();
+  return train_bwd<float>(xp, whhT, hs, cs, dhs, dcs, dxp, dw_part, dw,
+                          scratch, T, R, H, P, stream);
+}
+
+// The BPTT on bf16 storage (x_proj, w_hh_T, hs, cs, dhs, dcs and dx_proj
+// in bf16; dW_hh^T and its partials f32, summed in f32 as the JAX kernel
+// sums them): the gates recomputed from the stored bf16 hs as _cell_bwd
+// does, dh and dc carried in f32, dx_proj rounded. The engine path takes
+// lstm_train_bwd_bf16_scratch floats of scratch and 2T + 3 launches.
+extern "C" int lstm_train_bwd_bf16(const void* xp, const void* whhT,
+                                   const void* hs, const void* cs,
+                                   const void* dhs, const void* dcs,
+                                   void* dxp, void* dw_part, void* dw,
+                                   void* scratch, int T, int R, int H, int P,
+                                   void* stream) {
+  return train_bwd<bf16>(xp, whhT, hs, cs, dhs, dcs, dxp, dw_part, dw,
+                         scratch, T, R, H, P, stream);
+}
+
+// The floats of scratch lstm_train_bwd_bf16 takes on the engine path, in
+// units of 1024 floats (rounded up), so that it fits an int.
+extern "C" int lstm_train_bwd_bf16_scratch_k(int T, int R, int H, int* out) {
+  if (T < 1 || R < 1 || H < 1) return cudaErrorInvalidValue;
+  *out = (int)((bwd_bf16_scratch(T, R, H) + 1023) / 1024);
+  return cudaSuccess;
 }

@@ -69,6 +69,7 @@
 
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
 #include "smem.cuh"
 #include "tf32_mma.cuh"
 
@@ -98,6 +99,38 @@ __device__ __forceinline__ float proj_in(const float* x, const float* w,
   return __fadd_rn(p, b);
 }
 
+// proj_in at storage type S, on x and w read from S: for bf16 the
+// product sum is rounded to bf16 and so is the sum with b, as a bf16
+// projection stores x_proj (a K = F product, then a bias add, each
+// rounded to bf16).
+template <class S>
+__device__ __forceinline__ float proj_in_s(const float* x, const float* w,
+                                           float b, int F) {
+  if constexpr (kIsBf16<S>) {
+    float p = __fmul_rn(x[0], w[0]);
+    for (int f = 1; f < F; ++f) p = __fmaf_rn(x[f], w[f], p);
+    return round_to<S>(__fadd_rn(round_to<S>(p), b));
+  } else {
+    return proj_in(x, w, b, F);
+  }
+}
+
+// proj_in_s on x and w in device memory (stride 1).
+template <class S>
+__device__ __forceinline__ float proj_in_g(const S* x, const S* w, float b,
+                                           int F) {
+  if constexpr (kIsBf16<S>) {
+    float xv[4], wv[4];
+    for (int f = 0; f < F; ++f) {
+      xv[f] = ldf(x + f);
+      wv[f] = ldf(w + f);
+    }
+    return proj_in_s<S>(xv, wv, b, F);
+  } else {
+    return proj_in(x, w, b, F);
+  }
+}
+
 // --- the wide forward --------------------------------------------------------
 
 constexpr int kWideWarps = 8;
@@ -122,12 +155,12 @@ constexpr size_t wide_smem_bytes(int M) {
 // The f32 sum over k < H of h[k] w_hh^T[k][col] in k order, from 0 (h
 // null: h_{-1} = 0): what a gate of a warp whose operands held an Inf or
 // NaN takes instead of its split-TF32 sum. Rare.
-__device__ __noinline__ float plain_gate_sum(const float* h,
-                                             const float* wcol, int H,
+template <class S>
+__device__ __noinline__ float plain_gate_sum(const S* h, const S* wcol, int H,
                                              int G) {
   float s = 0.0f;
   for (int k = 0; k < H; ++k)
-    s = fmaf(h == nullptr ? 0.0f : h[k], wcol[(size_t)k * G], s);
+    s = fmaf(h == nullptr ? 0.0f : ldf(h + k), ldf(wcol + (size_t)k * G), s);
   return s;
 }
 
@@ -136,15 +169,19 @@ __device__ __noinline__ float plain_gate_sum(const float* h,
 // h_t to out0 (T, R, H), c in scr (R, H); kFwdTrain every h_t to out0 and
 // every c_t to out1 (T, R, H), no scratch. kF = 0 reads x_proj; kF >= 1
 // the fused form, x (R, T, kF), w_ih (4H, kF) and b (4H). vec: 16-byte
-// copies and loads (H % 4 == 0, every base 16-byte aligned).
-template <int kMode, int kF, int kMI>
+// copies and loads (H % 4 == 0, every base 16-byte aligned; f32 only).
+// S: the storage type of every tensor but scr (bf16.cuh). In bf16, h_t is
+// stored rounded (and read back so), w_hh^T is widened as it is staged
+// (plain loads, not cp.async), and c is carried in f32: in scr, also in
+// training, which then takes scr (R, H) and stores c_t rounded in out1;
+// for h_T only, scr's second half holds the h buffer as bf16.
+template <int kMode, int kF, int kMI, class S>
 __global__ void __launch_bounds__(kWideThreads, 2)
-    lstm_fwd_wide_kernel(const float* __restrict__ xp,
-                         const float* __restrict__ whhT, float* out0,
-                         float* __restrict__ out1, float* scr, int T, int R,
-                         int H, const float* __restrict__ x,
-                         const float* __restrict__ wih,
-                         const float* __restrict__ b, int vec) {
+    lstm_fwd_wide_kernel(const S* __restrict__ xp, const S* __restrict__ whhT,
+                         S* out0, S* __restrict__ out1, float* scr, int T,
+                         int R, int H, const S* __restrict__ x,
+                         const S* __restrict__ wih, const S* __restrict__ b,
+                         int vec) {
   constexpr int M = 16 * kMI;  // kMI m16 row tiles a warp
   extern __shared__ __align__(16) float wide_smem[];
   float* ring = wide_smem;  // kWideStages x (kWideSlab, kWideBS)
@@ -159,10 +196,12 @@ __global__ void __launch_bounds__(kWideThreads, 2)
   constexpr int ks_win = kWideKW / kWideSlab;  // slabs a window spans
   const bool one_window = n_ks <= ks_win;
   const size_t RH = (size_t)R * H;
+  constexpr bool kF32 = !kIsBf16<S>;  // the 16-byte and 8-byte paths
 
   // where h_t lands (h_{t-1} is read back from there at step t)
-  auto h_at = [&](int t) -> float* {
-    if (kMode == kFwdLast) return ((T - 1 - t) & 1) ? scr + RH : out0;
+  auto h_at = [&](int t) -> S* {
+    if (kMode == kFwdLast)
+      return ((T - 1 - t) & 1) ? reinterpret_cast<S*>(scr + RH) : out0;
     return out0 + t * RH;
   };
 
@@ -173,7 +212,7 @@ __global__ void __launch_bounds__(kWideThreads, 2)
     float* bs = ring + (s % kWideStages) * kWideSlab * kWideBS;
     const int c = s / n_ks, k0 = (s - c * n_ks) * kWideSlab;
     const int u0 = c * kWideUnits;
-    if (vec) {  // 64 runs of 4 columns a row
+    if (kF32 && vec) {  // 64 runs of 4 columns a row
       const int q = tid & 63;
       const int g = (q >> 1) & 3, u = u0 + (q >> 3) * 8 + (q & 1) * 4;
 #pragma unroll
@@ -181,7 +220,9 @@ __global__ void __launch_bounds__(kWideThreads, 2)
         const int kk = (tid >> 6) + (kWideThreads / 64) * j, k = k0 + kk;
         const bool ok = k < H && u < H;
         cp_async16(bs + kk * kWideBS + 4 * q,
-                   ok ? whhT + (size_t)k * G + g * H + u : whhT, ok ? 16 : 0);
+                   reinterpret_cast<const float*>(
+                       ok ? whhT + (size_t)k * G + g * H + u : whhT),
+                   ok ? 16 : 0);
       }
     } else {  // a column a thread
       const int g = (tid >> 3) & 3, u = u0 + (tid >> 5) * 8 + (tid & 7);
@@ -189,8 +230,14 @@ __global__ void __launch_bounds__(kWideThreads, 2)
       for (int kk = 0; kk < kWideSlab; ++kk) {
         const int k = k0 + kk;
         const bool ok = k < H && u < H;
-        cp_async4(bs + kk * kWideBS + tid,
-                  ok ? whhT + (size_t)k * G + g * H + u : whhT, ok ? 4 : 0);
+        if constexpr (kF32)
+          cp_async4(bs + kk * kWideBS + tid,
+                    reinterpret_cast<const float*>(
+                        ok ? whhT + (size_t)k * G + g * H + u : whhT),
+                    ok ? 4 : 0);
+        else  // widened on its way in; seen after the next barrier
+          bs[kk * kWideBS + tid] =
+              ok ? ldf(whhT + (size_t)k * G + g * H + u) : 0.0f;
       }
     }
   };
@@ -200,7 +247,7 @@ __global__ void __launch_bounds__(kWideThreads, 2)
   // (k & ~7) 2 + (k & 3) 4 + ((k >> 2) & 1) 2, so that one 16-byte load
   // gives a lane its A fragment values (k, k + 4) of a row. Zeros past R
   // and H. Returns NaN once a value was Inf or NaN.
-  auto load_window = [&](const float* hp, int kw0) {
+  auto load_window = [&](const S* hp, int kw0) {
     // every load first, then the splits: one trip to L2
     constexpr int kRuns = M * (kWideKW / 4) / kWideThreads;
     float v[kRuns][4];
@@ -209,14 +256,14 @@ __global__ void __launch_bounds__(kWideThreads, 2)
       const int i = tid + j * kWideThreads;
       const int r = i / (kWideKW / 4), kq = (i % (kWideKW / 4)) * 4;
       const int k = kw0 + kq;
-      const float* src = hp + (size_t)(row0 + r) * H + k;
-      if (row0 + r < R && vec && k < H) {
+      const S* src = hp + (size_t)(row0 + r) * H + k;
+      if (kF32 && row0 + r < R && vec && k < H) {
         const float4 f = *reinterpret_cast<const float4*>(src);
         v[j][0] = f.x, v[j][1] = f.y, v[j][2] = f.z, v[j][3] = f.w;
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          v[j][e] = row0 + r < R && k + e < H ? src[e] : 0.0f;
+          v[j][e] = row0 + r < R && k + e < H ? ldf(src + e) : 0.0f;
       }
     }
     float nf = 0.0f;
@@ -240,10 +287,11 @@ __global__ void __launch_bounds__(kWideThreads, 2)
   // a gate input: x_proj, or x . w_ih + b in the fused form
   auto gate_in = [&](int t, int r, int g, int u) -> float {
     if constexpr (kF > 0)
-      return proj_in(x + ((size_t)r * T + t) * kF,
-                     wih + (size_t)(g * H + u) * kF, b[g * H + u], kF);
+      return proj_in_g<S>(x + ((size_t)r * T + t) * kF,
+                          wih + (size_t)(g * H + u) * kF, ldf(b + g * H + u),
+                          kF);
     else
-      return xp[((size_t)t * R + r) * G + g * H + u];
+      return ldf(xp + ((size_t)t * R + r) * G + g * H + u);
   };
 
   // w_bad: w_hh^T holds an Inf or NaN. Then every gate of the block is
@@ -252,7 +300,7 @@ __global__ void __launch_bounds__(kWideThreads, 2)
   {
     float nf = 0.0f;
     const long long n = (long long)H * G;
-    if (vec) {
+    if (kF32 && vec) {
       const float4* w4 = reinterpret_cast<const float4*>(whhT);
 #pragma unroll 8
       for (long long i = tid; i < n / 4; i += kWideThreads) {
@@ -265,20 +313,20 @@ __global__ void __launch_bounds__(kWideThreads, 2)
     } else {
 #pragma unroll 8
       for (long long i = tid; i < n; i += kWideThreads)
-        nf = fold_non_finite(whhT[i], nf);
+        nf = fold_non_finite(ldf(whhT + i), nf);
     }
     w_bad = __syncthreads_or(isnan(nf)) != 0;
   }
 
   // x_proj's gate inputs of units u, u + 1 in one 8-byte load
-  const bool pairs =
-      H % 2 == 0 && (reinterpret_cast<unsigned long long>(xp) & 7) == 0;
+  const bool pairs = kF32 && H % 2 == 0 &&
+                     (reinterpret_cast<unsigned long long>(xp) & 7) == 0;
   float acc[kMI][4][4];
   for (int t = 0; t < T; ++t) {
     // step t-1's h and c stores are done, every warp is past the ring's
     // and the window's last reads
     __syncthreads();
-    const float* hp = t > 0 ? h_at(t - 1) : nullptr;
+    const S* hp = t > 0 ? h_at(t - 1) : nullptr;
     // h_{-1} = 0: no product at t = 0
     const int n_prod = t > 0 ? n_slabs : 0;
     for (int s = 0; s < kWideStages - 1; ++s) {
@@ -386,10 +434,14 @@ __global__ void __launch_bounds__(kWideThreads, 2)
                                  whhT + g * H + u, H, G));
           }
       }
-      float* hn = h_at(t);
-      float* c_out = kMode == kFwdTrain ? out1 + t * RH : scr;
+      S* hn = h_at(t);
+      // c is carried in cs in f32 training, else in scr
+      constexpr bool kCarryCs = kMode == kFwdTrain && kF32;
+      float* c_out =
+          kCarryCs ? reinterpret_cast<float*>(out1) + t * RH : scr;
       const float* c_in =
-          kMode == kFwdTrain ? out1 + (t > 0 ? t - 1 : 0) * RH : scr;
+          kCarryCs ? reinterpret_cast<float*>(out1) + (t > 0 ? t - 1 : 0) * RH
+                   : scr;
       float cp[kMI][4];  // c_{t-1}, every load before the first store
 #pragma unroll
       for (int i = 0; i < kMI; ++i)
@@ -413,20 +465,20 @@ __global__ void __launch_bounds__(kWideThreads, 2)
           const float cn = cell_c(fg, cp[i][v], ig, gg);
           const float h = __fmul_rn(og, tanhf(cn));
           const size_t o = (size_t)r * H + u;
-          hn[o] = h;
+          stf(hn + o, h);
           c_out[o] = cn;
+          if constexpr (kMode == kFwdTrain && !kF32) stf(out1 + t * RH + o, cn);
         }
     }
   }
 }
 
-template <int kMode, int kF, int kMI>
-cudaError_t launch_wide_mi(const float* xp, const float* x, const float* wih,
-                           const float* b, const float* whhT, float* out0,
-                           float* out1, float* scr, int T, int R, int H,
-                           int vec, cudaStream_t stream) {
+template <int kMode, int kF, int kMI, class S>
+cudaError_t launch_wide_mi(const S* xp, const S* x, const S* wih, const S* b,
+                           const S* whhT, S* out0, S* out1, float* scr, int T,
+                           int R, int H, int vec, cudaStream_t stream) {
   constexpr int M = 16 * kMI;
-  auto kernel = lstm_fwd_wide_kernel<kMode, kF, kMI>;
+  auto kernel = lstm_fwd_wide_kernel<kMode, kF, kMI, S>;
   cudaError_t err = allow_smem((const void*)kernel, wide_smem_bytes(M));
   if (err != cudaSuccess) return err;
   kernel<<<(R + M - 1) / M, kWideThreads, wide_smem_bytes(M), stream>>>(
@@ -438,53 +490,53 @@ cudaError_t launch_wide_mi(const float* xp, const float* x, const float* wih,
 // block an SM (R <= 32 SMs), so that each SM's one block has less work.
 // On the H100 at H = 128 (lstm_fwd_probe.py): 32 rows 30% faster at R =
 // 2,209, level at 4,418, 11-14% slower at 8,836 and 17,672.
-template <int kMode, int kF>
-cudaError_t launch_wide_f(const float* xp, const float* x, const float* wih,
-                          const float* b, const float* whhT, float* out0,
-                          float* out1, float* scr, int T, int R, int H,
-                          cudaStream_t stream) {
+template <int kMode, int kF, class S>
+cudaError_t launch_wide_f(const S* xp, const S* x, const S* wih, const S* b,
+                          const S* whhT, S* out0, S* out1, float* scr, int T,
+                          int R, int H, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const int vec = H % 4 == 0 && aligned16(whhT) && aligned16(out0) &&
-                  aligned16(scr);
+  const int vec = !kIsBf16<S> && H % 4 == 0 && aligned16(whhT) &&
+                  aligned16(out0) && aligned16(scr);
   if (R <= 32LL * sms)
-    return launch_wide_mi<kMode, kF, 2>(xp, x, wih, b, whhT, out0, out1, scr,
-                                        T, R, H, vec, stream);
-  return launch_wide_mi<kMode, kF, 3>(xp, x, wih, b, whhT, out0, out1, scr, T,
-                                      R, H, vec, stream);
+    return launch_wide_mi<kMode, kF, 2, S>(xp, x, wih, b, whhT, out0, out1,
+                                           scr, T, R, H, vec, stream);
+  return launch_wide_mi<kMode, kF, 3, S>(xp, x, wih, b, whhT, out0, out1, scr,
+                                         T, R, H, vec, stream);
 }
 
 // Launch the wide forward on x_proj (F = 0) or, in the inference modes,
 // fused from x, w_ih and b with 1 <= F <= 4 features. The inference modes
-// need scr (see the kernel); training carries c in out1.
-template <int kMode>
-cudaError_t launch_fwd_wide(const float* xp, const float* x, const float* wih,
-                            const float* b, int F, const float* whhT,
-                            float* out0, float* out1, float* scr, int T,
-                            int R, int H, cudaStream_t stream) {
-  if (kMode != kFwdTrain && scr == nullptr) return cudaErrorInvalidValue;
+// need scr (see the kernel); training carries c in out1 in f32, in scr
+// (R, H) in bf16.
+template <int kMode, class S>
+cudaError_t launch_fwd_wide(const S* xp, const S* x, const S* wih, const S* b,
+                            int F, const S* whhT, S* out0, S* out1, float* scr,
+                            int T, int R, int H, cudaStream_t stream) {
+  if ((kMode != kFwdTrain || kIsBf16<S>) && scr == nullptr)
+    return cudaErrorInvalidValue;
   if constexpr (kMode != kFwdTrain) {
     switch (F) {
       case 1:
-        return launch_wide_f<kMode, 1>(xp, x, wih, b, whhT, out0, out1, scr,
+        return launch_wide_f<kMode, 1, S>(xp, x, wih, b, whhT, out0, out1, scr,
                                        T, R, H, stream);
       case 2:
-        return launch_wide_f<kMode, 2>(xp, x, wih, b, whhT, out0, out1, scr,
+        return launch_wide_f<kMode, 2, S>(xp, x, wih, b, whhT, out0, out1, scr,
                                        T, R, H, stream);
       case 3:
-        return launch_wide_f<kMode, 3>(xp, x, wih, b, whhT, out0, out1, scr,
+        return launch_wide_f<kMode, 3, S>(xp, x, wih, b, whhT, out0, out1, scr,
                                        T, R, H, stream);
       case 4:
-        return launch_wide_f<kMode, 4>(xp, x, wih, b, whhT, out0, out1, scr,
+        return launch_wide_f<kMode, 4, S>(xp, x, wih, b, whhT, out0, out1, scr,
                                        T, R, H, stream);
       default:
         break;
     }
   }
-  return launch_wide_f<kMode, 0>(xp, x, wih, b, whhT, out0, out1, scr, T, R,
+  return launch_wide_f<kMode, 0, S>(xp, x, wih, b, whhT, out0, out1, scr, T, R,
                                  H, stream);
 }
 

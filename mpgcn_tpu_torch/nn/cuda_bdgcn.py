@@ -23,6 +23,16 @@ LSTM BPTT). The JAX package sends small pair counts to an XLA einsum loop
 instead of its backward kernel; this port has no such switch. The support
 cotangent stays plain einsums (``_grad_g``), computed only when a support
 requires grad, as the JAX package leaves it to XLA.
+
+Both entries also take bf16 storage (``-dtype bfloat16``; the JAX kernels
+in their bf16 dtype): h1, Gk, Wr, out, dout and dh1 in bf16, every product
+summed in f32, the intermediate U (forward) and Z (backward) rounded to
+bf16 as the JAX kernels round their pair temp, dW summed in f32 and then
+cast. CUDA tensors launch ``bdgcn_pair_fwd_bf16`` / ``bdgcn_pair_bwd_bf16``:
+the operands widened into f32 scratch, the same split-TF32 products, the
+stored results rounded (a bf16 value splits into TF32 with a zero
+remainder, so the products are those of the bf16 values). The plain
+versions compute in f32 with the same rounding points.
 """
 
 from __future__ import annotations
@@ -32,7 +42,7 @@ import functools
 import torch
 
 from mpgcn_tpu_torch.native.build import CudaKernel, query_int
-from mpgcn_tpu_torch.nn.cuda_lstm import device_index
+from mpgcn_tpu_torch.nn.cuda_lstm import device_index, plain_dtype, store_round
 
 #: rows of the dW product's smallest chunk: four 32-row staged slabs
 _DW_ROWS_TILE = 128
@@ -41,6 +51,10 @@ BDGCN_PAIR_FWD = CudaKernel("bdgcn_pair_fwd", "bdgcn_pair_fwd_f32",
                             n_ptrs=5, n_ints=7)
 BDGCN_PAIR_BWD = CudaKernel("bdgcn_pair_bwd", "bdgcn_pair_bwd_f32",
                             n_ptrs=8, n_ints=8)
+BDGCN_PAIR_FWD_BF16 = CudaKernel("bdgcn_pair_fwd", "bdgcn_pair_fwd_bf16",
+                                 n_ptrs=5, n_ints=7)
+BDGCN_PAIR_BWD_BF16 = CudaKernel("bdgcn_pair_bwd", "bdgcn_pair_bwd_bf16",
+                                 n_ptrs=8, n_ints=8)
 
 
 def _dest(Gk: torch.Tensor, d: int, dyn: bool):
@@ -49,39 +63,54 @@ def _dest(Gk: torch.Tensor, d: int, dyn: bool):
 
 
 def folded_pair_project_plain(h1: torch.Tensor, Gk: torch.Tensor,
-                              Wr: torch.Tensor) -> torch.Tensor:
+                              Wr: torch.Tensor, acc=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel, in its order.
 
     h1 (K, B, M, N, C) origin contractions; Gk (Bg, K, N, N) destination
     supports with Bg in {1, B}; Wr (K, K, C, H). Returns (B, M, N, H):
     out[b, m, e] = sum_{o, d} (h1[o, b, m]^T G_d)^T Wr[o, d], computed by
-    Wr first, U_d = sum_o h1[o] Wr[o, d], then out = sum_d G_d^T U_d."""
+    Wr first, U_d = sum_o h1[o] Wr[o, d], then out = sum_d G_d^T U_d; in
+    ``plain_dtype`` (cuda_lstm.py), U and out rounded to the storage."""
+    S = h1.dtype
+    if S != torch.float32 or acc is not None:
+        A = plain_dtype(S, acc)
+        U = store_round(torch.einsum("obmcl,odlh->dbmch", h1.to(A),
+                                     Wr.to(A)), S)
+        G = Gk.to(A)
+        out = (torch.einsum("bdce,dbmch->bmeh", G, U) if Gk.shape[0] > 1
+               else torch.einsum("dce,dbmch->bmeh", G[0], U))
+        return store_round(out, S).to(S)
     U = torch.einsum("obmcl,odlh->dbmch", h1, Wr)
     if Gk.shape[0] > 1:
         return torch.einsum("bdce,dbmch->bmeh", Gk, U)
     return torch.einsum("dce,dbmch->bmeh", Gk[0], U)
 
 
-def folded_pair_project_bwd_plain(h1, Gk, Wr, dout):
-    """Plain PyTorch version of ``bdgcn_pair_bwd_f32`` and its dW sum, in
-    the kernel's order: Z_d = G_d dout, dh1[o] = sum_d Z_d Wr[o, d]^T,
-    dW[o, d] = sum_{b, m} h1[o]^T Z_d. Returns (dh1 (K, B, M, N, C),
-    dW (K, K, C, H)). dW sums B M N products an entry, so it is summed in
-    float64 and rounded once: on the H100 an f32 matrix product over the
-    500,000 rows of N = 500 came within 4% of the dW tolerance from the
-    float64 sum on its own, which left no room for the kernel's error."""
+def folded_pair_project_bwd_plain(h1, Gk, Wr, dout, acc=None):
+    """Plain PyTorch version of ``bdgcn_pair_bwd_f32`` (and ``_bf16``) and
+    its dW sum, in the kernel's order: Z_d = G_d dout, dh1[o] = sum_d Z_d
+    Wr[o, d]^T, dW[o, d] = sum_{b, m} h1[o]^T Z_d. Returns (dh1 (K, B, M,
+    N, C) in h1's dtype, dW (K, K, C, H) in ``plain_dtype``, unrounded).
+    In bf16, Z and dh1 are rounded to bf16 as the kernel stores them. dW
+    sums B M N products an entry, so it is summed in float64 and rounded
+    once: on the H100 an f32 matrix product over the 500,000 rows of N =
+    500 came within 4% of the dW tolerance from the float64 sum on its
+    own, which left no room for the kernel's error."""
+    S = h1.dtype
+    A = plain_dtype(S, acc)
+    h1, Gk, Wr, dout = (t.to(A) for t in (h1, Gk, Wr, dout))
     K = h1.shape[0]
     dyn = Gk.shape[0] > 1
     Z = []
     for d in range(K):
         g, gs = _dest(Gk, d, dyn)
-        Z.append(torch.einsum(f"{gs},bmeh->bmch", g, dout))
+        Z.append(store_round(torch.einsum(f"{gs},bmeh->bmch", g, dout), S))
     dh1 = torch.stack([sum(torch.einsum("bmch,lh->bmcl", Z[d], Wr[o, d])
                            for d in range(K)) for o in range(K)])
     dW = torch.stack([torch.stack([
         torch.einsum("bmcl,bmch->lh", h1[o].double(), Z[d].double())
-        for d in range(K)]) for o in range(K)]).to(h1.dtype)
-    return dh1, dW
+        for d in range(K)]) for o in range(K)]).to(A)
+    return store_round(dh1, S).to(S), dW
 
 
 def _grad_g(h1, Gk, Wr, dout):
@@ -109,9 +138,11 @@ def _is_cuda(h1: torch.Tensor, name: str) -> bool:
 
 def _check_cuda_args(h1, Gk, Wr, name: str = "K-BDGCN") -> None:
     for arg, t in (("h1", h1), ("Gk", Gk), ("Wr", Wr)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} takes float32 only, got {arg} "
-                            f"{t.dtype}")
+        if t.dtype not in (torch.float32, torch.bfloat16) \
+                or t.dtype != h1.dtype:
+            raise TypeError(f"{name} takes float32 or bfloat16 tensors of "
+                            f"one dtype, got {arg} {t.dtype} beside h1 "
+                            f"{h1.dtype}")
         if t.device != h1.device:
             raise ValueError("h1, Gk and Wr lie on different devices")
     if h1.ndim != 5 or Gk.ndim != 4 or Wr.ndim != 4:
@@ -140,11 +171,23 @@ def _pair_project(h1, Gk, Wr):
     K, B, M, N, C = h1.shape
     H = Wr.shape[-1]
     h1, Gk, Wr = h1.contiguous(), Gk.contiguous(), Wr.contiguous()
-    out = torch.empty((B, M, N, H), dtype=torch.float32, device=h1.device)
-    u = torch.empty((K, B, M, N, H), dtype=torch.float32, device=h1.device)
-    BDGCN_PAIR_FWD.launch((h1, Gk, Wr, out, u),
-                          (K, B, M, N, C, H, Gk.shape[0]))
+    out = torch.empty((B, M, N, H), dtype=h1.dtype, device=h1.device)
+    dims = (K, B, M, N, C, H, Gk.shape[0])
+    if h1.dtype == torch.float32:
+        u = torch.empty((K, B, M, N, H), dtype=torch.float32,
+                        device=h1.device)
+        BDGCN_PAIR_FWD.launch((h1, Gk, Wr, out, u), dims)
+    else:
+        BDGCN_PAIR_FWD_BF16.launch(
+            (h1, Gk, Wr, out, _bf16_scratch("bdgcn_pair_fwd", dims,
+                                            h1.device)), dims)
     return out
+
+
+def _bf16_scratch(source: str, dims, device) -> torch.Tensor:
+    """The f32 scratch a bf16 entry of ``source`` takes at ``dims``."""
+    k = query_int(source, f"{source}_bf16_scratch_k", dims, device)
+    return torch.empty(k * 1024, dtype=torch.float32, device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,36 +212,47 @@ def bwd_blocks(rows: int, K: int, C: int, H: int, device) -> int:
 
 def folded_pair_project_bwd(h1, Gk, Wr, dout):
     """Backward of the folded pairs for the cotangent dout (B, M, N, H):
-    (dh1 (K, B, M, N, C), dW (K, K, C, H)). CPU tensors take the plain
-    version; CUDA tensors launch ``bdgcn_pair_bwd_f32``, dW sum included."""
-    return folded_pair_project_bwd_partials(h1, Gk, Wr, dout)[:2]
+    (dh1 (K, B, M, N, C), dW (K, K, C, H)), in h1's dtype (dW summed in
+    f32, then cast). CPU tensors take the plain version; CUDA tensors
+    launch ``bdgcn_pair_bwd_f32`` (or ``_bf16``), dW sum included."""
+    dh1, dW, _ = folded_pair_project_bwd_partials(h1, Gk, Wr, dout)
+    return dh1, dW.to(Wr.dtype)
 
 
 def folded_pair_project_bwd_partials(h1, Gk, Wr, dout):
     """``folded_pair_project_bwd`` with the per-block dW partials
     (P, K, K, C, H) that its dW is the fixed-order sum of
-    (``dw_reduce_plain(part)`` to the last bit). The plain version computes
-    dW in one piece: on the CPU the partials are dW[None]."""
+    (``dw_reduce_plain(part)`` to the last bit); dW and the partials f32,
+    before any cast. The plain version computes dW in one piece: on the
+    CPU the partials are dW[None]."""
     if not _is_cuda(h1, "K-BDGCN-bwd"):
         dh1, dW = folded_pair_project_bwd_plain(h1, Gk, Wr, dout)
         return dh1, dW, dW[None]
     _check_cuda_args(h1, Gk, Wr, "K-BDGCN-bwd")
     K, B, M, N, C = h1.shape
     H = Wr.shape[-1]
-    if (dout.dtype != torch.float32 or dout.device != h1.device
+    if (dout.dtype != h1.dtype or dout.device != h1.device
             or tuple(dout.shape) != (B, M, N, H)):
-        raise ValueError(f"dout must be float32 ({B}, {M}, {N}, {H}) on "
+        raise ValueError(f"dout must be {h1.dtype} ({B}, {M}, {N}, {H}) on "
                          f"{h1.device}, got {dout.dtype} "
                          f"{tuple(dout.shape)} on {dout.device}")
     h1, Gk, Wr, dout = (t.contiguous() for t in (h1, Gk, Wr, dout))
     P = bwd_blocks(B * M * N, K, C, H, h1.device)
     dh1 = torch.empty_like(h1)
-    z = torch.empty((K, B, M, N, H), dtype=torch.float32, device=h1.device)
     part = torch.empty((P, K, K, C, H), dtype=torch.float32,
                        device=h1.device)
     dW = torch.empty((K, K, C, H), dtype=torch.float32, device=h1.device)
-    BDGCN_PAIR_BWD.launch((h1, Gk, Wr, dout, dh1, z, part, dW),
-                          (K, B, M, N, C, H, Gk.shape[0], P))
+    dims = (K, B, M, N, C, H, Gk.shape[0])
+    if h1.dtype == torch.float32:
+        z = torch.empty((K, B, M, N, H), dtype=torch.float32,
+                        device=h1.device)
+        BDGCN_PAIR_BWD.launch((h1, Gk, Wr, dout, dh1, z, part, dW),
+                              (*dims, P))
+    else:
+        BDGCN_PAIR_BWD_BF16.launch(
+            (h1, Gk, Wr, dout, dh1,
+             _bf16_scratch("bdgcn_pair_bwd", dims, h1.device), part, dW),
+            (*dims, P))
     return dh1, dW, part
 
 

@@ -34,6 +34,15 @@ JAX package sends small row counts to an XLA scan instead of its backward
 kernel; this port has no such switch: a CUDA tensor always launches the
 backward kernel.
 
+Every entry also takes bf16 storage, as the JAX kernels take their bf16
+dtype (``-dtype bfloat16``): x_proj (or x, w_ih, b), w_hh_T, the outputs,
+hs, cs, their cotangents and dx_proj in bf16; the carries, gates and sums
+in f32; h rounded to bf16 before each recurrent product (``_cell_step``);
+dW_hh^T summed in f32 and then cast, as pallas_lstm.py:500, 543 casts it.
+CUDA tensors launch the ``*_bf16`` instantiations of the same kernels
+(``csrc/bf16.cuh``). The plain versions compute in f32 with the same
+rounding points (``acc=torch.float64`` for a reference in float64).
+
 The JAX package leaves the input projection ``x @ W_ih^T + b`` to XLA
 (pallas_lstm.py:564). Here ``lstm_last_step_fused`` sends a layer of at
 most ``FUSED_MAX_F`` input features on the inference kernel arm to the
@@ -58,6 +67,22 @@ LSTM_TRAIN_FWD = CudaKernel("lstm_train", "lstm_train_fwd_f32",
                             n_ptrs=4, n_ints=3)
 LSTM_TRAIN_BWD = CudaKernel("lstm_train", "lstm_train_bwd_f32",
                             n_ptrs=10, n_ints=4)
+LSTM_INFER_LAST_BF16 = CudaKernel("lstm_infer", "lstm_infer_last_bf16",
+                                  n_ptrs=7, n_ints=4)
+LSTM_INFER_COLLECT_BF16 = CudaKernel("lstm_infer", "lstm_infer_collect_bf16",
+                                     n_ptrs=7, n_ints=4)
+LSTM_TRAIN_FWD_BF16 = CudaKernel("lstm_train", "lstm_train_fwd_bf16",
+                                 n_ptrs=5, n_ints=3)
+LSTM_TRAIN_BWD_BF16 = CudaKernel("lstm_train", "lstm_train_bwd_bf16",
+                                 n_ptrs=10, n_ints=4)
+#: the kernels of each storage type
+KERNELS = {
+    torch.float32: {"last": LSTM_INFER_LAST, "collect": LSTM_INFER_COLLECT,
+                    "fwd": LSTM_TRAIN_FWD, "bwd": LSTM_TRAIN_BWD},
+    torch.bfloat16: {"last": LSTM_INFER_LAST_BF16,
+                     "collect": LSTM_INFER_COLLECT_BF16,
+                     "fwd": LSTM_TRAIN_FWD_BF16, "bwd": LSTM_TRAIN_BWD_BF16},
+}
 
 #: the most input features the inference entries' fused form takes
 #: (csrc/lstm_fwd.cuh kFusedMaxF)
@@ -75,10 +100,32 @@ def _gates(x_t, h, w_hh_T, H):
             torch.tanh(gates[:, 2 * H:3 * H]), torch.sigmoid(gates[:, 3 * H:]))
 
 
+def plain_dtype(storage: torch.dtype, acc=None) -> torch.dtype:
+    """The dtype a plain version computes in: ``acc`` when given, f32 for
+    bf16 storage (the kernels' carries, gates and sums), else the
+    storage's own."""
+    if acc is not None:
+        return acc
+    return torch.float32 if storage == torch.bfloat16 else storage
+
+
+def store_round(v: torch.Tensor, storage: torch.dtype) -> torch.Tensor:
+    """v as a store of ``storage`` keeps it, in v's dtype: rounded to bf16
+    (to nearest even) for bf16 storage, v itself otherwise."""
+    if storage != torch.bfloat16:
+        return v
+    return v.to(torch.bfloat16).to(v.dtype)
+
+
 def lstm_layer_infer_plain(x_proj: torch.Tensor, w_hh_T: torch.Tensor,
-                           collect: bool) -> torch.Tensor:
+                           collect: bool, acc=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: x_proj (T, R, 4H), w_hh_T
-    (H, 4H) -> h_T (R, H), or every h_t (T, R, H) when ``collect``."""
+    (H, 4H) -> h_T (R, H), or every h_t (T, R, H) when ``collect``, in
+    x_proj's dtype; computed in ``plain_dtype``, h rounded to the storage
+    type before each recurrent product."""
+    S = x_proj.dtype
+    A = plain_dtype(S, acc)
+    x_proj, w_hh_T = x_proj.to(A), w_hh_T.to(A)
     T, R, four_h = x_proj.shape
     H = four_h // 4
     h = x_proj.new_zeros((R, H))
@@ -87,26 +134,39 @@ def lstm_layer_infer_plain(x_proj: torch.Tensor, w_hh_T: torch.Tensor,
     for t in range(T):
         i, f, g, o = _gates(x_proj[t], h, w_hh_T, H)
         c = f * c + i * g
-        h = o * torch.tanh(c)
+        h = store_round(o * torch.tanh(c), S)
         if collect:
             hs.append(h)
-    return torch.stack(hs) if collect else h
+    return (torch.stack(hs) if collect else h).to(S)
 
 
 def lstm_layer_infer_fused_plain(x: torch.Tensor, w_ih: torch.Tensor,
                                  b: torch.Tensor, w_hh_T: torch.Tensor,
-                                 collect: bool) -> torch.Tensor:
+                                 collect: bool, acc=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel's fused form: x (R, T, F), w_ih
     (4H, F), b = b_ih + b_hh (4H,), w_hh_T (H, 4H) -> h_T (R, H), or every
     h_t (T, R, H) when ``collect``. The projection is the torch product and
-    add that ``lstm_last_step_fused`` takes on the other arms."""
-    x_proj = torch.matmul(x.transpose(0, 1), w_ih.t()) + b
-    return lstm_layer_infer_plain(x_proj, w_hh_T, collect)
+    add that ``lstm_last_step_fused`` takes on the other arms; in bf16 the
+    product and the sum are each rounded to bf16, as x_proj is stored."""
+    S = x.dtype
+    if S == torch.float32 and acc is None:
+        x_proj = torch.matmul(x.transpose(0, 1), w_ih.t()) + b
+    else:
+        A = plain_dtype(S, acc)
+        p = store_round(torch.matmul(x.transpose(0, 1).to(A),
+                                     w_ih.t().to(A)), S)
+        x_proj = store_round(p + b.to(A), S).to(S)
+    return lstm_layer_infer_plain(x_proj, w_hh_T, collect, acc)
 
 
-def lstm_layer_train_plain(x_proj: torch.Tensor, w_hh_T: torch.Tensor):
-    """Plain PyTorch version of ``lstm_train_fwd_f32``: x_proj (T, R, 4H),
-    w_hh_T (H, 4H) -> (hs, cs), each (T, R, H)."""
+def lstm_layer_train_plain(x_proj: torch.Tensor, w_hh_T: torch.Tensor,
+                           acc=None):
+    """Plain PyTorch version of ``lstm_train_fwd_f32`` (and ``_bf16``):
+    x_proj (T, R, 4H), w_hh_T (H, 4H) -> (hs, cs), each (T, R, H) in
+    x_proj's dtype; c carried unrounded, h rounded to the storage type."""
+    S = x_proj.dtype
+    A = plain_dtype(S, acc)
+    x_proj, w_hh_T = x_proj.to(A), w_hh_T.to(A)
     T, R, four_h = x_proj.shape
     H = four_h // 4
     h = x_proj.new_zeros((R, H))
@@ -115,18 +175,23 @@ def lstm_layer_train_plain(x_proj: torch.Tensor, w_hh_T: torch.Tensor):
     for t in range(T):
         i, f, g, o = _gates(x_proj[t], h, w_hh_T, H)
         c = f * c + i * g
-        h = o * torch.tanh(c)
+        h = store_round(o * torch.tanh(c), S)
         hs.append(h)
         cs.append(c)
-    return torch.stack(hs), torch.stack(cs)
+    return torch.stack(hs).to(S), torch.stack(cs).to(S)
 
 
-def lstm_layer_bwd_plain(x_proj, w_hh_T, hs, cs, dhs, dcs):
-    """Plain PyTorch version of ``lstm_train_bwd_f32`` and its dW sum,
-    step by step in reverse time as ``_cell_bwd`` computes it: the gates
-    are recomputed from x_proj + h_{t-1} w_hh_T, dh and dc carried in f32.
-    dhs, dcs (T, R, H) are the cotangents of hs and cs; None means zero.
-    Returns (dx_proj (T, R, 4H), dw_hh_T (H, 4H))."""
+def lstm_layer_bwd_plain(x_proj, w_hh_T, hs, cs, dhs, dcs, acc=None):
+    """Plain PyTorch version of ``lstm_train_bwd_f32`` (and ``_bf16``)
+    and its dW sum, step by step in reverse time as ``_cell_bwd`` computes
+    it: the gates are recomputed from x_proj + h_{t-1} w_hh_T, dh and dc
+    carried in f32. dhs, dcs (T, R, H) are the cotangents of hs and cs;
+    None means zero. Returns (dx_proj (T, R, 4H) in x_proj's dtype,
+    dw_hh_T (H, 4H) in ``plain_dtype``: summed unrounded)."""
+    S = x_proj.dtype
+    A = plain_dtype(S, acc)
+    x_proj, w_hh_T, hs, cs = (t.to(A) for t in (x_proj, w_hh_T, hs, cs))
+    dhs, dcs = (None if t is None else t.to(A) for t in (dhs, dcs))
     T, R, four_h = x_proj.shape
     H = four_h // 4
     zeros = x_proj.new_zeros((R, H))
@@ -150,7 +215,7 @@ def lstm_layer_bwd_plain(x_proj, w_hh_T, hs, cs, dhs, dcs):
         dh_next = dgates @ w_hh_T.t()
         dw = dw + hp.t() @ dgates
         dxp.append(dgates)
-    return torch.stack(dxp[::-1]), dw
+    return torch.stack(dxp[::-1]).to(S), dw
 
 
 def dw_reduce_plain(part: torch.Tensor) -> torch.Tensor:
@@ -178,12 +243,16 @@ def _check_device(x_proj: torch.Tensor, name: str) -> bool:
     return x_proj.device.type == "cuda"
 
 
-def _check_f32(name: str, **tensors) -> None:
-    bad = {k: t.dtype for k, t in tensors.items()
-           if t.dtype != torch.float32}
-    if bad:
-        raise TypeError(f"{name} takes float32 only, got "
-                        + ", ".join(f"{k} {d}" for k, d in bad.items()))
+def _check_dtype(name: str, **tensors) -> torch.dtype:
+    """The one storage dtype of ``tensors``, float32 or bfloat16; raises
+    on any other or on a mix."""
+    dtypes = {t.dtype for t in tensors.values()}
+    if len(dtypes) != 1 or not dtypes <= set(KERNELS):
+        raise TypeError(f"{name} takes float32 or bfloat16 tensors of one "
+                        f"dtype, got "
+                        + ", ".join(f"{k} {t.dtype}"
+                                    for k, t in tensors.items()))
+    return dtypes.pop()
 
 
 def _check_w_hh(w_hh_T: torch.Tensor, H: int, device, what: str) -> None:
@@ -196,7 +265,7 @@ def _check_w_hh(w_hh_T: torch.Tensor, H: int, device, what: str) -> None:
 
 def _check_cuda_args(x_proj: torch.Tensor, w_hh_T: torch.Tensor,
                      name: str = "K-LSTM") -> None:
-    _check_f32(name, x_proj=x_proj, w_hh_T=w_hh_T)
+    _check_dtype(name, x_proj=x_proj, w_hh_T=w_hh_T)
     if x_proj.ndim != 3 or x_proj.shape[-1] % 4:
         raise ValueError(f"x_proj must be (T, R, 4H), got "
                          f"{tuple(x_proj.shape)}")
@@ -206,7 +275,7 @@ def _check_cuda_args(x_proj: torch.Tensor, w_hh_T: torch.Tensor,
 
 
 def _check_fused_args(x, w_ih, b, w_hh_T) -> None:
-    _check_f32("K-LSTM", x=x, w_ih=w_ih, b=b, w_hh_T=w_hh_T)
+    _check_dtype("K-LSTM", x=x, w_ih=w_ih, b=b, w_hh_T=w_hh_T)
     if x.ndim != 3 or not 1 <= x.shape[-1] <= FUSED_MAX_F:
         raise ValueError(f"x must be (R, T, F) with 1 <= F <= "
                          f"{FUSED_MAX_F}, got {tuple(x.shape)}")
@@ -239,9 +308,10 @@ def fwd_on_wide(index: int, H: int) -> bool:
 
 
 def fwd_scratch(R: int, H: int, device, collect: bool):
-    """The inference entries' scratch: on the wide kernel, the c carry and,
-    for h_T only, a second h buffer, (1 if collect else 2, R, H); None on
-    the resident kernel."""
+    """The inference entries' scratch: on the wide kernel, the f32 c carry
+    and, for h_T only, a second h buffer, (1 if collect else 2, R, H);
+    None on the resident kernel. The bf16 training forward takes the
+    collect form (its c carry)."""
     if not fwd_on_wide(device_index(device), H):
         return None
     return torch.empty((1 if collect else 2, R, H), dtype=torch.float32,
@@ -252,8 +322,8 @@ def _infer_launch(xp, x, w_ih, b, w_hh_T, collect, T, R, H, F):
     """Launch an inference entry: on x_proj (x, w_ih, b None, F = 0) or
     fused from x, w_ih, b (xp None)."""
     shape = (T, R, H) if collect else (R, H)
-    out = torch.empty(shape, dtype=torch.float32, device=w_hh_T.device)
-    kernel = LSTM_INFER_COLLECT if collect else LSTM_INFER_LAST
+    out = torch.empty(shape, dtype=w_hh_T.dtype, device=w_hh_T.device)
+    kernel = KERNELS[w_hh_T.dtype]["collect" if collect else "last"]
     scratch = fwd_scratch(R, H, w_hh_T.device, collect)
     kernel.launch((xp, w_hh_T, out, x, w_ih, b, scratch), (T, R, H, F))
     return out
@@ -300,17 +370,25 @@ def lstm_layer_train(x_proj: torch.Tensor, w_hh_T: torch.Tensor):
     H = four_h // 4
     x_proj = x_proj.contiguous()
     w_hh_T = w_hh_T.contiguous()
-    hs = torch.empty((T, R, H), dtype=torch.float32, device=x_proj.device)
+    hs = torch.empty((T, R, H), dtype=x_proj.dtype, device=x_proj.device)
     cs = torch.empty_like(hs)
-    LSTM_TRAIN_FWD.launch((x_proj, w_hh_T, hs, cs), (T, R, H))
+    if x_proj.dtype == torch.float32:
+        LSTM_TRAIN_FWD.launch((x_proj, w_hh_T, hs, cs), (T, R, H))
+    else:  # bf16: the wide kernel carries c in f32 scratch
+        LSTM_TRAIN_FWD_BF16.launch(
+            (x_proj, w_hh_T, hs, cs,
+             fwd_scratch(R, H, x_proj.device, collect=True)), (T, R, H))
     return hs, cs
 
 
 @functools.lru_cache(maxsize=None)
-def _max_bwd_blocks(index: int, H: int) -> int:
-    """The largest P of the BPTT on card ``index`` at width H."""
-    return query_int("lstm_train", "lstm_train_bwd_max_blocks", (H,),
-                     torch.device("cuda", index))
+def _max_bwd_blocks(index: int, H: int,
+                    dtype: torch.dtype = torch.float32) -> int:
+    """The largest P of the BPTT of storage ``dtype`` on card ``index`` at
+    width H (the bf16 resident kernel is an instantiation of its own)."""
+    symbol = ("lstm_train_bwd_max_blocks" if dtype == torch.float32
+              else "lstm_train_bwd_max_blocks_bf16")
+    return query_int("lstm_train", symbol, (H,), torch.device("cuda", index))
 
 
 def bwd_smem_bytes(index: int, H: int) -> int:
@@ -328,7 +406,8 @@ def bwd_on_engine(index: int, H: int) -> bool:
                           torch.device("cuda", index)))
 
 
-def bwd_blocks(R: int, H: int, device) -> int:
+def bwd_blocks(R: int, H: int, device,
+               dtype: torch.dtype = torch.float32) -> int:
     """P of the BPTT, never more than ``BWD_PARTIAL_BYTES`` of dW partials
     hold. The resident kernel: its blocks, a few per SM, never more than
     its row tiles (4 rows x max(1, 256 // H) thread rows) nor than the card
@@ -337,58 +416,69 @@ def bwd_blocks(R: int, H: int, device) -> int:
     index = device_index(device)
     by_bytes = BWD_PARTIAL_BYTES // (16 * H * H)
     if bwd_on_engine(index, H):
-        return max(1, min(by_bytes, _max_bwd_blocks(index, H)))
+        return max(1, min(by_bytes, _max_bwd_blocks(index, H, dtype)))
     tiles = -(-R // (max(1, 256 // H) * 4))
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     return max(1, min(tiles, BWD_BLOCKS_PER_SM * sms, by_bytes,
-                      _max_bwd_blocks(index, H)))
+                      _max_bwd_blocks(index, H, dtype)))
 
 
-def bwd_scratch(R: int, H: int, device):
-    """The BPTT's scratch: the dh and dc carries (2, R, H) on the engine
-    path, None on the resident one."""
+def bwd_scratch(R: int, H: int, device, T: int = 1,
+                dtype: torch.dtype = torch.float32):
+    """The BPTT's f32 scratch on the engine path, None on the resident
+    one: the dh and dc carries (2, R, H); in bf16 also the f32 dgates, hs
+    and w_hh_T that its products read (``lstm_train_bwd_bf16_scratch_k``
+    x 1024 floats)."""
     if not bwd_on_engine(device_index(device), H):
         return None
-    return torch.empty((2, R, H), dtype=torch.float32, device=device)
+    if dtype == torch.float32:
+        return torch.empty((2, R, H), dtype=torch.float32, device=device)
+    k = query_int("lstm_train", "lstm_train_bwd_bf16_scratch_k", (T, R, H),
+                  device)
+    return torch.empty(k * 1024, dtype=torch.float32, device=device)
 
 
 def lstm_layer_bwd(x_proj, w_hh_T, hs, cs, dhs, dcs):
     """Backward of one layer: the cotangents dhs, dcs of (hs, cs) (None
-    means zero) -> (dx_proj (T, R, 4H), dw_hh_T (H, 4H)). CPU tensors take
-    the plain version; CUDA tensors call ``lstm_train_bwd_f32``, BPTT and
-    dW sum in one host call."""
-    return lstm_layer_bwd_partials(x_proj, w_hh_T, hs, cs, dhs, dcs)[:2]
+    means zero) -> (dx_proj (T, R, 4H), dw_hh_T (H, 4H)), both in x_proj's
+    dtype (dW summed in f32, then cast). CPU tensors take the plain
+    version; CUDA tensors call ``lstm_train_bwd_f32`` (or ``_bf16``), BPTT
+    and dW sum in one host call."""
+    dxp, dw, _ = lstm_layer_bwd_partials(x_proj, w_hh_T, hs, cs, dhs, dcs)
+    return dxp, dw.to(w_hh_T.dtype)
 
 
 def lstm_layer_bwd_partials(x_proj, w_hh_T, hs, cs, dhs, dcs):
     """``lstm_layer_bwd`` with the dW_hh^T partials (P, H, 4H) that its dW
     is the fixed-order sum of (``dw_reduce_plain(part)`` to the
-    last bit). The plain version computes dW in one piece: on the CPU the
-    partials are dW[None]."""
+    last bit); dW and the partials f32 (or float64 in a float64 plain
+    run), before any cast. The plain version computes dW in one piece: on
+    the CPU the partials are dW[None]."""
     if not _check_device(x_proj, "K-LSTM-train"):
         dxp, dw = lstm_layer_bwd_plain(x_proj, w_hh_T, hs, cs, dhs, dcs)
         return dxp, dw, dw[None]
     _check_cuda_args(x_proj, w_hh_T, "K-LSTM-train")
     T, R, four_h = x_proj.shape
     H = four_h // 4
+    S = x_proj.dtype
     for name, t in (("hs", hs), ("cs", cs), ("dhs", dhs), ("dcs", dcs)):
         if t is None and name in ("dhs", "dcs"):
             continue
-        if t.dtype != torch.float32 or t.device != x_proj.device:
-            raise TypeError(f"K-LSTM-train backward takes float32 {name} on "
+        if t.dtype != S or t.device != x_proj.device:
+            raise TypeError(f"K-LSTM-train backward takes {S} {name} on "
                             f"{x_proj.device}, got {t.dtype} on {t.device}")
         if tuple(t.shape) != (T, R, H):
             raise ValueError(f"{name} must be ({T}, {R}, {H}), got "
                              f"{tuple(t.shape)}")
     args = [None if t is None else t.contiguous()
             for t in (x_proj, w_hh_T, hs, cs, dhs, dcs)]
-    P = bwd_blocks(R, H, x_proj.device)
+    P = bwd_blocks(R, H, x_proj.device, S)
     dxp = torch.empty_like(args[0])
     part = torch.empty((P, H, four_h), dtype=torch.float32,
                        device=x_proj.device)
     dw = torch.empty((H, four_h), dtype=torch.float32, device=x_proj.device)
-    scratch = bwd_scratch(R, H, x_proj.device)
-    LSTM_TRAIN_BWD.launch((*args, dxp, part, dw, scratch), (T, R, H, P))
+    scratch = bwd_scratch(R, H, x_proj.device, T, S)
+    KERNELS[S]["bwd"].launch((*args, dxp, part, dw, scratch), (T, R, H, P))
     return dxp, dw, part
 
 

@@ -11,12 +11,29 @@ layers over blocked-ELL support containers through the ELL SpMM kernels. ``forwa
 under ``torch.no_grad()`` on the inference kernels (the serve and test
 rollouts); ``inference=False`` records autograd through the training
 kernels (``LSTMLayerFn`` and ``PairProjectFn``).
+
+Precision (mpgcn_tpu/nn/mpgcn.py:231, 246-266): ``compute_dtype``
+(bfloat16, or None for f32) casts the weights, ``x_seq`` and the graphs
+(dense stacks, or the tiles of blocked-ELL containers) inside the forward,
+so gradients flow back through the casts into the f32 master weights; the
+branch outputs are cast back to x_seq's dtype before their mean. The
+forward of a weight tree ``params`` in place of the module's own (the
+``quant/int8.py`` tree of ``-infer-precision int8``) dequantizes it first
+thing, so a captured rollout keeps only the int8 codes resident. With
+``remat`` each branch of a training forward runs under
+``torch.utils.checkpoint`` (where the JAX package puts ``jax.checkpoint``,
+:149-150, 350-351, 432-433): its kernels run again inside the backward
+instead of keeping their residuals.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from types import SimpleNamespace
+
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from mpgcn_tpu_torch.config import DEFAULT_LINEUPS, MPGCNConfig
@@ -30,6 +47,8 @@ from mpgcn_tpu_torch.nn.cuda_lstm import (
 )
 from mpgcn_tpu_torch.nn.init import linear_uniform
 from mpgcn_tpu_torch.nn.lstm import LSTM
+from mpgcn_tpu_torch.quant.int8 import dequantize_params, has_quantized
+from mpgcn_tpu_torch.sparse.formats import BlockedELL
 
 #: lstm_impl -> the function that runs one LSTM layer, by inference flag
 LSTM_LAYER_FNS = {
@@ -65,7 +84,8 @@ class MPGCN(nn.Module):
                  lstm_num_layers: int, gcn_num_layers: int,
                  use_bias: bool = True, sources=None,
                  lstm_impl: str = "kernel", bdgcn_impl: str = "kernel",
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", compute_dtype=None,
+                 remat: bool = False):
         super().__init__()
         if lstm_impl not in LSTM_LAYER_FNS:
             raise ValueError(f"lstm_impl={lstm_impl!r} is not one of "
@@ -78,6 +98,9 @@ class MPGCN(nn.Module):
             raise ValueError(f"{len(self.sources)} branch sources for "
                              f"M={M} branches")
         self.lstm_impl, self.bdgcn_impl = lstm_impl, bdgcn_impl
+        #: the training and evaluation forwards' compute dtype (None: the
+        #: weights' own, f32) and whether their branches are checkpointed
+        self.compute_dtype, self.remat = compute_dtype, remat
         self._lstm_layer_fns = LSTM_LAYER_FNS[lstm_impl]
         device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
@@ -95,11 +118,13 @@ class MPGCN(nn.Module):
                    lstm_num_layers=cfg.lstm_num_layers,
                    gcn_num_layers=cfg.gcn_num_layers, use_bias=cfg.use_bias,
                    sources=cfg.resolved_branch_sources, seed=cfg.seed,
-                   device=device, **kw)
+                   device=device,
+                   compute_dtype=compute_dtype_of(cfg.dtype),
+                   remat=cfg.remat, **kw)
 
-    def _branch(self, branch: Branch, lstm_in, G, B: int, N: int,
-                inference: bool):
-        """One branch: (B*N^2, T, F) rows -> pre-head (B, N, N, H) and
+    def _branch(self, branch, lstm_in, G, B: int, N: int, inference: bool):
+        """One branch (its ``Branch`` module, or a view of the same names
+        on other weights): (B*N^2, T, F) rows -> pre-head (B, N, N, H) and
         the FC+ReLU output (B, N, N, F)."""
         h = lstm_last_step_fused(branch.temporal.layers, lstm_in,
                                  layer_fn=self._lstm_layer_fns[inference])
@@ -107,35 +132,112 @@ class MPGCN(nn.Module):
         for layer in branch.spatial:
             h = bdgcn_apply(layer, h, G, activation=F.relu,
                             impl=self.bdgcn_impl)
-        return h, F.relu(branch.fc(h))
+        return h, F.relu(F.linear(h, branch.fc.weight, branch.fc.bias))
+
+    def _views(self, params, dtype) -> list:
+        """The branches the forward runs: the modules themselves, or views
+        of ``params`` (a ``{name: tensor}`` tree, dequantized when it holds
+        int8) or of the module's weights, cast to ``dtype``."""
+        if params is None and dtype is None:
+            return list(self.branches)
+        w = dict(self.named_parameters()) if params is None else params
+        if has_quantized(w):
+            w = dequantize_params(w)
+        if dtype is not None:
+            w = {k: v.to(dtype) for k, v in w.items()}
+        views = []
+        for m, branch in enumerate(self.branches):
+            p = f"branches.{m}"
+            layers = [SimpleNamespace(**{
+                n: w[f"{p}.temporal.layers.{i}.{n}"]
+                for n in ("w_ih", "w_hh", "b_ih", "b_hh")})
+                for i in range(len(branch.temporal.layers))]
+            spatial = [SimpleNamespace(W=w[f"{p}.spatial.{i}.W"],
+                                       b=w.get(f"{p}.spatial.{i}.b"))
+                       for i in range(len(branch.spatial))]
+            views.append(SimpleNamespace(
+                temporal=SimpleNamespace(layers=layers), spatial=spatial,
+                fc=SimpleNamespace(weight=w[f"{p}.fc.weight"],
+                                   bias=w[f"{p}.fc.bias"])))
+        return views
 
     def forward(self, x_seq: torch.Tensor, graphs, return_hidden=False,
-                inference: bool = True):
+                inference: bool = True, dtype="model", params=None):
         """x_seq (B, T, N, N, F); graphs[m] is branch m's static (K, N, N)
         stack or dynamic ((B, K, N, N), (B, K, N, N)) pair. Returns the
         (B, 1, N, N, F) one-step prediction, and with ``return_hidden``
         also each branch's pre-head BDGCN output. ``inference`` runs under
         ``torch.no_grad()`` on the inference kernels; ``inference=False``
-        is the differentiable training forward."""
+        is the differentiable training forward. ``dtype``: the compute
+        dtype, by default the model's ``compute_dtype`` (None: f32);
+        ``params``: a weight tree in place of the module's own (the
+        rollouts at ``-infer-precision int8``)."""
+        if dtype == "model":
+            dtype = self.compute_dtype
         if inference:
             with torch.no_grad():
-                return self._forward(x_seq, graphs, return_hidden, True)
-        return self._forward(x_seq, graphs, return_hidden, False)
+                return self._forward(x_seq, graphs, return_hidden, True,
+                                     dtype, params)
+        return self._forward(x_seq, graphs, return_hidden, False, dtype,
+                             params)
 
-    def _forward(self, x_seq, graphs, return_hidden, inference):
+    def _forward(self, x_seq, graphs, return_hidden, inference, dtype=None,
+                 params=None):
         if x_seq.ndim != 5 or x_seq.shape[2] != x_seq.shape[3]:
             raise ValueError(f"x_seq must be (B, T, N, N, F), got "
                              f"{tuple(x_seq.shape)}")
         if len(graphs) != len(self.branches):
             raise ValueError(f"{len(graphs)} graph inputs for "
                              f"{len(self.branches)} branches")
+        out_dtype = x_seq.dtype
+        if dtype is not None and dtype != x_seq.dtype:
+            x_seq = x_seq.to(dtype)
+            graphs = [cast_graph(G, dtype) for G in graphs]
+        else:
+            dtype = None
+        branches = self._views(params, dtype)
         B, T, N, _, i = x_seq.shape
         # each OD pair is an independent temporal sequence (MPGCN.py:100)
         lstm_in = x_seq.permute(0, 2, 3, 1, 4).reshape(B * N * N, T, i)
+        run = self._branch
+        if self.remat and not inference and torch.is_grad_enabled():
+            def run(*args):
+                return torch.utils.checkpoint.checkpoint(
+                    self._branch, *args, use_reentrant=False,
+                    preserve_rng_state=False)
         hidden, outs = [], []
-        for branch, G in zip(self.branches, graphs):
-            h, out = self._branch(branch, lstm_in, G, B, N, inference)
+        for branch, G in zip(branches, graphs):
+            h, out = run(branch, lstm_in, G, B, N, inference)
             hidden.append(h)
             outs.append(out)
-        pred = torch.stack(outs, dim=-1).mean(dim=-1)[:, None]
+        pred = torch.stack(outs, dim=-1).to(out_dtype).mean(dim=-1)[:, None]
         return (pred, hidden) if return_hidden else pred
+
+
+def compute_dtype_of(name: str):
+    """The compute dtype a config's ``dtype`` names: None for float32 (the
+    weights' own), torch.bfloat16 for bfloat16."""
+    return None if name == "float32" else getattr(torch, name)
+
+
+def infer_dtype_of(cfg):
+    """The rollouts' compute dtype (the JAX trainer's
+    ``_infer_compute_dtype``): bf16 for 'bf16', None (f32) for 'f32'; int8
+    quantizes the weights and computes in the training dtype."""
+    ip = cfg.resolved_infer_precision
+    if ip == "bf16":
+        return torch.bfloat16
+    return None if ip == "f32" else compute_dtype_of(cfg.dtype)
+
+
+def cast_graph(G, dtype):
+    """A branch's graph input in ``dtype``: a dense stack, a dynamic pair,
+    or blocked-ELL containers, whose f32 or bf16 tiles are cast (int8
+    codes stay codes, as the JAX package leaves quantized leaves)."""
+    if isinstance(G, tuple):
+        return tuple(cast_graph(g, dtype) for g in G)
+    if isinstance(G, BlockedELL):
+        if isinstance(G.blocks, torch.Tensor):
+            return dataclasses.replace(G, blocks=G.blocks.to(dtype))
+        return G
+    return G.to(dtype)

@@ -26,12 +26,24 @@ from __future__ import annotations
 import torch
 
 
-def _copy_all(dst, src) -> None:
+def copy_all(dst, src) -> None:
+    """``dst[i].copy_(src[i])`` for each i, in one multi-tensor launch
+    where torch has it."""
     if hasattr(torch, "_foreach_copy_"):
         torch._foreach_copy_(dst, src)
     else:
         for d, s in zip(dst, src):
             d.copy_(s)
+
+
+def flat_views(flat, ts) -> list:
+    """Views of the 1-D ``flat`` with the shapes of ``ts``, one after the
+    other from its start."""
+    out, o = [], 0
+    for t in ts:
+        out.append(flat[o: o + t.numel()].view(t.shape))
+        o += t.numel()
+    return out
 
 
 def all_finite(tensors) -> torch.Tensor:
@@ -80,16 +92,8 @@ class StepGuard:
             backup = torch.empty(n, dtype=dtype, device=device)
             scratch = torch.empty(n + dtype.is_floating_point, dtype=dtype,
                                   device=device)
-            self._bufs.append((ts, backup, self._views(backup, ts),
-                               scratch, self._views(scratch, ts)))
-
-    @staticmethod
-    def _views(flat, ts):
-        out, o = [], 0
-        for t in ts:
-            out.append(flat[o: o + t.numel()].view(t.shape))
-            o += t.numel()
-        return out
+            self._bufs.append((ts, backup, flat_views(backup, ts),
+                               scratch, flat_views(scratch, ts)))
 
     def buffers(self) -> list:
         """The guard's own buffers (where a captured step finds them)."""
@@ -98,11 +102,24 @@ class StepGuard:
 
     def save(self) -> None:
         for ts, _, backup_v, _, _ in self._bufs:
-            _copy_all(backup_v, ts)
+            copy_all(backup_v, ts)
 
-    def keep_if_finite(self, loss: torch.Tensor) -> torch.Tensor:
+    def select(self, ok: torch.Tensor) -> None:
+        """Keep the tensors as the step left them where ``ok``, else put
+        back their saved state (the loss scaler's skip)."""
+        for ts, backup, _, scratch, scratch_v in self._bufs:
+            copy_all(scratch_v[: len(ts)], ts)
+            kept = scratch[: backup.numel()]
+            skip_if_bad(ok, [kept], [backup], out=[kept])
+            copy_all(ts, scratch_v[: len(ts)])
+
+    def keep_if_finite(self, loss: torch.Tensor,
+                       also: torch.Tensor | None = None) -> torch.Tensor:
         """Judge the step and keep or restore the tensors; returns the
-        verdict (a device bool scalar)."""
+        verdict (a device bool scalar). ``also`` (a device bool, the loss
+        scaler's finite gradients) must hold too for the step to be kept,
+        so one select serves both verdicts; the one returned is still the
+        finiteness of the loss and the new state alone."""
         judged, with_loss = [], False
         for ts, _, _, scratch, scratch_v in self._bufs:
             src, dst = ts, scratch_v
@@ -113,10 +130,11 @@ class StepGuard:
                                                         scratch[-1:]]
                     with_loss = True
                 judged.append(scratch)
-            _copy_all(dst, src)
+            copy_all(dst, src)
         ok = all_finite(judged if with_loss else [*judged, loss])
+        keep = ok if also is None else ok & also
         for ts, backup, _, scratch, scratch_v in self._bufs:
             kept = scratch[: backup.numel()]
-            skip_if_bad(ok, [kept], [backup], out=[kept])
-            _copy_all(ts, scratch_v)
+            skip_if_bad(keep, [kept], [backup], out=[kept])
+            copy_all(ts, scratch_v)
         return ok

@@ -19,9 +19,16 @@ graphs share one memory pool, so their replays must never overlap: the
 batcher threads (one per horizon) serialise them on the graph set's one
 lock, held from the copy in to the copy out. Where no graph can be
 captured (the CPU, the ELL arm: graphs.py ``refusal``) every batch runs
-the eager rollout, as the ``[serve]`` line at startup says. Canary hot
-reload, the HTTP front, the SLO engine and span logs are not part of
-this engine yet.
+the eager rollout, as the ``[serve]`` line at startup says.
+
+Every bucket runs at the engine's inference precision
+(``cfg.infer_precision``, mpgcn_tpu/service/serve.py:164-172, 435-440;
+'auto' follows ``cfg.dtype``): f32, bf16 compute (the kernels' bf16
+forms), or int8 weight-only, where the weights are quantized per channel
+once at startup (quant/int8.py) and each rollout dequantizes the codes
+inside its forward, so the captured graphs keep only the codes resident.
+Canary hot reload, the HTTP front, the SLO engine and span logs are not
+part of this engine yet.
 """
 
 from __future__ import annotations
@@ -35,9 +42,15 @@ import torch
 from mpgcn_tpu_torch.config import MPGCNConfig, ServeConfig
 from mpgcn_tpu_torch.data.pipeline import DataPipeline
 from mpgcn_tpu_torch.device import resolve_device
-from mpgcn_tpu_torch.nn.cuda_bdgcn import BDGCN_PAIR_FWD
-from mpgcn_tpu_torch.nn.cuda_lstm import LSTM_INFER_COLLECT, LSTM_INFER_LAST
-from mpgcn_tpu_torch.nn.mpgcn import MPGCN
+from mpgcn_tpu_torch.nn.cuda_bdgcn import BDGCN_PAIR_FWD, BDGCN_PAIR_FWD_BF16
+from mpgcn_tpu_torch.nn.cuda_lstm import (
+    LSTM_INFER_COLLECT,
+    LSTM_INFER_COLLECT_BF16,
+    LSTM_INFER_LAST,
+    LSTM_INFER_LAST_BF16,
+)
+from mpgcn_tpu_torch.nn.mpgcn import MPGCN, infer_dtype_of
+from mpgcn_tpu_torch.quant.int8 import quantization_error, quantize_params
 from mpgcn_tpu_torch.service.batcher import (
     OK,
     REJECT_DRAINING,
@@ -47,7 +60,12 @@ from mpgcn_tpu_torch.service.batcher import (
 )
 from mpgcn_tpu_torch.service.ingest import validate_request
 from mpgcn_tpu_torch.sparse.cuda_ell import ELL_FWD, ELL_FWD_Q
-from mpgcn_tpu_torch.train.graphs import GraphSet, RolloutGraphs, refusal
+from mpgcn_tpu_torch.train.graphs import (
+    GraphSet,
+    Precision,
+    RolloutGraphs,
+    refusal,
+)
 from mpgcn_tpu_torch.train.predict import rollout
 from mpgcn_tpu_torch.utils.convert import load_jax_checkpoint, params_from_jax
 
@@ -55,6 +73,9 @@ from mpgcn_tpu_torch.utils.convert import load_jax_checkpoint, params_from_jax
 KERNELS = {"lstm_infer_last": LSTM_INFER_LAST,
            "lstm_infer_collect": LSTM_INFER_COLLECT,
            "bdgcn_pair_fwd": BDGCN_PAIR_FWD,
+           "lstm_infer_last_bf16": LSTM_INFER_LAST_BF16,
+           "lstm_infer_collect_bf16": LSTM_INFER_COLLECT_BF16,
+           "bdgcn_pair_fwd_bf16": BDGCN_PAIR_FWD_BF16,
            "ell_fwd": ELL_FWD,
            "ell_fwd_q": ELL_FWD_Q}
 
@@ -97,6 +118,19 @@ class ServeEngine:
                 "no checkpoint to serve: pass init_ckpt, or "
                 "allow_fresh=True for a fresh seeded init")
 
+        # the inference precision every bucket runs at (int8: the
+        # quantized tree, made once from the weights just loaded)
+        self.infer_precision = cfg.resolved_infer_precision
+        self.quant_max_abs_error = 0.0
+        qparams = None
+        if self.infer_precision == "int8":
+            params = dict(self.model.named_parameters())
+            qparams = quantize_params(params)
+            self.quant_max_abs_error = quantization_error(
+                params, qparams)["max_abs_error"]
+        self._precision = Precision(self.infer_precision,
+                                    infer_dtype_of(cfg), qparams)
+
         # per-bucket pad-waste accounting: {bucket: [live, padded, batches]}
         self._pad_stats: dict[int, list] = {}
         self._outcomes: dict[str, int] = {}
@@ -123,11 +157,13 @@ class ServeEngine:
                 GraphSet(self.device, self.pipeline.bdgcn_impl), self.model,
                 self.banks)
             secs = self._rollouts.capture_all(self.scfg.buckets,
-                                              self.horizons, T, N)
+                                              self.horizons, T, N,
+                                              self._precision)
             print(f"[serve] captured {len(self._rollouts.graphs.graphs)} "
                   f"rollout graphs (buckets {list(self.scfg.buckets)} x "
-                  f"horizons {list(self.horizons)}) in {secs:.2f}s; one "
-                  f"memory pool, replays serialised by one lock")
+                  f"horizons {list(self.horizons)}, infer_precision="
+                  f"{self.infer_precision}) in {secs:.2f}s; one memory "
+                  f"pool, replays serialised by one lock")
             return
         print(f"[serve] rollout graphs: none ({why}); every batch runs "
               f"the eager rollout")
@@ -135,7 +171,8 @@ class ServeEngine:
             x = torch.zeros((b, T, N, N, 1), device=self.device)
             k = torch.zeros((b,), dtype=torch.long, device=self.device)
             for h in self.horizons:
-                rollout(self.model, self.banks, x, k, h)
+                rollout(self.model, self.banks, x, k, h,
+                        self._precision.dtype, self._precision.params)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -148,10 +185,12 @@ class ServeEngine:
                 st[2] += 1
             xt = torch.from_numpy(x)
             kt = torch.from_numpy(keys.astype(np.int64))
+            prec = self._precision
             if self._rollouts is not None:
-                return self._rollouts.run(xt, kt, horizon).numpy()
+                return self._rollouts.run(xt, kt, horizon, prec).numpy()
             return rollout(self.model, self.banks, xt.to(self.device),
-                           kt.to(self.device), horizon).cpu().numpy()
+                           kt.to(self.device), horizon, prec.dtype,
+                           prec.params).float().cpu().numpy()
 
         return run_batch
 
@@ -220,6 +259,8 @@ class ServeEngine:
         out = {
             "device": str(self.device),
             "params": self.params_source,
+            "infer_precision": self.infer_precision,
+            "quant_max_abs_error": self.quant_max_abs_error,
             "outcomes": outcomes,
             "resolved": sum(outcomes.values()),
             "horizons": list(self.horizons),

@@ -11,6 +11,12 @@ destination supports), each differentiable through sparse/cuda_ell.py.
 The (K, C, H) projections stay ``torch.einsum``, as they stay XLA in the
 JAX package. The fused epilogue (one destination SpMM for all origins) is
 not ported.
+
+Under ``-dtype bfloat16`` X arrives in bf16 (and the tiles too: the model
+casts its graphs). ``ell_spmm`` widens X exactly to f32 at the SpMM's
+boundary and rounds the output to bf16, which is the Pallas kernel's
+``promote(blocks, X)`` arithmetic (bf16 products summed in f32, stored in
+X's dtype) on the same ELL kernels; autograd carries the casts' gradients.
 """
 
 from __future__ import annotations
@@ -69,6 +75,8 @@ def ell_spmm(ell: BlockedELL, X: torch.Tensor) -> torch.Tensor:
     F = X.shape[-1]
     cols, tiles, scale, t_ptr, t_slot = flat_stack(ell)
     X3 = X.reshape(G, ell.n_cols, F)
+    if X.dtype == torch.bfloat16:  # widened exactly; the output rounded
+        return ell_spmm(ell, X.float()).to(torch.bfloat16)
     if scale is not None:
         if _recording(X, scale):
             out = EllSpmmQFn.apply(cols, tiles, scale, t_ptr, t_slot, X3,

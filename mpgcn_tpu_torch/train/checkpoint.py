@@ -17,6 +17,14 @@ a best-only file. The other way, ``adam_state_from_jax`` maps a JAX
 checkpoint's ``ScaleByAdamState(count, mu, nu)`` by position when its
 chain matches the port's configuration.
 
+With the dynamic loss scaler (bf16 training), the JAX optimizer state is
+``DynamicLossScaleState(inner, scale, good_steps, skipped)`` around the
+chain's: ``adam_state_from_jax`` reads the chain from ``inner`` and the
+scaler's three scalars beside it, and the port writes them under
+``loss_scale`` in its own key (``{"scale", "good_steps", "skipped"}``).
+A state with a scaler fits only a run with one, and one without only a
+run without (the JAX trainer's structure check).
+
 ``load_checkpoint`` reads through the restricted unpickler of
 utils/convert.py (a torn file raises ``CheckpointCorruptError``) and
 applies ``check_branch_spec``.
@@ -68,8 +76,19 @@ def _find_adam(tree):
 
 def adam_state_from_jax(opt_state, chain: tuple) -> Optional[dict]:
     """A JAX checkpoint's optax state as the port's ``{"count", "mu",
-    "nu"}``, or None where its chain's structure differs from ``chain``
-    (the JAX trainer then restores params only and reinitialises)."""
+    "nu"}`` (and ``loss_scale`` from a ``DynamicLossScaleState``), or None
+    where its chain's structure differs from ``chain`` (the JAX trainer
+    then restores params only and reinitialises)."""
+    if isinstance(opt_state, _Stub) \
+            and opt_state.name == "DynamicLossScaleState" \
+            and len(opt_state.args) == 4:
+        inner, scale, good_steps, skipped = opt_state.args
+        state = adam_state_from_jax(inner, chain)
+        if state is not None:
+            state["loss_scale"] = {"scale": float(scale),
+                                   "good_steps": int(good_steps),
+                                   "skipped": int(skipped)}
+        return state
     if _structure(opt_state) != chain:
         return None
     adam = _find_adam(opt_state)
@@ -89,10 +108,16 @@ def opt_state_to_host(model, optimizer) -> dict:
     moments = host_arrays([st[p][k] for k in ("exp_avg", "exp_avg_sq")
                            for _, p in named])
     names = [n for n, _ in named]
-    return {"count": int(optimizer.step_t),
-            "mu": params_to_jax(dict(zip(names, moments[:len(names)]))),
-            "nu": params_to_jax(dict(zip(names, moments[len(names):]))),
-            "chain": optimizer.chain}
+    state = {"count": int(optimizer.step_t),
+             "mu": params_to_jax(dict(zip(names, moments[:len(names)]))),
+             "nu": params_to_jax(dict(zip(names, moments[len(names):]))),
+             "chain": optimizer.chain}
+    if optimizer.scaler is not None:
+        st = optimizer.scaler.stats()
+        state["loss_scale"] = {"scale": st["scale"],
+                               "good_steps": st["good_steps"],
+                               "skipped": st["skipped_steps"]}
+    return state
 
 
 def load_opt_state(model, optimizer, state: dict) -> None:
@@ -105,6 +130,8 @@ def load_opt_state(model, optimizer, state: dict) -> None:
             st["exp_avg"].copy_(mu[n])
             st["exp_avg_sq"].copy_(nu[n])
     optimizer.set_count(int(state["count"]))
+    if optimizer.scaler is not None and "loss_scale" in state:
+        optimizer.scaler.load(state["loss_scale"])
 
 
 def checkpoint_payload(params: dict, epoch: int, extra: dict | None = None,

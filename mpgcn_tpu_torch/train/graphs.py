@@ -121,43 +121,60 @@ class GraphSet:
             self.pool = torch.cuda.graph_pool_handle()
 
 
+class Precision:
+    """A rollout's precision: its ``name`` (f32, bf16 or int8, the key of
+    its graphs), compute ``dtype`` (None: f32) and weight tree ``params``
+    (the int8 tree, or None for the model's own weights)."""
+
+    def __init__(self, name: str = "f32", dtype=None, params=None):
+        self.name, self.dtype, self.params = name, dtype, params
+
+
 class RolloutGraphs:
     """One captured ``rollout`` of ``model`` over ``banks`` per (batch,
-    horizon), the counterpart of the JAX trainer's jitted ``_rollout`` and
-    of the serve engine's AOT executable per (bucket, horizon). ``run``
-    captures a pair on its first call (whose answer is the eager warm-up
-    run's) and replays it after."""
+    horizon, precision), the counterpart of the JAX trainer's jitted
+    ``_rollout`` and of the serve engine's AOT executable per (bucket,
+    horizon) and precision mode. ``run`` captures a triple on its first
+    call (whose answer is the eager warm-up run's) and replays it after; a
+    graph of one precision never answers a request at another. A graph
+    reads the int8 tree where it lay at its capture: whoever replaces the
+    tree (not refills it in place) drops the graphs (``GraphSet.drop``)."""
 
     def __init__(self, graphs: GraphSet, model, banks: dict):
         self.graphs, self.model, self.banks = graphs, model, banks
 
-    def run(self, x: torch.Tensor, keys: torch.Tensor,
-            horizon: int) -> torch.Tensor:
+    def run(self, x: torch.Tensor, keys: torch.Tensor, horizon: int,
+            precision: Precision | None = None) -> torch.Tensor:
         """x (B, T, N, N, 1), keys (B,) int64, on any device -> the
-        (B, horizon, N, N, 1) forecast on the host."""
+        (B, horizon, N, N, 1) forecast on the host, at ``precision``
+        (default f32 on the model's weights)."""
+        prec = precision or Precision()
+        key = (x.shape[0], horizon, prec.name)
         with self.graphs.lock:
-            g = self.graphs.get((x.shape[0], horizon))
+            g = self.graphs.get(key)
             if g is not None:
                 return g.replay(x, keys).cpu()
             xs = x.to(self.graphs.device, copy=True)
             ks = keys.to(self.graphs.device, copy=True)
 
             def fn():
-                return rollout(self.model, self.banks, xs, ks, horizon)
+                return rollout(self.model, self.banks, xs, ks, horizon,
+                               prec.dtype, prec.params)
 
             out = self.graphs.warmup(fn).cpu()
-            self.graphs.capture((x.shape[0], horizon), fn, (xs, ks))
+            self.graphs.capture(key, fn, (xs, ks))
             return out
 
-    def capture_all(self, shapes, horizons, obs_len: int,
-                    num_nodes: int) -> float:
-        """Capture every (batch in ``shapes``, horizon) pair on zero
-        inputs; returns the seconds it took."""
+    def capture_all(self, shapes, horizons, obs_len: int, num_nodes: int,
+                    precision: Precision | None = None) -> float:
+        """Capture every (batch in ``shapes``, horizon) pair at
+        ``precision`` on zero inputs; returns the seconds it took."""
+        prec = precision or Precision()
         t0 = time.perf_counter()
         for b in shapes:
             x = torch.zeros((b, obs_len, num_nodes, num_nodes, 1))
             k = torch.zeros((b,), dtype=torch.long)
             for h in horizons:
-                if self.graphs.get((b, h)) is None:
-                    self.run(x, k, h)
+                if self.graphs.get((b, h, prec.name)) is None:
+                    self.run(x, k, h, prec)
         return time.perf_counter() - t0

@@ -14,7 +14,10 @@ moment updates, which is optax's ``add_decayed_weights`` placed before
 ``adam``; ``ChainAdam.step`` clips the gradients before that and reads the
 step's rate from the schedule, tabulated on the device. With
 ``sentinels`` a step that goes non-finite is undone inside the step
-(resilience/sentinels.py).
+(resilience/sentinels.py). With a ``scaler`` (bf16 training, quant/
+scaling.py) the gradients arrive scaled: the update unscales them before
+the clip and skips itself where they are not finite, as the JAX package's
+outermost ``dynamic_loss_scaling`` transform does.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import math
 
 import torch
 
+from mpgcn_tpu_torch.quant.scaling import DynamicLossScaler
 from mpgcn_tpu_torch.resilience.sentinels import StepGuard, mark_loss
 
 LOSSES = ("MSE", "MAE", "Huber")
@@ -103,11 +107,22 @@ class ChainAdam(torch.optim.Adam):
     update and puts them back where the update (or the loss) went
     non-finite: a skipped step does not advance ``step_t``, so ``count``
     may then run ahead of it; ``step_t`` is the truth. ``chain`` names the
-    optax chain these settings stand for (``chain_signature``)."""
+    optax chain these settings stand for (``chain_signature``).
+
+    With a ``scaler`` (``DynamicLossScaler``) the guard keeps the same
+    state around every update, and a step whose (scaled) gradients are not
+    finite puts it all back and halves the scale: a scaler skip, which
+    does not mark the loss. Composed with the sentinels as in the JAX
+    trainer's ``_train_step_fn``: a sentinel reject with finite gradients
+    also keeps the scaler's state from before the step (its streak does
+    not advance), a scaler skip keeps its halved scale, and a scaler skip
+    at a scale already at ``min_scale`` counts as a sentinel skip. Both
+    verdicts go into one select of the guarded state."""
 
     def __init__(self, params, schedule, decay_rate: float = 0.0,
                  clip_norm: float = 0.0, total_steps: int = 0,
-                 sentinels: bool = False, chain: tuple = ()):
+                 sentinels: bool = False, chain: tuple = (),
+                 scaler: DynamicLossScaler | None = None):
         params = list(params)
         device = params[0].device if params and torch.is_tensor(
             params[0]) else params[0]["params"][0].device
@@ -122,7 +137,9 @@ class ChainAdam(torch.optim.Adam):
         # the per-step path runs capturable Adam uncaptured on purpose
         self._warned_capturable_if_run_uncaptured = True
         self._init_state()
-        self.guard = StepGuard(self.guarded()) if sentinels else None
+        self.sentinels, self.scaler = sentinels, scaler
+        self.guard = (StepGuard(self.guarded())
+                      if sentinels or scaler is not None else None)
 
     def _init_state(self) -> None:
         """Adam's lazy state, made now (as ``Adam._init_group`` makes it)."""
@@ -166,20 +183,41 @@ class ChainAdam(torch.optim.Adam):
 
     @torch.no_grad()
     def update(self, loss=None):
-        """The step on the device: clip, the rate ``lr_table[step_t]``,
-        Adam, ``step_t + 1``; no host sync, nothing read back. Returns
-        ``loss``, under sentinels marked NaN where the step was undone."""
+        """The step on the device: unscale (with a scaler), clip, the rate
+        ``lr_table[step_t]``, Adam, ``step_t + 1``; no host sync, nothing
+        read back. Returns ``loss``, under sentinels marked NaN where the
+        step was undone."""
         if self.guard is not None:
             self.guard.save()
+        grads = [p.grad for p in self.all_params() if p.grad is not None]
+        scaler, finite = self.scaler, None
+        if scaler is not None:
+            scaler.save()
+            finite = scaler.unscale_(grads)
         if self.clip_norm:
-            clip_by_global_norm_([p.grad for p in self.all_params()
-                                  if p.grad is not None], self.clip_norm)
+            clip_by_global_norm_(grads, self.clip_norm)
         torch.index_select(self.lr_table, 0, self.step_t, out=self.lr_t)
         super().step()
         self.step_t += 1
-        if self.guard is None or loss is None:
+        judged = self.sentinels and loss is not None
+        if judged:
+            # one select for both: the sentinel's verdict and the scaler's
+            # (a scaler skip leaves it all; its update ran on zeroed
+            # gradients, so the sentinel judges finite numbers there)
+            ok = self.guard.keep_if_finite(loss, finite)
+        elif scaler is not None:
+            self.guard.select(finite)
+        if scaler is not None:
+            scaler.advance(finite)
+        if not judged:
             return loss
-        return mark_loss(self.guard.keep_if_finite(loss), loss)
+        if scaler is not None:
+            # the sentinel undid the step: the scaler's state goes back
+            # too, unless the scaler itself skipped (its halving stands)
+            scaler.select(ok | ~finite)
+            # a scaler skip at the floor scale is no scale overflow
+            ok = ok & ~(~finite & (scaler.saved_scale() <= scaler.min_scale))
+        return mark_loss(ok, loss)
 
     def advance(self, n: int) -> None:
         """Count ``n`` updates that ran without ``step`` (graph replays)."""
@@ -211,6 +249,8 @@ class ChainAdam(torch.optim.Adam):
             self.state[p]["exp_avg"].zero_()
             self.state[p]["exp_avg_sq"].zero_()
         self.set_count(0)
+        if self.scaler is not None:
+            self.scaler.reset()
 
     @torch.no_grad()
     def set_schedule(self, schedule) -> None:
@@ -239,12 +279,24 @@ def make_optimizer(kind: str, params, learn_rate: float,
                    decay_rate: float = 0.0, clip_norm: float = 0.0,
                    lr_schedule: str = "none",
                    total_steps: int = 0,
-                   sentinels: bool = False) -> ChainAdam:
+                   sentinels: bool = False, loss_scaling: bool = False,
+                   loss_scale_init: float = 65536.0,
+                   loss_scale_growth_interval: int = 200,
+                   loss_scale_min: float = 1.0) -> ChainAdam:
     """The JAX package's optimizer chain: clip, decay, Adam at
     ``lr_schedule``'s rate over ``total_steps`` optimizer steps; with
-    ``sentinels``, each step guarded."""
+    ``sentinels``, each step guarded; with ``loss_scaling``, the dynamic
+    loss scaler outermost (quant/scaling.py)."""
     if kind != "Adam":
         raise NotImplementedError("Invalid optimizer name.")
+    params = list(params)
+    scaler = None
+    if loss_scaling:
+        scaler = DynamicLossScaler(
+            params, init_scale=loss_scale_init,
+            growth_interval=loss_scale_growth_interval,
+            min_scale=loss_scale_min)
     return ChainAdam(params, lr_at(learn_rate, lr_schedule, total_steps),
                      decay_rate, clip_norm, total_steps, sentinels,
-                     chain_signature(clip_norm, decay_rate, lr_schedule))
+                     chain_signature(clip_norm, decay_rate, lr_schedule),
+                     scaler)

@@ -1,7 +1,11 @@
 """The autoregressive rollout (counterpart of ModelTrainer._graphs and
 _rollout_fn, mpgcn_tpu/train/trainer.py:387-406, 1090-1102): ``rollout``
 for inference, ``rollout_train`` differentiable for multi-step
-training."""
+training. A rollout runs at a precision: its compute dtype (``dtype``; by
+default the model's training dtype) and, for int8 weight-only inference,
+the quantized weight tree (``params``), which each step's forward
+dequantizes (the JAX ``_rollout`` on ``_inference_params()`` at
+``_infer_compute_dtype``, mpgcn_tpu/train/trainer.py:409-452)."""
 
 from __future__ import annotations
 
@@ -23,10 +27,12 @@ def graphs_for(banks: dict, keys: torch.Tensor, sources) -> list:
     return out
 
 
-def _shift_append(model, graphs, x, horizon: int, inference: bool):
+def _shift_append(model, graphs, x, horizon: int, inference: bool,
+                  dtype="model", params=None):
     cur, preds = x, []
     for _ in range(horizon):
-        p = model(cur, graphs, inference=inference)
+        p = model(cur, graphs, inference=inference, dtype=dtype,
+                  params=params)
         cur = torch.cat([cur[:, 1:], p], dim=1)
         preds.append(p)
     return torch.cat(preds, dim=1)
@@ -34,12 +40,13 @@ def _shift_append(model, graphs, x, horizon: int, inference: bool):
 
 @torch.no_grad()
 def rollout(model, banks: dict, x: torch.Tensor, keys: torch.Tensor,
-            horizon: int) -> torch.Tensor:
+            horizon: int, dtype="model", params=None) -> torch.Tensor:
     """Autoregressive shift-and-append for ``horizon`` steps (reference:
     Model_Trainer.py:159-164): x (B, T, N, N, 1) -> (B, horizon, N, N, 1),
-    on the inference kernels."""
+    on the inference kernels, at compute ``dtype`` on ``params`` (the
+    model's own weights when None)."""
     return _shift_append(model, graphs_for(banks, keys, model.sources), x,
-                         horizon, True)
+                         horizon, True, dtype, params)
 
 
 def rollout_train(model, graphs, x: torch.Tensor,

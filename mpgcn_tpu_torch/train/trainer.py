@@ -65,9 +65,25 @@ The self-healing loop (the JAX trainer's ``train``/``_train_loop``):
   state per epoch only when armed;
 - the jsonl run log, with the JAX event names.
 
-Not here yet: bf16 and loss scaling, remat, the stream executor, the
-orbax checkpoint backend, fault injection, the multi-process votes and
-the metrics registry.
+Precision (the JAX trainer's ``_loss_scaling`` and ``_inference_params``;
+its ``_infer_precision`` is ``cfg.resolved_infer_precision`` here, its
+``_infer_compute_dtype`` ``nn.mpgcn.infer_dtype_of``): ``cfg.dtype =
+"bfloat16"`` trains and evaluates with bf16 compute on the f32 master
+weights, through the kernels' bf16 forms (nn/mpgcn.py casts inside the
+forward), and with ``cfg.loss_scaling`` (auto: on for bf16) the dynamic
+loss scaler: the loss
+is scaled before ``backward`` and the optimizer unscales, skips and
+rescales inside the (captured) step (quant/scaling.py); its scale and
+skips go into the epoch event of the jsonl log. ``cfg.remat`` checkpoints
+each branch of the training forwards (per rollout step under multi-step
+training). The rollouts of test and predict run at ``cfg.infer_precision``
+(auto: the training dtype): f32, bf16, or int8 weight-only on the
+per-channel quantized tree, made once per weights version and refilled in
+place, so the captured rollouts that read it stay valid; each precision
+has its own captured rollouts.
+
+Not here yet: the stream executor, the orbax checkpoint backend, fault
+injection, the multi-process votes and the metrics registry.
 """
 
 from __future__ import annotations
@@ -84,7 +100,12 @@ import torch
 from mpgcn_tpu_torch.config import MPGCNConfig
 from mpgcn_tpu_torch.data.pipeline import Batch, DataPipeline
 from mpgcn_tpu_torch.device import resolve_device
-from mpgcn_tpu_torch.nn.mpgcn import MPGCN
+from mpgcn_tpu_torch.nn.mpgcn import MPGCN, infer_dtype_of
+from mpgcn_tpu_torch.quant.int8 import (
+    quantization_error,
+    quantize_params,
+    requantize_,
+)
 from mpgcn_tpu_torch.resilience.rollback import (
     RollbackSignal,
     emergency_path,
@@ -101,7 +122,12 @@ from mpgcn_tpu_torch.train.checkpoint import (
     load_opt_state,
     opt_state_to_host,
 )
-from mpgcn_tpu_torch.train.graphs import GraphSet, RolloutGraphs, refusal
+from mpgcn_tpu_torch.train.graphs import (
+    GraphSet,
+    Precision,
+    RolloutGraphs,
+    refusal,
+)
 from mpgcn_tpu_torch.train.objectives import (
     elementwise_loss,
     lr_at,
@@ -227,7 +253,17 @@ class ModelTrainer:
             cfg.optimizer, self.model.parameters(), cfg.learn_rate,
             cfg.decay_rate, clip_norm=cfg.clip_norm,
             lr_schedule=cfg.lr_schedule, total_steps=self._total_steps,
-            sentinels=cfg.step_sentinels)
+            sentinels=cfg.step_sentinels, loss_scaling=self._loss_scaling,
+            loss_scale_init=cfg.loss_scale_init,
+            loss_scale_growth_interval=cfg.loss_scale_growth_interval,
+            loss_scale_min=cfg.loss_scale_min)
+        #: the int8 tree of -infer-precision int8, its weights version and
+        #: its round-trip error (``_inference_params``)
+        self._quant = self._quant_version = None
+        self.quant_max_abs_error = 0.0
+        #: bumped wherever the weights are replaced (load, reseed), beside
+        #: the optimizer's update count: a weights version
+        self._weights_gen = 0
         self.global_step = 0
         self._clock = None  # (time, step) once the warm-up steps are done
         # the self-healing loop's state
@@ -249,6 +285,44 @@ class ModelTrainer:
         self._rollouts = (None if self._graphs is None else
                           RolloutGraphs(self._graphs, self.model, self.banks))
         self._graph_ptrs = self._state_ptrs()
+
+    # --- precision -------------------------------------------------------
+
+    @property
+    def _loss_scaling(self) -> bool:
+        """Dynamic loss scaling on? 'auto' follows the compute dtype: on
+        for bf16, off for f32 (whose optimizer and numerics stay exactly
+        as without a scaler)."""
+        if self.cfg.loss_scaling == "dynamic":
+            return True
+        return (self.cfg.loss_scaling == "auto"
+                and self.cfg.dtype == "bfloat16")
+
+    def _weights_version(self) -> tuple:
+        return (self.optimizer.count, self._weights_gen)
+
+    def _inference_params(self):
+        """The weights the rollouts run on: None (the model's own), or
+        under int8 the per-channel quantized tree, quantized again (in
+        place) only when the weights version moved since."""
+        if self.cfg.resolved_infer_precision != "int8":
+            return None
+        params = dict(self.model.named_parameters())
+        if self._quant is None:
+            self._quant = quantize_params(params)
+        elif self._quant_version != self._weights_version():
+            requantize_(self._quant, params)
+        else:
+            return self._quant
+        self._quant_version = self._weights_version()
+        self.quant_max_abs_error = quantization_error(
+            params, self._quant)["max_abs_error"]
+        return self._quant
+
+    def _precision(self) -> Precision:
+        """The rollouts' precision, with its int8 tree where it has one."""
+        return Precision(self.cfg.resolved_infer_precision,
+                         infer_dtype_of(self.cfg), self._inference_params())
 
     # --- one step --------------------------------------------------------
 
@@ -300,17 +374,21 @@ class ModelTrainer:
         their loss sums and gradients add up, and both are divided by
         ``size`` once, so the step is the full batch's."""
         self.optimizer.zero_grad(set_to_none=True)
+        # with the loss scaler the backward starts from the scale (JAX:
+        # ``_loss_grads``); the loss returned is the unscaled one
+        scaler = self.optimizer.scaler
+        scaled = scaler.scale_loss if scaler is not None else (lambda v: v)
         k = self.cfg.grad_accum
         if k == 1:
             loss = self._batch_loss(x, y, keys, size)
-            loss.backward()
+            scaled(loss).backward()
             return loss.detach()
         pos = torch.arange(x.shape[0], device=x.device)
         total = None
         for j in range(k):
             part = self._masked_sum_loss(x[j::k], y[j::k], keys[j::k], size,
                                          pos[j::k])
-            part.backward()
+            scaled(part).backward()
             total = part.detach() if total is None else total + part.detach()
         torch._foreach_div_([p.grad for p in self.optimizer.all_params()
                              if p.grad is not None], size)
@@ -433,14 +511,18 @@ class ModelTrainer:
         state = [v for st in opt.state.values() for v in st.values()
                  if torch.is_tensor(v)]
         guard = opt.guard.buffers() if opt.guard is not None else []
+        scaler = opt.scaler.buffers() if opt.scaler is not None else []
+        quant = [t for v in (self._quant or {}).values()
+                 for t in ((v.q, v.scale) if hasattr(v, "q") else (v,))]
         return tuple(t.data_ptr() for t in (
             *self.model.parameters(), opt.lr_table, opt.lr_t, opt.step_t,
-            *state, *guard))
+            *state, *guard, *scaler, *quant))
 
     def _check_storage(self) -> None:
-        """Drop every captured graph when the weights, Adam's state or the
-        rate table moved since the last capture or check: a graph reads
-        them where they lay when it was captured. ``load_trained`` copies
+        """Drop every captured graph when the weights, Adam's state, the
+        rate table, the loss scaler's state or the int8 tree moved since
+        the last capture or check: a graph reads them where they lay when
+        it was captured. ``load_trained`` copies
         in place and keeps the graphs; a grown rate table or a module
         made anew moves them. Each graph is captured again at its next
         use."""
@@ -620,7 +702,8 @@ class ModelTrainer:
         ulp)."""
         x, _, keys, _ = self._first_batch()
         pred = self.model(x, graphs_for(self.banks, keys,
-                                        self.model.sources), inference=True)
+                                        self.model.sources), inference=True,
+                          dtype=infer_dtype_of(self.cfg))
         return bool((pred == 0).all())
 
     def _dead_init_msg(self, detail: str) -> str:
@@ -655,6 +738,7 @@ class ModelTrainer:
                                   bdgcn_impl=self.bdgcn_impl)
         self.model.load_state_dict(fresh.state_dict())
         self.optimizer.reset()
+        self._weights_gen += 1
         self._dead_init_detected = False
 
     def _try_load_ckpt(self, path: str, logger=None):
@@ -950,13 +1034,20 @@ class ModelTrainer:
                           f"improve from {state['best_val']:.5}.")
                     state["patience_count"] -= 1
                 self._save_last(epoch, snap=snap, **state)
+                # the loss scaler's state: one read an epoch, never a step
+                scaler = (self.optimizer.scaler.stats()
+                          if self.optimizer.scaler is not None else {})
                 logger.log("epoch", epoch=epoch,
                            **{f"{m}_loss": history[m][-1] for m in modes},
                            best_val=state["best_val"],
                            best_epoch=state["best_epoch"],
                            patience=state["patience_count"],
                            skipped_steps=skipped, loss_spikes=spikes,
-                           steps_per_sec=round(self.steps_per_sec(), 3))
+                           steps_per_sec=round(self.steps_per_sec(), 3),
+                           **({"loss_scale": scaler["scale"],
+                               "scaler_skipped_steps":
+                                   scaler["skipped_steps"]}
+                              if scaler else {}))
                 if state["patience_count"] <= 0:
                     _banner(f"    Early stopping at epoch {epoch}. "
                             f"{cfg.model} model training ends.")
@@ -993,13 +1084,16 @@ class ModelTrainer:
         ckpt = load_checkpoint(path, self.cfg.num_branches,
                                self.cfg.resolved_branch_sources)
         self.model.load_state_dict(params_from_jax(ckpt["params"]))
+        self._weights_gen += 1
         if not _has_opt_state(ckpt):
             return ckpt
         chain = self.optimizer.chain
         state = ckpt.get(OPT_STATE_KEY)
         if state is None:
             state = adam_state_from_jax(ckpt["opt_state"], chain)
-        if state is None or tuple(state["chain"]) != chain:
+        if (state is None or tuple(state["chain"]) != chain
+                or ("loss_scale" in state)
+                != (self.optimizer.scaler is not None)):
             print(f"WARNING: optimizer state in {path} has a different "
                   f"structure than this run's optimizer (it was saved "
                   f"under different clip_norm/lr_schedule/decay settings); "
@@ -1019,13 +1113,15 @@ class ModelTrainer:
         pred_len = pred_len or self.cfg.pred_len
         xt = torch.from_numpy(np.array(x, np.float32))
         kt = torch.from_numpy(np.asarray(keys, np.int64))
+        prec = self._precision()
         if self._rollouts is not None:
             self._check_storage()
-            out = self._rollouts.run(xt, kt, pred_len).numpy()
+            out = self._rollouts.run(xt, kt, pred_len, prec).numpy()
             self._graph_ptrs = self._state_ptrs()
             return out
         return rollout(self.model, self.banks, xt.to(self.device),
-                       kt.to(self.device), pred_len).cpu().numpy()
+                       kt.to(self.device), pred_len, prec.dtype,
+                       prec.params).float().cpu().numpy()
 
     def test(self, denormalize: bool = False) -> dict:
         """Multi-step autoregressive evaluation of the train and test

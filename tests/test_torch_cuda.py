@@ -181,8 +181,11 @@ def test_wide_lstm_forwards_match_float64(cuda_device, record_property, R,
 def test_lstm_kernel_rejects_what_it_does_not_take(cuda_device):
     xp = torch.zeros((7, 10, 4 * 32), device=cuda_device)
     w = torch.zeros((32, 128), device=cuda_device)
-    with pytest.raises(TypeError, match="float32"):
-        cuda_lstm.lstm_layer_infer(xp.bfloat16(), w.bfloat16(), False)
+    # float32 or bfloat16 (the bf16 entries), never float16 nor a mix
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        cuda_lstm.lstm_layer_infer(xp.half(), w.half(), False)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        cuda_lstm.lstm_layer_infer(xp.bfloat16(), w, False)
     x, w_ih, b, _ = _fused_inputs(cuda_device, 7, 10, 32, 1, seed=0)
     with pytest.raises(ValueError, match="1 <= F <= 4"):
         x5 = torch.zeros((10, 7, 5), device=cuda_device)
@@ -296,6 +299,9 @@ def test_engine_serves_through_the_kernels(cuda_device):
         assert launches == {"lstm_infer_last": steps,
                             "lstm_infer_collect": steps,
                             "bdgcn_pair_fwd": steps * cfg.gcn_num_layers,
+                            "lstm_infer_last_bf16": 0,
+                            "lstm_infer_collect_bf16": 0,
+                            "bdgcn_pair_fwd_bf16": 0,
                             "ell_fwd": 0, "ell_fwd_q": 0}
         plain = MPGCN.from_config(eng.cfg, device=cuda_device,
                                   lstm_impl="plain", bdgcn_impl="einsum")
@@ -510,6 +516,8 @@ def test_trainer_step_runs_the_training_kernels(cuda_device, tmp_path):
     assert {n: k.launches for n, k in kernels.items()} == {
         "lstm_infer_last": 0, "lstm_infer_collect": 0,
         "bdgcn_pair_fwd": 6, "ell_fwd": 0, "ell_fwd_q": 0,
+        "lstm_infer_last_bf16": 0, "lstm_infer_collect_bf16": 0,
+        "bdgcn_pair_fwd_bf16": 0,
         "lstm_train_fwd": 2, "lstm_train_bwd": 2, "bdgcn_pair_bwd": 6}
     ref = dict(plain.model.named_parameters())
     for name, p in tr.model.named_parameters():
@@ -783,7 +791,12 @@ def _put_non_finite(dev, a, at):
                                                                "w")],
     *[("bdgcn_pair_bwd", o) for o in ("h1", "g", "w", "dout")],
     ("lstm_train_bwd_engine", "dhs"), ("lstm_train_bwd_resident", "dhs"),
-    *[("lstm_fwd_wide", o) for o in ("x_proj", "w_hh", "x")]],
+    *[("lstm_fwd_wide", o) for o in ("x_proj", "w_hh", "x")],
+    *[("bdgcn_pair_fwd_bf16", o) for o in ("h1", "g", "w")],
+    *[("bdgcn_pair_bwd_bf16", o) for o in ("h1", "g", "w", "dout")],
+    ("lstm_train_bwd_engine_bf16", "dhs"),
+    ("lstm_train_bwd_resident_bf16", "dhs"),
+    *[("lstm_fwd_wide_bf16", o) for o in ("x_proj", "w_hh", "x")]],
     ids="-".join)
 def test_split_tf32_entries_keep_inf_and_nan(cuda_device, entry, operand):
     """Every split-TF32 entry (and the resident BPTT, on the CUDA cores,
@@ -801,9 +814,18 @@ def test_split_tf32_entries_keep_inf_and_nan(cuda_device, entry, operand):
     finite. dX's dout has its own test above. The wide LSTM forward
     (H = 128) takes them in x_proj (the NaN at step 1: its row is NaN from
     there on), w_hh^T (0 x Inf is NaN in the plain sum at t = 0, so every
-    later step is NaN: the outputs of every step) and x (the fused form)."""
+    later step is NaN: the outputs of every step) and x (the fused form).
+    The cases ending in _bf16 run the same on the bf16 forms (operands
+    cast to bf16 first; finite entries held at ``BF16_TOL``)."""
     dev = cuda_device
     put = functools.partial(_put_non_finite, dev)
+    bf16 = entry.endswith("_bf16")
+    entry = entry.removesuffix("_bf16")
+    cast = (lambda a: a.to(torch.bfloat16)) if bf16 else (lambda a: a)
+    same = functools.partial(
+        _same_non_finite, close=lambda a, b: _bf16_close(
+            a, b, max(1.0, float(b.float().abs().max())))) if bf16 \
+        else _same_non_finite
     if operand.startswith(("tile", "scale")):
         payload = operand.split("-")[1]
         ell, X, dout, x_div = _ell_case(dev, (3, 200, 200), 128, "band", 160,
@@ -884,11 +906,12 @@ def test_split_tf32_entries_keep_inf_and_nan(cuda_device, entry, operand):
         return
     if entry.startswith("bdgcn"):
         K, B, N, C, H = 3, 2, 20, 32, 32
-        h1, g, w = _bdgcn_inputs(dev, K, B, N, C, H, True, seed=N)
+        h1, g, w = map(cast, _bdgcn_inputs(dev, K, B, N, C, H, True,
+                                           seed=N))
         ops = {"h1": h1, "g": g, "w": w}
         if entry == "bdgcn_pair_bwd":
-            ops["dout"] = torch.from_numpy(np.random.default_rng(C).normal(
-                size=(B, N, N, H)).astype(np.float32)).to(dev)
+            ops["dout"] = cast(torch.from_numpy(np.random.default_rng(
+                C).normal(size=(B, N, N, H)).astype(np.float32)).to(dev))
         n = ops[operand].numel()
         ops[operand] = put(ops[operand], [n // 7, n // 3, n - 5])
         if entry == "bdgcn_pair_fwd":
@@ -896,19 +919,19 @@ def test_split_tf32_entries_keep_inf_and_nan(cuda_device, entry, operand):
                                                  ops["w"])
             ref = cuda_bdgcn.folded_pair_project_plain(ops["h1"], ops["g"],
                                                        ops["w"])
-            _same_non_finite(out, ref)
+            same(out, ref)
             return
         args = (ops["h1"], ops["g"], ops["w"], ops["dout"])
         dh1, dW = cuda_bdgcn.folded_pair_project_bwd(*args)
         r1, rW = cuda_bdgcn.folded_pair_project_bwd_plain(*args)
-        _same_non_finite(torch.cat([dh1.reshape(-1), dW.reshape(-1)]),
-                         torch.cat([r1.reshape(-1), rW.reshape(-1)]))
+        same(torch.cat([dh1.reshape(-1), dW.reshape(-1)]),
+             torch.cat([r1.reshape(-1), rW.to(r1.dtype).reshape(-1)]))
         return
     if entry == "lstm_fwd_wide":
         T, R, H = 7, 333, 128
         assert cuda_lstm.fwd_on_wide(cuda_lstm.device_index(dev), H)
         if operand == "x":
-            x, w_ih, b, w = _fused_inputs(dev, T, R, H, 1, seed=H)
+            x, w_ih, b, w = map(cast, _fused_inputs(dev, T, R, H, 1, seed=H))
             # x (R, T, 1): rows 10, 200 at steps 1, 3; row 300's NaN at 0
             x = put(x, [10 * T + 1, 200 * T + 3, 300 * T])
             outs = [cuda_lstm.lstm_layer_infer_fused(x, w_ih, b, w, c)
@@ -917,7 +940,8 @@ def test_split_tf32_entries_keep_inf_and_nan(cuda_device, entry, operand):
                     for c in (False, True)]
         else:
             rng = np.random.default_rng(R + H)
-            t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+            t = lambda a: cast(torch.from_numpy(a.astype(np.float32)).to(
+                dev))
             xp = t(rng.normal(size=(T, R, 4 * H)))
             w = t(rng.normal(size=(H, 4 * H)) / np.sqrt(H))
             if operand == "x_proj":
@@ -935,13 +959,13 @@ def test_split_tf32_entries_keep_inf_and_nan(cuda_device, entry, operand):
                 outs.append(cuda_lstm.lstm_layer_infer(xp, w, False))
                 refs.append(cuda_lstm.lstm_layer_infer_plain(xp, w, False))
         for out, ref in zip(outs, refs):
-            _same_non_finite(out, ref)
+            same(out, ref)
         return
     T, R, H = (3, 333, 97) if entry.endswith("engine") else (7, 1001, 32)
     assert cuda_lstm.bwd_on_engine(cuda_lstm.device_index(dev), H) == (
         entry.endswith("engine"))
     rng = np.random.default_rng(R + H)
-    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    t = lambda a: cast(torch.from_numpy(a.astype(np.float32)).to(dev))
     xp = t(rng.normal(size=(T, R, 4 * H)))
     w = t(rng.normal(size=(H, 4 * H)) / np.sqrt(H))
     hs, cs = cuda_lstm.lstm_layer_train(xp, w)
@@ -950,8 +974,8 @@ def test_split_tf32_entries_keep_inf_and_nan(cuda_device, entry, operand):
                (R + 300) * H + 7])
     dxp, dw = cuda_lstm.lstm_layer_bwd(xp, w, hs, cs, dhs, None)
     dxr, dwr = cuda_lstm.lstm_layer_bwd_plain(xp, w, hs, cs, dhs, None)
-    _same_non_finite(torch.cat([dxp.reshape(-1), dw.reshape(-1)]),
-                     torch.cat([dxr.reshape(-1), dwr.reshape(-1)]))
+    same(torch.cat([dxp.reshape(-1), dw.reshape(-1)]),
+         torch.cat([dxr.reshape(-1), dwr.to(dxr.dtype).reshape(-1)]))
 
 
 @pytest.mark.parametrize("payload", ["f32", "int8"])
@@ -1191,22 +1215,102 @@ def _assert_same_state(a, b):
     for sa, sb in zip(a.optimizer.state.values(), b.optimizer.state.values()):
         for k in ("exp_avg", "exp_avg_sq", "step"):
             assert torch.equal(sa[k], sb[k]), k
+    if a.optimizer.scaler is not None:
+        assert a.optimizer.scaler.stats() == b.optimizer.scaler.stats()
 
 
 @pytest.mark.parametrize("kw", [
     dict(hidden_dim=32),
     dict(hidden_dim=128, kernel_type="dual_random_walk_diffusion",
-         cheby_order=3)], ids=["hidden32", "hidden128-K7"])
+         cheby_order=3),
+    dict(hidden_dim=32, dtype="bfloat16"),
+    dict(hidden_dim=128, kernel_type="dual_random_walk_diffusion",
+         cheby_order=3, dtype="bfloat16", remat=True)],
+    ids=["hidden32", "hidden128-K7", "hidden32-bf16", "hidden128-K7-bf16"])
 def test_captured_steps_equal_eager(cuda_device, tmp_path, kw):
     """Five train steps and four eval steps by graph equal the per-step
-    executor's bit for bit: losses, weights, Adam's state. At hidden 128
-    the graph holds the engine BPTT and both cooperative dW launches."""
+    executor's bit for bit: losses, weights, Adam's state (and the loss
+    scaler's). At hidden 128 the graph holds the engine BPTT and both
+    cooperative dW launches; in bf16 their bf16 forms and the scaler, and
+    at hidden 128 in bf16 remat (the forwards again inside the
+    backward)."""
     a, b = _graph_pair(cuda_device, tmp_path, **kw)
     for mode, n in (("train", 5), ("validate", 4)):
         got, ref = _steps(a, b, mode, n)
         assert np.array_equal(got, ref), (mode, got, ref)
         assert a._graphs.get(mode) is not None
     _assert_same_state(a, b)
+
+
+def test_bf16_scaler_skips_inside_a_graph(cuda_device, tmp_path):
+    """bf16 training with an Inf forced into the scaled gradients of two
+    steps inside the captured step (a hook multiplies one weight's
+    gradient by a device scalar the graph reads): the scaler skips them
+    (weights and Adam's state kept, the scale halved, the losses finite
+    and unmarked). Eight steps by graph equal the per-step executor's bit
+    for bit, the scaler's state included."""
+    a, b = _graph_pair(cuda_device, tmp_path, hidden_dim=32,
+                       dtype="bfloat16")
+    poison = {}
+    for tr in (a, b):
+        poison[id(tr)] = t = torch.ones((), device=cuda_device)
+        next(tr.model.parameters()).register_hook(lambda g, t=t: g * t)
+    n, bad = 8, (3, 6)
+    ep = a._epoch_state("train")
+    ep.load(*a._epoch_index("train", False, None))
+    for i in range(n):
+        poison[id(a)].fill_(float("inf") if i in bad else 1.0)
+        a._exec_step("train", ep, True)
+    a.optimizer.advance(n)
+    got = ep.losses[:n].cpu().numpy()
+    ref = []
+    for i, x in enumerate(list(b.pipeline.batches(
+            "train", pad_to_full=True))[:n]):
+        poison[id(b)].fill_(float("inf") if i in bad else 1.0)
+        ref.append(b.train_step(x))
+    assert np.array_equal(got, np.array(ref, np.float32))
+    assert np.isfinite(got).all() and a._graphs.get("train") is not None
+    _assert_same_state(a, b)
+    assert a.optimizer.scaler.stats() == {
+        "scale": 65536.0 / 4, "good_steps": 1, "skipped_steps": 2}
+    assert int(a.optimizer.step_t) == n - 2
+
+
+def test_bf16_rollout_graphs_per_precision(cuda_device):
+    """A serve engine at -infer-precision bf16 and one at int8: each
+    bucket's rollout graph is keyed by its precision, equals the eager
+    rollout at that precision bit for bit, runs the bf16 kernels (bf16)
+    or the f32 ones on the int8 codes dequantized inside the graph
+    (int8), and stays within 0.05 of the f32 rollout."""
+    cfg = MPGCNConfig(synthetic_T=200, synthetic_N=10, hidden_dim=16,
+                      pred_len=3, seed=0)
+    data = synthetic_dataset(cfg)
+    f32 = ServeEngine(cfg, data, ServeConfig(buckets=(1, 4)),
+                      device=cuda_device, allow_fresh=True)
+    md = f32.pipeline.modes["test"]
+    x = torch.from_numpy(np.array(md.x[:4]))
+    k = torch.from_numpy(md.keys[:4].astype(np.int64))
+    ref32 = f32._rollouts.run(x, k, 3)
+    f32.close()
+    for ip, kernel in (("bf16", KERNELS["bdgcn_pair_fwd_bf16"]),
+                       ("int8", KERNELS["bdgcn_pair_fwd"])):
+        eng = ServeEngine(cfg.replace(infer_precision=ip), data,
+                          ServeConfig(buckets=(1, 4)), device=cuda_device,
+                          allow_fresh=True)
+        try:
+            assert set(eng._rollouts.graphs.graphs) == {(1, 3, ip),
+                                                        (4, 3, ip)}
+            prec = eng._precision
+            before = kernel.launches
+            got = eng._rollouts.run(x, k, 3, prec)
+            assert kernel.launches == before + 3 * 2 * cfg.gcn_num_layers
+            want = rollout(eng.model, eng.banks, x.to(cuda_device),
+                           k.to(cuda_device), 3, prec.dtype,
+                           prec.params).cpu()
+            assert torch.equal(got, want), ip
+            assert float((got - ref32).abs().max()) < 0.05, ip
+        finally:
+            eng.close()
 
 
 def _device_kernels(fn):
@@ -1294,7 +1398,7 @@ def test_rollout_graph_per_bucket_equals_eager(cuda_device):
                       device=cuda_device, allow_fresh=True)
     try:
         graphs = eng._rollouts.graphs
-        assert set(graphs.graphs) == {(b, h) for b in (1, 2, 4)
+        assert set(graphs.graphs) == {(b, h, "f32") for b in (1, 2, 4)
                                       for h in (1, 3)}
         md = eng.pipeline.modes["test"]
         for b in (1, 2, 4):
@@ -1326,7 +1430,7 @@ def test_replay_after_load_trained_equals_eager(cuda_device, tmp_path):
     ptrs = a._state_ptrs()
     a.load_trained(path)
     b.load_trained(path)
-    assert a._state_ptrs() == ptrs and a._graphs.get((4, 3)) is not None
+    assert a._state_ptrs() == ptrs and a._graphs.get((4, 3, "f32")) is not None
     ref = rollout(a.model, a.banks, torch.from_numpy(x).to(cuda_device),
                   torch.from_numpy(k.astype(np.int64)).to(cuda_device),
                   3).cpu()
@@ -1453,3 +1557,117 @@ def test_multistep_step_by_graph_equals_eager(cuda_device, tmp_path):
         assert a._graphs.get(mode) is not None
     _assert_same_state(a, b)
     assert cuda_lstm.LSTM_TRAIN_BWD.launches == 2 * (3 * 2 * 5)
+
+
+# --- the bf16 forms (-dtype bfloat16) -------------------------------------
+
+#: bf16 storage against the plain twin on the same bf16 operands: both sum
+#: in f32, in other orders, so a sum within f32 rounding of a bf16 rounding
+#: boundary rounds to the neighbouring bf16 value (2^-8 relative), and the
+#: LSTM carries such a flip into later steps through h: 4 bf16 ulps at 1.0
+#: absolute, 2 relative. dW (f32 partials of bf16 products) is held like
+#: the f32 dW where its operands are the same bf16 tensors (the BPTT),
+#: and at 2^-10 x its largest entry where they pass through a bf16
+#: rounding of the kernel's own (K-BDGCN's Z)
+BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -6)
+
+
+def _bf16_close(out, ref, scale=1.0):
+    """``BF16_TOL``, atol x ``scale`` (the largest entry where outputs are
+    not O(1))."""
+    assert out.dtype == ref.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(),
+                               rtol=BF16_TOL["rtol"],
+                               atol=BF16_TOL["atol"] * scale)
+
+
+def _bf(dev, a):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dev).to(
+        torch.bfloat16)
+
+
+#: (T, R, H) of the bf16 LSTM entries: the reference serve and train
+#: shapes, the widths past the resident kernels (H = 65..1,030), the
+#: resident forward's and BPTT's edges (H = 3, 81, 116, 117, 118, one step)
+#: and the engine BPTT's (H = 97, 17 rows)
+BF16_LSTM = ([(7, 17672, 32), (7, 8836, 32), (7, 1000, 8), (7, 333, 64),
+              (7, 5, 40)] + [(_T_OF.get(H, 7), R, H) for R, H in WIDE_LSTM]
+             + [(7, 1001, 81), (7, 999, 3), (1, 1000, 32), (7, 1001, 116),
+                (7, 1003, 117), (7, 997, 118), (7, 17, 128), (3, 333, 97),
+                (1, 1000, 128)])
+
+
+@pytest.mark.parametrize("T,R,H", BF16_LSTM,
+                         ids=["-".join(map(str, c)) for c in BF16_LSTM])
+def test_bf16_lstm_entries_match_plain(cuda_device, T, R, H):
+    """Every bf16 LSTM entry against its plain twin on the same bf16
+    operands: lstm_infer_last / collect on x_proj and fused from x (F = 1
+    and 3), the training forward, and the BPTT with dhs and dcs (dW before
+    its cast); one launch a call."""
+    dev = cuda_device
+    rng = np.random.default_rng(R + H + 16)
+    xp = _bf(dev, rng.normal(size=(T, R, 4 * H)))
+    w = _bf(dev, rng.normal(size=(H, 4 * H)) / np.sqrt(H))
+    K = cuda_lstm.KERNELS[torch.bfloat16]
+    for collect in (False, True):
+        kernel = K["collect" if collect else "last"]
+        before = kernel.launches
+        out = cuda_lstm.lstm_layer_infer(xp, w, collect)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1 and out.dtype == torch.bfloat16
+        _bf16_close(out, cuda_lstm.lstm_layer_infer_plain(xp, w, collect))
+        for F in (1, 3):
+            s = 1 / np.sqrt(H)
+            args = (_bf(dev, rng.normal(size=(R, T, F))),
+                    _bf(dev, rng.uniform(-s, s, (4 * H, F))),
+                    _bf(dev, rng.uniform(-s, s, 4 * H)), w)
+            out = cuda_lstm.lstm_layer_infer_fused(*args, collect)
+            _bf16_close(out, cuda_lstm.lstm_layer_infer_fused_plain(
+                *args, collect))
+    before = K["fwd"].launches
+    hs, cs = cuda_lstm.lstm_layer_train(xp, w)
+    torch.cuda.synchronize()
+    assert K["fwd"].launches == before + 1
+    rh, rc = cuda_lstm.lstm_layer_train_plain(xp, w)
+    _bf16_close(hs, rh)
+    _bf16_close(cs, rc, float(rc.float().abs().max()))
+    dhs = _bf(dev, rng.normal(size=(T, R, H)))
+    dcs = _bf(dev, rng.normal(size=(T, R, H)))
+    before = K["bwd"].launches
+    dxp, dw, _ = cuda_lstm.lstm_layer_bwd_partials(xp, w, hs, cs, dhs, dcs)
+    torch.cuda.synchronize()
+    assert K["bwd"].launches == before + 1
+    assert dxp.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    rx, rw = cuda_lstm.lstm_layer_bwd_plain(xp, w, hs, cs, dhs, dcs)
+    _bf16_close(dxp, rx, float(rx.float().abs().max()))
+    _close_scaled(dw, rw)
+    assert cuda_lstm.lstm_layer_bwd(xp, w, hs, cs, dhs, dcs)[1].dtype == \
+        torch.bfloat16
+
+
+@pytest.mark.parametrize("dynamic", [False, True])
+@pytest.mark.parametrize("K,B,N,C,H,scale", _bdgcn_cases())
+def test_bf16_bdgcn_entries_match_plain(cuda_device, dynamic, K, B, N, C, H,
+                                        scale):
+    """The bf16 K-BDGCN forward and backward against their plain twins on
+    the same bf16 operands, at every shape of the f32 test (K, C, H up to
+    7, 128, 128); dW in f32 before its cast."""
+    args = _bdgcn_inputs(cuda_device, K, B, N, C, H, dynamic, seed=N + 1)
+    args[0], args[2] = args[0] * scale, args[2] / scale
+    args = [a.to(torch.bfloat16) for a in args]
+    before = cuda_bdgcn.BDGCN_PAIR_FWD_BF16.launches
+    out = cuda_bdgcn.folded_pair_project(*args)
+    torch.cuda.synchronize()
+    assert cuda_bdgcn.BDGCN_PAIR_FWD_BF16.launches == before + 1
+    ref = cuda_bdgcn.folded_pair_project_plain(*args)
+    _bf16_close(out, ref, float(ref.float().abs().max()))
+    dout = _bf(cuda_device, np.random.default_rng(C).normal(
+        size=(B, N, N, H)))
+    before = cuda_bdgcn.BDGCN_PAIR_BWD_BF16.launches
+    dh1, dW, _ = cuda_bdgcn.folded_pair_project_bwd_partials(*args, dout)
+    torch.cuda.synchronize()
+    assert cuda_bdgcn.BDGCN_PAIR_BWD_BF16.launches == before + 1
+    r1, rW = cuda_bdgcn.folded_pair_project_bwd_plain(*args, dout)
+    _bf16_close(dh1, r1, float(r1.float().abs().max()))
+    torch.testing.assert_close(dW, rW, rtol=2 ** -7,
+                               atol=2 ** -10 * float(rW.abs().max()))

@@ -411,12 +411,14 @@ def _short_flags(parser) -> set:
 
 
 def test_missing_flag_count():
-    """The JAX CLI's flags the port lacks: 24 (34 before this slice); the
-    port has none of its own."""
+    """The JAX CLI's flags the port lacks: 19 (34 before the self-healing
+    slice, 24 before the precision slice added -dtype, -loss-scaling,
+    -loss-scale-init, -loss-scale-growth and -infer-precision); the port
+    has none of its own."""
     ours, ref = (_short_flags(p) for p in (cli.build_parser(),
                                            jax_cli.build_parser()))
     assert not ours - ref
-    assert len(ref - ours) == 24, sorted(ref - ours)
+    assert len(ref - ours) == 19, sorted(ref - ours)
     assert not set(SLICE_FLAGS) - ours
 
 
@@ -437,7 +439,13 @@ def test_config_checks_match_jax():
                 dict(dead_init_retries=0), dict(skip_budget=-1),
                 dict(rollback_retries=-1), dict(rollback_lr_factor=0.0),
                 dict(rollback_lr_factor=1.5), dict(loss_spike_factor=-1.0),
-                dict(watchdog_secs=-1.0), dict(on_dead_init="ignore")):
+                dict(watchdog_secs=-1.0), dict(on_dead_init="ignore"),
+                dict(dtype="float16"), dict(loss_scaling="static"),
+                dict(loss_scale_init=0.0), dict(loss_scale_init=1000.0),
+                dict(loss_scale_min=3.0), dict(loss_scale_min=-2.0),
+                dict(loss_scale_init=2.0, loss_scale_min=4.0),
+                dict(loss_scale_growth_interval=0),
+                dict(infer_precision="fp8")):
         for cls in (MPGCNConfig, JaxConfig):
             with pytest.raises(ValueError):
                 cls(**bad)
