@@ -148,7 +148,28 @@ Phases, each fatal on failure:
      device bytes beside f32 without remat; (e) rollouts by graph at
      buckets 1/2/4/8 with -infer-precision bf16 and int8 (ms, max |delta|
      from the f32 rollout, each graph equal to the eager rollout) and
-     ServeEngine.submit in each mode.
+     ServeEngine.submit in each mode;
+ 15. after them all, [city-feed], the city-scale feed at the N=500
+     configuration (its earlier phases hold the series dense on the host,
+     as they always have): (a) the fused epilogue on the ELL kernels: the
+     fused destination SpMM at F = 96,000 (static) and 48,000 (per
+     sample) bit for bit against the per-origin SpMMs at F = 32,000 /
+     16,000, forward and dX, f32 and int8 tiles, with their times beside
+     the bound; the fused model's loss and gradients against the plain
+     arms in f32 and float64 and against the unfused ELL arm; exact
+     launches (a fused step: ell_fwd 18 = 12 + 6 run again inside the
+     checkpoint, ell_bwd_dx 12; a bucket-2 rollout ell_fwd 84); step and
+     rollout times and peak bytes, fused against unfused; (b) the stream
+     executor, od_storage='sparse', -native auto, 64 MB chunks, against
+     the scan executor on dense storage from the same init, one epoch
+     bit for bit, at most two chunks resident, one pacing wait a chunk
+     and no other host sync under set_sync_debug_mode("error"); the same
+     at N=47 by graph (2 epochs, 1 MB chunks); epoch seconds, peak bytes,
+     the series' host bytes; (c) the csr arm: one epoch by graph and a
+     bucket-2 ServeEngine batch against the ELL arm to 1e-4, step and
+     rollout times beside it; (d) the native host gather against numpy,
+     equal bytes and both times. Every time carries the card's name and
+     power limit.
 
 The second-to-last line is a JSON object listing each kernel; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a card, and
@@ -250,7 +271,10 @@ FWD_GROUP_RB = 8
 DX_TF = 128
 # the large-N configuration (benchmarks/large_n.py --format ell --density
 # 0.05): 60 synthetic days over 500 zones projected onto a band, batch 2
-LARGE_N = dict(synthetic_T=60, synthetic_N=500, batch_size=2)
+# (the phases before [city-feed] hold the series dense on the host, as
+# they always have: od_storage 'auto' would store it sparse at this N)
+LARGE_N = dict(synthetic_T=60, synthetic_N=500, batch_size=2,
+               od_storage="dense")
 LARGE_N_DENSITY = 0.05
 #: a branch whose FC+ReLU head outputs fewer non-zeros than this on the
 #: first training batch counts as dead: its gradients are all 0, so the
@@ -963,17 +987,23 @@ def _batch(md, sel, size):
 def _per_step(cfg, train: bool, impl: str = "kernel") -> dict:
     """Launches of one training step (train) or one validation step on the
     dense kernel arm, or on the ELL arm (impl "ell": 1 + K SpMMs per BDGCN
-    layer, on the int8 entries for an int8 payload)."""
+    layer, on the int8 entries for an int8 payload; with
+    cfg.fused_epilogue 1 + 1, and a training step's backward runs the
+    destination SpMM once more, inside its checkpoint); the csr arm
+    launches no BDGCN kernel."""
     M, L, G = cfg.num_branches, cfg.lstm_num_layers, cfg.gcn_num_layers
     counts = dict.fromkeys(KERNEL_META, 0)
     if train:
         counts.update(lstm_train_fwd=M * L, lstm_train_bwd=M * L)
     else:
         counts.update(lstm_infer_last=M, lstm_infer_collect=M * (L - 1))
+    if impl == "csr":
+        return counts
     if impl == "ell":
         q = "_q" if cfg.support_payload == "int8" else ""
-        spmm = M * G * (1 + cfg.support_K)
-        counts[f"ell_fwd{q}"] = spmm
+        fused = cfg.fused_epilogue
+        spmm = M * G * (1 + (1 if fused else cfg.support_K))
+        counts[f"ell_fwd{q}"] = spmm + (M * G if fused and train else 0)
         if train:
             counts[f"ell_bwd_dx{q}"] = spmm
     else:
@@ -4208,6 +4238,572 @@ def phase_precision(dev, cfg, data, cfg_l, data_l, out_dir, ref_dir, card):
     total = _add(total, precision_rollouts(dev, cfg, data, card))
     return errors, times, total
 
+# --- the city-scale feed ----------------------------------------------------
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def city_fused_widths(dev, banks, label, card):
+    """(a) The fused destination SpMM at the widths the fused epilogue
+    gives it, N=500, B=2, K=3, C=32: static, X (500, K B N C = 96,000)
+    shared by the K supports; dynamic, one X (500, K N C = 48,000) per
+    sample. Its output and dX must equal, bit for bit, the per-origin
+    SpMMs' at F = 32,000 / 16,000 for the same columns (the same kernel
+    on the same operands), and a slice of columns holds against the
+    plain version. Returns nothing: these launches are checks, not a
+    main path."""
+    import torch
+
+    from mpgcn_tpu_torch.sparse import cuda_ell
+    from mpgcn_tpu_torch.sparse.kernels import ell_spmm, flat_stack
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    K, B, N, C = 3, 2, 500, 32
+    keys = torch.tensor([1, 4], device=dev)
+    for form, G, lead, f_o in (("static", banks["static"], (), B * N * C),
+                               ("dynamic", banks["d"][keys], (B,), N * C)):
+        F = K * f_o
+        hf = torch.randn(lead + (N, F), device=dev, generator=gen)
+        hf.requires_grad_()
+        out = ell_spmm(G, hf)
+        dout = torch.randn(out.shape, device=dev, generator=gen)
+        out.backward(dout)
+        for o in range(K):
+            cols = slice(o * f_o, (o + 1) * f_o)
+            ho = hf.detach()[..., cols].contiguous().requires_grad_()
+            oo = ell_spmm(G, ho)
+            oo.backward(dout[..., cols].contiguous())
+            require(_bits_equal(out.detach()[..., cols], oo.detach()),
+                    f"[city-feed] {label} {form}: the fused SpMM's columns "
+                    f"of origin {o} differ from its own SpMM's")
+            require(_bits_equal(hf.grad[..., cols], ho.grad),
+                    f"[city-feed] {label} {form}: the fused dX's columns "
+                    f"of origin {o} differ from its own dX's")
+        # a slice of the columns against the plain versions
+        cols_f, tiles, scale, t_ptr, t_slot = flat_stack(G)
+        S = cols_f.shape[0]
+        x_div = S // (B if lead else 1)
+        X3 = hf.detach()[..., :512].reshape(-1, N, 512).contiguous()
+        ref = cuda_ell.ell_fwd_plain(cols_f, tiles, X3, G.n_rows, x_div,
+                                     scale)
+        compare(f"[city-feed] {label} {form} fused SpMM (F = {F}) vs plain, "
+                f"first 512 columns", out.detach().reshape(S, N, F)[..., :512],
+                ref, BDGCN_TOL)
+        d3 = dout.reshape(S, N, F)[..., :512].contiguous()
+        dref = cuda_ell.ell_bwd_dx_plain(cols_f, tiles, d3, G.n_cols, x_div,
+                                         scale)
+        compare(f"[city-feed] {label} {form} fused dX vs plain, first 512 "
+                f"columns", hf.grad.reshape(-1, N, F)[..., :512], dref,
+                BDGCN_TOL)
+        print(f"[city-feed] (a) {label} {form}: the fused destination SpMM "
+              f"at F = {F} ({tuple(out.shape)}, "
+              f"{out.numel() * 4 / 1e6:.0f} MB out) equals the {K} "
+              f"per-origin SpMMs at F = {f_o} bit for bit, forward and dX "
+              f"({card})", flush=True)
+        # the kernels at these widths (CUDA events): one launch at F
+        # against the K per-origin launches at F / K, beside the bound
+        X_f = hf.detach().reshape(-1, N, F)
+        d_f = dout.reshape(S, N, F)
+        parts = [slice(o * f_o, (o + 1) * f_o) for o in range(K)]
+        X_o = [hf.detach()[..., c].reshape(-1, N, f_o).contiguous()
+               for c in parts]
+        d_o = [dout[..., c].reshape(S, N, f_o).contiguous() for c in parts]
+        args = (cols_f, tiles, t_ptr, t_slot)
+
+        def fwd(x):
+            return cuda_ell.ell_fwd(*args, x, N, x_div, scale)
+
+        def dx(d):
+            return cuda_ell.ell_bwd_dx(*args, d, N, x_div, scale)
+
+        ms = {"fwd": time_ms(lambda: fwd(X_f), iters=10, warmup=2),
+              "fwd_k": time_ms(lambda: [fwd(x) for x in X_o], iters=10,
+                               warmup=2),
+              "dx": time_ms(lambda: dx(d_f), iters=10, warmup=2),
+              "dx_k": time_ms(lambda: [dx(d) for d in d_o], iters=10,
+                              warmup=2)}
+        ops, _ = _ell_ops(cols_f, tiles, N, N, F)
+        small = (tiles.numel() * tiles.element_size() + cols_f.numel() * 4
+                 + (0 if scale is None else scale.numel() * 4)
+                 + 4 * (t_ptr.numel() + t_slot.numel()))
+        passes = 3 if scale is None else 2
+        b_f = bound(4 * (X_f.numel() + S * N * F) + small, passes * ops,
+                    PEAK_TF32_FLOP_PER_S)
+        b_d = bound(4 * (d_f.numel() + X_f.numel()) + small, passes * ops,
+                    PEAK_TF32_FLOP_PER_S)
+        print(f"[time] city-feed (a) {label} {form} at F = {F} (CUDA events, "
+              f"means of 10): forward {ms['fwd']:.4f} ms against {K} "
+              f"launches at F = {f_o} {ms['fwd_k']:.4f} ms (bound "
+              f"{b_f[0]:.4f} ms, {b_f[1]}); dX {ms['dx']:.4f} ms against "
+              f"{ms['dx_k']:.4f} ms (bound {b_d[0]:.4f} ms, {b_d[1]}) "
+              f"({card})", flush=True)
+        del hf, out, dout, X_f, d_f, X_o, d_o
+        torch.cuda.empty_cache()
+
+
+def _peak_step_bytes(tr, batch):
+    """(peak device bytes allocated while one train step runs, what was
+    allocated before it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr.train_step(batch)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(), base
+
+
+def _rollout_ms(tr, x, k, n=4):
+    import statistics
+
+    from mpgcn_tpu_torch.train.predict import rollout
+
+    samples = [_host_ms(lambda: rollout(tr.model, tr.banks, x, k, 7),
+                        n=1, warmup=0)[0] for _ in range(n)]
+    return statistics.median(samples)
+
+
+def city_fused(dev, cfg_l, data_l, card):
+    """(a) The fused epilogue on the ELL arm at N=500: the fused SpMM's
+    widths bit for bit; the fused model's loss and gradients against the
+    plain arms (f32 and float64) and against the unfused ELL arm, in f32
+    and on int8 tiles; exact launches of a step, a bucket-2 rollout and an
+    int8 step, fused and unfused; step and rollout times and peak bytes,
+    fused against unfused. Returns the launches of its main paths."""
+    import statistics
+
+    import torch
+
+    from mpgcn_tpu_torch.train.trainer import ModelTrainer
+
+    tcfg = cfg_l.replace(pred_len=1)
+    unf = ModelTrainer(tcfg, data_l, device=dev)
+    fus = ModelTrainer(tcfg.replace(fused_epilogue=True), data_l, device=dev)
+    fus.model.load_state_dict(unf.model.state_dict())
+    require(unf.bdgcn_impl == fus.bdgcn_impl == "ell",
+            f"N=500 arms {unf.bdgcn_impl} / {fus.bdgcn_impl}")
+    city_fused_widths(dev, fus.banks, "f32 tiles", card)
+    batches = list(unf.pipeline.batches("train", pad_to_full=True))[:3]
+    plain = ModelTrainer(tcfg, data_l, device=dev, lstm_impl="plain",
+                         bdgcn_impl="einsum")
+    plain.model.load_state_dict(unf.model.state_dict())
+    ref64 = copy.deepcopy(plain.model).double()
+    grad_check("city-feed N=500 fused ELL", batches[0], fus, plain, ref64,
+               dev)
+    del ref64, plain
+    torch.cuda.empty_cache()
+    lu, gu, _ = batch_grads(unf.model, unf, batches[0], False, dev)
+    lf, gf, _ = batch_grads(fus.model, fus, batches[0], False, dev)
+    require(abs(lf - lu) <= GRAD_RTOL * abs(lu), f"fused loss {lf} vs {lu}")
+    for name, g in gu.items():
+        scale = float(g.abs().max())
+        require(torch.allclose(gf[name], g, rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL_SCALE * scale),
+                f"[city-feed] fused vs unfused gradient of {name}")
+    print(f"[city-feed] (a) fused ELL loss {lf:.7f} against unfused "
+          f"{lu:.7f}; every gradient agrees (rtol {GRAD_RTOL}, atol "
+          f"{GRAD_ATOL_SCALE} x max|g|)", flush=True)
+
+    total = {}
+    counts = {}
+    for name, tr in (("unfused", unf), ("fused", fus)):
+        reset_counts()
+        tr.train_step(batches[1])
+        counts[name, "step"] = read_counts()
+        require(counts[name, "step"] == _per_step(tr.cfg, True, "ell"),
+                f"[city-feed] {name} step launched "
+                f"{_nz(counts[name, 'step'])}, expected "
+                f"{_nz(_per_step(tr.cfg, True, 'ell'))}")
+        md = tr.pipeline.modes["test"]
+        x = torch.from_numpy(np.array(md.x[:2])).to(dev)
+        k = torch.from_numpy(md.keys[:2].astype(np.int64)).to(dev)
+        reset_counts()
+        tr.predict(x.cpu().numpy(), k.cpu().numpy(), 7)
+        counts[name, "rollout"] = read_counts()
+        want = _scaled(_per_step(tr.cfg, False, "ell"), 7)
+        require(counts[name, "rollout"] == want,
+                f"[city-feed] {name} bucket-2 rollout launched "
+                f"{_nz(counts[name, 'rollout'])}, expected {_nz(want)}")
+        total = _add(total, _add(counts[name, "step"],
+                                 counts[name, "rollout"]))
+    print(f"[city-feed] (a) launches: step unfused "
+          f"{_nz(counts['unfused', 'step'])}, fused "
+          f"{_nz(counts['fused', 'step'])} (the fused backward runs the "
+          f"destination SpMM again inside its checkpoint); bucket-2 "
+          f"rollout unfused {_nz(counts['unfused', 'rollout'])}, fused "
+          f"{_nz(counts['fused', 'rollout'])}", flush=True)
+
+    # int8 tiles: the widths, the gradients against the unfused int8 arm,
+    # and the launches of an int8 step
+    q_unf = ModelTrainer(tcfg.replace(support_payload="int8"), data_l,
+                         device=dev)
+    q_fus = ModelTrainer(tcfg.replace(support_payload="int8",
+                                      fused_epilogue=True), data_l,
+                         device=dev)
+    for tr in (q_unf, q_fus):
+        tr.model.load_state_dict(unf.model.state_dict())
+    city_fused_widths(dev, q_fus.banks, "int8 tiles", card)
+    lu, gu, _ = batch_grads(q_unf.model, q_unf, batches[0], False, dev)
+    lf, gf, _ = batch_grads(q_fus.model, q_fus, batches[0], False, dev)
+    require(abs(lf - lu) <= GRAD_RTOL * abs(lu), f"int8 loss {lf} vs {lu}")
+    for name, g in gu.items():
+        scale = float(g.abs().max())
+        require(torch.allclose(gf[name], g, rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL_SCALE * scale),
+                f"[city-feed] int8 fused vs unfused gradient of {name}")
+    q_counts = {}
+    for name, tr in (("unfused", q_unf), ("fused", q_fus)):
+        reset_counts()
+        tr.train_step(batches[1])
+        q_counts[name] = read_counts()
+        require(q_counts[name] == _per_step(tr.cfg, True, "ell"),
+                f"[city-feed] int8 {name} step launched "
+                f"{_nz(q_counts[name])}")
+        total = _add(total, q_counts[name])
+    print(f"[city-feed] (a) int8 tiles: fused loss {lf:.7f} against "
+          f"unfused {lu:.7f}, gradients agree; a step launches unfused "
+          f"{_nz(q_counts['unfused'])}, fused {_nz(q_counts['fused'])}",
+          flush=True)
+    del q_unf, q_fus
+    torch.cuda.empty_cache()
+
+    # times and peak bytes, fused against unfused, alternated
+    md = unf.pipeline.modes["test"]
+    x = torch.from_numpy(np.array(md.x[:2])).to(dev)
+    k = torch.from_numpy(md.keys[:2].astype(np.int64)).to(dev)
+    step = {"unfused": [], "fused": []}
+    roll = {"unfused": [], "fused": []}
+    peak = {}
+    for name, tr in (("unfused", unf), ("fused", fus)) * 2:
+        step[name] += _step_ms(tr, batches, 3, 1)
+        roll[name].append(_rollout_ms(tr, x, k, 2))
+        peak[name] = _peak_step_bytes(tr, batches[0])
+    med = {n: statistics.median(v) for n, v in step.items()}
+    rmed = {n: statistics.median(v) for n, v in roll.items()}
+    print(f"[time] city-feed (a) N=500 ELL train step, host clock around a "
+          f"synchronised step, medians of 6 (two alternated rounds of 3 "
+          f"after a warm-up): fused {med['fused']:.3f} ms, unfused "
+          f"{med['unfused']:.3f} ms ({med['fused'] / med['unfused']:.3f}x); "
+          f"bucket-2 rollout (7 steps, eager) fused {rmed['fused']:.3f} ms, "
+          f"unfused {rmed['unfused']:.3f} ms "
+          f"({rmed['fused'] / rmed['unfused']:.3f}x); peak device bytes "
+          f"of a step fused {peak['fused'][0] / 1e9:.3f} GB, unfused "
+          f"{peak['unfused'][0] / 1e9:.3f} GB (the step's own: "
+          f"{(peak['fused'][0] - peak['fused'][1]) / 1e9:.3f} / "
+          f"{(peak['unfused'][0] - peak['unfused'][1]) / 1e9:.3f} GB over "
+          f"{peak['unfused'][1] / 1e9:.3f} GB resident) ({card})",
+          flush=True)
+    busy_share("city-feed fused N=500 train step",
+               lambda: fus.train_step(batches[0]), 2)
+    return total
+
+
+def _guard_stream(tr, guarded):
+    """Run the stream epochs numbered in ``guarded`` (1-based) under
+    torch.cuda.set_sync_debug_mode("error"), lifted only inside the
+    executor's pacing waits, which are counted: a host sync anywhere else
+    inside the epoch raises. Returns the list of (mode, waits) per
+    stream epoch."""
+    import torch
+
+    log, n = [], [0]
+    run, wait = tr._run_epoch_stream, tr._host_wait
+
+    def counted_wait(event):
+        log[-1][1] += 1
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            wait(event)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    def guarded_run(mode, *args):
+        n[0] += 1
+        log.append([mode, 0])
+        on = n[0] in guarded
+        if on:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run(mode, *args)
+        finally:
+            if on:
+                torch.cuda.set_sync_debug_mode(0)
+
+    tr._host_wait = counted_wait
+    tr._run_epoch_stream = guarded_run
+    return log
+
+
+def _stream_against_scan(dev, label, cfg, data, stream_kw, scan_kw, out_dir,
+                         guarded, card):
+    """Train ``cfg`` on the stream executor (``stream_kw``) and on the scan
+    executor (``scan_kw``) from the same init: the epochs equal bit for
+    bit (losses, weights, Adam's state, launches), at most two chunks
+    resident, one pacing wait a chunk after the first and no other host
+    sync inside a guarded epoch. Returns (launches, stream trainer, the
+    per-run seconds and peak bytes)."""
+    import contextlib
+
+    import torch
+
+    from mpgcn_tpu_torch.train.trainer import ModelTrainer
+
+    runs = {}
+    for name, kw in (("scan", scan_kw), ("stream", stream_kw)):
+        d = os.path.join(out_dir, f"{label}_{name}")
+        os.makedirs(d)
+        tr = ModelTrainer(cfg.replace(output_dir=d, **kw), data, device=dev)
+        if name == "stream":
+            tr.model.load_state_dict(runs["scan"]["init"])
+            waits = _guard_stream(tr, guarded)
+        log = _record_epochs(tr)
+        init = {n: p.detach().clone() for n, p in
+                tr.model.state_dict().items()}
+        tee = _Tee(sys.stdout)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            hist = tr.train()
+        secs = time.perf_counter() - t0
+        line = next(l for l in "".join(tee.lines).splitlines()
+                    if l.startswith("[dispatch] epoch_exec:"))
+        # what the run adds over what was resident before it (the scan
+        # trainer stays resident through the stream run)
+        runs[name] = dict(tr=tr, log=log, hist=hist, line=line, secs=secs,
+                          init=init,
+                          peak=torch.cuda.max_memory_allocated() - base)
+    s, c = runs["stream"], runs["scan"]
+    require(s["line"].startswith("[dispatch] epoch_exec: train=stream(")
+            and "validate=stream(" in s["line"],
+            f"[city-feed] {label} stream dispatch: {s['line']}")
+    require(c["line"].startswith("[dispatch] epoch_exec: train=scan"),
+            f"[city-feed] {label} scan dispatch: {c['line']}")
+    require(s["hist"] == c["hist"],
+            f"[city-feed] {label}: epoch losses {s['hist']} on the stream "
+            f"executor, {c['hist']} on the scan executor")
+    total = {}
+    for es, ec in zip(s["log"], c["log"]):
+        _require_same_state(es["state"], ec["state"],
+                            f"[city-feed] {label} {es['mode']}")
+        require(es["counts"] == ec["counts"],
+                f"[city-feed] {label} {es['mode']}: launches "
+                f"{_nz(es['counts'])} / {_nz(ec['counts'])}")
+        total = _add(total, es["counts"])
+    stats = s["tr"]._stream_stats
+    for mode, st in stats.items():
+        require(st["max_resident_chunks"] <= 2,
+                f"[city-feed] {label} {mode}: {st}")
+    plan = {m: s["tr"]._stream_plan(m) for m in ("train", "validate")}
+    want = [[m, plan[m][0] - 1] for _ in range(cfg.num_epochs)
+            for m in ("train", "validate")]
+    require(waits == want, f"[city-feed] {label}: pacing waits {waits}, "
+                           f"expected {want}")
+    print(f"[city-feed] (b) {label}: {s['line']}; one epoch on the stream "
+          f"executor equals the scan executor bit for bit (losses "
+          f"{s['hist']}, weights, Adam's state, launches); host waits per "
+          f"epoch {waits} (+ the one read of the losses), no other sync "
+          f"in the guarded epochs {sorted(guarded)}; last epoch's counters "
+          f"{json.dumps(stats)}", flush=True)
+    print(f"[time] city-feed (b) {label}: epoch seconds stream "
+          f"{[round(e['s'], 4) for e in s['log']]}, scan "
+          f"{[round(e['s'], 4) for e in c['log']]} (train, validate per "
+          f"epoch); train() {s['secs']:.3f} / {c['secs']:.3f} s; peak "
+          f"device bytes a run adds over what was resident before it: "
+          f"stream {s['peak'] / 1e9:.3f} GB, scan {c['peak'] / 1e9:.3f} GB "
+          f"({card})", flush=True)
+    return total, s["tr"]
+
+
+def city_stream(dev, cfg, data, cfg_l, data_l, out_dir, card):
+    """(b) The stream executor: N=500 (ELL arm, eager) on sparse host
+    storage with the native host kernels, chunks of 64 MB, against the
+    scan executor on dense storage; N=47 (the dense kernel arm, steps
+    replayed from CUDA graphs) against the scan executor, two epochs.
+    Returns the launches."""
+    from mpgcn_tpu_torch.native import host
+
+    lcfg = cfg_l.replace(pred_len=1, num_epochs=1)
+    stream_kw = dict(od_storage="sparse", native_host="auto",
+                     epoch_scan_max_mb=0.0, stream_chunk_mb=64.0)
+    total, tr = _stream_against_scan(dev, "N=500", lcfg, data_l, stream_kw,
+                                     dict(od_storage="dense"), out_dir,
+                                     {1, 2}, card)
+    require(tr._graphs is None and tr.pipeline.od_storage == "sparse",
+            "N=500 stream run: expected the uncaptured ELL arm on sparse "
+            "storage")
+    require(tr._stream_plan("train")[0] >= 3,
+            f"N=500: {tr._stream_plan('train')} chunks x steps")
+    require(host.available(), f"the host library did not build: "
+                              f"{host.unavailable_reason()}")
+    dense = data_l["OD"].nbytes
+    sparse = tr.pipeline.od_series.nbytes
+    print(f"[city-feed] (b) N=500 host series: sparse {sparse / 1e6:.3f} MB "
+          f"against dense {dense / 1e6:.3f} MB ({dense / sparse:.1f}x); "
+          f"{tr.pipeline.dispatch_line('kernel')}", flush=True)
+    # N=47: about 1 MB chunks (3 steps of x + y at batch 4)
+    ncfg = cfg.replace(pred_len=1, num_epochs=2)
+    t47, tr47 = _stream_against_scan(
+        dev, "N=47", ncfg, data, dict(epoch_scan_max_mb=0.0,
+                                      stream_chunk_mb=1.0),
+        {}, out_dir, {3, 4}, card)
+    require(tr47._graphs is not None
+            and tr47._graphs.get("train-stream") is not None
+            and tr47._graphs.get("validate-stream") is not None,
+            "N=47 stream steps were not replayed from CUDA graphs")
+    return _add(total, t47)
+
+
+def city_csr(dev, cfg_l, data_l, out_dir, card):
+    """(c) The csr arm at N=500: one training epoch (its steps captured as
+    CUDA graphs), a bucket-2 ServeEngine batch, both held against the ELL
+    arm from the same weights to 1e-4; step and rollout times beside the
+    ELL arm's (the 'auto' crossover). Returns the launches."""
+    import statistics
+
+    import torch
+
+    from mpgcn_tpu_torch.config import ServeConfig
+    from mpgcn_tpu_torch.service.serve import ServeEngine
+    from mpgcn_tpu_torch.train.predict import graphs_for
+    from mpgcn_tpu_torch.train.trainer import ModelTrainer
+
+    tcfg = cfg_l.replace(pred_len=1, num_epochs=1,
+                         output_dir=os.path.join(out_dir, "csr"))
+    os.makedirs(tcfg.output_dir)
+    csr = ModelTrainer(tcfg, data_l, device=dev, bdgcn_impl="csr")
+    ell = ModelTrainer(tcfg.replace(output_dir=os.path.join(out_dir, "ell")),
+                       data_l, device=dev)
+    ell.model.load_state_dict(csr.model.state_dict())
+    batches = list(csr.pipeline.batches("train", pad_to_full=True))[:3]
+    x, _, keys = csr._tensors(batches[0])
+    with torch.no_grad():
+        a = csr.model(x, graphs_for(csr.banks, keys, csr.model.sources))
+        b = ell.model(x, graphs_for(ell.banks, keys, ell.model.sources))
+    compare("[city-feed] (c) N=500 csr forward vs ell", a, b, ROLLOUT_TOL)
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = csr.train()
+    counts = read_counts()
+    train_s = time.perf_counter() - t0
+    require(all(np.isfinite(hist["train"] + hist["validate"])),
+            f"csr epoch losses {hist}")
+    steps = csr.pipeline.num_batches("train")
+    evals = csr.pipeline.num_batches("validate")
+    want = _add(_scaled(_per_step(tcfg, True, "csr"), steps),
+                _scaled(_per_step(tcfg, False, "csr"), evals))
+    require(counts == want, f"csr epoch launched {_nz(counts)}, expected "
+                            f"{_nz(want)}")
+    ell.model.load_state_dict(csr.model.state_dict())
+    require(csr._graphs is not None, f"csr steps uncaptured: "
+                                     f"{csr.graph_refusal}")
+    print(f"[city-feed] (c) N=500 csr arm: one epoch ({steps} steps, steps "
+          f"by graph) in {train_s:.2f}s, losses "
+          f"{hist}; launches {_nz(counts)}", flush=True)
+    # serve bucket 2 from the trained weights on both arms
+    preds = {}
+    scfg = ServeConfig(buckets=(2,), max_wait_ms=100.0, deadline_ms=0.0)
+    for impl in ("csr", "ell"):
+        eng = ServeEngine(cfg_l.replace(pred_len=7), data_l, scfg,
+                          device=dev, bdgcn_impl=impl,
+                          init_ckpt=os.path.join(tcfg.output_dir,
+                                                 "MPGCN_od.pkl"))
+        md = eng.pipeline.modes["test"]
+        tickets = [eng.submit(md.x[j, ..., 0], int(md.keys[j]))
+                   for j in range(2)]
+        for t in tickets:
+            require(t.wait(300) and t.ok, f"{impl} request: {t.outcome}")
+        preds[impl] = torch.from_numpy(np.stack([t.pred for t in tickets]))
+        eng.drain()
+        eng.close()
+    require(bool(torch.isfinite(preds["csr"]).all())
+            and float((preds["csr"] != 0).float().mean()) > 0.1,
+            "csr served predictions dead or non-finite")
+    compare("[city-feed] (c) N=500 bucket-2 served rollout, csr vs ell",
+            preds["csr"], preds["ell"], ROLLOUT_TOL)
+    # times: the step and the bucket-2 rollout, csr against ell
+    md = csr.pipeline.modes["test"]
+    xs, ks = np.array(md.x[:2]), md.keys[:2]
+    step = {"csr": [], "ell": []}
+    roll = {"csr": [], "ell": []}
+    for name, tr in (("csr", csr), ("ell", ell)) * 2:
+        step[name] += _step_ms(tr, batches, 2, 1)
+        roll[name].append(_host_ms(lambda: tr.predict(xs, ks, 7), n=2,
+                                   warmup=1)[0])
+    med = {n: statistics.median(v) for n, v in step.items()}
+    rmed = {n: statistics.median(v) for n, v in roll.items()}
+    how = "by graph" if csr._graphs is not None else "eager"
+    print(f"[time] city-feed (c) N=500 train step (host clock, medians of "
+          f"4 in two alternated rounds) csr {med['csr']:.3f} ms ({how}), "
+          f"ell {med['ell']:.3f} ms (eager): csr/ell "
+          f"{med['csr'] / med['ell']:.3f}x; bucket-2 rollout (7 steps) csr "
+          f"{rmed['csr']:.3f} ms ({how}), ell {rmed['ell']:.3f} ms "
+          f"(eager): {rmed['csr'] / rmed['ell']:.3f}x ({card})", flush=True)
+    return counts
+
+
+def city_native(dev, cfg_l, data_l, card):
+    """(d) The native host gather against numpy at the N=500 batch (2
+    windows) and chunk (4 steps x 2) gathers: equal bytes, and both
+    times."""
+    from mpgcn_tpu_torch.data.pipeline import DataPipeline
+
+    # dense banks: the gathers do not need the ELL packing
+    pipes = {n: DataPipeline(cfg_l.replace(pred_len=1, native_host=n),
+                             data_l, dev, bdgcn_impl="kernel")
+             for n in ("auto", "off")}
+    require(pipes["auto"].host_gather == "native",
+            f"-native auto did not take the host library: "
+            f"{pipes['auto'].dispatch_line('kernel')}")
+    rng = np.random.default_rng(19)
+    n = len(pipes["auto"].modes["train"])
+    parts = []
+    for label, size in (("batch", 2), ("chunk", 8)):
+        sel = rng.permutation(n)[:size]
+        outs, ms = {}, {}
+        for name, pipe in pipes.items():
+            outs[name] = pipe.gather_xy("train", sel)
+            samples = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                pipe.gather_xy("train", sel)
+                samples.append((time.perf_counter() - t0) * 1e3)
+            ms[name] = sorted(samples)[len(samples) // 2]
+        for a, b in zip(outs["auto"], outs["off"]):
+            require(a.tobytes() == b.tobytes(),
+                    f"[city-feed] native {label} gather differs from numpy")
+        mb = sum(a.nbytes for a in outs["auto"]) / 1e6
+        parts.append(f"{label} ({size} windows, {mb:.1f} MB) native "
+                     f"{ms['auto']:.3f} ms, numpy {ms['off']:.3f} ms")
+    print(f"[city-feed] (d) the native gather equals numpy byte for byte; "
+          f"host medians of 10: {'; '.join(parts)} ({card})", flush=True)
+
+
+def phase_city_feed(dev, cfg, data, cfg_l, data_l, out_dir, card):
+    """Phase 15, [city-feed]: the city-scale feed at N=500 (and N=47 for
+    the graphs), (a)-(d). Returns the launches of its main paths."""
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    total = city_fused(dev, cfg_l, data_l, card)
+    torch.cuda.empty_cache()
+    total = _add(total, city_stream(dev, cfg, data, cfg_l, data_l, out_dir,
+                                    card))
+    torch.cuda.empty_cache()
+    total = _add(total, city_csr(dev, cfg_l, data_l, out_dir, card))
+    torch.cuda.empty_cache()
+    city_native(dev, cfg_l, data_l, card)
+    print(f"[city-feed] phase took {time.perf_counter() - t0:.1f}s ({card})",
+          flush=True)
+    return total
+
 
 def main() -> int:
     import torch
@@ -4375,6 +4971,13 @@ def main() -> int:
     errors.update(p_errors)
     times.update(p_times)
     total = _add(total, p_total)
+
+    # the city-scale feed, after every phase above
+    out_c = os.path.join(HERE, "smoke_out", "city_feed")
+    shutil.rmtree(out_c, ignore_errors=True)
+    os.makedirs(out_c)
+    total = _add(total, phase_city_feed(dev, cfg, data, cfg_l, data_l,
+                                        out_c, card))
 
     print(card)  # the card's name and power limit, as nvidia-smi gives them
     print(f"[done] smoke run took {time.perf_counter() - t_start:.1f}s")

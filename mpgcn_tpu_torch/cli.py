@@ -21,8 +21,9 @@ The model, data and optimizer flags (``-model -t -norm -split -nn -M
 -dead-init -dead-init-retries -no-sentinels -skip-budget
 -rollback-retries -rollback-lr-factor -watchdog``) and the precision flags
 (``-dtype -loss-scaling -loss-scale-init -loss-scale-growth
--infer-precision``) have the JAX CLI's names, types, defaults and
-choices.
+-infer-precision``) and the city-scale feed's (``-fused-epilogue
+-od-storage -no-stream -stream-chunk-mb -native``) have the JAX CLI's
+names, types, defaults and choices.
 ``-kernel`` and ``-K`` pick the graph kernel and its order, and so the
 support count (2 K + 1 supports for ``dual_random_walk_diffusion``).
 
@@ -31,8 +32,8 @@ the hand-written LSTM kernels (the JAX CLI's ``pallas``), ``plain`` the
 plain PyTorch versions (its ``scan``), chosen for comparison only.
 ``-bdgcn``: ``auto`` (the default) measures the support banks' density
 and takes the blocked-ELL arm at or below ``-sparse-threshold`` when N >=
-``-sparse-min-nodes``, else the dense kernel arm; ``einsum`` is the plain
-arm.
+``-sparse-min-nodes``, else the dense kernel arm; ``einsum`` and
+``folded`` are the plain dense arms, ``csr`` the plain padded-CSR arm.
 """
 
 from __future__ import annotations
@@ -117,20 +118,37 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernels (the JAX CLI's pallas), plain = the plain "
                         "PyTorch version (its scan), for comparison")
     p.add_argument("-bdgcn", "--bdgcn_impl", type=str,
-                   choices=["auto", "kernel", "einsum", "ell"],
+                   choices=["auto", "kernel", "einsum", "folded", "csr",
+                            "ell"],
                    default="auto",
                    help="BDGCN arm: kernel = the dense hand-written kernel, "
-                        "einsum = the plain reference-shaped einsums, ell = "
-                        "ELL SpMM over blocked-ELL support containers; auto "
-                        "measures support density and picks ell at/below "
-                        "-sparse-threshold with N >= -sparse-min-nodes, "
-                        "else kernel")
+                        "einsum = the plain reference-shaped einsums, "
+                        "folded = the plain bank-free per-origin partial "
+                        "products, csr = plain SpMM over padded-CSR support "
+                        "containers, ell = ELL SpMM kernels over blocked-ELL "
+                        "containers; auto measures support density and "
+                        "picks ell at/below -sparse-threshold with N >= "
+                        "-sparse-min-nodes, else kernel")
+    p.add_argument("-fused-epilogue", "--fused_epilogue",
+                   action="store_true",
+                   help="fused epilogues (nn/fused.py): one stacked gate "
+                        "matmul per LSTM step for all M branches (-lstm "
+                        "plain), stacked BDGCN projection epilogues (one "
+                        "destination SpMM a layer on the sparse arms), int8 "
+                        "weights dequantised at their use; same math, "
+                        "another summation order")
     p.add_argument("-support-payload", "--support_payload", type=str,
                    choices=["f32", "bf16", "int8"], default="f32",
                    help="value payload of the blocked-ELL support tiles: "
                         "bf16 halves their bytes; int8 stores codes + one "
                         "scale per row block, dequantised at the kernels' "
                         "operand read (needs the ell arm)")
+    p.add_argument("-od-storage", "--od_storage", type=str,
+                   choices=["auto", "dense", "sparse"], default="auto",
+                   help="host storage of the (T, N, N) OD series: sparse "
+                        "keeps one flat of non-zeros a day and densifies "
+                        "only the windows a batch or chunk gathers; auto "
+                        "follows the sparse arms' density rule")
     p.add_argument("-sparse-threshold", "--sparse_density_threshold",
                    type=float, default=None,
                    help="support-bank density at or below which "
@@ -223,7 +241,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="hang watchdog deadline in seconds: with no epoch "
                         "heartbeat in it, dump all thread stacks, write an "
                         "emergency checkpoint from the last host copy and "
-                        "exit 113 (0 = off; must exceed one epoch)")
+                        "exit 113 (0 = off; must exceed one epoch on the "
+                        "scan executor, one chunk on the stream executor)")
+    # the city-scale feed
+    p.add_argument("-no-stream", "--no_epoch_stream", dest="epoch_stream",
+                   action="store_false",
+                   help="turn off the chunked-stream epoch executor for "
+                        "modes over the epoch-scan budget: they run one "
+                        "step, one copy and one host sync at a time")
+    p.add_argument("-stream-chunk-mb", "--stream_chunk_mb", type=float,
+                   default=None,
+                   help="device budget per stream chunk in MB (gathered "
+                        "x + y + keys; at most two chunks on the device: "
+                        "the computing one and the staged one); 0 or unset "
+                        "takes the epoch-scan budget")
+    p.add_argument("-native", "--native_host", type=str,
+                   choices=["auto", "off"], default="auto",
+                   help="C++/OpenMP host kernels for the window gather and "
+                        "the day-of-week mean (auto: when they build; off: "
+                        "numpy)")
     return p
 
 
@@ -247,7 +283,8 @@ def config_from_args(args: dict) -> MPGCNConfig:
     for flag in RUN_FLAGS:
         args.pop(flag, None)
     multistep = args.pop("multistep", False)
-    for knob in ("sparse_density_threshold", "sparse_min_nodes"):
+    for knob in ("sparse_density_threshold", "sparse_min_nodes",
+                 "stream_chunk_mb"):
         if args[knob] is None:  # not given: the config default stands
             args.pop(knob)
     if args["mode"] == "train" and not multistep:

@@ -15,10 +15,13 @@ sentinels and their skip budget, the bad-epoch rollback and the hang
 watchdog, and the precision plane: the compute ``dtype`` (bf16 training
 on f32 master weights), ``remat``, the dynamic loss scaler
 (``loss_scaling`` and its ``loss_scale_*`` knobs) and the inference
-precision (``infer_precision``: f32, bf16 or int8 weight-only). Knobs of
-paths this port does not have yet (padded-CSR supports, sparse OD
-storage, meshes, the orbax checkpoint backend, fault injection) are not
-here; they arrive with the slices that run them. The BDGCN arm is not a config
+precision (``infer_precision``: f32, bf16 or int8 weight-only), and the
+city-scale feed: the fused epilogues (``fused_epilogue``), the host
+storage of the OD series (``od_storage``), the chunked-stream epoch
+executor (``epoch_stream``, ``stream_chunk_mb``) and the C++/OpenMP host
+kernels (``native_host``). Knobs of paths this port does not have yet
+(meshes, the orbax checkpoint backend, fault injection) are not here;
+they arrive with the slices that run them. The BDGCN arm is not a config
 field: it is the ``bdgcn_impl`` argument of ``ModelTrainer`` and
 ``ServeEngine``.
 """
@@ -43,7 +46,7 @@ SUPPORT_PAYLOADS = ("f32", "bf16", "int8")
 
 #: the BDGCN arms a model runs (nn/bdgcn.py); 'auto' resolves to one of
 #: them by the support banks' density (data/pipeline.py)
-BDGCN_IMPLS = ("kernel", "einsum", "ell")
+BDGCN_IMPLS = ("kernel", "einsum", "folded", "csr", "ell")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,7 +111,24 @@ class MPGCNConfig:
     #                                         steps replay CUDA graphs);
     #                                         False: per step
     epoch_scan_max_mb: float = 512.0        # a mode's epoch tensors above
-    #                                         this run per step
+    #                                         this run on the stream
+    #                                         executor
+    epoch_stream: bool = True               # the chunked-stream executor
+    #                                         for modes over
+    #                                         epoch_scan_max_mb: the epoch
+    #                                         index in chunks that fit
+    #                                         stream_chunk_mb, chunk k+1
+    #                                         gathered and uploaded while
+    #                                         chunk k computes (two chunk
+    #                                         buffers on the device at
+    #                                         most); False: per step
+    stream_chunk_mb: float = 0.0            # device budget per stream chunk
+    #                                         (gathered x + y + keys); 0
+    #                                         takes epoch_scan_max_mb
+    native_host: str = "auto"               # auto | off: the C++/OpenMP
+    #                                         host kernels (window gather,
+    #                                         day-of-week mean) when they
+    #                                         build, else numpy
     remat: bool = False                     # checkpoint each branch of the
     #                                         training forward: its kernels
     #                                         run again in the backward
@@ -189,6 +209,23 @@ class MPGCNConfig:
     #                                         below which bdgcn_impl='auto'
     #                                         goes sparse ...
     sparse_min_nodes: int = 256             # ... when N is at least this
+    od_storage: str = "auto"                # auto | dense | sparse: host
+    #                                         storage of the (T, N, N) OD
+    #                                         series; sparse keeps one flat
+    #                                         of non-zeros a day and
+    #                                         densifies only the windows a
+    #                                         batch or chunk gathers; auto
+    #                                         follows the sparse arms' rule
+    fused_epilogue: bool = False            # the fused epilogues: one
+    #                                         stacked gate matmul a step
+    #                                         for all M branches (-lstm
+    #                                         plain), the BDGCN projection
+    #                                         reassociated into stacked
+    #                                         contractions (one destination
+    #                                         SpMM a layer on the sparse
+    #                                         arms), int8 weights
+    #                                         dequantised at each use. Same
+    #                                         math, another summation order
 
     def __post_init__(self):
         choices = {
@@ -206,6 +243,8 @@ class MPGCNConfig:
             "dtype": ("float32", "bfloat16"),
             "loss_scaling": ("none", "dynamic", "auto"),
             "infer_precision": ("auto", "f32", "bf16", "int8"),
+            "od_storage": ("auto", "dense", "sparse"),
+            "native_host": ("auto", "off"),
         }
         for field_name, allowed in choices.items():
             val = getattr(self, field_name)
@@ -265,6 +304,10 @@ class MPGCNConfig:
             raise ValueError(
                 f"loss_scale_min={self.loss_scale_min} must not exceed "
                 f"loss_scale_init={self.loss_scale_init}")
+        if self.stream_chunk_mb < 0:
+            raise ValueError(
+                "stream_chunk_mb must be >= 0 (0 defaults the chunk budget "
+                "to epoch_scan_max_mb)")
         if self.io_retries < 1:
             raise ValueError("io_retries must be >= 1")
         if self.io_retry_delay_s < 0:

@@ -1,5 +1,5 @@
 """Dynamic OD-correlation graphs (counterpart of
-mpgcn_tpu/data/dyn_graphs.py, numpy path).
+mpgcn_tpu/data/dyn_graphs.py).
 
 Average the unnormalized OD tensor per day-of-week slot over the train
 split, then for each slot build
@@ -10,11 +10,18 @@ split, then for each slot build
 The reference's D-graph mixes column i with ROW j; eq. (7) of the paper
 says columns i and j. ``reproduce_d_bug=True`` (the default) keeps the
 reference behaviour. Zero vectors give NaN exactly as scipy does.
+
+With ``use_native`` (the loader passes ``cfg.native_host != "off"``) the
+day-of-week mean is native/host.py ``dow_mean``: the C++/OpenMP loop in
+float64 where it builds, else numpy's float64 mean, as the JAX package
+takes it; without, numpy's mean of the series as it is.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from mpgcn_tpu_torch.native import host
 
 
 def _cosine_distance_matrix(U: np.ndarray, V: np.ndarray) -> np.ndarray:
@@ -31,6 +38,7 @@ def construct_dyn_g(
     train_ratio: float,
     perceived_period: int = 7,
     reproduce_d_bug: bool = True,
+    use_native: bool = True,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Build (O_dyn_G, D_dyn_G), each (N, N, period), from a (T, N, N) or
     (T, N, N, 1) unnormalized flow tensor."""
@@ -40,8 +48,11 @@ def construct_dyn_g(
     train_len = int(T * train_ratio)
     num_periods = train_len // perceived_period  # drop the remainder (:41)
     history = od_data[: num_periods * perceived_period]
-    avgs = np.stack([history[t::perceived_period].mean(axis=0)
-                     for t in range(perceived_period)])
+    if use_native:
+        avgs = host.dow_mean(history, perceived_period)
+    else:
+        avgs = np.stack([history[t::perceived_period].mean(axis=0)
+                         for t in range(perceived_period)])
 
     O_list, D_list = [], []
     for t in range(perceived_period):

@@ -278,7 +278,8 @@ def preprocess_od(raw: np.ndarray, adj: np.ndarray, cfg: MPGCNConfig,
         train_ratio = cfg.split_ratio[0] / sum(cfg.split_ratio)
         o_dyn, d_dyn = construct_dyn_g(
             raw, train_ratio, cfg.perceived_period,
-            reproduce_d_bug=cfg.reproduce_d_graph_bug)
+            reproduce_d_bug=cfg.reproduce_d_graph_bug,
+            use_native=cfg.native_host != "off")
     if "poi" in sources and poi_sim is None:
         poi_sim = poi_cosine_similarity(
             synthetic_poi_features(od.shape[1], seed=cfg.seed))

@@ -1,24 +1,38 @@
-"""Per-mode datasets and graph support banks (counterpart of the dense
-path of mpgcn_tpu/data/pipeline.py).
+"""Per-mode datasets, the host feed, and graph support banks (counterpart
+of mpgcn_tpu/data/pipeline.py).
 
-Windows stay host numpy (zero-copy strided views). The support banks are
-computed once, on the serving device: the static stack (K, N, N), the POI
-stack (K, N, N) when a branch uses it, and the seven weekly O/D
-correlation stacks (7, K, N, N) that a batch gathers by day-of-week key.
+Windows stay on the host: zero-copy strided views of the dense series, or
+under sparse OD storage (``cfg.od_storage``; 'auto' takes it for N >=
+``sparse_min_nodes`` at OD density <= ``sparse_density_threshold``)
+``WindowView``s over a ``SparseODSeries`` that densify only the rows a
+gather asks for. Gathers of dense storage go through the C++/OpenMP host
+kernel (native/host.py) unless ``cfg.native_host`` is 'off' or it does
+not build; the ``[dispatch]`` line says which ran and, for numpy, why.
+``epoch_chunks`` and ``stream_chunks`` feed the chunked-stream epoch
+executor: an epoch's (S, B) index in chunks of steps, each gathered
+(into pinned host memory for the card) on a background thread behind a
+queue of depth 1, so chunk k+1 is gathered while chunk k computes.
+
+The support banks are computed once, on the serving device: the static
+stack (K, N, N), the POI stack (K, N, N) when a branch uses it, and the
+seven weekly O/D correlation stacks (7, K, N, N) that a batch gathers by
+day-of-week key.
 ``batches`` streams a mode's windows in order (or shuffled), repeat-padding
 the last partial batch to full size when asked, as the JAX pipeline does.
 
 The bank build also settles the BDGCN arm, in the one place that
 ``ModelTrainer`` and ``ServeEngine`` share (mpgcn_tpu/train/trainer.py:
 160-197, 470-495): it measures the banks' density, resolves
-``bdgcn_impl='auto'`` by it, and for the sparse arm ('ell') stores every
-bank as a blocked-ELL container with one pad-block count shared across the
-banks and the tiles packed as ``cfg.support_payload``.
+``bdgcn_impl='auto'`` by it, and for the sparse arms ('csr', 'ell')
+stores every bank as a container with one pad shared across the banks
+and the values packed as ``cfg.support_payload``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 from typing import Iterator, Optional
 
 import numpy as np
@@ -27,6 +41,8 @@ import torch
 from mpgcn_tpu_torch.config import BDGCN_IMPLS, MPGCNConfig
 from mpgcn_tpu_torch.data.windows import (
     MODES,
+    SparseODSeries,
+    WindowView,
     dow_keys,
     mode_offset,
     sliding_windows,
@@ -39,11 +55,15 @@ from mpgcn_tpu_torch.graph.kernels import (
     pack_supports,
     validate_graph,
 )
+from mpgcn_tpu_torch.native import host
 from mpgcn_tpu_torch.sparse.formats import (
     BlockedELL,
+    PaddedCSR,
     container_nbytes,
+    container_pad,
     dense_equiv_bytes,
     ell_pad_width,
+    sparsify_support_stack,
 )
 
 
@@ -52,7 +72,12 @@ def resolve_bdgcn_impl(requested: str, cfg: MPGCNConfig, num_nodes: int,
     """The BDGCN arm: 'auto' gives 'ell' when the measured support density
     is at or below ``cfg.sparse_density_threshold`` and N is at least
     ``cfg.sparse_min_nodes``, else 'kernel' (on the CPU too, where the
-    wrappers run their plain versions); any other arm stands as asked."""
+    wrappers run their plain versions); any other arm stands as asked.
+
+    The JAX ``auto`` takes 'csr' off the TPU (its padded-CSR gathers
+    beat its blocked-ELL scan there), 'ell' on it. The port takes 'ell'
+    on both devices: its ELL SpMMs are the ported TPU kernels, on the
+    card's tensor cores, where 'csr' is plain PyTorch gathers."""
     if requested == "auto":
         if (num_nodes >= cfg.sparse_min_nodes
                 and density <= cfg.sparse_density_threshold):
@@ -87,6 +112,22 @@ class Batch:
     size: int
 
 
+@dataclasses.dataclass
+class EpochChunk:
+    """A contiguous slice of an epoch's (S, B) batch stream, gathered on
+    the host for the chunked-stream executor: (steps, B, ...) rows of the
+    epoch index. ``pinned`` holds the page-locked tensors that ``x`` and
+    ``y`` view when the chunk was gathered for the card (empty on the
+    CPU)."""
+
+    x: np.ndarray         # (steps, B, obs_len, N, N, 1)
+    y: np.ndarray         # (steps, B, pred_len, N, N, 1)
+    keys: np.ndarray      # (steps, B) int32
+    sizes: np.ndarray     # (steps,) int32 true batch sizes
+    start_step: int       # the epoch step of the chunk's first step
+    pinned: tuple = ()
+
+
 class DataPipeline:
     """Per-mode windows plus the support banks, on ``device``, stored for
     the BDGCN arm ``bdgcn_impl`` resolves to (``self.bdgcn_impl``)."""
@@ -96,21 +137,51 @@ class DataPipeline:
         self.cfg = cfg
         self.device = resolve_device(device)
         od = np.ascontiguousarray(np.asarray(data["OD"], dtype=np.float32))
-        x, y = sliding_windows(od, cfg.obs_len, cfg.pred_len,
-                               cfg.drop_last_window)
-        self.mode_len = split_lengths(y.shape[0], cfg.split_ratio)
+        #: 'dense' or 'sparse': how the host holds the series
+        self.od_storage = self._resolve_od_storage(od)
+        self.od_series = self._od = None
+        if self.od_storage == "sparse":
+            # the (n, T, N, N) host windows never densify; gathers
+            # densify only the rows they ask for
+            self.od_series = SparseODSeries.from_dense(od)
+            T = od.shape[0]
+            end = (T - cfg.pred_len if cfg.drop_last_window
+                   else T - cfg.pred_len + 1)
+            n_windows = end - cfg.obs_len
+            if n_windows <= 0:
+                raise ValueError(
+                    f"series too short: T={T}, obs_len={cfg.obs_len}, "
+                    f"pred_len={cfg.pred_len}")
+        else:
+            x, y = sliding_windows(od, cfg.obs_len, cfg.pred_len,
+                                   cfg.drop_last_window)
+            n_windows = y.shape[0]
+            self._od = od
+        del od
+        #: how dense windows are gathered ('native' or 'numpy'), and why
+        #: not natively (None when natively)
+        self.host_gather, self.host_gather_why = self._resolve_gather()
+        self.mode_len = split_lengths(n_windows, cfg.split_ratio)
         empty = [m for m in MODES if self.mode_len[m] <= 0]
         if empty:
             raise ValueError(
-                f"split {tuple(cfg.split_ratio)} of {y.shape[0]} windows "
+                f"split {tuple(cfg.split_ratio)} of {n_windows} windows "
                 f"leaves mode(s) {empty} empty; use a longer series or a "
                 f"different split_ratio")
         self.modes: dict[str, ModeData] = {}
+        self._series_views: dict = {}
         for mode in MODES:
             off = mode_offset(mode, self.mode_len)
             n = self.mode_len[mode]
+            if self.od_series is not None:
+                mx = WindowView(self.od_series, off, n, cfg.obs_len)
+                my = WindowView(self.od_series, off + cfg.obs_len, n,
+                                cfg.pred_len)
+            else:
+                mx, my = x[off: off + n], y[off: off + n]
+            self._series_views[mode] = (mx, my)
             self.modes[mode] = ModeData(
-                x=x[off: off + n], y=y[off: off + n],
+                x=mx, y=my,
                 keys=dow_keys(mode, self.mode_len, cfg.obs_len,
                               cfg.perceived_period).astype(np.int32))
 
@@ -148,9 +219,36 @@ class DataPipeline:
                                        "D-correlation graphs", batched=True)
         self._build_sparse(bdgcn_impl)
 
+    def _resolve_od_storage(self, od: np.ndarray) -> str:
+        """``cfg.od_storage``; 'auto' takes sparse host storage under the
+        sparse arms' rule: N >= sparse_min_nodes and an OD density at or
+        below sparse_density_threshold (JAX: ``_resolve_od_storage``)."""
+        cfg = self.cfg
+        if cfg.od_storage != "auto":
+            return cfg.od_storage
+        if od.shape[1] < cfg.sparse_min_nodes:
+            return "dense"
+        density = np.count_nonzero(od) / max(od.size, 1)
+        return ("sparse" if density <= cfg.sparse_density_threshold
+                else "dense")
+
+    def _resolve_gather(self) -> tuple:
+        """('native', None) when dense windows are gathered by the host
+        library, else ('numpy', why)."""
+        if self.od_storage == "sparse":
+            return "numpy", ("od_storage=sparse: the series densifies the "
+                             "rows a gather asks for")
+        if self.cfg.native_host == "off":
+            return "numpy", "-native off"
+        if not host.available():
+            return "numpy", (f"the host library did not build: "
+                             f"{host.unavailable_reason()}")
+        return "native", None
+
     def _build_sparse(self, requested: str) -> None:
-        """Measure the banks' density, resolve the BDGCN arm, and for 'ell'
-        re-store every bank as a container with one shared pad."""
+        """Measure the banks' density, resolve the BDGCN arm, and for the
+        sparse arms re-store every bank as a container with one shared
+        pad."""
         cfg = self.cfg
         nnz = sum(int(torch.count_nonzero(v)) for v in self.banks.values())
         total = sum(v.numel() for v in self.banks.values())
@@ -158,37 +256,45 @@ class DataPipeline:
         self.requested_impl = requested
         self.bdgcn_impl = impl = resolve_bdgcn_impl(
             requested, cfg, self.num_nodes, self.support_density)
-        if impl != "ell":
-            if cfg.support_payload == "int8":
-                raise ValueError(
-                    f"support_payload='int8' packs blocked-ELL tiles as "
-                    f"codes + per-row-block scales, so it needs the 'ell' "
-                    f"arm, but bdgcn_impl={requested!r} resolved to "
-                    f"{impl!r}")
+        if impl != "ell" and cfg.support_payload == "int8":
+            raise ValueError(
+                f"support_payload='int8' packs blocked-ELL tiles as "
+                f"codes + per-row-block scales, so it needs the 'ell' "
+                f"arm, but bdgcn_impl={requested!r} resolved to {impl!r}")
+        if impl not in ("csr", "ell"):
             return  # dense banks ignore the payload, as in the JAX package
         dense = {k: v.cpu().numpy() for k, v in self.banks.items()}
         # one pad across banks, as the JAX trainer plans it
-        pad = max(ell_pad_width(v) for v in dense.values())
+        pad = max(ell_pad_width(v) if impl == "ell"
+                  else container_pad(sparsify_support_stack(v, "csr"))
+                  for v in dense.values())
         self.banks = {
-            k: pack_supports(v, "ell", cfg.support_payload,
+            k: pack_supports(v, impl, cfg.support_payload,
                              pad=pad).to(self.device)
             for k, v in dense.items()}
 
     def dispatch_line(self, lstm_impl: str) -> str:
         """The kernel-dispatch decision, as the JAX trainer prints it."""
-        payload = self.cfg.support_payload
+        cfg = self.cfg
         return (f"[dispatch] bdgcn_impl={self.bdgcn_impl} (requested "
                 f"{self.requested_impl!r}), lstm_impl={lstm_impl}, device "
                 f"{self.device}, support density {self.support_density:.4f}"
-                + (f", support_payload={payload}"
-                   if payload != "f32" and self.bdgcn_impl == "ell" else ""))
+                + (f", od_storage={self.od_storage}"
+                   if self.od_storage != "dense" else "")
+                + (", fused_epilogue=on" if cfg.fused_epilogue else "")
+                + (f", support_payload={cfg.support_payload}"
+                   if cfg.support_payload != "f32"
+                   and self.bdgcn_impl in ("csr", "ell") else "")
+                + f", host gather {self.host_gather}"
+                + (f" ({self.host_gather_why})" if self.host_gather_why
+                   else ""))
 
     def support_stats(self) -> dict:
         """Resident bytes of the banks as stored (containers with their
         index, or dense f32) against the dense f32 equivalent."""
         resident = dense = 0
         for b in self.banks.values():
-            if isinstance(b, BlockedELL):
+            if isinstance(b, (BlockedELL, PaddedCSR)):
                 resident += container_nbytes(b)
                 dense += dense_equiv_bytes(b)
             else:
@@ -227,5 +333,125 @@ class DataPipeline:
             size = sel.shape[0]
             if pad_to_full and size < bs:
                 sel = np.concatenate([sel, np.full(bs - size, sel[-1])])
-            yield Batch(x=md.x[sel], y=md.y[sel], keys=md.keys[sel],
-                        size=size)
+            x, y = self.gather_xy(mode, sel)
+            yield Batch(x=x, y=y, keys=md.keys[sel], size=size)
+
+    def gather_xy(self, mode: str, sel: np.ndarray, out=None):
+        """x, y rows of ``mode`` for the flat window indices ``sel``: the
+        host library's gather (dense storage, ``host_gather`` 'native'),
+        the sparse series' densify, or numpy's; written into ``out`` (a
+        pair of float32 arrays of the gathered shapes) when given. The
+        same bytes every way."""
+        md = self.modes[mode]
+        sel = np.asarray(sel)
+        # the library reads the series the mode's own views cover; windows
+        # put in their place (a poisoned copy) are gathered from themselves
+        own = self._series_views[mode]
+        if self.host_gather == "native" and md.x is own[0] \
+                and md.y is own[1]:
+            starts = mode_offset(mode, self.mode_len) + sel.astype(np.int64)
+            out = out or (None, None)
+            return (host.gather_windows(self._od, starts, self.cfg.obs_len,
+                                        out=out[0]),
+                    host.gather_windows(self._od, starts + self.cfg.obs_len,
+                                        self.cfg.pred_len, out=out[1]))
+        if out is None:
+            return md.x[sel], md.y[sel]
+        for a, o in zip((md.x, md.y), out):
+            if isinstance(a, WindowView):
+                a.take(sel, out=o)
+            else:
+                # fancy indexing, then a copy: np.take(..., out=) walks a
+                # strided window view element by element
+                o[...] = a[sel]
+        return out
+
+    # --- chunk-granular staging (the chunked-stream epoch executor) ------
+
+    def epoch_chunks(self, mode: str, idx: np.ndarray, sizes: np.ndarray,
+                     steps_per_chunk: int,
+                     poison_steps=()) -> Iterator[EpochChunk]:
+        """Slice an epoch's (S, B) gather index into chunks of
+        ``steps_per_chunk`` steps and gather each chunk's windows on the
+        host: into page-locked memory when the pipeline's device is the
+        card, so its upload can run on a side stream. ``poison_steps``
+        (epoch step indices) NaN a step's x rows at gather time: the
+        fault-injection hook of the JAX pipeline, which nothing in the
+        port passes yet."""
+        md = self.modes[mode]
+        S = idx.shape[0]
+        pin = self.device.type == "cuda"
+        for s0 in range(0, S, steps_per_chunk):
+            s1 = min(S, s0 + steps_per_chunk)
+            sel = idx[s0:s1]
+            shapes = [sel.shape + a.shape[1:] for a in (md.x, md.y)]
+            pinned = (tuple(torch.empty(sh, dtype=torch.float32,
+                                        pin_memory=True) for sh in shapes)
+                      if pin else ())
+            x, y = (t.numpy() for t in pinned) if pin else (
+                np.empty(sh, np.float32) for sh in shapes)
+            flat = (sel.size,)
+            self.gather_xy(mode, sel.reshape(-1),
+                           out=(x.reshape(flat + x.shape[2:]),
+                                y.reshape(flat + y.shape[2:])))
+            for s in poison_steps:
+                if s0 <= s < s1:  # the whole step's batch goes NaN
+                    x[s - s0] = np.nan
+            yield EpochChunk(x=x, y=y, keys=md.keys[sel],
+                             sizes=np.asarray(sizes[s0:s1], np.int32),
+                             start_step=s0, pinned=pinned)
+
+    def stream_chunks(self, *args, depth: int = 1, **kw):
+        """``epoch_chunks`` on a background staging thread: chunk k+1 is
+        gathered while the consumer computes chunk k. ``depth`` 1 bounds
+        the queue's look-ahead to one chunk, which caps the executor's
+        device residency at two chunk buffers (computing and staged)."""
+        return self._threaded(self.epoch_chunks(*args, **kw), depth)
+
+    @staticmethod
+    def _threaded(gen: Iterator, depth: int) -> Iterator:
+        """Run ``gen`` on a background thread behind a bounded queue of
+        ``depth``; an error in it is raised on the consumer's side, and a
+        consumer that stops early retires the thread."""
+        q: queue.Queue = queue.Queue(maxsize=depth)
+        stop = threading.Event()
+        end = object()
+
+        def put(item) -> bool:
+            """A bounded put that gives up when the consumer is gone."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for item in gen:
+                    if not put((None, item)):
+                        return
+                put((None, end))
+            except BaseException as e:  # raised again on the consumer side
+                put((e, None))
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                err, item = q.get()
+                if err is not None:
+                    raise err
+                if item is end:
+                    break
+                yield item
+        finally:
+            # done or abandoned mid-epoch: unblock and retire the producer
+            stop.set()
+            while not q.empty():
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            t.join(timeout=5)

@@ -196,7 +196,7 @@ def batch_supports(flow, kernel_type: str, cheby_order: int,
 
 def pack_supports(stack, fmt: str, payload: str = "f32", pad=None):
     """A dense (..., K, N, N) support stack as a sparse container: sparsify
-    into ``fmt`` (only 'ell' is ported) and pack its tiles as ``payload``
+    into ``fmt`` ('csr' or 'ell') and pack its values as ``payload``
     ('f32', 'bf16' or 'int8'). The data pipeline's bank build comes
     through here. Returns CPU tensors."""
     from mpgcn_tpu_torch.sparse.formats import (

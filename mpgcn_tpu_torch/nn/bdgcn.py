@@ -3,19 +3,33 @@ graphs (counterpart of mpgcn_tpu/nn/bdgcn.py).
 
 For K supports it forms all K x K (origin, destination) contraction pairs
 of the OD feature grid X (B, N, N, C), feat[o, d] = G_o^T X G_d, and
-projects their channel concat with W (K^2 C, H). Three arms share the
+projects their channel concat with W (K^2 C, H). Five arms share the
 weights:
 
   * "einsum": reference-shaped and plain -- the (K, K, B, N, N, C) bank
-    and its (B, N, N, K^2 C) concat are built, then one projection GEMM.
+    and its (B, N, N, K^2 C) concat are built, then one projection GEMM;
+    with ``fused`` the projection reads the bank directly
+    (``einsum("odbmel,odlh->bmeh")``), without the concat copy.
+  * "folded": plain, the JAX ``_bdgcn_folded``: concat_{o,d}(G_o^T X
+    G_d) W == sum_{o,d} (G_o^T X G_d) W[o, d], accumulated per origin (K
+    groups of two einsums, each under ``torch.utils.checkpoint``, so no
+    K^2 bank lives in either direction); with ``fused`` the two stacked
+    einsums of nn/fused.py under one checkpoint.
   * "kernel": the K origin contractions h1 = G_o^T X stay one
     ``torch.einsum``; then K-BDGCN (nn/cuda_bdgcn.py) folds the
     destination contractions into the projection,
     sum_{o, d} (G_o^T X G_d) W[o, d] with W reshaped (K, K, C, H), so the
     bank never reaches device memory.
-  * "ell": the same folded algebra over blocked-ELL support containers,
-    both node contractions as ELL SpMMs (sparse/kernels.py
-    ``bdgcn_sparse``); G is then a container, or a pair of containers.
+    It ignores ``fused``: it is fused already, as the Pallas arm is in
+    the JAX package.
+  * "csr" / "ell": the same folded algebra over padded-CSR or blocked-ELL
+    support containers, both node contractions as SpMMs (sparse/kernels.py
+    ``bdgcn_sparse``, ``fused``: one destination SpMM a layer); G is then
+    a container, or a pair of containers. "csr" is plain PyTorch, as the
+    JAX ``csr_spmm`` is not a Pallas kernel; "ell" runs the ELL kernels.
+
+``layer.W`` may be an int8 ``QuantizedTensor`` on every arm but
+"kernel" (nn/mpgcn.py ``lazy_quant``): it is dequantised here, at its use.
 """
 
 from __future__ import annotations
@@ -25,8 +39,13 @@ from torch import nn
 
 from mpgcn_tpu_torch.config import BDGCN_IMPLS
 from mpgcn_tpu_torch.nn.cuda_bdgcn import folded_pair_project
+from mpgcn_tpu_torch.nn.fused import (
+    deq,
+    fused_origin_project_dynamic,
+    fused_origin_project_static,
+)
 from mpgcn_tpu_torch.nn.init import xavier_normal
-from mpgcn_tpu_torch.sparse.kernels import bdgcn_sparse
+from mpgcn_tpu_torch.sparse.kernels import bdgcn_sparse, checkpointed
 
 
 class BDGCN(nn.Module):
@@ -53,12 +72,45 @@ def origin_contract(X: torch.Tensor, G):
     return torch.einsum("bncl,onm->obmcl", X, G), G, G.shape[-3]
 
 
+def _origin_group_static(h1o, G_dest, w_o):
+    """All K destination partials of one origin, folded into the
+    projection: sum_d (h1o G_d) W[o, d] as two einsums."""
+    t = torch.einsum("bmcl,dce->bmdel", h1o, G_dest)     # (B, M, K, E, C)
+    return torch.einsum("bmdel,dlh->bmeh", t, w_o)
+
+
+def _origin_group_dynamic(h1o, G_dest, w_o):
+    """Per-sample-support variant of one origin's folded partials."""
+    t = torch.einsum("bmcl,bdce->bmdel", h1o, G_dest)
+    return torch.einsum("bmdel,dlh->bmeh", t, w_o)
+
+
+def bdgcn_folded(W, h1, G_dest, K: int, C: int, fused: bool = False):
+    """The folded arm (JAX ``_bdgcn_folded``): the per-(o, d) partial
+    products accumulated per origin, each group checkpointed; ``fused``:
+    all K origins in two stacked einsums under one checkpoint."""
+    Wr = W.reshape(K, K, C, -1)
+    dynamic = G_dest.ndim == 4
+    if fused:
+        return checkpointed(fused_origin_project_dynamic if dynamic
+                            else fused_origin_project_static,
+                            h1, G_dest, Wr)
+    group = _origin_group_dynamic if dynamic else _origin_group_static
+    out = None
+    for o in range(K):
+        part = checkpointed(group, h1[o], G_dest, Wr[o])
+        out = part if out is None else out + part
+    return out
+
+
 def bdgcn_apply(layer, X: torch.Tensor, G, activation=None,
-                impl: str = "kernel") -> torch.Tensor:
+                impl: str = "kernel", fused: bool = False) -> torch.Tensor:
     """X (B, N, N, C); G a static (K, N, N) stack or a dynamic pair of
-    (B, K, N, N) origin/destination stacks (their blocked-ELL containers
-    for "ell"). Returns (B, N, N, H)."""
+    (B, K, N, N) origin/destination stacks (their sparse containers for
+    "csr" and "ell"). ``fused``: the fused epilogue of the arm (module
+    docstring; "kernel" ignores it). Returns (B, N, N, H)."""
     B, N, _, C = X.shape
+    W = deq(layer.W, X.dtype)
     if impl == "einsum":
         if isinstance(G, tuple):
             G_o, G_d = G
@@ -69,16 +121,26 @@ def bdgcn_apply(layer, X: torch.Tensor, G, activation=None,
             K = G.shape[-3]
             h1 = torch.einsum("bncl,onm->obmcl", X, G)
             h2 = torch.einsum("obmcl,dce->odbmel", h1, G)
-        # (o, d, channel) flattening matches the reference concat order
-        feats = h2.permute(2, 3, 4, 0, 1, 5).reshape(B, N, N, K * K * C)
-        out = feats @ layer.W
+        if fused:
+            # the projection straight out of the bank: the (o, d,
+            # channel)-major weight replaces the transposed concat copy
+            out = torch.einsum("odbmel,odlh->bmeh", h2,
+                               W.reshape(K, K, C, -1))
+        else:
+            # (o, d, channel) flattening matches the reference concat order
+            feats = h2.permute(2, 3, 4, 0, 1, 5).reshape(B, N, N,
+                                                         K * K * C)
+            out = feats @ W
+    elif impl == "folded":
+        h1, G_dest, K = origin_contract(X, G)
+        out = bdgcn_folded(W, h1, G_dest, K, C, fused)
     elif impl == "kernel":
         h1, G_dest, K = origin_contract(X, G)
-        Wr = layer.W.reshape(K, K, C, -1)
+        Wr = W.reshape(K, K, C, -1)
         Gk = G_dest if G_dest.ndim == 4 else G_dest[None]
         out = folded_pair_project(h1, Gk, Wr)
-    elif impl == "ell":
-        out = bdgcn_sparse(layer.W, X, G)
+    elif impl in ("csr", "ell"):
+        out = bdgcn_sparse(W, X, G, fused)
     else:
         raise ValueError(f"unknown bdgcn impl {impl!r}: expected one of "
                          f"{BDGCN_IMPLS}")

@@ -7,7 +7,9 @@ outputs are averaged. ``lstm_impl``/``bdgcn_impl`` pick the hand-written
 kernels ("kernel") or the plain arms ("plain"/"einsum"), which compute the
 same function with stock PyTorch operations and which autograd
 differentiates like any torch code; ``bdgcn_impl="ell"`` runs the BDGCN
-layers over blocked-ELL support containers through the ELL SpMM kernels. ``forward(..., inference=True)`` runs
+layers over blocked-ELL support containers through the ELL SpMM kernels,
+``"csr"`` over padded-CSR containers and ``"folded"`` the bank-free plain
+arm (nn/bdgcn.py). ``forward(..., inference=True)`` runs
 under ``torch.no_grad()`` on the inference kernels (the serve and test
 rollouts); ``inference=False`` records autograd through the training
 kernels (``LSTMLayerFn`` and ``PairProjectFn``).
@@ -24,6 +26,15 @@ thing, so a captured rollout keeps only the int8 codes resident. With
 ``torch.utils.checkpoint`` (where the JAX package puts ``jax.checkpoint``,
 :149-150, 350-351, 432-433): its kernels run again inside the backward
 instead of keeping their residuals.
+
+``fused_epilogue`` (mpgcn_tpu/nn/mpgcn.py:238-253, 405-428): every BDGCN
+layer takes its arm's fused epilogue (nn/bdgcn.py), and under ``-lstm
+plain`` the M branches' LSTMs run as one stacked scan (nn/fused.py),
+then each branch's spatial half; under ``remat`` that whole forward is
+one checkpoint. ``lazy_quant``: with an int8 weight tree, the fused
+epilogue, ``-lstm plain`` and a BDGCN arm other than "kernel" (whose
+kernels take dense operands), the tree is not dequantised up front:
+each weight is dequantised where it is used.
 """
 
 from __future__ import annotations
@@ -45,10 +56,15 @@ from mpgcn_tpu_torch.nn.cuda_lstm import (
     lstm_layer_infer_plain,
     lstm_layer_recorded,
 )
+from mpgcn_tpu_torch.nn.fused import stacked_lstm_last_step
 from mpgcn_tpu_torch.nn.init import linear_uniform
 from mpgcn_tpu_torch.nn.lstm import LSTM
-from mpgcn_tpu_torch.quant.int8 import dequantize_params, has_quantized
-from mpgcn_tpu_torch.sparse.formats import BlockedELL
+from mpgcn_tpu_torch.quant.int8 import (
+    dequantize_params,
+    has_quantized,
+    is_quantized,
+)
+from mpgcn_tpu_torch.sparse.formats import BlockedELL, PaddedCSR
 
 #: lstm_impl -> the function that runs one LSTM layer, by inference flag
 LSTM_LAYER_FNS = {
@@ -85,7 +101,7 @@ class MPGCN(nn.Module):
                  use_bias: bool = True, sources=None,
                  lstm_impl: str = "kernel", bdgcn_impl: str = "kernel",
                  seed: int = 0, device="cuda", compute_dtype=None,
-                 remat: bool = False):
+                 remat: bool = False, fused_epilogue: bool = False):
         super().__init__()
         if lstm_impl not in LSTM_LAYER_FNS:
             raise ValueError(f"lstm_impl={lstm_impl!r} is not one of "
@@ -101,6 +117,7 @@ class MPGCN(nn.Module):
         #: the training and evaluation forwards' compute dtype (None: the
         #: weights' own, f32) and whether their branches are checkpointed
         self.compute_dtype, self.remat = compute_dtype, remat
+        self.fused_epilogue = fused_epilogue
         self._lstm_layer_fns = LSTM_LAYER_FNS[lstm_impl]
         device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
@@ -120,7 +137,30 @@ class MPGCN(nn.Module):
                    sources=cfg.resolved_branch_sources, seed=cfg.seed,
                    device=device,
                    compute_dtype=compute_dtype_of(cfg.dtype),
-                   remat=cfg.remat, **kw)
+                   remat=cfg.remat, fused_epilogue=cfg.fused_epilogue,
+                   **kw)
+
+    @property
+    def _stacked_lstm(self) -> bool:
+        """Do the branches' LSTMs run as one stacked scan? Under the fused
+        epilogue with the plain LSTM arm (the JAX ``lstm_impl ==
+        "scan"``)."""
+        return self.fused_epilogue and self.lstm_impl == "plain"
+
+    def _lazy_quant(self, params) -> bool:
+        """Dequantise an int8 tree's weights at their use sites (JAX:
+        ``lazy_quant``) instead of up front?"""
+        return (has_quantized(params) and self._stacked_lstm
+                and self.bdgcn_impl != "kernel")
+
+    def _spatial(self, branch, h, G, B: int, N: int):
+        """A branch's BDGCN layers and head: LSTM output rows -> pre-head
+        (B, N, N, H) and the FC+ReLU output (B, N, N, F)."""
+        h = h.reshape(B, N, N, -1)
+        for layer in branch.spatial:
+            h = bdgcn_apply(layer, h, G, activation=F.relu,
+                            impl=self.bdgcn_impl, fused=self.fused_epilogue)
+        return h, F.relu(F.linear(h, branch.fc.weight, branch.fc.bias))
 
     def _branch(self, branch, lstm_in, G, B: int, N: int, inference: bool):
         """One branch (its ``Branch`` module, or a view of the same names
@@ -128,23 +168,31 @@ class MPGCN(nn.Module):
         the FC+ReLU output (B, N, N, F)."""
         h = lstm_last_step_fused(branch.temporal.layers, lstm_in,
                                  layer_fn=self._lstm_layer_fns[inference])
-        h = h.reshape(B, N, N, -1)
-        for layer in branch.spatial:
-            h = bdgcn_apply(layer, h, G, activation=F.relu,
-                            impl=self.bdgcn_impl)
-        return h, F.relu(F.linear(h, branch.fc.weight, branch.fc.bias))
+        return self._spatial(branch, h, G, B, N)
 
-    def _views(self, params, dtype) -> list:
+    def _stacked(self, branches, lstm_in, graphs, B: int, N: int):
+        """Every branch with the stacked LSTM scan (JAX ``fwd_fused``): the
+        M LSTMs as one scan, then each branch's spatial half. Returns the
+        pre-head outputs and the head outputs, per branch."""
+        h_all = stacked_lstm_last_step(
+            [b.temporal.layers for b in branches], lstm_in)
+        pairs = [self._spatial(b, h_all[m], G, B, N)
+                 for m, (b, G) in enumerate(zip(branches, graphs))]
+        return [p[0] for p in pairs], [p[1] for p in pairs]
+
+    def _views(self, params, dtype, lazy: bool = False) -> list:
         """The branches the forward runs: the modules themselves, or views
         of ``params`` (a ``{name: tensor}`` tree, dequantized when it holds
-        int8) or of the module's weights, cast to ``dtype``."""
+        int8, unless ``lazy`` keeps its codes for the use sites) or of the
+        module's weights, cast to ``dtype``."""
         if params is None and dtype is None:
             return list(self.branches)
         w = dict(self.named_parameters()) if params is None else params
-        if has_quantized(w):
+        if has_quantized(w) and not lazy:
             w = dequantize_params(w)
         if dtype is not None:
-            w = {k: v.to(dtype) for k, v in w.items()}
+            w = {k: v if is_quantized(v) else v.to(dtype)
+                 for k, v in w.items()}
         views = []
         for m, branch in enumerate(self.branches):
             p = f"branches.{m}"
@@ -195,21 +243,28 @@ class MPGCN(nn.Module):
             graphs = [cast_graph(G, dtype) for G in graphs]
         else:
             dtype = None
-        branches = self._views(params, dtype)
+        branches = self._views(params, dtype, self._lazy_quant(params))
         B, T, N, _, i = x_seq.shape
         # each OD pair is an independent temporal sequence (MPGCN.py:100)
         lstm_in = x_seq.permute(0, 2, 3, 1, 4).reshape(B * N * N, T, i)
-        run = self._branch
-        if self.remat and not inference and torch.is_grad_enabled():
-            def run(*args):
-                return torch.utils.checkpoint.checkpoint(
-                    self._branch, *args, use_reentrant=False,
-                    preserve_rng_state=False)
-        hidden, outs = [], []
-        for branch, G in zip(branches, graphs):
-            h, out = run(branch, lstm_in, G, B, N, inference)
-            hidden.append(h)
-            outs.append(out)
+        remat = self.remat and not inference and torch.is_grad_enabled()
+
+        def run(fn, *args):
+            if not remat:
+                return fn(*args)
+            return torch.utils.checkpoint.checkpoint(
+                fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+        if self._stacked_lstm:
+            hidden, outs = run(self._stacked, branches, lstm_in,
+                               list(graphs), B, N)
+        else:
+            hidden, outs = [], []
+            for branch, G in zip(branches, graphs):
+                h, out = run(self._branch, branch, lstm_in, G, B, N,
+                             inference)
+                hidden.append(h)
+                outs.append(out)
         pred = torch.stack(outs, dim=-1).to(out_dtype).mean(dim=-1)[:, None]
         return (pred, hidden) if return_hidden else pred
 
@@ -232,10 +287,13 @@ def infer_dtype_of(cfg):
 
 def cast_graph(G, dtype):
     """A branch's graph input in ``dtype``: a dense stack, a dynamic pair,
-    or blocked-ELL containers, whose f32 or bf16 tiles are cast (int8
-    codes stay codes, as the JAX package leaves quantized leaves)."""
+    or sparse containers, whose CSR values or f32 or bf16 tiles are cast
+    (int8 codes stay codes, as the JAX package leaves quantized
+    leaves)."""
     if isinstance(G, tuple):
         return tuple(cast_graph(g, dtype) for g in G)
+    if isinstance(G, PaddedCSR):
+        return dataclasses.replace(G, values=G.values.to(dtype))
     if isinstance(G, BlockedELL):
         if isinstance(G.blocks, torch.Tensor):
             return dataclasses.replace(G, blocks=G.blocks.to(dtype))

@@ -1,12 +1,16 @@
-"""Blocked-ELL support-stack containers (counterpart of the blocked-ELL
-half of mpgcn_tpu/sparse/formats.py).
+"""Sparse support-stack containers: padded-CSR and blocked-ELL
+(counterpart of mpgcn_tpu/sparse/formats.py).
 
-A ``BlockedELL`` holds a stack of sparse (n_rows, n_cols) operators with
-any leading dims -- (K, N, N) static stacks, (7, K, N, N) day-of-week
-banks -- as fixed-shape tensors: the rows in blocks of BR, the columns in
-blocks of BC, and per row block only its populated (BR, BC) tiles with
-their column-block ids. ``bank[keys]`` gathers the stack like a dense
-bank.
+A ``PaddedCSR`` holds a stack of sparse (N, n_cols) operators as (..., N,
+R) column ids and values, R the pad width every row shares (the most
+populated row, rounded up to ``plan_pad_width``'s bucket); a row with
+fewer non-zeros pads with id 0 and value 0, so an isolated node gives an
+exact zero row. A ``BlockedELL`` holds a stack of sparse (n_rows,
+n_cols) operators as fixed-shape tensors: the rows in blocks of BR, the
+columns in blocks of BC, and per row block only its populated (BR, BC)
+tiles with their column-block ids. Both take any leading dims -- (K, N,
+N) static stacks, (7, K, N, N) day-of-week banks -- and ``bank[keys]``
+gathers the stack like a dense bank.
 
 Orientation: a container stores the operator A applied as
 ``out[m] = sum_n A[m, n] X[n]``. Both BDGCN contractions apply the
@@ -14,16 +18,20 @@ supports transposed, so ``sparsify_support_stack`` transposes the dense
 stack first; callers hand it the (..., N, N) bank the dense path uses.
 
 The containers are built in numpy and are byte for byte the JAX package's
-for the same dense stack (block_cols, tiles, int8 codes and scales), with
-its (8, 128) tiles: the tile shape is the TPU's and is kept so that the
-two packages store the same bytes. One thing is added: a transposed block
+for the same dense stack (CSR ids and values; block_cols, tiles, int8
+codes and scales), the ELL ones with its (8, 128) tiles: the tile shape
+is the TPU's and is kept so that the two packages store the same bytes.
+One thing is added to a BlockedELL: a transposed block
 index (``t_ptr``, ``t_slot``), the populated slots of each column block in
 a fixed order, which the dX kernel walks instead of adding into dX with
 atomics, and the forward kernel walks to find a row group's slots on each
 column block (sparse/cuda_ell.py). Pad slots (all-zero tiles) are left out
 of it: their contribution is exactly zero.
 
-The padded-CSR container and the ``csr`` arm are not ported.
+``analyze_support`` and ``recommend_format`` profile a dense stack as the
+JAX package does: dense above the density threshold, else blocked-ELL on
+the TPU and padded-CSR elsewhere (the port's own ``auto`` is
+data/pipeline.py ``resolve_bdgcn_impl``).
 """
 
 from __future__ import annotations
@@ -36,6 +44,10 @@ import torch
 
 from mpgcn_tpu_torch.config import SUPPORT_PAYLOADS
 from mpgcn_tpu_torch.quant.int8 import QuantizedTensor, is_quantized
+
+#: support density above which ``recommend_format`` says dense (the JAX
+#: package's guessed ``sparse_density_threshold``)
+SPARSE_DENSITY_DEFAULT = 0.25
 
 _PAD_BUCKET = 8      # pad-width granularity of the JAX package's planner
 _ELL_BR = 8          # row-block height
@@ -60,6 +72,54 @@ def _check_finite(A: np.ndarray, what: str):
 
 def _numpy(x) -> np.ndarray:
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+@dataclasses.dataclass(frozen=True)
+class PaddedCSR:
+    """Padded-CSR operator stack.
+
+    indices: (..., N, R) int32 input-node ids per output row (0 on pads).
+    values:  (..., N, R) coefficients (0 on pads), f32 or bf16.
+    n_cols:  the dense input dimension.
+    """
+
+    indices: torch.Tensor
+    values: torch.Tensor
+    n_cols: int
+
+    def __getitem__(self, key):
+        """Slice the stack's leading dims (``bank[keys]``)."""
+        return PaddedCSR(self.indices[key], self.values[key], self.n_cols)
+
+    def to(self, device) -> "PaddedCSR":
+        return PaddedCSR(self.indices.to(device), self.values.to(device),
+                         self.n_cols)
+
+    @property
+    def pad_width(self) -> int:
+        return self.indices.shape[-1]
+
+    @property
+    def shape(self) -> tuple:
+        """Dense-equivalent shape of the stacked operator."""
+        return tuple(self.indices.shape[:-1]) + (self.n_cols,)
+
+    @property
+    def device(self) -> torch.device:
+        return self.indices.device
+
+    def to_dense(self) -> np.ndarray:
+        idx = _numpy(self.indices)
+        val = _numpy(self.values.float())
+        flat_i = idx.reshape(-1, *idx.shape[-2:])
+        flat_v = val.reshape(-1, *val.shape[-2:])
+        out = np.zeros((flat_i.shape[0], idx.shape[-2], self.n_cols),
+                       flat_v.dtype)
+        rows = np.arange(idx.shape[-2])[:, None]
+        for b in range(flat_i.shape[0]):
+            # pads carry value 0 at id 0, so adding them is exact
+            np.add.at(out[b], (rows, flat_i[b]), flat_v[b])
+        return out.reshape(self.shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +190,33 @@ class BlockedELL:
                         flat_b[s, i, j]
         out = out[:, :self.n_rows, :self.n_cols]
         return out.reshape(lead + (self.n_rows, self.n_cols))
+
+
+def csr_from_dense(A, bucket: int = _PAD_BUCKET,
+                   pad_width: Optional[int] = None) -> PaddedCSR:
+    """(..., N, M) dense operator stack -> PaddedCSR with one pad width R
+    shared by the whole stack (CPU tensors): each row's non-zeros in
+    column order, then pads."""
+    A = _numpy(A)
+    _check_finite(A, "dense operator")
+    mask = A != 0
+    max_nnz = int(mask.sum(-1).max()) if A.size else 0
+    if pad_width is not None:
+        R = pad_width
+        if max_nnz > R:
+            raise ValueError(
+                f"pad_width {R} < max row nnz {max_nnz}: entries would "
+                f"be silently dropped")
+    else:
+        # a small matrix never needs a pad wider than its column count
+        R = min(plan_pad_width(max_nnz, bucket), max(A.shape[-1], 1))
+    order = np.argsort(~mask, axis=-1, kind="stable")[..., :R]
+    taken = np.take_along_axis(mask, order, -1)
+    vals = np.where(taken, np.take_along_axis(A, order, -1), 0)
+    idx = np.where(taken, order, 0)
+    return PaddedCSR(torch.from_numpy(idx.astype(np.int32)),
+                     torch.from_numpy(vals.astype(A.dtype)),
+                     int(A.shape[-1]))
 
 
 def _transposed_index(cols: np.ndarray, taken: np.ndarray, nbc: int):
@@ -214,19 +301,19 @@ def ell_pad_width(stack) -> int:
     return _auto_pad(bmask, 1)
 
 
-def sparsify_support_stack(stack, fmt: str,
-                           pad: Optional[int] = None) -> BlockedELL:
+def sparsify_support_stack(stack, fmt: str, pad: Optional[int] = None):
     """Dense (..., N, N) support bank -> the container of the TRANSPOSED
-    operators. ``pad`` is the pad-block count MB, shared across banks when
-    given; the column-block width follows ``_support_bc``."""
+    operators. ``pad`` is the pad width R ('csr') or pad-block count MB
+    ('ell'), shared across banks when given; the ELL column-block width
+    follows ``_support_bc``."""
     stack = np.swapaxes(_numpy(stack), -1, -2)
+    if fmt == "csr":
+        return csr_from_dense(stack, pad_width=pad)
     if fmt == "ell":
         return ell_from_dense(stack, br=_ELL_BR,
                               bc=_support_bc(stack.shape[-1]),
                               pad_blocks=pad)
-    if fmt == "csr":
-        raise ValueError("the padded-CSR format is not ported: use 'ell'")
-    raise ValueError(f"unknown sparse format {fmt!r}: expected 'ell'")
+    raise ValueError(f"unknown sparse format {fmt!r}: expected csr|ell")
 
 
 def quantize_ell(ell: BlockedELL) -> BlockedELL:
@@ -244,40 +331,86 @@ def quantize_ell(ell: BlockedELL) -> BlockedELL:
                                     torch.from_numpy(scale).to(dev)))
 
 
-def pack_payload(container: BlockedELL, payload: str) -> BlockedELL:
-    """Re-store the tiles as ``payload``: 'f32' as they are, 'bf16' cast,
-    'int8' as codes and per-row-block scales. Structure and pad stay."""
+def pack_payload(container, payload: str):
+    """Re-store the values as ``payload``: 'f32' as they are, 'bf16' cast,
+    'int8' as codes and per-row-block scales (blocked-ELL only: the
+    padded-CSR gather has no tiled operand read to dequantise in).
+    Structure and pad stay."""
     if payload not in SUPPORT_PAYLOADS:
         raise ValueError(f"unknown support payload {payload!r}: expected "
                          f"one of {SUPPORT_PAYLOADS}")
-    if not isinstance(container, BlockedELL):
+    if not isinstance(container, (PaddedCSR, BlockedELL)):
         raise TypeError(f"not a sparse container: "
                         f"{type(container).__name__}")
     if payload == "f32":
         return container
+    if isinstance(container, PaddedCSR):
+        if payload == "int8":
+            raise ValueError(
+                "support_payload='int8' needs blocked-ELL containers "
+                "(bdgcn_impl='ell'): the padded-CSR arm has no tiled "
+                "operand read")
+        return dataclasses.replace(
+            container, values=container.values.to(torch.bfloat16))
     if payload == "int8":
         return quantize_ell(container)
     return dataclasses.replace(container,
                                blocks=container.blocks.to(torch.bfloat16))
 
 
-def container_nbytes(c: BlockedELL) -> int:
-    """Resident bytes of a container: column ids, tiles (codes and scales
-    for int8) and the transposed block index."""
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def container_nbytes(c) -> int:
+    """Resident bytes of a container: CSR ids and values; ELL column ids,
+    tiles (codes and scales for int8) and the transposed block index."""
+    if isinstance(c, PaddedCSR):
+        return _nbytes(c.indices) + _nbytes(c.values)
     blk = c.blocks
-    tiles = (blk.nbytes if is_quantized(blk)
-             else blk.numel() * blk.element_size())
-    return tiles + sum(t.numel() * t.element_size()
-                       for t in (c.block_cols, c.t_ptr, c.t_slot))
+    tiles = blk.nbytes if is_quantized(blk) else _nbytes(blk)
+    return tiles + sum(_nbytes(t) for t in (c.block_cols, c.t_ptr, c.t_slot))
 
 
-def dense_equiv_bytes(c: BlockedELL, dtype_bytes: int = 4) -> int:
+def dense_equiv_bytes(c, dtype_bytes: int = 4) -> int:
     """Bytes of the same operator stack stored dense."""
     return int(np.prod(c.shape)) * dtype_bytes
 
 
-def container_pad(c: BlockedELL) -> int:
-    """The shared-pad handle of a container (MB)."""
+def container_pad(c) -> int:
+    """The shared-pad handle of a container: R for PaddedCSR, MB for
+    BlockedELL (what ``sparsify_support_stack(pad=...)`` takes)."""
+    if isinstance(c, PaddedCSR):
+        return c.pad_width
     if isinstance(c, BlockedELL):
         return c.pad_blocks
     raise TypeError(f"not a sparse container: {type(c).__name__}")
+
+
+def analyze_support(stack) -> dict:
+    """Density and row-population profile of a dense support stack, and
+    the format ``recommend_format`` gives it (host numpy)."""
+    A = _numpy(stack)
+    mask = A != 0
+    nnz = int(mask.sum())
+    density = nnz / A.size if A.size else 1.0
+    per_row = mask.sum(-1)
+    max_row = int(per_row.max()) if A.size else 0
+    return {
+        "nnz": nnz,
+        "density": round(density, 6),
+        "max_row_nnz": max_row,
+        "pad_width": plan_pad_width(max_row),
+        "zero_degree_rows": int((per_row == 0).sum()),
+        "recommend": recommend_format(density),
+    }
+
+
+def recommend_format(density: float,
+                     threshold: float = SPARSE_DENSITY_DEFAULT,
+                     platform: str = "cpu") -> str:
+    """The JAX package's recommendation by density: dense above the
+    threshold, blocked-ELL on the TPU, padded-CSR elsewhere."""
+    if density > threshold:
+        return "dense"
+    return "ell" if platform == "tpu" else "csr"

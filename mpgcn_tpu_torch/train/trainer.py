@@ -15,7 +15,7 @@ thread (``utils/atomic.py`` ``AsyncWriter``) from one host copy of the
 state an epoch, off the epoch loop; ``train`` returns, and anything that
 reads a checkpoint back reads it, only after they reach the disk.
 
-Each epoch of a mode runs on one of two executors (``_epoch_exec``, as
+Each epoch of a mode runs on one of three executors (``_epoch_exec``, as
 the JAX trainer dispatches them, printed on the ``[dispatch]
 epoch_exec:`` line). ``scan`` (the default, ``cfg.epoch_scan``, for a
 mode whose windows fit ``cfg.epoch_scan_max_mb``) keeps the mode's
@@ -26,10 +26,20 @@ card its train step (forward, backward, clip, Adam) and eval step are
 each captured once as a CUDA graph (train/graphs.py) after two eager
 warm-up steps, which are the epoch's first real steps, and replayed for
 every step after; on the CPU and on the ELL arm they run eagerly
-(graphs.py ``refusal``). ``per_step`` (``epoch_scan=False``, or a mode
-over the budget: the stream executor is not ported) copies each batch
-from the host and reads each loss back. Both run the same arithmetic,
-so they give the same bits. ``test`` reloads the checkpoint, rolls out
+(graphs.py ``refusal``). ``stream`` (a mode over the budget, with
+``cfg.epoch_stream``) splits the epoch index into chunks of steps that
+fit ``cfg.stream_chunk_mb``: the pipeline gathers chunk k+1 on a
+background thread (into pinned memory on the card) and the trainer
+copies it to the device on a side stream while chunk k computes; each
+chunk is copied into the mode's static chunk buffer, whose steps run
+the same step (the same captured graph per mode, or eagerly) as the
+scan executor's, so the two give the same bits; at most two chunk
+buffers are on the device, the host waits once a chunk (the pacing:
+chunk k-1 done before chunk k starts) and reads the losses once at the
+end. ``per_step`` (``epoch_scan=False``, or ``epoch_stream=False`` for
+a mode over the budget) copies each batch from the host and reads each
+loss back. All three run the same arithmetic, so they give the same
+bits. ``test`` reloads the checkpoint, rolls out
 ``pred_len`` steps and appends its scores to
 ``<output_dir>/MPGCN_prediction_scores.txt``, in the model's space or,
 with ``denormalize``, in the normalizer's input space. On the card every
@@ -82,8 +92,8 @@ per-channel quantized tree, made once per weights version and refilled in
 place, so the captured rollouts that read it stay valid; each precision
 has its own captured rollouts.
 
-Not here yet: the stream executor, the orbax checkpoint backend, fault
-injection, the multi-process votes and the metrics registry.
+Not here yet: the orbax checkpoint backend, fault injection, the
+multi-process votes and the metrics registry.
 """
 
 from __future__ import annotations
@@ -155,8 +165,10 @@ class DeadInitError(RuntimeError):
 
 
 class _Epoch:
-    """One mode's state on the scan executor: its device-resident windows
-    (xs, ys, keys), the static (S, B) index and (S,) sizes an epoch reads,
+    """One mode's state on the scan or stream executor: its device-resident
+    windows (xs, ys, keys; on the stream executor the static buffer that
+    each chunk is copied into), the static (S, B) index and (S,) sizes an
+    epoch reads,
     the (S,) step losses it writes, the device step counter ``t`` (the
     buffers a captured step reads and writes), and how many eager
     warm-up steps of the mode have run."""
@@ -279,6 +291,10 @@ class ModelTrainer:
         # the scan executor's per-mode state, and the graphs of this
         # trainer (None where graphs.refusal names a reason)
         self._epochs: dict[str, _Epoch] = {}
+        #: the stream executor's side stream for uploads (made on first
+        #: use, on the card) and its counters of the last epoch, by mode
+        self._copy_stream = None
+        self._stream_stats: dict = {}
         self.graph_refusal = refusal(self.device, self.bdgcn_impl)
         self._graphs = (None if self.graph_refusal else
                         GraphSet(self.device, self.bdgcn_impl))
@@ -437,28 +453,54 @@ class ModelTrainer:
         return rows * per_row / 1e6
 
     def _epoch_exec(self, mode: str) -> str:
-        """'scan' when ``cfg.epoch_scan`` is on and the mode fits
-        ``cfg.epoch_scan_max_mb``, else 'per_step' (JAX: ``_epoch_exec``
-        with ``epoch_stream=False``: the stream executor is not
-        ported)."""
+        """The three-way dispatch (JAX: ``_epoch_exec``): 'scan' when
+        ``cfg.epoch_scan`` is on and the mode fits
+        ``cfg.epoch_scan_max_mb``; over it 'stream', or 'per_step' when
+        ``cfg.epoch_stream`` is off; 'per_step' without the epoch scan."""
         if not self.cfg.epoch_scan:
             return "per_step"
         if self._mode_bytes(mode) <= self.cfg.epoch_scan_max_mb:
             return "scan"
-        return "per_step"
+        return "stream" if self.cfg.epoch_stream else "per_step"
+
+    def _chunk_budget_mb(self) -> float:
+        """The stream executor's device budget per chunk:
+        ``cfg.stream_chunk_mb``, else ``cfg.epoch_scan_max_mb``; when both
+        are 0 (the force-every-mode-onto-the-stream idiom) the stock scan
+        budget, not 1-step chunks (JAX: ``_chunk_budget_mb``)."""
+        budget = self.cfg.stream_chunk_mb or self.cfg.epoch_scan_max_mb
+        if budget <= 0:
+            budget = MPGCNConfig.__dataclass_fields__[
+                "epoch_scan_max_mb"].default
+        return budget
+
+    def _stream_steps_per_chunk(self, mode: str) -> int:
+        md = self.pipeline.modes[mode]
+        n = max(len(md), 1)
+        per_row = (md.x.nbytes + md.y.nbytes + md.keys.nbytes) / n
+        step_mb = self.cfg.batch_size * per_row / 1e6
+        return max(1, int(self._chunk_budget_mb() / step_mb))
+
+    def _stream_plan(self, mode: str) -> tuple:
+        """(n_chunks, steps_per_chunk) of the mode's stream epochs."""
+        spc = self._stream_steps_per_chunk(mode)
+        return -(-self.pipeline.num_batches(mode) // spc), spc
 
     def _exec_line(self, plan: dict) -> str:
         """The ``[dispatch] epoch_exec:`` line, in the JAX format, with
-        how the scan executor runs its steps here."""
-        desc = ", ".join(f"{m}={e}" for m, e in plan.items())
+        how the scan and stream executors run their steps here."""
+        desc = ", ".join(
+            f"{m}={e}" + ("({} chunks x {} steps)".format(
+                *self._stream_plan(m)) if e == "stream" else "")
+            for m, e in plan.items())
         line = (f"[dispatch] epoch_exec: {desc} (epoch_scan_max_mb="
-                f"{self.cfg.epoch_scan_max_mb})")
-        if "scan" in plan.values():
-            line += ("; scan steps: CUDA graphs" if self._graphs else
-                     f"; scan steps: eager ({self.graph_refusal})")
-        if self.cfg.epoch_scan and "per_step" in plan.values():
-            line += ("; a mode over the budget runs per step (the stream "
-                     "executor is not ported)")
+                f"{self.cfg.epoch_scan_max_mb}, chunk budget "
+                f"{self._chunk_budget_mb()} MB)")
+        kinds = " and ".join(e for e in ("scan", "stream")
+                             if e in plan.values())
+        if kinds:
+            line += (f"; {kinds} steps: CUDA graphs" if self._graphs else
+                     f"; {kinds} steps: eager ({self.graph_refusal})")
         return line
 
     def _epoch_index(self, mode: str, shuffle: bool, rng):
@@ -534,21 +576,23 @@ class ModelTrainer:
             self._graphs.drop()
         self._graph_ptrs = ptrs
 
-    def _exec_step(self, mode: str, ep: _Epoch, is_train: bool) -> None:
-        """Run one step of the scan executor: eagerly without graphs; on
-        the card the mode's first WARMUP_STEPS steps eagerly on the graph
-        set's side stream, then its capture and a replay per step."""
+    def _exec_step(self, key: str, ep: _Epoch, is_train: bool) -> None:
+        """Run one step of the scan or stream executor on ``ep``: eagerly
+        without graphs; on the card the first WARMUP_STEPS steps on ``ep``
+        eagerly on the graph set's side stream, then the capture of its
+        graph ``key`` (the mode; '<mode>-stream' on the stream executor's
+        buffers) and a replay per step."""
         body = self._train_body if is_train else self._eval_body
         graphs, g = self._graphs, None
-        if graphs is not None and graphs.get(mode) is None \
+        if graphs is not None and graphs.get(key) is None \
                 and ep.warm < WARMUP_STEPS:
             graphs.warmup(lambda: body(ep))
             ep.warm += 1
         else:
             if graphs is not None:
-                g = graphs.get(mode)
+                g = graphs.get(key)
                 if g is None:
-                    g = graphs.capture(mode, lambda: body(ep))
+                    g = graphs.capture(key, lambda: body(ep))
                     self._graph_ptrs = self._state_ptrs()
             if is_train:
                 self._start_clock()
@@ -574,6 +618,149 @@ class ModelTrainer:
             self._exec_step(mode, ep, is_train)
         if is_train:
             self.optimizer.advance(len(sizes))
+        return ep.losses, sizes
+
+    # --- the stream executor ---------------------------------------------
+
+    def _stream_state(self, mode: str, spc: int) -> _Epoch:
+        """The mode's stream state: a static device buffer of one chunk
+        (spc * B windows) that each chunk is copied into, and the epoch
+        index, sizes and losses of a whole epoch."""
+        key = f"{mode}-stream"
+        if key not in self._epochs:
+            md, B = self.pipeline.modes[mode], self.cfg.batch_size
+            rows = spc * B
+            buffers = (torch.zeros((rows,) + md.x.shape[1:],
+                                   device=self.device),
+                       torch.zeros((rows,) + md.y.shape[1:],
+                                   device=self.device),
+                       torch.zeros((rows,), dtype=torch.long,
+                                   device=self.device))
+            self._epochs[key] = _Epoch(buffers, self.pipeline.num_batches(
+                mode), B, self.device)
+        return self._epochs[key]
+
+    def _place_chunk(self, chunk) -> tuple:
+        """Start one host chunk's upload (JAX: ``_place_chunk``): on the
+        card from its pinned buffers into new device buffers on the copy
+        stream, without waiting, with the event that marks the copy done;
+        on the CPU the chunk's arrays as tensors. Returns (x, y, keys,
+        steps, event or None), x and y flat (steps * B, ...)."""
+        steps, B = chunk.keys.shape
+        flat = lambda a: a.reshape((steps * B,) + a.shape[2:])
+        keys = torch.from_numpy(chunk.keys.reshape(-1).astype(np.int64))
+        if self.device.type != "cuda":
+            return (torch.from_numpy(flat(chunk.x)),
+                    torch.from_numpy(flat(chunk.y)), keys, steps, None)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        host = [flat(t) for t in chunk.pinned] + [keys.pin_memory()]
+        with torch.cuda.stream(self._copy_stream):
+            dev = [torch.empty_like(t, device=self.device) for t in host]
+            for d, h in zip(dev, host):
+                d.copy_(h, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._copy_stream)
+        return (*dev, steps, done)
+
+    def _host_wait(self, event) -> None:
+        """The stream executor's pacing wait (JAX: ``block_until_ready``
+        on chunk k-1 before chunk k is dispatched): its one host wait a
+        chunk. The smoke counts these calls."""
+        event.synchronize()
+
+    def _dispatch_chunk(self, key: str, ep: _Epoch, placed: tuple,
+                        is_train: bool):
+        """Run one placed chunk's steps on ``ep`` without a host sync:
+        the compute stream waits for the chunk's upload, copies it into
+        the static buffer (the uploaded buffers are kept for the compute
+        stream by ``record_stream`` and freed when it has read them),
+        then runs the steps. Returns the event after its last step on the
+        card (None on the CPU)."""
+        x, y, keys, steps, done = placed
+        if done is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(done)
+            for t in (x, y, keys):
+                t.record_stream(cur)
+        rows = x.shape[0]
+        for buf, t in zip((ep.xs, ep.ys, ep.keys), (x, y, keys)):
+            buf[:rows].copy_(t)
+        for _ in range(steps):
+            self._exec_step(key, ep, is_train)
+        if done is None:
+            return None
+        end = torch.cuda.Event()
+        end.record(torch.cuda.current_stream(self.device))
+        return end
+
+    def _run_epoch_stream(self, mode: str, shuffle: bool, rng,
+                          is_train: bool):
+        """One epoch of ``mode`` on the chunked-stream executor (JAX:
+        ``_run_epoch_stream``): the background thread gathers chunk k+1
+        while chunk k computes, its upload starts as soon as it is
+        gathered, and the host waits for chunk k-1 to finish before it
+        dispatches chunk k, so at most two chunk buffers are on the
+        device (the static buffer computing, one staged) and one chunk
+        is in flight. Watchdog beats at chunk boundaries; the chunk
+        counters go into ``_stream_stats[mode]``. Returns the (S,) device
+        losses, not read yet, and the host sizes."""
+        idx, sizes = self._epoch_index(mode, shuffle, rng)
+        S = len(sizes)
+        n_chunks, spc = self._stream_plan(mode)
+        if is_train:
+            self.optimizer.reserve(self.optimizer.count + S)
+        self._check_storage()
+        ep = self._stream_state(mode, spc)
+        B = self.cfg.batch_size
+        # step s reads rows (s mod spc) * B + j of the chunk buffer
+        ep.load((np.arange(S)[:, None] % spc) * B + np.arange(B), sizes)
+        key = f"{mode}-stream"
+        stall = 0.0
+        resident = max_resident = 0
+        t_epoch = time.perf_counter()
+        it = self.pipeline.stream_chunks(mode, idx, sizes, spc)
+        cur = prev = None
+        k = 0  # chunks dispatched
+        try:
+            t0 = time.perf_counter()
+            host = next(it, None)
+            stall += time.perf_counter() - t0  # the pipeline's fill too
+            if host is not None:
+                cur = self._place_chunk(host)
+                host = None  # the host copy goes once its upload is queued
+                resident = max_resident = 1
+            while cur is not None:
+                if k:
+                    # chunk k-1 done (on the CPU it ran inside its
+                    # dispatch): its buffer is free
+                    if prev is not None:
+                        self._host_wait(prev)
+                    resident -= 1
+                prev = self._dispatch_chunk(key, ep, cur, is_train)
+                k += 1
+                cur = None
+                t0 = time.perf_counter()
+                host = next(it, None)
+                stall += time.perf_counter() - t0  # feed-starved time only
+                if host is not None:
+                    cur = self._place_chunk(host)  # k+1 uploads under k
+                    host = None
+                    resident += 1
+                    max_resident = max(max_resident, resident)
+                self._beat()
+        finally:
+            it.close()  # retire the staging thread on any exit
+        if is_train:
+            self.optimizer.advance(S)
+        secs = time.perf_counter() - t_epoch
+        self._stream_stats[mode] = {
+            "chunks": n_chunks, "steps_per_chunk": spc,
+            "max_resident_chunks": max_resident,
+            "stall_secs": round(stall, 4),
+            # the share of the epoch not starved on the host gather
+            "overlap_pct": (round(100.0 * (1.0 - stall / secs), 2)
+                            if secs > 0 else 100.0)}
         return ep.losses, sizes
 
     # --- the epoch loop --------------------------------------------------
@@ -638,13 +825,15 @@ class ModelTrainer:
 
     def _run_epoch(self, mode: str, exec_path: str, rng):
         """One epoch of ``mode`` on ``exec_path``: its (S,) step losses and
-        sizes on the host. On the scan executor the step losses are read
-        once, here (JAX: ``_run_epoch_scan``)."""
+        sizes on the host. On the scan and stream executors the step
+        losses are read once, here (JAX: ``_run_epoch_scan``)."""
         if exec_path == "per_step":
             return self._run_mode(mode, rng)
         is_train = mode == "train"
-        losses, sizes = self._dispatch_epoch(
-            mode, self.cfg.shuffle and is_train, rng, is_train)
+        run = (self._run_epoch_stream if exec_path == "stream"
+               else self._dispatch_epoch)
+        losses, sizes = run(mode, self.cfg.shuffle and is_train, rng,
+                            is_train)
         return losses.cpu().numpy(), sizes
 
     def steps_per_sec(self) -> float:
@@ -954,6 +1143,9 @@ class ModelTrainer:
         logger = RunLogger(run_log_path(cfg.output_dir, cfg.model,
                                         cfg.jsonl_log))
         plan = {m: self._epoch_exec(m) for m in modes}
+        stream_plan = {m: dict(zip(("chunks", "steps_per_chunk"),
+                                   self._stream_plan(m)))
+                       for m in modes if plan[m] == "stream"}
         logger.log("train_start", num_epochs=cfg.num_epochs,
                    steps_per_epoch=self.pipeline.num_batches("train"),
                    batch_size=cfg.batch_size, hidden_dim=cfg.hidden_dim,
@@ -962,7 +1154,8 @@ class ModelTrainer:
                    lstm_impl=self.model.lstm_impl,
                    bdgcn_impl=self.bdgcn_impl,
                    support_density=round(self.pipeline.support_density, 6),
-                   resume=resume, epoch_exec=plan)
+                   resume=resume, epoch_exec=plan,
+                   **({"stream_plan": stream_plan} if stream_plan else {}))
         if not self._exec_logged:
             self._exec_logged = True  # once a run, not per retry
             print(self._exec_line(plan))
@@ -986,6 +1179,7 @@ class ModelTrainer:
         for epoch in range(start, 1 + cfg.num_epochs):
             skipped = spikes = 0
             snap = None
+            self._stream_stats = {}
             for mode in modes:
                 is_train = mode == "train"
                 sentinel = is_train and cfg.step_sentinels
@@ -1047,7 +1241,9 @@ class ModelTrainer:
                            **({"loss_scale": scaler["scale"],
                                "scaler_skipped_steps":
                                    scaler["skipped_steps"]}
-                              if scaler else {}))
+                              if scaler else {}),
+                           **({"stream": self._stream_stats}
+                              if self._stream_stats else {}))
                 if state["patience_count"] <= 0:
                     _banner(f"    Early stopping at epoch {epoch}. "
                             f"{cfg.model} model training ends.")

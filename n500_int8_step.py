@@ -46,7 +46,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     print(f"[int8 step] mpgcn_tpu_torch from {root}", flush=True)
-    cfg = MPGCNConfig(**smoke.LARGE_N)
+    # the fields CHECKOUT's config has (an older one lacks od_storage)
+    cfg = MPGCNConfig(**{k: v for k, v in smoke.LARGE_N.items()
+                         if k in MPGCNConfig.__dataclass_fields__})
     data = smoke.large_n_data(cfg)
     cfg = cfg.replace(seed=smoke.live_init_seed(cfg, data, dev))
     out = os.path.join(root, "smoke_out", "int8_step")

@@ -9,9 +9,10 @@ the reference's file layout (``od_day20180101_20210228.npz`` holding one
 row of 47 x 47 counts a day, ``adjacency_matrix.npy``, and a POI file).
 N = 47 wherever the npz forces it; hidden 8.
 
-The JAX side builds its dynamic graphs with ``native_host='off'`` (the
-numpy day-of-week mean, which the port keeps): its C++ mean sums in
-another order and differs in the last bit (checked below to 1e-12).
+Where the data dicts are compared byte for byte both sides build their
+dynamic graphs with ``native_host='off'`` (the numpy day-of-week mean):
+the C++ mean sums in float64 in another order and differs in the last
+bit (checked below to 1e-12, port against JAX, both native).
 
 Tolerances: the data dicts byte for byte; the test-mode scores of one
 checkpoint in the two CLIs rtol 1e-4 (7 autoregressive f32 steps, other
@@ -142,7 +143,8 @@ LOADER_CASES = {
 @pytest.mark.parametrize("case", list(LOADER_CASES))
 def test_load_dataset_matches_jax(trees, case, capsys):
     tree, kw = LOADER_CASES[case]
-    ours, di = load_dataset(MPGCNConfig(input_dir=trees[tree], **kw))
+    ours, di = load_dataset(MPGCNConfig(input_dir=trees[tree],
+                                        native_host="off", **kw))
     ref, jdi = jax_loader.load_dataset(
         JaxConfig(input_dir=trees[tree], native_host="off", **kw))
     assert_same_data(ours, ref)
@@ -308,6 +310,66 @@ def test_cli_flags_match_jax(flag):
         assert ours.type == ref.type
 
 
+#: the city-scale feed's flags, each with a value to parse
+FEED_FLAG_VALUES = {"-fused-epilogue": [], "-od-storage": ["sparse"],
+                    "-no-stream": [], "-stream-chunk-mb": ["64"],
+                    "-native": ["off"]}
+
+
+@pytest.mark.parametrize("flag", list(FEED_FLAG_VALUES))
+def test_feed_flags_parse_to_the_jax_config(flag):
+    """Each flag: the same parser action as the JAX CLI's, and the same
+    config field and value out of the two CLIs' config building (the
+    port's ``config_from_args``; the JAX CLI's default-popping of
+    ``stream_chunk_mb``)."""
+    ours, ref = (next(a for a in p._actions if flag in a.option_strings)
+                 for p in (cli.build_parser(), jax_cli.build_parser()))
+    for attr in ("option_strings", "dest", "choices", "default", "nargs",
+                 "const", "required", "type"):
+        assert getattr(ours, attr) == getattr(ref, attr), attr
+    assert type(ours) is type(ref)
+    argv = [flag] + FEED_FLAG_VALUES[flag]
+    args = cli.build_parser().parse_args(argv).__dict__
+    cfg = cli.config_from_args(dict(args))
+    jargs = jax_cli.build_parser().parse_args(argv).__dict__
+    field = ours.dest
+    assert getattr(cfg, field) == jargs[field] == getattr(
+        JaxConfig(**{field: jargs[field]}), field)
+    assert getattr(cfg, field) != getattr(MPGCNConfig(), field)
+    # unset, the config default stands, as the JAX CLI leaves it
+    unset = cli.config_from_args(dict(cli.build_parser().parse_args(
+        []).__dict__))
+    assert getattr(unset, field) == getattr(JaxConfig(), field)
+
+
+def test_cli_runs_the_city_scale_feed_on_the_cpu(tmp_path, monkeypatch,
+                                                 capsys):
+    """-od-storage sparse -fused-epilogue -bdgcn csr with every mode on
+    the stream executor (epoch_scan_max_mb forced to 0, which no flag
+    sets in either CLI): one epoch, then the checkpoint's test-mode
+    scores from the port CLI and from the JAX CLI agree."""
+    real = cli.config_from_args
+    monkeypatch.setattr(cli, "config_from_args", lambda args: real(
+        args).replace(epoch_scan_max_mb=0.0))
+    argv = ["-data", "synthetic", "-sN", "12", "-sT", "60", "-hidden", "8",
+            "-od-storage", "sparse", "-fused-epilogue", "-bdgcn", "csr",
+            "-stream-chunk-mb", "0.1", "-seed", str(INIT_SEED)]
+    out = str(tmp_path / "port")
+    hist = cli.main(argv + ["-GPU", "cpu", "-epoch", "1", "-out", out])
+    printed = capsys.readouterr().out
+    assert np.isfinite(hist["train"]).all()
+    assert ("bdgcn_impl=csr (requested 'csr')" in printed
+            and "od_storage=sparse" in printed
+            and "fused_epilogue=on" in printed)
+    assert "[dispatch] epoch_exec: train=stream(" in printed
+    jax_out = str(tmp_path / "jax")
+    os.makedirs(jax_out)
+    shutil.copy(os.path.join(out, "MPGCN_od.pkl"), jax_out)
+    cli.main(argv + ["-GPU", "cpu", "-mode", "test", "-out", out])
+    jax_cli.main(argv + ["-mode", "test", "-out", jax_out] + JAX_FLAGS)
+    _assert_scores_close(_score_lines(out), _score_lines(jax_out))
+
+
 def test_cli_lstm_flag_keeps_the_ports_names():
     act = next(a for a in cli.build_parser()._actions
                if "-lstm" in a.option_strings)
@@ -341,7 +403,7 @@ def _recorders(monkeypatch):
 def _run_both(argv, out):
     """Each CLI on ``argv``; returns what each raised (None if nothing)."""
     raised = []
-    for main, extra in ((cli.main, ["-GPU", "cpu"]),
+    for main, extra in ((cli.main, ["-GPU", "cpu", "-native", "off"]),
                         (jax_cli.main, JAX_FLAGS)):
         try:
             main(argv + ["-out", str(out)] + extra)

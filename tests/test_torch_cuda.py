@@ -1671,3 +1671,75 @@ def test_bf16_bdgcn_entries_match_plain(cuda_device, dynamic, K, B, N, C, H,
     _bf16_close(dh1, r1, float(r1.float().abs().max()))
     torch.testing.assert_close(dW, rW, rtol=2 ** -7,
                                atol=2 ** -10 * float(rW.abs().max()))
+
+
+# --- the city-scale feed ------------------------------------------------------
+
+
+def _banded_stack(lead, n, band, gen):
+    """A (lead..., n, n) circulant band of random weights (the N=500
+    configuration's support shape)."""
+    i = torch.arange(n)
+    d = (i[:, None] - i[None, :]).abs()
+    d = torch.minimum(d, n - d)
+    mask = (d <= band).float()
+    return torch.randn(lead + (n, n), generator=gen) * mask
+
+
+@pytest.mark.parametrize("payload", ["f32", "int8"])
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_fused_ell_widths_equal_per_origin_columns(cuda_device, payload,
+                                                   dynamic):
+    """The fused epilogue's destination SpMM: one launch over the K stacked
+    origins, at the N=500 widths (static: X (500, 3 * 32,000) shared by
+    the stack; dynamic: one X (500, 3 * 16,000) per sample), equals the K
+    per-origin SpMMs column for column, bit for bit, forward and dX."""
+    gen = torch.Generator().manual_seed(5)
+    K, B, N, C = 3, 2, 500, 32
+    lead = (B, K) if dynamic else (K,)
+    A = _banded_stack(lead, N, 12, gen)
+    G = pack_payload(formats.sparsify_support_stack(A, "ell"),
+                     payload).to(cuda_device)
+    f_o = N * C if dynamic else B * N * C
+    X = torch.randn(lead[:1] + (N, K * f_o) if dynamic else (N, K * f_o),
+                    generator=gen).to(cuda_device).requires_grad_()
+    out = ell_spmm(G, X)
+    dout = torch.randn(out.shape, generator=gen).to(cuda_device)
+    out.backward(dout)
+    for o in range(K):
+        cols = slice(o * f_o, (o + 1) * f_o)
+        xo = X.detach()[..., cols].contiguous().requires_grad_()
+        oo = ell_spmm(G, xo)
+        oo.backward(dout[..., cols].contiguous())
+        assert torch.equal(out.detach()[..., cols], oo.detach()), o
+        assert torch.equal(X.grad[..., cols], xo.grad), o
+
+
+def test_stream_executor_equals_scan_on_the_card(cuda_device, tmp_path):
+    """Two epochs on the stream executor (chunks of 3 steps, every step
+    replayed from its graph after the warm-ups) equal the scan executor's
+    bit for bit; at most two chunks resident; one pacing wait a chunk
+    after the first."""
+    cfg = MPGCNConfig(synthetic_T=120, synthetic_N=10, pred_len=1, seed=0,
+                      num_epochs=2, hidden_dim=32)
+    data = synthetic_dataset(cfg)
+    runs = {}
+    for name, kw in (("scan", {}), ("stream", dict(
+            epoch_scan_max_mb=0.0, stream_chunk_mb=0.03,
+            od_storage="sparse"))):
+        tr = ModelTrainer(cfg.replace(output_dir=str(tmp_path / name), **kw),
+                          data, device=cuda_device)
+        waits = []
+        wait = tr._host_wait
+        tr._host_wait = lambda ev: (waits.append(1), wait(ev))
+        runs[name] = (tr, tr.train(), waits)
+    (ts, hs, _), (tm, hm, waits) = runs["scan"], runs["stream"]
+    assert tm._epoch_exec("train") == "stream"
+    assert tm._graphs.get("train-stream") is not None
+    chunks = {m: tm._stream_plan(m)[0] for m in ("train", "validate")}
+    assert chunks["train"] >= 3
+    assert hm == hs
+    _assert_same_state(tm, ts)
+    assert len(waits) == 2 * (chunks["train"] - 1 + chunks["validate"] - 1)
+    assert all(s["max_resident_chunks"] <= 2
+               for s in tm._stream_stats.values())

@@ -52,7 +52,8 @@ def test_synthetic_od_byte_identical(profile):
 @pytest.mark.parametrize("bug", [True, False])
 def test_dyn_graphs_match(bug):
     raw = loader.synthetic_od(T, N, 1)
-    o, d = construct_dyn_g(raw, 0.64, 7, reproduce_d_bug=bug)
+    o, d = construct_dyn_g(raw, 0.64, 7, reproduce_d_bug=bug,
+                           use_native=False)
     jo, jd = jax_dyn_g(raw, 0.64, 7, reproduce_d_bug=bug, use_native=False)
     np.testing.assert_array_equal(o, jo)
     np.testing.assert_array_equal(d, jd)
@@ -62,7 +63,8 @@ def test_dyn_graphs_match(bug):
 def test_preprocess_matches(norm):
     raw = loader.synthetic_od(T, N, 0)
     adj = loader.synthetic_adjacency(N, 0)
-    ours = loader.preprocess_od(raw, adj, MPGCNConfig(norm=norm))
+    ours = loader.preprocess_od(raw, adj, MPGCNConfig(norm=norm,
+                                                      native_host="off"))
     ref = jax_loader.preprocess_od(raw, adj, JaxConfig(norm=norm,
                                                        native_host="off"))
     for k in ("OD", "adj", "O_dyn_G", "D_dyn_G"):

@@ -76,9 +76,11 @@ def pair(data, tmp_path_factory):
 def test_mode_bytes_and_epoch_exec_match_jax(pair, batch_size, mode, scan,
                                              budget):
     """34 training windows: a multiple of batch 2, not of batch 4; the
-    budget just below the mode's bytes, at them and above them."""
+    budget just below the mode's bytes, at them and above them (the
+    stream executor off on both sides: tests/test_torch_stream.py holds
+    the three-way dispatch)."""
     pt, jt = pair
-    pt.cfg = pt.cfg.replace(batch_size=batch_size)
+    pt.cfg = pt.cfg.replace(batch_size=batch_size, epoch_stream=False)
     jt.cfg = jt.cfg.replace(batch_size=batch_size, epoch_stream=False)
     mb = pt._mode_bytes(mode)
     assert mb == jt._mode_bytes(mode) > 0
@@ -164,7 +166,8 @@ def test_scan_executor_matches_jax_trainer(runs):
 
 def test_dispatch_line_in_the_jax_format(data, tmp_path, capsys):
     """The port's ``[dispatch] epoch_exec:`` line opens as the JAX
-    trainer's does; over the budget a mode runs per step, and says so."""
+    trainer's does; over the budget a mode runs on the stream executor,
+    and says so."""
     cfg = MPGCNConfig(pred_len=1, num_epochs=1, output_dir=str(tmp_path),
                       **KW)
     ModelTrainer(cfg, data, device="cpu").train()
@@ -185,9 +188,13 @@ def test_dispatch_line_in_the_jax_format(data, tmp_path, capsys):
     hist = small.train()
     line = next(l for l in capsys.readouterr().out.splitlines()
                 if l.startswith("[dispatch] epoch_exec:"))
-    assert line.startswith(f"[dispatch] epoch_exec: train=per_step, "
-                           f"validate=scan (epoch_scan_max_mb={limit})")
-    assert "the stream executor is not ported" in line
+    chunks, spc = small._stream_plan("train")
+    assert chunks > 1
+    assert line.startswith(f"[dispatch] epoch_exec: train=stream({chunks} "
+                           f"chunks x {spc} steps), validate=scan "
+                           f"(epoch_scan_max_mb={limit}, chunk budget "
+                           f"{limit} MB)")
+    assert "; scan and stream steps: eager (cpu" in line
     assert np.isfinite(hist["train"]).all()
 
 

@@ -410,16 +410,23 @@ def _short_flags(parser) -> set:
             if not o.startswith("--")}
 
 
+#: the city-scale feed's flags (tests/test_torch_cli.py holds their values)
+FEED_FLAGS = ["-od-storage", "-fused-epilogue", "-no-stream",
+              "-stream-chunk-mb", "-native"]
+
+
 def test_missing_flag_count():
-    """The JAX CLI's flags the port lacks: 19 (34 before the self-healing
+    """The JAX CLI's flags the port lacks: 14 (34 before the self-healing
     slice, 24 before the precision slice added -dtype, -loss-scaling,
-    -loss-scale-init, -loss-scale-growth and -infer-precision); the port
-    has none of its own."""
+    -loss-scale-init, -loss-scale-growth and -infer-precision, 19 before
+    the city-scale feed added FEED_FLAGS); the port has none of its
+    own."""
     ours, ref = (_short_flags(p) for p in (cli.build_parser(),
                                            jax_cli.build_parser()))
     assert not ours - ref
-    assert len(ref - ours) == 19, sorted(ref - ours)
+    assert len(ref - ours) == 14, sorted(ref - ours)
     assert not set(SLICE_FLAGS) - ours
+    assert not set(FEED_FLAGS) - ours
 
 
 @pytest.mark.parametrize("argv,pred_len", [

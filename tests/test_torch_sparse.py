@@ -251,8 +251,13 @@ def test_container_bytes_and_unported_format():
     index = f32.t_ptr.numel() * 4 + f32.t_slot.numel() * 4
     assert container_nbytes(q) == jax_formats.container_nbytes(ref) + index
     assert dense_equiv_bytes(q) == jax_formats.dense_equiv_bytes(ref)
-    with pytest.raises(ValueError, match="not ported"):
-        sparsify_support_stack(A, "csr")
+    # the padded-CSR format is ported (tests/test_torch_csr.py holds it);
+    # a format of neither package is refused
+    assert container_nbytes(sparsify_support_stack(A, "csr")) == \
+        jax_formats.container_nbytes(jax_formats.sparsify_support_stack(
+            A, "csr"))
+    with pytest.raises(ValueError, match="unknown sparse format"):
+        sparsify_support_stack(A, "coo")
     with pytest.raises(ValueError, match="payload"):
         pack_payload(f32, "fp8")
 
@@ -630,7 +635,7 @@ def test_auto_resolves_by_density_and_size():
         DataPipeline(cfg.replace(support_payload="int8"), data, "cpu",
                      bdgcn_impl="kernel")
     with pytest.raises(ValueError, match="bdgcn_impl"):
-        DataPipeline(cfg, data, "cpu", bdgcn_impl="csr")
+        DataPipeline(cfg, data, "cpu", bdgcn_impl="pallas")
 
 
 def test_config_sparse_fields_match_jax():
@@ -756,4 +761,4 @@ def test_cli_runs_the_sparse_path_on_the_cpu(tmp_path, capsys):
     assert "bdgcn_impl=ell (requested 'ell')" in out
     assert "support_payload=int8" in out
     with pytest.raises(SystemExit):
-        cli.main(["-GPU", "cpu", "-bdgcn", "csr"])
+        cli.main(["-GPU", "cpu", "-bdgcn", "pallas"])
