@@ -170,6 +170,28 @@ Phases, each fatal on failure:
      rollout times beside it; (d) the native host gather against numpy,
      equal bytes and both times. Every time carries the card's name and
      power limit.
+ 16. after them all, [serve-http], the serving plane at the reference
+     widths (N=47, hidden 32, M=2, K=3, buckets 1/2/4/8, horizon 7), the
+     train phase's checkpoint promoted through the real slot and ledger:
+     (a) a load generator over the in-process HTTP front, 64 requests on
+     test windows a run from C = 1, 4 and 16 keep-alive clients, with the
+     double-buffered feed on and off: every answer ok and equal to the
+     eager rollout of its window alone to 1e-5, the graph count unmoved;
+     requests/s, HTTP round-trip p50/p99, the engine's p50/p99 from
+     /v1/stats, the spans' queue and model p50/p99, batches, pad waste
+     and the interpreter's GC pauses per run; (b) canaried hot reload of
+     the model trained one epoch more (poll 0.05 s, canary fraction
+     0.25, 16 canary requests): canary-started then promoted, a quarter
+     of the batches on the canary, then answers bit for bit those of an
+     engine started on the candidate; a poison_reload engine rejects the
+     candidate (rejected-smoke) and a canary gone non-finite on live
+     traffic rolls back, the incumbent's answers bit-identical; the
+     graph count the same through all of it; the time from the slot's
+     write to promotion and of each in-place weight copy; (c) the
+     command, python -m mpgcn_tpu_torch.cli serve -faults flood_qps=200,
+     as a subprocess: typed outcomes over HTTP, /metrics with
+     serve_requests and the slo_ families, SIGTERM -> exit 0, "drained
+     (clean)" and the postmortem beside the ledgers.
 
 The second-to-last line is a JSON object listing each kernel; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a card, and
@@ -183,6 +205,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -593,7 +616,9 @@ def serve_phase(label, cfg, data, dev, groups, expect_per_batch,
 
     # fresh seeded weights; the 100 ms window coalesces each group of
     # concurrent submits into one batch, so every bucket dispatches
-    scfg = ServeConfig(buckets=buckets, max_wait_ms=100.0, deadline_ms=0.0)
+    scfg = ServeConfig(buckets=buckets, max_wait_ms=100.0, deadline_ms=0.0,
+                       output_dir=os.path.join(HERE, "smoke_out",
+                                               "serve", label))
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, data, scfg, device=dev, allow_fresh=True)
     print(f"[serve:{label}] engine up in {time.perf_counter() - t0:.1f}s "
@@ -2903,8 +2928,11 @@ def phase_graph_rollouts(dev, eng, card):
     from mpgcn_tpu_torch.train.predict import rollout
 
     graphs = eng._rollouts.graphs
-    require(set(graphs.graphs) == {(b, 7, "f32") for b in eng.scfg.buckets},
+    # both parameter slots' rollouts, captured at startup
+    require(set(graphs.graphs) == {(s, b, 7, "f32") for s in (0, 1)
+                                   for b in eng.scfg.buckets},
             f"serve graphs {list(graphs.graphs)}")
+    slot = eng._rollouts.slot
     md = eng.pipeline.modes["test"]
     per = _scaled(_per_step(eng.cfg, False), 7)
     total, times = {}, {}
@@ -2922,7 +2950,7 @@ def phase_graph_rollouts(dev, eng, card):
         require(counts == per, f"bucket {b}: the replay launched {counts}, "
                                f"expected {per}")
         total = _add(total, counts)
-        g = graphs.get((b, 7, "f32"))
+        g = graphs.get((slot, b, 7, "f32"))
         times[b] = (_host_ms(lambda: g.replay(x, k)),
                     _host_ms(lambda: rollout(eng.model, eng.banks, x, k, 7)))
     print(f"[graphs] (b) every bucket's rollout graph (horizon 7) equals "
@@ -2934,7 +2962,7 @@ def phase_graph_rollouts(dev, eng, card):
                       f"eager {et[0]:.3f} / {et[1]:.3f} ms"
                       for b, (gt, et) in times.items()), flush=True)
     for b in (eng.scfg.buckets[0], eng.scfg.buckets[-1]):
-        g = graphs.get((b, 7, "f32"))
+        g = graphs.get((slot, b, 7, "f32"))
         x = torch.from_numpy(np.array(md.x[:b])).to(dev)
         k = torch.from_numpy(md.keys[:b].astype(np.int64)).to(dev)
         busy_share(f"bucket-{b} rollout by graph", lambda: g.replay(x, k), 3)
@@ -4154,9 +4182,12 @@ def precision_rollouts(dev, cfg, data, card):
     scfg = ServeConfig(buckets=(1, 2, 4, 8), max_wait_ms=100.0,
                        deadline_ms=0.0)
     engines, total = {}, {}
+    svc = os.path.join(HERE, "smoke_out", "serve", "precision")
     for ip in ("f32", "bf16", "int8"):
         engines[ip] = ServeEngine(cfg.replace(infer_precision=ip), data,
-                                  scfg, device=dev, allow_fresh=True)
+                                  scfg.replace(output_dir=os.path.join(
+                                      svc, ip)),
+                                  device=dev, allow_fresh=True)
     md = engines["f32"].pipeline.modes["test"]
     summary = {}
     for b in scfg.buckets:
@@ -4166,7 +4197,7 @@ def precision_rollouts(dev, cfg, data, card):
         row = {}
         for ip, eng in engines.items():
             prec = eng._precision
-            g = eng._rollouts.graphs.get((b, 7, ip))
+            g = eng._rollouts.graphs.get(eng._rollouts._key(b, 7, prec))
             require(g is not None, f"no {ip} rollout graph for bucket {b}")
             got = eng._rollouts.run(x, k, 7, prec)
             eager = rollout(eng.model, eng.banks, x.to(dev), k.to(dev), 7,
@@ -4204,7 +4235,8 @@ def precision_rollouts(dev, cfg, data, card):
         eng.drain()
         eng.close()
     two = ServeEngine(cfg.replace(infer_precision="bf16", lstm_num_layers=2),
-                      data, scfg, device=dev, allow_fresh=True)
+                      data, scfg.replace(output_dir=os.path.join(svc, "two")),
+                      device=dev, allow_fresh=True)
     reset_counts()
     t = two.submit(x[0, ..., 0], int(md.keys[0]))
     require(t.wait(120) and t.ok and np.isfinite(t.pred).all(),
@@ -4708,7 +4740,8 @@ def city_csr(dev, cfg_l, data_l, out_dir, card):
           f"{hist}; launches {_nz(counts)}", flush=True)
     # serve bucket 2 from the trained weights on both arms
     preds = {}
-    scfg = ServeConfig(buckets=(2,), max_wait_ms=100.0, deadline_ms=0.0)
+    scfg = ServeConfig(buckets=(2,), max_wait_ms=100.0, deadline_ms=0.0,
+                       output_dir=os.path.join(out_dir, "serve"))
     for impl in ("csr", "ell"):
         eng = ServeEngine(cfg_l.replace(pred_len=7), data_l, scfg,
                           device=dev, bdgcn_impl=impl,
@@ -4802,6 +4835,491 @@ def phase_city_feed(dev, cfg, data, cfg_l, data_l, out_dir, card):
     city_native(dev, cfg_l, data_l, card)
     print(f"[city-feed] phase took {time.perf_counter() - t0:.1f}s ({card})",
           flush=True)
+    return total
+
+
+# --- phase 16: the serving plane over HTTP -----------------------------------
+
+#: the rollout graphs a phase-16 engine captures: 2 parameter slots x
+#: buckets (1, 2, 4, 8) x horizon 7
+SERVE_GRAPHS = 8
+
+
+def _serve_front(eng):
+    """The engine's HTTP front on 127.0.0.1, an ephemeral port."""
+    from http.server import ThreadingHTTPServer
+
+    from mpgcn_tpu_torch.service.serve import _make_handler
+
+    class _Server(ThreadingHTTPServer):
+        daemon_threads = True
+
+    httpd = _Server(("127.0.0.1", 0), _make_handler(eng))
+    threading.Thread(target=httpd.serve_forever, daemon=True,
+                     name="smoke-http").start()
+    return httpd
+
+
+class _GCPauses:
+    """Counts the interpreter's garbage collections and their pauses
+    while it is entered (``gc.callbacks``): a full collection walks every
+    object the process holds, and this process holds every phase's."""
+
+    def __enter__(self):
+        import gc
+
+        self.pauses, self._t0 = [], None
+
+        def cb(phase, info):
+            if phase == "start":
+                self._t0 = time.perf_counter()
+            elif self._t0 is not None:
+                self.pauses.append((info["generation"],
+                                    (time.perf_counter() - self._t0) * 1e3))
+                self._t0 = None
+
+        self._cb = cb
+        gc.callbacks.append(cb)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._cb)
+
+    def line(self) -> str:
+        full = [ms for g, ms in self.pauses if g == 2]
+        return (f"{len(self.pauses)} collections ({len(full)} full), "
+                f"longest pause "
+                f"{max((ms for _, ms in self.pauses), default=0.0):.1f} ms")
+
+
+def _http_load(port, bodies, clients, per_client):
+    """``clients`` threads, each with one keep-alive connection, send
+    ``per_client`` requests in turn (window (c * per_client + j) mod
+    len(bodies)); each answer is read as bytes inside the timed loop and
+    parsed after it, so the generator's own JSON decoding does not hold
+    the interpreter while the server runs. Returns [(window, status,
+    payload, round-trip ms)] and the wall seconds."""
+    import http.client
+
+    results = [None] * (clients * per_client)
+    errors = []
+
+    def client(c):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            for j in range(per_client):
+                i = c * per_client + j
+                w = i % len(bodies)
+                t0 = time.perf_counter()
+                conn.request("POST", "/v1/predict", body=bodies[w],
+                             headers={"Content-Type": "application/json"})
+                r = conn.getresponse()
+                data = r.read()
+                results[i] = (w, r.status, data,
+                              (time.perf_counter() - t0) * 1e3)
+        except Exception as e:  # reported below, after the join
+            errors.append(f"client {c}: {type(e).__name__}: {e}")
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    require(not errors, f"load generator failed: {errors[:3]}")
+    return [(w, st, json.loads(raw), ms) for w, st, raw, ms in results], wall
+
+
+def _pct(values):
+    v = sorted(values)
+    return v[len(v) // 2], v[min(len(v) - 1, int(len(v) * 0.99))]
+
+
+def _serve_one_by_one(eng, md, windows):
+    out = []
+    for w in windows:
+        t = eng.submit(md.x[w, ..., 0], int(md.keys[w]), deadline_ms=0)
+        require(t.wait(120) and t.ok, f"request {w}: {t.outcome} "
+                                      f"{t.error}")
+        out.append((t.pred, t.canary))
+    return out
+
+
+def serve_http_load(dev, cfg, data, promote, incumbent, out_dir, card):
+    """(a) 64 requests over HTTP a run, from C = 1, 4 and 16 clients, the
+    feed double buffered and not. Returns the launches."""
+    import torch
+
+    from mpgcn_tpu_torch.config import ServeConfig
+    from mpgcn_tpu_torch.obs.trace import spans_path
+    from mpgcn_tpu_torch.service.serve import ServeEngine
+    from mpgcn_tpu_torch.train.predict import rollout
+    from mpgcn_tpu_torch.utils.logging import read_events
+
+    total, bodies, refs = {}, None, None
+    for db in (True, False):
+        svc = os.path.join(out_dir, f"load_db{int(db)}")
+        promote(svc, incumbent)
+        eng = ServeEngine(cfg, data, ServeConfig(
+            output_dir=svc, buckets=(1, 2, 4, 8), max_wait_ms=2.0,
+            deadline_ms=0.0, max_queue=256, reload_poll_secs=0.0,
+            double_buffer=db), device=dev)
+        httpd = _serve_front(eng)
+        try:
+            require((eng.batchers[7].stage_fn is not None)
+                    == (db and dev.type == "cuda"),
+                    "the staged upload is on exactly with double_buffer")
+            md = eng.pipeline.modes["test"]
+            if bodies is None:
+                n = min(len(md), 64)
+                bodies = [json.dumps({"x": md.x[w, ..., 0].tolist(),
+                                      "key": int(md.keys[w])}).encode()
+                          for w in range(n)]
+                # each window's eager rollout alone, on the card
+                refs = [rollout(eng.model, eng.banks,
+                                torch.from_numpy(np.array(md.x[w:w + 1]))
+                                .to(dev),
+                                torch.tensor([int(md.keys[w])],
+                                             device=dev), 7)[0].cpu().numpy()
+                        for w in range(n)]
+            print(f"[serve-http] (a) engine double_buffer={db}: "
+                  f"{eng.stats()['traces']} rollout graphs (2 slots x 4 "
+                  f"buckets), second slot adds "
+                  f"{json.dumps(eng.stats()['second_slot_bytes'])} bytes",
+                  flush=True)
+            for clients in (1, 4, 16):
+                st0 = eng.stats()
+                with eng._lock:  # this run's latency window only
+                    eng._lat_ms.clear()
+                    for d in eng._lat_by_h.values():
+                        d.clear()
+                reset_counts()
+                t_wall = time.time()
+                with _GCPauses() as gcp:
+                    res, wall = _http_load(httpd.server_address[1], bodies,
+                                           clients, 64 // clients)
+                total = _add(total, read_counts())
+                st = eng.stats()
+                spans = [r for r in read_events(spans_path(svc), "span")
+                         if r["t0"] >= t_wall - 1e-3]
+                queue = _pct([r["dur_ms"] for r in spans
+                              if r["name"] == "serve.batcher"])
+                model = _pct([r["dur_ms"] for r in spans
+                              if r["name"] == "serve.model"])
+                bad = [(w, s, p.get("outcome")) for w, s, p, _ in res
+                       if s != 200 or p.get("outcome") != "ok"]
+                require(not bad, f"answers not ok: {bad[:4]}")
+                err = max(float(np.max(np.abs(np.asarray(p["pred"])
+                                              - refs[w])))
+                          for w, _, p, _ in res)
+                require(all(np.allclose(np.asarray(p["pred"]), refs[w],
+                                        rtol=1e-5, atol=1e-5)
+                            for w, _, p, _ in res),
+                        f"an answer differs from its window's eager "
+                        f"rollout (max abs {err:.3e})")
+                require(st["traces"] == st0["traces"] == SERVE_GRAPHS,
+                        f"graphs {st0['traces']} -> {st['traces']}")
+                rt50, rt99 = _pct([r[3] for r in res])
+                live = st["pad_waste"]["live"] - st0["pad_waste"]["live"]
+                padded = (st["pad_waste"]["padded"]
+                          - st0["pad_waste"]["padded"])
+                n_req = len(res)
+                print(f"[serve-http] (a) C={clients} double_buffer={db}: "
+                      f"{n_req} requests in {wall:.3f}s = "
+                      f"{n_req / wall:.1f} req/s; HTTP round trip p50 "
+                      f"{rt50:.3f} ms p99 {rt99:.3f} ms; engine (/v1/stats)"
+                      f" p50 {st['latency_ms']['p50']:.3f} ms p99 "
+                      f"{st['latency_ms']['p99']:.3f} ms; "
+                      f"spans p50/p99: queue {queue[0]:.3f}/{queue[1]:.3f} "
+                      f"ms, model {model[0]:.3f}/{model[1]:.3f} ms; "
+                      f"{st['batches'] - st0['batches']} batches, pad waste "
+                      f"{(padded - live) / padded:.4f}; GC {gcp.line()}; "
+                      f"max abs error {err:.3e} vs the eager rollout "
+                      f"alone; traces {st0['traces']} -> {st['traces']} "
+                      f"({card})", flush=True)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            eng.drain()
+            eng.close()
+    return total, bodies
+
+
+def serve_http_reload(dev, cfg, data, promote, incumbent, train_dir,
+                      out_dir, card):
+    """(b) canary then promotion of the model trained one epoch more; a
+    poisoned reload and a canary rollback. Returns the launches."""
+    import torch
+
+    from mpgcn_tpu_torch.config import ServeConfig
+    from mpgcn_tpu_torch.resilience.faults import FaultPlan
+    from mpgcn_tpu_torch.service.reload import CanaryReloader
+    from mpgcn_tpu_torch.service.serve import ServeEngine, reloads_ledger_path
+    from mpgcn_tpu_torch.train.trainer import ModelTrainer
+    from mpgcn_tpu_torch.utils.convert import read_checkpoint
+    from mpgcn_tpu_torch.utils.logging import read_events
+
+    # the candidate: the train phase's run resumed for one more epoch
+    cand_dir = os.path.join(out_dir, "candidate")
+    shutil.copytree(train_dir, cand_dir)
+    tr = ModelTrainer(cfg.replace(pred_len=1, num_epochs=4,
+                                  output_dir=cand_dir), data, device=dev)
+    tr.train(resume=True)
+    cand = os.path.join(cand_dir, "MPGCN_od_last.pkl")
+    require(read_checkpoint(cand)["epoch"] == 4,
+            "the candidate is not the 4th epoch's weights")
+    del tr
+
+    base = dict(buckets=(1, 2, 4, 8), max_wait_ms=2.0, deadline_ms=0.0,
+                max_queue=256)
+    total = {}
+    svc = os.path.join(out_dir, "reload")
+    promote(svc, incumbent)
+    scfg = ServeConfig(output_dir=svc, reload_poll_secs=0.05,
+                       canary_fraction=0.25, canary_requests=16,
+                       reload_tolerance=1.0, **base)
+    eng = ServeEngine(cfg, data, scfg, device=dev)
+    ref = ServeEngine(cfg, data, ServeConfig(
+        output_dir=os.path.join(out_dir, "reload_ref"), reload_poll_secs=0,
+        **base), device=dev, init_ckpt=cand)
+    place_ms = []
+    place = eng._place
+
+    def timed_place(tree):
+        t0 = time.perf_counter()
+        slot = place(tree)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        place_ms.append((time.perf_counter() - t0) * 1e3)
+        return slot
+
+    eng._place = timed_place
+    rel = CanaryReloader(eng, scfg)
+    try:
+        md = eng.pipeline.modes["test"]
+        n0 = eng.stats()["traces"]
+        reset_counts()
+        before = _serve_one_by_one(eng, md, range(4))
+        rel.start()
+        t_write = time.perf_counter()
+        h = promote(svc, cand)
+        while eng.canary_hash != h:
+            require(time.perf_counter() - t_write < 60,
+                    "the reloader never started the canary")
+            time.sleep(0.005)
+        t_canary = time.perf_counter()
+        flags, w = [], 0
+        while eng.incumbent_hash != h:
+            require(len(flags) < 400, "the canary never promoted")
+            flags += [c for _, c in _serve_one_by_one(
+                eng, md, [w % len(md)])]
+            w += 1
+        t_promoted = time.perf_counter()
+        rel.stop()
+        events = [e["event"] for e in read_events(reloads_ledger_path(svc))]
+        require(events == ["reload_canary", "reload_promoted"],
+                f"reload ledger {events}")
+        share = sum(flags) / len(flags)
+        require(abs(share - 0.25) < 0.05 and sum(flags) == 16,
+                f"canary batches {sum(flags)} of {len(flags)}")
+        require(eng.stats()["traces"] == n0 == SERVE_GRAPHS,
+                f"graphs {n0} -> {eng.stats()['traces']}")
+        after = _serve_one_by_one(eng, md, range(8))
+        want = _serve_one_by_one(ref, md, range(8))
+        require(all(np.array_equal(a, b) for (a, _), (b, _) in
+                    zip(after, want)),
+                "after promotion the answers differ from an engine "
+                "started on the candidate")
+        require(not np.array_equal(after[0][0], before[0][0]),
+                "the promoted weights answer as the incumbent did")
+        total = _add(total, read_counts())
+        print(f"[serve-http] (b) hot reload: canary-started then promoted "
+              f"({events}); {sum(flags)} of {len(flags)} batches on the "
+              f"canary ({share:.3f}); slot written -> canary "
+              f"{(t_canary - t_write) * 1e3:.1f} ms -> promoted "
+              f"{(t_promoted - t_canary) * 1e3:.1f} ms (poll every 50 ms, "
+              f"{len(flags)} one-request batches); in-place weight copy "
+              f"into the idle slot {', '.join(f'{m:.3f}' for m in place_ms)}"
+              f" ms; answers after promotion bit for bit those of an engine"
+              f" started on the candidate; traces {n0} -> "
+              f"{eng.stats()['traces']} ({card})", flush=True)
+    finally:
+        rel.stop()
+        eng.drain()
+        eng.close()
+        ref.drain()
+        ref.close()
+
+    # a poisoned reload, then a canary that goes non-finite on live traffic
+    svc = os.path.join(out_dir, "poison")
+    promote(svc, incumbent)
+    faults = FaultPlan.parse("poison_reload=1")
+    eng = ServeEngine(cfg, data, ServeConfig(output_dir=svc,
+                                             reload_poll_secs=0, **base),
+                      device=dev, faults=faults)
+    try:
+        md = eng.pipeline.modes["test"]
+        n0 = eng.stats()["traces"]
+        reset_counts()
+        before = _serve_one_by_one(eng, md, range(4))
+        promote(svc, cand)
+        action = CanaryReloader(eng, eng.scfg, faults=faults).poll()
+        require(action == "rejected-smoke", f"poisoned reload: {action}")
+        after = _serve_one_by_one(eng, md, range(4))
+        require(all(np.array_equal(a, b) for (a, _), (b, _) in
+                    zip(before, after)),
+                "the incumbent's answers moved across a rejected reload")
+        eng.install_canary(eng._place(read_checkpoint(cand)["params"]),
+                           "nan-canary", 99)
+        with torch.no_grad():
+            for p in eng._models[eng._canary.slot].parameters():
+                p.fill_(float("nan"))
+        # canary_fraction 0.25: one batch in four is the canary's
+        again = []
+        while eng.canary_hash is not None:
+            require(len(again) < 8, "the canary never took a batch")
+            again += _serve_one_by_one(eng, md, [len(again) % 4])
+        require(eng.stats()["reloads"]["rolled_back"] == 2,
+                f"no rollback: {eng.stats()['reloads']}")
+        require(all(np.array_equal(a, before[i % 4][0]) and not c
+                    for i, (a, c) in enumerate(again)),
+                "a batch the failed canary took was not served again on "
+                "the incumbent bit for bit")
+        require(eng.stats()["traces"] == n0 == SERVE_GRAPHS,
+                f"graphs {n0} -> {eng.stats()['traces']}")
+        total = _add(total, read_counts())
+        print(f"[serve-http] (b) poison_reload=1: {action}, the "
+              f"incumbent's answers bit-identical before and after; a "
+              f"canary gone non-finite on live traffic rolled back, its "
+              f"batch served again on the incumbent bit for bit; traces "
+              f"{n0} -> {eng.stats()['traces']} ({card})", flush=True)
+    finally:
+        eng.drain()
+        eng.close()
+    return total
+
+
+def serve_http_command(dev, cfg, promote, incumbent, bodies, out_dir,
+                       card):
+    """(c) the serve command as a subprocess: a flood of 200, typed
+    outcomes, /metrics, SIGTERM -> exit 0 and a postmortem."""
+    import urllib.request
+
+    from mpgcn_tpu_torch.service.batcher import OK, SHED_OUTCOMES
+    from mpgcn_tpu_torch.service.serve import (
+        http_info_path,
+        requests_ledger_path,
+    )
+    from mpgcn_tpu_torch.utils.logging import read_events
+
+    svc = os.path.join(out_dir, "command")
+    promote(svc, incumbent)
+    argv = [sys.executable, "-m", "mpgcn_tpu_torch.cli", "serve",
+            "--device", dev.type, "-out", svc, "-pred", str(cfg.pred_len), "-hidden",
+            str(cfg.hidden_dim), "-M", str(cfg.num_branches), "-K",
+            str(cfg.cheby_order), "-seed", "0", "-sN",
+            str(cfg.synthetic_N), "-sT", str(cfg.synthetic_T),
+            "--buckets", "1,2,4,8", "--max-queue", "64", "-faults",
+            "flood_qps=200", "--reload-poll-secs", "0.5"]
+    env = dict(os.environ, PYTHONPATH=HERE)
+    env.pop("MPGCN_FAULTS", None)
+    log_out = open(os.path.join(out_dir, "command.stdout"), "w")
+    log_err = open(os.path.join(out_dir, "command.stderr"), "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=HERE, env=env, stdout=log_out,
+                            stderr=log_err)
+    try:
+        info = http_info_path(svc)
+        while not os.path.exists(info):
+            require(proc.poll() is None, f"serve exited {proc.returncode}")
+            require(time.perf_counter() - t0 < 300, "serve never came up")
+            time.sleep(0.1)
+        up_s = time.perf_counter() - t0
+        with open(info) as f:
+            port = json.load(f)["port"]
+        res, wall = _http_load(port, bodies, 4, 16)
+        outcomes = {}
+        for _, status, p, _ in res:
+            outcomes[p["outcome"]] = outcomes.get(p["outcome"], 0) + 1
+            require(p["outcome"] == OK or p["outcome"] in SHED_OUTCOMES,
+                    f"untyped outcome {status} {p}")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=60) as r:
+            text = r.read().decode()
+        for fam in ("mpgcn_serve_requests_total", "mpgcn_slo_state",
+                    "mpgcn_slo_burn_rate", "mpgcn_cuda_program_builds"):
+            require(fam in text, f"/metrics lacks {fam}")
+        proc.send_signal(15)  # SIGTERM
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log_out.close()
+        log_err.close()
+    with open(os.path.join(out_dir, "command.stdout")) as f:
+        stdout = f.read()
+    require(rc == 0, f"serve exited {rc} on SIGTERM")
+    require("drained (clean)" in stdout, "serve did not drain clean")
+    require(os.path.exists(os.path.join(svc, "serve",
+                                        "flight_recorder.json")),
+            "no postmortem beside the ledgers")
+    rows = [r for r in read_events(requests_ledger_path(svc), "request")]
+    ledger = {}
+    for r in rows:
+        ledger[r["outcome"]] = ledger.get(r["outcome"], 0) + 1
+    require(set(ledger) <= {OK} | set(SHED_OUTCOMES),
+            f"untyped ledger outcomes {ledger}")
+    print(f"[serve-http] (c) the serve command (flood_qps=200, max queue "
+          f"64): up in {up_s:.1f}s; 64 HTTP requests from 4 clients "
+          f"{outcomes} in {wall:.3f}s; ledger outcomes {ledger}; /metrics "
+          f"carries serve_requests and the slo_ families; SIGTERM -> exit "
+          f"0, drained (clean), flight_recorder.json beside the ledgers "
+          f"({card})", flush=True)
+
+
+def phase_serve_http(dev, cfg, data, train_dir, out_dir, card):
+    """Phase 16 (module docstring). Returns the launches of (a) and
+    (b)."""
+    from mpgcn_tpu_torch.service.promote import (
+        candidate_hash,
+        ledger_path,
+        promote_checkpoint,
+        promoted_path,
+    )
+    from mpgcn_tpu_torch.utils.logging import JsonlLogger
+
+    incumbent = os.path.join(train_dir, "MPGCN_od.pkl")
+    require(os.path.exists(incumbent), f"no train checkpoint {incumbent}")
+    attempts = {}
+
+    def promote(svc, path):
+        """Install ``path`` into ``svc``'s slot with its ledger row."""
+        slot = promoted_path(svc)
+        promote_checkpoint(path, slot)
+        attempts[svc] = attempts.get(svc, 0) + 1
+        led = ledger_path(svc)
+        os.makedirs(os.path.dirname(led), exist_ok=True)
+        h = candidate_hash(slot)
+        JsonlLogger(led).log("gate", attempt=attempts[svc], promoted=True,
+                             candidate_hash=h)
+        return h
+
+    t0 = time.perf_counter()
+    total, bodies = serve_http_load(dev, cfg, data, promote, incumbent,
+                                    out_dir, card)
+    total = _add(total, serve_http_reload(dev, cfg, data, promote,
+                                          incumbent, train_dir, out_dir,
+                                          card))
+    serve_http_command(dev, cfg, promote, incumbent, bodies, out_dir, card)
+    print(f"[serve-http] phase 16 took {time.perf_counter() - t0:.1f}s; "
+          f"launches {_nz(total)}", flush=True)
     return total
 
 
@@ -4978,6 +5496,13 @@ def main() -> int:
     os.makedirs(out_c)
     total = _add(total, phase_city_feed(dev, cfg, data, cfg_l, data_l,
                                         out_c, card))
+
+    # the serving plane over HTTP, after every phase above
+    out_s = os.path.join(HERE, "smoke_out", "serve_http")
+    shutil.rmtree(out_s, ignore_errors=True)
+    os.makedirs(out_s)
+    total = _add(total, phase_serve_http(dev, cfg, data, out_dir, out_s,
+                                         card))
 
     print(card)  # the card's name and power limit, as nvidia-smi gives them
     print(f"[done] smoke run took {time.perf_counter() - t_start:.1f}s")

@@ -3,6 +3,11 @@ of mpgcn_tpu/cli.py; reference Main.py:7-67).
 
     python -m mpgcn_tpu_torch.cli -in ../data -mode train -epoch 200
     python -m mpgcn_tpu_torch.cli -in ../data -mode test
+    python -m mpgcn_tpu_torch.cli serve -out ./service [--device cpu] ...
+
+``serve`` dispatches to the serving plane's command
+(service/serve.py ``main``, the JAX ``mpgcn-tpu serve``): HTTP, canaried
+hot reload of the promoted checkpoints, a clean drain on SIGTERM.
 
 Runs on the card (``-GPU 0``, the default) unless ``-GPU cpu`` asks for the
 CPU. Train mode trains the single-step model (pred_len is forced to 1, as
@@ -301,6 +306,13 @@ def config_from_args(args: dict) -> MPGCNConfig:
 
 
 def main(argv=None):
+    import sys
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "serve":
+        from mpgcn_tpu_torch.service.serve import main as serve_main
+
+        raise SystemExit(serve_main(argv[1:]))
     from mpgcn_tpu_torch.train.trainer import ModelTrainer
 
     args = build_parser().parse_args(argv).__dict__

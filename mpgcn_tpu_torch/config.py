@@ -19,9 +19,11 @@ precision (``infer_precision``: f32, bf16 or int8 weight-only), and the
 city-scale feed: the fused epilogues (``fused_epilogue``), the host
 storage of the OD series (``od_storage``), the chunked-stream epoch
 executor (``epoch_stream``, ``stream_chunk_mb``) and the C++/OpenMP host
-kernels (``native_host``). Knobs of paths this port does not have yet
-(meshes, the orbax checkpoint backend, fault injection) are not here;
-they arrive with the slices that run them. The BDGCN arm is not a config
+kernels (``native_host``), and the fault-injection spec (``faults``,
+resilience/faults.py; the serving plane runs its arms). Knobs of paths
+this port does not have yet (meshes, the orbax checkpoint backend) are
+not here; they arrive with the slices that run them. ``DEFAULT_SLOS``
+are the serving plane's objectives (obs/perf/slo.py). The BDGCN arm is not a config
 field: it is the ``bdgcn_impl`` argument of ``ModelTrainer`` and
 ``ServeEngine``.
 """
@@ -47,6 +49,55 @@ SUPPORT_PAYLOADS = ("f32", "bf16", "int8")
 #: the BDGCN arms a model runs (nn/bdgcn.py); 'auto' resolves to one of
 #: them by the support banks' density (data/pipeline.py)
 BDGCN_IMPLS = ("kernel", "einsum", "folded", "csr", "ell")
+
+# Service-level objectives (obs/perf/slo.py), the JAX package's
+# DEFAULT_SLOS: ``windows_s`` are the (short, long) burn windows,
+# ``burn_threshold`` the multiple that, sustained in both, flips the
+# objective to ``burning`` (exported through /metrics and /v1/stats; a
+# sustained burn dumps a flight-recorder postmortem). ``objective=0`` on
+# a rate means any event past the first snapshot burns; on a floor it
+# means informational only. ``retrace_rate`` reads the port's
+# counterpart of XLA compiles: CUDA graph captures and kernel library
+# builds (obs/metrics.py ``cuda_program_builds``), which all land during
+# startup, before the first snapshot.
+DEFAULT_SLOS = (
+    dict(name="serve_latency_p99", kind="latency_p99", plane="serve",
+         metric="serve_request_latency_ms", objective=250.0,
+         per_label="tenant", windows_s=(60.0, 600.0), burn_threshold=2.0,
+         description="p99 of accepted request latency (ms); per-tenant "
+                     "children evaluated separately in fleet mode"),
+    dict(name="serve_shed_ratio", kind="bad_ratio", plane="serve",
+         metric="serve_requests", objective=0.05,
+         bad_prefixes=("shed-", "error-"),
+         per_label="tenant", windows_s=(60.0, 600.0), burn_threshold=2.0,
+         description="shed/error share of resolved requests (error "
+                     "budget 5%); client rejections (4xx) spend no "
+                     "budget"),
+    dict(name="train_steps_per_sec", kind="gauge_min", plane="train",
+         metric="train_steps_per_sec", objective=0.0,
+         windows_s=(60.0, 600.0), burn_threshold=1.5,
+         description="post-warmup training throughput floor (0 = "
+                     "informational)"),
+    dict(name="retrace_rate", kind="rate", plane=None,
+         metric="cuda_program_builds", objective=0.0,
+         windows_s=(60.0, 600.0), burn_threshold=1.0,
+         description="CUDA graph captures and kernel library builds per "
+                     "window AFTER the first snapshot (startup's land "
+                     "before it): a stable hot path must show zero"),
+    dict(name="scaler_skip_rate", kind="rate", plane="train",
+         metric="train_loss_scale_skipped_steps", objective=0.0,
+         windows_s=(60.0, 600.0), burn_threshold=1.0,
+         description="loss-scaler skipped steps per window (self-"
+                     "correcting, but sustained skips mean the scale "
+                     "is pinned at the floor)"),
+)
+
+
+def default_slos(plane: str | None = None) -> tuple:
+    """The DEFAULT_SLOS subset one runtime plane evaluates (specs with
+    plane=None ride every plane), as fresh dict copies."""
+    return tuple(dict(s) for s in DEFAULT_SLOS
+                 if plane is None or s.get("plane") in (None, plane))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,6 +210,10 @@ class MPGCNConfig:
     #                                         dtype; int8 = per-channel
     #                                         weight-quantized weights,
     #                                         dequantized inside the forward
+    faults: str = ""                        # deterministic fault-injection
+    #                                         spec (resilience/faults.py),
+    #                                         e.g. "flood_qps=200";
+    #                                         $MPGCN_FAULTS is the env hook
     io_retries: int = 3                     # attempts per data-file read
     io_retry_delay_s: float = 0.05          # base backoff between retries
     #                                         (doubles per attempt)
@@ -312,6 +367,11 @@ class MPGCNConfig:
             raise ValueError("io_retries must be >= 1")
         if self.io_retry_delay_s < 0:
             raise ValueError("io_retry_delay_s must be >= 0")
+        if self.faults:
+            # fail at config time, not at the injected step
+            from mpgcn_tpu_torch.resilience.faults import FaultPlan
+
+            FaultPlan.parse(self.faults)
         if self.batch_size % self.grad_accum:
             raise ValueError(
                 f"batch_size {self.batch_size} must be divisible by "
@@ -357,9 +417,18 @@ class MPGCNConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """Serving knobs (service/serve.py): the request path's batching and
-    shedding shape and the per-request deadline budget."""
+    """Serving knobs (service/serve.py; the JAX package's ServeConfig,
+    mpgcn_tpu/service/config.py): the request path's batching and
+    shedding shape, the per-request deadline budget, the double-buffered
+    feed, the canaried hot-reload protocol and the ledgers."""
 
+    #: service root (the daemon layout): promoted/<model>_od.pkl is the
+    #: hot-reload slot, promoted/promotions.jsonl the sequence ledger,
+    #: accepted/ the day files the support banks are rebuilt from, and
+    #: serve/ the request and reload ledgers
+    output_dir: str = "./service"
+
+    # --- request path ---
     buckets: tuple = (1, 2, 4, 8)  #: padded batch shapes; requests coalesce
     #:                                into the smallest bucket that fits
     horizons: tuple = ()        #: forecast horizons served; () = the model
@@ -369,6 +438,28 @@ class ServeConfig:
     max_wait_ms: float = 2.0    #: micro-batch coalescing window
     deadline_ms: float = 1000.0  #: default per-request deadline budget
     #:                             (0 = none; requests may override)
+    double_buffer: bool = True  #: a stager thread coalesces, pads and (on
+    #:                             the card) uploads batch k+1 while batch
+    #:                             k runs (service/batcher.py); False is
+    #:                             the one-thread feed
+
+    # --- canaried hot reload ---
+    reload_poll_secs: float = 2.0  #: promoted-slot poll period (0 = hot
+    #:                                reload off)
+    canary_fraction: float = 0.25  #: share of batches a reloaded candidate
+    #:                                serves during its canary
+    canary_requests: int = 16   #: canary-served requests that must come
+    #:                             back finite before promotion (0 =
+    #:                             promote right after the smoke eval)
+    reload_tolerance: float = 0.25  #: candidate probe-loss regression vs
+    #:                             the incumbent tolerated at reload time
+
+    # --- observability ---
+    ledger_max_bytes: int = 8_000_000  #: request/reload/span jsonl
+    #:                             rotation cap (one rotated generation)
+    capture_flows: bool = False  #: log each accepted request's day_slot
+    #:                             and newest (N, N) observation slot into
+    #:                             the request ledger
 
     def __post_init__(self):
         b = tuple(int(x) for x in self.buckets)
@@ -384,10 +475,22 @@ class ServeConfig:
         object.__setattr__(self, "horizons", h)
         if self.max_queue < 1:
             raise ValueError(f"max_queue={self.max_queue} must be >= 1")
-        for name in ("max_wait_ms", "deadline_ms"):
+        for name in ("max_wait_ms", "deadline_ms", "reload_poll_secs"):
             if getattr(self, name) < 0:
                 raise ValueError(f"{name}={getattr(self, name)} must be "
                                  f">= 0")
+        if not 0.0 < self.canary_fraction <= 1.0:
+            raise ValueError(f"canary_fraction={self.canary_fraction} "
+                             f"must be in (0, 1]")
+        if self.canary_requests < 0:
+            raise ValueError(f"canary_requests={self.canary_requests} "
+                             f"must be >= 0")
+        if self.reload_tolerance < 0:
+            raise ValueError(f"reload_tolerance={self.reload_tolerance} "
+                             f"must be >= 0")
+        if self.ledger_max_bytes < 0:
+            raise ValueError(f"ledger_max_bytes={self.ledger_max_bytes} "
+                             f"must be >= 0 (0 = unrotated)")
 
     def replace(self, **kw) -> "ServeConfig":
         return dataclasses.replace(self, **kw)

@@ -14,7 +14,9 @@ Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :class:`CudaKernel` raises when that is not 0 and
 counts the launches that went through, eager or replayed from a CUDA
 graph (``capture_launches``, ``add_replayed``). A few entries launch
-nothing and report one number about the device (``query_int``).
+nothing and report one number about the device (``query_int``). Each
+library built counts into the default metrics registry's
+``cuda_program_builds`` (obs/metrics.py).
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import os
 import shutil
 import subprocess
 import threading
+
+from mpgcn_tpu_torch.obs.metrics import count_program_build
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -98,6 +102,7 @@ def _finish(name: str, started) -> None:
         raise RuntimeError(f"nvcc failed to build {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
+    count_program_build("kernel_library")
 
 
 def kernel_sources() -> list[str]:

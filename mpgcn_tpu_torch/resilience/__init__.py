@@ -1,2 +1,2 @@
-"""The self-healing trainer's pieces: step sentinels, rollback, the hang
-watchdog."""
+"""The self-healing trainer's pieces (step sentinels, rollback, the hang
+watchdog) and the fault-injection plan (faults.py)."""

@@ -1,9 +1,24 @@
-"""Request admission gate (counterpart of validate_request in
-mpgcn_tpu/service/ingest.py:324-377)."""
+"""Request admission gate and the day files' names (counterpart of
+``validate_request``, ``day_filename`` and ``parse_day_index`` in
+mpgcn_tpu/service/ingest.py:43-50, 324-377)."""
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
+
+DAY_RE = re.compile(r"^day_(\d+)\.npy$")
+
+
+def day_filename(idx: int) -> str:
+    return f"day_{idx:05d}.npy"
+
+
+def parse_day_index(name: str):
+    """Day index from a spool filename, or None for other files."""
+    m = DAY_RE.match(name)
+    return int(m.group(1)) if m else None
 
 
 def validate_request(x, key, obs_len: int, num_nodes: int) -> dict:

@@ -27,13 +27,24 @@ run without (the JAX trainer's structure check).
 
 ``load_checkpoint`` reads through the restricted unpickler of
 utils/convert.py (a torn file raises ``CheckpointCorruptError``) and
-applies ``check_branch_spec``.
+applies ``check_branch_spec``. ``load_serving_params`` is the serving
+plane's load (mpgcn_tpu/train/checkpoint.py:198-213): it also verifies
+what a JAX checkpoint records about itself. A topology manifest must be
+sound, and every ``params`` leaf must match its blake2b digest in the
+integrity record (labels and digests computed as the JAX package's
+resilience/elastic.py computes them); damage raises
+``CheckpointCorruptError``. The ``opt_state`` leaves of the record are
+not checked: they are optax classes the restricted unpickler leaves as
+stubs, and serving never reads them. A file with no record (the port's
+own checkpoints, older JAX ones) loads unchecked, as in the JAX loader.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Optional
 
+import numpy as np
 import torch
 
 from mpgcn_tpu_torch.utils.atomic import atomic_pickle_dump
@@ -48,8 +59,9 @@ from mpgcn_tpu_torch.utils.convert import (
 )
 
 __all__ = ["CheckpointCorruptError", "OPT_STATE_KEY", "adam_state_from_jax",
-           "checkpoint_payload", "load_checkpoint", "load_opt_state",
-           "opt_state_to_host", "save_checkpoint"]
+           "checkpoint_payload", "integrity_mismatches", "load_checkpoint",
+           "load_opt_state", "load_serving_params", "opt_state_to_host",
+           "params_integrity", "save_checkpoint"]
 
 #: the payload key of the port's optimizer state
 OPT_STATE_KEY = "opt_state_torch"
@@ -160,4 +172,103 @@ def load_checkpoint(path: str, num_branches=None,
     spec check."""
     payload = read_checkpoint(path)
     check_branch_spec(payload, path, num_branches, branch_sources)
+    return payload
+
+
+# --- the serving load: manifest and integrity checks -------------------------
+
+#: the manifest format the JAX package writes, and the keys it requires
+MANIFEST_FORMAT = 1
+_MANIFEST_REQUIRED = ("format", "process_count", "device_count", "mesh")
+
+
+def _manifest_error(manifest) -> Optional[str]:
+    """What is wrong with a topology manifest, or None (the JAX
+    ``validate_manifest``)."""
+    if not isinstance(manifest, dict):
+        return (f"topology manifest is {type(manifest).__name__}, "
+                f"expected dict")
+    missing = [k for k in _MANIFEST_REQUIRED if k not in manifest]
+    if missing:
+        return f"topology manifest is missing keys {missing}"
+    if not isinstance(manifest["format"], int):
+        return "topology manifest 'format' is not an int"
+    if manifest["format"] > MANIFEST_FORMAT:
+        return (f"topology manifest format {manifest['format']} is newer "
+                f"than this build understands ({MANIFEST_FORMAT})")
+    mesh = manifest["mesh"]
+    if mesh is not None and not isinstance(mesh, dict):
+        return f"topology manifest 'mesh' is {type(mesh).__name__}"
+    return None
+
+
+def _leaf_digest(leaf) -> str:
+    """blake2b-128 of one leaf, its dtype and shape folded in (the JAX
+    ``_leaf_digest``)."""
+    arr = np.ascontiguousarray(leaf)
+    h = hashlib.blake2b(digest_size=16)
+    h.update(f"{arr.dtype.str}|{arr.shape}|".encode())
+    h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+def _labelled(tree, label: str):
+    """(label, leaf) pairs in the JAX tree order: dict keys sorted, list
+    and tuple entries by index, labels as ``jax.tree_util.keystr``."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _labelled(tree[k], f"{label}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _labelled(v, f"{label}[{i}]")
+    elif tree is not None:
+        yield label, tree
+
+
+def params_integrity(params) -> dict:
+    """``{label: digest}`` of a host params tree, the labels the JAX
+    integrity record gives them (``params['branches'][0]...``)."""
+    return {label: _leaf_digest(np.asarray(leaf))
+            for label, leaf in _labelled(params, "params")}
+
+
+def integrity_mismatches(params, record) -> list[str]:
+    """The params labels whose digest disagrees with ``record`` (or that
+    are missing on either side); empty when they verify. A malformed
+    record is one pseudo-label."""
+    if (not isinstance(record, dict)
+            or not isinstance(record.get("leaves"), dict)):
+        return ["<integrity record malformed>"]
+    current = params_integrity(params)
+    saved = {k: v for k, v in record["leaves"].items()
+             if k.startswith("params")}
+    bad = [label for label, dig in current.items()
+           if saved.get(label) != dig]
+    bad += [label for label in saved if label not in current]
+    return sorted(bad)
+
+
+def load_serving_params(path: str, num_branches: Optional[int] = None,
+                        branch_sources=None) -> dict:
+    """The checkpoint dict (numpy params and ``extra``) for the serving
+    path, verified (module docstring) and, when ``num_branches`` is
+    given, held to the live model's branch spec. Raises
+    ``CheckpointCorruptError`` on damaged bytes, ``ValueError`` on a
+    checkpoint that does not fit."""
+    payload = read_checkpoint(path)
+    if "manifest" in payload:
+        err = _manifest_error(payload["manifest"])
+        if err:
+            raise CheckpointCorruptError(
+                f"checkpoint {path}: {err} -- treating as corrupt")
+    if "integrity" in payload:
+        bad = integrity_mismatches(payload["params"], payload["integrity"])
+        if bad:
+            shown = ", ".join(bad[:4]) + (" ..." if len(bad) > 4 else "")
+            raise CheckpointCorruptError(
+                f"checkpoint {path}: integrity checksum mismatch on "
+                f"{len(bad)} leaf/leaves ({shown}) -- bit rot or a torn "
+                f"write that still unpickled")
+    if num_branches is not None:
+        check_branch_spec(payload, path, num_branches, branch_sources)
     return payload

@@ -22,6 +22,10 @@ weights where they lie: loading a checkpoint in place (``load_state_dict``)
 keeps them valid; where a parameter's storage moves they are dropped
 (``ModelTrainer._check_storage``).
 
+Every capture counts into the default metrics registry's
+``cuda_program_builds`` (obs/metrics.py), the port's counterpart of the
+JAX package's compile counter.
+
 ``refusal`` names what cannot be captured: the CPU (nothing to capture)
 and the blocked-ELL arm, whose forward and dX mark Inf and NaN with a
 generation the host counts per call (sparse/cuda_ell.py ``_marks``), so
@@ -39,6 +43,7 @@ from typing import Callable, Optional
 import torch
 
 from mpgcn_tpu_torch.native.build import add_replayed, capture_launches
+from mpgcn_tpu_torch.obs.metrics import count_program_build
 from mpgcn_tpu_torch.train.predict import rollout
 
 
@@ -111,6 +116,7 @@ class GraphSet:
                 out = fn()
         self.graphs[key] = cap = Captured(graph, inputs, out, tally,
                                           self.lock)
+        count_program_build("cuda_graph")
         return cap
 
     def drop(self) -> None:
@@ -138,10 +144,31 @@ class RolloutGraphs:
     call (whose answer is the eager warm-up run's) and replays it after; a
     graph of one precision never answers a request at another. A graph
     reads the int8 tree where it lay at its capture: whoever replaces the
-    tree (not refills it in place) drops the graphs (``GraphSet.drop``)."""
+    tree (not refills it in place) drops the graphs (``GraphSet.drop``).
+    ``slot`` (None: none) joins the key, so several models of one config
+    (the serve engine's two parameter slots) capture their rollouts on
+    one graph set, one pool and one lock."""
 
-    def __init__(self, graphs: GraphSet, model, banks: dict):
+    def __init__(self, graphs: GraphSet, model, banks: dict, slot=None):
         self.graphs, self.model, self.banks = graphs, model, banks
+        self.slot = slot
+
+    def _key(self, batch: int, horizon: int, prec: Precision) -> tuple:
+        key = (batch, horizon, prec.name)
+        return key if self.slot is None else (self.slot,) + key
+
+    def replay(self, x: torch.Tensor, keys: torch.Tensor, horizon: int,
+               precision: Precision) -> torch.Tensor:
+        """The captured rollout of (x's batch, horizon, precision) on x
+        and keys, its forecast on the host; raises where none was
+        captured (nothing is captured on the request path)."""
+        g = self.graphs.get(self._key(x.shape[0], horizon, precision))
+        if g is None:
+            raise KeyError(f"no rollout graph captured for batch "
+                           f"{x.shape[0]}, horizon {horizon}, precision "
+                           f"{precision.name}, slot {self.slot}")
+        with self.graphs.lock:
+            return g.replay(x, keys).cpu()
 
     def run(self, x: torch.Tensor, keys: torch.Tensor, horizon: int,
             precision: Precision | None = None) -> torch.Tensor:
@@ -149,7 +176,7 @@ class RolloutGraphs:
         (B, horizon, N, N, 1) forecast on the host, at ``precision``
         (default f32 on the model's weights)."""
         prec = precision or Precision()
-        key = (x.shape[0], horizon, prec.name)
+        key = self._key(x.shape[0], horizon, prec)
         with self.graphs.lock:
             g = self.graphs.get(key)
             if g is not None:
@@ -175,6 +202,6 @@ class RolloutGraphs:
             x = torch.zeros((b, obs_len, num_nodes, num_nodes, 1))
             k = torch.zeros((b,), dtype=torch.long)
             for h in horizons:
-                if self.graphs.get((b, h, prec.name)) is None:
+                if self.graphs.get(self._key(b, h, prec)) is None:
                     self.run(x, k, h, prec)
         return time.perf_counter() - t0

@@ -994,11 +994,11 @@ class ModelTrainer:
               f"checkpoint at learn_rate={self.cfg.learn_rate:.3}.")
         raise RollbackSignal(epoch, reason, self._rollback_attempts)
 
-    def _validation_loss(self) -> float:
-        """The current weights' mean validation loss."""
+    def _validation_loss(self, mode: str = "validate") -> float:
+        """The current weights' mean eval loss on ``mode`` (the promotion
+        gate scores a candidate on 'test', service/promote.py)."""
         losses, sizes = self._run_epoch(
-            "validate", self._epoch_exec("validate"),
-            np.random.default_rng(0))
+            mode, self._epoch_exec(mode), np.random.default_rng(0))
         return epoch_mean(losses, sizes)
 
     def _on_signal(self, signum, frame) -> None:

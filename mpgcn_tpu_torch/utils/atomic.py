@@ -1,6 +1,6 @@
-"""Atomic, durable pickle writes (counterpart of mpgcn_tpu/utils/atomic.py).
+"""Atomic, durable writes (counterpart of mpgcn_tpu/utils/atomic.py).
 
-``atomic_pickle_dump`` writes to a temporary file beside ``path``, flushes
+``atomic_pickle_dump`` (and ``atomic_write_bytes`` for raw bytes) writes to a temporary file beside ``path``, flushes
 and fsyncs it, then renames it over ``path``: a reader never sees a
 partial file, and a crash between the write and the rename never
 publishes unflushed pages. Checkpoints and the watchdog's emergency file
@@ -15,13 +15,11 @@ import pickle
 from concurrent.futures import ThreadPoolExecutor
 
 
-def atomic_pickle_dump(path: str, payload) -> str:
-    """Pickle ``payload`` to ``path`` atomically and durably; returns
-    ``path``."""
+def _atomic_write(path: str, write) -> str:
     tmp = f"{path}.{os.getpid()}.tmp"
     try:
         with open(tmp, "wb") as f:
-            pickle.dump(payload, f)
+            write(f)
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)
@@ -32,6 +30,18 @@ def atomic_pickle_dump(path: str, payload) -> str:
             pass
         raise
     return path
+
+
+def atomic_pickle_dump(path: str, payload) -> str:
+    """Pickle ``payload`` to ``path`` atomically and durably; returns
+    ``path``."""
+    return _atomic_write(path, lambda f: pickle.dump(payload, f))
+
+
+def atomic_write_bytes(path: str, data: bytes) -> str:
+    """Write ``data`` to ``path`` atomically and durably; returns
+    ``path``."""
+    return _atomic_write(path, lambda f: f.write(data))
 
 
 class AsyncWriter:

@@ -50,7 +50,12 @@ def rollouts(smoke, dev, cfg, data, rounds):
     md = eng.pipeline.modes["test"]
     graphs, out = {}, {b: [] for b in scfg.buckets}
     for key, g in eng._rollouts.graphs.graphs.items():
-        # (bucket, horizon) before the precision plane, then (.., "f32")
+        # (bucket, horizon) before the precision plane, then (.., "f32"),
+        # then (slot, ..) with the serving plane's two parameter slots
+        if len(key) == 4:
+            if key[0] != eng._rollouts.slot:
+                continue
+            key = key[1:]
         if key[1] == 7 and key[2:] in ((), ("f32",)):
             graphs[key[0]] = g
     smoke.require(set(graphs) == set(scfg.buckets),

@@ -276,12 +276,13 @@ def test_bdgcn_kernel_rejects_what_it_does_not_take(cuda_device):
         cuda_bdgcn.folded_pair_project(h1, g[:, :2], w)
 
 
-def test_engine_serves_through_the_kernels(cuda_device):
+def test_engine_serves_through_the_kernels(cuda_device, tmp_path):
     cfg = MPGCNConfig(synthetic_T=200, synthetic_N=10, hidden_dim=16,
                       lstm_num_layers=2, seed=0)
     data = synthetic_dataset(cfg)
     eng = ServeEngine(cfg, data, ServeConfig(buckets=(1, 4),
-                                             max_wait_ms=50.0),
+                                             max_wait_ms=50.0,
+                                             output_dir=str(tmp_path)),
                       device=cuda_device, allow_fresh=True)
     try:
         md = eng.pipeline.modes["test"]
@@ -569,7 +570,8 @@ def test_wide_model_trains_and_serves_through_the_kernels(cuda_device,
 
     scfg = cfg.replace(pred_len=3)
     eng = ServeEngine(scfg, data, ServeConfig(buckets=(1, 2),
-                                              max_wait_ms=50.0),
+                                              max_wait_ms=50.0,
+                                              output_dir=str(tmp_path)),
                       device=cuda_device, allow_fresh=True)
     try:
         md = eng.pipeline.modes["test"]
@@ -1276,7 +1278,7 @@ def test_bf16_scaler_skips_inside_a_graph(cuda_device, tmp_path):
     assert int(a.optimizer.step_t) == n - 2
 
 
-def test_bf16_rollout_graphs_per_precision(cuda_device):
+def test_bf16_rollout_graphs_per_precision(cuda_device, tmp_path):
     """A serve engine at -infer-precision bf16 and one at int8: each
     bucket's rollout graph is keyed by its precision, equals the eager
     rollout at that precision bit for bit, runs the bf16 kernels (bf16)
@@ -1285,7 +1287,8 @@ def test_bf16_rollout_graphs_per_precision(cuda_device):
     cfg = MPGCNConfig(synthetic_T=200, synthetic_N=10, hidden_dim=16,
                       pred_len=3, seed=0)
     data = synthetic_dataset(cfg)
-    f32 = ServeEngine(cfg, data, ServeConfig(buckets=(1, 4)),
+    f32 = ServeEngine(cfg, data, ServeConfig(buckets=(1, 4),
+                                             output_dir=str(tmp_path)),
                       device=cuda_device, allow_fresh=True)
     md = f32.pipeline.modes["test"]
     x = torch.from_numpy(np.array(md.x[:4]))
@@ -1295,11 +1298,13 @@ def test_bf16_rollout_graphs_per_precision(cuda_device):
     for ip, kernel in (("bf16", KERNELS["bdgcn_pair_fwd_bf16"]),
                        ("int8", KERNELS["bdgcn_pair_fwd"])):
         eng = ServeEngine(cfg.replace(infer_precision=ip), data,
-                          ServeConfig(buckets=(1, 4)), device=cuda_device,
-                          allow_fresh=True)
+                          ServeConfig(buckets=(1, 4),
+                                      output_dir=str(tmp_path / ip)),
+                          device=cuda_device, allow_fresh=True)
         try:
-            assert set(eng._rollouts.graphs.graphs) == {(1, 3, ip),
-                                                        (4, 3, ip)}
+            # one graph per (parameter slot, bucket, horizon, precision)
+            assert set(eng._rollouts.graphs.graphs) == {
+                (s, b, 3, ip) for s in (0, 1) for b in (1, 4)}
             prec = eng._precision
             before = kernel.launches
             got = eng._rollouts.run(x, k, 3, prec)
@@ -1389,17 +1394,18 @@ def test_no_host_sync_inside_an_epoch(cuda_device, tmp_path):
         assert np.isfinite(losses.cpu().numpy()).all()
 
 
-def test_rollout_graph_per_bucket_equals_eager(cuda_device):
+def test_rollout_graph_per_bucket_equals_eager(cuda_device, tmp_path):
     cfg = MPGCNConfig(synthetic_T=200, synthetic_N=10, hidden_dim=16,
                       lstm_num_layers=2, pred_len=3, seed=0)
     data = synthetic_dataset(cfg)
     eng = ServeEngine(cfg, data, ServeConfig(buckets=(1, 2, 4),
-                                             horizons=(1, 3)),
+                                             horizons=(1, 3),
+                                             output_dir=str(tmp_path)),
                       device=cuda_device, allow_fresh=True)
     try:
         graphs = eng._rollouts.graphs
-        assert set(graphs.graphs) == {(b, h, "f32") for b in (1, 2, 4)
-                                      for h in (1, 3)}
+        assert set(graphs.graphs) == {(s, b, h, "f32") for s in (0, 1)
+                                      for b in (1, 2, 4) for h in (1, 3)}
         md = eng.pipeline.modes["test"]
         for b in (1, 2, 4):
             x = torch.from_numpy(np.array(md.x[:b]))
@@ -1743,3 +1749,145 @@ def test_stream_executor_equals_scan_on_the_card(cuda_device, tmp_path):
     assert len(waits) == 2 * (chunks["train"] - 1 + chunks["validate"] - 1)
     assert all(s["max_resident_chunks"] <= 2
                for s in tm._stream_stats.values())
+
+
+# --- the serving plane's two parameter slots ---------------------------------
+
+
+def _slot_stack(tmp_path, device):
+    """A small config, its data, and two checkpoints in the JAX format
+    (seeded weights and a nudged copy), the first promoted into the
+    service dir's slot with its ledger row."""
+    from mpgcn_tpu_torch.service.promote import (
+        candidate_hash,
+        ledger_path,
+        promote_checkpoint,
+        promoted_path,
+    )
+    from mpgcn_tpu_torch.train.checkpoint import save_checkpoint
+    from mpgcn_tpu_torch.utils.logging import JsonlLogger
+
+    cfg = MPGCNConfig(synthetic_T=200, synthetic_N=10, hidden_dim=16,
+                      pred_len=3, seed=0)
+    data = synthetic_dataset(cfg)
+    model = MPGCN.from_config(cfg.replace(num_nodes=10), device="cpu")
+    extra = {"num_branches": 2, "branch_sources": ["static", "dynamic"]}
+    a, b = str(tmp_path / "a.pkl"), str(tmp_path / "b.pkl")
+    save_checkpoint(a, model, 0, extra=extra)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(1.01)
+    save_checkpoint(b, model, 1, extra=extra)
+    svc = str(tmp_path / "svc")
+
+    def promote(path, attempt):
+        slot = promoted_path(svc)
+        promote_checkpoint(path, slot)
+        ledger = ledger_path(svc)
+        os.makedirs(os.path.dirname(ledger), exist_ok=True)
+        JsonlLogger(ledger).log("gate", attempt=attempt, promoted=True,
+                                candidate_hash=candidate_hash(slot))
+
+    promote(a, 1)
+    return cfg, data, svc, a, b, promote
+
+
+def _serve_one_by_one(eng, md, n):
+    out = []
+    for i in range(n):
+        t = eng.submit(md.x[i, ..., 0], int(md.keys[i]), deadline_ms=0)
+        assert t.wait(60) and t.ok, t.error
+        out.append((t.pred, t.canary))
+    return out
+
+
+def test_two_slot_engine_keeps_its_graphs_across_reload_and_promotion(
+        cuda_device, tmp_path):
+    """Both slots' rollouts are captured at startup; traffic, a canary, a
+    promotion, a poisoned reload and a canary rollback add no graph; the
+    promoted weights answer bit for bit as an engine started on them."""
+    from mpgcn_tpu_torch.resilience.faults import FaultPlan
+    from mpgcn_tpu_torch.service.reload import CanaryReloader
+
+    cfg, data, svc, a, b, promote = _slot_stack(tmp_path, cuda_device)
+    scfg = ServeConfig(output_dir=svc, buckets=(1, 2), canary_requests=2,
+                       canary_fraction=1.0, reload_poll_secs=0)
+    eng = ServeEngine(cfg, data, scfg, device=cuda_device,
+                      faults=FaultPlan.parse("poison_reload=2"))
+    ref = ServeEngine(cfg, data, scfg.replace(output_dir=str(tmp_path /
+                                                             "ref")),
+                      device=cuda_device, init_ckpt=b)
+    try:
+        md = eng.pipeline.modes["test"]
+        n0 = eng.stats()["traces"]
+        assert n0 == 2 * 2 * 1 == len(eng._graphs.graphs)
+        before = _serve_one_by_one(eng, md, 3)
+        rel = CanaryReloader(eng, scfg, faults=eng._faults)
+        promote(b, 2)
+        assert rel.poll() == "canary-started"
+        canary = _serve_one_by_one(eng, md, 2)
+        assert [c for _, c in canary] == [True, True]
+        assert eng.stats()["reloads"]["promoted"] == 1
+        assert eng.stats()["traces"] == n0
+        after = _serve_one_by_one(eng, md, 3)
+        want = _serve_one_by_one(ref, md, 3)
+        for (got, _), (exp, _) in zip(after, want):
+            assert np.array_equal(got, exp)
+        assert not np.array_equal(after[0][0], before[0][0])
+        # a poisoned candidate: rejected by the smoke eval, incumbent
+        # bit-identical
+        promote(a, 3)
+        assert rel.poll() == "rejected-smoke"
+        again = _serve_one_by_one(eng, md, 3)
+        for (got, _), (exp, _) in zip(again, after):
+            assert np.array_equal(got, exp)
+        # a canary that goes non-finite on live traffic: rolled back,
+        # the batch served again on the incumbent
+        eng.install_canary(eng._place(_host_tree(b)), "nan", 9)
+        with torch.no_grad():
+            for p in eng._models[eng._canary.slot].parameters():
+                p.fill_(float("nan"))
+        (got, was_canary), = _serve_one_by_one(eng, md, 1)
+        assert was_canary is False and np.array_equal(got, after[0][0])
+        assert eng.stats()["reloads"]["rolled_back"] == 2
+        assert eng.stats()["traces"] == n0 == len(eng._graphs.graphs)
+    finally:
+        eng.close()
+        ref.close()
+
+
+def _host_tree(path):
+    from mpgcn_tpu_torch.utils.convert import read_checkpoint
+
+    return read_checkpoint(path)["params"]
+
+
+def test_staged_feed_answers_as_the_one_thread_feed(cuda_device, tmp_path):
+    """The double-buffered feed (pinned host buffers, side-stream upload
+    into staging buffers, an event the batch waits on) answers bit for bit
+    as double_buffer=False, over every bucket."""
+    cfg, data, svc, a, _, _ = _slot_stack(tmp_path, cuda_device)
+    preds = {}
+    for db in (True, False):
+        scfg = ServeConfig(output_dir=str(tmp_path / f"db{db}"),
+                           buckets=(1, 2, 4), max_wait_ms=100.0,
+                           double_buffer=db, deadline_ms=0)
+        eng = ServeEngine(cfg, data, scfg, device=cuda_device, init_ckpt=a)
+        try:
+            stager = eng.batchers[3].stage_fn
+            assert (stager is not None) == db
+            md = eng.pipeline.modes["test"]
+            out = []
+            for group in (4, 3, 2, 1, 4):
+                ts = [eng.submit(md.x[i, ..., 0], int(md.keys[i]))
+                      for i in range(group)]
+                for t in ts:
+                    assert t.wait(60) and t.ok, t.error
+                out += [(t.bucket, t.pred) for t in ts]
+            preds[db] = out
+            assert eng.stats()["traces"] == 2 * 3
+        finally:
+            eng.close()
+    assert [b for b, _ in preds[True]] == [b for b, _ in preds[False]]
+    for (_, x), (_, y) in zip(preds[True], preds[False]):
+        assert np.array_equal(x, y)

@@ -246,8 +246,10 @@ def test_replays_add_the_captured_tally():
             build.capture_launches().__enter__()
 
 
-def test_serve_engine_says_it_runs_eager_on_the_cpu(data, capsys):
-    eng = ServeEngine(MPGCNConfig(**KW), data, ServeConfig(buckets=(1, 2)),
+def test_serve_engine_says_it_runs_eager_on_the_cpu(data, capsys,
+                                                    tmp_path):
+    eng = ServeEngine(MPGCNConfig(**KW), data,
+                      ServeConfig(buckets=(1, 2), output_dir=str(tmp_path)),
                       device="cpu", allow_fresh=True)
     try:
         out = capsys.readouterr().out

@@ -72,7 +72,9 @@ def jax_stack(tmp_path_factory):
 
 def _engine(stack, **scfg_kw):
     scfg = ServeConfig(**{"buckets": (1, 2, 4), "max_queue": 16,
-                          "max_wait_ms": 20.0, **scfg_kw})
+                          "max_wait_ms": 20.0,
+                          "output_dir": str(stack["out"] / "service"),
+                          **scfg_kw})
     return ServeEngine(stack["cfg"], stack["data"], scfg, device="cpu",
                        init_ckpt=stack["ckpt"])
 
@@ -157,7 +159,7 @@ def test_engine_rejects_invalid_requests(jax_stack):
 
 
 def test_engine_needs_a_checkpoint_or_fresh_init(jax_stack, tmp_path):
-    scfg = ServeConfig(buckets=(1,))
+    scfg = ServeConfig(buckets=(1,), output_dir=str(tmp_path))
     cfg, data = jax_stack["cfg"], jax_stack["data"]
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         ServeEngine(cfg, data, scfg, device="cpu")
@@ -223,20 +225,32 @@ def test_batcher_sheds_and_survives_errors():
         mb.stop()
 
 
-def test_entry_points_refuse_cpu_unless_asked(jax_stack, monkeypatch):
+def test_entry_points_refuse_cpu_unless_asked(jax_stack, monkeypatch,
+                                             tmp_path):
+    from mpgcn_tpu_torch.service.reload import CanaryReloader
+    from mpgcn_tpu_torch.service.serve import main as serve_main
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg, data = jax_stack["cfg"], jax_stack["data"]
     adj = np.ones((N, N), np.float32)
+    scfg = ServeConfig(output_dir=str(tmp_path))
     calls = [
         lambda: resolve_device(),
         lambda: compute_supports(adj, "random_walk_diffusion", 2),
         lambda: DataPipeline(cfg, data),
         lambda: MPGCN.from_config(cfg),
-        lambda: ServeEngine(cfg, data, ServeConfig(), allow_fresh=True),
+        lambda: ServeEngine(cfg, data, scfg, allow_fresh=True),
+        lambda: CanaryReloader(ServeEngine(cfg, data, scfg,
+                                           allow_fresh=True), scfg),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             call()
+    # the serve command exits non-zero with the message, before it
+    # writes anything
+    with pytest.raises(SystemExit, match="torch.cuda.is_available"):
+        serve_main(["-out", str(tmp_path), "--allow-fresh-init"])
+    assert os.listdir(tmp_path) == []
     assert resolve_device("cpu").type == "cpu"
     assert compute_supports(adj, "random_walk_diffusion", 2,
                             device="cpu").shape == (3, N, N)

@@ -726,13 +726,14 @@ def test_kernel_arm_backward_runs_the_ell_functions(slice_runs):
     assert "PairProjectFnBackward" not in names
 
 
-def test_serve_reports_the_resident_supports():
+def test_serve_reports_the_resident_supports(tmp_path):
     cfg, data = _slice_data(pred_len=2)
     stats = {}
     for payload in ("f32", "int8"):
         eng = ServeEngine(cfg.replace(support_payload=payload), data,
-                          ServeConfig(buckets=(1,)), device="cpu",
-                          allow_fresh=True)
+                          ServeConfig(buckets=(1,),
+                                      output_dir=str(tmp_path / payload)),
+                          device="cpu", allow_fresh=True)
         try:
             md = eng.pipeline.modes["test"]
             t = eng.submit(md.x[0, ..., 0], int(md.keys[0]))
