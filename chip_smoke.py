@@ -192,6 +192,31 @@ Phases, each fatal on failure:
      as a subprocess: typed outcomes over HTTP, /metrics with
      serve_requests and the slo_ families, SIGTERM -> exit 0, "drained
      (clean)" and the postmortem beside the ledgers.
+ 17. after them all, [fleet], the in-process multi-tenant fleet at the
+     reference widths (buckets 1/2/4/8, horizon 7): four tenants added by
+     `python -m mpgcn_tpu_torch.cli fleet add` (a: the train phase's
+     checkpoint, b: phase 16's fourth-epoch candidate, c and d: a's
+     weights with seeded perturbations, each written by the port's save
+     with its integrity records), each promoted with its ledger row; each
+     checkpoint served alone by a ServeEngine, held against the plain
+     arms in float64. (a) `serve --fleet` as its own process: every
+     tenant's answers equal its checkpoint's engine's (max abs 0), an
+     unknown tenant and a body without one get 404, 4 graphs for 4
+     tenants, 14 lstm_infer_last and 42 bdgcn_pair_fwd launches a batch
+     (its /v1/stats); with one tenant (in process) a body without one is
+     that tenant's request; (c) 64 requests a run from C = 1 and 4 clients
+     over the 4 tenants: requests/s and round-trip p50/p99 in total and
+     per tenant, the startup and the graph bytes, SIGTERM -> exit 0.
+     (b) in-process fleets, one fault domain at a time, every other
+     tenant's answers bit-identical and its breaker closed through each:
+     poison_reload on b (rolled back) while a promotes the same
+     candidate; a quota flood on c; d's model failing (breaker open, 429,
+     recovered by its half-open probe); a torn slot on b at startup
+     (unavailable, then recovered by a re-promotion); the graph count
+     unmoved. One batch's launches and device activities (profiler), the
+     in-place parameter copy (CUDA events) at N=47 and at the wide
+     configuration's size, the bucket-1 rollout with and without it, and
+     the resident bytes a tenant in f32 and int8.
 
 The second-to-last line is a JSON object listing each kernel; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a card, and
@@ -5323,6 +5348,502 @@ def phase_serve_http(dev, cfg, data, train_dir, out_dir, card):
     return total
 
 
+# --- phase 17: the in-process multi-tenant fleet ------------------------------
+
+FLEET_TENANTS = ("a", "b", "c", "d")
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(v, fn) for v in tree)
+    return fn(tree)
+
+
+def _perturbed_ckpt(src, dst, seed, scale=0.01):
+    """``src``'s weights times (1 + scale * N(0, 1)) from ``seed``, written
+    by the port's save (manifest and integrity records)."""
+    from mpgcn_tpu_torch.train.checkpoint import (
+        checkpoint_payload,
+        load_checkpoint,
+        write_checkpoint,
+    )
+
+    ckpt = load_checkpoint(src)
+    rng = np.random.default_rng(seed)
+    params = _map_tree(ckpt["params"], lambda a: (np.asarray(a) * (
+        1 + scale * rng.standard_normal(np.shape(a)))).astype(np.float32))
+    write_checkpoint(dst, checkpoint_payload(params, ckpt["epoch"],
+                                             ckpt.get("extra"), None, "gpu"))
+    return dst
+
+
+def _fleet_promote(root, tid, path, attempt):
+    """Install ``path`` into tenant ``tid``'s slot with its ledger row."""
+    from mpgcn_tpu_torch.service.promote import (
+        candidate_hash,
+        ledger_path,
+        promote_checkpoint,
+        promoted_path,
+    )
+    from mpgcn_tpu_torch.service.registry import TenantRegistry
+    from mpgcn_tpu_torch.utils.logging import JsonlLogger
+
+    troot = TenantRegistry.load(root).tenant_root(tid)
+    slot = promoted_path(troot)
+    promote_checkpoint(path, slot)
+    JsonlLogger(ledger_path(troot)).log("gate", attempt=attempt,
+                                        promoted=True,
+                                        candidate_hash=candidate_hash(slot))
+
+
+def _fleet_ask(eng, tid, md, windows):
+    """Answers of ``tid`` for test ``windows``, one request at a time."""
+    out = []
+    for w in windows:
+        t = eng.submit(tid, md.x[w, ..., 0], int(md.keys[w]), deadline_ms=0)
+        require(t.wait(120), f"tenant {tid} request {w} not answered")
+        out.append(t)
+    return out
+
+
+def _same_preds(a, b) -> bool:
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def fleet_references(dev, cfg, data, ckpts, windows):
+    """Each checkpoint served alone by a ServeEngine: its answers for
+    ``windows`` one by one (bucket 1), and for a batch of them against the
+    plain arms in float64. Returns ({tenant: [pred]}, the test split)."""
+    import torch
+
+    from mpgcn_tpu_torch.config import ServeConfig
+    from mpgcn_tpu_torch.nn.mpgcn import MPGCN
+    from mpgcn_tpu_torch.service.serve import ServeEngine
+    from mpgcn_tpu_torch.train.predict import rollout
+
+    refs, md = {}, None
+    for tid, path in ckpts.items():
+        eng = ServeEngine(cfg, data, ServeConfig(
+            output_dir=os.path.join(HERE, "smoke_out", "fleet", "ref", tid),
+            buckets=(1, 2, 4, 8), deadline_ms=0.0, reload_poll_secs=0.0),
+            device=dev, init_ckpt=path)
+        try:
+            md = eng.pipeline.modes["test"]
+            refs[tid] = [p for p, _ in _serve_one_by_one(eng, md, windows)]
+            plain = MPGCN.from_config(eng.cfg, device=dev, lstm_impl="plain",
+                                      bdgcn_impl="einsum").eval()
+            plain.load_state_dict(eng.model.state_dict())
+            plain = plain.double()
+            banks = {k: v.double() for k, v in dense_banks(eng.banks).items()}
+            sel = np.asarray(list(windows))
+            x = torch.from_numpy(np.array(md.x[sel])).to(dev)
+            k = torch.from_numpy(md.keys[sel].astype(np.int64)).to(dev)
+            ref64 = rollout(plain, banks, x.double(), k, 7)
+            compare(f"fleet tenant {tid}: its answers vs the float64 plain "
+                    f"rollout", torch.from_numpy(np.stack(refs[tid]))
+                    .to(dev).double(), ref64, ROLLOUT_TOL)
+        finally:
+            eng.drain()
+            eng.close()
+    return refs, md
+
+
+def fleet_command(dev, cfg, root, refs, md, windows, out_dir, card):
+    """(a) and (c): ``serve --fleet`` as its own process on the card."""
+    import urllib.error
+    import urllib.request
+
+    from mpgcn_tpu_torch.service.serve import http_info_path
+
+    argv = [sys.executable, "-m", "mpgcn_tpu_torch.cli", "serve", "--fleet",
+            "--device", dev.type, "-out", root, "-pred", str(cfg.pred_len),
+            "-hidden", str(cfg.hidden_dim), "-M", str(cfg.num_branches),
+            "-K", str(cfg.cheby_order), "-seed", "0", "-sN",
+            str(cfg.synthetic_N), "-sT", str(cfg.synthetic_T), "--buckets",
+            "1,2,4,8", "--max-queue", "256", "--deadline-ms", "0",
+            "--reload-poll-secs", "0"]
+    env = dict(os.environ, PYTHONPATH=HERE)
+    env.pop("MPGCN_FAULTS", None)
+    log_out = open(os.path.join(out_dir, "command.stdout"), "w")
+    log_err = open(os.path.join(out_dir, "command.stderr"), "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=HERE, env=env, stdout=log_out,
+                            stderr=log_err)
+    launches = {}
+    try:
+        info = http_info_path(root)
+        while not os.path.exists(info):
+            require(proc.poll() is None, f"serve --fleet exited "
+                                         f"{proc.returncode}")
+            require(time.perf_counter() - t0 < 300, "the fleet never came up")
+            time.sleep(0.1)
+        up_s = time.perf_counter() - t0
+        with open(info) as f:
+            base = "http://127.0.0.1:{port}".format(**json.load(f))
+
+        def get(path):
+            with urllib.request.urlopen(base + path, timeout=60) as r:
+                return r.read().decode()
+
+        def post(body):
+            req = urllib.request.Request(
+                base + "/v1/predict", data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    return r.status, json.load(r)
+            except urllib.error.HTTPError as e:
+                return e.code, json.load(e)
+
+        st0 = json.loads(get("/v1/stats"))
+        n_graphs = 4  # buckets 1, 2, 4, 8 at horizon 7
+        require(st0["traces"] == n_graphs, f"{st0['traces']} graphs for 4 "
+                                           f"tenants, expected {n_graphs}")
+        require(sorted(t for t, v in st0["tenants"].items() if v["available"])
+                == list(FLEET_TENANTS), f"tenants {st0['tenants'].keys()}")
+        # (a) every tenant's answers equal its checkpoint's engine's
+        for tid in FLEET_TENANTS:
+            preds = []
+            for w in windows:
+                code, p = post({"x": md.x[w, ..., 0].tolist(),
+                                "key": int(md.keys[w]), "tenant": tid})
+                require(code == 200 and p["tenant"] == tid,
+                        f"tenant {tid}: {code} {p.get('outcome')}")
+                preds.append(np.asarray(p["pred"], np.float32))
+            err = max(float(np.max(np.abs(a - b)))
+                      for a, b in zip(preds, refs[tid]))
+            require(err == 0.0, f"tenant {tid}: max abs {err:.3e} against "
+                                f"its checkpoint served alone")
+        x0 = {"x": md.x[0, ..., 0].tolist(), "key": int(md.keys[0])}
+        code, p = post({**x0, "tenant": "tokyo"})
+        require(code == 404 and p["outcome"] == "rejected-unknown-tenant",
+                f"unknown tenant: {code} {p}")
+        code, p = post(x0)
+        require(code == 404, f"no tenant field with 4 tenants: {code}")
+        st1 = json.loads(get("/v1/stats"))
+        batches = st1["batches"] - st0["batches"]
+        launches = {k: st1["kernel_launches"][k] - st0["kernel_launches"][k]
+                    for k in st1["kernel_launches"]}
+        require(launches["lstm_infer_last"] == 14 * batches
+                and launches["bdgcn_pair_fwd"] == 42 * batches
+                and sum(launches.values()) == 56 * batches,
+                f"{launches} for {batches} batches")
+        print(f"[fleet] (a) serve --fleet up in {up_s:.1f}s (engine startup "
+              f"{st0['startup_s']}s, graphs {st0['traces']} for 4 tenants, "
+              f"graph bytes {json.dumps(st0['graph_bytes'])}); each "
+              f"tenant's {len(windows)} answers equal its checkpoint "
+              f"served alone by ServeEngine (max abs 0); unknown tenant "
+              f"404, no tenant field 404; {batches} batches launched "
+              f"{_nz(launches)} (14 lstm_infer_last and 42 bdgcn_pair_fwd "
+              f"a batch) ({card})", flush=True)
+        # (c) requests/s and round trips, 64 requests a run over 4 tenants
+        n_win = min(16, len(md))
+        bodies = [json.dumps({"x": md.x[i % n_win, ..., 0].tolist(),
+                              "key": int(md.keys[i % n_win]),
+                              "tenant": FLEET_TENANTS[i % 4]}).encode()
+                  for i in range(64)]
+        port = int(base.rsplit(":", 1)[1])
+        for clients in (1, 4):
+            s0 = json.loads(get("/v1/stats"))
+            res, wall = _http_load(port, bodies, clients, 64 // clients)
+            s1 = json.loads(get("/v1/stats"))
+            bad = [(w, st, p.get("outcome")) for w, st, p, _ in res
+                   if st != 200 or p.get("outcome") != "ok"]
+            require(not bad, f"answers not ok: {bad[:4]}")
+            for w, _, p, _ in res:
+                tid = FLEET_TENANTS[w % 4]
+                require(p["tenant"] == tid, f"request {w} answered by "
+                                            f"{p['tenant']}")
+            per = {}
+            for w, _, p, ms in res:
+                per.setdefault(p["tenant"], []).append(ms)
+            rt50, rt99 = _pct([r[3] for r in res])
+            for k in s1["kernel_launches"]:
+                launches[k] += (s1["kernel_launches"][k]
+                                - s0["kernel_launches"][k])
+            require(s1["traces"] == n_graphs, f"graphs {s1['traces']}")
+            print(f"[fleet] (c) C={clients} over 4 tenants: 64 requests in "
+                  f"{wall:.3f}s = {64 / wall:.1f} req/s, round trip p50 "
+                  f"{rt50:.3f} ms p99 {rt99:.3f} ms; per tenant "
+                  + "; ".join(f"{t} {len(v) / wall:.1f} req/s p50 "
+                              f"{_pct(v)[0]:.3f} p99 {_pct(v)[1]:.3f} ms"
+                              for t, v in sorted(per.items()))
+                  + f"; {s1['batches'] - s0['batches']} batches; graphs "
+                  f"{s1['traces']} ({card})", flush=True)
+        text = get("/metrics")
+        for line in ("mpgcn_serve_traces 4", 'mpgcn_serve_breaker_state{'
+                     'tenant="a"} 0', "mpgcn_serve_tenant_resident_bytes"):
+            require(line in text, f"/metrics lacks {line}")
+        proc.send_signal(15)  # SIGTERM
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log_out.close()
+        log_err.close()
+    with open(os.path.join(out_dir, "command.stdout")) as f:
+        stdout = f.read()
+    require(rc == 0 and "drained (clean)" in stdout,
+            f"serve --fleet exited {rc} on SIGTERM")
+    return launches
+
+
+def fleet_blast_radius(dev, cfg, data, ckpts, refs, md, windows, out_dir,
+                       card):
+    """(b) one fault domain at a time on in-process fleets of the same
+    four checkpoints; the per-batch copy, the profiler window and the
+    resident bytes. Returns the launches."""
+    import torch
+
+    from mpgcn_tpu_torch.config import FleetConfig
+    from mpgcn_tpu_torch.nn.mpgcn import MPGCN
+    from mpgcn_tpu_torch.resilience.faults import FaultPlan
+    from mpgcn_tpu_torch.service.fleet import (
+        FleetEngine,
+        FleetReloader,
+        _flat,
+    )
+    from mpgcn_tpu_torch.service.registry import TenantRegistry
+
+    root = os.path.join(out_dir, "blast")
+    reg = TenantRegistry.load(root)
+    for tid in FLEET_TENANTS:
+        reg.add(tid, **({"quota": 4} if tid == "c" else {}))
+        _fleet_promote(root, tid, ckpts[tid], 1)
+    fcfg = FleetConfig(output_dir=root, buckets=(1, 2, 4, 8),
+                       deadline_ms=0.0, max_queue=8, reload_poll_secs=0.0,
+                       canary_requests=0, reload_tolerance=1.0,
+                       breaker_threshold=3, breaker_cooldown_s=0.2)
+    cand = _perturbed_ckpt(ckpts["a"], os.path.join(out_dir, "e.pkl"), 3)
+    total = {}
+    reset_counts()
+    eng = FleetEngine(cfg, data, fcfg, reg, device=dev,
+                      faults=FaultPlan.parse("poison_reload=1,"
+                                             "fault_tenant=1"))
+    n_graphs = eng.trace_count
+    try:
+        def answers():
+            return {t: [k.pred for k in _fleet_ask(eng, t, md, windows)]
+                    for t in FLEET_TENANTS}
+
+        def require_calm(base, skip, label):
+            now = answers()
+            for t in FLEET_TENANTS:
+                if t in skip:
+                    continue
+                require(_same_preds(now[t], base[t]),
+                        f"{label}: tenant {t}'s answers moved")
+                require(eng.tenants[t].breaker.state_name == "closed",
+                        f"{label}: tenant {t}'s breaker "
+                        f"{eng.tenants[t].breaker.state_name}")
+            require(eng.trace_count == n_graphs,
+                    f"{label}: graphs {n_graphs} -> {eng.trace_count}")
+            return now
+
+        base = answers()
+        for t in FLEET_TENANTS:
+            require(_same_preds(base[t], refs[t]),
+                    f"in-process tenant {t} differs from its engine")
+        # poison_reload on tenant b; the same candidate promotes on a
+        rel = FleetReloader(eng)
+        for t in ("a", "b"):
+            _fleet_promote(root, t, cand, 2)
+        acts = rel.poll_all()
+        require(acts["a"] == "canary-started" and acts["b"] ==
+                "rejected-smoke", f"reload actions {acts}")
+        now = require_calm(base, {"a"}, "poison_reload on b")
+        require(not _same_preds(now["a"], base["a"]), "a did not promote")
+        base = now
+        # a quota flood on tenant c (quota 4, queue 8)
+        flood = [eng.submit("c", md.x[0, ..., 0], int(md.keys[0]))
+                 for _ in range(60)]
+        for t in flood:
+            require(t.wait(120), "a flood request hung")
+        shed = {t.outcome for t in flood} - {"ok"}
+        require(shed and shed <= {"shed-tenant-quota", "shed-queue-full"},
+                f"flood outcomes {shed}")
+        stats = eng.stats()["tenants"]
+        require(all(stats[t]["quota"]["shed"] == 0 for t in "abd")
+                and stats["c"]["quota"]["shed"] > 0,
+                f"quota sheds {[stats[t]['quota'] for t in FLEET_TENANTS]}")
+        base = require_calm(base, set(), "quota flood on c")
+        # tenant d's model fails: its breaker trips, then recovers
+        ts = eng.tenants["d"]
+        good = ts.incumbent.params
+        ts.incumbent.params = {k: v * float("nan") for k, v in good.items()}
+        outs = [t.outcome for t in _fleet_ask(eng, "d", md, range(3))]
+        require(outs == ["error-nonfinite"] * 3, f"d failing: {outs}")
+        require(eng.submit("d", md.x[0, ..., 0], int(md.keys[0])).outcome
+                == "rejected-breaker-open", "d's breaker did not open")
+        require_calm(base, {"d"}, "d's breaker open")
+        ts.incumbent.params = good
+        time.sleep(0.25)
+        require([t.ok for t in _fleet_ask(eng, "d", md, range(1))] == [True],
+                "d's half-open probe failed")
+        require(ts.breaker.state_name == "closed", "d's breaker not closed")
+        base = require_calm(base, set(), "d recovered")
+        total = _add(total, read_counts())
+        # one batch: launches, the profiler window, the copy's cost
+        x1 = np.array(md.x[:1])
+        k1 = md.keys[:1].astype(np.int64)
+        pa = eng.tenants["a"].incumbent.params
+        reset_counts()
+        eng._run(pa, x1, k1, 7)
+        one = read_counts()
+        require(one["lstm_infer_last"] == 14 and one["bdgcn_pair_fwd"] == 42
+                and sum(one.values()) == 56, f"one batch launched {one}")
+        total = _add(total, one)
+        acts_n, note = device_activities(lambda: eng._run(pa, x1, k1, 7))
+        copy_ms = time_ms(lambda: eng._copy_in(pa))
+        copy_one = _host_ms(lambda: eng._copy_in(pa))
+        copy_bytes = sum(t.numel() * t.element_size()
+                         for ts in eng._dst.values() for t in ts)
+        xg = torch.from_numpy(x1)
+        kg = torch.from_numpy(k1)
+        with_copy = _host_ms(lambda: eng._run(pa, x1, k1, 7))
+        without = _host_ms(lambda: eng._rollouts.replay(xg, kg, 7,
+                                                        eng._precision))
+        st = eng.stats()
+        print(f"[fleet] (b) blast radius on 4 tenants: poison_reload on b "
+              f"rejected-smoke while a promoted the same candidate; a quota "
+              f"flood on c shed {sorted(shed)}; d's breaker opened after 3 "
+              f"error-nonfinite, answered 429-typed, and closed on its "
+              f"half-open probe; every other tenant's answers bit-identical "
+              f"and its breaker closed through each; graphs {n_graphs} "
+              f"throughout ({card})", flush=True)
+        print(f"[fleet] one bucket-1 batch: {_nz(one)} launches; profiler "
+              f"window: {note} device activities; the in-place parameter "
+              f"copy {copy_bytes} B: {copy_ms * 1e3:.2f} us a call (CUDA "
+              f"events over 50 calls back to back: the host's issue rate "
+              f"where it exceeds the device time), {copy_one[0] * 1e3:.1f} / "
+              f"{copy_one[1] * 1e3:.1f} us one synchronised call (host "
+              f"clock, median / min); bucket-1 rollout with the copy "
+              f"{with_copy[0]:.3f} / {with_copy[1]:.3f} ms, the graph alone "
+              f"{without[0]:.3f} / {without[1]:.3f} ms (host clock, median "
+              f"/ min); resident bytes per tenant (f32) "
+              f"{ {t: v['resident_bytes'] for t, v in st['tenants'].items()} }"
+              f"; shared graph bytes {json.dumps(st['graph_bytes'])} "
+              f"({card})", flush=True)
+    finally:
+        eng.drain()
+        eng.close()
+    # a torn slot at startup: b unavailable, recovered by a re-promotion
+    reset_counts()
+    eng = FleetEngine(cfg, data, fcfg, TenantRegistry.load(root), device=dev,
+                      faults=FaultPlan.parse("corrupt_tenant_slot=1,"
+                                             "fault_tenant=1"))
+    try:
+        require(eng.submit("b", md.x[0, ..., 0], int(md.keys[0])).outcome
+                == "rejected-tenant-unavailable", "b not unavailable")
+        for t in "acd":
+            require(_same_preds([k.pred for k in _fleet_ask(eng, t, md, windows)],
+                          base[t]), f"tenant {t} moved beside a torn b")
+        _fleet_promote(root, "b", ckpts["b"], 3)
+        acts = FleetReloader(eng).poll_all()
+        require(acts["b"] == "canary-started", f"b recovery: {acts}")
+        require(_same_preds([k.pred for k in _fleet_ask(eng, "b", md, windows)],
+                      base["b"]), "recovered b differs from its checkpoint")
+        require(eng.trace_count == n_graphs, "graphs moved on recovery")
+        total = _add(total, read_counts())
+        print(f"[fleet] (b) corrupt_tenant_slot on b: b answered "
+              f"rejected-tenant-unavailable (503), a, c, d bit-identical; "
+              f"a re-promotion recovered b without a restart, its answers "
+              f"its checkpoint's; graphs {eng.trace_count} ({card})",
+              flush=True)
+    finally:
+        eng.drain()
+        eng.close()
+    # one tenant: a request without a tenant field is its request
+    solo = os.path.join(out_dir, "solo")
+    TenantRegistry.load(solo).add("b")
+    _fleet_promote(solo, "b", ckpts["b"], 1)
+    reset_counts()
+    eng = FleetEngine(cfg, data, fcfg.replace(output_dir=solo, buckets=(1,)),
+                      TenantRegistry.load(solo), device=dev)
+    try:
+        t = eng.submit(None, md.x[0, ..., 0], int(md.keys[0]))
+        require(t.wait(120) and t.ok and t.tenant == "b"
+                and np.array_equal(t.pred, refs["b"][0]),
+                f"one tenant, no tenant field: {t.outcome} {t.tenant}")
+        total = _add(total, read_counts())
+        print(f"[fleet] one tenant: a request without a tenant field is "
+              f"answered by it, bit for bit its checkpoint's engine's "
+              f"({card})", flush=True)
+    finally:
+        eng.drain()
+        eng.close()
+    # resident bytes at int8, and the copy on the wide configuration
+    reset_counts()
+    eng = FleetEngine(cfg.replace(infer_precision="int8"), data,
+                      fcfg.replace(buckets=(1,)), TenantRegistry.load(root),
+                      device=dev)
+    try:
+        t = _fleet_ask(eng, "a", md, range(1))[0]
+        require(t.ok and np.isfinite(t.pred).all(), "int8 fleet answer")
+        int8 = {t: v["resident_bytes"]
+                for t, v in eng.stats()["tenants"].items()}
+        copy8 = time_ms(lambda: eng._copy_in(eng.tenants["a"].incumbent
+                                             .params))
+        _, note8 = device_activities(lambda: eng._copy_in(
+            eng.tenants["a"].incumbent.params))
+        total = _add(total, read_counts())
+    finally:
+        eng.drain()
+        eng.close()
+    wide = MPGCN.from_config(cfg.replace(**WIDE, num_nodes=47), device=dev)
+    dst = list(wide.parameters())
+    src = [p.detach().clone() for p in dst]
+    wide_bytes = sum(p.numel() * p.element_size() for p in dst)
+
+    def wide_copy():
+        with torch.no_grad():
+            torch._foreach_copy_(dst, src)
+
+    wide_ms = time_ms(wide_copy)
+    print(f"[fleet] resident bytes per tenant at int8 {int8} (f32 above); "
+          f"the int8 copy {copy8 * 1e3:.2f} us, device activities {note8}; "
+          f"the wide configuration's "
+          f"copy (hidden 128, K = 7) {wide_bytes} B: {wide_ms * 1e3:.2f} us "
+          f"(CUDA events, mean of 50) ({card})", flush=True)
+    del wide, dst, src
+    return total
+
+
+def phase_fleet(dev, cfg, data, train_dir, cand, out_dir, card):
+    """Phase 17 (module docstring). Returns the launches."""
+    t0 = time.perf_counter()
+    root = os.path.join(out_dir, "svc")
+    incumbent = os.path.join(train_dir, "MPGCN_od.pkl")
+    ckpts = {"a": incumbent, "b": cand,
+             "c": _perturbed_ckpt(incumbent, os.path.join(out_dir, "c.pkl"),
+                                  1),
+             "d": _perturbed_ckpt(incumbent, os.path.join(out_dir, "d.pkl"),
+                                  2)}
+    env = dict(os.environ, PYTHONPATH=HERE)
+    for tid in FLEET_TENANTS:
+        subprocess.run([sys.executable, "-m", "mpgcn_tpu_torch.cli", "fleet",
+                        "add", tid, "-out", root], cwd=HERE, env=env,
+                       check=True, capture_output=True, timeout=120)
+        _fleet_promote(root, tid, ckpts[tid], 1)
+    listed = json.loads(subprocess.run(
+        [sys.executable, "-m", "mpgcn_tpu_torch.cli", "fleet", "list", "-out",
+         root], cwd=HERE, env=env, check=True, capture_output=True,
+        text=True, timeout=120).stdout)
+    require(sorted(listed["tenants"]) == list(FLEET_TENANTS),
+            f"fleet list: {listed}")
+    windows = range(4)
+    refs, md = fleet_references(dev, cfg, data, ckpts, windows)
+    total = fleet_command(dev, cfg, root, refs, md, windows, out_dir, card)
+    total = _add(total, fleet_blast_radius(dev, cfg, data, ckpts, refs, md,
+                                           windows, out_dir, card))
+    print(f"[fleet] phase 17 took {time.perf_counter() - t0:.1f}s; launches "
+          f"{_nz(total)}", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -5503,6 +6024,14 @@ def main() -> int:
     os.makedirs(out_s)
     total = _add(total, phase_serve_http(dev, cfg, data, out_dir, out_s,
                                          card))
+
+    # the multi-tenant fleet, after every phase above
+    out_f = os.path.join(HERE, "smoke_out", "fleet")
+    shutil.rmtree(out_f, ignore_errors=True)
+    os.makedirs(out_f)
+    total = _add(total, phase_fleet(
+        dev, cfg, data, out_dir,
+        os.path.join(out_s, "candidate", "MPGCN_od_last.pkl"), out_f, card))
 
     print(card)  # the card's name and power limit, as nvidia-smi gives them
     print(f"[done] smoke run took {time.perf_counter() - t_start:.1f}s")

@@ -4,10 +4,14 @@ of mpgcn_tpu/cli.py; reference Main.py:7-67).
     python -m mpgcn_tpu_torch.cli -in ../data -mode train -epoch 200
     python -m mpgcn_tpu_torch.cli -in ../data -mode test
     python -m mpgcn_tpu_torch.cli serve -out ./service [--device cpu] ...
+    python -m mpgcn_tpu_torch.cli fleet add|remove|list [TENANT] -out ROOT
 
 ``serve`` dispatches to the serving plane's command
 (service/serve.py ``main``, the JAX ``mpgcn-tpu serve``): HTTP, canaried
-hot reload of the promoted checkpoints, a clean drain on SIGTERM.
+hot reload of the promoted checkpoints, a clean drain on SIGTERM; with
+``--fleet`` it serves every tenant of ``<out>/fleet/registry.json``.
+``fleet`` edits that registry (service/registry.py ``main``, the JAX
+``mpgcn-tpu fleet``).
 
 Runs on the card (``-GPU 0``, the default) unless ``-GPU cpu`` asks for the
 CPU. Train mode trains the single-step model (pred_len is forced to 1, as
@@ -47,8 +51,6 @@ import argparse
 import os
 
 from mpgcn_tpu_torch.config import MPGCNConfig
-from mpgcn_tpu_torch.data.loader import load_dataset
-from mpgcn_tpu_torch.device import resolve_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -313,6 +315,15 @@ def main(argv=None):
         from mpgcn_tpu_torch.service.serve import main as serve_main
 
         raise SystemExit(serve_main(argv[1:]))
+    if argv and argv[0] == "fleet":
+        # tenant-registry surgery for `serve --fleet` (no device needed)
+        from mpgcn_tpu_torch.service.registry import main as fleet_main
+
+        raise SystemExit(fleet_main(argv[1:]))
+    # torch is imported from here on: the subcommands above start without
+    # it (`fleet` needs no device)
+    from mpgcn_tpu_torch.data.loader import load_dataset
+    from mpgcn_tpu_torch.device import resolve_device
     from mpgcn_tpu_torch.train.trainer import ModelTrainer
 
     args = build_parser().parse_args(argv).__dict__

@@ -494,3 +494,53 @@ class ServeConfig:
 
     def replace(self, **kw) -> "ServeConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig(ServeConfig):
+    """Multi-tenant fleet knobs (service/fleet.py; the JAX package's
+    FleetConfig, mpgcn_tpu/service/config.py:359-399) on top of the
+    serving ones: every ServeConfig field keeps its meaning per tenant
+    (each tenant has its own micro-batcher queues, deadline budget and
+    canary), plus the walls between tenants."""
+
+    tenant_max_inflight: int = 32  #: admitted-but-unresolved requests a
+    #:                                tenant may hold (its quota bulkhead;
+    #:                                0 = unlimited; a registry entry's
+    #:                                `quota` overrides it)
+    breaker_threshold: int = 5  #: consecutive model failures
+    #:                             (error-internal / error-nonfinite) that
+    #:                             trip a tenant's circuit breaker OPEN
+    #:                             (0 = breaker off)
+    breaker_cooldown_s: float = 30.0  #: open-state dwell before the
+    #:                             half-open probe request is admitted
+    mesh_rungs: tuple = ()  #: the JAX fleet's mesh-degradation ladder;
+    #:                         the port serves on one device: () only
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.tenant_max_inflight < 0:
+            raise ValueError(
+                f"tenant_max_inflight={self.tenant_max_inflight} must "
+                f"be >= 0 (0 = unlimited)")
+        if self.breaker_threshold < 0:
+            raise ValueError(
+                f"breaker_threshold={self.breaker_threshold} must be "
+                f">= 0 (0 = breaker off)")
+        if self.breaker_cooldown_s < 0:
+            raise ValueError(
+                f"breaker_cooldown_s={self.breaker_cooldown_s} must be "
+                f">= 0")
+        rungs = tuple(int(r) for r in self.mesh_rungs)
+        object.__setattr__(self, "mesh_rungs", rungs)
+        if rungs:
+            if list(rungs) != sorted(set(rungs), reverse=True) \
+                    or rungs[-1] < 1:
+                raise ValueError(
+                    f"mesh_rungs={self.mesh_rungs!r} must be strictly "
+                    f"descending positive device counts (e.g. (8, 4, 2, "
+                    f"1))")
+            raise ValueError(
+                f"mesh_rungs={rungs!r}: the port's fleet serves on one "
+                f"device; the mesh-degradation ladder is multi-device "
+                f"work (ROADMAP Queue 1 item 6)")

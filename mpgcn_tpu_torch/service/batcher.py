@@ -75,7 +75,8 @@ class Ticket:
     __slots__ = ("x", "key", "deadline", "t_submit", "pred", "outcome",
                  "error", "bucket", "canary", "latency_ms", "_done",
                  "_on_resolve", "t_wall", "trace", "span", "queue_ms",
-                 "model_ms", "batch_seq", "tenant", "horizon", "day_slot")
+                 "model_ms", "batch_seq", "tenant", "horizon", "day_slot",
+                 "_quota_held", "_breaker_probe")
 
     def __init__(self, x, key: int, deadline_s: Optional[float] = None,
                  on_resolve: Optional[Callable] = None):
@@ -99,6 +100,10 @@ class Ticket:
         self.tenant: Optional[str] = None
         self.horizon: Optional[int] = None
         self.day_slot: Optional[int] = None
+        # the fleet's walls (service/fleet.py): a quota slot to release
+        # and whether this is the breaker's half-open probe
+        self._quota_held = False
+        self._breaker_probe = False
         self._done = threading.Event()
         self._on_resolve = on_resolve
 

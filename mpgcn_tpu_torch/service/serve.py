@@ -52,6 +52,10 @@ with the process default registry), the SLO engine (obs/perf/slo.py),
 and a ``serve.request -> serve.batcher -> serve.model`` span chain per
 resolved request (``<out>/obs/spans.jsonl``; the trace id is minted at
 admission or taken from the ``X-MPGCN-Trace`` header).
+
+``serve --fleet`` serves every tenant of ``<out>/fleet/registry.json``
+through service/fleet.py's ``FleetEngine`` behind the same HTTP front,
+which then routes on the body's ``tenant``.
 """
 
 from __future__ import annotations
@@ -69,7 +73,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mpgcn_tpu_torch.config import MPGCNConfig, ServeConfig, default_slos
+from mpgcn_tpu_torch.config import (
+    FleetConfig,
+    MPGCNConfig,
+    ServeConfig,
+    default_slos,
+)
 from mpgcn_tpu_torch.data.pipeline import DataPipeline
 from mpgcn_tpu_torch.device import resolve_device
 from mpgcn_tpu_torch.nn.cuda_bdgcn import BDGCN_PAIR_FWD, BDGCN_PAIR_FWD_BF16
@@ -953,9 +962,12 @@ _MAX_BODY_BYTES = 64 << 20
 
 
 def _make_handler(engine):
-    """The HTTP front over a ServeEngine: GET /healthz, /v1/stats and
-    /metrics, POST /v1/predict."""
+    """The HTTP front over a ServeEngine or a FleetEngine
+    (service/fleet.py): GET /healthz, /v1/stats and /metrics, POST
+    /v1/predict; a fleet routes on the body's ``tenant``."""
     from http.server import BaseHTTPRequestHandler
+
+    is_fleet = hasattr(engine, "tenants")
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -1042,9 +1054,14 @@ def _make_handler(engine):
             # a caller's trace id joins this request to its trace; minted
             # when absent, echoed back either way
             trace = (self.headers.get(TRACE_HEADER) or "").strip()[:64]
-            ticket = engine.submit(x, key, deadline_ms=req_dl,
-                                   trace=trace or None, tenant=tenant,
-                                   horizon=horizon, day_slot=day_slot)
+            if is_fleet:
+                ticket = engine.submit(tenant, x, key, deadline_ms=req_dl,
+                                       trace=trace or None,
+                                       horizon=horizon, day_slot=day_slot)
+            else:
+                ticket = engine.submit(x, key, deadline_ms=req_dl,
+                                       trace=trace or None, tenant=tenant,
+                                       horizon=horizon, day_slot=day_slot)
             dl = engine.scfg.deadline_ms if req_dl is None else req_dl
             if not ticket.wait(timeout=(dl or 0) / 1e3 + 60.0):
                 self._json(500, {"ok": False, "outcome": "error-timeout",
@@ -1074,8 +1091,7 @@ def _make_handler(engine):
 
 def build_parser() -> argparse.ArgumentParser:
     """The JAX serve command's flags, less those of paths the port does
-    not have (``--fleet``, ``--tenant-quota``, ``--breaker-threshold``,
-    ``--breaker-cooldown``, ``--mesh-rungs``, ``--profile``, ``-trace``,
+    not have (``--mesh-rungs``, ``--profile``, ``-trace``,
     ``--compile-cache``), plus ``--device``."""
     p = argparse.ArgumentParser(
         prog="python -m mpgcn_tpu_torch.cli serve",
@@ -1126,6 +1142,23 @@ def build_parser() -> argparse.ArgumentParser:
                    action="store_true",
                    help="log each accepted request's day_slot and newest "
                         "(N, N) observation slot into the request ledger")
+    p.add_argument("--fleet", action="store_true",
+                   help="multi-tenant mode (service/fleet.py): serve every "
+                        "tenant in <out>/fleet/registry.json, each its own "
+                        "fault domain (queue, quota, breaker, canary) on "
+                        "one shared set of rollout graphs; requests route "
+                        "on the body's `tenant` field")
+    p.add_argument("--tenant-quota", type=int, default=32,
+                   help="per-tenant in-flight admission quota (bulkhead; "
+                        "0 = unlimited; a registry entry's `quota` field "
+                        "overrides it)")
+    p.add_argument("--breaker-threshold", type=int, default=5,
+                   help="consecutive model failures that trip a tenant's "
+                        "circuit breaker open (429s for that tenant only; "
+                        "0 = breaker off)")
+    p.add_argument("--breaker-cooldown", type=float, default=30.0,
+                   help="seconds a tripped breaker stays open before its "
+                        "half-open probe request is admitted")
     p.add_argument("--window-days", type=int, default=30,
                    help="newest accepted days the support banks and the "
                         "probe split are rebuilt from")
@@ -1240,7 +1273,7 @@ def main(argv=None) -> int:
     if horizons:
         # the model config's pred_len covers the longest horizon
         ns.pred_len = max(ns.pred_len, max(horizons))
-    scfg = ServeConfig(
+    scfg_kw = dict(
         output_dir=ns.output_dir, buckets=buckets, horizons=horizons,
         max_queue=ns.max_queue, max_wait_ms=ns.max_wait_ms,
         deadline_ms=ns.deadline_ms, double_buffer=ns.double_buffer,
@@ -1250,6 +1283,12 @@ def main(argv=None) -> int:
         reload_tolerance=ns.reload_tolerance,
         ledger_max_bytes=ns.ledger_max_bytes,
         capture_flows=ns.capture_flows)
+    if ns.fleet:
+        scfg = FleetConfig(**scfg_kw, tenant_max_inflight=ns.tenant_quota,
+                           breaker_threshold=ns.breaker_threshold,
+                           breaker_cooldown_s=ns.breaker_cooldown)
+    else:
+        scfg = ServeConfig(**scfg_kw)
     tcfg = MPGCNConfig(
         mode="test", data="synthetic", input_dir=ns.output_dir,
         output_dir=serve_dir(ns.output_dir), obs_len=ns.obs_len,
@@ -1263,10 +1302,18 @@ def main(argv=None) -> int:
         support_payload=ns.support_payload)
     faults = FaultPlan.from_config(tcfg)
     cfg, data = _build_data(ns, tcfg)
-    engine = ServeEngine(cfg, data, scfg, device=device, faults=faults,
-                         init_ckpt=ns.ckpt, allow_fresh=ns.allow_fresh_init,
-                         bdgcn_impl=ns.bdgcn_impl)
-    reloader = CanaryReloader(engine, scfg, faults=faults)
+    if ns.fleet:
+        from mpgcn_tpu_torch.service.fleet import build_fleet
+
+        engine, reloader = build_fleet(cfg, data, scfg, ns.output_dir,
+                                       device=device, faults=faults,
+                                       bdgcn_impl=ns.bdgcn_impl)
+    else:
+        engine = ServeEngine(cfg, data, scfg, device=device, faults=faults,
+                             init_ckpt=ns.ckpt,
+                             allow_fresh=ns.allow_fresh_init,
+                             bdgcn_impl=ns.bdgcn_impl)
+        reloader = CanaryReloader(engine, scfg, faults=faults)
     reloader.start()
     sampler = DeviceSampler().start()
 
@@ -1300,7 +1347,13 @@ def main(argv=None) -> int:
             pass
     flood = faults.take_flood()
     if flood:
-        threading.Thread(target=engine.inject_flood, args=(flood,),
+        args = (flood,)
+        if ns.fleet:
+            # the flood targets one tenant's fault domain (fault_tenant
+            # indexes the sorted ids)
+            ids = sorted(engine.tenants)
+            args = (ids[min(faults.fault_tenant, len(ids) - 1)], flood)
+        threading.Thread(target=engine.inject_flood, args=args,
                          daemon=True, name="mpgcn-serve-flood").start()
     t0 = time.time()
     try:

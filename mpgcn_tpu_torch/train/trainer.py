@@ -131,6 +131,7 @@ from mpgcn_tpu_torch.train.checkpoint import (
     load_checkpoint,
     load_opt_state,
     opt_state_to_host,
+    write_checkpoint,
 )
 from mpgcn_tpu_torch.train.graphs import (
     GraphSet,
@@ -248,6 +249,8 @@ class ModelTrainer:
         if cfg.model != "MPGCN":
             raise NotImplementedError("Invalid model name.")
         self.device = resolve_device(device)
+        #: the checkpoint manifest's platform
+        self._platform = "gpu" if self.device.type == "cuda" else "cpu"
         self.pipeline = DataPipeline(cfg, data, self.device, bdgcn_impl)
         if cfg.num_nodes == 0:
             cfg = cfg.replace(num_nodes=self.pipeline.num_nodes)
@@ -802,7 +805,8 @@ class ModelTrainer:
         ``self._writer.flush()`` waits for it."""
         params, opt = snap or self._snapshot()
         self._writer.write(path, checkpoint_payload(
-            params, epoch, self._ckpt_extra(**extra), opt))
+            params, epoch, self._ckpt_extra(**extra), opt, self._platform),
+            dump=write_checkpoint)
 
     def _save_last(self, epoch, best_val, best_epoch, patience_count,
                    snap=None):
@@ -860,7 +864,8 @@ class ModelTrainer:
         t0 = time.perf_counter()
         params, opt = snap or self._snapshot()
         self._watchdog.update_state(checkpoint_payload(
-            params, epoch, self._ckpt_extra(emergency=True), opt))
+            params, epoch, self._ckpt_extra(emergency=True), opt,
+            self._platform))
         self.watchdog_sync_ms.append((time.perf_counter() - t0) * 1e3)
 
     def _first_batch(self):

@@ -54,12 +54,12 @@ class AsyncWriter:
         self._pool = None
         self._pending = []
 
-    def write(self, path: str, payload) -> None:
+    def write(self, path: str, payload, dump=atomic_pickle_dump) -> None:
+        """Queue ``dump(path, payload)`` (default ``atomic_pickle_dump``)."""
         if self._pool is None:
             self._pool = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="mpgcn-ckpt-writer")
-        self._pending.append(self._pool.submit(atomic_pickle_dump, path,
-                                               payload))
+        self._pending.append(self._pool.submit(dump, path, payload))
 
     def flush(self) -> None:
         pending, self._pending = self._pending, []

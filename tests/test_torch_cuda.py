@@ -1891,3 +1891,84 @@ def test_staged_feed_answers_as_the_one_thread_feed(cuda_device, tmp_path):
     assert [b for b, _ in preds[True]] == [b for b, _ in preds[False]]
     for (_, x), (_, y) in zip(preds[True], preds[False]):
         assert np.array_equal(x, y)
+
+
+def test_fleet_shares_its_graphs_and_answers_as_one_engine_each(
+        cuda_device, tmp_path):
+    """A 2-tenant fleet (service/fleet.py) captures one execution model's
+    rollouts, |buckets| x |horizons| graphs, as one tenant would; each
+    tenant's answers equal a ServeEngine started on its checkpoint bit for
+    bit; a reload (canary, promotion) and a rolled-back canary add no
+    graph, and the promoted tenant then answers as the candidate's
+    engine."""
+    from mpgcn_tpu_torch.config import FleetConfig
+    from mpgcn_tpu_torch.service.fleet import FleetEngine, FleetReloader
+    from mpgcn_tpu_torch.service.promote import (
+        candidate_hash,
+        ledger_path,
+        promote_checkpoint,
+        promoted_path,
+    )
+    from mpgcn_tpu_torch.service.registry import TenantRegistry
+    from mpgcn_tpu_torch.utils.logging import JsonlLogger
+
+    cfg, data, _, a, b, _ = _slot_stack(tmp_path, cuda_device)
+    root = str(tmp_path / "fleet")
+    reg = TenantRegistry.load(root)
+
+    def promote(tid, path, attempt):
+        slot = promoted_path(reg.tenant_root(tid))
+        promote_checkpoint(path, slot)
+        JsonlLogger(ledger_path(reg.tenant_root(tid))).log(
+            "gate", attempt=attempt, promoted=True,
+            candidate_hash=candidate_hash(slot))
+
+    for tid, path in (("nyc", a), ("sf", b)):
+        reg.add(tid)
+        promote(tid, path, 1)
+    fcfg = FleetConfig(output_dir=root, buckets=(1, 2), canary_requests=2,
+                       canary_fraction=1.0, reload_poll_secs=0)
+    eng = FleetEngine(cfg, data, fcfg, reg, device=cuda_device)
+    refs = {name: ServeEngine(cfg, data, ServeConfig(
+        output_dir=str(tmp_path / name), buckets=(1, 2)),
+        device=cuda_device, init_ckpt=path)
+        for name, path in (("a", a), ("b", b))}
+    try:
+        md = eng.pipeline.modes["test"]
+        assert eng.trace_count == 2 == len(eng._graphs.graphs)
+
+        def answers(tenant, n=3):
+            out = []
+            for i in range(n):
+                t = eng.submit(tenant, md.x[i, ..., 0], int(md.keys[i]),
+                               deadline_ms=0)
+                assert t.wait(60) and t.ok, t.error
+                out.append(t.pred)
+            return out
+
+        for tid, ref in (("nyc", refs["a"]), ("sf", refs["b"])):
+            for got, want in zip(answers(tid),
+                                 _serve_one_by_one(ref, md, 3)):
+                assert np.array_equal(got, want[0]), tid
+        rel = FleetReloader(eng)
+        promote("nyc", b, 2)
+        assert rel.poll_all()["nyc"] == "canary-started"
+        answers("nyc", 2)
+        assert eng._views["nyc"].incumbent_hash == candidate_hash(b)
+        for got, want in zip(answers("nyc"),
+                             _serve_one_by_one(refs["b"], md, 3)):
+            assert np.array_equal(got, want[0])
+        promote("sf", a, 2)
+        assert rel.poll_all()["sf"] == "canary-started"
+        ts = eng.tenants["sf"]
+        ts.canary.params = {k: v * float("nan")
+                            for k, v in ts.canary.params.items()}
+        for got, want in zip(answers("sf", 1),
+                             _serve_one_by_one(refs["b"], md, 1)):
+            assert np.array_equal(got, want[0])  # served again on b
+        assert ts.canary is None
+        assert eng.trace_count == 2 == eng.stats()["traces"]
+    finally:
+        eng.close()
+        for r in refs.values():
+            r.close()

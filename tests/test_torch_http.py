@@ -235,9 +235,8 @@ def test_metrics_and_stats_surfaces(fronts):
 # --- the command --------------------------------------------------------------
 
 
-MISSING = {"--fleet", "--tenant-quota", "--breaker-threshold",
-           "--breaker-cooldown", "--mesh-rungs", "--profile", "-trace",
-           "--trace_dir", "--compile-cache"}
+MISSING = {"--mesh-rungs", "--profile", "-trace", "--trace_dir",
+           "--compile-cache"}
 
 
 def _flags(parser):

@@ -34,7 +34,8 @@ def _imports(tree):
 def _sources():
     files = sorted((ROOT / "mpgcn_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py", ROOT / "kernel_hashes.py",
-                    ROOT / "n500_int8_step.py", ROOT / "lstm_fwd_probe.py"]
+                    ROOT / "n500_int8_step.py", ROOT / "lstm_fwd_probe.py",
+                    ROOT / "precision_times.py"]
 
 
 @pytest.mark.parametrize("path", _sources(),

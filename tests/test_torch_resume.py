@@ -247,3 +247,92 @@ def test_jax_reads_a_port_checkpoint(tmp_path, data, init):
         assert torch.equal(v, live[k]), k
     h = jt.train(resume=True)
     assert len(h["train"]) == 1 and np.isfinite(h["train"]).all()
+
+
+def _damage_leaf(path, section):
+    """Change one leaf of ``section`` after the file's records were
+    written (a bit flip that still unpickles), keeping the records."""
+    with open(path, "rb") as f:
+        ckpt = pickle.load(f)
+    if section == "params":
+        fc = ckpt["params"]["branches"][0]["fc"]
+        fc["b"] = np.array(fc["b"]) + np.float32(1.0)
+    elif section == "opt_state":  # the JAX ScaleByAdamState's mu
+        mu = ckpt["opt_state"][0].mu["branches"][0]["fc"]
+        mu["b"] = np.array(mu["b"]) + np.float32(1.0)
+    else:  # the port's Adam moments
+        mu = ckpt["opt_state_torch"]["mu"]["branches"][0]["fc"]
+        mu["b"] = np.array(mu["b"]) + np.float32(1.0)
+    with open(path, "wb") as f:
+        pickle.dump(ckpt, f)
+
+
+@pytest.mark.parametrize("writer,section", [
+    ("port", "params"), ("jax", "params"), ("jax", "opt_state"),
+    ("port", "opt_state_torch")])
+def test_damaged_leaf_falls_back_to_best(tmp_path, data, init, writer,
+                                         section, capsys):
+    """A rolling checkpoint whose leaf changed after its integrity record
+    was written: the port's ``-resume`` logs ``ckpt_corrupt`` and resumes
+    from the best checkpoint, as the JAX trainer does on the same files
+    (the port's own optimizer record is the port's: the JAX trainer reads
+    params only from a port file and resumes from it)."""
+    src = tmp_path / "src"
+    if writer == "port":
+        port_trainer(src, data, init=init, num_epochs=2).train()
+    else:
+        jax_trainer(src, data, num_epochs=2).train()
+    assert "integrity" in read_checkpoint(src / "MPGCN_od_last.pkl")
+    _damage_leaf(src / "MPGCN_od_last.pkl", section)
+    for side in ("jax", "port"):
+        shutil.copytree(src, tmp_path / side)
+    capsys.readouterr()
+    hp = port_trainer(tmp_path / "port", data, num_epochs=3).train(
+        resume=True)
+    out = capsys.readouterr().out
+    assert "integrity checksum mismatch" in out
+    assert "Resuming from epoch" in out and len(hp["train"]) == 1
+    assert [e["path"] for e in events(tmp_path / "port", "ckpt_corrupt")
+            ] == [str(tmp_path / "port" / "MPGCN_od_last.pkl")]
+    hj = jax_trainer(tmp_path / "jax", data, num_epochs=3).train(
+        resume=True)
+    out = capsys.readouterr().out
+    jax_fell_back = bool(events(tmp_path / "jax", "ckpt_corrupt"))
+    assert jax_fell_back == (section != "opt_state_torch")
+    assert ("Resuming from epoch" in out) == jax_fell_back
+    assert len(hj["train"]) == 1
+
+
+def test_the_loaders_verify_each_others_records(tmp_path, data, init):
+    """The JAX ``load_checkpoint`` verifies an intact port checkpoint (its
+    manifest and ``params`` record; no ``opt_state`` section) and raises
+    ``CheckpointCorruptError`` on one whose ``params`` leaf changed; the
+    port's loader raises on a JAX file damaged the same way."""
+    from mpgcn_tpu.train.checkpoint import \
+        CheckpointCorruptError as JaxCorrupt
+    from mpgcn_tpu_torch.train.checkpoint import (
+        OPT_INTEGRITY_KEY,
+        CheckpointCorruptError,
+        load_checkpoint,
+    )
+
+    port_trainer(tmp_path / "port", data, init=init, num_epochs=1).train()
+    path = tmp_path / "port" / "MPGCN_od_last.pkl"
+    ckpt = jax_load(str(path))
+    assert ckpt["manifest"]["format"] == 1 and ckpt["manifest"]["mesh"] is None
+    assert set(ckpt["integrity"]["leaves"]) == {
+        k for k in ckpt["integrity"]["leaves"] if k.startswith("params[")}
+    assert all(k.startswith("opt_state_torch[")
+               for k in ckpt[OPT_INTEGRITY_KEY]["leaves"])
+    assert load_checkpoint(str(path))["epoch"] == 1
+    _damage_leaf(path, "params")
+    with pytest.raises(JaxCorrupt, match="integrity"):
+        jax_load(str(path))
+    with pytest.raises(CheckpointCorruptError, match="integrity"):
+        load_checkpoint(str(path))
+    jax_trainer(tmp_path / "jax", data, num_epochs=1).train()
+    jpath = tmp_path / "jax" / "MPGCN_od_last.pkl"
+    assert load_checkpoint(str(jpath))["epoch"] == 1
+    _damage_leaf(jpath, "params")
+    with pytest.raises(CheckpointCorruptError, match="integrity"):
+        load_checkpoint(str(jpath))

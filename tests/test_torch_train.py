@@ -375,8 +375,10 @@ def test_port_checkpoint_loads_in_jax(two_runs):
     with pytest.raises(ValueError, match="num_branches"):
         check_branch_spec(ckpt, path, 3, None)
     # the optimizer state rides under the port's own key, which the JAX
-    # loader does not read
-    assert set(ckpt) == {"epoch", "params", "opt_state_torch", "extra"}
+    # loader does not read, and so does its integrity record; the JAX
+    # loader verified the manifest and the params record
+    assert set(ckpt) == {"epoch", "params", "opt_state_torch", "extra",
+                         "manifest", "integrity", "integrity_torch"}
     assert set(ckpt["extra"]) == {"seed", "num_branches", "branch_sources",
                                   "best_val", "global_step"}
     jt = r["jt"]
