@@ -217,6 +217,27 @@ Phases, each fatal on failure:
      in-place parameter copy (CUDA events) at N=47 and at the wide
      configuration's size, the bucket-1 rollout with and without it, and
      the resident bytes a tenant in f32 and int8.
+ 18. after them all, [router], the front tier over phase 17's tenants:
+     (a) the Router (service/router.py) and its HTTP front in this
+     process over 2 `serve --fleet` replica processes on the card
+     (smoke_obs 7, smoke_nodes 47): 64 requests a run from C = 1, 4, 16
+     clients through the router and straight to r0 (req/s, round trip,
+     the replica engine's and the router's own p50), every answer bit-
+     equal to phase 17's references; kill -9 of r1 mid-load (no request
+     fails; the card's used bytes back before the restart allocates;
+     death -> re-admitted, in the ledger's order died / restart / bound /
+     admitted), a partition of r1 (its breaker trips, the prober closes
+     it), a rolling deploy under load (drain -> re-admitted a replica),
+     one spawn (spawn -> admitted, a load over 3 replicas) and two
+     retires, then C = 1, 4, 16 over 1 replica; every incarnation: 4
+     graphs, its graph captures equal to the first one's, no kernel
+     library built; each replica's device memory (nvidia-smi by pid, its
+     graphs' pool, the card's used bytes); (b) `python -m
+     mpgcn_tpu_torch.cli router` as its own process over 1, then 2
+     replicas: up, answers bit-equal at C = 1, 4, 16 (req/s, 2 replicas
+     against 1), SIGTERM -> exit 0 and no replica left. The replicas' lstm_infer_last and bdgcn_pair_fwd launches,
+     each incarnation read once admitted and again before it stops, join
+     the kernels line.
 
 The second-to-last line is a JSON object listing each kernel; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a card, and
@@ -232,6 +253,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 
@@ -4870,8 +4892,9 @@ def phase_city_feed(dev, cfg, data, cfg_l, data_l, out_dir, card):
 SERVE_GRAPHS = 8
 
 
-def _serve_front(eng):
-    """The engine's HTTP front on 127.0.0.1, an ephemeral port."""
+def _serve_front(eng, make_handler=None):
+    """The HTTP front of ``eng`` (serve's, or ``make_handler``'s) on
+    127.0.0.1, an ephemeral port."""
     from http.server import ThreadingHTTPServer
 
     from mpgcn_tpu_torch.service.serve import _make_handler
@@ -4879,7 +4902,7 @@ def _serve_front(eng):
     class _Server(ThreadingHTTPServer):
         daemon_threads = True
 
-    httpd = _Server(("127.0.0.1", 0), _make_handler(eng))
+    httpd = _Server(("127.0.0.1", 0), (make_handler or _make_handler)(eng))
     threading.Thread(target=httpd.serve_forever, daemon=True,
                      name="smoke-http").start()
     return httpd
@@ -5450,20 +5473,23 @@ def fleet_references(dev, cfg, data, ckpts, windows):
     return refs, md
 
 
+def fleet_serve_args(cfg, device):
+    """``serve --fleet``'s arguments past ``-out`` for phase 17's tenants:
+    the reference widths, buckets 1-8, no deadline, no reload polling."""
+    return ["--device", device, "-pred", str(cfg.pred_len), "-hidden",
+            str(cfg.hidden_dim), "-M", str(cfg.num_branches), "-K",
+            str(cfg.cheby_order), "-seed", "0", "-sN", str(cfg.synthetic_N),
+            "-sT", str(cfg.synthetic_T), "--buckets", "1,2,4,8",
+            "--max-queue", "256", "--deadline-ms", "0",
+            "--reload-poll-secs", "0"]
+
+
 def fleet_command(dev, cfg, root, refs, md, windows, out_dir, card):
     """(a) and (c): ``serve --fleet`` as its own process on the card."""
-    import urllib.error
-    import urllib.request
-
     from mpgcn_tpu_torch.service.serve import http_info_path
 
     argv = [sys.executable, "-m", "mpgcn_tpu_torch.cli", "serve", "--fleet",
-            "--device", dev.type, "-out", root, "-pred", str(cfg.pred_len),
-            "-hidden", str(cfg.hidden_dim), "-M", str(cfg.num_branches),
-            "-K", str(cfg.cheby_order), "-seed", "0", "-sN",
-            str(cfg.synthetic_N), "-sT", str(cfg.synthetic_T), "--buckets",
-            "1,2,4,8", "--max-queue", "256", "--deadline-ms", "0",
-            "--reload-poll-secs", "0"]
+            "-out", root, *fleet_serve_args(cfg, dev.type)]
     env = dict(os.environ, PYTHONPATH=HERE)
     env.pop("MPGCN_FAULTS", None)
     log_out = open(os.path.join(out_dir, "command.stdout"), "w")
@@ -5484,18 +5510,10 @@ def fleet_command(dev, cfg, root, refs, md, windows, out_dir, card):
             base = "http://127.0.0.1:{port}".format(**json.load(f))
 
         def get(path):
-            with urllib.request.urlopen(base + path, timeout=60) as r:
-                return r.read().decode()
+            return _get(base, path)
 
         def post(body):
-            req = urllib.request.Request(
-                base + "/v1/predict", data=json.dumps(body).encode(),
-                headers={"Content-Type": "application/json"})
-            try:
-                with urllib.request.urlopen(req, timeout=120) as r:
-                    return r.status, json.load(r)
-            except urllib.error.HTTPError as e:
-                return e.code, json.load(e)
+            return _post(base, body)
 
         st0 = json.loads(get("/v1/stats"))
         n_graphs = 4  # buckets 1, 2, 4, 8 at horizon 7
@@ -5813,7 +5831,8 @@ def fleet_blast_radius(dev, cfg, data, ckpts, refs, md, windows, out_dir,
 
 
 def phase_fleet(dev, cfg, data, train_dir, cand, out_dir, card):
-    """Phase 17 (module docstring). Returns the launches."""
+    """Phase 17 (module docstring). Returns the launches and what phase 18
+    reuses: the fleet root, the references, the test split, the windows."""
     t0 = time.perf_counter()
     root = os.path.join(out_dir, "svc")
     incumbent = os.path.join(train_dir, "MPGCN_od.pkl")
@@ -5841,6 +5860,635 @@ def phase_fleet(dev, cfg, data, train_dir, cand, out_dir, card):
                                            windows, out_dir, card))
     print(f"[fleet] phase 17 took {time.perf_counter() - t0:.1f}s; launches "
           f"{_nz(total)}", flush=True)
+    return total, {"root": root, "refs": refs, "md": md, "windows": windows}
+
+
+# --- phase 18: the router tier over serve --fleet replicas ---------------------
+
+#: rollout graphs a replica captures: buckets 1, 2, 4, 8 at horizon 7
+REPLICA_GRAPHS = 4
+
+
+def _get(base, path, timeout=60):
+    import urllib.request
+
+    with urllib.request.urlopen(base + path, timeout=timeout) as r:
+        return r.read().decode()
+
+
+def _post(base, body, timeout=120):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + "/v1/predict", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.load(r)
+    except urllib.error.HTTPError as e:
+        return e.code, json.load(e)
+
+
+def _metric(text, name, labels=""):
+    """One sample of a Prometheus text page; 0 when the family is there
+    but not the labelled child (a counter child appears on its first
+    increment)."""
+    require(f"# TYPE {name} " in text, f"/metrics has no {name}")
+    key = f"{name}{{{labels}}}" if labels else name
+    for line in text.splitlines():
+        if line.startswith(key + " "):
+            return float(line.split()[-1])
+    return 0.0
+
+
+def _replica_read(base):
+    """One replica incarnation's counters: /v1/stats (pid, graphs, batches,
+    kernel launches) and /metrics (program builds by kind)."""
+    st = json.loads(_get(base, "/v1/stats"))
+    text = _get(base, "/metrics")
+    return {"traces": st["traces"], "batches": st["batches"],
+            "launches": dict(st["kernel_launches"]),
+            "startup_s": st["startup_s"],
+            "kernel_library": _metric(text, "mpgcn_cuda_program_builds_total",
+                                      'kind="kernel_library"'),
+            "cuda_graph": _metric(text, "mpgcn_cuda_program_builds_total",
+                                  'kind="cuda_graph"'),
+            "graph_bytes": st["graph_bytes"]}
+
+
+def _gpu_apps():
+    """{pid: MiB} of the card's compute processes, as nvidia-smi lists
+    them (pids of this machine's namespace, or none)."""
+    out = subprocess.run(
+        [shutil.which("nvidia-smi"), "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout
+    apps = {}
+    for line in out.strip().splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            apps[int(parts[0])] = parts[1]
+    return apps
+
+
+def _device_used():
+    """Bytes in use on the card, every process's (cudaMemGetInfo)."""
+    import torch
+
+    free, total = torch.cuda.mem_get_info(0)
+    return total - free
+
+
+def _router_plan(fleet):
+    """64 requests over the 4 tenants and the reference windows: (tenant,
+    window, body bytes)."""
+    md, win = fleet["md"], list(fleet["windows"])
+    plan = []
+    for i in range(64):
+        tid, w = FLEET_TENANTS[i % 4], win[(i // 4) % len(win)]
+        plan.append((tid, w, json.dumps(
+            {"x": md.x[w, ..., 0].tolist(), "key": int(md.keys[w]),
+             "tenant": tid}).encode()))
+    return plan
+
+
+def _check_answers(label, res, plan, refs):
+    """Every answer 200, its tenant's, and bit-equal to its checkpoint's
+    ServeEngine answer (phase 17's references)."""
+    bad = []
+    for i, st, p, _ in res:
+        tid, w, _ = plan[i]
+        if st != 200 or p.get("tenant") != tid or not np.array_equal(
+                np.asarray(p["pred"], np.float32), refs[tid][w]):
+            bad.append((i, tid, w, st, p.get("outcome")))
+    require(not bad, f"{label}: {len(bad)} answers failed or differ from "
+                     f"the references: {bad[:4]}")
+
+
+def _load_run(label, port, plan, fleet, clients, ledger=None):
+    """64 requests from ``clients`` keep-alive clients; every answer
+    checked. Returns (req/s, round-trip p50, p99, engine p50, router
+    p50): the engine's latency_ms from the answers, the router's own from
+    its ledger's route rows (None straight to a replica)."""
+    n0 = len(ledger()) if ledger else 0
+    res, wall = _http_load(port, [b for _, _, b in plan], clients,
+                           len(plan) // clients)
+    _check_answers(label, res, plan, fleet["refs"])
+    rt50, rt99 = _pct([r[3] for r in res])
+    eng50 = _pct([r[2]["latency_ms"] for r in res])[0]
+    own50 = None
+    if ledger:
+        rows = [r for r in ledger()[n0:] if r["event"] == "route"]
+        own50 = _pct([r["latency_ms"] for r in rows])[0]
+    return len(res) / wall, rt50, rt99, eng50, own50
+
+
+class _Background:
+    """Requests from 4 keep-alive clients in turn until stopped, each
+    answer checked; for the rolling deploy."""
+
+    def __init__(self, port, plan):
+        self.port, self.plan = port, plan
+        self.stop_ev = threading.Event()
+        self.results, self.errors = [], []
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self.stop_ev.is_set():
+            try:
+                res, _ = _http_load(self.port, [b for _, _, b in self.plan],
+                                    4, 4)
+                self.results += res
+            except Exception as e:  # reported by stop()
+                self.errors.append(f"{type(e).__name__}: {e}")
+                return
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop_ev.set()
+        self.thread.join(180)
+
+
+class _Watch:
+    """Reads each replica incarnation's counters once it is admitted
+    (``baseline``) and just before the router stops it (kill or
+    terminate), and after a kill polls the card's used bytes until the
+    dead process's memory is back. ``quiet`` says that no request is in
+    flight (set by the phase around its loads)."""
+
+    def __init__(self):
+        self.reads, self.kills, self._threads = [], [], []
+        self.errors, self.first = [], {}
+        self.footprint = 0
+        self.quiet = True
+
+    def baseline(self, h):
+        r = _replica_read(h.proc.base_url)
+        self.first[(h.idx, h.proc.generation)] = r
+        return r
+
+    def attach(self, h):
+        import time as _time
+
+        proc = h.proc
+        kill, terminate = proc.kill, proc.terminate
+
+        def read(why):
+            if proc.alive and proc.base_url:
+                try:
+                    r = _replica_read(proc.base_url)
+                except Exception as e:  # required empty after the phase
+                    self.errors.append(f"r{proc.idx} generation "
+                                       f"{proc.generation}: "
+                                       f"{type(e).__name__}: {e}")
+                    return
+                base = self.first.get((proc.idx, proc.generation))
+                if base is None:
+                    self.errors.append(f"r{proc.idx} generation "
+                                       f"{proc.generation} stopped before "
+                                       f"its baseline read")
+                    return
+                self.reads.append(_since(base, r, proc, why, self.quiet))
+
+        def on_kill():
+            read("kill")
+            row = {"replica": proc.idx, "pid": proc.pid,
+                   "used_before": _device_used(), "t": _time.perf_counter()}
+            kill()
+            row["t_reaped"] = _time.perf_counter()
+            self.kills.append(row)
+            t = threading.Thread(target=self._freed, args=(row,), daemon=True)
+            t.start()
+            self._threads.append(t)
+
+        def on_terminate(timeout_s=30.0):
+            read("terminate")
+            return terminate(timeout_s=timeout_s)
+
+        proc.kill, proc.terminate = on_kill, on_terminate
+
+    def _freed(self, row):
+        """Seconds from the kill until the card's used bytes fall by half
+        a replica's footprint; the pid's presence in nvidia-smi then."""
+        deadline = row["t"] + 20.0
+        while time.perf_counter() < deadline:
+            used = _device_used()
+            if used <= row["used_before"] - self.footprint // 2:
+                row["freed_s"] = time.perf_counter() - row["t"]
+                row["used_after"] = used
+                row["pid_listed"] = row["pid"] in _gpu_apps()
+                return
+            time.sleep(0.02)
+        row["freed_s"] = None
+
+    def join(self):
+        for t in self._threads:
+            t.join(30)
+
+
+def _since(base, r, proc, why, idle):
+    """An incarnation's launches and batches between two reads."""
+    return {"replica": proc.idx, "generation": proc.generation, "why": why,
+            "idle": idle, "batches": r["batches"] - base["batches"],
+            "launches": {k: v - base["launches"][k]
+                         for k, v in r["launches"].items()}}
+
+
+def _replica_check(label, r, graph_builds):
+    require(r["traces"] == REPLICA_GRAPHS,
+            f"{label}: {r['traces']} graphs, expected {REPLICA_GRAPHS}")
+    require(r["kernel_library"] == 0,
+            f"{label} built {r['kernel_library']:.0f} kernel libraries")
+    require(r["cuda_graph"] == graph_builds > 0,
+            f"{label}: {r['cuda_graph']:.0f} graph captures, the first "
+            f"incarnation {graph_builds:.0f}")
+
+
+def _wait_for(cond, secs, what):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < secs:
+        if cond():
+            return time.perf_counter() - t0
+        time.sleep(0.05)
+    require(False, f"timed out after {secs}s waiting for {what}")
+
+
+def _log_tail(h, n=3000):
+    path = os.path.join(h.proc.root, f"replica_gen{h.proc.generation - 1}.log")
+    try:
+        with open(path) as f:
+            return f.read()[-n:]
+    except OSError as e:
+        return f"<no log: {e}>"
+
+
+def router_in_process(cfg, fleet, plan, card):
+    """(a): the Router and its HTTP front in this process over replicas
+    of ``serve --fleet`` on the card. Returns the launches."""
+    from mpgcn_tpu_torch.config import RouterConfig
+    from mpgcn_tpu_torch.resilience.faults import FaultPlan
+    from mpgcn_tpu_torch.service.router import ADMITTED, Router, _make_handler
+
+    refs, root = fleet["refs"], fleet["root"]
+    rcfg = RouterConfig(
+        output_dir=root, replicas=2, min_replicas=1, max_replicas=3,
+        probe_interval_s=0.25, probe_timeout_s=5.0, breaker_threshold=2,
+        breaker_cooldown_s=0.5, deadline_ms=0.0, connect_timeout_s=30.0,
+        ready_timeout_s=300.0, drain_timeout_s=60.0,
+        smoke_obs=cfg.obs_len, smoke_nodes=cfg.synthetic_N)
+    env = dict(os.environ, PYTHONPATH=HERE)
+    env.pop("MPGCN_FAULTS", None)
+    watch = _Watch()
+    used0 = _device_used()
+    t0 = time.perf_counter()
+    rt = Router(rcfg, fleet_serve_args(cfg, "cuda"), env=env)
+    ledger_path = os.path.join(root, "router", "router.jsonl")
+
+    def ledger():
+        with open(ledger_path) as f:
+            return [json.loads(line) for line in f]
+
+    httpd = None
+    try:
+        rt.start()
+        for h in rt.handles.values():
+            watch.attach(h)
+        require(rt.wait_ready(300.0), "replicas never admitted: " + " | ".join(
+            _log_tail(h) for h in rt.handles.values()))
+        up_s = time.perf_counter() - t0
+        watch.footprint = (_device_used() - used0) // 2
+        require(watch.footprint > 100 * 2**20, f"2 replicas added "
+                f"{2 * watch.footprint} bytes to the card's used memory")
+        apps = _gpu_apps()
+        first = {i: watch.baseline(h) for i, h in rt.handles.items()}
+        graph_builds = first[0]["cuda_graph"]
+        for i, r in first.items():
+            _replica_check(f"r{i} generation 1", r, graph_builds)
+        mem = {f"r{i}": apps.get(h.proc.pid, "not listed")
+               for i, h in rt.handles.items()}
+        print(f"[router] (a) 2 replicas admitted {up_s:.1f}s after the "
+              f"launch (health + smoke probe); each {REPLICA_GRAPHS} graphs, "
+              f"{graph_builds:.0f} graph captures, 0 kernel libraries built; "
+              f"device memory a replica: nvidia-smi --query-compute-apps "
+              f"{mem} MiB by pid, its graphs' pool "
+              f"{json.dumps(first[0]['graph_bytes'])} bytes, "
+              f"{watch.footprint / 2**20:.0f} MiB of the card's used bytes "
+              f"(cudaMemGetInfo before and after) ({card})", flush=True)
+        watch.quiet = False
+        httpd = _serve_front(rt, _make_handler)
+        port = httpd.server_address[1]
+        base = f"http://127.0.0.1:{port}"
+
+        # every tenant's answers through the router, both replicas serving
+        n0 = len(ledger())
+        for tid in FLEET_TENANTS:
+            for w in fleet["windows"]:
+                code, p = _post(base, {"x": fleet["md"].x[w, ..., 0].tolist(),
+                                       "key": int(fleet["md"].keys[w]),
+                                       "tenant": tid})
+                require(code == 200 and np.array_equal(
+                    np.asarray(p["pred"], np.float32), refs[tid][w]),
+                    f"tenant {tid} window {w} through the router: {code} "
+                    f"{p.get('outcome')}")
+        served = {(r["tenant"], r["replica"]) for r in ledger()[n0:]
+                  if r["event"] == "route"}
+        require(all((t, i) in served for t in FLEET_TENANTS for i in (0, 1)),
+                f"each tenant served by both replicas: {sorted(served)}")
+
+        # requests/s: through the router (2 replicas), straight to r0
+        r0_port = rt.handles[0].proc.port
+        loads = {}
+        for clients in (1, 4, 16):
+            loads[("router2", clients)] = _load_run(
+                f"router C={clients}", port, plan, fleet, clients, ledger)
+            loads[("direct", clients)] = _load_run(
+                f"r0 C={clients}", r0_port, plan, fleet, clients)
+        for clients in (1, 4, 16):
+            a, d = loads[("router2", clients)], loads[("direct", clients)]
+            print(f"[router] (a) C={clients}: through the router over 2 "
+                  f"replicas {a[0]:.1f} req/s, round trip p50 {a[1]:.3f} ms "
+                  f"p99 {a[2]:.3f}, replica engine p50 {a[3]:.3f}, router's "
+                  f"own p50 {a[4]:.3f}; straight to r0 {d[0]:.1f} req/s, "
+                  f"p50 {d[1]:.3f} p99 {d[2]:.3f}, engine p50 {d[3]:.3f}; "
+                  f"the router adds {a[1] - d[1]:.3f} ms to the p50 round "
+                  f"trip ({card})", flush=True)
+
+        # kill -9 of r1 at the 10th request of a 48-request load
+        n = rt._n_routed
+        rt.faults = FaultPlan.parse(
+            f"kill_replica={n + 10},partition_replica={n + 70},"
+            f"fault_replica=1,partition_secs=1.5")
+        res, _ = _http_load(port, [b for _, _, b in plan[:48]], 4, 12)
+        _check_answers("across the kill", res, plan, refs)
+        require(len(watch.kills) == 1, f"kill_replica fired "
+                                       f"{len(watch.kills)} times")
+        kill = watch.kills[0]
+        h1 = rt.handles[1]
+        _wait_for(lambda: h1.state == ADMITTED and h1.proc.generation == 2,
+                  300, "r1's re-admission: " + _log_tail(h1))
+        death_s = time.perf_counter() - kill["t"]
+        watch.join()
+        require(kill.get("freed_s") is not None,
+                f"the killed replica's memory never came back: {kill}")
+        rows = [r for r in ledger() if r.get("replica") == 1]
+        events = [r["event"] for r in rows]
+        i_died = events.index("replica_died")
+        want = ["replica_died", "replica_restart", "replica_bound",
+                "replica_admitted"]
+        require([e for e in events[i_died:] if e in want] == want,
+                f"r1's re-admission order {events[i_died:]}")
+        t_of = {e: rows[i_died + events[i_died:].index(e)]["t"] for e in want}
+        r1g2 = watch.baseline(h1)
+        _replica_check("r1 generation 2 (after kill -9)", r1g2, graph_builds)
+        print(f"[router] (a) kill -9 of r1 (pid {kill['pid']}) at request "
+              f"{n + 10}: 48 answers all 200 and bit-equal to the "
+              f"references; its memory back {kill['freed_s']:.3f}s after the "
+              f"kill (card used {kill['used_before'] / 2**20:.0f} -> "
+              f"{kill['used_after'] / 2**20:.0f} MiB, pid listed then: "
+              f"{kill['pid_listed']}), the restart launched "
+              f"{t_of['replica_restart'] - t_of['replica_died']:.3f}s after "
+              f"the death was seen; death -> re-admitted {death_s:.1f}s "
+              f"(ledger died -> admitted "
+              f"{t_of['replica_admitted'] - t_of['replica_died']:.1f}s); "
+              f"generation 2: {r1g2['traces']} graphs, "
+              f"{r1g2['cuda_graph']:.0f} captures, "
+              f"{r1g2['kernel_library']:.0f} kernel libraries built, engine "
+              f"startup {r1g2['startup_s']}s ({card})", flush=True)
+
+        # a partition of r1 at request n + 70 of a 32-request load
+        trips0 = h1.breaker.trips
+        res, _ = _http_load(port, [b for _, _, b in plan[:32]], 4, 8)
+        _check_answers("across the partition", res, plan, refs)
+        t_part = time.perf_counter()
+        _wait_for(lambda: h1.breaker.trips > trips0, 30,
+                  "the partition to trip r1's breaker")
+        _wait_for(lambda: h1.breaker.state_name == "closed"
+                  and not rt._is_partitioned(h1), 30,
+                  "the prober to close r1's breaker")
+        print(f"[router] (a) partition of r1 at request {n + 70} (1.5 s): 32 "
+              f"answers all 200 and bit-equal; breaker tripped and closed "
+              f"again by the prober {time.perf_counter() - t_part:.2f}s after "
+              f"the load ({card})", flush=True)
+
+        # a rolling deploy under load
+        with _Background(port, plan) as bg:
+            dep = rt.rolling_deploy()
+        require(not bg.errors, f"background load: {bg.errors}")
+        require(dep["ok"] and dep["deployed"] == [0, 1], f"deploy {dep}")
+        _check_answers("during the rolling deploy", bg.results, plan, refs)
+        rows = ledger()
+        drains = {}
+        for r in rows:
+            if r["event"] == "deploy_drain":
+                drains[r["replica"]] = r["t"]
+            elif r["event"] == "deploy_readmitted":
+                drains[r["replica"]] = r["t"] - drains[r["replica"]]
+        for i in (0, 1):
+            _replica_check(f"r{i} after the deploy",
+                           watch.baseline(rt.handles[i]), graph_builds)
+        slo = rt.slo.tick()
+        print(f"[router] (a) rolling deploy under load: "
+              f"{len(bg.results)} answers all 200 and bit-equal; drain -> "
+              f"re-admitted r0 {drains[0]:.1f}s, r1 {drains[1]:.1f}s; "
+              f"generations {[rt.handles[i].proc.generation for i in (0, 1)]}"
+              f"; router SLO "
+              f"{[(e['name'], e['state']) for e in slo['slos']]} ({card})",
+              flush=True)
+
+        # one spawn and two retires: 2 -> 3 -> 2 -> 1 replicas
+        t1 = time.perf_counter()
+        rt._scale_up()
+        h2 = rt.handles[max(rt.handles)]
+        watch.attach(h2)
+        _wait_for(lambda: h2.state == ADMITTED, 300,
+                  "the spawned replica: " + _log_tail(h2))
+        spawn_s = time.perf_counter() - t1
+        _replica_check(f"r{h2.idx} (spawned)", watch.baseline(h2),
+                       graph_builds)
+        for clients in (4, 16):
+            loads[("router3", clients)] = _load_run(
+                f"router, 3 replicas, C={clients}", port, plan, fleet,
+                clients, ledger)
+        watch.quiet = True
+        retire = []
+        for _ in range(2):
+            victim = max(i for i, h in rt.handles.items()
+                         if h.state == ADMITTED)
+            t1 = time.perf_counter()
+            rt._scale_down()
+            _wait_for(lambda: not rt.handles[victim].proc.alive, 120,
+                      f"r{victim} to exit")
+            retire.append((victim, time.perf_counter() - t1))
+        print(f"[router] (a) scale-up: r{h2.idx} spawned -> admitted "
+              f"{spawn_s:.1f}s; over 3 replicas "
+              + ", ".join(f"C={c} {loads[('router3', c)][0]:.1f} req/s "
+                          f"(p50 {loads[('router3', c)][1]:.3f} ms)"
+                          for c in (4, 16)) + "; scale-down: "
+              + ", ".join(f"r{i} retired (drained, exited) in {s:.2f}s"
+                          for i, s in retire) + f" ({card})", flush=True)
+        watch.quiet = False
+        for clients in (1, 4, 16):
+            loads[("router1", clients)] = _load_run(
+                f"router, 1 replica, C={clients}", port, plan, fleet, clients,
+                ledger)
+            a1, a2 = loads[("router1", clients)], loads[("router2", clients)]
+            print(f"[router] (a) C={clients}: through the router over 1 "
+                  f"replica {a1[0]:.1f} req/s, round trip p50 {a1[1]:.3f} ms "
+                  f"p99 {a1[2]:.3f}, engine p50 {a1[3]:.3f}, router's own p50 "
+                  f"{a1[4]:.3f}; over 2 replicas {a2[0]:.1f} req/s "
+                  f"({a2[0] / a1[0]:.2f}x) ({card})", flush=True)
+        watch.quiet = True
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        rt.close()
+    watch.join()
+    require(not watch.errors, f"replica reads failed: {watch.errors}")
+    require(not any(h.proc.alive for h in rt.handles.values()),
+            "a replica outlived the router")
+    return _incarnation_launches("(a)", watch.reads)
+
+
+def _incarnation_launches(label, reads):
+    """The replicas' launches, each incarnation's from its baseline read
+    (admitted, idle) to its read before it stopped; where that read was
+    idle too, exactly 14 lstm_infer_last and 42 bdgcn_pair_fwd a batch."""
+    total = {}
+    for r in reads:
+        lc = r["launches"]
+        if r["idle"]:
+            require(lc["lstm_infer_last"] == 14 * r["batches"]
+                    and lc["bdgcn_pair_fwd"] == 42 * r["batches"]
+                    and sum(lc.values()) == 56 * r["batches"],
+                    f"{label} r{r['replica']} generation {r['generation']}: "
+                    f"{_nz(lc)} for {r['batches']} batches")
+        total = _add(total, lc)
+    require(total.get("lstm_infer_last", 0) > 0
+            and total.get("bdgcn_pair_fwd", 0) > 0,
+            f"{label}: the replicas launched no kernel: {total}")
+    print(f"[router] {label} {len(reads)} replica incarnations, each read "
+          f"once admitted and before it stopped: "
+          + "; ".join(f"r{r['replica']} gen {r['generation']} ({r['why']}"
+                      f"{', idle' if r['idle'] else ', under load'}) "
+                      f"{r['batches']} batches, {_nz(r['launches'])}"
+                      for r in reads), flush=True)
+    return total
+
+
+def router_command(cfg, fleet, plan, out_dir, card, n_replicas):
+    """(b): ``python -m mpgcn_tpu_torch.cli router`` as its own process
+    over ``n_replicas`` replicas: up, answers bit-equal, requests/s at C =
+    1, 4, 16, SIGTERM -> exit 0 with no replica left. Returns the
+    launches and the loads."""
+    from mpgcn_tpu_torch.service.registry import TenantRegistry
+    from mpgcn_tpu_torch.service.router import router_info_path
+
+    root = os.path.join(out_dir, f"svc_cli{n_replicas}")
+    src = TenantRegistry.load(fleet["root"], missing_ok=False)
+    TenantRegistry(root, {t: {**e, "root": os.path.abspath(e["root"])}
+                          for t, e in src.tenants.items()}).save()
+    argv = [sys.executable, "-m", "mpgcn_tpu_torch.cli", "router", "-out",
+            root, "--replicas", str(n_replicas), "--smoke-obs",
+            str(cfg.obs_len),
+            "--smoke-nodes", str(cfg.synthetic_N), "--deadline-ms", "0",
+            "--connect-timeout", "30", "--ready-timeout", "300", "--",
+            *fleet_serve_args(cfg, "cuda")]
+    env = dict(os.environ, PYTHONPATH=HERE)
+    env.pop("MPGCN_FAULTS", None)
+    out_path = os.path.join(out_dir, f"router{n_replicas}.stdout")
+    err_path = os.path.join(out_dir, f"router{n_replicas}.stderr")
+    log_out, log_err = open(out_path, "w"), open(err_path, "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=HERE, env=env, stdout=log_out,
+                            stderr=log_err)
+    reads, pids = [], []
+    try:
+        info = router_info_path(root)
+        while not os.path.exists(info):
+            require(proc.poll() is None, f"router exited {proc.returncode}")
+            require(time.perf_counter() - t0 < 300, "the router never came up")
+            time.sleep(0.1)
+        up_s = time.perf_counter() - t0
+        with open(info) as f:
+            port = json.load(f)["port"]
+        base = f"http://127.0.0.1:{port}"
+        hz = json.loads(_get(base, "/healthz"))
+        require(hz["status"] == "serving" and hz["admitted"] == n_replicas,
+                f"/healthz {hz}")
+        st = json.loads(_get(base, "/v1/stats"))
+        replicas = sorted(st["replicas"].items())
+        first = {}
+        for name, r in replicas:
+            require(r["state"] == "admitted", f"{name}: {r}")
+            first[name] = _replica_read(f"http://127.0.0.1:{r['port']}")
+            _replica_check(f"command {name}", first[name],
+                           first[name]["cuda_graph"])
+            pids.append(r["pid"])
+        loads = {c: _load_run(f"router command C={c}", port, plan, fleet, c)
+                 for c in (1, 4, 16)}
+        for name, r in replicas:
+            reads.append(_since(
+                first[name], _replica_read(f"http://127.0.0.1:{r['port']}"),
+                types.SimpleNamespace(idx=int(name[1:]),
+                                      generation=r["generation"]),
+                "before SIGTERM", True))
+        text = _get(base, "/metrics")
+        require(_metric(text, "mpgcn_router_replicas_admitted")
+                == n_replicas, "/metrics: router_replicas_admitted")
+        print(f"[router] (b) python -m mpgcn_tpu_torch.cli router --replicas "
+              f"{n_replicas}: up in {up_s:.1f}s (admitted, router/http.json "
+              f"written); " + "; ".join(
+                  f"C={c} {v[0]:.1f} req/s, round trip p50 {v[1]:.3f} ms "
+                  f"p99 {v[2]:.3f}, engine p50 {v[3]:.3f}"
+                  for c, v in loads.items()) + f"; 192 answers bit-equal "
+              f"to the references ({card})", flush=True)
+        proc.send_signal(15)  # SIGTERM
+        rc = proc.wait(timeout=180)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log_out.close()
+        log_err.close()
+    with open(out_path) as f:
+        stdout = f.read()
+    require(rc == 0 and "[router] stopped; exiting 0." in stdout,
+            f"router exited {rc} on SIGTERM")
+    left = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            left.append(pid)
+        except ProcessLookupError:
+            pass
+    require(not left, f"replica processes left running: {left}")
+    print(f"[router] (b) SIGTERM: drained, exit 0, replicas {pids} gone "
+          f"({card})", flush=True)
+    return _incarnation_launches(f"(b) {n_replicas}", reads), loads
+
+
+def phase_router(cfg, fleet, out_dir, card):
+    """Phase 18 (module docstring). Returns the replicas' launches."""
+    t0 = time.perf_counter()
+    plan = _router_plan(fleet)
+    total = router_in_process(cfg, fleet, plan, card)
+    loads = {}
+    for n in (1, 2):
+        launches, loads[n] = router_command(cfg, fleet, plan, out_dir, card,
+                                            n)
+        total = _add(total, launches)
+    print("[router] (b) the router as its own process, 2 replicas against "
+          "1: " + "; ".join(f"C={c} {loads[2][c][0]:.1f} against "
+                            f"{loads[1][c][0]:.1f} req/s "
+                            f"({loads[2][c][0] / loads[1][c][0]:.2f}x)"
+                            for c in (1, 4, 16)) + f" ({card})", flush=True)
+    print(f"[router] phase 18 took {time.perf_counter() - t0:.1f}s; replica "
+          f"launches {_nz(total)}", flush=True)
     return total
 
 
@@ -6029,9 +6677,16 @@ def main() -> int:
     out_f = os.path.join(HERE, "smoke_out", "fleet")
     shutil.rmtree(out_f, ignore_errors=True)
     os.makedirs(out_f)
-    total = _add(total, phase_fleet(
+    fleet_total, fleet = phase_fleet(
         dev, cfg, data, out_dir,
-        os.path.join(out_s, "candidate", "MPGCN_od_last.pkl"), out_f, card))
+        os.path.join(out_s, "candidate", "MPGCN_od_last.pkl"), out_f, card)
+    total = _add(total, fleet_total)
+
+    # the router tier over serve --fleet replicas, after every phase above
+    out_t = os.path.join(HERE, "smoke_out", "router")
+    shutil.rmtree(out_t, ignore_errors=True)
+    os.makedirs(out_t)
+    total = _add(total, phase_router(cfg, fleet, out_t, card))
 
     print(card)  # the card's name and power limit, as nvidia-smi gives them
     print(f"[done] smoke run took {time.perf_counter() - t_start:.1f}s")

@@ -5,13 +5,17 @@ of mpgcn_tpu/cli.py; reference Main.py:7-67).
     python -m mpgcn_tpu_torch.cli -in ../data -mode test
     python -m mpgcn_tpu_torch.cli serve -out ./service [--device cpu] ...
     python -m mpgcn_tpu_torch.cli fleet add|remove|list [TENANT] -out ROOT
+    python -m mpgcn_tpu_torch.cli router -out ROOT [--replicas 2] -- ...
 
 ``serve`` dispatches to the serving plane's command
 (service/serve.py ``main``, the JAX ``mpgcn-tpu serve``): HTTP, canaried
 hot reload of the promoted checkpoints, a clean drain on SIGTERM; with
 ``--fleet`` it serves every tenant of ``<out>/fleet/registry.json``.
 ``fleet`` edits that registry (service/registry.py ``main``, the JAX
-``mpgcn-tpu fleet``).
+``mpgcn-tpu fleet``). ``router`` runs the front tier over replica
+processes of ``serve --fleet`` on that registry (service/router.py
+``main``, the JAX ``mpgcn-tpu router``); the arguments after ``--`` go to
+every replica.
 
 Runs on the card (``-GPU 0``, the default) unless ``-GPU cpu`` asks for the
 CPU. Train mode trains the single-step model (pred_len is forced to 1, as
@@ -320,8 +324,14 @@ def main(argv=None):
         from mpgcn_tpu_torch.service.registry import main as fleet_main
 
         raise SystemExit(fleet_main(argv[1:]))
+    if argv and argv[0] == "router":
+        # the front tier over N `serve --fleet` replica processes
+        # (service/router.py): it never imports torch, its replicas do
+        from mpgcn_tpu_torch.service.router import main as router_main
+
+        raise SystemExit(router_main(argv[1:]))
     # torch is imported from here on: the subcommands above start without
-    # it (`fleet` needs no device)
+    # it (`fleet` and `router` need no device)
     from mpgcn_tpu_torch.data.loader import load_dataset
     from mpgcn_tpu_torch.device import resolve_device
     from mpgcn_tpu_torch.train.trainer import ModelTrainer

@@ -25,7 +25,8 @@ this port does not have yet (meshes, the orbax checkpoint backend) are
 not here; they arrive with the slices that run them. ``DEFAULT_SLOS``
 are the serving plane's objectives (obs/perf/slo.py). The BDGCN arm is not a config
 field: it is the ``bdgcn_impl`` argument of ``ModelTrainer`` and
-``ServeEngine``.
+``ServeEngine``. ``RouterConfig`` configures the front tier over replica
+processes (service/router.py); like this module, it needs no torch.
 """
 
 from __future__ import annotations
@@ -544,3 +545,125 @@ class FleetConfig(ServeConfig):
                 f"mesh_rungs={rungs!r}: the port's fleet serves on one "
                 f"device; the mesh-degradation ladder is multi-device "
                 f"work (ROADMAP Queue 1 item 6)")
+
+
+@dataclasses.dataclass(frozen=True)
+class RouterConfig:
+    """`router` knobs (service/router.py; the JAX package's RouterConfig,
+    mpgcn_tpu/service/config.py:238-357): the device-free front tier over
+    N ``serve --fleet`` replica processes -- health probing, per-replica
+    circuit breaking, request-level failover, rolling deploys, and the
+    SLO-burn autoscaler. Every knob has a CLI flag of the same name."""
+
+    #: router root: router/http.json (address discovery),
+    #: router/replicas/r<k>/ (per-replica service roots),
+    #: router/router.jsonl (the routing ledger)
+    output_dir: str = "./service"
+
+    # --- replica set ---
+    replicas: int = 2           #: replica processes at startup
+    min_replicas: int = 1       #: autoscaler floor (also the manual floor)
+    max_replicas: int = 4       #: autoscaler ceiling
+    replica_set_size: int = 0   #: replicas in a tenant's rendezvous set
+    #:                             (0 = all admitted replicas); requests
+    #:                             rotate through the set, failover walks
+    #:                             it in rendezvous order
+
+    # --- health probing / per-replica breaker ---
+    probe_interval_s: float = 0.5   #: /healthz probe period per replica
+    probe_timeout_s: float = 2.0    #: per-probe HTTP timeout
+    breaker_threshold: int = 3  #: consecutive transport failures
+    #:                             (connect/timeout/reset, failed probes)
+    #:                             that trip a replica's breaker OPEN
+    #:                             (0 = breaker off)
+    breaker_cooldown_s: float = 2.0  #: open-state dwell before the
+    #:                             half-open health probe re-admits
+
+    # --- request path ---
+    deadline_ms: float = 1000.0  #: default per-request deadline budget
+    #:                             governing the WHOLE failover walk
+    #:                             (0 = none; requests may override)
+    failover_attempts: int = 3  #: distinct replicas tried per request
+    #:                             before the typed 503
+    connect_timeout_s: float = 2.0  #: per-attempt TCP connect budget
+    #:                             (a dead/partitioned replica must fail
+    #:                             fast enough to leave deadline budget
+    #:                             for the sibling)
+
+    # --- replica lifecycle ---
+    ready_timeout_s: float = 600.0  #: replica launch -> healthy budget
+    #:                             (a replica's startup builds any missing
+    #:                             kernel library and captures its rollout
+    #:                             graphs)
+    drain_timeout_s: float = 30.0   #: SIGTERM -> exit budget during a
+    #:                             rolling deploy before escalation
+    restart_dead: bool = True   #: the control thread restarts replicas
+    #:                             that died without being asked (kill -9
+    #:                             chaos); re-admission still waits for
+    #:                             health + smoke probes
+    smoke_obs: int = 0          #: smoke-probe window length (obs_len);
+    #:                             0 disables the predict smoke probe
+    #:                             (re-admission gates on /healthz alone)
+    smoke_nodes: int = 0        #: smoke-probe zone count (N)
+
+    # --- SLO-burn autoscaling ---
+    autoscale: bool = False     #: drive spawn/retire from the burn-rate
+    #:                             engine (obs/perf/slo.py) over the
+    #:                             router's own p99
+    slo_p99_ms: float = 250.0   #: router-side p99 objective feeding the
+    #:                             burn-rate engine
+    scale_up_after: int = 2     #: consecutive BURNING ticks before a
+    #:                             spawn (hysteresis)
+    scale_down_after: int = 6   #: consecutive OK ticks before a retire
+    scale_cooldown_ticks: int = 3  #: ticks any scaling action freezes
+    #:                             the controller (no flapping)
+
+    # --- observability ---
+    ledger_max_bytes: int = 8_000_000  #: routing-ledger jsonl rotation
+
+    def __post_init__(self):
+        if self.replicas < 1:
+            raise ValueError(f"replicas={self.replicas} must be >= 1")
+        if self.min_replicas < 1:
+            raise ValueError(f"min_replicas={self.min_replicas} must "
+                             f"be >= 1")
+        if not (self.min_replicas <= self.replicas <= self.max_replicas):
+            raise ValueError(
+                f"need min_replicas <= replicas <= max_replicas, got "
+                f"{self.min_replicas} <= {self.replicas} <= "
+                f"{self.max_replicas}")
+        if self.replica_set_size < 0:
+            raise ValueError(f"replica_set_size={self.replica_set_size} "
+                             f"must be >= 0 (0 = all replicas)")
+        if self.failover_attempts < 1:
+            raise ValueError(f"failover_attempts="
+                             f"{self.failover_attempts} must be >= 1")
+        if self.breaker_threshold < 0:
+            raise ValueError(f"breaker_threshold="
+                             f"{self.breaker_threshold} must be >= 0 "
+                             f"(0 = breaker off)")
+        positives = ("probe_interval_s", "probe_timeout_s",
+                     "connect_timeout_s", "ready_timeout_s",
+                     "drain_timeout_s", "slo_p99_ms")
+        for name in positives:
+            if getattr(self, name) <= 0:
+                raise ValueError(f"{name}={getattr(self, name)} must be "
+                                 f"> 0")
+        non_negatives = ("breaker_cooldown_s", "deadline_ms",
+                         "smoke_obs", "smoke_nodes", "ledger_max_bytes",
+                         "scale_cooldown_ticks")
+        for name in non_negatives:
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name}={getattr(self, name)} must be "
+                                 f">= 0")
+        if (self.smoke_obs > 0) != (self.smoke_nodes > 0):
+            raise ValueError("smoke_obs and smoke_nodes must be set "
+                             "together (both > 0 enables the predict "
+                             "smoke probe)")
+        for name in ("scale_up_after", "scale_down_after"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name}={getattr(self, name)} must be "
+                                 f">= 1")
+
+    def replace(self, **kw) -> "RouterConfig":
+        return dataclasses.replace(self, **kw)

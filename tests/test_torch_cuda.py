@@ -1972,3 +1972,134 @@ def test_fleet_shares_its_graphs_and_answers_as_one_engine_each(
         eng.close()
         for r in refs.values():
             r.close()
+
+
+def test_router_kill_keeps_answers_bit_equal_across_replicas(cuda_device,
+                                                              tmp_path):
+    """The front tier (service/router.py) over 2 ``serve --fleet``
+    replicas on the card, 2 tenants: kill -9 of r1 at the 6th request; no
+    accepted request fails, every (tenant, window) has one answer whether
+    r0, r1 or r1's restart served it, equal bit for bit to a ServeEngine
+    on the tenant's checkpoint in this process; the restart captures as
+    many graphs as the first incarnation and builds no kernel library."""
+    import json
+    import threading
+    import time
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from mpgcn_tpu_torch.config import RouterConfig
+    from mpgcn_tpu_torch.resilience.faults import FaultPlan
+    from mpgcn_tpu_torch.service.promote import (
+        candidate_hash,
+        ledger_path,
+        promote_checkpoint,
+        promoted_path,
+    )
+    from mpgcn_tpu_torch.service.registry import TenantRegistry
+    from mpgcn_tpu_torch.service.router import ADMITTED, Router, _make_handler
+    from mpgcn_tpu_torch.utils.logging import JsonlLogger
+
+    cfg, data, _, a, b, _ = _slot_stack(tmp_path, cuda_device)
+    root = str(tmp_path / "fleet")
+    reg = TenantRegistry.load(root)
+    ckpts = {"nyc": a, "sf": b}
+    for tid, path in ckpts.items():
+        slot = promoted_path(reg.add(tid)["root"])
+        promote_checkpoint(path, slot)
+        JsonlLogger(ledger_path(reg.tenant_root(tid))).log(
+            "gate", attempt=1, promoted=True,
+            candidate_hash=candidate_hash(slot))
+    serve_args = ["--device", "cuda", "-pred", str(cfg.pred_len), "-hidden",
+                  str(cfg.hidden_dim), "-sN", str(cfg.synthetic_N), "-sT",
+                  str(cfg.synthetic_T), "-seed", "0", "--buckets", "1,2",
+                  "--deadline-ms", "0", "--reload-poll-secs", "0"]
+    rcfg = RouterConfig(output_dir=root, replicas=2, probe_interval_s=0.2,
+                        probe_timeout_s=5.0, breaker_threshold=2,
+                        breaker_cooldown_s=0.5, deadline_ms=0.0,
+                        connect_timeout_s=30.0, ready_timeout_s=300.0,
+                        smoke_obs=cfg.obs_len, smoke_nodes=cfg.synthetic_N)
+    root_dir = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root_dir)
+    env.pop("MPGCN_FAULTS", None)
+    rt = Router(rcfg, serve_args,
+                faults=FaultPlan.parse("kill_replica=6,fault_replica=1"),
+                env=env)
+    refs = {tid: ServeEngine(cfg, data, ServeConfig(
+        output_dir=str(tmp_path / f"ref_{tid}"), buckets=(1, 2),
+        reload_poll_secs=0), device=cuda_device, init_ckpt=path)
+        for tid, path in ckpts.items()}
+
+    class _Srv(ThreadingHTTPServer):
+        daemon_threads = True
+
+    def stats(h):
+        with urllib.request.urlopen(h.proc.base_url + "/v1/stats",
+                                    timeout=30) as r:
+            st = json.load(r)
+        with urllib.request.urlopen(h.proc.base_url + "/metrics",
+                                    timeout=30) as r:
+            text = r.read().decode()
+        assert "# TYPE mpgcn_cuda_program_builds_total counter" in text
+        builds = {kind: sum(float(line.split()[-1])
+                            for line in text.splitlines()
+                            if line.startswith(
+                                "mpgcn_cuda_program_builds_total{kind=\""
+                                + kind + "\"}"))
+                  for kind in ("cuda_graph", "kernel_library")}
+        return st["traces"], builds
+
+    httpd = None
+    try:
+        md = refs["nyc"].pipeline.modes["test"]
+        want = {tid: _serve_one_by_one(ref, md, 3)
+                for tid, ref in refs.items()}
+        rt.start()
+        assert rt.wait_ready(300.0), "replicas never admitted"
+        first = stats(rt.handles[0])
+        assert first[0] == 2 and first[1]["kernel_library"] == 0, first
+        assert first[1]["cuda_graph"] > 0, first
+        assert stats(rt.handles[1]) == first
+        httpd = _Srv(("127.0.0.1", 0), _make_handler(rt))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        port = httpd.server_address[1]
+        got = {}
+
+        def ask(n):
+            for i in range(n):
+                tid, w = ("nyc", "sf")[i % 2], (i // 2) % 3
+                body = {"tenant": tid, "x": md.x[w, ..., 0].tolist(),
+                        "key": int(md.keys[w])}
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port}/v1/predict",
+                    data=json.dumps(body).encode(),
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    assert r.status == 200
+                    got.setdefault((tid, w), []).append(
+                        np.asarray(json.load(r)["pred"], np.float32))
+
+        ask(12)
+        assert rt.handles[1].deaths <= 1 and len(rt.handles) == 2
+        deadline = time.monotonic() + 300
+        h1 = rt.handles[1]
+        while not (h1.state == ADMITTED and h1.proc.generation == 2):
+            assert time.monotonic() < deadline, "r1 never re-admitted"
+            time.sleep(0.1)
+        assert h1.deaths == 1
+        assert stats(h1) == first
+        ask(12)
+        with open(os.path.join(root, "router", "router.jsonl")) as f:
+            routes = [json.loads(line) for line in f]
+        served = {r["replica"] for r in routes if r["event"] == "route"}
+        assert served == {0, 1}
+        for (tid, w), preds in got.items():
+            for p in preds:
+                assert np.array_equal(p, want[tid][w][0]), (tid, w)
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+        rt.close()
+        for ref in refs.values():
+            ref.close()
+    assert not any(h.proc.alive for h in rt.handles.values())
