@@ -238,6 +238,29 @@ Phases, each fatal on failure:
      against 1), SIGTERM -> exit 0 and no replica left. The replicas' lstm_infer_last and bdgcn_pair_fwd launches,
      each incarnation read once admitted and again before it stops, join
      the kernels line.
+ 19. after them all, [daemon], the continual-learning daemon at the
+     reference widths (N=47, hidden 32, batch 4, obs 7, M=2, K=3
+     supports): (a) `python -m mpgcn_tpu_torch.cli supervise --procs 1
+     -- daemon ... -faults kill_retrain=2` on 48 spooled days of
+     synthetic_od(seed 0), day 20 corrupt, six days a cycle, 20 epochs a
+     retrain: a thread integrity-loads the promoted slot throughout (no
+     load may fail); the supervisor's generations end -9, then 0; day 20
+     is quarantined; attempt 2 dies after its first epoch and leaves no
+     gate row, the relaunched daemon retrains the rest; every promoted
+     row has cand_loss <= inc_loss (1 + tol); every retrain launches
+     exactly 2 of each LSTM training entry and 6 of each BDGCN entry a
+     train step and 2 lstm_infer_last and 6 bdgcn_pair_fwd an eval step
+     or rollout forward (retrain_done's metrics), builds no kernel
+     library, and leaves memory_reserved flat across the relaunched
+     process's retrains; seconds a retrain, graph captures a retrain,
+     kill -> relaunch -> first retrain; (b) `serve --capture-flows` on
+     that root: one request a new day (day_slot 48..54), then a daemon
+     with --capture-ledger stitches the closed days (48..53) into day
+     files bit-equal to the frames sent, retrains and promotes; the
+     server's canary takes the new slot (promotion -> serve reload) and
+     then answers bit-equal to a ServeEngine built here on the promoted
+     checkpoint; SIGTERM -> exit 0. The daemon's and the server's
+     launches join the kernels line.
 
 The second-to-last line is a JSON object listing each kernel; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a card, and
@@ -6492,6 +6515,407 @@ def phase_router(cfg, fleet, out_dir, card):
     return total
 
 
+# --- phase 19: the continual-learning daemon ----------------------------------
+
+#: (a)'s spool: synthetic_od(seed 0) days at N=47, day 20 corrupt (row 0
+#: NaN); six days a cycle, so the window grows to 30 days over the cycles
+#: and one process retrains several times
+DAEMON_DAYS, DAEMON_CORRUPT = 48, 20
+DAEMON_FLAGS = ["--window-days", "30", "--holdout-days", "2", "--val-days",
+                "2", "--retrain-cadence", "3", "--ingest-batch", "6",
+                "--poll-secs", "0.05", "-epoch", "20", "-lr", "1e-3"]
+#: (b)'s captured days: a request a day whose newest frame is the day
+CAPTURE_DAYS = range(48, 55)
+#: launches a train step (M x L of each LSTM training entry, M x 3 of each
+#: BDGCN entry) and an eval step or rollout forward (lstm_infer_last,
+#: bdgcn_pair_fwd), at the reference widths (M=2, L=1, 3 graph layers)
+DAEMON_TRAIN = {"lstm_train_fwd_f32": 2, "lstm_train_bwd_f32": 2,
+                "bdgcn_pair_fwd_f32": 6, "bdgcn_pair_bwd_f32": 6}
+DAEMON_INFER = {"lstm_infer_last_f32": 2, "bdgcn_pair_fwd_f32": 6}
+
+
+def _snap(snap: dict, name: str, **labels) -> float:
+    """One series of a metrics snapshot, 0 where it was never written."""
+    want = [f'{k}="{v}"' for k, v in labels.items()]
+    for key, v in snap.items():
+        if key.startswith("mpgcn_" + name) and all(w in key for w in want):
+            return v
+    return 0.0
+
+
+def _attempt_launches(label, done):
+    """One retrain_done's kernel launches by kernel name, checked against
+    its steps: exactly DAEMON_TRAIN a train step and DAEMON_INFER an eval
+    step or rollout forward, no other kernel."""
+    m = done["metrics"]
+    steps = {k: int(_snap(m, "daemon_retrain_steps", kind=k))
+             for k in ("train", "eval", "rollout")}
+    require(min(steps.values()) > 0, f"{label}: steps {steps}")
+    symbols = {k.symbol: n for n, k in kernels().items()}
+    got = {s: int(_snap(m, "daemon_retrain_launches", kernel=s))
+           for s in symbols}
+    want = {s: 0 for s in symbols}
+    for s, n in DAEMON_TRAIN.items():
+        want[s] += n * steps["train"]
+    for s, n in DAEMON_INFER.items():
+        want[s] += n * (steps["eval"] + steps["rollout"])
+    require(got == want, f"{label}: launches {_nz(got)} for steps {steps}, "
+                         f"expected {_nz(want)}")
+    return {symbols[s]: n for s, n in got.items()}, steps
+
+
+def _daemon_env():
+    env = dict(os.environ, PYTHONPATH=HERE)
+    env.pop("MPGCN_FAULTS", None)
+    return env
+
+
+class _SlotWatch:
+    """A thread that integrity-loads the promoted slot every 30 ms (a load
+    that fails is a torn promotion) and stamps, on this process's clock,
+    the first sighting of the n-th line holding a text in a file, for
+    each of ``marks``."""
+
+    def __init__(self, slot, marks):
+        self.slot, self.marks = slot, marks  # name -> (path, text, n)
+        self.seen, self.loads, self.failures = {}, 0, []
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def _run(self):
+        from mpgcn_tpu_torch.train.checkpoint import load_checkpoint
+
+        while not self._stop.is_set():
+            if os.path.exists(self.slot):
+                try:
+                    load_checkpoint(self.slot)
+                    self.loads += 1
+                except Exception as e:
+                    self.failures.append(repr(e))
+            for name, (path, text, n) in self.marks.items():
+                if name in self.seen:
+                    continue
+                try:
+                    with open(path) as f:
+                        if f.read().count(text) >= n:
+                            self.seen[name] = time.time()
+                except OSError:
+                    pass
+            time.sleep(0.03)
+
+    def stop(self):
+        self._stop.set()
+        self._t.join(timeout=10)
+
+
+def _retrain_report(events):
+    """Per retrain_done, in order: (attempt, process, seconds, graph
+    captures, reserved bytes); the process counted from daemon_start, the
+    graph captures from the process-cumulative counter."""
+    rows, proc, start, graphs = [], -1, {}, 0.0
+    for e in events:
+        if e["event"] == "daemon_start":
+            proc, graphs = proc + 1, 0.0
+        elif e["event"] == "retrain_start":
+            start[e["attempt"]] = e["t"]
+        elif e["event"] == "retrain_done":
+            m = e["metrics"]
+            g = _snap(m, "cuda_program_builds", kind="cuda_graph")
+            rows.append((e["attempt"], proc, e["t"] - start[e["attempt"]],
+                         g - graphs,
+                         _snap(m, "daemon_device_bytes_reserved"),
+                         _snap(m, "cuda_program_builds",
+                               kind="kernel_library"), e))
+            graphs = g
+    return rows
+
+
+def daemon_supervised(out_dir, card, device):
+    """(a): the supervised daemon killed mid-retrain. Returns its launches
+    and the output root."""
+    from mpgcn_tpu_torch.data.loader import synthetic_od
+    from mpgcn_tpu_torch.scenarios.dynamics import write_od_spool
+    from mpgcn_tpu_torch.service.daemon import daemon_log_path
+    from mpgcn_tpu_torch.service.promote import ledger_path, promoted_path
+    from mpgcn_tpu_torch.utils.logging import read_events
+
+    spool, out = os.path.join(out_dir, "spool"), os.path.join(out_dir, "svc")
+    od = synthetic_od(DAEMON_DAYS, 47, seed=0)
+    od[DAEMON_CORRUPT, 0] = np.nan
+    write_od_spool(od, spool)
+    sup_log = os.path.join(out, "supervisor", "supervisor_log.jsonl")
+    dlog = daemon_log_path(out)
+    watch = _SlotWatch(promoted_path(out), {
+        "killed": (sup_log, '"generation_end"', 1),
+        "relaunched": (dlog, '"daemon_start"', 2),
+        "first_cycle": (dlog, '"retrain_done"', 2)})
+    used0 = _device_used()
+    argv = [sys.executable, "-m", "mpgcn_tpu_torch.cli", "supervise",
+            "--procs", "1", "--max-restarts", "3", "--", "daemon", "-spool",
+            spool, "-out", out, "--device", device, "--idle-exits", "2",
+            *DAEMON_FLAGS, "-faults", "kill_retrain=2"]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(argv, cwd=HERE, env=_daemon_env(),
+                              capture_output=True, text=True, timeout=600)
+    finally:
+        watch.stop()
+    secs = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "supervise.stdout"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    require(proc.returncode == 0, f"supervise exited {proc.returncode}: "
+                                  f"{(proc.stdout + proc.stderr)[-3000:]}")
+    require(not watch.failures, f"the promoted slot failed to load "
+                                f"{len(watch.failures)} times: "
+                                f"{watch.failures[:2]}")
+    require(watch.loads > 0, "the promoted slot never appeared")
+    gens = read_events(sup_log, "generation_end")
+    require([g["rcs"] for g in gens] == [[-9], [0]],
+            f"supervisor generations {[g['rcs'] for g in gens]}")
+    verdicts = read_events(os.path.join(out, "quarantine", "verdicts.jsonl"))
+    require([v["day"] for v in verdicts] == [DAEMON_CORRUPT],
+            f"quarantined {[v['day'] for v in verdicts]}")
+    events = read_events(dlog)
+    starts = [e["attempt"] for e in events if e["event"] == "retrain_start"]
+    gates = read_events(ledger_path(out), "gate")
+    require(starts[:2] == [1, 2] and 2 not in [g["attempt"] for g in gates],
+            f"retrains {starts}, gate rows {[g['attempt'] for g in gates]}")
+    require([g["attempt"] for g in gates] == [a for a in starts if a != 2],
+            "a retrain other than the killed one left no gate row")
+    for g in gates:
+        if g["promoted"] and g["inc_loss"] is not None:
+            require(g["cand_loss"] <= g["inc_loss"] * (1 + g["tolerance"]),
+                    f"attempt {g['attempt']} promoted past the gate")
+    rows = _retrain_report(events)
+    total = {n: 0 for n in KERNEL_META}
+    for attempt, p, s, g, reserved, libs, e in rows:
+        launches, _ = _attempt_launches(f"[daemon] attempt {attempt}", e)
+        total = _add(total, launches)
+        require(libs == 0, f"attempt {attempt} built {libs} kernel "
+                           f"libraries")
+    relaunched = [r for r in rows if r[1] == 1]
+    reserved = [r[4] for r in relaunched]
+    require(len(relaunched) >= 3 and max(reserved) <= reserved[0] + 2 ** 21,
+            f"reserved bytes after the relaunched daemon's retrains: "
+            f"{reserved}")
+    promoted = sum(g["promoted"] for g in gates)
+    print(f"[daemon] (a) supervise --procs 1 -- daemon -faults "
+          f"kill_retrain=2 on {DAEMON_DAYS} days (N=47, hidden 32, batch 4, "
+          f"obs 7, M=2, K=3 supports; day {DAEMON_CORRUPT} corrupt): "
+          f"{secs:.1f}s, generations [-9] then [0], day {DAEMON_CORRUPT} "
+          f"quarantined, retrains {starts} (2 killed after its first "
+          f"epoch, no gate row), {promoted} of {len(gates)} gated attempts "
+          f"promoted, the promoted slot loaded {watch.loads} times "
+          f"without a failure, 0 kernel libraries built ({card})",
+          flush=True)
+    for attempt, p, s, g, reserved, _, e in rows:
+        steps = {k: int(_snap(e["metrics"], "daemon_retrain_steps", kind=k))
+                 for k in ("train", "eval", "rollout")}
+        print(f"[daemon] (a) attempt {attempt} (process {p}): {s:.3f}s "
+              f"retrain + gate, {g:.0f} graph captures, steps {steps} with "
+              f"exact launches, memory_reserved after it "
+              f"{reserved / 2 ** 20:.1f} MiB ({card})", flush=True)
+    k = watch.seen
+    require({"killed", "relaunched", "first_cycle"} <= set(k),
+            f"marks seen: {sorted(k)}")
+    kill_t = gens[0]["t"]  # the supervisor's clock: its wait saw the exit
+    print(f"[daemon] (a) kill -> relaunch -> first cycle: the relaunched "
+          f"daemon's loop started {k['relaunched'] - kill_t:.2f}s after "
+          f"the kill was reaped, its first retrain (attempt 3) done "
+          f"{k['first_cycle'] - k['relaunched']:.2f}s later; the card's "
+          f"used bytes {(_device_used() - used0) / 2 ** 20:+.1f} MiB against "
+          f"before the run ({card})", flush=True)
+    return total, out
+
+
+def _serve_argv(out, device):
+    return ["serve", "--device", device, "-out", out, "--capture-flows",
+            "--buckets", "1", "--deadline-ms", "0", "--max-queue", "256",
+            "--reload-poll-secs", "0.1", "--canary-fraction", "1.0",
+            "--canary-requests", "4", "--window-days", "30",
+            "--holdout-days", "2", "--val-days", "2"]
+
+
+def daemon_serve_capture(out, card, device):
+    """(b): a serve process with flow capture on (a)'s root; a daemon with
+    --capture-ledger stitches captured days, retrains and promotes; the
+    server's canary takes the new weights. Returns both processes'
+    launches."""
+    from mpgcn_tpu_torch.config import MPGCNConfig, ServeConfig
+    from mpgcn_tpu_torch.data.loader import synthetic_od
+    from mpgcn_tpu_torch.data.pipeline import DataPipeline
+    from mpgcn_tpu_torch.service import serve
+    from mpgcn_tpu_torch.service.daemon import daemon_log_path
+    from mpgcn_tpu_torch.service.promote import ledger_path, promoted_path
+    from mpgcn_tpu_torch.service.serve import ServeEngine
+    from mpgcn_tpu_torch.utils.logging import read_events
+
+    argv = _serve_argv(out, device)
+    ns = serve.build_parser().parse_args(argv[1:])
+    tcfg = MPGCNConfig(mode="test", data="synthetic", input_dir=out,
+                       output_dir=serve.serve_dir(out), obs_len=ns.obs_len,
+                       pred_len=ns.pred_len, batch_size=ns.batch_size,
+                       hidden_dim=ns.hidden_dim, kernel_type=ns.kernel_type,
+                       cheby_order=ns.cheby_order,
+                       num_branches=ns.num_branches, seed=ns.seed)
+    info = serve.http_info_path(out)
+    if os.path.exists(info):
+        os.remove(info)
+    log_s = open(os.path.join(os.path.dirname(out), "serve.log"), "w")
+    t0 = time.perf_counter()
+    srv = subprocess.Popen([sys.executable, "-m", "mpgcn_tpu_torch.cli",
+                            *argv], cwd=HERE, env=_daemon_env(),
+                           stdout=log_s, stderr=subprocess.STDOUT)
+    daemon_proc = ref = log_d = None
+    try:
+        while not os.path.exists(info):
+            require(srv.poll() is None, f"serve exited {srv.returncode}")
+            require(time.perf_counter() - t0 < 300, "serve never came up")
+            time.sleep(0.1)
+        up_s = time.perf_counter() - t0
+        with open(info) as f:
+            base = f"http://127.0.0.1:{json.load(f)['port']}"
+        # the banks the server built at startup, from the same accepted days
+        cfg_ref, data_ref = serve._build_data(ns, tcfg)
+        # (b1) capture: one request a new day, its newest frame the day
+        od = synthetic_od(max(CAPTURE_DAYS) + 1, 47, seed=0).astype(
+            np.float32)
+        sent = {}
+        for day in CAPTURE_DAYS:
+            x = od[day - ns.obs_len + 1: day + 1]
+            sent[day] = x[-1]
+            code, doc = _post(base, {"x": x.tolist(), "key": day % 7,
+                                     "day_slot": day, "deadline_ms": 0})
+            require(code == 200 and doc["ok"], f"capture request {day}: "
+                                               f"{code} {doc}")
+        n_gates = len(read_events(ledger_path(out), "gate"))
+        _wait_for(lambda: len([r for r in read_events(
+            serve.requests_ledger_path(out), "request")
+            if "day_slot" in r]) == len(sent), 60,
+            "the captured rows in the request ledger")
+        # (b2) the daemon on the capture ledger, traffic running meanwhile
+        log_d = open(os.path.join(os.path.dirname(out), "daemon_b.log"), "w")
+        spool = os.path.join(os.path.dirname(out), "spool")
+        daemon_proc = subprocess.Popen(
+            [sys.executable, "-m", "mpgcn_tpu_torch.cli", "daemon", "-spool",
+             spool, "-out", out, "--device", device, "--idle-exits", "4",
+             *DAEMON_FLAGS,
+             "--promote-tolerance", "0.25", "--capture-ledger",
+             serve.requests_ledger_path(out)], cwd=HERE, env=_daemon_env(),
+            stdout=log_d, stderr=subprocess.STDOUT)
+        md = DataPipeline(cfg_ref, data_ref, "cpu").modes["train"]
+        stop = threading.Event()
+
+        def traffic():  # the canary's requests
+            i = 0
+            while not stop.is_set():
+                w = i % len(md)
+                try:
+                    _post(base, {"x": md.x[w, ..., 0].tolist(),
+                                 "key": int(md.keys[w]), "deadline_ms": 0})
+                except OSError:
+                    time.sleep(0.05)
+                i += 1
+
+        th = threading.Thread(target=traffic, daemon=True)
+        th.start()
+        try:
+            t1 = time.perf_counter()
+            while True:
+                gates = read_events(ledger_path(out), "gate")
+                if len(gates) > n_gates:
+                    t_gate = time.perf_counter()
+                    break
+                require(daemon_proc.poll() is None or len(gates) > n_gates,
+                        f"the daemon exited {daemon_proc.returncode} "
+                        f"without a gate row")
+                require(time.perf_counter() - t1 < 300, "no retrain gated")
+                time.sleep(0.02)
+            row = gates[-1]
+            require(row["promoted"], f"the captured-day retrain was not "
+                                     f"promoted: {row['verdict']}")
+            while True:
+                st = json.loads(_get(base, "/v1/stats"))
+                if st["incumbent"]["hash"] == row["candidate_hash"]:
+                    t_reload = time.perf_counter()
+                    break
+                require(time.perf_counter() - t_gate < 120,
+                        f"the server never promoted the new slot: "
+                        f"{st['incumbent']} {st['canary']}")
+                time.sleep(0.02)
+        finally:
+            stop.set()
+            th.join(timeout=60)
+        rc = daemon_proc.wait(timeout=300)
+        require(rc == 0, f"the capture daemon exited {rc}")
+        # (b3) the captured days: bit-equal to the frames sent
+        dlog = read_events(daemon_log_path(out), "capture")
+        emitted = sorted(d for e in dlog for d in e["days"])
+        require(emitted == list(CAPTURE_DAYS)[:-1],
+                f"captured days {emitted}")
+        for day in emitted:
+            got = np.load(os.path.join(out, "accepted", f"day_{day:05d}.npy"))
+            require(got.dtype == np.float32
+                    and np.array_equal(got, sent[day]),
+                    f"captured day {day} differs from the frame sent")
+        # (b4) the server answers as a ServeEngine on the promoted slot
+        ref = ServeEngine(cfg_ref, data_ref, ServeConfig(
+            output_dir=os.path.join(os.path.dirname(out), "serve_ref"),
+            buckets=(1,), reload_poll_secs=0), device=device,
+            init_ckpt=promoted_path(out))
+        bad = []
+        for w in range(min(16, len(md))):
+            t = ref.submit(md.x[w, ..., 0], int(md.keys[w]), deadline_ms=0)
+            require(t.wait(60) and t.ok, f"reference window {w}: {t.error}")
+            code, doc = _post(base, {"x": md.x[w, ..., 0].tolist(),
+                                     "key": int(md.keys[w]),
+                                     "deadline_ms": 0})
+            if code != 200 or not np.array_equal(
+                    np.asarray(doc["pred"], np.float32), t.pred):
+                bad.append(w)
+        require(not bad, f"windows {bad} differ from the promoted slot's "
+                         f"ServeEngine")
+        st = json.loads(_get(base, "/v1/stats"))
+        launches = {n: st["kernel_launches"].get(n, 0) for n in KERNEL_META}
+        srv.send_signal(15)
+        rc = srv.wait(timeout=120)
+        require(rc == 0, f"serve exited {rc} on SIGTERM")
+    finally:
+        for p in (srv, daemon_proc):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+        log_s.close()
+        if log_d is not None:
+            log_d.close()
+        if ref is not None:
+            ref.close()
+    done = read_events(daemon_log_path(out), "retrain_done")
+    d_launches, _ = _attempt_launches("[daemon] (b) retrain", done[-1])
+    print(f"[daemon] (b) serve --capture-flows up in {up_s:.1f}s; "
+          f"{len(emitted)} captured days stitched by the daemon's "
+          f"--capture-ledger, bit-equal to the frames sent; attempt "
+          f"{row['attempt']} gated ({row['verdict']}), the server's canary "
+          f"promoted it {t_reload - t_gate:.2f}s after its gate row "
+          f"(promotion -> serve reload; reload poll 0.1 s, 4 canary "
+          f"requests); {min(16, len(md))} answers bit-equal to a "
+          f"ServeEngine on "
+          f"the promoted checkpoint ({card})", flush=True)
+    return _add(d_launches, launches)
+
+
+def phase_daemon(out_dir, card, device="cuda"):
+    """Phase 19 (module docstring). Returns the launches of the daemon and
+    serve processes."""
+    t0 = time.perf_counter()
+    total, out = daemon_supervised(out_dir, card, device)
+    total = _add(total, daemon_serve_capture(out, card, device))
+    print(f"[daemon] phase 19 took {time.perf_counter() - t0:.1f}s; "
+          f"launches {_nz(total)}", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -6687,6 +7111,12 @@ def main() -> int:
     shutil.rmtree(out_t, ignore_errors=True)
     os.makedirs(out_t)
     total = _add(total, phase_router(cfg, fleet, out_t, card))
+
+    # the continual-learning daemon and its supervisor, after every phase
+    out_d = os.path.join(HERE, "smoke_out", "daemon")
+    shutil.rmtree(out_d, ignore_errors=True)
+    os.makedirs(out_d)
+    total = _add(total, phase_daemon(out_d, card))
 
     print(card)  # the card's name and power limit, as nvidia-smi gives them
     print(f"[done] smoke run took {time.perf_counter() - t_start:.1f}s")

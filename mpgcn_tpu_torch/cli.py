@@ -6,6 +6,8 @@ of mpgcn_tpu/cli.py; reference Main.py:7-67).
     python -m mpgcn_tpu_torch.cli serve -out ./service [--device cpu] ...
     python -m mpgcn_tpu_torch.cli fleet add|remove|list [TENANT] -out ROOT
     python -m mpgcn_tpu_torch.cli router -out ROOT [--replicas 2] -- ...
+    python -m mpgcn_tpu_torch.cli daemon -spool SPOOL -out ROOT [--device cpu]
+    python -m mpgcn_tpu_torch.cli supervise --procs 1 -- daemon ...
 
 ``serve`` dispatches to the serving plane's command
 (service/serve.py ``main``, the JAX ``mpgcn-tpu serve``): HTTP, canaried
@@ -15,7 +17,13 @@ hot reload of the promoted checkpoints, a clean drain on SIGTERM; with
 ``mpgcn-tpu fleet``). ``router`` runs the front tier over replica
 processes of ``serve --fleet`` on that registry (service/router.py
 ``main``, the JAX ``mpgcn-tpu router``); the arguments after ``--`` go to
-every replica.
+every replica. ``daemon`` runs the continual-learning loop
+(service/daemon.py ``main``, the JAX ``mpgcn-tpu daemon``): day files
+through the day gate, retrains on cadence or drift, eval-before-promote
+into ``<out>/promoted/``. ``supervise`` runs the command after ``--`` as
+a child and relaunches it with ``-resume`` when it dies
+(resilience/supervisor.py ``main``, the JAX ``mpgcn-tpu supervise``, one
+process).
 
 Runs on the card (``-GPU 0``, the default) unless ``-GPU cpu`` asks for the
 CPU. Train mode trains the single-step model (pred_len is forced to 1, as
@@ -35,8 +43,9 @@ The model, data and optimizer flags (``-model -t -norm -split -nn -M
 -rollback-retries -rollback-lr-factor -watchdog``) and the precision flags
 (``-dtype -loss-scaling -loss-scale-init -loss-scale-growth
 -infer-precision``) and the city-scale feed's (``-fused-epilogue
--od-storage -no-stream -stream-chunk-mb -native``) have the JAX CLI's
-names, types, defaults and choices.
+-od-storage -no-stream -stream-chunk-mb -native``) and ``-faults`` (the
+trainer's fault arms, resilience/faults.py) have the JAX CLI's names,
+types, defaults and choices.
 ``-kernel`` and ``-K`` pick the graph kernel and its order, and so the
 support count (2 K + 1 supports for ``dual_random_walk_diffusion``).
 
@@ -173,6 +182,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fail fast on zero-degree rows of the sym-norm "
                         "kernels (-iso policy) instead of mapping them to "
                         "zero support rows")
+    p.add_argument("-faults", "--faults", type=str, default="",
+                   help="deterministic fault-injection spec for chaos "
+                        "testing, e.g. 'nan_step=3,sigterm_epoch=2' "
+                        "(resilience/faults.py; $MPGCN_FAULTS is the env "
+                        "equivalent)")
     p.add_argument("-io-retries", "--io_retries", type=int, default=3,
                    help="attempts per data-file read before failing with "
                         "an error naming the file")
@@ -330,8 +344,21 @@ def main(argv=None):
         from mpgcn_tpu_torch.service.router import main as router_main
 
         raise SystemExit(router_main(argv[1:]))
-    # torch is imported from here on: the subcommands above start without
-    # it (`fleet` and `router` need no device)
+    if argv and argv[0] == "supervise":
+        # the process supervisor (resilience/supervisor.py): it starts
+        # and watches the command after `--`, and imports no torch
+        from mpgcn_tpu_torch.resilience.supervisor import (
+            main as supervise_main,
+        )
+
+        raise SystemExit(supervise_main(argv[1:]))
+    if argv and argv[0] == "daemon":
+        # the continual-learning loop (service/daemon.py)
+        from mpgcn_tpu_torch.service.daemon import main as daemon_main
+
+        raise SystemExit(daemon_main(argv[1:]))
+    # torch is imported from here on: the subcommands above import it
+    # only when they need it (`fleet`, `router` and `supervise` never)
     from mpgcn_tpu_torch.data.loader import load_dataset
     from mpgcn_tpu_torch.device import resolve_device
     from mpgcn_tpu_torch.train.trainer import ModelTrainer

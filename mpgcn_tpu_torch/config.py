@@ -25,8 +25,10 @@ this port does not have yet (meshes, the orbax checkpoint backend) are
 not here; they arrive with the slices that run them. ``DEFAULT_SLOS``
 are the serving plane's objectives (obs/perf/slo.py). The BDGCN arm is not a config
 field: it is the ``bdgcn_impl`` argument of ``ModelTrainer`` and
-``ServeEngine``. ``RouterConfig`` configures the front tier over replica
-processes (service/router.py); like this module, it needs no torch.
+``ServeEngine``. ``DaemonConfig`` configures the continual-learning
+daemon's loop (service/daemon.py). ``RouterConfig`` configures the front
+tier over replica processes (service/router.py); like this module, it
+needs no torch.
 """
 
 from __future__ import annotations
@@ -414,6 +416,124 @@ class MPGCNConfig:
         rest are ignored."""
         fields = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in fields})
+
+
+@dataclasses.dataclass(frozen=True)
+class DaemonConfig:
+    """The continual-learning daemon's knobs (service/daemon.py; the JAX
+    package's DaemonConfig, mpgcn_tpu/service/config.py): the rolling
+    window and its split, drift detection, retrain and promotion, loop
+    control, the day gate's profile and traffic capture. One
+    ``MPGCNConfig`` describes each retrain; these describe the loop."""
+
+    #: where day snapshots arrive (``day_<idx>.npy``, one (N, N) OD
+    #: matrix a day; an ``adjacency.npy`` beside them overrides the
+    #: synthetic adjacency)
+    spool_dir: str
+    #: the daemon's root: accepted/, quarantine/, retrain/, promoted/,
+    #: rejected/, daemon_log.jsonl
+    output_dir: str = "./service"
+
+    # rolling window and split
+    window_days: int = 56       #: training window: newest accepted days
+    holdout_days: int = 8       #: held-out recent days: the gate's
+    #:                             ('test') split and promote metric
+    val_days: int = 6           #: early-stop validation windows
+    min_train_days: int = 0     #: days before the first retrain (0:
+    #:                             obs + pred + val + holdout + batch)
+
+    # drift detection
+    drift_window: int = 3       #: eval-loss trend window (cycles): drift
+    #:                             = mean(last w) > (1 + threshold) x
+    #:                             mean(previous w)
+    drift_threshold: float = 0.2
+    drift_skip_budget: int = 0  #: sentinel-skipped steps in a retrain
+    #:                             that count as drift (0: any skip)
+    drift_spike_budget: int = 3  #: loss spikes tolerated per retrain
+
+    # retrain and promotion
+    retrain_cadence: int = 7    #: accepted days between cadence retrains
+    promote_tolerance: float = 0.05  #: a candidate may tie the incumbent
+    #:                             within loss x (1 + tol) and promote
+    gate: bool = True           #: eval-before-promote; False promotes
+    #:                             every candidate (for the test that
+    #:                             shows the gate is load-bearing)
+    retrain_init: str = "warm"  #: warm (the incumbent's weights) |
+    #:                             scratch (a fresh draw every retrain)
+
+    # loop control
+    ingest_batch: int = 0       #: max days ingested a cycle (0: all)
+    poll_secs: float = 1.0      #: sleep between idle cycles
+    idle_exits: int = 0         #: exit 0 after N idle cycles in a row
+    #:                             (0: run forever)
+    max_cycles: int = 0         #: hard cycle cap (0: none)
+
+    # the day gate's profile
+    profile_zmax: float = 6.0   #: |z| of a day's log total flow beyond
+    #:                             which it is an outlier
+    profile_min_history: int = 5  #: accepted days before the z-test arms
+    num_nodes: int = 0          #: expected zone count (0: the first
+    #:                             accepted day's)
+    robust_window: int = 64     #: accepted-day log totals the robust
+    #:                             (median/MAD) profile remembers
+    shock_coherence: float = 0.90  #: min cosine against the accepted
+    #:                             pattern for an outlier to be an event
+    #:                             shock (trains) rather than poison
+    shock_support_max: float = 0.05  #: max share of an outlier day's
+    #:                             mass off the accepted support
+
+    # traffic capture
+    capture_ledger: str = ""    #: serving-plane requests.jsonl to stitch
+    #:                             day files from ("": capture off)
+    capture_tenant: str = ""    #: tenant filter for a fleet ledger ("":
+    #:                             any tenant's rows)
+
+    def __post_init__(self):
+        if not self.spool_dir:
+            raise ValueError("spool_dir is required (where day snapshots "
+                             "arrive)")
+        positives = ("window_days", "holdout_days", "val_days",
+                     "drift_window", "retrain_cadence")
+        for name in positives:
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name}={getattr(self, name)} must be "
+                                 f">= 1")
+        non_negatives = ("min_train_days", "drift_skip_budget",
+                         "drift_spike_budget", "ingest_batch", "idle_exits",
+                         "max_cycles", "profile_min_history", "num_nodes")
+        for name in non_negatives:
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name}={getattr(self, name)} must be "
+                                 f">= 0")
+        if self.drift_threshold <= 0:
+            raise ValueError("drift_threshold must be > 0 (relative "
+                             "eval-loss rise that names drift)")
+        if self.promote_tolerance < 0:
+            raise ValueError("promote_tolerance must be >= 0")
+        if self.poll_secs < 0:
+            raise ValueError("poll_secs must be >= 0")
+        if self.profile_zmax <= 0:
+            raise ValueError("profile_zmax must be > 0")
+        if self.robust_window < 2:
+            raise ValueError(f"robust_window={self.robust_window} must "
+                             f"be >= 2 (a median needs a window)")
+        if not 0.0 < self.shock_coherence <= 1.0:
+            raise ValueError(f"shock_coherence={self.shock_coherence} "
+                             f"must be in (0, 1]")
+        if not 0.0 <= self.shock_support_max <= 1.0:
+            raise ValueError(f"shock_support_max={self.shock_support_max}"
+                             f" must be in [0, 1]")
+        if self.retrain_init not in ("warm", "scratch"):
+            raise ValueError(f"retrain_init={self.retrain_init!r} is not "
+                             f"one of ('warm', 'scratch')")
+        if self.holdout_days + self.val_days >= self.window_days:
+            raise ValueError(
+                f"holdout_days={self.holdout_days} + val_days="
+                f"{self.val_days} must leave training windows inside "
+                f"window_days={self.window_days}")
+
+    def replace(self, **kw) -> "DaemonConfig":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass(frozen=True)

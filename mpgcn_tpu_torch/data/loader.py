@@ -25,6 +25,7 @@ import numpy as np
 
 from mpgcn_tpu_torch.config import MPGCNConfig
 from mpgcn_tpu_torch.data.dyn_graphs import construct_dyn_g
+from mpgcn_tpu_torch.resilience.faults import FaultPlan
 from mpgcn_tpu_torch.utils.retry import read_with_retry
 
 NPZ_NAME = "od_day20180101_20210228.npz"
@@ -203,12 +204,15 @@ class DataInput:
         self.cfg = cfg
         self.normalizer = make_normalizer(cfg.norm)
         self._used_npz = False
+        # io_errors=K injection drives the retry path in tests
+        self._faults = FaultPlan.from_config(cfg)
 
     def _read(self, loader, path: str):
         """One data-file read, retried up to ``cfg.io_retries`` times."""
         return read_with_retry(lambda: loader(path), path,
                                attempts=self.cfg.io_retries,
-                               base_delay_s=self.cfg.io_retry_delay_s)
+                               base_delay_s=self.cfg.io_retry_delay_s,
+                               faults=self._faults)
 
     def _load_raw(self) -> tuple[np.ndarray, np.ndarray]:
         cfg = self.cfg

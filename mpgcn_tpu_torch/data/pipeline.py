@@ -65,6 +65,7 @@ from mpgcn_tpu_torch.sparse.formats import (
     ell_pad_width,
     sparsify_support_stack,
 )
+from mpgcn_tpu_torch.utils.retry import read_with_retry
 
 
 def resolve_bdgcn_impl(requested: str, cfg: MPGCNConfig, num_nodes: int,
@@ -130,11 +131,23 @@ class EpochChunk:
 
 class DataPipeline:
     """Per-mode windows plus the support banks, on ``device``, stored for
-    the BDGCN arm ``bdgcn_impl`` resolves to (``self.bdgcn_impl``)."""
+    the BDGCN arm ``bdgcn_impl`` resolves to (``self.bdgcn_impl``).
+
+    ``gather_provenance`` / ``gather_faults``: optional io-retry cover
+    for the host window gathers (``gather_xy``), the ones on the
+    chunked-stream staging thread included. ``gather_provenance(mode,
+    sel)`` names the source of the requested windows (the
+    continual-learning daemon maps window rows back to the day files
+    behind them, service/daemon.py), so a retry or failure names the day
+    file; ``gather_faults`` is a ``FaultPlan`` whose ``io_errors`` drive
+    the retry loop."""
 
     def __init__(self, cfg: MPGCNConfig, data: dict, device="cuda",
-                 bdgcn_impl: str = "auto"):
+                 bdgcn_impl: str = "auto", gather_provenance=None,
+                 gather_faults=None):
         self.cfg = cfg
+        self._gather_provenance = gather_provenance
+        self._gather_faults = gather_faults
         self.device = resolve_device(device)
         od = np.ascontiguousarray(np.asarray(data["OD"], dtype=np.float32))
         #: 'dense' or 'sparse': how the host holds the series
@@ -341,7 +354,21 @@ class DataPipeline:
         host library's gather (dense storage, ``host_gather`` 'native'),
         the sparse series' densify, or numpy's; written into ``out`` (a
         pair of float32 arrays of the gathered shapes) when given. The
-        same bytes every way."""
+        same bytes every way. With ``gather_provenance`` or
+        ``gather_faults`` the gather runs under ``read_with_retry``,
+        which names the source ``gather_provenance`` gives."""
+        if self._gather_provenance is None and self._gather_faults is None:
+            return self._gather_xy_raw(mode, sel, out)
+        src = (self._gather_provenance(mode, np.asarray(sel).reshape(-1))
+               if self._gather_provenance is not None
+               else f"<{mode} window gather>")
+        return read_with_retry(
+            lambda: self._gather_xy_raw(mode, sel, out), src,
+            attempts=self.cfg.io_retries,
+            base_delay_s=self.cfg.io_retry_delay_s,
+            faults=self._gather_faults)
+
+    def _gather_xy_raw(self, mode: str, sel: np.ndarray, out=None):
         md = self.modes[mode]
         sel = np.asarray(sel)
         # the library reads the series the mode's own views cover; windows
@@ -376,8 +403,7 @@ class DataPipeline:
         host: into page-locked memory when the pipeline's device is the
         card, so its upload can run on a side stream. ``poison_steps``
         (epoch step indices) NaN a step's x rows at gather time: the
-        fault-injection hook of the JAX pipeline, which nothing in the
-        port passes yet."""
+        trainer's ``nan_step`` fault arm on the stream executor."""
         md = self.modes[mode]
         S = idx.shape[0]
         pin = self.device.type == "cuda"

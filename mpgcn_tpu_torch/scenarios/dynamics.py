@@ -1,13 +1,26 @@
-"""Adversarial payloads (counterpart of the payload half of
-mpgcn_tpu/scenarios/dynamics.py): the poisoned request behind the
+"""Stream dynamics, adversarial payloads and spool plumbing (counterpart
+of mpgcn_tpu/scenarios/dynamics.py, less the scenario profiles' drifts):
+``event_shock`` (one day's demand scaled coherently, which the day gate
+must train on), the poisoned day and request behind the
 ``poison_requests=K`` fault arm (resilience/faults.py), built as the JAX
-package builds it."""
+package builds them, and ``write_od_spool``, which writes a (T, N, N)
+stream as the continual-learning daemon's spool day files."""
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
+
+
+def event_shock(od: np.ndarray, day: int, scale: float = 8.0) -> np.ndarray:
+    """Copy of the stream with one day's demand scaled coherently by
+    ``scale``: a real-world event, a magnitude outlier with its structure
+    intact. The day gate must train on it (kind "event-shock")."""
+    out = np.array(od, copy=True)
+    out[day] = out[day] * float(scale)
+    return out
 
 
 def poison_day(arr: np.ndarray, rng: np.random.Generator,
@@ -48,3 +61,23 @@ def poison_request(x: np.ndarray, rng: Optional[np.random.Generator] = None,
         return a
     flows[-1] = poison_day(flows[-1], rng, mode=mode, scale=scale)
     return a
+
+
+def write_od_spool(od: np.ndarray, spool_dir: str,
+                   adjacency: Optional[np.ndarray] = None,
+                   start_day: int = 0) -> list[str]:
+    """Write a (T, N, N) stream as daemon spool day files
+    (``day_<start_day + t>.npy``), and the adjacency beside them when
+    given. For provisioning (tests, drills): a live drop into a watched
+    spool should be atomic."""
+    from mpgcn_tpu_torch.service.ingest import day_filename
+
+    os.makedirs(spool_dir, exist_ok=True)
+    paths = []
+    for i in range(od.shape[0]):
+        p = os.path.join(spool_dir, day_filename(start_day + i))
+        np.save(p, od[i])
+        paths.append(p)
+    if adjacency is not None:
+        np.save(os.path.join(spool_dir, "adjacency.npy"), adjacency)
+    return paths

@@ -9,7 +9,8 @@ call a step instead of a few hundred.
 A ``GraphSet`` holds the graphs of one trainer or one serve engine: one
 memory pool they share, one lock that every replay takes (graphs that
 share a pool must never run at once: one may reuse memory another
-freed), and the side stream their warm-up runs on. A callable is
+freed), and the side stream their warm-up runs on (one a device for
+every set, ``side_stream``). A callable is
 captured after it has run eagerly (``warmup``), which builds the
 kernels and makes every state that is made lazily: Adam's moments, the
 autograd buffers, cuBLAS's workspace, the kernels' occupancy queries.
@@ -45,6 +46,26 @@ import torch
 from mpgcn_tpu_torch.native.build import add_replayed, capture_launches
 from mpgcn_tpu_torch.obs.metrics import count_program_build
 from mpgcn_tpu_torch.train.predict import rollout
+
+
+#: the warm-up stream of every graph set, by device index (``side_stream``)
+_side_streams: dict = {}
+_side_lock = threading.Lock()
+
+
+def side_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The one side stream that graph sets on ``device`` warm up on.
+    cuBLAS keeps a workspace for each stream it has run on and does not
+    free it, so a stream per graph set grows a process that makes a
+    trainer per retrain (the continual-learning daemon) by a workspace a
+    trainer."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    with _side_lock:
+        stream = _side_streams.get(index)
+        if stream is None:
+            stream = _side_streams[index] = torch.cuda.Stream(index)
+        return stream
 
 
 def refusal(device: torch.device, bdgcn_impl: str) -> Optional[str]:
@@ -89,7 +110,7 @@ class GraphSet:
         self.device = device
         self.pool = torch.cuda.graph_pool_handle()
         self.lock = threading.RLock()
-        self.stream = torch.cuda.Stream(device)
+        self.stream = side_stream(device)
         self.graphs: dict = {}
 
     def get(self, key) -> Optional[Captured]:

@@ -92,12 +92,32 @@ per-channel quantized tree, made once per weights version and refilled in
 place, so the captured rollouts that read it stay valid; each precision
 has its own captured rollouts.
 
-Not here yet: the orbax checkpoint backend, fault injection, the
-multi-process votes and the metrics registry.
+Fault injection (``cfg.faults``, resilience/faults.py; the JAX trainer's
+arms): ``nan_step`` NaNs the inputs of one train step on every executor
+(the per-step batch, the scan executor's device rows of that step for
+the epoch, the stream chunk's rows at gather time), so a captured step
+replays the poisoned window; ``sigterm_epoch`` delivers SIGTERM inside
+the epoch (after the first per-step step, before the scan epoch, after
+the first stream chunk); ``hang_epoch`` sleeps at the epoch's start,
+which the armed watchdog turns into exit 113; ``ckpt_trunc`` tears the
+K-th checkpoint written, after the background writer wrote it; and
+``io_errors`` ride the data reads (data/loader.py, the pipeline's
+gathers). The multi-host arms (``kill_host_epoch``, ``straggle_host``,
+``wedge_collective``) need a process group, which the port has not.
+
+``warm_start(path)`` is the continual-learning daemon's start
+(service/daemon.py): the checkpoint's weights, a fresh optimizer, in
+place. ``close()`` releases the trainer's CUDA graphs and their pool, so
+a long-lived process that makes a trainer per retrain does not grow.
+
+Not here yet: the orbax checkpoint backend, the multi-process votes and
+the metrics registry.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import os
 import signal
 import time
@@ -116,6 +136,7 @@ from mpgcn_tpu_torch.quant.int8 import (
     quantize_params,
     requantize_,
 )
+from mpgcn_tpu_torch.resilience.faults import FaultPlan
 from mpgcn_tpu_torch.resilience.rollback import (
     RollbackSignal,
     emergency_path,
@@ -245,13 +266,18 @@ class ModelTrainer:
 
     def __init__(self, cfg: MPGCNConfig, data: dict, device="cuda",
                  lstm_impl: str = "kernel", bdgcn_impl: str = "auto",
-                 data_container=None):
+                 data_container=None, pipeline: Optional[DataPipeline] = None):
         if cfg.model != "MPGCN":
             raise NotImplementedError("Invalid model name.")
         self.device = resolve_device(device)
         #: the checkpoint manifest's platform
         self._platform = "gpu" if self.device.type == "cuda" else "cpu"
-        self.pipeline = DataPipeline(cfg, data, self.device, bdgcn_impl)
+        if pipeline is None:
+            pipeline = DataPipeline(cfg, data, self.device, bdgcn_impl)
+        elif pipeline.device != self.device:
+            raise ValueError(f"the pipeline's device {pipeline.device} is "
+                             f"not the trainer's {self.device}")
+        self.pipeline = pipeline
         if cfg.num_nodes == 0:
             cfg = cfg.replace(num_nodes=self.pipeline.num_nodes)
         self.cfg = cfg
@@ -280,6 +306,10 @@ class ModelTrainer:
         #: the optimizer's update count: a weights version
         self._weights_gen = 0
         self.global_step = 0
+        #: steps run, by kind: train and eval steps (every executor), and
+        #: the model forwards of the rollouts (``predict``): what a
+        #: caller multiplies a step's launches by
+        self.step_counts = {"train": 0, "eval": 0, "rollout": 0}
         self._clock = None  # (time, step) once the warm-up steps are done
         # the self-healing loop's state
         self._dead_init_detected = False  # set by the probe or a resume
@@ -288,6 +318,8 @@ class ModelTrainer:
         self._preempted = self._sigint_seen = False
         self._exec_logged = False         # the dispatch line, once a run
         self._writer = AsyncWriter()      # checkpoints, off the loop
+        self._faults = FaultPlan.from_config(cfg)
+        self._epoch = 0  # the epoch running (the sigterm fault's key)
         #: ms of each update of the armed watchdog's host state (one an
         #: epoch; the epoch's checkpoint snapshot where it has one)
         self.watchdog_sync_ms: list[float] = []
@@ -436,10 +468,12 @@ class ModelTrainer:
         loss = self._loss_and_grads(x, y, keys, self._size(batch))
         loss = self.optimizer.step(loss)
         self.global_step += 1
+        self.step_counts["train"] += 1
         return float(loss)
 
     def eval_step(self, batch: Batch) -> float:
         x, y, keys = self._tensors(batch)
+        self.step_counts["eval"] += 1
         return float(self._batch_loss(x, y, keys, self._size(batch),
                                       inference=True))
 
@@ -603,6 +637,7 @@ class ModelTrainer:
                 body(ep)
             else:
                 g.replay()
+        self.step_counts["train" if is_train else "eval"] += 1
         if is_train:
             self.global_step += 1
 
@@ -617,8 +652,21 @@ class ModelTrainer:
         self._check_storage()
         ep = self._epoch_state(mode)
         ep.load(idx, sizes)
+        bad_steps = self._take_nan_steps(len(sizes), is_train)
+        clean = None
+        if bad_steps:
+            # the fault: NaN the targeted steps' rows of the resident
+            # windows in place for this epoch (a captured step reads them
+            # where they lie) and put the clean rows back after it; a
+            # step's rows belong to no other step of the epoch
+            rows = torch.from_numpy(np.unique(
+                idx[np.asarray(bad_steps)]).astype(np.int64)).to(self.device)
+            clean = (rows, ep.xs.index_select(0, rows))
+            ep.xs.index_fill_(0, rows, float("nan"))
         for _ in range(len(sizes)):
             self._exec_step(mode, ep, is_train)
+        if clean is not None:
+            ep.xs.index_copy_(0, *clean)
         if is_train:
             self.optimizer.advance(len(sizes))
         return ep.losses, sizes
@@ -705,7 +753,8 @@ class ModelTrainer:
         gathered, and the host waits for chunk k-1 to finish before it
         dispatches chunk k, so at most two chunk buffers are on the
         device (the static buffer computing, one staged) and one chunk
-        is in flight. Watchdog beats at chunk boundaries; the chunk
+        is in flight. Watchdog beats and the sigterm fault ride chunk
+        boundaries; the chunk
         counters go into ``_stream_stats[mode]``. Returns the (S,) device
         losses, not read yet, and the host sizes."""
         idx, sizes = self._epoch_index(mode, shuffle, rng)
@@ -722,7 +771,9 @@ class ModelTrainer:
         stall = 0.0
         resident = max_resident = 0
         t_epoch = time.perf_counter()
-        it = self.pipeline.stream_chunks(mode, idx, sizes, spc)
+        it = self.pipeline.stream_chunks(
+            mode, idx, sizes, spc,
+            poison_steps=self._take_nan_steps(S, is_train))
         cur = prev = None
         k = 0  # chunks dispatched
         try:
@@ -743,6 +794,9 @@ class ModelTrainer:
                 prev = self._dispatch_chunk(key, ep, cur, is_train)
                 k += 1
                 cur = None
+                if is_train and k == 1 and self._faults.active:
+                    # "mid-epoch": the first chunk's steps are dispatched
+                    self._faults.maybe_sigterm(self._epoch)
                 t0 = time.perf_counter()
                 host = next(it, None)
                 stall += time.perf_counter() - t0  # feed-starved time only
@@ -806,7 +860,14 @@ class ModelTrainer:
         params, opt = snap or self._snapshot()
         self._writer.write(path, checkpoint_payload(
             params, epoch, self._ckpt_extra(**extra), opt, self._platform),
-            dump=write_checkpoint)
+            dump=self._write_checkpoint)
+
+    def _write_checkpoint(self, path: str, payload) -> None:
+        """The writer thread's dump, then the ``ckpt_trunc`` fault: tear
+        the K-th checkpoint written, as a crash mid-write would."""
+        write_checkpoint(path, payload)
+        if self._faults.active:
+            self._faults.maybe_truncate(path)
 
     def _save_last(self, epoch, best_val, best_epoch, patience_count,
                    snap=None):
@@ -818,12 +879,20 @@ class ModelTrainer:
         losses and sizes, as the scan executor returns them."""
         is_train = mode == "train"
         step = self.train_step if is_train else self.eval_step
+        nan_local = self._take_nan_steps(self.pipeline.num_batches(mode),
+                                         is_train)
         losses, sizes = [], []
-        for batch in self.pipeline.batches(
+        for step_i, batch in enumerate(self.pipeline.batches(
                 mode, shuffle=self.cfg.shuffle and is_train, rng=rng,
-                pad_to_full=True):
+                pad_to_full=True)):
+            if step_i in nan_local:  # the injected data blowup
+                batch = dataclasses.replace(
+                    batch, x=np.full_like(batch.x, np.nan))
             losses.append(step(batch))
             sizes.append(batch.size)
+            if is_train and step_i == 0 and self._faults.active:
+                # "mid-epoch": after the first step landed
+                self._faults.maybe_sigterm(self._epoch)
             self._beat()
         return np.array(losses, np.float32), np.array(sizes, np.int32)
 
@@ -834,11 +903,25 @@ class ModelTrainer:
         if exec_path == "per_step":
             return self._run_mode(mode, rng)
         is_train = mode == "train"
-        run = (self._run_epoch_stream if exec_path == "stream"
-               else self._dispatch_epoch)
-        losses, sizes = run(mode, self.cfg.shuffle and is_train, rng,
-                            is_train)
+        if exec_path == "stream":
+            losses, sizes = self._run_epoch_stream(
+                mode, self.cfg.shuffle and is_train, rng, is_train)
+        else:
+            if is_train and self._faults.active:
+                # one dispatch for the whole epoch (the stream executor
+                # fires at its first chunk boundary instead)
+                self._faults.maybe_sigterm(self._epoch)
+            losses, sizes = self._dispatch_epoch(
+                mode, self.cfg.shuffle and is_train, rng, is_train)
         return losses.cpu().numpy(), sizes
+
+    def _take_nan_steps(self, n_steps: int, is_train: bool) -> tuple:
+        """The fault hook (JAX: ``_take_nan_steps``): local indices of the
+        next ``n_steps`` train steps whose inputs are NaN-poisoned
+        (one-shot; () without an active plan)."""
+        if not is_train or not self._faults.active:
+            return ()
+        return self._faults.take_nan_steps(self.global_step, n_steps)
 
     def steps_per_sec(self) -> float:
         """Training steps per second since the warm-up steps (0.0 before
@@ -1182,6 +1265,11 @@ class ModelTrainer:
                     "the first batch's loss-gradient global norm is "
                     "exactly 0"), start - 1, logger)
         for epoch in range(start, 1 + cfg.num_epochs):
+            self._epoch = epoch  # the epoch the fault arms read
+            if self._faults.active:
+                # a wedged host: the armed watchdog fires (exit 113)
+                # before this returns
+                self._faults.maybe_hang(epoch)
             skipped = spikes = 0
             snap = None
             self._stream_stats = {}
@@ -1273,20 +1361,21 @@ class ModelTrainer:
 
     # --- inference -------------------------------------------------------
 
-    def load_trained(self, path: Optional[str] = None) -> dict:
+    def load_trained(self, path: Optional[str] = None,
+                     restore_opt: bool = True) -> dict:
         """Load a JAX-format checkpoint (this trainer's by default) into
         the model, in place; returns its payload. Its optimizer state, the
         port's or a JAX one whose optax chain matches this run's, goes into
         the optimizer in place; a chain that does not match leaves a fresh
-        optimizer, with the JAX trainer's warning; none leaves the
-        optimizer as it is."""
+        optimizer, with the JAX trainer's warning; none (or
+        ``restore_opt=False``) leaves the optimizer as it is."""
         path = path or self._ckpt_path()
         self._writer.flush()
         ckpt = load_checkpoint(path, self.cfg.num_branches,
                                self.cfg.resolved_branch_sources)
         self.model.load_state_dict(params_from_jax(ckpt["params"]))
         self._weights_gen += 1
-        if not _has_opt_state(ckpt):
+        if not restore_opt or not _has_opt_state(ckpt):
             return ckpt
         chain = self.optimizer.chain
         state = ckpt.get(OPT_STATE_KEY)
@@ -1305,6 +1394,34 @@ class ModelTrainer:
             load_opt_state(self.model, self.optimizer, state)
         return ckpt
 
+    def warm_start(self, path: str) -> dict:
+        """The continual-learning warm start (JAX: ``warm_start``): this
+        run's weights from a trained checkpoint (the daemon's promoted
+        incumbent) through ``load_trained``, then a fresh optimizer and
+        the loss scaler's initial state, reset in place (the captured
+        steps hold the state tensors' addresses; the checkpoint's
+        optimizer state is never loaded, so no table grows). Unlike
+        ``resume``, no epoch or early-stop counter is taken over."""
+        ckpt = self.load_trained(path, restore_opt=False)
+        self.optimizer.reset()
+        return ckpt
+
+    def close(self) -> None:
+        """Wait for the checkpoint writer and release the trainer's CUDA
+        graphs, their memory pool and the executors' device buffers
+        (the graphs hold the pool; a cycle could keep them past the last
+        reference). The trainer is not used after this; a second call
+        does nothing more."""
+        self._writer.flush()
+        if self._graphs is not None:
+            self._graphs.drop()
+        self._graphs = self._rollouts = None
+        self._epochs.clear()
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+
     def predict(self, x, keys, pred_len: Optional[int] = None) -> np.ndarray:
         """Forecast ``pred_len`` OD frames: x (B, obs_len, N, N, 1) in the
         model's space, keys (B,) day-of-week slots -> (B, pred_len, N, N,
@@ -1312,6 +1429,7 @@ class ModelTrainer:
         (the JAX trainer's jitted ``_rollout``); elsewhere ``rollout``
         runs eagerly."""
         pred_len = pred_len or self.cfg.pred_len
+        self.step_counts["rollout"] += pred_len
         xt = torch.from_numpy(np.array(x, np.float32))
         kt = torch.from_numpy(np.asarray(keys, np.int64))
         prec = self._precision()

@@ -1,10 +1,15 @@
 """Retry with backoff for host file reads (counterpart of
-mpgcn_tpu/resilience/retry.py, without its fault-injection hook).
+mpgcn_tpu/resilience/retry.py).
 
 Data directories on network mounts fail reads transiently under load.
 ``read_with_retry`` wraps one read, retries ``OSError`` with exponential
 backoff, and on the final failure raises an ``IOError`` that names the
 file.
+
+Fault injection: given a ``FaultPlan`` (resilience/faults.py) with
+``io_errors=K``, the first K tries raise an injected ``OSError`` before
+the file is touched, so the chaos tests drive this retry loop end to
+end.
 """
 
 from __future__ import annotations
@@ -18,9 +23,12 @@ T = TypeVar("T")
 def read_with_retry(fn: Callable[[], T], path: str, *,
                     attempts: int = 3,
                     base_delay_s: float = 0.05,
+                    faults=None,
                     _sleep: Callable[[float], None] = time.sleep) -> T:
     """Call ``fn()`` (a read of ``path``), retrying ``OSError`` up to
-    ``attempts`` times with ``base_delay_s * 2**i`` between tries.
+    ``attempts`` times with ``base_delay_s * 2**i`` between tries;
+    ``faults.maybe_io_error(path)`` runs before each try when a plan is
+    given.
 
     Raises an ``IOError`` naming ``path`` when every attempt fails. Errors
     that a retry cannot fix propagate at once and keep their type: bad
@@ -32,6 +40,8 @@ def read_with_retry(fn: Callable[[], T], path: str, *,
     last: Optional[BaseException] = None
     for i in range(attempts):
         try:
+            if faults is not None:
+                faults.maybe_io_error(path)
             return fn()
         except (FileNotFoundError, PermissionError, IsADirectoryError,
                 NotADirectoryError):

@@ -2103,3 +2103,108 @@ def test_router_kill_keeps_answers_bit_equal_across_replicas(cuda_device,
         for ref in refs.values():
             ref.close()
     assert not any(h.proc.alive for h in rt.handles.values())
+
+
+def _snapshot_value(snap: dict, name: str, **labels) -> float:
+    """A series of a metrics snapshot (``MetricsRegistry.snapshot``), 0
+    where it was never written."""
+    want = [f'{k}="{v}"' for k, v in labels.items()]
+    for key, v in snap.items():
+        if key.startswith("mpgcn_" + name) and all(w in key for w in want):
+            return v
+    return 0.0
+
+
+def test_daemon_retrains_promotes_and_a_second_process_builds_nothing(
+        cuda_device, tmp_path):
+    """The continual-learning daemon (service/daemon.py) at the reference
+    widths (N=47, hidden 32, batch 4, obs 7, M=2, K=3) on 30 spooled days:
+    one retrain by graph, promoted; its launches are 2 of each LSTM
+    training entry and 6 of each BDGCN entry a train step and 2
+    lstm_infer_last and 6 bdgcn_pair_fwd an eval step or rollout forward
+    (retrain_done's metrics); a ServeEngine on the promoted slot answers
+    bit for bit as a trainer's rollout graph on the same weights; a
+    second daemon process on 6 more days retrains with no kernel library
+    built."""
+    import json
+    import subprocess
+    import sys
+
+    from mpgcn_tpu_torch.config import DaemonConfig
+    from mpgcn_tpu_torch.data.loader import synthetic_od
+    from mpgcn_tpu_torch.scenarios.dynamics import write_od_spool
+    from mpgcn_tpu_torch.service.daemon import ContinualDaemon
+    from mpgcn_tpu_torch.service.promote import promoted_path
+    from mpgcn_tpu_torch.utils.logging import read_events
+
+    spool, out = str(tmp_path / "spool"), str(tmp_path / "svc")
+    od = synthetic_od(36, 47, seed=0)
+    write_od_spool(od[:30], spool)
+    flags = dict(window_days=30, holdout_days=2, val_days=2,
+                 retrain_cadence=3, idle_exits=1, poll_secs=0.0)
+    tcfg = MPGCNConfig(mode="train", data="synthetic",
+                       output_dir=os.path.join(out, "retrain"),
+                       num_epochs=2, learn_rate=1e-3, pred_len=1)
+    d = ContinualDaemon(DaemonConfig(spool_dir=spool, output_dir=out,
+                                     **flags), tcfg, device=cuda_device)
+    assert d.run() == 0
+    gates = read_events(os.path.join(out, "promoted", "promotions.jsonl"),
+                        "gate")
+    assert [(g["attempt"], g["promoted"]) for g in gates] == [(1, True)]
+    done = read_events(os.path.join(out, "daemon_log.jsonl"),
+                       "retrain_done")[-1]["metrics"]
+    steps = {k: _snapshot_value(done, "daemon_retrain_steps", kind=k)
+             for k in ("train", "eval", "rollout")}
+    assert steps["train"] > 0 and steps["eval"] > 0 and steps["rollout"] > 0
+    launches = {k: _snapshot_value(done, "daemon_retrain_launches",
+                                   kernel=k)
+                for k in ("lstm_train_fwd_f32", "lstm_train_bwd_f32",
+                          "bdgcn_pair_bwd_f32", "bdgcn_pair_fwd_f32",
+                          "lstm_infer_last_f32")}
+    assert launches["lstm_train_fwd_f32"] == 2 * steps["train"]
+    assert launches["lstm_train_bwd_f32"] == 2 * steps["train"]
+    assert launches["bdgcn_pair_bwd_f32"] == 6 * steps["train"]
+    infer = steps["eval"] + steps["rollout"]
+    assert launches["lstm_infer_last_f32"] == 2 * infer
+    assert launches["bdgcn_pair_fwd_f32"] == 6 * (steps["train"] + infer)
+
+    cfg, data, pipeline = d._build_window(d._window_ids(),
+                                          str(tmp_path / "check"))
+    tr = d._trainer(cfg, data, pipeline)
+    tr.load_trained(promoted_path(out))
+    eng = ServeEngine(cfg, data, ServeConfig(
+        output_dir=str(tmp_path / "serve"), buckets=(1,),
+        reload_poll_secs=0), device=cuda_device,
+        init_ckpt=promoted_path(out))
+    try:
+        md = eng.pipeline.modes["test"]
+        for i in range(len(md)):
+            t = eng.submit(md.x[i, ..., 0], int(md.keys[i]), deadline_ms=0)
+            assert t.wait(60) and t.ok, t.error
+            want = tr.predict(md.x[i:i + 1], md.keys[i:i + 1], 1)
+            assert np.array_equal(np.asarray(t.pred), want[0]), i
+    finally:
+        eng.close()
+        tr.close()
+
+    write_od_spool(od[30:], spool, start_day=30)
+    root_dir = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root_dir)
+    env.pop("MPGCN_FAULTS", None)
+    argv = [sys.executable, "-m", "mpgcn_tpu_torch.cli", "daemon",
+            "-spool", spool, "-out", out, "-epoch", "2", "-lr", "1e-3"]
+    for k, v in flags.items():
+        argv += ["--" + k.replace("_", "-"), str(v)]
+    proc = subprocess.run(argv, env=env, cwd=root_dir, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    done = read_events(os.path.join(out, "daemon_log.jsonl"),
+                       "retrain_done")
+    assert [e["attempt"] for e in done] == [1, 2]
+    snap = done[-1]["metrics"]
+    assert _snapshot_value(snap, "cuda_program_builds",
+                           kind="kernel_library") == 0
+    assert _snapshot_value(snap, "cuda_program_builds",
+                           kind="cuda_graph") > 0
+    assert json.load(open(os.path.join(out, "daemon_state.json")))[
+        "retrains_done"] == 2

@@ -31,11 +31,14 @@ def _imports(tree):
             yield str(node.args[0].value)
 
 
+#: the card scripts
+SCRIPTS = ("chip_smoke.py", "kernel_hashes.py", "n500_int8_step.py",
+           "lstm_fwd_probe.py", "precision_times.py")
+
+
 def _sources():
     files = sorted((ROOT / "mpgcn_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "kernel_hashes.py",
-                    ROOT / "n500_int8_step.py", ROOT / "lstm_fwd_probe.py",
-                    ROOT / "precision_times.py"]
+    return files + [ROOT / s for s in SCRIPTS]
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -54,3 +57,14 @@ def test_checker_tells_the_packages_apart():
                      "import importlib; importlib.import_module('jaxlib')\n")
     assert [m for m in _imports(tree) if _forbidden(m)] == [
         "jax.numpy", "mpgcn_tpu.data", "jaxlib"]
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_card_scripts_define_each_name_once(script):
+    """A card script runs only on the card, so a second module-level
+    definition of a name (a later phase's helper rebinding an earlier
+    phase's) would show there first; here it is caught on the CPU."""
+    names = [n.name for n in ast.parse((ROOT / script).read_text()).body
+             if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+    twice = sorted({n for n in names if names.count(n) > 1})
+    assert not twice, f"{script} defines {twice} more than once"

@@ -973,6 +973,13 @@ def test_real_replicas_kill_partition_rolling_deploy(stack):
             assert len(got) == 1, f"tenant {t}: answers diverged"
             preds[t] = got.pop()
         assert len(set(preds.values())) == 3, "tenants answered alike"
+        # the kill is synchronous (ReplicaProcess.kill waits for the
+        # corpse), so r1's process is dead now; the death is counted by
+        # the control pass, which may still be inside a slow probe of r0
+        assert rt.handles[1].deaths or not rt.handles[1].proc.alive, (
+            "the kill_replica fault never landed on r1")
+        _wait(lambda: rt.handles[1].deaths >= 1, 60,
+              "the control pass to count r1's death")
         assert rt.handles[1].deaths == 1
         _wait(lambda: rt.handles[1].state == ADMITTED
               and rt.handles[1].proc.generation == 2, 180,
