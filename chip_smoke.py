@@ -261,6 +261,32 @@ Phases, each fatal on failure:
      then answers bit-equal to a ServeEngine built here on the promoted
      checkpoint; SIGTERM -> exit 0. The daemon's and the server's
      launches join the kernels line.
+ 20. after them all, [ops], the operator surface and the scenario engine
+     (N = 47 reference widths on the npz tree it writes; the profiles'
+     N = 20, obs 5, hidden 32): (a) `python -m mpgcn_tpu_torch.cli -in
+     DIR -epoch 2 -metrics-port 0 -compile-cache C` on a C that holds
+     three of the path's four kernel libraries (phase 1's builds, to keep
+     the smoke inside its limit): it builds bdgcn_pair_fwd and the host
+     library there (its /metrics scraped while it trains); then the same
+     with `-trace T`, the second process on C (0 libraries built, one
+     hit a library); then with `-no-obs` in this process: launches equal
+     in all three, losses bit-equal, every epoch event with `metrics` but
+     under -no-obs; the trace holds CUDA kernels, each launched entry's
+     eager launches by name, the path's hand kernels, at least as many
+     hand-kernel activities as counted launches (the replays in it) and
+     the steps' annotations; steps/s with and without the profiler,
+     each process's seconds cold and warm; (b) `serve --profile
+     taxi-midtown -trace T2`: 6 requests, `stats` and `slo` live and
+     offline, `stats --trace` stitches request -> batcher -> model, the
+     trace holds the replayed kernels and the batches' annotations; (c)
+     `scenario run` over taxi-midtown, bike-harbor and metro-loop on
+     the card: every tenant promotes, no library built, seconds a
+     retrain, `memory_reserved` flat across the tenants, `stats` on the
+     root has its federation section; then `transfer_ab(taxi-riverside,
+     taxi-midtown's promoted checkpoint)`: steps to promote warm
+     against scratch; (d) `scenario gen`, then `daemon --profile
+     metro-loop --metrics-port 0`, scraped while it runs. The
+     processes' launches join the kernels line.
 
 The second-to-last line is a JSON object listing each kernel; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a card, and
@@ -272,6 +298,7 @@ import copy
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -394,7 +421,8 @@ def reset_counts():
 def read_counts():
     import torch
 
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     return {n: k.launches for n, k in kernels().items()}
 
 
@@ -6916,6 +6944,517 @@ def phase_daemon(out_dir, card, device="cuda"):
     return total
 
 
+
+# --- phase 20: the operator surface and the scenario engine -----------------
+
+#: the train command run in a child interpreter through the CLI's entry
+#: point (cli.main, what ``python -m mpgcn_tpu_torch.cli`` calls), then the
+#: process's kernel launches printed last (the wrappers' counters)
+OPS_CLI = (
+    "import json, sys\n"
+    "from mpgcn_tpu_torch import cli\n"
+    "from mpgcn_tpu_torch.service.daemon import kernel_launches\n"
+    "try:\n"
+    "    cli.main(sys.argv[1:])\n"
+    "finally:\n"
+    "    print('[launches] ' + json.dumps(kernel_launches()), flush=True)\n")
+#: the kernel libraries phase 20's cache directory starts with: all of
+#: the train path's but bdgcn_pair_fwd, which its first process builds
+OPS_PRIMED = ("lstm_infer", "lstm_train", "bdgcn_pair_bwd")
+#: the federation's tenants (N=20, obs 5: shape-compatible) and its width
+OPS_PROFILES = ("taxi-midtown", "bike-harbor", "metro-loop")
+OPS_HIDDEN = "32"
+
+
+def _ops_log_url(log):
+    """The /metrics URL a process printed on its "[obs] /metrics on" line
+    (None before it has)."""
+    try:
+        with open(log) as f:
+            for line in f:
+                if line.startswith("[obs] /metrics on "):
+                    return line.split()[-1]
+    except OSError:
+        pass
+    return None
+
+
+def _ops_child(argv, log, scrape=False, timeout=600):
+    """Run ``argv`` (a list after ``python``) from the checkout with the
+    repo on PYTHONPATH, output into ``log``; with ``scrape``, GET its
+    /metrics every 50 ms while it runs and keep the last page whose
+    ``mpgcn_train_steps_per_sec`` is above 0. Returns (seconds, output,
+    kept page or None)."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    page = None
+    with open(log, "w") as f:
+        p = subprocess.Popen([sys.executable, *argv], stdout=f,
+                             stderr=subprocess.STDOUT, env=_daemon_env(),
+                             cwd=HERE)
+        try:
+            while p.poll() is None:
+                if time.perf_counter() - t0 > timeout:
+                    raise RuntimeError(f"{argv[:3]} ran past {timeout}s")
+                url = _ops_log_url(log) if scrape else None
+                if url:
+                    try:
+                        with urllib.request.urlopen(url, timeout=5) as r:
+                            text = r.read().decode()
+                        if _metric(text, "mpgcn_train_steps_per_sec") > 0:
+                            page = text
+                    except (OSError, RuntimeError):
+                        pass
+                time.sleep(0.05)
+        finally:
+            if p.poll() is None:
+                p.kill()
+            rc = p.wait()
+    with open(log) as f:
+        out = f.read()
+    require(rc == 0, f"{argv[:4]} exited {rc}: {out[-3000:]}")
+    return time.perf_counter() - t0, out, page
+
+
+def _ops_train(tag, argv, out_dir, scrape=False):
+    """One train command in its own process: (launches by kernel name,
+    seconds, its epoch events, the kept /metrics page)."""
+    run_out = os.path.join(out_dir, tag)
+    secs, out, page = _ops_child(
+        ["-c", OPS_CLI, *argv, "-out", run_out],
+        os.path.join(out_dir, f"{tag}.log"), scrape=scrape)
+    line = [x for x in out.splitlines() if x.startswith("[launches] ")][-1]
+    by_symbol = json.loads(line[len("[launches] "):])
+    launches = {n: by_symbol[k.symbol] for n, k in kernels().items()}
+    from mpgcn_tpu_torch.utils.logging import read_events
+
+    epochs = read_events(os.path.join(run_out, "MPGCN_train_log.jsonl"),
+                         "epoch")
+    require(len(epochs) == 2, f"{tag}: {len(epochs)} epoch events")
+    return launches, secs, epochs, page
+
+
+def _hand_kernel_names():
+    """The __global__ functions of csrc/: the names the hand kernels
+    carry in a device trace."""
+    import re
+
+    names = set()
+    csrc = os.path.join(HERE, "mpgcn_tpu_torch", "csrc")
+    for f in os.listdir(csrc):
+        with open(os.path.join(csrc, f)) as fh:
+            names.update(re.findall(r"__global__[\s\S]{0,200}?(\w+_kernel)"
+                                    r"\s*\(", fh.read()))
+    return names
+
+
+def _ops_trace(tdir, label, cuda=True):
+    """The trace file trace_if wrote into ``tdir``: (device kernel events
+    by hand-kernel name, every device kernel event, annotation names)."""
+    import collections
+    import glob
+
+    files = glob.glob(os.path.join(tdir, "*.pt.trace.json"))
+    require(len(files) == 1, f"{label}: trace files {files}")
+    with open(files[0]) as f:
+        events = json.load(f).get("traceEvents", [])
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    require(kern or not cuda,
+            f"{label}: the profiler recorded no CUDA kernel")
+    hand = collections.Counter()
+    graphed = 0
+    names = _hand_kernel_names()
+    for e in kern:
+        for name in names:
+            if name in e.get("name", ""):
+                hand[name] += 1
+                graphed += any("graph" in k for k in e.get("args", {}))
+                break
+    notes = collections.Counter(
+        e.get("name", "") for e in events
+        if e.get("cat") == "user_annotation")
+    print(f"[ops] {label}: {os.path.basename(files[0])} "
+          f"{os.path.getsize(files[0]) / 2 ** 20:.1f} MiB, "
+          f"{len(kern)} device kernels, hand kernels {dict(hand)} "
+          f"({graphed} with a graph id)", flush=True)
+    return hand, kern, notes
+
+
+def ops_train(tree, out_dir, card, device="cuda"):
+    """(a): the train command traced, with the sidecar and a fresh
+    kernel-library directory, against the same command untraced and with
+    -no-obs. Returns the launches of the three runs. (``device="cpu"``
+    rehearses the plumbing off the card: no kernel, no device trace.)"""
+    from mpgcn_tpu_torch.obs.perf.compile_cache import ENV_VAR
+
+    cuda = device == "cuda"
+    os.environ.pop(ENV_VAR, None)
+    os.makedirs(out_dir)
+    cache = os.path.join(out_dir, "kernel_cache")
+    os.makedirs(cache)
+    if cuda:
+        # the directory starts with three of the path's four libraries,
+        # as phase 1 built them (a cold process builds one source after
+        # another: ~2 minutes of the smoke's limit for all four): the
+        # first process builds bdgcn_pair_fwd and the host library into it
+        from mpgcn_tpu_torch.native import build
+
+        for name in OPS_PRIMED:
+            shutil.copy(build._lib_path(name), cache)
+    tdir = os.path.join(out_dir, "trace")
+    base = ["-GPU", "0" if cuda else "cpu", "-in", tree, "-data", "npz",
+            "-epoch", "2", "-compile-cache", cache]
+    # 1: cold directory, untraced, the sidecar scraped
+    cold, cold_s, cold_ep, cold_page = _ops_train(
+        "cold", base + ["-metrics-port", "0"], out_dir, scrape=True)
+    # 2: the traced command, the second process on the directory
+    traced, traced_s, traced_ep, page = _ops_train(
+        "traced", base + ["-trace", tdir, "-metrics-port", "0"], out_dir,
+        scrape=True)
+    # 3: without telemetry, in this process (warm: its kernels loaded,
+    # its context up), on the default library directory
+    from mpgcn_tpu_torch.utils.logging import read_events
+
+    bare_out = os.path.join(out_dir, "no_obs")
+    _, bare, bare_s, _ = _cli(base[:-2] + ["-no-obs", "-out", bare_out])
+    bare_ep = read_events(os.path.join(bare_out, "MPGCN_train_log.jsonl"),
+                          "epoch")
+    require(_nz(cold) == _nz(traced) == _nz(bare)
+            and (_nz(cold) or not cuda),
+            f"launches untraced {_nz(cold)}, traced {_nz(traced)}, "
+            f"-no-obs {_nz(bare)}")
+    for label, p in (("cold", cold_page), ("traced", page)):
+        require(p is not None, f"{label}: no /metrics page with steps/s > 0")
+        for fam in ("mpgcn_train_steps_per_sec", "mpgcn_train_epoch_seconds",
+                    "mpgcn_graph_support_density", "mpgcn_train_loss_scale",
+                    "mpgcn_cuda_program_builds",
+                    "mpgcn_kernel_cache_hits", "mpgcn_slo_state"):
+            require(f"# TYPE {fam}" in p, f"{label}: /metrics lacks {fam}")
+    for label, eps in (("cold", cold_ep), ("traced", traced_ep)):
+        require(all("metrics" in e for e in eps),
+                f"{label}: an epoch event without metrics")
+    require(not any("metrics" in e for e in bare_ep),
+            "-no-obs: an epoch event carries metrics")
+    for key in ("train_loss", "validate_loss"):
+        a = [e[key] for e in cold_ep]
+        require(a == [e[key] for e in bare_ep]
+                == [e[key] for e in traced_ep],
+                f"{key}: telemetry {a}, -no-obs {[e[key] for e in bare_ep]}"
+                f", traced {[e[key] for e in traced_ep]}")
+    m_cold, m_warm = cold_ep[-1]["metrics"], traced_ep[-1]["metrics"]
+    built = _snap(m_cold, "cuda_program_builds", kind="kernel_library")
+    missed = _snap(m_cold, "kernel_cache_misses")
+    hit = _snap(m_cold, "kernel_cache_hits")
+    require(built == (1 if cuda else 0) and missed == built + 1
+            and hit == (len(OPS_PRIMED) if cuda else 0),
+            f"cold directory: {built} libraries built, {missed} misses, "
+            f"{hit} hits")
+    require(_snap(m_warm, "cuda_program_builds", kind="kernel_library") == 0
+            and _snap(m_warm, "kernel_cache_misses") == 0
+            and _snap(m_warm, "kernel_cache_hits") == missed + hit,
+            f"second process: builds "
+            f"{_snap(m_warm, 'cuda_program_builds', kind='kernel_library')}"
+            f", misses {_snap(m_warm, 'kernel_cache_misses')}, hits "
+            f"{_snap(m_warm, 'kernel_cache_hits')} (first: {missed} misses)")
+    hand, kern, notes = _ops_trace(tdir, "train trace", cuda)
+    for name, n in _nz(traced).items():
+        require(notes.get(kernels()[name].symbol, 0) > 0,
+                f"the trace names no eager launch of {name}")
+    for name in ("lstm_fwd_kernel", "lstm_train_bwd_kernel"):
+        require(hand.get(name) or not cuda, f"the trace holds no {name}")
+    require(any(n.startswith("tf32_") for n in hand) or not cuda,
+            "the trace holds no K-BDGCN product kernel")
+    require(sum(hand.values()) >= sum(traced.values()),
+            f"{sum(hand.values())} hand kernels in the trace for "
+            f"{sum(traced.values())} counted launches (graph replays "
+            f"missing)")
+    require(any(k.startswith("train_step#") for k in notes),
+            "the trace has no step annotation")
+    sps = {k: e[-1]["steps_per_sec"] for k, e in
+           (("untraced", cold_ep), ("traced", traced_ep),
+            ("no-obs", bare_ep))}
+    print(f"[ops] (a) train -epoch 2 at N=47: launches equal traced, "
+          f"untraced and -no-obs {_nz(traced)}; steps/s {sps} (step "
+          f"{1e3 / sps['no-obs']:.3f} ms warm without the profiler, "
+          f"{1e3 / sps['traced']:.3f} ms under it); process "
+          f"{cold_s:.1f} s cold ({built:.0f} kernel library built, "
+          f"{missed:.0f} misses with the host library, {hit:.0f} hits), "
+          f"{traced_s:.1f} s traced warm (0 built, "
+          f"{_snap(m_warm, 'kernel_cache_hits'):.0f} hits); -no-obs in "
+          f"this process {bare_s:.1f} s; losses bit-equal with and without "
+          f"telemetry ({card})", flush=True)
+    return [cold, traced, bare]
+
+
+def _ops_request(base, body, trace):
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + "/v1/predict", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json",
+                 "X-MPGCN-Trace": trace})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.load(r)
+
+
+def _ops_cmd(args, log, timeout=120):
+    """``python -m mpgcn_tpu_torch.cli <args>``: (rc, output)."""
+    with open(log, "w") as f:
+        rc = subprocess.run([sys.executable, "-m", "mpgcn_tpu_torch.cli",
+                             *args], stdout=f, stderr=subprocess.STDOUT,
+                            env=_daemon_env(), cwd=HERE,
+                            timeout=timeout).returncode
+    with open(log) as f:
+        return rc, f.read()
+
+
+def _json_tail(out):
+    """The JSON document a command printed last (from its first line that
+    opens one)."""
+    lines = out.splitlines()
+    start = max(i for i, x in enumerate(lines) if x.startswith(("{", "[")))
+    return json.loads("\n".join(lines[start:]))
+
+
+def ops_serve(out_dir, cache, card, device="cuda"):
+    """(b): serve --profile taxi-midtown -trace, then stats and slo live
+    and offline and one request's stitched trace. Returns its launches."""
+    from mpgcn_tpu_torch.obs.trace import TRACE_HEADER
+    from mpgcn_tpu_torch.scenarios.profiles import generate, get_profile
+
+    require(TRACE_HEADER == "X-MPGCN-Trace", TRACE_HEADER)
+    svc, tdir = os.path.join(out_dir, "svc"), os.path.join(out_dir, "trace")
+    prof = get_profile("taxi-midtown")
+    od = generate(prof, days=prof.obs_len + 1)["od"]
+    log = open(os.path.join(out_dir, "serve.log"), "w")
+    p = subprocess.Popen(
+        [sys.executable, "-m", "mpgcn_tpu_torch.cli", "serve", "--device",
+         device, "-out", svc, "--profile", prof.name, "-trace", tdir, "--allow-fresh-init",
+         "-hidden", OPS_HIDDEN, "--buckets", "1,2", "--compile-cache",
+         cache], stdout=log, stderr=subprocess.STDOUT, env=_daemon_env(),
+        cwd=HERE)
+    try:
+        info = os.path.join(svc, "serve", "http.json")
+        _wait_for(lambda: os.path.exists(info) or p.poll() is not None,
+                  180, "serve's http.json")
+        require(p.poll() is None, "serve exited at startup")
+        with open(info) as f:
+            addr = json.load(f)
+        base = f"http://{addr['host']}:{addr['port']}"
+        x = np.log1p(od[:prof.obs_len])
+        for i in range(6):
+            ans = _ops_request(base, {"x": x.tolist(), "key": i % 7},
+                               f"ops{i}")
+            require(ans.get("outcome") == "ok", f"request {i}: {ans}")
+        st = json.loads(_get(base, "/v1/stats"))
+        launches = dict(st["kernel_launches"])
+        rc, out = _ops_cmd(["stats", "-out", svc, "--json"],
+                           os.path.join(out_dir, "stats_live.log"))
+        live = _json_tail(out)
+        require(rc == 0 and "live" in live
+                and live["requests"]["n"] >= 6, f"stats live: {out[-2000:]}")
+        rc, out = _ops_cmd(["slo", "-out", svc, "--json"],
+                           os.path.join(out_dir, "slo_live.log"))
+        slo_live = _json_tail(out)
+        require(rc == 0 and slo_live["source"] == "live"
+                and slo_live["slos"], f"slo live: {out[-2000:]}")
+    finally:
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+        rc = p.wait(timeout=180)
+        log.close()
+    require(rc == 0, f"serve exited {rc}")
+    rc, out = _ops_cmd(["stats", "-out", svc, "--json"],
+                       os.path.join(out_dir, "stats_offline.log"))
+    off = _json_tail(out)
+    require(rc == 0 and "live" not in off and off["spans"]["traces"] >= 6,
+            f"stats offline: {out[-2000:]}")
+    rc, out = _ops_cmd(["slo", "-out", svc, "--json"],
+                       os.path.join(out_dir, "slo_offline.log"))
+    slo_off = _json_tail(out)
+    require(rc == 0 and slo_off["source"] == "ledger"
+            and slo_off["rows"] >= 6, f"slo offline: {out[-2000:]}")
+    rc, out = _ops_cmd(["stats", "-out", svc, "--trace", "ops3", "--json"],
+                       os.path.join(out_dir, "stats_trace.log"))
+    roots = _json_tail(out)
+    chain = []
+    node = roots[0] if len(roots) == 1 else None
+    while node is not None:
+        chain.append(node["name"])
+        node = node["children"][0] if len(node["children"]) == 1 else None
+    require(rc == 0 and chain == ["serve.request", "serve.batcher",
+                                  "serve.model"], f"stats --trace: {out}")
+    hand, _, notes = _ops_trace(tdir, "serve trace", device == "cuda")
+    require((hand.get("lstm_fwd_kernel") or device != "cuda") and any(
+        k.startswith("serve_batch#") for k in notes),
+        f"serve trace: hand kernels {dict(hand)}")
+    print(f"[ops] (b) serve --profile {prof.name} (N={prof.num_nodes}, "
+          f"obs {prof.obs_len}, hidden {OPS_HIDDEN}): 6 requests; stats "
+          f"live and offline, slo live ({[s['state'] for s in slo_live['slos']]}"
+          f") and offline ({slo_off['rows']} rows), --trace ops3 -> "
+          f"{' -> '.join(chain)} ({card})", flush=True)
+    return {n: launches.get(n, 0) for n in KERNEL_META}
+
+
+def ops_federation(out_dir, cache, card, device="cuda"):
+    """(c): scenario run over three profiles on the card, stats on the
+    root, then transfer_ab from taxi-midtown's promoted checkpoint.
+    Returns the launches of the retrains and of the A/B."""
+    from mpgcn_tpu_torch.scenarios.transfer import transfer_ab
+    from mpgcn_tpu_torch.utils.logging import read_events
+
+    root = os.path.join(out_dir, "fleet")
+    env_cache = dict(os.environ)
+    os.environ["MPGCN_COMPILE_CACHE"] = cache  # the run's libraries
+    try:
+        rc, out = _ops_cmd(["scenario", "run", "-out", root, "--profiles",
+                            ",".join(OPS_PROFILES), "-hidden", OPS_HIDDEN,
+                            "--device", device, "--json"],
+                           os.path.join(out_dir, "scenario_run.log"),
+                           timeout=600)
+    finally:
+        os.environ.clear()
+        os.environ.update(env_cache)
+    require(rc == 0, f"scenario run exited {rc}: {out[-3000:]}")
+    report = _json_tail(out)
+    total = {n: 0 for n in KERNEL_META}
+    symbols = {k.symbol: n for n, k in kernels().items()}
+    rows = []
+    for tid in OPS_PROFILES:
+        sec = report["tenants"][tid]
+        require(sec["promoted"] >= 1, f"{tid}: {sec}")
+        events = read_events(os.path.join(root, "tenants", tid,
+                                          "daemon_log.jsonl"))
+        for attempt, _, secs, graphs, reserved, libs, e in \
+                _retrain_report(events):
+            require(libs == 0, f"{tid}: {libs} kernel libraries built")
+            rows.append((tid, attempt, secs, graphs, reserved))
+            for s, name in symbols.items():
+                total[name] += int(_snap(e["metrics"],
+                                         "daemon_retrain_launches",
+                                         kernel=s))
+    reserved = [r[4] for r in rows]
+    require(max(reserved) <= reserved[0] + 2 ** 21,
+            f"memory_reserved after each tenant's retrains: {reserved}")
+    rc, out = _ops_cmd(["stats", "-out", root, "--json"],
+                       os.path.join(out_dir, "stats_fleet.log"))
+    fed = _json_tail(out).get("federation")
+    require(rc == 0 and fed and fed["cross_tenant"]["tenants_total"] == 3,
+            f"stats federation: {out[-2000:]}")
+    for tid, attempt, secs, graphs, res in rows:
+        print(f"[ops] (c) {tid} retrain {attempt}: {secs:.2f} s, "
+              f"{graphs:.0f} graph captures, memory_reserved after it "
+              f"{res / 2 ** 20:.1f} MiB ({card})", flush=True)
+    donor = os.path.join(root, "tenants", "taxi-midtown", "promoted",
+                         "MPGCN_od.pkl")
+    reset_counts()
+    t0 = time.perf_counter()
+    ab = transfer_ab("taxi-riverside", donor, os.path.join(out_dir, "ab"),
+                     hidden_dim=int(OPS_HIDDEN), device=device)
+    ab_s = time.perf_counter() - t0
+    if device == "cuda":
+        total = _add(total, read_counts())
+    require(ab["scratch_steps_to_promote"], f"transfer_ab: {ab}")
+    print(f"[ops] (c) federation cross-tenant {json.dumps(fed['cross_tenant'])}"
+          f"; transfer_ab taxi-riverside <- taxi-midtown: steps to promote "
+          f"warm {ab['warm_steps_to_promote']} scratch "
+          f"{ab['scratch_steps_to_promote']} ({ab['steps_per_epoch']} a "
+          f"epoch, bar {ab['bar_val_loss']}), {ab_s:.1f} s ({card})",
+          flush=True)
+    return total
+
+
+def ops_daemon(out_dir, cache, card, device="cuda"):
+    """(d): scenario gen, then daemon --profile metro-loop --metrics-port
+    0, scraped once while it runs. Returns its retrains' launches."""
+    from mpgcn_tpu_torch.service.daemon import daemon_log_path
+    from mpgcn_tpu_torch.utils.logging import read_events
+
+    spool, svc = os.path.join(out_dir, "spool"), os.path.join(out_dir, "svc")
+    rc, out = _ops_cmd(["scenario", "gen", "-profile", "metro-loop", "-out",
+                        spool, "--days", "34"],
+                       os.path.join(out_dir, "gen.log"))
+    require(rc == 0 and "wrote 34 day file(s)" in out, f"gen: {out}")
+    log = os.path.join(out_dir, "daemon.log")
+    page = []
+
+    def scrape():
+        # the sidecar is up before the daemon registers its series: the
+        # page kept is the first that holds them
+        url = _ops_log_url(log)
+        if url and not page:
+            try:
+                text = _get(url.rsplit("/metrics", 1)[0], "/metrics",
+                            timeout=5)
+            except OSError:
+                return
+            if "# TYPE mpgcn_daemon_days_total counter" in text:
+                page.append(text)
+
+    with open(log, "w") as f:
+        p = subprocess.Popen(
+            [sys.executable, "-m", "mpgcn_tpu_torch.cli", "daemon",
+             "--device", device, "--profile", "metro-loop", "-spool", spool, "-out", svc,
+             "--metrics-port", "0", "--compile-cache", cache, "-hidden",
+             OPS_HIDDEN, "-epoch", "3", "--window-days", "34",
+             "--val-days", "3", "--holdout-days", "4",
+             "--retrain-cadence", "4", "--idle-exits", "2",
+             "--poll-secs", "0.2"], stdout=f, stderr=subprocess.STDOUT,
+            env=_daemon_env(), cwd=HERE)
+        t0 = time.perf_counter()
+        while p.poll() is None and time.perf_counter() - t0 < 300:
+            scrape()
+            time.sleep(0.05)
+        if p.poll() is None:
+            p.kill()
+        rc = p.wait()
+    with open(log) as f:
+        text = f.read()
+    require(rc == 0, f"daemon exited {rc}: {text[-3000:]}")
+    require(page, "daemon /metrics: no page with the daemon's series "
+                  "while it ran")
+    require("scenario profile 'metro-loop'" in text, text[-2000:])
+    total = {n: 0 for n in KERNEL_META}
+    symbols = {k.symbol: n for n, k in kernels().items()}
+    done = read_events(daemon_log_path(svc), "retrain_done")
+    require(done and done[-1]["promoted"], f"daemon retrains: {done}")
+    for e in done:
+        for s, name in symbols.items():
+            total[name] += int(_snap(e["metrics"], "daemon_retrain_launches",
+                                     kernel=s))
+    print(f"[ops] (d) daemon --profile metro-loop --metrics-port 0: scraped "
+          f"{len(page[0].splitlines())} lines, {len(done)} retrain(s), "
+          f"promoted ({card})", flush=True)
+    return total
+
+
+def phase_ops(out_dir, card, device="cuda"):
+    """Phase 20, [ops]: the operator surface and the scenario engine.
+    Returns the launches of its processes and of transfer_ab."""
+    t0 = time.perf_counter()
+    tree = os.path.join(out_dir, "data")
+    os.makedirs(tree)
+    write_reference_tree(tree)
+    total = {n: 0 for n in KERNEL_META}
+    for counts in ops_train(tree, os.path.join(out_dir, "train"), card,
+                            device):
+        total = _add(total, counts)
+    cache = os.path.join(out_dir, "train", "kernel_cache")
+    print(f"[ops] (a) took {time.perf_counter() - t0:.1f}s", flush=True)
+    for sub, fn in (("serve", ops_serve), ("federation", ops_federation),
+                    ("daemon", ops_daemon)):
+        t1 = time.perf_counter()
+        d = os.path.join(out_dir, sub)
+        os.makedirs(d)
+        total = _add(total, fn(d, cache, card, device))
+        print(f"[ops] {sub} took {time.perf_counter() - t1:.1f}s",
+              flush=True)
+    print(f"[ops] phase 20 took {time.perf_counter() - t0:.1f}s ({card})",
+          flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -7117,6 +7656,12 @@ def main() -> int:
     shutil.rmtree(out_d, ignore_errors=True)
     os.makedirs(out_d)
     total = _add(total, phase_daemon(out_d, card))
+
+    # the operator surface and the scenario engine, after every phase
+    out_o = os.path.join(HERE, "smoke_out", "ops")
+    shutil.rmtree(out_o, ignore_errors=True)
+    os.makedirs(out_o)
+    total = _add(total, phase_ops(out_o, card))
 
     print(card)  # the card's name and power limit, as nvidia-smi gives them
     print(f"[done] smoke run took {time.perf_counter() - t_start:.1f}s")

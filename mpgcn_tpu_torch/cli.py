@@ -8,6 +8,9 @@ of mpgcn_tpu/cli.py; reference Main.py:7-67).
     python -m mpgcn_tpu_torch.cli router -out ROOT [--replicas 2] -- ...
     python -m mpgcn_tpu_torch.cli daemon -spool SPOOL -out ROOT [--device cpu]
     python -m mpgcn_tpu_torch.cli supervise --procs 1 -- daemon ...
+    python -m mpgcn_tpu_torch.cli stats -out ROOT [--trace ID] [--json]
+    python -m mpgcn_tpu_torch.cli slo -out ROOT [--json]
+    python -m mpgcn_tpu_torch.cli scenario list|gen|run ...
 
 ``serve`` dispatches to the serving plane's command
 (service/serve.py ``main``, the JAX ``mpgcn-tpu serve``): HTTP, canaried
@@ -23,7 +26,20 @@ through the day gate, retrains on cadence or drift, eval-before-promote
 into ``<out>/promoted/``. ``supervise`` runs the command after ``--`` as
 a child and relaunches it with ``-resume`` when it dies
 (resilience/supervisor.py ``main``, the JAX ``mpgcn-tpu supervise``, one
-process).
+process). ``stats`` (obs/stats.py) and ``slo`` (obs/perf/slo_cli.py) read
+a service root's ledgers, span log and live ``/v1/stats``; ``scenario``
+(scenarios/cli.py) lists and generates the scenario profiles and runs
+the federation (one daemon per profile into one fleet registry). The JAX
+CLI's ``perf``, ``tune`` and ``lint`` are not ported.
+
+The operator flags: ``-trace DIR`` records the session in a
+``torch.profiler`` window (utils/profiling.py ``trace_if``; CUDA activity
+on the card) and writes its trace into DIR; ``-metrics-port P`` serves
+the process registry's ``/metrics`` (obs/metrics.py ``MetricsServer``; 0
+= ephemeral, printed) and runs the device sampler for the session;
+``-no-obs`` turns the trainer's telemetry off (and the sidecars);
+``-compile-cache DIR`` is the directory of the built kernel libraries
+(obs/perf/compile_cache.py).
 
 Runs on the card (``-GPU 0``, the default) unless ``-GPU cpu`` asks for the
 CPU. Train mode trains the single-step model (pred_len is forced to 1, as
@@ -285,6 +301,32 @@ def build_parser() -> argparse.ArgumentParser:
                    help="C++/OpenMP host kernels for the window gather and "
                         "the day-of-week mean (auto: when they build; off: "
                         "numpy)")
+    # the operator surface
+    p.add_argument("-trace", "--trace_dir", type=str, default=None,
+                   help="torch.profiler trace output dir: the whole "
+                        "session in one window (CPU activity, and CUDA "
+                        "activity on the card; each step annotated), "
+                        "written there as <host>_<pid>.<ms>.pt.trace.json")
+    p.add_argument("-no-obs", "--no_obs", dest="obs_metrics",
+                   action="store_false",
+                   help="turn the trainer's telemetry off: its metrics "
+                        "series, the SLO engine, the registry snapshot in "
+                        "the epoch events, the device sampler and the "
+                        "-metrics-port sidecar")
+    p.add_argument("-compile-cache", "--compile_cache_dir", type=str,
+                   default="",
+                   help="directory of the built kernel libraries "
+                        "(obs/perf/compile_cache.py): a second process "
+                        "loads them instead of building them; hit, miss "
+                        "and size series ride the metrics registry "
+                        "($MPGCN_COMPILE_CACHE is the env equivalent; "
+                        "unset: native/_build/)")
+    p.add_argument("-metrics-port", "--metrics_port", type=int,
+                   default=None,
+                   help="serve GET /metrics (Prometheus text of the "
+                        "process registry) from a stdlib HTTP sidecar on "
+                        "this port (0 = ephemeral, printed at startup; "
+                        "unset = off)")
     return p
 
 
@@ -297,8 +339,10 @@ def device_for(gpu: str) -> str:
     return f"cuda:{gpu}"
 
 
-#: flags that pick the device, the arms and resume, not config fields
-RUN_FLAGS = ("GPU", "lstm_impl", "bdgcn_impl", "resume")
+#: flags that pick the device, the arms, resume and the session's
+#: sidecars, not config fields
+RUN_FLAGS = ("GPU", "lstm_impl", "bdgcn_impl", "resume", "trace_dir",
+             "metrics_port")
 
 
 def config_from_args(args: dict) -> MPGCNConfig:
@@ -357,26 +401,68 @@ def main(argv=None):
         from mpgcn_tpu_torch.service.daemon import main as daemon_main
 
         raise SystemExit(daemon_main(argv[1:]))
+    if argv and argv[0] == "stats":
+        # the read surface over ledgers, span logs and a live /v1/stats
+        from mpgcn_tpu_torch.obs.stats import main as stats_main
+
+        raise SystemExit(stats_main(argv[1:]))
+    if argv and argv[0] == "slo":
+        # the SLO state of a serving root, live or from its ledger
+        from mpgcn_tpu_torch.obs.perf.slo_cli import main as slo_main
+
+        raise SystemExit(slo_main(argv[1:]))
+    if argv and argv[0] == "scenario":
+        # profiles and spools (no torch); `run` trains through the daemon
+        from mpgcn_tpu_torch.scenarios.cli import main as scenario_main
+
+        raise SystemExit(scenario_main(argv[1:]))
     # torch is imported from here on: the subcommands above import it
-    # only when they need it (`fleet`, `router` and `supervise` never)
+    # only when they need it (`fleet`, `router`, `supervise`, `stats`,
+    # `slo`, `scenario list|gen` never)
     from mpgcn_tpu_torch.data.loader import load_dataset
     from mpgcn_tpu_torch.device import resolve_device
+    from mpgcn_tpu_torch.obs.perf import compile_cache
     from mpgcn_tpu_torch.train.trainer import ModelTrainer
+    from mpgcn_tpu_torch.utils.profiling import trace_if
 
     args = build_parser().parse_args(argv).__dict__
     # no card, no data loading: the device is checked first
     device = resolve_device(device_for(args["GPU"]))
     lstm_impl = "plain" if args["lstm_impl"] == "plain" else "kernel"
     bdgcn_impl, resume = args["bdgcn_impl"], args["resume"]
+    trace_dir, metrics_port = args["trace_dir"], args["metrics_port"]
     cfg = config_from_args(args)
+    # the kernel-library directory before anything is built
+    compile_cache.enable(cfg.compile_cache_dir or None)
     os.makedirs(cfg.output_dir, exist_ok=True)
     data, data_input = load_dataset(cfg)
     cfg = cfg.replace(num_nodes=data["OD"].shape[1])
     trainer = ModelTrainer(cfg, data, device=device, lstm_impl=lstm_impl,
                            bdgcn_impl=bdgcn_impl, data_container=data_input)
-    if cfg.mode == "train":
-        return trainer.train(resume=resume)
-    return trainer.test()
+    # the sidecars ride the whole session; -no-obs keeps both off with
+    # the trainer's own telemetry
+    sidecar = sampler = None
+    if cfg.obs_metrics:
+        from mpgcn_tpu_torch.obs.device import DeviceSampler
+        from mpgcn_tpu_torch.obs.metrics import MetricsServer, default_registry
+
+        sampler = DeviceSampler().start()
+        if metrics_port is not None:
+            sidecar = MetricsServer([default_registry()],
+                                    port=metrics_port).start()
+            print(f"[obs] /metrics on "
+                  f"http://{sidecar.host}:{sidecar.port}/metrics",
+                  flush=True)
+    try:
+        with trace_if(trace_dir, device):
+            if cfg.mode == "train":
+                return trainer.train(resume=resume)
+            return trainer.test()
+    finally:
+        if sampler is not None:
+            sampler.stop()
+        if sidecar is not None:
+            sidecar.stop()
 
 
 if __name__ == "__main__":

@@ -20,7 +20,9 @@ city-scale feed: the fused epilogues (``fused_epilogue``), the host
 storage of the OD series (``od_storage``), the chunked-stream epoch
 executor (``epoch_stream``, ``stream_chunk_mb``) and the C++/OpenMP host
 kernels (``native_host``), and the fault-injection spec (``faults``,
-resilience/faults.py; the serving plane runs its arms). Knobs of paths
+resilience/faults.py; the serving plane runs its arms), and the operator
+surface: the kernel-library directory (``compile_cache_dir``) and the
+trainer's telemetry (``obs_metrics``). Knobs of paths
 this port does not have yet (meshes, the orbax checkpoint backend) are
 not here; they arrive with the slices that run them. ``DEFAULT_SLOS``
 are the serving plane's objectives (obs/perf/slo.py). The BDGCN arm is not a config
@@ -195,7 +197,19 @@ class MPGCNConfig:
     jsonl_log: bool = True                  # structured per-epoch JSONL log
     #                                         in <output_dir>/
     #                                         <model>_train_log.jsonl
-    loss_scaling: str = "auto"              # none | dynamic | auto: the
+    compile_cache_dir: str = ""             # the directory of the built
+    #                                         kernel libraries (obs/perf/
+    #                                         compile_cache.py): a second
+    #                                         process loads them instead of
+    #                                         building them; "" = the
+    #                                         $MPGCN_COMPILE_CACHE env hook,
+    #                                         else native/_build/
+    obs_metrics: bool = True                # the trainer's telemetry: its
+    #                                         series in the default metrics
+    #                                         registry, the SLO engine and
+    #                                         the registry snapshot in each
+    #                                         epoch event (-no-obs: off)
+    loss_scaling: str = "auto"             # none | dynamic | auto: the
     #                                         dynamic loss scaler of bf16
     #                                         training (quant/scaling.py);
     #                                         auto = dynamic for bfloat16,

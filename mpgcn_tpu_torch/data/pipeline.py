@@ -265,6 +265,7 @@ class DataPipeline:
         cfg = self.cfg
         nnz = sum(int(torch.count_nonzero(v)) for v in self.banks.values())
         total = sum(v.numel() for v in self.banks.values())
+        self.support_nnz = nnz
         self.support_density = nnz / total if total else 1.0
         self.requested_impl = requested
         self.bdgcn_impl = impl = resolve_bdgcn_impl(

@@ -5,10 +5,13 @@ Each source under ``mpgcn_tpu_torch/csrc/`` is compiled on first use by
 ``nvcc`` into its own shared library with a plain C interface, and loaded
 with ``ctypes``: seconds per source, where a build that includes PyTorch's
 headers takes minutes. Libraries are named by a hash of their source and
-of the headers under ``csrc/``, and land in ``native/_build/`` (listed in
-.gitignore), so an edited source is rebuilt and an unchanged one is
-reused. ``build_all`` starts one ``nvcc`` per source at once. Nothing but
-the sources in this package is built.
+of the headers under ``csrc/``, and land in the kernel-library directory
+(obs/perf/compile_cache.py: ``-compile-cache DIR``, else
+``$MPGCN_COMPILE_CACHE``, else ``native/_build/``, listed in .gitignore),
+so an edited source is rebuilt and an unchanged one is reused: a library
+found built counts as a cache hit, one built as a miss. ``build_all``
+starts one ``nvcc`` per source at once. Nothing but the sources in this
+package is built.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :class:`CudaKernel` raises when that is not 0 and
@@ -16,7 +19,9 @@ counts the launches that went through, eager or replayed from a CUDA
 graph (``capture_launches``, ``add_replayed``). A few entries launch
 nothing and report one number about the device (``query_int``). Each
 library built counts into the default metrics registry's
-``cuda_program_builds`` (obs/metrics.py).
+``cuda_program_builds`` (obs/metrics.py). While a ``torch.profiler``
+window records (utils/profiling.py ``trace_if``), each eager launch is
+named in the trace by its C entry.
 """
 
 from __future__ import annotations
@@ -29,16 +34,20 @@ import subprocess
 import threading
 
 from mpgcn_tpu_torch.obs.metrics import count_program_build
+from mpgcn_tpu_torch.obs.perf import compile_cache
+from mpgcn_tpu_torch.utils.profiling import kernel_annotation
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "_build")
+#: the default library directory (``-compile-cache`` picks another)
+BUILD_DIR = compile_cache.DEFAULT_DIR
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: the library paths this process built (a later load of one is no hit)
+_built: set = set()
 #: the launches of the CUDA graph being captured, by kernel (None: none is);
 #: one for the process, not one for a thread: a captured backward launches
 #: from autograd's device thread, not from the thread that captures
@@ -75,7 +84,8 @@ def _lib_path(name: str) -> str:
                                    for f in headers]:
         with open(path, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
+    return os.path.join(compile_cache.library_dir(),
+                        f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _start(name: str):
@@ -84,7 +94,7 @@ def _start(name: str):
     out = _lib_path(name)
     if os.path.exists(out):
         return None
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _source(name)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -102,7 +112,9 @@ def _finish(name: str, started) -> None:
         raise RuntimeError(f"nvcc failed to build {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
+    _built.add(out)
     count_program_build("kernel_library")
+    compile_cache.note_miss()
 
 
 def kernel_sources() -> list[str]:
@@ -131,10 +143,13 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            path = _lib_path(name)
             started = _start(name)
             if started is not None:
                 _finish(name, started)
-            lib = _libs[name] = ctypes.CDLL(_lib_path(name))
+            elif path not in _built:
+                compile_cache.note_hit()
+            lib = _libs[name] = ctypes.CDLL(path)
         return lib
 
 
@@ -205,7 +220,7 @@ class CudaKernel:
         fn = self._entry()
         dev = next(t for t in tensors if t is not None).device
         stream = torch.cuda.current_stream(dev).cuda_stream
-        with torch.cuda.device(dev):
+        with torch.cuda.device(dev), kernel_annotation(self.symbol):
             err = fn(*[None if t is None else t.data_ptr()
                        for t in tensors],
                      *[int(i) for i in ints], stream)

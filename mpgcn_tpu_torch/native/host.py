@@ -7,8 +7,10 @@ mpgcn_tpu/native/__init__.py for the JAX package).
         out = host.gather_windows(base, starts, steps)
 
 The library is built on first use with ``g++ -O3 -std=c++17 -fPIC -shared
--fopenmp`` into ``native/_build/`` (listed in .gitignore), named by a hash
-of the source, beside the CUDA kernels' libraries of native/build.py: by
+-fopenmp`` into the kernel-library directory beside the CUDA kernels'
+libraries of native/build.py (``native/_build/`` unless
+``-compile-cache`` picks another; obs/perf/compile_cache.py, which counts
+it found or built), named by a hash of the source: by
 the compiler ``CXX`` names when it is set, else, or when that one cannot
 build it (a compiler without OpenMP's runtime, say), by ``g++``. This is
 host code, not a device kernel. Where it does not build,
@@ -27,8 +29,11 @@ from typing import Optional
 
 import numpy as np
 
-from mpgcn_tpu_torch.native.build import BUILD_DIR
+from mpgcn_tpu_torch.obs.perf import compile_cache
 
+#: where the library lives; None: the kernel-library directory
+#: (``compile_cache.library_dir()``)
+BUILD_DIR: Optional[str] = None
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "mpgcn_host.cpp")
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-fopenmp")
@@ -46,7 +51,8 @@ _i64_p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 def lib_path() -> str:
     with open(SOURCE, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"libmpgcn_host-{digest}.so")
+    return os.path.join(BUILD_DIR or compile_cache.library_dir(),
+                        f"libmpgcn_host-{digest}.so")
 
 
 def compilers() -> list:
@@ -59,7 +65,7 @@ def compilers() -> list:
 def _build(out: str) -> None:
     """Build the library into ``out`` with the first compiler that can;
     raises RuntimeError naming each failure when none can."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"  # concurrent builds never interleave
     failures = []
     for cxx in compilers():
@@ -67,6 +73,7 @@ def _build(out: str) -> None:
             subprocess.run([cxx, *CXX_FLAGS, SOURCE, "-o", tmp],
                            check=True, capture_output=True, text=True)
             os.replace(tmp, out)  # importers never see a partial library
+            compile_cache.note_miss()
             return
         except (OSError, subprocess.CalledProcessError) as e:
             detail = (getattr(e, "stderr", "") or "").strip()
@@ -86,7 +93,9 @@ def load():
         if _state is None:
             try:
                 path = lib_path()
-                if not os.path.exists(path):
+                if os.path.exists(path):
+                    compile_cache.note_hit()
+                else:
                     _build(path)
                 lib = ctypes.CDLL(path)
                 lib.gather_windows_f32.argtypes = [_f32_p, _i64_p, _i64,

@@ -19,7 +19,9 @@ series land in: the device gauges (obs/device.py) and
 counterpart of the JAX package's ``jax_compiles``: every CUDA graph
 capture (train/graphs.py ``GraphSet.capture``) and every kernel library
 build (native/build.py). The serving plane's ``retrace_rate`` objective
-reads it: after startup it must not move.
+reads it: after startup it must not move. ``MetricsServer`` is the
+stdlib HTTP sidecar that serves ``/metrics`` for planes without an HTTP
+front of their own.
 """
 
 from __future__ import annotations
@@ -448,3 +450,67 @@ def count_program_build(kind: str) -> None:
         raise ValueError(f"program build kind {kind!r} is not one of "
                          f"{PROGRAM_BUILD_KINDS}")
     program_builds().labels(kind=kind).inc()
+
+
+# --- stdlib HTTP sidecar -----------------------------------------------------
+
+
+class MetricsServer:
+    """A stdlib HTTP sidecar serving GET /metrics (Prometheus text of
+    ``registries``) and /healthz, for the planes without an HTTP front of
+    their own (the trainer, the daemon; ``-metrics-port``). Port 0 picks
+    an ephemeral port: read ``.port`` after ``start()``; ``stop()``
+    releases the listening socket."""
+
+    def __init__(self, registries: Sequence[MetricsRegistry],
+                 port: int = 0, host: str = "127.0.0.1"):
+        self.registries = tuple(registries)
+        self.host = host
+        self.port = int(port)
+        self._httpd = None
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> "MetricsServer":
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        registries = self.registries
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_GET(self):
+                if self.path == "/metrics":
+                    body = render_prometheus(*registries).encode()
+                    ctype = "text/plain; version=0.0.4"
+                elif self.path == "/healthz":
+                    body, ctype = b'{"status": "ok"}', "application/json"
+                else:
+                    self.send_response(404)
+                    self.end_headers()
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        class _Server(ThreadingHTTPServer):
+            daemon_threads = True
+
+        self._httpd = _Server((self.host, self.port), Handler)
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        daemon=True, name="mpgcn-metrics")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            # release the socket: a restart on a fixed port must bind
+            self._httpd.server_close()
+            self._httpd = None
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None

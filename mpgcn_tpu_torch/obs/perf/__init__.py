@@ -1,2 +1,4 @@
 """Performance observability (counterpart of mpgcn_tpu/obs/perf/): the
-serving plane's service-level objectives (``slo``). Import-empty."""
+service-level objectives (``slo``), the ``slo`` command's offline and
+live evaluation (``slo_cli``) and the kernel-library cache behind
+``-compile-cache`` (``compile_cache``). Import-empty."""

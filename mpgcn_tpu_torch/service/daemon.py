@@ -36,12 +36,19 @@ with ``cuda_program_builds`` (graph captures and kernel library builds)
 and, for the attempt, the kernels' launches
 (``daemon_retrain_launches``), its steps by kind
 (``daemon_retrain_steps``: train, eval, rollout forwards) and the bytes
-the caching allocator holds once its trainer is closed
-(``daemon_device_bytes_reserved``).
+the caching allocator holds once its trainer and window are released
+(``daemon_device_bytes_reserved``: on the card the cuBLAS workspaces of
+the streams the retrains ran on, the same after every retrain).
 
 The daemon runs on the card (``--device cuda``, the default) and refuses
 to start without one unless ``--device cpu`` asks for the plain PyTorch
-versions of the kernels.
+versions of the kernels. The command's operator flags: ``--profile NAME``
+takes ``-obs``, ``-pred``, ``-seed`` and ``--nodes`` from a scenario
+profile (scenarios/profiles.py); ``--compile-cache DIR`` is the
+kernel-library directory (obs/perf/compile_cache.py); ``-trace DIR``
+records the session in a ``torch.profiler`` window, the retrain steps
+annotated (utils/profiling.py); ``--metrics-port P`` serves the default
+registry's ``/metrics`` (obs/metrics.py ``MetricsServer``).
 """
 
 from __future__ import annotations
@@ -194,7 +201,8 @@ class ContinualDaemon:
         self._m_reserved = reg.gauge(
             "daemon_device_bytes_reserved",
             "bytes the caching allocator holds after the last retrain's "
-            "trainer was closed (torch.cuda.memory_reserved; 0 on the CPU)")
+            "trainer and window were released (torch.cuda.memory_reserved "
+            "after empty_cache; 0 on the CPU)")
         # traffic capture: the serving plane's request ledger stitched
         # into spool day files before each ingest pass; the watermark
         # rides daemon_state.json
@@ -684,15 +692,20 @@ class ContinualDaemon:
 
     def _note_attempt(self, launches0: dict, steps: dict) -> None:
         """The attempt's kernel launches and steps, and the device bytes
-        held once its trainer is closed, into the gauges that
-        retrain_done's metrics snapshot carries."""
+        held once its trainer and window are released (the cached blocks
+        returned to the card first), into the gauges that retrain_done's
+        metrics snapshot carries."""
         for name, n in kernel_launches().items():
             self._m_launches.labels(kernel=name).set(n - launches0[name])
         for kind, n in steps.items():
             self._m_steps.labels(kind=kind).set(n)
         if self.device.type == "cuda":
+            import gc
+
             import torch
 
+            gc.collect()
+            torch.cuda.empty_cache()
             self._m_reserved.set(torch.cuda.memory_reserved(self.device))
 
     def _retrain_cycle(self, reason: str):
@@ -765,7 +778,8 @@ class ContinualDaemon:
                 self._save_state()
                 steps = dict(trainer.step_counts)
                 trainer.close()
-                trainer = None
+                # the window's banks go too, before the bytes are read
+                trainer = cfg = data = pipeline = None
                 self._note_attempt(launches0, steps)
                 self.log.log("retrain_done", attempt=attempt,
                              promoted=promoted, skipped_steps=skipped,
@@ -929,9 +943,7 @@ def _move(src: str, dst: str) -> None:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The JAX daemon command's flags, less those of paths the port does
-    not have (``--profile``, ``--compile-cache``, ``-trace``,
-    ``--metrics-port``), plus ``--device``."""
+    """The JAX daemon command's flags, plus ``--device``."""
     p = argparse.ArgumentParser(
         prog="python -m mpgcn_tpu_torch.cli daemon",
         description="Continual-learning service loop: ingest daily OD "
@@ -947,6 +959,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "adjacency.npy beside them overrides the "
                         "synthetic adjacency)")
     p.add_argument("-out", "--output_dir", default="./service")
+    p.add_argument("--profile", default=None,
+                   help="scenario profile name (scenarios/profiles.py): "
+                        "sets -obs/-pred/-seed/--nodes from the named "
+                        "profile's contract, so the retrained model "
+                        "matches the tenant's scenario (`scenario list`)")
+    p.add_argument("--compile-cache", dest="compile_cache_dir",
+                   type=str, default="",
+                   help="directory of the built kernel libraries (obs/"
+                        "perf/compile_cache.py): a relaunched daemon loads "
+                        "them instead of building them "
+                        "($MPGCN_COMPILE_CACHE is the env equivalent)")
     p.add_argument("--window-days", type=int, default=56)
     p.add_argument("--holdout-days", type=int, default=8)
     p.add_argument("--val-days", type=int, default=6)
@@ -1012,6 +1035,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "kill_retrain=K / poison_eval=K "
                         "(resilience/faults.py)")
     p.add_argument("-io-retries", "--io_retries", type=int, default=3)
+    p.add_argument("-trace", "--trace_dir", type=str, default=None,
+                   help="torch.profiler trace output dir: the daemon "
+                        "session in one window (retrain steps annotated), "
+                        "written there when it exits")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="serve GET /metrics (Prometheus text) from a "
+                        "stdlib HTTP sidecar on this port (0 = "
+                        "ephemeral, printed at startup; unset = off)")
     p.add_argument("-resume", "--resume", action="store_true",
                    help="accepted for supervisor compatibility (the "
                         "supervisor appends it on relaunch); the daemon "
@@ -1023,12 +1054,30 @@ def main(argv=None) -> int:
     from mpgcn_tpu_torch.config import MPGCNConfig
     from mpgcn_tpu_torch.device import resolve_device
     from mpgcn_tpu_torch.obs.device import DeviceSampler
+    from mpgcn_tpu_torch.obs.metrics import MetricsServer
+    from mpgcn_tpu_torch.obs.perf import compile_cache
+    from mpgcn_tpu_torch.utils.profiling import trace_if
 
     ns = build_parser().parse_args(argv)
     try:
         device = resolve_device(ns.device)
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"daemon: {e}") from None
+    if ns.profile:
+        # the profile's contract wins for the model-shape knobs it
+        # declares, so a federated tenant's daemon keeps its scenario
+        from mpgcn_tpu_torch.scenarios.profiles import get_profile
+
+        prof = get_profile(ns.profile)
+        ns.obs_len = prof.obs_len
+        ns.pred_len = prof.horizon
+        ns.seed = prof.folded_seed
+        ns.nodes = prof.num_nodes
+        print(f"[daemon] scenario profile {prof.name!r}: obs_len="
+              f"{prof.obs_len}, pred_len={prof.horizon}, N="
+              f"{prof.num_nodes}, seed={prof.folded_seed}", flush=True)
+    # the kernel-library directory before any retrain builds a kernel
+    compile_cache.enable(ns.compile_cache_dir or None)
     dcfg = DaemonConfig(
         spool_dir=ns.spool_dir, output_dir=ns.output_dir,
         window_days=ns.window_days, holdout_days=ns.holdout_days,
@@ -1057,12 +1106,21 @@ def main(argv=None) -> int:
         num_epochs=ns.num_epochs, seed=ns.seed, shuffle=ns.shuffle,
         faults=ns.faults, io_retries=ns.io_retries)
     # the card's memory gauges ride the default registry that the cycle
-    # events snapshot
+    # events snapshot; --metrics-port exposes it to a scrape
+    sidecar = None
+    if ns.metrics_port is not None:
+        sidecar = MetricsServer([default_registry()],
+                                port=ns.metrics_port).start()
+        print(f"[obs] /metrics on "
+              f"http://{sidecar.host}:{sidecar.port}/metrics", flush=True)
     sampler = DeviceSampler().start()
     try:
-        return ContinualDaemon(dcfg, tcfg, device=device).run()
+        with trace_if(ns.trace_dir, device):
+            return ContinualDaemon(dcfg, tcfg, device=device).run()
     finally:
         sampler.stop()
+        if sidecar is not None:
+            sidecar.stop()
 
 
 if __name__ == "__main__":

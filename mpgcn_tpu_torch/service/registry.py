@@ -161,8 +161,7 @@ class TenantRegistry:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The JAX ``fleet`` command's flags, less ``--profile`` (its scenario
-    profiles are not ported)."""
+    """The JAX ``fleet`` command's flags."""
     p = argparse.ArgumentParser(
         prog="python -m mpgcn_tpu_torch.cli fleet",
         description="Tenant-registry surgery for the multi-tenant serving "
@@ -181,6 +180,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quota", type=int, default=None,
                    help="per-tenant in-flight quota override (unset = "
                         "the fleet-wide --tenant-quota)")
+    p.add_argument("--profile", default=None,
+                   help="scenario profile name (scenarios/profiles.py): "
+                        "stamps the tenant entry with the scenario "
+                        "metadata (name/city/modality/horizon) the fleet "
+                        "exports as labels and `stats` reads for the "
+                        "federation report")
     p.add_argument("--support-payload", dest="support_payload",
                    choices=("f32", "bf16", "int8"), default=None,
                    help="how this tenant's resident support banks are "
@@ -201,11 +206,20 @@ def main(argv=None) -> int:
         return 2
     reg = TenantRegistry.load(ns.output_dir)
     if ns.action == "add":
+        extra = {}
+        if ns.profile:
+            # the scenario's metadata rides the entry (numpy-only import)
+            from mpgcn_tpu_torch.scenarios.profiles import get_profile
+
+            prof = get_profile(ns.profile)
+            extra = {"scenario": prof.name, "city": prof.city,
+                     "modality": prof.modality, "horizon": prof.horizon}
         entry = reg.add(ns.tenant, tenant_root=ns.root, quota=ns.quota,
-                        support_payload=ns.support_payload)
+                        support_payload=ns.support_payload, **extra)
+        hint = f" --profile {ns.profile}" if ns.profile else ""
         print(f"added tenant {ns.tenant!r} (root {entry['root']}); "
-              f"promote a checkpoint into {entry['root']}/promoted/ to "
-              f"serve it")
+              f"feed it with: python -m mpgcn_tpu_torch.cli daemon "
+              f"-spool <spool> -out {entry['root']}{hint}")
     else:
         try:
             reg.remove(ns.tenant)

@@ -56,11 +56,19 @@ admission or taken from the ``X-MPGCN-Trace`` header).
 ``serve --fleet`` serves every tenant of ``<out>/fleet/registry.json``
 through service/fleet.py's ``FleetEngine`` behind the same HTTP front,
 which then routes on the body's ``tenant``.
+
+The command's operator flags: ``--profile NAME`` takes ``-obs``, ``-pred``,
+``-seed`` and ``-sN`` from a scenario profile (scenarios/profiles.py);
+``--compile-cache DIR`` is the directory of the kernel libraries
+(obs/perf/compile_cache.py), enabled before anything is built; ``-trace
+DIR`` records the serving loop in a ``torch.profiler`` window
+(utils/profiling.py), each batch annotated ``serve_batch#<seq>``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import math
@@ -144,6 +152,7 @@ from mpgcn_tpu_torch.train.graphs import (
 from mpgcn_tpu_torch.train.predict import rollout
 from mpgcn_tpu_torch.utils.convert import params_from_jax
 from mpgcn_tpu_torch.utils.logging import JsonlLogger
+from mpgcn_tpu_torch.utils.profiling import step_annotation
 
 #: the kernels on the serve path, by the name the stats report
 KERNELS = {"lstm_infer_last": LSTM_INFER_LAST,
@@ -696,7 +705,8 @@ class ServeEngine:
                     use_canary = (self._canary is not None
                                   and seq % self._canary_stride == 0)
                     pset = self._canary if use_canary else self._incumbent
-                preds = self._run(pset.slot, x, keys, horizon)
+                with step_annotation(seq, "serve_batch"):
+                    preds = self._run(pset.slot, x, keys, horizon)
                 if use_canary and not np.all(np.isfinite(preds)):
                     # the canary failed live traffic: roll back and serve
                     # this batch again on the incumbent
@@ -1090,9 +1100,8 @@ def _make_handler(engine):
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The JAX serve command's flags, less those of paths the port does
-    not have (``--mesh-rungs``, ``--profile``, ``-trace``,
-    ``--compile-cache``), plus ``--device``."""
+    """The JAX serve command's flags, less ``--mesh-rungs`` (the mesh-rung
+    ladder is not ported), plus ``--device``."""
     p = argparse.ArgumentParser(
         prog="python -m mpgcn_tpu_torch.cli serve",
         description="Online serving: bucket-batched forecasts over HTTP "
@@ -1122,6 +1131,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "startup (e.g. 1,3,6); a request picks one with "
                         "the body's `horizon` field; empty = -pred only. "
                         "-pred is raised to max(horizons)")
+    p.add_argument("--profile", default=None,
+                   help="scenario profile name (scenarios/profiles.py): "
+                        "sets -obs/-pred/-seed/-sN from the named "
+                        "profile's contract (`scenario list`)")
     p.add_argument("--max-queue", type=int, default=64)
     p.add_argument("--max-wait-ms", type=float, default=2.0)
     p.add_argument("--deadline-ms", type=float, default=1000.0)
@@ -1167,6 +1180,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--allow-fresh-init", action="store_true",
                    help="serve fresh (untrained) params when no "
                         "checkpoint exists yet")
+    p.add_argument("-trace", "--trace_dir", type=str, default=None,
+                   help="torch.profiler trace output dir: the serving "
+                        "loop in one window (each batch annotated), "
+                        "written there when the server drains")
+    p.add_argument("--compile-cache", dest="compile_cache_dir",
+                   type=str, default="",
+                   help="directory of the built kernel libraries (obs/"
+                        "perf/compile_cache.py): a restarted server loads "
+                        "them instead of building them "
+                        "($MPGCN_COMPILE_CACHE is the env equivalent)")
     p.add_argument("--max-requests", type=int, default=0,
                    help="drain and exit 0 after N resolved requests "
                         "(0 = run until SIGTERM)")
@@ -1261,11 +1284,28 @@ def main(argv=None) -> int:
     from mpgcn_tpu_torch.service.reload import CanaryReloader
     from mpgcn_tpu_torch.utils.atomic import atomic_write_bytes
 
+    from mpgcn_tpu_torch.obs.perf import compile_cache
+    from mpgcn_tpu_torch.utils.profiling import trace_if
+
     ns = build_parser().parse_args(argv)
     try:
         device = resolve_device(ns.device)
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"serve: {e}") from None
+    if ns.profile:
+        # the profile's contract wins for the model-shape knobs it declares
+        from mpgcn_tpu_torch.scenarios.profiles import get_profile
+
+        prof = get_profile(ns.profile)
+        ns.obs_len = prof.obs_len
+        ns.pred_len = prof.horizon
+        ns.seed = prof.folded_seed
+        ns.synthetic_N = prof.num_nodes
+        print(f"[serve] scenario profile {prof.name!r}: obs_len="
+              f"{prof.obs_len}, pred_len={prof.horizon}, N="
+              f"{prof.num_nodes}, seed={prof.folded_seed}", flush=True)
+    # the kernel-library directory before the engine builds anything
+    compile_cache.enable(ns.compile_cache_dir or None)
     buckets = (tuple(int(b) for b in ns.buckets.split(",") if b.strip())
                if ns.buckets is not None else (1, 2, 4, 8))
     horizons = (tuple(int(h) for h in ns.horizons.split(",") if h.strip())
@@ -1316,6 +1356,10 @@ def main(argv=None) -> int:
         reloader = CanaryReloader(engine, scfg, faults=faults)
     reloader.start()
     sampler = DeviceSampler().start()
+    # the -trace window opens before the address is published, so every
+    # request a client sends after reading http.json is in it
+    window = contextlib.ExitStack()
+    window.enter_context(trace_if(ns.trace_dir, device))
 
     class _Server(ThreadingHTTPServer):
         daemon_threads = True
@@ -1369,6 +1413,7 @@ def main(argv=None) -> int:
                 engine.begin_drain()
                 break
     finally:
+        window.close()  # the trace is written here
         reloader.stop()
         sampler.stop()
         drained = engine.drain(timeout=60.0)

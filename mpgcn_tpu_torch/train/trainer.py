@@ -110,8 +110,21 @@ gathers). The multi-host arms (``kill_host_epoch``, ``straggle_host``,
 place. ``close()`` releases the trainer's CUDA graphs and their pool, so
 a long-lived process that makes a trainer per retrain does not grow.
 
-Not here yet: the orbax checkpoint backend, the multi-process votes and
-the metrics registry.
+The telemetry (the JAX trainer's ``_init_obs``, ``cfg.obs_metrics``): the
+trainer's series in the default metrics registry (obs/metrics.py) --
+step latency on the per-step executor, steps/sec, sentinel skips,
+rollbacks, epoch seconds, the stream overlap, the support-bank gauges
+(nnz, density, sparse arm, pad width, resident bytes), the loss scale and
+its skips, the int8 round-trip error -- with ``cuda_program_builds`` in
+place of the JAX compile hook's ``jax_compiles``, the train-plane SLOs
+ticked once an epoch, and the registry's snapshot under ``metrics`` in
+each epoch event; ``-no-obs`` turns all of it off. Every step (each
+executor's) runs inside ``utils.profiling.step_annotation``, a
+``record_function`` only while a ``-trace`` window records. The trainer
+enables the kernel-library directory ``cfg.compile_cache_dir``
+(obs/perf/compile_cache.py) before it builds anything.
+
+Not here yet: the orbax checkpoint backend and the multi-process votes.
 """
 
 from __future__ import annotations
@@ -127,10 +140,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mpgcn_tpu_torch.config import MPGCNConfig
+from mpgcn_tpu_torch.config import MPGCNConfig, default_slos
 from mpgcn_tpu_torch.data.pipeline import Batch, DataPipeline
 from mpgcn_tpu_torch.device import resolve_device
 from mpgcn_tpu_torch.nn.mpgcn import MPGCN, infer_dtype_of
+from mpgcn_tpu_torch.obs.metrics import default_registry, program_builds
+from mpgcn_tpu_torch.obs.perf import compile_cache
+from mpgcn_tpu_torch.obs.perf.slo import SLOEngine
 from mpgcn_tpu_torch.quant.int8 import (
     quantization_error,
     quantize_params,
@@ -169,6 +185,7 @@ from mpgcn_tpu_torch.train.predict import graphs_for, rollout, rollout_train
 from mpgcn_tpu_torch.utils.atomic import AsyncWriter
 from mpgcn_tpu_torch.utils.convert import params_from_jax, params_to_jax
 from mpgcn_tpu_torch.utils.logging import RunLogger, run_log_path
+from mpgcn_tpu_torch.utils.profiling import step_annotation
 
 #: train steps left out of steps/sec (the first ones build the kernels);
 #: on the card the scan executor runs as many eager steps of each mode
@@ -270,6 +287,8 @@ class ModelTrainer:
         if cfg.model != "MPGCN":
             raise NotImplementedError("Invalid model name.")
         self.device = resolve_device(device)
+        # the kernel-library directory, before anything is built
+        compile_cache.enable(cfg.compile_cache_dir or None)
         #: the checkpoint manifest's platform
         self._platform = "gpu" if self.device.type == "cuda" else "cpu"
         if pipeline is None:
@@ -336,6 +355,103 @@ class ModelTrainer:
         self._rollouts = (None if self._graphs is None else
                           RolloutGraphs(self._graphs, self.model, self.banks))
         self._graph_ptrs = self._state_ptrs()
+        self._init_obs()
+
+    # --- telemetry -------------------------------------------------------
+
+    def _init_obs(self) -> None:
+        """The trainer's series in the process default registry (the JAX
+        trainer's ``_init_obs``): what the ``-metrics-port`` sidecar, the
+        epoch events' snapshot and the flight recorder read. Under
+        ``-no-obs`` every handle stays None and the loop pays nothing."""
+        self._m_step_ms = self._m_sps = self._m_skipped = None
+        self._m_rollbacks = self._m_epoch_s = self._m_overlap = None
+        self._m_quant_err = self._m_loss_scale = None
+        self._m_scaler_skipped = None
+        self._slo = None
+        self._scaler_skipped_seen = 0  # the counter takes deltas
+        if not self.cfg.obs_metrics:
+            return
+        program_builds()  # the JAX compile hook's counterpart, registered
+        reg = default_registry()
+        self._m_step_ms = reg.histogram(
+            "train_step_latency_ms", "per-step wall latency, dispatch to "
+            "host sync (per-step executor only: the scan and stream "
+            "executors read their losses once an epoch)")
+        self._m_sps = reg.gauge(
+            "train_steps_per_sec", "post-warmup steps/sec (the first "
+            "WARMUP_STEPS train steps left out)")
+        self._m_skipped = reg.counter(
+            "train_sentinel_skipped_steps", "train steps the step "
+            "sentinels undid")
+        self._m_rollbacks = reg.counter(
+            "train_rollbacks", "bad-epoch rollback retries taken")
+        self._m_epoch_s = reg.histogram(
+            "train_epoch_seconds", "wall seconds per epoch (all modes)",
+            buckets=(0.1, 0.5, 1, 5, 15, 60, 300, 1800))
+        self._m_overlap = reg.gauge(
+            "train_stream_overlap_pct", "chunked-stream feed overlap "
+            "(100 = host gather fully hidden under device compute)")
+        # the support banks, set once here: no cost on the loop
+        stats = self.pipeline.support_stats()
+        pad = 0
+        if self.bdgcn_impl == "csr":
+            pad = max(b.pad_width for b in self.banks.values())
+        for name, help_, v in (
+                ("graph_support_nnz", "nonzeros across all support banks",
+                 self.pipeline.support_nnz),
+                ("graph_support_density", "support-bank density (nnz/"
+                 "size); -bdgcn auto takes the sparse arm at or below "
+                 "cfg.sparse_density_threshold",
+                 round(self.pipeline.support_density, 6)),
+                ("bdgcn_sparse_active", "1 when the resolved BDGCN arm is "
+                 "a sparse one (csr/ell), else 0",
+                 1.0 if self.bdgcn_impl in ("csr", "ell") else 0.0),
+                ("graph_support_pad_width", "padded-CSR pad width R (0 for "
+                 "dense banks and blocked-ELL)", pad),
+                ("graph_support_resident_bytes", "device-resident "
+                 "support-bank bytes as stored (containers count their "
+                 "index, values or codes and scales)",
+                 stats["resident_bytes"])):
+            reg.gauge(name, help_).set(float(v))
+        self._m_loss_scale = reg.gauge(
+            "train_loss_scale", "current dynamic loss scale (1 when "
+            "scaling is off)")
+        self._m_loss_scale.set(self.cfg.loss_scale_init
+                               if self._loss_scaling else 1.0)
+        self._m_scaler_skipped = reg.counter(
+            "train_loss_scale_skipped_steps", "train steps the loss "
+            "scaler skipped on non-finite scaled grads (not counted "
+            "against the sentinels' skip_budget)")
+        self._m_quant_err = reg.gauge(
+            "quant_max_abs_error", "max-abs int8 weight round-trip error "
+            "of the most recent quantization (0 until int8 inference is "
+            "used)")
+        # the train plane's objectives, ticked at epoch ends only
+        self._slo = SLOEngine(default_slos("train"), [reg],
+                              output_dir=self.cfg.output_dir,
+                              min_tick_interval_s=0.0)
+
+    def _epoch_obs(self, scaler: dict, skipped: int, epoch_s: float) -> dict:
+        """The epoch's series, then the SLO tick; returns the epoch
+        event's ``metrics`` entry (empty under -no-obs)."""
+        if self._m_sps is None:
+            return {}
+        if scaler:
+            self._m_loss_scale.set(scaler["scale"])
+            delta = scaler["skipped_steps"] - self._scaler_skipped_seen
+            if delta > 0:
+                self._m_scaler_skipped.inc(delta)
+            self._scaler_skipped_seen = scaler["skipped_steps"]
+        self._m_sps.set(round(self.steps_per_sec(), 3))
+        self._m_epoch_s.observe(epoch_s)
+        if skipped:
+            self._m_skipped.inc(skipped)
+        st = self._stream_stats.get("train")
+        if st:
+            self._m_overlap.set(st["overlap_pct"])
+        self._slo.tick()
+        return {"metrics": default_registry().snapshot()}
 
     # --- precision -------------------------------------------------------
 
@@ -368,6 +484,8 @@ class ModelTrainer:
         self._quant_version = self._weights_version()
         self.quant_max_abs_error = quantization_error(
             params, self._quant)["max_abs_error"]
+        if self._m_quant_err is not None:
+            self._m_quant_err.set(self.quant_max_abs_error)
         return self._quant
 
     def _precision(self) -> Precision:
@@ -464,18 +582,25 @@ class ModelTrainer:
         sentinel inside ``optimizer.step``); returns its loss, NaN where
         the sentinel undid the step. The per-step executor."""
         self._start_clock()
-        x, y, keys = self._tensors(batch)
-        loss = self._loss_and_grads(x, y, keys, self._size(batch))
-        loss = self.optimizer.step(loss)
+        t0 = time.perf_counter() if self._m_step_ms is not None else 0.0
+        with step_annotation(self.global_step):
+            x, y, keys = self._tensors(batch)
+            loss = self._loss_and_grads(x, y, keys, self._size(batch))
+            loss = self.optimizer.step(loss)
         self.global_step += 1
         self.step_counts["train"] += 1
-        return float(loss)
+        out = float(loss)
+        if self._m_step_ms is not None:
+            # after the host read, so the window covers the device's work
+            self._m_step_ms.observe((time.perf_counter() - t0) * 1e3)
+        return out
 
     def eval_step(self, batch: Batch) -> float:
-        x, y, keys = self._tensors(batch)
         self.step_counts["eval"] += 1
-        return float(self._batch_loss(x, y, keys, self._size(batch),
-                                      inference=True))
+        with step_annotation(self.step_counts["eval"], "eval_step"):
+            x, y, keys = self._tensors(batch)
+            return float(self._batch_loss(x, y, keys, self._size(batch),
+                                          inference=True))
 
     # --- the scan executor -----------------------------------------------
 
@@ -621,23 +746,25 @@ class ModelTrainer:
         buffers) and a replay per step."""
         body = self._train_body if is_train else self._eval_body
         graphs, g = self._graphs, None
-        if graphs is not None and graphs.get(key) is None \
-                and ep.warm < WARMUP_STEPS:
-            graphs.warmup(lambda: body(ep))
-            ep.warm += 1
-        else:
-            if graphs is not None:
-                g = graphs.get(key)
-                if g is None:
-                    g = graphs.capture(key, lambda: body(ep))
-                    self._graph_ptrs = self._state_ptrs()
-            if is_train:
-                self._start_clock()
-            if g is None:
-                body(ep)
+        kind = "train" if is_train else "eval"
+        with step_annotation(self.step_counts[kind], f"{kind}_step"):
+            if graphs is not None and graphs.get(key) is None \
+                    and ep.warm < WARMUP_STEPS:
+                graphs.warmup(lambda: body(ep))
+                ep.warm += 1
             else:
-                g.replay()
-        self.step_counts["train" if is_train else "eval"] += 1
+                if graphs is not None:
+                    g = graphs.get(key)
+                    if g is None:
+                        g = graphs.capture(key, lambda: body(ep))
+                        self._graph_ptrs = self._state_ptrs()
+                if is_train:
+                    self._start_clock()
+                if g is None:
+                    body(ep)
+                else:
+                    g.replay()
+        self.step_counts[kind] += 1
         if is_train:
             self.global_step += 1
 
@@ -1071,6 +1198,8 @@ class ModelTrainer:
         if not will_retry:
             return
         self._rollback_attempts += 1
+        if self._m_rollbacks is not None:
+            self._m_rollbacks.inc()
         if cfg.rollback_lr_factor < 1.0:
             self._shrink_lr(cfg.rollback_lr_factor)
         logger.log("rollback", epoch=epoch, reason=reason,
@@ -1273,6 +1402,7 @@ class ModelTrainer:
             skipped = spikes = 0
             snap = None
             self._stream_stats = {}
+            epoch_t0 = time.monotonic()
             for mode in modes:
                 is_train = mode == "train"
                 sentinel = is_train and cfg.step_sentinels
@@ -1324,6 +1454,8 @@ class ModelTrainer:
                 # the loss scaler's state: one read an epoch, never a step
                 scaler = (self.optimizer.scaler.stats()
                           if self.optimizer.scaler is not None else {})
+                obs = self._epoch_obs(scaler, skipped,
+                                      time.monotonic() - epoch_t0)
                 logger.log("epoch", epoch=epoch,
                            **{f"{m}_loss": history[m][-1] for m in modes},
                            best_val=state["best_val"],
@@ -1336,7 +1468,9 @@ class ModelTrainer:
                                    scaler["skipped_steps"]}
                               if scaler else {}),
                            **({"stream": self._stream_stats}
-                              if self._stream_stats else {}))
+                              if self._stream_stats else {}),
+                           # the registry's snapshot: the trainer's scrape
+                           **obs)
                 if state["patience_count"] <= 0:
                     _banner(f"    Early stopping at epoch {epoch}. "
                             f"{cfg.model} model training ends.")

@@ -403,7 +403,7 @@ def _recorders(monkeypatch):
 def _run_both(argv, out):
     """Each CLI on ``argv``; returns what each raised (None if nothing)."""
     raised = []
-    for main, extra in ((cli.main, ["-GPU", "cpu", "-native", "off"]),
+    for main, extra in ((cli.main, ["-GPU", "cpu"] + JAX_FLAGS),
                         (jax_cli.main, JAX_FLAGS)):
         try:
             main(argv + ["-out", str(out)] + extra)

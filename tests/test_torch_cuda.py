@@ -2208,3 +2208,60 @@ def test_daemon_retrains_promotes_and_a_second_process_builds_nothing(
                            kind="cuda_graph") > 0
     assert json.load(open(os.path.join(out, "daemon_state.json")))[
         "retrains_done"] == 2
+
+
+#: one process's kernel library: built into (or found in) the directory
+#: given, one launch of its inference LSTM entry against the plain
+#: version, and the cache's counts
+_CACHE_PROC = """
+import json, sys
+import torch
+from mpgcn_tpu_torch.native import build
+from mpgcn_tpu_torch.nn import cuda_lstm
+from mpgcn_tpu_torch.obs.perf import compile_cache
+from mpgcn_tpu_torch.obs.metrics import program_builds
+compile_cache.enable(sys.argv[1])
+g = torch.Generator().manual_seed(0)
+T, R, H = 5, 64, 32
+xp = (torch.randn(T, R, 4 * H, generator=g) * 0.5).cuda()
+whh_t = (torch.randn(H, 4 * H, generator=g) * 0.2).cuda()
+got = cuda_lstm.lstm_layer_infer(xp, whh_t, False)
+want = cuda_lstm.lstm_layer_infer(xp.cpu(), whh_t.cpu(), False)
+print(json.dumps({**compile_cache.cache_stats(),
+                  "built": program_builds().labels(
+                      kind="kernel_library").value,
+                  "lib": build._lib_path("lstm_infer"),
+                  "err": float((got.cpu() - want).abs().max())}))
+"""
+
+
+def test_kernel_cache_second_process_loads_without_building(cuda_device,
+                                                            tmp_path):
+    """-compile-cache on the card: a first process builds the library into
+    the directory (one miss, one build), a second loads it from there (one
+    hit, nothing built); both launch the kernel, equal to its plain
+    version."""
+    import json
+    import subprocess
+    import sys
+
+    root_dir = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root_dir)
+    env.pop("MPGCN_COMPILE_CACHE", None)
+    runs = []
+    for _ in range(2):
+        proc = subprocess.run(
+            [sys.executable, "-c", _CACHE_PROC, str(tmp_path / "kc")],
+            env=env, cwd=root_dir, capture_output=True, text=True,
+            timeout=600)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    first, second = runs
+    assert (first["misses"], first["hits"], first["built"]) == (1, 0, 1)
+    assert (second["misses"], second["hits"], second["built"]) == (0, 1, 0)
+    for r in runs:
+        assert r["dir"] == str(tmp_path / "kc")
+        assert r["lib"].startswith(r["dir"] + os.sep)
+        assert r["err"] <= 1e-5
+    assert sorted(os.listdir(tmp_path / "kc")) == [
+        os.path.basename(first["lib"])]

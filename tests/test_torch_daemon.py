@@ -470,11 +470,9 @@ def test_daemon_config_fields_match_jax():
         dataclasses.asdict(ref.replace(window_days=19))
 
 
-#: the JAX daemon flags of paths the port does not have yet: --profile
-#: (scenario profiles), --compile-cache (XLA's cache), -trace and
-#: --metrics-port (the observability sidecars); and the port's --device
-MISSING_FLAGS = {"--profile", "--compile-cache", "-trace", "--trace_dir",
-                 "--metrics-port"}
+#: the JAX daemon flags the port does not have: none (the port adds
+#: --device)
+MISSING_FLAGS = set()
 
 
 def _flags(parser):

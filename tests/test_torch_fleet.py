@@ -760,7 +760,7 @@ def test_stats_per_tenant_view(stack, tmp_path):
 def test_fleet_cli_edits_the_jax_registry(tmp_path, capsys):
     """tests/test_fleet.py:788 through ``python -m mpgcn_tpu_torch.cli
     fleet``, on the manifest the JAX command edits; the parser is the JAX
-    one less ``--profile``."""
+    one."""
     from mpgcn_tpu_torch import cli
 
     def port(*argv):
@@ -786,10 +786,8 @@ def test_fleet_cli_edits_the_jax_registry(tmp_path, capsys):
     def flags(p):
         return {o for a in p._actions for o in a.option_strings}
 
-    assert flags(jax_registry.build_parser()) - flags(
-        registry.build_parser()) == {"--profile"}
-    assert flags(registry.build_parser()) <= flags(
-        jax_registry.build_parser())
+    assert flags(jax_registry.build_parser()) == flags(
+        registry.build_parser())
 
 
 def test_serve_parser_fleet_flags():
