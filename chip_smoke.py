@@ -220,7 +220,7 @@ Phases, each fatal on failure:
  18. after them all, [router], the front tier over phase 17's tenants:
      (a) the Router (service/router.py) and its HTTP front in this
      process over 2 `serve --fleet` replica processes on the card
-     (smoke_obs 7, smoke_nodes 47): 64 requests a run from C = 1, 4, 16
+     (smoke_obs 7, smoke_nodes 47): 64 requests a run from C = 1, 16
      clients through the router and straight to r0 (req/s, round trip,
      the replica engine's and the router's own p50), every answer bit-
      equal to phase 17's references; kill -9 of r1 mid-load (no request
@@ -228,14 +228,15 @@ Phases, each fatal on failure:
      death -> re-admitted, in the ledger's order died / restart / bound /
      admitted), a partition of r1 (its breaker trips, the prober closes
      it), a rolling deploy under load (drain -> re-admitted a replica),
-     one spawn (spawn -> admitted, a load over 3 replicas) and two
-     retires, then C = 1, 4, 16 over 1 replica; every incarnation: 4
+     one spawn (spawn -> admitted, a C = 16 load over 3 replicas) and
+     two retires, then C = 1, 16 over 1 replica; every incarnation: 4
      graphs, its graph captures equal to the first one's, no kernel
      library built; each replica's device memory (nvidia-smi by pid, its
      graphs' pool, the card's used bytes); (b) `python -m
-     mpgcn_tpu_torch.cli router` as its own process over 1, then 2
-     replicas: up, answers bit-equal at C = 1, 4, 16 (req/s, 2 replicas
-     against 1), SIGTERM -> exit 0 and no replica left. The replicas' lstm_infer_last and bdgcn_pair_fwd launches,
+     mpgcn_tpu_torch.cli router` as its own process over 2 replicas:
+     up, answers bit-equal at C = 1, 16 (req/s), SIGTERM -> exit 0 and
+     no replica left. The replicas' lstm_infer_last and bdgcn_pair_fwd
+     launches,
      each incarnation read once admitted and again before it stops, join
      the kernels line.
  19. after them all, [daemon], the continual-learning daemon at the
@@ -287,6 +288,27 @@ Phases, each fatal on failure:
      against scratch; (d) `scenario gen`, then `daemon --profile
      metro-loop --metrics-port 0`, scraped while it runs. The
      processes' launches join the kernels line.
+ 21. after them all, [tune], self-tuning dispatch on a profile directory
+     under smoke_out/tune/ (every phase before it runs with
+     $MPGCN_TUNED_DIR on a directory that does not exist, so on the
+     guessed defaults): (a) `python -m mpgcn_tpu_torch.cli tune run`
+     with every harness meaningful on the card at its JAX shape (the
+     sparse crossover: kernel on dense storage against ell on sparse
+     storage at N = 300, hidden 16, batch 1, bf16 + remat, densities
+     0.02-0.3; the stream chunk grid and scan against stream at T = 320,
+     N = 6, hidden 8): each curve, the profile's platform torch-cuda and
+     its provenance (the card's name and power limit), the launches of
+     every hand kernel that ran; (b) the train CLI's config with -bdgcn
+     auto -od-storage auto on phase 15's banded N=500 series at hidden
+     32, batch 4, one epoch: the [dispatch] line's arm follows the tuned
+     threshold and the [tune] line names the tuned profile; with
+     -sparse-threshold 0.25 it names the explicit knob; (c) `tune
+     buckets --platform cuda --write` on the request ledger of phase 16
+     (c)'s serve command (its flood's batched arrivals and 64 HTTP
+     requests; (a)'s HTTP-bound ledgers hold groups of one), then
+     `serve` on the card on that profile: serve_start and /v1/stats list
+     the planned buckets, 2 slots x buckets x horizons graphs, 32
+     requests answered; each part's seconds.
 
 The second-to-last line is a JSON object listing each kernel; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a card, and
@@ -5918,6 +5940,9 @@ def phase_fleet(dev, cfg, data, train_dir, cand, out_dir, card):
 
 #: rollout graphs a replica captures: buckets 1, 2, 4, 8 at horizon 7
 REPLICA_GRAPHS = 4
+#: the clients of phase 18's load runs (no C = 4 run: the smoke keeps
+#: inside its time limit with phase 21)
+ROUTER_CLIENTS = (1, 16)
 
 
 def _get(base, path, timeout=60):
@@ -6253,12 +6278,12 @@ def router_in_process(cfg, fleet, plan, card):
         # requests/s: through the router (2 replicas), straight to r0
         r0_port = rt.handles[0].proc.port
         loads = {}
-        for clients in (1, 4, 16):
+        for clients in ROUTER_CLIENTS:
             loads[("router2", clients)] = _load_run(
                 f"router C={clients}", port, plan, fleet, clients, ledger)
             loads[("direct", clients)] = _load_run(
                 f"r0 C={clients}", r0_port, plan, fleet, clients)
-        for clients in (1, 4, 16):
+        for clients in ROUTER_CLIENTS:
             a, d = loads[("router2", clients)], loads[("direct", clients)]
             print(f"[router] (a) C={clients}: through the router over 2 "
                   f"replicas {a[0]:.1f} req/s, round trip p50 {a[1]:.3f} ms "
@@ -6360,10 +6385,8 @@ def router_in_process(cfg, fleet, plan, card):
         spawn_s = time.perf_counter() - t1
         _replica_check(f"r{h2.idx} (spawned)", watch.baseline(h2),
                        graph_builds)
-        for clients in (4, 16):
-            loads[("router3", clients)] = _load_run(
-                f"router, 3 replicas, C={clients}", port, plan, fleet,
-                clients, ledger)
+        loads[("router3", 16)] = _load_run(
+            "router, 3 replicas, C=16", port, plan, fleet, 16, ledger)
         watch.quiet = True
         retire = []
         for _ in range(2):
@@ -6376,13 +6399,12 @@ def router_in_process(cfg, fleet, plan, card):
             retire.append((victim, time.perf_counter() - t1))
         print(f"[router] (a) scale-up: r{h2.idx} spawned -> admitted "
               f"{spawn_s:.1f}s; over 3 replicas "
-              + ", ".join(f"C={c} {loads[('router3', c)][0]:.1f} req/s "
-                          f"(p50 {loads[('router3', c)][1]:.3f} ms)"
-                          for c in (4, 16)) + "; scale-down: "
+              + f"C=16 {loads[('router3', 16)][0]:.1f} req/s (p50 "
+              f"{loads[('router3', 16)][1]:.3f} ms); scale-down: "
               + ", ".join(f"r{i} retired (drained, exited) in {s:.2f}s"
                           for i, s in retire) + f" ({card})", flush=True)
         watch.quiet = False
-        for clients in (1, 4, 16):
+        for clients in ROUTER_CLIENTS:
             loads[("router1", clients)] = _load_run(
                 f"router, 1 replica, C={clients}", port, plan, fleet, clients,
                 ledger)
@@ -6433,8 +6455,8 @@ def _incarnation_launches(label, reads):
 
 def router_command(cfg, fleet, plan, out_dir, card, n_replicas):
     """(b): ``python -m mpgcn_tpu_torch.cli router`` as its own process
-    over ``n_replicas`` replicas: up, answers bit-equal, requests/s at C =
-    1, 4, 16, SIGTERM -> exit 0 with no replica left. Returns the
+    over ``n_replicas`` replicas: up, answers bit-equal, requests/s at
+    ROUTER_CLIENTS, SIGTERM -> exit 0 with no replica left. Returns the
     launches and the loads."""
     from mpgcn_tpu_torch.service.registry import TenantRegistry
     from mpgcn_tpu_torch.service.router import router_info_path
@@ -6481,7 +6503,7 @@ def router_command(cfg, fleet, plan, out_dir, card, n_replicas):
                            first[name]["cuda_graph"])
             pids.append(r["pid"])
         loads = {c: _load_run(f"router command C={c}", port, plan, fleet, c)
-                 for c in (1, 4, 16)}
+                 for c in ROUTER_CLIENTS}
         for name, r in replicas:
             reads.append(_since(
                 first[name], _replica_read(f"http://127.0.0.1:{r['port']}"),
@@ -6496,8 +6518,8 @@ def router_command(cfg, fleet, plan, out_dir, card, n_replicas):
               f"written); " + "; ".join(
                   f"C={c} {v[0]:.1f} req/s, round trip p50 {v[1]:.3f} ms "
                   f"p99 {v[2]:.3f}, engine p50 {v[3]:.3f}"
-                  for c, v in loads.items()) + f"; 192 answers bit-equal "
-              f"to the references ({card})", flush=True)
+                  for c, v in loads.items()) + f"; {64 * len(loads)} "
+              f"answers bit-equal to the references ({card})", flush=True)
         proc.send_signal(15)  # SIGTERM
         rc = proc.wait(timeout=180)
     finally:
@@ -6528,16 +6550,8 @@ def phase_router(cfg, fleet, out_dir, card):
     t0 = time.perf_counter()
     plan = _router_plan(fleet)
     total = router_in_process(cfg, fleet, plan, card)
-    loads = {}
-    for n in (1, 2):
-        launches, loads[n] = router_command(cfg, fleet, plan, out_dir, card,
-                                            n)
-        total = _add(total, launches)
-    print("[router] (b) the router as its own process, 2 replicas against "
-          "1: " + "; ".join(f"C={c} {loads[2][c][0]:.1f} against "
-                            f"{loads[1][c][0]:.1f} req/s "
-                            f"({loads[2][c][0] / loads[1][c][0]:.2f}x)"
-                            for c in (1, 4, 16)) + f" ({card})", flush=True)
+    launches, _ = router_command(cfg, fleet, plan, out_dir, card, 2)
+    total = _add(total, launches)
     print(f"[router] phase 18 took {time.perf_counter() - t0:.1f}s; replica "
           f"launches {_nz(total)}", flush=True)
     return total
@@ -7455,6 +7469,225 @@ def phase_ops(out_dir, card, device="cuda"):
     return total
 
 
+# --- phase 21: self-tuning dispatch ------------------------------------------
+
+#: phase 21 (b): the train CLI's flags over phase 15's banded N=500 series
+#: at hidden 32, batch 4, one epoch, both arms left to `auto`
+TUNE_CITY_ARGV = ["-GPU", "0", "-data", "synthetic", "-sN", "500", "-sT",
+                  "60", "-hidden", "32", "-batch", "4", "-epoch", "1",
+                  "-bdgcn", "auto", "-od-storage", "auto"]
+#: the hand kernels phase 21 (a)'s harnesses run: the epoch harnesses
+#: (f32, dense kernel arm) and the sparse crossover's two bf16 + remat arms
+TUNE_KERNELS = ("lstm_train_fwd", "lstm_train_bwd", "bdgcn_pair_fwd",
+                "bdgcn_pair_bwd", "ell_fwd", "ell_bwd_dx",
+                "lstm_train_fwd_bf16", "lstm_train_bwd_bf16",
+                "bdgcn_pair_fwd_bf16", "bdgcn_pair_bwd_bf16")
+
+
+def _child_launches(out):
+    """A child's launches by kernel name, from the [launches] line that
+    OPS_CLI prints."""
+    line = [x for x in out.splitlines() if x.startswith("[launches] ")][-1]
+    by_symbol = json.loads(line[len("[launches] "):])
+    return {n: by_symbol[k.symbol] for n, k in kernels().items()}
+
+
+def tune_run(tuned, out_dir, card):
+    """(a): `tune run` with every harness meaningful on the card at its
+    JAX shape. Returns (launches, the profile's constants)."""
+    from mpgcn_tpu_torch.tune.registry import profile_path
+
+    secs, out, _ = _ops_child(
+        ["-c", OPS_CLI, "tune", "run", "--tuned-dir", tuned],
+        os.path.join(out_dir, "tune_run.log"), timeout=600)
+    path = profile_path("cuda", tuned)
+    require(f"[tune] wrote {path}" in out, f"tune run: {out[-3000:]}")
+    with open(path) as f:
+        prof = json.load(f)
+    consts, prov = prof["constants"], prof["provenance"]
+    require(prof["platform"] == "torch-cuda", f"platform {prof['platform']}")
+    require(sorted(consts) == ["epoch_scan_max_mb", "sparse_density_threshold",
+                               "stream_chunk_mb"], f"constants {consts}")
+    require(prov.get("nvidia_smi") == card and prov.get("cuda"),
+            f"provenance {prov}")
+    for name, e in sorted(consts.items()):
+        require(e["curve"], f"{name}: no curve")
+        print(f"[tune] (a) {name} = {e['value']} ({e['harness']}); curve "
+              f"{json.dumps(e['curve'])} ({card})", flush=True)
+    launches = _child_launches(out)
+    idle = [n for n in TUNE_KERNELS if not launches[n]]
+    require(not idle, f"tune run launched no {idle}: {_nz(launches)}")
+    print(f"[tune] (a) tune run: {secs:.1f}s, launches {_nz(launches)}; "
+          f"provenance {json.dumps(prov, sort_keys=True)}", flush=True)
+    return launches, {n: e["value"] for n, e in consts.items()}
+
+
+def tune_city(dev, data_l, out_dir, tuned_values, card):
+    """(b): -bdgcn auto -od-storage auto on phase 15's banded N=500 series
+    through the train CLI's config, once on the profile and once with
+    -sparse-threshold 0.25: the [dispatch] line's arm and the [tune]
+    line's source. Returns the launches."""
+    import io
+
+    from mpgcn_tpu_torch import cli
+    from mpgcn_tpu_torch.train.trainer import ModelTrainer
+    from mpgcn_tpu_torch.tune import registry
+
+    threshold = tuned_values["sparse_density_threshold"]
+    total = {n: 0 for n in KERNEL_META}
+    for tag, extra, source, t in (
+            ("tuned", [], "(tuned profile ", threshold),
+            ("explicit", ["-sparse-threshold", "0.25"], "(explicit knob)",
+             0.25)):
+        args = cli.build_parser().parse_args(
+            TUNE_CITY_ARGV + extra + ["-out", os.path.join(out_dir, tag)]
+        ).__dict__
+        bdgcn = args["bdgcn_impl"]
+        cfg = cli.config_from_args(args).replace(num_nodes=500)
+        registry._reset_cache()  # this run's one-time [tune] lines
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        reset_counts()
+        with contextlib.redirect_stdout(buf):
+            tr = ModelTrainer(cfg, data_l, device=dev, bdgcn_impl=bdgcn)
+            hist = tr.train()
+        counts = read_counts()
+        secs = time.perf_counter() - t0
+        out = buf.getvalue()
+        density = tr.pipeline.support_density
+        want = "ell" if density <= t else "kernel"
+        line = next(x for x in out.splitlines()
+                    if x.startswith("[dispatch] bdgcn_impl="))
+        exec_line = next(x for x in out.splitlines()
+                         if x.startswith("[dispatch] epoch_exec:"))
+        tune_lines = [x for x in out.splitlines() if x.startswith("[tune]")]
+        require(line.startswith(f"[dispatch] bdgcn_impl={want} "
+                                f"(requested 'auto')"), f"{tag}: {line}")
+        require(any(x.startswith(f"[tune] sparse_density_threshold = {t} "
+                                 + source) for x in tune_lines),
+                f"{tag}: {tune_lines}")
+        arm = (("ell_fwd", "ell_bwd_dx") if want == "ell"
+               else ("bdgcn_pair_fwd", "bdgcn_pair_bwd"))
+        require(all(counts[n] > 0 for n in arm)
+                and np.isfinite(hist["train"]).all(),
+                f"{tag}: {_nz(counts)}, losses {hist['train']}")
+        print(f"[tune] (b) {tag}: {line}; {exec_line}; "
+              f"{' | '.join(tune_lines)}; 1 epoch {secs:.1f}s, launches "
+              f"{_nz(counts)} ({card})", flush=True)
+        tr.close()
+        del tr
+        total = _add(total, counts)
+    return total
+
+
+def tune_serve(tuned, ledger, out_dir, card):
+    """(c): `tune buckets --platform cuda --write` on a request ledger of
+    phase 16, then `serve` on the card on that profile: serve_start and
+    /v1/stats list the planned buckets, slots x buckets x horizons
+    graphs, requests answered. Returns its launches."""
+    from mpgcn_tpu_torch.data.loader import synthetic_od
+    from mpgcn_tpu_torch.tune.registry import profile_path
+
+    rc, out = _ops_cmd(["tune", "buckets", "--trace", ledger, "--platform",
+                        "cuda", "--write", "--tuned-dir", tuned],
+                       os.path.join(out_dir, "buckets.log"))
+    require(rc == 0, f"tune buckets: {out[-2000:]}")
+    cmp = json.loads(out.split("\n[tune] wrote")[0])
+    with open(profile_path("cuda", tuned)) as f:
+        consts = json.load(f)["constants"]
+    buckets = consts["serve_buckets"]["value"]
+    horizons = consts.get("serve_horizons", {}).get("value", [])
+    require(buckets == cmp["planned_buckets"], f"{buckets} {cmp}")
+    print(f"[tune] (c) tune buckets on {cmp['requests']} requests of "
+          f"{os.path.relpath(ledger, HERE)}: planned {buckets} x horizons {horizons} against "
+          f"{cmp['default_buckets']} (pad waste {cmp['pad_waste_planned']} "
+          f"against {cmp['pad_waste_default']}, {cmp['planned_compiles']} "
+          f"against {cmp['default_compiles']} captures a slot)", flush=True)
+    svc = os.path.join(out_dir, "svc")
+    log = open(os.path.join(out_dir, "serve.log"), "w")
+    t0 = time.perf_counter()
+    p = subprocess.Popen(
+        [sys.executable, "-m", "mpgcn_tpu_torch.cli", "serve", "--device",
+         "cuda", "-out", svc, "--allow-fresh-init"], stdout=log,
+        stderr=subprocess.STDOUT, env=_daemon_env(), cwd=HERE)
+    try:
+        info = os.path.join(svc, "serve", "http.json")
+        _wait_for(lambda: os.path.exists(info) or p.poll() is not None,
+                  180, "serve's http.json")
+        require(p.poll() is None, "serve exited at startup")
+        up_s = time.perf_counter() - t0
+        with open(info) as f:
+            port = json.load(f)["port"]
+        base = f"http://127.0.0.1:{port}"
+        st = json.loads(_get(base, "/v1/stats"))
+        want_h = horizons or [1]
+        require(st["buckets"] == buckets and st["horizons"] == want_h
+                and st["traces"] == 2 * len(buckets) * len(want_h),
+                f"/v1/stats buckets {st['buckets']} horizons "
+                f"{st['horizons']} graphs {st['traces']}")
+        od = synthetic_od(8, 47, 0)
+        x = np.log1p(od[:7])
+        bodies = [json.dumps({"x": (x * (1 + 0.01 * i)).tolist(),
+                              "key": i % 7}).encode() for i in range(8)]
+        res, wall = _http_load(port, bodies, 4, 8)
+        bad = [(w, s_, a.get("outcome")) for w, s_, a, _ in res
+               if s_ != 200 or a.get("outcome") != "ok"
+               or not np.isfinite(np.asarray(a["pred"], np.float32)).all()]
+        require(not bad, f"answers on the planned buckets: {bad[:4]}")
+        st = json.loads(_get(base, "/v1/stats"))
+        used = sorted(int(b) for b in st["pad_waste"]["by_bucket"])
+        require(set(used) <= set(buckets), f"batches in buckets {used}")
+        launches = dict(st["kernel_launches"])
+    finally:
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+        rc = p.wait(timeout=180)
+        log.close()
+    require(rc == 0, f"serve exited {rc}")
+    with open(os.path.join(out_dir, "serve.log")) as f:
+        out = f.read()
+    require(f"[tune] serve_buckets = {tuple(buckets)} (tuned profile " in out,
+            f"serve's [tune] line: {out[-2000:]}")
+    from mpgcn_tpu_torch.utils.logging import read_events
+
+    start = next(r for r in read_events(os.path.join(
+        svc, "serve", "requests.jsonl")) if r["event"] == "serve_start")
+    require(start["buckets"] == buckets, f"serve_start {start}")
+    print(f"[tune] (c) serve on the profile: up in {up_s:.1f}s, "
+          f"serve_start and /v1/stats buckets {buckets}, horizons {want_h}, "
+          f"{2 * len(buckets) * len(want_h)} graphs (2 slots x "
+          f"{len(buckets)} x {len(want_h)}); 32 requests from 4 clients in "
+          f"{wall:.2f}s, all ok and finite, batches in buckets {used}; "
+          f"launches {_nz(launches)} ({card})", flush=True)
+    return {n: launches.get(n, 0) for n in KERNEL_META}
+
+
+def phase_tune(dev, data_l, ledger, out_dir, card):
+    """Phase 21, [tune]: (a) `tune run`, (b) the city's `auto` on the
+    profile and with an explicit flag, (c) `tune buckets` then `serve`;
+    all on a profile directory under ``out_dir``. Returns the launches."""
+    t0 = time.perf_counter()
+    tuned = os.path.join(out_dir, "tuned")
+    old = os.environ.get("MPGCN_TUNED_DIR")
+    os.environ["MPGCN_TUNED_DIR"] = tuned
+    try:
+        total, values = tune_run(tuned, out_dir, card)
+        t1 = time.perf_counter()
+        total = _add(total, tune_city(dev, data_l, out_dir, values, card))
+        print(f"[tune] (b) took {time.perf_counter() - t1:.1f}s", flush=True)
+        t1 = time.perf_counter()
+        total = _add(total, tune_serve(tuned, ledger, out_dir, card))
+        print(f"[tune] (c) took {time.perf_counter() - t1:.1f}s", flush=True)
+    finally:
+        if old is None:
+            os.environ.pop("MPGCN_TUNED_DIR", None)
+        else:
+            os.environ["MPGCN_TUNED_DIR"] = old
+    print(f"[tune] phase 21 took {time.perf_counter() - t0:.1f}s ({card}); "
+          f"launches {_nz(total)}", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -7477,6 +7710,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    # every phase before 21 (and its children) on the guessed defaults,
+    # whatever tuned/ holds: a profile directory that does not exist
+    os.environ["MPGCN_TUNED_DIR"] = os.path.join(HERE, "smoke_out",
+                                                 "no_profile")
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
           flush=True)
@@ -7662,6 +7899,14 @@ def main() -> int:
     shutil.rmtree(out_o, ignore_errors=True)
     os.makedirs(out_o)
     total = _add(total, phase_ops(out_o, card))
+
+    # self-tuning dispatch, after every phase (its own profile directory)
+    out_u = os.path.join(HERE, "smoke_out", "tune")
+    shutil.rmtree(out_u, ignore_errors=True)
+    os.makedirs(out_u)
+    total = _add(total, phase_tune(
+        dev, data_l, os.path.join(out_s, "command", "serve",
+                                  "requests.jsonl"), out_u, card))
 
     print(card)  # the card's name and power limit, as nvidia-smi gives them
     print(f"[done] smoke run took {time.perf_counter() - t_start:.1f}s")

@@ -11,6 +11,7 @@ of mpgcn_tpu/cli.py; reference Main.py:7-67).
     python -m mpgcn_tpu_torch.cli stats -out ROOT [--trace ID] [--json]
     python -m mpgcn_tpu_torch.cli slo -out ROOT [--json]
     python -m mpgcn_tpu_torch.cli scenario list|gen|run ...
+    python -m mpgcn_tpu_torch.cli tune run|buckets|show ...
 
 ``serve`` dispatches to the serving plane's command
 (service/serve.py ``main``, the JAX ``mpgcn-tpu serve``): HTTP, canaried
@@ -29,8 +30,17 @@ a child and relaunches it with ``-resume`` when it dies
 process). ``stats`` (obs/stats.py) and ``slo`` (obs/perf/slo_cli.py) read
 a service root's ledgers, span log and live ``/v1/stats``; ``scenario``
 (scenarios/cli.py) lists and generates the scenario profiles and runs
-the federation (one daemon per profile into one fleet registry). The JAX
-CLI's ``perf``, ``tune`` and ``lint`` are not ported.
+the federation (one daemon per profile into one fleet registry).
+``tune`` (tune/cli.py, the JAX ``mpgcn-tpu tune``) measures the dispatch
+crossovers on the card (``run``; ``--device cpu`` for the CPU), plans
+serve's buckets from a request ledger (``buckets``) and prints the
+registry (``show``); profiles are ``tuned/torch-cuda.json`` and
+``tuned/torch-cpu.json`` (``$MPGCN_TUNED_DIR`` moves them). Every
+``auto`` decision and serve's buckets and horizons resolve explicit flag
+> tuned profile > guessed default; a tunable flag passed on the command
+line (``-sparse-threshold``, ``-sparse-min-nodes``,
+``-stream-chunk-mb``) is recorded in ``explicit_knobs``, so no profile
+overrides it. The JAX CLI's ``perf`` and ``lint`` are not ported.
 
 The operator flags: ``-trace DIR`` records the session in a
 ``torch.profiler`` window (utils/profiling.py ``trace_if``; CUDA activity
@@ -339,6 +349,10 @@ def device_for(gpu: str) -> str:
     return f"cuda:{gpu}"
 
 
+#: the tunable knobs that have a flag (mpgcn_tpu/cli.py:456-458)
+TUNABLE_FLAGS = ("sparse_density_threshold", "sparse_min_nodes",
+                 "stream_chunk_mb")
+
 #: flags that pick the device, the arms, resume and the session's
 #: sidecars, not config fields
 RUN_FLAGS = ("GPU", "lstm_impl", "bdgcn_impl", "resume", "trace_dir",
@@ -352,8 +366,12 @@ def config_from_args(args: dict) -> MPGCNConfig:
     for flag in RUN_FLAGS:
         args.pop(flag, None)
     multistep = args.pop("multistep", False)
-    for knob in ("sparse_density_threshold", "sparse_min_nodes",
-                 "stream_chunk_mb"):
+    # a tunable flag the user passed is explicit, even at its default
+    # value, so a tuned profile never overrides it; one not given leaves
+    # the config default for the profile to resolve (tune/registry.py)
+    args["explicit_knobs"] = tuple(k for k in TUNABLE_FLAGS
+                                   if args.get(k) is not None)
+    for knob in TUNABLE_FLAGS:
         if args[knob] is None:  # not given: the config default stands
             args.pop(knob)
     if args["mode"] == "train" and not multistep:
@@ -411,6 +429,13 @@ def main(argv=None):
         from mpgcn_tpu_torch.obs.perf.slo_cli import main as slo_main
 
         raise SystemExit(slo_main(argv[1:]))
+    if argv and argv[0] == "tune":
+        # self-tuning dispatch (tune/): `run` measures the crossovers on
+        # the card, `buckets` plans the serving shapes from a request
+        # ledger, `show` prints the registry; only `run` imports torch
+        from mpgcn_tpu_torch.tune.cli import main as tune_main
+
+        raise SystemExit(tune_main(argv[1:]))
     if argv and argv[0] == "scenario":
         # profiles and spools (no torch); `run` trains through the daemon
         from mpgcn_tpu_torch.scenarios.cli import main as scenario_main
@@ -418,7 +443,7 @@ def main(argv=None):
         raise SystemExit(scenario_main(argv[1:]))
     # torch is imported from here on: the subcommands above import it
     # only when they need it (`fleet`, `router`, `supervise`, `stats`,
-    # `slo`, `scenario list|gen` never)
+    # `slo`, `tune show|buckets`, `scenario list|gen` never)
     from mpgcn_tpu_torch.data.loader import load_dataset
     from mpgcn_tpu_torch.device import resolve_device
     from mpgcn_tpu_torch.obs.perf import compile_cache

@@ -22,7 +22,9 @@ executor (``epoch_stream``, ``stream_chunk_mb``) and the C++/OpenMP host
 kernels (``native_host``), and the fault-injection spec (``faults``,
 resilience/faults.py; the serving plane runs its arms), and the operator
 surface: the kernel-library directory (``compile_cache_dir``) and the
-trainer's telemetry (``obs_metrics``). Knobs of paths
+trainer's telemetry (``obs_metrics``), and the tunable knobs set on
+purpose (``explicit_knobs``: a tuned profile never overrides them,
+tune/registry.py). Knobs of paths
 this port does not have yet (meshes, the orbax checkpoint backend) are
 not here; they arrive with the slices that run them. ``DEFAULT_SLOS``
 are the serving plane's objectives (obs/perf/slo.py). The BDGCN arm is not a config
@@ -298,6 +300,12 @@ class MPGCNConfig:
     #                                         arms), int8 weights
     #                                         dequantised at each use. Same
     #                                         math, another summation order
+    explicit_knobs: tuple = ()              # tunable knobs (CONFIG_KNOBS)
+    #                                         set on purpose (the CLI records
+    #                                         every tunable flag passed): a
+    #                                         tuned/*.json profile never
+    #                                         overrides them
+    #                                         (tune/registry.py resolve_knob)
 
     def __post_init__(self):
         choices = {
@@ -339,6 +347,18 @@ class MPGCNConfig:
                 f"branch")
         if self.num_branches < 1:
             raise ValueError("num_branches must be >= 1")
+        if self.explicit_knobs:
+            object.__setattr__(self, "explicit_knobs",
+                               tuple(self.explicit_knobs))
+            from mpgcn_tpu_torch.tune.registry import CONFIG_KNOBS
+
+            unknown = [k for k in self.explicit_knobs
+                       if k not in CONFIG_KNOBS]
+            if unknown:
+                raise ValueError(
+                    f"explicit_knobs={unknown} are not tunable config "
+                    f"knobs (tune/registry.py CONFIG_KNOBS: "
+                    f"{list(CONFIG_KNOBS)})")
         if not 0 <= self.sparse_density_threshold <= 1:
             raise ValueError(
                 f"sparse_density_threshold={self.sparse_density_threshold} "

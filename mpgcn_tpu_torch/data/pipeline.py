@@ -65,23 +65,28 @@ from mpgcn_tpu_torch.sparse.formats import (
     ell_pad_width,
     sparsify_support_stack,
 )
+from mpgcn_tpu_torch.tune.registry import device_platform, resolve_knob
 from mpgcn_tpu_torch.utils.retry import read_with_retry
 
 
 def resolve_bdgcn_impl(requested: str, cfg: MPGCNConfig, num_nodes: int,
-                       density: float) -> str:
+                       density: float, platform: Optional[str] = None) -> str:
     """The BDGCN arm: 'auto' gives 'ell' when the measured support density
-    is at or below ``cfg.sparse_density_threshold`` and N is at least
-    ``cfg.sparse_min_nodes``, else 'kernel' (on the CPU too, where the
+    is at or below ``sparse_density_threshold`` and N is at least
+    ``sparse_min_nodes``, else 'kernel' (on the CPU too, where the
     wrappers run their plain versions); any other arm stands as asked.
+    Both thresholds resolve explicit knob > tuned profile of
+    ``platform`` ('torch-cuda' / 'torch-cpu') > guessed default
+    (tune/registry.py ``resolve_knob``).
 
     The JAX ``auto`` takes 'csr' off the TPU (its padded-CSR gathers
     beat its blocked-ELL scan there), 'ell' on it. The port takes 'ell'
     on both devices: its ELL SpMMs are the ported TPU kernels, on the
     card's tensor cores, where 'csr' is plain PyTorch gathers."""
     if requested == "auto":
-        if (num_nodes >= cfg.sparse_min_nodes
-                and density <= cfg.sparse_density_threshold):
+        if (num_nodes >= resolve_knob(cfg, "sparse_min_nodes", platform)
+                and density <= resolve_knob(cfg, "sparse_density_threshold",
+                                            platform)):
             return "ell"
         return "kernel"
     if requested not in BDGCN_IMPLS:
@@ -235,14 +240,19 @@ class DataPipeline:
     def _resolve_od_storage(self, od: np.ndarray) -> str:
         """``cfg.od_storage``; 'auto' takes sparse host storage under the
         sparse arms' rule: N >= sparse_min_nodes and an OD density at or
-        below sparse_density_threshold (JAX: ``_resolve_od_storage``)."""
+        below sparse_density_threshold, each resolved through the
+        registry for this device's platform (JAX:
+        ``_resolve_od_storage``)."""
         cfg = self.cfg
         if cfg.od_storage != "auto":
             return cfg.od_storage
-        if od.shape[1] < cfg.sparse_min_nodes:
+        plat = device_platform(self.device)
+        if od.shape[1] < resolve_knob(cfg, "sparse_min_nodes", plat):
             return "dense"
         density = np.count_nonzero(od) / max(od.size, 1)
-        return ("sparse" if density <= cfg.sparse_density_threshold
+        return ("sparse"
+                if density <= resolve_knob(cfg, "sparse_density_threshold",
+                                           plat)
                 else "dense")
 
     def _resolve_gather(self) -> tuple:
@@ -269,7 +279,8 @@ class DataPipeline:
         self.support_density = nnz / total if total else 1.0
         self.requested_impl = requested
         self.bdgcn_impl = impl = resolve_bdgcn_impl(
-            requested, cfg, self.num_nodes, self.support_density)
+            requested, cfg, self.num_nodes, self.support_density,
+            device_platform(self.device))
         if impl != "ell" and cfg.support_payload == "int8":
             raise ValueError(
                 f"support_payload='int8' packs blocked-ELL tiles as "

@@ -929,6 +929,7 @@ class ServeEngine:
                 "support": self.pipeline.support_stats(),
                 "double_buffer": self.scfg.double_buffer,
                 "horizons": list(self.horizons),
+                "buckets": list(self.scfg.buckets),
                 "incumbent": {"hash": inc.hash, "seq": inc.seq,
                               "slot": inc.slot,
                               "probe_loss": self._round(inc.probe_loss)},
@@ -1306,10 +1307,23 @@ def main(argv=None) -> int:
               f"{prof.num_nodes}, seed={prof.folded_seed}", flush=True)
     # the kernel-library directory before the engine builds anything
     compile_cache.enable(ns.compile_cache_dir or None)
-    buckets = (tuple(int(b) for b in ns.buckets.split(",") if b.strip())
-               if ns.buckets is not None else (1, 2, 4, 8))
-    horizons = (tuple(int(h) for h in ns.horizons.split(",") if h.strip())
-                if ns.horizons is not None else ())
+    # the serving shapes resolve explicit flag > tuned profile of the
+    # device's platform > guessed default (tune/registry.py; `tune
+    # buckets --write` plans them from observed traffic)
+    from mpgcn_tpu_torch.tune.registry import device_platform, tuned_or_default
+
+    plat = device_platform(device)
+    buckets = tuple(tuned_or_default(
+        "serve_buckets",
+        explicit=(tuple(int(b) for b in ns.buckets.split(",") if b.strip())
+                  if ns.buckets is not None else None), platform=plat))
+    if ns.horizons is not None:
+        # an explicit flag (the empty single-horizon form included) is
+        # never overridden by a profile
+        horizons = tuple(int(h) for h in ns.horizons.split(",")
+                         if h.strip())
+    else:
+        horizons = tuple(tuned_or_default("serve_horizons", platform=plat))
     if horizons:
         # the model config's pred_len covers the longest horizon
         ns.pred_len = max(ns.pred_len, max(horizons))

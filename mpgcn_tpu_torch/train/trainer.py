@@ -182,6 +182,7 @@ from mpgcn_tpu_torch.train.objectives import (
     make_optimizer,
 )
 from mpgcn_tpu_torch.train.predict import graphs_for, rollout, rollout_train
+from mpgcn_tpu_torch.tune.registry import device_platform, resolve_knob
 from mpgcn_tpu_torch.utils.atomic import AsyncWriter
 from mpgcn_tpu_torch.utils.convert import params_from_jax, params_to_jax
 from mpgcn_tpu_torch.utils.logging import RunLogger, run_log_path
@@ -614,23 +615,29 @@ class ModelTrainer:
         per_row = (md.x.nbytes + md.y.nbytes + md.keys.nbytes) / n
         return rows * per_row / 1e6
 
+    def _knob(self, name: str):
+        """A tunable config knob, explicit > tuned profile of this
+        device's platform > guessed default (tune/registry.py)."""
+        return resolve_knob(self.cfg, name, device_platform(self.device))
+
     def _epoch_exec(self, mode: str) -> str:
         """The three-way dispatch (JAX: ``_epoch_exec``): 'scan' when
-        ``cfg.epoch_scan`` is on and the mode fits
-        ``cfg.epoch_scan_max_mb``; over it 'stream', or 'per_step' when
+        ``cfg.epoch_scan`` is on and the mode fits the resolved
+        ``epoch_scan_max_mb``; over it 'stream', or 'per_step' when
         ``cfg.epoch_stream`` is off; 'per_step' without the epoch scan."""
         if not self.cfg.epoch_scan:
             return "per_step"
-        if self._mode_bytes(mode) <= self.cfg.epoch_scan_max_mb:
+        if self._mode_bytes(mode) <= self._knob("epoch_scan_max_mb"):
             return "scan"
         return "stream" if self.cfg.epoch_stream else "per_step"
 
     def _chunk_budget_mb(self) -> float:
-        """The stream executor's device budget per chunk:
-        ``cfg.stream_chunk_mb``, else ``cfg.epoch_scan_max_mb``; when both
-        are 0 (the force-every-mode-onto-the-stream idiom) the stock scan
+        """The stream executor's device budget per chunk: the resolved
+        ``stream_chunk_mb``, else ``epoch_scan_max_mb``; when both are 0
+        (the force-every-mode-onto-the-stream idiom) the stock scan
         budget, not 1-step chunks (JAX: ``_chunk_budget_mb``)."""
-        budget = self.cfg.stream_chunk_mb or self.cfg.epoch_scan_max_mb
+        budget = (self._knob("stream_chunk_mb")
+                  or self._knob("epoch_scan_max_mb"))
         if budget <= 0:
             budget = MPGCNConfig.__dataclass_fields__[
                 "epoch_scan_max_mb"].default
@@ -656,7 +663,7 @@ class ModelTrainer:
                 *self._stream_plan(m)) if e == "stream" else "")
             for m, e in plan.items())
         line = (f"[dispatch] epoch_exec: {desc} (epoch_scan_max_mb="
-                f"{self.cfg.epoch_scan_max_mb}, chunk budget "
+                f"{self._knob('epoch_scan_max_mb')}, chunk budget "
                 f"{self._chunk_budget_mb()} MB)")
         kinds = " and ".join(e for e in ("scan", "stream")
                              if e in plan.values())

@@ -2265,3 +2265,90 @@ def test_kernel_cache_second_process_loads_without_building(cuda_device,
         assert r["err"] <= 1e-5
     assert sorted(os.listdir(tmp_path / "kc")) == [
         os.path.basename(first["lib"])]
+
+
+def test_tune_harnesses_give_finite_curves_on_the_card(cuda_device):
+    """The crossover harnesses on a small grid, on the card: every arm's
+    rate finite and positive, each tuned value inside its grid."""
+    from mpgcn_tpu_torch.tune import measure
+
+    sp = measure.measure_sparse_crossover(n=64, densities=(0.1, 0.3),
+                                          steps=1, reps=1, device="cuda")
+    assert sp["value"] in (0.0, 0.1, 0.3)
+    for p in sp["curve"]:
+        assert np.isfinite(p["dense_sps"]) and p["dense_sps"] > 0
+        assert np.isfinite(p["sparse_sps"]) and p["sparse_sps"] > 0
+    sc = measure.measure_stream_chunk(chunks_mb=(0.05, 0.25), epochs=1,
+                                      reps=1, device="cuda")
+    assert sc["value"] in (0.05, 0.25)
+    ss = measure.measure_scan_stream_crossover(epochs=1, reps=1,
+                                               device="cuda")
+    assert ss["value"] == 512.0 or ss["value"] <= ss["footprint_mb"]
+    for p in sc["curve"] + ss["curve"]:
+        assert np.isfinite(p["steps_per_sec"]) and p["steps_per_sec"] > 0
+
+
+def test_tune_run_profile_names_the_card(cuda_device, tmp_path, monkeypatch):
+    """`tune run` on the card writes tuned/torch-cuda.json; its
+    provenance names the card and its power limit as nvidia-smi does."""
+    import json
+
+    from mpgcn_tpu_torch.tune import cli as tune_cli
+    from mpgcn_tpu_torch.tune import registry
+
+    monkeypatch.setenv("MPGCN_TUNED_DIR", str(tmp_path))
+    registry._reset_cache()
+    assert tune_cli.main(["run", "--harnesses", "stream_chunk",
+                          "--reps", "1"]) == 0
+    with open(tmp_path / "torch-cuda.json") as f:
+        prof = json.load(f)
+    prov = prof["provenance"]
+    assert prof["platform"] == "torch-cuda"
+    assert prov["card"] == torch.cuda.get_device_name(0)
+    smi = tune_cli.card_name_and_limit()
+    assert prov["nvidia_smi"] == smi and smi.endswith(" W")
+    assert prov["torch"] == torch.__version__
+    assert prov["cuda"] == torch.version.cuda
+    assert set(prof["constants"]) == {"stream_chunk_mb"}
+
+
+def test_planned_buckets_roll_out_as_plain(cuda_device, tmp_path):
+    """Planned buckets that are not powers of two (1, 3, 7): each
+    bucket's captured rollout (its staging buffers, the K-BDGCN and LSTM
+    kernels at B = 3 and 7) against the plain arms' rollout."""
+    cfg = MPGCNConfig(synthetic_T=120, synthetic_N=12, hidden_dim=16,
+                      pred_len=2, seed=0)
+    data = synthetic_dataset(cfg)
+    eng = ServeEngine(cfg, data, ServeConfig(buckets=(1, 3, 7),
+                                             horizons=(2,),
+                                             output_dir=str(tmp_path)),
+                      device=cuda_device, allow_fresh=True)
+    try:
+        assert set(eng._rollouts.graphs.graphs) == {
+            (s, b, 2, "f32") for s in (0, 1) for b in (1, 3, 7)}
+        assert eng.stats()["buckets"] == [1, 3, 7]
+        plain = MPGCN.from_config(eng.cfg, device=cuda_device,
+                                  lstm_impl="plain", bdgcn_impl="einsum")
+        plain.load_state_dict(eng.model.state_dict())
+        md = eng.pipeline.modes["test"]
+        for b in (3, 7):
+            x = torch.from_numpy(np.array(md.x[:b]))
+            k = torch.from_numpy(md.keys[:b].astype(np.int64))
+            got = eng._rollouts.run(x, k, 2)
+            ref = rollout(plain, eng.banks, x.to(cuda_device),
+                          k.to(cuda_device), 2).cpu()
+            assert bool(torch.isfinite(got).all())
+            torch.testing.assert_close(got, ref, **ROLLOUT_TOL)
+        # the request path: 3 tickets in one batch of bucket 3
+        x = np.ascontiguousarray(md.x[:3])
+        tickets = [eng.submit(x[i, ..., 0], int(md.keys[i]))
+                   for i in range(3)]
+        for t in tickets:
+            assert t.wait(60) and t.ok, t.error
+        ref = rollout(plain, eng.banks, torch.from_numpy(x).to(cuda_device),
+                      torch.from_numpy(md.keys[:3].astype(np.int64)).to(
+                          cuda_device), 2).cpu()
+        preds = torch.from_numpy(np.stack([t.pred for t in tickets]))
+        torch.testing.assert_close(preds, ref, **ROLLOUT_TOL)
+    finally:
+        eng.close()

@@ -17,7 +17,7 @@
       its HTTP front live, a train log and a fleet registry beside it)
       equal to the JAX commands' output; the ``--trace`` tree equal;
   (f) the train CLI's operator flags equal to the JAX ones, and every JAX
-      subcommand dispatched but ``perf``, ``tune`` and ``lint``.
+      subcommand dispatched but ``perf`` and ``lint``.
 
 Size: N=8, hidden 8, T=60, one epoch.
 """
@@ -497,12 +497,13 @@ def _subcommands(path) -> set:
 def test_every_jax_subcommand_but_three_is_dispatched():
     ours = _subcommands(os.path.join(ROOT, "mpgcn_tpu_torch", "cli.py"))
     ref = _subcommands(os.path.join(ROOT, "mpgcn_tpu", "cli.py"))
-    assert ref - ours == {"perf", "tune", "lint"}
-    assert ours <= ref and len(ours) == 8
+    assert ref - ours == {"perf", "lint"}
+    assert ours <= ref and len(ours) == 9
 
 
 @pytest.mark.parametrize("sub", ["serve", "fleet", "router", "daemon",
-                                 "supervise", "stats", "slo", "scenario"])
+                                 "supervise", "stats", "slo", "scenario",
+                                 "tune"])
 def test_subcommand_dispatches(sub, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main([sub, "--help"])
