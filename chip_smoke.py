@@ -309,6 +309,17 @@ Phases, each fatal on failure:
      `serve` on the card on that profile: serve_start and /v1/stats list
      the planned buckets, 2 slots x buckets x horizons graphs, 32
      requests answered; each part's seconds.
+ 22. after them all, [parallel], data-parallel training at the reference
+     widths (N = 47, M = 2, K = 3, hidden 32, batch 4, obs 7), each world
+     in child processes: (a) one NCCL rank trains 2 epochs by graph, the
+     gradient all-reduce captured inside the train graph, and equals a
+     ModelTrainer from the same seeded init bit for bit (epoch losses,
+     weights, Adam's state); steps/sec of both, the flat all-reduce's
+     time replayed and eager; (b) two gloo ranks, both on cuda:0, one
+     epoch eager (the graph refusal printed), against a ModelTrainer at
+     loss rtol 1e-5 and weights atol 2e-5; the step's time and the
+     all-reduce through the host. Both worlds' launches join the kernels
+     line.
 
 The second-to-last line is a JSON object listing each kernel; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a card, and
@@ -574,14 +585,17 @@ def phase_kernels(dev, rng):
         np.float32)).to(dev)
     w = torch.from_numpy((rng.normal(size=(H, 4 * H)) / np.sqrt(H)).astype(
         np.float32)).to(dev)
-    err = {}
-    for collect, name in ((False, "lstm_infer_last"),
-                          (True, "lstm_infer_collect")):
-        out = cuda_lstm.lstm_layer_infer(xp, w, collect)
-        torch.cuda.synchronize()
-        ref = cuda_lstm.lstm_layer_infer_plain(xp, w, collect)
-        err[name] = compare(f"K-LSTM {name.split('_')[-1]} R={R}", out, ref,
-                            LSTM_TOL)
+    err = {"lstm_infer_last": 0.0, "lstm_infer_collect": 0.0}
+    # R, and a data-parallel rank's R = 2 * 47^2 at dp = 2 (phase 22)
+    for xr in (xp, xp[:, :2 * N * N].contiguous()):
+        for collect, name in ((False, "lstm_infer_last"),
+                              (True, "lstm_infer_collect")):
+            out = cuda_lstm.lstm_layer_infer(xr, w, collect)
+            torch.cuda.synchronize()
+            ref = cuda_lstm.lstm_layer_infer_plain(xr, w, collect)
+            err[name] = max(err[name], compare(
+                f"K-LSTM {name.split('_')[-1]} R={xr.shape[1]}", out, ref,
+                LSTM_TOL))
     for f in (1, 3):
         fused_err, fused_in = check_fused(dev, T, R, H, f, "")
         for name, e in fused_err.items():
@@ -599,8 +613,8 @@ def phase_kernels(dev, rng):
 
     err["bdgcn_pair_fwd"] = 0.0
     inputs = {}
-    for b, n, dynamic in ((B, N, False), (B, N, True), (2, 200, False),
-                          (2, 200, True)):
+    for b, n, dynamic in ((B, N, False), (B, N, True), (2, N, False),
+                          (2, N, True), (2, 200, False), (2, 200, True)):
         args = bdgcn_inputs(b, n, dynamic)
         out = cuda_bdgcn.folded_pair_project(*args)
         torch.cuda.synchronize()
@@ -608,7 +622,7 @@ def phase_kernels(dev, rng):
         kind = "dynamic" if dynamic else "static"
         e = compare(f"K-BDGCN {kind} B={b} N={n}", out, ref, BDGCN_TOL)
         err["bdgcn_pair_fwd"] = max(err["bdgcn_pair_fwd"], e)
-        if n == N:
+        if (b, n) == (B, N):
             inputs[kind] = args
     return err, {"lstm": (xp, w), "lstm_fused": fused_inputs,
                  "bdgcn": inputs["static"],
@@ -618,9 +632,10 @@ def phase_kernels(dev, rng):
 def phase_train_kernels(dev, rng):
     """The training kernels against their plain versions at the shapes a
     training step gives them (R = 4 * 47^2 = 8,836 sequences, T = 7,
-    H = 32; B = 4, N = 47, K = 3, C = H = 32, static and dynamic) and at
-    odd sizes; dW twice, which must be bit-equal. Returns the per-entry
-    worst error and the timing inputs."""
+    H = 32; B = 4, N = 47, K = 3, C = H = 32, static and dynamic), at a
+    data-parallel rank's (R = 4,418, B = 2 at dp = 2) and at odd sizes;
+    dW twice, which must be bit-equal. Returns the per-entry worst error
+    and the timing inputs."""
     import torch
 
     from mpgcn_tpu_torch.nn import cuda_bdgcn, cuda_lstm
@@ -630,8 +645,10 @@ def phase_train_kernels(dev, rng):
 
     err = {n: 0.0 for n in TRAIN_KERNELS}
     inputs = {}
-    for T, R, H in ((7, 8836, 32), (7, 1001, 8), (5, 333, 64),
-                    (3, 17, 40)):
+    # R = 4,418 and B = 2 below: a data-parallel rank's shapes at dp = 2
+    # (phase 22)
+    for T, R, H in ((7, 8836, 32), (7, 4418, 32), (7, 1001, 8),
+                    (5, 333, 64), (3, 17, 40)):
         xp = dev_t(rng.normal(size=(T, R, 4 * H)))
         w = dev_t(rng.normal(size=(H, 4 * H)) / np.sqrt(H))
         tag = f"T={T} R={R} H={H}"
@@ -665,6 +682,8 @@ def phase_train_kernels(dev, rng):
     K = 3
     for b, n, c, h, dynamic in ((4, 47, 32, 32, False),
                                 (4, 47, 32, 32, True),
+                                (2, 47, 32, 32, False),
+                                (2, 47, 32, 32, True),
                                 (2, 200, 32, 32, False),
                                 (2, 200, 32, 32, True),
                                 (3, 9, 8, 64, True)):
@@ -685,7 +704,7 @@ def phase_train_kernels(dev, rng):
         require(torch.equal(dW, dW2), f"K-BDGCN-bwd {tag}: two runs differ")
         print(f"[check] K-BDGCN-bwd {tag}: dW bit-equal over two runs",
               flush=True)
-        if n == 47:
+        if (b, n) == (4, 47):
             inputs["bdgcn_dynamic" if dynamic else "bdgcn"] = (h1, g, wr,
                                                                dout)
 
@@ -7688,6 +7707,216 @@ def phase_tune(dev, data_l, ledger, out_dir, card):
     return total
 
 
+# --- phase 22: data-parallel training -----------------------------------------
+
+#: one rank of phase 22's worlds, in a child interpreter (the smoke's own
+#: process never joins a process group): argv = mode ("nccl1" | "gloo2"),
+#: rank, world, rendezvous file, seed, epochs. Prints one
+#: "[parallel-result] {json}" line; exits non-zero on a failed check.
+PARALLEL_CHILD = r'''
+import json, sys, time
+import numpy as np, torch
+import torch.distributed as dist
+from mpgcn_tpu_torch.config import MPGCNConfig
+from mpgcn_tpu_torch.data.loader import synthetic_dataset
+from mpgcn_tpu_torch.parallel import (ParallelModelTrainer,
+    check_replica_consistency, initialize, make_mesh)
+from mpgcn_tpu_torch.service.daemon import kernel_launches
+from mpgcn_tpu_torch.train.trainer import ModelTrainer
+
+mode, rank, world, rdzv, seed, epochs, out = sys.argv[1:8]
+rank, world, epochs = int(rank), int(world), int(epochs)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+cfg = MPGCNConfig(seed=int(seed), num_epochs=epochs)
+data = synthetic_dataset(cfg)
+
+def state(tr):
+    out = [p.detach().clone() for p in tr.model.parameters()]
+    for st in tr.optimizer.state.values():
+        out += [st[k].detach().clone() for k in ("exp_avg", "exp_avg_sq",
+                                                 "step")]
+    return out
+
+def run(tr):
+    t0 = time.perf_counter()
+    hist = tr.train()
+    torch.cuda.synchronize()
+    return hist, time.perf_counter() - t0
+
+found = {"mode": mode, "rank": rank}
+if mode == "nccl1":
+    ref = ModelTrainer(cfg.replace(output_dir=f"{out}/one"), data,
+                       device=dev)
+    h_ref, s_ref = run(ref)
+    found["model_trainer_sps"] = ref.steps_per_sec()
+initialize(f"file://{rdzv}", world_size=world, rank=rank,
+           backend="nccl" if mode == "nccl1" else "gloo")
+before = kernel_launches()
+par = ParallelModelTrainer(cfg.replace(output_dir=f"{out}/dp"), data,
+                           mesh=make_mesh(device=dev))
+h_par, s_par = run(par)
+torch.cuda.synchronize()
+after = kernel_launches()
+found.update(refusal=par.graph_refusal, dp_sps=par.steps_per_sec(),
+             train_steps=par.global_step, seconds=s_par, hist=h_par,
+             launches={k: after[k] - before[k] for k in after},
+             captured=par._graphs is not None
+             and par._graphs.get("train") is not None)
+found["leaves"] = check_replica_consistency(
+    {"params": dict(par.model.named_parameters())}, name="smoke")
+# the step's collective: the all-reduce of one flat buffer of every
+# gradient and the loss, alone, eager and (NCCL) replayed from a graph
+n = sum(p.numel() for p in par.model.parameters()) + 1
+buf = torch.ones(n, device=dev)
+comm = dev if mode == "nccl1" else torch.device("cpu")
+def allreduce():
+    b = buf.to(comm)
+    dist.all_reduce(b)
+    buf.copy_(b)
+for _ in range(5):
+    allreduce()
+torch.cuda.synchronize()
+reps = 200
+t0 = time.perf_counter()
+for _ in range(reps):
+    allreduce()
+torch.cuda.synchronize()
+found["allreduce_eager_ms"] = (time.perf_counter() - t0) / reps * 1e3
+found["allreduce_floats"] = n
+if mode == "nccl1":
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(s):
+        allreduce()
+        with torch.cuda.graph(g, stream=s):
+            allreduce()
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    g.replay()
+    e0.record()
+    for _ in range(reps):
+        g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    found["allreduce_graph_ms"] = e0.elapsed_time(e1) / reps
+    same = (h_par == h_ref and all(torch.equal(a, b) for a, b in
+                                   zip(state(par), state(ref))))
+    found["bit_equal"] = same
+    ok = same and found["captured"] and found["refusal"] is None
+else:
+    ok = found["refusal"] is not None and not found["captured"]
+    if rank == 0:
+        ref = ModelTrainer(cfg.replace(output_dir=f"{out}/one"), data,
+                           device=dev)
+        h_ref, _ = run(ref)
+        lerr = max(abs(a - b) / abs(b) for m in ("train", "validate")
+                   for a, b in zip(h_par[m], h_ref[m]))
+        werr = max(float((a.detach() - b.detach()).abs().max()) for a, b in
+                   zip(par.model.parameters(), ref.model.parameters()))
+        found.update(loss_rel_err=lerr, weight_abs_err=werr)
+        ok = ok and lerr <= 1e-5 and werr <= 2e-5
+dist.destroy_process_group()
+print("[parallel-result] " + json.dumps(found), flush=True)
+sys.exit(0 if ok else 1)
+'''
+#: the hand kernels a data-parallel train step and eval step launch at the
+#: reference widths
+PARALLEL_KERNELS = ("lstm_train_fwd", "lstm_train_bwd", "bdgcn_pair_fwd",
+                    "bdgcn_pair_bwd", "lstm_infer_last")
+
+
+def _parallel_world(mode, world, seed, epochs, out_dir, timeout=600):
+    """Run one world of ``world`` ranks of PARALLEL_CHILD as children (all
+    on cuda:0), stop every rank if one fails or the time runs out; returns
+    each rank's result dict."""
+    rdzv = os.path.join(out_dir, f"{mode}.rendezvous")
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(world):
+            logs.append(os.path.join(out_dir, f"{mode}_rank{r}.log"))
+            with open(logs[-1], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", PARALLEL_CHILD, mode, str(r),
+                     str(world), rdzv, str(seed), str(epochs),
+                     os.path.join(out_dir, f"{mode}_r{r}")],
+                    stdout=f, stderr=subprocess.STDOUT, env=_daemon_env(),
+                    cwd=HERE))
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.perf_counter() - t0 > timeout:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    found = []
+    for p, log in zip(procs, logs):
+        with open(log) as f:
+            out = f.read()
+        require(p.returncode == 0,
+                f"[parallel] {mode} rank exited {p.returncode}: "
+                f"{out[-3000:]}")
+        line = [x for x in out.splitlines()
+                if x.startswith("[parallel-result] ")][-1]
+        found.append(json.loads(line[len("[parallel-result] "):]))
+    return found
+
+
+def _by_name(launches):
+    return {n: launches[k.symbol] for n, k in kernels().items()}
+
+
+def phase_parallel(cfg, out_dir, card):
+    """Phase 22, [parallel]: (a) one NCCL rank, its steps captured with
+    the all-reduce inside the graph, bit for bit against ModelTrainer over
+    2 epochs; (b) two gloo ranks on cuda:0, eager (the refusal named),
+    one epoch against ModelTrainer at loss rtol 1e-5, weights atol 2e-5.
+    Returns the worlds' launches by kernel name."""
+    t0 = time.perf_counter()
+    total = {}
+    (a,) = _parallel_world("nccl1", 1, cfg.seed, 2, out_dir)
+    la = _by_name(a["launches"])
+    idle = [n for n in PARALLEL_KERNELS if not la[n]]
+    require(not idle, f"(a) launched no {idle}: {_nz(la)}")
+    total = _add(total, la)
+    print(f"[parallel] (a) 1 NCCL rank, 2 epochs by graph (train graph "
+          f"captured with its all-reduce call: {a['captured']}, refusal "
+          f"{a['refusal']}; one rank: NCCL enqueues no work for an "
+          f"in-place all-reduce, so the graph holds no collective kernel): "
+          f"bit-equal to ModelTrainer {a['bit_equal']}; the trainers' "
+          f"steps/sec (train steps over the wall time after 2 warm-up "
+          f"steps, validation and captures included) {a['dp_sps']:.2f} "
+          f"against {a['model_trainer_sps']:.2f}; the all-reduce of "
+          f"{a['allreduce_floats']} floats alone {a['allreduce_graph_ms']:.4f}"
+          f" ms replayed, {a['allreduce_eager_ms']:.4f} ms eager (the host's "
+          f"call); launches {_nz(la)} ({card})", flush=True)
+    ranks = _parallel_world("gloo2", 2, cfg.seed, 1, out_dir)
+    for r in ranks:
+        lr = _by_name(r["launches"])
+        idle = [n for n in PARALLEL_KERNELS if not lr[n]]
+        require(not idle, f"(b) rank {r['rank']} launched no {idle}")
+        total = _add(total, lr)
+    r0 = ranks[0]
+    print(f"[parallel] (b) 2 gloo ranks on cuda:0, 1 epoch eager "
+          f"({r0['refusal']}): loss rel err {r0['loss_rel_err']:.3g}, "
+          f"weights abs err {r0['weight_abs_err']:.3g} against "
+          f"ModelTrainer; {1e3 / r0['dp_sps']:.3f} ms a train step by the "
+          f"trainer's steps/sec ({r0['dp_sps']:.2f}, validation included); "
+          f"all-reduce of "
+          f"{r0['allreduce_floats']} floats through the host "
+          f"{r0['allreduce_eager_ms']:.4f} ms ({card})", flush=True)
+    print(f"[parallel] phase 22 took {time.perf_counter() - t0:.1f}s; "
+          f"launches {_nz(total)}", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -7907,6 +8136,12 @@ def main() -> int:
     total = _add(total, phase_tune(
         dev, data_l, os.path.join(out_s, "command", "serve",
                                   "requests.jsonl"), out_u, card))
+
+    # data-parallel training, after every phase (its ranks are children)
+    out_dp = os.path.join(HERE, "smoke_out", "parallel")
+    shutil.rmtree(out_dp, ignore_errors=True)
+    os.makedirs(out_dp)
+    total = _add(total, phase_parallel(cfg, out_dp, card))
 
     print(card)  # the card's name and power limit, as nvidia-smi gives them
     print(f"[done] smoke run took {time.perf_counter() - t_start:.1f}s")

@@ -51,6 +51,21 @@ the process registry's ``/metrics`` (obs/metrics.py ``MetricsServer``; 0
 ``-compile-cache DIR`` is the directory of the built kernel libraries
 (obs/perf/compile_cache.py).
 
+Data-parallel training (parallel/): ``-devices N`` (N > 1) launches N
+ranks of this command (parallel/distributed.py ``launch_ranks``: the
+world's environment, a rendezvous on a free loopback port), rank r on
+``cuda:(GPU + r)`` over NCCL, or on the CPU over gloo under ``-GPU cpu``;
+it waits, stops every rank as soon as one fails and exits with the first
+nonzero code. A command started by torchrun (``WORLD_SIZE``, ``RANK``,
+``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT`` in its environment) is
+one rank itself, on ``cuda:(GPU + LOCAL_RANK)``: either way each rank
+builds ``ParallelModelTrainer``, and rank 0 alone prints and writes.
+``-devices 0|1`` trains on one device. ``-mp`` above 1 (the model axis)
+exits, naming ROADMAP.md Queue 1 item 1(b); the mesh is checked before
+any data is loaded, with the JAX CLI's messages. ``-consistency N``
+digest-compares the ranks' replicas every N epochs; ``-ckpt orbax``
+writes the port's directory checkpoint (train/checkpoint.py).
+
 Runs on the card (``-GPU 0``, the default) unless ``-GPU cpu`` asks for the
 CPU. Train mode trains the single-step model (pred_len is forced to 1, as
 in the reference, Main.py:44-45) unless ``-multistep`` keeps ``-pred`` and
@@ -255,6 +270,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "rollouts (quant/int8.py): int8 = per-channel "
                         "weight-quantized params dequantized inside the "
                         "forward; training numerics unaffected")
+    p.add_argument("-devices", "--devices", type=int, default=0,
+                   help="data-parallel devices (0 = single-device): N > 1 "
+                        "launches N ranks, one device each")
+    p.add_argument("-mp", "--model_parallel", type=int, default=1,
+                   help="model-parallel axis size of the mesh; only 1 is "
+                        "ported (the model axis is ROADMAP.md Queue 1 "
+                        "item 1(b))")
+    p.add_argument("-ckpt", "--checkpoint_backend", type=str,
+                   choices=["pickle", "orbax"], default="pickle",
+                   help="checkpoint format: pickle = the one-file format "
+                        "both packages read; orbax = the port's directory "
+                        "form (one torch.save file per section), not the "
+                        "JAX orbax layout")
+    p.add_argument("-consistency", "--consistency_check_every", type=int,
+                   default=0,
+                   help="digest-compare every rank's weights, Adam state "
+                        "and banks every N epochs; a divergence rolls back "
+                        "(0 = off)")
     p.add_argument("-accum", "--grad_accum", type=int, default=1,
                    help="gradient-accumulation microbatches per optimizer "
                         "step (1 = off): k interleaved chunks of "
@@ -356,7 +389,7 @@ TUNABLE_FLAGS = ("sparse_density_threshold", "sparse_min_nodes",
 #: flags that pick the device, the arms, resume and the session's
 #: sidecars, not config fields
 RUN_FLAGS = ("GPU", "lstm_impl", "bdgcn_impl", "resume", "trace_dir",
-             "metrics_port")
+             "metrics_port", "devices", "model_parallel")
 
 
 def config_from_args(args: dict) -> MPGCNConfig:
@@ -447,12 +480,49 @@ def main(argv=None):
     from mpgcn_tpu_torch.data.loader import load_dataset
     from mpgcn_tpu_torch.device import resolve_device
     from mpgcn_tpu_torch.obs.perf import compile_cache
+    from mpgcn_tpu_torch.parallel.distributed import (
+        initialize,
+        launch_ranks,
+        local_rank,
+        world_from_env,
+    )
     from mpgcn_tpu_torch.train.trainer import ModelTrainer
     from mpgcn_tpu_torch.utils.profiling import trace_if
 
     args = build_parser().parse_args(argv).__dict__
     # no card, no data loading: the device is checked first
     device = resolve_device(device_for(args["GPU"]))
+    world, devices = world_from_env(), args["devices"]
+    rank0 = world is None or int(os.environ.get("RANK", "0")) == 0
+    # the mesh, before any data is loaded (mpgcn_tpu/cli.py:500-521)
+    if args["model_parallel"] < 1:
+        raise SystemExit(f"-mp {args['model_parallel']} is invalid: the "
+                         f"model axis needs at least 1 device")
+    if args["model_parallel"] > 1:
+        raise SystemExit(f"-mp {args['model_parallel']}: the model axis is "
+                         f"not ported yet (ROADMAP.md Queue 1, item 1(b)); "
+                         f"the port runs -devices N data-parallel ranks "
+                         f"with -mp 1")
+    if world is None and devices > 1:
+        if device.type == "cuda":
+            import torch
+
+            visible = torch.cuda.device_count() - device.index
+            if devices > visible:
+                raise SystemExit(f"requested {devices} devices, only "
+                                 f"{visible} visible")
+        raise SystemExit(launch_ranks(argv, devices))
+    if world is not None:
+        # one rank of a world launched from outside (torchrun) or by
+        # launch_ranks above; rank 0 alone prints
+        if device.type == "cuda":
+            import torch
+
+            device = resolve_device(f"cuda:{device.index + local_rank()}")
+            torch.cuda.set_device(device)
+        initialize(backend="nccl" if device.type == "cuda" else "gloo")
+        if not rank0:
+            sys.stdout = open(os.devnull, "w")
     lstm_impl = "plain" if args["lstm_impl"] == "plain" else "kernel"
     bdgcn_impl, resume = args["bdgcn_impl"], args["resume"]
     trace_dir, metrics_port = args["trace_dir"], args["metrics_port"]
@@ -462,12 +532,20 @@ def main(argv=None):
     os.makedirs(cfg.output_dir, exist_ok=True)
     data, data_input = load_dataset(cfg)
     cfg = cfg.replace(num_nodes=data["OD"].shape[1])
-    trainer = ModelTrainer(cfg, data, device=device, lstm_impl=lstm_impl,
-                           bdgcn_impl=bdgcn_impl, data_container=data_input)
+    if world is not None:
+        from mpgcn_tpu_torch.parallel import ParallelModelTrainer, make_mesh
+
+        trainer = ParallelModelTrainer(
+            cfg, data, lstm_impl=lstm_impl, bdgcn_impl=bdgcn_impl,
+            data_container=data_input, mesh=make_mesh(device=device))
+    else:
+        trainer = ModelTrainer(cfg, data, device=device,
+                               lstm_impl=lstm_impl, bdgcn_impl=bdgcn_impl,
+                               data_container=data_input)
     # the sidecars ride the whole session; -no-obs keeps both off with
     # the trainer's own telemetry
     sidecar = sampler = None
-    if cfg.obs_metrics:
+    if cfg.obs_metrics and rank0:
         from mpgcn_tpu_torch.obs.device import DeviceSampler
         from mpgcn_tpu_torch.obs.metrics import MetricsServer, default_registry
 

@@ -24,9 +24,11 @@ resilience/faults.py; the serving plane runs its arms), and the operator
 surface: the kernel-library directory (``compile_cache_dir``) and the
 trainer's telemetry (``obs_metrics``), and the tunable knobs set on
 purpose (``explicit_knobs``: a tuned profile never overrides them,
-tune/registry.py). Knobs of paths
-this port does not have yet (meshes, the orbax checkpoint backend) are
-not here; they arrive with the slices that run them. ``DEFAULT_SLOS``
+tune/registry.py), and data-parallel training: the checkpoint format
+(``checkpoint_backend``) and the replica digest check
+(``consistency_check_every``). Knobs of paths this port does not have
+yet (the model axis, ``branch_exec``, liveness) are not here; they
+arrive with the slices that run them. ``DEFAULT_SLOS``
 are the serving plane's objectives (obs/perf/slo.py). The BDGCN arm is not a config
 field: it is the ``bdgcn_impl`` argument of ``ModelTrainer`` and
 ``ServeEngine``. ``DaemonConfig`` configures the continual-learning
@@ -162,6 +164,12 @@ class MPGCNConfig:
     #                                         (0 = off, reference behavior)
     lr_schedule: str = "none"               # none | cosine | exponential
     #                                         decay over the training run
+    checkpoint_backend: str = "pickle"      # pickle: the JAX package's
+    #                                         one-file format; orbax: a
+    #                                         directory at the checkpoint
+    #                                         path, one torch.save file a
+    #                                         section (train/checkpoint.py),
+    #                                         not the JAX orbax layout
     epoch_scan: bool = True                 # run each epoch that fits
     #                                         epoch_scan_max_mb on device-
     #                                         resident data, one host sync
@@ -251,6 +259,10 @@ class MPGCNConfig:
     #                                         reseeds up to
     #                                         dead_init_retries times
     dead_init_retries: int = 3              # reseed attempts under 'retry'
+    consistency_check_every: int = 0        # every k epochs, digest-compare
+    #                                         every rank's weights, Adam
+    #                                         state and banks; a divergence
+    #                                         rolls back (0 = off)
     step_sentinels: bool = True             # a train step whose loss, new
     #                                         weights or new Adam state is
     #                                         non-finite is skipped inside
@@ -325,6 +337,7 @@ class MPGCNConfig:
             "infer_precision": ("auto", "f32", "bf16", "int8"),
             "od_storage": ("auto", "dense", "sparse"),
             "native_host": ("auto", "off"),
+            "checkpoint_backend": ("pickle", "orbax"),
         }
         for field_name, allowed in choices.items():
             val = getattr(self, field_name)
@@ -369,6 +382,9 @@ class MPGCNConfig:
             raise ValueError("grad_accum must be >= 1")
         if self.dead_init_retries < 1:
             raise ValueError("dead_init_retries must be >= 1")
+        if self.consistency_check_every < 0:
+            raise ValueError("consistency_check_every must be >= 0 "
+                             "(0 disables the check)")
         if self.skip_budget < 0:
             raise ValueError("skip_budget must be >= 0")
         if self.rollback_retries < 0:

@@ -1,2 +1,3 @@
 """The self-healing trainer's pieces (step sentinels, rollback, the hang
-watchdog) and the fault-injection plan (faults.py)."""
+watchdog, the replicas' digest check) and the fault-injection plan
+(faults.py)."""

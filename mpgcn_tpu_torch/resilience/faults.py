@@ -388,7 +388,7 @@ class FaultPlan:
         self._fired.add("ckpt_trunc")
         target = path
         if os.path.isdir(path):
-            target = os.path.join(path, "mpgcn_meta.pkl")
+            target = os.path.join(path, "meta.pt")
         if not os.path.exists(target):
             return False
         size = os.path.getsize(target)

@@ -161,7 +161,9 @@ class MicroBatcher:
         self.max_queue = int(max_queue)
         self.max_wait_s = max(0.0, float(max_wait_ms)) / 1e3
         self._q: deque[Ticket] = deque()
-        self._lock = threading.Lock()
+        # reentrant: a caller that holds it across several submits lands
+        # them as one group (no worker takes part of it in between)
+        self._lock = threading.RLock()
         self._cond = threading.Condition(self._lock)
         # one-way latches as Events: the stager and dispatcher read them
         # under another mutex (_staged_cond) than the one that sets them

@@ -8,9 +8,11 @@ replace), so the JAX ``load_checkpoint`` reads a port checkpoint and the
 port reads a JAX one.
 
 The records, as the JAX package writes them (resilience/elastic.py):
-``manifest`` is the topology manifest (``format`` 1, one process, its
-device count, no mesh, the platform, the time; ``torch_version`` where
-the JAX one has ``jax_version``); ``integrity`` is ``{"algo":
+``manifest`` is the topology manifest (``format`` 1, the process count,
+the device count, the writing process 0, the mesh -- None for one
+device, ``{"data": dp, "model": 1}`` for a data-parallel run of dp ranks
+-- the platform, the time; ``torch_version`` where the JAX one has
+``jax_version``); ``integrity`` is ``{"algo":
 "blake2b-128", "leaves": {label: digest}}`` over the ``params`` leaves,
 labelled and hashed as the JAX ``tree_integrity`` does, so the JAX loader
 verifies a port checkpoint (its ``opt_state`` section is empty there).
@@ -54,11 +56,27 @@ classes stays unchecked (the restricted unpickler keeps them as stubs
 whose field names it does not know), and serving never reads it. A file
 with no records (older checkpoints of either package) loads unchecked,
 as in the JAX loader. Both apply ``check_branch_spec``.
+
+``checkpoint_backend="orbax"`` writes a directory at the checkpoint path:
+one ``torch.save`` file per section (``params.pt``, ``opt_state_torch.pt``)
+and ``meta.pt`` (epoch, extra, manifest, the integrity records), the
+sections' numpy leaves stored as tensors, so ``torch.load(weights_only=
+True)`` reads it back. It is written into ``<path>.tmp-<pid>`` and
+published by rename (the previous checkpoint moves to ``<path>.old`` for
+the instant between the two renames, and a reader finds it there). The
+machine that runs the port has no orbax, so this is the port's own
+directory form, not the JAX package's sharded orbax layout: the readers
+refuse a JAX orbax directory (``mpgcn_meta.pkl`` inside) with an error
+naming the format.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
+import pickle
+import shutil
+import zipfile
 from datetime import datetime, timezone
 from typing import Optional
 
@@ -78,9 +96,10 @@ from mpgcn_tpu_torch.utils.convert import (
 
 __all__ = ["CheckpointCorruptError", "OPT_INTEGRITY_KEY", "OPT_STATE_KEY",
            "adam_state_from_jax", "checkpoint_payload",
-           "integrity_mismatches", "load_checkpoint", "load_opt_state",
-           "load_serving_params", "opt_state_to_host", "params_integrity",
-           "save_checkpoint", "topology_manifest", "write_checkpoint"]
+           "checkpoint_exists", "integrity_mismatches", "load_checkpoint",
+           "load_opt_state", "load_serving_params", "opt_state_to_host",
+           "params_integrity", "read_any", "save_checkpoint",
+           "topology_manifest", "write_checkpoint"]
 
 #: the payload key of the port's optimizer state
 OPT_STATE_KEY = "opt_state_torch"
@@ -169,26 +188,31 @@ def load_opt_state(model, optimizer, state: dict) -> None:
 
 def checkpoint_payload(params: dict, epoch: int, extra: dict | None = None,
                        opt_state: dict | None = None,
-                       platform: str = "cpu") -> dict:
+                       platform: str = "cpu",
+                       manifest: dict | None = None) -> dict:
     """The pickled dict: ``params`` a JAX params tree (``params_to_jax``),
     ``opt_state`` ``opt_state_to_host``'s dict or None, and the topology
-    manifest of a run on ``platform`` ('gpu' or 'cpu'); ``write_checkpoint``
-    adds the integrity records."""
+    ``manifest`` (default: one process on ``platform``, 'gpu' or 'cpu');
+    ``write_checkpoint`` adds the integrity records."""
     payload = {"epoch": epoch, "params": params}
     if opt_state is not None:
         payload[OPT_STATE_KEY] = opt_state
     if extra:
         payload["extra"] = extra
-    payload["manifest"] = topology_manifest(platform)
+    payload["manifest"] = manifest or topology_manifest(platform)
     return payload
 
 
-def topology_manifest(platform: str) -> dict:
-    """The JAX ``build_manifest`` keys for a one-process run: no mesh."""
-    return {"format": MANIFEST_FORMAT, "process_count": 1,
-            "device_count": (torch.cuda.device_count() if platform == "gpu"
-                             else 1),
-            "writer_process": 0, "platform": platform, "mesh": None,
+def topology_manifest(platform: str, world: int = 1,
+                      mesh: dict | None = None) -> dict:
+    """The JAX ``build_manifest`` keys: a run of ``world`` processes, one
+    device each under a ``mesh`` ({"data": dp, "model": 1}); without a
+    mesh one process and its visible devices. Rank 0 writes."""
+    devices = world if mesh is not None else (
+        torch.cuda.device_count() if platform == "gpu" else 1)
+    return {"format": MANIFEST_FORMAT, "process_count": world,
+            "device_count": devices, "writer_process": 0,
+            "platform": platform, "mesh": mesh,
             "torch_version": str(torch.__version__),
             "saved_at": datetime.now(timezone.utc).isoformat(
                 timespec="seconds")}
@@ -198,14 +222,153 @@ def _record(leaves: dict) -> dict:
     return {"algo": "blake2b-128", "leaves": leaves}
 
 
-def write_checkpoint(path: str, payload: dict) -> str:
+def write_checkpoint(path: str, payload: dict,
+                     backend: str = "pickle") -> str:
     """Add the integrity records to ``payload`` (module docstring) and
-    pickle it to ``path`` atomically and durably."""
+    write it to ``path`` atomically and durably: one pickle file, or the
+    directory form under ``backend="orbax"``."""
     payload["integrity"] = _record(params_integrity(payload["params"]))
     if OPT_STATE_KEY in payload:
         payload[OPT_INTEGRITY_KEY] = _record(
             _digests(payload[OPT_STATE_KEY], OPT_STATE_KEY))
+    if backend == "orbax":
+        return _write_dir(path, payload)
     return atomic_pickle_dump(path, payload)
+
+
+# --- the directory form (checkpoint_backend="orbax") -------------------------
+
+#: the file whose presence marks a directory checkpoint complete (written
+#: last), and the sections that get a file each
+DIR_META = "meta.pt"
+_DIR_SECTIONS = ("params", OPT_STATE_KEY)
+#: the meta file of the JAX package's orbax directory
+_JAX_ORBAX_META = "mpgcn_meta.pkl"
+
+
+def _encode(tree):
+    """numpy leaves as tagged tensors, so a weights-only load takes them."""
+    if isinstance(tree, dict):
+        return {k: _encode(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_encode(v) for v in tree)
+    if isinstance(tree, (np.ndarray, np.generic)):
+        kind = "ndarray" if isinstance(tree, np.ndarray) else "npscalar"
+        return {f"__{kind}__": torch.from_numpy(np.array(tree))}
+    return tree
+
+
+def _decode(tree):
+    if isinstance(tree, dict):
+        if len(tree) == 1 and "__ndarray__" in tree:
+            return tree["__ndarray__"].numpy()
+        if len(tree) == 1 and "__npscalar__" in tree:
+            return tree["__npscalar__"].numpy()[()]
+        return {k: _decode(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_decode(v) for v in tree)
+    return tree
+
+
+def _fsync_dir(path: str) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _save_file(path: str, obj) -> None:
+    with open(path, "wb") as f:
+        torch.save(_encode(obj), f)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def _remove(path: str) -> None:
+    if os.path.isdir(path):
+        shutil.rmtree(path, ignore_errors=True)
+    elif os.path.exists(path):
+        os.remove(path)
+
+
+def _write_dir(path: str, payload: dict) -> str:
+    """The directory form: each section's file, then ``meta.pt``, all in a
+    temporary directory, then published by rename."""
+    parent = os.path.dirname(os.path.abspath(path))
+    tmp, old = f"{path}.tmp-{os.getpid()}", f"{path}.old"
+    _remove(tmp)
+    os.makedirs(tmp)
+    for section in _DIR_SECTIONS:
+        if section in payload:
+            _save_file(os.path.join(tmp, f"{section}.pt"), payload[section])
+    _save_file(os.path.join(tmp, DIR_META),
+               {k: v for k, v in payload.items() if k not in _DIR_SECTIONS})
+    _fsync_dir(tmp)
+    if os.path.exists(path):
+        _remove(old)
+        os.rename(path, old)
+    os.rename(tmp, path)
+    _fsync_dir(parent)
+    _remove(old)
+    return path
+
+
+def _complete_dir(path: str) -> Optional[str]:
+    """``path``, or ``<path>.old`` when a write was cut between its two
+    renames, whichever holds a complete directory checkpoint."""
+    for d in (path, f"{path}.old"):
+        if os.path.isfile(os.path.join(d, DIR_META)):
+            return d
+    return None
+
+
+def checkpoint_exists(path: str) -> bool:
+    """A checkpoint to load at ``path``, in either form."""
+    return os.path.exists(path) or _complete_dir(path) is not None
+
+
+def _load_file(path: str):
+    try:
+        return _decode(torch.load(path, map_location="cpu",
+                                  weights_only=True))
+    except (RuntimeError, EOFError, pickle.UnpicklingError,
+            zipfile.BadZipFile) as e:
+        raise CheckpointCorruptError(
+            f"checkpoint file {path} is corrupt (torn/partial write?): "
+            f"{type(e).__name__}: {e}") from e
+
+
+def _read_dir(path: str) -> dict:
+    if os.path.isfile(os.path.join(path, _JAX_ORBAX_META)):
+        raise ValueError(
+            f"{path} is a JAX orbax checkpoint directory (the JAX "
+            f"package's sharded orbax.checkpoint layout, "
+            f"{_JAX_ORBAX_META} inside): the port reads the pickle format "
+            f"and its own directory form (-ckpt orbax, {DIR_META} inside); "
+            f"write the checkpoint with -ckpt pickle")
+    d = _complete_dir(path)
+    if d is None:
+        raise CheckpointCorruptError(
+            f"checkpoint directory {path} has no {DIR_META}: an incomplete "
+            f"write")
+    payload = _load_file(os.path.join(d, DIR_META))
+    for section in _DIR_SECTIONS:
+        f = os.path.join(d, f"{section}.pt")
+        if os.path.exists(f):
+            payload[section] = _load_file(f)
+    if "params" not in payload:
+        raise CheckpointCorruptError(f"checkpoint directory {path} has no "
+                                     f"params.pt")
+    return payload
+
+
+def read_any(path: str) -> dict:
+    """The payload of a checkpoint in either form (not yet verified)."""
+    if os.path.isdir(path) or (not os.path.exists(path)
+                               and _complete_dir(path) is not None):
+        return _read_dir(path)
+    return read_checkpoint(path)
 
 
 def save_checkpoint(path: str, model, epoch: int,
@@ -223,7 +386,7 @@ def load_checkpoint(path: str, num_branches=None,
                     branch_sources=None) -> dict:
     """The checkpoint's payload dict (numpy params tree), verified with its
     optimizer state (module docstring), after the branch spec check."""
-    payload = read_checkpoint(path)
+    payload = read_any(path)
     _verify(payload, path, with_opt_state=True)
     check_branch_spec(payload, path, num_branches, branch_sources)
     return payload
@@ -380,7 +543,7 @@ def load_serving_params(path: str, num_branches: Optional[int] = None,
     given, held to the live model's branch spec. Raises
     ``CheckpointCorruptError`` on damaged bytes, ``ValueError`` on a
     checkpoint that does not fit."""
-    payload = read_checkpoint(path)
+    payload = read_any(path)
     _verify(payload, path, with_opt_state=False)
     if num_branches is not None:
         check_branch_spec(payload, path, num_branches, branch_sources)

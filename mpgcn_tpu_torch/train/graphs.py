@@ -27,12 +27,15 @@ Every capture counts into the default metrics registry's
 ``cuda_program_builds`` (obs/metrics.py), the port's counterpart of the
 JAX package's compile counter.
 
-``refusal`` names what cannot be captured: the CPU (nothing to capture)
-and the blocked-ELL arm, whose forward and dX mark Inf and NaN with a
+``refusal`` names what cannot be captured: the CPU (nothing to capture),
+the blocked-ELL arm, whose forward and dX mark Inf and NaN with a
 generation the host counts per call (sparse/cuda_ell.py ``_marks``), so
-a replay would reuse the captured one. Callers print that decision;
-``GraphSet`` raises on either. A capture or a replay that fails raises:
-nothing falls back to eager execution.
+a replay would reuse the captured one, and a data-parallel step whose
+gradient all-reduce cannot go into the graph: gloo's collectives run on
+the host, and an NCCL all-reduce that fails a trial capture is named with
+its error. Callers print that decision; ``GraphSet`` raises on either. A
+capture or a replay that fails raises: nothing falls back to eager
+execution.
 """
 
 from __future__ import annotations
@@ -68,14 +71,46 @@ def side_stream(device: torch.device) -> "torch.cuda.Stream":
         return stream
 
 
-def refusal(device: torch.device, bdgcn_impl: str) -> Optional[str]:
-    """Why steps on ``device`` and ``bdgcn_impl`` run uncaptured, or None
-    when they are captured."""
+def refusal(device: torch.device, bdgcn_impl: str,
+            group=None) -> Optional[str]:
+    """Why steps on ``device`` and ``bdgcn_impl`` (all-reducing their
+    gradients over the process ``group``, where one is given) run
+    uncaptured, or None when they are captured."""
     if device.type != "cuda":
         return "cpu: CUDA graphs need the card"
     if bdgcn_impl == "ell":
         return ("bdgcn_impl=ell: the ELL forward and dX count their "
                 "Inf/NaN marks' generation on the host")
+    if group is not None:
+        return _collective_refusal(device, group)
+    return None
+
+
+def _collective_refusal(device: torch.device, group) -> Optional[str]:
+    """Capture one all-reduce over ``group`` into a throwaway graph: None
+    when it records, else why the step's all-reduce stays outside a
+    graph. (In a world of one rank NCCL enqueues no work for an in-place
+    all-reduce, so there the trial graph is empty: it shows only that the
+    call may run under capture.)"""
+    import torch.distributed as dist
+
+    backend = dist.get_backend(group)
+    if backend != "nccl":
+        return (f"{backend}: its collectives run on the host, where a "
+                f"CUDA graph cannot capture them")
+    buf = torch.ones(8, device=device)
+    stream = side_stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    try:
+        with torch.cuda.stream(stream):
+            dist.all_reduce(buf, group=group)  # eager: the communicator
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream):
+                dist.all_reduce(buf, group=group)
+            graph.replay()
+        torch.cuda.synchronize(device)
+    except RuntimeError as e:
+        return f"nccl: capturing an all_reduce failed ({e})"
     return None
 
 
@@ -130,10 +165,16 @@ class GraphSet:
 
     def capture(self, key, fn: Callable, inputs: tuple = ()) -> Captured:
         """Record ``fn`` (which reads ``inputs`` and returns its output)
-        into a graph of the set's pool under ``key``."""
+        into a graph of the set's pool under ``key``. The capture checks
+        only its own thread's calls ("thread_local"): the stream
+        executor's staging thread pins each chunk's host buffers
+        (``cudaHostAlloc``) while the compute thread captures, and under
+        the default "global" mode that call, in another thread, ends the
+        capture with ``cudaErrorStreamCaptureInvalidated``."""
         graph = torch.cuda.CUDAGraph()
         with self.lock, capture_launches() as tally:
-            with torch.cuda.graph(graph, pool=self.pool):
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  capture_error_mode="thread_local"):
                 out = fn()
         self.graphs[key] = cap = Captured(graph, inputs, out, tally,
                                           self.lock)

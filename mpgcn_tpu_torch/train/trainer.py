@@ -102,8 +102,9 @@ the first stream chunk); ``hang_epoch`` sleeps at the epoch's start,
 which the armed watchdog turns into exit 113; ``ckpt_trunc`` tears the
 K-th checkpoint written, after the background writer wrote it; and
 ``io_errors`` ride the data reads (data/loader.py, the pipeline's
-gathers). The multi-host arms (``kill_host_epoch``, ``straggle_host``,
-``wedge_collective``) need a process group, which the port has not.
+gathers). Of the multi-host arms, ``kill_host_epoch`` SIGKILLs the rank
+``fault_host`` of a data-parallel run at the start of its epoch;
+``straggle_host`` and ``wedge_collective`` wait for the liveness slice.
 
 ``warm_start(path)`` is the continual-learning daemon's start
 (service/daemon.py): the checkpoint's weights, a fresh optimizer, in
@@ -124,7 +125,22 @@ executor's) runs inside ``utils.profiling.step_annotation``, a
 enables the kernel-library directory ``cfg.compile_cache_dir``
 (obs/perf/compile_cache.py) before it builds anything.
 
-Not here yet: the orbax checkpoint backend and the multi-process votes.
+Data-parallel training (parallel/trainer.py ``ParallelModelTrainer``)
+runs this loop on every rank of a process group, through the hooks this
+class keeps as no-ops or one-process answers: the rows' global offset
+``_row0`` in the masked loss, ``_reduce_step`` (the all-reduce of each
+step's gradients and loss, and of each eval loss), ``_agree`` (the
+dead-init probes' verdicts), ``_vote_preempted``, ``_ckpt_exists``
+(rank 0's answer), ``_files_settled`` (the checkpoint writer flushed and,
+on a group, every rank past it), ``_local_cols`` (the stream executor's
+batch columns), ``_rollout_batch`` (test mode's forecasts) and
+``_manifest``; rank 0 (``rank``) alone writes checkpoints, the run log,
+the score file and the watchdog's emergency state.
+``cfg.consistency_check_every`` = k digests the weights, Adam's state and
+the banks every k epochs after the train mode, before the validate mode
+saves (resilience/consistency.py); a divergence goes through the bad-epoch
+rollback. ``cfg.checkpoint_backend`` "orbax" writes the directory form
+(train/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -152,6 +168,10 @@ from mpgcn_tpu_torch.quant.int8 import (
     quantize_params,
     requantize_,
 )
+from mpgcn_tpu_torch.resilience.consistency import (
+    ReplicaDivergenceError,
+    check_replica_consistency,
+)
 from mpgcn_tpu_torch.resilience.faults import FaultPlan
 from mpgcn_tpu_torch.resilience.rollback import (
     RollbackSignal,
@@ -164,10 +184,12 @@ from mpgcn_tpu_torch.train.checkpoint import (
     OPT_STATE_KEY,
     CheckpointCorruptError,
     adam_state_from_jax,
+    checkpoint_exists,
     checkpoint_payload,
     load_checkpoint,
     load_opt_state,
     opt_state_to_host,
+    topology_manifest,
     write_checkpoint,
 )
 from mpgcn_tpu_torch.train.graphs import (
@@ -282,6 +304,12 @@ class ModelTrainer:
     """The model, its optimizer and the support banks on ``device``
     (default the card; the CPU only when asked)."""
 
+    #: this process's rank of a data-parallel world, its process group
+    #: (None: one process) and the global batch position of its first row
+    rank = 0
+    process_group = None
+    _row0 = 0
+
     def __init__(self, cfg: MPGCNConfig, data: dict, device="cuda",
                  lstm_impl: str = "kernel", bdgcn_impl: str = "auto",
                  data_container=None, pipeline: Optional[DataPipeline] = None):
@@ -350,7 +378,8 @@ class ModelTrainer:
         #: use, on the card) and its counters of the last epoch, by mode
         self._copy_stream = None
         self._stream_stats: dict = {}
-        self.graph_refusal = refusal(self.device, self.bdgcn_impl)
+        self.graph_refusal = refusal(self.device, self.bdgcn_impl,
+                                     self.process_group)
         self._graphs = (None if self.graph_refusal else
                         GraphSet(self.device, self.bdgcn_impl))
         self._rollouts = (None if self._graphs is None else
@@ -526,7 +555,7 @@ class ModelTrainer:
         per_sample = elementwise_loss(self.cfg.loss, pred, y).reshape(
             pred.shape[0], -1).mean(dim=1)
         if pos is None:
-            pos = torch.arange(pred.shape[0], device=pred.device)
+            pos = self._row0 + torch.arange(pred.shape[0], device=pred.device)
         return (per_sample * (pos < size).float()).sum()
 
     def _batch_loss(self, x, y, keys, size,
@@ -553,7 +582,7 @@ class ModelTrainer:
             loss = self._batch_loss(x, y, keys, size)
             scaled(loss).backward()
             return loss.detach()
-        pos = torch.arange(x.shape[0], device=x.device)
+        pos = self._row0 + torch.arange(x.shape[0], device=x.device)
         total = None
         for j in range(k):
             part = self._masked_sum_loss(x[j::k], y[j::k], keys[j::k], size,
@@ -563,6 +592,19 @@ class ModelTrainer:
         torch._foreach_div_([p.grad for p in self.optimizer.all_params()
                              if p.grad is not None], size)
         return total / size
+
+    def _reduce_step(self, loss: torch.Tensor,
+                     grads: bool = True) -> torch.Tensor:
+        """The step's loss (and, with ``grads``, the gradients in ``.grad``)
+        summed over the ranks of a data-parallel run; one process: as it
+        is. Called between the backward and the update, so the clip, the
+        sentinels and the loss scaler judge the same numbers on every
+        rank, and on every eval loss."""
+        return loss
+
+    def _agree(self, flag: bool) -> bool:
+        """``flag`` true on every rank (one process: ``flag``)."""
+        return flag
 
     def _size(self, batch: Batch) -> torch.Tensor:
         """The batch's size as the f32 device scalar the scan executor
@@ -586,7 +628,8 @@ class ModelTrainer:
         t0 = time.perf_counter() if self._m_step_ms is not None else 0.0
         with step_annotation(self.global_step):
             x, y, keys = self._tensors(batch)
-            loss = self._loss_and_grads(x, y, keys, self._size(batch))
+            loss = self._reduce_step(self._loss_and_grads(
+                x, y, keys, self._size(batch)))
             loss = self.optimizer.step(loss)
         self.global_step += 1
         self.step_counts["train"] += 1
@@ -600,8 +643,8 @@ class ModelTrainer:
         self.step_counts["eval"] += 1
         with step_annotation(self.step_counts["eval"], "eval_step"):
             x, y, keys = self._tensors(batch)
-            return float(self._batch_loss(x, y, keys, self._size(batch),
-                                          inference=True))
+            return float(self._reduce_step(self._batch_loss(
+                x, y, keys, self._size(batch), inference=True), grads=False))
 
     # --- the scan executor -----------------------------------------------
 
@@ -695,24 +738,26 @@ class ModelTrainer:
         return tuple(torch.from_numpy(np.array(a)).to(self.device)
                      for a in (md.x, md.y, md.keys.astype(np.int64)))
 
-    def _epoch_state(self, mode: str) -> _Epoch:
-        """The mode's executor state, made on first use and cached."""
+    def _epoch_state(self, mode: str, B: Optional[int] = None) -> _Epoch:
+        """The mode's executor state (B this process's rows a step, by
+        default the batch), made on first use and cached."""
         if mode not in self._epochs:
             self._epochs[mode] = _Epoch(
                 self._mode_device_data(mode), self.pipeline.num_batches(mode),
-                self.cfg.batch_size, self.device)
+                B or self.cfg.batch_size, self.device)
         return self._epochs[mode]
 
     def _train_body(self, ep: _Epoch) -> None:
         """One train step of the scan executor, all on the device: what
         the train graph captures."""
         x, y, keys, size = ep.gather()
-        ep.record(self.optimizer.update(
-            self._loss_and_grads(x, y, keys, size)))
+        ep.record(self.optimizer.update(self._reduce_step(
+            self._loss_and_grads(x, y, keys, size))))
 
     def _eval_body(self, ep: _Epoch) -> None:
         x, y, keys, size = ep.gather()
-        ep.record(self._batch_loss(x, y, keys, size, inference=True))
+        ep.record(self._reduce_step(
+            self._batch_loss(x, y, keys, size, inference=True), grads=False))
 
     def _state_ptrs(self) -> tuple:
         """Where the weights, Adam's state, the rate table and the
@@ -781,10 +826,11 @@ class ModelTrainer:
         (S,) device losses, not read yet, and its host sizes. No host
         sync once the mode's graph is captured."""
         idx, sizes = self._epoch_index(mode, shuffle, rng)
+        idx = self._local_cols(idx)
         if is_train:
             self.optimizer.reserve(self.optimizer.count + len(sizes))
         self._check_storage()
-        ep = self._epoch_state(mode)
+        ep = self._epoch_state(mode, idx.shape[1])
         ep.load(idx, sizes)
         bad_steps = self._take_nan_steps(len(sizes), is_train)
         clean = None
@@ -807,13 +853,20 @@ class ModelTrainer:
 
     # --- the stream executor ---------------------------------------------
 
-    def _stream_state(self, mode: str, spc: int) -> _Epoch:
+    def _local_cols(self, idx: np.ndarray) -> np.ndarray:
+        """The columns of an epoch's (S, B) gather index whose rows this
+        process reads on the scan executor and stages on the stream one
+        (JAX: ``_chunk_batch_cols``): all of them here."""
+        return idx
+
+    def _stream_state(self, mode: str, spc: int, B: int) -> _Epoch:
         """The mode's stream state: a static device buffer of one chunk
-        (spc * B windows) that each chunk is copied into, and the epoch
-        index, sizes and losses of a whole epoch."""
+        (spc * B windows, B this process's rows a step) that each chunk is
+        copied into, and the epoch index, sizes and losses of a whole
+        epoch."""
         key = f"{mode}-stream"
         if key not in self._epochs:
-            md, B = self.pipeline.modes[mode], self.cfg.batch_size
+            md = self.pipeline.modes[mode]
             rows = spc * B
             buffers = (torch.zeros((rows,) + md.x.shape[1:],
                                    device=self.device),
@@ -892,13 +945,13 @@ class ModelTrainer:
         counters go into ``_stream_stats[mode]``. Returns the (S,) device
         losses, not read yet, and the host sizes."""
         idx, sizes = self._epoch_index(mode, shuffle, rng)
-        S = len(sizes)
+        idx = self._local_cols(idx)
+        S, B = idx.shape
         n_chunks, spc = self._stream_plan(mode)
         if is_train:
             self.optimizer.reserve(self.optimizer.count + S)
         self._check_storage()
-        ep = self._stream_state(mode, spc)
-        B = self.cfg.batch_size
+        ep = self._stream_state(mode, spc, B)
         # step s reads rows (s mod spc) * B + j of the chunk buffer
         ep.load((np.arange(S)[:, None] % spc) * B + np.arange(B), sizes)
         key = f"{mode}-stream"
@@ -966,6 +1019,24 @@ class ModelTrainer:
         return os.path.join(self.cfg.output_dir,
                             f"{self.cfg.model}_od_last.pkl")
 
+    @property
+    def _is_writer(self) -> bool:
+        """Does this process write the run's files (rank 0)?"""
+        return self.rank == 0
+
+    def _ckpt_exists(self, path: str) -> bool:
+        """A checkpoint to load at ``path`` (on a group: rank 0's answer)."""
+        return checkpoint_exists(path)
+
+    def _files_settled(self) -> None:
+        """Wait until every checkpoint written so far is on the disk (on a
+        group: rank 0's, before any rank reads one)."""
+        self._writer.flush()
+
+    def _manifest(self) -> dict:
+        """The topology manifest of this run's checkpoints."""
+        return topology_manifest(self._platform)
+
     def _ckpt_extra(self, **kw) -> dict:
         extra = {"seed": self.cfg.seed,
                  "num_branches": self.cfg.num_branches,
@@ -990,16 +1061,18 @@ class ModelTrainer:
     def _save(self, path: str, epoch: int, snap=None, **extra) -> None:
         """Write a checkpoint of ``snap`` (default: a snapshot now) on the
         background writer: the loop goes on while it reaches the disk;
-        ``self._writer.flush()`` waits for it."""
+        ``self._writer.flush()`` waits for it. Rank 0 alone writes."""
+        if not self._is_writer:
+            return
         params, opt = snap or self._snapshot()
         self._writer.write(path, checkpoint_payload(
-            params, epoch, self._ckpt_extra(**extra), opt, self._platform),
-            dump=self._write_checkpoint)
+            params, epoch, self._ckpt_extra(**extra), opt, self._platform,
+            self._manifest()), dump=self._write_checkpoint)
 
     def _write_checkpoint(self, path: str, payload) -> None:
         """The writer thread's dump, then the ``ckpt_trunc`` fault: tear
         the K-th checkpoint written, as a crash mid-write would."""
-        write_checkpoint(path, payload)
+        write_checkpoint(path, payload, self.cfg.checkpoint_backend)
         if self._faults.active:
             self._faults.maybe_truncate(path)
 
@@ -1078,11 +1151,14 @@ class ModelTrainer:
         never touches the card."""
         if self._watchdog is None:
             return
+        if not self._is_writer:  # rank 0 alone keeps the emergency state
+            self._watchdog.beat()
+            return
         t0 = time.perf_counter()
         params, opt = snap or self._snapshot()
         self._watchdog.update_state(checkpoint_payload(
             params, epoch, self._ckpt_extra(emergency=True), opt,
-            self._platform))
+            self._platform, self._manifest()))
         self.watchdog_sync_ms.append((time.perf_counter() - t0) * 1e3)
 
     def _first_batch(self):
@@ -1105,7 +1181,7 @@ class ModelTrainer:
         grads = torch.autograd.grad(self._batch_loss(x, y, keys, size),
                                     params, allow_unused=True)
         sq = sum((g.float() ** 2).sum() for g in grads if g is not None)
-        return bool(torch.sqrt(torch.as_tensor(sq)) == 0)
+        return self._agree(bool(torch.sqrt(torch.as_tensor(sq)) == 0))
 
     def _forward_all_zero(self) -> bool:
         """A dead head predicts exactly zero everywhere (the confirmation
@@ -1115,7 +1191,7 @@ class ModelTrainer:
         pred = self.model(x, graphs_for(self.banks, keys,
                                         self.model.sources), inference=True,
                           dtype=infer_dtype_of(self.cfg))
-        return bool((pred == 0).all())
+        return self._agree(bool((pred == 0).all()))
 
     def _dead_init_msg(self, detail: str) -> str:
         return (f"dead initialization (seed {self.cfg.seed}): {detail} -- "
@@ -1187,9 +1263,9 @@ class ModelTrainer:
         logger.log("nan_abort", epoch=epoch, mode=mode, reason=reason,
                    skipped_steps=skipped, postmortem=post)
         restored = None
-        self._writer.flush()
+        self._files_settled()
         for path in (self._last_ckpt_path(), self._ckpt_path()):
-            if path != post and os.path.exists(path):
+            if path != post and self._ckpt_exists(path):
                 restored = self._try_load_ckpt(path, logger)
                 if restored is not None:
                     break
@@ -1260,11 +1336,13 @@ class ModelTrainer:
         except ValueError:  # not the main thread: no preemption hook
             pass
         if cfg.watchdog_secs > 0:
+            writer = self._is_writer
             self._watchdog = HangWatchdog(
                 cfg.watchdog_secs,
-                emergency_path=emergency_path(cfg.output_dir, cfg.model),
+                emergency_path=(emergency_path(cfg.output_dir, cfg.model)
+                                if writer else None),
                 logger=RunLogger(run_log_path(cfg.output_dir, cfg.model,
-                                              cfg.jsonl_log)))
+                                              cfg.jsonl_log and writer)))
             self._watchdog.start()
             # armed with the initial state: a hang before the first epoch
             # ends still leaves a loadable emergency checkpoint
@@ -1305,11 +1383,11 @@ class ModelTrainer:
         epochs already run."""
         cfg = self.cfg
         ckpt = kind = None
-        self._writer.flush()
+        self._files_settled()
         if resume:
             for path, k in ((self._last_ckpt_path(), "last"),
                             (self._ckpt_path(), "best")):
-                if os.path.exists(path):
+                if self._ckpt_exists(path):
                     ckpt = self._try_load_ckpt(path, logger)
                     if ckpt is not None:
                         kind = k
@@ -1321,7 +1399,7 @@ class ModelTrainer:
                       f"scratch.")
             self._save(self._ckpt_path(), 0,
                        self._snapshot(with_opt=False))
-            if os.path.exists(self._last_ckpt_path()):
+            if self._ckpt_exists(self._last_ckpt_path()):
                 # a stale rolling checkpoint must not be resumed after a
                 # crash in this run's first epoch
                 self._save_last(0, state["best_val"], state["best_epoch"],
@@ -1365,7 +1443,7 @@ class ModelTrainer:
         history = {m: [] for m in modes}
         rng = np.random.default_rng(cfg.seed)
         logger = RunLogger(run_log_path(cfg.output_dir, cfg.model,
-                                        cfg.jsonl_log))
+                                        cfg.jsonl_log and self._is_writer))
         plan = {m: self._epoch_exec(m) for m in modes}
         stream_plan = {m: dict(zip(("chunks", "steps_per_chunk"),
                                    self._stream_plan(m)))
@@ -1403,8 +1481,9 @@ class ModelTrainer:
         for epoch in range(start, 1 + cfg.num_epochs):
             self._epoch = epoch  # the epoch the fault arms read
             if self._faults.active:
-                # a wedged host: the armed watchdog fires (exit 113)
-                # before this returns
+                # a dead rank (SIGKILL, no goodbye), then a wedged host:
+                # the armed watchdog fires (exit 113) before this returns
+                self._faults.maybe_kill_host(epoch, self.rank)
                 self._faults.maybe_hang(epoch)
             skipped = spikes = 0
             snap = None
@@ -1429,6 +1508,18 @@ class ModelTrainer:
                 if bad is not None:
                     self._bad_epoch(epoch, mode, bad, skipped, logger)
                     return history
+                if (is_train and cfg.consistency_check_every
+                        and epoch % cfg.consistency_check_every == 0):
+                    # before the validate mode saves, so the rolling
+                    # checkpoint still holds the last good epoch when a
+                    # divergence rolls back (JAX: the same place)
+                    try:
+                        self._check_consistency(epoch, logger)
+                    except ReplicaDivergenceError as e:
+                        self._bad_epoch(epoch, mode,
+                                        f"replica divergence: {e}",
+                                        skipped, logger)
+                        return history
                 if is_train and init_params is not None:
                     if (self._dead_after_epoch(init_params)
                             and self._forward_all_zero()):
@@ -1442,8 +1533,8 @@ class ModelTrainer:
                     continue
                 epoch_val = history[mode][-1]
                 # one host copy of the state serves the epoch's checkpoints
-                # and the watchdog
-                snap = self._snapshot()
+                # and the watchdog (rank 0's: the others write neither)
+                snap = self._snapshot() if self._is_writer else None
                 if epoch_val <= state["best_val"]:
                     print(f"Epoch {epoch}, validation loss drops from "
                           f"{state['best_val']:.5} to {epoch_val:.5}. "
@@ -1487,7 +1578,7 @@ class ModelTrainer:
                                best_val=state["best_val"])
                     return history
             self._watchdog_sync(epoch, snap)
-            if self._preempted and epoch < cfg.num_epochs:
+            if self._vote_preempted() and epoch < cfg.num_epochs:
                 self._save_last(epoch, snap=snap, **state)
                 logger.log("preempted", epoch=epoch)
                 _banner(f"    Preempted at epoch {epoch}: state saved. "
@@ -1500,6 +1591,23 @@ class ModelTrainer:
                    steps_per_sec=round(self.steps_per_sec(), 3))
         return history
 
+    def _vote_preempted(self) -> bool:
+        """Was a signal received (on a group: by any rank; every rank
+        votes every epoch, so the vote always pairs up)?"""
+        return self._preempted
+
+    def _check_consistency(self, epoch: int, logger) -> None:
+        """Digest-compare the weights, Adam's state and the banks across
+        the ranks (one process: digest them); raises
+        ``ReplicaDivergenceError`` on every rank alike."""
+        named = dict(self.model.named_parameters())
+        n = check_replica_consistency(
+            {"params": named,
+             "opt_state": {k: self.optimizer.state[p]
+                           for k, p in named.items()},
+             "banks": self.banks}, name="train_state")
+        logger.log("consistency_ok", epoch=epoch, leaves=n)
+
     # --- inference -------------------------------------------------------
 
     def load_trained(self, path: Optional[str] = None,
@@ -1511,7 +1619,7 @@ class ModelTrainer:
         optimizer, with the JAX trainer's warning; none (or
         ``restore_opt=False``) leaves the optimizer as it is."""
         path = path or self._ckpt_path()
-        self._writer.flush()
+        self._files_settled()
         ckpt = load_checkpoint(path, self.cfg.num_branches,
                                self.cfg.resolved_branch_sources)
         self.model.load_state_dict(params_from_jax(ckpt["params"]))
@@ -1583,6 +1691,10 @@ class ModelTrainer:
                        kt.to(self.device), pred_len, prec.dtype,
                        prec.params).float().cpu().numpy()
 
+    def _rollout_batch(self, batch: Batch) -> np.ndarray:
+        """Test mode's forecast of one padded batch, on the host."""
+        return self.predict(batch.x, batch.keys, self.cfg.pred_len)
+
     def test(self, denormalize: bool = False) -> dict:
         """Multi-step autoregressive evaluation of the train and test
         splits + score-file append (reference: Model_Trainer.py:145-185).
@@ -1597,7 +1709,7 @@ class ModelTrainer:
                     f"begins:")
             forecasts, truths = [], []
             for batch in self.pipeline.batches(mode, pad_to_full=True):
-                pred = self.predict(batch.x, batch.keys, cfg.pred_len)
+                pred = self._rollout_batch(batch)
                 forecasts.append(pred[: batch.size])
                 truths.append(batch.y[: batch.size])
             forecast = np.concatenate(forecasts, axis=0)
@@ -1612,6 +1724,8 @@ class ModelTrainer:
             if cfg.pred_len > 1:
                 results[mode]["RMSE_by_horizon"] = metrics.per_horizon_rmse(
                     forecast, truth)
+            if not self._is_writer:
+                continue
             score_path = os.path.join(cfg.output_dir,
                                       f"{cfg.model}_prediction_scores.txt")
             with open(score_path, "a") as f:

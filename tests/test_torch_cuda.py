@@ -1448,6 +1448,48 @@ def test_replay_after_load_trained_equals_eager(cuda_device, tmp_path):
     _assert_same_state(a, b)
 
 
+def test_capture_survives_a_thread_pinning_host_memory(cuda_device):
+    """A graph captured while another thread pins fresh host memory (the
+    stream executor's staging thread does, a chunk at a time) records
+    and replays: the capture checks only its own thread's calls. The
+    pinning is held inside the captured function, so it lands in the
+    capture window on every run."""
+    import threading
+
+    from mpgcn_tpu_torch.train.graphs import GraphSet
+
+    gs = GraphSet(cuda_device, "kernel")
+    x = torch.arange(1024, dtype=torch.float32, device=cuda_device)
+    go, done, held = threading.Event(), threading.Event(), []
+
+    def pin():
+        go.wait(30)
+        # 37 MiB: a size class no earlier block of the process fills,
+        # so the host allocator calls cudaHostAlloc
+        try:
+            held.append(torch.empty(37 << 20, dtype=torch.uint8,
+                                    pin_memory=True))
+        finally:
+            done.set()
+
+    def body():
+        out = x * 2 + 1
+        go.set()
+        assert done.wait(30)
+        return out
+
+    t = threading.Thread(target=pin)
+    t.start()
+    gs.warmup(lambda: x * 2 + 1)
+    cap = gs.capture("pinned", body)
+    t.join(30)
+    assert held and held[0].is_pinned()
+    x.add_(1)
+    out = cap.replay()
+    torch.cuda.synchronize(cuda_device)
+    torch.testing.assert_close(out, x * 2 + 1, rtol=0, atol=0)
+
+
 def test_graphs_captured_again_after_the_storage_moves(cuda_device,
                                                       tmp_path):
     """A rate table grown past the run moves what the train graph reads:
@@ -1865,7 +1907,9 @@ def _host_tree(path):
 def test_staged_feed_answers_as_the_one_thread_feed(cuda_device, tmp_path):
     """The double-buffered feed (pinned host buffers, side-stream upload
     into staging buffers, an event the batch waits on) answers bit for bit
-    as double_buffer=False, over every bucket."""
+    as double_buffer=False, over every bucket. Each group is submitted
+    under the batcher's lock, so no worker wakes between two submits and
+    takes part of a group: both feeds see the same groups."""
     cfg, data, svc, a, _, _ = _slot_stack(tmp_path, cuda_device)
     preds = {}
     for db in (True, False):
@@ -1878,9 +1922,11 @@ def test_staged_feed_answers_as_the_one_thread_feed(cuda_device, tmp_path):
             assert (stager is not None) == db
             md = eng.pipeline.modes["test"]
             out = []
+            batcher = eng.batchers[3]
             for group in (4, 3, 2, 1, 4):
-                ts = [eng.submit(md.x[i, ..., 0], int(md.keys[i]))
-                      for i in range(group)]
+                with batcher._lock:
+                    ts = [eng.submit(md.x[i, ..., 0], int(md.keys[i]))
+                          for i in range(group)]
                 for t in ts:
                     assert t.wait(60) and t.ok, t.error
                 out += [(t.bucket, t.pred) for t in ts]
@@ -2352,3 +2398,85 @@ def test_planned_buckets_roll_out_as_plain(cuda_device, tmp_path):
         torch.testing.assert_close(preds, ref, **ROLLOUT_TOL)
     finally:
         eng.close()
+
+
+# --- data-parallel training (parallel/) ---------------------------------------
+
+#: the per-rank shapes of a 2-rank step at the reference widths: B = 4
+#: over dp = 2 gives 2 windows a rank, R = 2 * 47^2 = 4,418 LSTM sequences
+RANK_LSTM = (7, 4418, 32)
+RANK_BDGCN = (3, 2, 47, 32, 32)
+
+
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_kernels_at_the_per_rank_shapes(cuda_device, dynamic):
+    """The training LSTM pair and the K-BDGCN pair at the shapes one rank
+    of a 2-rank reference step gives them, against their plain
+    versions."""
+    T, R, H = RANK_LSTM
+    rng = np.random.default_rng(R)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+    xp = t(rng.normal(size=(T, R, 4 * H)))
+    w = t(rng.normal(size=(H, 4 * H)) / np.sqrt(H))
+    hs, cs = cuda_lstm.lstm_layer_train(xp, w)
+    hp, cp = cuda_lstm.lstm_layer_train_plain(xp, w)
+    torch.testing.assert_close(hs, hp, **KERNEL_TOL)
+    torch.testing.assert_close(cs, cp, **KERNEL_TOL)
+    dhs = t(rng.normal(size=(T, R, H)))
+    dxp, dw = cuda_lstm.lstm_layer_bwd(xp, w, hs, cs, dhs, None)
+    dxr, dwr = cuda_lstm.lstm_layer_bwd_plain(xp, w, hs, cs, dhs, None)
+    torch.testing.assert_close(dxp, dxr, **KERNEL_TOL)
+    _close_scaled(dw, dwr)
+    K, B, N, C, H = RANK_BDGCN
+    h1, g, wb = _bdgcn_inputs(cuda_device, K, B, N, C, H, dynamic, seed=N)
+    torch.testing.assert_close(
+        cuda_bdgcn.folded_pair_project(h1, g, wb),
+        cuda_bdgcn.folded_pair_project_plain(h1, g, wb), **KERNEL_TOL)
+    dout = torch.from_numpy(rng.normal(size=(B, N, N, H)).astype(
+        np.float32)).to(cuda_device)
+    dh1, dW = cuda_bdgcn.folded_pair_project_bwd(h1, g, wb, dout)
+    r1, rW = cuda_bdgcn.folded_pair_project_bwd_plain(h1, g, wb, dout)
+    torch.testing.assert_close(dh1, r1, **KERNEL_TOL)
+    _close_scaled(dW, rW)
+
+
+def test_one_nccl_rank_by_graph_equals_model_trainer(cuda_device, tmp_path):
+    """A one-rank NCCL world: its steps captured with the gradient
+    all-reduce inside the graph, 2 epochs equal to ModelTrainer's from
+    the same seeded init bit for bit (a one-rank SUM is the identity):
+    the epoch losses, the weights and Adam's state."""
+    import torch.distributed as dist
+
+    from mpgcn_tpu_torch.parallel import ParallelModelTrainer, initialize
+
+    cfg = MPGCNConfig(synthetic_T=120, synthetic_N=10, pred_len=1, seed=0,
+                      num_epochs=2)
+    data = synthetic_dataset(cfg)
+    ref = ModelTrainer(cfg.replace(output_dir=str(tmp_path / "one")), data,
+                       device=cuda_device)
+    h_ref = ref.train()
+    initialize(f"file://{tmp_path}/rendezvous", world_size=1, rank=0,
+               backend="nccl")
+    try:
+        par = ParallelModelTrainer(cfg.replace(output_dir=str(
+            tmp_path / "dp")), data, device=cuda_device)
+        assert par.graph_refusal is None, par.graph_refusal
+        h_par = par.train()
+        assert par._graphs.get("train") is not None
+    finally:
+        dist.destroy_process_group()
+    assert h_par == h_ref
+    _assert_same_state(par, ref)
+
+
+def test_devices_past_the_visible_cards_exit_before_spawning(cuda_device,
+                                                             tmp_path):
+    """-devices N > the cards this process sees: the JAX make_mesh
+    message, before any rank starts or any data loads."""
+    from mpgcn_tpu_torch import cli
+
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(SystemExit, match=f"requested {n} devices, only "
+                                         f"{n - 1} visible"):
+        cli.main(["-GPU", "0", "-devices", str(n), "-data", "npz", "-in",
+                  str(tmp_path / "missing"), "-out", str(tmp_path)])

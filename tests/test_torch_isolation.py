@@ -1,6 +1,6 @@
 """The port stands alone: no module of mpgcn_tpu_torch/, and none of its
 scripts (chip_smoke.py, kernel_hashes.py, n500_int8_step.py,
-lstm_fwd_probe.py), imports
+lstm_fwd_probe.py, precision_times.py, parallel_cards.py), imports
 JAX or the JAX package. Imports are read with ``ast`` -- a string match
 would confuse ``mpgcn_tpu_torch`` with ``mpgcn_tpu``."""
 
@@ -33,7 +33,7 @@ def _imports(tree):
 
 #: the card scripts
 SCRIPTS = ("chip_smoke.py", "kernel_hashes.py", "n500_int8_step.py",
-           "lstm_fwd_probe.py", "precision_times.py")
+           "lstm_fwd_probe.py", "precision_times.py", "parallel_cards.py")
 
 
 def _sources():

@@ -416,18 +416,20 @@ FEED_FLAGS = ["-od-storage", "-fused-epilogue", "-no-stream",
 
 
 def test_missing_flag_count():
-    """The JAX CLI's flags the port lacks: 9, the multi-device ones (34
-    before the self-healing slice, 24 before the precision slice added
-    -dtype, -loss-scaling, -loss-scale-init, -loss-scale-growth and
-    -infer-precision, 19 before the city-scale feed added FEED_FLAGS, 14
-    before the daemon slice added -faults, 13 before the operator surface
-    added -trace, -no-obs, -compile-cache and -metrics-port); the port
-    has none of its own."""
+    """The JAX CLI's flags the port lacks: 5, the model axis's and
+    liveness's (-bexec, -shard-branches, -liveness, -peer-timeout,
+    -straggler-factor; 34 before the self-healing slice, 24 before the
+    precision slice added -dtype, -loss-scaling, -loss-scale-init,
+    -loss-scale-growth and -infer-precision, 19 before the city-scale
+    feed added FEED_FLAGS, 14 before the daemon slice added -faults, 13
+    before the operator surface added -trace, -no-obs, -compile-cache and
+    -metrics-port, 9 before data-parallel training added -devices, -mp,
+    -ckpt and -consistency); the port has none of its own."""
     ours, ref = (_short_flags(p) for p in (cli.build_parser(),
                                            jax_cli.build_parser()))
     assert not ours - ref
     assert "-faults" in ours
-    assert len(ref - ours) == 9, sorted(ref - ours)
+    assert len(ref - ours) == 5, sorted(ref - ours)
     assert not set(SLICE_FLAGS) - ours
     assert not set(FEED_FLAGS) - ours
 

@@ -312,19 +312,23 @@ def test_train_fault_arms_give_jax_events(tmp_path, arm, capsys):
 
 
 def test_hang_epoch_exits_113_as_jax(tmp_path):
-    """hang_epoch=2 with -watchdog 5: the armed watchdog fires in the
+    """hang_epoch=2 with -watchdog 10: the armed watchdog fires in the
     hung epoch, writes its event and the emergency checkpoint, and the
-    process exits 113, as the JAX trainer's does."""
+    process exits 113, as the JAX trainer's does. Each child runs on this
+    xdist worker's share of the cores (OMP_NUM_THREADS), as the
+    in-process tests do: with every core's thread in every worker's child
+    at once, a loaded host's first epoch could outrun the deadline."""
     got = {}
+    threads = str(torch.get_num_threads())
     for name, mod, extra in (("jax", "mpgcn_tpu.cli", []),
                              ("port", "mpgcn_tpu_torch.cli",
                               ["-GPU", "cpu"])):
         out = str(tmp_path / name)
         proc = subprocess.run(
             [sys.executable, "-m", mod] + extra + SMALL
-            + ["-watchdog", "5", "-faults", "hang_epoch=2,hang_secs=120",
-               "-out", out], env=_env(), cwd=ROOT, capture_output=True,
-            text=True, timeout=300)
+            + ["-watchdog", "10", "-faults", "hang_epoch=2,hang_secs=120",
+               "-out", out], env=_env(OMP_NUM_THREADS=threads), cwd=ROOT,
+            capture_output=True, text=True, timeout=300)
         assert proc.returncode == 113, proc.stdout[-2000:] + \
             proc.stderr[-2000:]
         assert os.path.exists(os.path.join(out, "MPGCN_od_emergency.pkl"))
