@@ -318,8 +318,16 @@ Phases, each fatal on failure:
      time replayed and eager; (b) two gloo ranks, both on cuda:0, one
      epoch eager (the graph refusal printed), against a ModelTrainer at
      loss rtol 1e-5 and weights atol 2e-5; the step's time and the
-     all-reduce through the host. Both worlds' launches join the kernels
-     line.
+     all-reduce through the host; (c) the model axis: two gloo ranks on
+     cuda:0 at -mp 2 (N = 47 over 2: a padded origin block; 120 synthetic
+     days), one epoch eager and test mode, against a ModelTrainer at loss
+     rtol 1e-5, weights atol 2e-5, scores rtol 1e-4, the K-BDGCN and LSTM
+     kernels launched on both ranks, the refusal named; (d) halo_spmm on
+     those ranks, ell local arm, overlap and quantized on and off, N = 500
+     over the large-N band, forward and dX on the card against the plain
+     twins and a float64 dense product (1e-5 relative; quantized 0.01 /
+     0.03), ell_fwd and ell_bwd_dx launched. Every world's launches join
+     the kernels line.
 
 The second-to-last line is a JSON object listing each kernel; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a card, and
@@ -586,8 +594,10 @@ def phase_kernels(dev, rng):
     w = torch.from_numpy((rng.normal(size=(H, 4 * H)) / np.sqrt(H)).astype(
         np.float32)).to(dev)
     err = {"lstm_infer_last": 0.0, "lstm_infer_collect": 0.0}
-    # R, and a data-parallel rank's R = 2 * 47^2 at dp = 2 (phase 22)
-    for xr in (xp, xp[:, :2 * N * N].contiguous()):
+    # R, a data-parallel rank's R = 2 * 47^2 at dp = 2 and a model-axis
+    # rank's R = 4 * 24 * 47 at mp = 2 (phase 22)
+    for xr in (xp, xp[:, :2 * N * N].contiguous(),
+               xp[:, :4 * 24 * N].contiguous()):
         for collect, name in ((False, "lstm_infer_last"),
                               (True, "lstm_infer_collect")):
             out = cuda_lstm.lstm_layer_infer(xr, w, collect)
@@ -603,8 +613,8 @@ def phase_kernels(dev, rng):
         if f == 1:
             fused_inputs = fused_in
 
-    def bdgcn_inputs(b, n, dynamic):
-        h1 = rng.normal(size=(K, b, n, n, H)).astype(np.float32)
+    def bdgcn_inputs(b, n, dynamic, m=None):
+        h1 = rng.normal(size=(K, b, m or n, n, H)).astype(np.float32)
         g = (rng.random((b if dynamic else 1, K, n, n)) / n * 2).astype(
             np.float32)
         wr = (rng.normal(size=(K, K, H, H)) / np.sqrt(K * K * H)).astype(
@@ -613,16 +623,21 @@ def phase_kernels(dev, rng):
 
     err["bdgcn_pair_fwd"] = 0.0
     inputs = {}
-    for b, n, dynamic in ((B, N, False), (B, N, True), (2, N, False),
-                          (2, N, True), (2, 200, False), (2, 200, True)):
-        args = bdgcn_inputs(b, n, dynamic)
+    # B = 2: a data-parallel rank's (dp = 2); M = 24 of N = 47: a
+    # model-axis rank's origin rows (mp = 2, phase 22)
+    for b, m, n, dynamic in ((B, N, N, False), (B, N, N, True),
+                             (2, N, N, False), (2, N, N, True),
+                             (4, 24, N, False), (4, 24, N, True),
+                             (2, 200, 200, False), (2, 200, 200, True)):
+        args = bdgcn_inputs(b, n, dynamic, m)
         out = cuda_bdgcn.folded_pair_project(*args)
         torch.cuda.synchronize()
         ref = cuda_bdgcn.folded_pair_project_plain(*args)
         kind = "dynamic" if dynamic else "static"
-        e = compare(f"K-BDGCN {kind} B={b} N={n}", out, ref, BDGCN_TOL)
+        e = compare(f"K-BDGCN {kind} B={b} M={m} N={n}", out, ref,
+                    BDGCN_TOL)
         err["bdgcn_pair_fwd"] = max(err["bdgcn_pair_fwd"], e)
-        if (b, n) == (B, N):
+        if (b, m, n) == (B, N, N):
             inputs[kind] = args
     return err, {"lstm": (xp, w), "lstm_fused": fused_inputs,
                  "bdgcn": inputs["static"],
@@ -633,7 +648,9 @@ def phase_train_kernels(dev, rng):
     """The training kernels against their plain versions at the shapes a
     training step gives them (R = 4 * 47^2 = 8,836 sequences, T = 7,
     H = 32; B = 4, N = 47, K = 3, C = H = 32, static and dynamic), at a
-    data-parallel rank's (R = 4,418, B = 2 at dp = 2) and at odd sizes;
+    data-parallel rank's (R = 4,418, B = 2 at dp = 2), at a model-axis
+    rank's (R = 4 * 24 * 47 = 4,512; h1 of M = 24 origin rows of N = 47
+    at mp = 2) and at odd sizes;
     dW twice, which must be bit-equal. Returns the per-entry worst error
     and the timing inputs."""
     import torch
@@ -645,10 +662,10 @@ def phase_train_kernels(dev, rng):
 
     err = {n: 0.0 for n in TRAIN_KERNELS}
     inputs = {}
-    # R = 4,418 and B = 2 below: a data-parallel rank's shapes at dp = 2
-    # (phase 22)
-    for T, R, H in ((7, 8836, 32), (7, 4418, 32), (7, 1001, 8),
-                    (5, 333, 64), (3, 17, 40)):
+    # R = 4,418 and B = 2 below: a data-parallel rank's shapes at dp = 2;
+    # R = 4,512 and M = 24: a model-axis rank's at mp = 2 (phase 22)
+    for T, R, H in ((7, 8836, 32), (7, 4418, 32), (7, 4512, 32),
+                    (7, 1001, 8), (5, 333, 64), (3, 17, 40)):
         xp = dev_t(rng.normal(size=(T, R, 4 * H)))
         w = dev_t(rng.normal(size=(H, 4 * H)) / np.sqrt(H))
         tag = f"T={T} R={R} H={H}"
@@ -680,19 +697,21 @@ def phase_train_kernels(dev, rng):
             inputs["lstm"] = (xp, w, hs, cs, dhs)
 
     K = 3
-    for b, n, c, h, dynamic in ((4, 47, 32, 32, False),
-                                (4, 47, 32, 32, True),
-                                (2, 47, 32, 32, False),
-                                (2, 47, 32, 32, True),
-                                (2, 200, 32, 32, False),
-                                (2, 200, 32, 32, True),
-                                (3, 9, 8, 64, True)):
-        h1 = dev_t(rng.normal(size=(K, b, n, n, c)))
+    for b, m, n, c, h, dynamic in ((4, 47, 47, 32, 32, False),
+                                   (4, 47, 47, 32, 32, True),
+                                   (2, 47, 47, 32, 32, False),
+                                   (2, 47, 47, 32, 32, True),
+                                   (4, 24, 47, 32, 32, False),
+                                   (4, 24, 47, 32, 32, True),
+                                   (2, 200, 200, 32, 32, False),
+                                   (2, 200, 200, 32, 32, True),
+                                   (3, 9, 9, 8, 64, True)):
+        h1 = dev_t(rng.normal(size=(K, b, m, n, c)))
         g = dev_t(rng.random((b if dynamic else 1, K, n, n)) / n * 2)
         wr = dev_t(rng.normal(size=(K, K, c, h)) / np.sqrt(K * K * c))
-        dout = dev_t(rng.normal(size=(b, n, n, h)))
-        tag = (f"{'dynamic' if dynamic else 'static'} B={b} N={n} C={c} "
-               f"H={h}")
+        dout = dev_t(rng.normal(size=(b, m, n, h)))
+        tag = (f"{'dynamic' if dynamic else 'static'} B={b} M={m} N={n} "
+               f"C={c} H={h}")
         dh1, dW = cuda_bdgcn.folded_pair_project_bwd(h1, g, wr, dout)
         torch.cuda.synchronize()
         r1, rW = cuda_bdgcn.folded_pair_project_bwd_plain(h1, g, wr, dout)
@@ -704,7 +723,7 @@ def phase_train_kernels(dev, rng):
         require(torch.equal(dW, dW2), f"K-BDGCN-bwd {tag}: two runs differ")
         print(f"[check] K-BDGCN-bwd {tag}: dW bit-equal over two runs",
               flush=True)
-        if (b, n) == (4, 47):
+        if (b, m, n) == (4, 47, 47):
             inputs["bdgcn_dynamic" if dynamic else "bdgcn"] = (h1, g, wr,
                                                                dout)
 
@@ -6323,7 +6342,18 @@ def router_in_process(cfg, fleet, plan, card):
                                        f"{len(watch.kills)} times")
         kill = watch.kills[0]
         h1 = rt.handles[1]
-        _wait_for(lambda: h1.state == ADMITTED and h1.proc.generation == 2,
+        # the router sets ADMITTED, then writes its replica_admitted row:
+        # wait for the row too (whole lines only), so the ledger read below
+        # holds it
+        def readmitted():
+            with open(ledger_path) as f:
+                rows = [json.loads(x) for x in f if x.endswith("\n")]
+            return any(r["event"] == "replica_admitted"
+                       and r.get("replica") == 1
+                       and r.get("generation") == 2 for r in rows)
+
+        _wait_for(lambda: h1.state == ADMITTED and h1.proc.generation == 2
+                  and readmitted(),
                   300, "r1's re-admission: " + _log_tail(h1))
         death_s = time.perf_counter() - kill["t"]
         watch.join()
@@ -7828,22 +7858,172 @@ sys.exit(0 if ok else 1)
 PARALLEL_KERNELS = ("lstm_train_fwd", "lstm_train_bwd", "bdgcn_pair_fwd",
                     "bdgcn_pair_bwd", "lstm_infer_last")
 
+#: one rank of phase 22 (c) and (d), in a child interpreter: argv = rank,
+#: world (= mp), rendezvous file, seed, synthetic_T, out. (c) the model
+#: axis at the reference widths, N = 47 over mp = 2 (n_loc 24: a padded
+#: origin block), one epoch eager over gloo, then test mode; (d) halo_spmm
+#: on the ell local arm, every overlap x quantized case, forward and dX on
+#: the card against the plain twins on the CPU (the same ranks, CPU
+#: tensors) and a float64 dense product. Rank 0 then trains a ModelTrainer
+#: on the same config and compares. Prints one "[model-axis-result]
+#: {json}" line; exits non-zero on a failed check.
+MODEL_AXIS_CHILD = r'''
+import json, sys, time
+import numpy as np, torch
+import torch.distributed as dist
+from mpgcn_tpu_torch.config import MPGCNConfig
+from mpgcn_tpu_torch.data.loader import banded_mask, synthetic_dataset
+from mpgcn_tpu_torch.parallel import (ParallelModelTrainer, build_halo_plan,
+    halo_spmm, initialize, make_mesh)
+from mpgcn_tpu_torch.service.daemon import kernel_launches
+from mpgcn_tpu_torch.sparse.formats import csr_from_dense
+from mpgcn_tpu_torch.train.trainer import ModelTrainer
+from mpgcn_tpu_torch.utils.flops import (halo_exchange_bytes,
+    quantized_halo_bytes)
+
+rank, world, rdzv, seed, T, out = sys.argv[1:7]
+rank, world, seed, T = int(rank), int(world), int(seed), int(T)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+cfg = MPGCNConfig(seed=seed, num_epochs=1, synthetic_T=T, pred_len=1)
+test_cfg = cfg.replace(pred_len=7)
+data = synthetic_dataset(cfg)
+initialize(f"file://{rdzv}", world_size=world, rank=rank, backend="gloo")
+found = {"rank": rank}
+ok = True
+
+def delta(before):
+    after = kernel_launches()
+    return {k: after[k] - before[k] for k in after}
+
+# (c) the model axis: train one epoch, then test mode on the checkpoint
+mesh = make_mesh(model_parallel=world, device=dev)
+before = kernel_launches()
+par = ParallelModelTrainer(cfg.replace(output_dir=f"{out}/mp"), data,
+                           mesh=mesh)
+t0 = time.perf_counter()
+hist = par.train()
+torch.cuda.synchronize()
+secs = time.perf_counter() - t0
+sps = par.steps_per_sec()  # read before test mode's rollouts
+t0 = time.perf_counter()
+res = ParallelModelTrainer(test_cfg.replace(output_dir=f"{out}/mp"), data,
+                           mesh=mesh).test()
+test_secs = time.perf_counter() - t0
+nodes = par._nodes
+# floats of the gathered input of one BDGCN layer (B N_pad N C): a train
+# step all-gathers it and reduce-scatters its cotangent once a layer
+per_layer = (cfg.batch_size * nodes.padded * par.cfg.num_nodes
+             * cfg.hidden_dim)
+found.update(refusal=par.graph_refusal, sps=sps,
+             train_steps=par.global_step, seconds=secs,
+             test_seconds=test_secs, hist=hist, results=res,
+             launches=delta(before), n_loc=nodes.n_loc, real=nodes.real,
+             gather_bytes_per_step=2 * cfg.num_branches * cfg.gcn_num_layers
+             * per_layer * 4)
+ok = ok and par.graph_refusal is not None and "gloo" in par.graph_refusal
+
+# (d) halo_spmm: N = 500 over the band of the large-N configuration
+rng = np.random.default_rng(seed)
+Nh, K, F = 500, 3, 512
+G = (rng.normal(size=(K, Nh, Nh)) * banded_mask(Nh, 0.05)).astype(
+    np.float32)
+X = rng.normal(size=(Nh, F)).astype(np.float32)
+n_loc = Nh // world
+rows = slice(rank * n_loc, (rank + 1) * n_loc)
+plan = build_halo_plan(csr_from_dense(G), world, local_impl="ell",
+                       feature_width=F)
+plan_d = plan.to(dev)
+Gd, Xd = (torch.from_numpy(a).double().to(dev) for a in (G, X))
+full = Gd @ Xd
+ref = full[:, rows].cpu().numpy()
+ref_g = (2 * torch.einsum("knm,knf->mf", Gd, full))[rows].cpu().numpy()
+scale, scale_g = np.abs(ref).max(), np.abs(ref_g).max()
+halo = {"halo_cols": plan.halo_cols, "rounds": len(plan.send_rounds),
+        "bytes": halo_exchange_bytes(plan.halo_cols, world, F),
+        "quantized_bytes": quantized_halo_bytes(
+            plan.halo_cols, world, F, len(plan.send_rounds)),
+        "dense_bytes": world * Nh * F * 4, "cases": []}
+before = kernel_launches()
+for ov in (False, True):
+    for q in (False, True):
+        got = []
+        for d in (dev, torch.device("cpu")):
+            x = torch.from_numpy(X[rows].copy()).to(d).requires_grad_(True)
+            p = plan_d if d.type == "cuda" else plan
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = halo_spmm(p, x, overlap=ov, local_impl="ell", quantized=q)
+            y.square().sum().backward()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got.append((y.detach().cpu().numpy(), x.grad.cpu().numpy(), ms))
+        (yc, gc, ms), (yp, gp, _) = got
+        err = {"overlap": ov, "quantized": q, "ms": ms,
+               "plain_err": float(np.abs(yc - yp).max() / scale),
+               "plain_err_dx": float(np.abs(gc - gp).max() / scale_g),
+               "dense_err": float(np.abs(yc - ref).max() / scale),
+               "dense_err_dx": float(np.abs(gc - ref_g).max() / scale_g)}
+        halo["cases"].append(err)
+        lim, lim_g = (0.01, 0.03) if q else (1e-5, 1e-5)
+        ok = ok and all(err[k] <= v for k, v in (
+            ("plain_err", 1e-5 if not q else lim),
+            ("plain_err_dx", 1e-5 if not q else lim_g),
+            ("dense_err", lim), ("dense_err_dx", lim_g)))
+found["halo"] = halo
+found["halo_launches"] = delta(before)
+dist.destroy_process_group()
+if rank == 0:
+    ref_tr = ModelTrainer(cfg.replace(output_dir=f"{out}/one"), data,
+                          device=dev)
+    h_ref = ref_tr.train()
+    ref_sps = ref_tr.steps_per_sec()  # read before its test mode
+    lerr = max(abs(a - b) / abs(b) for m in ("train", "validate")
+               for a, b in zip(hist[m], h_ref[m]))
+    werr = max(float((a.detach() - b.detach()).abs().max()) for a, b in
+               zip(par.model.parameters(), ref_tr.model.parameters()))
+    r_ref = ModelTrainer(test_cfg.replace(output_dir=f"{out}/one"), data,
+                         device=dev).test()
+    serr = max(abs(res[m][k] - r_ref[m][k]) / abs(r_ref[m][k])
+               for m in ("train", "test")
+               for k in ("MSE", "RMSE", "MAE", "MAPE"))
+    found.update(loss_rel_err=lerr, weight_abs_err=werr,
+                 score_rel_err=serr, model_trainer_sps=ref_sps)
+    ok = ok and lerr <= 1e-5 and werr <= 2e-5 and serr <= 1e-4
+print("[model-axis-result] " + json.dumps(found), flush=True)
+sys.exit(0 if ok else 1)
+'''
+#: synthetic days of phase 22 (c): the reference widths, its depth cut so
+#: that (c) and (d) stay within a minute (test mode rolls out 7 steps,
+#: each step's BDGCN layers gathering over the host)
+MODEL_AXIS_T = 120
+
 
 def _parallel_world(mode, world, seed, epochs, out_dir, timeout=600):
-    """Run one world of ``world`` ranks of PARALLEL_CHILD as children (all
-    on cuda:0), stop every rank if one fails or the time runs out; returns
+    """Run one world of ``world`` ranks of PARALLEL_CHILD (mode "mp2":
+    MODEL_AXIS_CHILD, ``epochs`` its synthetic_T) as children (all on
+    cuda:0), stop every rank if one fails or the time runs out; returns
     each rank's result dict."""
     rdzv = os.path.join(out_dir, f"{mode}.rendezvous")
     procs, logs = [], []
     t0 = time.perf_counter()
+    tag = "[model-axis-result] " if mode == "mp2" else "[parallel-result] "
     try:
         for r in range(world):
             logs.append(os.path.join(out_dir, f"{mode}_rank{r}.log"))
+            out = os.path.join(out_dir, f"{mode}_r{r}")
+            # the model axis's ranks share one output directory: rank 0
+            # writes the checkpoint that test mode reads on every rank
+            argv = ([MODEL_AXIS_CHILD, str(r), str(world), rdzv, str(seed),
+                     str(epochs), os.path.join(out_dir, mode)]
+                    if mode == "mp2" else
+                    [PARALLEL_CHILD, mode, str(r), str(world), rdzv,
+                     str(seed), str(epochs), out])
             with open(logs[-1], "w") as f:
                 procs.append(subprocess.Popen(
-                    [sys.executable, "-c", PARALLEL_CHILD, mode, str(r),
-                     str(world), rdzv, str(seed), str(epochs),
-                     os.path.join(out_dir, f"{mode}_r{r}")],
+                    [sys.executable, "-c", *argv],
                     stdout=f, stderr=subprocess.STDOUT, env=_daemon_env(),
                     cwd=HERE))
         while any(p.poll() is None for p in procs):
@@ -7863,9 +8043,8 @@ def _parallel_world(mode, world, seed, epochs, out_dir, timeout=600):
         require(p.returncode == 0,
                 f"[parallel] {mode} rank exited {p.returncode}: "
                 f"{out[-3000:]}")
-        line = [x for x in out.splitlines()
-                if x.startswith("[parallel-result] ")][-1]
-        found.append(json.loads(line[len("[parallel-result] "):]))
+        line = [x for x in out.splitlines() if x.startswith(tag)][-1]
+        found.append(json.loads(line[len(tag):]))
     return found
 
 
@@ -7912,6 +8091,48 @@ def phase_parallel(cfg, out_dir, card):
           f"all-reduce of "
           f"{r0['allreduce_floats']} floats through the host "
           f"{r0['allreduce_eager_ms']:.4f} ms ({card})", flush=True)
+    t1 = time.perf_counter()
+    ranks = _parallel_world("mp2", 2, cfg.seed, MODEL_AXIS_T, out_dir)
+    for r in ranks:
+        lr = _by_name(r["launches"])
+        idle = [n for n in PARALLEL_KERNELS if not lr[n]]
+        require(not idle, f"(c) rank {r['rank']} launched no {idle}")
+        lh = _by_name(r["halo_launches"])
+        idle = [n for n in ("ell_fwd", "ell_bwd_dx") if not lh[n]]
+        require(not idle, f"(d) rank {r['rank']} launched no {idle}")
+        total = _add(total, _add(lr, lh))
+    r0 = ranks[0]
+    print(f"[parallel] (c) the model axis, 2 gloo ranks on cuda:0 at -mp 2 "
+          f"(N = 47, n_loc {r0['n_loc']}: rank 1 holds {ranks[1]['real']} "
+          f"real origins and {r0['n_loc'] - ranks[1]['real']} padded), 1 "
+          f"epoch eager ({r0['refusal']}) and test mode (pred 7): loss rel "
+          f"err {r0['loss_rel_err']:.3g}, weights abs err "
+          f"{r0['weight_abs_err']:.3g}, scores rel err "
+          f"{r0['score_rel_err']:.3g} against ModelTrainer; steps/sec "
+          f"{r0['sps']:.2f} against ModelTrainer's "
+          f"{r0['model_trainer_sps']:.2f} (host-staged gloo, not a speed "
+          f"claim); {r0['train_steps']} train steps in {r0['seconds']:.1f} "
+          f"s, test mode {r0['test_seconds']:.1f} s; gathered "
+          f"{r0['gather_bytes_per_step']} bytes a step a rank (fwd "
+          f"all-gather + bwd reduce-scatter); launches rank 0 "
+          f"{_nz(_by_name(r0['launches']))}, rank 1 "
+          f"{_nz(_by_name(ranks[1]['launches']))} ({card})", flush=True)
+    for r in ranks:
+        h = r["halo"]
+        cases = "; ".join(
+            f"overlap={c['overlap']} quantized={c['quantized']}: "
+            f"{c['ms']:.2f} ms fwd+bwd, vs plain {c['plain_err']:.2g} / "
+            f"{c['plain_err_dx']:.2g}, vs dense {c['dense_err']:.2g} / "
+            f"{c['dense_err_dx']:.2g}" for c in h["cases"])
+        print(f"[parallel] (d) rank {r['rank']} halo_spmm ell, N = 500 band "
+              f"0.05, K = 3, F = 512: {h['rounds']} ring round(s), "
+              f"halo_cols {h['halo_cols']}, {h['bytes']} bytes an exchange "
+              f"({h['quantized_bytes']} quantized, {h['dense_bytes']} "
+              f"replicated dense); relative max errors out / dX: {cases}; "
+              f"launches {_nz(_by_name(r['halo_launches']))} ({card})",
+              flush=True)
+    print(f"[parallel] (c) and (d) took {time.perf_counter() - t1:.1f}s",
+          flush=True)
     print(f"[parallel] phase 22 took {time.perf_counter() - t0:.1f}s; "
           f"launches {_nz(total)}", flush=True)
     return total

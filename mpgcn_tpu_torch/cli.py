@@ -60,9 +60,10 @@ nonzero code. A command started by torchrun (``WORLD_SIZE``, ``RANK``,
 ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT`` in its environment) is
 one rank itself, on ``cuda:(GPU + LOCAL_RANK)``: either way each rank
 builds ``ParallelModelTrainer``, and rank 0 alone prints and writes.
-``-devices 0|1`` trains on one device. ``-mp`` above 1 (the model axis)
-exits, naming ROADMAP.md Queue 1 item 1(b); the mesh is checked before
-any data is loaded, with the JAX CLI's messages. ``-consistency N``
+``-devices 0|1`` trains on one device. ``-devices N -mp M`` lays the N
+ranks out as an (N / M, M) mesh whose model axis shards every window's
+origin nodes over M ranks (parallel/trainer.py); the mesh is checked
+before any data is loaded, with the JAX CLI's messages. ``-consistency N``
 digest-compares the ranks' replicas every N epochs; ``-ckpt orbax``
 writes the port's directory checkpoint (train/checkpoint.py).
 
@@ -274,9 +275,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="data-parallel devices (0 = single-device): N > 1 "
                         "launches N ranks, one device each")
     p.add_argument("-mp", "--model_parallel", type=int, default=1,
-                   help="model-parallel axis size of the mesh; only 1 is "
-                        "ported (the model axis is ROADMAP.md Queue 1 "
-                        "item 1(b))")
+                   help="model-parallel axis size of the mesh (shards "
+                        "the origin nodes of every window over M ranks); "
+                        "must divide -devices")
     p.add_argument("-ckpt", "--checkpoint_backend", type=str,
                    choices=["pickle", "orbax"], default="pickle",
                    help="checkpoint format: pickle = the one-file format "
@@ -494,15 +495,25 @@ def main(argv=None):
     device = resolve_device(device_for(args["GPU"]))
     world, devices = world_from_env(), args["devices"]
     rank0 = world is None or int(os.environ.get("RANK", "0")) == 0
-    # the mesh, before any data is loaded (mpgcn_tpu/cli.py:500-521)
-    if args["model_parallel"] < 1:
-        raise SystemExit(f"-mp {args['model_parallel']} is invalid: the "
-                         f"model axis needs at least 1 device")
-    if args["model_parallel"] > 1:
-        raise SystemExit(f"-mp {args['model_parallel']}: the model axis is "
-                         f"not ported yet (ROADMAP.md Queue 1, item 1(b)); "
-                         f"the port runs -devices N data-parallel ranks "
-                         f"with -mp 1")
+    # the mesh, before any data is loaded (mpgcn_tpu/cli.py:500-521; a
+    # world launched from outside, torchrun's, is the JAX multi-host run)
+    mp = args["model_parallel"]
+    if mp < 1:
+        raise SystemExit(f"-mp {mp} is invalid: the model axis "
+                         f"needs at least 1 device")
+    if mp > 1 and world is None and devices <= 1:
+        raise SystemExit(
+            f"-mp {mp} needs a multi-device mesh: pass "
+            f"-devices N (a multiple of {mp}) or run "
+            f"multi-host; a single-device run has no model axis")
+    if world is not None:
+        if world % mp:
+            raise SystemExit(
+                f"-mp {mp} does not divide the global device "
+                f"count ({world})")
+    elif devices and devices % mp:
+        raise SystemExit(f"-devices {devices} is not divisible by "
+                         f"-mp {mp}")
     if world is None and devices > 1:
         if device.type == "cuda":
             import torch
@@ -537,7 +548,8 @@ def main(argv=None):
 
         trainer = ParallelModelTrainer(
             cfg, data, lstm_impl=lstm_impl, bdgcn_impl=bdgcn_impl,
-            data_container=data_input, mesh=make_mesh(device=device))
+            data_container=data_input,
+            mesh=make_mesh(model_parallel=mp, device=device))
     else:
         trainer = ModelTrainer(cfg, data, device=device,
                                lstm_impl=lstm_impl, bdgcn_impl=bdgcn_impl,

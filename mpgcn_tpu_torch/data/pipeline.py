@@ -145,12 +145,15 @@ class DataPipeline:
     continual-learning daemon maps window rows back to the day files
     behind them, service/daemon.py), so a retry or failure names the day
     file; ``gather_faults`` is a ``FaultPlan`` whose ``io_errors`` drive
-    the retry loop."""
+    the retry loop. ``node_sharded``: the banks serve a model axis's node
+    shards, so an 'auto' that resolves to 'ell' runs 'csr' (JAX
+    ``_bdgcn_impl``; the trainer refuses a forced 'ell')."""
 
     def __init__(self, cfg: MPGCNConfig, data: dict, device="cuda",
                  bdgcn_impl: str = "auto", gather_provenance=None,
-                 gather_faults=None):
+                 gather_faults=None, node_sharded: bool = False):
         self.cfg = cfg
+        self._node_sharded = node_sharded
         self._gather_provenance = gather_provenance
         self._gather_faults = gather_faults
         self.device = resolve_device(device)
@@ -281,6 +284,8 @@ class DataPipeline:
         self.bdgcn_impl = impl = resolve_bdgcn_impl(
             requested, cfg, self.num_nodes, self.support_density,
             device_platform(self.device))
+        if self._node_sharded and impl == "ell":
+            self.bdgcn_impl = impl = "csr"
         if impl != "ell" and cfg.support_payload == "int8":
             raise ValueError(
                 f"support_payload='int8' packs blocked-ELL tiles as "

@@ -30,9 +30,24 @@ weights:
 
 ``layer.W`` may be an int8 ``QuantizedTensor`` on every arm but
 "kernel" (nn/mpgcn.py ``lazy_quant``): it is dequantised here, at its use.
+
+On a node ``shard`` (mpgcn_tpu_torch/node_shard.py ``NodeShard``, the
+model axis of parallel/): X holds this rank's n_loc origin rows,
+(B, n_loc, N, C). The layer all-gathers X over the model group
+(``gather_origins``: reduce-scatter backward), then runs the origin
+contraction for this rank's output rows m only, on the support columns
+G[..., m_loc] (zero past N: a padded row's h1 is zero), and hands the
+local h1 to the arm's destination half unchanged: on "kernel" the
+K-BDGCN kernel on (K, B, n_loc, N, C). The gather moves B N N C floats a
+layer where reduce-scattering h1 would move K times as many. The "csr"
+arm takes the padded-CSR rows m_loc of the origin operator; "ell" is
+not sharded (the trainer routes it to "csr" at mp > 1, as the JAX
+trainer does).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -45,6 +60,8 @@ from mpgcn_tpu_torch.nn.fused import (
     fused_origin_project_static,
 )
 from mpgcn_tpu_torch.nn.init import xavier_normal
+from mpgcn_tpu_torch.node_shard import NodeShard, gather_origins
+from mpgcn_tpu_torch.sparse.formats import PaddedCSR
 from mpgcn_tpu_torch.sparse.kernels import bdgcn_sparse, checkpointed
 
 
@@ -61,15 +78,29 @@ class BDGCN(nn.Module):
                   else None)
 
 
-def origin_contract(X: torch.Tensor, G):
+def origin_contract(X: torch.Tensor, G, shard=None):
     """All K origin contractions as one einsum: h1[o] = G_o^T X.
 
-    Returns (h1 (K, B, N, N, C), G_dest, K): G_dest is (K, N, N) for a
-    static graph or (B, K, N, N) for per-sample dynamic graphs."""
+    Returns (h1 (K, B, M, N, C), G_dest, K): G_dest is (K, N, N) for a
+    static graph or (B, K, N, N) for per-sample dynamic graphs; M = N, or
+    on a node ``shard`` its n_loc output rows (X then the gathered (B, N,
+    N, C) input)."""
     if isinstance(G, tuple):
         G_o, G_d = G
+        G_o = G_o if shard is None else shard.take(G_o, -1)
         return torch.einsum("bncl,bonm->obmcl", X, G_o), G_d, G_o.shape[-3]
-    return torch.einsum("bncl,onm->obmcl", X, G), G, G.shape[-3]
+    G_o = G if shard is None else shard.take(G, -1)
+    return torch.einsum("bncl,onm->obmcl", X, G_o), G, G.shape[-3]
+
+
+def origin_rows(G, shard):
+    """The origin operator of a sparse container (or a dynamic pair of
+    them) cut to a node ``shard``'s output rows: padded-CSR rows m_loc,
+    pad rows id 0 and value 0 (exact zero rows); the destination
+    container stays whole. Returns (origin, destination)."""
+    Go, Gd = G if isinstance(G, tuple) else (G, G)
+    return PaddedCSR(shard.take(Go.indices, -2), shard.take(Go.values, -2),
+                     Go.n_cols), Gd
 
 
 def _origin_group_static(h1o, G_dest, w_o):
@@ -104,23 +135,27 @@ def bdgcn_folded(W, h1, G_dest, K: int, C: int, fused: bool = False):
 
 
 def bdgcn_apply(layer, X: torch.Tensor, G, activation=None,
-                impl: str = "kernel", fused: bool = False) -> torch.Tensor:
+                impl: str = "kernel", fused: bool = False,
+                shard: Optional[NodeShard] = None) -> torch.Tensor:
     """X (B, N, N, C); G a static (K, N, N) stack or a dynamic pair of
     (B, K, N, N) origin/destination stacks (their sparse containers for
     "csr" and "ell"). ``fused``: the fused epilogue of the arm (module
-    docstring; "kernel" ignores it). Returns (B, N, N, H)."""
-    B, N, _, C = X.shape
+    docstring; "kernel" ignores it). Returns (B, N, N, H). On a node
+    ``shard``, X and the output hold this rank's origin rows,
+    (B, n_loc, N, C) -> (B, n_loc, N, H) (module docstring)."""
+    B, M, N, C = X.shape
+    if shard is not None:
+        if M != shard.n_loc:
+            raise ValueError(f"X has {M} origin rows, not the shard's "
+                             f"{shard.n_loc}")
+        X = gather_origins(X, shard, dim=1)
     W = deq(layer.W, X.dtype)
     if impl == "einsum":
-        if isinstance(G, tuple):
-            G_o, G_d = G
-            K = G_o.shape[-3]
-            h1 = torch.einsum("bncl,bonm->obmcl", X, G_o)
+        h1, G_d, K = origin_contract(X, G, shard)
+        if G_d.ndim == 4:
             h2 = torch.einsum("obmcl,bdce->odbmel", h1, G_d)
         else:
-            K = G.shape[-3]
-            h1 = torch.einsum("bncl,onm->obmcl", X, G)
-            h2 = torch.einsum("obmcl,dce->odbmel", h1, G)
+            h2 = torch.einsum("obmcl,dce->odbmel", h1, G_d)
         if fused:
             # the projection straight out of the bank: the (o, d,
             # channel)-major weight replaces the transposed concat copy
@@ -128,19 +163,20 @@ def bdgcn_apply(layer, X: torch.Tensor, G, activation=None,
                                W.reshape(K, K, C, -1))
         else:
             # (o, d, channel) flattening matches the reference concat order
-            feats = h2.permute(2, 3, 4, 0, 1, 5).reshape(B, N, N,
+            feats = h2.permute(2, 3, 4, 0, 1, 5).reshape(B, M, N,
                                                          K * K * C)
             out = feats @ W
     elif impl == "folded":
-        h1, G_dest, K = origin_contract(X, G)
+        h1, G_dest, K = origin_contract(X, G, shard)
         out = bdgcn_folded(W, h1, G_dest, K, C, fused)
     elif impl == "kernel":
-        h1, G_dest, K = origin_contract(X, G)
+        h1, G_dest, K = origin_contract(X, G, shard)
         Wr = W.reshape(K, K, C, -1)
         Gk = G_dest if G_dest.ndim == 4 else G_dest[None]
         out = folded_pair_project(h1, Gk, Wr)
     elif impl in ("csr", "ell"):
-        out = bdgcn_sparse(W, X, G, fused)
+        out = bdgcn_sparse(W, X, G, fused,
+                           None if shard is None else origin_rows(G, shard))
     else:
         raise ValueError(f"unknown bdgcn impl {impl!r}: expected one of "
                          f"{BDGCN_IMPLS}")

@@ -35,12 +35,21 @@ one checkpoint. ``lazy_quant``: with an int8 weight tree, the fused
 epilogue, ``-lstm plain`` and a BDGCN arm other than "kernel" (whose
 kernels take dense operands), the tree is not dequantised up front:
 each weight is dequantised where it is used.
+
+The model axis (parallel/, ``-mp`` above 1): with a node ``shard`` (the
+model's attribute, mpgcn_tpu_torch/node_shard.py ``NodeShard``, which
+``ParallelModelTrainer`` sets once), x_seq holds this rank's origin
+rows, (B, T, n_loc, N, F). The LSTM rows (B n_loc N sequences), the FC
+head and the branch mean are local and run no collective; each BDGCN
+layer gathers its input over the model group (nn/bdgcn.py). The output holds this rank's origin rows, (B, 1, n_loc,
+N, F).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from types import SimpleNamespace
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -59,6 +68,7 @@ from mpgcn_tpu_torch.nn.cuda_lstm import (
 from mpgcn_tpu_torch.nn.fused import stacked_lstm_last_step
 from mpgcn_tpu_torch.nn.init import linear_uniform
 from mpgcn_tpu_torch.nn.lstm import LSTM
+from mpgcn_tpu_torch.node_shard import NodeShard
 from mpgcn_tpu_torch.quant.int8 import (
     dequantize_params,
     has_quantized,
@@ -153,30 +163,33 @@ class MPGCN(nn.Module):
         return (has_quantized(params) and self._stacked_lstm
                 and self.bdgcn_impl != "kernel")
 
-    def _spatial(self, branch, h, G, B: int, N: int):
+    def _spatial(self, branch, h, G, B: int, M: int, N: int):
         """A branch's BDGCN layers and head: LSTM output rows -> pre-head
-        (B, N, N, H) and the FC+ReLU output (B, N, N, F)."""
-        h = h.reshape(B, N, N, -1)
+        (B, M, N, H) and the FC+ReLU output (B, M, N, F), M the origin
+        rows (N, or the node ``shard``'s n_loc)."""
+        h = h.reshape(B, M, N, -1)
         for layer in branch.spatial:
             h = bdgcn_apply(layer, h, G, activation=F.relu,
-                            impl=self.bdgcn_impl, fused=self.fused_epilogue)
+                            impl=self.bdgcn_impl, fused=self.fused_epilogue,
+                            shard=self.shard)
         return h, F.relu(F.linear(h, branch.fc.weight, branch.fc.bias))
 
-    def _branch(self, branch, lstm_in, G, B: int, N: int, inference: bool):
+    def _branch(self, branch, lstm_in, G, B: int, M: int, N: int,
+                inference: bool):
         """One branch (its ``Branch`` module, or a view of the same names
-        on other weights): (B*N^2, T, F) rows -> pre-head (B, N, N, H) and
-        the FC+ReLU output (B, N, N, F)."""
+        on other weights): (B*M*N, T, F) rows -> pre-head (B, M, N, H) and
+        the FC+ReLU output (B, M, N, F)."""
         h = lstm_last_step_fused(branch.temporal.layers, lstm_in,
                                  layer_fn=self._lstm_layer_fns[inference])
-        return self._spatial(branch, h, G, B, N)
+        return self._spatial(branch, h, G, B, M, N)
 
-    def _stacked(self, branches, lstm_in, graphs, B: int, N: int):
+    def _stacked(self, branches, lstm_in, graphs, B: int, M: int, N: int):
         """Every branch with the stacked LSTM scan (JAX ``fwd_fused``): the
         M LSTMs as one scan, then each branch's spatial half. Returns the
         pre-head outputs and the head outputs, per branch."""
         h_all = stacked_lstm_last_step(
             [b.temporal.layers for b in branches], lstm_in)
-        pairs = [self._spatial(b, h_all[m], G, B, N)
+        pairs = [self._spatial(b, h_all[m], G, B, M, N)
                  for m, (b, G) in enumerate(zip(branches, graphs))]
         return [p[0] for p in pairs], [p[1] for p in pairs]
 
@@ -209,6 +222,10 @@ class MPGCN(nn.Module):
                                    bias=w[f"{p}.fc.bias"])))
         return views
 
+    #: this rank's block of origin nodes on a model axis (None: every
+    #: origin; ParallelModelTrainer sets it)
+    shard: Optional[NodeShard] = None
+
     def forward(self, x_seq: torch.Tensor, graphs, return_hidden=False,
                 inference: bool = True, dtype="model", params=None):
         """x_seq (B, T, N, N, F); graphs[m] is branch m's static (K, N, N)
@@ -219,7 +236,8 @@ class MPGCN(nn.Module):
         is the differentiable training forward. ``dtype``: the compute
         dtype, by default the model's ``compute_dtype`` (None: f32);
         ``params``: a weight tree in place of the module's own (the
-        rollouts at ``-infer-precision int8``)."""
+        rollouts at ``-infer-precision int8``). On a node ``shard``, x_seq
+        and the output hold this rank's origin rows (module docstring)."""
         if dtype == "model":
             dtype = self.compute_dtype
         if inference:
@@ -231,8 +249,11 @@ class MPGCN(nn.Module):
 
     def _forward(self, x_seq, graphs, return_hidden, inference, dtype=None,
                  params=None):
-        if x_seq.ndim != 5 or x_seq.shape[2] != x_seq.shape[3]:
-            raise ValueError(f"x_seq must be (B, T, N, N, F), got "
+        shard = self.shard
+        if x_seq.ndim != 5 or x_seq.shape[2] != (
+                x_seq.shape[3] if shard is None else shard.n_loc):
+            rows = "N" if shard is None else shard.n_loc
+            raise ValueError(f"x_seq must be (B, T, {rows}, N, F), got "
                              f"{tuple(x_seq.shape)}")
         if len(graphs) != len(self.branches):
             raise ValueError(f"{len(graphs)} graph inputs for "
@@ -244,9 +265,9 @@ class MPGCN(nn.Module):
         else:
             dtype = None
         branches = self._views(params, dtype, self._lazy_quant(params))
-        B, T, N, _, i = x_seq.shape
+        B, T, M, N, i = x_seq.shape
         # each OD pair is an independent temporal sequence (MPGCN.py:100)
-        lstm_in = x_seq.permute(0, 2, 3, 1, 4).reshape(B * N * N, T, i)
+        lstm_in = x_seq.permute(0, 2, 3, 1, 4).reshape(B * M * N, T, i)
         remat = self.remat and not inference and torch.is_grad_enabled()
 
         def run(fn, *args):
@@ -257,11 +278,11 @@ class MPGCN(nn.Module):
 
         if self._stacked_lstm:
             hidden, outs = run(self._stacked, branches, lstm_in,
-                               list(graphs), B, N)
+                               list(graphs), B, M, N)
         else:
             hidden, outs = [], []
             for branch, G in zip(branches, graphs):
-                h, out = run(self._branch, branch, lstm_in, G, B, N,
+                h, out = run(self._branch, branch, lstm_in, G, B, M, N,
                              inference)
                 hidden.append(h)
                 outs.append(out)

@@ -1,9 +1,10 @@
 """Silent-divergence detection for replicated training state (counterpart
 of mpgcn_tpu/parallel/consistency.py).
 
-Every rank of a data-parallel run holds a full replica of the weights,
-Adam's state and the support banks, and each step keeps them equal: the
-same all-reduced gradients go through the same update. What can still
+Every rank of a parallel run holds a full replica of the weights, Adam's
+state and the support banks (on a model axis too: the ranks split the
+windows' rows and origin nodes, never the weights), and each step keeps
+them equal: the same all-reduced gradients go through the same update. What can still
 part them is outside the step: a bad restore, a rank fed other
 "replicated" values, memory corruption over a long run. Each rank digests
 the bytes of every leaf (blake2b, 64 bits) and the ranks compare the

@@ -169,17 +169,22 @@ def _spmm_stack(G, X):
         f"this for its banks)")
 
 
-def _origin_sparse(X, G):
+def _origin_sparse(X, G, rows=None):
     """All K origin contractions h1[o] = G_o^T X: X (B, N, N, C) ->
-    (K, B, M, N, C), and the destination container(s)."""
+    (K, B, M, N, C), and the destination container(s). ``rows``: an
+    (origin, destination) pair whose origin operator has only M output
+    rows (a node shard's, nn/bdgcn.py ``origin_rows``)."""
     B, N, _, C = X.shape
-    if isinstance(G, tuple):                     # per-sample operators
-        Go, Gd = G
+    dynamic = isinstance(G, tuple)
+    Go, Gd = rows if rows is not None else (G if dynamic else (G, G))
+    if dynamic:                                  # per-sample operators
         h1 = _spmm_stack(Go, X.reshape(B, N, N * C))     # (B, K, M, N*C)
-        return h1.reshape(B, -1, N, N, C).transpose(0, 1), Gd
+        M = h1.shape[-2]
+        return h1.reshape(B, -1, M, N, C).transpose(0, 1), Gd
     Xf = X.transpose(0, 1).reshape(N, B * N * C)
-    h1 = _spmm_stack(G, Xf)                               # (K, M, B*N*C)
-    return h1.reshape(-1, N, B, N, C).transpose(1, 2), G
+    h1 = _spmm_stack(Go, Xf)                              # (K, M, B*N*C)
+    M = h1.shape[-2]
+    return h1.reshape(-1, M, B, N, C).transpose(1, 2), Gd
 
 
 def _dest_group_static(h1o, G_dest, w_o):
@@ -216,7 +221,8 @@ def _dest_fused_dynamic(h1, G_dest, Wr):
     return torch.einsum("bdeoml,odlh->bmeh", t, Wr)
 
 
-def bdgcn_sparse(W, X: torch.Tensor, G, fused: bool = False) -> torch.Tensor:
+def bdgcn_sparse(W, X: torch.Tensor, G, fused: bool = False,
+                 rows=None) -> torch.Tensor:
     """Sparse folded BDGCN: out = sum_{o,d} (G_o^T X G_d) @ W[o, d] with
     both contractions as SpMMs over the containers.
 
@@ -226,9 +232,10 @@ def bdgcn_sparse(W, X: torch.Tensor, G, fused: bool = False) -> torch.Tensor:
     (K^2 C, H) weight (int8 codes welcome: dequantised here), so
     checkpoints interchange with the dense arms. ``fused``: one
     destination SpMM over the stacked origins (module docstring).
-    Returns (B, N, N, H)."""
+    ``rows``: the (origin, destination) pair of a node shard, whose origin
+    operator gives M < N output rows. Returns (B, M, N, H)."""
     C = X.shape[-1]
-    h1, G_dest = _origin_sparse(X, G)
+    h1, G_dest = _origin_sparse(X, G, rows)
     K = h1.shape[0]
     Wr = deq(W, X.dtype).reshape(K, K, C, -1)
     dynamic = _stack_lead(G_dest) == 2

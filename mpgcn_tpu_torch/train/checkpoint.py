@@ -206,8 +206,9 @@ def checkpoint_payload(params: dict, epoch: int, extra: dict | None = None,
 def topology_manifest(platform: str, world: int = 1,
                       mesh: dict | None = None) -> dict:
     """The JAX ``build_manifest`` keys: a run of ``world`` processes, one
-    device each under a ``mesh`` ({"data": dp, "model": 1}); without a
-    mesh one process and its visible devices. Rank 0 writes."""
+    device each under a ``mesh`` ({"data": dp, "model": mp}); without a
+    mesh one process and its visible devices. Rank 0 writes. The weights
+    are whole on every rank, so a checkpoint resumes on any (dp, mp)."""
     devices = world if mesh is not None else (
         torch.cuda.device_count() if platform == "gpu" else 1)
     return {"format": MANIFEST_FORMAT, "process_count": world,

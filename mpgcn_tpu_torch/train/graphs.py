@@ -31,9 +31,10 @@ JAX package's compile counter.
 the blocked-ELL arm, whose forward and dX mark Inf and NaN with a
 generation the host counts per call (sparse/cuda_ell.py ``_marks``), so
 a replay would reuse the captured one, and a data-parallel step whose
-gradient all-reduce cannot go into the graph: gloo's collectives run on
-the host, and an NCCL all-reduce that fails a trial capture is named with
-its error. Callers print that decision; ``GraphSet`` raises on either. A
+gradient all-reduce (or, on a model axis, its layers' origin all-gather
+and reduce-scatter) cannot go into the graph: gloo's collectives run on
+the host, and NCCL collectives that fail a trial capture are named with
+their error. Callers print that decision; ``GraphSet`` raises on either. A
 capture or a replay that fails raises: nothing falls back to eager
 execution.
 """
@@ -47,6 +48,7 @@ from typing import Callable, Optional
 import torch
 
 from mpgcn_tpu_torch.native.build import add_replayed, capture_launches
+from mpgcn_tpu_torch.node_shard import all_gather_blocks, reduce_scatter_blocks
 from mpgcn_tpu_torch.obs.metrics import count_program_build
 from mpgcn_tpu_torch.train.predict import rollout
 
@@ -72,9 +74,10 @@ def side_stream(device: torch.device) -> "torch.cuda.Stream":
 
 
 def refusal(device: torch.device, bdgcn_impl: str,
-            group=None) -> Optional[str]:
+            group=None, model_group=None) -> Optional[str]:
     """Why steps on ``device`` and ``bdgcn_impl`` (all-reducing their
-    gradients over the process ``group``, where one is given) run
+    gradients over the process ``group``, and gathering their layers'
+    inputs over ``model_group`` on a model axis, where one is given) run
     uncaptured, or None when they are captured."""
     if device.type != "cuda":
         return "cpu: CUDA graphs need the card"
@@ -82,35 +85,48 @@ def refusal(device: torch.device, bdgcn_impl: str,
         return ("bdgcn_impl=ell: the ELL forward and dX count their "
                 "Inf/NaN marks' generation on the host")
     if group is not None:
-        return _collective_refusal(device, group)
+        return _collective_refusal(device, group, model_group)
     return None
 
 
-def _collective_refusal(device: torch.device, group) -> Optional[str]:
-    """Capture one all-reduce over ``group`` into a throwaway graph: None
-    when it records, else why the step's all-reduce stays outside a
-    graph. (In a world of one rank NCCL enqueues no work for an in-place
-    all-reduce, so there the trial graph is empty: it shows only that the
-    call may run under capture.)"""
+def _collective_refusal(device: torch.device, group,
+                        model_group=None) -> Optional[str]:
+    """Capture one all-reduce over ``group`` (and, on a model axis, one
+    all-gather and one reduce-scatter over ``model_group``: the layers'
+    origin gather and its backward) into a throwaway graph: None when it
+    records, else why the step's collectives stay outside a graph. (In a
+    world of one rank NCCL enqueues no work for an in-place all-reduce, so
+    there the trial graph is empty: it shows only that the call may run
+    under capture.)"""
     import torch.distributed as dist
 
-    backend = dist.get_backend(group)
-    if backend != "nccl":
-        return (f"{backend}: its collectives run on the host, where a "
-                f"CUDA graph cannot capture them")
+    for g in (group, model_group):
+        if g is not None and dist.get_backend(g) != "nccl":
+            return (f"{dist.get_backend(g)}: its collectives run on the "
+                    f"host, where a CUDA graph cannot capture them")
     buf = torch.ones(8, device=device)
+    mp = dist.get_world_size(model_group) if model_group is not None else 1
+
+    def collectives():
+        dist.all_reduce(buf, group=group)
+        if model_group is not None:
+            reduce_scatter_blocks(all_gather_blocks(buf, model_group, mp),
+                                  model_group, mp)
+
     stream = side_stream(device)
     stream.wait_stream(torch.cuda.current_stream(device))
     try:
         with torch.cuda.stream(stream):
-            dist.all_reduce(buf, group=group)  # eager: the communicator
+            collectives()  # eager: the communicators
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, stream=stream):
-                dist.all_reduce(buf, group=group)
+                collectives()
             graph.replay()
         torch.cuda.synchronize(device)
     except RuntimeError as e:
-        return f"nccl: capturing an all_reduce failed ({e})"
+        what = ("an all_reduce" if model_group is None else
+                "an all_reduce, all_gather and reduce_scatter")
+        return f"nccl: capturing {what} failed ({e})"
     return None
 
 

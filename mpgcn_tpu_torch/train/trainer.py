@@ -309,6 +309,9 @@ class ModelTrainer:
     rank = 0
     process_group = None
     _row0 = 0
+    #: the process subgroup of this rank's model group (parallel/:
+    #: None where the model axis has one rank)
+    model_group = None
 
     def __init__(self, cfg: MPGCNConfig, data: dict, device="cuda",
                  lstm_impl: str = "kernel", bdgcn_impl: str = "auto",
@@ -379,7 +382,7 @@ class ModelTrainer:
         self._copy_stream = None
         self._stream_stats: dict = {}
         self.graph_refusal = refusal(self.device, self.bdgcn_impl,
-                                     self.process_group)
+                                     self.process_group, self.model_group)
         self._graphs = (None if self.graph_refusal else
                         GraphSet(self.device, self.bdgcn_impl))
         self._rollouts = (None if self._graphs is None else
@@ -552,11 +555,20 @@ class ModelTrainer:
         if pred.shape != y.shape:
             raise ValueError(f"prediction shape {tuple(pred.shape)} != "
                              f"target shape {tuple(y.shape)}")
-        per_sample = elementwise_loss(self.cfg.loss, pred, y).reshape(
-            pred.shape[0], -1).mean(dim=1)
+        per_sample = self._per_sample(elementwise_loss(self.cfg.loss,
+                                                       pred, y))
         if pos is None:
             pos = self._row0 + torch.arange(pred.shape[0], device=pred.device)
         return (per_sample * (pos < size).float()).sum()
+
+    def _per_sample(self, elems: torch.Tensor) -> torch.Tensor:
+        """(B,) per-sample means of a (B, ...) elementwise loss."""
+        return elems.reshape(elems.shape[0], -1).mean(dim=1)
+
+    def _real_origins(self, pred: torch.Tensor) -> torch.Tensor:
+        """A (B, T, N, N, F) forecast on its real origin rows: all of
+        them on one device."""
+        return pred
 
     def _batch_loss(self, x, y, keys, size,
                     inference: bool = False) -> torch.Tensor:
@@ -732,11 +744,18 @@ class ModelTrainer:
         sizes[-1] = n - (S - 1) * bs
         return idx, sizes
 
+    def _local_windows(self, a: np.ndarray, axis: int = 2) -> np.ndarray:
+        """``a``'s windows (origin nodes on ``axis``) as this process
+        holds them: all of them here (parallel/trainer.py: a model axis's
+        origin block)."""
+        return a
+
     def _mode_device_data(self, mode: str) -> tuple:
         """Device-resident (xs, ys, keys int64) of a mode."""
         md = self.pipeline.modes[mode]
-        return tuple(torch.from_numpy(np.array(a)).to(self.device)
-                     for a in (md.x, md.y, md.keys.astype(np.int64)))
+        return tuple(torch.from_numpy(np.array(a)).to(self.device) for a in (
+            self._local_windows(md.x), self._local_windows(md.y),
+            md.keys.astype(np.int64)))
 
     def _epoch_state(self, mode: str, B: Optional[int] = None) -> _Epoch:
         """The mode's executor state (B this process's rows a step, by
@@ -868,9 +887,10 @@ class ModelTrainer:
         if key not in self._epochs:
             md = self.pipeline.modes[mode]
             rows = spc * B
-            buffers = (torch.zeros((rows,) + md.x.shape[1:],
+            x, y = (self._local_windows(a[:0]) for a in (md.x, md.y))
+            buffers = (torch.zeros((rows,) + x.shape[1:],
                                    device=self.device),
-                       torch.zeros((rows,) + md.y.shape[1:],
+                       torch.zeros((rows,) + y.shape[1:],
                                    device=self.device),
                        torch.zeros((rows,), dtype=torch.long,
                                    device=self.device))
@@ -1191,7 +1211,7 @@ class ModelTrainer:
         pred = self.model(x, graphs_for(self.banks, keys,
                                         self.model.sources), inference=True,
                           dtype=infer_dtype_of(self.cfg))
-        return self._agree(bool((pred == 0).all()))
+        return self._agree(bool((self._real_origins(pred) == 0).all()))
 
     def _dead_init_msg(self, detail: str) -> str:
         return (f"dead initialization (seed {self.cfg.seed}): {detail} -- "

@@ -2480,3 +2480,117 @@ def test_devices_past_the_visible_cards_exit_before_spawning(cuda_device,
                                          f"{n - 1} visible"):
         cli.main(["-GPU", "0", "-devices", str(n), "-data", "npz", "-in",
                   str(tmp_path / "missing"), "-out", str(tmp_path)])
+
+
+# --- the model axis (node_shard.py, parallel/halo.py) ------------------------
+
+
+def test_gather_origins_and_a_one_rank_mesh_bdgcn_equal_unsharded(
+        cuda_device, tmp_path):
+    """On a one-rank NCCL group: the origin all-gather and its
+    reduce-scatter backward are the identity on the card, and a BDGCN
+    layer on the one-rank mesh's node shard (kernel arm) equals the
+    unsharded layer, forward and gradient, through K-BDGCN."""
+    import torch.distributed as dist
+
+    from mpgcn_tpu_torch.nn.bdgcn import BDGCN, bdgcn_apply
+    from mpgcn_tpu_torch.node_shard import _GatherOrigins
+    from mpgcn_tpu_torch.parallel import initialize, make_mesh, node_shard
+
+    K, B, N, C, H = 3, 2, 47, 32, 32
+    rng = np.random.default_rng(N)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+    X = t(rng.normal(size=(B, N, N, C)))
+    G = t(rng.random(size=(K, N, N)) / N)
+    layer = BDGCN(K, C, H, True, torch.Generator().manual_seed(0)).to(
+        cuda_device)
+    initialize(f"file://{tmp_path}/rendezvous", world_size=1, rank=0,
+               backend="nccl")
+    try:
+        x = X.clone().requires_grad_(True)
+        out = _GatherOrigins.apply(x, 1, dist.group.WORLD, 1)
+        assert torch.equal(out, X)
+        g = torch.randn_like(out)
+        out.backward(g)
+        assert torch.equal(x.grad, g)
+        shard = node_shard(make_mesh(device=cuda_device), N)
+        grads = []
+        for s in (shard, None):
+            layer.zero_grad()
+            x = X.clone().requires_grad_(True)
+            before = cuda_bdgcn.BDGCN_PAIR_FWD.launches
+            y = bdgcn_apply(layer, x, G, torch.relu, impl="kernel", shard=s)
+            assert cuda_bdgcn.BDGCN_PAIR_FWD.launches == before + 1
+            y.square().sum().backward()
+            grads.append((y.detach(), x.grad, layer.W.grad.clone()))
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_kernels_at_a_model_axis_ranks_shapes(cuda_device, dynamic):
+    """The shapes one rank of a reference step at mp = 2 gives the
+    kernels: the training LSTM pair on R = 4 * 24 * 47 = 4,512 sequences,
+    and K-BDGCN forward and backward on h1 of M = 24 origin rows of
+    N = 47, against their plain versions."""
+    K, B, M, N, C = 3, 4, 24, 47, 32
+    T, R = 7, B * M * N
+    rng = np.random.default_rng(M)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+    xp = t(rng.normal(size=(T, R, 4 * C)))
+    wl = t(rng.normal(size=(C, 4 * C)) / np.sqrt(C))
+    hs, cs = cuda_lstm.lstm_layer_train(xp, wl)
+    hp, cp = cuda_lstm.lstm_layer_train_plain(xp, wl)
+    torch.testing.assert_close(hs, hp, **KERNEL_TOL)
+    torch.testing.assert_close(cs, cp, **KERNEL_TOL)
+    dhs = t(rng.normal(size=(T, R, C)))
+    dxp, dwl = cuda_lstm.lstm_layer_bwd(xp, wl, hs, cs, dhs, None)
+    dxr, dwr = cuda_lstm.lstm_layer_bwd_plain(xp, wl, hs, cs, dhs, None)
+    torch.testing.assert_close(dxp, dxr, **KERNEL_TOL)
+    _close_scaled(dwl, dwr)
+    h1 = t(rng.normal(size=(K, B, M, N, C)))
+    g = t(rng.random((B if dynamic else 1, K, N, N)) / N * 2)
+    w = t(rng.normal(size=(K, K, C, C)) / np.sqrt(K * K * C))
+    dout = t(rng.normal(size=(B, M, N, C)))
+    before = (cuda_bdgcn.BDGCN_PAIR_FWD.launches,
+              cuda_bdgcn.BDGCN_PAIR_BWD.launches)
+    out = cuda_bdgcn.folded_pair_project(h1, g, w)
+    dh1, dW = cuda_bdgcn.folded_pair_project_bwd(h1, g, w, dout)
+    torch.cuda.synchronize()
+    assert (cuda_bdgcn.BDGCN_PAIR_FWD.launches,
+            cuda_bdgcn.BDGCN_PAIR_BWD.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    torch.testing.assert_close(out, cuda_bdgcn.folded_pair_project_plain(
+        h1, g, w), **KERNEL_TOL)
+    r1, rW = cuda_bdgcn.folded_pair_project_bwd_plain(h1, g, w, dout)
+    torch.testing.assert_close(dh1, r1, **KERNEL_TOL)
+    _close_scaled(dW, rW)
+
+
+def test_halo_spmm_with_one_shard_launches_the_ell_kernels(cuda_device):
+    """A halo plan of one shard (no exchange) on the ell local arm: the
+    forward launches ell_fwd, the backward ell_bwd_dx, and both equal the
+    dense product."""
+    from mpgcn_tpu_torch.parallel.halo import build_halo_plan, halo_spmm
+    from mpgcn_tpu_torch.sparse.formats import csr_from_dense
+
+    rng = np.random.default_rng(3)
+    K, N, F = 3, 64, 6
+    G = (rng.normal(size=(K, N, N))
+         * (rng.random((N, N)) < 0.1)).astype(np.float32)
+    plan = build_halo_plan(csr_from_dense(G), 1,
+                           local_impl="ell").to(cuda_device)
+    X = rng.normal(size=(N, F)).astype(np.float32)
+    x = torch.from_numpy(X).to(cuda_device).requires_grad_(True)
+    f0, b0 = cuda_ell.ELL_FWD.launches, cuda_ell.ELL_BWD_DX.launches
+    out = halo_spmm(plan, x, local_impl="ell")
+    out.square().sum().backward()
+    assert cuda_ell.ELL_FWD.launches > f0
+    assert cuda_ell.ELL_BWD_DX.launches > b0
+    ref = np.einsum("knm,mf->knf", G, X)
+    np.testing.assert_allclose(out.detach().cpu().numpy(), ref, **KERNEL_TOL)
+    np.testing.assert_allclose(x.grad.cpu().numpy(),
+                               2 * np.einsum("knm,knf->mf", G, ref),
+                               rtol=1e-4, atol=1e-4)
